@@ -1,0 +1,163 @@
+"""Device-resident dataset for one device.
+
+One-device counterpart of ``kmeans_tpu/parallel/sharding.py``
+(``ShardedDataset``, ``to_device``, ``choose_chunk_size``): the points and
+their per-row weights are placed on the device once and stay there for the
+whole fit.  When the data came from the host, the host copy is kept, which
+makes row sampling (Forgy seeding, empty-cluster resampling) a host draw
+with the same NumPy generators as the JAX package: the same seed picks the
+same rows in both.  No padding is needed: the torch passes take a short last
+chunk and the kernels mask their own ragged edge.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+#: Below this many (n * k) elements the whole dataset is one chunk.
+SINGLE_CHUNK_ELEMS = 1 << 26
+
+
+def choose_chunk_size(n: int, k: int, d: int) -> int:
+    """Rows per chunk of the plain torch pass: the chunk exists only to bound
+    the live (chunk, k) distance temporary.  One chunk when n * k is small,
+    else about 2^25 tile elements, at most 2^17 rows, a multiple of 8."""
+    if n * max(k, 1) <= SINGLE_CHUNK_ELEMS:
+        return int(max(128, -(-n // 8) * 8))
+    chunk = max(128, min(n, (1 << 25) // max(k, 1), 1 << 17))
+    return int(max(8, (chunk // 8) * 8))
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """torch dtype of a NumPy dtype (float32 or float64)."""
+    return {np.dtype(np.float32): torch.float32,
+            np.dtype(np.float64): torch.float64}[np.dtype(dtype)]
+
+
+def _validate_sample_weight(sample_weight, n: int, dtype) -> np.ndarray:
+    """Shape (n,), finite, non-negative; cast to the dataset dtype."""
+    sw = np.asarray(sample_weight, dtype=dtype)
+    if sw.shape != (n,):
+        raise ValueError(
+            f"sample_weight must have shape ({n},), got {sw.shape}")
+    if np.any(sw < 0) or not np.all(np.isfinite(sw)):
+        raise ValueError("sample_weight must be finite and >= 0")
+    return sw
+
+
+class Dataset:
+    """Points (n, D) and weights (n,) on one device, with an optional host
+    copy of both (``host_weights`` None means all ones)."""
+
+    def __init__(self, points: torch.Tensor, weights: torch.Tensor,
+                 host: Optional[np.ndarray] = None,
+                 host_weights: Optional[np.ndarray] = None):
+        self.points = points
+        self.weights = weights
+        self.n, self.d = points.shape
+        self._host = host
+        self._host_weights = host_weights
+
+    @property
+    def device(self) -> torch.device:
+        return self.points.device
+
+    @property
+    def dtype(self) -> np.dtype:
+        return np.dtype(str(self.points.dtype).replace("torch.", ""))
+
+    @property
+    def host(self) -> Optional[np.ndarray]:
+        """Host copy of the data, when the dataset was built from one."""
+        return self._host
+
+    @property
+    def host_weights(self) -> Optional[np.ndarray]:
+        return self._host_weights
+
+    def positive_rows(self) -> np.ndarray:
+        """Indices of rows with weight > 0: the candidates for seeding and
+        for empty-cluster resampling (a zero-weight row must never become a
+        centroid)."""
+        if self._host is not None:
+            if self._host_weights is None:
+                return np.arange(self.n)
+            return np.flatnonzero(self._host_weights > 0)
+        return torch.nonzero(self.weights > 0).flatten().cpu().numpy()
+
+    def take(self, idx) -> np.ndarray:
+        """Rows by index, as a host array."""
+        if self._host is not None:
+            return np.asarray(self._host[idx])
+        index = torch.as_tensor(np.asarray(idx), device=self.device)
+        return self.points[index].cpu().numpy()
+
+    def sample_positive_rows(self, m: int, seed_seq) -> np.ndarray:
+        """Up to ``m`` distinct positive-weight rows, uniformly, seeded by
+        ``seed_seq`` (entropy for ``np.random.default_rng``).
+
+        With a host copy this is the JAX package's host draw, row for row.
+        Without one the candidates are found on the device and drawn with a
+        ``torch.Generator`` seeded from ``seed_seq``: the same distribution,
+        deterministic for a seed, but other rows than the JAX package's
+        device-side draw would pick."""
+        if self._host is not None:
+            rng = np.random.default_rng(seed_seq)
+            candidates = self.positive_rows()
+            take = min(m, len(candidates))
+            idx = candidates[rng.choice(len(candidates), size=take,
+                                        replace=False)]
+            return self.take(idx)
+        seed = int(np.random.SeedSequence(seed_seq).generate_state(1)[0])
+        candidates = torch.nonzero(self.weights > 0).flatten()
+        take = min(m, candidates.numel())
+        if take == 0:
+            return np.empty((0, self.d))
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        pick = torch.randperm(candidates.numel(), generator=gen,
+                              device=self.device)[:take]
+        return self.points[candidates[pick]].cpu().numpy().astype(np.float64)
+
+
+def to_device(X, device: torch.device, dtype, sample_weight=None) -> Dataset:
+    """Place (n, D) data on ``device`` once; a :class:`Dataset` passes
+    through.  Host data (NumPy, lists) keeps its host copy; a tensor that
+    already lies on ``device`` is used as it is and no host copy is made.
+    ``sample_weight`` (n,) makes every statistic weighted."""
+    dtype = np.dtype(dtype)
+    tdtype = torch_dtype(dtype)
+    if isinstance(X, Dataset):
+        if X.device != device:
+            raise ValueError(f"Dataset is on {X.device}, model on {device}")
+        if X.dtype != dtype:
+            raise ValueError(f"Dataset dtype {X.dtype} != model dtype "
+                             f"{dtype}")
+        if sample_weight is not None:
+            raise ValueError("pass sample_weight when caching the dataset, "
+                             "not on a pre-built Dataset")
+        return X
+    if isinstance(X, torch.Tensor) and X.device == device:
+        host, shape = None, tuple(X.shape)
+    else:
+        if isinstance(X, torch.Tensor):
+            X = X.cpu().numpy()
+        host = np.ascontiguousarray(np.asarray(X, dtype=dtype))
+        shape = host.shape
+    if len(shape) != 2:
+        raise ValueError(f"X must be 2-D (n, D), got shape {shape}")
+    points = (X.to(tdtype).contiguous() if host is None
+              else torch.from_numpy(host).to(device))
+    if sample_weight is None:
+        sw = None
+        weights = torch.ones(shape[0], dtype=tdtype, device=device)
+    else:
+        if isinstance(sample_weight, torch.Tensor):
+            sample_weight = sample_weight.cpu().numpy()
+        sw = _validate_sample_weight(sample_weight, shape[0], dtype)
+        weights = torch.from_numpy(sw).to(device)
+    # Without a host copy, seeding and resampling read the device's weights.
+    return Dataset(points, weights, host=host,
+                   host_weights=sw if host is not None else None)
