@@ -2,11 +2,15 @@
 """Smoke run of kmeans_tpu_torch on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
 Builds the CUDA kernels from the sources in this checkout, holds each kernel
-against its plain PyTorch version on the card, drives the port's main path
-(``KMeans.fit`` then ``predict``, ``save`` and ``load``) at n = 2,097,152,
-D = 128, k = 1024 in float32 and at a ragged GloVe-like shape, shows by the
-launch counters that the path went through the kernels, and times each kernel
-beside its plain version, a library yardstick and its roofline bound.
+against its plain PyTorch version on the card, and drives three paths:
+``KMeans.fit`` then ``predict``, ``save`` and ``load`` at n = 2,097,152,
+D = 128, k = 1024 in float32; ``KMeans.fit`` at a ragged GloVe-like shape;
+and ``GaussianMixture.fit`` (k = 256, 'diag', internal KMeans init) then
+``predict``, ``predict_proba``, ``score_samples``, ``save`` and ``load`` at
+n = 2,097,152, D = 128, on blobs about 1e3 from the origin.  The launch
+counters show that each path went through its own kernels.  Each kernel is
+timed beside its plain version, a library yardstick and its roofline
+bound.
 
 Every phase prints one JSON line as it ends.  A phase that fails raises, so
 the run ends with a non-zero code and without the result line.  The last line
@@ -19,6 +23,7 @@ Needs one CUDA device and ``nvcc``; there is no CPU mode.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -26,6 +31,7 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 if not torch.cuda.is_available():
@@ -35,11 +41,14 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from kmeans_tpu_torch import KMeans  # noqa: E402
+from kmeans_tpu_torch import GaussianMixture, KMeans  # noqa: E402
 from kmeans_tpu_torch.data.synthetic import make_blobs_device  # noqa: E402
 from kmeans_tpu_torch.ops import _build  # noqa: E402
+from kmeans_tpu_torch.ops import estep_kernels as ek  # noqa: E402
 from kmeans_tpu_torch.ops import hopper_kernels as hk  # noqa: E402
 from kmeans_tpu_torch.parallel import distributed as dist  # noqa: E402
+from kmeans_tpu_torch.parallel.sharding import (EM_MAX_CHUNK,  # noqa: E402
+                                                weighted_mean)
 
 DEV = torch.device("cuda", 0)
 
@@ -47,6 +56,10 @@ DEV = torch.device("cuda", 0)
 MAIN = dict(n=2_097_152, d=128, k=1024, iters=5)
 SECOND = dict(n=400_000, d=100, k=3000, iters=3)
 PREDICT_ROWS = 262_144
+# The mixture path: the shape of the JAX package's own mixture record
+# (docs/PERFORMANCE.md, "The mixture family"), blobs about 1e3 from the
+# origin so that centering and moment precision are exercised.
+GMM = dict(n=2_097_152, d=128, k=256, iters=5, center_box=(990.0, 1010.0))
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates).
 PEAK_FP32_FLOPS = 67e12          # float32 outside the tensor cores
@@ -63,6 +76,16 @@ PEAK_BYTES_PER_S = 3.35e12       # HBM3
 #   sums    |a - b| <= 1e-5 max|b| + 1e-4 |b|
 #   counts  |a - b| <= 1e-5 |b|, and equal where all weights are 0 or 1
 MARGIN_RTOL = 1e-4
+# diag_estep against diag_estep_reference (both float32 on the card):
+#   rsum, s1, s2  |a - b| <= 1e-5 max|b| + 1e-4 |b|  (centered sums cancel
+#                 to near zero, hence the share of the largest entry)
+#   ll            |a - b| <= 1e-5 |b|
+#   and two runs of the kernel give the same bits.
+# The hard-init tables (inv_var = 1e6) are held on the rows outside the tie
+# band: x_c^2 a and 2 x_c b are of order 1e8 and cancel, so a row whose two
+# nearest means' float64 squared distances differ by less than
+# MARGIN_RTOL * (||x_c||^2 + max ||mu_c||^2) may go to either mean.
+ESTEP_RTOL, ESTEP_ATOL_SHARE, LL_RTOL = 1e-4, 1e-5, 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -227,7 +250,237 @@ def phase_kernels(x_main, c_main, x_second):
     return records
 
 
+# ------------------------------------------------------- the mixture's kernel
+
+
+def estep_tables(means_c, var, log_w):
+    """E-step tables (inv_var, log_det, log_weights) of a diagonal mixture."""
+    var = var.contiguous()
+    return (1.0 / var).contiguous(), torch.log(var).sum(1).contiguous(), \
+        log_w.contiguous()
+
+
+def clear_of_ties(x, shift, means_c, block=65536):
+    """Rows whose two nearest means are farther apart (float64) than the
+    tie band of the hard-init tables."""
+    mc = means_c.double()
+    out = torch.empty(x.shape[0], dtype=torch.bool, device=x.device)
+    for lo in range(0, x.shape[0], block):
+        xc = x[lo:lo + block].double() - shift.double()
+        d2 = torch.cdist(xc, mc) ** 2
+        two = d2.topk(2, dim=1, largest=False).values
+        scale = (xc * xc).sum(1) + (mc * mc).sum(1).max()
+        out[lo:lo + block] = (two[:, 1] - two[:, 0]) > MARGIN_RTOL * scale
+    return out
+
+
+def estep_case(name, x, w, shift, means_c, inv_var, log_det, log_w):
+    """diag_estep against its plain version on one set of inputs; raises on
+    any disagreement.  Returns the case's record."""
+    args = (x, w, shift, means_c, inv_var, log_det, log_w)
+    out = ek.diag_estep(*args)
+    again = ek.diag_estep(*args)
+    torch.cuda.synchronize()
+    ref = ek.diag_estep_reference(*args)
+    torch.cuda.synchronize()
+    rec = {"case": name, "n": x.shape[0], "d": x.shape[1],
+           "k": means_c.shape[0]}
+    for label, a, b in zip(("rsum", "s1", "s2"), out[:3], ref[:3]):
+        check(bool(torch.isfinite(a).all()), f"{name}: {label} not finite")
+        atol = ESTEP_ATOL_SHARE * float(b.abs().max())
+        check(close(a, b, ESTEP_RTOL, atol), f"{name}: {label} disagrees "
+                                             f"(max error {max_err(a, b)})")
+        rec[f"{label}_err"] = max_err(a, b)
+    check(close(out[3], ref[3], LL_RTOL, 0.0),
+          f"{name}: ll {float(out[3])} against {float(ref[3])}")
+    rec["ll_err"] = max_err(out[3], ref[3])
+    rec["ll"] = float(out[3])
+    check(abs(float(out[0].sum()) - float(w.sum()))
+          <= 1e-4 * float(w.sum()), f"{name}: rsum does not add up to sum w")
+    bitwise = all(a.view(torch.int32).equal(b.view(torch.int32))
+                  for a, b in zip(out, again))
+    check(bitwise, f"{name}: two runs of diag_estep are not bit-identical")
+    rec["bitwise_repeat"] = True
+    return rec
+
+
+def gmm_case(n, d, k, seed, *, spread=3.0, offset=0.0, hard=False,
+             spherical=False):
+    """Blobs, weights (a tenth 0), their weighted mean and the tables of a
+    mixture near them (or the hard-init tables)."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    centers = torch.randn((k, d), generator=gen, device=DEV) * spread + offset
+    y = torch.randint(0, k, (n,), generator=gen, device=DEV)
+    x = (centers[y] + torch.randn((n, d), generator=gen, device=DEV)
+         ).contiguous()
+    w = torch.rand((n,), generator=gen, device=DEV) + 0.5
+    w[::10] = 0.0                      # a tenth of the rows at weight 0
+    shift = weighted_mean(x, w).contiguous()
+    if hard:
+        means_c = (centers - shift).contiguous()
+        tables = (torch.full((k, d), 1e6, device=DEV),
+                  torch.zeros(k, device=DEV), torch.zeros(k, device=DEV))
+        w = torch.where(clear_of_ties(x, shift, means_c), w,
+                        torch.zeros_like(w))
+        return x, w, shift, means_c, *tables
+    means_c = (centers - shift + 0.3 * torch.randn(
+        (k, d), generator=gen, device=DEV)).contiguous()
+    var = torch.rand((k, 1 if spherical else d), generator=gen,
+                     device=DEV) + 0.5
+    log_w = torch.log_softmax(torch.randn(k, generator=gen, device=DEV), 0)
+    return (x, w, shift, means_c,
+            *estep_tables(means_c, var.expand(k, d), log_w))
+
+
+def phase_estep_kernel(x_gmm, gmm_tables):
+    records = [estep_case("gmm_main_shape", x_gmm,
+                          torch.ones(x_gmm.shape[0], device=DEV),
+                          *gmm_tables)]
+    cases = [
+        ("ragged_400000x100_k3000", dict(n=400_000, d=100, k=3000)),
+        ("tiny_d7_k5", dict(n=1000, d=7, k=5)),
+        ("tiny_many_tiles", dict(n=20_011, d=7, k=5)),
+        ("hard_init_tables", dict(n=50_000, d=64, k=32, hard=True)),
+        ("spherical", dict(n=30_000, d=40, k=70, spherical=True)),
+        # test_gmm_tpu.py's offset clusters: N(0, 25) + 1e3
+        ("offset_clusters", dict(n=50_000, d=64, k=32, spread=5.0,
+                                 offset=1e3)),
+    ]
+    for i, (name, kw) in enumerate(cases):
+        records.append(estep_case(name, *gmm_case(seed=300 + i, **kw)))
+    emit("estep_kernel", cases=records,
+         kernels=[{"name": "diag_estep", "ok": True}])
+    return records
+
+
+# ------------------------------------------------------------ the mixture path
+
+
+def phase_gmm(x_gmm):
+    """GaussianMixture fit, predict, predict_proba, score_samples, save,
+    load and predict again on the card, at full width."""
+    gm = GaussianMixture(n_components=GMM["k"], init_params="kmeans",
+                         max_iter=GMM["iters"], tol=0.0, seed=7)
+    bounds_seen = []
+    m_step = gm._m_step
+
+    def record(st):                    # the lower bound of every E-step
+        out = m_step(st)
+        bounds_seen.append(float(st.loglik) / out[0])
+        return out
+
+    gm._m_step = record
+    hk.reset_launch_counts()           # this path's own counts
+    t0 = time.perf_counter()
+    gm.fit(x_gmm)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    check(gm.estep_path_ == "kernel", f"E-step path {gm.estep_path_}")
+    check(gm.n_iter_ == GMM["iters"], f"{gm.n_iter_} EM iterations")
+    em = bounds_seen[1:]               # the hard-init pass first
+    check(len(em) == GMM["iters"] and all(np.isfinite(em)),
+          f"lower bounds {bounds_seen}")
+    check(all(b >= a - 1e-5 * abs(a) for a, b in zip(em, em[1:])),
+          f"the lower bound decreases: {em}")
+    cov = gm.covariances_
+    check(cov.shape == (GMM["k"], GMM["d"]) and bool(np.isfinite(cov).all()),
+          "covariances_ are not finite (k, D)")
+    median = float(np.median(cov))
+    check(0.5 < median < 2.0, f"median covariance {median}, blobs have 1")
+    check(float(cov.min()) > 0.1, f"a covariance collapsed: {cov.min()}")
+    check(abs(float(gm.weights_.sum()) - 1.0) < 1e-9, "weights_ sum")
+
+    rows = x_gmm[:PREDICT_ROWS]
+    labels = gm.predict(rows)
+    proba = gm.predict_proba(rows)
+    scores = gm.score_samples(rows)
+    check(labels.shape == (PREDICT_ROWS,) and labels.dtype == np.int32
+          and 0 <= labels.min() and labels.max() < GMM["k"],
+          "predict: labels out of range")
+    check(proba.shape == (PREDICT_ROWS, GMM["k"])
+          and np.allclose(proba.sum(1), 1.0, atol=1e-4),
+          "predict_proba: rows do not sum to 1")
+    check(bool((proba.argmax(1) == labels).all()),
+          "predict is not the argmax of predict_proba")
+    check(scores.shape == (PREDICT_ROWS,) and bool(np.isfinite(scores).all()),
+          "score_samples is not finite")
+    # Labels against a float64 posterior on a slice, outside the band where
+    # the two best log-densities are closer than float32 can tell.
+    sub = rows[:4096].double()
+    shift = torch.from_numpy(gm.shift_).to(DEV)
+    mc = torch.from_numpy(gm.means_).to(DEV) - shift
+    var = torch.from_numpy(np.maximum(cov, gm.reg_covar)).to(DEV)
+    logp = (torch.log(torch.from_numpy(gm.weights_).to(DEV))
+            - 0.5 * ((((sub - shift)[:, None, :] - mc[None]) ** 2
+                      / var[None]).sum(-1) + torch.log(var).sum(1)
+                     + GMM["d"] * math.log(2 * math.pi)))
+    top = logp.topk(2, dim=1).values
+    clear = ((top[:, 0] - top[:, 1]) > 1e-2).cpu().numpy()
+    want = logp.argmax(1).cpu().numpy()
+    check(bool((labels[:4096][clear] == want[clear]).all()),
+          "predict disagrees with a float64 posterior")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "gmm.npz"
+        gm.save(path)
+        loaded = GaussianMixture.load(path)
+        again = loaded.predict(rows)
+    check(loaded.device.type == "cuda", "the loaded mixture is not on cuda")
+    check(bool((again == labels).all()), "labels differ after save and load")
+    launches = check_path_launches("gmm")
+    check(launches["diag_estep"] == 1 + GMM["iters"],
+          f"diag_estep launched {launches['diag_estep']} times, not 1 hard "
+          f"init + {GMM['iters']} EM iterations")
+    emit("gmm", n=GMM["n"], d=GMM["d"], k=GMM["k"], iterations=gm.n_iter_,
+         lower_bounds=em, covariance_median=median,
+         covariance_min=float(cov.min()), covariance_max=float(cov.max()),
+         fit_seconds=fit_s,
+         seconds_per_iteration=statistics.median(gm.iter_times_),
+         predict_rows=PREDICT_ROWS, float64_label_rows=int(clear.sum()),
+         save_load_same_labels=True)
+    return gm, launches
+
+
+def phase_gmm_offset():
+    """The check the JAX package pins on its own hardware
+    (tests/test_gmm_tpu.py): clusters N(0, 25) + 1e3, means_init at the
+    true centers; every covariance near the true 1, lower bound < 0."""
+    rng = np.random.default_rng(0)
+    k, d, n = 32, 64, 50_000
+    centers = rng.normal(size=(k, d)) * 5 + 1e3
+    y = rng.integers(0, k, size=n)
+    X = (centers[y] + rng.normal(size=(n, d))).astype(np.float32)
+    gm = GaussianMixture(n_components=k, means_init=centers, max_iter=3,
+                         tol=0.0, seed=1).fit(X)
+    cov = gm.covariances_
+    check(float(cov.min()) > 0.5 and float(cov.max()) < 2.0,
+          f"offset clusters: covariances in [{cov.min()}, {cov.max()}]")
+    check(gm.lower_bound_ < 0, f"offset clusters: lower bound "
+                               f"{gm.lower_bound_} >= 0")
+    emit("gmm_offset", k=k, d=d, n=n, covariance_min=float(cov.min()),
+         covariance_max=float(cov.max()), lower_bound=gm.lower_bound_)
+
+
 # ------------------------------------------------------------------ the path
+
+
+#: The kernels that each path must launch at least once.
+PATH_KERNELS = {
+    "main": ("fused_assign_reduce", "hopper_assign"),
+    "glove_like": ("fused_assign_reduce", "hopper_assign"),
+    "gmm": ("diag_estep", "fused_assign_reduce"),
+}
+
+
+def check_path_launches(path: str) -> dict:
+    """Reads the counters just after a path: every kernel the path names
+    must have launched; kernels of other paths are not its business."""
+    launches = dict(hk.LAUNCHES)
+    missing = [name for name in PATH_KERNELS[path]
+               if launches.get(name, 0) <= 0]
+    check(not missing, f"kernels of the {path} path never launched: "
+                       f"{missing} (counts {launches})")
+    emit("launches", path=path, **launches)
+    return launches
 
 
 def sse_non_increasing(history) -> bool:
@@ -386,9 +639,97 @@ def phase_timing(x, c, errs, launches, iter_seconds):
     return rows
 
 
+def library_estep(x, w, shift, means_c, inv_var, log_det, log_w,
+                  chunk=EM_MAX_CHUNK):
+    """The yardstick: the E-step as cuBLAS and torch calls over chunks of
+    EM_MAX_CHUNK rows (TF32 off): addmm for logp, logsumexp and softmax,
+    one product r^T [x_c, x_c^2]."""
+    coef, c1 = ek.estep_coefficients(means_c, inv_var, log_det, log_w)
+    k, d = means_c.shape
+    rsum = torch.zeros(k, device=DEV)
+    mom = torch.zeros((k, 2 * d), device=DEV)
+    ll = torch.zeros((), device=DEV)
+    for lo in range(0, x.shape[0], chunk):
+        xc = x[lo:lo + chunk] - shift
+        f = torch.cat([xc, xc * xc], dim=1)
+        logp = torch.addmm(c1, f, coef.T)
+        wc = w[lo:lo + chunk]
+        r = torch.softmax(logp, dim=1) * wc[:, None]
+        rsum += r.sum(0)
+        mom += r.T @ f
+        ll += (wc * torch.logsumexp(logp, dim=1)).sum()
+    return rsum, mom[:, :d], mom[:, d:], ll
+
+
+def estep_bounds(n, d, k):
+    """(bound ms, what bounds it, bytes, operations) of diag_estep: each
+    input read once, each output written once; the operations are the two
+    depth-2D products (8 n k D), the softmax (max, subtract, exp, scale,
+    sum: 5 n k) and the centering and squares (2 n D)."""
+    byt = 4 * (n * d + n + d + 2 * k * d + 2 * k) + 4 * (k * (2 * d + 1) + 1)
+    ops = 8 * n * k * d + 5 * n * k + 2 * n * d
+    t_bytes = byt / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes
+                                 else "bytes"), byt, ops
+
+
+def host_ms(fn, runs=5) -> float:
+    """Median host wall time of a call that ends on the host."""
+    fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_gmm_timing(x, tables, gm, err, launches):
+    n, d = x.shape
+    k = tables[1].shape[0]
+    w = torch.ones(n, device=DEV)
+    args = (x, w, *tables)
+    bound_ms, by, byt, ops = estep_bounds(n, d, k)
+    ms = median_ms(lambda: ek.diag_estep(*args))
+    plain = median_ms(lambda: ek.diag_estep_reference(*args))
+    library = median_ms(lambda: library_estep(*args))
+    row = {"name": "diag_estep", "route": "cuda",
+           "source": "kmeans_tpu_torch/csrc/gmm_estep.cu",
+           "replaces": "experiments/exp_gmm_estep_pallas.py:139",
+           "launches": launches["diag_estep"], "max_abs_err": err,
+           "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+           "bound_by": by, "library_ms": library}
+    emit("timing", kernel="diag_estep", n=n, d=d, k=k, kernel_ms=ms,
+         plain_ms=plain, library_ms=library, bound_ms=bound_ms, bound_by=by,
+         bytes=byt, operations=ops, roofline_share=bound_ms / ms)
+    # One EM iteration of the fit, in its parts: the tables' upload, the
+    # E-step on the device, the statistics' download and the float64
+    # M-step on the host.
+    ds = gm._dataset(x)
+    step = lambda: ek.diag_estep(ds.points, ds.weights,  # noqa: E731
+                                 *gm._params_dev())
+    st = step()
+    on_host = gm._host(st)
+    emit("timing", what="one EM iteration of the mixture fit",
+         seconds_per_iteration=statistics.median(gm.iter_times_),
+         estep_ms=median_ms(step),
+         tables_upload_ms=host_ms(lambda: gm._params_dev()),
+         stats_download_ms=host_ms(lambda: gm._host(st)),
+         m_step_ms=host_ms(lambda: gm._m_step(on_host)),
+         n=n, d=d, k=k)
+    return row
+
+
 def main() -> None:
     global CARD
+    started = time.perf_counter()
     CARD = card_line()
+    # Full float32 products in every torch matmul of the run (the default,
+    # stated): the plain versions and yardsticks must not use TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     emit("env", device=torch.cuda.get_device_name(0),
          torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0])
@@ -418,25 +759,40 @@ def main() -> None:
                                        main_rec["counts_err"]),
             "hopper_assign": main_rec["assign_mind2_err"]}
 
-    # Each path: counters to 0 just before (in fit_shape), read just after.
-    # The main path is fit, predict, save, load and predict again.
+    # Each path: counters to 0 just before it, read just after it, and only
+    # the kernels that this path must launch are checked.
     km = fit_shape(x_main, MAIN, "main")
     phase_predict(km, x_main)
-    launches = dict(hk.LAUNCHES)
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel of the main path was never launched: {launches}")
-    emit("launches", path="main", **launches)
+    launches = check_path_launches("main")
 
     fit_shape(x2, SECOND, "glove_like")
-    second = dict(hk.LAUNCHES)
+    check_path_launches("glove_like")
     del x2
-    check(all(v > 0 for v in second.values()),
-          f"a kernel of the second path was never launched: {second}")
-    emit("launches", path="glove_like", **second)
+
+    # The mixture: its kernel against the plain version, then its path.
+    x_gmm, _ = make_blobs_device(GMM["n"], GMM["k"], GMM["d"], device=DEV,
+                                 seed=21, center_box=GMM["center_box"])
+    gen = torch.Generator(device=DEV).manual_seed(22)
+    pick = torch.randperm(GMM["n"], generator=gen, device=DEV)[:GMM["k"]]
+    shift = weighted_mean(x_gmm, torch.ones(GMM["n"], device=DEV))
+    means_c = (x_gmm[pick] - shift).contiguous()
+    var = torch.rand((GMM["k"], GMM["d"]), generator=gen, device=DEV) + 0.5
+    log_w = torch.full((GMM["k"],), -math.log(GMM["k"]), device=DEV)
+    gmm_tables = (shift.contiguous(), means_c,
+                  *estep_tables(means_c, var, log_w))
+    estep_records = phase_estep_kernel(x_gmm, gmm_tables)
+    gmm_main = estep_records[0]
+    gm, gmm_launches = phase_gmm(x_gmm)
+    phase_gmm_offset()
 
     rows = phase_timing(x_main, c_main, errs, launches,
                         statistics.median(km.iter_times_))
+    rows.append(phase_gmm_timing(
+        x_gmm, gmm_tables, gm,
+        max(gmm_main[f"{s}_err"] for s in ("rsum", "s1", "s2", "ll")),
+        gmm_launches))
 
+    emit("total", seconds=time.perf_counter() - started)
     print(json.dumps({"kernels": rows}), flush=True)
     print(CARD, flush=True)
     print(json.dumps({"ok": True, "device": {

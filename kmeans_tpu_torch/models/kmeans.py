@@ -73,12 +73,18 @@ _LATER_ARGS = {
 
 
 class NumericalDivergenceError(ValueError):
-    """The fit's centroids went non-finite.  Carries ``iteration``."""
+    """The fit went non-finite.  Carries ``iteration`` and ``quantity``
+    ('centroids' | 'log-likelihood'), with the JAX package's messages."""
 
-    def __init__(self, iteration: int):
+    _PHRASE = {
+        "centroids": "NaN or Inf detected in centroids at iteration {i}",
+        "log-likelihood": "non-finite log-likelihood at EM iteration {i}",
+    }
+
+    def __init__(self, iteration: int, quantity: str = "centroids"):
         self.iteration = int(iteration)
-        super().__init__(
-            f"NaN or Inf detected in centroids at iteration {iteration}")
+        self.quantity = quantity
+        super().__init__(self._PHRASE[quantity].format(i=iteration))
 
 
 def _later(name: str, value, item: str) -> NotImplementedError:

@@ -27,6 +27,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
+#: Kernel launches so far, by kernel name, for every kernel module of the
+#: package (each adds its names at import).  A wrapper adds one where it
+#: launches its kernel and nowhere else.
+LAUNCHES: Dict[str, int] = {}
+
+
+def reset_launch_counts() -> None:
+    """Set the count of every kernel of the package to 0."""
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
 
 class KernelCompileError(RuntimeError):
     """``nvcc`` is missing or refused a source; carries its output."""

@@ -39,9 +39,11 @@ import torch
 
 from kmeans_tpu_torch.ops import _build
 
-#: Kernel launches so far, by kernel name.  A wrapper adds one where it
-#: launches its kernel and nowhere else.
-LAUNCHES: Dict[str, int] = {"fused_assign_reduce": 0, "hopper_assign": 0}
+#: Kernel launches so far, by kernel name: the package's one table
+#: (``_build.LAUNCHES``), shared with the other kernel modules.
+LAUNCHES: Dict[str, int] = _build.LAUNCHES
+LAUNCHES.update(fused_assign_reduce=0, hopper_assign=0)
+reset_launch_counts = _build.reset_launch_counts
 
 _LIB_NAME = "assign_kernels"
 _TILE_ROWS = 128                  # rows of a block's tile (BM in the source)
@@ -50,11 +52,6 @@ _BLOCKS_PER_SM = 2                # persistent blocks resident on each SM
 #: blocks * k * (D + 1) floats would exceed it.
 _PARTIAL_BUDGET_BYTES = 2 << 30
 _REF_TILE_ELEMS = 1 << 24         # (rows, k) scores a plain version holds
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -71,7 +68,10 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check(points: torch.Tensor, centroids: torch.Tensor,
-           weights: Optional[torch.Tensor], bf16: bool) -> None:
+           weights: Optional[torch.Tensor], bf16: bool,
+           dtypes=(torch.float32,)) -> None:
+    """Shapes, types, devices and layout the kernels take; raises on any
+    other.  ``dtypes`` widens the type for a plain version."""
     if bf16:
         raise NotImplementedError(
             "bf16=True (bf16 products, float32 accumulation) is not ported "
@@ -94,8 +94,11 @@ def _check(points: torch.Tensor, centroids: torch.Tensor,
                 f"{tuple(weights.shape)}")
         tensors.append(("weights", weights))
     for name, t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype not in dtypes or t.dtype != points.dtype:
+            raise TypeError(
+                f"{name} must be "
+                f"{' or '.join(str(d).replace('torch.', '') for d in dtypes)}"
+                f" like points, got {t.dtype}")
         if t.device != points.device:
             raise ValueError(
                 f"{name} is on {t.device}, points on {points.device}")

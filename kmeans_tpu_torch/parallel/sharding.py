@@ -161,3 +161,34 @@ def to_device(X, device: torch.device, dtype, sample_weight=None) -> Dataset:
     # Without a host copy, seeding and resampling read the device's weights.
     return Dataset(points, weights, host=host,
                    host_weights=sw if host is not None else None)
+
+
+# ------------------------------------------------------------ the EM pass
+
+#: Element budget of the (chunk, k) log-density tile of the plain EM pass,
+#: and its row cap: the JAX package's ``EM_CHUNK_BUDGET`` and
+#: ``EM_MAX_CHUNK`` (``models/gmm.py``).
+EM_CHUNK_BUDGET = 1 << 23
+EM_MAX_CHUNK = 32768
+
+
+def choose_em_chunk(n: int, k: int) -> int:
+    """Rows per chunk of the plain torch E pass and of the predict pass:
+    a (chunk, k) tile of at most ``EM_CHUNK_BUDGET`` elements, at most
+    ``EM_MAX_CHUNK`` and at least 128 rows, a multiple of 8."""
+    chunk = max(128, min(max(n, 1), EM_CHUNK_BUDGET // max(k, 1),
+                         EM_MAX_CHUNK))
+    return int(chunk // 8 * 8)
+
+
+def weighted_mean(points: torch.Tensor, weights: torch.Tensor
+                  ) -> torch.Tensor:
+    """The mixture's centering shift, the JAX package's ``_mean_jit``:
+    ``(w @ x) / max(sum w, tiny)`` over the points rounded to float32, in
+    the weights' dtype, with the total weight summed in float32.  The guard
+    is float32's ``tiny``, not 1.0: clamping at 1.0 would scale the shift
+    down whenever the total weight is below 1."""
+    x = points.to(torch.float32).to(weights.dtype)
+    total = torch.clamp_min(weights.to(torch.float32).sum(),
+                            torch.finfo(torch.float32).tiny)
+    return (weights @ x) / total

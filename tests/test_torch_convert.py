@@ -173,3 +173,102 @@ def test_corrupt_and_missing_files(tmp_path):
         pt_ckpt.load_state(tmp_path / "plain.npz")
     with pytest.raises(FileNotFoundError):
         pt_ckpt.load_state(tmp_path / "absent.npz")
+
+
+# ------------------------------------------------------------ GaussianMixture
+
+
+def _gmm_data(dtype=np.float64):
+    X = _blobs(n=900, d=4, centers=3, seed=4, dtype=dtype)
+    rng = np.random.default_rng(2)
+    means = X[rng.choice(len(X), 3, replace=False)].astype(np.float64)
+    return X, dict(n_components=3, max_iter=6, tol=0.0, means_init=means,
+                   weights_init=np.full(3, 1 / 3))
+
+
+def _fit_jax_gmm(cov_type, dtype):
+    X, kw = _gmm_data(dtype)
+    prec = np.ones((3, 4)) if cov_type == "diag" else np.ones(3)
+    return kmeans_tpu.GaussianMixture(covariance_type=cov_type, dtype=dtype,
+                                      precisions_init=prec, **kw).fit(X), X
+
+
+def _same_gmm(a, b, X):
+    for name in ("weights_", "means_", "covariances_", "shift_"):
+        np.testing.assert_array_equal(np.asarray(getattr(a, name)),
+                                      np.asarray(getattr(b, name)))
+    assert (a.n_iter_, a.converged_, a.lower_bound_) == \
+        (b.n_iter_, b.converged_, b.lower_bound_)
+    np.testing.assert_array_equal(np.asarray(a.predict(X)),
+                                  np.asarray(b.predict(X)))
+    np.testing.assert_allclose(np.asarray(a.score_samples(X)),
+                               np.asarray(b.score_samples(X)), rtol=1e-5)
+
+
+@pytest.mark.parametrize("cov_type", ["diag", "spherical"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_gmm_npz_saved_by_jax_loads_in_the_port(tmp_path, cov_type, dtype):
+    jm, X = _fit_jax_gmm(cov_type, dtype)
+    jm.save(tmp_path / "gmm_jax.npz")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")      # nothing to drop: no warning
+        pm = kmeans_tpu_torch.GaussianMixture.load(tmp_path / "gmm_jax.npz",
+                                                   device="cpu")
+    assert pm.covariance_type == cov_type and pm.dtype == np.dtype(dtype)
+    np.testing.assert_array_equal(pm.means_init, jm.means_init)
+    _same_gmm(pm, jm, X)
+
+
+@pytest.mark.parametrize("cov_type", ["diag", "spherical"])
+def test_gmm_npz_saved_by_the_port_loads_in_jax(tmp_path, cov_type):
+    X, kw = _gmm_data()
+    pm = kmeans_tpu_torch.GaussianMixture(
+        covariance_type=cov_type, dtype=np.float64, device="cpu",
+        n_init=1, **kw).fit(X)
+    path = tmp_path / "gmm_port"             # '.npz' is appended
+    pm.save(path)
+    jm = kmeans_tpu.GaussianMixture.load(path)
+    assert jm.host_loop is True and jm.model_shards == 1
+    _same_gmm(jm, pm, X)
+    back = kmeans_tpu_torch.GaussianMixture.load(path, device="cpu")
+    _same_gmm(back, pm, X)
+    np.testing.assert_array_equal(back.weights_init, kw["weights_init"])
+
+
+def test_gmm_state_dispatch_and_dropped_arguments():
+    jm, X = _fit_jax_gmm("diag", np.float64)
+    state = jm._state_dict()
+    pm = convert.from_jax_state(state, device="cpu")
+    assert isinstance(pm, kmeans_tpu_torch.GaussianMixture)
+    _same_gmm(pm, jm, X)
+    back = convert.to_jax_state(pm)
+    assert back["model_class"] == "GaussianMixture"
+    assert back["host_loop"] is True and back["model_shards"] == 1
+    # The JAX package's device-loop tables and loop options: the tables are
+    # read as absent, the options dropped with one warning.
+    state.update(host_loop=False, pipeline=1,
+                 dev_means_c=np.zeros((3, 4)), dev_cov=np.ones((3, 4)),
+                 dev_log_w=np.zeros(3), dev_prev_ll=0.0,
+                 dev_cov_type="diag")
+    with pytest.warns(UserWarning) as caught:
+        again = convert.from_jax_state(state, device="cpu")
+    assert len(caught) == 1
+    assert "host_loop" in str(caught[0].message)
+    assert not any(name.startswith("dev_") for name in vars(again))
+    _same_gmm(again, jm, X)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        convert.from_jax_state({"model_class": "BisectingKMeans"},
+                               device="cpu")
+
+
+def test_unfitted_gmm_round_trips(tmp_path):
+    pm = kmeans_tpu_torch.GaussianMixture(n_components=2, device="cpu",
+                                          covariance_type="spherical")
+    pm.save(tmp_path / "empty.npz")
+    back = kmeans_tpu_torch.GaussianMixture.load(tmp_path / "empty.npz",
+                                                 device="cpu")
+    assert back.means_ is None and back.covariance_type == "spherical"
+    jm = kmeans_tpu.GaussianMixture.load(tmp_path / "empty.npz")
+    assert jm.means_ is None and jm.n_components == 2
+    with pytest.raises(ValueError, match="fitted"):
+        back.predict(np.zeros((3, 2), np.float32))

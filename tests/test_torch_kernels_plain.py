@@ -221,3 +221,85 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(fn):
         call(_t(X).T.contiguous().T, _t(w), _t(C))     # not contiguous
     with pytest.raises(ValueError):
         call(_t(X)[0], _t(w), _t(C))                   # 1-D points
+
+
+# ------------------------------------------------- the fused GMM E-step kernel
+#
+# ``diag_estep_reference`` (kmeans_tpu_torch.ops.estep_kernels), the plain
+# version that the CUDA kernel ``diag_estep`` is held to on the card, against
+# the TPU kernel it stands for, ``pallas_estep`` of
+# experiments/exp_gmm_estep_pallas.py, run in interpret mode.  Both sides
+# float32, summed in another order.  Tolerances: rsum, s1 and s2
+# ``rtol=1e-4`` plus 1e-5 of the largest entry (centered sums cancel to near
+# zero); ll ``rtol=1e-5``.  The hard tables are held on the rows outside the
+# tie band (tests/test_torch_gmm_step.py says why).
+
+import importlib.util  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+from kmeans_tpu_torch.ops import estep_kernels as ek  # noqa: E402
+from test_torch_gmm_step import clear_of_ties, make_case  # noqa: E402
+
+
+def _load_pallas_estep():
+    path = (Path(__file__).resolve().parent.parent / "experiments"
+            / "exp_gmm_estep_pallas.py")
+    spec = importlib.util.spec_from_file_location("exp_gmm_estep_pallas",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.pallas_estep
+
+
+_PALLAS_ESTEP = []
+
+
+def _pallas_estep(*args):
+    """The TPU kernel with 64-bit types off inside the call, as the JAX
+    package's own hardware tests run its float32 kernels
+    (tests/test_pallas_tpu.py): under x64 its ``D log 2pi`` constant would
+    promote ``c1`` to float64 and the float32 output block refuses it."""
+    import jax
+    if not _PALLAS_ESTEP:
+        _PALLAS_ESTEP.append(_load_pallas_estep())
+    with jax.enable_x64(False):
+        return [np.asarray(a)
+                for a in _PALLAS_ESTEP[0](*args, interpret=True)]
+
+
+@pytest.mark.parametrize("hard", [False, True], ids=["soft", "hard"])
+@pytest.mark.parametrize("n,d,k", [(1037, 7, 5), (1037, 100, 64),
+                                   (777, 7, 64), (777, 100, 5)])
+def test_estep_reference_matches_pallas_estep(n, d, k, hard):
+    X, w, shift, mc, iv, ld, lw = make_case(n, d, k, seed=n * k + d,
+                                            hard=hard, dtype=np.float32)
+    if hard:
+        w = np.where(clear_of_ties(X, shift, mc), w, 0).astype(np.float32)
+        assert (w > 0).mean() > 0.8
+    args = (X, w, shift, mc, iv, ld, lw)
+    ref = _pallas_estep(*args)
+    got = [a.numpy() for a in ek.diag_estep_reference(*(_t(a)
+                                                         for a in args))]
+    assert got[1].dtype == np.float32 and got[1].shape == (k, d)
+    for a, b in zip(got[:3], ref[:3]):
+        np.testing.assert_allclose(a, b, rtol=1e-4,
+                                   atol=1e-5 * float(np.abs(b).max()))
+    np.testing.assert_allclose(got[3], ref[3], rtol=1e-5)
+
+
+def test_estep_wrapper_refuses_what_the_kernel_does_not_take():
+    args = [_t(a) for a in make_case(64, 8, 5, seed=1, dtype=np.float32)]
+    with pytest.raises(TypeError):
+        ek.diag_estep(args[0].double(), *args[1:])
+    with pytest.raises(TypeError):                     # float64 elsewhere
+        ek.diag_estep(*args[:4], args[4].double(), *args[5:])
+    with pytest.raises(ValueError):
+        ek.diag_estep(args[0], args[1], args[2][:4], *args[3:])
+    with pytest.raises(ValueError):
+        ek.diag_estep(*args[:4], args[4].T.contiguous().T, *args[5:])
+    with pytest.raises(ValueError):
+        ek.diag_estep(args[0], args[1][:10], *args[2:])
+    with pytest.raises(ValueError):
+        ek.diag_estep(args[0][:, :4], *args[1:])
+    # The plain version also takes float64, all inputs alike.
+    ek.diag_estep_reference(*(a.double() for a in args))

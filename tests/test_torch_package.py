@@ -23,10 +23,13 @@ PORT_FILES = sorted((ROOT / "kmeans_tpu_torch").rglob("*.py")) \
 
 MODULES = ["kmeans_tpu_torch", "kmeans_tpu_torch.convert",
            "kmeans_tpu_torch.data.synthetic",
+           "kmeans_tpu_torch.models.gmm",
            "kmeans_tpu_torch.models.init", "kmeans_tpu_torch.models.kmeans",
            "kmeans_tpu_torch.ops._build", "kmeans_tpu_torch.ops.assign",
+           "kmeans_tpu_torch.ops.estep_kernels",
            "kmeans_tpu_torch.ops.hopper_kernels",
            "kmeans_tpu_torch.parallel.distributed",
+           "kmeans_tpu_torch.parallel.gmm_step",
            "kmeans_tpu_torch.parallel.sharding",
            "kmeans_tpu_torch.utils.checkpoint",
            "kmeans_tpu_torch.utils.logging",
@@ -41,6 +44,7 @@ def test_fresh_interpreter_loads_neither_jax_nor_kmeans_tpu():
                          capture_output=True, text=True, check=True).stdout
     loaded = out.split()
     assert "kmeans_tpu_torch.models.kmeans" in loaded and "torch" in loaded
+    assert "kmeans_tpu_torch.ops.estep_kernels" in loaded
     bad = [m for m in loaded
            if m == "jax" or m.startswith(("jax.", "jaxlib"))
            or m == "kmeans_tpu" or m.startswith("kmeans_tpu.")]
@@ -74,10 +78,13 @@ def test_every_module_is_listed():
 
 
 def test_exports():
-    assert kmeans_tpu_torch.__all__ == ["KMeans", "__version__"]
+    assert kmeans_tpu_torch.__all__ == ["GaussianMixture", "KMeans",
+                                        "__version__"]
     assert isinstance(kmeans_tpu_torch.__version__, str)
     assert kmeans_tpu_torch.KMeans.__module__ == \
         "kmeans_tpu_torch.models.kmeans"
+    assert kmeans_tpu_torch.GaussianMixture.__module__ == \
+        "kmeans_tpu_torch.models.gmm"
 
 
 def test_default_device_is_the_card_and_raises_without_one(tmp_path):
@@ -110,18 +117,33 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     km = kmeans_tpu_torch.KMeans(k=11, device="cpu", distance_mode="kernel",
                                  verbose=False, max_iter=3).fit(x.numpy())
     km.predict(x.numpy())
-    assert hk.LAUNCHES == {"fused_assign_reduce": 0, "hopper_assign": 0}
+    gm = kmeans_tpu_torch.GaussianMixture(n_components=4, device="cpu",
+                                          max_iter=3).fit(x.numpy())
+    gm.predict(x.numpy())
+    assert gm.estep_path_ == "serial"
+    # One table for every kernel of the package, and no launch on the CPU.
+    assert hk.LAUNCHES is _build.LAUNCHES
+    assert hk.LAUNCHES == {"fused_assign_reduce": 0, "hopper_assign": 0,
+                           "diag_estep": 0}
+    hk.LAUNCHES["diag_estep"] = 5
+    hk.reset_launch_counts()
+    assert set(hk.LAUNCHES.values()) == {0}
 
 
 def test_kernel_sources_ship_with_the_package():
-    assert _build.source_names() == ["assign_kernels"]
+    assert _build.source_names() == ["assign_kernels", "gmm_estep"]
     src = (_build.CSRC_DIR / "assign_kernels.cu").read_text()
     for name in ("kmeans_assign_launch", "kmeans_fused_assign_reduce_launch",
                  "assign_kernel", "fused_assign_reduce_kernel",
                  "reduce_partials_kernel", "pallas_kernels.py"):
         assert name in src
+    gmm = (_build.CSRC_DIR / "gmm_estep.cu").read_text()
+    for name in ("gmm_diag_estep_launch", "estep_kernel",
+                 "estep_tables_kernel", "estep_reduce_kernel",
+                 "exp_gmm_estep_pallas.py"):
+        assert name in gmm
     for banned in ("cublas", "cutlass", "torch/extension.h"):
-        assert banned not in src.lower()
+        assert banned not in src.lower() and banned not in gmm.lower()
     lib = _build.library_path("assign_kernels")
     assert lib.parent == _build.BUILD_DIR and lib.suffix == ".so"
     assert re.fullmatch(r"libassign_kernels_[0-9a-f]{16}\.so", lib.name)
