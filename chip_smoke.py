@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
 """Smoke run of kmeans_tpu_torch on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
-Builds the CUDA kernels from the sources in this checkout, holds each kernel
-against its plain PyTorch version on the card, and drives three paths:
-``KMeans.fit`` then ``predict``, ``save`` and ``load`` at n = 2,097,152,
-D = 128, k = 1024 in float32; ``KMeans.fit`` at a ragged GloVe-like shape;
-and ``GaussianMixture.fit`` (k = 256, 'diag', internal KMeans init) then
+Builds the CUDA kernels from the sources in this checkout (and four
+compile-time variants of the K-Means kernel for the variant lab, all with
+one ``nvcc`` each, started together), holds each kernel against its plain
+PyTorch version on the card, and drives five paths: ``KMeans.fit`` then
+``predict``, ``save`` and ``load`` at n = 2,097,152, D = 128, k = 1024 in
+float32; the same with ``distance_mode='pallas_bf16'`` (the bf16
+tensor-core kernels) plus ``score``; ``KMeans.fit`` at a ragged GloVe-like
+shape; ``GaussianMixture.fit`` (k = 256, 'diag', internal KMeans init) then
 ``predict``, ``predict_proba``, ``score_samples``, ``save`` and ``load`` at
-n = 2,097,152, D = 128, on blobs about 1e3 from the origin.  The launch
-counters show that each path went through its own kernels.  Each kernel is
-timed beside its plain version, a library yardstick and its roofline
-bound.
+n = 2,097,152, D = 128, on blobs about 1e3 from the origin; and the variant
+lab (``kmeans_tpu_torch.experiments.exp_pallas_kernel``) at the main shape.
+The launch counters show that each path went through its own kernels.  Each
+kernel is timed beside its plain version, a library yardstick and its
+roofline bound.
 
 Every phase prints one JSON line as it ends.  A phase that fails raises, so
 the run ends with a non-zero code and without the result line.  The last line
@@ -24,6 +28,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -43,7 +48,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from kmeans_tpu_torch import GaussianMixture, KMeans  # noqa: E402
 from kmeans_tpu_torch.data.synthetic import make_blobs_device  # noqa: E402
+from kmeans_tpu_torch.experiments import exp_pallas_kernel as lab  # noqa: E402
+from kmeans_tpu_torch.models.kmeans import _FORMAT_MODES  # noqa: E402
 from kmeans_tpu_torch.ops import _build  # noqa: E402
+from kmeans_tpu_torch.ops import compare as cmp  # noqa: E402
 from kmeans_tpu_torch.ops import estep_kernels as ek  # noqa: E402
 from kmeans_tpu_torch.ops import hopper_kernels as hk  # noqa: E402
 from kmeans_tpu_torch.parallel import distributed as dist  # noqa: E402
@@ -63,19 +71,33 @@ GMM = dict(n=2_097_152, d=128, k=256, iters=5, center_box=(990.0, 1010.0))
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates).
 PEAK_FP32_FLOPS = 67e12          # float32 outside the tensor cores
-PEAK_BF16_FLOPS = 989e12         # bf16 tensor cores (for the later variant)
+PEAK_BF16_FLOPS = 989e12         # bf16 tensor cores
 PEAK_BYTES_PER_S = 3.35e12       # HBM3
 
-# Tolerances, kernel against plain version (both float32 on the card, sums
-# taken in another order):
-#   labels  equal, or the two centroids' float64 distances to the row differ
-#           by at most MARGIN_RTOL * (||x||^2 + max ||c||^2)
+# The variant lab's phase: four variants at the main shape, T iterations.
+LAB_ITERS = 5
+LAB_SPECS = ("f32_default=128,128,p", "f32_k64=128,64,p",
+             "bf16_default=128,128,pb", "bf16_n64=64,128,pb")
+
+# Tolerances, kernel against plain version: those of
+# kmeans_tpu_torch/ops/compare.py, which says why (the variant lab checks its
+# builds with the same module):
+#   labels  equal outside MARGIN_RTOL * (||x||^2 + max ||c||^2) on the
+#           float64 difference of the two centroids' distances (bf16: of the
+#           scores from the bf16-rounded inputs)
 #   mind2   |a - b| <= max(1e-4, 1e-6 S) + 1e-4 |b|, S = max ||x||^2 +
-#           max ||c||^2: the expanded form cancels, so its absolute error
-#           grows with the norms
+#           max ||c||^2
 #   sums    |a - b| <= 1e-5 max|b| + 1e-4 |b|
 #   counts  |a - b| <= 1e-5 |b|, and equal where all weights are 0 or 1
-MARGIN_RTOL = 1e-4
+# The bf16 kernels are held to their bf16 plain versions with the same
+# tolerances.
+MARGIN_RTOL = cmp.MARGIN_RTOL
+# The SSE history of a bf16 fit may rise by this share between iterations:
+# its SSE is derived from sums of bf16-rounded products (2^-9 relative per
+# coordinate), and its assignments are approximate.
+BF16_SSE_SLACK = 1e-3
+# A bf16 fit's final SSE lies within this share of the float32 fit's.
+BF16_SSE_RATIO = 0.01
 # diag_estep against diag_estep_reference (both float32 on the card):
 #   rsum, s1, s2  |a - b| <= 1e-5 max|b| + 1e-4 |b|  (centered sums cancel
 #                 to near zero, hence the share of the largest entry)
@@ -108,6 +130,51 @@ def card_line() -> str:
 CARD = ""          # name and power limit, set by main(): beside every time
 
 
+def clocks() -> str:
+    """The card's SM clock, power draw and temperature now (beside a
+    timing: a card below its power limit runs slower under load)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def kernel_name(mangled: str) -> str:
+    """The last name of a mangled kernel (``_Z<len><name>`` or, inside a
+    namespace, ``_ZN<len><ns><len><name>``), with ``<0>`` / ``<1>`` for its
+    bool template argument (``ILb0E`` / ``ILb1E``)."""
+    nested = mangled.startswith("_ZN")
+    if not mangled.startswith("_Z"):
+        return mangled
+    pos, name = (3 if nested else 2), mangled
+    while m := re.compile(r"\d+").match(mangled, pos):
+        name = mangled[m.end():m.end() + int(m.group())]
+        pos = m.end() + int(m.group())
+        if not nested:
+            break
+    if mangled.startswith("ILb", pos):
+        name += f"<{mangled[pos + 3]}>"
+    return name
+
+
+def resource_usage(library: Path) -> list:
+    """Registers, stack frame (where spills go), local memory and shared
+    memory (with the 1 KiB the system reserves) of each kernel in a built
+    library, from ``cuobjdump --dump-resource-usage``.  A kernel templated
+    on its vector loads appears once for each."""
+    text = subprocess.run(
+        [str(Path(_build.find_nvcc()).parent / "cuobjdump"),
+         "--dump-resource-usage", str(library)], capture_output=True,
+        text=True, check=True).stdout
+    out = []
+    for mangled, fields in re.findall(r"Function (\S+):\s*\n\s*(.*)", text):
+        usage = re.findall(r"(REG|STACK|SHARED|LOCAL):(\d+)", fields)
+        out.append({"kernel": kernel_name(mangled),
+                    **{key.lower(): int(value) for key, value in usage}})
+    check(bool(out), f"cuobjdump found no kernel in {library.name}")
+    return out
+
+
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, "card": CARD, **fields}), flush=True)
 
@@ -115,63 +182,45 @@ def emit(phase: str, **fields) -> None:
 # ----------------------------------------------------------------- comparing
 
 
-def label_band(x, c, la, lb):
-    """(rows whose labels differ, those of them outside the margin band)."""
-    diff = (la != lb).nonzero().flatten()
-    if diff.numel() == 0:
-        return 0, 0
-    xd = x[diff].double()
-    cd = c.double()
-    da = ((xd - cd[la[diff].long()]) ** 2).sum(1)
-    db = ((xd - cd[lb[diff].long()]) ** 2).sum(1)
-    scale = (xd * xd).sum(1) + (cd * cd).sum(1).max()
-    outside = ((da - db).abs() > MARGIN_RTOL * scale) | torch.isnan(da - db)
-    return int(diff.numel()), int(outside.sum())
-
-
-def close(a, b, rtol, atol) -> bool:
-    return bool(torch.allclose(a, b, rtol=rtol, atol=atol, equal_nan=True))
-
-
-def max_err(a, b) -> float:
-    d = torch.nan_to_num(a - b, nan=0.0, posinf=0.0, neginf=0.0)
-    return float(d.abs().max()) if d.numel() else 0.0
+label_band, close, max_err = cmp.label_band, cmp.close, cmp.max_err
 
 
 def compare_case(name, x, w, c, *, with_mind2=True, unit_weights=False,
-                 expect_label=None):
-    """Both kernels on one set of inputs against their plain versions.
-    Returns the case's record; raises on any disagreement."""
-    out = hk.fused_assign_reduce(x, w, c, with_mind2=with_mind2)
-    again = hk.fused_assign_reduce(x, w, c, with_mind2=with_mind2)
-    la, ma = hk.hopper_assign(x, c)
+                 expect_label=None, bf16=False):
+    """Both kernels (the bf16 ones with ``bf16``) on one set of inputs
+    against their plain versions.  Returns the case's record; raises on any
+    disagreement."""
+    out = hk.fused_assign_reduce(x, w, c, with_mind2=with_mind2, bf16=bf16)
+    again = hk.fused_assign_reduce(x, w, c, with_mind2=with_mind2,
+                                   bf16=bf16)
+    la, ma = hk.hopper_assign(x, c, bf16=bf16)
+    la2, ma2 = hk.hopper_assign(x, c, bf16=bf16)
     torch.cuda.synchronize()
-    ref = hk.fused_assign_reduce_reference(x, w, c, with_mind2=with_mind2)
-    lr, mr = hk.assign_reference(x, c)
+    ref = hk.fused_assign_reduce_reference(x, w, c, with_mind2=with_mind2,
+                                           bf16=bf16)
+    lr, mr = hk.assign_reference(x, c, bf16=bf16)
     torch.cuda.synchronize()
     labels, mind2, sums, counts = out
-    finite_x = torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0)
-    scale = float((finite_x * finite_x).sum(1).max() + (c * c).sum(1).max())
-    m_atol = max(1e-4, 1e-6 * scale)
-    n_diff, n_outside = label_band(x, c, labels, ref[0])
+    m_atol = cmp.mind2_atol(x, c)
+    n_diff, n_outside = label_band(x, c, labels, ref[0], bf16)
     check(n_outside == 0, f"{name}: {n_outside} labels of kernel 1 differ "
                           f"from the plain version outside the margin band")
-    n_diff2, n_outside2 = label_band(x, c, la, lr)
+    n_diff2, n_outside2 = label_band(x, c, la, lr, bf16)
     check(n_outside2 == 0, f"{name}: {n_outside2} labels of kernel 2 differ "
                            f"from the plain version outside the margin band")
     check(torch.equal(la, labels), f"{name}: labels of the two kernels differ")
     same = labels == ref[0]
     rec = {"case": name, "n": x.shape[0], "d": x.shape[1], "k": c.shape[0],
-           "with_mind2": with_mind2, "label_diff": n_diff,
+           "bf16": bf16, "with_mind2": with_mind2, "label_diff": n_diff,
            "label_diff_in_band": n_diff - n_outside}
     if with_mind2:
-        check(close(mind2[same], ref[1][same], 1e-4, m_atol),
+        check(close(mind2[same], ref[1][same], cmp.MIND2_RTOL, m_atol),
               f"{name}: mind2 of kernel 1 disagrees")
         rec["mind2_err"] = max_err(mind2[same], ref[1][same])
     else:
         check(mind2 is None, f"{name}: with_mind2=False returned a mind2")
     same2 = la == lr
-    check(close(ma[same2], mr[same2], 1e-4, m_atol),
+    check(close(ma[same2], mr[same2], cmp.MIND2_RTOL, m_atol),
           f"{name}: mind2 of kernel 2 disagrees")
     rec["assign_mind2_err"] = max_err(ma[same2], mr[same2])
     if n_diff == 0:
@@ -179,19 +228,14 @@ def compare_case(name, x, w, c, *, with_mind2=True, unit_weights=False,
     else:
         # A row on a near-tie sits in another cluster: hold the scatter
         # against index_add_ over the kernel's own labels.
-        idx = labels.long()
-        live = (w != 0)[:, None]
-        ref_sums = torch.zeros_like(sums).index_add_(
-            0, idx, torch.where(live, w[:, None] * x, torch.zeros_like(x)))
-        ref_counts = torch.zeros_like(counts).index_add_(0, idx, w)
-    finite = torch.nan_to_num(ref_sums, nan=0.0, posinf=0.0, neginf=0.0)
-    check(close(sums, ref_sums, 1e-4, 1e-5 * float(finite.abs().max())),
-          f"{name}: sums disagree")
+        ref_sums, ref_counts = cmp.scatter_reference(x, w, labels, c.shape[0],
+                                                     bf16)
+    check(cmp.sums_close(sums, ref_sums), f"{name}: sums disagree")
     rec["sums_err"] = max_err(sums, ref_sums)
     if unit_weights:
         check(torch.equal(counts, ref_counts), f"{name}: counts differ")
     else:
-        check(close(counts, ref_counts, 1e-5, 0.0),
+        check(close(counts, ref_counts, cmp.COUNTS_RTOL, 0.0),
               f"{name}: counts disagree")
     rec["counts_err"] = max_err(counts, ref_counts)
     bitwise = (torch.equal(labels, again[0])
@@ -199,6 +243,9 @@ def compare_case(name, x, w, c, *, with_mind2=True, unit_weights=False,
                and counts.view(torch.int32).equal(
                    again[3].view(torch.int32)))
     check(bitwise, f"{name}: two runs of kernel 1 are not bit-identical")
+    check(torch.equal(la, la2) and ma.view(torch.int32).equal(
+        ma2.view(torch.int32)), f"{name}: two runs of kernel 2 are not "
+                                f"bit-identical")
     rec["bitwise_repeat"] = True
     if expect_label is not None:
         row, want = expect_label
@@ -216,37 +263,43 @@ def random_case(n, d, k, seed):
     return x, w, c
 
 
-def phase_kernels(x_main, c_main, x_second):
+def phase_kernels(x_main, c_main, x_second, bf16=False):
+    """The nine cases, for the float32 kernels or (``bf16``) the bf16
+    ones."""
     records = []
     shapes = [(4099, 100, 3000), (8192, 128, 1024), (1000, 7, 5),
               (257, 784, 10)]
     for i, (n, d, k) in enumerate(shapes):
         x, w, c = random_case(n, d, k, seed=100 + i)
-        records.append(compare_case(f"random_{n}x{d}_k{k}", x, w, c))
+        records.append(compare_case(f"random_{n}x{d}_k{k}", x, w, c,
+                                    bf16=bf16))
     x, w, c = random_case(4099, 100, 3000, seed=7)
-    records.append(compare_case("no_mind2", x, w, c, with_mind2=False))
+    records.append(compare_case("no_mind2", x, w, c, with_mind2=False,
+                                bf16=bf16))
     x, w, c = random_case(2000, 40, 300, seed=8)
     c[200] = c[17]                     # duplicate centroids, one of them far
     c[3] = c[17]                       # down the table: lowest index wins
     x[5] = c[17]
     w[5] = 1.0
     records.append(compare_case("duplicate_centroids", x, w, c,
-                                expect_label=(5, 3)))
+                                expect_label=(5, 3), bf16=bf16))
     x, w, c = random_case(2000, 40, 300, seed=9)
     x[7, 20] = float("nan")            # a NaN row gets label 0
     w[7] = 0.0
-    records.append(compare_case("nan_row", x, w, c, expect_label=(7, 0)))
+    records.append(compare_case("nan_row", x, w, c, expect_label=(7, 0),
+                                bf16=bf16))
     w_main = torch.ones(x_main.shape[0], device=DEV)
     records.append(compare_case("main_shape", x_main, w_main, c_main,
-                                unit_weights=True))
+                                unit_weights=True, bf16=bf16))
     # The second path's own shape: 3125 row tiles over the persistent
     # blocks, so each block walks many tiles with a ragged last centroid
     # tile and a ragged feature slice.
     x2, w2, c2 = x_second
-    records.append(compare_case("glove_shape", x2, w2, c2))
-    emit("kernels", cases=records,
-         kernels=[{"name": "fused_assign_reduce", "ok": True},
-                  {"name": "hopper_assign", "ok": True}])
+    records.append(compare_case("glove_shape", x2, w2, c2, bf16=bf16))
+    suffix = "_bf16" if bf16 else ""
+    emit("kernels" + suffix, cases=records,
+         kernels=[{"name": "fused_assign_reduce" + suffix, "ok": True},
+                  {"name": "hopper_assign" + suffix, "ok": True}])
     return records
 
 
@@ -466,8 +519,10 @@ def phase_gmm_offset():
 #: The kernels that each path must launch at least once.
 PATH_KERNELS = {
     "main": ("fused_assign_reduce", "hopper_assign"),
+    "main_bf16": ("fused_assign_reduce_bf16", "hopper_assign_bf16"),
     "glove_like": ("fused_assign_reduce", "hopper_assign"),
     "gmm": ("diag_estep", "fused_assign_reduce"),
+    "lab": tuple(lab.parse_spec(spec).counter for spec in LAB_SPECS),
 }
 
 
@@ -483,64 +538,93 @@ def check_path_launches(path: str) -> dict:
     return launches
 
 
-def sse_non_increasing(history) -> bool:
-    return all(b <= a * (1.0 + 1e-6) for a, b in zip(history, history[1:]))
+def largest_rise(history) -> float:
+    """The largest rise of the SSE history between iterations, as a share
+    of the earlier value (0 where it never rises)."""
+    return max([(b - a) / a for a, b in zip(history, history[1:])] + [0.0])
 
 
-def fit_shape(x, shape, label):
+def fit_shape(x, shape, label, distance_mode="auto"):
+    """One fit on the card.  'auto' must resolve to the float32 kernel;
+    'pallas_bf16' runs the bf16 one and may let the SSE rise by
+    BF16_SSE_SLACK."""
+    bf16 = distance_mode == "pallas_bf16"
+    suffix = "_bf16" if bf16 else ""
     km = KMeans(k=shape["k"], max_iter=shape["iters"], seed=42,
-                compute_sse=True, init="forgy", verbose=False)
+                compute_sse=True, init="forgy", verbose=False,
+                distance_mode=distance_mode)
     hk.reset_launch_counts()           # this path's own counts
     t0 = time.perf_counter()
     km.fit(x)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launched = hk.LAUNCHES["fused_assign_reduce"]
+    launched = hk.LAUNCHES["fused_assign_reduce" + suffix]
     check(x.is_cuda and km.device.type == "cuda",
           f"{label}: the fit did not run on cuda")
-    check(km._mode() == "kernel", f"{label}: default mode is not the kernel")
+    want = "kernel" + suffix
+    check(km._mode() == want, f"{label}: mode {km._mode()}, not {want}")
     check(launched >= km.iterations_run >= 1,
           f"{label}: {launched} launches of kernel 1 for "
           f"{km.iterations_run} iterations")
     check(km.centroids.shape == (shape["k"], shape["d"])
           and bool(torch.isfinite(torch.from_numpy(km.centroids)).all()),
           f"{label}: centroids are not finite (k, D)")
+    rise = largest_rise(km.sse_history)
     check(len(km.sse_history) == km.iterations_run
-          and sse_non_increasing(km.sse_history),
+          and rise <= (BF16_SSE_SLACK if bf16 else 1e-6),
           f"{label}: SSE history rises: {km.sse_history}")
     check(km.labels_.shape == (shape["n"],)
           and 0 <= int(km.labels_.min())
           and int(km.labels_.max()) < shape["k"],
           f"{label}: labels_ out of range")
     emit("fit", shape=label, n=shape["n"], d=shape["d"], k=shape["k"],
-         iterations=km.iterations_run, sse_history=km.sse_history,
+         distance_mode=distance_mode, iterations=km.iterations_run,
+         sse_history=km.sse_history, largest_sse_rise=rise,
          seconds_per_iteration=statistics.median(km.iter_times_),
          fit_seconds=wall, kernel1_launches=launched,
-         kernel2_launches=hk.LAUNCHES["hopper_assign"])
+         kernel2_launches=hk.LAUNCHES["hopper_assign" + suffix])
     return km
 
 
 def phase_predict(km, x):
+    """predict on the card against the plain version, then save, load and
+    predict again; for a bf16 model also ``score``."""
+    bf16 = km._mode() == "kernel_bf16"
+    name = "hopper_assign_bf16" if bf16 else "hopper_assign"
     rows = x[:PREDICT_ROWS]
-    before = hk.LAUNCHES["hopper_assign"]
+    before = hk.LAUNCHES[name]
     labels = km.predict(rows)
-    launched = hk.LAUNCHES["hopper_assign"] - before
+    launched = hk.LAUNCHES[name] - before
     check(launched == 1, f"predict launched kernel 2 {launched} times")
     cents = torch.from_numpy(km.centroids).to(DEV)
-    ref, _ = hk.assign_reference(rows, cents)
+    ref, _ = hk.assign_reference(rows, cents, bf16=bf16)
     got = torch.from_numpy(labels).to(DEV)
-    n_diff, n_outside = label_band(rows, cents, got, ref)
+    n_diff, n_outside = label_band(rows, cents, got, ref, bf16)
     check(n_outside == 0, f"predict: {n_outside} labels outside the band")
+    fields = {}
+    if bf16:
+        before = hk.LAUNCHES["fused_assign_reduce_bf16"]
+        fields["score"] = km.score(rows)
+        check(hk.LAUNCHES["fused_assign_reduce_bf16"] == before + 1
+              and math.isfinite(fields["score"]) and fields["score"] <= 0,
+              f"score: {fields['score']}")
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "model.npz"
         km.save(path)
+        with np.load(path) as z:
+            saved_mode = json.loads(str(z["__meta__"]))["distance_mode"]
         loaded = KMeans.load(path)
         again = loaded.predict(rows)
+    want = _FORMAT_MODES.get(km.distance_mode, km.distance_mode)
+    check(saved_mode == want, f"the file names distance_mode={saved_mode!r}")
+    check(loaded.distance_mode == km.distance_mode,
+          f"loaded back as {loaded.distance_mode!r}")
     check(loaded.device.type == "cuda", "the loaded model is not on cuda")
     check(bool((again == labels).all()), "labels differ after save and load")
-    emit("predict", rows=PREDICT_ROWS, label_diff=n_diff,
+    emit("predict", mode=km._mode(), rows=PREDICT_ROWS, label_diff=n_diff,
          label_diff_in_band=n_diff - n_outside, kernel2_launches=launched,
-         save_load_same_labels=True)
+         saved_distance_mode=saved_mode, save_load_same_labels=True,
+         **fields)
 
 
 # -------------------------------------------------------------------- timing
@@ -562,21 +646,26 @@ def median_ms(fn, runs=10, warmup=2) -> float:
     return statistics.median(times)
 
 
-def bounds(n, d, k, fused: bool):
+def bounds(n, d, k, fused: bool, bf16: bool = False):
     """(bound ms, what bounds it, bytes, operations, bf16 bound ms): each
     input read once, each output written once; float32 operations at the
-    non-tensor rate."""
+    non-tensor rate.  With ``bf16`` the product's 2nkD operations run at the
+    tensor cores' bf16 rate and the rest at the float32 rate; the two issue
+    side by side, so the operations take the longer of the two times.  The
+    fifth field is always the bound at the bf16 rate."""
     byt = 4 * (n * d + k * d + 2 * n)              # x, c, labels, mind2
     # products, h - x.c, ||x||^2, h
-    ops = 2 * n * k * d + n * k + 2 * n * d + 2 * k * d
+    product = 2 * n * k * d
+    ops = product + n * k + 2 * n * d + 2 * k * d
     if fused:
         byt += 4 * (n + k * d + k)                 # w, sums, counts
         ops += 2 * n * d + n                       # the scatter
     t_bytes = byt / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FP32_FLOPS * 1e3
-    bf16 = max(t_bytes, ops / PEAK_BF16_FLOPS * 1e3)
+    rest_ms = (ops - product) / PEAK_FP32_FLOPS * 1e3
+    bf16_ms = max(product / PEAK_BF16_FLOPS * 1e3, rest_ms)
+    t_ops = bf16_ms if bf16 else ops / PEAK_FP32_FLOPS * 1e3
     by = "operations" if t_ops >= t_bytes else "bytes"
-    return max(t_bytes, t_ops), by, byt, ops, bf16
+    return max(t_bytes, t_ops), by, byt, ops, max(t_bytes, bf16_ms)
 
 
 def library_assign(x, c, block=65536):
@@ -587,11 +676,23 @@ def library_assign(x, c, block=65536):
     return out
 
 
-def library_fused(x, w, c):
-    labels = library_assign(x, c)
+def library_fused(x, w, c, assign=library_assign):
+    labels = assign(x, c)
     sums = torch.zeros_like(c).index_add_(0, labels, w[:, None] * x)
     counts = torch.zeros(c.shape[0], device=x.device).index_add_(0, labels, w)
     return labels, sums, counts
+
+
+def library_assign_bf16(x, c, block=65536):
+    """The bf16 yardstick: a bf16 torch.matmul (cuBLAS, tensor cores) over
+    blocks of rows, then h - score and argmin."""
+    cb = c.to(torch.bfloat16).T
+    h = 0.5 * (c * c).sum(1)
+    out = torch.empty(x.shape[0], dtype=torch.int64, device=x.device)
+    for lo in range(0, x.shape[0], block):
+        score = (x[lo:lo + block].to(torch.bfloat16) @ cb).float()
+        out[lo:lo + block] = (h - score).argmin(dim=1)
+    return out
 
 
 def phase_timing(x, c, errs, launches, iter_seconds):
@@ -599,24 +700,37 @@ def phase_timing(x, c, errs, launches, iter_seconds):
     k = c.shape[0]
     w = torch.ones(n, device=DEV)
     rows = []
+    f32_src = "kmeans_tpu_torch/csrc/assign_kernels.cu"
+    bf16_src = "kmeans_tpu_torch/csrc/assign_bf16.cu"
     specs = [
-        ("fused_assign_reduce", True,
+        ("fused_assign_reduce", True, False, f32_src,
          "kmeans_tpu/ops/pallas_kernels.py:558",
          lambda: hk.fused_assign_reduce(x, w, c),
          lambda: hk.fused_assign_reduce_reference(x, w, c),
          lambda: library_fused(x, w, c)),
-        ("hopper_assign", False,
+        ("hopper_assign", False, False, f32_src,
          "kmeans_tpu/ops/pallas_kernels.py:542",
          lambda: hk.hopper_assign(x, c),
          lambda: hk.assign_reference(x, c),
          lambda: library_assign(x, c)),
+        ("fused_assign_reduce_bf16", True, True, bf16_src,
+         "kmeans_tpu/ops/pallas_kernels.py:558 (bf16=True, :494)",
+         lambda: hk.fused_assign_reduce(x, w, c, bf16=True),
+         lambda: hk.fused_assign_reduce_reference(x, w, c, bf16=True),
+         lambda: library_fused(x, w, c, library_assign_bf16)),
+        ("hopper_assign_bf16", False, True, bf16_src,
+         "kmeans_tpu/ops/pallas_kernels.py:542 (bf16=True, :494)",
+         lambda: hk.hopper_assign(x, c, bf16=True),
+         lambda: hk.assign_reference(x, c, bf16=True),
+         lambda: library_assign_bf16(x, c)),
     ]
-    for name, fused, replaces, kernel, plain, library in specs:
-        bound_ms, by, byt, ops, bf16_ms = bounds(n, d, k, fused)
+    for name, fused, bf16, source, replaces, kernel, plain, library in specs:
+        bound_ms, by, byt, ops, bf16_ms = bounds(n, d, k, fused, bf16)
+        before = clocks()
         ms = median_ms(kernel)
+        after = clocks()
         rows.append({
-            "name": name, "route": "cuda",
-            "source": "kmeans_tpu_torch/csrc/assign_kernels.cu",
+            "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[name], "ms": ms,
             "plain_ms": median_ms(plain), "bound_ms": bound_ms,
@@ -626,16 +740,64 @@ def phase_timing(x, c, errs, launches, iter_seconds):
              library_ms=rows[-1]["library_ms"], bound_ms=bound_ms,
              bound_by=by, bytes=byt, operations=ops,
              bf16_tensor_core_bound_ms=bf16_ms,
-             roofline_share=bound_ms / ms)
+             roofline_share=bound_ms / ms,
+             clocks_power_temperature=[before, after])
     # The whole step on the device (the fused kernel, the algebraic SSE's
     # sum of w ||x||^2, per-cluster SSE and farthest point), beside the
     # host's wall time for one iteration of the fit.
-    step = dist.make_step_fn(chunk_size=n, mode="kernel")
-    emit("timing", what="one Lloyd iteration of the main fit",
-         step_ms=median_ms(lambda: step(x, w, c)),
-         weighted_sqnorm_ms=median_ms(
-             lambda: dist._weighted_sqnorm_total(x, w)),
-         seconds_per_iteration=iter_seconds, n=n, d=d, k=k)
+    for mode, label in (("kernel", "main"), ("kernel_bf16", "main_bf16")):
+        step = dist.make_step_fn(chunk_size=n, mode=mode)
+        emit("timing", what=f"one Lloyd iteration of the {label} fit",
+             step_ms=median_ms(lambda: step(x, w, c)),
+             weighted_sqnorm_ms=median_ms(
+                 lambda: dist._weighted_sqnorm_total(x, w)),
+             seconds_per_iteration=iter_seconds[label], n=n, d=d, k=k)
+    return rows
+
+
+def phase_lab(x, c, kernel_rows):
+    """The variant lab at the main shape: each variant held against the
+    plain version on a weighted slice and on the whole of the inputs it is
+    timed on, then timed per Lloyd iteration (marginal method) with each
+    variant's own launch count.  Returns the kernel table's rows of the two
+    default variants (plain, bound and library times are those of the
+    kernel rows of this run: the same function on the same inputs)."""
+    variants = [lab.parse_spec(spec) for spec in LAB_SPECS]
+    checks = {v.name: lab.check_variant(v, x, c) for v in variants}
+    for v in variants:
+        check(checks[v.name]["ok"], f"lab: variant {v.name} failed its "
+                                    f"check: {checks[v.name]}")
+    hk.reset_launch_counts()           # this path's own counts
+    records = [lab.measure(v, x, c, LAB_ITERS, checked=checks[v.name])
+               for v in variants]
+    launches = check_path_launches("lab")
+    for v, rec in zip(variants, records):
+        rec["launches"] = launches[v.counter]
+        print(lab.line(rec), flush=True)
+    by_name = {row["name"]: row for row in kernel_rows}
+    compare = {}
+    rows = []
+    for rec in records:
+        if rec["name"] not in ("f32_default", "bf16_default"):
+            continue
+        kernel = by_name["fused_assign_reduce_bf16" if rec["bf16"]
+                         else "fused_assign_reduce"]
+        compare[rec["name"]] = {"lab_ms_per_iter": rec["ms_per_iter"],
+                                "kernel_row_ms": kernel["ms"],
+                                "ratio": rec["ms_per_iter"] / kernel["ms"]}
+        errs = [part[key] for part in (rec["check"]["slice"],
+                                       rec["check"]["timed_inputs"])
+                for key in ("mind2_err", "sums_err", "counts_err")]
+        rows.append({
+            "name": f"exp_pallas_kernel:{rec['name']}", "route": "cuda",
+            "source": "kmeans_tpu_torch/experiments/exp_pallas_kernel.py",
+            "replaces": "experiments/exp_pallas_kernel.py:44",
+            "launches": rec["launches"], "max_abs_err": max(errs),
+            "ms": rec["ms_per_iter"], "plain_ms": kernel["plain_ms"],
+            "bound_ms": kernel["bound_ms"], "bound_by": kernel["bound_by"],
+            "library_ms": kernel["library_ms"]})
+    emit("lab", iters=LAB_ITERS, variants=records,
+         defaults_against_kernel_rows=compare)
     return rows
 
 
@@ -734,10 +896,31 @@ def main() -> None:
          torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0])
 
+    # Every source of the main path and the lab's variants: one nvcc each,
+    # all started together.
     t0 = time.perf_counter()
-    _build.build()
+    lab_variants = [lab.parse_spec(spec) for spec in LAB_SPECS]
+    _build.build_variants(
+        [(name, {}) for name in _build.source_names()]
+        + [(v.source, v.defines) for v in lab_variants])
     emit("build", sources=_build.source_names(),
+         variants=[v.library_path().name for v in lab_variants],
          seconds=time.perf_counter() - t0)
+    libraries = {name: _build.library_path(name)
+                 for name in _build.source_names()}
+    libraries.update({f"lab:{v.name}": v.library_path()
+                      for v in lab_variants})
+    emit("registers", **{name: resource_usage(path)
+                         for name, path in libraries.items()})
+    # The bf16 kernels' products run on the tensor cores: their machine
+    # code holds HMMA instructions.
+    sass = subprocess.run(
+        [str(Path(_build.find_nvcc()).parent / "cuobjdump"), "-sass",
+         str(_build.library_path(hk.LIB_NAMES[True]))], capture_output=True,
+        text=True, check=True).stdout
+    hmma = sum("HMMA" in line for line in sass.splitlines())
+    check(hmma > 0, "the bf16 library holds no HMMA instruction")
+    emit("sass", library=hk.LIB_NAMES[True], hmma_instructions=hmma)
 
     x_main, _ = make_blobs_device(MAIN["n"], MAIN["k"], MAIN["d"],
                                   device=DEV, seed=1)
@@ -750,20 +933,34 @@ def main() -> None:
                            device=DEV)[:SECOND["k"]]
     w2 = torch.rand((SECOND["n"],), generator=gen, device=DEV) + 0.5
     w2[::10] = 0.0                     # a tenth of the rows at weight 0
-    records = phase_kernels(x_main, c_main,
-                            (x2, w2, x2[pick2].contiguous()))
-    del w2
-    main_rec = next(r for r in records if r["case"] == "main_shape")
-    errs = {"fused_assign_reduce": max(main_rec["sums_err"],
-                                       main_rec["mind2_err"],
-                                       main_rec["counts_err"]),
-            "hopper_assign": main_rec["assign_mind2_err"]}
+    second = (x2, w2, x2[pick2].contiguous())
+    errs = {}
+    for bf16 in (False, True):
+        records = phase_kernels(x_main, c_main, second, bf16)
+        main_rec = next(r for r in records if r["case"] == "main_shape")
+        suffix = "_bf16" if bf16 else ""
+        errs["fused_assign_reduce" + suffix] = max(
+            main_rec["sums_err"], main_rec["mind2_err"],
+            main_rec["counts_err"])
+        errs["hopper_assign" + suffix] = main_rec["assign_mind2_err"]
+    del w2, second
 
     # Each path: counters to 0 just before it, read just after it, and only
     # the kernels that this path must launch are checked.
     km = fit_shape(x_main, MAIN, "main")
     phase_predict(km, x_main)
     launches = check_path_launches("main")
+
+    km_bf16 = fit_shape(x_main, MAIN, "main_bf16", "pallas_bf16")
+    phase_predict(km_bf16, x_main)
+    launches.update({name: count for name, count in
+                     check_path_launches("main_bf16").items()
+                     if name.endswith("_bf16")})
+    ratio = km_bf16.sse_history[-1] / km.sse_history[-1]
+    emit("sse_bf16_against_f32", main_bf16=km_bf16.sse_history[-1],
+         main=km.sse_history[-1], ratio=ratio)
+    check(abs(ratio - 1.0) <= BF16_SSE_RATIO,
+          f"main_bf16: final SSE {ratio} times the float32 path's")
 
     fit_shape(x2, SECOND, "glove_like")
     check_path_launches("glove_like")
@@ -786,11 +983,13 @@ def main() -> None:
     phase_gmm_offset()
 
     rows = phase_timing(x_main, c_main, errs, launches,
-                        statistics.median(km.iter_times_))
+                        {"main": statistics.median(km.iter_times_),
+                         "main_bf16": statistics.median(km_bf16.iter_times_)})
     rows.append(phase_gmm_timing(
         x_gmm, gmm_tables, gm,
         max(gmm_main[f"{s}_err"] for s in ("rsum", "s1", "s2", "ll")),
         gmm_launches))
+    rows += phase_lab(x_main, c_main, rows)
 
     emit("total", seconds=time.perf_counter() - started)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -26,7 +26,8 @@ def from_jax_state(state: dict, device=None
     The class follows ``state['model_class']`` (``KMeans`` when absent).
     Constructor arguments that the port does not have are dropped, with one
     warning that lists those set to something the port cannot honour;
-    ``distance_mode='pallas'`` becomes ``'kernel'``.  ``device`` as in the
+    ``distance_mode='pallas'`` becomes ``'kernel'``, and ``'pallas_bf16'``
+    ``'kernel_bf16'``.  ``device`` as in the
     constructors: ``None`` is the card."""
     name = str(state.get("model_class", "KMeans"))
     if name not in _CLASSES:

@@ -7,7 +7,9 @@
 //                               (_call(with_stats=True) -> kernel_pipe)
 //   reduce_partials_kernel      second pass of the fused kernel (the TPU
 //                               kernel carried its sums across a sequential
-//                               grid; blocks on a GPU share no such carry)
+//                               grid; blocks on a GPU share no such carry);
+//                               in assign_common.cuh, shared with the bf16
+//                               kernels of assign_bf16.cu
 //   half_sqnorm_kernel          h_k = 0.5 * ||c_k||^2, which the JAX package
 //                               computed outside its kernel (_pad_inputs)
 //
@@ -45,42 +47,47 @@
 // entry is written by one thread in a fixed order: the additions need no
 // locks and give the same bits in every run.  reduce_partials_kernel then
 // sums the tables in block order.
+//
+// Compile-time variants (the variant lab, experiments/exp_pallas_kernel.py,
+// builds them with -D): KM_TILE_K, the centroids of a tile (128 or 64), and
+// KM_PIPE, 1 to fetch the next slice into registers while the current one is
+// multiplied, 0 to fetch it just before it is stored (load, barrier,
+// multiply).  KM_TILE_N, the rows of a block's tile, is 128 only.  The
+// defaults below are the main path's build.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "assign_common.cuh"
+
+#ifndef KM_TILE_N
+#define KM_TILE_N 128
+#endif
+#ifndef KM_TILE_K
+#define KM_TILE_K 128
+#endif
+#ifndef KM_PIPE
+#define KM_PIPE 1
+#endif
+
 namespace {
 
-constexpr int BM = 128;        // rows of x in a block's tile
-constexpr int BN = 128;        // centroids in a tile
+constexpr int BM = KM_TILE_N;  // rows of x in a block's tile
+constexpr int BN = KM_TILE_K;  // centroids in a tile
+constexpr bool PIPE = KM_PIPE != 0;
 constexpr int BK = 16;         // features in a slice
-constexpr int THREADS = 256;   // 16 x 16 threads, 8 x 8 results each
-constexpr int LDS = BM + 4;    // row stride of a slice in shared memory
-constexpr int NO_INDEX = 0x7fffffff;
+constexpr int THREADS = 256;   // 16 x 16 threads, 8 x CN results each
+constexpr int CN = BN / 16;    // centroids of a tile that one thread holds
+constexpr int LDX = BM + 4;    // row strides of a slice in shared memory
+constexpr int LDC = BN + 4;
+static_assert(BM == 128, "KM_TILE_N: the float32 kernels take 128 rows");
+static_assert(BN == 128 || BN == 64, "KM_TILE_K: 128 or 64 centroids");
+static_assert(KM_PIPE == 0 || KM_PIPE == 1, "KM_PIPE: 0 or 1");
 
 struct Slice {                 // what one thread fetches of one slice
     float4 x[2];
-    float4 c[2];
+    float4 c[BN / 64];
 };
-
-// Four consecutive features of one row, zero beyond the row or feature count.
-template <bool VEC4>
-__device__ __forceinline__ float4 load4(const float* __restrict__ base,
-                                        long long row, long long rows,
-                                        int col, int d) {
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row >= rows) return v;
-    const float* p = base + row * (long long)d + col;
-    if (VEC4) {
-        if (col < d) v = *reinterpret_cast<const float4*>(p);
-    } else {
-        if (col + 0 < d) v.x = p[0];
-        if (col + 1 < d) v.y = p[1];
-        if (col + 2 < d) v.z = p[2];
-        if (col + 3 < d) v.w = p[3];
-    }
-    return v;
-}
 
 template <bool VEC4>
 __device__ __forceinline__ void fetch_slice(Slice& s,
@@ -94,13 +101,14 @@ __device__ __forceinline__ void fetch_slice(Slice& s,
         const int r = f >> 2;                      // 0 .. 127
         const int col = f0 + ((f & 3) << 2);
         s.x[i] = load4<VEC4>(x, row0 + r, n, col, d);
-        s.c[i] = load4<VEC4>(c, (long long)c0 + r, (long long)k, col, d);
+        if (i < BN / 64)
+            s.c[i] = load4<VEC4>(c, (long long)c0 + r, (long long)k, col, d);
     }
 }
 
 __device__ __forceinline__ void store_slice(const Slice& s,
-                                            float (*xs)[LDS],
-                                            float (*cs)[LDS]) {
+                                            float (*xs)[LDX],
+                                            float (*cs)[LDC]) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
         const int f = threadIdx.x + i * THREADS;
@@ -108,20 +116,17 @@ __device__ __forceinline__ void store_slice(const Slice& s,
         const int q = (f & 3) << 2;
         xs[q + 0][r] = s.x[i].x; xs[q + 1][r] = s.x[i].y;
         xs[q + 2][r] = s.x[i].z; xs[q + 3][r] = s.x[i].w;
-        cs[q + 0][r] = s.c[i].x; cs[q + 1][r] = s.c[i].y;
-        cs[q + 2][r] = s.c[i].z; cs[q + 3][r] = s.c[i].w;
+        if (i < BN / 64) {
+            cs[q + 0][r] = s.c[i].x; cs[q + 1][r] = s.c[i].y;
+            cs[q + 2][r] = s.c[i].z; cs[q + 3][r] = s.c[i].w;
+        }
     }
-}
-
-// (v, i) <- the smaller of (v, i) and (ov, oi); equal values keep the lower
-// index.  A NaN never wins.
-__device__ __forceinline__ void take_min(float& v, int& i, float ov, int oi) {
-    if (ov < v || (ov == v && oi < i)) { v = ov; i = oi; }
 }
 
 // Labels (and the minimum score) of the rows  row0 .. row0 + BM - 1.
 // Thread (tx, ty) holds rows  ty*4 + {0..3}  and  64 + ty*4 + {0..3}  and,
-// of every centroid tile, the columns  tx*4 + {0..3}  and  64 + tx*4 + {0..3}.
+// of every centroid tile, the columns  tx*4 + {0..3}  and (at BN = 128)
+// 64 + tx*4 + {0..3}.
 // On return best_v/best_i hold the result of the thread's eight rows, the
 // same in all sixteen threads that share them.
 template <bool VEC4>
@@ -130,7 +135,7 @@ __device__ __forceinline__ void assign_tile(const float* __restrict__ x,
                                             const float* __restrict__ h,
                                             long long row0, long long n,
                                             int d, int k,
-                                            float (*xs)[LDS], float (*cs)[LDS],
+                                            float (*xs)[LDX], float (*cs)[LDC],
                                             float* hs,
                                             float best_v[8], int best_i[8]) {
     const int tx = threadIdx.x & 15;
@@ -144,11 +149,11 @@ __device__ __forceinline__ void assign_tile(const float* __restrict__ x,
     const int slices = (d + BK - 1) / BK;
 
     for (int c0 = 0; c0 < k; c0 += BN) {
-        float acc[8][8];
+        float acc[8][CN];
 #pragma unroll
         for (int i = 0; i < 8; ++i)
 #pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+            for (int j = 0; j < CN; ++j) acc[i][j] = 0.f;
 
         __syncthreads();               // the previous tile is done with hs
         if (threadIdx.x < BN) {
@@ -157,12 +162,14 @@ __device__ __forceinline__ void assign_tile(const float* __restrict__ x,
         }
 
         Slice next;
-        fetch_slice<VEC4>(next, x, c, row0, n, c0, k, 0, d);
+        if (PIPE) fetch_slice<VEC4>(next, x, c, row0, n, c0, k, 0, d);
         for (int s = 0; s < slices; ++s) {
+            if (!PIPE)
+                fetch_slice<VEC4>(next, x, c, row0, n, c0, k, s * BK, d);
             __syncthreads();           // the previous slice has been read
             store_slice(next, xs, cs);
             __syncthreads();
-            if (s + 1 < slices)
+            if (PIPE && s + 1 < slices)
                 fetch_slice<VEC4>(next, x, c, row0, n, c0, k,
                                   (s + 1) * BK, d);
 #pragma unroll
@@ -171,18 +178,20 @@ __device__ __forceinline__ void assign_tile(const float* __restrict__ x,
                     *reinterpret_cast<const float4*>(&xs[kk][ty * 4]);
                 const float4 a1 =
                     *reinterpret_cast<const float4*>(&xs[kk][64 + ty * 4]);
-                const float4 b0 =
-                    *reinterpret_cast<const float4*>(&cs[kk][tx * 4]);
-                const float4 b1 =
-                    *reinterpret_cast<const float4*>(&cs[kk][64 + tx * 4]);
                 const float a[8] = {a0.x, a0.y, a0.z, a0.w,
                                     a1.x, a1.y, a1.z, a1.w};
-                const float b[8] = {b0.x, b0.y, b0.z, b0.w,
-                                    b1.x, b1.y, b1.z, b1.w};
+                float b[CN];
+#pragma unroll
+                for (int q = 0; q < CN / 4; ++q) {
+                    const float4 bq = *reinterpret_cast<const float4*>(
+                        &cs[kk][q * 64 + tx * 4]);
+                    b[q * 4 + 0] = bq.x; b[q * 4 + 1] = bq.y;
+                    b[q * 4 + 2] = bq.z; b[q * 4 + 3] = bq.w;
+                }
 #pragma unroll
                 for (int i = 0; i < 8; ++i)
 #pragma unroll
-                    for (int j = 0; j < 8; ++j)
+                    for (int j = 0; j < CN; ++j)
                         acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
             }
         }
@@ -195,8 +204,8 @@ __device__ __forceinline__ void assign_tile(const float* __restrict__ x,
             int idx = NO_INDEX;
             bool nan = false;
 #pragma unroll
-            for (int j = 0; j < 8; ++j) {
-                const int lc = (j < 4) ? tx * 4 + j : 64 + tx * 4 + (j - 4);
+            for (int j = 0; j < CN; ++j) {
+                const int lc = (j >> 2) * 64 + tx * 4 + (j & 3);
                 const float sc = hs[lc] - acc[i][j];
                 nan |= (sc != sc);
                 if (sc < v) { v = sc; idx = c0 + lc; }
@@ -217,26 +226,6 @@ __device__ __forceinline__ void assign_tile(const float* __restrict__ x,
 #pragma unroll
     for (int i = 0; i < 8; ++i)
         if (bad & (1u << i)) { best_v[i] = CUDART_INF_F; best_i[i] = 0; }
-}
-
-// ||x_r||^2 of the tile's rows into x2s, one warp for each row in turn.
-__device__ __forceinline__ void row_sqnorms(const float* __restrict__ x,
-                                            long long row0, long long n,
-                                            int d, float* x2s) {
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    for (int r = warp; r < BM; r += THREADS / 32) {
-        const long long row = row0 + r;
-        float s = 0.f;
-        if (row < n) {
-            const float* p = x + row * (long long)d;
-            for (int col = lane; col < d; col += 32) s = fmaf(p[col], p[col], s);
-        }
-#pragma unroll
-        for (int off = 16; off >= 1; off >>= 1)
-            s += __shfl_xor_sync(0xffffffffu, s, off);
-        if (lane == 0) x2s[r] = s;
-    }
 }
 
 // Writes the labels (and mind2) of a tile; with KEEP also leaves the labels
@@ -273,8 +262,8 @@ __global__ void __launch_bounds__(THREADS, 2)
 assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
               const float* __restrict__ h, int* __restrict__ labels,
               float* __restrict__ mind2, long long n, int d, int k) {
-    __shared__ __align__(16) float xs[BK][LDS];
-    __shared__ __align__(16) float cs[BK][LDS];
+    __shared__ __align__(16) float xs[BK][LDX];
+    __shared__ __align__(16) float cs[BK][LDC];
     __shared__ float hs[BN];
     __shared__ float x2s[BM];
     const long long tiles = (n + BM - 1) / BM;
@@ -284,7 +273,7 @@ assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
         int best_i[8];
         assign_tile<VEC4>(x, c, h, row0, n, d, k, xs, cs, hs, best_v, best_i);
         if (mind2 != nullptr) {
-            row_sqnorms(x, row0, n, d, x2s);
+            row_sqnorms<BM, THREADS>(x, row0, n, d, x2s);
             __syncthreads();
         }
         write_tile<false>(best_v, best_i, row0, n, x2s, labels, mind2,
@@ -303,8 +292,8 @@ fused_assign_reduce_kernel(const float* __restrict__ x,
                            float* __restrict__ mind2,
                            float* __restrict__ partial,
                            long long n, int d, int k) {
-    __shared__ __align__(16) float xs[BK][LDS];
-    __shared__ __align__(16) float cs[BK][LDS];
+    __shared__ __align__(16) float xs[BK][LDX];
+    __shared__ __align__(16) float cs[BK][LDC];
     __shared__ float hs[BN];
     __shared__ float x2s[BM];
     __shared__ float ws[BM];
@@ -326,7 +315,7 @@ fused_assign_reduce_kernel(const float* __restrict__ x,
         float best_v[8];
         int best_i[8];
         assign_tile<VEC4>(x, c, h, row0, n, d, k, xs, cs, hs, best_v, best_i);
-        if (mind2 != nullptr) row_sqnorms(x, row0, n, d, x2s);
+        if (mind2 != nullptr) row_sqnorms<BM, THREADS>(x, row0, n, d, x2s);
         if (threadIdx.x < BM) {
             const long long row = row0 + threadIdx.x;
             ws[threadIdx.x] = row < n ? w[row] : 0.f;
@@ -356,23 +345,6 @@ fused_assign_reduce_kernel(const float* __restrict__ x,
     }
 }
 
-// sums (k, D) and counts (k,) from the blocks' tables, added in block order.
-__global__ void reduce_partials_kernel(const float* __restrict__ partial,
-                                       float* __restrict__ sums,
-                                       float* __restrict__ counts,
-                                       int blocks, int d, int k) {
-    const int dp = d + 1;
-    const size_t total = (size_t)k * (size_t)dp;
-    const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (e >= total) return;
-    float s = 0.f;
-    for (int b = 0; b < blocks; ++b) s += partial[(size_t)b * total + e];
-    const size_t row = e / dp;
-    const int col = (int)(e % dp);
-    if (col < d) sums[row * (size_t)d + col] = s;
-    else counts[row] = s;
-}
-
 // h_k = 0.5 * ||c_k||^2, one warp for each centroid.
 __global__ void half_sqnorm_kernel(const float* __restrict__ c,
                                    float* __restrict__ h, int d, int k) {
@@ -388,10 +360,6 @@ __global__ void half_sqnorm_kernel(const float* __restrict__ c,
     if (lane == 0) h[row] = 0.5f * s;
 }
 
-bool aligned16(const void* p) {
-    return (reinterpret_cast<size_t>(p) & 15u) == 0;
-}
-
 int launch_half_sqnorm(const float* c, float* h, int d, int k,
                        cudaStream_t stream) {
     const int warps = 8;
@@ -402,10 +370,20 @@ int launch_half_sqnorm(const float* c, float* h, int d, int k,
 
 }  // namespace
 
+// Rows of a block's tile; the wrapper sizes its grid by it.
+extern "C" int kmeans_tile_rows(void) { return BM; }
+
+// Bytes of the launchers' scratch: h, k floats.
+extern "C" long long kmeans_scratch_bytes(int d, int k) {
+    (void)d;
+    return 4LL * k;
+}
+
 // Both launchers enqueue on `stream`, do not synchronise, and return the
-// first cudaError_t that a launch reported, 0 if none did.  `h` is scratch
-// of k floats.  `mind2` may be null: then no minimum distance is computed or
-// written.  `blocks` is the number of persistent blocks, at least 1.
+// first cudaError_t that a launch reported, 0 if none did.  `h` is the
+// scratch of kmeans_scratch_bytes.  `mind2` may be null: then no minimum
+// distance is computed or written.  `blocks` is the number of persistent
+// blocks, at least 1.
 
 extern "C" int kmeans_assign_launch(const float* x, const float* c, float* h,
                                     int* labels, float* mind2, long long n,
@@ -440,9 +418,5 @@ extern "C" int kmeans_fused_assign_reduce_launch(
             x, w, c, h, labels, mind2, partial, n, d, k);
     err = (int)cudaGetLastError();
     if (err != 0) return err;
-    const size_t total = (size_t)k * (size_t)(d + 1);
-    const int rt = 256;
-    reduce_partials_kernel<<<(unsigned)((total + rt - 1) / rt), rt, 0, st>>>(
-        partial, sums, counts, blocks, d, k);
-    return (int)cudaGetLastError();
+    return launch_reduce_partials(partial, sums, counts, blocks, d, k, st);
 }

@@ -42,13 +42,14 @@ from kmeans_tpu_torch.utils.logging import IterationLogger
 from kmeans_tpu_torch.utils.validation import validate_params
 
 _EMPTY_POLICIES = ("resample", "farthest", "keep")
-_DISTANCE_MODES = ("auto", "kernel", "matmul", "direct")
+_DISTANCE_MODES = ("auto", "kernel", "kernel_bf16", "matmul", "matmul_bf16",
+                   "direct")
+#: The checkpoint format's (and the JAX package's) names of the kernel modes.
+_FORMAT_MODES = {"kernel": "pallas", "kernel_bf16": "pallas_bf16"}
 
 #: Distance modes of the JAX package that the port does not have yet.
 _LATER_MODES = {
-    "pallas_bf16": "B.3 'The bf16=True variant of kernels 1 and 2'",
-    "matmul_bf16": "A.1 'the bf16 and guarded modes of ops/assign.py'",
-    "matmul_bf16_guarded": "A.1 'the bf16 and guarded modes of ops/assign.py'",
+    "matmul_bf16_guarded": "A.1 'the guarded mode of ops/assign.py'",
 }
 
 #: Constructor arguments of the JAX package that the port does not have yet:
@@ -144,10 +145,15 @@ class KMeans:
     dtype : float32 (default), or float64 with ``distance_mode`` 'matmul' or
         'direct'.
     chunk_size : rows per chunk of the plain torch pass (None: automatic).
-    distance_mode : 'auto' | 'kernel' | 'matmul' | 'direct'.  'kernel' is
-        the fused CUDA kernel (float32); 'pallas', the name of that mode in
-        checkpoints written by the JAX package, is read as 'kernel'.  On a
-        CUDA device 'auto' is 'kernel', on the CPU it is 'matmul'.
+    distance_mode : 'auto' | 'kernel' | 'kernel_bf16' | 'matmul' |
+        'matmul_bf16' | 'direct'.  'kernel' is the fused CUDA kernel
+        (float32), 'kernel_bf16' its bf16 form on the tensor cores (bf16
+        products, float32 sums: approximate assignments for throughput);
+        'pallas' and 'pallas_bf16', the JAX package's names of those modes
+        (and the checkpoints'), are read as 'kernel' and 'kernel_bf16'.
+        'matmul_bf16' is the torch pass with the same bf16 rule.  On a CUDA
+        device 'auto' is 'kernel', on the CPU it is 'matmul'; it is never a
+        bf16 mode.
     verbose : per-iteration log lines.
     device : None (the card) | 'cuda' | 'cuda:N' | 'cpu'.
 
@@ -201,8 +207,8 @@ class KMeans:
             raise ValueError(f"dtype must be float32 or float64, got "
                              f"{self.dtype}")
         self.chunk_size = chunk_size
-        if distance_mode == "pallas":
-            distance_mode = "kernel"
+        distance_mode = {v: k for k, v in _FORMAT_MODES.items()}.get(
+            distance_mode, distance_mode)
         if distance_mode in _LATER_MODES:
             raise _later("distance_mode", distance_mode,
                          _LATER_MODES[distance_mode])
@@ -213,11 +219,13 @@ class KMeans:
         self.verbose = verbose
         validate_params(k, max_iter, tolerance)
         self.device = resolve_device(device)
-        if self._mode() == "kernel" and self.dtype != np.dtype(np.float32):
+        if self._mode() in dist.KERNEL_MODES and \
+                self.dtype != np.dtype(np.float32):
             raise ValueError(
-                f"distance_mode='kernel' (the default on a CUDA device) "
-                f"computes in float32; dtype {self.dtype} needs "
-                f"distance_mode='matmul' or 'direct'")
+                f"distance_mode={self._mode()!r} (the kernel modes; 'kernel' "
+                f"is the default on a CUDA device) takes float32 points; "
+                f"dtype {self.dtype} needs distance_mode='matmul' or "
+                f"'direct'")
 
         self.centroids: Optional[np.ndarray] = None
         self.sse_history: List[float] = []
@@ -510,8 +518,9 @@ class KMeans:
 
     def _state_dict(self) -> dict:
         """Serialisable state in the vocabulary of the shared checkpoint
-        format: constructor arguments and fitted attributes.  The kernel mode
-        is written as 'pallas', the format's name for it, and the one-device
+        format: constructor arguments and fitted attributes.  The kernel
+        modes are written as 'pallas' and 'pallas_bf16', the format's names
+        for them, and the one-device
         host loop as ``model_shards=1, host_loop=True``, so that the JAX
         package loads the file.  A callable ``init`` is recorded as 'forgy'
         (centroids are restored, so it never runs again)."""
@@ -525,8 +534,8 @@ class KMeans:
             "n_init": self.n_init,
             "compute_labels": self.compute_labels,
             "empty_cluster": self.empty_cluster,
-            "distance_mode": ("pallas" if self.distance_mode == "kernel"
-                              else self.distance_mode),
+            "distance_mode": _FORMAT_MODES.get(self.distance_mode,
+                                               self.distance_mode),
             "model_shards": 1,
             "chunk_size": self.chunk_size,
             "host_loop": True,

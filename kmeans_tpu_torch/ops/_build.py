@@ -6,6 +6,10 @@ Each ``csrc/<name>.cu`` becomes ``build/lib<name>_<hash>.so``: ``nvcc`` for
 The hash covers every file under ``csrc`` and the compiler flags, so a library
 left from other sources is never loaded.  A build that fails raises with the
 compiler's output; nothing here falls back to another implementation.
+
+:func:`build_variants` and :func:`load_variant` build a source under ``-D``
+defines (the tile sizes that the variant lab sweeps) into a library of its
+own, whose hash also covers the defines; the main path's builds pass none.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Mapping, Optional, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -25,7 +29,9 @@ BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+#: Loaded libraries by (source, defines).  Looked up before anything is
+#: hashed: a wrapper asks for its library on every call.
+_LIBS: Dict[Tuple[str, Tuple[Tuple[str, int], ...]], ctypes.CDLL] = {}
 
 #: Kernel launches so far, by kernel name, for every kernel module of the
 #: package (each adds its names at import).  A wrapper adds one where it
@@ -64,50 +70,60 @@ def source_names() -> List[str]:
     return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
 
 
-def _sources_hash() -> str:
+def _define_flags(defines: Mapping[str, int]) -> List[str]:
+    return [f"-D{key}={int(value)}" for key, value in sorted(defines.items())]
+
+
+def _sources_hash(defines: Optional[Mapping[str, int]] = None) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    if defines:
+        h.update(" ".join(_define_flags(defines)).encode())
     for p in sorted(list(CSRC_DIR.glob("*.cu")) + list(CSRC_DIR.glob("*.cuh"))):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
 
-def library_path(name: str) -> Path:
-    return BUILD_DIR / f"lib{name}_{_sources_hash()}.so"
+def library_path(name: str,
+                 defines: Optional[Mapping[str, int]] = None) -> Path:
+    """Where the build of ``csrc/<name>.cu`` under ``defines`` lives."""
+    return BUILD_DIR / f"lib{name}_{_sources_hash(defines)}.so"
 
 
-def _start(name: str):
-    """Start ``nvcc`` on one source; returns (process, tmp path, final path)
-    or None when the library is already there."""
+def _start(name: str, defines: Mapping[str, int]):
+    """Start ``nvcc`` on one source; returns (process, tmp path, final path,
+    command) or None when the library is already there."""
     src = CSRC_DIR / f"{name}.cu"
     if not src.is_file():
         raise KernelCompileError(f"no such kernel source: {src}")
-    out = library_path(name)
+    out = library_path(name, defines)
     if out.is_file():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [find_nvcc(), *NVCC_FLAGS, *_define_flags(defines), "-o", str(tmp),
+           str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out, cmd
 
 
-def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
-    """Build the named sources (all of them by default), one ``nvcc`` for
-    each, all started together.  Returns the compiler's output by name
-    (empty for a library that was already built)."""
-    names = list(names) if names is not None else source_names()
-    started = {name: _start(name) for name in names}
-    logs: Dict[str, str] = {}
+def build_variants(variants: Iterable[Tuple[str, Mapping[str, int]]]
+                   ) -> List[str]:
+    """Build each (source, defines), one ``nvcc`` for each, all started
+    together; no defines is the main path's build.  Returns the compiler's
+    outputs in order (empty for a library that was already built); raises
+    if any build failed."""
+    started = [_start(name, defines) for name, defines in variants]
+    logs: List[str] = []
     failed = []
-    for name, job in started.items():
+    for job in started:
         if job is None:
-            logs[name] = ""
+            logs.append("")
             continue
         proc, tmp, out, cmd = job
         log, _ = proc.communicate()
-        logs[name] = log
+        logs.append(log)
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             failed.append(f"{' '.join(cmd)}\nexit code {proc.returncode}\n"
@@ -119,11 +135,27 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     return logs
 
 
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
+    """Build the named sources (all of them by default) as the main path
+    uses them, one ``nvcc`` for each, all started together.  Returns the
+    compiler's output by name (empty for a library that was already
+    built)."""
+    names = list(names) if names is not None else source_names()
+    return dict(zip(names, build_variants((name, {}) for name in names)))
+
+
+def load_variant(name: str, defines: Mapping[str, int]) -> ctypes.CDLL:
+    """The build of ``csrc/<name>.cu`` under ``defines``, building it if
+    need be."""
+    key = (name, tuple(sorted(defines.items())))
+    lib = _LIBS.get(key)
+    if lib is None:
+        build_variants([(name, defines)])
+        lib = ctypes.CDLL(str(library_path(name, defines)))
+        _LIBS[key] = lib
+    return lib
+
+
 def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu``, building it if need be."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _LIBS[name] = lib
-    return lib
+    return load_variant(name, {})

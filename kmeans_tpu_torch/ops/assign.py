@@ -6,8 +6,10 @@ CUDA kernels in ``ops.hopper_kernels``.  This is ``distance_mode='matmul'``
 ``||x||^2 + ||c||^2 - 2 x @ c.T`` so that the O(n*k*D) work is one matrix
 product per chunk, cluster sums as a one-hot (chunk, k)^T @ (chunk, D)
 product (deterministic, unlike a scatter with atomics), and SSE, per-cluster
-SSE and the farthest point folded into the same pass.  Points are walked in
-chunks of rows, so no (n, k) matrix is ever whole in memory.
+SSE and the farthest point folded into the same pass.  ``'matmul_bf16'``
+feeds both products bf16-rounded inputs and sums them in the accumulation
+type (:func:`round_bf16`).  Points are walked in chunks of rows, so no
+(n, k) matrix is ever whole in memory.
 
 Ties go to the lowest index (``torch.argmin`` returns the first minimum),
 as NumPy's and the JAX package's argmin do.
@@ -36,29 +38,45 @@ def _accum_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
+def round_bf16(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` rounded to bf16 (to nearest even) and widened to ``dtype``.
+
+    "bf16 products, float32 sums" is computed as a ``dtype`` product of
+    tensors rounded this way: the product of two bf16 values is exact in
+    float32, so the arithmetic is the same on every backend.  A bf16
+    ``matmul`` is not used: its accumulation type differs by backend."""
+    return t.to(torch.bfloat16).to(dtype)
+
+
 def pairwise_sq_dists(x: torch.Tensor, centroids: torch.Tensor,
                       mode: str = "matmul") -> torch.Tensor:
     """Squared Euclidean distances, (n, k) for x (n, D), centroids (k, D).
 
     ``mode='matmul'`` uses the expanded form, one (n, D) @ (D, k) product,
-    clamped at 0 (cancellation can go tiny-negative).  ``mode='direct'``
-    materialises the (n, k, D) differences: no cancellation, for small
-    problems and parity tests."""
+    clamped at 0 (cancellation can go tiny-negative).  ``'matmul_bf16'``
+    takes the cross term from bf16-rounded x and centroids (the norms stay
+    those of the unrounded inputs).  ``mode='direct'`` materialises the
+    (n, k, D) differences: no cancellation, for small problems and parity
+    tests."""
     acc = _accum_dtype(x.dtype)
     if mode == "direct":
         diff = x[:, None, :].to(acc) - centroids[None, :, :].to(acc)
         return (diff * diff).sum(dim=-1)
-    if mode in ("matmul_bf16", "matmul_bf16_guarded"):
+    if mode == "matmul_bf16_guarded":
         raise NotImplementedError(
             f"distance mode {mode!r} is not ported yet: ROADMAP.md, A.1 "
-            f"'the bf16 and guarded modes of ops/assign.py'")
-    if mode != "matmul":
+            f"'the guarded mode of ops/assign.py'")
+    if mode not in ("matmul", "matmul_bf16"):
         raise ValueError(f"unknown distance mode: {mode!r}")
     x = x.to(acc)
     c = centroids.to(acc)
     x2 = (x * x).sum(dim=-1, keepdim=True)                 # (n, 1)
     c2 = (c * c).sum(dim=-1)[None, :]                      # (1, k)
-    return torch.clamp_min(x2 + c2 - 2.0 * (x @ c.T), 0.0)
+    if mode == "matmul_bf16":
+        xc = round_bf16(x, acc) @ round_bf16(c, acc).T
+    else:
+        xc = x @ c.T
+    return torch.clamp_min(x2 + c2 - 2.0 * xc, 0.0)
 
 
 def assign_chunk(x: torch.Tensor, centroids: torch.Tensor,
@@ -86,13 +104,14 @@ def init_stats(k: int, d: int, acc: torch.dtype, device) -> StepStats:
 def consume_chunk(carry: StepStats, d2: torch.Tensor, xc: torch.Tensor,
                   wc: torch.Tensor, centroids: torch.Tensor, *,
                   need_sse: bool = True, need_farthest: bool = True,
-                  need_sse_pc: bool = True) -> StepStats:
+                  need_sse_pc: bool = True, bf16: bool = False) -> StepStats:
     """Fold one (chunk, D) tile of points, whose distance tile ``d2`` is
     already computed, into the running statistics: argmin over the tile,
     one-hot products for sums and counts, fused SSE, per-cluster SSE and
     farthest point.  Rows of weight 0 contribute nothing.  The ``need_*``
     flags skip the optional statistics (their fields keep their initial
-    values)."""
+    values).  ``bf16`` rounds both factors of the sums' product to bf16
+    (the weighted one-hot and the points); the counts stay unrounded."""
     acc = carry.sums.dtype
     k = centroids.shape[0]
     need_min = need_sse or need_farthest or need_sse_pc
@@ -101,7 +120,10 @@ def consume_chunk(carry: StepStats, d2: torch.Tensor, xc: torch.Tensor,
     wc = wc.to(acc)
     ids = torch.arange(k, device=xc.device)
     onehot = (best[:, None] == ids[None, :]).to(acc) * wc[:, None]  # (c, k)
-    sums = carry.sums + onehot.T @ xc.to(acc)              # (k, D)
+    if bf16:
+        sums = carry.sums + round_bf16(onehot, acc).T @ round_bf16(xc, acc)
+    else:
+        sums = carry.sums + onehot.T @ xc.to(acc)          # (k, D)
     counts = carry.counts + onehot.sum(dim=0)
     sse = carry.sse + (mind2 * wc).sum() if need_sse else carry.sse
     sse_pc = (carry.sse_per_cluster + onehot.T @ mind2.to(acc)
@@ -127,7 +149,8 @@ def accumulate_chunk(carry: StepStats, xc: torch.Tensor, wc: torch.Tensor,
     d2 = pairwise_sq_dists(xc, centroids, mode=mode)
     return consume_chunk(carry, d2, xc, wc, centroids, need_sse=need_sse,
                          need_farthest=need_farthest,
-                         need_sse_pc=need_sse_pc)
+                         need_sse_pc=need_sse_pc,
+                         bf16=mode == "matmul_bf16")
 
 
 def assign_reduce(points: torch.Tensor, weights: torch.Tensor,

@@ -57,7 +57,7 @@ def _lib() -> ctypes.CDLL:
 
 def _check_estep(points, weights, shift, means_c, inv_var, log_det,
                  log_weights, dtypes=(torch.float32,)) -> None:
-    _check(points, means_c, weights, False, dtypes)
+    _check(points, means_c, weights, dtypes)
     k, d = means_c.shape
     for name, t, shape in (("shift", shift, (d,)),
                            ("inv_var", inv_var, (k, d)),

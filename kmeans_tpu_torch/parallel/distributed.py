@@ -7,8 +7,9 @@ branch of ``_pallas_local_stats``, the chunk scan of ``_local_stats``,
 statistics of the one device are the global ones.
 
 ``mode='kernel'`` runs the fused CUDA kernel of ``ops.hopper_kernels`` (its
-plain version when the tensors lie on the CPU); ``'matmul'`` and ``'direct'``
-run the chunked torch pass of ``ops.assign``.
+plain version when the tensors lie on the CPU) and ``'kernel_bf16'`` its bf16
+tensor-core kernel; ``'matmul'``, ``'matmul_bf16'`` and ``'direct'`` run the
+chunked torch pass of ``ops.assign``.
 """
 
 from __future__ import annotations
@@ -23,8 +24,8 @@ from kmeans_tpu_torch.ops.assign import (StepStats, _accum_dtype,
 from kmeans_tpu_torch.ops.hopper_kernels import (fused_assign_reduce,
                                                  hopper_assign)
 
-KERNEL_MODES = ("kernel",)
-TORCH_MODES = ("matmul", "direct")
+KERNEL_MODES = ("kernel", "kernel_bf16")
+TORCH_MODES = ("matmul", "matmul_bf16", "direct")
 
 
 def _weighted_sqnorm_total(points: torch.Tensor,
@@ -49,18 +50,19 @@ def _sse_from_stats(x2w, centroids, sums, counts, acc) -> torch.Tensor:
     return torch.clamp_min(x2w - 2.0 * cross + cnorm, 0.0).to(acc)
 
 
-def _kernel_local_stats(points, weights, centroids, *,
+def _kernel_local_stats(points, weights, centroids, *, bf16: bool = False,
                         need_sse: bool = True, need_farthest: bool = True,
                         need_sse_pc: bool = True, x2w=None) -> StepStats:
-    """One pass through the fused kernel, then the statistics it does not
-    produce itself, in torch ops on (n,) and (k, D) tensors.  The per-point
-    ``mind2`` is only asked of the kernel when something reads it."""
+    """One pass through the fused kernel (its bf16 form with ``bf16``), then
+    the statistics it does not produce itself, in torch ops on (n,) and
+    (k, D) tensors.  The per-point ``mind2`` is only asked of the kernel
+    when something reads it."""
     acc = _accum_dtype(points.dtype)
     k, d = centroids.shape
     w = weights.to(torch.float32)
     need_point = need_farthest or need_sse_pc or (need_sse and x2w is None)
     labels, mind2, sums, counts = fused_assign_reduce(
-        points, w, centroids, with_mind2=need_point)
+        points, w, centroids, bf16=bf16, with_mind2=need_point)
     zero = init_stats(k, d, acc, points.device)
     if not need_sse:
         sse = zero.sse
@@ -92,7 +94,8 @@ def local_stats(points, weights, centroids, *, chunk_size: int, mode: str,
     """The statistics of one pass over the device's points."""
     if mode in KERNEL_MODES:
         return _kernel_local_stats(
-            points, weights, centroids, need_sse=need_sse,
+            points, weights, centroids, bf16=mode == "kernel_bf16",
+            need_sse=need_sse,
             need_farthest=need_farthest, need_sse_pc=need_sse_pc, x2w=x2w)
     if mode not in TORCH_MODES:
         raise ValueError(f"unknown distance mode: {mode!r}")
@@ -105,9 +108,11 @@ def local_stats(points, weights, centroids, *, chunk_size: int, mode: str,
 def make_step_fn(*, chunk_size: int, mode: str = "matmul") -> Callable:
     """The step: ``(points, weights, centroids) -> StepStats``.
 
-    In the kernel mode the SSE comes from the algebraic form
+    In the kernel modes the SSE comes from the algebraic form
     (:func:`_sse_from_stats`), as in the JAX package's per-dispatch path: it
-    does not inherit the low bias of a minimum over rounded distances."""
+    does not inherit the low bias of a minimum over rounded distances.  In
+    ``'kernel_bf16'`` the sums carry bf16-rounded products, so the SSE is of
+    that class too (the JAX package's ``_sse_from_stats`` says the same)."""
 
     def step(points, weights, centroids) -> StepStats:
         x2w = None
@@ -121,12 +126,13 @@ def make_step_fn(*, chunk_size: int, mode: str = "matmul") -> Callable:
 
 def make_predict_fn(*, chunk_size: int, mode: str = "matmul") -> Callable:
     """The label assignment: ``(points, centroids) -> labels`` int32 (n,).
-    The kernel mode runs the assignment-only kernel: the fused one would
+    The kernel modes run the assignment-only kernel: the fused one would
     also scatter sums that nobody reads."""
 
     def predict(points, centroids) -> torch.Tensor:
         if mode in KERNEL_MODES:
-            return hopper_assign(points, centroids)[0]
+            return hopper_assign(points, centroids,
+                                 bf16=mode == "kernel_bf16")[0]
         if mode not in TORCH_MODES:
             raise ValueError(f"unknown distance mode: {mode!r}")
         return assign_labels(points, centroids, chunk_size=chunk_size,

@@ -165,7 +165,7 @@ def test_need_flags_keep_initial_values():
     np.testing.assert_array_equal(got.sums.numpy(), full.sums.numpy())
 
 
-@pytest.mark.parametrize("mode", ["matmul_bf16", "matmul_bf16_guarded"])
+@pytest.mark.parametrize("mode", ["matmul_bf16_guarded"])
 def test_later_modes_raise(mode):
     X, _, C = _case(16, 4, 3, np.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

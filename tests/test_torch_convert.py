@@ -19,7 +19,9 @@ from kmeans_tpu_torch import convert  # noqa: E402
 from kmeans_tpu_torch.utils import checkpoint as pt_ckpt  # noqa: E402
 
 MODES = [("pallas", "kernel", np.float32), ("matmul", "matmul", np.float64),
-         ("auto", "auto", np.float32)]
+         ("auto", "auto", np.float32),
+         ("pallas_bf16", "kernel_bf16", np.float32),
+         ("matmul_bf16", "matmul_bf16", np.float32)]
 
 
 def _blobs(n=800, d=6, centers=5, seed=0, dtype=np.float32):

@@ -196,7 +196,6 @@ def test_nan_row_among_the_data_is_a_divergence_error():
     ("pipeline", 1), ("bucket", "auto"), ("overlap", 1), ("ingest", "slab"),
     ("k_shard", 2), ("assign", "two_level"), ("coarse_cells", 8),
     ("nprobe", 2), ("init_cap", 512), ("init", "k-means||"),
-    ("distance_mode", "pallas_bf16"), ("distance_mode", "matmul_bf16"),
     ("distance_mode", "matmul_bf16_guarded")])
 def test_unported_arguments_raise(arg, value):
     X = _blobs(n=100, d=3, centers=3)

@@ -23,9 +23,12 @@ PORT_FILES = sorted((ROOT / "kmeans_tpu_torch").rglob("*.py")) \
 
 MODULES = ["kmeans_tpu_torch", "kmeans_tpu_torch.convert",
            "kmeans_tpu_torch.data.synthetic",
+           "kmeans_tpu_torch.experiments",
+           "kmeans_tpu_torch.experiments.exp_pallas_kernel",
            "kmeans_tpu_torch.models.gmm",
            "kmeans_tpu_torch.models.init", "kmeans_tpu_torch.models.kmeans",
            "kmeans_tpu_torch.ops._build", "kmeans_tpu_torch.ops.assign",
+           "kmeans_tpu_torch.ops.compare",
            "kmeans_tpu_torch.ops.estep_kernels",
            "kmeans_tpu_torch.ops.hopper_kernels",
            "kmeans_tpu_torch.parallel.distributed",
@@ -114,9 +117,16 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     ref2 = hk.assign_reference(x, c)
     assert all(torch.equal(a, b) for a, b in zip(got2, ref2))
     assert hk.fused_assign_reduce(x, w, c, with_mind2=False)[1] is None
-    km = kmeans_tpu_torch.KMeans(k=11, device="cpu", distance_mode="kernel",
-                                 verbose=False, max_iter=3).fit(x.numpy())
-    km.predict(x.numpy())
+    got3 = hk.fused_assign_reduce(x, w, c, bf16=True)
+    ref3 = hk.fused_assign_reduce_reference(x, w, c, bf16=True)
+    assert all(torch.equal(a, b) for a, b in zip(got3, ref3))
+    assert all(torch.equal(a, b) for a, b in zip(
+        hk.hopper_assign(x, c, bf16=True),
+        hk.assign_reference(x, c, bf16=True)))
+    for mode in ("kernel", "kernel_bf16"):
+        km = kmeans_tpu_torch.KMeans(k=11, device="cpu", distance_mode=mode,
+                                     verbose=False, max_iter=3).fit(x.numpy())
+        km.predict(x.numpy())
     gm = kmeans_tpu_torch.GaussianMixture(n_components=4, device="cpu",
                                           max_iter=3).fit(x.numpy())
     gm.predict(x.numpy())
@@ -124,26 +134,43 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     # One table for every kernel of the package, and no launch on the CPU.
     assert hk.LAUNCHES is _build.LAUNCHES
     assert hk.LAUNCHES == {"fused_assign_reduce": 0, "hopper_assign": 0,
-                           "diag_estep": 0}
+                           "fused_assign_reduce_bf16": 0,
+                           "hopper_assign_bf16": 0, "diag_estep": 0}
     hk.LAUNCHES["diag_estep"] = 5
     hk.reset_launch_counts()
     assert set(hk.LAUNCHES.values()) == {0}
 
 
 def test_kernel_sources_ship_with_the_package():
-    assert _build.source_names() == ["assign_kernels", "gmm_estep"]
+    assert _build.source_names() == ["assign_bf16", "assign_kernels",
+                                     "gmm_estep"]
     src = (_build.CSRC_DIR / "assign_kernels.cu").read_text()
     for name in ("kmeans_assign_launch", "kmeans_fused_assign_reduce_launch",
                  "assign_kernel", "fused_assign_reduce_kernel",
-                 "reduce_partials_kernel", "pallas_kernels.py"):
+                 "reduce_partials_kernel", "pallas_kernels.py",
+                 "kmeans_tile_rows", "kmeans_scratch_bytes", "KM_TILE_K",
+                 "KM_PIPE"):
         assert name in src
+    bf16 = (_build.CSRC_DIR / "assign_bf16.cu").read_text()
+    for name in ("kmeans_assign_bf16_launch",
+                 "kmeans_fused_assign_reduce_bf16_launch",
+                 "assign_bf16_kernel", "fused_assign_reduce_bf16_kernel",
+                 "prep_centroids_kernel", "reduce_partials_kernel",
+                 "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
+                 "pallas_kernels.py:542", "kmeans_tile_rows",
+                 "kmeans_scratch_bytes", "KM_TILE_N", "KM_TILE_K",
+                 "KM_PIPE"):
+        assert name in bf16
+    common = (_build.CSRC_DIR / "assign_common.cuh").read_text()
+    assert "reduce_partials_kernel" in common
     gmm = (_build.CSRC_DIR / "gmm_estep.cu").read_text()
     for name in ("gmm_diag_estep_launch", "estep_kernel",
                  "estep_tables_kernel", "estep_reduce_kernel",
                  "exp_gmm_estep_pallas.py"):
         assert name in gmm
     for banned in ("cublas", "cutlass", "torch/extension.h"):
-        assert banned not in src.lower() and banned not in gmm.lower()
+        for text in (src, gmm, bf16, common):
+            assert banned not in text.lower()
     lib = _build.library_path("assign_kernels")
     assert lib.parent == _build.BUILD_DIR and lib.suffix == ".so"
     assert re.fullmatch(r"libassign_kernels_[0-9a-f]{16}\.so", lib.name)
@@ -165,3 +192,19 @@ def test_a_build_without_nvcc_raises_and_does_not_fall_back(monkeypatch):
             _build.build()
     with pytest.raises(_build.KernelCompileError, match="no such kernel"):
         _build.load("no_such_source")
+
+
+def test_a_loaded_library_is_found_without_hashing_the_sources(monkeypatch):
+    """A wrapper asks for its library on every call: once loaded, the
+    library is looked up without reading or hashing ``csrc`` again."""
+    fake = object()
+    monkeypatch.setitem(_build._LIBS, ("assign_kernels", ()), fake)
+    monkeypatch.setitem(_build._LIBS, ("assign_bf16", (("KM_TILE_K", 64),)),
+                        fake)
+
+    def no_hash(*args):
+        raise AssertionError("the sources were hashed again")
+
+    monkeypatch.setattr(_build, "_sources_hash", no_hash)
+    assert _build.load("assign_kernels") is fake
+    assert _build.load_variant("assign_bf16", {"KM_TILE_K": 64}) is fake
