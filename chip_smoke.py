@@ -71,6 +71,7 @@ GMM = dict(n=2_097_152, d=128, k=256, iters=5, center_box=(990.0, 1010.0))
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates).
 PEAK_FP32_FLOPS = 67e12          # float32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12         # TF32 tensor cores
 PEAK_BF16_FLOPS = 989e12         # bf16 tensor cores
 PEAK_BYTES_PER_S = 3.35e12       # HBM3
 
@@ -188,7 +189,8 @@ label_band, close, max_err = cmp.label_band, cmp.close, cmp.max_err
 def compare_case(name, x, w, c, *, with_mind2=True, unit_weights=False,
                  expect_label=None, bf16=False):
     """Both kernels (the bf16 ones with ``bf16``) on one set of inputs
-    against their plain versions.  Returns the case's record; raises on any
+    against their plain versions.  ``expect_label`` is (row, label) that
+    both kernels must give.  Returns the case's record; raises on any
     disagreement."""
     out = hk.fused_assign_reduce(x, w, c, with_mind2=with_mind2, bf16=bf16)
     again = hk.fused_assign_reduce(x, w, c, with_mind2=with_mind2,
@@ -264,7 +266,7 @@ def random_case(n, d, k, seed):
 
 
 def phase_kernels(x_main, c_main, x_second, bf16=False):
-    """The nine cases, for the float32 kernels or (``bf16``) the bf16
+    """The ten cases, for the float32 kernels or (``bf16``) the bf16
     ones."""
     records = []
     shapes = [(4099, 100, 3000), (8192, 128, 1024), (1000, 7, 5),
@@ -288,6 +290,23 @@ def phase_kernels(x_main, c_main, x_second, bf16=False):
     w[7] = 0.0
     records.append(compare_case("nan_row", x, w, c, expect_label=(7, 0),
                                 bf16=bf16))
+    # One +Inf coordinate: every score is +-inf, none NaN, so the row gets a
+    # real label, the plain version's: the lowest centroid whose coordinate
+    # is positive (a split that made Inf - Inf = NaN would give label 0; a
+    # label other than the plain version's has a NaN margin, which
+    # label_band counts as outside the band).  The other features sit near
+    # 1e3, where the float32 kernels shift their frame: the shift must keep
+    # those signs.
+    x, w, c = random_case(2000, 40, 300, seed=10)
+    x += 1e3
+    c += 1e3
+    c[:, 5] -= 1e3                     # a column of both signs, ...
+    c[:3, 5] = -c[:3, 5].abs()         # ... negative for the first three
+    x[11, 5] = float("inf")
+    w[11] = 1.0
+    want = int((c[:, 5] > 0).nonzero()[0])
+    records.append(compare_case("inf_coordinate", x, w, c,
+                                expect_label=(11, want), bf16=bf16))
     w_main = torch.ones(x_main.shape[0], device=DEV)
     records.append(compare_case("main_shape", x_main, w_main, c_main,
                                 unit_weights=True, bf16=bf16))
@@ -647,12 +666,15 @@ def median_ms(fn, runs=10, warmup=2) -> float:
 
 
 def bounds(n, d, k, fused: bool, bf16: bool = False):
-    """(bound ms, what bounds it, bytes, operations, bf16 bound ms): each
-    input read once, each output written once; float32 operations at the
-    non-tensor rate.  With ``bf16`` the product's 2nkD operations run at the
-    tensor cores' bf16 rate and the rest at the float32 rate; the two issue
-    side by side, so the operations take the longer of the two times.  The
-    fifth field is always the bound at the bf16 rate."""
+    """(bound ms, what bounds it, bytes, operations, scalar float32 bound
+    ms): each input read once, each output written once.  The product's
+    2nkD operations run on the tensor cores: with ``bf16`` at the bf16 rate,
+    else as three TF32 products each (3xTF32, which keeps float32's
+    accuracy) at the TF32 rate; the rest (h - x.c, the norms, the scatter)
+    at the float32 rate outside them.  The two kinds issue side by side, so
+    the operations take the longer of the two times.  The fifth field is
+    the bound of a kernel that does every operation at the float32
+    non-tensor rate."""
     byt = 4 * (n * d + k * d + 2 * n)              # x, c, labels, mind2
     # products, h - x.c, ||x||^2, h
     product = 2 * n * k * d
@@ -662,10 +684,12 @@ def bounds(n, d, k, fused: bool, bf16: bool = False):
         ops += 2 * n * d + n                       # the scatter
     t_bytes = byt / PEAK_BYTES_PER_S * 1e3
     rest_ms = (ops - product) / PEAK_FP32_FLOPS * 1e3
-    bf16_ms = max(product / PEAK_BF16_FLOPS * 1e3, rest_ms)
-    t_ops = bf16_ms if bf16 else ops / PEAK_FP32_FLOPS * 1e3
+    tensor_ms = (product / PEAK_BF16_FLOPS if bf16
+                 else 3 * product / PEAK_TF32_FLOPS) * 1e3
+    t_ops = max(tensor_ms, rest_ms)
     by = "operations" if t_ops >= t_bytes else "bytes"
-    return max(t_bytes, t_ops), by, byt, ops, max(t_bytes, bf16_ms)
+    scalar_ms = max(t_bytes, ops / PEAK_FP32_FLOPS * 1e3)
+    return max(t_bytes, t_ops), by, byt, ops, scalar_ms
 
 
 def library_assign(x, c, block=65536):
@@ -725,7 +749,7 @@ def phase_timing(x, c, errs, launches, iter_seconds):
          lambda: library_assign_bf16(x, c)),
     ]
     for name, fused, bf16, source, replaces, kernel, plain, library in specs:
-        bound_ms, by, byt, ops, bf16_ms = bounds(n, d, k, fused, bf16)
+        bound_ms, by, byt, ops, scalar_ms = bounds(n, d, k, fused, bf16)
         before = clocks()
         ms = median_ms(kernel)
         after = clocks()
@@ -739,9 +763,19 @@ def phase_timing(x, c, errs, launches, iter_seconds):
              plain_ms=rows[-1]["plain_ms"],
              library_ms=rows[-1]["library_ms"], bound_ms=bound_ms,
              bound_by=by, bytes=byt, operations=ops,
-             bf16_tensor_core_bound_ms=bf16_ms,
+             tensor_core_rate="bf16" if bf16 else "3xTF32",
+             scalar_float32_bound_ms=scalar_ms,
              roofline_share=bound_ms / ms,
              clocks_power_temperature=[before, after])
+    # The scatter's share of the fused kernel: the fused pass less the
+    # assignment-only pass on the same inputs.
+    by_name = {row["name"]: row["ms"] for row in rows}
+    for suffix in ("", "_bf16"):
+        fused_ms = by_name["fused_assign_reduce" + suffix]
+        scatter_ms = fused_ms - by_name["hopper_assign" + suffix]
+        emit("scatter_share", kernel="fused_assign_reduce" + suffix,
+             fused_ms=fused_ms, scatter_ms=scatter_ms,
+             share=scatter_ms / fused_ms)
     # The whole step on the device (the fused kernel, the algebraic SSE's
     # sum of w ||x||^2, per-cluster SSE and farthest point), beside the
     # host's wall time for one iteration of the fit.
@@ -912,15 +946,19 @@ def main() -> None:
                       for v in lab_variants})
     emit("registers", **{name: resource_usage(path)
                          for name, path in libraries.items()})
-    # The bf16 kernels' products run on the tensor cores: their machine
-    # code holds HMMA instructions.
-    sass = subprocess.run(
-        [str(Path(_build.find_nvcc()).parent / "cuobjdump"), "-sass",
-         str(_build.library_path(hk.LIB_NAMES[True]))], capture_output=True,
-        text=True, check=True).stdout
-    hmma = sum("HMMA" in line for line in sass.splitlines())
-    check(hmma > 0, "the bf16 library holds no HMMA instruction")
-    emit("sass", library=hk.LIB_NAMES[True], hmma_instructions=hmma)
+    # Both K-Means kernel classes run their products on the tensor cores
+    # (bf16, and 3xTF32 for float32): their machine code holds HMMA
+    # instructions.
+    hmma = {}
+    for lib_name in hk.LIB_NAMES.values():
+        sass = subprocess.run(
+            [str(Path(_build.find_nvcc()).parent / "cuobjdump"), "-sass",
+             str(_build.library_path(lib_name))], capture_output=True,
+            text=True, check=True).stdout
+        hmma[lib_name] = sum("HMMA" in line for line in sass.splitlines())
+        check(hmma[lib_name] > 0,
+              f"the {lib_name} library holds no HMMA instruction")
+    emit("sass", hmma_instructions=hmma)
 
     x_main, _ = make_blobs_device(MAIN["n"], MAIN["k"], MAIN["d"],
                                   device=DEV, seed=1)

@@ -45,7 +45,9 @@
 // multiplied, and shared memory holds two slices, so one barrier per slice
 // suffices.  A warp holds all TILE_K centroids of its 16 rows, so a row's
 // minimum over a tile needs only the four threads of a quad (two shuffles)
-// and never crosses warps.  No bf16 copy of x is kept.
+// and never crosses warps; that epilogue (tile_min) lives in
+// assign_common.cuh, shared with the float32 kernels, whose accumulators
+// have the same layout.  No bf16 copy of x is kept.
 //
 // The segmented sum is the float32 kernel's: every persistent block adds
 // into a (k, D + 1) table of its own, one thread owns each (column, label
@@ -183,10 +185,11 @@ __device__ __forceinline__ void multiply_slice(const Stage& s,
     }
 }
 
-// Labels (and the minimum score) of the rows  row0 .. row0 + BM - 1.  On
-// return lane (g, t) of warp w holds in best_v/best_i[0] the result of row
+// The minimum score of each of the rows  row0 .. row0 + BM - 1  over all
+// centroids, in the layout of tile_min (assign_common.cuh): on return lane
+// (g, t) of warp w holds in best_v/best_i[0] the running pair of row
 // w*16 + g and in [1] that of row w*16 + g + 8, the same in the four lanes
-// of the quad.
+// of the quad, and `bad` the rows' NaN flags.
 template <bool VEC4>
 __device__ __forceinline__ void assign_tile(const float* __restrict__ x,
                                             const __nv_bfloat16* __restrict__ cb,
@@ -194,9 +197,9 @@ __device__ __forceinline__ void assign_tile(const float* __restrict__ x,
                                             long long row0, long long n,
                                             int d, int dp, int k,
                                             Stage (&st)[2], unsigned& stage,
-                                            float best_v[2], int best_i[2]) {
-    const int t = threadIdx.x & 3;
-    unsigned bad = 0;                  // bit r: row r met a NaN score
+                                            float best_v[2], int best_i[2],
+                                            unsigned& bad) {
+    bad = 0;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
         best_v[r] = CUDART_INF_F;      // the running pair starts at (+inf, 0)
@@ -230,54 +233,25 @@ __device__ __forceinline__ void assign_tile(const float* __restrict__ x,
             }
             multiply_slice(buf, acc);
         }
-
-        // This tile's minimum of each row: first over the lane's own
-        // columns in rising order, then over the four lanes of the quad.
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-            float v = CUDART_INF_F;
-            int idx = NO_INDEX;
-            bool nan = false;
-#pragma unroll
-            for (int j = 0; j < NT; ++j)
-#pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    const int col = c0 + j * 8 + 2 * t + e;
-                    if (col < k) {
-                        const float sc = __ldg(h + col) - acc[j][2 * r + e];
-                        nan |= (sc != sc);
-                        if (sc < v) { v = sc; idx = col; }
-                    }
-                }
-#pragma unroll
-            for (int off = 1; off <= 2; off <<= 1) {
-                const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-                const int oi = __shfl_xor_sync(0xffffffffu, idx, off);
-                const int on = __shfl_xor_sync(0xffffffffu, (int)nan, off);
-                take_min(v, idx, ov, oi);
-                nan |= (on != 0);
-            }
-            bad |= (unsigned)nan << r;
-            // Strict: an earlier tile keeps a tie.
-            if (v < best_v[r]) { best_v[r] = v; best_i[r] = idx; }
-        }
+        tile_min<NT>(acc, c0, k, h, best_v, best_i, bad);
     }
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-        if (bad & (1u << r)) { best_v[r] = CUDART_INF_F; best_i[r] = 0; }
 }
 
-// Writes the labels (and mind2) of a tile from lane 0 of each quad; with
-// KEEP also leaves the labels in lab_s for the scatter.
+// Writes the labels (and mind2) of a tile from lane 0 of each quad, in the
+// layout of tile_min (one warp for every 16 rows); with KEEP also leaves the
+// labels in lab_s for the scatter.  A row whose scores met a NaN (bit r of `bad`) gets label 0 and
+// the minimum +inf.
 template <bool KEEP>
-__device__ __forceinline__ void write_tile(const float best_v[2],
-                                           const int best_i[2],
-                                           long long row0, long long n,
-                                           const float* x2s,
+__device__ __forceinline__ void write_tile(float best_v[2], int best_i[2],
+                                           unsigned bad, long long row0,
+                                           long long n, const float* x2s,
                                            int* __restrict__ labels,
                                            float* __restrict__ mind2,
                                            int* lab_s) {
     const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+        if (bad & (1u << r)) { best_v[r] = CUDART_INF_F; best_i[r] = 0; }
     if ((lane & 3) != 0) return;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -310,13 +284,14 @@ assign_bf16_kernel(const float* __restrict__ x,
         const long long row0 = t * BM;
         float best_v[2];
         int best_i[2];
+        unsigned bad;
         assign_tile<VEC4>(x, cb, h, row0, n, d, dp, k, st, stage, best_v,
-                          best_i);
+                          best_i, bad);
         if (mind2 != nullptr) {
             row_sqnorms<BM, THREADS>(x, row0, n, d, x2s);
             __syncthreads();
         }
-        write_tile<false>(best_v, best_i, row0, n, x2s, labels, mind2,
+        write_tile<false>(best_v, best_i, bad, row0, n, x2s, labels, mind2,
                           nullptr);
         __syncthreads();               // x2s and the stages are free again
     }
@@ -353,15 +328,17 @@ fused_assign_reduce_bf16_kernel(const float* __restrict__ x,
         const long long row0 = t * BM;
         float best_v[2];
         int best_i[2];
+        unsigned bad;
         assign_tile<VEC4>(x, cb, h, row0, n, d, dp, k, st, stage, best_v,
-                          best_i);
+                          best_i, bad);
         if (mind2 != nullptr) row_sqnorms<BM, THREADS>(x, row0, n, d, x2s);
         if (threadIdx.x < BM) {
             const long long row = row0 + threadIdx.x;
             ws[threadIdx.x] = row < n ? w[row] : 0.f;
         }
         __syncthreads();
-        write_tile<true>(best_v, best_i, row0, n, x2s, labels, mind2, lab_s);
+        write_tile<true>(best_v, best_i, bad, row0, n, x2s, labels, mind2,
+                         lab_s);
         __syncthreads();
 
         if (group < groups) {

@@ -3,9 +3,10 @@
 Counterpart of ``experiments/exp_pallas_kernel.py`` (``build_kernel`` and the
 harness around it); the name is kept so that a reader finds it, but nothing
 here is Pallas.  A variant is a compile-time build of one of the port's CUDA
-sources under ``-D`` defines: ``csrc/assign_kernels.cu`` (float32 products)
-or, with flag ``b``, ``csrc/assign_bf16.cu`` (bf16 products on the tensor
-cores).  Each variant is first checked against the port's plain version
+sources under ``-D`` defines: ``csrc/assign_kernels.cu`` (float32-accurate
+3xTF32 products on the tensor cores) or, with flag ``b``,
+``csrc/assign_bf16.cu`` (bf16 products on the tensor cores).  Each variant
+is first checked against the port's plain version
 (``hopper_kernels.fused_assign_reduce_reference``), with the tolerances of
 ``ops/compare.py`` that ``chip_smoke.py`` also holds the kernels to: on a
 4096-row slice whose weights hold zeros, and on the whole of the inputs it
@@ -22,10 +23,12 @@ Usage::
     spec    name=tile_n,tile_k,flags       e.g.  f32=128,128,p  bf=64,128,pb
     tile_n  rows of a block's tile: 128 (float32); 128 or 64 (bf16)
     tile_k  centroids of a tile: 128 or 64
-    flags   p  fetch the next 16-feature slice into registers while the
-               current one is multiplied (KM_PIPE=1); without it: load,
-               barrier, multiply
-            b  the bf16 tensor-core kernel instead of the float32 one
+    flags   p  fetch the next 16-feature slice while the current one is
+               multiplied (KM_PIPE=1): float32, cp.async of the split
+               centroids into a second buffer; bf16, a load into
+               registers.  Without it: load, barrier, multiply
+            b  the bf16 tensor-core kernel instead of the float32 (3xTF32
+               tensor-core) one
     The TPU-only flags of the JAX lab, m (manual argmin), o (counts through
     a ones column) and f (h folded into the product), have no counterpart
     and raise ValueError.

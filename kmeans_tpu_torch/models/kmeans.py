@@ -18,13 +18,15 @@ The model runs on the card unless the caller asks for the CPU:
 Behaviour kept from the JAX package: seeded Forgy / k-means++ initialisation
 with the same host-side NumPy draws; SSE measured against the iteration's
 STARTING centroids, with a warning on a rise above 1e-6; a hard error on
-non-finite centroids; deterministic empty-cluster resampling seeded per
-iteration with ``np.random.default_rng([seed, iteration + 1])``; best of
-``n_init`` restarts by the true final inertia; the ``.npz`` checkpoint format.
+non-finite centroids or a non-finite SSE; deterministic empty-cluster
+resampling seeded per iteration with
+``np.random.default_rng([seed, iteration + 1])``; best of ``n_init``
+restarts by the true final inertia; the ``.npz`` checkpoint format.
 """
 
 from __future__ import annotations
 
+import math
 import time
 import warnings
 from typing import Callable, List, Optional, Union
@@ -142,8 +144,10 @@ class KMeans:
     compute_labels : materialise ``labels_`` at the end of ``fit`` with one
         extra assignment pass.
     empty_cluster : 'resample' | 'farthest' | 'keep'.
-    dtype : float32 (default), or float64 with ``distance_mode`` 'matmul' or
-        'direct'.
+    dtype : float32 (default) or float64.  In float64 the kernel modes
+        compute on float32 casts of the points and centroids (the kernels
+        are a float32 engine, as the JAX package's are), while the mean
+        division and ``centroids`` stay float64; 'auto' is then 'matmul'.
     chunk_size : rows per chunk of the plain torch pass (None: automatic).
     distance_mode : 'auto' | 'kernel' | 'kernel_bf16' | 'matmul' |
         'matmul_bf16' | 'direct'.  'kernel' is the fused CUDA kernel
@@ -152,8 +156,8 @@ class KMeans:
         'pallas' and 'pallas_bf16', the JAX package's names of those modes
         (and the checkpoints'), are read as 'kernel' and 'kernel_bf16'.
         'matmul_bf16' is the torch pass with the same bf16 rule.  On a CUDA
-        device 'auto' is 'kernel', on the CPU it is 'matmul'; it is never a
-        bf16 mode.
+        device 'auto' is 'kernel' in float32, on the CPU or in float64 it is
+        'matmul'; it is never a bf16 mode.
     verbose : per-iteration log lines.
     device : None (the card) | 'cuda' | 'cuda:N' | 'cpu'.
 
@@ -219,13 +223,6 @@ class KMeans:
         self.verbose = verbose
         validate_params(k, max_iter, tolerance)
         self.device = resolve_device(device)
-        if self._mode() in dist.KERNEL_MODES and \
-                self.dtype != np.dtype(np.float32):
-            raise ValueError(
-                f"distance_mode={self._mode()!r} (the kernel modes; 'kernel' "
-                f"is the default on a CUDA device) takes float32 points; "
-                f"dtype {self.dtype} needs distance_mode='matmul' or "
-                f"'direct'")
 
         self.centroids: Optional[np.ndarray] = None
         self.sse_history: List[float] = []
@@ -242,10 +239,13 @@ class KMeans:
 
     def _mode(self) -> str:
         """``distance_mode`` with 'auto' resolved: the kernel on a CUDA
-        device, always; the torch pass on the CPU."""
+        device at every shape in float32; the torch pass on the CPU, and in
+        float64, whose user asked for float64 arithmetic (the JAX package's
+        ``resolve_auto`` rule for x64 data)."""
         if self.distance_mode != "auto":
             return self.distance_mode
-        return "kernel" if self.device.type == "cuda" else "matmul"
+        return "kernel" if self.device.type == "cuda" and \
+            self.dtype == np.dtype(np.float32) else "matmul"
 
     def _chunk_for(self, n: int, d: int) -> int:
         tile_k = self.k * d if self._mode() == "direct" else self.k
@@ -360,17 +360,19 @@ class KMeans:
     def _run_restart(self, ds: Dataset, step_fn, centroids: np.ndarray,
                      seed: int, log: IterationLogger) -> "KMeans":
         """One restart: the host loop.  One step on the device per
-        iteration; its sums and counts come to the host as float64, which is
-        also the iteration's synchronisation point."""
+        iteration; its sums, and its counts with the SSE behind them, come
+        to the host as float64, which is also the iteration's
+        synchronisation point."""
         cents_dev = self._put_centroids(centroids)
         for iteration in range(self.max_iter):
             iter_start = time.perf_counter()
             stats: StepStats = step_fn(ds.points, ds.weights, cents_dev)
             sums = stats.sums.to(torch.float64).cpu().numpy()
-            counts = stats.counts.to(torch.float64).cpu().numpy()
+            tail = torch.cat([stats.counts.to(torch.float64),
+                              stats.sse.to(torch.float64).reshape(1)])
+            tail = tail.cpu().numpy()
             centroids, max_shift = self._finish_lloyd_iteration(
-                centroids, sums, counts,
-                float(stats.sse) if self.compute_sse else 0.0, stats, ds,
+                centroids, sums, tail[:-1], float(tail[-1]), stats, ds,
                 iteration, log, seed, iter_start)
             if max_shift < self.tolerance:
                 log.converged(iteration + 1)
@@ -384,7 +386,14 @@ class KMeans:
         float64, empty-cluster handling, the postprocess hook, SSE
         bookkeeping and the rise warning, the non-finite guard, the shift,
         the log line and the fitted-state writes.  Returns
-        ``(new_centroids, max_shift)``."""
+        ``(new_centroids, max_shift)``.
+
+        The guard raises on non-finite centroids, or on a non-finite SSE
+        (``sse_val``, the step's, recorded only with ``compute_sse``): the
+        kernels keep a zero-weight row that holds NaN or Inf out of the sums
+        and counts, where the JAX package's one-hot product carries it into
+        every centroid; ``sum w ||x||^2`` behind the SSE still carries its
+        ``0 * NaN``, so both raise at the same iteration."""
         nonempty = counts > 0
         new_centroids = np.where(
             nonempty[:, None],
@@ -402,7 +411,8 @@ class KMeans:
                     sse_val > self.sse_history[-2] + 1e-6:
                 log.warn_sse_increase(self.sse_history[-2], sse_val)
 
-        if not np.all(np.isfinite(new_centroids)):
+        if not (np.all(np.isfinite(new_centroids))
+                and math.isfinite(sse_val)):
             raise NumericalDivergenceError(iteration + 1)
 
         shifts = np.linalg.norm(

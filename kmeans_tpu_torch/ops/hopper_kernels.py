@@ -21,7 +21,8 @@ Arithmetic, shared with the plain versions below:
 * A row with a NaN score (a row holding NaN, or Inf against centroids of both
   signs) gets label 0; so does a row whose scores never drop below ``+inf``.
 * Rows of weight 0 add nothing to sums or counts.
-* float32 products and float32 accumulation; with ``bf16=True`` both
+* float32-accurate products (on the card, three TF32 tensor-core products
+  per product, 3xTF32) and float32 accumulation; with ``bf16=True`` both
   products take bf16-rounded inputs (x and c for the distances, w and x for
   the sums: ``sums = sum bf16(w) bf16(x)``) and accumulate in float32,
   while ``h``, ``||x||^2`` and the counts (``sum w``) stay float32 from the
@@ -65,7 +66,7 @@ _ENTRIES = {False: ("kmeans_assign_launch",
             True: ("kmeans_assign_bf16_launch",
                    "kmeans_fused_assign_reduce_bf16_launch")}
 _TILE_ROWS = 128                  # rows of a block's tile at the default
-_BLOCKS_PER_SM = 2                # persistent blocks of 2 * 128 threads
+_BLOCKS_PER_SM = 2                # persistent blocks of a 128-row tile
 #: Budget for the fused kernel's per-block tables; fewer blocks run when
 #: blocks * k * (D + 1) floats would exceed it.
 _PARTIAL_BUDGET_BYTES = 2 << 30
@@ -130,9 +131,11 @@ def _check(points: torch.Tensor, centroids: torch.Tensor,
 
 def _blocks(device: torch.device, n: int, table_floats: int = 0,
             tile_rows: int = _TILE_ROWS) -> int:
-    """Persistent blocks of a launch: as many as fit on the card (blocks of
-    ``2 * tile_rows`` threads, 512 threads on each SM), no more than there
-    are row tiles, and within the per-block tables' budget."""
+    """Persistent blocks of a launch: as many as fit on the card (two
+    128-row blocks on each SM: the float32 kernels' 128 threads at up to
+    255 registers, or the bf16 kernels' 256 threads at 128; a bf16 block of
+    64 rows takes half of that), no more than there are row tiles, and
+    within the per-block tables' budget."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     per_sm = _BLOCKS_PER_SM * _TILE_ROWS // tile_rows
     blocks = min(per_sm * sms, -(-n // tile_rows))

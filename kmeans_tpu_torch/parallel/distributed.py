@@ -9,7 +9,10 @@ statistics of the one device are the global ones.
 ``mode='kernel'`` runs the fused CUDA kernel of ``ops.hopper_kernels`` (its
 plain version when the tensors lie on the CPU) and ``'kernel_bf16'`` its bf16
 tensor-core kernel; ``'matmul'``, ``'matmul_bf16'`` and ``'direct'`` run the
-chunked torch pass of ``ops.assign``.
+chunked torch pass of ``ops.assign``.  The kernels are a float32 engine:
+float64 points and centroids reach them as float32 casts, as in the JAX
+package (``pallas_kernels._pad_inputs``), and their sums and counts come back
+in the points' type.
 """
 
 from __future__ import annotations
@@ -62,7 +65,8 @@ def _kernel_local_stats(points, weights, centroids, *, bf16: bool = False,
     w = weights.to(torch.float32)
     need_point = need_farthest or need_sse_pc or (need_sse and x2w is None)
     labels, mind2, sums, counts = fused_assign_reduce(
-        points, w, centroids, bf16=bf16, with_mind2=need_point)
+        points.to(torch.float32), w, centroids.to(torch.float32), bf16=bf16,
+        with_mind2=need_point)
     zero = init_stats(k, d, acc, points.device)
     if not need_sse:
         sse = zero.sse
@@ -131,7 +135,8 @@ def make_predict_fn(*, chunk_size: int, mode: str = "matmul") -> Callable:
 
     def predict(points, centroids) -> torch.Tensor:
         if mode in KERNEL_MODES:
-            return hopper_assign(points, centroids,
+            return hopper_assign(points.to(torch.float32),
+                                 centroids.to(torch.float32),
                                  bf16=mode == "kernel_bf16")[0]
         if mode not in TORCH_MODES:
             raise ValueError(f"unknown distance mode: {mode!r}")

@@ -41,6 +41,8 @@ from kmeans_tpu.ops.pallas_kernels import (  # noqa: E402
     fused_assign_reduce as pallas_fused, pallas_assign)
 from kmeans_tpu_torch.data.synthetic import make_blobs  # noqa: E402
 from kmeans_tpu_torch.experiments import exp_pallas_kernel as lab  # noqa: E402
+from kmeans_tpu_torch.experiments import \
+    exp_kernel_edits as kernel_edits  # noqa: E402
 from kmeans_tpu_torch.ops import _build  # noqa: E402
 from kmeans_tpu_torch.ops import assign as pt  # noqa: E402
 from kmeans_tpu_torch.ops import hopper_kernels as hk  # noqa: E402
@@ -310,13 +312,20 @@ def test_bf16_mode_names_and_dtype():
     assert kmeans_tpu_torch.KMeans(
         k=3, device="cpu", distance_mode="matmul_bf16")._mode() == \
         "matmul_bf16"
-    with pytest.raises(ValueError, match="float32"):
-        kmeans_tpu_torch.KMeans(k=3, device="cpu",
-                                distance_mode="pallas_bf16",
-                                dtype=np.float64)
+    # float64 is taken as the JAX package takes it: the kernel runs on
+    # float32 casts, the centroids stay float64.
+    X, _ = make_blobs(300, 3, 5, random_state=1, dtype=np.float64)
+    km64 = kmeans_tpu_torch.KMeans(k=3, device="cpu", dtype=np.float64,
+                                   distance_mode="pallas_bf16", verbose=False,
+                                   max_iter=5).fit(X)
+    assert km64._mode() == "kernel_bf16"
+    assert km64.centroids.dtype == np.float64
+    ref = hk.assign_reference(_t(X.astype(np.float32)),
+                              _t(km64.centroids.astype(np.float32)),
+                              bf16=True)[0]
+    np.testing.assert_array_equal(km64.predict(X), ref.numpy())
     # matmul_bf16 is a torch pass: float64 is taken, and only the product's
     # inputs are rounded.
-    X, _ = make_blobs(300, 3, 5, random_state=1, dtype=np.float64)
     pm = kmeans_tpu_torch.KMeans(k=3, device="cpu", dtype=np.float64,
                                  distance_mode="matmul_bf16", verbose=False,
                                  max_iter=5).fit(X)
@@ -411,3 +420,20 @@ def test_lab_build_without_nvcc_raises_and_does_not_fall_back(monkeypatch,
 
 def _no_nvcc():
     raise _build.KernelCompileError("nvcc not found (test)")
+
+
+def test_kernel_edits_apply_to_the_source_and_build_only_with_nvcc(
+        monkeypatch, tmp_path):
+    variants = kernel_edits.load_edits(kernel_edits.DEFAULT_EDITS)
+    src = (_build.CSRC_DIR / "assign_kernels.cu").read_text()
+    texts = {name: kernel_edits.apply_edits(src, edits)
+             for name, edits in variants.items()}
+    assert texts["as_is"] == src and len(texts) > 1
+    assert len(set(texts.values())) == len(texts)
+    with pytest.raises(ValueError, match="not once"):
+        kernel_edits.apply_edits(src, [{"old": "no such text", "new": ""}])
+    monkeypatch.setattr(kernel_edits, "EDITS_DIR", tmp_path / "edits")
+    monkeypatch.setattr(_build, "find_nvcc", _no_nvcc)
+    with pytest.raises(_build.KernelCompileError, match="nvcc not found"):
+        kernel_edits.build({"as_is": []})
+    assert kernel_edits.main([]) == 2

@@ -21,7 +21,9 @@ from kmeans_tpu_torch.utils import checkpoint as pt_ckpt  # noqa: E402
 MODES = [("pallas", "kernel", np.float32), ("matmul", "matmul", np.float64),
          ("auto", "auto", np.float32),
          ("pallas_bf16", "kernel_bf16", np.float32),
-         ("matmul_bf16", "matmul_bf16", np.float32)]
+         ("matmul_bf16", "matmul_bf16", np.float32),
+         ("pallas", "kernel", np.float64),
+         ("pallas_bf16", "kernel_bf16", np.float64)]
 
 
 def _blobs(n=800, d=6, centers=5, seed=0, dtype=np.float32):
@@ -85,6 +87,48 @@ def test_npz_saved_by_jax_loads_in_the_port(mesh1, tmp_path, jx_mode,
     assert pm.distance_mode == pt_mode
     np.testing.assert_array_equal(pm.centroids, np.asarray(jm.centroids))
     np.testing.assert_array_equal(pm.predict(Q), np.asarray(jm.predict(Q)))
+
+
+def _clear_of_ties(Q, C, bf16):
+    """Rows whose two best scores differ, in float64, by more than
+    ``1e-4 (||x||^2 + max ||c||^2)``: with ``bf16`` the scores of the
+    bf16-rounded inputs, which both packages' bf16 kernels compare."""
+    x, c = Q.astype(np.float64), C.astype(np.float64)
+    h2 = (c * c).sum(1)
+    if bf16:
+        x, c = (torch.from_numpy(a).to(torch.bfloat16).double().numpy()
+                for a in (x, c))
+    scores = h2[None, :] - 2.0 * x @ c.T
+    part = np.partition(scores, 1, axis=1)
+    scale = (Q.astype(np.float64) ** 2).sum(1) + h2.max()
+    return (part[:, 1] - part[:, 0]) > 1e-4 * scale
+
+
+@pytest.mark.parametrize("jx_mode,pt_mode,d", [("pallas", "kernel", 6),
+                                               ("pallas_bf16", "kernel_bf16",
+                                                128)])
+def test_float64_npz_of_a_kernel_mode_loads_and_predicts(mesh1, tmp_path,
+                                                         jx_mode, pt_mode, d):
+    """The JAX package fits float64 in its kernel modes on float32 casts;
+    the port loads such a file as it is (float64 centroids, the kernel
+    mode) and predicts the JAX model's labels on every row clear of a tie.
+    Unclustered normal rows, so that many rows lie near a boundary."""
+    rng = np.random.default_rng(4)
+    X = rng.standard_normal((600, d))
+    Q = rng.standard_normal((400, d))
+    jm = kmeans_tpu.KMeans(k=7, max_iter=4, seed=3, compute_sse=True,
+                           mesh=mesh1, host_loop=True, distance_mode=jx_mode,
+                           dtype=np.float64, verbose=False).fit(X)
+    path = tmp_path / "float64.npz"
+    jm.save(path)
+    pm = kmeans_tpu_torch.KMeans.load(path, device="cpu")
+    assert pm._mode() == pt_mode and pm.dtype == np.float64
+    assert pm.centroids.dtype == np.float64
+    np.testing.assert_array_equal(pm.centroids, np.asarray(jm.centroids))
+    clear = _clear_of_ties(Q, pm.centroids, bf16=pt_mode == "kernel_bf16")
+    assert clear.mean() > 0.9
+    np.testing.assert_array_equal(pm.predict(Q)[clear],
+                                  np.asarray(jm.predict(Q))[clear])
 
 
 @pytest.mark.parametrize("jx_mode,pt_mode,dtype", MODES)

@@ -5,11 +5,13 @@ The same ``X`` (made with ``np.random.default_rng(seed)``), seed and
 arguments go through ``kmeans_tpu.KMeans(mesh=mesh1, host_loop=True,
 distance_mode='pallas')`` (the Pallas kernels in interpret mode) and
 ``kmeans_tpu_torch.KMeans(device='cpu', distance_mode='kernel')`` (the plain
-versions of the CUDA kernels), and again through ``'matmul'`` at float64.
+versions of the CUDA kernels), again through the same kernel modes at float64
+(float32 casts into the kernels, float64 mean division) and through
+``'matmul'`` at float64.
 
 Tolerances: the initial centroids are the same rows, so they are equal;
-``iterations_run`` equal; centroids ``atol=1e-4`` (float32: sums taken in
-another order) / ``1e-10`` (float64); ``sse_history`` ``rtol=1e-5``;
+``iterations_run`` equal; centroids ``atol=1e-4`` (float32 kernels: sums
+taken in another order) / ``1e-10`` (float64); ``sse_history`` ``rtol=1e-5``;
 ``predict`` labels equal (the fixtures are blobs, whose rows sit clear of
 every boundary).
 """
@@ -25,12 +27,16 @@ import kmeans_tpu_torch  # noqa: E402
 from kmeans_tpu.models import init as jx_init  # noqa: E402
 from kmeans_tpu_torch.models import init as pt_init  # noqa: E402
 from kmeans_tpu_torch.models.kmeans import _LATER_ARGS  # noqa: E402
+from kmeans_tpu_torch.models.kmeans import \
+    NumericalDivergenceError  # noqa: E402
 from kmeans_tpu_torch.parallel.sharding import Dataset  # noqa: E402
 
 # (JAX arguments, port arguments, centroid atol) of the two compared paths.
 PATHS = {
     "kernel_f32": (dict(distance_mode="pallas"),
                    dict(distance_mode="kernel"), 1e-4),
+    "kernel_f64": (dict(distance_mode="pallas", dtype=np.float64),
+                   dict(distance_mode="kernel", dtype=np.float64), 1e-4),
     "matmul_f64": (dict(distance_mode="matmul", dtype=np.float64),
                    dict(distance_mode="matmul", dtype=np.float64), 1e-10),
 }
@@ -53,7 +59,7 @@ def _pair(mesh1, path, **kw):
 
 
 def _data(path, **kw):
-    dtype = np.float64 if path == "matmul_f64" else np.float32
+    dtype = np.float64 if path.endswith("_f64") else np.float32
     return _blobs(dtype=dtype, **kw)
 
 
@@ -183,6 +189,49 @@ def test_error_paths_raise_the_same_types(mesh1, package, case):
             make(k=3).fit(X, sample_weight=-np.ones(100))
 
 
+def _zero_weight_nan_row():
+    """64 x 8 normal rows; row 3 holds a NaN and has weight 0; an explicit
+    init, which (unlike forgy and k-means++) does not scan the data."""
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((64, 8)).astype(np.float32)
+    X[3, 2] = np.nan
+    w = np.ones(64, np.float32)
+    w[3] = 0.0
+    return X, w, X[[0, 10, 20, 30, 40]].copy()
+
+
+@pytest.mark.parametrize("compute_sse", [True, False])
+@pytest.mark.parametrize("mode", ["pallas", "pallas_bf16", "matmul"])
+def test_zero_weight_nan_row_is_a_divergence_error_like_jax(mesh1, mode,
+                                                            compute_sse):
+    """The JAX package's one-hot scatter carries the row's NaN into every
+    centroid; the port's kernels keep the row out of the sums, and its
+    ``sum w ||x||^2`` (0 * NaN) makes the SSE the signal instead."""
+    X, w, init = _zero_weight_nan_row()
+    kw = dict(k=5, init=init, compute_sse=compute_sse, distance_mode=mode,
+              max_iter=5, verbose=False)
+    with pytest.raises(kmeans_tpu.NumericalDivergenceError,
+                       match="iteration 1") as jx:
+        kmeans_tpu.KMeans(mesh=mesh1, host_loop=True, **kw).fit(
+            X, sample_weight=w)
+    with pytest.raises(NumericalDivergenceError,
+                       match="iteration 1") as pt:
+        kmeans_tpu_torch.KMeans(device="cpu", **kw).fit(X, sample_weight=w)
+    assert pt.value.iteration == jx.value.iteration == 1
+    assert str(pt.value) == str(jx.value)
+
+
+def test_score_of_a_nan_row_is_nan_like_jax(mesh1):
+    X, _, init = _zero_weight_nan_row()
+    fit_on = _blobs(n=300, d=8, centers=5, seed=2)
+    kw = dict(k=5, init=init, max_iter=3, verbose=False)
+    jm = kmeans_tpu.KMeans(mesh=mesh1, host_loop=True, distance_mode="pallas",
+                           **kw).fit(fit_on)
+    pm = kmeans_tpu_torch.KMeans(device="cpu", distance_mode="kernel",
+                                 **kw).fit(fit_on)
+    assert np.isnan(jm.score(X)) and np.isnan(pm.score(X))
+
+
 def test_nan_row_among_the_data_is_a_divergence_error():
     X = _blobs(n=200, d=3, centers=3)
     X[150, 0] = np.nan          # not drawn by Forgy with seed 42
@@ -229,9 +278,16 @@ def test_distance_mode_resolution():
     assert km.distance_mode == "auto" and km._mode() == "matmul"
     assert kmeans_tpu_torch.KMeans(
         k=3, device="cpu", distance_mode="pallas").distance_mode == "kernel"
-    with pytest.raises(ValueError, match="float32"):
-        kmeans_tpu_torch.KMeans(k=3, device="cpu", distance_mode="kernel",
-                                dtype=np.float64)
+    # float64 is taken in the kernel modes (float32 casts into the kernel),
+    # and 'auto' resolves by dtype, as the JAX package's resolve_auto does
+    # for x64 data: the kernel on a CUDA device in float32 only.
+    km64 = kmeans_tpu_torch.KMeans(k=3, device="cpu", distance_mode="kernel",
+                                   dtype=np.float64)
+    assert km64._mode() == "kernel" and km64.dtype == np.float64
+    for dtype, want in ((np.float32, "kernel"), (np.float64, "matmul")):
+        auto = kmeans_tpu_torch.KMeans(k=3, device="cpu", dtype=dtype)
+        auto.device = torch.device("cuda", 0)    # resolution only, no launch
+        assert auto._mode() == want
     with pytest.raises(ValueError):
         kmeans_tpu_torch.KMeans(k=3, device="cpu", distance_mode="nope")
     with pytest.raises(ValueError):

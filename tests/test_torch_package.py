@@ -24,6 +24,7 @@ PORT_FILES = sorted((ROOT / "kmeans_tpu_torch").rglob("*.py")) \
 MODULES = ["kmeans_tpu_torch", "kmeans_tpu_torch.convert",
            "kmeans_tpu_torch.data.synthetic",
            "kmeans_tpu_torch.experiments",
+           "kmeans_tpu_torch.experiments.exp_kernel_edits",
            "kmeans_tpu_torch.experiments.exp_pallas_kernel",
            "kmeans_tpu_torch.models.gmm",
            "kmeans_tpu_torch.models.init", "kmeans_tpu_torch.models.kmeans",
