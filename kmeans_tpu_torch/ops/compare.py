@@ -1,8 +1,9 @@
-"""Holding a K-Means kernel against its plain version: tolerances and helpers.
+"""Holding a kernel against its plain version: tolerances and helpers.
 
-One place for the comparisons that ``chip_smoke.py`` and the variant lab
-(``experiments/exp_pallas_kernel.py``) make, so that neither can loosen the
-other's check.  Kernel and plain version compute the same function in
+One place for the comparisons that ``chip_smoke.py``, the variant lab
+(``experiments/exp_pallas_kernel.py``) and the ablations
+(``experiments/exp_kernel_edits.py``) make, so that none can loosen
+another's check.  Kernel and plain version compute the same function in
 float32 and sum in another order (for bf16: the same rounded inputs, the
 tensor cores against cuBLAS's float32 product), hence:
 
@@ -14,6 +15,14 @@ tensor cores against cuBLAS's float32 product), hence:
           grows with the norms
   sums    |a - b| <= SUMS_ATOL_SHARE max|b| + SUMS_RTOL |b|
   counts  |a - b| <= COUNTS_RTOL |b|
+
+The mixture's E-step (``diag_estep`` against ``diag_estep_reference``, both
+float32):
+
+  rsum, s1, s2  |a - b| <= ESTEP_ATOL_SHARE max|b| + ESTEP_RTOL |b|
+                (centered sums cancel to near zero, hence the share of the
+                largest entry)
+  ll            |a - b| <= LL_RTOL |b|
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ MARGIN_RTOL = 1e-4
 MIND2_RTOL = 1e-4
 SUMS_RTOL, SUMS_ATOL_SHARE = 1e-4, 1e-5
 COUNTS_RTOL = 1e-5
+ESTEP_RTOL, ESTEP_ATOL_SHARE, LL_RTOL = 1e-4, 1e-5, 1e-5
 
 
 def label_band(x, c, la, lb, bf16: bool = False):
@@ -91,3 +101,18 @@ def scatter_reference(points, weights, labels, k: int, bf16: bool = False):
     counts = torch.zeros(k, dtype=torch.float32,
                          device=points.device).index_add_(0, idx, weights)
     return sums, counts
+
+
+def estep_errors(out, ref) -> dict:
+    """Largest error of each E-step output ``(rsum, s1, s2, ll)`` against
+    the plain version's, and ``ok``: all finite and within the
+    tolerances."""
+    ok = all(bool(torch.isfinite(a).all()) for a in out)
+    errs = {}
+    for label, a, b in zip(("rsum", "s1", "s2"), out[:3], ref[:3]):
+        ok = ok and close(a, b, ESTEP_RTOL,
+                          ESTEP_ATOL_SHARE * float(b.abs().max()))
+        errs[f"{label}_err"] = max_err(a, b)
+    ok = ok and close(out[3], ref[3], LL_RTOL, 0.0)
+    errs["ll_err"] = max_err(out[3], ref[3])
+    return {"ok": ok, **errs}

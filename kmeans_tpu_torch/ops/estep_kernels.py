@@ -14,8 +14,11 @@ Arithmetic, shared with :func:`diag_estep_reference`, for x_c = x - shift:
 * ``rsum = sum r``, ``s1 = r^T x_c``, ``s2 = r^T x_c^2`` and
   ``ll = sum over rows with w > 0 of w (max + log sum p)``;
 * a row of weight 0 adds nothing to any output, not even a NaN;
-* float32 products and float32 accumulation (ll in double on the card):
-  no TF32, no bf16, which the variance ``S2/R - mu^2`` would not survive.
+* float32-accurate products and float32 accumulation (ll in double on the
+  card): on the card both products run on the tensor cores as three TF32
+  products each (3xTF32), never as one TF32 or bf16 product, which neither
+  the hard-init tables (terms of order 1e8 that cancel) nor the variance
+  ``S2/R - mu^2`` would survive.
 
 Two calls on the same inputs give the same bits: the kernel adds per-block
 tables in a fixed order.  A tensor on the CPU goes to the plain version; a
@@ -32,27 +35,50 @@ from typing import Dict, Tuple
 import torch
 
 from kmeans_tpu_torch.ops import _build
-from kmeans_tpu_torch.ops.hopper_kernels import _blocks, _check, _raise_on, \
-    _row_block
+from kmeans_tpu_torch.ops.hopper_kernels import _PARTIAL_BUDGET_BYTES, \
+    _check, _raise_on, _row_block
 
 #: The package's table of kernel launches (``_build.LAUNCHES``).
 LAUNCHES: Dict[str, int] = _build.LAUNCHES
 LAUNCHES.update(diag_estep=0)
 
-_LIB_NAME = "gmm_estep"
+#: The source of the kernels (``csrc/gmm_estep.cu``).
+LIB_NAME = "gmm_estep"
 _LOG2PI = math.log(2.0 * math.pi)
+#: Persistent blocks of ``estep_kernel`` on each SM: 256 threads at up to
+#: 255 registers, and more than half of the SM's shared memory.
+_BLOCKS_PER_SM = 1
 
 EStepOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load(_LIB_NAME)
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Argument types of a built library of ``csrc/gmm_estep.cu``."""
     if not getattr(lib, "_gmm_bound", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.gmm_diag_estep_launch.argtypes = [p] * 15 + [ll, i, i, i, p]
         lib.gmm_diag_estep_launch.restype = i
+        lib.gmm_estep_tile_rows.argtypes = []
+        lib.gmm_estep_tile_rows.restype = i
+        for name in ("gmm_estep_coef_floats", "gmm_estep_table_floats"):
+            getattr(lib, name).argtypes = [i, i]
+            getattr(lib, name).restype = ll
         lib._gmm_bound = True
     return lib
+
+
+def _lib() -> ctypes.CDLL:
+    return bind(_build.load(LIB_NAME))
+
+
+def _blocks(device: torch.device, n: int, table_floats: int,
+            tile_rows: int) -> int:
+    """Persistent blocks of a launch: one on each SM, no more than there are
+    row tiles, and within the per-block tables' budget."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    blocks = min(_BLOCKS_PER_SM * sms, -(-n // tile_rows),
+                 _PARTIAL_BUDGET_BYTES // (4 * table_floats))
+    return max(1, blocks)
 
 
 def _check_estep(points, weights, shift, means_c, inv_var, log_det,
@@ -141,6 +167,17 @@ def diag_estep(points: torch.Tensor, weights: torch.Tensor,
     if not points.is_cuda:
         return diag_estep_reference(points, weights, shift, means_c,
                                     inv_var, log_det, log_weights)
+    return launch_estep(_lib(), points, weights, shift, means_c, inv_var,
+                        log_det, log_weights, "diag_estep")
+
+
+def launch_estep(lib: ctypes.CDLL, points: torch.Tensor,
+                 weights: torch.Tensor, shift: torch.Tensor,
+                 means_c: torch.Tensor, inv_var: torch.Tensor,
+                 log_det: torch.Tensor, log_weights: torch.Tensor,
+                 counter: str) -> EStepOut:
+    """One launch of a bound ``gmm_estep`` library (the package's, or an
+    edited build) on checked CUDA tensors, counted under ``counter``."""
     n, d = points.shape
     k = means_c.shape[0]
     dev = points.device
@@ -148,11 +185,10 @@ def diag_estep(points: torch.Tensor, weights: torch.Tensor,
     if n == 0:
         return (torch.zeros((k,), **kw), torch.zeros((k, d), **kw),
                 torch.zeros((k, d), **kw), torch.zeros((), **kw))
-    lib = _lib()
-    table = k * (2 * d + 1)
-    blocks = _blocks(dev, n, table)
+    table = lib.gmm_estep_table_floats(d, k)
+    blocks = _blocks(dev, n, table, lib.gmm_estep_tile_rows())
     with torch.cuda.device(dev):
-        coef = torch.empty(2 * k * d, **kw)
+        coef = torch.empty(lib.gmm_estep_coef_floats(d, k), **kw)
         c1 = torch.empty(k, **kw)
         partial = torch.zeros(blocks * table, **kw)
         ll_partial = torch.empty(blocks, dtype=torch.float64, device=dev)
@@ -168,6 +204,6 @@ def diag_estep(points: torch.Tensor, weights: torch.Tensor,
             ll_partial.data_ptr(), rsum.data_ptr(), s1.data_ptr(),
             s2.data_ptr(), ll.data_ptr(), n, d, k, blocks,
             torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "diag_estep")
-    LAUNCHES["diag_estep"] += 1
+    _raise_on(err, counter)
+    LAUNCHES[counter] += 1
     return rsum, s1, s2, ll

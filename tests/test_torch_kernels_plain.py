@@ -304,3 +304,43 @@ def test_estep_wrapper_refuses_what_the_kernel_does_not_take():
         ek.diag_estep(args[0][:, :4], *args[1:])
     # The plain version also takes float64, all inputs alike.
     ek.diag_estep_reference(*(a.double() for a in args))
+
+
+# ------------------------------------------ ablations of the E-step kernel
+#
+# ``experiments/edits_gmm_estep.json`` holds the edited builds of
+# ``csrc/gmm_estep.cu`` that PERF.md reports (its top-level ``"source"``
+# names the file).  Every ``old`` text must occur exactly once in the
+# current source, and the builds need ``nvcc``: without it they raise.
+
+from kmeans_tpu_torch.experiments import \
+    exp_kernel_edits as kernel_edits  # noqa: E402
+from kmeans_tpu_torch.ops import _build  # noqa: E402
+
+
+def test_estep_edits_apply_to_the_source_and_build_only_with_nvcc(
+        monkeypatch, tmp_path):
+    path = kernel_edits.ESTEP_EDITS
+    assert kernel_edits.edits_source(path) == ek.LIB_NAME
+    assert kernel_edits.edits_source(kernel_edits.DEFAULT_EDITS) \
+        == "assign_kernels"
+    variants = kernel_edits.load_edits(path)
+    src = (_build.CSRC_DIR / "gmm_estep.cu").read_text()
+    texts = {name: kernel_edits.apply_edits(src, edits)
+             for name, edits in variants.items()}
+    assert texts["as_is"] == src
+    assert {"one_product", "no_products", "no_group_rounding",
+            "always_recompute"} <= set(texts)
+    assert len(set(texts.values())) == len(texts)
+    bad = tmp_path / "bad.json"
+    bad.write_text('{"source": "no_such_source", "as_is": []}')
+    with pytest.raises(ValueError, match="unknown source"):
+        kernel_edits.load_edits(bad)
+
+    def no_nvcc():
+        raise _build.KernelCompileError("nvcc not found (test)")
+
+    monkeypatch.setattr(kernel_edits, "EDITS_DIR", tmp_path / "edits")
+    monkeypatch.setattr(_build, "find_nvcc", no_nvcc)
+    with pytest.raises(_build.KernelCompileError, match="nvcc not found"):
+        kernel_edits.build({"as_is": []}, ek.LIB_NAME)
