@@ -149,7 +149,7 @@ def clocks() -> str:
 def kernel_name(mangled: str) -> str:
     """The last name of a mangled kernel (``_Z<len><name>`` or, inside a
     namespace, ``_ZN<len><ns><len><name>``), with ``<0>`` / ``<1>`` for its
-    bool template argument (``ILb0E`` / ``ILb1E``)."""
+    bool template arguments (``ILb0E`` / ``ILb1ELb0EE`` as ``<1,0>``)."""
     nested = mangled.startswith("_ZN")
     if not mangled.startswith("_Z"):
         return mangled
@@ -159,8 +159,11 @@ def kernel_name(mangled: str) -> str:
         pos = m.end() + int(m.group())
         if not nested:
             break
-    if mangled.startswith("ILb", pos):
-        name += f"<{mangled[pos + 3]}>"
+    if mangled.startswith("I", pos):
+        args = re.match(r"I((?:Lb[01]E)+)E", mangled[pos:])
+        if args:
+            name += "<" + ",".join(re.findall(r"Lb([01])E",
+                                              args.group(1))) + ">"
     return name
 
 
@@ -272,11 +275,16 @@ def random_case(n, d, k, seed):
 
 
 def phase_kernels(x_main, c_main, x_second, bf16=False):
-    """The ten cases, for the float32 kernels or (``bf16``) the bf16
-    ones."""
+    """The ten cases, for the float32 kernels, or (``bf16``) eleven for
+    the bf16 ones."""
     records = []
     shapes = [(4099, 100, 3000), (8192, 128, 1024), (1000, 7, 5),
               (257, 784, 10)]
+    if bf16:
+        # Rows too wide for the x tile and the ring together: the bf16
+        # kernels walk the features in slices, over several centroid tiles
+        # and a ragged last one.
+        shapes.append((4099, 520, 300))
     for i, (n, d, k) in enumerate(shapes):
         x, w, c = random_case(n, d, k, seed=100 + i)
         records.append(compare_case(f"random_{n}x{d}_k{k}", x, w, c,
@@ -988,6 +996,61 @@ def phase_gmm_timing(x, tables, gm, err, launches):
     return row
 
 
+#: The tensor-core instruction each library's products must compile to:
+#: wgmma (HGMMA) for the bf16 K-Means kernels, mma.sync (HMMA) for the
+#: 3xTF32 float32 K-Means kernels and the mixture's E-step.
+SASS_PRODUCTS = {hk.LIB_NAMES[True]: "HGMMA", hk.LIB_NAMES[False]: "HMMA",
+                 ek.LIB_NAME: "HMMA"}
+
+
+def phase_sass() -> None:
+    """Every kernel class runs its products on the tensor cores: counts of
+    HGMMA and HMMA instructions in each library's machine code."""
+    counts = {}
+    for lib_name, want in SASS_PRODUCTS.items():
+        sass = subprocess.run(
+            [str(Path(_build.find_nvcc()).parent / "cuobjdump"), "-sass",
+             str(_build.library_path(lib_name))], capture_output=True,
+            text=True, check=True).stdout.splitlines()
+        counts[lib_name] = {op: sum(op in line for line in sass)
+                            for op in ("HGMMA", "HMMA")}
+        check(counts[lib_name][want] > 0,
+              f"the {lib_name} library holds no {want} instruction")
+    emit("sass", instructions=counts, required=SASS_PRODUCTS)
+
+
+def phase_bf16_layout() -> None:
+    """The bf16 kernels' scratch after prep_centroids_kernel, against its
+    mirror in Python (hopper_kernels.tile_images): the tile images bit for
+    bit, h = 0.5 ||c||^2 to float32 rounding."""
+    lib = hk.bind(_build.load(hk.LIB_NAMES[True]), True)
+    tile_k = lib.kmeans_tile_centroids()
+    records = []
+    for k, d in ((3000, 100), (1024, 128), (5, 7), (10, 784)):
+        gen = torch.Generator(device=DEV).manual_seed(k + d)
+        c = torch.randn((k, d), generator=gen, device=DEV)
+        scratch = hk._scratch(lib, d, k, DEV)
+        err = lib.kmeans_prep_centroids_bf16(
+            c.data_ptr(), scratch.data_ptr(), d, k,
+            torch.cuda.current_stream(DEV).cuda_stream)
+        hk._raise_on(err, "prep_centroids")
+        torch.cuda.synchronize()
+        h, images = hk.split_bf16_scratch(scratch, k)
+        want = hk.tile_images(c, tile_k)
+        check(images.numel() == want.numel()
+              and torch.equal(images.view(torch.int16),
+                              want.view(torch.int16)),
+              f"bf16 layout ({k}, {d}): the tile images differ from "
+              f"hopper_kernels.tile_images")
+        h_ref = 0.5 * (c.double() ** 2).sum(1)
+        check(close(h.double(), h_ref, 1e-5, 0.0),
+              f"bf16 layout ({k}, {d}): h disagrees")
+        records.append({"k": k, "d": d, "tile_k": tile_k,
+                        "image_bytes": 2 * images.numel(),
+                        "h_err": max_err(h.double(), h_ref)})
+    emit("bf16_layout", cases=records)
+
+
 def main() -> None:
     global CARD
     started = time.perf_counter()
@@ -1016,19 +1079,8 @@ def main() -> None:
                       for v in lab_variants})
     emit("registers", **{name: resource_usage(path)
                          for name, path in libraries.items()})
-    # Every kernel class runs its products on the tensor cores (K-Means in
-    # bf16, K-Means float32 and the mixture's E-step in 3xTF32): their
-    # machine code holds HMMA instructions.
-    hmma = {}
-    for lib_name in (*hk.LIB_NAMES.values(), ek.LIB_NAME):
-        sass = subprocess.run(
-            [str(Path(_build.find_nvcc()).parent / "cuobjdump"), "-sass",
-             str(_build.library_path(lib_name))], capture_output=True,
-            text=True, check=True).stdout
-        hmma[lib_name] = sum("HMMA" in line for line in sass.splitlines())
-        check(hmma[lib_name] > 0,
-              f"the {lib_name} library holds no HMMA instruction")
-    emit("sass", hmma_instructions=hmma)
+    phase_sass()
+    phase_bf16_layout()
 
     x_main, _ = make_blobs_device(MAIN["n"], MAIN["k"], MAIN["d"],
                                   device=DEV, seed=1)

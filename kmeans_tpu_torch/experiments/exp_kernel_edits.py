@@ -1,4 +1,4 @@
-"""Ablations of the float32 kernels, on one NVIDIA GPU.
+"""Ablations of the port's kernels, on one NVIDIA GPU.
 
 The card's machine runs no ``ncu``, so where a kernel spends its time is
 found by taking parts away: each variant is a copy of a source under
@@ -11,9 +11,10 @@ against the plain version, with weights that hold zeros and the tolerances
 of ``ops/compare.py``, and timed at the given shape: CUDA events around one
 call, the median of 10 after 2 warm-ups.
 
-* ``assign_kernels`` (the float32 K-Means kernels): checked on a 4096-row
-  slice; both kernels, assignment only and the fused pass, timed on blobs
-  with centroids at random rows.
+* ``assign_kernels`` (the float32 K-Means kernels) and ``assign_bf16``
+  (their bf16 forms): checked on a 4096-row slice against the plain
+  version of the same class; both kernels, assignment only and the fused
+  pass, timed on blobs with centroids at random rows.
 * ``gmm_estep`` (``diag_estep``): checked and timed on all rows of
   ``chip_smoke.py``'s mixture inputs, blobs about 1e3 from the origin with
   means at random rows.
@@ -25,10 +26,10 @@ Usage::
 
     python -m kmeans_tpu_torch.experiments.exp_kernel_edits N D K EDITS.json
 
-``kmeans_tpu_torch/experiments/edits_assign_f32.json`` and
-``edits_gmm_estep.json`` hold the ablations that ``PERF.md`` reports.  It
-prints one line per variant and then one JSON object per variant.  It needs
-a CUDA device and ``nvcc``.
+``kmeans_tpu_torch/experiments/edits_assign_f32.json``,
+``edits_assign_bf16.json`` and ``edits_gmm_estep.json`` hold the ablations
+that ``PERF.md`` reports.  It prints one line per variant and then one
+JSON object per variant.  It needs a CUDA device and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -55,9 +56,11 @@ from kmeans_tpu_torch.parallel.sharding import weighted_mean
 SOURCE = "assign_kernels"
 EDITS_DIR = _build.BUILD_DIR / "edits"
 DEFAULT_EDITS = Path(__file__).with_name("edits_assign_f32.json")
+BF16_EDITS = Path(__file__).with_name("edits_assign_bf16.json")
 ESTEP_EDITS = Path(__file__).with_name("edits_gmm_estep.json")
 #: How a built library of each source is bound.
 _BIND = {"assign_kernels": lambda lib: hk.bind(lib, False),
+         "assign_bf16": lambda lib: hk.bind(lib, True),
          ek.LIB_NAME: ek.bind}
 
 
@@ -137,16 +140,17 @@ def median_ms(fn, runs: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def measure(name: str, lib: ctypes.CDLL, x, c) -> dict:
-    """One variant checked on a slice and timed on all of ``x``."""
+def measure(name: str, lib: ctypes.CDLL, x, c, bf16: bool = False) -> dict:
+    """One variant (of the bf16 source with ``bf16``) checked on a slice
+    and timed on all of ``x``."""
     counter = f"kernel_edit:{name}"
     hk.LAUNCHES.setdefault(counter, 0)
     xs, ws, _ = check_inputs(x, c)
-    labels, mind2, sums, counts = hk.launch_fused(lib, False, xs, ws, c,
+    labels, mind2, sums, counts = hk.launch_fused(lib, bf16, xs, ws, c,
                                                   counter)
-    ref = hk.fused_assign_reduce_reference(xs, ws, c)
+    ref = hk.fused_assign_reduce_reference(xs, ws, c, bf16=bf16)
     torch.cuda.synchronize()
-    n_diff, n_outside = cmp.label_band(xs, c, labels, ref[0])
+    n_diff, n_outside = cmp.label_band(xs, c, labels, ref[0], bf16)
     same = labels == ref[0]
     ok = (n_outside == 0
           and cmp.close(mind2[same], ref[1][same], cmp.MIND2_RTOL,
@@ -156,9 +160,9 @@ def measure(name: str, lib: ctypes.CDLL, x, c) -> dict:
     return {"name": name, "ok": bool(ok), "label_diff": n_diff,
             "mind2_err": cmp.max_err(mind2[same], ref[1][same]),
             "assign_ms": median_ms(
-                lambda: hk.launch_assign(lib, False, x, c, counter)),
+                lambda: hk.launch_assign(lib, bf16, x, c, counter)),
             "fused_ms": median_ms(
-                lambda: hk.launch_fused(lib, False, x, w, c, counter))}
+                lambda: hk.launch_fused(lib, bf16, x, w, c, counter))}
 
 
 def estep_inputs(n: int, d: int, k: int, dev):
@@ -216,7 +220,8 @@ def main(argv: Sequence[str]) -> int:
         x, _ = make_blobs_device(n, k, d, device=dev, seed=1)
         gen = torch.Generator(device=dev).manual_seed(2)
         c = x[torch.randperm(n, generator=gen, device=dev)[:k]].contiguous()
-        records = [measure(name, lib, x, c) for name, lib in libs.items()]
+        records = [measure(name, lib, x, c, source == "assign_bf16")
+                   for name, lib in libs.items()]
     for rec in records:
         verdict = "" if rec["ok"] else "  (result differs: timing only)"
         times = (f"estep {rec['estep_ms']:8.3f} ms" if "estep_ms" in rec

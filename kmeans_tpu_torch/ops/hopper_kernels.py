@@ -86,6 +86,14 @@ def bind(lib: ctypes.CDLL, bf16: bool) -> ctypes.CDLL:
         lib.kmeans_tile_rows.restype = i
         lib.kmeans_scratch_bytes.argtypes = [i, i]
         lib.kmeans_scratch_bytes.restype = ll
+        if bf16:
+            lib.kmeans_blocks_per_sm.argtypes = [i]
+            lib.kmeans_blocks_per_sm.restype = i
+            lib.kmeans_tile_centroids.argtypes = []
+            lib.kmeans_tile_centroids.restype = i
+            lib.kmeans_prep_centroids_bf16.argtypes = [p, p, i, i, p]
+            lib.kmeans_prep_centroids_bf16.restype = i
+            lib._per_sm = {}
         lib._kmeans_bound = True
     return lib
 
@@ -129,19 +137,32 @@ def _check(points: torch.Tensor, centroids: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
 
 
-def _blocks(device: torch.device, n: int, table_floats: int = 0,
-            tile_rows: int = _TILE_ROWS) -> int:
-    """Persistent blocks of a launch: as many as fit on the card (two
-    128-row blocks on each SM: the float32 kernels' 128 threads at up to
-    255 registers, or the bf16 kernels' 256 threads at 128; a bf16 block of
-    64 rows takes half of that), no more than there are row tiles, and
-    within the per-block tables' budget."""
+def _blocks(device: torch.device, n: int, table_floats: int,
+            tile_rows: int, per_sm: int) -> int:
+    """Persistent blocks of a launch: ``per_sm`` on each SM (the float32
+    kernels: two of 128 threads at up to 255 registers; the bf16 kernels:
+    what their library reports, :func:`_per_sm`), no more than
+    there are row tiles, and within the per-block tables' budget."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    per_sm = _BLOCKS_PER_SM * _TILE_ROWS // tile_rows
     blocks = min(per_sm * sms, -(-n // tile_rows))
     if table_floats:
         blocks = min(blocks, _PARTIAL_BUDGET_BYTES // (4 * table_floats))
     return max(1, blocks)
+
+
+def _per_sm(lib: ctypes.CDLL, bf16: bool, d: int) -> int:
+    """Persistent blocks on each SM: two for the float32 kernels; for the
+    bf16 ones what their library reports at width ``d`` (their shared
+    memory depends on it), raising where none fits."""
+    if not bf16:
+        return _BLOCKS_PER_SM
+    per_sm = lib._per_sm.get(d)
+    if per_sm is None:
+        per_sm = lib._per_sm[d] = lib.kmeans_blocks_per_sm(d)
+    if per_sm < 1:
+        raise RuntimeError(f"the bf16 kernels fit no block on an SM at "
+                           f"D = {d}")
+    return per_sm
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -259,6 +280,56 @@ def _scratch(lib: ctypes.CDLL, d: int, k: int, dev) -> torch.Tensor:
     return torch.empty(nbytes, dtype=torch.uint8, device=dev)
 
 
+# The layout of bf16(c) in the bf16 kernels' scratch, as
+# prep_centroids_kernel writes it (csrc/assign_bf16.cu): after h (k floats,
+# padded to 16 bytes), ceil(k / tile_k) tile images of tile_k centroid rows;
+# an image holds ceil(D / 64) chunks of 64 features one after the other, a
+# chunk holds its tile_k rows at 128 bytes each, and the 16-byte unit u
+# (features 8u .. 8u + 7 of the chunk) of row r sits at unit u ^ (r % 8) of
+# the row.  Zero past k and past D.
+
+
+def tile_image_index(k: int, d: int, tile_k: int) -> torch.Tensor:
+    """Position, among the bf16 elements of the tile images, of each entry
+    of bf16(c) zero-padded to (ceil(k / tile_k) * tile_k, ceil(D / 64) * 64):
+    an int64 tensor of that shape."""
+    tiles, chunks = -(-k // tile_k), -(-d // 64)
+    row = torch.arange(tiles * tile_k)[:, None]
+    col = torch.arange(chunks * 64)[None, :]
+    tile, r = row // tile_k, row % tile_k
+    chunk, unit, e = col // 64, (col % 64) // 8, col % 8
+    byte = (tile * tile_k * chunks * 128 + chunk * tile_k * 128 + r * 128
+            + (unit ^ (r % 8)) * 16 + e * 2)
+    return byte // 2
+
+
+def tile_images(centroids: torch.Tensor, tile_k: int) -> torch.Tensor:
+    """bf16(c) laid out as the tile images (flat, bf16)."""
+    k, d = centroids.shape
+    index = tile_image_index(k, d, tile_k).to(centroids.device)
+    padded = torch.zeros(index.shape, dtype=torch.bfloat16,
+                         device=centroids.device)
+    padded[:k, :d] = centroids.to(torch.bfloat16)
+    out = torch.empty(index.numel(), dtype=torch.bfloat16,
+                      device=centroids.device)
+    out[index.reshape(-1)] = padded.reshape(-1)
+    return out
+
+
+def read_tile_images(images: torch.Tensor, k: int, d: int,
+                     tile_k: int) -> torch.Tensor:
+    """The zero-padded bf16(c) back from its tile images (flat, bf16)."""
+    return images[tile_image_index(k, d, tile_k).to(images.device)]
+
+
+def split_bf16_scratch(scratch: torch.Tensor, k: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(h, tile images) of the bf16 kernels' scratch (uint8)."""
+    h_bytes = (4 * k + 15) // 16 * 16
+    return (scratch[:4 * k].view(torch.float32),
+            scratch[h_bytes:].view(torch.bfloat16))
+
+
 def launch_assign(lib: ctypes.CDLL, bf16: bool, points: torch.Tensor,
                   centroids: torch.Tensor, counter: str
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -278,7 +349,7 @@ def launch_assign(lib: ctypes.CDLL, bf16: bool, points: torch.Tensor,
         scratch = _scratch(lib, d, k, dev)
         err = entry(points.data_ptr(), centroids.data_ptr(),
                     scratch.data_ptr(), labels.data_ptr(), mind2.data_ptr(),
-                    n, d, k, _blocks(dev, n, tile_rows=rows),
+                    n, d, k, _blocks(dev, n, 0, rows, _per_sm(lib, bf16, d)),
                     torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, counter)
     LAUNCHES[counter] += 1
@@ -302,7 +373,8 @@ def launch_fused(lib: ctypes.CDLL, bf16: bool, points: torch.Tensor,
                 torch.zeros((k,), dtype=torch.float32, device=dev))
     entry = getattr(lib, _ENTRIES[bf16][1])
     table = k * (d + 1)
-    blocks = _blocks(dev, n, table, lib.kmeans_tile_rows())
+    blocks = _blocks(dev, n, table, lib.kmeans_tile_rows(),
+                     _per_sm(lib, bf16, d))
     with torch.cuda.device(dev):
         scratch = _scratch(lib, d, k, dev)
         partial = torch.zeros(blocks * table, dtype=torch.float32, device=dev)

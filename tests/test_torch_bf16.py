@@ -437,3 +437,56 @@ def test_kernel_edits_apply_to_the_source_and_build_only_with_nvcc(
     with pytest.raises(_build.KernelCompileError, match="nvcc not found"):
         kernel_edits.build({"as_is": []})
     assert kernel_edits.main([]) == 2
+
+
+# ----------------------------------- the layout of bf16(c) in the scratch
+#
+# prep_centroids_kernel writes bf16(c) as tile images that one bulk copy
+# moves into shared memory, already in the layout that the wgmma
+# descriptors read; hopper_kernels.tile_image_index mirrors its index
+# arithmetic (chip_smoke.py holds the kernel's scratch to it on the card).
+
+
+@pytest.mark.parametrize("tile_k", [128, 64])
+@pytest.mark.parametrize("k,d", [(3000, 100), (1024, 128), (5, 7),
+                                 (10, 784)])
+def test_tile_images_round_trip(k, d, tile_k):
+    rng = np.random.default_rng(k + d)
+    c = _t(rng.normal(size=(k, d)).astype(np.float32))
+    images = hk.tile_images(c, tile_k)
+    tiles, chunks = -(-k // tile_k), -(-d // 64)
+    assert images.dtype == torch.bfloat16
+    assert images.numel() == tiles * tile_k * chunks * 64
+    back = hk.read_tile_images(images, k, d, tile_k)
+    want = torch.zeros((tiles * tile_k, chunks * 64), dtype=torch.bfloat16)
+    want[:k, :d] = c.to(torch.bfloat16)
+    assert torch.equal(back.view(torch.int16), want.view(torch.int16))
+    index = hk.tile_image_index(k, d, tile_k)
+    assert torch.equal(index.reshape(-1).sort().values,
+                       torch.arange(index.numel()))
+    # Tile j is one block of tile_k * chunks * 64 elements; in it chunk q
+    # holds tile_k rows of 64, and unit u (8 features) of row r sits at unit
+    # u ^ (r % 8) of its row.
+    image = tile_k * chunks * 64
+    for tile in range(tiles):
+        rows = index[tile * tile_k:(tile + 1) * tile_k]
+        assert int(rows.min()) == tile * image
+        assert int(rows.max()) == (tile + 1) * image - 1
+    r, q, u, e = 9, chunks - 1, 3, 2
+    assert int(index[r, q * 64 + u * 8 + e]) == (
+        q * tile_k * 64 + r * 64 + (u ^ (r % 8)) * 8 + e)
+
+
+def test_bf16_grid_follows_what_the_library_reports():
+    class Lib:
+        _per_sm = {}
+
+        @staticmethod
+        def kmeans_blocks_per_sm(d):
+            return 0 if d > 1000 else 1
+
+    lib = Lib()
+    assert hk._per_sm(lib, True, 128) == 1 and lib._per_sm == {128: 1}
+    assert hk._per_sm(lib, False, 128) == hk._BLOCKS_PER_SM
+    with pytest.raises(RuntimeError, match="no block"):
+        hk._per_sm(lib, True, 2000)

@@ -344,3 +344,34 @@ def test_estep_edits_apply_to_the_source_and_build_only_with_nvcc(
     monkeypatch.setattr(_build, "find_nvcc", no_nvcc)
     with pytest.raises(_build.KernelCompileError, match="nvcc not found"):
         kernel_edits.build({"as_is": []}, ek.LIB_NAME)
+
+
+# ------------------------------------------- ablations of the bf16 kernels
+#
+# ``experiments/edits_assign_bf16.json`` holds the edited builds of
+# ``csrc/assign_bf16.cu`` that PERF.md reports, bound as the bf16 library.
+
+
+def test_bf16_edits_apply_to_the_source_and_build_only_with_nvcc(
+        monkeypatch, tmp_path):
+    path = kernel_edits.BF16_EDITS
+    assert kernel_edits.edits_source(path) == "assign_bf16"
+    variants = kernel_edits.load_edits(path)
+    src = (_build.CSRC_DIR / "assign_bf16.cu").read_text()
+    texts = {name: kernel_edits.apply_edits(src, edits)
+             for name, edits in variants.items()}
+    assert texts["as_is"] == src
+    assert {"no_products", "no_scatter", "x_streamed",
+            "one_slot_ring"} <= set(texts)
+    assert len(set(texts.values())) == len(texts)
+    for edits in variants.values():
+        for edit in edits:
+            assert src.count(edit["old"]) == 1
+
+    def no_nvcc():
+        raise _build.KernelCompileError("nvcc not found (test)")
+
+    monkeypatch.setattr(kernel_edits, "EDITS_DIR", tmp_path / "edits")
+    monkeypatch.setattr(_build, "find_nvcc", no_nvcc)
+    with pytest.raises(_build.KernelCompileError, match="nvcc not found"):
+        kernel_edits.build({"as_is": []}, "assign_bf16")

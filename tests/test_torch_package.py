@@ -153,15 +153,20 @@ def test_kernel_sources_ship_with_the_package():
                  "KM_PIPE"):
         assert name in src
     bf16 = (_build.CSRC_DIR / "assign_bf16.cu").read_text()
+    # The bf16 products are wgmma (both operands from shared memory) fed by
+    # bulk-async copies; no mma.sync is left in that source.
     for name in ("kmeans_assign_bf16_launch",
                  "kmeans_fused_assign_reduce_bf16_launch",
                  "assign_bf16_kernel", "fused_assign_reduce_bf16_kernel",
                  "prep_centroids_kernel", "reduce_partials_kernel",
-                 "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16",
+                 "cp.async.bulk.shared::cluster.global.mbarrier",
                  "pallas_kernels.py:542", "kmeans_tile_rows",
-                 "kmeans_scratch_bytes", "KM_TILE_N", "KM_TILE_K",
-                 "KM_PIPE"):
+                 "kmeans_scratch_bytes", "kmeans_blocks_per_sm",
+                 "kmeans_tile_centroids", "kmeans_prep_centroids_bf16",
+                 "KM_TILE_N", "KM_TILE_K", "KM_PIPE"):
         assert name in bf16
+    assert "mma.sync" not in bf16
     common = (_build.CSRC_DIR / "assign_common.cuh").read_text()
     assert "reduce_partials_kernel" in common
     gmm = (_build.CSRC_DIR / "gmm_estep.cu").read_text()
