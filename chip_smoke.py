@@ -12,9 +12,17 @@ shape; ``GaussianMixture.fit`` (k = 256, 'diag', internal KMeans init) then
 ``predict``, ``predict_proba``, ``score_samples``, ``save`` and ``load`` at
 n = 2,097,152, D = 128, on blobs about 1e3 from the origin; and the variant
 lab (``kmeans_tpu_torch.experiments.exp_pallas_kernel``) at the main shape.
-The launch counters show that each path went through its own kernels.  Each
-kernel is timed beside its plain version, a library yardstick and its
-roofline bound.
+Then the device loop (``host_loop=False``, a replayed CUDA graph per
+iteration) on the main data in float32 and bf16 against the host loop, a
+converging fit at the GloVe-like shape across in-flight depths, and each
+empty-cluster policy with forced empties; k-means++ with its draws on the
+device against the per-draw host version; the mixture fit's set-up in its
+parts; a float64 mixture on the card (the torch E-step) against the same fit
+on the CPU, and ``load`` on the card of its CPU checkpoint; ``transform``
+against float64 distances.  The launch counters show that each path went
+through its own kernels (the device loop counts its graph's launches at
+each replay).  Each kernel is timed beside its plain version, a library
+yardstick and its roofline bound.
 
 Every phase prints one JSON line as it ends.  A phase that fails raises, so
 the run ends with a non-zero code and without the result line.  The last line
@@ -50,12 +58,14 @@ from kmeans_tpu_torch import GaussianMixture, KMeans  # noqa: E402
 from kmeans_tpu_torch.data.synthetic import make_blobs_device  # noqa: E402
 from kmeans_tpu_torch.experiments import exp_kernel_edits as kernel_edits  # noqa: E402,E501
 from kmeans_tpu_torch.experiments import exp_pallas_kernel as lab  # noqa: E402
+from kmeans_tpu_torch.models import init as seeding  # noqa: E402
 from kmeans_tpu_torch.models.kmeans import _FORMAT_MODES  # noqa: E402
 from kmeans_tpu_torch.ops import _build  # noqa: E402
 from kmeans_tpu_torch.ops import compare as cmp  # noqa: E402
 from kmeans_tpu_torch.ops import estep_kernels as ek  # noqa: E402
 from kmeans_tpu_torch.ops import hopper_kernels as hk  # noqa: E402
 from kmeans_tpu_torch.parallel import distributed as dist  # noqa: E402
+from kmeans_tpu_torch.parallel.gmm_step import make_gmm_step_fn  # noqa: E402,E501
 from kmeans_tpu_torch.parallel.sharding import (EM_MAX_CHUNK,  # noqa: E402
                                                 weighted_mean)
 
@@ -70,6 +80,23 @@ PREDICT_ROWS = 262_144
 # origin so that centering and moment precision are exercised (made by
 # exp_kernel_edits.estep_inputs, which the E-step ablations time too).
 GMM = dict(n=2_097_152, d=128, k=256, iters=5)
+# The converging device-loop fit at the GloVe-like shape: its tolerance is
+# the largest shift of iteration CONVERGE_AT of a probe fit (times 1.001),
+# so that it converges within CONVERGE_MAX iterations; the in-flight depths
+# it is run at.
+CONVERGE_AT, CONVERGE_MAX = 20, 40
+IN_FLIGHT_DEPTHS = (0, 1, 2, 3)
+DEPTH_REPS = 5
+# Forced empties, each policy: the first EMPTY_DUPS centroids of the init
+# are one row, so all but the first start empty.
+EMPTY = dict(n=65_536, d=32, k=64, iters=10)
+EMPTY_DUPS = 6
+# The float64 mixture (C.5): a small 'diag' fit on the card against the
+# same fit on the CPU, in the float64 parity class.
+GMM64 = dict(n=65_536, d=16, k=8, iters=10)
+F64_RTOL, F64_ATOL = 1e-12, 1e-10
+# The device loop's final SSE against the host loop's.
+DEVICE_SSE_RTOL = 1e-5
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates).
 PEAK_FP32_FLOPS = 67e12          # float32 outside the tensor cores
@@ -578,7 +605,7 @@ def phase_gmm(x_gmm):
          seconds_per_iteration=statistics.median(gm.iter_times_),
          predict_rows=PREDICT_ROWS, float64_label_rows=int(clear.sum()),
          save_load_same_labels=True)
-    return gm, launches
+    return gm, launches, fit_s
 
 
 def phase_gmm_offset():
@@ -608,6 +635,8 @@ def phase_gmm_offset():
 PATH_KERNELS = {
     "main": ("fused_assign_reduce", "hopper_assign"),
     "main_bf16": ("fused_assign_reduce_bf16", "hopper_assign_bf16"),
+    "main_device": ("fused_assign_reduce", "hopper_assign"),
+    "main_bf16_device": ("fused_assign_reduce_bf16", "hopper_assign_bf16"),
     "glove_like": ("fused_assign_reduce", "hopper_assign"),
     "gmm": ("diag_estep", "fused_assign_reduce"),
     "lab": tuple(lab.parse_spec(spec).counter for spec in LAB_SPECS),
@@ -669,9 +698,10 @@ def fit_shape(x, shape, label, distance_mode="auto"):
          distance_mode=distance_mode, iterations=km.iterations_run,
          sse_history=km.sse_history, largest_sse_rise=rise,
          seconds_per_iteration=statistics.median(km.iter_times_),
+         iter_times=km.iter_times_,
          fit_seconds=wall, kernel1_launches=launched,
          kernel2_launches=hk.LAUNCHES["hopper_assign" + suffix])
-    return km
+    return km, wall
 
 
 def phase_predict(km, x):
@@ -713,6 +743,318 @@ def phase_predict(km, x):
          label_diff_in_band=n_diff - n_outside, kernel2_launches=launched,
          saved_distance_mode=saved_mode, save_load_same_labels=True,
          **fields)
+
+
+# -------------------------------------------------------------- device loop
+
+
+def phase_device_loop(x, host_models):
+    """The main data through the device loop (``host_loop=False``) in
+    float32 and bf16, against the host-loop fits of the same data and init:
+    equal iterations, final SSE within DEVICE_SSE_RTOL, the largest centroid
+    difference, and kernel 1's launches (counted at each graph replay) equal
+    to the iterations.  Each fit runs twice on one cached dataset: the first
+    captures the graph, the second only replays it.  Seconds per iteration
+    are the device loop's own (``iter_times_``: its wall time over its
+    iterations, without the init and ``labels_``), beside the host loop's
+    median iteration; ``fit_seconds`` are the whole ``fit`` of each."""
+    out = {}
+    for label, mode in (("main_device", "auto"),
+                        ("main_bf16_device", "pallas_bf16")):
+        host, host_wall = host_models[label[:-len("_device")]]
+        suffix = "_bf16" if mode == "pallas_bf16" else ""
+        km = KMeans(k=MAIN["k"], max_iter=MAIN["iters"], seed=42,
+                    compute_sse=True, init="forgy", verbose=False,
+                    distance_mode=mode, host_loop=False)
+        ds = km.cache(x)
+        walls, per_iteration = [], []
+        for run in range(2):
+            hk.reset_launch_counts()       # this path's own counts
+            t0 = time.perf_counter()
+            km.fit(ds)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            per_iteration.append(km.iter_times_[0])
+            if run == 0:
+                launches = check_path_launches(label)
+        n = km.iterations_run
+        check(km.loop_path_ == "device", f"{label}: loop {km.loop_path_}")
+        check(launches["fused_assign_reduce" + suffix] == n,
+              f"{label}: {launches['fused_assign_reduce' + suffix]} "
+              f"launches of kernel 1 reached the card for {n} iterations")
+        check(n == host.iterations_run,
+              f"{label}: {n} iterations, the host loop {host.iterations_run}")
+        rel = abs(km.sse_history[-1] - host.sse_history[-1]) / \
+            host.sse_history[-1]
+        check(rel <= DEVICE_SSE_RTOL, f"{label}: final SSE "
+              f"{km.sse_history[-1]} against the host loop's "
+              f"{host.sse_history[-1]}")
+        diff = float(np.abs(km.centroids.astype(np.float64)
+                            - host.centroids.astype(np.float64)).max())
+        emit("device_loop", path=label, distance_mode=mode, iterations=n,
+             sse_history=km.sse_history, host_sse_history=host.sse_history,
+             final_sse_rel_diff=rel, max_centroid_diff=diff,
+             kernel1_launches=launches["fused_assign_reduce" + suffix],
+             kernel2_launches=launches["hopper_assign" + suffix],
+             seconds_per_iteration_device_first_fit=per_iteration[0],
+             seconds_per_iteration_device=per_iteration[1],
+             seconds_per_iteration_host=statistics.median(host.iter_times_),
+             fit_seconds_device=walls, fit_seconds_host=host_wall)
+        out[label] = per_iteration[1]
+    return out
+
+
+def phase_device_converge(x):
+    """A converging fit at the GloVe-like shape: the host loop and the
+    device loop take the same number of iterations; at every in-flight
+    depth the device loop gives the same bits as at depth 0 (the iterations
+    queued past convergence are masked), with its wall time per iteration
+    (median of DEPTH_REPS runs, the depths in turns) and the iterations run
+    in vain."""
+    kw = dict(k=SECOND["k"], max_iter=CONVERGE_MAX, seed=42,
+              compute_sse=True, init="forgy", verbose=False)
+    km = KMeans(host_loop=False, **kw)       # for its dataset and init
+    ds = km.cache(x)
+    c0 = torch.from_numpy(km._init_centroids(ds, 42)).to(DEV)
+    chunk, mode = km._chunk_for(ds.n, ds.d), km._mode()
+    probe = dist.make_fit_fn(chunk_size=chunk, mode=mode,
+                             max_iter=CONVERGE_MAX, tolerance=0.0,
+                             empty_policy="resample")(ds, c0, 42)
+    tol = float(probe.shift_history[CONVERGE_AT - 1]) * 1.001
+    host = KMeans(tolerance=tol, host_loop=True, **kw).fit(ds)
+    dev = KMeans(tolerance=tol, host_loop=False, **kw).fit(ds)
+    check(dev.iterations_run == host.iterations_run < CONVERGE_MAX,
+          f"converging fit: device {dev.iterations_run}, host "
+          f"{host.iterations_run} iterations (cap {CONVERGE_MAX})")
+    first = None
+    walls = {depth: [] for depth in IN_FLIGHT_DEPTHS}
+    launched = {}
+    for _ in range(DEPTH_REPS):
+        for depth in IN_FLIGHT_DEPTHS:
+            fit_fn = dist.make_fit_fn(chunk_size=chunk, mode=mode,
+                                      max_iter=CONVERGE_MAX, tolerance=tol,
+                                      empty_policy="resample",
+                                      in_flight=depth)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fit_fn(ds, c0, 42)
+            walls[depth].append((time.perf_counter() - t0) / res.n_iters)
+            check(res.n_iters == host.iterations_run and res.finite,
+                  f"in flight {depth}: {res.n_iters} iterations")
+            cents = res.centroids.cpu().numpy()
+            if first is None:
+                first = cents
+            check(np.array_equal(cents, first), f"in flight {depth}: the "
+                  f"masked iterations changed the state")
+            launched[depth] = res.launched
+    depths = [{"in_flight": depth, "launched": launched[depth],
+               "masked_in_vain": launched[depth] - host.iterations_run,
+               "seconds_per_iteration": statistics.median(walls[depth]),
+               "runs": walls[depth]} for depth in IN_FLIGHT_DEPTHS]
+    check(np.array_equal(first, dev.centroids),
+          "the model's device fit differs from make_fit_fn's")
+    emit("device_loop_converge", n=SECOND["n"], d=SECOND["d"],
+         k=SECOND["k"], tolerance=tol, iterations=dev.iterations_run,
+         host_iterations=host.iterations_run,
+         host_seconds_per_iteration=statistics.median(host.iter_times_),
+         max_centroid_diff_host=float(np.abs(
+             dev.centroids.astype(np.float64)
+             - host.centroids.astype(np.float64)).max()),
+         depths=depths)
+
+
+def phase_empty_policies():
+    """Each empty-cluster policy with forced empties on a dataset without a
+    host copy: the device loop's trajectory equals the host loop's (the
+    same centroids, bit for bit, and the same SSE history).  The kernel
+    mode for each policy, then the torch modes, whose graph captures
+    cuBLAS products and the chunk loop: float64 (where 'auto' is
+    'matmul'), and 'matmul_bf16' with the pipelined schedule."""
+    x, _ = make_blobs_device(EMPTY["n"], 16, EMPTY["d"], device=DEV, seed=31)
+    w = torch.ones(EMPTY["n"], device=DEV)
+    w[::7] = 0.0                       # zero-weight rows are never drawn
+    rows = [0] * EMPTY_DUPS + list(range(1, EMPTY["k"] - EMPTY_DUPS + 1))
+    init = x[rows].cpu().numpy()
+    records = []
+    cases = [(policy, {}) for policy in ("keep", "farthest", "resample")]
+    cases += [("resample", {"dtype": np.float64}),
+              ("farthest", {"distance_mode": "matmul_bf16",
+                            "pipeline": 1, "chunk_size": 8192})]
+    for policy, extra in cases:
+        kw = dict(k=EMPTY["k"], max_iter=EMPTY["iters"], init=init,
+                  compute_sse=True, verbose=False, empty_cluster=policy,
+                  **extra)
+        host = KMeans(host_loop=True, **kw).fit(x, sample_weight=w)
+        dev = KMeans(host_loop=False, **kw).fit(x, sample_weight=w)
+        same = (dev.iterations_run == host.iterations_run
+                and np.array_equal(dev.centroids, host.centroids)
+                and dev.sse_history == host.sse_history)
+        check(same, f"empty policy {policy} {extra}: the device loop's "
+                    f"trajectory differs from the host loop's")
+        records.append({"policy": policy, "mode": dev._mode(),
+                        "dtype": str(dev.dtype),
+                        "estep_path": dev.estep_path_,
+                        "iterations": dev.iterations_run,
+                        "final_sse": dev.sse_history[-1],
+                        "identical": same})
+    emit("device_loop_empty", n=EMPTY["n"], d=EMPTY["d"], k=EMPTY["k"],
+         forced_empty=EMPTY_DUPS - 1, cases=records)
+
+
+# ---------------------------------------------------------------- seeding
+
+
+def cdf_gap(points, w, drawn, i, u):
+    """Where the device and host draws first differ: the float64 CDF of the
+    D^2 masses at draw ``i`` around the uniform ``u``."""
+    mind2 = torch.full((points.shape[0],), float("inf"), device=DEV)
+    for j in drawn[:i]:
+        mind2 = torch.minimum(mind2, ((points - points[int(j)]) ** 2).sum(1))
+    cdf = seeding._cdf(w.double() * mind2.double().clamp_min(0))
+    at = int(torch.searchsorted(cdf, torch.tensor([u], device=DEV,
+                                                  dtype=torch.float64))[0])
+    lo, hi = max(at - 1, 0), min(at + 1, cdf.numel() - 1)
+    return {"draw": i, "u": u, "cdf_around": cdf[lo:hi + 1].tolist(),
+            "gap": float((cdf[lo:hi + 1] - u).abs().min())}
+
+
+def phase_seeding(x_main, x_gmm):
+    """k-means++ on the main data (k = 1024) and the mixture data
+    (k = 256): the draws on the device against the per-draw host version
+    on the same tensor, seconds of each, and the chosen rows."""
+    records = []
+    for name, x, k in (("main", x_main, MAIN["k"]), ("gmm", x_gmm, GMM["k"])):
+        w = torch.ones(x.shape[0], device=DEV)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = seeding._kmeanspp_device_draws(
+            x, w, k, np.random.default_rng(7)).cpu().numpy()
+        device_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = seeding._kmeanspp_host_draws(
+            None, np.ones(x.shape[0]), k, np.random.default_rng(7), points=x)
+        host_s = time.perf_counter() - t0
+        equal = int((got == want).sum())
+        rec = {"data": name, "n": x.shape[0], "d": x.shape[1], "k": k,
+               "device_seconds": device_s, "host_seconds": host_s,
+               "equal_rows": equal}
+        if equal < k:
+            i = int(np.flatnonzero(got != want)[0])
+            u = float(np.random.default_rng(7).random(k)[i])
+            rec["first_difference"] = {"device_row": int(got[i]),
+                                       "host_row": int(want[i]),
+                                       **cdf_gap(x, w, want, i, u)}
+        records.append(rec)
+        emit("seeding", **rec)
+        check(equal == k, f"seeding {name}: {equal} of {k} rows equal")
+    return records
+
+
+def phase_gmm_setup(x, gm, fit_seconds):
+    """GaussianMixture.fit at the mixture shape in its parts, each timed on
+    its own with the fit's own arguments: the dataset and its shift, the
+    k-means++ seeding, the internal KMeans from those seeds, the
+    hard-assignment init pass with its M-step; EM is the fit's own
+    iterations (``iter_times_`` of the fit of phase ``gmm``)."""
+    parts = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        parts[name] = time.perf_counter() - t0
+        return result
+
+    model = GaussianMixture(n_components=GMM["k"], init_params="kmeans",
+                            max_iter=GMM["iters"], tol=0.0, seed=7)
+    ds = timed("upload", lambda: model._dataset(x))
+    model.shift_ = timed("shift", lambda: weighted_mean(
+        ds.points, ds.weights).to(torch.float64).cpu().numpy())
+    seeds = timed("seeding", lambda: seeding.kmeanspp_init(ds, GMM["k"], 7))
+    km = timed("internal_kmeans", lambda: KMeans(
+        k=GMM["k"], seed=7, init=seeds, max_iter=20, verbose=False,
+        compute_labels=False, empty_cluster="resample").fit(ds))
+    step = make_gmm_step_fn(chunk_size=model._chunk(ds.n),
+                            mode=model._mode())
+    means = np.asarray(km.centroids, np.float64)
+    timed("hard_init", lambda: model._m_step(model._host(step(
+        ds.points, ds.weights, *model._hard_tables(means, model.shift_)))))
+    parts["em"] = float(sum(gm.iter_times_))
+    emit("gmm_setup", n=GMM["n"], d=GMM["d"], k=GMM["k"],
+         fit_seconds_of_phase_gmm=fit_seconds, parts_seconds=parts,
+         parts_total=sum(parts.values()))
+
+
+def phase_gmm_float64():
+    """C.5: a float64 'diag' mixture on the card runs the torch E-step
+    ('serial', no diag_estep launch) and matches the same fit on the CPU in
+    the float64 parity class; a float64 checkpoint written on the CPU loads
+    on the card and predicts the same labels."""
+    rng = np.random.default_rng(3)
+    centers = rng.normal(size=(GMM64["k"], GMM64["d"])) * 4.0
+    y = rng.integers(0, GMM64["k"], size=GMM64["n"])
+    X = centers[y] + rng.normal(size=(GMM64["n"], GMM64["d"]))
+    kw = dict(n_components=GMM64["k"], covariance_type="diag",
+              max_iter=GMM64["iters"], tol=0.0, seed=1, dtype=np.float64)
+    hk.reset_launch_counts()
+    card = GaussianMixture(**kw).fit(X)
+    check(card.estep_path_ == "serial", f"float64 E-step path "
+                                        f"{card.estep_path_}")
+    check(hk.LAUNCHES["diag_estep"] == 0, "a float64 mixture launched "
+                                          "diag_estep")
+    cpu = GaussianMixture(device="cpu", **kw).fit(X)
+    errs = {}
+    for name in ("weights_", "means_", "covariances_"):
+        a, b = getattr(card, name), getattr(cpu, name)
+        errs[name] = float(np.abs(a - b).max())
+        check(np.allclose(a, b, rtol=F64_RTOL, atol=F64_ATOL),
+              f"float64 mixture: {name} of the card and the CPU differ by "
+              f"{errs[name]}")
+    check(card.n_iter_ == cpu.n_iter_, "float64 mixture: EM iterations")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "gmm64.npz"
+        cpu.save(path)
+        loaded = GaussianMixture.load(path)
+    check(loaded.device.type == "cuda" and loaded.dtype == np.float64,
+          "the float64 checkpoint did not load on the card")
+    same = bool((loaded.predict(X) == cpu.predict(X)).all())
+    check(same, "the float64 checkpoint predicts other labels on the card")
+    emit("gmm_float64", n=GMM64["n"], d=GMM64["d"], k=GMM64["k"],
+         estep_path=card.estep_path_, diag_estep_launches=0,
+         iterations=card.n_iter_, lower_bound=card.lower_bound_,
+         max_diff_against_cpu=errs, rtol=F64_RTOL, atol=F64_ATOL,
+         loaded_on_card_same_labels=same)
+
+
+def phase_transform(km, x):
+    """``transform`` on PREDICT_ROWS rows of the main data against float64
+    distances by the plain expanded form on the card (squared, with the
+    mind2 tolerances of ops/compare.py), and in blocks of ``block_rows``
+    against the whole."""
+    rows = x[:PREDICT_ROWS]
+    t0 = time.perf_counter()
+    out = km.transform(rows)
+    whole_s = time.perf_counter() - t0
+    blocks = km.transform(rows, block_rows=100_000)
+    check(out.shape == (PREDICT_ROWS, MAIN["k"]) and out.dtype == np.float32,
+          f"transform: {out.shape} {out.dtype}")
+    c = torch.from_numpy(km.centroids).to(DEV)
+    x64, c64 = rows.double(), c.double()
+    ref = torch.clamp_min((x64 * x64).sum(1)[:, None]
+                          + (c64 * c64).sum(1)[None, :]
+                          - 2.0 * x64 @ c64.T, 0.0)
+    atol = cmp.mind2_atol(rows, c)
+    errs = {}
+    for name, got in (("whole", out), ("blocks", blocks)):
+        got2 = torch.from_numpy(got).to(DEV).double() ** 2
+        check(cmp.close(got2, ref, cmp.MIND2_RTOL, atol),
+              f"transform ({name}) disagrees with float64 distances")
+        errs[name] = max_err(got2, ref)
+    emit("transform", rows=PREDICT_ROWS, k=MAIN["k"], seconds=whole_s,
+         squared_err_whole=errs["whole"], squared_err_blocks=errs["blocks"],
+         atol=atol, rtol=cmp.MIND2_RTOL,
+         blocks_against_whole=float(np.abs(out - blocks).max()))
 
 
 # -------------------------------------------------------------------- timing
@@ -788,7 +1130,7 @@ def library_assign_bf16(x, c, block=65536):
     return out
 
 
-def phase_timing(x, c, errs, launches, iter_seconds):
+def phase_timing(x, c, errs, launches, iter_seconds, device_seconds):
     n, d = x.shape
     k = c.shape[0]
     w = torch.ones(n, device=DEV)
@@ -845,16 +1187,25 @@ def phase_timing(x, c, errs, launches, iter_seconds):
         emit("scatter_share", kernel="fused_assign_reduce" + suffix,
              fused_ms=fused_ms, scatter_ms=scatter_ms,
              share=scatter_ms / fused_ms)
-    # The whole step on the device (the fused kernel, the algebraic SSE's
-    # sum of w ||x||^2, per-cluster SSE and farthest point), beside the
-    # host's wall time for one iteration of the fit.
+    # The step as the fit runs it (the fused kernel and the algebraic SSE,
+    # from the dataset's sum of w ||x||^2, which is computed once per fit
+    # and timed here on its own), beside the step with every statistic and
+    # the sum in each step (the defaults of make_step_fn, which the fit ran
+    # before the sum was hoisted), and the wall time of one iteration of
+    # the host loop and of the device loop.
+    x2w = dist._weighted_sqnorm_total(x, w)
     for mode, label in (("kernel", "main"), ("kernel_bf16", "main_bf16")):
-        step = dist.make_step_fn(chunk_size=n, mode=mode)
+        step = dist.make_step_fn(chunk_size=n, mode=mode,
+                                 need_farthest=False, need_sse_pc=False)
+        every = dist.make_step_fn(chunk_size=n, mode=mode)
         emit("timing", what=f"one Lloyd iteration of the {label} fit",
-             step_ms=median_ms(lambda: step(x, w, c)),
-             weighted_sqnorm_ms=median_ms(
+             step_ms=median_ms(lambda: step(x, w, c, x2w)),
+             step_ms_every_statistic=median_ms(lambda: every(x, w, c)),
+             weighted_sqnorm_ms_once_per_fit=median_ms(
                  lambda: dist._weighted_sqnorm_total(x, w)),
-             seconds_per_iteration=iter_seconds[label], n=n, d=d, k=k)
+             seconds_per_iteration=iter_seconds[label],
+             device_loop_seconds_per_iteration=device_seconds[
+                 label + "_device"], n=n, d=d, k=k)
     return rows
 
 
@@ -1107,11 +1458,12 @@ def main() -> None:
 
     # Each path: counters to 0 just before it, read just after it, and only
     # the kernels that this path must launch are checked.
-    km = fit_shape(x_main, MAIN, "main")
+    km, km_wall = fit_shape(x_main, MAIN, "main")
     phase_predict(km, x_main)
     launches = check_path_launches("main")
 
-    km_bf16 = fit_shape(x_main, MAIN, "main_bf16", "pallas_bf16")
+    km_bf16, km_bf16_wall = fit_shape(x_main, MAIN, "main_bf16",
+                                      "pallas_bf16")
     phase_predict(km_bf16, x_main)
     launches.update({name: count for name, count in
                      check_path_launches("main_bf16").items()
@@ -1121,10 +1473,15 @@ def main() -> None:
          main=km.sse_history[-1], ratio=ratio)
     check(abs(ratio - 1.0) <= BF16_SSE_RATIO,
           f"main_bf16: final SSE {ratio} times the float32 path's")
+    device_seconds = phase_device_loop(
+        x_main, {"main": (km, km_wall), "main_bf16": (km_bf16, km_bf16_wall)})
+    phase_transform(km, x_main)
 
     fit_shape(x2, SECOND, "glove_like")
     check_path_launches("glove_like")
+    phase_device_converge(x2)
     del x2
+    phase_empty_policies()
 
     # The mixture: its kernel against the plain version, then its path.
     # The data (blobs about 1e3 from the origin) and the tables of a mixture
@@ -1133,12 +1490,16 @@ def main() -> None:
                                                   GMM["k"], DEV)
     estep_records = phase_estep_kernel(x_gmm, gmm_tables)
     gmm_main = estep_records[0]
-    gm, gmm_launches = phase_gmm(x_gmm)
+    gm, gmm_launches, gmm_fit_seconds = phase_gmm(x_gmm)
+    phase_gmm_setup(x_gmm, gm, gmm_fit_seconds)
+    phase_seeding(x_main, x_gmm)
     phase_gmm_offset()
+    phase_gmm_float64()
 
     rows = phase_timing(x_main, c_main, errs, launches,
                         {"main": statistics.median(km.iter_times_),
-                         "main_bf16": statistics.median(km_bf16.iter_times_)})
+                         "main_bf16": statistics.median(km_bf16.iter_times_)},
+                        device_seconds)
     rows.append(phase_gmm_timing(
         x_gmm, gmm_tables, gm,
         max(gmm_main[f"{s}_err"] for s in ("rsum", "s1", "s2", "ll")),

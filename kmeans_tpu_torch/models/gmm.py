@@ -11,8 +11,10 @@ mean (``shift_``), so that ``S2/R - mu^2`` does not cancel for data far from
 the origin; the shift is added back to the means.
 
 The model runs on the card unless the caller asks for the CPU:
-``device=None`` means ``cuda`` and raises where there is none; on the card
-the E-step kernel computes in float32, so float64 runs on ``device='cpu'``.
+``device=None`` means ``cuda`` and raises where there is none.  The E-step
+kernel computes in float32, so the dtype picks the E-step
+(:func:`estep_mode`): a float32 mixture on the card runs the kernel, a
+float64 one the chunked torch pass in float64 on the card.
 
 Behaviour kept from the JAX package: the constructor's arguments and
 validation; ``init_params`` 'kmeans' / 'k-means++' (an internal ``KMeans``
@@ -72,6 +74,18 @@ _LATER_ARGS = {
 }
 
 
+def estep_mode(device_type: str, dtype, covariance_type: str) -> str:
+    """The E-step a mixture runs: 'kernel' (the fused CUDA kernel, a
+    float32 engine) for float32 'diag' and 'spherical' mixtures on a CUDA
+    device, else 'torch' (the chunked torch pass, in the model's dtype, on
+    its device).  A rule of the dtype, not a fallback: a float64 mixture
+    asked for float64 arithmetic."""
+    if device_type == "cuda" and np.dtype(dtype) == np.float32 \
+            and covariance_type in ("diag", "spherical"):
+        return "kernel"
+    return "torch"
+
+
 def _is_allowed(value, allowed) -> bool:
     return any(value is a or (type(value) is type(a) and value == a)
                for a in allowed)
@@ -94,8 +108,9 @@ class GaussianMixture:
     the host loop, the serial E pass); 'tied' and 'full' and any other value
     raise ``NotImplementedError`` naming the ROADMAP item that brings them.
 
-    ``estep_path_`` records what the last fit ran: 'kernel' (the fused CUDA
-    kernel) on the card, 'serial' (the chunked torch pass) on the CPU.
+    ``estep_path_`` records what the last fit ran (:func:`estep_mode`):
+    'kernel' (the fused CUDA kernel) for float32 on the card, 'serial' (the
+    chunked torch pass) for float64 on the card and on the CPU.
     ``iter_times_`` holds the wall seconds of each EM iteration of the
     winning restart.
     """
@@ -178,11 +193,6 @@ class GaussianMixture:
         self.ingest = ingest
         self.verbose = verbose
         self.device = resolve_device(device)
-        if self.device.type == "cuda" and \
-                self.dtype != np.dtype(np.float32):
-            raise ValueError(
-                f"on a CUDA device the E-step kernel computes in float32; "
-                f"dtype {self.dtype} runs on device='cpu'")
 
         self.estep_path_: Optional[str] = None
         self.weights_: Optional[np.ndarray] = None
@@ -199,9 +209,9 @@ class GaussianMixture:
     # ------------------------------------------------------------- plumbing
 
     def _mode(self) -> str:
-        """The fused kernel on a CUDA device, always; the chunked torch
-        pass on the CPU."""
-        return "kernel" if self.device.type == "cuda" else "torch"
+        """The E-step of this model: :func:`estep_mode`."""
+        return estep_mode(self.device.type, self.dtype,
+                          self.covariance_type)
 
     def _dataset(self, X, sample_weight=None) -> Dataset:
         """X on the device once; data that did not come as a

@@ -6,6 +6,10 @@ random draw happens on the host with the same NumPy generators as the JAX
 package (``np.random.RandomState(seed)`` for Forgy,
 ``np.random.default_rng(seed)`` for k-means++), so the same seed gives the
 same initial centroids in both packages whenever the data has a host copy.
+On data too large for the host (or without a host copy) k-means++ keeps its
+distances on the device and draws there too
+(:func:`_weighted_kmeanspp_device`), from the same host uniforms, so it picks
+the same rows.
 
 All entry points accept a host ``(n, D)`` array or a
 ``parallel.sharding.Dataset`` (row access through ``.take``).
@@ -80,12 +84,27 @@ def _weighted_kmeanspp_host(X: np.ndarray, w: np.ndarray, k: int,
                             rng: np.random.Generator,
                             points: Optional[torch.Tensor] = None
                             ) -> np.ndarray:
+    """Weighted D^2 seeding with host-side draws: the centres of
+    :func:`_kmeanspp_host_draws`."""
+    idx = _kmeanspp_host_draws(X, w, k, rng, points)
+    if X is not None:
+        return np.asarray(X[idx])
+    return points.index_select(
+        0, torch.from_numpy(idx).to(points.device)).cpu().numpy()
+
+
+def _kmeanspp_host_draws(X: Optional[np.ndarray], w: np.ndarray, k: int,
+                         rng: np.random.Generator,
+                         points: Optional[torch.Tensor] = None
+                         ) -> np.ndarray:
     """Weighted D^2 seeding; the categorical draws are host-side.
 
     ``X`` is the host array, or None when only the device tensor ``points``
     exists.  The distance maintenance runs in float64 NumPy for small host
     arrays and in torch on ``points`` otherwise; each draw then pulls the
-    (n,) distance vector to the host."""
+    (n,) distance vector to the host.  Returns the k row indices.
+    ``kmeanspp_init`` runs it on small host arrays; on ``points`` it is
+    the plain version of :func:`_kmeanspp_device_draws`."""
     n = w.shape[0]
     if int((w > 0).sum()) < k:
         raise ValueError(
@@ -97,10 +116,8 @@ def _weighted_kmeanspp_host(X: np.ndarray, w: np.ndarray, k: int,
     def row(i):
         return X[i] if X is not None else points[int(i)].cpu().numpy()
 
-    d = X.shape[1] if X is not None else points.shape[1]
-    dtype = X.dtype if X is not None else row(0).dtype
-    centers = np.empty((k, d), dtype=dtype)
-    centers[0] = row(rng.choice(n, p=w / w.sum()))  # first draw ~ weights
+    idx = np.empty(k, dtype=np.int64)
+    idx[0] = rng.choice(n, p=w / w.sum())           # first draw ~ weights
     if on_host:
         x = X.astype(np.float64, copy=False)
         mind2 = np.full((n,), np.inf)
@@ -109,21 +126,81 @@ def _weighted_kmeanspp_host(X: np.ndarray, w: np.ndarray, k: int,
                            device=points.device)
     for i in range(1, k):
         if on_host:
-            diff = x - centers[i - 1].astype(np.float64)
+            diff = x - row(idx[i - 1]).astype(np.float64)
             mind2 = np.minimum(mind2, (diff * diff).sum(axis=1))
             p = w * np.maximum(mind2, 0.0)
         else:
-            c = torch.as_tensor(centers[i - 1], device=points.device)
+            c = torch.as_tensor(row(idx[i - 1]), device=points.device)
             diff = points - c[None, :]
             mind2 = torch.minimum(mind2, (diff * diff).sum(dim=1))
             p = w * np.maximum(mind2.cpu().numpy().astype(np.float64), 0.0)
         total = p.sum()
         if not np.isfinite(total) or total <= 0:
-            idx = rng.choice(n, p=w / w.sum())  # degenerate: coincident pts
+            idx[i] = rng.choice(n, p=w / w.sum())  # degenerate: coincident
         else:
-            idx = rng.choice(n, p=p / total)
-        centers[i] = row(idx)
-    return centers
+            idx[i] = rng.choice(n, p=p / total)
+    return idx
+
+
+def _cdf(p: torch.Tensor) -> torch.Tensor:
+    """``numpy.random.Generator.choice``'s CDF of the masses ``p``: ``p``
+    over its total, its cumulative sum, over that sum's last entry."""
+    cdf = torch.cumsum(p / p.sum(), 0)
+    return cdf / cdf[-1]
+
+
+def _weighted_kmeanspp_device(points: torch.Tensor, weights: torch.Tensor,
+                              k: int, rng: np.random.Generator
+                              ) -> np.ndarray:
+    """Weighted D^2 seeding with the draws on the device: the centres of
+    :func:`_kmeanspp_device_draws`, copied to the host once."""
+    return points.index_select(
+        0, _kmeanspp_device_draws(points, weights, k, rng)).cpu().numpy()
+
+
+def _kmeanspp_device_draws(points: torch.Tensor, weights: torch.Tensor,
+                           k: int, rng: np.random.Generator) -> torch.Tensor:
+    """The k row indices (int64, on the device) of weighted D^2 seeding
+    with the draws on the device: the same rows as
+    :func:`_kmeanspp_host_draws` on the same ``points``, without its
+    per-draw copy of the (n,) distances to the host.
+
+    ``Generator.choice(n, p=p)`` takes one ``random()`` and returns
+    ``searchsorted(cdf, u, side='right')``, so all k uniforms are taken
+    from ``rng`` first (the host version takes one per draw, in the same
+    order) and each draw inverts the float64 CDF of ``w * max(mind2, 0)``
+    on the device (:func:`_cdf`).  The degenerate branch (a total that is
+    not finite or not positive: coincident points) draws by the weights,
+    chosen by ``torch.where``; both branches take their one uniform.  The
+    distances are maintained as in the host version, so the two differ
+    only where a uniform falls within rounding of a CDF step (the device's
+    parallel sum and scan against NumPy's).  The centres are gathered on
+    the device; nothing is read to the host inside the loop."""
+    n = points.shape[0]
+    w = weights.to(torch.float64)
+    positive = int((w > 0).sum())
+    if positive < k:
+        raise ValueError(f"Not enough data points ({positive}) to "
+                         f"initialize {k} clusters")
+    u = torch.from_numpy(rng.random(k)).to(points.device)
+    cdf_w = _cdf(w)
+    last = torch.tensor(n - 1, device=points.device)
+    idx = torch.empty(k, dtype=torch.int64, device=points.device)
+    idx[0] = torch.searchsorted(cdf_w, u[0:1], right=True)[0]
+    mind2 = torch.full((n,), float("inf"), dtype=points.dtype,
+                       device=points.device)
+    for i in range(1, k):
+        c = points.index_select(0, idx[i - 1:i])[0]
+        diff = points - c[None, :]
+        mind2 = torch.minimum(mind2, (diff * diff).sum(dim=1))
+        p = w * torch.clamp_min(mind2.to(torch.float64), 0.0)
+        total = p.sum()
+        usable = torch.isfinite(total) & (total > 0)
+        by_d2 = torch.searchsorted(_cdf(p), u[i:i + 1], right=True)[0]
+        by_w = torch.searchsorted(cdf_w, u[i:i + 1], right=True)[0]
+        # A non-finite CDF may search past the end; that draw is not taken.
+        idx[i] = torch.where(usable, torch.minimum(by_d2, last), by_w)
+    return idx
 
 
 def kmeanspp_init(X, k: int, seed: int, *, validate: bool = True
@@ -147,8 +224,11 @@ def kmeanspp_init(X, k: int, seed: int, *, validate: bool = True
         w = src.weights.cpu().numpy().astype(np.float64)
         if validate and not bool(torch.isfinite(points).all()):
             raise ValueError("Data contains NaN or Inf values")
-    return _weighted_kmeanspp_host(host, w, k, np.random.default_rng(seed),
-                                   points=points)
+    rng = np.random.default_rng(seed)
+    if points is not None and (host is None
+                               or host.size > _HOST_KMEANSPP_ELEMS):
+        return _weighted_kmeanspp_device(points, src.weights, k, rng)
+    return _weighted_kmeanspp_host(host, w, k, rng, points=points)
 
 
 INITIALIZERS = {"forgy": forgy_init, "random": forgy_init,

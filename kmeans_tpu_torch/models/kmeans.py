@@ -1,16 +1,23 @@
 """K-Means estimator on one NVIDIA GPU (scikit-learn-style API).
 
-Counterpart of ``kmeans_tpu/models/kmeans.py`` for its main path:
+Counterpart of ``kmeans_tpu/models/kmeans.py`` on one device:
 ``KMeans(k, max_iter, tolerance, seed, compute_sse).fit(X)``, then
-``predict``, ``centroids`` and ``sse_history``.
+``predict``, ``transform``, ``score``, ``centroids`` and ``sse_history``,
+with the estimator protocol (``get_params``, ``set_params``,
+``get_feature_names_out``, pickling).
 
 Execution model: the data is placed on the device once
 (``parallel.sharding.Dataset``) and stays there for the whole fit.  Each
 Lloyd iteration is one step on the device (``parallel.distributed``; in the
 default mode one launch of the fused CUDA kernel) that returns the
-per-cluster sums and counts, the SSE and the farthest point; the host loop
-does only the O(k*D) work: the mean division in float64, the empty-cluster
-policy, the convergence test on the largest centroid shift, and logging.
+per-cluster sums and counts and the SSE (and the farthest point where the
+empty-cluster policy reads it).  The host loop (``host_loop=True``, and
+'auto' wherever dispatch is fast) does the O(k*D) work on the host: the
+mean division in float64, the empty-cluster policy, the convergence test on
+the largest centroid shift, and logging.  The device loop
+(``host_loop=False``, ``parallel.distributed.make_fit_fn``) does all of it
+on the device, a replayed CUDA graph per iteration, and the host only reads
+a done flag.
 
 The model runs on the card unless the caller asks for the CPU:
 ``device=None`` means ``cuda`` and raises where there is none.
@@ -26,6 +33,7 @@ restarts by the true final inertia; the ``.npz`` checkpoint format.
 
 from __future__ import annotations
 
+import copy
 import math
 import time
 import warnings
@@ -60,8 +68,6 @@ _LATER_MODES = {
 _LATER_ARGS = {
     "mesh": ((None,), "A.4 'Multi-GPU data parallelism'"),
     "model_shards": ((1,), "A.4 'Multi-GPU data parallelism'"),
-    "host_loop": ((True, "auto"), "A.3 'Device-side Lloyd loop'"),
-    "pipeline": (("auto", 0), "A.3 'Device-side Lloyd loop'"),
     "bucket": ((0,), "A.14 'Orchestrator, warm start, lint, CLIs and "
                       "bench'"),
     "overlap": (("auto", 0), "A.14 'Orchestrator, warm start, lint, CLIs "
@@ -73,6 +79,47 @@ _LATER_ARGS = {
     "nprobe": ((None,), "A.11 'Massive k and PQ'"),
     "init_cap": ((None,), "A.5 'Batched restarts and k-means|| seeding'"),
 }
+
+
+#: Torch mode of each distance mode for the passes whose output is the
+#: distance itself (``transform``): no kernel returns distances.
+_VALUE_MODES = {"auto": "matmul", "kernel": "matmul",
+                "kernel_bf16": "matmul_bf16"}
+
+
+class DispatchLatencyHint(UserWarning):
+    """One-time hint: per-iteration host dispatch dominates the fit on this
+    device, and ``host_loop='auto'`` did or did not switch to the device
+    loop (the JAX package's warning of the same name)."""
+
+
+#: Hints already given, and measured round trips by device: the
+#: ``host_loop='auto'`` probe runs once per device and process.
+_HINTS_EMITTED: set = set()
+_RTT_CACHE: dict = {}
+
+
+def _hint_once(kind: str, msg: str) -> None:
+    if kind not in _HINTS_EMITTED:
+        _HINTS_EMITTED.add(kind)
+        warnings.warn(msg, DispatchLatencyHint, stacklevel=4)
+
+
+def _dispatch_rtt(device: torch.device) -> float:
+    """Seconds of one host -> device -> host round trip of a trivial op
+    (min of 3 after a warm-up, cached per device): the latency a host loop
+    pays per iteration and the device loop does not."""
+    key = str(device)
+    if key not in _RTT_CACHE:
+        x = torch.zeros((), device=device)
+        float(x + 1.0)
+        reps = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            float(x + 1.0)
+            reps.append(time.perf_counter() - t0)
+        _RTT_CACHE[key] = min(reps)
+    return _RTT_CACHE[key]
 
 
 class NumericalDivergenceError(ValueError):
@@ -88,6 +135,16 @@ class NumericalDivergenceError(ValueError):
         self.iteration = int(iteration)
         self.quantity = quantity
         super().__init__(self._PHRASE[quantity].format(i=iteration))
+
+
+def _host_rows(X, dtype) -> np.ndarray:
+    """An (n, D) host array in ``dtype`` from an array-like or a tensor."""
+    if isinstance(X, torch.Tensor):
+        X = X.detach().cpu().numpy()
+    X = np.asarray(X, dtype=dtype)
+    if X.ndim != 2:
+        raise ValueError(f"X must be 2-D (n, D), got shape {X.shape}")
+    return X
 
 
 def _later(name: str, value, item: str) -> NotImplementedError:
@@ -158,16 +215,43 @@ class KMeans:
         'matmul_bf16' is the torch pass with the same bf16 rule.  On a CUDA
         device 'auto' is 'kernel' in float32, on the CPU or in float64 it is
         'matmul'; it is never a bf16 mode.
+    host_loop : True | False | 'auto'.  True: the host loop, one step
+        on the device per iteration and the rest on the host.  False: the
+        device loop (``parallel.distributed.make_fit_fn``): the whole
+        iteration on the device, a CUDA graph replayed per iteration on the
+        card; ``iter_times_`` then holds the fit's mean per iteration, and
+        the SSE history comes back at the end.  'auto' (the JAX package's
+        rule): the host loop, unless one measured dispatch round trip is
+        over 5 ms and over 25 % of a measured step, and the fit has
+        ``verbose=False``, the base Lloyd hooks, and no host-drawn
+        'resample'; on a local card it is the host loop.
+    pipeline : 'auto' | 0 | 1.  The chunk schedule of the torch modes
+        (``ops.assign.assign_reduce``); both give the same bits.  'auto' is
+        0 until a measurement on the card picks 1; the kernel modes ignore
+        it.
     verbose : per-iteration log lines.
     device : None (the card) | 'cuda' | 'cuda:N' | 'cpu'.
 
     The JAX package's other constructor arguments (``mesh``,
-    ``model_shards``, ``host_loop``, ``pipeline``, ``bucket``, ``overlap``,
-    ``ingest``, ``k_shard``, ``assign``, ``coarse_cells``, ``nprobe``,
-    ``init_cap``) are taken only at the value that names what this port does
-    (one device, host loop, dense assignment); any other value raises
-    ``NotImplementedError`` naming the ROADMAP item that brings it.
+    ``model_shards``, ``bucket``, ``overlap``, ``ingest``, ``k_shard``,
+    ``assign``, ``coarse_cells``, ``nprobe``, ``init_cap``) are taken only
+    at the value that names what this port does (one device, dense
+    assignment); any other value raises ``NotImplementedError`` naming the
+    ROADMAP item that brings it.
+
+    After ``fit``: ``loop_path_`` is 'host' or 'device'; ``estep_path_``
+    the schedule that ran ('fused-pallas' in the kernel modes, else
+    'serial' or 'pipelined'); ``auto_rtt_`` the round trip that 'auto'
+    measured (None unless it measured one).
     """
+
+    _PARAM_NAMES = ("k", "max_iter", "tolerance", "seed", "compute_sse",
+                    "init", "n_init", "compute_labels", "empty_cluster",
+                    "dtype", "mesh", "model_shards", "chunk_size",
+                    "distance_mode", "host_loop", "pipeline", "bucket",
+                    "overlap", "ingest", "k_shard", "assign",
+                    "coarse_cells", "nprobe", "init_cap", "verbose",
+                    "device")
 
     def __init__(self, k: int = 3, max_iter: int = 100,
                  tolerance: float = 1e-4, seed: int = 42,
@@ -179,6 +263,8 @@ class KMeans:
                  dtype=None,
                  chunk_size: Optional[int] = None,
                  distance_mode: str = "auto",
+                 host_loop: Union[bool, str] = "auto",
+                 pipeline: Union[str, int] = "auto",
                  verbose: bool = True,
                  device=None,
                  **later):
@@ -220,9 +306,23 @@ class KMeans:
             raise ValueError(f"distance_mode must be one of "
                              f"{_DISTANCE_MODES}, got {distance_mode!r}")
         self.distance_mode = distance_mode
+        if pipeline not in ("auto", 0, 1, True, False):
+            raise ValueError(f"pipeline must be 'auto', 0, or 1; got "
+                             f"{pipeline!r}")
+        self.pipeline = pipeline if pipeline == "auto" else int(pipeline)
+        if isinstance(host_loop, str):
+            if host_loop != "auto":
+                raise ValueError(f"host_loop must be True, False, or "
+                                 f"'auto', got {host_loop!r}")
+        else:
+            host_loop = bool(host_loop)
+        self.host_loop = host_loop
         self.verbose = verbose
         validate_params(k, max_iter, tolerance)
         self.device = resolve_device(device)
+        self.loop_path_: Optional[str] = None
+        self.estep_path_: Optional[str] = None
+        self.auto_rtt_: Optional[float] = None
 
         self.centroids: Optional[np.ndarray] = None
         self.sse_history: List[float] = []
@@ -247,6 +347,24 @@ class KMeans:
         return "kernel" if self.device.type == "cuda" and \
             self.dtype == np.dtype(np.float32) else "matmul"
 
+    def _resolve_pipeline(self, mode: str) -> int:
+        """The chunk schedule that runs: 0 in the kernel modes (the kernel
+        has its own), 0 for 'auto' until the card has measured the
+        pipelined schedule, else the knob."""
+        if mode in dist.KERNEL_MODES or self.pipeline == "auto":
+            return 0
+        return int(self.pipeline)
+
+    def _note_estep_path(self, mode: str) -> int:
+        """Set ``estep_path_`` to what runs, in the JAX package's words, and
+        return the resolved pipeline flag."""
+        if mode in dist.KERNEL_MODES:
+            self.estep_path_ = "fused-pallas"
+            return 0
+        p = self._resolve_pipeline(mode)
+        self.estep_path_ = "pipelined" if p else "serial"
+        return p
+
     def _chunk_for(self, n: int, d: int) -> int:
         tile_k = self.k * d if self._mode() == "direct" else self.k
         return self.chunk_size or choose_chunk_size(n, tile_k, d)
@@ -258,12 +376,24 @@ class KMeans:
         return to_device(X, self.device, self.dtype,
                          sample_weight=sample_weight)
 
-    def _prepare(self, X, sample_weight=None):
+    def _prepare(self, X, sample_weight=None, *, need_farthest=False,
+                 pipeline: int = 0):
+        """The dataset, its step and its predict pass.  The step computes
+        the SSE (the host loop's divergence guard reads it) and, with
+        ``need_farthest``, the farthest point; nothing else."""
         ds = self.cache(X, sample_weight)
         chunk = self._chunk_for(ds.n, ds.d)
         mode = self._mode()
-        return (ds, dist.make_step_fn(chunk_size=chunk, mode=mode),
+        return (ds, dist.make_step_fn(chunk_size=chunk, mode=mode,
+                                      need_farthest=need_farthest,
+                                      need_sse_pc=False, pipeline=pipeline),
                 dist.make_predict_fn(chunk_size=chunk, mode=mode))
+
+    def _x2w(self, ds: Dataset) -> Optional[torch.Tensor]:
+        """The dataset's ``sum w ||x||^2`` where the step reads it (the
+        kernel modes' SSE), computed once per dataset."""
+        return (dist.dataset_sqnorm(ds) if self._mode() in dist.KERNEL_MODES
+                else None)
 
     def _put_centroids(self, centroids: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(
@@ -305,16 +435,82 @@ class KMeans:
         return self._postprocess_centroids(
             np.asarray(centroids, dtype=np.float64)).astype(self.dtype)
 
-    def _final_inertia(self, ds: Dataset, step_fn) -> float:
-        """True SSE of the CURRENT centroids: one more pass
-        (``sse_history[-1]`` lags one iteration)."""
-        stats = step_fn(ds.points, ds.weights,
-                        self._put_centroids(self.centroids))
-        return float(stats.sse)
+    def _sse(self, ds: Dataset) -> float:
+        """SSE of ``ds`` under the CURRENT centroids, by a step that
+        computes nothing else: a restart's true final inertia
+        (``sse_history[-1]`` lags one iteration) and ``score``."""
+        step = dist.make_step_fn(chunk_size=self._chunk_for(ds.n, ds.d),
+                                 mode=self._mode(), need_farthest=False,
+                                 need_sse_pc=False)
+        return float(step(ds.points, ds.weights,
+                          self._put_centroids(self.centroids),
+                          self._x2w(ds)).sse)
+
+    def _resolve_host_loop(self, ds: Dataset, step_fn) -> bool:
+        """``host_loop`` for this fit, with 'auto' resolved by the JAX
+        package's rule: the host loop unless one measured dispatch round
+        trip is over 5 ms AND over 25 % of a measured step; then the device
+        loop where it is interchangeable with the host loop (the base Lloyd
+        hooks, ``verbose=False``, and no 'resample' on a dataset whose host
+        loop draws on the host), else the host loop with a one-time
+        :class:`DispatchLatencyHint`.  The 5 ms floor keeps a local card,
+        where a round trip takes microseconds, on the host loop."""
+        if self.host_loop is True or self.host_loop is False:
+            return self.host_loop
+        rtt = _dispatch_rtt(self.device)
+        self.auto_rtt_ = rtt
+        if rtt <= 5e-3:
+            return True
+
+        def measure_step():
+            cents = self._put_centroids(np.zeros((self.k, ds.d), self.dtype))
+            x2w = self._x2w(ds)
+            float(step_fn(ds.points, ds.weights, cents, x2w).sse)
+            t0 = time.perf_counter()
+            float(step_fn(ds.points, ds.weights, cents, x2w).sse)
+            return time.perf_counter() - t0
+
+        step_s = ds.memo(("auto_step_seconds", self._mode(), self.k),
+                         measure_step)
+        frac = rtt / max(step_s, 1e-12)
+        if frac <= 0.25:
+            return True
+        base_hooks = all(getattr(type(self), name) is getattr(KMeans, name)
+                         for name in ("_postprocess_centroids",
+                                      "_handle_empty",
+                                      "_finish_lloyd_iteration"))
+        resample_safe = self.empty_cluster != "resample" or ds.host is None
+        where = (f"host_loop='auto': dispatch RTT {rtt * 1e3:.0f} ms is "
+                 f"{frac:.0%} of a measured step on this device")
+        if base_hooks and resample_safe and not self.verbose:
+            _hint_once("auto_switched",
+                       f"{where}: running the fit as the device loop "
+                       f"(host_loop=False); pass host_loop=True to keep "
+                       f"the per-iteration host loop")
+            return False
+        if not base_hooks:
+            _hint_once("auto_hint_hooks",
+                       f"{where}, but {type(self).__name__}'s host-side "
+                       f"hooks need the per-iteration host loop")
+        elif not resample_safe:
+            _hint_once("auto_hint_resample",
+                       f"{where}, but empty_cluster='resample' on a dataset "
+                       f"with a host copy draws its rows on the host, so "
+                       f"'auto' stays on the host loop; host_loop=False "
+                       f"moves the draws to the device engine")
+        else:
+            _hint_once("auto_hint",
+                       f"{where}, so most of each iteration's wall time is "
+                       f"host dispatch; set host_loop=False, or "
+                       f"verbose=False to let 'auto' switch")
+        return True
 
     def _fit(self, X, sample_weight) -> "KMeans":
         log = IterationLogger(self.verbose)
-        ds, step_fn, _ = self._prepare(X, sample_weight)
+        pipeline = self._note_estep_path(self._mode())
+        ds, step_fn, _ = self._prepare(
+            X, sample_weight, need_farthest=self.empty_cluster == "farthest",
+            pipeline=pipeline)
         if self.compute_labels:
             self._fit_ds, self._labels_cache = ds, None
             self._labels_error = None
@@ -328,6 +524,8 @@ class KMeans:
         self.restart_inertias_ = None
 
         seeds = self._restart_seeds()
+        host = self._resolve_host_loop(ds, step_fn)
+        self.loop_path_ = "host" if host else "device"
         best = None
         inertias = []
         for r, seed in enumerate(seeds):
@@ -335,10 +533,13 @@ class KMeans:
             self.sse_history = []
             self.iterations_run = 0
             self.iter_times_ = []
-            self._run_restart(ds, step_fn, centroids, seed, log)
+            if host:
+                self._run_restart(ds, step_fn, centroids, seed, log)
+            else:
+                self._fit_on_device(ds, centroids, seed, pipeline, log)
             if len(seeds) == 1:
                 return self
-            inertia = self._final_inertia(ds, step_fn)
+            inertia = self._sse(ds)
             log.restart(r, len(seeds), inertia)
             inertias.append(inertia)
             if best is None or inertia < best["inertia"]:
@@ -364,9 +565,10 @@ class KMeans:
         to the host as float64, which is also the iteration's
         synchronisation point."""
         cents_dev = self._put_centroids(centroids)
+        x2w = self._x2w(ds)
         for iteration in range(self.max_iter):
             iter_start = time.perf_counter()
-            stats: StepStats = step_fn(ds.points, ds.weights, cents_dev)
+            stats: StepStats = step_fn(ds.points, ds.weights, cents_dev, x2w)
             sums = stats.sums.to(torch.float64).cpu().numpy()
             tail = torch.cat([stats.counts.to(torch.float64),
                               stats.sse.to(torch.float64).reshape(1)])
@@ -379,6 +581,50 @@ class KMeans:
                 break
             cents_dev = self._put_centroids(centroids)
         return self
+
+    def _fit_on_device(self, ds: Dataset, centroids: np.ndarray, seed: int,
+                       pipeline: int, log: IterationLogger) -> "KMeans":
+        """One restart as the device loop (``host_loop=False``): every
+        iteration on the device (``parallel.distributed.make_fit_fn``), the
+        host waiting only for the done flag.  On a CUDA device the loop runs
+        as a captured graph or raises: it never falls back to the host
+        loop."""
+        fit_fn = dist.make_fit_fn(
+            chunk_size=self._chunk_for(ds.n, ds.d), mode=self._mode(),
+            max_iter=self.max_iter, tolerance=float(self.tolerance),
+            empty_policy=self.empty_cluster,
+            history_sse=self.compute_sse, pipeline=pipeline)
+        start = time.perf_counter()
+        result = fit_fn(ds, self._put_centroids(centroids), seed)
+        self._finish_device_fit(result, time.perf_counter() - start, log)
+        return self
+
+    def _finish_device_fit(self, result: "dist.FitResult", elapsed: float,
+                           log: IterationLogger) -> None:
+        """The host's part of a device-loop fit: the fit's wall time split
+        evenly over its iterations, the divergence error naming the
+        iteration the host loop would name, the SSE history with its rise
+        warning, and one log line for the final state."""
+        n = result.n_iters
+        self.iter_times_.extend([elapsed / max(n, 1)] * n)
+        if not result.finite:
+            raise NumericalDivergenceError(n)
+        self.centroids = result.centroids.cpu().numpy().astype(self.dtype)
+        self.cluster_sizes_ = result.counts.astype(np.int64)
+        self.iterations_run = n
+        if self.compute_sse:
+            for sse in result.sse_history:
+                self.sse_history.append(float(sse))
+                if len(self.sse_history) > 1 and \
+                        self.sse_history[-1] > self.sse_history[-2] + 1e-6:
+                    log.warn_sse_increase(self.sse_history[-2],
+                                          self.sse_history[-1])
+        last_shift = float(result.shift_history[-1]) if n else 0.0
+        log.iteration(n - 1, last_shift, list(self.cluster_sizes_),
+                      self.sse_history[-1] if
+                      (self.compute_sse and self.sse_history) else None)
+        if n and last_shift < self.tolerance:
+            log.converged(n)
 
     def _finish_lloyd_iteration(self, centroids, sums, counts, sse_val,
                                 stats, ds, iteration, log, seed, iter_start):
@@ -489,13 +735,110 @@ class KMeans:
         # labels_ is materialised by fit() from the same X.
         return self.fit(X).labels_
 
+    def fit_transform(self, X, y=None) -> np.ndarray:
+        return self.fit(X).transform(X)
+
+    def transform(self, X, *, block_rows: Optional[int] = None
+                  ) -> np.ndarray:
+        """Euclidean distances to each centroid, (n, k) in the model's
+        dtype.  Rows go to the device in host blocks of ``block_rows``
+        (None: about 2^26 elements of input and output per block), so the
+        device holds one block at a time; only the returned host array
+        grows with n."""
+        self._require_fitted()
+        X = _host_rows(X, self.dtype)
+        out = np.empty((X.shape[0], self.k), dtype=self.dtype)
+        start = 0
+        for tile in self.transform_stream(lambda: iter([X]),
+                                          block_rows=block_rows):
+            out[start: start + tile.shape[0]] = tile
+            start += tile.shape[0]
+        return out
+
+    def transform_stream(self, make_blocks, *,
+                         block_rows: Optional[int] = None,
+                         prefetch: int = 0):
+        """Streaming ``transform``: yields (m, k) distance tiles for the
+        successive row blocks of ``make_blocks()``, blocks longer than
+        ``block_rows`` split.  Reading blocks ahead (``prefetch``) is not
+        ported: any value but 0 raises."""
+        self._require_fitted()
+        if prefetch:
+            raise _later("prefetch", prefetch, "A.10 'Streaming and ingest'")
+        return self._transform_stream_blocks(make_blocks, block_rows)
+
+    def _transform_stream_blocks(self, make_blocks, block_rows):
+        mode = _VALUE_MODES.get(self.distance_mode, self.distance_mode)
+        d = self.centroids.shape[1]
+        block = block_rows or max(8192, (1 << 26) // max(self.k + d, 1))
+        cents = self._put_centroids(self.centroids)
+        for raw in make_blocks():
+            raw = _host_rows(raw, self.dtype)
+            if raw.shape[1] != d:
+                raise ValueError(f"X has {raw.shape[1]} features, the model "
+                                 f"{d}")
+            for start in range(0, raw.shape[0], block):
+                xb = np.ascontiguousarray(raw[start: start + block])
+                transform = dist.make_transform_fn(
+                    chunk_size=self._chunk_for(*xb.shape), mode=mode)
+                points = torch.from_numpy(xb).to(self.device)
+                yield transform(points, cents).cpu().numpy()
+
+    def predict_stream(self, *args, **kwargs):
+        raise _later("predict_stream", "...", "A.10 'Streaming and ingest'")
+
+    def score_stream(self, *args, **kwargs):
+        raise _later("score_stream", "...", "A.10 'Streaming and ingest'")
+
     def score(self, X, y=None) -> float:
         """Negative SSE of X under the fitted centroids."""
         self._require_fitted()
-        ds, step_fn, _ = self._prepare(X)
-        stats = step_fn(ds.points, ds.weights,
-                        self._put_centroids(self.centroids))
-        return -float(stats.sse)
+        return -self._sse(self.cache(X))
+
+    # ------------------------------------------------- estimator protocol
+
+    def get_params(self, deep: bool = True) -> dict:
+        """Constructor parameters (the scikit-learn estimator protocol).
+        The JAX package's arguments that the port takes only at one value
+        report that value; ``device`` is a string."""
+        params = {}
+        for name in self._PARAM_NAMES:
+            if name in _LATER_ARGS:
+                params[name] = _LATER_ARGS[name][0][0]
+            elif name == "device":
+                params[name] = str(self.device)
+            else:
+                params[name] = getattr(self, name)
+        return params
+
+    def set_params(self, **params) -> "KMeans":
+        """New values go through ``__init__``, so they get the
+        constructor's validation; fitted state is kept, and on an error
+        the model is left as it was."""
+        for name in params:
+            if name not in self._PARAM_NAMES:
+                raise ValueError(f"unknown parameter {name!r} for "
+                                 f"{type(self).__name__}; valid: "
+                                 f"{sorted(self._PARAM_NAMES)}")
+        merged = self.get_params()
+        merged.update(params)
+        saved = dict(self.__dict__)
+        try:
+            self.__init__(**merged)
+        except Exception:
+            self.__dict__.clear()
+            self.__dict__.update(saved)
+            raise
+        for name, value in saved.items():
+            if name not in self._PARAM_NAMES:
+                self.__dict__[name] = value
+        return self
+
+    def get_feature_names_out(self, input_features=None) -> np.ndarray:
+        """Names of ``transform``'s columns, one distance per centroid."""
+        name = type(self).__name__.lower()
+        return np.asarray([f"{name}{i}" for i in range(self.k)],
+                          dtype=object)
 
     @property
     def cluster_centers_(self) -> Optional[np.ndarray]:
@@ -524,15 +867,40 @@ class KMeans:
             self._fit_ds = None
         return self._labels_cache
 
+    @labels_.setter
+    def labels_(self, value) -> None:
+        self._labels_cache = value
+
+    def __getstate__(self) -> dict:
+        """Pickling: ``labels_`` is materialised first, then the retained
+        dataset (device memory) is dropped."""
+        if self._labels_cache is None and self._fit_ds is not None \
+                and self.centroids is not None:
+            _ = self.labels_
+        state = dict(self.__dict__)
+        state["_fit_ds"] = None
+        return state
+
+    def __deepcopy__(self, memo):
+        """A deep copy shares the retained dataset (device memory) and
+        copies everything else."""
+        new = self.__class__.__new__(self.__class__)
+        memo[id(self)] = new
+        for name, value in self.__dict__.items():
+            new.__dict__[name] = (value if name == "_fit_ds"
+                                  else copy.deepcopy(value, memo))
+        return new
+
     # ------------------------------------------------------------ checkpoint
 
     def _state_dict(self) -> dict:
         """Serialisable state in the vocabulary of the shared checkpoint
         format: constructor arguments and fitted attributes.  The kernel
         modes are written as 'pallas' and 'pallas_bf16', the format's names
-        for them, and the one-device
-        host loop as ``model_shards=1, host_loop=True``, so that the JAX
-        package loads the file.  A callable ``init`` is recorded as 'forgy'
+        for them, and the one device as
+        ``model_shards=1``, so that the JAX
+        package loads the file, with the model's own ``host_loop`` and
+        ``pipeline``.  A callable ``init`` is recorded as 'forgy'
         (centroids are restored, so it never runs again)."""
         state = {
             "model_class": type(self).__name__,
@@ -548,7 +916,8 @@ class KMeans:
                                                self.distance_mode),
             "model_shards": 1,
             "chunk_size": self.chunk_size,
-            "host_loop": True,
+            "host_loop": self.host_loop,
+            "pipeline": self.pipeline,
             "verbose": self.verbose,
             "sse_history": list(map(float, self.sse_history)),
             "iterations_run": self.iterations_run,
@@ -586,6 +955,8 @@ class KMeans:
                     empty_cluster=str(state["empty_cluster"]),
                     distance_mode=str(state["distance_mode"]),
                     chunk_size=None if chunk is None else int(chunk),
+                    host_loop=state.get("host_loop", "auto"),
+                    pipeline=state.get("pipeline", "auto"),
                     verbose=bool(state["verbose"]),
                     dtype=np.dtype(str(state["dtype"])), device=device)
         cents = np.asarray(state["centroids"])

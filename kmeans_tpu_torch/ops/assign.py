@@ -131,8 +131,11 @@ def consume_chunk(carry: StepStats, d2: torch.Tensor, xc: torch.Tensor,
     if need_farthest:
         neg_inf = torch.full_like(mind2, float("-inf"))
         masked = torch.where(wc > 0, mind2, neg_inf)
-        i = torch.argmax(masked)
-        far_d, far_p = masked[i], xc[i].to(acc)
+        # index_select, not [i]: a tensor index would read it to the host,
+        # which a captured graph cannot do.
+        i = torch.argmax(masked).reshape(1)
+        far_d = masked.index_select(0, i)[0]
+        far_p = xc.index_select(0, i)[0].to(acc)
         better = far_d > carry.farthest_dist
         far_d = torch.where(better, far_d, carry.farthest_dist)
         far_p = torch.where(better, far_p, carry.farthest_point)
@@ -157,19 +160,38 @@ def assign_reduce(points: torch.Tensor, weights: torch.Tensor,
                   centroids: torch.Tensor, *, chunk_size: int,
                   mode: str = "matmul", need_sse: bool = True,
                   need_farthest: bool = True,
-                  need_sse_pc: bool = True) -> StepStats:
+                  need_sse_pc: bool = True, pipeline: int = 0) -> StepStats:
     """One fused pass: assign every point, reduce all per-iteration stats.
 
     Chunks are folded in row order; the last chunk may be short (no padding
-    is needed here, unlike under a compiled scan)."""
+    is needed here, unlike under a compiled scan).  ``pipeline`` picks the
+    chunk schedule, as the JAX package's ``_local_stats`` does: 0 computes
+    each chunk's distance tile (stage A) and folds it (stage B) back to
+    back; 1 skews them by one chunk, stage A of chunk i issued before stage
+    B of chunk i - 1, so that the two can overlap.  Each chunk's arithmetic
+    and the fold order are the same, so the two schedules give the same
+    bits."""
     k, d = centroids.shape
     acc = _accum_dtype(points.dtype)
     stats = init_stats(k, d, acc, points.device)
-    for lo in range(0, points.shape[0], chunk_size):
-        stats = accumulate_chunk(
-            stats, points[lo:lo + chunk_size], weights[lo:lo + chunk_size],
-            centroids, mode=mode, need_sse=need_sse,
-            need_farthest=need_farthest, need_sse_pc=need_sse_pc)
+    kw = dict(need_sse=need_sse, need_farthest=need_farthest,
+              need_sse_pc=need_sse_pc)
+    chunks = [(points[lo:lo + chunk_size], weights[lo:lo + chunk_size])
+              for lo in range(0, points.shape[0], chunk_size)]
+    if not pipeline:
+        for xc, wc in chunks:
+            stats = accumulate_chunk(stats, xc, wc, centroids, mode=mode,
+                                     **kw)
+        return stats
+    kw["bf16"] = mode == "matmul_bf16"
+    d2 = None
+    for i, (xc, _) in enumerate(chunks):
+        d2_next = pairwise_sq_dists(xc, centroids, mode=mode)
+        if d2 is not None:
+            stats = consume_chunk(stats, d2, *chunks[i - 1], centroids, **kw)
+        d2 = d2_next
+    if d2 is not None:
+        stats = consume_chunk(stats, d2, *chunks[-1], centroids, **kw)
     return stats
 
 

@@ -1,10 +1,12 @@
-"""The training and predict step on one device.
+"""The training, predict and transform passes on one device.
 
 One-device counterpart of ``kmeans_tpu/parallel/distributed.py``
 (``_weighted_sqnorm_total``, ``_sse_from_stats``, the ``model_shards <= 1``
 branch of ``_pallas_local_stats``, the chunk scan of ``_local_stats``,
-``make_step_fn``, ``make_predict_fn``).  No mesh and no collectives: the
-statistics of the one device are the global ones.
+``make_step_fn``, ``make_predict_fn``, ``make_fit_fn``,
+``_empty_seed_array`` and ``_refill_empty_slots``, ``make_transform_fn``).
+No mesh and no collectives: the statistics of the one device are the global
+ones.
 
 ``mode='kernel'`` runs the fused CUDA kernel of ``ops.hopper_kernels`` (its
 plain version when the tensors lie on the CPU) and ``'kernel_bf16'`` its bf16
@@ -13,22 +15,41 @@ chunked torch pass of ``ops.assign``.  The kernels are a float32 engine:
 float64 points and centroids reach them as float32 casts, as in the JAX
 package (``pallas_kernels._pad_inputs``), and their sums and counts come back
 in the points' type.
+
+:func:`make_fit_fn` is the device loop (``KMeans(host_loop=False)``): every
+iteration's step, mean division, empty-cluster refill and convergence test
+run on the device, with no value read to the host inside an iteration.  On a
+CUDA device one iteration is captured once as a ``torch.cuda.CUDAGraph`` and
+replayed; on the CPU the same iteration runs eagerly.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 
+from kmeans_tpu_torch.ops import _build
 from kmeans_tpu_torch.ops.assign import (StepStats, _accum_dtype,
                                          assign_labels, assign_reduce,
-                                         init_stats)
+                                         init_stats, pairwise_sq_dists)
 from kmeans_tpu_torch.ops.hopper_kernels import (fused_assign_reduce,
                                                  hopper_assign)
+from kmeans_tpu_torch.parallel.sharding import (Dataset, draw_keys,
+                                                permuted_draws)
 
 KERNEL_MODES = ("kernel", "kernel_bf16")
 TORCH_MODES = ("matmul", "matmul_bf16", "direct")
+
+
+#: Iterations the device loop keeps in flight on the card: the host reads
+#: the done flag of iteration i - IN_FLIGHT while iteration i is queued.
+#: The iterations queued past convergence change nothing (they are masked)
+#: but take their time on the card.  0 by measurement on an H100: at the
+#: GloVe-like shape (7.4 ms iterations) each masked iteration cost more
+#: than the host's wait for each flag (PERF.md, PR 11).
+IN_FLIGHT = 0
 
 
 def _weighted_sqnorm_total(points: torch.Tensor,
@@ -36,6 +57,13 @@ def _weighted_sqnorm_total(points: torch.Tensor,
     """The first term of :func:`_sse_from_stats`: ``sum_i w_i ||x_i||^2``."""
     x = points.to(torch.float32)
     return (weights.to(torch.float32) * (x * x).sum(dim=1)).sum()
+
+
+def dataset_sqnorm(ds: Dataset) -> torch.Tensor:
+    """``sum w ||x||^2`` of a dataset, computed at its first use and kept
+    beside it: it does not change while the points and weights do not."""
+    return ds.memo("weighted_sqnorm_total",
+                   lambda: _weighted_sqnorm_total(ds.points, ds.weights))
 
 
 def _sse_from_stats(x2w, centroids, sums, counts, acc) -> torch.Tensor:
@@ -83,10 +111,13 @@ def _kernel_local_stats(points, weights, centroids, *, bf16: bool = False,
         live = w > 0
         masked = torch.where(live, mind2, torch.full_like(mind2,
                                                           float("-inf")))
-        i = torch.argmax(masked)
-        far_d = torch.where(live.any(), masked[i],
-                            torch.full_like(masked[i], -1.0)).to(acc)
-        far_p = points[i].to(acc)
+        # index_select, not [i]: a tensor index would read it to the host,
+        # which a captured graph cannot do.
+        i = torch.argmax(masked).reshape(1)
+        far = masked.index_select(0, i)[0]
+        far_d = torch.where(live.any(), far,
+                            torch.full_like(far, -1.0)).to(acc)
+        far_p = points.index_select(0, i)[0].to(acc)
     else:
         far_d, far_p = zero.farthest_dist, zero.farthest_point
     return StepStats(sums.to(acc), counts.to(acc), sse, far_d, far_p, sse_pc)
@@ -94,8 +125,11 @@ def _kernel_local_stats(points, weights, centroids, *, bf16: bool = False,
 
 def local_stats(points, weights, centroids, *, chunk_size: int, mode: str,
                 need_sse: bool = True, need_farthest: bool = True,
-                need_sse_pc: bool = True, x2w=None) -> StepStats:
-    """The statistics of one pass over the device's points."""
+                need_sse_pc: bool = True, x2w=None,
+                pipeline: int = 0) -> StepStats:
+    """The statistics of one pass over the device's points.  ``pipeline``
+    picks the chunk schedule of the torch modes (``ops.assign.
+    assign_reduce``); the kernel modes ignore it."""
     if mode in KERNEL_MODES:
         return _kernel_local_stats(
             points, weights, centroids, bf16=mode == "kernel_bf16",
@@ -106,24 +140,33 @@ def local_stats(points, weights, centroids, *, chunk_size: int, mode: str,
     return assign_reduce(points, weights, centroids, chunk_size=chunk_size,
                          mode=mode, need_sse=need_sse,
                          need_farthest=need_farthest,
-                         need_sse_pc=need_sse_pc)
+                         need_sse_pc=need_sse_pc, pipeline=pipeline)
 
 
-def make_step_fn(*, chunk_size: int, mode: str = "matmul") -> Callable:
-    """The step: ``(points, weights, centroids) -> StepStats``.
+def make_step_fn(*, chunk_size: int, mode: str = "matmul",
+                 need_sse: bool = True, need_farthest: bool = True,
+                 need_sse_pc: bool = True, pipeline: int = 0) -> Callable:
+    """The step: ``(points, weights, centroids, x2w=None) -> StepStats``.
 
-    In the kernel modes the SSE comes from the algebraic form
+    The ``need_*`` flags elide the statistics that the caller does not read
+    (their fields keep their initial values); the kernel then writes no
+    per-point distance unless the farthest point or the per-cluster SSE
+    needs it.  In the kernel modes the SSE comes from the algebraic form
     (:func:`_sse_from_stats`), as in the JAX package's per-dispatch path: it
-    does not inherit the low bias of a minimum over rounded distances.  In
-    ``'kernel_bf16'`` the sums carry bf16-rounded products, so the SSE is of
-    that class too (the JAX package's ``_sse_from_stats`` says the same)."""
+    does not inherit the low bias of a minimum over rounded distances; pass
+    ``x2w``, the dataset's ``sum w ||x||^2`` (:func:`dataset_sqnorm`), or
+    the step computes it.  In ``'kernel_bf16'`` the sums carry bf16-rounded
+    products, so the SSE is of that class too (the JAX package's
+    ``_sse_from_stats`` says the same)."""
 
-    def step(points, weights, centroids) -> StepStats:
-        x2w = None
-        if mode in KERNEL_MODES:
+    def step(points, weights, centroids, x2w=None) -> StepStats:
+        if mode in KERNEL_MODES and need_sse and x2w is None:
             x2w = _weighted_sqnorm_total(points, weights)
         return local_stats(points, weights, centroids,
-                           chunk_size=chunk_size, mode=mode, x2w=x2w)
+                           chunk_size=chunk_size, mode=mode,
+                           need_sse=need_sse, need_farthest=need_farthest,
+                           need_sse_pc=need_sse_pc, x2w=x2w,
+                           pipeline=pipeline)
 
     return step
 
@@ -144,3 +187,305 @@ def make_predict_fn(*, chunk_size: int, mode: str = "matmul") -> Callable:
                              mode=mode)
 
     return predict
+
+
+# ------------------------------------------------------------ device loop
+
+
+class FitResult(NamedTuple):
+    """What the device loop hands back to the host, once per fit."""
+
+    centroids: torch.Tensor      # (k, D), accumulation dtype, on the device
+    n_iters: int                 # iterations that ran (not masked)
+    sse_history: np.ndarray      # (n_iters,) float64; zeros unless asked
+    shift_history: np.ndarray    # (n_iters,) float64, largest shifts
+    counts: np.ndarray           # (k,) float64, of the last iteration
+    finite: bool                 # False: iteration n_iters went non-finite
+    launched: int                # iterations launched, masked ones too
+
+
+def empty_draw_keys(seed: int, max_iter: int) -> np.ndarray:
+    """(max_iter, PERMUTE_STEPS) keys of the refill draws: iteration ``it``
+    draws under ``draw_keys([seed, it + 1])``, the seed the host loop gives
+    ``Dataset.sample_positive_rows`` (the JAX package's
+    ``_empty_seed_array`` schedule).  SeedSequence is host-only, so the
+    schedule is made here, once per fit."""
+    return np.stack([draw_keys([seed, it + 1]) for it in range(max_iter)])
+
+
+def refill_table(ds: Dataset, keys: np.ndarray, k: int) -> torch.Tensor:
+    """(max_iter, k) int64 on the device: the row of ``ds`` that draw j of
+    iteration i refills (``-1`` where the positive-weight rows are used up).
+    Draw j is the same row ``ds.sample_positive_rows`` returns j-th for the
+    same seed, so the host loop and the device loop refill alike on a
+    dataset without a host copy.  Made before the loop: inside it an
+    iteration reads its row of the table, O(k)."""
+    pos = ds.positive_index()
+    j = torch.arange(k, device=ds.device).expand(keys.shape[0], k)
+    if pos.numel() == 0:
+        return torch.full_like(j, -1)
+    draws = permuted_draws(pos.numel(), j, torch.from_numpy(keys))
+    return torch.where(draws >= 0, pos[draws.clamp_min(0)], draws)
+
+
+class _DeviceLoop:
+    """The device loop's state on one dataset, and one iteration over it.
+
+    Every tensor the iteration reads or writes across iterations is made
+    here, once, so that a captured iteration finds it at the same address
+    on every replay.  An iteration that runs after convergence or
+    divergence (``running`` false) leaves every one of them as it was."""
+
+    def __init__(self, points, weights, step, *, k: int, max_iter: int,
+                 tolerance: float, empty_policy: str, need_sse: bool,
+                 x2w: Optional[torch.Tensor]):
+        dev, d = points.device, points.shape[1]
+        acc = _accum_dtype(points.dtype)
+        self.points, self.weights, self.step = points, weights, step
+        self.max_iter, self.tolerance = max_iter, float(tolerance)
+        self.policy, self.need_sse, self.x2w = empty_policy, need_sse, x2w
+        self.cents = torch.zeros((k, d), dtype=acc, device=dev)
+        self.counts = torch.zeros((k,), dtype=acc, device=dev)
+        self.sse_hist = torch.zeros((max_iter,), dtype=acc, device=dev)
+        self.shift_hist = torch.zeros((max_iter,), dtype=acc, device=dev)
+        self.shift = torch.zeros((), dtype=acc, device=dev)
+        self.it = torch.zeros((), dtype=torch.int64, device=dev)
+        self.ok = torch.ones((), dtype=torch.bool, device=dev)
+        self.running = torch.ones((), dtype=torch.bool, device=dev)
+        self.table = (None if empty_policy == "keep" else torch.full(
+            (max_iter, k), -1, dtype=torch.int64, device=dev))
+        self.slots = torch.arange(k, device=dev)
+        self.iters = torch.arange(max_iter, device=dev)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.graph_launches: Dict[str, int] = {}
+
+    # ------------------------------------------------------------ iteration
+
+    def _refill(self, new, empty, st: StepStats):
+        """The empty slots of ``new``, all in this iteration: 'farthest'
+        puts the farthest point in the first (when its distance is valid);
+        every other empty slot takes its draw from this iteration's row of
+        the table, in slot order.  A slot without a draw keeps its value."""
+        k = empty.shape[0]
+        skip = torch.zeros((), dtype=torch.int64, device=new.device)
+        if self.policy == "farthest":
+            first = torch.argmax(empty.to(torch.int32))
+            use_far = empty.any() & (st.farthest_dist >= 0)
+            at_first = (self.slots == first) & use_far
+            new = torch.where(at_first[:, None],
+                              st.farthest_point.to(new.dtype)[None, :], new)
+            skip = use_far.to(torch.int64)
+        draw = torch.cumsum(empty.to(torch.int64), 0) - 1 - skip
+        row = torch.clamp(self.it, max=self.max_iter - 1).reshape(1)
+        pick = self.table.index_select(0, row)[0].gather(
+            0, draw.clamp(0, k - 1))
+        take = empty & (draw >= 0) & (pick >= 0)
+        rows = self.points.index_select(0, pick.clamp_min(0)).to(new.dtype)
+        return torch.where(take[:, None], rows, new)
+
+    def iterate(self) -> None:
+        """One Lloyd iteration, masked by ``running``: the step, the mean
+        division in the accumulation dtype, the empty-cluster policy, the
+        all-finite flag, the largest shift and the converged flag.  Nothing
+        is read to the host."""
+        active = self.running.clone()
+        st = self.step(self.points, self.weights, self.cents, self.x2w)
+        counts = st.counts
+        nonempty = counts > 0
+        new = torch.where(nonempty[:, None],
+                          st.sums / torch.clamp_min(counts, 1.0)[:, None],
+                          self.cents)
+        if self.policy != "keep":
+            new = self._refill(new, ~nonempty, st)
+        diff = new - self.cents
+        shift = torch.sqrt((diff * diff).sum(dim=1)).max()
+        # The host loop's guard: non-finite centroids, or a non-finite SSE
+        # (in the kernel modes sum w ||x||^2 carries a zero-weight NaN row).
+        ok = torch.isfinite(new).all()
+        if self.need_sse:
+            ok = ok & torch.isfinite(st.sse)
+        if self.x2w is not None:
+            ok = ok & torch.isfinite(self.x2w)
+        at = (self.iters == self.it) & active
+        self.sse_hist.copy_(torch.where(at, st.sse, self.sse_hist))
+        self.shift_hist.copy_(torch.where(at, shift, self.shift_hist))
+        self.cents.copy_(torch.where(active, new, self.cents))
+        self.counts.copy_(torch.where(active, counts, self.counts))
+        self.shift.copy_(torch.where(active, shift, self.shift))
+        self.ok.copy_(self.ok & (ok | ~active))
+        self.it.add_(active.to(torch.int64))
+        self.running.copy_((self.it < self.max_iter)
+                           & (self.shift >= self.tolerance) & self.ok)
+
+    # --------------------------------------------------------------- launch
+
+    def _capture(self) -> None:
+        """The first iteration on the card: it runs eagerly on a side stream
+        (a real iteration, which also does the kernels' one-time host work:
+        library load, function attributes, occupancy query), then one
+        iteration is captured, which runs nothing.  The kernel launches that
+        the capture recorded are taken back off ``LAUNCHES`` and added at
+        each replay instead, so the counts are of launches that reached the
+        card."""
+        current = torch.cuda.current_stream(self.points.device)
+        side = torch.cuda.Stream(device=self.points.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            self.iterate()
+        current.wait_stream(side)
+        before = dict(_build.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                self.iterate()
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"the device loop's iteration could not be captured as a "
+                f"CUDA graph: {e}") from e
+        finally:
+            recorded = {name: count - before.get(name, 0)
+                        for name, count in _build.LAUNCHES.items()}
+            _build.LAUNCHES.update(before)
+        self.graph_launches = {n: c for n, c in recorded.items() if c}
+        self.graph = graph
+
+    def _launch(self) -> None:
+        if not self.points.is_cuda:
+            self.iterate()
+        elif self.graph is None:
+            self._capture()
+        else:
+            self.graph.replay()
+            for name, count in self.graph_launches.items():
+                _build.LAUNCHES[name] += count
+
+    def run(self, centroids0: torch.Tensor, table: Optional[torch.Tensor],
+            in_flight: int) -> FitResult:
+        """Reset the state to ``centroids0`` (and the refill ``table``),
+        then launch iterations until the host reads a done flag: that of
+        iteration i - ``in_flight`` while iteration i is queued.  On a CUDA
+        device the flags come back through a pinned ring, each behind an
+        event; on the CPU each is read as it is set."""
+        self.cents.copy_(centroids0)
+        for t in (self.counts, self.sse_hist, self.shift_hist, self.shift,
+                  self.it):
+            t.zero_()
+        self.ok.fill_(True)
+        self.running.fill_(True)
+        if table is not None:
+            self.table.copy_(table)
+        cuda = self.points.is_cuda
+        slots = in_flight + 1
+        if cuda:
+            ring = torch.empty(slots, dtype=torch.bool, pin_memory=True)
+            events = [torch.cuda.Event() for _ in range(slots)]
+        flags = []
+        launched = 0
+        while launched < self.max_iter:
+            self._launch()
+            if cuda:
+                ring[launched % slots].copy_(self.running, non_blocking=True)
+                events[launched % slots].record()
+            else:
+                flags.append(bool(self.running))
+            launched += 1
+            back = launched - 1 - in_flight
+            if back < 0:
+                continue
+            if cuda:
+                events[back % slots].synchronize()
+                go = bool(ring[back % slots])
+            else:
+                go = flags[back]
+            if not go:
+                break
+        if cuda:
+            torch.cuda.current_stream(self.points.device).synchronize()
+        n = int(self.it)
+        return FitResult(
+            self.cents.clone(), n,
+            self.sse_hist[:n].to(torch.float64).cpu().numpy(),
+            self.shift_hist[:n].to(torch.float64).cpu().numpy(),
+            self.counts.to(torch.float64).cpu().numpy(), bool(self.ok),
+            launched)
+
+
+def make_fit_fn(*, chunk_size: int, mode: str = "matmul", max_iter: int,
+                tolerance: float, empty_policy: str = "keep",
+                history_sse: bool = True, pipeline: int = 0,
+                in_flight: Optional[int] = None) -> Callable:
+    """The device loop: ``fit(ds, centroids0, seed) -> FitResult``.
+
+    Counterpart of the JAX package's ``make_fit_fn`` (its ``lax.while_loop``
+    becomes a replayed CUDA graph of one iteration).  Semantics, as there:
+
+    * the mean division in the accumulation dtype, on the device (the host
+      loop divides in float64 on the host; for float32 and float64 data
+      the quotient rounds to the same value);
+    * empty clusters: 'keep' keeps the old centroid; 'farthest' puts the
+      farthest point in the first empty slot and draws the rest; 'resample'
+      draws every one; all in the same iteration, with the draws of
+      :func:`refill_table`, so a dataset without a host copy refills as in
+      the host loop;
+    * the loop stops at ``max_iter``, when the largest shift falls below
+      ``tolerance``, or at the iteration whose centroids (or, as in the host
+      loop, the SSE or ``sum w ||x||^2``) go non-finite;
+    * only the statistics that are read are computed: the SSE with
+      ``history_sse``, the farthest point with 'farthest', no per-cluster
+      SSE (the JAX package's ``need_*`` rule).
+
+    ``seed`` is the restart's seed; the refill of iteration ``it`` draws
+    under ``[seed, it + 1]``.  The loop's state and its captured graph are
+    kept with the dataset (``Dataset.memo``), once per shape, mode, policy
+    and ``history_sse``, so restarts and later fits on it replay them.
+    ``in_flight``: see :data:`IN_FLIGHT` (None: that value)."""
+    if empty_policy not in ("keep", "farthest", "resample"):
+        raise ValueError(
+            f"on-device loop supports empty_cluster 'keep', 'farthest' or "
+            f"'resample', got {empty_policy!r}")
+    need_sse = bool(history_sse)
+    step = make_step_fn(chunk_size=chunk_size, mode=mode, need_sse=need_sse,
+                        need_farthest=empty_policy == "farthest",
+                        need_sse_pc=False, pipeline=pipeline)
+
+    def fit(ds: Dataset, centroids0: torch.Tensor, seed: int) -> FitResult:
+        k = centroids0.shape[0]
+        key = ("device_loop", mode, chunk_size, k, max_iter,
+               float(tolerance), empty_policy, need_sse, pipeline)
+        loop = ds.memo(key, lambda: _DeviceLoop(
+            ds.points, ds.weights, step, k=k, max_iter=max_iter,
+            tolerance=tolerance, empty_policy=empty_policy,
+            need_sse=need_sse,
+            x2w=dataset_sqnorm(ds) if mode in KERNEL_MODES else None))
+        table = (None if empty_policy == "keep" else
+                 refill_table(ds, empty_draw_keys(seed, max_iter), k))
+        return loop.run(centroids0, table,
+                        IN_FLIGHT if in_flight is None else in_flight)
+
+    return fit
+
+
+# --------------------------------------------------------------- transform
+
+
+def make_transform_fn(*, chunk_size: int, mode: str = "matmul") -> Callable:
+    """``(points, centroids) -> (n, k)`` Euclidean distances in the points'
+    dtype, chunk by chunk: :func:`ops.assign.pairwise_sq_dists` (the
+    expanded form through ``torch.matmul``, clamped at 0), then ``sqrt``.
+    Counterpart of the JAX package's ``make_transform_fn``; like it, the
+    pass is plain torch (no kernel computes distances as an output), so
+    ``mode`` is a torch mode: ``'matmul'``, ``'matmul_bf16'`` or
+    ``'direct'``."""
+    if mode not in TORCH_MODES:
+        raise ValueError(f"unknown distance mode: {mode!r}")
+
+    def transform(points, centroids) -> torch.Tensor:
+        n, k = points.shape[0], centroids.shape[0]
+        out = torch.empty((n, k), dtype=points.dtype, device=points.device)
+        for lo in range(0, n, chunk_size):
+            d2 = pairwise_sq_dists(points[lo:lo + chunk_size], centroids,
+                                   mode=mode)
+            out[lo:lo + chunk_size] = torch.sqrt(d2).to(points.dtype)
+        return out
+
+    return transform

@@ -6,13 +6,15 @@ their per-row weights are placed on the device once and stay there for the
 whole fit.  When the data came from the host, the host copy is kept, which
 makes row sampling (Forgy seeding, empty-cluster resampling) a host draw
 with the same NumPy generators as the JAX package: the same seed picks the
-same rows in both.  No padding is needed: the torch passes take a short last
-chunk and the kernels mask their own ragged edge.
+same rows in both.  Without a host copy the rows are drawn on the device by
+:func:`permuted_draws`, the one engine of the host loop and the device loop.
+No padding is needed: the torch passes take a short last chunk and the
+kernels mask their own ragged edge.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -48,9 +50,89 @@ def _validate_sample_weight(sample_weight, n: int, dtype) -> np.ndarray:
     return sw
 
 
+#: Steps of the keyed bijection behind :func:`permuted_draws`; each step
+#: XORs one half of the index with a hash of the other half and its key.
+PERMUTE_STEPS = 6
+#: Passes of cycle walking before a draw is given up.  The walk runs on a
+#: domain less than twice the candidates, so a draw still outside after
+#: this many passes has probability below 2^-64 (2^-64 for two candidates,
+#: (3/4)^64 for one, which :func:`permuted_draws` does not walk).
+WALK_LIMIT = 64
+_M31 = 0x7FFFFFFF
+
+
+def draw_keys(seed_seq) -> np.ndarray:
+    """The keys of one permutation: ``PERMUTE_STEPS`` words of 31 bits from
+    ``np.random.SeedSequence(seed_seq)``, int64."""
+    words = np.random.SeedSequence(seed_seq).generate_state(PERMUTE_STEPS)
+    return words.astype(np.int64) & _M31
+
+
+def _hash31(v: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    """A 31-bit mix of ``v`` (< 2^31) and ``key``.  Every product is of a
+    31-bit value and a 30-bit constant, so int64 never overflows."""
+    h = (v ^ key) & _M31
+    h = (h * 0x2C1B3C6D) & _M31
+    h = h ^ (h >> 15)
+    h = (h * 0x297A2D39) & _M31
+    return h ^ (h >> 13)
+
+
+def _permute(x: torch.Tensor, keys: torch.Tensor, lo_bits: int,
+             hi_bits: int) -> torch.Tensor:
+    """A keyed bijection of ``[0, 2^(lo_bits + hi_bits))``: each step XORs
+    one half with a hash of the other, so each step, and the whole, can be
+    undone.  ``keys`` (..., PERMUTE_STEPS, 1) broadcasts against ``x``."""
+    hi, lo = x >> lo_bits, x & ((1 << lo_bits) - 1)
+    for step in range(PERMUTE_STEPS):
+        key = keys[..., step, :]
+        if step % 2 == 0:
+            hi = hi ^ (_hash31(lo, key) & ((1 << hi_bits) - 1))
+        else:
+            lo = lo ^ (_hash31(hi, key) & ((1 << lo_bits) - 1))
+    return (hi << lo_bits) | lo
+
+
+def permuted_draws(n_pos: int, j: torch.Tensor,
+                   keys: torch.Tensor) -> torch.Tensor:
+    """Draw ``j`` (int64, any shape) of a keyed pseudo-random permutation of
+    ``[0, n_pos)``: distinct values for distinct ``j`` under one key, and
+    draw ``j`` does not depend on how many are drawn.  ``keys`` is
+    (PERMUTE_STEPS,) for one permutation, or (T, PERMUTE_STEPS) for one
+    per row of a (T, m) ``j``.  ``-1`` where ``j >= n_pos`` (the candidates
+    are used up) or where the walk did not end (see ``WALK_LIMIT``).
+
+    The bijection runs on ``[0, 2^b)``, ``2^b`` the least power of two not
+    below ``n_pos`` (at least 4); a value at or above ``n_pos`` is mapped
+    again (cycle walking) until it falls inside, which keeps the map a
+    bijection of ``[0, n_pos)``.  Fixed shapes, int64 torch ops only, no
+    generator: the same draws on every device.  The walk stops as soon as
+    every value is inside, which reads one flag to the host per pass."""
+    keys = keys.to(device=j.device, dtype=torch.int64)[..., None]
+    live = j < n_pos
+    if n_pos == 1:
+        return torch.where(live, torch.zeros_like(j), torch.full_like(j, -1))
+    bits = max(2, (n_pos - 1).bit_length())
+    lo_bits = bits // 2
+    hi_bits = bits - lo_bits
+    x = _permute(torch.where(live, j, torch.zeros_like(j)), keys, lo_bits,
+                 hi_bits)
+    for _ in range(WALK_LIMIT - 1):
+        outside = x >= n_pos
+        if not bool(outside.any()):
+            break
+        x = torch.where(outside, _permute(x, keys, lo_bits, hi_bits), x)
+    return torch.where(live & (x < n_pos), x, torch.full_like(x, -1))
+
+
 class Dataset:
     """Points (n, D) and weights (n,) on one device, with an optional host
-    copy of both (``host_weights`` None means all ones)."""
+    copy of both (``host_weights`` None means all ones).
+
+    :meth:`memo` keeps what is computed once per dataset and read by every
+    fit on it (``sum w ||x||^2``, the positive-weight rows, the device
+    loop's captured graphs); the points and weights must not change while
+    it holds them."""
 
     def __init__(self, points: torch.Tensor, weights: torch.Tensor,
                  host: Optional[np.ndarray] = None,
@@ -60,6 +142,13 @@ class Dataset:
         self.n, self.d = points.shape
         self._host = host
         self._host_weights = host_weights
+        self._memo: dict = {}
+
+    def memo(self, key, make: Callable):
+        """``make()``, computed at the first call for ``key`` and kept."""
+        if key not in self._memo:
+            self._memo[key] = make()
+        return self._memo[key]
 
     @property
     def device(self) -> torch.device:
@@ -78,6 +167,12 @@ class Dataset:
     def host_weights(self) -> Optional[np.ndarray]:
         return self._host_weights
 
+    def positive_index(self) -> torch.Tensor:
+        """Indices (int64, on the device) of the rows with weight > 0: the
+        candidates of the device draws.  Found once per dataset."""
+        return self.memo("positive_index", lambda: torch.nonzero(
+            self.weights > 0).flatten())
+
     def positive_rows(self) -> np.ndarray:
         """Indices of rows with weight > 0: the candidates for seeding and
         for empty-cluster resampling (a zero-weight row must never become a
@@ -86,7 +181,7 @@ class Dataset:
             if self._host_weights is None:
                 return np.arange(self.n)
             return np.flatnonzero(self._host_weights > 0)
-        return torch.nonzero(self.weights > 0).flatten().cpu().numpy()
+        return self.positive_index().cpu().numpy()
 
     def take(self, idx) -> np.ndarray:
         """Rows by index, as a host array."""
@@ -97,13 +192,13 @@ class Dataset:
 
     def sample_positive_rows(self, m: int, seed_seq) -> np.ndarray:
         """Up to ``m`` distinct positive-weight rows, uniformly, seeded by
-        ``seed_seq`` (entropy for ``np.random.default_rng``).
+        ``seed_seq`` (entropy for ``np.random.SeedSequence``).
 
         With a host copy this is the JAX package's host draw, row for row.
-        Without one the candidates are found on the device and drawn with a
-        ``torch.Generator`` seeded from ``seed_seq``: the same distribution,
-        deterministic for a seed, but other rows than the JAX package's
-        device-side draw would pick."""
+        Without one the draws are :func:`permuted_draws` under
+        ``draw_keys(seed_seq)``, the engine of the device loop's refill:
+        deterministic for a seed, the same rows on both loops, but other
+        rows than the JAX package's device-side draw would pick."""
         if self._host is not None:
             rng = np.random.default_rng(seed_seq)
             candidates = self.positive_rows()
@@ -111,15 +206,15 @@ class Dataset:
             idx = candidates[rng.choice(len(candidates), size=take,
                                         replace=False)]
             return self.take(idx)
-        seed = int(np.random.SeedSequence(seed_seq).generate_state(1)[0])
-        candidates = torch.nonzero(self.weights > 0).flatten()
-        take = min(m, candidates.numel())
+        pos = self.positive_index()
+        take = min(m, pos.numel())
         if take == 0:
             return np.empty((0, self.d))
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        pick = torch.randperm(candidates.numel(), generator=gen,
-                              device=self.device)[:take]
-        return self.points[candidates[pick]].cpu().numpy().astype(np.float64)
+        draws = permuted_draws(
+            pos.numel(), torch.arange(take, device=self.device),
+            torch.from_numpy(draw_keys(seed_seq)))
+        rows = pos[draws[draws >= 0]]
+        return self.points[rows].cpu().numpy().astype(np.float64)
 
 
 def to_device(X, device: torch.device, dtype, sample_weight=None) -> Dataset:

@@ -60,6 +60,8 @@ def test_from_jax_state_predicts_the_same(mesh1, jx_mode, pt_mode, dtype):
 
 
 def test_from_jax_state_warns_once_about_dropped_arguments(mesh1):
+    """The loop options are the port's own since the device loop came:
+    kept, not dropped; an argument the port lacks still warns."""
     jm, X, _ = _fit_jax(mesh1, "matmul", np.float64)
     state = jm._state_dict()
     state.update(pipeline=1, bucket="auto", host_loop=False)
@@ -67,7 +69,11 @@ def test_from_jax_state_warns_once_about_dropped_arguments(mesh1):
         pm = convert.from_jax_state(state, device="cpu")
     assert len(caught) == 1
     text = str(caught[0].message)
-    assert all(name in text for name in ("pipeline", "bucket", "host_loop"))
+    assert "bucket" in text
+    assert "pipeline" not in text and "host_loop" not in text
+    assert pm.host_loop is False and pm.pipeline == 1
+    back = convert.to_jax_state(pm)
+    assert back["host_loop"] is False and back["pipeline"] == 1
     np.testing.assert_array_equal(pm.predict(X), np.asarray(jm.predict(X)))
 
 
@@ -158,7 +164,9 @@ def test_to_jax_state_round_trip(mesh1, tmp_path):
                                  device="cpu").fit(X)
     state = convert.to_jax_state(pm)
     assert state["distance_mode"] == "pallas"
-    assert state["model_shards"] == 1 and state["host_loop"] is True
+    # The model's own loop options, the JAX package's defaults here.
+    assert state["model_shards"] == 1 and state["host_loop"] == "auto"
+    assert state["pipeline"] == "auto"
     np.testing.assert_array_equal(state["init_array"], X[:5])
     jx_ckpt.save_state(tmp_path / "via_jax_writer.npz", state)
     jm = kmeans_tpu.KMeans.load(tmp_path / "via_jax_writer.npz")

@@ -20,6 +20,7 @@ import kmeans_tpu  # noqa: E402
 import kmeans_tpu_torch  # noqa: E402
 from kmeans_tpu.data.synthetic import make_blobs  # noqa: E402
 from kmeans_tpu_torch import convert  # noqa: E402
+from kmeans_tpu_torch.models import gmm as gmm_mod  # noqa: E402
 
 K, D = 3, 5
 
@@ -311,3 +312,45 @@ def test_default_device_is_the_card_and_raises_without_one():
         kmeans_tpu_torch.GaussianMixture(n_components=2, device="cuda")
     gm = kmeans_tpu_torch.GaussianMixture(n_components=2, device="cpu")
     assert gm.device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("device,dtype,cov,want", [
+    ("cuda", np.float32, "diag", "kernel"),
+    ("cuda", np.float32, "spherical", "kernel"),
+    ("cuda", np.float64, "diag", "torch"),
+    ("cuda", np.float64, "spherical", "torch"),
+    ("cpu", np.float32, "diag", "torch"),
+    ("cpu", np.float64, "diag", "torch")])
+def test_the_dtype_picks_the_estep(device, dtype, cov, want):
+    """The E-step kernel is a float32 engine: a float64 mixture on the card
+    runs the chunked torch E-step in float64 (and records 'serial'), as the
+    JAX package's XLA E-step computes in the model's dtype."""
+    assert gmm_mod.estep_mode(device, dtype, cov) == want
+    gm = kmeans_tpu_torch.GaussianMixture(n_components=2, device="cpu",
+                                          dtype=dtype, covariance_type=cov)
+    gm.device = torch.device(device, 0) if device == "cuda" \
+        else torch.device(device)          # the rule only, no launch
+    assert gm._mode() == want
+
+
+@pytest.mark.parametrize("init_params", ["kmeans", "k-means++"])
+def test_float64_kmeans_seeding_matches_the_float32_fit(init_params):
+    """The float64 'kmeans' and 'k-means++' inits against the port's own
+    float32 fit of the same data and seed: the internal KMeans makes the
+    same host draws, so the means agree to float32 tolerances.  The JAX
+    package cannot be the oracle here: its internal KMeans is built without
+    ``dtype`` (kmeans_tpu/models/gmm.py), so a float64 mixture with x64 on
+    raises there instead of seeding."""
+    X, _ = make_blobs(3_000, 4, 6, random_state=11, dtype=np.float64)
+    kw = dict(n_components=4, max_iter=10, seed=5, init_params=init_params,
+              device="cpu")
+    f64 = kmeans_tpu_torch.GaussianMixture(dtype=np.float64, **kw).fit(X)
+    f32 = kmeans_tpu_torch.GaussianMixture(dtype=np.float32, **kw).fit(
+        X.astype(np.float32))
+    assert f64.estep_path_ == f32.estep_path_ == "serial"
+    assert f64.n_iter_ == f32.n_iter_
+    np.testing.assert_allclose(f64.means_, f32.means_, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(f64.weights_, f32.weights_, atol=1e-5)
+    np.testing.assert_allclose(f64.covariances_, f32.covariances_,
+                               rtol=1e-3)
+    np.testing.assert_array_equal(f64.predict(X), f32.predict(X))
