@@ -22,7 +22,15 @@ on the CPU, and ``load`` on the card of its CPU checkpoint; ``transform``
 against float64 distances.  The launch counters show that each path went
 through its own kernels (the device loop counts its graph's launches at
 each replay).  Each kernel is timed beside its plain version, a library
-yardstick and its roofline bound.
+yardstick and its roofline bound.  Then the mesh (``torch.distributed``):
+two gloo ranks spawned on the one card fit the main data on a data axis
+and on a model axis, in float32 and bf16, hold one step at the one-device
+centroids against the plain scatter, draw process-local k-means++ rows and
+fit the mixture on a data axis (phases ``dp_shared_card``, ``dp_kmeanspp``,
+``dp_gmm``: correctness, not scaling); one NCCL rank in this process fits
+the main data by both loops bit for bit against the one-device fits
+(``dp_world1``); and ``python -m kmeans_tpu_torch.suite`` runs the original
+project's tests A to E (``suite``).  Each rank counts its own launches.
 
 Every phase prints one JSON line as it ends.  A phase that fails raises, so
 the run ends with a non-zero code and without the result line.  The last line
@@ -758,7 +766,7 @@ def phase_device_loop(x, host_models):
     are the device loop's own (``iter_times_``: its wall time over its
     iterations, without the init and ``labels_``), beside the host loop's
     median iteration; ``fit_seconds`` are the whole ``fit`` of each."""
-    out = {}
+    out, models = {}, {}
     for label, mode in (("main_device", "auto"),
                         ("main_bf16_device", "pallas_bf16")):
         host, host_wall = host_models[label[:-len("_device")]]
@@ -801,7 +809,8 @@ def phase_device_loop(x, host_models):
              seconds_per_iteration_host=statistics.median(host.iter_times_),
              fit_seconds_device=walls, fit_seconds_host=host_wall)
         out[label] = per_iteration[1]
-    return out
+        models[label] = km
+    return out, models
 
 
 def phase_device_converge(x):
@@ -816,7 +825,7 @@ def phase_device_converge(x):
     km = KMeans(host_loop=False, **kw)       # for its dataset and init
     ds = km.cache(x)
     c0 = torch.from_numpy(km._init_centroids(ds, 42)).to(DEV)
-    chunk, mode = km._chunk_for(ds.n, ds.d), km._mode()
+    chunk, mode = km._chunk_for(ds), km._mode()
     probe = dist.make_fit_fn(chunk_size=chunk, mode=mode,
                              max_iter=CONVERGE_MAX, tolerance=0.0,
                              empty_policy="resample")(ds, c0, 42)
@@ -922,7 +931,7 @@ def phase_seeding(x_main, x_gmm):
     """k-means++ on the main data (k = 1024) and the mixture data
     (k = 256): the draws on the device against the per-draw host version
     on the same tensor, seconds of each, and the chosen rows."""
-    records = []
+    records, drawn = [], {}
     for name, x, k in (("main", x_main, MAIN["k"]), ("gmm", x_gmm, GMM["k"])):
         w = torch.ones(x.shape[0], device=DEV)
         torch.cuda.synchronize()
@@ -945,9 +954,10 @@ def phase_seeding(x_main, x_gmm):
                                        "host_row": int(want[i]),
                                        **cdf_gap(x, w, want, i, u)}
         records.append(rec)
+        drawn[name] = got
         emit("seeding", **rec)
         check(equal == k, f"seeding {name}: {equal} of {k} rows equal")
-    return records
+    return records, drawn
 
 
 def phase_gmm_setup(x, gm, fit_seconds):
@@ -975,7 +985,7 @@ def phase_gmm_setup(x, gm, fit_seconds):
     km = timed("internal_kmeans", lambda: KMeans(
         k=GMM["k"], seed=7, init=seeds, max_iter=20, verbose=False,
         compute_labels=False, empty_cluster="resample").fit(ds))
-    step = make_gmm_step_fn(chunk_size=model._chunk(ds.n),
+    step = make_gmm_step_fn(chunk_size=model._chunk(ds),
                             mode=model._mode())
     means = np.asarray(km.centroids, np.float64)
     timed("hard_init", lambda: model._m_step(model._host(step(
@@ -1402,6 +1412,381 @@ def phase_bf16_layout() -> None:
     emit("bf16_layout", cases=records)
 
 
+# ------------------------------------------------------------- the mesh
+
+#: Ranks of the shared-card phases: two processes on the one card, over
+#: gloo (NCCL refuses two ranks on one GPU).  A check of multi-rank
+#: correctness with the real kernels, not a scaling figure.
+DP_RANKS = 2
+#: Rows of rank 0 in the process-local k-means++ check (rank 1 the rest).
+DP_LOCAL_ROWS = 1_000_000
+#: Seconds the shared-card children may take before they are killed.
+DP_TIMEOUT = 600
+DP_NOTE = "two ranks share one card over gloo; not a scaling figure"
+MESHES = {"data2": (2, 1), "model2": (1, 2)}
+MESH_MODES = {"f32": "auto", "bf16": "pallas_bf16"}
+
+
+def path_kernels(mode: str, model_shards: int) -> tuple:
+    """The kernels a mesh fit with ``labels_`` must launch: kernel 1 (or
+    1b) per iteration and kernel 2 (2b) for the labels on a data axis;
+    kernel 2 (2b) alone under centroid sharding."""
+    suffix = "_bf16" if mode == "pallas_bf16" else ""
+    if model_shards > 1:
+        return ("hopper_assign" + suffix,)
+    return ("fused_assign_reduce" + suffix, "hopper_assign" + suffix)
+
+
+def dp_child(rank: int, world: int, store: str, out: str) -> None:
+    """One rank of the shared-card phases (spawned): the main data fitted
+    on a data axis and a model axis of two ranks in float32 and bf16, one
+    step at the reference's centroids on each, the device loop's refusal
+    over gloo, process-local k-means++ and the mixture on the data axis.
+    Writes its results and its own launch counts to ``out.<rank>``."""
+    import pickle
+    from kmeans_tpu_torch.parallel import multihost
+    from kmeans_tpu_torch.parallel.mesh import make_mesh
+    from kmeans_tpu_torch.parallel.sharding import from_process_local
+    multihost.initialize(f"file://{store}", world_size=world, rank=rank,
+                         backend="gloo")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with open(f"{out}.refs", "rb") as f:
+        refs = pickle.load(f)
+    x, _ = make_blobs_device(MAIN["n"], MAIN["k"], MAIN["d"], device=DEV,
+                             seed=1)
+    res = {}
+    for label, shape in MESHES.items():
+        mesh = make_mesh(*shape)
+        for prec, mode in MESH_MODES.items():
+            km = KMeans(k=MAIN["k"], max_iter=MAIN["iters"], seed=42,
+                        compute_sse=True, init="forgy", verbose=False,
+                        distance_mode=mode, mesh=mesh)
+            hk.reset_launch_counts()       # this path's own counts
+            t0 = time.perf_counter()
+            km.fit(x)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(hk.LAUNCHES)
+            ds = km.cache(x)
+            chunk = km._chunk_for(ds)
+            c_ref = torch.from_numpy(refs[prec]).to(DEV)
+            st = dist.make_step_fn(mesh, chunk_size=chunk, mode=km._mode(),
+                                   need_farthest=False, need_sse_pc=False)(
+                ds.points, ds.weights, c_ref, km._x2w(ds))
+            step_labels = ds.gather_rows(dist.make_predict_fn(
+                mesh, chunk_size=chunk, mode=km._mode())(ds.points, c_ref))
+            res[(label, prec)] = dict(
+                centroids=km.centroids, labels=km.labels_,
+                iterations=km.iterations_run, sse_history=km.sse_history,
+                iter_times=km.iter_times_, fit_seconds=wall,
+                launches=launches, step_sums=st.sums.cpu(),
+                step_counts=st.counts.cpu(), step_labels=step_labels)
+    mesh = make_mesh(DP_RANKS, 1)
+    try:
+        KMeans(k=8, max_iter=2, verbose=False, host_loop=False,
+               mesh=mesh).fit(x[:4096])
+        res["device_loop_error"] = None
+    except ValueError as e:
+        res["device_loop_error"] = str(e)
+    rows = slice(0, DP_LOCAL_ROWS) if rank == 0 else \
+        slice(DP_LOCAL_ROWS, MAIN["n"])
+    ds = from_process_local(x[rows].cpu().numpy(), mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    centres = seeding.kmeanspp_init(ds, MAIN["k"], 7, validate=False)
+    res["kmeanspp"] = dict(centres=centres,
+                           seconds=time.perf_counter() - t0,
+                           local_rows=ds.local_rows)
+    del x, ds
+    x_gmm, _ = kernel_edits.estep_inputs(GMM["n"], GMM["d"], GMM["k"], DEV)
+    gm = GaussianMixture(n_components=GMM["k"], init_params="kmeans",
+                         max_iter=GMM["iters"], tol=0.0, seed=7, mesh=mesh)
+    hk.reset_launch_counts()               # this path's own counts
+    t0 = time.perf_counter()
+    gm.fit(x_gmm)
+    torch.cuda.synchronize()
+    res["gmm"] = dict(weights=gm.weights_, means=gm.means_,
+                      covariances=gm.covariances_, shift=gm.shift_,
+                      lower_bound=gm.lower_bound_, n_iter=gm.n_iter_,
+                      iter_times=gm.iter_times_,
+                      fit_seconds=time.perf_counter() - t0,
+                      launches=dict(hk.LAUNCHES),
+                      labels=gm.predict(x_gmm[:PREDICT_ROWS]))
+    # One E-step on the mesh at the one-device fit's parameters.
+    for name, value in refs["gmm"].items():
+        setattr(gm, name, value)
+    ds = gm._dataset(x_gmm)
+    res["gmm"]["estep"] = [t.cpu() for t in make_gmm_step_fn(
+        mesh, chunk_size=gm._chunk(ds), mode=gm._mode())(
+        ds.points, ds.weights, *gm._params_dev())]
+    with open(f"{out}.{rank}", "wb") as f:
+        pickle.dump(res, f)
+    torch.distributed.destroy_process_group()
+
+
+def run_ranks(fn, world: int, *args) -> None:
+    """``fn(rank, world, *args)`` in ``world`` spawned processes; a child
+    that fails or outlives DP_TIMEOUT fails the phase, and every child is
+    gone when this returns."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(fn, args=(world, *args), nprocs=world,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + DP_TIMEOUT
+    try:
+        while not ctx.join(timeout=5):
+            check(time.monotonic() < deadline,
+                  f"the ranks did not end within {DP_TIMEOUT} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+
+
+def phase_dp_shared_card(x, refs, seeding_idx):
+    """Two gloo ranks on the one card (``dp_child``), each rank's results
+    against the one-device fits of the run: the same iterations; labels
+    equal outside the margin band of the reference's centroids; one step at
+    the reference's centroids within the sums and counts tolerances
+    (a whole fit's centroids move apart wherever a near-tie row changed
+    cluster); the launch counts of every rank; the refusal of the device
+    loop over gloo; process-local k-means++ rows against the one-device
+    draws.  Returns the results of rank 0 and every rank's counts."""
+    import pickle
+    with tempfile.TemporaryDirectory() as tmp:
+        out = str(Path(tmp) / "out")
+        with open(f"{out}.refs", "wb") as f:
+            pickle.dump({prec: ref["centroids"] for prec, ref in refs.items()
+                         if prec != "gmm"}
+                        | {"gmm": refs["gmm"]}, f)
+        t0 = time.perf_counter()
+        run_ranks(dp_child, DP_RANKS, str(Path(tmp) / "store"), out)
+        spawn_seconds = time.perf_counter() - t0
+        results = []
+        for rank in range(DP_RANKS):
+            with open(f"{out}.{rank}", "rb") as f:
+                results.append(pickle.load(f))
+    counts = {}
+    w = torch.ones(x.shape[0], device=DEV)
+    for label, (data_shards, model_shards) in MESHES.items():
+        for prec, mode in MESH_MODES.items():
+            ref = refs[prec]
+            bf16 = prec == "bf16"
+            c_ref = torch.from_numpy(ref["centroids"]).to(DEV)
+            ref_labels = torch.from_numpy(ref["labels"]).to(DEV)
+            for rank, res in enumerate(results):
+                r = res[(label, prec)]
+                path = f"dp_shared_card:{label}:{prec}:rank{rank}"
+                missing = [name for name in path_kernels(mode, model_shards)
+                           if r["launches"].get(name, 0) <= 0]
+                check(not missing, f"{path}: kernels never launched: "
+                                   f"{missing} ({r['launches']})")
+                suffix = "_bf16" if bf16 else ""
+                iters = r["iterations"]
+                if model_shards > 1:
+                    check(r["launches"]["fused_assign_reduce" + suffix] == 0
+                          and r["launches"]["hopper_assign" + suffix]
+                          == iters + 1,
+                          f"{path}: kernel 2 per iteration and for labels_, "
+                          f"no kernel 1: {r['launches']}")
+                else:
+                    check(r["launches"]["fused_assign_reduce" + suffix]
+                          == iters, f"{path}: {r['launches']}")
+                check(iters == ref["iterations"],
+                      f"{path}: {iters} iterations, one device "
+                      f"{ref['iterations']}")
+                # The step at the reference's centroids: labels against the
+                # one-device labels there (its labels_), sums and counts
+                # against the plain scatter of the step's own labels.
+                step_labels = torch.from_numpy(r["step_labels"]).to(DEV)
+                n_diff, n_out = cmp.label_band(x, c_ref, step_labels,
+                                               ref_labels, bf16)
+                check(n_out == 0, f"{path}: {n_out} step labels outside "
+                                  f"the band")
+                want_sums, want_counts = cmp.scatter_reference(
+                    x, w, step_labels, MAIN["k"], bf16)
+                got_sums = r["step_sums"].to(DEV)
+                sums_ok = cmp.sums_close(got_sums, want_sums)
+                counts_ok = cmp.close(r["step_counts"].to(DEV), want_counts,
+                                      cmp.COUNTS_RTOL, 0.0)
+                check(sums_ok and counts_ok,
+                      f"{path}: the step's sums or counts are off: "
+                      f"{cmp.max_err(got_sums, want_sums)}")
+                fit_diff, fit_out = cmp.label_band(
+                    x, c_ref, torch.from_numpy(r["labels"]).to(DEV),
+                    ref_labels, bf16)
+                counts[path] = {k: v for k, v in r["launches"].items() if v}
+                emit("dp_shared_card", mesh=label, data=data_shards,
+                     model=model_shards, distance_mode=mode, rank=rank,
+                     iterations=iters, sse_history=r["sse_history"],
+                     one_device_sse_history=ref["sse_history"],
+                     max_centroid_diff=float(np.abs(
+                         r["centroids"].astype(np.float64)
+                         - ref["centroids"]).max()),
+                     fit_label_diff=fit_diff, fit_label_diff_outside=fit_out,
+                     step_label_diff=n_diff, step_sums_within=sums_ok,
+                     step_counts_within=counts_ok,
+                     step_sums_err=cmp.max_err(got_sums, want_sums),
+                     seconds_per_iteration=statistics.median(
+                         r["iter_times"]),
+                     one_device_seconds_per_iteration=statistics.median(
+                         ref["iter_times"]),
+                     fit_seconds=r["fit_seconds"], launches=counts[path],
+                     note=DP_NOTE)
+    seeding_rows = x[torch.from_numpy(seeding_idx).to(DEV)].cpu().numpy()
+    for rank, res in enumerate(results):
+        check(res["device_loop_error"] is not None
+              and "NCCL" in res["device_loop_error"],
+              f"rank {rank}: host_loop=False over gloo did not raise")
+        pp = res["kmeanspp"]
+        equal = int((pp["centres"] == seeding_rows).all(1).sum())
+        rec = {"rank": rank, "k": MAIN["k"], "equal_rows": equal,
+               "local_rows": pp["local_rows"], "seconds": pp["seconds"]}
+        if equal < MAIN["k"]:
+            i = int(np.flatnonzero(
+                ~(pp["centres"] == seeding_rows).all(1))[0])
+            u = float(np.random.default_rng(7).random(MAIN["k"])[i])
+            rec["cdf_gap"] = cdf_gap(x, w, seeding_idx, i, u)
+        emit("dp_kmeanspp", device_loop_refused=res["device_loop_error"],
+             note=DP_NOTE, **rec)
+        check(equal == MAIN["k"], f"process-local k-means++ rank {rank}: "
+                                  f"{equal} of {MAIN['k']} rows equal")
+    emit("dp_spawn", ranks=DP_RANKS, seconds=spawn_seconds, note=DP_NOTE)
+    return results, counts
+
+
+def phase_dp_gmm(results, gm, x_gmm):
+    """The mixture on a data axis of two gloo ranks (from ``dp_child``)
+    against the one-device fit of phase ``gmm``: one E-step on the mesh at
+    that fit's parameters within the E-step tolerances of the one-device
+    E-step (a whole fit's parameters move apart with the summation order of
+    its KMeans init and EM), the whole fit's lower bound within LL_RTOL,
+    and diag_estep launched by every rank; the parameters' differences and
+    the predict rows' labels are reported."""
+    counts = {}
+    one_device_labels = gm.predict(x_gmm[:PREDICT_ROWS])
+    ds = gm._dataset(x_gmm)
+    want = make_gmm_step_fn(chunk_size=gm._chunk(ds), mode=gm._mode())(
+        ds.points, ds.weights, *gm._params_dev())
+    for rank, res in enumerate(results):
+        g = res["gmm"]
+        path = f"dp_gmm:rank{rank}"
+        check(g["launches"].get("diag_estep", 0) == 1 + GMM["iters"]
+              and g["launches"].get("fused_assign_reduce", 0) > 0,
+              f"{path}: launches {g['launches']}")
+        check(g["n_iter"] == gm.n_iter_, f"{path}: {g['n_iter']} EM "
+                                         f"iterations")
+        estep = cmp.estep_errors([t.to(DEV) for t in g["estep"]], want)
+        ll_rel = abs(g["lower_bound"] - gm.lower_bound_) / abs(
+            gm.lower_bound_)
+        same_labels = int((g["labels"] == one_device_labels).sum())
+        counts[path] = {k: v for k, v in g["launches"].items() if v}
+        emit("dp_gmm", rank=rank, n=GMM["n"], d=GMM["d"], k=GMM["k"],
+             estep_at_one_device_parameters=estep,
+             lower_bound=g["lower_bound"],
+             one_device_lower_bound=gm.lower_bound_,
+             lower_bound_rel_diff=ll_rel,
+             max_mean_diff=float(np.abs(g["means"] - gm.means_).max()),
+             max_covariance_diff=float(np.abs(
+                 g["covariances"] - gm.covariances_).max()),
+             predict_rows=PREDICT_ROWS, same_labels=same_labels,
+             seconds_per_iteration=statistics.median(g["iter_times"]),
+             one_device_seconds_per_iteration=statistics.median(
+                 gm.iter_times_),
+             fit_seconds=g["fit_seconds"], launches=counts[path],
+             note=DP_NOTE)
+        check(estep["ok"] and ll_rel <= cmp.LL_RTOL,
+              f"{path}: the mesh mixture is off the one-device fit: "
+              f"{estep}, lower bound {ll_rel}")
+    return counts
+
+
+def phase_dp_world1(x, refs):
+    """One NCCL rank in this process (a FileStore under a temp directory):
+    the main data on a mesh of one rank, float32 and bf16, by the host loop
+    and the device loop (whose captured graph then holds the NCCL
+    collectives), bit for bit against the one-device fits of the run, with
+    kernel 1 (1b) once per iteration and kernel 2 (2b) for ``labels_``.
+    Seconds per iteration beside the one-device figure: the cost of the
+    collectives at world 1.  The process group is gone when it returns."""
+    from kmeans_tpu_torch.parallel import multihost
+    from kmeans_tpu_torch.parallel.mesh import make_mesh
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        multihost.initialize(f"file://{tmp}/store", world_size=1, rank=0,
+                             backend="nccl")
+        try:
+            mesh = make_mesh()
+            for key, ref in refs.items():
+                prec, loop = key
+                mode = MESH_MODES[prec]
+                km = KMeans(k=MAIN["k"], max_iter=MAIN["iters"], seed=42,
+                            compute_sse=True, init="forgy", verbose=False,
+                            distance_mode=mode, mesh=mesh,
+                            host_loop=loop == "host")
+                ds = km.cache(x)
+                runs = 1 if loop == "host" else 2
+                for run in range(runs):    # the device loop: capture, replay
+                    hk.reset_launch_counts()   # this path's own counts
+                    km.fit(ds)
+                    torch.cuda.synchronize()
+                    launches = dict(hk.LAUNCHES)
+                path = f"dp_world1:{prec}:{loop}"
+                suffix = "_bf16" if prec == "bf16" else ""
+                n = km.iterations_run
+                check(km.loop_path_ == loop, f"{path}: {km.loop_path_}")
+                check(launches["fused_assign_reduce" + suffix] == n
+                      and launches["hopper_assign" + suffix] == 1,
+                      f"{path}: launches {launches} for {n} iterations")
+                same = {"centroids": bool(np.array_equal(
+                            km.centroids, ref.centroids)),
+                        "sse_history": km.sse_history == ref.sse_history,
+                        "labels": bool(np.array_equal(km.labels_,
+                                                      ref.labels_)),
+                        "iterations": n == ref.iterations_run}
+                counts[path] = {k: v for k, v in launches.items() if v}
+                emit("dp_world1", distance_mode=mode, loop=loop,
+                     bit_identical=same, iterations=n,
+                     seconds_per_iteration=statistics.median(km.iter_times_),
+                     one_device_seconds_per_iteration=statistics.median(
+                         ref.iter_times_), launches=counts[path])
+                check(all(same.values()), f"{path}: not bit-identical to "
+                                          f"the one-device fit: {same}")
+        finally:
+            torch.distributed.destroy_process_group()
+    return counts
+
+
+def phase_suite():
+    """``python -m kmeans_tpu_torch.suite`` as a subprocess on the card:
+    tests A to E of the original project, exit code 0."""
+    import os
+    import signal
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        # A session of its own: on expiry the suite and any ranks it
+        # spawned are killed together.
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "kmeans_tpu_torch.suite", "--out-dir",
+             tmp], cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, start_new_session=True)
+        try:
+            stdout, stderr = proc.communicate(timeout=DP_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            raise SmokeFailure(f"the suite did not end in {DP_TIMEOUT} s")
+        seconds = time.perf_counter() - t0
+        svg = (Path(tmp) / "speedup_graph.svg").is_file()
+    for line in stdout.splitlines():
+        print(line, flush=True)
+    emit("suite", exit_code=proc.returncode, seconds=seconds,
+         speedup_graph_svg=svg, stderr_tail=stderr[-2000:])
+    check(proc.returncode == 0 and svg, f"the suite exited "
+                                        f"{proc.returncode}")
+
+
 def main() -> None:
     global CARD
     started = time.perf_counter()
@@ -1473,7 +1858,7 @@ def main() -> None:
          main=km.sse_history[-1], ratio=ratio)
     check(abs(ratio - 1.0) <= BF16_SSE_RATIO,
           f"main_bf16: final SSE {ratio} times the float32 path's")
-    device_seconds = phase_device_loop(
+    device_seconds, device_models = phase_device_loop(
         x_main, {"main": (km, km_wall), "main_bf16": (km_bf16, km_bf16_wall)})
     phase_transform(km, x_main)
 
@@ -1492,7 +1877,7 @@ def main() -> None:
     gmm_main = estep_records[0]
     gm, gmm_launches, gmm_fit_seconds = phase_gmm(x_gmm)
     phase_gmm_setup(x_gmm, gm, gmm_fit_seconds)
-    phase_seeding(x_main, x_gmm)
+    _, drawn = phase_seeding(x_main, x_gmm)
     phase_gmm_offset()
     phase_gmm_float64()
 
@@ -1505,6 +1890,29 @@ def main() -> None:
         max(gmm_main[f"{s}_err"] for s in ("rsum", "s1", "s2", "ll")),
         gmm_launches))
     rows += phase_lab(x_main, c_main, rows)
+
+    # The mesh: two gloo ranks sharing the card (K-Means on a data and a
+    # model axis, process-local k-means++, the mixture on a data axis), one
+    # NCCL rank in this process, then the suite.  Each rank counts its own
+    # launches; they are read from every rank.
+    refs = {prec: dict(centroids=m.centroids, labels=m.labels_,
+                       iterations=m.iterations_run,
+                       sse_history=m.sse_history, iter_times=m.iter_times_)
+            for prec, m in (("f32", km), ("bf16", km_bf16))}
+    refs["gmm"] = {name: getattr(gm, name) for name in (
+        "weights_", "means_", "covariances_", "shift_")}
+    results, mesh_counts = phase_dp_shared_card(x_main, refs, drawn["main"])
+    mesh_counts.update(phase_dp_gmm(results, gm, x_gmm))
+    del results
+    mesh_counts.update(phase_dp_world1(x_main, {
+        ("f32", "host"): km, ("bf16", "host"): km_bf16,
+        ("f32", "device"): device_models["main_device"],
+        ("bf16", "device"): device_models["main_bf16_device"]}))
+    phase_suite()
+    for row in rows:
+        row["mesh_launches"] = {path: c[row["name"]]
+                                for path, c in mesh_counts.items()
+                                if c.get(row["name"], 0) > 0}
 
     emit("total", seconds=time.perf_counter() - started)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,4 +1,5 @@
-"""Synthetic blobs, on the host or made directly on the device."""
+"""Synthetic data: blobs on the host or made directly on the device, and
+standard-normal points (``make_gaussian``, the JAX package's)."""
 
 from __future__ import annotations
 
@@ -38,3 +39,11 @@ def make_blobs_device(n_samples: int, centers: int, n_features: int, *,
                     dtype=dtype)
     X.mul_(cluster_std).add_(means[y])
     return X, y.to(torch.int32)
+
+
+def make_gaussian(n_samples: int, n_features: int, random_state: int = 0,
+                  dtype=np.float32) -> np.ndarray:
+    """Standard-normal points (n, D) on the host, the JAX package's
+    ``make_gaussian``: ``np.random.RandomState(random_state).randn``."""
+    rng = np.random.RandomState(random_state)
+    return rng.randn(n_samples, n_features).astype(dtype)

@@ -1,8 +1,10 @@
-"""Gaussian mixture on one NVIDIA GPU: EM for 'diag' and 'spherical'
+"""Gaussian mixture on NVIDIA GPUs: EM for 'diag' and 'spherical'
 covariances (scikit-learn-style API).
 
-Counterpart of ``kmeans_tpu/models/gmm.py`` for its host-loop path.  The
-data is placed on the device once; each EM iteration is one E-step on the
+Counterpart of ``kmeans_tpu/models/gmm.py`` for its host-loop path, on one
+device or over the data axis of a mesh (each rank's E pass on its block of
+the rows, the statistics summed over the axis).  The data is placed on the
+device once; each EM iteration is one E-step on the
 device (``parallel.gmm_step``; on the card one launch of the fused CUDA
 kernel ``diag_estep``) that returns the responsibility sums, the first and
 second moments and the log-likelihood, and the host does the M-step in
@@ -45,8 +47,13 @@ from kmeans_tpu_torch.models.kmeans import (KMeans,
                                              _later, resolve_device)
 from kmeans_tpu_torch.parallel.gmm_step import (EStats, make_gmm_predict_fn,
                                                 make_gmm_step_fn)
-from kmeans_tpu_torch.parallel.sharding import (Dataset, choose_em_chunk,
-                                                to_device, weighted_mean)
+from kmeans_tpu_torch.parallel.mesh import (DATA_AXIS, all_reduce,
+                                            check_mesh, group_up,
+                                            is_primary, make_mesh,
+                                            mesh_shape)
+from kmeans_tpu_torch.parallel.sharding import (Dataset, ShardedDataset,
+                                                choose_em_chunk, to_device,
+                                                weighted_mean)
 from kmeans_tpu_torch.utils import checkpoint as ckpt
 from kmeans_tpu_torch.utils.validation import check_finite_array
 
@@ -62,8 +69,7 @@ _A8 = "A.8 'GaussianMixture'"
 #: yet: name -> (the values that name what the port does anyway, ROADMAP
 #: item).  Any other value raises NotImplementedError.
 _LATER_ARGS = {
-    "mesh": ((None,), "A.4 'Multi-GPU data parallelism'"),
-    "model_shards": ((1,), "A.4 'Multi-GPU data parallelism'"),
+    "model_shards": ((1,), "A.18 'GaussianMixture on the model axis'"),
     "host_loop": ((True,), _A8 + ": the device EM loop"),
     "pipeline": (("auto", 0, False), _A8 + ": the device EM loop"),
     "bucket": ((0,), "A.14 'Orchestrator, warm start, lint, CLIs and "
@@ -100,13 +106,15 @@ class GaussianMixture:
     ``max_iter``, ``n_init``, ``init_params``, ``weights_init``,
     ``means_init``, ``precisions_init``); ``seed``, ``dtype``,
     ``chunk_size`` and ``verbose`` follow this package's ``KMeans``.
-    ``device``: None (the card) | 'cuda' | 'cuda:N' | 'cpu'.
+    ``device``: None (the card) | 'cuda' | 'cuda:N' | 'cpu'.  ``mesh``: as
+    in ``KMeans``, its data axis only.
 
-    The JAX package's other arguments (``mesh``, ``model_shards``,
-    ``host_loop``, ``pipeline``, ``bucket``, ``overlap``, ``ingest``) are
-    taken only at the values that name what this port does (one device,
-    the host loop, the serial E pass); 'tied' and 'full' and any other value
-    raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+    The JAX package's other arguments (``model_shards``, ``host_loop``,
+    ``pipeline``, ``bucket``, ``overlap``, ``ingest``) are taken only at the
+    values that name what this port does (no model axis, the host loop, the
+    serial E pass); 'tied' and 'full', a mesh with a model axis, and any
+    other value raise ``NotImplementedError`` naming the ROADMAP item that
+    brings them.
 
     ``estep_path_`` records what the last fit ran (:func:`estep_mode`):
     'kernel' (the fused CUDA kernel) for float32 on the card, 'serial' (the
@@ -160,7 +168,10 @@ class GaussianMixture:
         if overlap not in ("auto", 0, 1, True, False):
             raise ValueError(f"overlap must be 'auto', 0, or 1; got "
                              f"{overlap!r}")
-        later = dict(mesh=mesh, model_shards=model_shards,
+        mesh = check_mesh(mesh)
+        if mesh is not None and mesh_shape(mesh)[1] > 1:
+            model_shards = mesh_shape(mesh)[1]
+        later = dict(model_shards=model_shards,
                      host_loop=bool(host_loop), pipeline=pipeline,
                      bucket=bucket, overlap=overlap, ingest=ingest)
         for name, value in later.items():
@@ -213,20 +224,33 @@ class GaussianMixture:
         return estep_mode(self.device.type, self.dtype,
                           self.covariance_type)
 
+    def _resolve_mesh(self):
+        """As ``KMeans._resolve_mesh``: the given mesh, else the whole
+        world's where a process group is up, else None."""
+        if self.mesh is None and group_up():
+            self.mesh = make_mesh()
+        return self.mesh
+
     def _dataset(self, X, sample_weight=None) -> Dataset:
-        """X on the device once; data that did not come as a
-        :class:`Dataset` must be finite."""
+        """X on the device once (the rank's block under a mesh); data that
+        did not come as a :class:`Dataset` must be finite."""
+        mesh = self._resolve_mesh()
         ds = to_device(X, self.device, self.dtype,
-                       sample_weight=sample_weight)
+                       sample_weight=sample_weight, mesh=mesh,
+                       chunk=self.chunk_size, k_hint=self.n_components)
         if not isinstance(X, Dataset):
             if ds.host is not None:
                 check_finite_array(ds.host, "Data contains NaN or Inf values")
-            elif not bool(torch.isfinite(ds.points).all()):
-                raise ValueError("Data contains NaN or Inf values")
+            else:
+                finite = torch.isfinite(ds.points).all().to(
+                    torch.int32).reshape(1)
+                if not int(all_reduce(finite, mesh, (DATA_AXIS,), "min")):
+                    raise ValueError("Data contains NaN or Inf values")
         return ds
 
-    def _chunk(self, n: int) -> int:
-        return self.chunk_size or choose_em_chunk(n, self.n_components)
+    def _chunk(self, ds: Dataset) -> int:
+        return self.chunk_size or choose_em_chunk(ds.points.shape[0],
+                                                  self.n_components)
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
         """A copy of a host table on the device (the array may be
@@ -306,7 +330,7 @@ class GaussianMixture:
                         empty_cluster="resample", dtype=self.dtype,
                         distance_mode=("auto" if self._mode() == "kernel"
                                        else "matmul"),
-                        device=self.device)
+                        device=self.device, mesh=ds.mesh)
             km.fit(ds)
             means = np.asarray(km.centroids, np.float64)
         # One hard-assignment E-step gives the one-hot statistics sklearn
@@ -361,9 +385,10 @@ class GaussianMixture:
                          "A.9 'Fault tolerance'")
         ds = self._dataset(X, sample_weight)
         mode = self._mode()
-        step_fn = make_gmm_step_fn(chunk_size=self._chunk(ds.n), mode=mode)
+        step_fn = make_gmm_step_fn(ds.mesh, chunk_size=self._chunk(ds),
+                                   mode=mode)
         self.estep_path_ = "kernel" if mode == "kernel" else "serial"
-        self.shift_ = weighted_mean(ds.points, ds.weights).to(
+        self.shift_ = weighted_mean(ds.points, ds.weights, ds.mesh).to(
             torch.float64).cpu().numpy()
         if resume and self.means_ is not None:
             if self.n_init != 1:
@@ -434,7 +459,7 @@ class GaussianMixture:
             self.lower_bound_ = float(host.loglik) / w_total
             self.n_iter_ = it
             self.iter_times_.append(time.perf_counter() - t0)
-            if self.verbose:
+            if self.verbose and is_primary(self.mesh):
                 print(f"EM iteration {it}: mean log-likelihood = "
                       f"{self.lower_bound_:.6f} "
                       f"[{self.iter_times_[-1] * 1e3:.1f} ms]", flush=True)
@@ -472,18 +497,24 @@ class GaussianMixture:
         if self.means_ is None:
             raise ValueError("Model must be fitted before prediction")
 
-    def _posterior(self, X):
+    def _posterior(self, X, which: int):
+        """Output ``which`` of the posterior pass (0 labels, 1 log
+        responsibilities, 2 per-row log-likelihood) as a host array: every
+        row's under a mesh, the rank's own rows on a process-local
+        dataset."""
         self._check_fitted()
         ds = self._dataset(X)
-        predict_fn = make_gmm_predict_fn(chunk_size=self._chunk(ds.n))
-        labels, logr, lse = predict_fn(ds.points, *self._params_dev())
-        return (labels.cpu().numpy(),
-                logr.to(torch.float64).cpu().numpy(),
-                lse.to(torch.float64).cpu().numpy())
+        predict_fn = make_gmm_predict_fn(chunk_size=self._chunk(ds))
+        out = predict_fn(ds.points, *self._params_dev())[which]
+        if which:
+            out = out.to(torch.float64)
+        if isinstance(ds, ShardedDataset):
+            return ds.gather_rows(out)
+        return out.cpu().numpy()
 
     def predict(self, X) -> np.ndarray:
         """Component labels, int32 (n,)."""
-        return self._posterior(X)[0]
+        return self._posterior(X, 0)
 
     def fit_predict(self, X, y=None, *, sample_weight=None) -> np.ndarray:
         """Fit, then label the same data; it is placed on the device once."""
@@ -492,11 +523,11 @@ class GaussianMixture:
 
     def predict_proba(self, X) -> np.ndarray:
         """Responsibilities, float64 (n, k)."""
-        return np.exp(self._posterior(X)[1])
+        return np.exp(self._posterior(X, 1))
 
     def score_samples(self, X) -> np.ndarray:
         """Per-sample log-likelihood log p(x), float64 (n,)."""
-        return self._posterior(X)[2]
+        return self._posterior(X, 2)
 
     def score(self, X, y=None) -> float:
         """Mean per-sample log-likelihood (sklearn convention)."""
@@ -551,8 +582,9 @@ class GaussianMixture:
 
     def _state_dict(self) -> dict:
         """Serialisable state in the JAX package's checkpoint vocabulary:
-        the one-device host loop is written as ``model_shards=1,
-        host_loop=True``, so that the JAX package loads the file."""
+        the host loop is written as ``model_shards=1, host_loop=True``, so
+        that the JAX package loads the file, with the topology block
+        (``meta_mesh_*``)."""
         fitted = self.means_ is not None
         state = {
             "model_class": type(self).__name__,
@@ -583,6 +615,7 @@ class GaussianMixture:
                 if self.restart_lower_bounds_ is not None
                 else np.zeros((0,)),
         }
+        state.update(ckpt.topology_meta(self.mesh, self.dtype))
         # Explicit init arrays are configuration: a loaded model that is
         # fitted again seeds as the original did.
         for name in ("weights_init", "means_init", "precisions_init"):
@@ -592,7 +625,8 @@ class GaussianMixture:
         return state
 
     @classmethod
-    def _from_state(cls, state: dict, device=None) -> "GaussianMixture":
+    def _from_state(cls, state: dict, device=None,
+                    mesh=None) -> "GaussianMixture":
         """A model from a checkpoint dictionary written by either package.
         Arguments the port does not have are dropped with one warning; the
         JAX package's device-loop tables (``dev_*``) are read as absent."""
@@ -621,7 +655,7 @@ class GaussianMixture:
                     chunk_size=None if chunk is None else int(chunk),
                     verbose=bool(state["verbose"]),
                     dtype=np.dtype(str(state["dtype"])), device=device,
-                    **inits)
+                    mesh=mesh, **inits)
         if np.asarray(state["means_"]).size:
             model.weights_ = np.asarray(state["weights_"], np.float64)
             model.means_ = np.asarray(state["means_"], np.float64)
@@ -640,14 +674,16 @@ class GaussianMixture:
 
     def save(self, path) -> None:
         """Write the fitted state and the explicit init arrays as one
-        ``.npz`` checkpoint."""
-        ckpt.save_state(path, self._state_dict())
+        ``.npz`` checkpoint, on the primary rank under a mesh (every rank
+        calls it)."""
+        ckpt.save_state_primary(path, self._state_dict(), self.mesh)
 
     @classmethod
-    def load(cls, path, device=None) -> "GaussianMixture":
-        """Load a checkpoint written by this package or by the JAX package.
-        ``device`` as in the constructor."""
-        return cls._from_state(ckpt.load_state(path), device=device)
+    def load(cls, path, device=None, mesh=None) -> "GaussianMixture":
+        """Load a checkpoint written by this package or by the JAX package,
+        on any mesh.  ``device`` and ``mesh`` as in the constructor."""
+        return cls._from_state(ckpt.load_state(path), device=device,
+                               mesh=mesh)
 
     # -------------------------------------------------------------- params
 

@@ -1,6 +1,7 @@
-"""K-Means estimator on one NVIDIA GPU (scikit-learn-style API).
+"""K-Means estimator on NVIDIA GPUs (scikit-learn-style API).
 
-Counterpart of ``kmeans_tpu/models/kmeans.py`` on one device:
+Counterpart of ``kmeans_tpu/models/kmeans.py``, on one device or over a
+(data, model) mesh of ranks (``parallel.mesh``, one process per GPU):
 ``KMeans(k, max_iter, tolerance, seed, compute_sse).fit(X)``, then
 ``predict``, ``transform``, ``score``, ``centroids`` and ``sse_history``,
 with the estimator protocol (``get_params``, ``set_params``,
@@ -20,7 +21,16 @@ on the device, a replayed CUDA graph per iteration, and the host only reads
 a done flag.
 
 The model runs on the card unless the caller asks for the CPU:
-``device=None`` means ``cuda`` and raises where there is none.
+``device=None`` means ``cuda`` (the rank's own card under a mesh) and raises
+where there is none.
+
+Under a mesh every rank runs the same program on the same arguments: each
+holds its block of the rows (``parallel.sharding.ShardedDataset``) and,
+with ``model_shards > 1``, scores them against its block of the table; the
+step's statistics come back replicated (``parallel.distributed``), so every
+rank computes the same update and stops at the same iteration.  ``mesh=None``
+is one device when no process group is up, and the mesh of the whole world
+(``make_mesh(model=model_shards)``) when one is, as in the JAX package.
 
 Behaviour kept from the JAX package: seeded Forgy / k-means++ initialisation
 with the same host-side NumPy draws; SSE measured against the iteration's
@@ -45,8 +55,11 @@ import torch
 from kmeans_tpu_torch.models.init import resolve_init
 from kmeans_tpu_torch.ops.assign import StepStats
 from kmeans_tpu_torch.parallel import distributed as dist
-from kmeans_tpu_torch.parallel.sharding import (Dataset, choose_chunk_size,
-                                                to_device)
+from kmeans_tpu_torch.parallel.mesh import (all_reduce, check_mesh,
+                                            group_up, is_primary,
+                                            make_mesh, mesh_shape)
+from kmeans_tpu_torch.parallel.sharding import (Dataset, ShardedDataset,
+                                                choose_chunk_size, to_device)
 from kmeans_tpu_torch.utils import checkpoint as ckpt
 from kmeans_tpu_torch.utils.logging import IterationLogger
 from kmeans_tpu_torch.utils.validation import validate_params
@@ -66,8 +79,6 @@ _LATER_MODES = {
 #: name -> (the values that name what the port does anyway, ROADMAP item).
 #: Any other value raises NotImplementedError.
 _LATER_ARGS = {
-    "mesh": ((None,), "A.4 'Multi-GPU data parallelism'"),
-    "model_shards": ((1,), "A.4 'Multi-GPU data parallelism'"),
     "bucket": ((0,), "A.14 'Orchestrator, warm start, lint, CLIs and "
                       "bench'"),
     "overlap": (("auto", 0), "A.14 'Orchestrator, warm start, lint, CLIs "
@@ -231,13 +242,17 @@ class KMeans:
         it.
     verbose : per-iteration log lines.
     device : None (the card) | 'cuda' | 'cuda:N' | 'cpu'.
+    mesh : None | a ``DeviceMesh`` from ``parallel.mesh.make_mesh``.  None
+        is one device without a process group, else the whole world's mesh
+        with ``model_shards`` on the model axis.
+    model_shards : ranks of the model axis when ``mesh`` is None (a given
+        mesh carries its own).
 
-    The JAX package's other constructor arguments (``mesh``,
-    ``model_shards``, ``bucket``, ``overlap``, ``ingest``, ``k_shard``,
-    ``assign``, ``coarse_cells``, ``nprobe``, ``init_cap``) are taken only
-    at the value that names what this port does (one device, dense
-    assignment); any other value raises ``NotImplementedError`` naming the
-    ROADMAP item that brings it.
+    The JAX package's other constructor arguments (``bucket``,
+    ``overlap``, ``ingest``, ``k_shard``, ``assign``, ``coarse_cells``,
+    ``nprobe``, ``init_cap``) are taken only at the value that names what
+    this port does (dense assignment); any other value raises
+    ``NotImplementedError`` naming the ROADMAP item that brings it.
 
     After ``fit``: ``loop_path_`` is 'host' or 'device'; ``estep_path_``
     the schedule that ran ('fused-pallas' in the kernel modes, else
@@ -267,8 +282,19 @@ class KMeans:
                  pipeline: Union[str, int] = "auto",
                  verbose: bool = True,
                  device=None,
+                 mesh=None,
+                 model_shards: int = 1,
                  **later):
         _check_later_args(later)
+        self.mesh = check_mesh(mesh)
+        if int(model_shards) < 1:
+            raise ValueError(f"model_shards must be >= 1, got "
+                             f"{model_shards}")
+        if mesh is not None and model_shards not in (1, mesh_shape(mesh)[1]):
+            raise ValueError(f"model_shards={model_shards} disagrees with "
+                             f"the mesh's model axis "
+                             f"({mesh_shape(mesh)[1]})")
+        self.model_shards = int(model_shards)
         self.k = k
         self.max_iter = max_iter
         self.tolerance = tolerance
@@ -365,16 +391,40 @@ class KMeans:
         self.estep_path_ = "pipelined" if p else "serial"
         return p
 
-    def _chunk_for(self, n: int, d: int) -> int:
-        tile_k = self.k * d if self._mode() == "direct" else self.k
-        return self.chunk_size or choose_chunk_size(n, tile_k, d)
+    def _resolve_mesh(self):
+        """The mesh the model runs on: the given one; without one, the
+        whole world's (``make_mesh(model=model_shards)``) where a process
+        group is up, else None (one device).  Built at first use and kept,
+        as in the JAX package."""
+        if self.mesh is None and (self.model_shards > 1 or group_up()):
+            self.mesh = make_mesh(model=self.model_shards)
+        return self.mesh
+
+    def _tile_k(self, d: int) -> int:
+        """The width of a chunk's distance tile: k, or k * D for
+        'direct'."""
+        return self.k * d if self._mode() == "direct" else self.k
+
+    def _chunk_for(self, ds: Dataset) -> int:
+        """Rows per chunk of the torch passes over the rank's rows."""
+        if self.chunk_size:
+            return self.chunk_size
+        if isinstance(ds, ShardedDataset):
+            return ds.effective_chunk(self._tile_k(ds.d))
+        return choose_chunk_size(ds.points.shape[0], self._tile_k(ds.d),
+                                 ds.d)
 
     def cache(self, X, sample_weight=None) -> Dataset:
-        """Place X on the device once as a :class:`Dataset`; pass the result
-        to ``fit`` / ``predict`` / ``score`` to skip the upload on every
-        call.  ``sample_weight`` (n,) makes every statistic weighted."""
+        """Place X on the device once as a :class:`Dataset` (under a mesh,
+        the rank's block of it, every rank passing the same X); pass the
+        result to ``fit`` / ``predict`` / ``score`` to skip the upload on
+        every call.  ``sample_weight`` (n,) makes every statistic
+        weighted."""
+        d = X.d if isinstance(X, Dataset) else np.shape(X)[-1]
         return to_device(X, self.device, self.dtype,
-                         sample_weight=sample_weight)
+                         sample_weight=sample_weight,
+                         mesh=self._resolve_mesh(), chunk=self.chunk_size,
+                         k_hint=self._tile_k(d))
 
     def _prepare(self, X, sample_weight=None, *, need_farthest=False,
                  pipeline: int = 0):
@@ -382,18 +432,19 @@ class KMeans:
         the SSE (the host loop's divergence guard reads it) and, with
         ``need_farthest``, the farthest point; nothing else."""
         ds = self.cache(X, sample_weight)
-        chunk = self._chunk_for(ds.n, ds.d)
+        chunk = self._chunk_for(ds)
         mode = self._mode()
-        return (ds, dist.make_step_fn(chunk_size=chunk, mode=mode,
+        return (ds, dist.make_step_fn(ds.mesh, chunk_size=chunk, mode=mode,
                                       need_farthest=need_farthest,
                                       need_sse_pc=False, pipeline=pipeline),
-                dist.make_predict_fn(chunk_size=chunk, mode=mode))
+                dist.make_predict_fn(ds.mesh, chunk_size=chunk, mode=mode))
 
     def _x2w(self, ds: Dataset) -> Optional[torch.Tensor]:
-        """The dataset's ``sum w ||x||^2`` where the step reads it (the
-        kernel modes' SSE), computed once per dataset."""
+        """The block's ``sum w ||x||^2`` where the step reads it (the
+        kernel modes' SSE without centroid sharding), computed once per
+        dataset."""
         return (dist.dataset_sqnorm(ds) if self._mode() in dist.KERNEL_MODES
-                else None)
+                and mesh_shape(ds.mesh)[1] == 1 else None)
 
     def _put_centroids(self, centroids: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(
@@ -439,7 +490,7 @@ class KMeans:
         """SSE of ``ds`` under the CURRENT centroids, by a step that
         computes nothing else: a restart's true final inertia
         (``sse_history[-1]`` lags one iteration) and ``score``."""
-        step = dist.make_step_fn(chunk_size=self._chunk_for(ds.n, ds.d),
+        step = dist.make_step_fn(ds.mesh, chunk_size=self._chunk_for(ds),
                                  mode=self._mode(), need_farthest=False,
                                  need_sse_pc=False)
         return float(step(ds.points, ds.weights,
@@ -458,6 +509,14 @@ class KMeans:
         if self.host_loop is True or self.host_loop is False:
             return self.host_loop
         rtt = _dispatch_rtt(self.device)
+        if ds.mesh is not None:
+            # Every rank takes the same path: the slowest round trip rules.
+            rtt = float(all_reduce(torch.tensor([rtt], dtype=torch.float64,
+                                                device=self.device),
+                                   ds.mesh, op="max")[0])
+            if ds.points.is_cuda and \
+                    torch.distributed.get_backend() != "nccl":
+                return True         # the device loop needs NCCL here
         self.auto_rtt_ = rtt
         if rtt <= 5e-3:
             return True
@@ -506,7 +565,8 @@ class KMeans:
         return True
 
     def _fit(self, X, sample_weight) -> "KMeans":
-        log = IterationLogger(self.verbose)
+        log = IterationLogger(self.verbose and
+                             is_primary(self._resolve_mesh()))
         pipeline = self._note_estep_path(self._mode())
         ds, step_fn, _ = self._prepare(
             X, sample_weight, need_farthest=self.empty_cluster == "farthest",
@@ -590,7 +650,7 @@ class KMeans:
         as a captured graph or raises: it never falls back to the host
         loop."""
         fit_fn = dist.make_fit_fn(
-            chunk_size=self._chunk_for(ds.n, ds.d), mode=self._mode(),
+            ds.mesh, chunk_size=self._chunk_for(ds), mode=self._mode(),
             max_iter=self.max_iter, tolerance=float(self.tolerance),
             empty_policy=self.empty_cluster,
             history_sse=self.compute_sse, pipeline=pipeline)
@@ -725,10 +785,14 @@ class KMeans:
 
     def predict(self, X) -> np.ndarray:
         """Labels, int32 (n,), for an (n, D) array-like, tensor or
-        :class:`Dataset`."""
+        :class:`Dataset`.  Under a mesh every rank gets every row's label;
+        on a process-local dataset (``sharding.from_process_local``) the
+        labels of the rank's own rows."""
         self._require_fitted()
         ds, _, predict_fn = self._prepare(X)
         labels = predict_fn(ds.points, self._put_centroids(self.centroids))
+        if isinstance(ds, ShardedDataset):
+            return ds.gather_rows(labels)
         return labels.cpu().numpy()
 
     def fit_predict(self, X, y=None) -> np.ndarray:
@@ -780,7 +844,9 @@ class KMeans:
             for start in range(0, raw.shape[0], block):
                 xb = np.ascontiguousarray(raw[start: start + block])
                 transform = dist.make_transform_fn(
-                    chunk_size=self._chunk_for(*xb.shape), mode=mode)
+                    self._resolve_mesh(), mode=mode,
+                    chunk_size=self.chunk_size or choose_chunk_size(
+                        xb.shape[0], self._tile_k(d), d))
                 points = torch.from_numpy(xb).to(self.device)
                 yield transform(points, cents).cpu().numpy()
 
@@ -897,10 +963,10 @@ class KMeans:
         """Serialisable state in the vocabulary of the shared checkpoint
         format: constructor arguments and fitted attributes.  The kernel
         modes are written as 'pallas' and 'pallas_bf16', the format's names
-        for them, and the one device as
-        ``model_shards=1``, so that the JAX
-        package loads the file, with the model's own ``host_loop`` and
-        ``pipeline``.  A callable ``init`` is recorded as 'forgy'
+        for them, so that the JAX package loads the file, with the model's
+        own ``host_loop`` and ``pipeline``, and the topology block of the
+        reference (``meta_mesh_*``: the mesh it was written on, None for
+        one device).  A callable ``init`` is recorded as 'forgy'
         (centroids are restored, so it never runs again)."""
         state = {
             "model_class": type(self).__name__,
@@ -914,7 +980,7 @@ class KMeans:
             "empty_cluster": self.empty_cluster,
             "distance_mode": _FORMAT_MODES.get(self.distance_mode,
                                                self.distance_mode),
-            "model_shards": 1,
+            "model_shards": self.model_shards,
             "chunk_size": self.chunk_size,
             "host_loop": self.host_loop,
             "pipeline": self.pipeline,
@@ -923,6 +989,7 @@ class KMeans:
             "iterations_run": self.iterations_run,
             "dtype": str(self.dtype),
         }
+        state.update(ckpt.topology_meta(self.mesh, self.dtype))
         if isinstance(self.init, str):
             state["init"] = self.init
         elif not callable(self.init):
@@ -930,10 +997,12 @@ class KMeans:
         return state
 
     @classmethod
-    def _from_state(cls, state: dict, device=None) -> "KMeans":
-        """A model from a checkpoint dictionary written by either package.
-        Constructor arguments that the port does not have are dropped, with
-        one warning that lists those whose value the port cannot honour."""
+    def _from_state(cls, state: dict, device=None, mesh=None) -> "KMeans":
+        """A model from a checkpoint dictionary written by either package,
+        on ``mesh`` (the topology it was written on is information only:
+        the state is the whole table).  Constructor arguments that the port
+        does not have are dropped, with one warning that lists those whose
+        value the port cannot honour."""
         init = state.get("init_array", state.get("init", "forgy"))
         dropped = []
         for name, (allowed, _) in _LATER_ARGS.items():
@@ -958,7 +1027,8 @@ class KMeans:
                     host_loop=state.get("host_loop", "auto"),
                     pipeline=state.get("pipeline", "auto"),
                     verbose=bool(state["verbose"]),
-                    dtype=np.dtype(str(state["dtype"])), device=device)
+                    dtype=np.dtype(str(state["dtype"])), device=device,
+                    mesh=mesh)
         cents = np.asarray(state["centroids"])
         model.centroids = cents.astype(model.dtype) if cents.size else None
         model.sse_history = [float(s) for s in state["sse_history"]]
@@ -966,11 +1036,15 @@ class KMeans:
         return model
 
     def save(self, path) -> None:
-        """Write the fitted state as one ``.npz`` checkpoint."""
-        ckpt.save_state(path, self._state_dict())
+        """Write the fitted state as one ``.npz`` checkpoint.  Under a mesh
+        every rank calls it; the primary rank writes, and every rank
+        returns once the file is complete."""
+        ckpt.save_state_primary(path, self._state_dict(), self.mesh)
 
     @classmethod
-    def load(cls, path, device=None) -> "KMeans":
-        """Load a checkpoint written by this package or by the JAX package.
-        ``device`` as in the constructor."""
-        return cls._from_state(ckpt.load_state(path), device=device)
+    def load(cls, path, device=None, mesh=None) -> "KMeans":
+        """Load a checkpoint written by this package or by the JAX package,
+        on any mesh (``mesh`` as in the constructor).  ``device`` as in the
+        constructor."""
+        return cls._from_state(ckpt.load_state(path), device=device,
+                               mesh=mesh)

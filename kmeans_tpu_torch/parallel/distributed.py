@@ -1,12 +1,10 @@
-"""The training, predict and transform passes on one device.
+"""The training, predict and transform passes, on one device or a mesh.
 
-One-device counterpart of ``kmeans_tpu/parallel/distributed.py``
-(``_weighted_sqnorm_total``, ``_sse_from_stats``, the ``model_shards <= 1``
-branch of ``_pallas_local_stats``, the chunk scan of ``_local_stats``,
+Counterpart of ``kmeans_tpu/parallel/distributed.py``
+(``_weighted_sqnorm_total``, ``_sse_from_stats``, ``pad_centroids``,
+``_pallas_local_stats``, the chunk scan of ``_local_stats``,
 ``make_step_fn``, ``make_predict_fn``, ``make_fit_fn``,
 ``_empty_seed_array`` and ``_refill_empty_slots``, ``make_transform_fn``).
-No mesh and no collectives: the statistics of the one device are the global
-ones.
 
 ``mode='kernel'`` runs the fused CUDA kernel of ``ops.hopper_kernels`` (its
 plain version when the tensors lie on the CPU) and ``'kernel_bf16'`` its bf16
@@ -16,11 +14,32 @@ float64 points and centroids reach them as float32 casts, as in the JAX
 package (``pallas_kernels._pad_inputs``), and their sums and counts come back
 in the points' type.
 
+Under a (data, model) mesh (``parallel.mesh``) every builder takes the mesh
+first and each rank works on its block of a ``sharding.ShardedDataset``:
+
+* ``model == 1``: the rank's step is the one-device step on its block
+  (kernel 1 or 1b in the kernel modes);
+* ``model > 1``: the centroid table is padded with sentinel rows
+  (:func:`pad_centroids`) and each rank scores its block of the rows
+  against its block of the table with the assignment kernel (kernel 2 or
+  2b, or the torch pass); the global winner is the smallest distance over
+  the model axis, the lowest block among equal ones (:func:`_owner`); then
+  an ownership-masked one-hot scatter in torch ops sums the rows a block
+  owns (the fused kernel cannot: it would add rows whose winner lies in
+  another block).
+
+The statistics are then reduced over both axes, all of them with
+``all_reduce`` (``mesh.all_reduce``): sums, counts and SSE by SUM in one
+packed buffer, the SSE divided by ``model``; the farthest point by MAX, the
+lowest rank among equal maxima by MIN, its row by SUM.  Every rank gets the
+same statistics, as the reference's replicated ``out_specs`` say.
+
 :func:`make_fit_fn` is the device loop (``KMeans(host_loop=False)``): every
 iteration's step, mean division, empty-cluster refill and convergence test
 run on the device, with no value read to the host inside an iteration.  On a
 CUDA device one iteration is captured once as a ``torch.cuda.CUDAGraph`` and
-replayed; on the CPU the same iteration runs eagerly.
+replayed, the NCCL collectives of a mesh inside it; on the CPU the same
+iteration runs eagerly (over gloo).
 """
 
 from __future__ import annotations
@@ -32,10 +51,13 @@ import torch
 
 from kmeans_tpu_torch.ops import _build
 from kmeans_tpu_torch.ops.assign import (StepStats, _accum_dtype,
-                                         assign_labels, assign_reduce,
-                                         init_stats, pairwise_sq_dists)
+                                         assign_chunk, assign_labels,
+                                         assign_reduce, init_stats,
+                                         pairwise_sq_dists, round_bf16)
 from kmeans_tpu_torch.ops.hopper_kernels import (fused_assign_reduce,
                                                  hopper_assign)
+from kmeans_tpu_torch.parallel.mesh import (AXES, DATA_AXIS, MODEL_AXIS,
+                                            all_reduce, coords, mesh_shape)
 from kmeans_tpu_torch.parallel.sharding import (Dataset, draw_keys,
                                                 permuted_draws)
 
@@ -143,10 +165,167 @@ def local_stats(points, weights, centroids, *, chunk_size: int, mode: str,
                          need_sse_pc=need_sse_pc, pipeline=pipeline)
 
 
-def make_step_fn(*, chunk_size: int, mode: str = "matmul",
+# ------------------------------------------------------------- model axis
+
+#: Coordinate of the sentinel rows that pad the centroid table to a multiple
+#: of the model axis: no real point ever picks one, and its squared norm
+#: stays finite in float32.
+PAD_CENTROID_VALUE = 1e12
+
+
+def pad_centroids(centroids, model_shards: int):
+    """The (k, D) table (array or tensor) padded with sentinel rows to a
+    multiple of the model axis."""
+    k, d = centroids.shape
+    pad = (-k) % model_shards
+    if pad == 0:
+        return centroids
+    if isinstance(centroids, torch.Tensor):
+        return torch.cat([centroids, torch.full(
+            (pad, d), PAD_CENTROID_VALUE, dtype=centroids.dtype,
+            device=centroids.device)])
+    filler = np.full((pad, d), PAD_CENTROID_VALUE, dtype=centroids.dtype)
+    return np.concatenate([centroids, filler], axis=0)
+
+
+def _model_block(centroids: torch.Tensor, mesh):
+    """This rank's block of the padded table: ``(block, first row,
+    padded k)``."""
+    model_shards = mesh_shape(mesh)[1]
+    padded = pad_centroids(centroids, model_shards)
+    k_local = padded.shape[0] // model_shards
+    first = coords(mesh)[1] * k_local
+    return padded[first:first + k_local], first, padded.shape[0]
+
+
+def _assign_block(points, block, *, mode: str, chunk_size: int):
+    """Labels (int32, local to ``block``) and minimum squared distances of
+    the rows against one block of the table: the assignment kernel (kernel
+    2 or 2b) in the kernel modes, the chunked torch pass otherwise."""
+    if mode in KERNEL_MODES:
+        return hopper_assign(points.to(torch.float32),
+                             block.to(torch.float32),
+                             bf16=mode == "kernel_bf16")
+    if mode not in TORCH_MODES:
+        raise ValueError(f"unknown distance mode: {mode!r}")
+    parts = [assign_chunk(points[lo:lo + chunk_size], block, mode=mode)
+             for lo in range(0, points.shape[0], chunk_size)]
+    return (torch.cat([p[0] for p in parts]),
+            torch.cat([p[1] for p in parts]))
+
+
+def _owner(mind2: torch.Tensor, mesh):
+    """The global winner of each row over the model axis: ``(mine, gmin)``,
+    ``mine`` true where this rank's block holds it.  The smallest distance
+    by a MIN ``all_reduce``, then the lowest block index among the blocks
+    that reach it by a second one: ``argmin``'s lowest-index rule, since the
+    blocks are in table order."""
+    m_idx, model_shards = coords(mesh)[1], mesh_shape(mesh)[1]
+    gmin = all_reduce(mind2.clone(), mesh, (MODEL_AXIS,), "min")
+    cand = torch.where(mind2 == gmin,
+                       torch.full_like(mind2, m_idx, dtype=torch.int32),
+                       torch.full_like(mind2, model_shards,
+                                       dtype=torch.int32))
+    owner = all_reduce(cand, mesh, (MODEL_AXIS,), "min")
+    return owner == m_idx, gmin
+
+
+def _model_axis_stats(points, weights, centroids, mesh, *, mode: str,
+                      chunk_size: int, need_sse: bool, need_farthest: bool,
+                      need_sse_pc: bool) -> StepStats:
+    """The rank's statistics under centroid sharding, its block's sums,
+    counts and per-cluster SSE embedded in the padded table (zeros
+    elsewhere); the SSE is of the global minima (every block of a row
+    counts it, the caller divides by the model axis)."""
+    acc = _accum_dtype(points.dtype)
+    block, first, k_pad = _model_block(centroids, mesh)
+    k_local, d = block.shape
+    labels, mind2 = _assign_block(points, block, mode=mode,
+                                  chunk_size=chunk_size)
+    mine, gmind2 = _owner(mind2, mesh)
+    gmind2 = gmind2.to(acc)
+    w = weights.to(acc)
+    w_eff = w * mine.to(acc)
+    bf16 = mode in ("kernel_bf16", "matmul_bf16")
+    ids = torch.arange(k_local, device=points.device)
+    sums = torch.zeros((k_pad, d), dtype=acc, device=points.device)
+    counts = torch.zeros((k_pad,), dtype=acc, device=points.device)
+    sse_pc = torch.zeros((k_pad,), dtype=acc, device=points.device)
+    rows = slice(first, first + k_local)
+    # The one-hot rule of ops.assign.consume_chunk, chunk by chunk.
+    for lo in range(0, points.shape[0], chunk_size):
+        hi = lo + chunk_size
+        onehot = (labels[lo:hi].to(torch.int64)[:, None] == ids[None, :]
+                  ).to(acc) * w_eff[lo:hi, None]
+        xc = points[lo:hi].to(acc)
+        if bf16:
+            sums[rows] += round_bf16(onehot, acc).T @ round_bf16(xc, acc)
+        else:
+            sums[rows] += onehot.T @ xc
+        counts[rows] += onehot.sum(dim=0)
+        if need_sse_pc:
+            sse_pc[rows] += onehot.T @ gmind2[lo:hi]
+    zero = init_stats(k_pad, d, acc, points.device)
+    sse = (gmind2 * w).sum() if need_sse else zero.sse
+    if need_farthest:
+        live = w > 0
+        masked = torch.where(live, gmind2,
+                             torch.full_like(gmind2, float("-inf")))
+        i = torch.argmax(masked).reshape(1)
+        far = masked.index_select(0, i)[0]
+        far_d = torch.where(live.any(), far, torch.full_like(far, -1.0))
+        far_p = points.index_select(0, i)[0].to(acc)
+    else:
+        far_d, far_p = zero.farthest_dist, zero.farthest_point
+    return StepStats(sums, counts, sse, far_d, far_p, sse_pc)
+
+
+def _reduce_stats(st: StepStats, mesh, k: int, *, need_sse_pc: bool,
+                  need_farthest: bool) -> StepStats:
+    """The statistics of every rank, replicated: sums, counts, SSE (and the
+    per-cluster SSE) by one packed SUM ``all_reduce`` over both axes, the
+    SSE divided by the model axis (each block of a row counted it); the
+    farthest point by MAX, then the lowest rank among equal maxima (the
+    reference's first maximum over its gather) by MIN, its row by SUM.
+    The table is cut to its ``k`` real rows."""
+    data_shards, model_shards = mesh_shape(mesh)
+    k_pad, d = st.sums.shape
+    parts = [st.sums.reshape(-1), st.counts, st.sse.reshape(1)]
+    if need_sse_pc:
+        parts.append(st.sse_per_cluster)
+    flat = all_reduce(torch.cat(parts), mesh, AXES)
+    sums = flat[: k_pad * d].reshape(k_pad, d)[:k]
+    counts = flat[k_pad * d: k_pad * d + k_pad][:k]
+    sse = flat[k_pad * d + k_pad]
+    if model_shards > 1:
+        sse = sse / model_shards
+    sse_pc = (flat[k_pad * d + k_pad + 1:][:k] if need_sse_pc
+              else st.sse_per_cluster[:k])
+    far_d, far_p = st.farthest_dist, st.farthest_point
+    if need_farthest:
+        d_idx, m_idx = coords(mesh)
+        rank = d_idx * model_shards + m_idx
+        top = all_reduce(far_d.clone().reshape(1), mesh, AXES, "max")
+        cand = torch.where(far_d.reshape(1) == top,
+                           torch.full((1,), rank, dtype=torch.int64,
+                                      device=far_d.device),
+                           torch.full((1,), data_shards * model_shards,
+                                      dtype=torch.int64,
+                                      device=far_d.device))
+        win = all_reduce(cand, mesh, AXES, "min")
+        far_p = all_reduce(torch.where(win == rank, far_p,
+                                       torch.zeros_like(far_p)),
+                           mesh, AXES)
+        far_d = top[0]
+    return StepStats(sums, counts, sse, far_d, far_p, sse_pc)
+
+
+def make_step_fn(mesh=None, *, chunk_size: int, mode: str = "matmul",
                  need_sse: bool = True, need_farthest: bool = True,
                  need_sse_pc: bool = True, pipeline: int = 0) -> Callable:
-    """The step: ``(points, weights, centroids, x2w=None) -> StepStats``.
+    """The step: ``(points, weights, centroids, x2w=None) -> StepStats``,
+    ``centroids`` the whole (k, D) table, the statistics those of every
+    rank of ``mesh`` (of the one device without one).
 
     The ``need_*`` flags elide the statistics that the caller does not read
     (their fields keep their initial values); the kernel then writes no
@@ -154,29 +333,56 @@ def make_step_fn(*, chunk_size: int, mode: str = "matmul",
     needs it.  In the kernel modes the SSE comes from the algebraic form
     (:func:`_sse_from_stats`), as in the JAX package's per-dispatch path: it
     does not inherit the low bias of a minimum over rounded distances; pass
-    ``x2w``, the dataset's ``sum w ||x||^2`` (:func:`dataset_sqnorm`), or
+    ``x2w``, the block's ``sum w ||x||^2`` (:func:`dataset_sqnorm`), or
     the step computes it.  In ``'kernel_bf16'`` the sums carry bf16-rounded
     products, so the SSE is of that class too (the JAX package's
-    ``_sse_from_stats`` says the same)."""
+    ``_sse_from_stats`` says the same).  Under centroid sharding the SSE is
+    that of the global minima, as in the JAX package."""
+    model_shards = mesh_shape(mesh)[1]
 
     def step(points, weights, centroids, x2w=None) -> StepStats:
-        if mode in KERNEL_MODES and need_sse and x2w is None:
-            x2w = _weighted_sqnorm_total(points, weights)
-        return local_stats(points, weights, centroids,
-                           chunk_size=chunk_size, mode=mode,
-                           need_sse=need_sse, need_farthest=need_farthest,
-                           need_sse_pc=need_sse_pc, x2w=x2w,
-                           pipeline=pipeline)
+        if model_shards > 1:
+            st = _model_axis_stats(
+                points, weights, centroids, mesh, mode=mode,
+                chunk_size=chunk_size, need_sse=need_sse,
+                need_farthest=need_farthest, need_sse_pc=need_sse_pc)
+        else:
+            if mode in KERNEL_MODES and need_sse and x2w is None:
+                x2w = _weighted_sqnorm_total(points, weights)
+            st = local_stats(points, weights, centroids,
+                             chunk_size=chunk_size, mode=mode,
+                             need_sse=need_sse, need_farthest=need_farthest,
+                             need_sse_pc=need_sse_pc, x2w=x2w,
+                             pipeline=pipeline)
+        if mesh is None:
+            return st
+        return _reduce_stats(st, mesh, centroids.shape[0],
+                             need_sse_pc=need_sse_pc,
+                             need_farthest=need_farthest)
 
     return step
 
 
-def make_predict_fn(*, chunk_size: int, mode: str = "matmul") -> Callable:
-    """The label assignment: ``(points, centroids) -> labels`` int32 (n,).
-    The kernel modes run the assignment-only kernel: the fused one would
-    also scatter sums that nobody reads."""
+def make_predict_fn(mesh=None, *, chunk_size: int,
+                    mode: str = "matmul") -> Callable:
+    """The label assignment: ``(points, centroids) -> labels`` int32, one
+    per row of ``points`` (the rank's block under a mesh), global indices
+    into the table.  The kernel modes run the assignment-only kernel: the
+    fused one would also scatter sums that nobody reads.  Under centroid
+    sharding each block's winner is kept where it wins over the model axis
+    (:func:`_owner`) and a SUM ``all_reduce`` of the labels, zero where a
+    block lost, gives every rank of the axis the global label."""
+    model_shards = mesh_shape(mesh)[1]
 
     def predict(points, centroids) -> torch.Tensor:
+        if model_shards > 1:
+            block, first, _ = _model_block(centroids, mesh)
+            labels, mind2 = _assign_block(points, block, mode=mode,
+                                          chunk_size=chunk_size)
+            mine, _ = _owner(mind2, mesh)
+            contrib = torch.where(mine, labels + first,
+                                  torch.zeros_like(labels))
+            return all_reduce(contrib, mesh, (MODEL_AXIS,))
         if mode in KERNEL_MODES:
             return hopper_assign(points.to(torch.float32),
                                  centroids.to(torch.float32),
@@ -214,18 +420,18 @@ def empty_draw_keys(seed: int, max_iter: int) -> np.ndarray:
 
 
 def refill_table(ds: Dataset, keys: np.ndarray, k: int) -> torch.Tensor:
-    """(max_iter, k) int64 on the device: the row of ``ds`` that draw j of
-    iteration i refills (``-1`` where the positive-weight rows are used up).
-    Draw j is the same row ``ds.sample_positive_rows`` returns j-th for the
-    same seed, so the host loop and the device loop refill alike on a
-    dataset without a host copy.  Made before the loop: inside it an
-    iteration reads its row of the table, O(k)."""
-    pos = ds.positive_index()
+    """(max_iter, k) int64 on the device: the positive-weight row (its
+    ordinal, ``Dataset.gather_positive``) that draw j of iteration i
+    refills (``-1`` where the positive-weight rows are used up).  Draw j is
+    the same row ``ds.sample_positive_rows`` returns j-th for the same seed,
+    so the host loop and the device loop refill alike on a dataset without
+    a host copy, and a mesh draws the rows one device would.  Made before
+    the loop: inside it an iteration reads its row of the table, O(k)."""
+    n_pos = ds.positive_count()
     j = torch.arange(k, device=ds.device).expand(keys.shape[0], k)
-    if pos.numel() == 0:
+    if n_pos == 0:
         return torch.full_like(j, -1)
-    draws = permuted_draws(pos.numel(), j, torch.from_numpy(keys))
-    return torch.where(draws >= 0, pos[draws.clamp_min(0)], draws)
+    return permuted_draws(n_pos, j, torch.from_numpy(keys))
 
 
 class _DeviceLoop:
@@ -236,14 +442,17 @@ class _DeviceLoop:
     on every replay.  An iteration that runs after convergence or
     divergence (``running`` false) leaves every one of them as it was."""
 
-    def __init__(self, points, weights, step, *, k: int, max_iter: int,
-                 tolerance: float, empty_policy: str, need_sse: bool,
-                 x2w: Optional[torch.Tensor]):
+    def __init__(self, points, weights, step, gather, *, k: int,
+                 max_iter: int, tolerance: float, empty_policy: str,
+                 need_sse: bool, x2w: Optional[torch.Tensor],
+                 x2w_finite: Optional[torch.Tensor]):
         dev, d = points.device, points.shape[1]
         acc = _accum_dtype(points.dtype)
         self.points, self.weights, self.step = points, weights, step
+        self.gather = gather
         self.max_iter, self.tolerance = max_iter, float(tolerance)
         self.policy, self.need_sse, self.x2w = empty_policy, need_sse, x2w
+        self.x2w_finite = x2w_finite
         self.cents = torch.zeros((k, d), dtype=acc, device=dev)
         self.counts = torch.zeros((k,), dtype=acc, device=dev)
         self.sse_hist = torch.zeros((max_iter,), dtype=acc, device=dev)
@@ -280,7 +489,7 @@ class _DeviceLoop:
         pick = self.table.index_select(0, row)[0].gather(
             0, draw.clamp(0, k - 1))
         take = empty & (draw >= 0) & (pick >= 0)
-        rows = self.points.index_select(0, pick.clamp_min(0)).to(new.dtype)
+        rows = self.gather(pick).to(new.dtype)
         return torch.where(take[:, None], rows, new)
 
     def iterate(self) -> None:
@@ -304,8 +513,8 @@ class _DeviceLoop:
         ok = torch.isfinite(new).all()
         if self.need_sse:
             ok = ok & torch.isfinite(st.sse)
-        if self.x2w is not None:
-            ok = ok & torch.isfinite(self.x2w)
+        if self.x2w_finite is not None:
+            ok = ok & self.x2w_finite
         at = (self.iters == self.it) & active
         self.sse_hist.copy_(torch.where(at, st.sse, self.sse_hist))
         self.shift_hist.copy_(torch.where(at, shift, self.shift_hist))
@@ -410,7 +619,8 @@ class _DeviceLoop:
             launched)
 
 
-def make_fit_fn(*, chunk_size: int, mode: str = "matmul", max_iter: int,
+def make_fit_fn(mesh=None, *, chunk_size: int, mode: str = "matmul",
+                max_iter: int,
                 tolerance: float, empty_policy: str = "keep",
                 history_sse: bool = True, pipeline: int = 0,
                 in_flight: Optional[int] = None) -> Callable:
@@ -438,25 +648,47 @@ def make_fit_fn(*, chunk_size: int, mode: str = "matmul", max_iter: int,
     under ``[seed, it + 1]``.  The loop's state and its captured graph are
     kept with the dataset (``Dataset.memo``), once per shape, mode, policy
     and ``history_sse``, so restarts and later fits on it replay them.
-    ``in_flight``: see :data:`IN_FLIGHT` (None: that value)."""
+    ``in_flight``: see :data:`IN_FLIGHT` (None: that value).
+
+    Under a ``mesh`` the step and the refill's row gather reduce over the
+    mesh inside the iteration, so every rank runs the same iterations and
+    stops at the same one.  On CUDA tensors the captured graph holds these
+    collectives, which needs NCCL: a mesh over gloo with CUDA tensors
+    raises ``ValueError`` (the host loop runs there).  On CPU tensors the
+    iteration runs eagerly with its gloo collectives."""
     if empty_policy not in ("keep", "farthest", "resample"):
         raise ValueError(
             f"on-device loop supports empty_cluster 'keep', 'farthest' or "
             f"'resample', got {empty_policy!r}")
     need_sse = bool(history_sse)
-    step = make_step_fn(chunk_size=chunk_size, mode=mode, need_sse=need_sse,
+    step = make_step_fn(mesh, chunk_size=chunk_size, mode=mode,
+                        need_sse=need_sse,
                         need_farthest=empty_policy == "farthest",
                         need_sse_pc=False, pipeline=pipeline)
 
+    def _make_loop(ds: Dataset, step, k: int) -> _DeviceLoop:
+        x2w = x2w_finite = None
+        if mode in KERNEL_MODES and mesh_shape(mesh)[1] == 1:
+            x2w = dataset_sqnorm(ds)
+            x2w_finite = torch.isfinite(
+                all_reduce(x2w.clone(), mesh, (DATA_AXIS,)))
+        return _DeviceLoop(ds.points, ds.weights, step, ds.gather_positive,
+                           k=k, max_iter=max_iter, tolerance=tolerance,
+                           empty_policy=empty_policy, need_sse=need_sse,
+                           x2w=x2w, x2w_finite=x2w_finite)
+
     def fit(ds: Dataset, centroids0: torch.Tensor, seed: int) -> FitResult:
+        if mesh is not None and ds.points.is_cuda and \
+                torch.distributed.get_backend() != "nccl":
+            raise ValueError(
+                "the device loop (host_loop=False) needs NCCL for CUDA "
+                "tensors: its captured CUDA graph holds the mesh's "
+                "collectives, and gloo collectives cannot be captured; use "
+                "host_loop=True on this process group")
         k = centroids0.shape[0]
         key = ("device_loop", mode, chunk_size, k, max_iter,
                float(tolerance), empty_policy, need_sse, pipeline)
-        loop = ds.memo(key, lambda: _DeviceLoop(
-            ds.points, ds.weights, step, k=k, max_iter=max_iter,
-            tolerance=tolerance, empty_policy=empty_policy,
-            need_sse=need_sse,
-            x2w=dataset_sqnorm(ds) if mode in KERNEL_MODES else None))
+        loop = ds.memo(key, lambda: _make_loop(ds, step, k))
         table = (None if empty_policy == "keep" else
                  refill_table(ds, empty_draw_keys(seed, max_iter), k))
         return loop.run(centroids0, table,
@@ -468,24 +700,43 @@ def make_fit_fn(*, chunk_size: int, mode: str = "matmul", max_iter: int,
 # --------------------------------------------------------------- transform
 
 
-def make_transform_fn(*, chunk_size: int, mode: str = "matmul") -> Callable:
+def make_transform_fn(mesh=None, *, chunk_size: int,
+                      mode: str = "matmul") -> Callable:
     """``(points, centroids) -> (n, k)`` Euclidean distances in the points'
     dtype, chunk by chunk: :func:`ops.assign.pairwise_sq_dists` (the
     expanded form through ``torch.matmul``, clamped at 0), then ``sqrt``.
     Counterpart of the JAX package's ``make_transform_fn``; like it, the
     pass is plain torch (no kernel computes distances as an output), so
     ``mode`` is a torch mode: ``'matmul'``, ``'matmul_bf16'`` or
-    ``'direct'``."""
+    ``'direct'``.
+
+    Under a ``mesh`` every rank passes the same rows: each computes the
+    tile of its data block of the rows and its block of the table, and a
+    SUM ``all_reduce`` of the tiles, zeros elsewhere, gives every rank the
+    whole (n, k)."""
     if mode not in TORCH_MODES:
         raise ValueError(f"unknown distance mode: {mode!r}")
 
+    def dists(points, centroids, out, lo, hi, col):
+        for start in range(lo, hi, chunk_size):
+            stop = min(start + chunk_size, hi)
+            d2 = pairwise_sq_dists(points[start:stop], centroids, mode=mode)
+            out[start:stop, col:col + centroids.shape[0]] = torch.sqrt(
+                d2).to(points.dtype)
+        return out
+
     def transform(points, centroids) -> torch.Tensor:
         n, k = points.shape[0], centroids.shape[0]
-        out = torch.empty((n, k), dtype=points.dtype, device=points.device)
-        for lo in range(0, n, chunk_size):
-            d2 = pairwise_sq_dists(points[lo:lo + chunk_size], centroids,
-                                   mode=mode)
-            out[lo:lo + chunk_size] = torch.sqrt(d2).to(points.dtype)
-        return out
+        if mesh is None:
+            out = torch.empty((n, k), dtype=points.dtype,
+                              device=points.device)
+            return dists(points, centroids, out, 0, n, 0)
+        block, first, k_pad = _model_block(centroids, mesh)
+        rows = -(-n // mesh_shape(mesh)[0])
+        lo = min(coords(mesh)[0] * rows, n)
+        out = torch.zeros((n, k_pad), dtype=points.dtype,
+                          device=points.device)
+        dists(points, block, out, lo, min(lo + rows, n), first)
+        return all_reduce(out, mesh, AXES)[:, :k]
 
     return transform

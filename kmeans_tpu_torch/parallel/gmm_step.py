@@ -1,12 +1,15 @@
 """The E-step and the posterior pass of the diagonal Gaussian mixture, on
-one device.
+one device or over the data axis of a mesh.
 
-One-device counterpart of ``kmeans_tpu/parallel/gmm_step.py`` for the
-'diag' and 'spherical' covariance types (``EStats``, ``_log_prob_chunk``,
+Counterpart of ``kmeans_tpu/parallel/gmm_step.py`` for the 'diag' and
+'spherical' covariance types (``EStats``, ``_log_prob_chunk``,
 ``_softmax_resp``, ``_diag_stage_fns``, ``estep_chunk``, ``_chunked_epass``
 with its serial schedule, ``make_gmm_step_fn``, ``_predict_from_logp``,
-``make_gmm_predict_fn``).  No mesh and no collectives: the statistics of the
-one device are the global ones.
+``make_gmm_predict_fn``).  Under a mesh each rank runs the pass on its block
+of the rows and the statistics are summed over the data axis (one packed
+SUM ``all_reduce``), so every rank gets the global ones; the model axis
+does not shard a mixture (the fused E-step cannot take its softmax across
+blocks of components).
 
 For diagonal Gaussians, with ``a = 1/sigma^2``,
 
@@ -44,6 +47,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from kmeans_tpu_torch.ops.estep_kernels import diag_estep
+from kmeans_tpu_torch.parallel.mesh import DATA_AXIS, all_reduce
 
 _LOG2PI = math.log(2.0 * math.pi)
 
@@ -129,17 +133,31 @@ def _chunked_epass(points, weights, shift, *, chunk_size: int, logp_fn,
     return st
 
 
-def make_gmm_step_fn(*, chunk_size: int, mode: str = "torch") -> Callable:
-    """The E-step: ``(points, weights, shift, means_c, inv_var, log_det,
-    log_weights) -> EStats`` over all points, in the frame centered by
-    ``shift`` (``means_c`` must already be centered).
+def _reduce_estats(st: EStats, mesh) -> EStats:
+    """The statistics of every block of the data axis, replicated: one SUM
+    ``all_reduce`` of the four packed into one buffer."""
+    k, d = st.xsum.shape
+    flat = all_reduce(torch.cat([st.resp_sum, st.xsum.reshape(-1),
+                                 st.x2sum.reshape(-1), st.loglik.reshape(1)]),
+                      mesh, (DATA_AXIS,))
+    return EStats(flat[:k], flat[k:k + k * d].reshape(k, d),
+                  flat[k + k * d:k + 2 * k * d].reshape(k, d),
+                  flat[k + 2 * k * d])
 
-    ``mode='kernel'`` is one launch of the fused kernel over the whole
-    shard (float32); ``'torch'`` the chunked plain pass."""
+
+def make_gmm_step_fn(mesh=None, *, chunk_size: int,
+                     mode: str = "torch") -> Callable:
+    """The E-step: ``(points, weights, shift, means_c, inv_var, log_det,
+    log_weights) -> EStats`` over all points (every rank's block under a
+    ``mesh``), in the frame centered by ``shift`` (``means_c`` must already
+    be centered).
+
+    ``mode='kernel'`` is one launch of the fused kernel over the block
+    (float32); ``'torch'`` the chunked plain pass."""
     if mode not in GMM_MODES:
         raise ValueError(f"unknown E-step mode: {mode!r}")
 
-    def step(points, weights, shift, means, inv_var, log_det, log_weights):
+    def local(points, weights, shift, means, inv_var, log_det, log_weights):
         if mode == "kernel":
             return EStats(*diag_estep(points, weights, shift, means,
                                       inv_var, log_det, log_weights))
@@ -150,6 +168,10 @@ def make_gmm_step_fn(*, chunk_size: int, mode: str = "torch") -> Callable:
             points, weights, shift, chunk_size=chunk_size, logp_fn=logp_fn,
             consume_fn=consume,
             init=_zero_estats(k, d, points.dtype, points.device))
+
+    def step(*args) -> EStats:
+        st = local(*args)
+        return st if mesh is None else _reduce_estats(st, mesh)
 
     return step
 
@@ -174,7 +196,9 @@ def _predict_from_logp(logp_fn, points, chunk_size: int):
 
 def make_gmm_predict_fn(*, chunk_size: int) -> Callable:
     """The posterior pass: ``(points, shift, means_c, inv_var, log_det,
-    log_weights) -> (labels (n,) int32, log_resp (n, k), lse (n,))``."""
+    log_weights) -> (labels (n,) int32, log_resp (n, k), lse (n,))``, one
+    row per row of ``points`` (the rank's block under a mesh: each row
+    needs only the replicated tables, so the pass has no collective)."""
 
     def predict(points, shift, means, inv_var, log_det, log_weights):
         return _predict_from_logp(

@@ -1,23 +1,33 @@
-"""Device-resident dataset for one device.
+"""Device-resident datasets: on one device, or in blocks over a mesh.
 
-One-device counterpart of ``kmeans_tpu/parallel/sharding.py``
-(``ShardedDataset``, ``to_device``, ``choose_chunk_size``): the points and
-their per-row weights are placed on the device once and stay there for the
-whole fit.  When the data came from the host, the host copy is kept, which
-makes row sampling (Forgy seeding, empty-cluster resampling) a host draw
-with the same NumPy generators as the JAX package: the same seed picks the
-same rows in both.  Without a host copy the rows are drawn on the device by
+Counterpart of ``kmeans_tpu/parallel/sharding.py`` (``ShardedDataset``,
+``to_device``, ``from_process_local``, ``choose_chunk_size``,
+``clamp_chunk_for_k``, ``pad_points``): the points and their per-row
+weights are placed on the device once and stay there for the whole fit.
+When the data came from the host, the host copy is kept, which makes row
+sampling (Forgy seeding, empty-cluster resampling) a host draw with the same
+NumPy generators as the JAX package: the same seed picks the same rows in
+both.  Without a host copy the rows are drawn on the device by
 :func:`permuted_draws`, the one engine of the host loop and the device loop.
-No padding is needed: the torch passes take a short last chunk and the
-kernels mask their own ragged edge.
+On one device no padding is needed: the torch passes take a short last chunk
+and the kernels mask their own ragged edge.
+
+Under a (data, model) mesh (``parallel.mesh``) a :class:`ShardedDataset`
+holds, on each rank, its contiguous block of the rows padded to a multiple
+of the data axis; pad rows carry weight 0, which every kernel and pass keeps
+inert, and the ranks of one data index hold the same block.
+:func:`from_process_local` builds one where each rank passes only its own
+rows (uneven counts allowed); it has no host copy.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+
+from kmeans_tpu_torch.parallel import mesh as _mesh
 
 #: Below this many (n * k) elements the whole dataset is one chunk.
 SINGLE_CHUNK_ELEMS = 1 << 26
@@ -31,6 +41,64 @@ def choose_chunk_size(n: int, k: int, d: int) -> int:
         return int(max(128, -(-n // 8) * 8))
     chunk = max(128, min(n, (1 << 25) // max(k, 1), 1 << 17))
     return int(max(8, (chunk // 8) * 8))
+
+
+def clamp_chunk_for_k(chunk: int, k: int,
+                      budget_elems: int = SINGLE_CHUNK_ELEMS,
+                      max_chunk: Optional[int] = None) -> int:
+    """Bound the (chunk, k) temporary when the real k exceeds the hint a
+    dataset's chunk was chosen with: the largest multiple-of-8 divisor of
+    ``chunk`` whose (chunk', k) tile fits ``budget_elems`` (and
+    ``max_chunk``).  The JAX package's rule, unchanged: a no-op when the
+    tile fits, when ``chunk`` is at most 128 rows or not a multiple of 8;
+    where no multiple-of-8 divisor lies between 128 and the budget, the
+    smallest one of at least 128 rows, with a ``UserWarning``."""
+    fits = chunk * max(k, 1) <= budget_elems and \
+        (max_chunk is None or chunk <= max_chunk)
+    if fits or chunk <= 128 or chunk % 8:
+        return chunk
+    target = max(8, budget_elems // max(k, 1))
+    if max_chunk is not None:
+        target = min(target, max(8, max_chunk))
+    base = chunk // 8
+    best = 1          # largest divisor*8 within target
+    small = base      # smallest divisor*8 that is >= 128
+    i = 1
+    while i * i <= base:
+        if base % i == 0:
+            for cand in (i, base // i):
+                if cand * 8 <= target and cand > best:
+                    best = cand
+                if cand * 8 >= 128 and cand < small:
+                    small = cand
+        i += 1
+    if best * 8 >= 128:
+        return best * 8
+    import warnings
+    warnings.warn(
+        f"clamp_chunk_for_k: the committed chunk {chunk} has no "
+        f"multiple-of-8 divisor between 128 and the {target}-row "
+        f"budget for k={k}; using {small * 8} rows (budget overshoot) "
+        f"instead of degenerate {best * 8}-row scan tiles — reshard the "
+        f"dataset or load it with the real k_hint / an explicit "
+        f"chunk_size to avoid the oversized tile", UserWarning,
+        stacklevel=3)
+    return small * 8
+
+
+def pad_points(x: np.ndarray, multiple: int, min_rows: int = 0
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """Rows of (n, D) padded with zeros to a multiple of ``multiple`` (after
+    raising the target to ``min_rows``): ``(padded, 0/1 weights)``, the
+    pad rows of weight 0."""
+    n = x.shape[0]
+    target = max(n, int(min_rows))
+    pad = target - n + ((-target) % multiple)
+    w = np.ones(n + pad, dtype=x.dtype)
+    if pad:
+        x = np.concatenate([x, np.zeros((pad, x.shape[1]), dtype=x.dtype)])
+        w[n:] = 0.0
+    return x, w
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -134,6 +202,11 @@ class Dataset:
     loop's captured graphs); the points and weights must not change while
     it holds them."""
 
+    #: No mesh: the one device's points are all the rows (see
+    #: :class:`ShardedDataset`).
+    mesh = None
+    process_local = False
+
     def __init__(self, points: torch.Tensor, weights: torch.Tensor,
                  host: Optional[np.ndarray] = None,
                  host_weights: Optional[np.ndarray] = None):
@@ -173,6 +246,24 @@ class Dataset:
         return self.memo("positive_index", lambda: torch.nonzero(
             self.weights > 0).flatten())
 
+    def positive_count(self) -> int:
+        """Rows with weight > 0, over every rank of a mesh."""
+        return int(self.positive_index().numel())
+
+    def gather_positive(self, ordinals: torch.Tensor) -> torch.Tensor:
+        """Rows (m, D) on the device of the positive-weight rows numbered
+        ``ordinals`` (int64 (m,), in row order; zeros where an ordinal is
+        ``-1``).  Nothing is read to the host, so a captured iteration can
+        call it."""
+        pos = self.positive_index()
+        if pos.numel() == 0:
+            return torch.zeros((ordinals.shape[0], self.d),
+                               dtype=self.points.dtype, device=self.device)
+        rows = self.points.index_select(0, pos.index_select(
+            0, ordinals.clamp(0, pos.numel() - 1)))
+        return torch.where((ordinals >= 0)[:, None], rows,
+                           torch.zeros_like(rows))
+
     def positive_rows(self) -> np.ndarray:
         """Indices of rows with weight > 0: the candidates for seeding and
         for empty-cluster resampling (a zero-weight row must never become a
@@ -206,40 +297,171 @@ class Dataset:
             idx = candidates[rng.choice(len(candidates), size=take,
                                         replace=False)]
             return self.take(idx)
-        pos = self.positive_index()
-        take = min(m, pos.numel())
+        n_pos = self.positive_count()
+        take = min(m, n_pos)
         if take == 0:
             return np.empty((0, self.d))
         draws = permuted_draws(
-            pos.numel(), torch.arange(take, device=self.device),
+            n_pos, torch.arange(take, device=self.device),
             torch.from_numpy(draw_keys(seed_seq)))
-        rows = pos[draws[draws >= 0]]
-        return self.points[rows].cpu().numpy().astype(np.float64)
+        rows = self.gather_positive(draws)[draws >= 0]
+        return rows.cpu().numpy().astype(np.float64)
 
 
-def to_device(X, device: torch.device, dtype, sample_weight=None) -> Dataset:
+class ShardedDataset(Dataset):
+    """This rank's block of a dataset placed over a (data, model) mesh.
+
+    ``points`` and ``weights`` are the rank's block; ``offset`` is the
+    global row number of its first row, ``n`` the real rows over all ranks
+    and ``local_rows`` the real rows of the block (they lead it; the rest
+    is padding of weight 0).  ``host`` is the whole dataset on the host
+    when every rank passed it as host data (:func:`to_device`), None when
+    it came as a tensor on the device or process by process
+    (:func:`from_process_local`, then ``process_local`` is true).
+    ``chunk`` is the torch passes' chunk the dataset was placed with
+    (``explicit_chunk``: given by the caller), and :meth:`effective_chunk`
+    bounds it for a model's real k."""
+
+    def __init__(self, points, weights, mesh, *, n: int, offset: int,
+                 local_rows: int, chunk: int, explicit_chunk: bool = False,
+                 host=None, host_weights=None, process_local: bool = False):
+        super().__init__(points, weights, host=host,
+                         host_weights=host_weights)
+        self.mesh = mesh
+        self.n = int(n)
+        self.offset = int(offset)
+        self.local_rows = int(local_rows)
+        self.chunk = int(chunk)
+        self.explicit_chunk = explicit_chunk
+        self.process_local = process_local
+
+    def effective_chunk(self, k: int) -> int:
+        """The torch passes' chunk for a model of ``k`` clusters (or
+        ``k * D`` for 'direct'): ``chunk``, unless the (chunk, k) tile would
+        outgrow the budget (:func:`clamp_chunk_for_k`); an explicit chunk
+        passes through."""
+        if self.explicit_chunk:
+            return self.chunk
+        return clamp_chunk_for_k(self.chunk, k)
+
+    def _require_host(self, op: str) -> None:
+        if self._host is None:
+            raise ValueError(
+                f"{op} needs a host copy or a fully-addressable array; on "
+                "multi-host process-local datasets use init='kmeans++' "
+                "(on-device D2 seeding) or an explicit init array, and "
+                "empty_cluster='keep' or 'farthest' (host 'resample' "
+                "cannot gather rows)")
+
+    def positive_rows(self) -> np.ndarray:
+        self._require_host("positive_rows")
+        return super().positive_rows()
+
+    def take(self, idx) -> np.ndarray:
+        self._require_host("row gather")
+        return super().take(idx)
+
+    def positive_layout(self):
+        """``(local positive rows, ordinal of the first, count over the
+        mesh)``: the positive-weight rows of all ranks are numbered in
+        global row order, those of a block after the blocks of lower data
+        index.  Found once per dataset, with one ``all_reduce``."""
+        def make():
+            pos = self.positive_index()
+            d_idx = _mesh.coords(self.mesh)[0]
+            counts = torch.zeros(_mesh.mesh_shape(self.mesh)[0],
+                                 dtype=torch.int64, device=self.device)
+            counts[d_idx] = pos.numel()
+            counts = _mesh.all_reduce(counts, self.mesh, (_mesh.DATA_AXIS,))
+            counts = counts.cpu().numpy()
+            return pos, int(counts[:d_idx].sum()), int(counts.sum())
+        return self.memo("positive_layout", make)
+
+    def positive_count(self) -> int:
+        return self.positive_layout()[2]
+
+    def gather_positive(self, ordinals: torch.Tensor) -> torch.Tensor:
+        """As :meth:`Dataset.gather_positive`, the rows replicated on every
+        rank: each rank gathers the rows its block holds, zeros elsewhere,
+        and one ``all_reduce`` over the data axis adds them (each row is
+        held by one block of the axis)."""
+        pos, first, _ = self.positive_layout()
+        local = ordinals - first
+        mine = (ordinals >= 0) & (local >= 0) & (local < pos.numel())
+        if pos.numel() == 0:
+            rows = torch.zeros((ordinals.shape[0], self.d),
+                               dtype=self.points.dtype, device=self.device)
+        else:
+            rows = self.points.index_select(0, pos.index_select(
+                0, local.clamp(0, pos.numel() - 1)))
+            rows = torch.where(mine[:, None], rows, torch.zeros_like(rows))
+        return _mesh.all_reduce(rows, self.mesh, (_mesh.DATA_AXIS,))
+
+    def gather_rows(self, values: torch.Tensor) -> np.ndarray:
+        """Per-row values of the block (labels, log-densities; any
+        trailing shape) for the block's real rows, as a host array: every
+        row's on every rank for a dataset of global rows (one SUM
+        ``all_reduce`` over the data axis of the blocks, zeros elsewhere),
+        the rank's own rows for a process-local one."""
+        if self.process_local:
+            return values[: self.local_rows].cpu().numpy()
+        n_pad = self.points.shape[0] * _mesh.mesh_shape(self.mesh)[0]
+        full = torch.zeros((n_pad,) + tuple(values.shape[1:]),
+                           dtype=values.dtype, device=values.device)
+        full[self.offset: self.offset + values.shape[0]] = values
+        return _mesh.all_reduce(full, self.mesh,
+                                (_mesh.DATA_AXIS,))[: self.n].cpu().numpy()
+
+
+def _host_array(X, dtype) -> np.ndarray:
+    if isinstance(X, torch.Tensor):
+        X = X.detach().cpu().numpy()
+    host = np.ascontiguousarray(np.asarray(X, dtype=dtype))
+    if host.ndim != 2:
+        raise ValueError(f"X must be 2-D (n, D), got shape {host.shape}")
+    return host
+
+
+def _check_dataset(X: Dataset, device, dtype, sample_weight, mesh) -> None:
+    if X.mesh is not mesh:
+        raise ValueError(f"the dataset was placed with mesh={X.mesh!r}, "
+                         f"the model runs on mesh={mesh!r}")
+    if X.device != device:
+        raise ValueError(f"Dataset is on {X.device}, model on {device}")
+    if X.dtype != dtype:
+        raise ValueError(f"Dataset dtype {X.dtype} != model dtype {dtype}")
+    if sample_weight is not None:
+        raise ValueError("pass sample_weight when caching the dataset, "
+                         "not on a pre-built Dataset")
+
+
+def to_device(X, device: torch.device, dtype, sample_weight=None,
+              mesh=None, chunk: Optional[int] = None,
+              k_hint: int = 16) -> Dataset:
     """Place (n, D) data on ``device`` once; a :class:`Dataset` passes
     through.  Host data (NumPy, lists) keeps its host copy; a tensor that
     already lies on ``device`` is used as it is and no host copy is made.
-    ``sample_weight`` (n,) makes every statistic weighted."""
+    ``sample_weight`` (n,) makes every statistic weighted.
+
+    With a ``mesh`` every rank passes the same global ``X``, as the JAX
+    package's ``fit(X)`` does, and the rank's block goes to its device
+    (:class:`ShardedDataset`); host data keeps its host copy there too, a
+    tensor on ``device`` is sliced where it lies.  ``chunk`` (None: chosen
+    for ``k_hint`` clusters) is the chunk of the torch passes it
+    records."""
     dtype = np.dtype(dtype)
     tdtype = torch_dtype(dtype)
     if isinstance(X, Dataset):
-        if X.device != device:
-            raise ValueError(f"Dataset is on {X.device}, model on {device}")
-        if X.dtype != dtype:
-            raise ValueError(f"Dataset dtype {X.dtype} != model dtype "
-                             f"{dtype}")
-        if sample_weight is not None:
-            raise ValueError("pass sample_weight when caching the dataset, "
-                             "not on a pre-built Dataset")
+        _check_dataset(X, device, dtype, sample_weight, mesh)
         return X
+    if mesh is not None:
+        on_device = isinstance(X, torch.Tensor) and X.device == device
+        return _to_mesh(X.to(tdtype) if on_device else _host_array(X, dtype),
+                        device, dtype, sample_weight, mesh, chunk, k_hint)
     if isinstance(X, torch.Tensor) and X.device == device:
         host, shape = None, tuple(X.shape)
     else:
-        if isinstance(X, torch.Tensor):
-            X = X.cpu().numpy()
-        host = np.ascontiguousarray(np.asarray(X, dtype=dtype))
+        host = _host_array(X, dtype)
         shape = host.shape
     if len(shape) != 2:
         raise ValueError(f"X must be 2-D (n, D), got shape {shape}")
@@ -256,6 +478,92 @@ def to_device(X, device: torch.device, dtype, sample_weight=None) -> Dataset:
     # Without a host copy, seeding and resampling read the device's weights.
     return Dataset(points, weights, host=host,
                    host_weights=sw if host is not None else None)
+
+
+def _to_mesh(X, device, dtype, sample_weight, mesh,
+             chunk: Optional[int], k_hint: int) -> ShardedDataset:
+    """The rank's block of the global rows, padded with rows of weight 0
+    to a multiple of the data axis (only the last blocks hold padding).
+    ``X`` is a host array, kept as the host copy, or a tensor already on
+    ``device``, sliced there with no host copy (as on one device)."""
+    if X.ndim != 2:
+        raise ValueError(f"X must be 2-D (n, D), got shape {tuple(X.shape)}")
+    n, d = X.shape
+    data_shards = _mesh.mesh_shape(mesh)[0]
+    d_idx = _mesh.coords(mesh)[0]
+    block = -(-max(n, 1) // data_shards)
+    lo, hi = d_idx * block, max(min((d_idx + 1) * block, n), d_idx * block)
+    host = X if isinstance(X, np.ndarray) else None
+    if host is not None:
+        rows, mask = pad_points(host[lo:hi], block, min_rows=block)
+        points = torch.from_numpy(np.ascontiguousarray(rows)).to(device)
+    else:
+        points = torch.zeros((block, d), dtype=X.dtype, device=device)
+        points[: hi - lo] = X[lo:hi]
+        mask = np.zeros(block, dtype=dtype)
+        mask[: hi - lo] = 1.0
+    sw = None
+    if sample_weight is not None:
+        if isinstance(sample_weight, torch.Tensor):
+            sample_weight = sample_weight.cpu().numpy()
+        sw = _validate_sample_weight(sample_weight, n, dtype)
+        mask[: hi - lo] = sw[lo:hi]
+    explicit = chunk is not None
+    chunk = chunk or choose_chunk_size(block, k_hint, d)
+    return ShardedDataset(
+        points, torch.from_numpy(mask).to(device), mesh, n=n, offset=lo,
+        local_rows=hi - lo, chunk=chunk, explicit_chunk=explicit,
+        host=host, host_weights=sw if host is not None else None)
+
+
+def from_process_local(X_local, mesh, *, device=None, dtype=np.float32,
+                       chunk_size: Optional[int] = None, k_hint: int = 16,
+                       sample_weight=None) -> ShardedDataset:
+    """A dataset over ``mesh`` where each rank passes only its own rows:
+    no process ever holds the whole array.  Counts may be uneven; the ranks
+    of one data index (the model axis) must pass the same rows.  The
+    rows of the block of data index i follow those of lower indices in the
+    global order.
+
+    The result has no host copy: Forgy and host resampling raise (use
+    ``init='kmeans++'``, which then draws on the devices of the mesh, or
+    an explicit init array); ``predict`` and ``labels_`` on it return the
+    rank's own rows.  In a world of one rank it is :func:`to_device`, host
+    copy kept, as in the JAX package.  ``device`` None is the rank's card."""
+    if mesh is None:
+        raise ValueError("from_process_local requires a mesh")
+    if device is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    dtype = np.dtype(dtype)
+    X_local = np.ascontiguousarray(np.asarray(X_local, dtype=dtype))
+    if X_local.ndim != 2:
+        raise ValueError(f"X_local must be 2-D (n, D), got {X_local.shape}")
+    n_local, d = X_local.shape
+    if _mesh.world_size() == 1:
+        return to_device(X_local, device, dtype, sample_weight=sample_weight,
+                         mesh=mesh, chunk=chunk_size, k_hint=k_hint)
+    data_shards = _mesh.mesh_shape(mesh)[0]
+    d_idx = _mesh.coords(mesh)[0]
+    counts = torch.zeros(data_shards + 2, dtype=torch.int64, device=device)
+    counts[d_idx] = n_local
+    counts[data_shards], counts[data_shards + 1] = n_local, -n_local
+    _mesh.all_reduce(counts[data_shards:], mesh, (_mesh.MODEL_AXIS,), "max")
+    if int(counts[data_shards]) != -int(counts[data_shards + 1]):
+        raise ValueError("the ranks of one data index must pass the same "
+                         "rows to from_process_local")
+    counts = _mesh.all_reduce(counts[:data_shards].clone(), mesh,
+                              (_mesh.DATA_AXIS,)).cpu().numpy()
+    rows, mask = pad_points(X_local, 1, min_rows=1)
+    if sample_weight is not None:
+        mask[:n_local] = _validate_sample_weight(sample_weight, n_local,
+                                                 dtype)
+    chunk = chunk_size or choose_chunk_size(int(counts.max()), k_hint, d)
+    return ShardedDataset(
+        torch.from_numpy(rows).to(device), torch.from_numpy(mask).to(device),
+        mesh, n=int(counts.sum()), offset=int(counts[:d_idx].sum()),
+        local_rows=n_local, chunk=chunk,
+        explicit_chunk=chunk_size is not None, process_local=True)
 
 
 # ------------------------------------------------------------ the EM pass
@@ -276,14 +584,16 @@ def choose_em_chunk(n: int, k: int) -> int:
     return int(chunk // 8 * 8)
 
 
-def weighted_mean(points: torch.Tensor, weights: torch.Tensor
-                  ) -> torch.Tensor:
+def weighted_mean(points: torch.Tensor, weights: torch.Tensor,
+                  mesh=None) -> torch.Tensor:
     """The mixture's centering shift, the JAX package's ``_mean_jit``:
     ``(w @ x) / max(sum w, tiny)`` over the points rounded to float32, in
     the weights' dtype, with the total weight summed in float32.  The guard
     is float32's ``tiny``, not 1.0: clamping at 1.0 would scale the shift
-    down whenever the total weight is below 1."""
+    down whenever the total weight is below 1.  Under a ``mesh`` both sums
+    are of every rank's block (SUM ``all_reduce`` over the data axis)."""
     x = points.to(torch.float32).to(weights.dtype)
-    total = torch.clamp_min(weights.to(torch.float32).sum(),
-                            torch.finfo(torch.float32).tiny)
-    return (weights @ x) / total
+    total = _mesh.all_reduce(weights.to(torch.float32).sum().reshape(1),
+                             mesh, (_mesh.DATA_AXIS,))[0]
+    total = torch.clamp_min(total, torch.finfo(torch.float32).tiny)
+    return _mesh.all_reduce(weights @ x, mesh, (_mesh.DATA_AXIS,)) / total

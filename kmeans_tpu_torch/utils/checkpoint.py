@@ -54,6 +54,30 @@ def save_state(path, state: Dict[str, Any]) -> None:
         tmp.unlink(missing_ok=True)
 
 
+def save_state_primary(path, state: Dict[str, Any], mesh=None) -> None:
+    """:func:`save_state` on one rank of ``mesh`` only (one writer to a
+    shared path: the rank at (0, 0), rank 0 without a mesh), then a barrier
+    over the mesh, so that a ``load`` on any of its ranks after it returns
+    reads the whole file.  Without a process group it is ``save_state``."""
+    from kmeans_tpu_torch.parallel import mesh as _mesh
+    if _mesh.is_primary(mesh):
+        save_state(path, state)
+    _mesh.barrier(mesh)
+
+
+def topology_meta(mesh, dtype) -> Dict[str, Any]:
+    """The JAX package's topology block (``meta_*``): the format version,
+    the mesh's (data, model) shape (None for one device) and the dtype;
+    information only, no load reads it."""
+    from kmeans_tpu_torch.parallel.mesh import mesh_shape
+    data_shards, model_shards = (mesh_shape(mesh) if mesh is not None
+                                 else (None, None))
+    return {"meta_format_version": FORMAT_VERSION,
+            "meta_mesh_data_shards": data_shards,
+            "meta_mesh_model_shards": model_shards,
+            "meta_dtype": str(dtype)}
+
+
 def load_state(path) -> Dict[str, Any]:
     """Read a checkpoint back into one dict (JSON values and arrays)."""
     path = _normalize(path)

@@ -326,3 +326,43 @@ def test_unfitted_gmm_round_trips(tmp_path):
     assert jm.means_ is None and jm.n_components == 2
     with pytest.raises(ValueError, match="fitted"):
         back.predict(np.zeros((3, 2), np.float32))
+
+
+@pytest.mark.parametrize("jx_mode,dtype", [("matmul", np.float64),
+                                           ("pallas", np.float32)])
+def test_npz_saved_by_jax_on_a_2x2_mesh_loads_without_a_mesh(
+        tmp_path, jx_mode, dtype):
+    """A checkpoint written under a (data 2, model 2) mesh carries its
+    topology block; the port loads it on one device and predicts the same
+    labels (the state is the whole table, whatever mesh wrote it)."""
+    import jax
+    from kmeans_tpu.parallel.mesh import make_mesh
+    X = _blobs(dtype=dtype)
+    jm = kmeans_tpu.KMeans(k=5, max_iter=8, seed=3, verbose=False,
+                           distance_mode=jx_mode, dtype=dtype,
+                           mesh=make_mesh(data=2, model=2,
+                                          devices=jax.devices()[:4])).fit(X)
+    path = tmp_path / "mesh2x2.npz"
+    jm.save(path)
+    with np.load(path) as z:
+        meta = json.loads(str(z["__meta__"]))
+    assert (meta["meta_mesh_data_shards"], meta["meta_mesh_model_shards"],
+            meta["model_shards"]) == (2, 2, 1)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        pm = kmeans_tpu_torch.KMeans.load(path, device="cpu")
+    assert pm.mesh is None and pm.model_shards == 1
+    np.testing.assert_array_equal(pm.centroids, np.asarray(jm.centroids))
+    np.testing.assert_array_equal(pm.predict(X), np.asarray(jm.predict(X)))
+
+
+def test_a_port_checkpoint_carries_the_topology_block(tmp_path):
+    pm = kmeans_tpu_torch.KMeans(k=3, device="cpu", verbose=False,
+                                 dtype=np.float64).fit(_blobs(centers=3))
+    pm.save(tmp_path / "m.npz")
+    state = pt_ckpt.load_state(tmp_path / "m.npz")
+    assert {key: state[key] for key in state if key.startswith("meta_")} == {
+        "meta_format_version": 1, "meta_mesh_data_shards": None,
+        "meta_mesh_model_shards": None, "meta_dtype": "float64"}
+    jm = kmeans_tpu.KMeans.load(tmp_path / "m.npz")
+    np.testing.assert_array_equal(np.asarray(jm.centroids), pm.centroids)

@@ -244,6 +244,11 @@ def test_nan_row_among_the_data_is_a_divergence_error():
 #: estep_path_) of a CPU fit with them ('auto' is 'matmul' there).
 PORTED_LATER = {("host_loop", False): ("device", "serial"),
                 ("pipeline", 1): ("host", "pipelined")}
+#: Arguments of the list that a later slice ported whose value here is not
+#: one the port takes: the error it raises now (a mesh must be a
+#: DeviceMesh; two model shards need two ranks, the JAX package's message).
+PORTED_REFUSED = {"mesh": (TypeError, "DeviceMesh"),
+                  "model_shards": (ValueError, "not divisible by model=2")}
 
 
 @pytest.mark.parametrize("arg,value", [
@@ -255,8 +260,16 @@ PORTED_LATER = {("host_loop", False): ("device", "serial"),
 def test_unported_arguments_raise(arg, value):
     """Every argument of the list raises, naming its ROADMAP item, except
     those that a later slice ported (``host_loop=False``, ``pipeline=1``):
-    they now fit, and the model reports what ran."""
+    they now fit, and the model reports what ran; ``mesh`` and
+    ``model_shards`` (ported with the mesh) raise what a wrong value
+    raises."""
     X = _blobs(n=100, d=3, centers=3)
+    if arg in PORTED_REFUSED:
+        err, match = PORTED_REFUSED[arg]
+        with pytest.raises(err, match=match):
+            kmeans_tpu_torch.KMeans(k=3, device="cpu", verbose=False,
+                                    **{arg: value}).fit(X)
+        return
     if (arg, value) in PORTED_LATER:
         km = kmeans_tpu_torch.KMeans(k=3, device="cpu", verbose=False,
                                      **{arg: value}).fit(X)

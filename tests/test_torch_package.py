@@ -34,9 +34,13 @@ MODULES = ["kmeans_tpu_torch", "kmeans_tpu_torch.convert",
            "kmeans_tpu_torch.ops.hopper_kernels",
            "kmeans_tpu_torch.parallel.distributed",
            "kmeans_tpu_torch.parallel.gmm_step",
+           "kmeans_tpu_torch.parallel.mesh",
+           "kmeans_tpu_torch.parallel.multihost",
            "kmeans_tpu_torch.parallel.sharding",
+           "kmeans_tpu_torch.suite",
            "kmeans_tpu_torch.utils.checkpoint",
            "kmeans_tpu_torch.utils.logging",
+           "kmeans_tpu_torch.utils.plotting",
            "kmeans_tpu_torch.utils.validation"]
 
 
@@ -49,6 +53,11 @@ def test_fresh_interpreter_loads_neither_jax_nor_kmeans_tpu():
     loaded = out.split()
     assert "kmeans_tpu_torch.models.kmeans" in loaded and "torch" in loaded
     assert "kmeans_tpu_torch.ops.estep_kernels" in loaded
+    assert "kmeans_tpu_torch.parallel.mesh" in loaded
+    assert "kmeans_tpu_torch.suite" in loaded
+    assert not any(m == "matplotlib" or m.startswith("matplotlib.")
+                   or m == "sklearn" or m.startswith("sklearn.")
+                   for m in loaded)
     bad = [m for m in loaded
            if m == "jax" or m.startswith(("jax.", "jaxlib"))
            or m == "kmeans_tpu" or m.startswith("kmeans_tpu.")]

@@ -90,9 +90,12 @@ def test_refill_table_is_the_host_loops_draws():
     assert table.shape == (4, 6)
     for it in range(4):
         rows = ds.sample_positive_rows(6, [9, it + 1])
-        np.testing.assert_array_equal(X[table[it]].numpy(), rows)
+        np.testing.assert_array_equal(ds.gather_positive(table[it]).numpy(),
+                                      rows)
     few = to_device(X[:3], torch.device("cpu"), np.float64,
                     sample_weight=[1.0, 0.0, 1.0])
     small = dist.refill_table(few, dist.empty_draw_keys(9, 2), k=4)
-    assert sorted(small[0, :2].tolist()) == [0, 2]
+    assert sorted(small[0, :2].tolist()) == [0, 1]   # positive rows 0 and 2
+    assert sorted(few.gather_positive(small[0, :2])[:, 0].tolist()) == \
+        sorted(X[[0, 2], 0].tolist())
     assert (small[:, 2:] == -1).all()

@@ -112,3 +112,33 @@ def test_not_enough_positive_rows_raises():
     w[:3] = 1.0
     with pytest.raises(ValueError, match="Not enough data points"):
         pt_init._kmeanspp_device_draws(X, w, 4, np.random.default_rng(0))
+
+
+@pytest.mark.parametrize("n,block", [(1000, 64), (1000, 1000), (1000, 4096),
+                                     (257, 256)])
+def test_update_mind2_blocks_give_the_one_pass_distances(monkeypatch, n,
+                                                         block):
+    """The blocked update (ROADMAP C.7) against the (n, D) difference it
+    replaced, in float64: every block, the last one overlapping its
+    predecessor, lands on the same minimum; the update is in place."""
+    monkeypatch.setattr(pt_init, "MIND2_BLOCK_ROWS", block)
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.normal(size=(n, 7)))
+    mind2 = torch.from_numpy(rng.uniform(0.0, 20.0, size=n))
+    want = torch.minimum(mind2, ((x - x[3]) ** 2).sum(1))
+    got = pt_init.update_mind2(mind2, x, x[3])
+    assert got is mind2 and float(got[3]) == 0.0
+    torch.testing.assert_close(got, want, rtol=1e-13, atol=1e-13)
+
+
+def test_update_mind2_arithmetic_does_not_depend_on_n():
+    """A row's update is the same at every n (the blocks have one shape):
+    what lets a mesh's ranks draw the rows one device draws."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(3000, 9)).astype(np.float32))
+    c = x[17]
+    whole = pt_init.update_mind2(torch.full((3000,), float("inf")), x, c)
+    for lo, hi in ((0, 1000), (1000, 3000), (5, 6)):
+        part = pt_init.update_mind2(torch.full((hi - lo,), float("inf")),
+                                    x[lo:hi], c)
+        assert torch.equal(part, whole[lo:hi])

@@ -130,8 +130,11 @@ def test_set_params_validates_and_rolls_back(tmp_path):
             model.set_params(no_such=1)
     np.testing.assert_array_equal(pm.predict(X), labels)   # fitted state
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pm.set_params(model_shards=2)
+        pm.set_params(bucket="auto")
+    with pytest.raises(ValueError, match="model_shards"):
+        pm.set_params(model_shards=0)
     assert pm.get_params()["model_shards"] == 1 and pm.tolerance == 1e-6
+    assert pm.get_params()["bucket"] == 0
 
 
 def test_get_feature_names_out_matches_jax():
