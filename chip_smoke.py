@@ -31,6 +31,16 @@ fit the mixture on a data axis (phases ``dp_shared_card``, ``dp_kmeanspp``,
 the main data by both loops bit for bit against the one-device fits
 (``dp_world1``); and ``python -m kmeans_tpu_torch.suite`` runs the original
 project's tests A to E (``suite``).  Each rank counts its own launches.
+Model selection: every K-Means kernel with sentinel rows mixed into its
+table (``kernels_sentinels``); the guarded bf16 rung by both loops against
+a float64 argmin, beside 'matmul' (``guarded``); ``n_init=4`` as one
+device loop of four members in both kernel modes and 'matmul' against
+four single fits (``multi_fit``); k-means|| seeding through kernel 2 and
+2b, then those kernels against their plain versions at the seeding's own
+tables (``kmeans_parallel``); and ``KMeans.sweep`` over k = 256, 512,
+1024, batched against the sequential oracle, its winners scored by a
+sampled silhouette and their tables held through kernels 1 and 2
+(``sweep``).
 
 Every phase prints one JSON line as it ends.  A phase that fails raises, so
 the run ends with a non-zero code and without the result line.  The last line
@@ -105,6 +115,19 @@ GMM64 = dict(n=65_536, d=16, k=8, iters=10)
 F64_RTOL, F64_ATOL = 1e-12, 1e-10
 # The device loop's final SSE against the host loop's.
 DEVICE_SSE_RTOL = 1e-5
+# Model selection (phases guarded, multi_fit, kmeans_parallel, sweep) on the
+# main data: rows whose guarded labels are held against a float64 argmin;
+# the restarts of the batched device loop; the sweep's k and the rows of its
+# sampled silhouette.
+GUARD_ROWS = 65_536
+MULTI_RESTARTS = 4
+SWEEP_KS = (256, 512, 1024)
+SWEEP_SILHOUETTE_ROWS = 16_384
+# The sentinel case of the K-Means kernels: one sentinel row before every
+# SENTINEL_EVERY real centroids; (n, D, k, offset of data and centroids).
+SENTINEL_EVERY = 5
+SENTINEL_SHAPES = ((4099, 100, 300, 0.0), (8192, 128, 1024, 0.0),
+                   (4099, 128, 1024, 1e3))
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates).
 PEAK_FP32_FLOPS = 67e12          # float32 outside the tensor cores
@@ -648,6 +671,11 @@ PATH_KERNELS = {
     "glove_like": ("fused_assign_reduce", "hopper_assign"),
     "gmm": ("diag_estep", "fused_assign_reduce"),
     "lab": tuple(lab.parse_spec(spec).counter for spec in LAB_SPECS),
+    "multi_fit": ("fused_assign_reduce", "hopper_assign"),
+    "multi_fit_bf16": ("fused_assign_reduce_bf16", "hopper_assign_bf16"),
+    "kmeans_parallel": ("hopper_assign",),
+    "kmeans_parallel_bf16": ("hopper_assign_bf16",),
+    "sweep": ("fused_assign_reduce",),
 }
 
 
@@ -1065,6 +1093,406 @@ def phase_transform(km, x):
          squared_err_whole=errs["whole"], squared_err_blocks=errs["blocks"],
          atol=atol, rtol=cmp.MIND2_RTOL,
          blocks_against_whole=float(np.abs(out - blocks).max()))
+
+
+# ------------------------------------------------- model selection (A.1, A.5)
+
+
+def sentinel_case(name, x, w, c, bf16=False):
+    """Sentinel rows (``dist.PAD_CENTROID_VALUE``, as a sweep member's
+    padding and the k-means|| buffer carry them) mixed into the table, for
+    both kernels (1 and 2, or 1b and 2b) and their plain versions: no
+    sentinel wins a row, and the real rows' labels, mind2, sums and counts
+    equal those of the same call without the sentinels within
+    ops/compare.py (labels outside the band of the real table; sums
+    against the plain scatter of the call's own labels)."""
+    k, d = c.shape
+    real_pos = torch.arange(k, device=DEV) + torch.arange(
+        k, device=DEV) // SENTINEL_EVERY + 1
+    padded = torch.full((k + k // SENTINEL_EVERY + 1, d),
+                        dist.PAD_CENTROID_VALUE, device=DEV)
+    padded[real_pos] = c
+    to_real = torch.full((padded.shape[0],), -1, dtype=torch.int64,
+                         device=DEV)
+    to_real[real_pos] = torch.arange(k, device=DEV)
+    base = hk.fused_assign_reduce(x, w, c, bf16=bf16)
+    base2 = hk.hopper_assign(x, c, bf16=bf16)
+    calls = {"kernel_fused": hk.fused_assign_reduce(x, w, padded, bf16=bf16),
+             "kernel_assign": hk.hopper_assign(x, padded, bf16=bf16),
+             "plain_fused": hk.fused_assign_reduce_reference(
+                 x, w, padded, bf16=bf16),
+             "plain_assign": hk.assign_reference(x, padded, bf16=bf16)}
+    torch.cuda.synchronize()
+    m_atol = cmp.mind2_atol(x, c)
+    rec = {"case": name, "n": x.shape[0], "d": d, "k": k,
+           "sentinels": padded.shape[0] - k, "bf16": bf16}
+    for call, out in calls.items():
+        labels = to_real[out[0].to(torch.int64)]
+        check(bool((labels >= 0).all()), f"{name} {call}: a sentinel row "
+                                         f"won {int((labels < 0).sum())} rows")
+        ref = base if call.endswith("fused") else base2
+        n_diff, n_out = label_band(x, c, labels, ref[0], bf16)
+        check(n_out == 0, f"{name} {call}: {n_out} labels differ from the "
+                          f"call without sentinels outside the band")
+        same = labels == ref[0].to(torch.int64)
+        check(close(out[1][same], ref[1][same], cmp.MIND2_RTOL, m_atol),
+              f"{name} {call}: mind2 disagrees with the call without "
+              f"sentinels")
+        rec[call] = {"label_diff": n_diff,
+                     "mind2_err": max_err(out[1][same], ref[1][same])}
+        if call.endswith("fused"):
+            sums, counts = out[2], out[3]
+            ref_sums, ref_counts = cmp.scatter_reference(
+                x, w, labels.to(torch.int32), k, bf16)
+            check(cmp.sums_close(sums[real_pos], ref_sums)
+                  and close(counts[real_pos], ref_counts, cmp.COUNTS_RTOL,
+                            0.0), f"{name} {call}: sums or counts disagree")
+            pad_rows = to_real < 0
+            check(float(counts[pad_rows].abs().sum()) == 0.0
+                  and float(sums[pad_rows].abs().sum()) == 0.0,
+                  f"{name} {call}: a sentinel row has sums or counts")
+            rec[call]["sums_err"] = max_err(sums[real_pos], ref_sums)
+    return rec
+
+
+def phase_sentinels(bf16: bool):
+    """The sentinel case at three kinds of data: both signs, near 1e3
+    (the float32 kernels shift their frame there; a positive sentinel
+    leaves the shift as it was), and the main shape's width and k."""
+    records = []
+    for i, (n, d, k, offset) in enumerate(SENTINEL_SHAPES):
+        x, w, c = random_case(n, d, k, seed=300 + i)
+        x += offset
+        c += offset
+        records.append(sentinel_case(f"sentinels_{n}x{d}_k{k}_at_{offset:g}",
+                                     x, w, c, bf16))
+    emit("kernels_sentinels" + ("_bf16" if bf16 else ""), cases=records)
+
+
+def float64_band_labels(x, c, labels, rows=GUARD_ROWS):
+    """Labels of the first ``rows`` rows against a float64 argmin of the
+    distances to ``c``: ``(differing, outside the band)``."""
+    xs, c64 = x[:rows].double(), torch.as_tensor(c, device=DEV).double()
+    d2 = ((xs * xs).sum(1)[:, None] + (c64 * c64).sum(1)[None, :]
+          - 2.0 * xs @ c64.T)
+    ref = d2.argmin(dim=1)
+    return label_band(x[:rows], c64.float(),
+                      torch.as_tensor(labels[:rows], device=DEV), ref)
+
+
+def phase_guarded(x, host_models, device_seconds):
+    """'matmul_bf16_guarded' on the main data, 5 iterations, by the host
+    loop and by the device loop (twice on one cached dataset: capture,
+    then replay), beside 'matmul_bf16' and 'matmul' (float32, the labels
+    the rung stands in for) fitted the same way and the 'kernel_bf16' fits
+    of the main_bf16 paths: seconds per iteration, the
+    device loop's ``bf16_guard_corrected_rows_``, the two loops bit-equal
+    (centroids and SSE history), and the final labels of GUARD_ROWS rows
+    against a float64 argmin: none differs outside the band.  No hand
+    kernel runs here: the rung is torch (cuBLAS bf16 and float32
+    products)."""
+    out = {}
+    for mode in (dist.GUARDED_MODE, "matmul_bf16", "matmul"):
+        kw = dict(k=MAIN["k"], max_iter=MAIN["iters"], seed=42,
+                  compute_sse=True, init="forgy", verbose=False,
+                  distance_mode=mode)
+        host = KMeans(host_loop=True, **kw)
+        ds = host.cache(x)
+        hk.reset_launch_counts()
+        host.fit(ds)
+        torch.cuda.synchronize()
+        dev = KMeans(host_loop=False, **kw)
+        per_iteration = []
+        for _ in range(2):
+            dev.fit(ds)
+            torch.cuda.synchronize()
+            per_iteration.append(dev.iter_times_[0])
+        same = (dev.iterations_run == host.iterations_run
+                and np.array_equal(dev.centroids, host.centroids)
+                and dev.sse_history == host.sse_history)
+        check(same, f"{mode}: the device loop's fit differs from the host "
+                    f"loop's")
+        rec = {"mode": mode, "iterations": dev.iterations_run,
+               "sse_history": dev.sse_history,
+               "seconds_per_iteration_host": statistics.median(
+                   host.iter_times_),
+               "seconds_per_iteration_device_first_fit": per_iteration[0],
+               "seconds_per_iteration_device": per_iteration[1],
+               "loops_bit_equal": same,
+               "kernel_launches": {n: c for n, c in hk.LAUNCHES.items()
+                                   if c}}
+        if mode == dist.GUARDED_MODE:
+            labels = dev.predict(x[:GUARD_ROWS])
+            n_diff, n_out = float64_band_labels(x, dev.centroids, labels)
+            check(n_out == 0, f"guarded: {n_out} of {GUARD_ROWS} labels "
+                              f"differ from a float64 argmin outside the "
+                              f"band")
+            flagged = dev.bf16_guard_corrected_rows_
+            check(flagged is not None and flagged >= 0,
+                  "guarded: no bf16_guard_corrected_rows_")
+            rec.update(bf16_guard_corrected_rows=flagged,
+                       flagged_share_per_iteration=flagged / (
+                           MAIN["n"] * dev.iterations_run),
+                       labels_checked=GUARD_ROWS,
+                       labels_differing_from_float64=n_diff,
+                       outside_band=n_out)
+        out[mode] = rec
+    kernel_bf16 = {
+        "seconds_per_iteration_host": statistics.median(
+            host_models["main_bf16"][0].iter_times_),
+        "seconds_per_iteration_device": device_seconds["main_bf16_device"]}
+    emit("guarded", n=MAIN["n"], d=MAIN["d"], k=MAIN["k"],
+         guarded=out[dist.GUARDED_MODE], matmul_bf16=out["matmul_bf16"],
+         matmul=out["matmul"], kernel_bf16=kernel_bf16)
+
+
+def phase_multi_fit(x):
+    """``n_init=4`` by the device loop (one loop of four members,
+    ``make_multi_fit_fn``) in 'kernel', 'kernel_bf16' and 'matmul' (the
+    torch pass), 5 iterations (tolerance 1e-30, so every member runs them
+    all): in the kernel modes kernel 1 (1b) launched members x iterations
+    in the loop and once per member for the true final inertia, kernel 2
+    (2b) once for ``labels_``, and the peak device memory of the fit below
+    one copy of the points (no per-member copy); 'matmul' launches no hand
+    kernel, its peak is recorded.  ``restart_inertias_``, ``best_restart_``
+    and the winner's centroids bit-equal to four single fits with the
+    restarts' seeds, whose seconds per iteration are recorded beside the
+    four members'."""
+    records, counts = [], {}
+    for label, mode in (("multi_fit", "pallas"),
+                        ("multi_fit_bf16", "pallas_bf16"),
+                        ("multi_fit_matmul", "matmul")):
+        kernels = mode != "matmul"
+        suffix = "_bf16" if mode == "pallas_bf16" else ""
+        kw = dict(k=MAIN["k"], max_iter=MAIN["iters"], tolerance=1e-30,
+                  seed=42, compute_sse=True, init="forgy", verbose=False,
+                  distance_mode=mode, host_loop=False)
+        km = KMeans(n_init=MULTI_RESTARTS, **kw)
+        ds = km.cache(x)
+        km.fit(ds)                       # captures the loop's graph
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        hk.reset_launch_counts()         # this path's own counts
+        t0 = time.perf_counter()
+        km.fit(ds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        points_bytes = x.numel() * x.element_size()
+        r, it = MULTI_RESTARTS, MAIN["iters"]
+        if kernels:
+            launches = check_path_launches(label)
+            counts[label] = launches
+            want1 = r * it + r
+            check(launches["fused_assign_reduce" + suffix] == want1,
+                  f"{label}: {launches['fused_assign_reduce' + suffix]} "
+                  f"launches of kernel 1, not members x iterations + "
+                  f"members = {want1}")
+            check(launches["hopper_assign" + suffix] == 1,
+                  f"{label}: kernel 2 launched "
+                  f"{launches['hopper_assign' + suffix]} times")
+            check(peak < points_bytes, f"{label}: the fit allocated {peak} "
+                                       f"bytes, a copy of the points is "
+                                       f"{points_bytes}")
+        else:
+            launches = {n: c for n, c in hk.LAUNCHES.items() if c}
+            check(not launches, f"{label}: the torch mode launched "
+                                f"{launches}")
+        singles = []
+        for s in km._restart_seeds():
+            one = KMeans(n_init=1, **{**kw, "seed": s}).fit(ds)
+            singles.append((one._sse(ds), one))
+        inertias = np.asarray([s for s, _ in singles])
+        best = int(np.argmin(inertias))
+        same = (np.array_equal(inertias, km.restart_inertias_)
+                and best == km.best_restart_
+                and np.array_equal(singles[best][1].centroids, km.centroids)
+                and singles[best][1].sse_history == km.sse_history)
+        check(same, f"{label}: restart inertias {km.restart_inertias_} or "
+                    f"the winner differ from four single fits' {inertias}")
+        rec = {"path": label, "distance_mode": mode, "n_init": r,
+               "iterations": km.iterations_run,
+               "best_restart": km.best_restart_,
+               "restart_inertias": km.restart_inertias_.tolist(),
+               "single_fit_inertias": inertias.tolist(),
+               "kernel1_launches": launches.get(
+                   "fused_assign_reduce" + suffix, 0),
+               "kernel2_launches": launches.get("hopper_assign" + suffix, 0),
+               "peak_bytes_over_the_dataset": peak,
+               "points_bytes": points_bytes,
+               "fit_seconds": wall,
+               "seconds_per_iteration": km.iter_times_[0],
+               # The first single fit captures its graph: the other three.
+               "single_fit_seconds_per_iteration": statistics.median(
+                   one.iter_times_[0] for _, one in singles[1:]),
+               "bit_equal_to_single_fits": same}
+        records.append(rec)
+        emit("multi_fit", **rec)
+    return counts
+
+
+def _seeding_sse(ds, centroids, mode):
+    step = dist.make_step_fn(chunk_size=ds.n, mode=mode,
+                             need_farthest=False, need_sse_pc=False)
+    return float(step(ds.points, ds.weights,
+                      torch.as_tensor(centroids, device=DEV),
+                      dist.dataset_sqnorm(ds)).sse)
+
+
+def buffer_case(name, x, buf, bf16):
+    """Kernel 2 (2b) against its plain version on the main data at one
+    table of the k-means|| pipeline (slots holding the buffer's sentinel,
+    ``seeding._CAND_SENTINEL``, mixed in where a round drew fewer than
+    ``cap`` rows): no sentinel slot wins a row under either, their labels
+    agree outside the band of the real rows (ops/compare.py), and so does
+    ``mind2`` where the labels agree."""
+    real = (buf != seeding._CAND_SENTINEL).any(dim=1)
+    to_real = torch.full((buf.shape[0],), -1, dtype=torch.int64, device=DEV)
+    to_real[real] = torch.arange(int(real.sum()), device=DEV)
+    la, ma = hk.hopper_assign(x, buf, bf16=bf16)
+    lr, mr = hk.assign_reference(x, buf, bf16=bf16)
+    torch.cuda.synchronize()
+    ka, kr = to_real[la.to(torch.int64)], to_real[lr.to(torch.int64)]
+    check(bool((ka >= 0).all()) and bool((kr >= 0).all()),
+          f"{name}: a sentinel slot won {int((ka < 0).sum())} rows of the "
+          f"kernel, {int((kr < 0).sum())} of the plain version")
+    c = buf[real]
+    n_diff, n_out = label_band(x, c, ka, kr, bf16)
+    check(n_out == 0, f"{name}: {n_out} labels of kernel 2 differ from the "
+                      f"plain version outside the margin band")
+    same = ka == kr
+    check(close(ma[same], mr[same], cmp.MIND2_RTOL, cmp.mind2_atol(x, c)),
+          f"{name}: mind2 of kernel 2 disagrees")
+    return {"case": name, "n": x.shape[0], "k": buf.shape[0],
+            "sentinel_slots": int((~real).sum()), "bf16": bf16,
+            "label_diff": n_diff, "label_diff_in_band": n_diff - n_out,
+            "mind2_err": max_err(ma[same], mr[same])}
+
+
+def phase_kmeans_parallel(x, forgy_fit, seeding_records):
+    """``init='k-means||'`` at k = 1024 on the main data in 'kernel' and
+    'kernel_bf16': the seeding's seconds beside phase ``seeding``'s
+    k-means++ device draws, kernel 2 (2b) launched 1 + rounds + 1 times
+    (the first candidate's fold, one fold per round, the mass pass), k
+    distinct rows, the seeding's SSE beside k-means++'s, and the SSE of a
+    5-iteration fit from it beside the Forgy and k-means++ fits.  Then
+    kernel 2 (2b) against its plain version at the tables the seeding hands
+    it, from the buffer the pipeline built (``buffer_case``): the first
+    candidate (k = 1), one round's ``cap`` slots, and the whole buffer of
+    the mass pass."""
+    counts = {}
+    kmpp = next(r for r in seeding_records if r["data"] == "main")
+    ds = KMeans(k=MAIN["k"], verbose=False).cache(x)
+    pp = KMeans(k=MAIN["k"], max_iter=MAIN["iters"], seed=7,
+                compute_sse=True, init="k-means++", verbose=False)
+    pp_seeds = pp._init_centroids(ds, 7)
+    pp.fit(ds)
+    rounds = max(5, -(-int(1.5 * MAIN["k"]) // min(2 * MAIN["k"], 2048)))
+    for label, mode in (("kmeans_parallel", "kernel"),
+                        ("kmeans_parallel_bf16", "kernel_bf16")):
+        suffix = "_bf16" if mode == "kernel_bf16" else ""
+        seeding.kmeans_parallel_init(ds, MAIN["k"], 7, mode=mode)  # warm
+        torch.cuda.synchronize()
+        hk.reset_launch_counts()         # this path's own counts
+        t0 = time.perf_counter()
+        seeds = seeding.kmeans_parallel_init(ds, MAIN["k"], 7, mode=mode)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = check_path_launches(label)
+        counts[label] = launches
+        want = rounds + 2
+        check(launches["hopper_assign" + suffix] == want,
+              f"{label}: kernel 2 launched "
+              f"{launches['hopper_assign' + suffix]} times, not {want}")
+        distinct = len(np.unique(seeds, axis=0))
+        check(distinct == MAIN["k"] and np.isfinite(seeds).all(),
+              f"{label}: {distinct} distinct rows of {MAIN['k']}")
+        fit = KMeans(k=MAIN["k"], max_iter=MAIN["iters"], seed=7,
+                     compute_sse=True, init="k-means||", verbose=False,
+                     distance_mode=mode).fit(ds)
+        emit("kmeans_parallel", mode=mode, k=MAIN["k"], rounds=rounds,
+             seconds=seconds, kmeanspp_device_seconds=kmpp["device_seconds"],
+             kernel2_launches=launches["hopper_assign" + suffix],
+             seeding_sse=_seeding_sse(ds, seeds, "kernel"),
+             kmeanspp_seeding_sse=_seeding_sse(ds, pp_seeds, "kernel"),
+             fit_sse_history=fit.sse_history,
+             kmeanspp_fit_sse_history=pp.sse_history,
+             forgy_fit_sse_history=forgy_fit.sse_history)
+        cap = min(2 * MAIN["k"], 2048)
+        _, buf, _, _ = seeding._parallel_pipeline(
+            ds, ds.points, ds.weights, MAIN["k"], 7, rounds=rounds, cap=cap,
+            ell=2.0 * MAIN["k"], refine=4, mode=mode)
+        bf16 = mode == "kernel_bf16"
+        emit("kmeans_parallel_kernel_cases", mode=mode, cases=[
+            buffer_case(f"{label}_first", ds.points, buf[:1], bf16),
+            buffer_case(f"{label}_round", ds.points, buf[1:1 + cap], bf16),
+            buffer_case(f"{label}_buffer", ds.points, buf, bf16)])
+    return counts
+
+
+def phase_sweep(x):
+    """``KMeans.sweep`` on the main data, k in SWEEP_KS, 'kernel', criterion
+    'inertia', 5 iterations: batched (one device loop of the three
+    members, each member's kernel 1 at its own k) and ``batched=0`` (one
+    device-loop fit per member) select the same k with bit-equal member
+    inertias.  Then the per-k winners scored by
+    ``metrics.batched_criterion_scores(..., 'silhouette',
+    sample_size=SWEEP_SILHOUETTE_ROWS)`` (the sweep's own silhouette is the
+    full O(n^2 D) score), their labels by one packed pass.  Kernels 1 and 2
+    against their plain versions at each member's k, on the main data and
+    the winner's table (``compare_case``)."""
+    from kmeans_tpu_torch import metrics
+    km = KMeans(k=MAIN["k"], max_iter=MAIN["iters"], seed=42,
+                compute_sse=True, init="forgy", verbose=False,
+                distance_mode="pallas")
+    ds = km.cache(x)
+    hk.reset_launch_counts()             # this path's own counts
+    t0 = time.perf_counter()
+    batched = km.sweep(ds, k_range=SWEEP_KS, criterion="inertia")
+    torch.cuda.synchronize()
+    batched_s = time.perf_counter() - t0
+    launches = check_path_launches("sweep")
+    t0 = time.perf_counter()
+    sequential = km.sweep(ds, k_range=SWEEP_KS, criterion="inertia",
+                          batched=0)
+    sequential_s = time.perf_counter() - t0
+    check(batched.selected_k == sequential.selected_k
+          and np.array_equal(batched.member_scores,
+                             sequential.member_scores),
+          f"sweep: batched {batched.selected_k} "
+          f"{batched.member_scores.ravel()} against sequential "
+          f"{sequential.selected_k} {sequential.member_scores.ravel()}")
+    k_max = max(SWEEP_KS)
+    stack = torch.full((len(SWEEP_KS), k_max, MAIN["d"]),
+                       dist.PAD_CENTROID_VALUE, device=DEV)
+    for i, c in enumerate(batched.winner_centroids):
+        stack[i, : c.shape[0]] = torch.from_numpy(c).to(DEV)
+    labels = dist.make_multi_predict_fn(
+        chunk_size=1 << 15, mode="kernel", n_models=len(SWEEP_KS))(
+        x, stack).cpu().numpy()
+    t0 = time.perf_counter()
+    sil = metrics.batched_criterion_scores(
+        x.cpu().numpy(), labels, "silhouette",
+        sample_size=SWEEP_SILHOUETTE_ROWS)
+    sil_s = time.perf_counter() - t0
+    check(np.isfinite(sil).all() and (np.abs(sil) <= 1).all(),
+          f"sweep: silhouette scores {sil}")
+    ones = torch.ones(MAIN["n"], device=DEV)
+    cases = [compare_case(f"sweep_k{c.shape[0]}", x, ones,
+                          torch.from_numpy(np.asarray(c, np.float32)).to(DEV),
+                          unit_weights=True)
+             for c in batched.winner_centroids]
+    emit("sweep", n=MAIN["n"], d=MAIN["d"], k_range=list(SWEEP_KS),
+         criterion="inertia", selected_k=batched.selected_k,
+         member_inertias=batched.member_scores.ravel().tolist(),
+         n_iters=batched.n_iters.ravel().tolist(),
+         batched_seconds=batched_s, sequential_seconds=sequential_s,
+         kernel1_launches_batched=launches["fused_assign_reduce"],
+         silhouette_sampled=sil.tolist(),
+         silhouette_rows=SWEEP_SILHOUETTE_ROWS, silhouette_seconds=sil_s,
+         kernel_cases=cases)
+    return {"sweep": launches}
 
 
 # -------------------------------------------------------------------- timing
@@ -1833,6 +2261,7 @@ def main() -> None:
     errs = {}
     for bf16 in (False, True):
         records = phase_kernels(x_main, c_main, second, bf16)
+        phase_sentinels(bf16)
         main_rec = next(r for r in records if r["case"] == "main_shape")
         suffix = "_bf16" if bf16 else ""
         errs["fused_assign_reduce" + suffix] = max(
@@ -1861,6 +2290,9 @@ def main() -> None:
     device_seconds, device_models = phase_device_loop(
         x_main, {"main": (km, km_wall), "main_bf16": (km_bf16, km_bf16_wall)})
     phase_transform(km, x_main)
+    phase_guarded(x_main, {"main_bf16": (km_bf16, km_bf16_wall)},
+                  device_seconds)
+    slice_counts = phase_multi_fit(x_main)
 
     fit_shape(x2, SECOND, "glove_like")
     check_path_launches("glove_like")
@@ -1877,7 +2309,9 @@ def main() -> None:
     gmm_main = estep_records[0]
     gm, gmm_launches, gmm_fit_seconds = phase_gmm(x_gmm)
     phase_gmm_setup(x_gmm, gm, gmm_fit_seconds)
-    _, drawn = phase_seeding(x_main, x_gmm)
+    seeding_records, drawn = phase_seeding(x_main, x_gmm)
+    slice_counts.update(phase_kmeans_parallel(x_main, km, seeding_records))
+    slice_counts.update(phase_sweep(x_main))
     phase_gmm_offset()
     phase_gmm_float64()
 
@@ -1913,6 +2347,9 @@ def main() -> None:
         row["mesh_launches"] = {path: c[row["name"]]
                                 for path, c in mesh_counts.items()
                                 if c.get(row["name"], 0) > 0}
+        row["model_selection_launches"] = {
+            path: c[row["name"]] for path, c in slice_counts.items()
+            if c.get(row["name"], 0) > 0}
 
     emit("total", seconds=time.perf_counter() - started)
     print(json.dumps({"kernels": rows}), flush=True)

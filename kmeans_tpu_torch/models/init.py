@@ -1,9 +1,10 @@
-"""Centroid initialisation: Forgy and k-means++.
+"""Centroid initialisation: Forgy, k-means++ and k-means||.
 
 Counterpart of ``kmeans_tpu/models/init.py`` (``forgy_init``,
-``kmeanspp_init``, ``_weighted_kmeanspp_host``, ``resolve_init``).  Every
-random draw happens on the host with the same NumPy generators as the JAX
-package (``np.random.RandomState(seed)`` for Forgy,
+``kmeanspp_init``, ``_weighted_kmeanspp_host``, ``kmeans_parallel_init``
+with its pipeline and host engine, ``resolve_init``).  Forgy's and
+k-means++'s random draws happen on the host with the same NumPy generators
+as the JAX package (``np.random.RandomState(seed)`` for Forgy,
 ``np.random.default_rng(seed)`` for k-means++), so the same seed gives the
 same initial centroids in both packages whenever the data has a host copy.
 On data too large for the host (or without a host copy) k-means++ keeps its
@@ -14,6 +15,9 @@ host copy is absent or too large, the draws run on the devices of the mesh
 (:func:`_kmeanspp_sharded_draws`), the same rows as one device would draw.
 Every version keeps its ``mind2`` by one helper, :func:`update_mind2`,
 which works in fixed blocks of rows and never makes an (n, D) temporary.
+k-means|| (:func:`kmeans_parallel_init`) runs on the dataset's device with
+a seeded ``torch.Generator``: its folds and its mass pass go through
+kernel 2 (2b) in the kernel modes.
 
 All entry points accept a host ``(n, D)`` array or a
 ``parallel.sharding.Dataset`` (row access through ``.take``).
@@ -358,33 +362,495 @@ def kmeanspp_init(X, k: int, seed: int, *, validate: bool = True
                                    points=None if mesh else points)
 
 
-INITIALIZERS = {"forgy": forgy_init, "random": forgy_init,
-                "k-means++": kmeanspp_init, "kmeans++": kmeanspp_init}
+# ---------------------------------------------------------------- k-means||
 
-_LATER_INITIALIZERS = ("k-means||", "kmeans||")
+#: Coordinates of the unused slots of the k-means|| candidate buffer: far
+#: beyond any real row and finite in float32 after squaring (the JAX
+#: package's ``_CAND_SENTINEL``), so a sentinel slot never wins a minimum
+#: and earns no cell mass, and every pass over the buffer runs unmasked.
+_CAND_SENTINEL = 1e12
+
+#: The modes whose folds and mass pass run the assignment kernel (kernel 2,
+#: or 2b in 'kernel_bf16').
+_KERNEL_MODES = ("kernel", "kernel_bf16")
+
+
+def _tile_rows(n: int, width: int) -> int:
+    """Rows of a (rows, width) distance tile of the torch passes: about
+    2^23 elements (the JAX package's fold and mass chunks)."""
+    return int(min(n, max(128, (1 << 23) // max(width, 64) // 8 * 8)))
+
+
+def _assign(points: torch.Tensor, cands: torch.Tensor, mode: str,
+            need_min: bool):
+    """Labels (int64) and minimum squared distances of the rows against
+    the candidates: kernel 2 (2b) in the kernel modes, else the chunked
+    'matmul' pass (float32 products, ``ops.assign.pairwise_sq_dists``)."""
+    from kmeans_tpu_torch.ops.assign import pairwise_sq_dists
+    from kmeans_tpu_torch.ops.hopper_kernels import hopper_assign
+    if mode in _KERNEL_MODES:
+        labels, mind2 = hopper_assign(points.to(torch.float32),
+                                      cands.to(torch.float32),
+                                      bf16=mode == "kernel_bf16")
+        return labels.to(torch.int64), mind2
+    n = points.shape[0]
+    rows = _tile_rows(n, cands.shape[0])
+    labels = torch.empty(n, dtype=torch.int64, device=points.device)
+    mind2 = torch.empty(n, dtype=torch.promote_types(points.dtype,
+                                                     torch.float32),
+                        device=points.device) if need_min else None
+    for lo in range(0, n, rows):
+        d2 = pairwise_sq_dists(points[lo:lo + rows], cands, mode="matmul")
+        labels[lo:lo + rows] = torch.argmin(d2, dim=1)
+        if need_min:
+            mind2[lo:lo + rows] = d2.min(dim=1).values
+    return labels, mind2
+
+
+def fold_candidates(points: torch.Tensor, mind2: torch.Tensor,
+                    cands: torch.Tensor, *, mode: str = "matmul"
+                    ) -> torch.Tensor:
+    """``mind2 <- min(mind2, d^2(points, cands))``, in place and returned:
+    one distance pass over the rows for all the candidates (the JAX
+    package's ``_fold_candidates``).  Sentinel rows lose every minimum, so
+    the buffer needs no mask.  The kernel modes read kernel 2's (2b's)
+    ``mind2``; the torch modes the float32 'matmul' tile."""
+    _, m = _assign(points, cands, mode, need_min=True)
+    torch.minimum(mind2, m.to(mind2.dtype), out=mind2)
+    return mind2
+
+
+def segment_sum(labels: torch.Tensor, w: torch.Tensor, m: int
+                ) -> torch.Tensor:
+    """``sum of w`` per label 0..m-1, float64, in an order that does not
+    depend on the device's scheduling: the rows sorted by label (a stable
+    sort), one cumulative sum, differences at the label boundaries.  (An
+    ``index_add_`` on the card adds in the order its atomics land.)"""
+    order = torch.argsort(labels, stable=True)
+    sorted_labels = labels.index_select(0, order)
+    cs = torch.cumsum(w.to(torch.float64).index_select(0, order), 0)
+    cs = torch.cat([cs.new_zeros(1), cs])
+    ids = torch.arange(m, device=labels.device, dtype=sorted_labels.dtype)
+    lo = torch.searchsorted(sorted_labels, ids)
+    hi = torch.searchsorted(sorted_labels, ids, right=True)
+    return cs.index_select(0, hi) - cs.index_select(0, lo)
+
+
+def cell_mass(points: torch.Tensor, weights: torch.Tensor,
+              cands: torch.Tensor, *, mode: str = "matmul", mesh=None
+              ) -> torch.Tensor:
+    """The weighted count of rows nearest each candidate (float64 (m,)),
+    summed over the data axis of ``mesh``: one assignment pass (kernel 2 or
+    2b in the kernel modes) and :func:`segment_sum`."""
+    labels, _ = _assign(points, cands, mode, need_min=False)
+    mass = segment_sum(labels, weights, cands.shape[0])
+    if mesh is not None:
+        mass = _mesh.all_reduce(mass, mesh, (_mesh.DATA_AXIS,))
+    return mass
+
+
+def gumbel(shape, gen: torch.Generator, dtype, device) -> torch.Tensor:
+    """Standard Gumbel noise ``-log(-log(u))`` from ``gen``."""
+    tiny = torch.finfo(dtype).tiny
+    u = torch.rand(shape, generator=gen, dtype=dtype, device=device)
+    return -torch.log(-torch.log(u.clamp(min=tiny)))
+
+
+def kmeanspp_gumbel(points: torch.Tensor, weights: torch.Tensor, k: int,
+                    noise: torch.Tensor) -> torch.Tensor:
+    """Weighted D^2 seeding by Gumbel-max draws (the JAX package's
+    ``_kmeanspp_body``): draw i is ``argmax(log p + noise[i])`` with ``p``
+    the weights for the first draw and ``w * mind2`` after it; where every
+    mass is 0 (coincident points) a draw falls back to the weights.
+    ``noise`` (k, n) holds the draws' Gumbel noise, so the centres (k, D)
+    follow from the draws given.  Runs on ``points``' device; nothing is
+    read to the host."""
+    n, d = points.shape
+    neg_inf = torch.full((), float("-inf"), dtype=points.dtype,
+                         device=points.device)
+    w_logits = torch.where(weights > 0,
+                           torch.log(torch.clamp_min(weights, 1e-38)),
+                           neg_inf)
+
+    def draw(logits, g):
+        logits = torch.where(torch.isfinite(logits).any(), logits, w_logits)
+        return torch.argmax(logits + g).reshape(1)
+
+    centers = torch.zeros((k, d), dtype=points.dtype, device=points.device)
+    centers[0] = points.index_select(0, draw(w_logits, noise[0]))[0]
+    mind2 = torch.full((n,), float("inf"), dtype=points.dtype,
+                       device=points.device)
+    for i in range(1, k):
+        diff = points - centers[i - 1][None, :]
+        mind2 = torch.minimum(mind2, (diff * diff).sum(dim=1))
+        p = weights * mind2
+        logits = torch.where(p > 0, torch.log(p), neg_inf)
+        centers[i] = points.index_select(0, draw(logits, noise[i]))[0]
+    return centers
+
+
+def refine_centers(cands: torch.Tensor, mass: torch.Tensor,
+                   centers: torch.Tensor, steps: int) -> torch.Tensor:
+    """``steps`` weighted Lloyd steps on the candidate table (the JAX
+    pipeline's ``refine``): each candidate to its nearest centre by the
+    'matmul' tile, one-hot sums weighted by ``mass``, a centre without
+    mass kept."""
+    from kmeans_tpu_torch.ops.assign import _accum_dtype, pairwise_sq_dists
+    acc = _accum_dtype(cands.dtype)
+    x = cands.to(acc)
+    ids = torch.arange(centers.shape[0], device=cands.device)
+    m = mass.to(acc)
+    for _ in range(steps):
+        best = torch.argmin(pairwise_sq_dists(x, centers.to(acc)), dim=1)
+        oh = (best[:, None] == ids[None, :]).to(acc) * m[:, None]
+        sums = oh.T @ x
+        counts = oh.sum(dim=0)
+        centers = torch.where(
+            (counts > 0)[:, None],
+            (sums / torch.clamp_min(counts, 1.0)[:, None]).to(centers.dtype),
+            centers)
+    return centers
+
+
+def _per_row(src, n_local: int):
+    """A function that takes a draw made for every global row (a tensor of
+    ``src.n`` entries) to this block's rows, 0 on its padding rows: the
+    draws of a row are then the same whatever the number of ranks, and a
+    mesh seeds as one device does."""
+    if getattr(src, "mesh", None) is None:
+        return lambda t: t
+    first, real = int(src.offset), int(src.local_rows)
+
+    def take(t):
+        mine = t[first:first + real]
+        if real == n_local:
+            return mine
+        return torch.cat([mine, mine.new_zeros(n_local - real)])
+    return take
+
+
+def _row_of_max(score: torch.Tensor, points: torch.Tensor, mesh):
+    """The row (D,) of the largest ``score`` over every rank, replicated:
+    the local first maximum, the largest over the data axis (MAX), the
+    lowest data index holding it (MIN), its row (SUM, zeros elsewhere)."""
+    j = torch.argmax(score).reshape(1)
+    row = points.index_select(0, j)[0]
+    if mesh is None:
+        return row
+    best = score.index_select(0, j)
+    top = _mesh.all_reduce(best.clone(), mesh, (_mesh.DATA_AXIS,), "max")
+    d_idx, shards = _mesh.coords(mesh)[0], _mesh.mesh_shape(mesh)[0]
+    cand = torch.where(best == top, torch.full_like(j, d_idx),
+                       torch.full_like(j, shards))
+    win = _mesh.all_reduce(cand, mesh, (_mesh.DATA_AXIS,), "min")
+    return _mesh.all_reduce(torch.where(win == d_idx, row,
+                                        torch.zeros_like(row)),
+                            mesh, (_mesh.DATA_AXIS,))
+
+
+def _top_candidates(score, points, cap: int, mesh):
+    """The ``cap`` largest scores over every rank and their rows (the JAX
+    package's per-shard ``top_k`` then exact cross-shard combine, with the
+    combine a SUM of zero-embedded blocks: every global top-cap entry is in
+    its own rank's top-cap)."""
+    vals, idx = torch.topk(score, cap)
+    rows = points.index_select(0, idx)
+    if mesh is None:
+        return vals, rows
+    d_idx, shards = _mesh.coords(mesh)[0], _mesh.mesh_shape(mesh)[0]
+    all_vals = vals.new_zeros((shards, cap))
+    all_rows = rows.new_zeros((shards, cap, rows.shape[1]))
+    all_vals[d_idx] = vals
+    all_rows[d_idx] = rows
+    all_vals = _mesh.all_reduce(all_vals, mesh, (_mesh.DATA_AXIS,))
+    all_rows = _mesh.all_reduce(all_rows, mesh, (_mesh.DATA_AXIS,))
+    vals, j = torch.topk(all_vals.reshape(-1), cap)
+    return vals, all_rows.reshape(-1, rows.shape[1]).index_select(0, j)
+
+
+def _parallel_pipeline(src, points, weights, k: int, seed: int, *,
+                       rounds: int, cap: int, ell: float, refine: int,
+                       mode: str):
+    """The k-means|| pipeline on the device (the JAX package's
+    ``_build_parallel_pipeline``): a weight-proportional first draw, then
+    ``rounds`` Bernoulli rounds of up to ``cap`` candidates each into a
+    fixed buffer (sentinels in the slots left over), each round's new rows
+    folded into ``mind2``, the cell mass of the buffer, and a weighted
+    k-means++ reduce plus ``refine`` Lloyd steps on the buffer.  Every
+    random number comes from one ``torch.Generator`` seeded with ``seed``
+    on the device, drawn per global row; nothing is read to the host until
+    the centres.  Returns ``(centres, buffer, valid, mass)``."""
+    mesh = getattr(src, "mesh", None)
+    dev = points.device
+    n_local, d = points.shape
+    acc = torch.promote_types(points.dtype, torch.float32)
+    w = weights.to(acc)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    per_row, total = _per_row(src, n_local), int(src.n)
+    cap_total = 1 + rounds * cap
+
+    neg_inf = torch.full((), float("-inf"), dtype=acc, device=dev)
+    w_logits = torch.where(w > 0, torch.log(torch.clamp_min(w, 1e-38)),
+                           neg_inf)
+    c0 = _row_of_max(w_logits + per_row(gumbel(total, gen, acc, dev)),
+                     points, mesh)
+    buf = torch.full((cap_total, d), _CAND_SENTINEL, dtype=points.dtype,
+                     device=dev)
+    buf[0] = c0
+    valid = torch.zeros(cap_total, dtype=torch.bool, device=dev)
+    valid[0] = True
+    mind2 = fold_candidates(points, torch.full((n_local,), float("inf"),
+                                               dtype=acc, device=dev),
+                            buf[:1], mode=mode)
+    tiny = torch.finfo(acc).tiny
+    for r in range(rounds):
+        phi = (w * mind2).sum()
+        if mesh is not None:
+            phi = _mesh.all_reduce(phi.reshape(1), mesh,
+                                   (_mesh.DATA_AXIS,))[0]
+        p = torch.clamp_max(ell * w * mind2 / torch.clamp_min(phi, tiny),
+                            1.0)
+        u = per_row(torch.rand(total, generator=gen, dtype=acc, device=dev))
+        score = torch.where((u < p) & (w > 0), 1.0 + u,
+                            torch.zeros_like(u))
+        vals, rows = _top_candidates(score, points, cap, mesh)
+        ok = vals > 0
+        rows = torch.where(ok[:, None], rows,
+                           torch.full_like(rows, _CAND_SENTINEL))
+        fold_candidates(points, mind2, rows, mode=mode)
+        buf[1 + r * cap: 1 + (r + 1) * cap] = rows
+        valid[1 + r * cap: 1 + (r + 1) * cap] = ok
+    mass = cell_mass(points, w, buf, mode=mode, mesh=mesh)
+    mass_pos = torch.where(valid, torch.clamp_min(mass, 1e-12),
+                           torch.zeros_like(mass)).to(buf.dtype)
+    centers = kmeanspp_gumbel(buf, mass_pos, k,
+                              gumbel((k, cap_total), gen, buf.dtype, dev))
+    centers = refine_centers(buf, mass_pos, centers, refine)
+    return centers, buf, valid, mass
+
+
+def _distinct_backfill(centers: np.ndarray, src, k: int, seed: int
+                       ) -> np.ndarray:
+    """Duplicate rows of a (k, D) centre table replaced by seeded uniform
+    positive-weight rows (the JAX package's ``_distinct_backfill``, the
+    same generator ``default_rng([seed, 0xBF11])``): reached only on tiny
+    or degenerate data, where the rounds cannot find k distinct
+    candidates.  Without row access (process-local data) the table is
+    returned as it is."""
+    _, first = np.unique(centers, axis=0, return_index=True)
+    if len(first) >= k:
+        return centers
+    try:
+        cand_idx = src.positive_rows()
+    except ValueError:
+        return centers
+    keep = np.zeros(k, bool)
+    keep[first] = True
+    dup = np.flatnonzero(~keep)
+    rng = np.random.default_rng([seed, 0xBF11])
+    take = cand_idx[rng.choice(len(cand_idx),
+                               size=min(len(dup), len(cand_idx)),
+                               replace=False)]
+    rows = np.asarray(src.take(take))
+    centers[dup[: len(rows)]] = rows
+    return centers
+
+
+def _parallel_round(weights, mind2, phi, u, ell: float, cap: int):
+    """One Bernoulli round of the host engine (the JAX package's
+    ``_parallel_round``): each row sampled with probability ``min(1, ell w
+    mind2 / phi)`` from the uniforms ``u``; up to ``cap`` of the sampled
+    rows, ``(indices, valid)``."""
+    tiny = torch.finfo(mind2.dtype).tiny
+    p = torch.clamp_max(ell * weights * mind2 / max(float(phi), tiny), 1.0)
+    sampled = (u < p) & (weights > 0)
+    score = torch.where(sampled, 1.0 + u, torch.zeros_like(u))
+    vals, idx = torch.topk(score, cap)
+    return idx, vals > 0
+
+
+def _kmeans_parallel_host(src, points, weights, k: int, seed: int, *,
+                          rounds: int, cap: int, ell: float, mode: str,
+                          return_candidates: bool = False):
+    """The ``device=False`` engine (the JAX package's
+    ``_kmeans_parallel_host``): the rounds' candidates kept on the host
+    (one copy per round), made distinct, backfilled uniformly where fewer
+    than k, weighted by their cell mass and reduced by the host's weighted
+    k-means++ (``np.random.default_rng(seed)``, which also draws the first
+    candidate).  The rounds' uniforms come from a ``torch.Generator``
+    seeded with ``seed``."""
+    candidates_idx = src.positive_rows()
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=points.device).manual_seed(int(seed))
+    sw = getattr(src, "host_weights", None)
+    if sw is None:
+        first = int(candidates_idx[rng.integers(len(candidates_idx))])
+    else:
+        pw = np.asarray(sw, dtype=np.float64)[candidates_idx]
+        first = int(candidates_idx[rng.choice(len(candidates_idx),
+                                              p=pw / pw.sum())])
+    acc = torch.promote_types(points.dtype, torch.float32)
+    w = weights.to(acc)
+    cand_rows = [np.asarray(src.take(np.array([first])))]
+    cand_valid = [np.ones(1, bool)]
+    mind2 = fold_candidates(
+        points, torch.full((points.shape[0],), float("inf"), dtype=acc,
+                           device=points.device),
+        torch.from_numpy(cand_rows[0]).to(points.device, points.dtype),
+        mode=mode)
+    for _ in range(rounds):
+        phi = (torch.where(w > 0, mind2 * w, torch.zeros_like(w))).sum()
+        u = torch.rand(points.shape[0], generator=gen, dtype=acc,
+                       device=points.device)
+        idx, ok = _parallel_round(w, mind2, phi, u, ell, cap)
+        rows = points.index_select(0, idx)
+        cand_rows.append(rows.cpu().numpy())
+        cand_valid.append(ok.cpu().numpy())
+        fold_candidates(points, mind2, torch.where(
+            ok[:, None], rows, torch.full_like(rows, _CAND_SENTINEL)),
+            mode=mode)
+    cands = np.concatenate(cand_rows)[np.concatenate(cand_valid)]
+    cands = np.unique(cands, axis=0)
+    if len(cands) < k:                       # tiny data: backfill uniformly
+        extra = src.take(candidates_idx[rng.choice(
+            len(candidates_idx), size=k - len(cands), replace=False)])
+        cands = np.concatenate([cands, np.asarray(extra)])
+    mass = cell_mass(points, w, torch.from_numpy(cands).to(
+        points.device, points.dtype), mode=mode).cpu().numpy()
+    mass = np.maximum(mass, 1e-12)
+    centers = _weighted_kmeanspp_host(cands.astype(np.float64), mass, k,
+                                      rng).astype(cands.dtype)
+    if return_candidates:
+        return centers, cands, mass
+    return centers
+
+
+def kmeans_parallel_init(X, k: int, seed: int, *, rounds: int = 5,
+                         oversampling: Optional[float] = None,
+                         validate: bool = True, device=True,
+                         cap: Optional[int] = None, refine: int = 4,
+                         return_candidates: bool = False,
+                         mode: Optional[str] = None) -> np.ndarray:
+    """k-means|| seeding (Bahmani et al. 2012), the JAX package's
+    ``kmeans_parallel_init``: ``rounds`` passes that each Bernoulli-sample
+    about ``oversampling`` x k (default 2k) candidates by their D^2 cost,
+    then the candidates weighted by their cell mass and reduced to k
+    centres by weighted k-means++, instead of k-means++'s k passes.
+
+    ``device=True`` runs the pipeline (:func:`_parallel_pipeline`) on the
+    dataset's device (over the data axis of a mesh), and a host array on
+    the card, as every entry point of the port; a device (``'cpu'``,
+    ``'cuda:1'``) places a host array there instead.  ``False`` runs the
+    host engine (:func:`_kmeans_parallel_host`, torch on the CPU over the
+    host copy; over a mesh every rank alike).  ``cap`` is the
+    candidates kept per round (default ``clamp(2k, 256, 2048)``, at most the
+    rows of a block), and the rounds are raised until they can hold 1.5 k.
+    ``refine`` weighted Lloyd steps polish the reduce (device engine).
+    ``mode`` is the distance mode of the folds and the mass pass: in
+    'kernel' and 'kernel_bf16' they run kernel 2 and 2b, in the torch modes
+    the float32 'matmul' tile (None: 'kernel' on a CUDA device, else
+    'matmul').  The random streams are the
+    port's own (``torch.Generator``): the same seed gives the same
+    centres, not the JAX package's.  ``return_candidates=True`` also
+    returns the valid candidates and their cell masses."""
+    src = as_source(X)
+    points = getattr(src, "points", None)
+    weights = getattr(src, "weights", None)
+    if points is None or (device is False and getattr(src, "mesh", None)):
+        # A host array, or the host engine over a mesh (torch on the CPU
+        # over the whole host copy, every rank the same draws).  The device
+        # engine takes a host array to the card unless asked otherwise.
+        from kmeans_tpu_torch.models.kmeans import resolve_device
+        src.positive_rows()              # a mesh without a host copy raises
+        on = torch.device("cpu") if device is False else resolve_device(
+            None if device is True else device)
+        points = torch.from_numpy(np.ascontiguousarray(src.host)).to(on)
+        weights = (torch.ones(src.n, dtype=points.dtype, device=on)
+                   if src.host_weights is None
+                   else torch.from_numpy(np.asarray(
+                       src.host_weights, dtype=src.host.dtype)).to(on))
+    n_pos = (src.positive_count() if hasattr(src, "positive_count")
+             else len(src.positive_rows()))
+    if n_pos < k:
+        raise ValueError(f"Not enough data points ({n_pos}) to initialize "
+                         f"{k} clusters")
+    host = getattr(src, "host", None)
+    if validate:
+        if host is not None:
+            check_finite_array(host, "Data contains NaN or Inf values")
+        else:
+            finite = torch.isfinite(points).all().to(torch.int32).reshape(1)
+            if not int(_mesh.all_reduce(finite, getattr(src, "mesh", None),
+                                        (_mesh.DATA_AXIS,), "min")):
+                raise ValueError("Data contains NaN or Inf values")
+    if mode is None:
+        mode = "kernel" if points.is_cuda else "matmul"
+    n_local = points.shape[0]
+    ell = float(oversampling if oversampling is not None else 2 * k)
+    cap = int(min(max(2 * k, 256), 2048, n_local)) if cap is None \
+        else int(min(max(int(cap), 1), n_local))
+    rounds = max(rounds, -(-int(1.5 * k) // cap))  # at least 1.5 k samples
+    if device is False:
+        return _kmeans_parallel_host(src, points, weights, k, seed,
+                                     rounds=rounds, cap=cap, ell=ell,
+                                     mode=mode,
+                                     return_candidates=return_candidates)
+    centers, buf, valid, mass = _parallel_pipeline(
+        src, points, weights, k, seed, rounds=rounds, cap=cap, ell=ell,
+        refine=refine, mode=mode)
+    centers = _distinct_backfill(centers.cpu().numpy(), src, k, seed)
+    if validate:
+        check_finite_array(centers, "Data contains NaN or Inf values")
+    if return_candidates:
+        v = valid.cpu().numpy()
+        return centers, buf.cpu().numpy()[v], mass.cpu().numpy()[v]
+    return centers
+
+
+def streamed_kmeans_parallel_init(*args, **kwargs):
+    """k-means|| over a stream of blocks: not ported yet (it reads the
+    data block by block through ``data/prefetch.py``)."""
+    raise NotImplementedError(
+        "streamed k-means|| is not ported to kmeans_tpu_torch yet: "
+        "ROADMAP.md, A.10 'Streaming and ingest'")
+
+
+INITIALIZERS = {"forgy": forgy_init, "random": forgy_init,
+                "k-means++": kmeanspp_init, "kmeans++": kmeanspp_init,
+                "k-means||": kmeans_parallel_init,
+                "kmeans||": kmeans_parallel_init}
 
 
 def resolve_init(init, X, k: int, seed: int, *,
-                 validate: bool = True) -> np.ndarray:
+                 validate: bool = True, cap: Optional[int] = None,
+                 mode: Optional[str] = None) -> np.ndarray:
     """Dispatch: strategy name, callable ``init(X, k, seed)``, or an
-    explicit (k, D) array."""
+    explicit (k, D) array.  ``cap`` (``KMeans(init_cap=...)``) and ``mode``
+    (the model's distance mode) go to k-means||; ``cap`` with any other
+    strategy raises, as in the JAX package."""
     src = as_source(X)
     dtype = np.dtype(str(src.dtype))
+    parallel = isinstance(init, str) and \
+        INITIALIZERS.get(init) is kmeans_parallel_init
+    if cap is not None and not parallel:
+        raise ValueError(
+            "init_cap sizes the k-means|| candidate buffer and only "
+            "applies to init='k-means||'; got init="
+            + (repr(init) if isinstance(init, str) else "a non-strategy "
+               "init (array/callable)"))
     if callable(init):
         host = getattr(src, "host", None)
         return np.asarray(init(host if host is not None else src, k, seed),
                           dtype=dtype)
     if isinstance(init, str):
-        if init in _LATER_INITIALIZERS:
-            raise NotImplementedError(
-                f"init={init!r} is not ported yet: ROADMAP.md, A.5 "
-                f"'Batched restarts and k-means|| seeding'")
         try:
             fn = INITIALIZERS[init]
         except KeyError:
             raise ValueError(f"unknown init strategy: {init!r}; "
                              f"options: {sorted(INITIALIZERS)}") from None
-        return np.asarray(fn(src, k, seed, validate=validate), dtype=dtype)
+        kw = {"cap": cap, "mode": mode} if parallel else {}
+        return np.asarray(fn(src, k, seed, validate=validate, **kw),
+                          dtype=dtype)
     arr = np.asarray(init, dtype=dtype)
     if arr.shape != (k, src.d):
         raise ValueError(f"explicit init must have shape ({k}, "

@@ -66,14 +66,9 @@ from kmeans_tpu_torch.utils.validation import validate_params
 
 _EMPTY_POLICIES = ("resample", "farthest", "keep")
 _DISTANCE_MODES = ("auto", "kernel", "kernel_bf16", "matmul", "matmul_bf16",
-                   "direct")
+                   "matmul_bf16_guarded", "direct")
 #: The checkpoint format's (and the JAX package's) names of the kernel modes.
 _FORMAT_MODES = {"kernel": "pallas", "kernel_bf16": "pallas_bf16"}
-
-#: Distance modes of the JAX package that the port does not have yet.
-_LATER_MODES = {
-    "matmul_bf16_guarded": "A.1 'the guarded mode of ops/assign.py'",
-}
 
 #: Constructor arguments of the JAX package that the port does not have yet:
 #: name -> (the values that name what the port does anyway, ROADMAP item).
@@ -88,14 +83,15 @@ _LATER_ARGS = {
     "assign": (("auto", "dense"), "A.11 'Massive k and PQ'"),
     "coarse_cells": ((None,), "A.11 'Massive k and PQ'"),
     "nprobe": ((None,), "A.11 'Massive k and PQ'"),
-    "init_cap": ((None,), "A.5 'Batched restarts and k-means|| seeding'"),
 }
 
 
 #: Torch mode of each distance mode for the passes whose output is the
-#: distance itself (``transform``): no kernel returns distances.
+#: distance itself (``transform``): no kernel returns distances, and the
+#: guarded rung's values are the float32 class (``ops.assign.value_mode``).
 _VALUE_MODES = {"auto": "matmul", "kernel": "matmul",
-                "kernel_bf16": "matmul_bf16"}
+                "kernel_bf16": "matmul_bf16",
+                "matmul_bf16_guarded": "matmul"}
 
 
 class DispatchLatencyHint(UserWarning):
@@ -205,7 +201,12 @@ class KMeans:
         number of clusters; iteration cap; convergence threshold on the
         largest centroid shift; random seed (initialisation and
         empty-cluster resampling); whether to record ``sse_history``.
-    init : 'forgy' | 'k-means++' (or 'kmeans++') | callable | (k, D) array.
+    init : 'forgy' | 'k-means++' (or 'kmeans++') | 'k-means||' (or
+        'kmeans||') | callable | (k, D) array.  'k-means||' runs
+        ``models.init.kmeans_parallel_init``, its folds and its mass pass
+        through kernel 2 (2b) in the kernel modes.
+    init_cap : None or int >= 1.  The k-means|| candidates kept per round
+        (None: clamp(2k, 256, 2048)); only with init='k-means||'.
     n_init : int or 'auto'.  Independent restarts; restart 0 uses ``seed``
         itself, the rest seeds derived by ``np.random.SeedSequence(seed)``;
         the restart whose final centroids have the lowest inertia wins.
@@ -218,12 +219,19 @@ class KMeans:
         division and ``centroids`` stay float64; 'auto' is then 'matmul'.
     chunk_size : rows per chunk of the plain torch pass (None: automatic).
     distance_mode : 'auto' | 'kernel' | 'kernel_bf16' | 'matmul' |
-        'matmul_bf16' | 'direct'.  'kernel' is the fused CUDA kernel
+        'matmul_bf16' | 'matmul_bf16_guarded' | 'direct'.  'kernel' is the
+        fused CUDA kernel
         (float32), 'kernel_bf16' its bf16 form on the tensor cores (bf16
         products, float32 sums: approximate assignments for throughput);
         'pallas' and 'pallas_bf16', the JAX package's names of those modes
         (and the checkpoints'), are read as 'kernel' and 'kernel_bf16'.
-        'matmul_bf16' is the torch pass with the same bf16 rule.  On a CUDA
+        'matmul_bf16' is the torch pass with the same bf16 rule.
+        'matmul_bf16_guarded' is the guarded bf16 rung (``ops.assign``):
+        bf16 distance tiles, and a row whose argmin margin lies within
+        ``BF16_GUARD_RTOL`` of its distance scale takes the argmin of a
+        float32 tile, so its labels, sums and counts are those of
+        'matmul'; refused under a model axis and with 'farthest'; the
+        device loop publishes ``bf16_guard_corrected_rows_``.  On a CUDA
         device 'auto' is 'kernel' in float32, on the CPU or in float64 it is
         'matmul'; it is never a bf16 mode.
     host_loop : True | False | 'auto'.  True: the host loop, one step
@@ -250,14 +258,17 @@ class KMeans:
 
     The JAX package's other constructor arguments (``bucket``,
     ``overlap``, ``ingest``, ``k_shard``, ``assign``, ``coarse_cells``,
-    ``nprobe``, ``init_cap``) are taken only at the value that names what
-    this port does (dense assignment); any other value raises
-    ``NotImplementedError`` naming the ROADMAP item that brings it.
+    ``nprobe``) are taken only at the value that names what this port does
+    (dense assignment); any other value raises ``NotImplementedError``
+    naming the ROADMAP item that brings it.
 
-    After ``fit``: ``loop_path_`` is 'host' or 'device'; ``estep_path_``
-    the schedule that ran ('fused-pallas' in the kernel modes, else
-    'serial' or 'pipelined'); ``auto_rtt_`` the round trip that 'auto'
-    measured (None unless it measured one).
+    After ``fit``: ``loop_path_`` is 'host' or 'device' (``n_init`` > 1 on
+    the device loop runs every restart in one loop,
+    ``parallel.distributed.make_multi_fit_fn``); ``estep_path_`` the
+    schedule that ran ('fused-pallas' in the kernel modes, else 'serial' or
+    'pipelined'); ``auto_rtt_`` the round trip that 'auto' measured (None
+    unless it measured one); ``bf16_guard_corrected_rows_`` the rows the
+    guarded rung flagged over a device-loop fit (None otherwise).
     """
 
     _PARAM_NAMES = ("k", "max_iter", "tolerance", "seed", "compute_sse",
@@ -284,6 +295,7 @@ class KMeans:
                  device=None,
                  mesh=None,
                  model_shards: int = 1,
+                 init_cap: Optional[int] = None,
                  **later):
         _check_later_args(later)
         self.mesh = check_mesh(mesh)
@@ -325,13 +337,17 @@ class KMeans:
         self.chunk_size = chunk_size
         distance_mode = {v: k for k, v in _FORMAT_MODES.items()}.get(
             distance_mode, distance_mode)
-        if distance_mode in _LATER_MODES:
-            raise _later("distance_mode", distance_mode,
-                         _LATER_MODES[distance_mode])
         if distance_mode not in _DISTANCE_MODES:
             raise ValueError(f"distance_mode must be one of "
                              f"{_DISTANCE_MODES}, got {distance_mode!r}")
+        dist._check_guarded(distance_mode,
+                            mesh_shape(mesh)[1] if mesh is not None
+                            else int(model_shards), empty_cluster)
         self.distance_mode = distance_mode
+        if init_cap is not None and int(init_cap) < 1:
+            raise ValueError(f"init_cap must be >= 1 or None, "
+                             f"got {init_cap}")
+        self.init_cap = None if init_cap is None else int(init_cap)
         if pipeline not in ("auto", 0, 1, True, False):
             raise ValueError(f"pipeline must be 'auto', 0, or 1; got "
                              f"{pipeline!r}")
@@ -349,6 +365,7 @@ class KMeans:
         self.loop_path_: Optional[str] = None
         self.estep_path_: Optional[str] = None
         self.auto_rtt_: Optional[float] = None
+        self.bf16_guard_corrected_rows_: Optional[int] = None
 
         self.centroids: Optional[np.ndarray] = None
         self.sse_history: List[float] = []
@@ -481,8 +498,12 @@ class KMeans:
             self.n_init - 1) if self.n_init > 1 else []
         return [self.seed] + [int(s) for s in extra]
 
-    def _init_centroids(self, ds: Dataset, seed: int) -> np.ndarray:
-        centroids = resolve_init(self.init, ds, self.k, seed)
+    def _init_centroids(self, ds: Dataset, seed: int,
+                        k: Optional[int] = None) -> np.ndarray:
+        """Seeds of one restart (at ``k``, the model's by default): the
+        init strategy, k-means|| through this model's distance mode."""
+        centroids = resolve_init(self.init, ds, self.k if k is None else k,
+                                 seed, cap=self.init_cap, mode=self._mode())
         return self._postprocess_centroids(
             np.asarray(centroids, dtype=np.float64)).astype(self.dtype)
 
@@ -582,10 +603,13 @@ class KMeans:
         log.startup(self.k, self.max_iter, self.tolerance, self.compute_sse)
         self.best_restart_ = 0
         self.restart_inertias_ = None
+        self.bf16_guard_corrected_rows_ = None
 
         seeds = self._restart_seeds()
         host = self._resolve_host_loop(ds, step_fn)
         self.loop_path_ = "host" if host else "device"
+        if len(seeds) > 1 and not host:
+            return self._fit_on_device_multi(ds, seeds, pipeline, log)
         best = None
         inertias = []
         for r, seed in enumerate(seeds):
@@ -656,7 +680,43 @@ class KMeans:
             history_sse=self.compute_sse, pipeline=pipeline)
         start = time.perf_counter()
         result = fit_fn(ds, self._put_centroids(centroids), seed)
+        if result.flagged is not None:
+            self.bf16_guard_corrected_rows_ = result.flagged
         self._finish_device_fit(result, time.perf_counter() - start, log)
+        return self
+
+    def _fit_on_device_multi(self, ds: Dataset, seeds: list, pipeline: int,
+                             log: IterationLogger) -> "KMeans":
+        """Every restart in one device loop
+        (``parallel.distributed.make_multi_fit_fn``): one iteration of every
+        restart per launch, the winner by the true final inertia, as the
+        restarts one after another would pick it.  ``iter_times_`` holds
+        the loop's wall time over the iterations it launched."""
+        fit_fn = dist.make_multi_fit_fn(
+            ds.mesh, chunk_size=self._chunk_for(ds), mode=self._mode(),
+            k_real=self.k, max_iter=self.max_iter,
+            tolerance=float(self.tolerance),
+            empty_policy=self.empty_cluster, n_init=len(seeds),
+            history_sse=self.compute_sse, return_all=True,
+            pipeline=pipeline)
+        inits = np.stack([self._init_centroids(ds, s) for s in seeds])
+        self.sse_history, self.iter_times_ = [], []
+        start = time.perf_counter()
+        res = fit_fn(ds, self._put_centroids(inits), seeds)
+        elapsed = time.perf_counter() - start
+        self.bf16_guard_corrected_rows_ = res.flagged
+        bad = np.flatnonzero(~res.finite)
+        if bad.size:
+            raise NumericalDivergenceError(int(res.n_iters[bad[0]]))
+        b = res.best
+        n = int(res.n_iters[b])
+        self.best_restart_ = b
+        self.restart_inertias_ = res.inertias
+        self._finish_device_fit(dist.FitResult(
+            res.centroids[b], n, res.sse_history[b, :n],
+            res.shift_history[b, :n], res.counts[b], True, res.launched),
+            elapsed * n / max(res.launched, 1), log)
+        log.restart(b, len(seeds), float(res.inertias[b]), winner=True)
         return self
 
     def _finish_device_fit(self, result: "dist.FitResult", elapsed: float,
@@ -776,6 +836,245 @@ class KMeans:
                 new_centroids[slot] = row
             # Slots beyond the returned samples keep their old centroid.
         return new_centroids
+
+    # ----------------------------------------------------------------- sweep
+
+    def _sweep_metric_rows(self, X) -> np.ndarray:
+        """The host rows that the metric criteria score, in the model's
+        dtype."""
+        return np.ascontiguousarray(_host_rows(X, self.dtype))
+
+    def sweep(self, X, *, k_range, criterion: str = "inertia",
+              sample_weight=None, batched=True):
+        """Model selection over k (the JAX package's ``KMeans.sweep``): fit
+        every (k, restart) member, score each k's winner by ``criterion``,
+        and return a ``sweep.SweepResult`` with the curve and the fitted
+        winner.
+
+        ``k_range``: a range or iterable of k, or the grammar "2:33"
+        (half-open), "2:33:2", "2,4,8".  ``criterion``: 'inertia' (the
+        elbow of the curve; fewer than 3 points take the lowest),
+        'silhouette' or 'calinski_harabasz' (highest) or 'davies_bouldin'
+        (lowest), scored on the winners' labels of the rows
+        (``metrics.batched_criterion_scores``).  Silhouette is the full
+        O(n^2 D) score; for large n score the winners with
+        ``metrics.batched_criterion_scores(..., sample_size=)``.  A winner
+        whose labels occupy fewer than 2 clusters scores NaN and is never
+        selected.  Restarts within each k come from ``n_init`` and
+        ``seed`` as in ``fit``; the lowest true final inertia wins a k.
+
+        ``batched=True`` runs every member in one device loop
+        (``parallel.distributed.make_multi_fit_fn`` with a per-member k:
+        members padded to k_max with sentinel rows; in the kernel modes
+        each member's kernel runs at its own k), then the winners' labels
+        in one batched pass (``make_multi_predict_fn``).  ``batched=0`` is
+        the oracle: one device-loop fit per member on the same dataset.
+        The init must be a strategy or a callable; metric criteria need
+        host rows and score unweighted rows.  The returned model has not
+        materialised ``labels_``: call ``predict``."""
+        from kmeans_tpu_torch import metrics as metrics_mod
+        from kmeans_tpu_torch import sweep as sweep_mod
+
+        if not (isinstance(self.init, str) or callable(self.init)):
+            raise ValueError(
+                "sweep() needs a string or callable init (an explicit "
+                "(k, D) init array pins k); got an array init")
+        ks = sweep_mod.parse_k_range(k_range)
+        sweep_mod.check_criterion(criterion, sweep_mod.KMEANS_CRITERIA)
+        if criterion != "inertia" and ks[0] < 2:
+            raise ValueError(f"criterion {criterion!r} needs k >= 2 "
+                             f"(got k range starting at {ks[0]})")
+        k_max = ks[-1]
+        # The engine owns the dataset and the chunks at k_max; the members
+        # inherit every other setting.
+        engine = sweep_mod.clone_for(self, k=k_max, verbose=False,
+                                     compute_labels=False)
+        ds = engine.cache(X, sample_weight)
+        if k_max >= ds.n:
+            raise ValueError(f"k_max={k_max} must be < n={ds.n}")
+        seeds = engine._restart_seeds()
+        members = [(k, s) for k in ks for s in seeds]
+        n_init = len(seeds)
+        self.estep_path_ = None
+        self.bf16_guard_corrected_rows_ = None
+        if batched:
+            states = self._sweep_fit_batched(engine, ds, members, k_max)
+            n_disp = 1
+        else:
+            states = self._sweep_fit_sequential(ds, members)
+            n_disp = 2 * len(members)     # a fit and a scoring pass each
+        cents, n_iters, sse_hist, counts, finals = states
+        inertias, best_r, win_idx = sweep_mod.within_k_winners(
+            finals, len(ks), n_init)
+        winners = [np.asarray(cents[m][: ks[i]], dtype=self.dtype)
+                   for i, m in enumerate(win_idx)]
+        if criterion == "inertia":
+            scores = inertias[np.arange(len(ks)), best_r]
+        else:
+            labels = self._sweep_labels(engine, ds, winners, k_max,
+                                        batched)
+            model_shards = mesh_shape(ds.mesh)[1]
+            n_disp += 1 if (batched and model_shards == 1) else len(ks)
+            x_host = X.host if isinstance(X, Dataset) else X
+            if x_host is None:
+                raise ValueError(
+                    f"criterion {criterion!r} scores host rows; pass an "
+                    f"array (or a dataset cached from one), or use "
+                    f"criterion='inertia' for device-only data")
+            rows = self._sweep_metric_rows(x_host)
+            if batched:
+                scores = metrics_mod.batched_criterion_scores(
+                    rows, labels, criterion, mesh=ds.mesh,
+                    device=self.device)
+                n_disp += metrics_mod.SWEEP_SCORE_DISPATCHES[criterion]
+            else:
+                single = {"silhouette": metrics_mod.silhouette_score,
+                          "calinski_harabasz":
+                              metrics_mod.calinski_harabasz_score,
+                          "davies_bouldin":
+                              metrics_mod.davies_bouldin_score}[criterion]
+
+                def score_or_nan(lab):
+                    # As the batched path: a winner whose labels collapsed
+                    # below 2 clusters scores NaN.
+                    try:
+                        return single(rows, lab, mesh=ds.mesh,
+                                      device=self.device)
+                    except ValueError:
+                        return np.nan
+
+                scores = np.asarray([score_or_nan(lab) for lab in labels],
+                                    np.float64)
+                n_disp += len(ks) * metrics_mod.SWEEP_SCORE_DISPATCHES[
+                    criterion]
+
+        selected_k, sel, m_sel = sweep_mod.selected_member(
+            ks, scores, criterion, win_idx)
+        best = sweep_mod.clone_for(self, k=selected_k, mesh=ds.mesh)
+        best.centroids = np.asarray(cents[m_sel][:selected_k],
+                                    dtype=self.dtype)
+        best.iterations_run = int(n_iters[m_sel])
+        best.cluster_sizes_ = np.asarray(counts[m_sel][:selected_k],
+                                         np.int64)
+        if self.compute_sse:
+            best.sse_history = [float(s) for s in
+                                sse_hist[m_sel][: int(n_iters[m_sel])]]
+        best.best_restart_ = int(best_r[sel])
+        best.restart_inertias_ = np.asarray(inertias[sel], np.float64)
+        best.loop_path_ = "device-sweep" if batched else "sequential-sweep"
+        best.estep_path_ = self.estep_path_
+        best.bf16_guard_corrected_rows_ = self.bf16_guard_corrected_rows_
+        best._fit_ds, best._labels_cache = None, None
+        best._labels_error = ("labels_ is not materialized by sweep(); "
+                              "call predict(X) on the selected model")
+        return sweep_mod.SweepResult(
+            family="kmeans", criterion=criterion, k_range=ks,
+            scores=np.asarray(scores, np.float64),
+            member_scores=inertias.astype(np.float64),
+            selected_k=selected_k, selected_restart=int(best_r[sel]),
+            best_model=best, n_dispatches=n_disp, batched=bool(batched),
+            n_iters=np.asarray(n_iters).reshape(len(ks), n_init),
+            winner_centroids=winners)
+
+    def _member_chunk(self, ds: Dataset, members: int) -> int:
+        """Rows per chunk of a pass that stages a (members, chunk, k) tile:
+        the single tile's budget shared by the members (an explicit
+        ``chunk_size`` passes through)."""
+        if self.chunk_size:
+            return self.chunk_size
+        width = members * self._tile_k(ds.d)
+        if isinstance(ds, ShardedDataset):
+            return ds.effective_chunk(width)
+        return choose_chunk_size(ds.points.shape[0], width, ds.d)
+
+    def _sweep_fit_batched(self, engine: "KMeans", ds: Dataset, members,
+                           k_max: int):
+        """Every sweep member in one device loop: each member's seeds
+        padded to k_max with sentinel rows (``dist.PAD_CENTROID_VALUE``),
+        its k riding ``make_multi_fit_fn(k_reals=...)``.  The members run
+        one after another, so the chunk is a k_max fit's."""
+        mode = engine._mode()
+        pipeline = engine._note_estep_path(mode)
+        fit_fn = dist.make_multi_fit_fn(
+            ds.mesh, chunk_size=engine._chunk_for(ds),
+            mode=mode, k_real=k_max, max_iter=self.max_iter,
+            tolerance=float(self.tolerance),
+            empty_policy=self.empty_cluster, n_init=len(members),
+            history_sse=self.compute_sse,
+            k_reals=[k for k, _ in members], return_all=True,
+            pipeline=pipeline)
+        inits = np.full((len(members), k_max, ds.d),
+                        dist.PAD_CENTROID_VALUE, self.dtype)
+        for i, (k_m, seed) in enumerate(members):
+            inits[i, :k_m] = engine._init_centroids(ds, seed, k=k_m)
+        res = fit_fn(ds, engine._put_centroids(inits),
+                     [s for _, s in members])
+        self.estep_path_ = engine.estep_path_
+        self.bf16_guard_corrected_rows_ = res.flagged
+        inertias = np.where(res.finite, res.inertias, np.nan)
+        return (res.centroids.to(torch.float64).cpu().numpy(), res.n_iters,
+                res.sse_history, res.counts, inertias)
+
+    def _sweep_fit_sequential(self, ds: Dataset, members):
+        """The ``batched=0`` oracle: one device-loop fit per member on the
+        same dataset, and its true final inertia."""
+        from kmeans_tpu_torch import sweep as sweep_mod
+        k_max = max(k for k, _ in members)
+        R = len(members)
+        cents = np.full((R, k_max, ds.d), dist.PAD_CENTROID_VALUE,
+                        np.float64)
+        n_iters = np.zeros((R,), np.int64)
+        sse_hist = np.zeros((R, self.max_iter), np.float64)
+        counts = np.zeros((R, k_max), np.float64)
+        finals = np.full((R,), np.inf, np.float64)
+        for i, (k_m, s) in enumerate(members):
+            m = sweep_mod.clone_for(self, k=k_m, n_init=1, seed=s,
+                                    verbose=False, compute_labels=False,
+                                    host_loop=False, mesh=ds.mesh)
+            m.fit(ds)
+            self.estep_path_ = m.estep_path_
+            if m.bf16_guard_corrected_rows_ is not None:
+                self.bf16_guard_corrected_rows_ = (
+                    (self.bf16_guard_corrected_rows_ or 0)
+                    + m.bf16_guard_corrected_rows_)
+            cents[i, :k_m] = np.asarray(m.centroids, np.float64)
+            n_iters[i] = m.iterations_run
+            hist = np.asarray(m.sse_history, np.float64)
+            sse_hist[i, : hist.size] = hist
+            counts[i, :k_m] = np.asarray(m.cluster_sizes_, np.float64)
+            finals[i] = m._sse(ds)
+        return cents, n_iters, sse_hist, counts, finals
+
+    def _sweep_labels(self, engine: "KMeans", ds: Dataset, winner_cents,
+                      k_max: int, batched) -> np.ndarray:
+        """The labels of every per-k winner, (n_k, n): one batched pass
+        (``make_multi_predict_fn``, each winner padded to k_max) without a
+        model axis, else one assignment pass per winner."""
+        n_k = len(winner_cents)
+        mode = engine._mode()
+        if batched and mesh_shape(ds.mesh)[1] == 1:
+            mp_fn = dist.make_multi_predict_fn(
+                ds.mesh, chunk_size=engine._member_chunk(ds, n_k),
+                mode=mode, n_models=n_k)
+            stack = np.full((n_k, k_max, ds.d), dist.PAD_CENTROID_VALUE,
+                            self.dtype)
+            for i, c in enumerate(winner_cents):
+                stack[i, : c.shape[0]] = c
+            labels = mp_fn(ds.points, engine._put_centroids(stack))
+            if isinstance(ds, ShardedDataset):
+                return ds.gather_rows(labels.T.contiguous()).T
+            return labels.cpu().numpy()
+        predict_fn = dist.make_predict_fn(ds.mesh,
+                                          chunk_size=engine._chunk_for(ds),
+                                          mode=mode)
+        out = []
+        for c in winner_cents:
+            labels = predict_fn(ds.points, engine._put_centroids(
+                np.asarray(c, self.dtype)))
+            out.append(ds.gather_rows(labels)
+                       if isinstance(ds, ShardedDataset)
+                       else labels.cpu().numpy())
+        return np.stack(out)
 
     # --------------------------------------------------------------- predict
 
@@ -984,6 +1283,7 @@ class KMeans:
             "chunk_size": self.chunk_size,
             "host_loop": self.host_loop,
             "pipeline": self.pipeline,
+            "init_cap": self.init_cap,
             "verbose": self.verbose,
             "sse_history": list(map(float, self.sse_history)),
             "iterations_run": self.iterations_run,
@@ -1028,7 +1328,9 @@ class KMeans:
                     pipeline=state.get("pipeline", "auto"),
                     verbose=bool(state["verbose"]),
                     dtype=np.dtype(str(state["dtype"])), device=device,
-                    mesh=mesh)
+                    mesh=mesh, init_cap=(
+                        None if state.get("init_cap") is None
+                        else int(state["init_cap"])))
         cents = np.asarray(state["centroids"])
         model.centroids = cents.astype(model.dtype) if cents.size else None
         model.sse_history = [float(s) for s in state["sse_history"]]

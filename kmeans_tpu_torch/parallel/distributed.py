@@ -4,7 +4,10 @@ Counterpart of ``kmeans_tpu/parallel/distributed.py``
 (``_weighted_sqnorm_total``, ``_sse_from_stats``, ``pad_centroids``,
 ``_pallas_local_stats``, the chunk scan of ``_local_stats``,
 ``make_step_fn``, ``make_predict_fn``, ``make_fit_fn``,
-``_empty_seed_array`` and ``_refill_empty_slots``, ``make_transform_fn``).
+``_empty_seed_array`` and ``_refill_empty_slots``, ``make_transform_fn``,
+``_check_guarded``, ``make_multi_fit_fn`` (its
+``_refill_empty_slots_batched`` is ``_MultiLoop._refill``),
+``make_multi_predict_fn``).
 
 ``mode='kernel'`` runs the fused CUDA kernel of ``ops.hopper_kernels`` (its
 plain version when the tensors lie on the CPU) and ``'kernel_bf16'`` its bf16
@@ -39,7 +42,13 @@ iteration's step, mean division, empty-cluster refill and convergence test
 run on the device, with no value read to the host inside an iteration.  On a
 CUDA device one iteration is captured once as a ``torch.cuda.CUDAGraph`` and
 replayed, the NCCL collectives of a mesh inside it; on the CPU the same
-iteration runs eagerly (over gloo).
+iteration runs eagerly (over gloo).  :func:`make_multi_fit_fn` runs R fits
+(restarts, or the members of a sweep over k) in one such loop: one graph per
+iteration holds every member.
+
+The guarded bf16 rung (``'matmul_bf16_guarded'``, ``ops.assign``) is a
+torch mode: its step, predict and device loop run the chunked pass with the
+guard; it refuses a model axis and 'farthest' (:func:`_check_guarded`).
 """
 
 from __future__ import annotations
@@ -50,10 +59,11 @@ import numpy as np
 import torch
 
 from kmeans_tpu_torch.ops import _build
-from kmeans_tpu_torch.ops.assign import (StepStats, _accum_dtype,
-                                         assign_chunk, assign_labels,
-                                         assign_reduce, init_stats,
-                                         pairwise_sq_dists, round_bf16)
+from kmeans_tpu_torch.ops.assign import (GUARDED_MODE, StepStats,
+                                         _accum_dtype, assign_chunk,
+                                         assign_labels, init_stats,
+                                         pairwise_sq_dists, reduce_chunks,
+                                         round_bf16, value_mode)
 from kmeans_tpu_torch.ops.hopper_kernels import (fused_assign_reduce,
                                                  hopper_assign)
 from kmeans_tpu_torch.parallel.mesh import (AXES, DATA_AXIS, MODEL_AXIS,
@@ -62,7 +72,7 @@ from kmeans_tpu_torch.parallel.sharding import (Dataset, draw_keys,
                                                 permuted_draws)
 
 KERNEL_MODES = ("kernel", "kernel_bf16")
-TORCH_MODES = ("matmul", "matmul_bf16", "direct")
+TORCH_MODES = ("matmul", "matmul_bf16", "direct", GUARDED_MODE)
 
 
 #: Iterations the device loop keeps in flight on the card: the host reads
@@ -147,19 +157,22 @@ def _kernel_local_stats(points, weights, centroids, *, bf16: bool = False,
 
 def local_stats(points, weights, centroids, *, chunk_size: int, mode: str,
                 need_sse: bool = True, need_farthest: bool = True,
-                need_sse_pc: bool = True, x2w=None,
-                pipeline: int = 0) -> StepStats:
-    """The statistics of one pass over the device's points.  ``pipeline``
-    picks the chunk schedule of the torch modes (``ops.assign.
-    assign_reduce``); the kernel modes ignore it."""
+                need_sse_pc: bool = True, x2w=None, pipeline: int = 0):
+    """The statistics of one pass over the device's points, and the
+    guarded rung's flagged rows (int32 0 in every other mode):
+    ``(StepStats, flagged)``.  ``pipeline`` picks the chunk schedule of the
+    torch modes (``ops.assign.assign_reduce``); the kernel modes ignore
+    it."""
     if mode in KERNEL_MODES:
         return _kernel_local_stats(
             points, weights, centroids, bf16=mode == "kernel_bf16",
             need_sse=need_sse,
-            need_farthest=need_farthest, need_sse_pc=need_sse_pc, x2w=x2w)
+            need_farthest=need_farthest, need_sse_pc=need_sse_pc,
+            x2w=x2w), torch.zeros((), dtype=torch.int32,
+                                  device=points.device)
     if mode not in TORCH_MODES:
         raise ValueError(f"unknown distance mode: {mode!r}")
-    return assign_reduce(points, weights, centroids, chunk_size=chunk_size,
+    return reduce_chunks(points, weights, centroids, chunk_size=chunk_size,
                          mode=mode, need_sse=need_sse,
                          need_farthest=need_farthest,
                          need_sse_pc=need_sse_pc, pipeline=pipeline)
@@ -320,9 +333,32 @@ def _reduce_stats(st: StepStats, mesh, k: int, *, need_sse_pc: bool,
     return StepStats(sums, counts, sse, far_d, far_p, sse_pc)
 
 
+def _check_guarded(mode: str, model_shards: int,
+                   empty_policy: Optional[str] = None) -> None:
+    """Where the guarded bf16 rung runs: not under a model axis, and not
+    with the 'farthest' policy (the JAX package's rules and messages)."""
+    if mode != GUARDED_MODE:
+        return
+    if model_shards > 1:
+        raise ValueError(
+            "distance_mode='matmul_bf16_guarded' requires a data-parallel "
+            "mesh (model_shards == 1): the guard re-resolves near-tie "
+            "rows against a full-precision distance pass, which has no "
+            "TP (centroid-sharded) form — the same rejection the serving "
+            "engine applies to quantize='bf16' under TP sharding")
+    if empty_policy == "farthest":
+        raise ValueError(
+            "distance_mode='matmul_bf16_guarded' does not support "
+            "empty_cluster='farthest': the farthest-point policy is an "
+            "argmax over min-distance VALUES, which the guarded rung "
+            "reproduces only to ~1 ulp (the rtol class), not bitwise; "
+            "use 'keep' or 'resample' (label-exact by construction)")
+
+
 def make_step_fn(mesh=None, *, chunk_size: int, mode: str = "matmul",
                  need_sse: bool = True, need_farthest: bool = True,
-                 need_sse_pc: bool = True, pipeline: int = 0) -> Callable:
+                 need_sse_pc: bool = True, pipeline: int = 0,
+                 audit: bool = False) -> Callable:
     """The step: ``(points, weights, centroids, x2w=None) -> StepStats``,
     ``centroids`` the whole (k, D) table, the statistics those of every
     rank of ``mesh`` (of the one device without one).
@@ -337,10 +373,16 @@ def make_step_fn(mesh=None, *, chunk_size: int, mode: str = "matmul",
     the step computes it.  In ``'kernel_bf16'`` the sums carry bf16-rounded
     products, so the SSE is of that class too (the JAX package's
     ``_sse_from_stats`` says the same).  Under centroid sharding the SSE is
-    that of the global minima, as in the JAX package."""
-    model_shards = mesh_shape(mesh)[1]
+    that of the global minima, as in the JAX package.
 
-    def step(points, weights, centroids, x2w=None) -> StepStats:
+    ``audit=True`` makes the step return ``(StepStats, flagged)``, the
+    guarded rung's flagged rows of the pass over every rank (int32, 0 in
+    the other modes): the device loop's audit."""
+    model_shards = mesh_shape(mesh)[1]
+    _check_guarded(mode, model_shards)
+
+    def step(points, weights, centroids, x2w=None):
+        flagged = None
         if model_shards > 1:
             st = _model_axis_stats(
                 points, weights, centroids, mesh, mode=mode,
@@ -349,16 +391,22 @@ def make_step_fn(mesh=None, *, chunk_size: int, mode: str = "matmul",
         else:
             if mode in KERNEL_MODES and need_sse and x2w is None:
                 x2w = _weighted_sqnorm_total(points, weights)
-            st = local_stats(points, weights, centroids,
-                             chunk_size=chunk_size, mode=mode,
-                             need_sse=need_sse, need_farthest=need_farthest,
-                             need_sse_pc=need_sse_pc, x2w=x2w,
-                             pipeline=pipeline)
-        if mesh is None:
+            st, flagged = local_stats(
+                points, weights, centroids, chunk_size=chunk_size,
+                mode=mode, need_sse=need_sse, need_farthest=need_farthest,
+                need_sse_pc=need_sse_pc, x2w=x2w, pipeline=pipeline)
+        if mesh is not None:
+            st = _reduce_stats(st, mesh, centroids.shape[0],
+                               need_sse_pc=need_sse_pc,
+                               need_farthest=need_farthest)
+        if not audit:
             return st
-        return _reduce_stats(st, mesh, centroids.shape[0],
-                             need_sse_pc=need_sse_pc,
-                             need_farthest=need_farthest)
+        if flagged is None:
+            flagged = torch.zeros((), dtype=torch.int32,
+                                  device=points.device)
+        elif mesh is not None:
+            flagged = all_reduce(flagged.clone(), mesh, AXES)
+        return st, flagged
 
     return step
 
@@ -371,8 +419,10 @@ def make_predict_fn(mesh=None, *, chunk_size: int,
     fused one would also scatter sums that nobody reads.  Under centroid
     sharding each block's winner is kept where it wins over the model axis
     (:func:`_owner`) and a SUM ``all_reduce`` of the labels, zero where a
-    block lost, gives every rank of the axis the global label."""
+    block lost, gives every rank of the axis the global label.  The guarded
+    rung runs its guard here too (``ops.assign.assign_labels``)."""
     model_shards = mesh_shape(mesh)[1]
+    _check_guarded(mode, model_shards)
 
     def predict(points, centroids) -> torch.Tensor:
         if model_shards > 1:
@@ -408,6 +458,7 @@ class FitResult(NamedTuple):
     counts: np.ndarray           # (k,) float64, of the last iteration
     finite: bool                 # False: iteration n_iters went non-finite
     launched: int                # iterations launched, masked ones too
+    flagged: Optional[int] = None  # guarded rung: rows flagged, all iterations
 
 
 def empty_draw_keys(seed: int, max_iter: int) -> np.ndarray:
@@ -434,6 +485,13 @@ def refill_table(ds: Dataset, keys: np.ndarray, k: int) -> torch.Tensor:
     return permuted_draws(n_pos, j, torch.from_numpy(keys))
 
 
+def _host_copy(t: torch.Tensor) -> np.ndarray:
+    """A float64 host array of the loop's state ``t`` that owns its memory:
+    on the CPU, ``.to(float64).cpu().numpy()`` of a float64 tensor is a
+    view of the state, which the next fit on the dataset overwrites."""
+    return np.array(t.detach().to(torch.float64).cpu().numpy())
+
+
 class _DeviceLoop:
     """The device loop's state on one dataset, and one iteration over it.
 
@@ -445,11 +503,12 @@ class _DeviceLoop:
     def __init__(self, points, weights, step, gather, *, k: int,
                  max_iter: int, tolerance: float, empty_policy: str,
                  need_sse: bool, x2w: Optional[torch.Tensor],
-                 x2w_finite: Optional[torch.Tensor]):
+                 x2w_finite: Optional[torch.Tensor], audit: bool = False):
         dev, d = points.device, points.shape[1]
         acc = _accum_dtype(points.dtype)
         self.points, self.weights, self.step = points, weights, step
-        self.gather = gather
+        self.gather, self.audit = gather, audit
+        self.flagged = torch.zeros((), dtype=torch.int64, device=dev)
         self.max_iter, self.tolerance = max_iter, float(tolerance)
         self.policy, self.need_sse, self.x2w = empty_policy, need_sse, x2w
         self.x2w_finite = x2w_finite
@@ -499,6 +558,10 @@ class _DeviceLoop:
         is read to the host."""
         active = self.running.clone()
         st = self.step(self.points, self.weights, self.cents, self.x2w)
+        if self.audit:
+            st, flagged = st
+            self.flagged.add_(torch.where(active, flagged.to(torch.int64),
+                                          torch.zeros_like(self.flagged)))
         counts = st.counts
         nonempty = counts > 0
         new = torch.where(nonempty[:, None],
@@ -568,21 +631,23 @@ class _DeviceLoop:
             for name, count in self.graph_launches.items():
                 _build.LAUNCHES[name] += count
 
-    def run(self, centroids0: torch.Tensor, table: Optional[torch.Tensor],
-            in_flight: int) -> FitResult:
-        """Reset the state to ``centroids0`` (and the refill ``table``),
-        then launch iterations until the host reads a done flag: that of
-        iteration i - ``in_flight`` while iteration i is queued.  On a CUDA
-        device the flags come back through a pinned ring, each behind an
-        event; on the CPU each is read as it is set."""
+    def _reset(self, centroids0: torch.Tensor,
+               table: Optional[torch.Tensor]) -> None:
         self.cents.copy_(centroids0)
         for t in (self.counts, self.sse_hist, self.shift_hist, self.shift,
-                  self.it):
+                  self.it, self.flagged):
             t.zero_()
         self.ok.fill_(True)
         self.running.fill_(True)
         if table is not None:
             self.table.copy_(table)
+
+    def _drive(self, in_flight: int) -> int:
+        """Launch iterations until the host reads a done flag: that of
+        iteration i - ``in_flight`` while iteration i is queued.  On a CUDA
+        device the flags come back through a pinned ring, each behind an
+        event; on the CPU each is read as it is set.  Returns the
+        iterations launched."""
         cuda = self.points.is_cuda
         slots = in_flight + 1
         if cuda:
@@ -610,13 +675,40 @@ class _DeviceLoop:
                 break
         if cuda:
             torch.cuda.current_stream(self.points.device).synchronize()
+        return launched
+
+    def run(self, centroids0: torch.Tensor, table: Optional[torch.Tensor],
+            in_flight: int) -> FitResult:
+        """Reset the state to ``centroids0`` (and the refill ``table``),
+        then launch iterations until done (:meth:`_drive`)."""
+        self._reset(centroids0, table)
+        launched = self._drive(in_flight)
         n = int(self.it)
         return FitResult(
-            self.cents.clone(), n,
-            self.sse_hist[:n].to(torch.float64).cpu().numpy(),
-            self.shift_hist[:n].to(torch.float64).cpu().numpy(),
-            self.counts.to(torch.float64).cpu().numpy(), bool(self.ok),
-            launched)
+            self.cents.clone(), n, _host_copy(self.sse_hist[:n]),
+            _host_copy(self.shift_hist[:n]), _host_copy(self.counts),
+            bool(self.ok), launched,
+            int(self.flagged) if self.audit else None)
+
+
+def _check_backend(mesh, ds: Dataset) -> None:
+    if mesh is not None and ds.points.is_cuda and \
+            torch.distributed.get_backend() != "nccl":
+        raise ValueError(
+            "the device loop (host_loop=False) needs NCCL for CUDA "
+            "tensors: its captured CUDA graph holds the mesh's "
+            "collectives, and gloo collectives cannot be captured; use "
+            "host_loop=True on this process group")
+
+
+def _x2w_of(ds: Dataset, mode: str, mesh):
+    """``(x2w, x2w_finite)`` of a device loop: the dataset's ``sum w
+    ||x||^2`` and its finiteness over the data axis where the kernel modes'
+    SSE reads it, else ``(None, None)``."""
+    if mode not in KERNEL_MODES or mesh_shape(mesh)[1] != 1:
+        return None, None
+    x2w = dataset_sqnorm(ds)
+    return x2w, torch.isfinite(all_reduce(x2w.clone(), mesh, (DATA_AXIS,)))
 
 
 def make_fit_fn(mesh=None, *, chunk_size: int, mode: str = "matmul",
@@ -642,7 +734,11 @@ def make_fit_fn(mesh=None, *, chunk_size: int, mode: str = "matmul",
       loop, the SSE or ``sum w ||x||^2``) go non-finite;
     * only the statistics that are read are computed: the SSE with
       ``history_sse``, the farthest point with 'farthest', no per-cluster
-      SSE (the JAX package's ``need_*`` rule).
+      SSE (the JAX package's ``need_*`` rule);
+    * the guarded bf16 rung (refused under a model axis and with
+      'farthest', :func:`_check_guarded`) counts the rows its guard flags
+      over the fit's iterations: ``FitResult.flagged``, the JAX package's
+      trailing audit count.
 
     ``seed`` is the restart's seed; the refill of iteration ``it`` draws
     under ``[seed, it + 1]``.  The loop's state and its captured graph are
@@ -660,31 +756,23 @@ def make_fit_fn(mesh=None, *, chunk_size: int, mode: str = "matmul",
         raise ValueError(
             f"on-device loop supports empty_cluster 'keep', 'farthest' or "
             f"'resample', got {empty_policy!r}")
+    _check_guarded(mode, mesh_shape(mesh)[1], empty_policy)
+    guarded = mode == GUARDED_MODE
     need_sse = bool(history_sse)
     step = make_step_fn(mesh, chunk_size=chunk_size, mode=mode,
                         need_sse=need_sse,
                         need_farthest=empty_policy == "farthest",
-                        need_sse_pc=False, pipeline=pipeline)
+                        need_sse_pc=False, pipeline=pipeline, audit=guarded)
 
     def _make_loop(ds: Dataset, step, k: int) -> _DeviceLoop:
-        x2w = x2w_finite = None
-        if mode in KERNEL_MODES and mesh_shape(mesh)[1] == 1:
-            x2w = dataset_sqnorm(ds)
-            x2w_finite = torch.isfinite(
-                all_reduce(x2w.clone(), mesh, (DATA_AXIS,)))
+        x2w, x2w_finite = _x2w_of(ds, mode, mesh)
         return _DeviceLoop(ds.points, ds.weights, step, ds.gather_positive,
                            k=k, max_iter=max_iter, tolerance=tolerance,
                            empty_policy=empty_policy, need_sse=need_sse,
-                           x2w=x2w, x2w_finite=x2w_finite)
+                           x2w=x2w, x2w_finite=x2w_finite, audit=guarded)
 
     def fit(ds: Dataset, centroids0: torch.Tensor, seed: int) -> FitResult:
-        if mesh is not None and ds.points.is_cuda and \
-                torch.distributed.get_backend() != "nccl":
-            raise ValueError(
-                "the device loop (host_loop=False) needs NCCL for CUDA "
-                "tensors: its captured CUDA graph holds the mesh's "
-                "collectives, and gloo collectives cannot be captured; use "
-                "host_loop=True on this process group")
+        _check_backend(mesh, ds)
         k = centroids0.shape[0]
         key = ("device_loop", mode, chunk_size, k, max_iter,
                float(tolerance), empty_policy, need_sse, pipeline)
@@ -695,6 +783,297 @@ def make_fit_fn(mesh=None, *, chunk_size: int, mode: str = "matmul",
                         IN_FLIGHT if in_flight is None else in_flight)
 
     return fit
+
+
+# ------------------------------------------------------- batched restarts
+
+
+class MultiFitResult(NamedTuple):
+    """What :func:`make_multi_fit_fn` hands back to the host: every
+    member's state with ``return_all``, else the winner's (the member of
+    the lowest true final inertia, the first of equal ones)."""
+
+    centroids: torch.Tensor      # (R, k, D), or the winner's (k, D)
+    n_iters: np.ndarray          # (R,), or the winner's as an int
+    sse_history: np.ndarray      # (R, max_iter), or the winner's (n,)
+    shift_history: np.ndarray    # (R, max_iter), or the winner's (n,)
+    counts: np.ndarray           # (R, k), or the winner's (k,)
+    inertias: np.ndarray         # (R,) true final inertia of every member
+    best: int                    # the winner
+    finite: np.ndarray           # (R,) bool: False where a member diverged
+    launched: int                # iterations launched, masked ones too
+    flagged: Optional[int] = None  # guarded rung: rows flagged, all members
+
+
+class _MultiLoop(_DeviceLoop):
+    """The device loop of R members over one dataset: the state of
+    :class:`_DeviceLoop` with a leading member axis, one iteration of every
+    member per launch (one captured graph).  A member that has converged
+    or diverged is frozen: its centroids, counts and histories stop
+    changing.  The loop runs until every member is frozen or ``max_iter``.
+
+    ``stats(points, weights, cents, x2w)`` gives the members' statistics
+    (a :class:`StepStats` with the member axis) and their flagged rows
+    (R,).  ``real`` (R, k) marks each member's real centroid rows: the
+    rows past a member's own k hold sentinels, which take no refill."""
+
+    def __init__(self, points, weights, stats, gather, *, real, max_iter,
+                 tolerance, empty_policy, need_sse, x2w, x2w_finite,
+                 audit):
+        members, k = real.shape
+        super().__init__(points, weights, stats, gather, k=k,
+                         max_iter=max_iter, tolerance=tolerance,
+                         empty_policy=empty_policy, need_sse=need_sse,
+                         x2w=x2w, x2w_finite=x2w_finite, audit=audit)
+        dev, d = points.device, points.shape[1]
+        acc = _accum_dtype(points.dtype)
+        self.real = real
+        self.cents = torch.zeros((members, k, d), dtype=acc, device=dev)
+        self.counts = torch.zeros((members, k), dtype=acc, device=dev)
+        self.sse_hist = torch.zeros((members, max_iter), dtype=acc,
+                                    device=dev)
+        self.shift_hist = torch.zeros_like(self.sse_hist)
+        self.n_iters = torch.zeros((members,), dtype=torch.int64, device=dev)
+        self.ok = torch.ones((members,), dtype=torch.bool, device=dev)
+        self.done = torch.zeros((members,), dtype=torch.bool, device=dev)
+        self.table = (None if empty_policy == "keep" else torch.full(
+            (members, max_iter, k), -1, dtype=torch.int64, device=dev))
+
+    def _refill(self, new, empty, st: StepStats):
+        """:meth:`_DeviceLoop._refill` for every member at once (the JAX
+        package's ``_refill_empty_slots_batched``): each member draws from
+        its own table, made from its own seed, so the members refill as R
+        single fits with those seeds would."""
+        members, k = empty.shape
+        skip = torch.zeros((members,), dtype=torch.int64, device=new.device)
+        if self.policy == "farthest":
+            first = torch.argmax(empty.to(torch.int32), dim=1)
+            use_far = empty.any(dim=1) & (st.farthest_dist >= 0)
+            at_first = (self.slots[None, :] == first[:, None]) \
+                & use_far[:, None]
+            new = torch.where(at_first[..., None],
+                              st.farthest_point.to(new.dtype)[:, None, :],
+                              new)
+            skip = use_far.to(torch.int64)
+        draw = torch.cumsum(empty.to(torch.int64), 1) - 1 - skip[:, None]
+        row = torch.clamp(self.it, max=self.max_iter - 1).reshape(1)
+        pick = self.table.index_select(1, row)[:, 0].gather(
+            1, draw.clamp(0, k - 1))
+        take = empty & (draw >= 0) & (pick >= 0)
+        rows = self.gather(pick.reshape(-1)).to(new.dtype).reshape(new.shape)
+        return torch.where(take[..., None], rows, new)
+
+    def iterate(self) -> None:
+        """One Lloyd iteration of every member that is still moving; the
+        frozen ones are computed and left as they were."""
+        active = ~self.done & self.running
+        st, flagged = self.step(self.points, self.weights, self.cents,
+                                self.x2w)
+        if self.audit:
+            self.flagged.add_(torch.where(active, flagged.to(torch.int64),
+                                          torch.zeros_like(
+                                              flagged, dtype=torch.int64)
+                                          ).sum())
+        counts = st.counts
+        nonempty = counts > 0
+        new = torch.where(nonempty[..., None],
+                          st.sums / torch.clamp_min(counts, 1.0)[..., None],
+                          self.cents)
+        if self.policy != "keep":
+            new = self._refill(new, ~nonempty & self.real, st)
+        diff = new - self.cents
+        shifts = torch.sqrt((diff * diff).sum(dim=2))
+        shift = torch.where(self.real, shifts,
+                            torch.zeros_like(shifts)).max(dim=1).values
+        ok = torch.isfinite(new).reshape(new.shape[0], -1).all(dim=1)
+        if self.need_sse:
+            ok = ok & torch.isfinite(st.sse)
+        if self.x2w_finite is not None:
+            ok = ok & self.x2w_finite
+        at = (self.iters[None, :] == self.it) & active[:, None]
+        self.sse_hist.copy_(torch.where(at, st.sse[:, None], self.sse_hist))
+        self.shift_hist.copy_(torch.where(at, shift[:, None],
+                                          self.shift_hist))
+        self.cents.copy_(torch.where(active[:, None, None], new, self.cents))
+        self.counts.copy_(torch.where(active[:, None], counts, self.counts))
+        self.n_iters.add_(active.to(torch.int64))
+        self.ok.copy_(self.ok & (ok | ~active))
+        self.done.copy_(self.done | (active & ((shift < self.tolerance)
+                                               | ~ok)))
+        self.it.add_(self.running.to(torch.int64))
+        self.running.copy_((self.it < self.max_iter) & ~self.done.all())
+
+    def _reset(self, centroids0, table) -> None:
+        super()._reset(centroids0, table)
+        self.n_iters.zero_()
+        self.done.zero_()
+
+
+def make_multi_fit_fn(mesh=None, *, chunk_size: int, mode: str = "matmul",
+                      k_real: int, max_iter: int, tolerance: float,
+                      empty_policy: str = "keep", n_init: int,
+                      history_sse: bool = True, k_reals=None,
+                      return_all: bool = False,
+                      pipeline: int = 0) -> Callable:
+    """R = ``n_init`` fits in one device loop: ``fit(ds, centroids0 (R,
+    k_real, D), seeds) -> MultiFitResult``.
+
+    Counterpart of the JAX package's ``make_multi_fit_fn``.  The members
+    are restarts, or with ``k_reals`` (R ints, each at most ``k_real``) the
+    members of a sweep over k: member r's rows from ``k_reals[r]`` on must
+    be sentinel rows (:data:`PAD_CENTROID_VALUE`), which never win a row,
+    keep their value, and take no refill.  Each iteration is one launch of
+    every member (one captured CUDA graph on the card); a member that has
+    converged stops moving and stops recording (frozen), and the loop ends
+    when every member is frozen or at ``max_iter``.  Member r refills its
+    empty slots with the draws of ``seeds[r]`` (:func:`refill_table`), as
+    a single fit with that seed does.  After the loop one pass per member
+    scores its final centroids (the true final inertia, the selection rule
+    of ``n_init``); the winner is the lowest, the first of equal ones.
+
+    In every mode the members' passes run one after another inside the
+    iteration, each the step of a single fit at the member's own k (its
+    sentinel rows cut off) over the shared points: kernel 1 (1b) in the
+    kernel modes, the JAX package's ``lax.map`` route, and the chunked
+    torch pass in the others.  The points are never copied per member, a
+    member's tiles are a single fit's, and its arithmetic is that of a
+    single fit at its own k.  (A batch of the torch modes' products,
+    (R, chunk, k) through ``torch.bmm``, was measured no faster on the
+    card: PERF.md.)  ``return_all`` returns every member's state;
+    ``flagged`` counts the guarded rung's flagged rows of every member
+    while it moves."""
+    if empty_policy not in ("keep", "farthest", "resample"):
+        raise ValueError(
+            f"on-device loop supports empty_cluster 'keep', 'farthest' or "
+            f"'resample', got {empty_policy!r}")
+    _check_guarded(mode, mesh_shape(mesh)[1], empty_policy)
+    ks = (np.full((n_init,), k_real, np.int64) if k_reals is None
+          else np.asarray(k_reals, np.int64))
+    if ks.shape != (n_init,):
+        raise ValueError(f"k_reals must have shape ({n_init},), got "
+                         f"{ks.shape}")
+    if np.any(ks < 1) or np.any(ks > k_real):
+        raise ValueError(f"k_reals entries must be in [1, {k_real}], got "
+                         f"{ks.tolist()}")
+    guarded = mode == GUARDED_MODE
+    need_farthest = empty_policy == "farthest"
+
+    def stats_fn(need_sse: bool):
+        step = make_step_fn(mesh, chunk_size=chunk_size, mode=mode,
+                            need_sse=need_sse, need_farthest=need_farthest,
+                            need_sse_pc=False, pipeline=pipeline,
+                            audit=True)
+
+        def member_stats(points, weights, cents, x2w=None):
+            parts, flags = [], []
+            for r, k_m in enumerate(ks.tolist()):
+                st, flagged = step(points, weights, cents[r, :k_m], x2w)
+                if k_m < k_real:
+                    pad = k_real - k_m
+                    st = st._replace(
+                        sums=torch.cat([st.sums, st.sums.new_zeros(
+                            (pad, st.sums.shape[1]))]),
+                        counts=torch.cat([st.counts,
+                                          st.counts.new_zeros(pad)]),
+                        sse_per_cluster=torch.cat([
+                            st.sse_per_cluster,
+                            st.sse_per_cluster.new_zeros(pad)]))
+                parts.append(st)
+                flags.append(flagged)
+            return (StepStats(*(torch.stack(f) for f in zip(*parts))),
+                    torch.stack(flags))
+
+        return member_stats
+
+    loop_stats, final_stats = stats_fn(bool(history_sse)), stats_fn(True)
+
+    def _make_loop(ds: Dataset) -> _MultiLoop:
+        x2w, x2w_finite = _x2w_of(ds, mode, mesh)
+        real = torch.arange(k_real, device=ds.device)[None, :] < \
+            torch.from_numpy(ks).to(ds.device)[:, None]
+        return _MultiLoop(ds.points, ds.weights, loop_stats,
+                          ds.gather_positive, real=real, max_iter=max_iter,
+                          tolerance=tolerance, empty_policy=empty_policy,
+                          need_sse=bool(history_sse), x2w=x2w,
+                          x2w_finite=x2w_finite, audit=guarded)
+
+    def fit(ds: Dataset, centroids0: torch.Tensor, seeds) -> MultiFitResult:
+        _check_backend(mesh, ds)
+        if tuple(centroids0.shape[:2]) != (n_init, k_real) or \
+                len(seeds) != n_init:
+            raise ValueError(f"centroids0 must be ({n_init}, {k_real}, D) "
+                             f"with one seed per member, got "
+                             f"{tuple(centroids0.shape)} and "
+                             f"{len(seeds)} seeds")
+        key = ("multi_loop", mode, chunk_size, k_real, tuple(ks.tolist()),
+               max_iter, float(tolerance), empty_policy, bool(history_sse),
+               pipeline)
+        loop = ds.memo(key, lambda: _make_loop(ds))
+        table = None
+        if empty_policy != "keep":
+            table = torch.stack([
+                refill_table(ds, empty_draw_keys(int(s), max_iter), k_real)
+                for s in seeds])
+        loop._reset(centroids0, table)
+        launched = loop._drive(IN_FLIGHT)
+        cents = loop.cents.clone()
+        final, _ = final_stats(ds.points, ds.weights, cents, loop.x2w)
+        inertias = _host_copy(final.sse)
+        finite = np.array(loop.ok.cpu().numpy())
+        best = int(np.argmin(np.where(np.isfinite(inertias) & finite,
+                                      inertias, np.inf)))
+        n_iters = np.array(loop.n_iters.cpu().numpy())
+        sse_hist = _host_copy(loop.sse_hist)
+        shift_hist = _host_copy(loop.shift_hist)
+        counts = _host_copy(loop.counts)
+        flagged = int(loop.flagged) if guarded else None
+        if return_all:
+            return MultiFitResult(cents, n_iters, sse_hist, shift_hist,
+                                  counts, inertias, best, finite, launched,
+                                  flagged)
+        n = int(n_iters[best])
+        return MultiFitResult(cents[best], n, sse_hist[best, :n],
+                              shift_hist[best, :n], counts[best], inertias,
+                              best, finite, launched, flagged)
+
+    return fit
+
+
+def make_multi_predict_fn(mesh=None, *, chunk_size: int,
+                          mode: str = "matmul",
+                          n_models: int) -> Callable:
+    """Labels of the rows under each of M models of one shape in one pass:
+    ``(points (n, D), stack (M, k, D)) -> labels (M, n)`` int32, the rank's
+    rows under a mesh.  Counterpart of the JAX package's
+    ``make_multi_predict_fn``: each chunk's (M, chunk, k) tile is one
+    batched product.  A data axis only (the stack is whole on every rank).
+    The kernel modes have no batched-model kernel and take their matmul
+    forms ('kernel' -> 'matmul', 'kernel_bf16' -> 'matmul_bf16'), and the
+    guarded rung its float32 class, as in the JAX package."""
+    if mesh_shape(mesh)[1] != 1:
+        raise ValueError(
+            "make_multi_predict_fn requires a data-parallel mesh "
+            f"(model_shards == 1, got {mesh_shape(mesh)[1]}); packed "
+            "serving falls back to per-model dispatches under TP sharding")
+    mode = value_mode({"kernel": "matmul",
+                       "kernel_bf16": "matmul_bf16"}.get(mode, mode))
+    if mode not in TORCH_MODES:
+        raise ValueError(f"unknown distance mode: {mode!r}")
+
+    def predict(points, stack) -> torch.Tensor:
+        if stack.shape[0] != n_models:
+            raise ValueError(f"expected {n_models} models, got "
+                             f"{stack.shape[0]}")
+        labels = torch.empty((n_models, points.shape[0]), dtype=torch.int32,
+                             device=points.device)
+        for lo in range(0, points.shape[0], chunk_size):
+            d2 = pairwise_sq_dists(points[lo:lo + chunk_size], stack,
+                                   mode=mode)
+            labels[:, lo:lo + chunk_size] = torch.argmin(d2, dim=-1).to(
+                torch.int32)
+        return labels
+
+    return predict
 
 
 # --------------------------------------------------------------- transform
@@ -710,10 +1089,14 @@ def make_transform_fn(mesh=None, *, chunk_size: int,
     ``mode`` is a torch mode: ``'matmul'``, ``'matmul_bf16'`` or
     ``'direct'``.
 
+    The guarded rung reports the 'matmul' distances
+    (``ops.assign.value_mode``).
+
     Under a ``mesh`` every rank passes the same rows: each computes the
     tile of its data block of the rows and its block of the table, and a
     SUM ``all_reduce`` of the tiles, zeros elsewhere, gives every rank the
     whole (n, k)."""
+    mode = value_mode(mode)
     if mode not in TORCH_MODES:
         raise ValueError(f"unknown distance mode: {mode!r}")
 

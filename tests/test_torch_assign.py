@@ -167,9 +167,17 @@ def test_need_flags_keep_initial_values():
 
 @pytest.mark.parametrize("mode", ["matmul_bf16_guarded"])
 def test_later_modes_raise(mode):
+    """The guarded rung is ported, but not as a tile mode: its name raises
+    the JAX package's ValueError in ``pairwise_sq_dists`` (the rung's tile
+    is ``distance_stage``'s)."""
     X, _, C = _case(16, 4, 3, np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="unknown distance mode"):
         pt.pairwise_sq_dists(_t(X), _t(C), mode=mode)
+    with pytest.raises(ValueError, match="unknown distance mode"):
+        jx.pairwise_sq_dists(X, C, mode=mode)
+    np.testing.assert_array_equal(
+        pt.distance_stage(_t(X), _t(C), mode=mode).numpy(),
+        pt.pairwise_sq_dists(_t(X), _t(C), mode="matmul_bf16").numpy())
 
 
 def test_unknown_mode_raises():

@@ -144,11 +144,20 @@ def test_assign_reduce_bf16_matches_jax(n, d, k):
 
 
 def test_guarded_mode_still_raises():
+    """The guarded rung is ported (tests/test_torch_guarded.py); what
+    still raises: its name is no tile mode, so ``pairwise_sq_dists`` raises
+    the JAX package's ValueError, and ``KMeans`` refuses it under a model
+    axis and with 'farthest', with the JAX package's messages."""
     X, _, C = _case(16, 4, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.pairwise_sq_dists(_t(X), _t(C), mode="matmul_bf16_guarded")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kmeans_tpu_torch.KMeans(k=3, device="cpu",
+    for fn, args in ((pt.pairwise_sq_dists, (_t(X), _t(C))),
+                     (jx.pairwise_sq_dists, (X, C))):
+        with pytest.raises(ValueError, match="unknown distance mode"):
+            fn(*args, mode="matmul_bf16_guarded")
+    with pytest.raises(ValueError, match="data-parallel mesh"):
+        kmeans_tpu_torch.KMeans(k=3, device="cpu", model_shards=2,
+                                distance_mode="matmul_bf16_guarded")
+    with pytest.raises(ValueError, match="empty_cluster='farthest'"):
+        kmeans_tpu_torch.KMeans(k=3, device="cpu", empty_cluster="farthest",
                                 distance_mode="matmul_bf16_guarded")
 
 

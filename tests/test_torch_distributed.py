@@ -15,6 +15,13 @@ equal, sums, SSE, centroids and histories to ``rtol=1e-12`` /
 ``kmeans_tpu_torch/ops/compare.py``.  The JAX device loop refills empty
 clusters with its own Gumbel draws, so the port's device-loop refills are
 held to the port's one-device device loop (the same draws) instead.
+
+Model selection on each mesh (``_model_selection``): ``n_init`` by the
+device loop and a ``KMeans.sweep`` against the JAX package's, the guarded
+rung against the JAX package's on a data axis and refused on a model axis,
+k-means|| and the metrics against the port on one device (float64 parity
+class; the sweep's Calinski-Harabasz scores ``rtol=1e-4``, the JAX package
+scoring in float32).
 """
 
 import os
@@ -121,6 +128,7 @@ def _world4(rank, out_dir):
                                       inertias=km.restart_inertias_)
         out["transform"] = km.transform(X)
         out["score"] = km.score(X)
+        _model_selection(out, mesh, X, W, inits)
         try:
             GaussianMixture(2, mesh=mesh, device="cpu")
             out["gmm_model_axis"] = None
@@ -171,6 +179,70 @@ def _world4(rank, out_dir):
             out["kmeanspp", weighted] = pt_init._kmeanspp_sharded_draws(
                 dsw, 40, np.random.default_rng(9)).numpy()
     return res
+
+
+def _model_selection(out, mesh, X, W, inits):
+    """The model-selection cases of one mesh: ``n_init`` by the device
+    loop, the guarded rung (refused under a model axis), k-means||, the
+    metrics and a sweep."""
+    from kmeans_tpu_torch import KMeans, metrics
+    from kmeans_tpu_torch.models import init as pt_init
+    from kmeans_tpu_torch.parallel.sharding import to_device
+    km = KMeans(mesh=mesh, device="cpu", **_n_init_kw()).fit(
+        X, sample_weight=W)
+    out["n_init_device"] = dict(_fit_record(km), best=km.best_restart_,
+                                inertias=km.restart_inertias_,
+                                loop=km.loop_path_)
+    try:
+        gk = KMeans(mesh=mesh, device="cpu", **_guarded_kw(inits)).fit(X)
+        out["guarded"] = dict(_fit_record(gk),
+                              flagged=gk.bf16_guard_corrected_rows_)
+    except ValueError as e:
+        out["guarded"] = str(e)
+    ds = to_device(X, torch.device("cpu"), np.float64, mesh=mesh,
+                   sample_weight=W)
+    out["kmeans||"] = pt_init.kmeans_parallel_init(ds, K, 5, cap=PAR_CAP)
+    out["kmeans||_host"] = pt_init.kmeans_parallel_init(ds, K, 5,
+                                                        device=False)
+    y = km.labels_
+    out["metrics"] = {name: getattr(metrics, name)(X, y, mesh=mesh,
+                                                   device="cpu")
+                      for name in METRICS}
+    out["metrics_batched"] = {
+        c: metrics.batched_criterion_scores(X, np.stack([y, (y + 1) % K]),
+                                            c, mesh=mesh, device="cpu")
+        for c in ("silhouette", "davies_bouldin")}
+    res = KMeans(mesh=mesh, device="cpu", **_sweep_kw()).sweep(
+        X, k_range=SWEEP_KS, criterion="calinski_harabasz")
+    out["sweep"] = dict(selected=res.selected_k, scores=res.scores,
+                        member_scores=res.member_scores,
+                        centroids=res.best_model.centroids)
+
+
+#: Model selection on the meshes: the candidates k-means|| keeps per round
+#: (below every block's rows, so that a mesh seeds as one device does), the
+#: metrics held to one device, and the sweep's k.
+PAR_CAP = 64
+METRICS = ("silhouette_score", "calinski_harabasz_score",
+           "davies_bouldin_score")
+SWEEP_KS = (2, 3, 5)
+
+
+def _n_init_kw():
+    return dict(k=K, max_iter=10, n_init=2, init="forgy", seed=3,
+                compute_sse=True, distance_mode="matmul", dtype=np.float64,
+                verbose=False, host_loop=False, empty_cluster="keep")
+
+
+def _guarded_kw(inits):
+    return dict(k=K, max_iter=10, init=inits["rows"], compute_sse=True,
+                distance_mode="matmul_bf16_guarded", dtype=np.float64,
+                verbose=False, host_loop=False)
+
+
+def _sweep_kw():
+    return dict(k=3, max_iter=10, n_init=2, seed=3, dtype=np.float64,
+                distance_mode="matmul", verbose=False, empty_cluster="keep")
 
 
 def _world1(rank, out_dir):
@@ -541,3 +613,85 @@ def test_a_world_of_one_rank_is_bit_identical_to_no_mesh(world1, case):
     got = world1[case]
     for key in want:
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+# ---------------------------------------------------- model selection
+
+
+@pytest.mark.parametrize("name", list(MESHES))
+def test_n_init_device_loop_matches_jax(world4, jx, name):
+    import kmeans_tpu
+    X, _, W, _, _ = _inputs()
+    jm = kmeans_tpu.KMeans(mesh=jx[name], **_n_init_kw()).fit(
+        X, sample_weight=W)
+    for out in _ranks_of(world4[0], name):
+        got = out["n_init_device"]
+        assert got["loop"] == "device"
+        _assert_fit(got, jm)
+        assert got["best"] == jm.best_restart_
+        _close(got["inertias"], np.asarray(jm.restart_inertias_))
+
+
+@pytest.mark.parametrize("name", list(MESHES))
+def test_guarded_rung_on_a_data_axis_and_refused_on_a_model_axis(
+        world4, jx, name):
+    import kmeans_tpu
+    X, _, _, inits, _ = _inputs()
+    outs = _ranks_of(world4[0], name)
+    if MESHES[name][0][1] > 1:
+        for out in outs:
+            assert "requires a data-parallel mesh" in out["guarded"]
+        with pytest.raises(ValueError, match="data-parallel mesh"):
+            kmeans_tpu.KMeans(mesh=jx[name], **_guarded_kw(inits)).fit(X)
+        return
+    jm = kmeans_tpu.KMeans(mesh=jx[name], **_guarded_kw(inits)).fit(X)
+    for out in outs:
+        _assert_fit(out["guarded"], jm)
+        assert out["guarded"]["flagged"] == jm.bf16_guard_corrected_rows_
+
+
+@pytest.mark.parametrize("name", list(MESHES))
+def test_kmeans_parallel_on_a_mesh_seeds_as_one_device(world4, name):
+    """Every draw of the mesh's seeding is made per global row, so a mesh
+    keeps the candidates one device keeps (``cap`` below every block's
+    rows: the cap is bounded by a block's rows, as in the JAX package).
+    The host engine runs over the host copy on every rank."""
+    from kmeans_tpu_torch.models import init as pt_init
+    from kmeans_tpu_torch.parallel.sharding import Dataset
+    X, _, W, _, _ = _inputs()
+    one = pt_init.kmeans_parallel_init(
+        Dataset(torch.from_numpy(X), torch.from_numpy(W)), K, 5,
+        cap=PAR_CAP)
+    host = pt_init.kmeans_parallel_init(pt_init.as_source(X, W), K, 5,
+                                        device=False)
+    for out in _ranks_of(world4[0], name):
+        _close(out["kmeans||"], one)
+        np.testing.assert_array_equal(out["kmeans||_host"], host)
+
+
+@pytest.mark.parametrize("name", list(MESHES))
+def test_metrics_on_a_mesh_match_one_device(world4, name):
+    from kmeans_tpu_torch import metrics
+    X, _, _, _, _ = _inputs()
+    for out in _ranks_of(world4[0], name):
+        y = out["n_init_device"]["labels"]
+        for metric in METRICS:
+            _close(out["metrics"][metric],
+                   getattr(metrics, metric)(X, y, device="cpu"))
+        for c, got in out["metrics_batched"].items():
+            _close(got, metrics.batched_criterion_scores(
+                X, np.stack([y, (y + 1) % K]), c, device="cpu"))
+
+
+@pytest.mark.parametrize("name", list(MESHES))
+def test_sweep_on_a_mesh_matches_jax(world4, jx, name):
+    import kmeans_tpu
+    X, _, _, _, _ = _inputs()
+    jr = kmeans_tpu.KMeans(mesh=jx[name], **_sweep_kw()).sweep(
+        X, k_range=SWEEP_KS, criterion="calinski_harabasz")
+    for out in _ranks_of(world4[0], name):
+        got = out["sweep"]
+        assert got["selected"] == jr.selected_k
+        _close(got["member_scores"], jr.member_scores)
+        np.testing.assert_allclose(got["scores"], jr.scores, rtol=1e-4)
+        _close(got["centroids"], np.asarray(jr.best_model.centroids))

@@ -243,7 +243,14 @@ def test_nan_row_among_the_data_is_a_divergence_error():
 #: Arguments of the list below that a later slice ported: (loop_path_,
 #: estep_path_) of a CPU fit with them ('auto' is 'matmul' there).
 PORTED_LATER = {("host_loop", False): ("device", "serial"),
-                ("pipeline", 1): ("host", "pipelined")}
+                ("pipeline", 1): ("host", "pipelined"),
+                ("init_cap", 512): ("host", "serial"),
+                ("init", "k-means||"): ("host", "serial"),
+                ("distance_mode", "matmul_bf16_guarded"): ("host", "serial")}
+#: What a ported argument of the list needs beside it: ``init_cap`` sizes
+#: the k-means|| buffer (with another init it raises the JAX package's
+#: ValueError, tests/test_torch_kmeans_parallel.py).
+PORTED_WITH = {"init_cap": {"init": "k-means||"}}
 #: Arguments of the list that a later slice ported whose value here is not
 #: one the port takes: the error it raises now (a mesh must be a
 #: DeviceMesh; two model shards need two ranks, the JAX package's message).
@@ -259,10 +266,10 @@ PORTED_REFUSED = {"mesh": (TypeError, "DeviceMesh"),
     ("distance_mode", "matmul_bf16_guarded")])
 def test_unported_arguments_raise(arg, value):
     """Every argument of the list raises, naming its ROADMAP item, except
-    those that a later slice ported (``host_loop=False``, ``pipeline=1``):
-    they now fit, and the model reports what ran; ``mesh`` and
-    ``model_shards`` (ported with the mesh) raise what a wrong value
-    raises."""
+    those that a later slice ported (``host_loop=False``, ``pipeline=1``,
+    ``init_cap``, ``init='k-means||'``, the guarded rung): they now fit,
+    and the model reports what ran; ``mesh`` and ``model_shards`` (ported
+    with the mesh) raise what a wrong value raises."""
     X = _blobs(n=100, d=3, centers=3)
     if arg in PORTED_REFUSED:
         err, match = PORTED_REFUSED[arg]
@@ -272,9 +279,11 @@ def test_unported_arguments_raise(arg, value):
         return
     if (arg, value) in PORTED_LATER:
         km = kmeans_tpu_torch.KMeans(k=3, device="cpu", verbose=False,
-                                     **{arg: value}).fit(X)
+                                     **{arg: value},
+                                     **PORTED_WITH.get(arg, {})).fit(X)
         assert getattr(km, arg) == value
         assert (km.loop_path_, km.estep_path_) == PORTED_LATER[(arg, value)]
+        assert km.centroids.shape == (3, 3) and km.labels_.shape == (100,)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         kmeans_tpu_torch.KMeans(k=3, device="cpu", verbose=False,

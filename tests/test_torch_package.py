@@ -26,6 +26,7 @@ MODULES = ["kmeans_tpu_torch", "kmeans_tpu_torch.convert",
            "kmeans_tpu_torch.experiments",
            "kmeans_tpu_torch.experiments.exp_kernel_edits",
            "kmeans_tpu_torch.experiments.exp_pallas_kernel",
+           "kmeans_tpu_torch.metrics",
            "kmeans_tpu_torch.models.gmm",
            "kmeans_tpu_torch.models.init", "kmeans_tpu_torch.models.kmeans",
            "kmeans_tpu_torch.ops._build", "kmeans_tpu_torch.ops.assign",
@@ -37,7 +38,7 @@ MODULES = ["kmeans_tpu_torch", "kmeans_tpu_torch.convert",
            "kmeans_tpu_torch.parallel.mesh",
            "kmeans_tpu_torch.parallel.multihost",
            "kmeans_tpu_torch.parallel.sharding",
-           "kmeans_tpu_torch.suite",
+           "kmeans_tpu_torch.suite", "kmeans_tpu_torch.sweep",
            "kmeans_tpu_torch.utils.checkpoint",
            "kmeans_tpu_torch.utils.logging",
            "kmeans_tpu_torch.utils.plotting",
