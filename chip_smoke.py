@@ -41,6 +41,15 @@ tables (``kmeans_parallel``); and ``KMeans.sweep`` over k = 256, 512,
 1024, batched against the sequential oracle, its winners scored by a
 sampled silhouette and their tables held through kernels 1 and 2
 (``sweep``).
+The other K-Means families: kernels 1 and 2 (1b, 2b) at the shapes they
+give them, k = 2 and k = 1 on the main rows, a gathered 65,536-row batch at
+k = 1024, unit rows at the GloVe-like shape (``kernels_families``);
+``SphericalKMeans`` on the GloVe-like data by both loops, bit for bit, and
+in bf16 (``spherical``); ``BisectingKMeans(k=16)`` on the main data by both
+loops, twice, and in bf16, the same tree every time (``bisecting``); and
+``MiniBatchKMeans`` (k = 1024, batch 65,536) by the per-iteration engine
+and the captured loop, bit for bit, with a profile of its iteration, by
+host sampling, in bf16, and ``partial_fit`` (``minibatch``).
 
 Every phase prints one JSON line as it ends.  A phase that fails raises, so
 the run ends with a non-zero code and without the result line.  The last line
@@ -72,7 +81,8 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from kmeans_tpu_torch import GaussianMixture, KMeans  # noqa: E402
+from kmeans_tpu_torch import (BisectingKMeans, GaussianMixture,  # noqa: E402
+                              KMeans, MiniBatchKMeans, SphericalKMeans)
 from kmeans_tpu_torch.data.synthetic import make_blobs_device  # noqa: E402
 from kmeans_tpu_torch.experiments import exp_kernel_edits as kernel_edits  # noqa: E402,E501
 from kmeans_tpu_torch.experiments import exp_pallas_kernel as lab  # noqa: E402
@@ -676,6 +686,18 @@ PATH_KERNELS = {
     "kmeans_parallel": ("hopper_assign",),
     "kmeans_parallel_bf16": ("hopper_assign_bf16",),
     "sweep": ("fused_assign_reduce",),
+    "spherical": ("fused_assign_reduce", "hopper_assign"),
+    "spherical_device": ("fused_assign_reduce", "hopper_assign"),
+    "spherical_bf16_device": ("fused_assign_reduce_bf16",
+                              "hopper_assign_bf16"),
+    "bisecting": ("fused_assign_reduce", "hopper_assign"),
+    "bisecting_device": ("fused_assign_reduce", "hopper_assign"),
+    "bisecting_bf16": ("fused_assign_reduce_bf16", "hopper_assign_bf16"),
+    "minibatch": ("fused_assign_reduce", "hopper_assign"),
+    "minibatch_device": ("fused_assign_reduce", "hopper_assign"),
+    "minibatch_host": ("fused_assign_reduce", "hopper_assign"),
+    "minibatch_bf16_device": ("fused_assign_reduce_bf16",
+                              "hopper_assign_bf16"),
 }
 
 
@@ -1495,6 +1517,386 @@ def phase_sweep(x):
     return {"sweep": launches}
 
 
+# ------------------------------------------------ the other K-Means families
+
+#: SphericalKMeans on the GloVe-like data (its docstring's workload).
+SPHERE_ITERS = 3
+#: BisectingKMeans on the main data: leaves, and each split's iteration cap.
+BISECT = dict(k=16, iters=10)
+#: MiniBatchKMeans on the main data: the JAX package's measured
+#: configuration (k = 1024, batch 65,536), 20 iterations, reassignment 0.01,
+#: three candidate inits; the host engine's iterations; the full-batch fit
+#: from the same init that the final SSE is set beside.
+MINIBATCH = dict(k=1024, batch=65_536, iters=20, ratio=0.01, n_init=3,
+                 host_iters=5, full_iters=5)
+
+
+def _unit_rows(x):
+    """Rows divided by their norms, in float64, rounded to float32."""
+    x = x.to(torch.float64)
+    return (x / torch.linalg.vector_norm(x, dim=1, keepdim=True).clamp_min(
+        torch.finfo(torch.float64).tiny)).to(torch.float32)
+
+
+def _time_case(x, w, c, bf16):
+    """Kernel 1 and its plain version at one of the families' shapes:
+    ms of each and the bound (:func:`bounds`)."""
+    n, d = x.shape
+    k = c.shape[0]
+    bound_ms, by, _, _, _ = bounds(n, d, k, True, bf16)
+    return {"kernel1_ms": median_ms(
+                lambda: hk.fused_assign_reduce(x, w, c, bf16=bf16), runs=5),
+            "plain_ms": median_ms(
+                lambda: hk.fused_assign_reduce_reference(x, w, c, bf16=bf16),
+                runs=3, warmup=1),
+            "kernel2_ms": median_ms(lambda: hk.hopper_assign(x, c, bf16=bf16),
+                                    runs=5),
+            "bound_ms": bound_ms, "bound_by": by}
+
+
+def phase_family_kernels(x_main, c_main, x_glove, bf16):
+    """Kernels 1 and 2 (1b and 2b with ``bf16``) against their plain
+    versions at the shapes the families give them: k = 2 and k = 1 on the
+    main rows with half of them at weight 0 (a bisecting split's pass), a
+    gathered mini-batch of 65,536 rows at k = 1024, and unit rows at the
+    GloVe-like shape (spherical).  Each case is timed beside its plain
+    version and its bound."""
+    records = []
+    n = x_main.shape[0]
+    w_split = torch.ones(n, device=DEV)
+    w_split[1::2] = 0.0
+    cases = [(f"bisect_k{k}", x_main, w_split, c_main[:k].contiguous(),
+              False) for k in (2, 1)]
+    keys = torch.from_numpy(dist.minibatch_keys(42)).to(DEV)
+    batch = x_main.index_select(0, dist.minibatch_rows(
+        n, MINIBATCH["batch"], dist.minibatch_streams(keys, 0)))
+    cases.append(("minibatch_batch", batch,
+                  torch.ones(batch.shape[0], device=DEV), c_main, True))
+    xg = _unit_rows(x_glove)
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    cg = xg[torch.randperm(xg.shape[0], generator=gen,
+                           device=DEV)[:SECOND["k"]]].contiguous()
+    cases.append(("sphere_glove", xg, torch.ones(xg.shape[0], device=DEV),
+                  cg, True))
+    for name, x, w, c, unit in cases:
+        rec = compare_case(name, x, w, c, unit_weights=unit, bf16=bf16)
+        rec.update(_time_case(x, w, c, bf16))
+        records.append(rec)
+    emit("kernels_families" + ("_bf16" if bf16 else ""), cases=records)
+    return records
+
+
+def phase_spherical(x_glove):
+    """``SphericalKMeans`` on the GloVe-like data, 'pallas', SPHERE_ITERS
+    iterations, by the host loop (path ``spherical``) and the device loop
+    (``spherical_device``): kernel 1 once per iteration and kernel 2 once
+    (``labels_``) in each; the loops equal bit for bit; every centroid
+    unit-norm within 1e-6; ``labels_`` equal to kernel 2 on the normalised
+    rows; the final SSE (one pass of kernel 1) within SUMS_RTOL of a
+    float64 sum of w (2 - 2 cos).  Then one 'pallas_bf16' device-loop fit
+    (``spherical_bf16_device``)."""
+    kw = dict(k=SECOND["k"], max_iter=SPHERE_ITERS, tolerance=1e-30,
+              seed=42, compute_sse=True, init="forgy", verbose=False)
+    counts, fits = {}, {}
+    ds = None
+    for path, extra in (("spherical", dict(host_loop=True,
+                                           distance_mode="pallas")),
+                        ("spherical_device", dict(host_loop=False,
+                                                  distance_mode="pallas")),
+                        ("spherical_bf16_device",
+                         dict(host_loop=False,
+                              distance_mode="pallas_bf16"))):
+        km = SphericalKMeans(**kw, **extra)
+        ds = ds if ds is not None else km.cache(x_glove)
+        hk.reset_launch_counts()             # this path's own counts
+        t0 = time.perf_counter()
+        km.fit(ds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = check_path_launches(path)
+        counts[path] = launches
+        suffix = "_bf16" if "bf16" in path else ""
+        check(launches["fused_assign_reduce" + suffix] == km.iterations_run
+              == SPHERE_ITERS and launches["hopper_assign" + suffix] == 1,
+              f"{path}: kernel 1 launched "
+              f"{launches['fused_assign_reduce' + suffix]} times for "
+              f"{km.iterations_run} iterations, kernel 2 "
+              f"{launches['hopper_assign' + suffix]}")
+        norms = np.linalg.norm(km.centroids.astype(np.float64), axis=1)
+        check(float(np.abs(norms - 1.0).max()) <= 1e-6,
+              f"{path}: centroid norms {norms.min()}..{norms.max()}")
+        fits[path] = (km, wall, float(np.abs(norms - 1.0).max()))
+    host, dev = fits["spherical"][0], fits["spherical_device"][0]
+    same = (host.iterations_run == dev.iterations_run
+            and np.array_equal(host.centroids, dev.centroids)
+            and host.sse_history == dev.sse_history
+            and np.array_equal(host.labels_, dev.labels_))
+    check(same, "spherical: the device loop differs from the host loop")
+    # The first device-loop fit on a dataset captures its graph; a second
+    # replays it.
+    replay = SphericalKMeans(**kw, host_loop=False,
+                             distance_mode="pallas").fit(ds)
+    check(np.array_equal(replay.centroids, dev.centroids),
+          "spherical: the replayed device loop differs from its capture")
+    cents = torch.from_numpy(host.centroids).to(DEV)
+    lab, _ = hk.hopper_assign(ds.points, cents)
+    check(np.array_equal(lab.cpu().numpy(), host.labels_),
+          "spherical: labels_ differ from kernel 2 on the normalised rows")
+    sse = -host.score(ds)
+    cos = (ds.points.to(torch.float64)
+           * cents.to(torch.float64).index_select(0, lab.long())).sum(1)
+    ref = float((ds.weights.to(torch.float64) * (2.0 - 2.0 * cos)).sum())
+    check(abs(sse - ref) <= cmp.SUMS_RTOL * ref,
+          f"spherical: final SSE {sse} against float64 {ref}")
+    emit("spherical", n=SECOND["n"], d=SECOND["d"], k=SECOND["k"],
+         iterations=host.iterations_run, loops_bit_equal=same,
+         final_sse=sse, final_sse_float64=ref,
+         sse_rel_err=abs(sse - ref) / ref,
+         max_norm_err={p: f[2] for p, f in fits.items()},
+         seconds_per_iteration={p: statistics.median(f[0].iter_times_)
+                                for p, f in fits.items()},
+         device_loop_replay_seconds_per_iteration=replay.iter_times_[0],
+         fit_seconds={p: f[1] for p, f in fits.items()},
+         bf16_final_sse=fits["spherical_bf16_device"][0].sse_history[-1])
+    return counts
+
+
+def device_profile(fn, iterations: int, top: int = 12) -> dict:
+    """``torch.profiler`` over ``fn`` (``iterations`` iterations of a
+    loop): the wall seconds, the device time summed over every kernel, the
+    device's idle share of the wall time, and the kernels that took the
+    most device time, each per iteration.  Empty where the trace shows no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0)
+        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((us, e.key, e.count))
+    rows.sort(reverse=True)
+    device_s = sum(r[0] for r in rows) / 1e6
+    return {"iterations": iterations, "wall_ms_per_iteration":
+            wall / iterations * 1e3,
+            "device_ms_per_iteration": device_s / iterations * 1e3,
+            "idle_share": 1.0 - device_s / wall if rows else None,
+            "kernels": [{"name": key[:90], "device_ms_per_iteration":
+                         us / 1e3 / iterations, "calls": count}
+                        for us, key, count in rows[:top]]}
+
+
+def _sse64(ds, centroids, labels, block=1 << 18):
+    """Sum of w ||x - c(label)||^2 in float64 on the card."""
+    c = torch.as_tensor(centroids, device=DEV).to(torch.float64)
+    lab = torch.as_tensor(labels, device=DEV).long()
+    total = 0.0
+    for lo in range(0, ds.n, block):
+        diff = ds.points[lo:lo + block].to(torch.float64) \
+            - c.index_select(0, lab[lo:lo + block])
+        total += float((ds.weights[lo:lo + block].to(torch.float64)
+                        * (diff * diff).sum(1)).sum())
+    return total
+
+
+def phase_bisecting(x):
+    """``BisectingKMeans(k=16)`` on the main data, inner ``max_iter`` 10,
+    'pallas': by the host loop (path ``bisecting``), again (the same tree:
+    the per-cluster SSE is summed in a fixed order), by the device loop
+    (``bisecting_device``, the same tree bit for bit), and in 'pallas_bf16'
+    (``bisecting_bf16``).  Kernel 2 launched once per split (15) for the
+    memberships and kernel 1 once per split for the children's SSE plus
+    once per inner iteration (``split_iterations_``), exactly; the sum of ``cluster_sse_`` within SUMS_RTOL of a
+    float64 recomputation."""
+    splits = BISECT["k"] - 1
+    kw = dict(k=BISECT["k"], max_iter=BISECT["iters"], seed=42,
+              compute_sse=True, init="forgy", verbose=False)
+    counts, fits = {}, {}
+    ds = None
+    for path, extra in (("bisecting", dict(host_loop=True,
+                                           distance_mode="pallas")),
+                        ("bisecting_again", dict(host_loop=True,
+                                                 distance_mode="pallas")),
+                        ("bisecting_device", dict(host_loop=False,
+                                                  distance_mode="pallas")),
+                        ("bisecting_bf16", dict(host_loop=False,
+                                                distance_mode="pallas_bf16"))):
+        km = BisectingKMeans(**kw, **extra)
+        ds = ds if ds is not None else km.cache(x)
+        hk.reset_launch_counts()
+        t0 = time.perf_counter()
+        km.fit(ds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(hk.LAUNCHES)
+        if path != "bisecting_again":
+            launches = check_path_launches(path)
+            counts[path] = launches
+        suffix = "_bf16" if "bf16" in path else ""
+        k1 = launches.get("fused_assign_reduce" + suffix, 0)
+        k2 = launches.get("hopper_assign" + suffix, 0)
+        # Kernel 1: each inner iteration, then one stats pass per split.
+        inner = sum(km.split_iterations_)
+        check(km.iterations_run == splits and k2 == splits
+              and k1 == inner + splits,
+              f"{path}: {km.iterations_run} splits, kernel 2 launched {k2} "
+              f"times, kernel 1 {k1} for {inner} inner iterations")
+        check(np.all(np.isfinite(km.centroids))
+              and sorted(np.unique(km.labels_)) == list(range(BISECT["k"])),
+              f"{path}: centroids or labels_ out of range")
+        fits[path] = (km, wall, k1, k2)
+    ref = fits["bisecting"][0]
+    for other in ("bisecting_again", "bisecting_device"):
+        m = fits[other][0]
+        check(np.array_equal(m.labels_, ref.labels_)
+              and np.array_equal(m.cluster_sse_, ref.cluster_sse_)
+              and np.array_equal(m.centroids, ref.centroids),
+              f"{other}: a different tree than the host loop's")
+    exact = _sse64(ds, ref.centroids, ref.labels_)
+    total = float(np.sum(ref.cluster_sse_))
+    check(abs(total - exact) <= cmp.SUMS_RTOL * exact,
+          f"bisecting: sum of cluster_sse_ {total} against float64 {exact}")
+    bf = fits["bisecting_bf16"][0]
+    emit("bisecting", n=ds.n, d=ds.d, k=BISECT["k"], splits=splits,
+         inner_max_iter=BISECT["iters"], trees_equal=True,
+         cluster_sse_sum=total, float64_sse=exact,
+         sse_rel_err=abs(total - exact) / exact,
+         bf16_sse_ratio=float(np.sum(bf.cluster_sse_)) / total,
+         kernel1_launches={p: f[2] for p, f in fits.items()},
+         kernel2_launches={p: f[3] for p, f in fits.items()},
+         seconds_per_split={p: statistics.median(f[0].iter_times_)
+                            for p, f in fits.items()},
+         fit_seconds={p: f[1] for p, f in fits.items()})
+    return counts
+
+
+def phase_minibatch(x):
+    """``MiniBatchKMeans`` on the main data at MINIBATCH, 'pallas': the
+    per-iteration engine (path ``minibatch``, each iteration launched
+    eagerly and read back) and the captured loop (``minibatch_device``),
+    equal bit for bit; kernel 1 launched once per iteration plus once per
+    candidate init, kernel 2 once for the lazy ``labels_``.  Each
+    iteration's batch is distinct rows, one per rotated stratum.  The
+    full-data SSE of the final centroids (kernel 1) is below that of the
+    initial ones, and is set beside a full-batch fit of ``full_iters``
+    iterations from the same init.  Then ``sampling='host'``
+    (``minibatch_host``, ``host_iters`` iterations), one 'pallas_bf16'
+    loop (``minibatch_bf16_device``) and ``partial_fit`` on one batch.
+    Returns the path counts and the replayed loop fit (the one-device
+    reference of ``dp_world1``)."""
+    it, bs = MINIBATCH["iters"], MINIBATCH["batch"]
+    n_init = MINIBATCH["n_init"]
+    kw = dict(k=MINIBATCH["k"], batch_size=bs, seed=42, compute_sse=True,
+              init="forgy", verbose=False, tolerance=1e-30, n_init=n_init,
+              reassignment_ratio=MINIBATCH["ratio"])
+    counts, fits = {}, {}
+    ds = None
+    runs = (("minibatch", dict(host_loop=True, distance_mode="pallas"), it),
+            ("minibatch_device", dict(host_loop=False,
+                                      distance_mode="pallas"), it),
+            ("minibatch_host", dict(sampling="host", distance_mode="pallas"),
+             MINIBATCH["host_iters"]),
+            ("minibatch_bf16_device", dict(host_loop=False,
+                                           distance_mode="pallas_bf16"), it))
+    x_host = None
+    for path, extra, iters in runs:
+        km = MiniBatchKMeans(max_iter=iters, **kw, **extra)
+        if path == "minibatch_host":
+            x_host = x.cpu().numpy()
+            data = x_host
+        else:
+            ds = ds if ds is not None else km.cache(x)
+            data = ds
+        hk.reset_launch_counts()
+        t0 = time.perf_counter()
+        km.fit(data)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        suffix = "_bf16" if "bf16" in path else ""
+        k1 = hk.LAUNCHES["fused_assign_reduce" + suffix]
+        check(km.iterations_run == iters and k1 == iters + n_init,
+              f"{path}: kernel 1 launched {k1} times for "
+              f"{km.iterations_run} iterations and {n_init} candidate "
+              f"inits")
+        check(km.labels_.shape == (x.shape[0],), f"{path}: labels_ shape")
+        launches = check_path_launches(path)
+        counts[path] = launches
+        check(launches["hopper_assign" + suffix] == 1,
+              f"{path}: kernel 2 launched "
+              f"{launches['hopper_assign' + suffix]} times for labels_")
+        fits[path] = (km, wall)
+    per, loop = fits["minibatch"][0], fits["minibatch_device"][0]
+    replay = MiniBatchKMeans(max_iter=it, host_loop=False,
+                             distance_mode="pallas", **kw).fit(ds)
+    check(np.array_equal(replay.centroids, loop.centroids),
+          "minibatch: the replayed loop differs from its capture")
+    same = (np.array_equal(per.centroids, loop.centroids)
+            and per.sse_history == loop.sse_history
+            and np.array_equal(per._seen, loop._seen)
+            and np.array_equal(per.labels_, loop.labels_))
+    check(same, "minibatch: the loop differs from the per-iteration engine")
+    n = x.shape[0]
+    keys = torch.from_numpy(dist.minibatch_keys(kw["seed"])).to(DEV)
+    stratum = n // bs
+    for i in range(it):
+        stream = dist.minibatch_streams(keys, i)
+        rows = dist.minibatch_rows(n, bs, stream)
+        rho = (stream[0] * n) >> 32
+        strata = ((rows - rho) % n) // stratum
+        check(torch.unique(rows).numel() == bs and torch.equal(
+            strata, torch.arange(bs, device=DEV)),
+            f"minibatch: the batch of iteration {i} is not one distinct row "
+            f"per rotated stratum")
+    final = per._sse(ds)
+    init_sse = float(per.init_inertias_[per.best_init_])
+    check(final < init_sse, f"minibatch: final SSE {final} not below the "
+                            f"initial centroids' {init_sse}")
+    init = seeding.resolve_init("forgy", ds, MINIBATCH["k"],
+                                per._restart_seeds()[per.best_init_],
+                                mode="kernel")
+    full = KMeans(k=MINIBATCH["k"], max_iter=MINIBATCH["full_iters"],
+                  tolerance=1e-30, init=init, verbose=False,
+                  compute_labels=False, distance_mode="pallas").fit(ds)
+    full_sse = full._sse(ds)
+    hk.reset_launch_counts()
+    pf = MiniBatchKMeans(k=MINIBATCH["k"], seed=42, verbose=False,
+                         distance_mode="pallas").partial_fit(x_host[:bs])
+    check(hk.LAUNCHES["fused_assign_reduce"] == 1
+          and np.all(np.isfinite(pf.centroids)) and pf.iterations_run == 1,
+          f"partial_fit: {hk.LAUNCHES['fused_assign_reduce']} launches of "
+          f"kernel 1")
+    per_s = statistics.median(per.iter_times_)
+    loop_s = replay.iter_times_[0]
+    eager = dist.make_minibatch_fit_fn(
+        batch=bs, mode="kernel", k=MINIBATCH["k"], max_iter=it,
+        tolerance=1e-30, reassignment_ratio=MINIBATCH["ratio"],
+        reassign_every=per._reassign_every(bs), host_loop=True)
+    cents = torch.from_numpy(per.centroids).to(DEV)
+    profile = device_profile(lambda: eager(ds, cents, kw["seed"]), it)
+    emit("minibatch", n=n, d=x.shape[1], k=MINIBATCH["k"], batch=bs,
+         iterations=it, reassignment_ratio=MINIBATCH["ratio"],
+         loops_bit_equal=same, batches_one_row_per_stratum=True,
+         init_sse=init_sse, final_sse=final,
+         full_batch_sse=full_sse, full_batch_iterations=full.iterations_run,
+         final_over_full_batch=final / full_sse,
+         bf16_final_sse=fits["minibatch_bf16_device"][0]._sse(ds),
+         host_sampling_final_sse=fits["minibatch_host"][0]._sse(ds),
+         seconds_per_iteration={p: statistics.median(f[0].iter_times_)
+                                for p, f in fits.items()},
+         device_loop_replay_seconds_per_iteration=loop_s,
+         graph_saves_seconds_per_iteration=per_s - loop_s,
+         per_iteration_engine_profile=profile,
+         full_batch_seconds_per_iteration=statistics.median(
+             full.iter_times_),
+         fit_seconds={p: f[1] for p, f in fits.items()})
+    return counts, replay
+
+
 # -------------------------------------------------------------------- timing
 
 
@@ -1852,6 +2254,8 @@ DP_LOCAL_ROWS = 1_000_000
 DP_TIMEOUT = 600
 DP_NOTE = "two ranks share one card over gloo; not a scaling figure"
 MESHES = {"data2": (2, 1), "model2": (1, 2)}
+#: Iterations of the mini-batch fit on the data axis of the shared card.
+DP_MB_ITERS = 5
 MESH_MODES = {"f32": "auto", "bf16": "pallas_bf16"}
 
 
@@ -1868,8 +2272,9 @@ def path_kernels(mode: str, model_shards: int) -> tuple:
 def dp_child(rank: int, world: int, store: str, out: str) -> None:
     """One rank of the shared-card phases (spawned): the main data fitted
     on a data axis and a model axis of two ranks in float32 and bf16, one
-    step at the reference's centroids on each, the device loop's refusal
-    over gloo, process-local k-means++ and the mixture on the data axis.
+    step at the reference's centroids on each, the mini-batch fit on the
+    data axis, the device loop's refusal over gloo, process-local
+    k-means++ and the mixture on the data axis.
     Writes its results and its own launch counts to ``out.<rank>``."""
     import pickle
     from kmeans_tpu_torch.parallel import multihost
@@ -1910,6 +2315,25 @@ def dp_child(rank: int, world: int, store: str, out: str) -> None:
                 launches=launches, step_sums=st.sums.cpu(),
                 step_counts=st.counts.cpu(), step_labels=step_labels)
     mesh = make_mesh(DP_RANKS, 1)
+    # The mini-batch engine on the data axis: each rank draws half of the
+    # batch from its own block, statistics and candidates reduced.
+    mb = MiniBatchKMeans(k=MINIBATCH["k"], batch_size=MINIBATCH["batch"],
+                         max_iter=DP_MB_ITERS, seed=42, init="forgy",
+                         n_init=MINIBATCH["n_init"], tolerance=1e-30,
+                         reassignment_ratio=MINIBATCH["ratio"],
+                         compute_sse=True, verbose=False, host_loop=True,
+                         distance_mode="pallas", mesh=mesh)
+    hk.reset_launch_counts()               # this path's own counts
+    t0 = time.perf_counter()
+    mb.fit(x)
+    torch.cuda.synchronize()
+    res["minibatch"] = dict(
+        centroids=mb.centroids, seen=mb._seen, iterations=mb.iterations_run,
+        sse_history=mb.sse_history, iter_times=mb.iter_times_,
+        fit_seconds=time.perf_counter() - t0, launches=dict(hk.LAUNCHES),
+        init_sse=float(mb.init_inertias_[mb.best_init_]),
+        final_sse=mb._sse(mb._fit_ds))
+    del mb
     try:
         KMeans(k=8, max_iter=2, verbose=False, host_loop=False,
                mesh=mesh).fit(x[:4096])
@@ -1979,7 +2403,10 @@ def phase_dp_shared_card(x, refs, seeding_idx):
     (a whole fit's centroids move apart wherever a near-tie row changed
     cluster); the launch counts of every rank; the refusal of the device
     loop over gloo; process-local k-means++ rows against the one-device
-    draws.  Returns the results of rank 0 and every rank's counts."""
+    draws; the mini-batch fit on the data axis (each rank draws half of
+    the batch from its block): both ranks the same bits, kernel 1 once per
+    iteration and candidate init, the final SSE below the initial.
+    Returns the results of rank 0 and every rank's counts."""
     import pickle
     with tempfile.TemporaryDirectory() as tmp:
         out = str(Path(tmp) / "out")
@@ -2061,6 +2488,29 @@ def phase_dp_shared_card(x, refs, seeding_idx):
                          ref["iter_times"]),
                      fit_seconds=r["fit_seconds"], launches=counts[path],
                      note=DP_NOTE)
+    mbs = [res["minibatch"] for res in results]
+    for rank, m in enumerate(mbs):
+        path = f"dp_shared_card:data2:minibatch:rank{rank}"
+        k1 = m["launches"].get("fused_assign_reduce", 0)
+        check(m["iterations"] == DP_MB_ITERS
+              and k1 == DP_MB_ITERS + MINIBATCH["n_init"],
+              f"{path}: kernel 1 launched {k1} times for {m['iterations']} "
+              f"iterations and {MINIBATCH['n_init']} candidate inits")
+        check(np.all(np.isfinite(m["centroids"]))
+              and m["final_sse"] < m["init_sse"],
+              f"{path}: final SSE {m['final_sse']} not below the initial "
+              f"centroids' {m['init_sse']}")
+        counts[path] = {k: v for k, v in m["launches"].items() if v}
+    same = all(np.array_equal(m["centroids"], mbs[0]["centroids"])
+               and np.array_equal(m["seen"], mbs[0]["seen"]) for m in mbs)
+    check(same, "dp_shared_card minibatch: the ranks' centroids differ")
+    emit("dp_shared_card_minibatch", mesh="data2", k=MINIBATCH["k"],
+         batch=MINIBATCH["batch"], rows_per_rank=MINIBATCH["batch"]
+         // DP_RANKS, iterations=DP_MB_ITERS, ranks_equal=same,
+         init_sse=mbs[0]["init_sse"], final_sse=mbs[0]["final_sse"],
+         sse_history=mbs[0]["sse_history"],
+         seconds_per_iteration=statistics.median(mbs[0]["iter_times"]),
+         fit_seconds=mbs[0]["fit_seconds"], note=DP_NOTE)
     seeding_rows = x[torch.from_numpy(seeding_idx).to(DEV)].cpu().numpy()
     for rank, res in enumerate(results):
         check(res["device_loop_error"] is not None
@@ -2129,14 +2579,17 @@ def phase_dp_gmm(results, gm, x_gmm):
     return counts
 
 
-def phase_dp_world1(x, refs):
+def phase_dp_world1(x, refs, minibatch_ref):
     """One NCCL rank in this process (a FileStore under a temp directory):
     the main data on a mesh of one rank, float32 and bf16, by the host loop
     and the device loop (whose captured graph then holds the NCCL
     collectives), bit for bit against the one-device fits of the run, with
     kernel 1 (1b) once per iteration and kernel 2 (2b) for ``labels_``.
-    Seconds per iteration beside the one-device figure: the cost of the
-    collectives at world 1.  The process group is gone when it returns."""
+    Then ``MiniBatchKMeans``'s captured loop on that mesh (the batch's
+    gather an NCCL ``all_reduce`` inside the graph) bit for bit against the
+    one-device loop of phase ``minibatch``.  Seconds per iteration beside
+    the one-device figure: the cost of the collectives at world 1.  The
+    process group is gone when it returns."""
     from kmeans_tpu_torch.parallel import multihost
     from kmeans_tpu_torch.parallel.mesh import make_mesh
     counts = {}
@@ -2180,9 +2633,45 @@ def phase_dp_world1(x, refs):
                          ref.iter_times_), launches=counts[path])
                 check(all(same.values()), f"{path}: not bit-identical to "
                                           f"the one-device fit: {same}")
+            counts["dp_world1:minibatch:device"] = _dp_world1_minibatch(
+                x, mesh, minibatch_ref)
         finally:
             torch.distributed.destroy_process_group()
     return counts
+
+
+def _dp_world1_minibatch(x, mesh, ref):
+    """The mini-batch loop on the one-rank mesh, fitted twice (capture,
+    replay), against the one-device loop ``ref``: centroids, lifetime
+    counts and SSE history bit for bit; kernel 1 once per iteration plus
+    once per candidate init."""
+    it, n_init = MINIBATCH["iters"], MINIBATCH["n_init"]
+    mb = MiniBatchKMeans(k=MINIBATCH["k"], batch_size=MINIBATCH["batch"],
+                         max_iter=it, seed=42, compute_sse=True,
+                         init="forgy", verbose=False, tolerance=1e-30,
+                         n_init=n_init, host_loop=False,
+                         reassignment_ratio=MINIBATCH["ratio"],
+                         distance_mode="pallas", mesh=mesh)
+    ds = mb.cache(x)
+    for _ in range(2):
+        hk.reset_launch_counts()
+        mb.fit(ds)
+        torch.cuda.synchronize()
+    launches = {k: v for k, v in hk.LAUNCHES.items() if v}
+    same = {"centroids": bool(np.array_equal(mb.centroids, ref.centroids)),
+            "seen": bool(np.array_equal(mb._seen, ref._seen)),
+            "sse_history": mb.sse_history == ref.sse_history,
+            "iterations": mb.iterations_run == ref.iterations_run}
+    emit("dp_world1", model="MiniBatchKMeans", loop="device",
+         bit_identical=same, iterations=mb.iterations_run,
+         seconds_per_iteration=mb.iter_times_[0],
+         one_device_seconds_per_iteration=ref.iter_times_[0],
+         launches=launches)
+    check(launches.get("fused_assign_reduce", 0) == it + n_init,
+          f"dp_world1 minibatch: launches {launches}")
+    check(all(same.values()), f"dp_world1 minibatch: not bit-identical to "
+                              f"the one-device loop: {same}")
+    return launches
 
 
 def phase_suite():
@@ -2262,6 +2751,7 @@ def main() -> None:
     for bf16 in (False, True):
         records = phase_kernels(x_main, c_main, second, bf16)
         phase_sentinels(bf16)
+        phase_family_kernels(x_main, c_main, x2, bf16)
         main_rec = next(r for r in records if r["case"] == "main_shape")
         suffix = "_bf16" if bf16 else ""
         errs["fused_assign_reduce" + suffix] = max(
@@ -2297,6 +2787,7 @@ def main() -> None:
     fit_shape(x2, SECOND, "glove_like")
     check_path_launches("glove_like")
     phase_device_converge(x2)
+    family_counts = phase_spherical(x2)
     del x2
     phase_empty_policies()
 
@@ -2312,6 +2803,9 @@ def main() -> None:
     seeding_records, drawn = phase_seeding(x_main, x_gmm)
     slice_counts.update(phase_kmeans_parallel(x_main, km, seeding_records))
     slice_counts.update(phase_sweep(x_main))
+    family_counts.update(phase_bisecting(x_main))
+    minibatch_counts, minibatch_ref = phase_minibatch(x_main)
+    family_counts.update(minibatch_counts)
     phase_gmm_offset()
     phase_gmm_float64()
 
@@ -2341,7 +2835,8 @@ def main() -> None:
     mesh_counts.update(phase_dp_world1(x_main, {
         ("f32", "host"): km, ("bf16", "host"): km_bf16,
         ("f32", "device"): device_models["main_device"],
-        ("bf16", "device"): device_models["main_bf16_device"]}))
+        ("bf16", "device"): device_models["main_bf16_device"]},
+        minibatch_ref))
     phase_suite()
     for row in rows:
         row["mesh_launches"] = {path: c[row["name"]]
@@ -2349,6 +2844,9 @@ def main() -> None:
                                 if c.get(row["name"], 0) > 0}
         row["model_selection_launches"] = {
             path: c[row["name"]] for path, c in slice_counts.items()
+            if c.get(row["name"], 0) > 0}
+        row["family_launches"] = {
+            path: c[row["name"]] for path, c in family_counts.items()
             if c.get(row["name"], 0) > 0}
 
     emit("total", seconds=time.perf_counter() - started)

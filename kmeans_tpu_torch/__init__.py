@@ -1,14 +1,20 @@
 """kmeans_tpu_torch: the PyTorch / CUDA port of kmeans_tpu for NVIDIA Hopper.
 
-One card, float32: ``KMeans`` fit and predict through hand-written CUDA
-kernels (``ops.hopper_kernels``), and ``GaussianMixture`` ('diag',
-'spherical') whose E-step is a hand-written CUDA kernel
-(``ops.estep_kernels``).  Imports ``torch`` and ``numpy`` only.
+``KMeans`` and its families ``MiniBatchKMeans``, ``BisectingKMeans`` and
+``SphericalKMeans``, fit and predict through hand-written CUDA kernels
+(``ops.hopper_kernels``), and ``GaussianMixture`` ('diag', 'spherical')
+whose E-step is a hand-written CUDA kernel (``ops.estep_kernels``), on one
+card or a ``torch.distributed`` mesh.  Imports ``torch`` and ``numpy``
+only.
 """
 
 __version__ = "0.1.0"
 
+from kmeans_tpu_torch.models.bisecting import BisectingKMeans  # noqa: E402
 from kmeans_tpu_torch.models.gmm import GaussianMixture  # noqa: E402
 from kmeans_tpu_torch.models.kmeans import KMeans  # noqa: E402
+from kmeans_tpu_torch.models.minibatch import MiniBatchKMeans  # noqa: E402
+from kmeans_tpu_torch.models.spherical import SphericalKMeans  # noqa: E402
 
-__all__ = ["GaussianMixture", "KMeans", "__version__"]
+__all__ = ["GaussianMixture", "KMeans", "MiniBatchKMeans", "BisectingKMeans",
+           "SphericalKMeans", "__version__"]

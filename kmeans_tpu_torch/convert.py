@@ -3,7 +3,8 @@
 ``from_jax_state`` takes the dictionary that a model of the JAX package
 returns from ``_state_dict()`` (NumPy arrays and plain values only: nothing
 of the JAX package is imported here) and builds the fitted port model of the
-same class, ``KMeans`` or ``GaussianMixture`` by its ``model_class``;
+same class (``KMeans``, ``MiniBatchKMeans``, ``BisectingKMeans``,
+``SphericalKMeans`` or ``GaussianMixture``) by its ``model_class``;
 ``to_jax_state`` goes the other way.  The same dictionaries are what the
 ``.npz`` checkpoints of both packages hold, so a model saved by either one
 loads in the other.
@@ -13,10 +14,19 @@ from __future__ import annotations
 
 from typing import Union
 
+from kmeans_tpu_torch.models.bisecting import BisectingKMeans
 from kmeans_tpu_torch.models.gmm import GaussianMixture
 from kmeans_tpu_torch.models.kmeans import KMeans
+from kmeans_tpu_torch.models.minibatch import MiniBatchKMeans
+from kmeans_tpu_torch.models.spherical import SphericalKMeans
 
-_CLASSES = {"KMeans": KMeans, "GaussianMixture": GaussianMixture}
+_CLASSES = {"KMeans": KMeans, "MiniBatchKMeans": MiniBatchKMeans,
+            "BisectingKMeans": BisectingKMeans,
+            "SphericalKMeans": SphericalKMeans,
+            "GaussianMixture": GaussianMixture}
+#: The JAX package's classes that the port does not have yet, by the ROADMAP
+#: item that brings them.
+_LATER = {"ProductQuantizer": "A.11 'Massive k and PQ'"}
 
 
 def from_jax_state(state: dict, device=None
@@ -30,10 +40,13 @@ def from_jax_state(state: dict, device=None
     ``'kernel_bf16'``.  ``device`` as in the
     constructors: ``None`` is the card."""
     name = str(state.get("model_class", "KMeans"))
-    if name not in _CLASSES:
+    if name in _LATER:
         raise NotImplementedError(
             f"model_class={name!r} is not ported to kmeans_tpu_torch yet: "
-            f"ROADMAP.md, A.7 'The other K-Means families'")
+            f"ROADMAP.md, {_LATER[name]}")
+    if name not in _CLASSES:
+        raise ValueError(f"unknown model_class {name!r}; known: "
+                         f"{sorted(_CLASSES)}")
     return _CLASSES[name]._from_state(state, device=device)
 
 

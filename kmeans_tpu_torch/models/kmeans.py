@@ -242,8 +242,10 @@ class KMeans:
         the SSE history comes back at the end.  'auto' (the JAX package's
         rule): the host loop, unless one measured dispatch round trip is
         over 5 ms and over 25 % of a measured step, and the fit has
-        ``verbose=False``, the base Lloyd hooks, and no host-drawn
-        'resample'; on a local card it is the host loop.
+        ``verbose=False``, hooks the device loop computes
+        (``_device_hooks``), and no host-drawn 'resample'; on a local card
+        it is the host loop.  ``host_loop=False`` with a hook that has no
+        device form raises ``ValueError``.
     pipeline : 'auto' | 0 | 1.  The chunk schedule of the torch modes
         (``ops.assign.assign_reduce``); both give the same bits.  'auto' is
         0 until a measurement on the card picks 1; the kernel modes ignore
@@ -270,6 +272,17 @@ class KMeans:
     unless it measured one); ``bf16_guard_corrected_rows_`` the rows the
     guarded rung flagged over a device-loop fit (None otherwise).
     """
+
+    #: The device form of ``_postprocess_centroids`` (None: the identity),
+    #: a ``project`` of ``parallel.distributed.project_centroids``.  A
+    #: family whose hook has one declares it here AND tags the hook with
+    #: ``_device_equivalent``: that pair lets the device loop run it
+    #: (``_device_hooks``); a subclass that overrides the hook again loses
+    #: the tag and stays on the host loop.
+    _device_project: Optional[str] = None
+    #: Whether ``sweep`` applies: the families whose fit is not batched
+    #: Lloyd (mini-batch, bisecting) opt out.
+    _sweepable = True
 
     _PARAM_NAMES = ("k", "max_iter", "tolerance", "seed", "compute_sse",
                     "init", "n_init", "compute_labels", "empty_cluster",
@@ -317,10 +330,13 @@ class KMeans:
             if n_init != "auto":
                 raise ValueError(f"n_init must be an int >= 1 or 'auto', "
                                  f"got {n_init!r}")
-            # sklearn's rule: 1 for the D^2-seeded inits, 10 for random
-            # draws and callables.
+            # sklearn's rule: 1 for the D^2-seeded inits (k-means|| too,
+            # as in the JAX package), else ``_auto_n_init()`` (10; 3 for
+            # MiniBatchKMeans).
             n_init = (1 if isinstance(init, str)
-                      and init in ("k-means++", "kmeans++") else 10)
+                      and init in ("k-means++", "kmeans++", "k-means||",
+                                   "kmeans||")
+                      else self._auto_n_init())
         if int(n_init) < 1:
             raise ValueError(f"n_init must be >= 1, got {n_init}")
         self.n_init = int(n_init)
@@ -366,6 +382,11 @@ class KMeans:
         self.estep_path_: Optional[str] = None
         self.auto_rtt_: Optional[float] = None
         self.bf16_guard_corrected_rows_: Optional[int] = None
+        # Inner fits (BisectingKMeans' 2-means) skip the init's scan for
+        # non-finite rows (the parent scanned once) and the eager labels_
+        # pass (the parent computes the membership itself).
+        self._validate_init = True
+        self._eager_labels = True
 
         self.centroids: Optional[np.ndarray] = None
         self.sse_history: List[float] = []
@@ -379,6 +400,11 @@ class KMeans:
         self._labels_error: Optional[str] = None
 
     # ----------------------------------------------------------------- setup
+
+    def _auto_n_init(self) -> int:
+        """``n_init='auto'`` for random draws and callables: sklearn's 10
+        restarts."""
+        return 10
 
     def _mode(self) -> str:
         """``distance_mode`` with 'auto' resolved: the kernel on a CUDA
@@ -480,7 +506,7 @@ class KMeans:
             raise _later("checkpoint_every", checkpoint_every,
                          "A.9 'Fault tolerance'")
         self._fit(X, sample_weight)
-        if self.compute_labels:
+        if self.compute_labels and self._eager_labels:
             _ = self.labels_
         else:
             self._fit_ds = None
@@ -503,7 +529,8 @@ class KMeans:
         """Seeds of one restart (at ``k``, the model's by default): the
         init strategy, k-means|| through this model's distance mode."""
         centroids = resolve_init(self.init, ds, self.k if k is None else k,
-                                 seed, cap=self.init_cap, mode=self._mode())
+                                 seed, validate=self._validate_init,
+                                 cap=self.init_cap, mode=self._mode())
         return self._postprocess_centroids(
             np.asarray(centroids, dtype=np.float64)).astype(self.dtype)
 
@@ -522,8 +549,8 @@ class KMeans:
         """``host_loop`` for this fit, with 'auto' resolved by the JAX
         package's rule: the host loop unless one measured dispatch round
         trip is over 5 ms AND over 25 % of a measured step; then the device
-        loop where it is interchangeable with the host loop (the base Lloyd
-        hooks, ``verbose=False``, and no 'resample' on a dataset whose host
+        loop where it is interchangeable with the host loop (hooks that it
+        computes, ``verbose=False``, and no 'resample' on a dataset whose host
         loop draws on the host), else the host loop with a one-time
         :class:`DispatchLatencyHint`.  The 5 ms floor keeps a local card,
         where a round trip takes microseconds, on the host loop."""
@@ -555,20 +582,17 @@ class KMeans:
         frac = rtt / max(step_s, 1e-12)
         if frac <= 0.25:
             return True
-        base_hooks = all(getattr(type(self), name) is getattr(KMeans, name)
-                         for name in ("_postprocess_centroids",
-                                      "_handle_empty",
-                                      "_finish_lloyd_iteration"))
+        device_hooks = self._device_hooks()
         resample_safe = self.empty_cluster != "resample" or ds.host is None
         where = (f"host_loop='auto': dispatch RTT {rtt * 1e3:.0f} ms is "
                  f"{frac:.0%} of a measured step on this device")
-        if base_hooks and resample_safe and not self.verbose:
+        if device_hooks and resample_safe and not self.verbose:
             _hint_once("auto_switched",
                        f"{where}: running the fit as the device loop "
                        f"(host_loop=False); pass host_loop=True to keep "
                        f"the per-iteration host loop")
             return False
-        if not base_hooks:
+        if not device_hooks:
             _hint_once("auto_hint_hooks",
                        f"{where}, but {type(self).__name__}'s host-side "
                        f"hooks need the per-iteration host loop")
@@ -584,6 +608,19 @@ class KMeans:
                        f"host dispatch; set host_loop=False, or "
                        f"verbose=False to let 'auto' switch")
         return True
+
+    def _device_hooks(self) -> bool:
+        """Whether the device loop computes what the host loop's hooks do:
+        the base Lloyd hooks, or a ``_postprocess_centroids`` tagged with
+        the class's ``_device_project``."""
+        pp = type(self)._postprocess_centroids
+        pp_ok = pp is KMeans._postprocess_centroids or (
+            self._device_project is not None
+            and getattr(pp, "_device_equivalent", None)
+            == self._device_project)
+        return pp_ok and all(
+            getattr(type(self), name) is getattr(KMeans, name)
+            for name in ("_handle_empty", "_finish_lloyd_iteration"))
 
     def _fit(self, X, sample_weight) -> "KMeans":
         log = IterationLogger(self.verbose and
@@ -607,6 +644,10 @@ class KMeans:
 
         seeds = self._restart_seeds()
         host = self._resolve_host_loop(ds, step_fn)
+        if not host and not self._device_hooks():
+            raise ValueError(
+                f"host_loop=False: {type(self).__name__}'s host-side hooks "
+                f"have no device form; use host_loop=True")
         self.loop_path_ = "host" if host else "device"
         if len(seeds) > 1 and not host:
             return self._fit_on_device_multi(ds, seeds, pipeline, log)
@@ -677,7 +718,8 @@ class KMeans:
             ds.mesh, chunk_size=self._chunk_for(ds), mode=self._mode(),
             max_iter=self.max_iter, tolerance=float(self.tolerance),
             empty_policy=self.empty_cluster,
-            history_sse=self.compute_sse, pipeline=pipeline)
+            history_sse=self.compute_sse, pipeline=pipeline,
+            project=self._device_project)
         start = time.perf_counter()
         result = fit_fn(ds, self._put_centroids(centroids), seed)
         if result.flagged is not None:
@@ -698,7 +740,7 @@ class KMeans:
             tolerance=float(self.tolerance),
             empty_policy=self.empty_cluster, n_init=len(seeds),
             history_sse=self.compute_sse, return_all=True,
-            pipeline=pipeline)
+            pipeline=pipeline, project=self._device_project)
         inits = np.stack([self._init_centroids(ds, s) for s in seeds])
         self.sse_history, self.iter_times_ = [], []
         start = time.perf_counter()
@@ -875,6 +917,10 @@ class KMeans:
         from kmeans_tpu_torch import metrics as metrics_mod
         from kmeans_tpu_torch import sweep as sweep_mod
 
+        if not type(self)._sweepable:
+            raise NotImplementedError(
+                f"sweep() is defined for the full-batch Lloyd families "
+                f"(KMeans, SphericalKMeans), not {type(self).__name__}")
         if not (isinstance(self.init, str) or callable(self.init)):
             raise ValueError(
                 "sweep() needs a string or callable init (an explicit "
@@ -1002,7 +1048,7 @@ class KMeans:
             empty_policy=self.empty_cluster, n_init=len(members),
             history_sse=self.compute_sse,
             k_reals=[k for k, _ in members], return_all=True,
-            pipeline=pipeline)
+            pipeline=pipeline, project=self._device_project)
         inits = np.full((len(members), k_max, ds.d),
                         dist.PAD_CENTROID_VALUE, self.dtype)
         for i, (k_m, seed) in enumerate(members):
@@ -1330,12 +1376,22 @@ class KMeans:
                     dtype=np.dtype(str(state["dtype"])), device=device,
                     mesh=mesh, init_cap=(
                         None if state.get("init_cap") is None
-                        else int(state["init_cap"])))
+                        else int(state["init_cap"])),
+                    **cls._load_kwargs(state))
         cents = np.asarray(state["centroids"])
         model.centroids = cents.astype(model.dtype) if cents.size else None
         model.sse_history = [float(s) for s in state["sse_history"]]
         model.iterations_run = int(state["iterations_run"])
+        model._restore_state(state)
         return model
+
+    @classmethod
+    def _load_kwargs(cls, state: dict) -> dict:
+        """A family's own constructor arguments in a checkpoint."""
+        return {}
+
+    def _restore_state(self, state: dict) -> None:
+        """A family's own fitted state in a checkpoint (none here)."""
 
     def save(self, path) -> None:
         """Write the fitted state as one ``.npz`` checkpoint.  Under a mesh

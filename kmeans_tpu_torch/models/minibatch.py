@@ -1,0 +1,481 @@
+"""Mini-batch K-Means (Sculley's updates on sampled batches).
+
+Counterpart of ``kmeans_tpu/models/minibatch.py``: each iteration draws a
+batch of rows, computes its per-cluster sums and counts with the full-batch
+pass (kernel 1, or 1b, on the gathered batch in the kernel modes), and
+moves every centre that the batch reached towards the batch's mean by
+``counts / seen``, ``seen`` its lifetime count.  For n far larger than one
+pass per iteration justifies.
+
+Two sampling engines (``sampling=``):
+
+* ``'device'`` (the default): the dataset is placed on the device once (a
+  host copy is not needed) and each iteration draws its batch there, from
+  ``(seed, iteration)`` by integer hashing
+  (``parallel.distributed.minibatch_rows``: one row per rotated stratum, the
+  JAX package's rule; not its draws, which are ``jax.random``'s).  The
+  update runs on the device too: ``host_loop=False`` replays one captured
+  CUDA graph per iteration, ``host_loop=True`` launches the same iteration
+  eagerly and reads it back for the log, so both give the same bits.
+* ``'host'``: per iteration ``np.random.default_rng([seed, i]).choice`` on
+  the host and an upload of the batch, the JAX package's draws row for
+  row; the update in float64 on the host (``_apply_batch_stats``).  For X
+  larger than the device's memory: one batch is resident at a time.
+
+Dead centres (``reassignment_ratio``, 0.01 by default as in scikit-learn):
+every ``10 k / batch + 1`` iterations a centre whose lifetime count is
+below the ratio times the largest takes a row of the current batch.
+
+Under a mesh the dataset is placed in blocks (``ShardedDataset``); as in
+the JAX package, each block of the data axis draws ``ceil(batch / data)``
+rows of its own per iteration and the statistics of the whole batch, and
+its reassignment candidates, are reduced over the mesh, so no rank holds
+the whole batch; the host engine places each batch over the mesh and
+reduces its statistics like ``KMeans``.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from kmeans_tpu_torch.models.init import as_source, resolve_init
+from kmeans_tpu_torch.models.kmeans import (KMeans, NumericalDivergenceError,
+                                            _dispatch_rtt, _hint_once,
+                                            _host_rows, _later)
+from kmeans_tpu_torch.parallel import distributed as dist
+from kmeans_tpu_torch.parallel.mesh import (DATA_AXIS, all_reduce,
+                                            is_primary, mesh_shape)
+from kmeans_tpu_torch.parallel.sharding import (Dataset,
+                                                _validate_sample_weight,
+                                                to_device)
+from kmeans_tpu_torch.utils.logging import IterationLogger
+
+_SAMPLING = ("device", "host")
+
+
+class MiniBatchKMeans(KMeans):
+    """Mini-batch K-Means on one device or a mesh.
+
+    The constructor of :class:`KMeans` plus ``batch_size`` (rows per
+    iteration), ``sampling`` ('device' | 'host') and ``reassignment_ratio``
+    (>= 0; 0 turns the reassignment off).  ``n_init`` candidate inits are
+    scored by one pass each (the full data on the device, a seeded subset
+    of 3 batches for host data) and the best one is trained
+    (``init_inertias_``, ``best_init_``); ``n_init='auto'`` is 3.  The
+    guarded bf16 rung is refused.
+
+    After ``fit``: ``centroids``, ``cluster_sizes_`` (the last batch's
+    counts), ``sse_history`` (each batch's SSE scaled by the total weight
+    over the batch's, with ``compute_sse``), ``iterations_run``, and
+    ``labels_`` on first access (one pass of kernel 2).
+    """
+
+    _PARAM_NAMES = KMeans._PARAM_NAMES + ("batch_size", "sampling",
+                                          "reassignment_ratio")
+    _sweepable = False
+
+    def __init__(self, k: int = 3, max_iter: int = 100,
+                 tolerance: float = 1e-4, seed: int = 42,
+                 compute_sse: bool = False, *, batch_size: int = 4096,
+                 sampling: str = "device",
+                 reassignment_ratio: float = 0.01, **kwargs):
+        super().__init__(k, max_iter, tolerance, seed, compute_sse, **kwargs)
+        if batch_size <= 0:
+            raise ValueError(f"batch_size must be positive, got {batch_size}")
+        if sampling not in _SAMPLING:
+            raise ValueError(f"sampling must be one of {_SAMPLING}, "
+                             f"got {sampling!r}")
+        if reassignment_ratio < 0:
+            raise ValueError(f"reassignment_ratio must be >= 0, got "
+                             f"{reassignment_ratio}")
+        dist._check_minibatch_mode(self.distance_mode)
+        self.batch_size = batch_size
+        self.sampling = sampling
+        self.reassignment_ratio = float(reassignment_ratio)
+        self.init_inertias_: Optional[np.ndarray] = None
+        self.best_init_ = 0
+        self._seen: Optional[np.ndarray] = None
+        self._centroids_f64: Optional[np.ndarray] = None
+        self._total_w: Optional[float] = None
+
+    def _auto_n_init(self) -> int:
+        """scikit-learn's ``n_init='auto'`` of MiniBatchKMeans: 3 (the
+        candidates are scored, not trained)."""
+        return 3
+
+    def _reassign_every(self, batch: int) -> int:
+        """The reassignment period: the least n with ``n * batch > 10 k``
+        (scikit-learn's strict rule)."""
+        return 10 * self.k // max(batch, 1) + 1
+
+    def _set_fit_data(self, data) -> None:
+        """Point the lazy ``labels_`` at the data of this fit."""
+        self._labels_cache = None
+        if self.compute_labels:
+            self._fit_ds, self._labels_error = data, None
+        else:
+            self._fit_ds = None
+            self._labels_error = ("labels_ was not materialized because "
+                                  "compute_labels=False; call predict(X) "
+                                  "instead")
+
+    # ------------------------------------------------------------------- fit
+
+    def fit(self, X, y=None, *, sample_weight=None, resume=False,
+            checkpoint_every: int = 0,
+            checkpoint_path=None) -> "MiniBatchKMeans":
+        """Fit with mini-batch updates.  ``sample_weight`` (n,) scales every
+        batch statistic; rows are drawn uniformly (scikit-learn's rule).
+        ``labels_`` is computed on first access."""
+        if resume:
+            raise _later("resume", resume, "A.9 'Fault tolerance'")
+        if checkpoint_every or checkpoint_path is not None:
+            raise _later("checkpoint_every", checkpoint_every,
+                         "A.9 'Fault tolerance'")
+        if self.sampling == "host":
+            return self._fit_host(X, sample_weight)
+        return self._fit_device(X, sample_weight)
+
+    def _select_init(self, init_src) -> np.ndarray:
+        """scikit-learn's ``n_init`` for mini-batches: draw one init per
+        restart seed, score each by one pass (over a dataset on the device,
+        its exact SSE; over host rows, a seeded subset of ``max(3 batch,
+        3 k)`` rows) and return the lowest, float64.  One candidate is not
+        scored."""
+        cands = [np.asarray(resolve_init(self.init, init_src, self.k, s,
+                                         cap=self.init_cap,
+                                         mode=self._mode()), np.float64)
+                 for s in self._restart_seeds()]
+        self.init_inertias_, self.best_init_ = None, 0
+        if len(cands) == 1:
+            return cands[0]
+        if isinstance(init_src, Dataset):
+            ds = init_src
+        else:
+            src = as_source(init_src)
+            X, hw = np.asarray(src.host), src.host_weights
+            n = X.shape[0]
+            take = min(n, max(3 * self.batch_size, 3 * self.k))
+            idx = np.random.default_rng([self.seed, 0x1717]).choice(
+                n, size=take, replace=False)
+            ds = to_device(np.ascontiguousarray(X[idx]), self.device,
+                           self.dtype, sample_weight=(
+                               None if hw is None else np.asarray(hw)[idx]),
+                           mesh=self._resolve_mesh())
+        step = dist.make_step_fn(ds.mesh, chunk_size=self._chunk_for(ds),
+                                 mode=self._mode(), need_farthest=False,
+                                 need_sse_pc=False)
+        x2w = self._x2w(ds)
+        inertias = [float(step(ds.points, ds.weights,
+                               self._put_centroids(c), x2w).sse)
+                    for c in cands]
+        self.init_inertias_ = np.asarray(inertias, np.float64)
+        self.best_init_ = int(np.argmin(inertias))
+        return cands[self.best_init_]
+
+    def _resolve_host_loop_mb(self) -> bool:
+        """``host_loop`` of the device engine, 'auto' by the JAX package's
+        rule: the per-iteration engine unless one dispatch round trip is
+        over 5 ms (a batch's pass is sub-millisecond, so such a round trip
+        dominates it); then the captured loop if ``verbose`` is off."""
+        if self.host_loop is True or self.host_loop is False:
+            return self.host_loop
+        rtt = _dispatch_rtt(self.device)
+        mesh = self._resolve_mesh()
+        if mesh is not None:
+            # Every rank takes the same path: the slowest round trip rules.
+            rtt = float(all_reduce(torch.tensor([rtt], dtype=torch.float64,
+                                                device=self.device),
+                                   mesh, op="max")[0])
+            if self.device.type == "cuda" and \
+                    torch.distributed.get_backend() != "nccl":
+                return True         # the captured loop needs NCCL here
+        self.auto_rtt_ = rtt
+        if rtt <= 5e-3:
+            return True
+        where = (f"host_loop='auto': dispatch RTT {rtt * 1e3:.0f} ms "
+                 f"dominates the mini-batch step on this device")
+        if not self.verbose:
+            _hint_once("auto_switched_mb",
+                       f"{where}: running the fit as the device loop "
+                       f"(host_loop=False, the same bits); pass "
+                       f"host_loop=True to keep the per-iteration engine")
+            return False
+        _hint_once("auto_hint_mb",
+                   f"{where}; set host_loop=False, or verbose=False to let "
+                   f"'auto' switch")
+        return True
+
+    def _fit_device(self, X, sample_weight) -> "MiniBatchKMeans":
+        """The device sampling engine: the dataset placed once, every
+        iteration's draw, pass and update on the device."""
+        ds = self.cache(X, sample_weight)
+        bs = min(self.batch_size, ds.n)
+        # Every block of the data axis draws the same count, rounded up.
+        data = mesh_shape(ds.mesh)[0]
+        bs_local = -(-bs // data)
+        log = IterationLogger(self.verbose and is_primary(ds.mesh))
+        self._set_fit_data(ds)
+        centroids = self._select_init(ds)
+        log.startup(self.k, self.max_iter, self.tolerance, self.compute_sse)
+        mode = self._mode()
+        self.estep_path_ = ("fused-pallas" if mode in dist.KERNEL_MODES
+                            else "serial")
+        self.bf16_guard_corrected_rows_ = None
+        host = self._resolve_host_loop_mb()
+        self.loop_path_ = "host" if host else "device"
+        fit_fn = dist.make_minibatch_fit_fn(
+            ds.mesh, batch=bs_local, mode=mode, k=self.k,
+            max_iter=self.max_iter, tolerance=float(self.tolerance),
+            history_sse=self.compute_sse,
+            reassignment_ratio=self.reassignment_ratio,
+            reassign_every=self._reassign_every(bs_local * data),
+            chunk_size=self.chunk_size, host_loop=host)
+        self._total_w = float(all_reduce(
+            ds.weights.to(torch.float64).sum().reshape(1), ds.mesh,
+            (DATA_AXIS,))[0])
+        times = []
+        t_last = [time.perf_counter()]
+
+        def on_iteration(loop, i):
+            # One read of the iteration's counts, SSE estimate and shift:
+            # the per-iteration engine's log line.
+            tail = torch.cat([loop.counts, loop.sse_hist[i:i + 1],
+                              loop.shift.reshape(1)]).to(torch.float64)
+            tail = tail.cpu().numpy()
+            log.iteration(i, float(tail[-1]), tail[:-2].astype(np.int64),
+                          float(tail[-2]) if self.compute_sse else None)
+            now = time.perf_counter()
+            times.append(now - t_last[0])
+            t_last[0] = now
+
+        start = time.perf_counter()
+        res = fit_fn(ds, self._put_centroids(centroids), self.seed,
+                     on_iteration=on_iteration if host else None)
+        elapsed = time.perf_counter() - start
+        n = res.n_iters
+        self.iter_times_ = (times[:n] if host
+                            else [elapsed / max(n, 1)] * n)
+        if not res.finite:
+            raise NumericalDivergenceError(n)
+        self.centroids = res.centroids.cpu().numpy().astype(self.dtype)
+        self._centroids_f64 = self.centroids.astype(np.float64)
+        self._seen = res.seen
+        self.cluster_sizes_ = res.counts.astype(np.int64)
+        self.iterations_run = n
+        self.sse_history = ([float(s) for s in res.sse_history]
+                            if self.compute_sse else [])
+        last_shift = float(res.shift_history[-1]) if n else 0.0
+        if not host:
+            log.iteration(n - 1, last_shift, list(self.cluster_sizes_),
+                          self.sse_history[-1] if self.sse_history else None)
+        if n and last_shift < self.tolerance:
+            log.converged(n)
+        return self
+
+    def _fit_host(self, X, sample_weight) -> "MiniBatchKMeans":
+        """The host sampling engine: per iteration a host draw of the
+        batch (``np.random.default_rng([seed, i]).choice``) and its
+        upload; the weights stay on the host."""
+        hw = None
+        if isinstance(X, Dataset):
+            if X.host is None:
+                raise ValueError("sampling='host' needs host data to draw "
+                                 "batches; pass a NumPy array or use "
+                                 "sampling='device'")
+            if sample_weight is not None:
+                raise ValueError("pass sample_weight when caching the "
+                                 "dataset, not on a pre-built Dataset")
+            hw, X = X.host_weights, X.host
+        X = np.ascontiguousarray(_host_rows(X, self.dtype))
+        n = X.shape[0]
+        if sample_weight is not None:
+            if isinstance(sample_weight, torch.Tensor):
+                sample_weight = sample_weight.cpu().numpy()
+            hw = _validate_sample_weight(sample_weight, n, self.dtype)
+        bs = min(self.batch_size, n)
+        total_w = float(hw.sum()) if hw is not None else float(n)
+        self._total_w = total_w
+        self._set_fit_data(X)
+        log = IterationLogger(self.verbose
+                              and is_primary(self._resolve_mesh()))
+        centroids = self._select_init(as_source(X, hw))
+        self.sse_history, self.iterations_run, self.iter_times_ = [], 0, []
+        log.startup(self.k, self.max_iter, self.tolerance, self.compute_sse)
+        self.estep_path_ = ("fused-pallas" if self._mode()
+                            in dist.KERNEL_MODES else "serial")
+        self.loop_path_ = "host"
+        seen = np.zeros(self.k)
+        for iteration in range(self.max_iter):
+            t0 = time.perf_counter()
+            # Batch i is a pure function of (seed, i); rows are drawn
+            # uniformly and the weights scale the statistics.
+            idx = np.random.default_rng([self.seed, iteration]).choice(
+                n, size=bs, replace=False)
+            centroids, seen, max_shift = self._incremental_update(
+                X[idx], centroids, seen, iteration, log,
+                batch_weight=hw[idx] if hw is not None else None,
+                total_w=total_w)
+            self.iter_times_.append(time.perf_counter() - t0)
+            if max_shift < self.tolerance:
+                log.converged(iteration + 1)
+                break
+        return self
+
+    def _incremental_update(self, batch: np.ndarray, centroids: np.ndarray,
+                            seen: np.ndarray, iteration: int,
+                            log: IterationLogger, sse_scale: float = 1.0,
+                            batch_weight=None, total_w=None):
+        """One update from one host batch: its pass on the device (kernel
+        1 in the kernel modes), then :meth:`_apply_batch_stats`.
+        ``total_w`` scales the SSE estimate by the total weight over the
+        batch's; the reassignment candidates are drawn on the host from
+        this batch under ``[seed, iteration, 0xC4ED]``."""
+        ds = to_device(np.ascontiguousarray(batch), self.device, self.dtype,
+                       sample_weight=batch_weight, mesh=self._resolve_mesh())
+        step = dist.make_step_fn(ds.mesh, chunk_size=self._chunk_for(ds),
+                                 mode=self._mode(), need_farthest=False,
+                                 need_sse_pc=False)
+        stats = step(ds.points, ds.weights, self._put_centroids(centroids),
+                     None)
+        tail = torch.cat([stats.sums.reshape(-1), stats.counts,
+                          stats.sse.reshape(1)]).to(torch.float64)
+        tail = tail.cpu().numpy()
+        k, d = self.k, batch.shape[1]
+        sums, counts = tail[: k * d].reshape(k, d), tail[k * d: k * d + k]
+        if total_w is not None:
+            sse_scale = total_w / max(float(counts.sum()), 1.0)
+        candidates = None
+        do_re = self.reassignment_ratio > 0 and \
+            (iteration + 1) % self._reassign_every(batch.shape[0]) == 0
+        if do_re:
+            rng = np.random.default_rng([self.seed, iteration, 0xC4ED])
+            # Only rows of positive weight may become centres.
+            elig = (np.arange(batch.shape[0]) if batch_weight is None
+                    else np.flatnonzero(np.asarray(batch_weight) > 0))
+            take = min(self.k, len(elig))
+            if take:
+                idx = elig[rng.choice(len(elig), size=take, replace=False)]
+                candidates = batch[idx].astype(np.float64)
+        return self._apply_batch_stats(sums, counts, centroids, seen,
+                                       iteration, log, sse=float(tail[-1]),
+                                       sse_scale=sse_scale,
+                                       candidates=candidates,
+                                       do_reassign=do_re)
+
+    def _apply_batch_stats(self, sums: np.ndarray, counts: np.ndarray,
+                           centroids: np.ndarray, seen: np.ndarray,
+                           iteration: int, log: IterationLogger, *,
+                           sse: float, sse_scale: float, candidates=None,
+                           do_reassign: bool = False):
+        """The Sculley update of one batch in float64 on the host (the
+        carry ``_centroids_f64``): ``seen += counts``, each centre that the
+        batch reached moved by ``counts / seen`` towards the batch mean;
+        then, when ``do_reassign``, the centres below ``reassignment_ratio
+        * max(seen)`` take the candidates in slot order and the least count
+        of the kept centres.  Returns ``(centroids, seen, max_shift)``."""
+        seen += counts
+        eta = np.divide(counts, np.maximum(seen, 1.0))[:, None]
+        batch_mean = sums / np.maximum(counts, 1.0)[:, None]
+        new_centroids = np.where(counts[:, None] > 0,
+                                 (1.0 - eta) * centroids + eta * batch_mean,
+                                 centroids)
+        if do_reassign and candidates is not None \
+                and self.reassignment_ratio > 0:
+            flagged = seen < self.reassignment_ratio * seen.max()
+            slots = np.flatnonzero(flagged)[:len(candidates)]
+            if slots.size:
+                log.warn_reassign(slots.size)
+                new_centroids[slots] = candidates[: slots.size]
+                kept = seen[~flagged]
+                seen[slots] = kept.min() if kept.size else 0.0
+        if not np.all(np.isfinite(new_centroids)):
+            raise NumericalDivergenceError(iteration + 1)
+        if self.compute_sse:
+            self.sse_history.append(sse * sse_scale)
+        max_shift = float(np.max(np.linalg.norm(new_centroids - centroids,
+                                                axis=1)))
+        log.iteration(iteration, max_shift, counts.astype(np.int64),
+                      self.sse_history[-1] if
+                      (self.compute_sse and self.sse_history) else None)
+        self.centroids = new_centroids.astype(self.dtype)
+        self._centroids_f64 = np.asarray(new_centroids, dtype=np.float64)
+        self.cluster_sizes_ = counts.astype(np.int64)
+        self.iterations_run = iteration + 1
+        self._seen = seen.copy()
+        return new_centroids, seen, max_shift
+
+    def partial_fit(self, X, y=None, *,
+                    sample_weight=None) -> "MiniBatchKMeans":
+        """One update from a batch the caller gives (scikit-learn's
+        streaming API); the first call draws the init from the batch.
+        ``labels_`` is then of this batch."""
+        if sample_weight is not None:
+            raise ValueError("partial_fit does not support sample_weight; "
+                             "fold weights into batch construction")
+        X = np.ascontiguousarray(_host_rows(X, self.dtype))
+        log = IterationLogger(self.verbose
+                              and is_primary(self._resolve_mesh()))
+        if self.centroids is None:
+            centroids = np.asarray(resolve_init(self.init, X, self.k,
+                                                self.seed), np.float64)
+            self.sse_history, self.iterations_run = [], 0
+            self._seen = np.zeros(self.k)
+        else:
+            centroids = np.asarray(self.centroids, dtype=np.float64)
+            if X.shape[1] != centroids.shape[1]:
+                raise ValueError(
+                    f"X has {X.shape[1]} features, but model was fitted "
+                    f"with {centroids.shape[1]}")
+        self._total_w = None
+        seen = np.asarray(self._seen, dtype=np.float64)
+        self._incremental_update(X, centroids, seen, self.iterations_run, log)
+        self._set_fit_data(X)
+        return self
+
+    def fit_stream(self, *args, **kwargs):
+        raise _later("fit_stream", "...", "A.10 'Streaming and ingest'")
+
+    def _learn_clone(self):
+        raise _later("_learn_clone", "...", "A.12 'Serving'")
+
+    def _profile_counts(self):
+        raise _later("_profile_counts", "...", "A.13 'Observability'")
+
+    def _profile_rows(self):
+        raise _later("_profile_rows", "...", "A.13 'Observability'")
+
+    # ------------------------------------------------------------ checkpoint
+
+    def _state_dict(self) -> dict:
+        state = super()._state_dict()
+        state["profile_total_w"] = self._total_w
+        state["batch_size"] = self.batch_size
+        state["sampling"] = self.sampling
+        state["reassignment_ratio"] = self.reassignment_ratio
+        state["seen_counts"] = np.asarray(
+            self._seen if self._seen is not None else np.zeros(self.k))
+        if self._centroids_f64 is not None:
+            state["centroids_f64"] = np.asarray(self._centroids_f64,
+                                                np.float64)
+        return state
+
+    @classmethod
+    def _load_kwargs(cls, state: dict) -> dict:
+        # A checkpoint from before reassignment existed never reassigned.
+        return {"batch_size": int(state["batch_size"]),
+                "sampling": state.get("sampling", "device"),
+                "reassignment_ratio":
+                    float(state.get("reassignment_ratio", 0.0))}
+
+    def _restore_state(self, state: dict) -> None:
+        total = state.get("profile_total_w")
+        self._total_w = float(total) if total is not None else None
+        self._seen = np.asarray(state["seen_counts"], np.float64)
+        carried = state.get("centroids_f64")
+        self._centroids_f64 = (np.asarray(carried, np.float64)
+                               if carried is not None else None)

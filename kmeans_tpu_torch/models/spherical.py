@@ -1,0 +1,128 @@
+"""Spherical K-Means: clustering by cosine similarity.
+
+Counterpart of ``kmeans_tpu/models/spherical.py``, for embeddings such as
+word vectors (GloVe-class data), where the direction of a row matters and
+its length does not.  For unit rows the squared Euclidean distance is
+``2 - 2 cos``, so the nearest centroid by the K-Means kernels is the most
+similar one by cosine; the model is :class:`KMeans` with two projections:
+
+* the rows are divided by their norms once, in float64, when the data is
+  placed on the device (``cache``); a row of norm 0 stays at the origin;
+* after every mean update each centroid is put back on the unit sphere (the
+  mean direction), in ``_postprocess_centroids`` on the host loop and in
+  ``parallel.distributed.project_centroids`` on the device loop.
+
+Everything else is the base model's: the kernels (1, 1b, 2, 2b), the
+empty-cluster policies, restarts, the mesh, checkpoints and ``sweep``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from kmeans_tpu_torch.models.kmeans import KMeans, _host_rows, _later
+from kmeans_tpu_torch.parallel import distributed as dist
+from kmeans_tpu_torch.parallel.sharding import Dataset
+
+
+def _normalize_rows(x: np.ndarray) -> np.ndarray:
+    """Rows divided by their norms (float64); a zero row stays zero."""
+    norms = np.linalg.norm(x, axis=-1, keepdims=True)
+    return x / np.maximum(norms, np.finfo(np.float64).tiny)
+
+
+def _normalize_tensor(x: torch.Tensor) -> torch.Tensor:
+    """:func:`_normalize_rows` of a tensor, on its device, in float64."""
+    x = x.to(torch.float64)
+    norms = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+    return x / torch.clamp_min(norms, torch.finfo(torch.float64).tiny)
+
+
+class SphericalKMeans(KMeans):
+    """K-Means on the unit sphere (cosine-similarity clustering).
+
+    The constructor of :class:`KMeans`, ``host_loop`` included: the sphere
+    projection has a device form, so ``host_loop=False`` (and ``n_init``
+    restarts and ``sweep`` in one device loop) run it on the device.
+
+    * ``fit``, ``predict``, ``score`` and ``transform`` normalise their
+      rows, so raw vectors may be passed; a :class:`Dataset` must come from
+      this model's ``cache`` (any other raises ``ValueError``).
+    * ``centroids`` are unit vectors (mean directions).
+    * ``sse_history``, ``inertia_`` and ``score`` are sums of ``w (2 - 2
+      cos)``, the squared chordal distance.
+    * ``transform`` gives chordal distances; cosine is ``1 - d**2 / 2``.
+    """
+
+    _device_project = "sphere"
+
+    def __init__(self, k: int = 3, max_iter: int = 100,
+                 tolerance: float = 1e-4, seed: int = 42,
+                 compute_sse: bool = False, **kwargs):
+        super().__init__(k=k, max_iter=max_iter, tolerance=tolerance,
+                         seed=seed, compute_sse=compute_sse, **kwargs)
+
+    def cache(self, X, sample_weight=None) -> Dataset:
+        """Place the L2-normalised rows on the device (rows of norm 0 stay
+        at the origin) and mark the dataset as unit rows."""
+        if isinstance(X, Dataset):
+            if not getattr(X, "_unit_rows", False):
+                raise ValueError(
+                    "SphericalKMeans requires row-normalized data: cache it "
+                    "with SphericalKMeans.cache(X) (or pass the raw array) "
+                    "instead of a Dataset built elsewhere")
+            return super().cache(X, sample_weight)
+        if isinstance(X, torch.Tensor) and X.device == self.device:
+            if X.ndim != 2:
+                raise ValueError(f"X must be 2-D (n, D), got shape "
+                                 f"{tuple(X.shape)}")
+            rows = _normalize_tensor(X)        # the dtype: by to_device
+        else:
+            rows = _normalize_rows(_host_rows(X, np.float64)).astype(
+                self.dtype)
+        ds = super().cache(rows, sample_weight)
+        ds._unit_rows = True
+        return ds
+
+    def _postprocess_centroids(self, centroids: np.ndarray,
+                               prev: Optional[np.ndarray] = None
+                               ) -> np.ndarray:
+        """The spherical Lloyd step: each centroid becomes its mean
+        direction; a mean of norm 0 keeps the previous centroid (at init,
+        ``prev`` None, the row itself).
+
+        It runs :func:`parallel.distributed.project_centroids` on the
+        model's device, on the means rounded to the model's dtype: the
+        device loop's arithmetic, so both loops give the same bits."""
+        c = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(centroids, self.dtype))).to(self.device)
+        p = c if prev is None else torch.from_numpy(np.ascontiguousarray(
+            np.asarray(prev, self.dtype))).to(self.device)
+        return dist._host_copy(dist.project_centroids(c, p,
+                                                      project="sphere"))
+
+    # The device form of the hook above (``_device_project``); a subclass
+    # that overrides the hook loses the tag and runs on the host loop.
+    _postprocess_centroids._device_equivalent = "sphere"
+
+    def _sweep_metric_rows(self, X) -> np.ndarray:
+        """The metric criteria score the normalised rows, the geometry the
+        sweep's labels were assigned in."""
+        return np.ascontiguousarray(_normalize_rows(
+            _host_rows(X, np.float64)).astype(self.dtype))
+
+    def _transform_stream_blocks(self, make_blocks, block_rows):
+        """``transform`` and ``transform_stream`` read normalised rows."""
+        def normalized():
+            for raw in make_blocks():
+                yield _normalize_rows(_host_rows(raw, np.float64))
+        return super()._transform_stream_blocks(normalized, block_rows)
+
+    def fitted_state(self):
+        raise _later("fitted_state", "...", "A.12 'Serving'")
+
+    def _quality_rows(self, X):
+        raise _later("_quality_rows", "...", "A.13 'Observability'")

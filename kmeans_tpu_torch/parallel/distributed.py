@@ -7,7 +7,10 @@ Counterpart of ``kmeans_tpu/parallel/distributed.py``
 ``_empty_seed_array`` and ``_refill_empty_slots``, ``make_transform_fn``,
 ``_check_guarded``, ``make_multi_fit_fn`` (its
 ``_refill_empty_slots_batched`` is ``_MultiLoop._refill``),
-``make_multi_predict_fn``).
+``make_multi_predict_fn``, ``_project_centroids``, and the mini-batch
+engines ``_check_minibatch_mode``, ``make_minibatch_step_fn``,
+``_sample_batch``, ``_batch_candidates``, ``apply_reassignment`` and
+``make_minibatch_fit_fn``).
 
 ``mode='kernel'`` runs the fused CUDA kernel of ``ops.hopper_kernels`` (its
 plain version when the tensors lie on the CPU) and ``'kernel_bf16'`` its bf16
@@ -49,10 +52,25 @@ iteration holds every member.
 The guarded bf16 rung (``'matmul_bf16_guarded'``, ``ops.assign``) is a
 torch mode: its step, predict and device loop run the chunked pass with the
 guard; it refuses a model axis and 'farthest' (:func:`_check_guarded`).
+
+Both device loops take ``project='sphere'`` (``SphericalKMeans``): every
+real centroid row is put back on the unit sphere after the mean update and
+the refill (:func:`project_centroids`).  :func:`make_minibatch_fit_fn` is
+the mini-batch (Sculley) loop: each iteration draws its batch on the device
+from ``(seed, iteration)`` by integer hashing (:func:`minibatch_rows`), so
+the draws need no generator and no read to the host, and a captured
+iteration replays them; under a mesh each rank draws its share of the
+batch from its own block, as in the JAX package, and the statistics and the
+reassignment candidates are reduced over the data axis.
+
+A loop kept in a dataset's memo holds no reference to the dataset (its row
+gather is a weak method), so a dataset that is dropped frees its loops and
+their captured graphs at once.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
@@ -113,6 +131,29 @@ def _sse_from_stats(x2w, centroids, sums, counts, acc) -> torch.Tensor:
     return torch.clamp_min(x2w - 2.0 * cross + cnorm, 0.0).to(acc)
 
 
+#: Elements of the (rows, k) one-hot tile of :func:`cluster_sums`.
+CLUSTER_SUM_ELEMS = 1 << 24
+
+
+def cluster_sums(labels: torch.Tensor, values: torch.Tensor,
+                 k: int) -> torch.Tensor:
+    """``values`` summed per label 0..k-1, in an order that does not depend
+    on the device's scheduling: a one-hot product per block of rows (the
+    rule of ``ops.assign.consume_chunk``), the blocks in row order.  An
+    ``index_add_`` on the card adds in the order its atomics land, so two
+    runs could differ in the last bits, and the bisecting tree compares
+    these sums to pick its next split."""
+    n = labels.shape[0]
+    out = torch.zeros((k,), dtype=values.dtype, device=values.device)
+    ids = torch.arange(k, device=labels.device)
+    rows = max(1, CLUSTER_SUM_ELEMS // max(k, 1))
+    for lo in range(0, n, rows):
+        onehot = (labels[lo:lo + rows].to(torch.int64)[:, None]
+                  == ids[None, :]).to(values.dtype)
+        out += onehot.T @ values[lo:lo + rows]
+    return out
+
+
 def _kernel_local_stats(points, weights, centroids, *, bf16: bool = False,
                         need_sse: bool = True, need_farthest: bool = True,
                         need_sse_pc: bool = True, x2w=None) -> StepStats:
@@ -135,8 +176,7 @@ def _kernel_local_stats(points, weights, centroids, *, bf16: bool = False,
     else:
         sse = (mind2 * w).sum().to(acc)
     if need_sse_pc:
-        sse_pc = torch.zeros(k, dtype=acc, device=points.device).index_add_(
-            0, labels.to(torch.int64), (mind2 * w).to(acc))
+        sse_pc = cluster_sums(labels, (mind2 * w).to(acc), k)
     else:
         sse_pc = zero.sse_per_cluster
     if need_farthest:
@@ -485,6 +525,30 @@ def refill_table(ds: Dataset, keys: np.ndarray, k: int) -> torch.Tensor:
     return permuted_draws(n_pos, j, torch.from_numpy(keys))
 
 
+def project_centroids(new: torch.Tensor, prev: torch.Tensor,
+                      real: Optional[torch.Tensor] = None,
+                      project: Optional[str] = None) -> torch.Tensor:
+    """The device form of a family's centroid hook, applied after the mean
+    update and the refill and before the shift test (the JAX package's
+    ``_project_centroids``).  ``'sphere'`` (``SphericalKMeans``): each real
+    row divided by its norm (the mean direction); a row of norm 0 (members
+    that cancel exactly) keeps its previous value ``prev``.  Rows outside
+    ``real`` (sentinel rows, (..., k) bool; None: every row is real) stay
+    as they are: a sentinel put on the sphere would win rows.  Plain tensor
+    ops, so a captured iteration holds it."""
+    if project is None:
+        return new
+    if project != "sphere":
+        raise ValueError(f"unknown device projection {project!r}")
+    norm = torch.sqrt((new * new).sum(dim=-1, keepdim=True))
+    unit = new / torch.clamp_min(norm, torch.finfo(new.dtype).tiny)
+    if real is None:
+        return torch.where(norm > 0, unit, prev)
+    real_c = real[..., None]
+    return torch.where(real_c & (norm > 0), unit,
+                       torch.where(real_c, prev, new))
+
+
 def _host_copy(t: torch.Tensor) -> np.ndarray:
     """A float64 host array of the loop's state ``t`` that owns its memory:
     on the CPU, ``.to(float64).cpu().numpy()`` of a float64 tensor is a
@@ -503,11 +567,15 @@ class _DeviceLoop:
     def __init__(self, points, weights, step, gather, *, k: int,
                  max_iter: int, tolerance: float, empty_policy: str,
                  need_sse: bool, x2w: Optional[torch.Tensor],
-                 x2w_finite: Optional[torch.Tensor], audit: bool = False):
+                 x2w_finite: Optional[torch.Tensor], audit: bool = False,
+                 project: Optional[str] = None):
         dev, d = points.device, points.shape[1]
         acc = _accum_dtype(points.dtype)
         self.points, self.weights, self.step = points, weights, step
-        self.gather, self.audit = gather, audit
+        # Weak: the loop lives in its dataset's memo, and a strong bound
+        # method would tie the two in a cycle that only the collector frees.
+        self._gather = None if gather is None else weakref.WeakMethod(gather)
+        self.audit, self.project = audit, project
         self.flagged = torch.zeros((), dtype=torch.int64, device=dev)
         self.max_iter, self.tolerance = max_iter, float(tolerance)
         self.policy, self.need_sse, self.x2w = empty_policy, need_sse, x2w
@@ -528,6 +596,11 @@ class _DeviceLoop:
         self.graph_launches: Dict[str, int] = {}
 
     # ------------------------------------------------------------ iteration
+
+    def gather(self, ordinals: torch.Tensor) -> torch.Tensor:
+        """The dataset's ``gather_positive`` (the dataset is alive while a
+        fit on it runs)."""
+        return self._gather()(ordinals)
 
     def _refill(self, new, empty, st: StepStats):
         """The empty slots of ``new``, all in this iteration: 'farthest'
@@ -554,8 +627,8 @@ class _DeviceLoop:
     def iterate(self) -> None:
         """One Lloyd iteration, masked by ``running``: the step, the mean
         division in the accumulation dtype, the empty-cluster policy, the
-        all-finite flag, the largest shift and the converged flag.  Nothing
-        is read to the host."""
+        projection, the all-finite flag, the largest shift and the
+        converged flag.  Nothing is read to the host."""
         active = self.running.clone()
         st = self.step(self.points, self.weights, self.cents, self.x2w)
         if self.audit:
@@ -569,6 +642,7 @@ class _DeviceLoop:
                           self.cents)
         if self.policy != "keep":
             new = self._refill(new, ~nonempty, st)
+        new = project_centroids(new, self.cents, None, self.project)
         diff = new - self.cents
         shift = torch.sqrt((diff * diff).sum(dim=1)).max()
         # The host loop's guard: non-finite centroids, or a non-finite SSE
@@ -715,7 +789,8 @@ def make_fit_fn(mesh=None, *, chunk_size: int, mode: str = "matmul",
                 max_iter: int,
                 tolerance: float, empty_policy: str = "keep",
                 history_sse: bool = True, pipeline: int = 0,
-                in_flight: Optional[int] = None) -> Callable:
+                in_flight: Optional[int] = None,
+                project: Optional[str] = None) -> Callable:
     """The device loop: ``fit(ds, centroids0, seed) -> FitResult``.
 
     Counterpart of the JAX package's ``make_fit_fn`` (its ``lax.while_loop``
@@ -738,7 +813,10 @@ def make_fit_fn(mesh=None, *, chunk_size: int, mode: str = "matmul",
     * the guarded bf16 rung (refused under a model axis and with
       'farthest', :func:`_check_guarded`) counts the rows its guard flags
       over the fit's iterations: ``FitResult.flagged``, the JAX package's
-      trailing audit count.
+      trailing audit count;
+    * ``project`` (None | 'sphere') is the family's centroid hook on the
+      device (:func:`project_centroids`), after the refill and before the
+      shift test, where the host loop calls ``_postprocess_centroids``.
 
     ``seed`` is the restart's seed; the refill of iteration ``it`` draws
     under ``[seed, it + 1]``.  The loop's state and its captured graph are
@@ -769,13 +847,14 @@ def make_fit_fn(mesh=None, *, chunk_size: int, mode: str = "matmul",
         return _DeviceLoop(ds.points, ds.weights, step, ds.gather_positive,
                            k=k, max_iter=max_iter, tolerance=tolerance,
                            empty_policy=empty_policy, need_sse=need_sse,
-                           x2w=x2w, x2w_finite=x2w_finite, audit=guarded)
+                           x2w=x2w, x2w_finite=x2w_finite, audit=guarded,
+                           project=project)
 
     def fit(ds: Dataset, centroids0: torch.Tensor, seed: int) -> FitResult:
         _check_backend(mesh, ds)
         k = centroids0.shape[0]
         key = ("device_loop", mode, chunk_size, k, max_iter,
-               float(tolerance), empty_policy, need_sse, pipeline)
+               float(tolerance), empty_policy, need_sse, pipeline, project)
         loop = ds.memo(key, lambda: _make_loop(ds, step, k))
         table = (None if empty_policy == "keep" else
                  refill_table(ds, empty_draw_keys(seed, max_iter), k))
@@ -819,12 +898,13 @@ class _MultiLoop(_DeviceLoop):
 
     def __init__(self, points, weights, stats, gather, *, real, max_iter,
                  tolerance, empty_policy, need_sse, x2w, x2w_finite,
-                 audit):
+                 audit, project=None):
         members, k = real.shape
         super().__init__(points, weights, stats, gather, k=k,
                          max_iter=max_iter, tolerance=tolerance,
                          empty_policy=empty_policy, need_sse=need_sse,
-                         x2w=x2w, x2w_finite=x2w_finite, audit=audit)
+                         x2w=x2w, x2w_finite=x2w_finite, audit=audit,
+                         project=project)
         dev, d = points.device, points.shape[1]
         acc = _accum_dtype(points.dtype)
         self.real = real
@@ -881,6 +961,7 @@ class _MultiLoop(_DeviceLoop):
                           self.cents)
         if self.policy != "keep":
             new = self._refill(new, ~nonempty & self.real, st)
+        new = project_centroids(new, self.cents, self.real, self.project)
         diff = new - self.cents
         shifts = torch.sqrt((diff * diff).sum(dim=2))
         shift = torch.where(self.real, shifts,
@@ -914,7 +995,8 @@ def make_multi_fit_fn(mesh=None, *, chunk_size: int, mode: str = "matmul",
                       empty_policy: str = "keep", n_init: int,
                       history_sse: bool = True, k_reals=None,
                       return_all: bool = False,
-                      pipeline: int = 0) -> Callable:
+                      pipeline: int = 0,
+                      project: Optional[str] = None) -> Callable:
     """R = ``n_init`` fits in one device loop: ``fit(ds, centroids0 (R,
     k_real, D), seeds) -> MultiFitResult``.
 
@@ -941,7 +1023,8 @@ def make_multi_fit_fn(mesh=None, *, chunk_size: int, mode: str = "matmul",
     (R, chunk, k) through ``torch.bmm``, was measured no faster on the
     card: PERF.md.)  ``return_all`` returns every member's state;
     ``flagged`` counts the guarded rung's flagged rows of every member
-    while it moves."""
+    while it moves.  ``project`` is the family's centroid hook, on each
+    member's real rows (:func:`project_centroids`)."""
     if empty_policy not in ("keep", "farthest", "resample"):
         raise ValueError(
             f"on-device loop supports empty_cluster 'keep', 'farthest' or "
@@ -995,7 +1078,8 @@ def make_multi_fit_fn(mesh=None, *, chunk_size: int, mode: str = "matmul",
                           ds.gather_positive, real=real, max_iter=max_iter,
                           tolerance=tolerance, empty_policy=empty_policy,
                           need_sse=bool(history_sse), x2w=x2w,
-                          x2w_finite=x2w_finite, audit=guarded)
+                          x2w_finite=x2w_finite, audit=guarded,
+                          project=project)
 
     def fit(ds: Dataset, centroids0: torch.Tensor, seeds) -> MultiFitResult:
         _check_backend(mesh, ds)
@@ -1007,7 +1091,7 @@ def make_multi_fit_fn(mesh=None, *, chunk_size: int, mode: str = "matmul",
                              f"{len(seeds)} seeds")
         key = ("multi_loop", mode, chunk_size, k_real, tuple(ks.tolist()),
                max_iter, float(tolerance), empty_policy, bool(history_sse),
-               pipeline)
+               pipeline, project)
         loop = ds.memo(key, lambda: _make_loop(ds))
         table = None
         if empty_policy != "keep":
@@ -1074,6 +1158,367 @@ def make_multi_predict_fn(mesh=None, *, chunk_size: int,
         return labels
 
     return predict
+
+
+# ------------------------------------------------------------- mini-batch
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``(x * c) mod 2^32`` for int64 ``x`` in [0, 2^32) and a 32-bit
+    constant, in 16-bit halves so that no int64 product overflows."""
+    lo = (x & 0xFFFF) * c
+    hi = (((x >> 16) * c) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _fmix32(x: torch.Tensor) -> torch.Tensor:
+    """MurmurHash3's 32-bit finaliser on int64 tensors holding 32-bit
+    values: a bijection of [0, 2^32) that mixes every input bit into every
+    output bit."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def minibatch_keys(seed: int) -> np.ndarray:
+    """The three 32-bit keys (int64) of a mini-batch fit's draws: the
+    rotation, the row within each stratum, and the reassignment
+    candidates, from ``np.random.SeedSequence([seed, 0x4D42])``."""
+    return np.random.SeedSequence([int(seed), 0x4D42]).generate_state(
+        3).astype(np.int64)
+
+
+def minibatch_streams(keys: torch.Tensor, iterations) -> torch.Tensor:
+    """The hash words (int64 (..., 3)) of ``iterations`` (an int or an
+    int64 tensor of any shape) under a fit's ``keys``: one word for each
+    draw of an iteration, the rotation, the rows and the candidates.  A
+    loop makes the words of all its iterations at once, before its first:
+    an iteration then reads its row, and does not hash a scalar on the
+    device."""
+    it = torch.as_tensor(iterations, dtype=torch.int64, device=keys.device)
+    return _fmix32(keys ^ _fmix32(it & _M32)[..., None])
+
+
+def minibatch_rows(n: int, batch: int, stream: torch.Tensor,
+                   shard: int = 0) -> torch.Tensor:
+    """Rows (int64 (batch,)) of the batch of the iteration whose hash words
+    are ``stream`` (:func:`minibatch_streams`): the JAX package's
+    ``_sample_batch`` rule.  The n rows are cut into ``batch`` strata of
+    ``n // batch`` rows, one row is drawn in each, and the whole is
+    rotated by a draw in [0, n), so the rows are distinct and every row can
+    be drawn.  The draws are hashes of ``(seed, iteration, stratum)``
+    (:func:`_fmix32`), a pure function of the seed and the absolute
+    iteration: integer tensor ops, no generator and no read to the host,
+    the same rows on the CPU and the card, and capturable in a CUDA graph.
+    (The JAX package draws with ``jax.random``, threefry, so its rows are
+    other rows.)
+
+    Under a mesh ``n`` is the rows of a block and ``shard`` its index on
+    the data axis: the strata are hashed at their position in the whole
+    batch, ``shard * batch + j``, and the rotation under a word of the
+    shard's own, so the blocks draw independently; shard 0 draws what one
+    device draws."""
+    if not 1 <= batch <= n < 2 ** 31:
+        raise ValueError(f"need 1 <= batch <= n < 2^31, got batch={batch},"
+                         f" n={n}")
+    stratum = n // batch
+    rot = stream[0] if shard == 0 else _fmix32(stream[0] ^ shard)
+    rho = (rot * n) >> 32
+    j = torch.arange(batch, dtype=torch.int64, device=stream.device)
+    r = (_fmix32(stream[1] ^ (j + shard * batch)) * stratum) >> 32
+    return (j * stratum + r + rho) % n
+
+
+def _top_candidates(bw: torch.Tensor, stream: torch.Tensor, kc: int,
+                    first: int = 0):
+    """The ``kc`` highest candidate scores of the batch's rows and their
+    positions: each row's score is a hash of ``(seed, iteration, first +
+    position)``, distinct for distinct positions (a bijection), -1 for a
+    row of weight 0."""
+    j = torch.arange(bw.shape[0], dtype=torch.int64, device=bw.device)
+    score = _fmix32(stream[2] ^ (j + first))
+    score = torch.where(bw > 0, score, torch.full_like(score, -1))
+    return torch.topk(score, kc)
+
+
+def _batch_candidates(bw: torch.Tensor, stream: torch.Tensor, n_cand: int):
+    """Up to ``n_cand`` distinct positive-weight rows of the batch,
+    uniformly (the JAX package's ``_batch_candidates``): positions in the
+    batch (int64 (n_cand,)) and their validity (False on tail slots when
+    the batch has fewer positive rows).  The candidates are the top scores
+    (:func:`_top_candidates`) in order.  No ties, so ``torch.topk`` picks
+    the same rows on every device."""
+    kc = min(n_cand, bw.shape[0])
+    top, idx = _top_candidates(bw, stream, kc)
+    valid = top >= 0
+    if kc < n_cand:
+        pad = n_cand - kc
+        idx = torch.cat([idx, idx.new_zeros(pad)])
+        valid = torch.cat([valid, valid.new_zeros(pad)])
+    return idx, valid
+
+
+def _mesh_candidates(bx: torch.Tensor, bw: torch.Tensor,
+                     stream: torch.Tensor, n_cand: int, mesh, shard: int):
+    """:func:`_batch_candidates` of the whole batch of a mesh, from each
+    block's share ``(bx, bw)``, as rows (n_cand, D) and validity on every
+    rank: each block's top scores at their positions in the whole batch,
+    embedded with their rows in a zero table of every block's slots, one
+    SUM ``all_reduce`` over the data axis (each slot is written by one
+    block, and adding zeros is exact; the float64 table holds the 32-bit
+    scores exactly), then the top scores of the table.  Any top candidate
+    of the whole batch is among its block's top ``n_cand``, so these are
+    the rows that :func:`_batch_candidates` picks on the whole batch."""
+    data = mesh_shape(mesh)[0]
+    b, d = bx.shape
+    kc = min(n_cand, b)
+    top, idx = _top_candidates(bw, stream, kc, shard * b)
+    table = torch.zeros((data, kc, d + 1), dtype=torch.float64,
+                        device=bx.device)
+    table[shard, :, :d] = bx.index_select(0, idx).to(torch.float64)
+    table[shard, :, d] = top.to(torch.float64)
+    table = all_reduce(table, mesh, (DATA_AXIS,)).reshape(data * kc, d + 1)
+    m = min(n_cand, data * kc)
+    top, j = torch.topk(table[:, d], m)
+    rows = table.index_select(0, j)[:, :d].to(bx.dtype)
+    valid = top >= 0
+    if m < n_cand:
+        pad = n_cand - m
+        rows = torch.cat([rows, rows.new_zeros((pad, d))])
+        valid = torch.cat([valid, valid.new_zeros(pad)])
+    return rows, valid
+
+
+def apply_reassignment(new, seen, cand_rows, cand_valid, do_re,
+                       ratio: float):
+    """Low-count reassignment (the JAX package's ``apply_reassignment``):
+    with ``do_re``, the centres whose lifetime count ``seen`` is below
+    ``ratio * max(seen)`` take the candidate rows in slot order, and their
+    counts become the least count of the kept centres.  Returns ``(new,
+    seen)``."""
+    n_cand = cand_rows.shape[0]
+    flagged = (seen < ratio * seen.max()) & do_re
+    rank = torch.cumsum(flagged.to(torch.int64), 0) - 1
+    take = rank.clamp(0, n_cand - 1)
+    ok = flagged & (rank < n_cand) & cand_valid.index_select(0, take)
+    new = torch.where(ok[:, None],
+                      cand_rows.to(new.dtype).index_select(0, take), new)
+    keep_min = torch.where(~flagged, seen,
+                           torch.full_like(seen, float("inf"))).min()
+    keep_min = torch.where(torch.isfinite(keep_min), keep_min,
+                           torch.zeros_like(keep_min))
+    return new, torch.where(ok, keep_min, seen)
+
+
+def _check_minibatch_mode(mode: str) -> None:
+    """The mini-batch engines take every mode but the guarded rung (the
+    JAX package's rule and message)."""
+    if mode == GUARDED_MODE:
+        raise ValueError(
+            "distance_mode='matmul_bf16_guarded' applies to the "
+            "full-batch Lloyd engines (KMeans/SphericalKMeans fit "
+            "paths); the mini-batch Sculley engines run the f32-class "
+            "modes — use 'matmul' (exact) or 'matmul_bf16' (unguarded)")
+
+
+def make_minibatch_step_fn(mesh=None, *, batch: int, mode: str = "matmul",
+                           chunk_size: Optional[int] = None,
+                           n_candidates: int = 0,
+                           need_sse: bool = True) -> Callable:
+    """One mini-batch pass: ``(points, weights, centroids, stream) ->
+    (StepStats, cand_rows, cand_valid)`` of the batch that the iteration's
+    hash words ``stream`` draw (:func:`minibatch_rows`), passed through
+    :func:`make_step_fn` at the batch's size: kernel 1 (1b) on the gathered
+    batch in the kernel modes.  Its SSE is of the batch (the kernel modes'
+    algebraic SSE takes the batch's own ``sum w ||x||^2``, never the
+    dataset's).  With ``n_candidates`` it also returns that many
+    reassignment candidates (:func:`_batch_candidates`), else None twice.
+
+    Under a ``mesh`` (the JAX package's rule) ``points`` and ``weights``
+    are the rank's block and ``batch`` the rows each block draws: every
+    rank of the data axis draws its own share from its own block, the
+    step's statistics are those of the whole batch (reduced over the mesh
+    as :func:`make_step_fn` reduces them), and the candidates are drawn
+    from the whole batch (:func:`_mesh_candidates`).  The ranks of a model
+    axis draw the same rows."""
+    _check_minibatch_mode(mode)
+    shard = coords(mesh)[0] if mesh is not None else 0
+    base = make_step_fn(mesh, chunk_size=chunk_size or batch, mode=mode,
+                        need_sse=need_sse, need_farthest=False,
+                        need_sse_pc=False)
+
+    def step(points, weights, centroids, stream):
+        rows = minibatch_rows(points.shape[0], batch, stream, shard)
+        bx, bw = points.index_select(0, rows), weights.index_select(0, rows)
+        st = base(bx, bw, centroids, None)
+        if n_candidates <= 0:
+            return st, None, None
+        if mesh is not None:
+            return (st,) + _mesh_candidates(bx, bw, stream, n_candidates,
+                                            mesh, shard)
+        cidx, valid = _batch_candidates(bw, stream, n_candidates)
+        return st, bx.index_select(0, cidx), valid
+
+    return step
+
+
+class MiniBatchFitResult(NamedTuple):
+    """What the mini-batch loop hands back to the host, once per fit."""
+
+    centroids: torch.Tensor      # (k, D), accumulation dtype, on the device
+    seen: np.ndarray             # (k,) float64 lifetime counts
+    n_iters: int                 # iterations that ran (not masked)
+    sse_history: np.ndarray      # (n_iters,) scaled batch SSE estimates
+    shift_history: np.ndarray    # (n_iters,) largest shifts
+    counts: np.ndarray           # (k,) the last batch's counts
+    finite: bool                 # False: iteration n_iters went non-finite
+    launched: int                # iterations launched, masked ones too
+
+
+class _MiniBatchLoop(_DeviceLoop):
+    """The mini-batch loop's state on one dataset and one iteration over
+    it: the batch pass, the Sculley update in the accumulation dtype, the
+    reassignment every ``every`` iterations, the shift test.  Every tensor
+    an iteration reads across iterations (the hash words of every
+    iteration and the iteration counter too) lives here, so one captured
+    iteration replays them."""
+
+    def __init__(self, ds: Dataset, step, *, k, max_iter, tolerance,
+                 need_sse, ratio, every):
+        super().__init__(ds.points, ds.weights, step, None, k=k,
+                         max_iter=max_iter, tolerance=tolerance,
+                         empty_policy="keep", need_sse=need_sse, x2w=None,
+                         x2w_finite=None)
+        acc = _accum_dtype(ds.points.dtype)
+        self.seen = torch.zeros((k,), dtype=acc, device=ds.device)
+        self.streams = torch.zeros((max_iter, 3), dtype=torch.int64,
+                                   device=ds.device)
+        self.w_total = all_reduce(ds.weights.to(acc).sum().reshape(1),
+                                  ds.mesh, (DATA_AXIS,))[0]
+        self.ratio, self.every = float(ratio), int(every)
+
+    def iterate(self) -> None:
+        """One mini-batch iteration, masked by ``running``; nothing is read
+        to the host."""
+        active = self.running.clone()
+        row = torch.clamp(self.it, max=self.max_iter - 1).reshape(1)
+        st, cand_rows, cand_valid = self.step(
+            self.points, self.weights, self.cents.to(self.points.dtype),
+            self.streams.index_select(0, row)[0])
+        counts = st.counts
+        seen = self.seen + counts
+        eta = (counts / torch.clamp_min(seen, 1.0))[:, None]
+        bmean = st.sums / torch.clamp_min(counts, 1.0)[:, None]
+        new = torch.where((counts > 0)[:, None],
+                          (1.0 - eta) * self.cents + eta * bmean, self.cents)
+        if self.ratio > 0:
+            do_re = ((self.it + 1) % self.every) == 0
+            new, seen = apply_reassignment(new, seen, cand_rows, cand_valid,
+                                           do_re, self.ratio)
+        diff = new - self.cents
+        shift = torch.sqrt((diff * diff).sum(dim=1)).max()
+        ok = torch.isfinite(new).all()
+        sse = (st.sse * self.w_total / torch.clamp_min(counts.sum(), 1.0)
+               if self.need_sse else st.sse)
+        at = (self.iters == self.it) & active
+        self.sse_hist.copy_(torch.where(at, sse, self.sse_hist))
+        self.shift_hist.copy_(torch.where(at, shift, self.shift_hist))
+        self.cents.copy_(torch.where(active, new, self.cents))
+        self.seen.copy_(torch.where(active, seen, self.seen))
+        self.counts.copy_(torch.where(active, counts, self.counts))
+        self.shift.copy_(torch.where(active, shift, self.shift))
+        self.ok.copy_(self.ok & (ok | ~active))
+        self.it.add_(active.to(torch.int64))
+        self.running.copy_((self.it < self.max_iter)
+                           & (self.shift >= self.tolerance) & self.ok)
+
+    def _reset(self, centroids0: torch.Tensor, keys: np.ndarray) -> None:
+        super()._reset(centroids0, None)
+        self.seen.zero_()
+        self.streams.copy_(minibatch_streams(
+            torch.from_numpy(keys).to(self.streams.device), self.iters))
+
+    def result(self, launched: int) -> MiniBatchFitResult:
+        n = int(self.it)
+        return MiniBatchFitResult(
+            self.cents.clone(), _host_copy(self.seen), n,
+            _host_copy(self.sse_hist[:n]), _host_copy(self.shift_hist[:n]),
+            _host_copy(self.counts), bool(self.ok), launched)
+
+
+def make_minibatch_fit_fn(mesh=None, *, batch: int, mode: str = "matmul",
+                          k: int, max_iter: int, tolerance: float,
+                          history_sse: bool = True,
+                          reassignment_ratio: float = 0.0,
+                          reassign_every: int = 1,
+                          chunk_size: Optional[int] = None,
+                          host_loop: bool = False) -> Callable:
+    """The mini-batch loop: ``fit(ds, centroids0, seed, on_iteration=None)
+    -> MiniBatchFitResult``.  Counterpart of the JAX package's
+    ``make_minibatch_fit_fn`` and, with ``host_loop``, of its
+    per-iteration engine.  ``batch`` is the rows each block of the data
+    axis draws (:func:`make_minibatch_step_fn`; the whole batch without a
+    mesh).
+
+    Each iteration: the batch of :func:`make_minibatch_step_fn` (kernel 1
+    (1b) on the gathered batch in the kernel modes), ``seen += counts``,
+    the Sculley update ``c <- (1 - eta) c + eta * mean`` with ``eta =
+    counts / seen`` where the batch reached the centre, the reassignment
+    every ``reassign_every`` iterations when ``reassignment_ratio > 0``
+    (:func:`apply_reassignment`), the largest shift, the SSE estimate
+    scaled by the total weight over the batch's, the all-finite flag.  It
+    stops at ``max_iter``, at a shift below ``tolerance`` or at a
+    non-finite update.
+
+    ``host_loop=False`` launches iterations until the host reads a done
+    flag, one captured CUDA graph per iteration on the card (the loop
+    state is kept with the dataset, ``Dataset.memo``).  ``host_loop=True``
+    launches the same iteration eagerly, one at a time, calls
+    ``on_iteration(loop, i)`` after each and reads its flag: the same
+    operations on the same state, so both engines give the same bits in
+    every dtype.  (The JAX package's per-iteration engine interpolates in
+    float64 on the host and meets its loop in float64 only.)  Under a
+    ``mesh`` the statistics and the candidates reduce over the mesh inside
+    the iteration; the captured loop on CUDA tensors then needs NCCL, as
+    :func:`make_fit_fn`'s does."""
+    _check_minibatch_mode(mode)
+    step = make_minibatch_step_fn(
+        mesh, batch=batch, mode=mode, chunk_size=chunk_size,
+        n_candidates=k if reassignment_ratio > 0 else 0,
+        need_sse=bool(history_sse))
+
+    def fit(ds: Dataset, centroids0: torch.Tensor, seed: int,
+            on_iteration=None) -> MiniBatchFitResult:
+        if ds.mesh is not mesh:
+            raise ValueError(f"the dataset was placed with mesh="
+                             f"{ds.mesh!r}, the loop built for {mesh!r}")
+        key = ("minibatch_loop", mode, batch, chunk_size, k, max_iter,
+               float(tolerance), bool(history_sse),
+               float(reassignment_ratio), int(reassign_every))
+        if not host_loop:
+            _check_backend(mesh, ds)
+        loop = ds.memo(key, lambda: _MiniBatchLoop(
+            ds, step, k=k, max_iter=max_iter,
+            tolerance=tolerance, need_sse=bool(history_sse),
+            ratio=reassignment_ratio, every=reassign_every))
+        loop._reset(centroids0, minibatch_keys(seed))
+        if not host_loop:
+            return loop.result(loop._drive(IN_FLIGHT))
+        launched = 0
+        while launched < max_iter:
+            loop.iterate()
+            launched += 1
+            if on_iteration is not None:
+                on_iteration(loop, launched - 1)
+            if not bool(loop.running):
+                break
+        return loop.result(launched)
+
+    return fit
 
 
 # --------------------------------------------------------------- transform

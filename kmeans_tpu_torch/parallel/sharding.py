@@ -22,6 +22,7 @@ rows (uneven counts allowed); it has no host copy.
 
 from __future__ import annotations
 
+import copy
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -281,6 +282,31 @@ class Dataset:
         index = torch.as_tensor(np.asarray(idx), device=self.device)
         return self.points[index].cpu().numpy()
 
+    def _weights_like(self, sw: np.ndarray) -> torch.Tensor:
+        """The device weights of this dataset's rows for (n,) host weights
+        ``sw``: all of them on one device."""
+        return torch.from_numpy(np.ascontiguousarray(sw)).to(self.device)
+
+    def with_weights(self, sample_weight) -> "Dataset":
+        """The same device points with other per-row weights (n,), which
+        replace the current ones: the JAX package's ``with_weights``.  The
+        points are shared, not copied (``BisectingKMeans`` fits each split
+        on the whole data with the other rows at weight 0).  The result has
+        a memo of its own: what the parent keeps (``sum w ||x||^2``, its
+        positive rows, its captured loops) was computed with the parent's
+        weights."""
+        if self.process_local:
+            raise ValueError("with_weights needs a dataset of global rows; "
+                             "a process-local dataset holds only its own")
+        if isinstance(sample_weight, torch.Tensor):
+            sample_weight = sample_weight.detach().cpu().numpy()
+        sw = _validate_sample_weight(sample_weight, self.n, self.dtype)
+        new = copy.copy(self)
+        new.weights = self._weights_like(sw)
+        new._host_weights = sw if self._host is not None else None
+        new._memo = {}
+        return new
+
     def sample_positive_rows(self, m: int, seed_seq) -> np.ndarray:
         """Up to ``m`` distinct positive-weight rows, uniformly, seeded by
         ``seed_seq`` (entropy for ``np.random.SeedSequence``).
@@ -334,6 +360,13 @@ class ShardedDataset(Dataset):
         self.chunk = int(chunk)
         self.explicit_chunk = explicit_chunk
         self.process_local = process_local
+
+    def _weights_like(self, sw: np.ndarray) -> torch.Tensor:
+        """This rank's block of (n,) host weights, padding rows at 0."""
+        block = np.zeros(self.points.shape[0], dtype=sw.dtype)
+        block[: self.local_rows] = sw[self.offset: self.offset
+                                      + self.local_rows]
+        return torch.from_numpy(block).to(self.device)
 
     def effective_chunk(self, k: int) -> int:
         """The torch passes' chunk for a model of ``k`` clusters (or

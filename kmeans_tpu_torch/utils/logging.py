@@ -64,5 +64,9 @@ class IterationLogger:
         self._emit(f"  WARNING: {n_empty} empty cluster(s) detected. "
                    "Reinitializing...")
 
+    def warn_reassign(self, n: int) -> None:
+        self._emit(f"  WARNING: {n} low-count center(s) reassigned from "
+                   "the current batch")
+
     def warn_sse_increase(self, prev: float, cur: float) -> None:
         self._emit(f"  WARNING: SSE increased from {prev:.4f} to {cur:.4f}")

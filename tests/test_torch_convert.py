@@ -310,8 +310,8 @@ def test_gmm_state_dispatch_and_dropped_arguments():
     assert "host_loop" in str(caught[0].message)
     assert not any(name.startswith("dev_") for name in vars(again))
     _same_gmm(again, jm, X)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        convert.from_jax_state({"model_class": "BisectingKMeans"},
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, A.11"):
+        convert.from_jax_state({"model_class": "ProductQuantizer"},
                                device="cpu")
 
 

@@ -27,8 +27,11 @@ MODULES = ["kmeans_tpu_torch", "kmeans_tpu_torch.convert",
            "kmeans_tpu_torch.experiments.exp_kernel_edits",
            "kmeans_tpu_torch.experiments.exp_pallas_kernel",
            "kmeans_tpu_torch.metrics",
+           "kmeans_tpu_torch.models.bisecting",
            "kmeans_tpu_torch.models.gmm",
            "kmeans_tpu_torch.models.init", "kmeans_tpu_torch.models.kmeans",
+           "kmeans_tpu_torch.models.minibatch",
+           "kmeans_tpu_torch.models.spherical",
            "kmeans_tpu_torch.ops._build", "kmeans_tpu_torch.ops.assign",
            "kmeans_tpu_torch.ops.compare",
            "kmeans_tpu_torch.ops.estep_kernels",
@@ -93,12 +96,18 @@ def test_every_module_is_listed():
 
 def test_exports():
     assert kmeans_tpu_torch.__all__ == ["GaussianMixture", "KMeans",
-                                        "__version__"]
+                                        "MiniBatchKMeans", "BisectingKMeans",
+                                        "SphericalKMeans", "__version__"]
     assert isinstance(kmeans_tpu_torch.__version__, str)
     assert kmeans_tpu_torch.KMeans.__module__ == \
         "kmeans_tpu_torch.models.kmeans"
     assert kmeans_tpu_torch.GaussianMixture.__module__ == \
         "kmeans_tpu_torch.models.gmm"
+    for name in ("MiniBatchKMeans", "BisectingKMeans", "SphericalKMeans"):
+        cls = getattr(kmeans_tpu_torch, name)
+        assert cls.__module__ == ("kmeans_tpu_torch.models."
+                                  + name.removesuffix("KMeans").lower())
+        assert issubclass(cls, kmeans_tpu_torch.KMeans)
 
 
 def test_default_device_is_the_card_and_raises_without_one(tmp_path):
