@@ -50,6 +50,17 @@ loops, twice, and in bf16, the same tree every time (``bisecting``); and
 ``MiniBatchKMeans`` (k = 1024, batch 65,536) by the per-iteration engine
 and the captured loop, bit for bit, with a profile of its iteration, by
 host sampling, in bf16, and ``partial_fit`` (``minibatch``).
+The rest of the mixture: the device EM loop (``host_loop=False``, one
+replayed CUDA graph per EM iteration around ``diag_estep``) at the mixture
+shape against the host loop, 'diag' and 'spherical' (``gmm_device``);
+'full' and 'tied' at 1,048,576 x 64, k = 32, by both loops against a
+float64 fit of the same data on the card, with the jitter ladder
+(``gmm_full_tied``); ``n_init=4`` in one device loop against four single
+fits, bit for bit (``gmm_multi_fit``); ``GaussianMixture.sweep`` over k =
+64, 128, 256, batched against the sequential oracle (``gmm_sweep``); and
+``diag_estep`` with inert components (``estep_inert``).  The mesh phases
+add the device EM loop on one NCCL rank and 'full' on the data axis of the
+two gloo ranks.
 
 Every phase prints one JSON line as it ends.  A phase that fails raises, so
 the run ends with a non-zero code and without the result line.  The last line
@@ -93,6 +104,7 @@ from kmeans_tpu_torch.ops import compare as cmp  # noqa: E402
 from kmeans_tpu_torch.ops import estep_kernels as ek  # noqa: E402
 from kmeans_tpu_torch.ops import hopper_kernels as hk  # noqa: E402
 from kmeans_tpu_torch.parallel import distributed as dist  # noqa: E402
+from kmeans_tpu_torch.parallel import gmm_step  # noqa: E402
 from kmeans_tpu_torch.parallel.gmm_step import make_gmm_step_fn  # noqa: E402,E501
 from kmeans_tpu_torch.parallel.sharding import (EM_MAX_CHUNK,  # noqa: E402
                                                 weighted_mean)
@@ -125,6 +137,21 @@ GMM64 = dict(n=65_536, d=16, k=8, iters=10)
 F64_RTOL, F64_ATOL = 1e-12, 1e-10
 # The device loop's final SSE against the host loop's.
 DEVICE_SSE_RTOL = 1e-5
+# The rest of the mixture.  The device EM loop's lower bound (float32
+# M-step on the card) against the host loop's (float64 M-step on the host):
+# LL_RTOL of ops/compare.py.  'full' and 'tied' (the JAX package's recorded
+# full-covariance shape, docs/PERFORMANCE.md): float32 fits against the
+# float64 fit of the same data and starting means on the card, the lower
+# bound to FULL_LL_RTOL, the centered means and the covariances to
+# |a - b| <= FULL_ATOL_SHARE max|b| + FULL_RTOL |b|.  The restarts and the
+# sweep at the mixture shape; the inert components of estep_inert.
+GMM_DEVICE_LL_RTOL = cmp.LL_RTOL
+FULL = dict(n=1_048_576, d=64, k=32, iters=10)
+FULL_LL_RTOL = 1e-5
+FULL_RTOL, FULL_ATOL_SHARE = 1e-3, 1e-3
+GMM_RESTARTS = 4
+GMM_SWEEP_KS = (64, 128, 256)
+INERT = 64
 # Model selection (phases guarded, multi_fit, kmeans_parallel, sweep) on the
 # main data: rows whose guarded labels are held against a float64 argmin;
 # the restarts of the batched device loop; the sweep's k and the rows of its
@@ -680,6 +707,11 @@ PATH_KERNELS = {
     "main_bf16_device": ("fused_assign_reduce_bf16", "hopper_assign_bf16"),
     "glove_like": ("fused_assign_reduce", "hopper_assign"),
     "gmm": ("diag_estep", "fused_assign_reduce"),
+    "gmm_device": ("diag_estep", "fused_assign_reduce"),
+    "gmm_spherical_device": ("diag_estep", "fused_assign_reduce"),
+    "gmm_full_tied": ("fused_assign_reduce",),
+    "gmm_multi_fit": ("diag_estep", "fused_assign_reduce"),
+    "gmm_sweep": ("diag_estep", "fused_assign_reduce"),
     "lab": tuple(lab.parse_spec(spec).counter for spec in LAB_SPECS),
     "multi_fit": ("fused_assign_reduce", "hopper_assign"),
     "multi_fit_bf16": ("fused_assign_reduce_bf16", "hopper_assign_bf16"),
@@ -1085,6 +1117,345 @@ def phase_gmm_float64():
          iterations=card.n_iter_, lower_bound=card.lower_bound_,
          max_diff_against_cpu=errs, rtol=F64_RTOL, atol=F64_ATOL,
          loaded_on_card_same_labels=same)
+
+
+# ------------------------------------------------- the rest of the mixture
+
+
+def em_loops(ds):
+    """The device EM loops kept with a dataset."""
+    return [v for v in ds._memo.values() if isinstance(v, gmm_step._EmLoop)]
+
+
+def timed_fit(model, data):
+    """One fit with the counters set to 0 just before it: ``(seconds,
+    launches)``."""
+    hk.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.fit(data)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, dict(hk.LAUNCHES)
+
+
+def phase_gmm_device(x_gmm, gm):
+    """The device EM loop (``host_loop=False``) at the mixture shape: one
+    captured CUDA graph per EM iteration around ``diag_estep``, fitted
+    twice on one cached dataset (capture, then replay), beside the host
+    loop of phase ``gmm`` ('diag') and a host-loop 'spherical' fit: the
+    same iteration count, the lower bound within GMM_DEVICE_LL_RTOL, the
+    two device fits bit-equal, ``diag_estep`` launched once by the
+    hard-assignment init and once per EM iteration (the graph records one
+    launch, counted at each replay).  The replayed iteration is timed by
+    replaying the graph of the finished loop (its state masked)."""
+    out = {}
+    for ct in ("diag", "spherical"):
+        path = "gmm_device" if ct == "diag" else "gmm_spherical_device"
+        kw = dict(n_components=GMM["k"], covariance_type=ct,
+                  init_params="kmeans", max_iter=GMM["iters"], tol=0.0,
+                  seed=7)
+        host = gm if ct == "diag" else GaussianMixture(**kw).fit(x_gmm)
+        dev = GaussianMixture(host_loop=False, **kw)
+        ds = dev._dataset(x_gmm)
+        fits = []
+        for run in range(2):               # capture, then replay
+            seconds, launches = timed_fit(dev, ds)
+            fits.append(dict(seconds=seconds, launches=launches,
+                             per_iteration=dev.iter_times_[0],
+                             lower_bound=dev.lower_bound_,
+                             means=dev.means_.copy(),
+                             covariances=dev.covariances_.copy()))
+        check_path_launches(path)
+        loops = em_loops(ds)
+        check(len(loops) == 1 and loops[0].graph is not None,
+              f"{path}: no captured EM iteration")
+        check(loops[0].graph_launches == {"diag_estep": 1},
+              f"{path}: the graph recorded {loops[0].graph_launches}")
+        n = dev.n_iter_
+        check(dev.estep_path_ == "kernel" and dev.loop_path_ == "device",
+              f"{path}: {dev.estep_path_}, {dev.loop_path_}")
+        check(n == host.n_iter_ == GMM["iters"],
+              f"{path}: {n} iterations, host loop {host.n_iter_}")
+        rel = abs(dev.lower_bound_ - host.lower_bound_) \
+            / abs(host.lower_bound_)
+        check(rel <= GMM_DEVICE_LL_RTOL, f"{path}: lower bound "
+                                         f"{dev.lower_bound_} against the "
+                                         f"host loop's {host.lower_bound_}")
+        same = all(np.array_equal(fits[0][f], fits[1][f])
+                   for f in ("lower_bound", "means", "covariances"))
+        check(same, f"{path}: capture and replay fits differ")
+        k_launches = fits[1]["launches"]["diag_estep"]
+        check(k_launches == 1 + n, f"{path}: diag_estep launched "
+                                   f"{k_launches} times, not 1 + {n}")
+        replay_ms = median_ms(lambda: loops[0].graph.replay())
+        out[path] = fits[1]["launches"]
+        emit("gmm_device", path=path, covariance_type=ct, n=GMM["n"],
+             d=GMM["d"], k=GMM["k"], iterations=n,
+             lower_bound=dev.lower_bound_,
+             host_lower_bound=host.lower_bound_, lower_bound_rel_diff=rel,
+             lower_bound_rtol=GMM_DEVICE_LL_RTOL,
+             max_mean_diff=float(np.abs(dev.means_ - host.means_).max()),
+             max_covariance_diff=float(np.abs(
+                 dev.covariances_ - host.covariances_).max()),
+             capture_replay_bit_equal=same,
+             diag_estep_launches=k_launches,
+             loop_diag_estep_launches=k_launches - 1,
+             fit_seconds=[f["seconds"] for f in fits],
+             seconds_per_iteration_capture=fits[0]["per_iteration"],
+             seconds_per_iteration_replay=fits[1]["per_iteration"],
+             seconds_per_iteration_host=statistics.median(host.iter_times_),
+             replayed_iteration_ms=replay_ms)
+        if ct == "diag":
+            ref = dev
+    return ref, out
+
+
+def full_data():
+    """'full' and 'tied' data on the card: FULL["k"] clusters about 50 from
+    the origin, each with its own correlated noise ``z A_c``, made from a
+    seeded generator (the same rows in every process on the card)."""
+    n, d, k = FULL["n"], FULL["d"], FULL["k"]
+    gen = torch.Generator(device=DEV).manual_seed(31)
+    centers = torch.randn((k, d), generator=gen, device=DEV) * 4.0 + 50.0
+    mix = torch.randn((k, d, d), generator=gen, device=DEV) * 0.1 \
+        + torch.eye(d, device=DEV)
+    y = torch.randint(0, k, (n,), generator=gen, device=DEV)
+    x = torch.randn((n, d), generator=gen, device=DEV)
+    for c in range(k):
+        rows = (y == c).nonzero().flatten()
+        x[rows] = centers[c] + x[rows] @ mix[c]
+    return x.contiguous()
+
+
+def param_close(a, b) -> bool:
+    """|a - b| <= FULL_ATOL_SHARE max|b| + FULL_RTOL |b|."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return bool(np.all(np.abs(a - b) <= FULL_ATOL_SHARE * np.abs(b).max()
+                       + FULL_RTOL * np.abs(b)))
+
+
+def jitter_case(x, ct, means0):
+    """A 'full' / 'tied' host-loop fit whose starting covariance is just
+    past positive definite (one eigenvalue at -reg_covar / 2): the jitter
+    ladder must rescue it."""
+    k, d = FULL["k"], FULL["d"]
+    bad = np.eye(d)
+    bad[0, 0] = -2.0 / 1e-6                  # covariance -reg_covar / 2
+    prec = bad if ct == "tied" else np.broadcast_to(np.eye(d),
+                                                    (k, d, d)).copy()
+    if ct == "full":
+        prec[1] = bad
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        gm = GaussianMixture(n_components=k, covariance_type=ct,
+                             max_iter=2, tol=0.0, means_init=means0,
+                             weights_init=np.full(k, 1.0 / k),
+                             precisions_init=prec, seed=7).fit(x)
+    check(gm.cov_jitter_retries_ > 0 and np.isfinite(gm.lower_bound_),
+          f"{ct}: the jitter ladder did not rescue the covariance "
+          f"(retries {gm.cov_jitter_retries_})")
+    check(any("jitter ladder" in str(w.message) for w in caught),
+          f"{ct}: no jitter ladder warning")
+    return gm.cov_jitter_retries_
+
+
+def phase_gmm_full_tied():
+    """'full' and 'tied' at FULL (float32), 10 EM iterations, starting from
+    the means of a KMeans fit through kernel 1 (the mixture's 'kmeans'
+    seeding): the host loop, and the device loop fitted twice on one
+    cached dataset (capture, then replay; 'full' and 'tied' factor their
+    covariances inside the captured iteration with cholesky_ex), each held
+    to a float64 host-loop fit of the same data and starting means on the
+    card: the lower bound to FULL_LL_RTOL, the centered means and the
+    covariances by param_close.  TF32 stays off (every float32 product a
+    full float32 product, checked before the fits).  Then the jitter ladder
+    on 65,536 rows.  Returns the one-device float32 'full' fit (the mesh
+    phase's reference), its starting means and the path's launches."""
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on: the tied and full products must be full float32")
+    x = full_data()
+    k = FULL["k"]
+    hk.reset_launch_counts()               # this path's own counts
+    seed_km = KMeans(k=k, init="k-means++", seed=7, max_iter=20,
+                     verbose=False, compute_labels=False).fit(x)
+    means0 = np.asarray(seed_km.centroids, np.float64)
+    launches = check_path_launches("gmm_full_tied")
+    x64 = x.double()
+    refs = {}
+    for ct in ("full", "tied"):
+        kw = dict(n_components=k, covariance_type=ct, max_iter=FULL["iters"],
+                  tol=0.0, means_init=means0, seed=7)
+        t0 = time.perf_counter()
+        ref = GaussianMixture(dtype=np.float64, **kw).fit(x64)
+        ref_s = time.perf_counter() - t0
+        host = GaussianMixture(**kw)
+        host_s, _ = timed_fit(host, x)
+        dev = GaussianMixture(host_loop=False, **kw)
+        ds = dev._dataset(x)
+        dev_runs = [timed_fit(dev, ds) + (dev.iter_times_[0],)
+                    for _ in range(2)]
+        loops = em_loops(ds)
+        check(len(loops) == 1 and loops[0].graph is not None,
+              f"{ct}: the device loop's iteration was not captured")
+        rec = {}
+        for name, m in (("host", host), ("device", dev)):
+            check(m.n_iter_ == ref.n_iter_ == FULL["iters"],
+                  f"{ct} {name}: {m.n_iter_} iterations")
+            rel = abs(m.lower_bound_ - ref.lower_bound_) \
+                / abs(ref.lower_bound_)
+            means_ok = param_close(m.means_ - m.shift_,
+                                   ref.means_ - ref.shift_)
+            cov_ok = param_close(m.covariances_, ref.covariances_)
+            rec[name] = dict(
+                lower_bound=m.lower_bound_, lower_bound_rel_diff=rel,
+                max_mean_diff=float(np.abs(m.means_ - ref.means_).max()),
+                max_covariance_diff=float(np.abs(
+                    m.covariances_ - ref.covariances_).max()),
+                within=bool(rel <= FULL_LL_RTOL and means_ok and cov_ok))
+            check(rec[name]["within"], f"{ct} {name} loop against float64: "
+                                       f"{rec[name]}")
+        ds_h = host._dataset(x)
+        step = host._step_fn(ds_h, "torch", 0)
+        tables = host._params_dev()
+        estep_ms = median_ms(lambda: step(ds_h.points, ds_h.weights,
+                                          *tables), runs=5, warmup=1)
+        replay_ms = median_ms(lambda: loops[0].graph.replay(), runs=5,
+                              warmup=1)
+        retries = jitter_case(x[:65_536], ct, means0)
+        emit("gmm_full_tied", covariance_type=ct, n=FULL["n"], d=FULL["d"],
+             k=k, iterations=FULL["iters"], float64_lower_bound=
+             ref.lower_bound_, against_float64=rec,
+             tolerances={"lower_bound_rtol": FULL_LL_RTOL,
+                         "rtol": FULL_RTOL, "atol_share": FULL_ATOL_SHARE},
+             tf32=bool(torch.backends.cuda.matmul.allow_tf32),
+             chunk_rows=host._chunk(ds_h), estep_ms=estep_ms,
+             replayed_iteration_ms=replay_ms,
+             seconds_per_iteration_host=statistics.median(host.iter_times_),
+             seconds_per_iteration_device_capture=dev_runs[0][2],
+             seconds_per_iteration_device_replay=dev_runs[1][2],
+             fit_seconds={"float64_host": ref_s, "host": host_s,
+                          "device": [r[0] for r in dev_runs]},
+             jitter_retries=retries)
+        if ct == "full":
+            refs = dict(means0=means0, lower_bound=host.lower_bound_,
+                        means=host.means_, covariances=host.covariances_,
+                        n_iter=host.n_iter_,
+                        iter_times=list(host.iter_times_))
+    return refs, launches
+
+
+def phase_gmm_multi_fit(x_gmm):
+    """``n_init=4`` with ``host_loop=False`` at the mixture shape: every
+    restart in one device loop (each member the single fit's iteration at
+    its k, one after another in each replayed graph), beside four single
+    device-loop fits with the restarts' seeds: the lower bounds bit-equal,
+    the same winner and its parameters; diag_estep launched per member once
+    by its init and once per iteration."""
+    kw = dict(n_components=GMM["k"], init_params="kmeans",
+              max_iter=GMM["iters"], tol=0.0, seed=7, host_loop=False)
+    multi = GaussianMixture(n_init=GMM_RESTARTS, **kw)
+    ds = multi._dataset(x_gmm)
+    seconds, launches = timed_fit(multi, ds)
+    check_path_launches("gmm_multi_fit")
+    singles = []
+    for seed in multi._restart_seeds():
+        one = GaussianMixture(**{**kw, "seed": seed})
+        one.fit(ds)
+        singles.append(one)
+    lbs = [m.lower_bound_ for m in singles]
+    win = singles[multi.best_restart_]
+    same = {"restart_lower_bounds": bool(np.array_equal(
+                multi.restart_lower_bounds_, lbs)),
+            "best_restart": multi.best_restart_ == int(np.argmax(lbs)),
+            "winner": all(np.array_equal(getattr(multi, f), getattr(win, f))
+                          for f in ("means_", "covariances_", "weights_"))}
+    per_member = launches["diag_estep"] / GMM_RESTARTS
+    emit("gmm_multi_fit", n_init=GMM_RESTARTS, iterations=multi.n_iter_,
+         loop_path=multi.loop_path_, best_restart=multi.best_restart_,
+         restart_lower_bounds=list(multi.restart_lower_bounds_),
+         single_fit_lower_bounds=lbs, bit_equal_to_single_fits=same,
+         diag_estep_launches=launches["diag_estep"],
+         diag_estep_launches_per_member=per_member, fit_seconds=seconds,
+         seconds_per_iteration_all_members=multi.iter_times_[0],
+         single_fit_seconds_per_iteration=statistics.median(
+             [m.iter_times_[0] for m in singles]))
+    check(multi.loop_path_ == "device-multi", f"{multi.loop_path_}")
+    check(all(same.values()), f"gmm_multi_fit: not bit-equal to the single "
+                              f"fits: {same}")
+    check(per_member == 1 + GMM["iters"],
+          f"gmm_multi_fit: {per_member} diag_estep launches per member")
+    return launches
+
+
+def phase_gmm_sweep(x_gmm):
+    """``GaussianMixture.sweep`` over GMM_SWEEP_KS by BIC at the mixture
+    shape: batched (every member in one device loop, padded to k_max with
+    inert components, then one scoring E pass per member) against the
+    sequential oracle (one device-loop fit and one ``bic`` per member): the
+    same k selected and the member lower bounds bit-equal."""
+    gm = GaussianMixture(init_params="kmeans", max_iter=GMM["iters"],
+                         tol=0.0, seed=7)
+    runs = {}
+    for batched in (True, False):
+        hk.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = gm.sweep(x_gmm, k_range=GMM_SWEEP_KS, criterion="bic",
+                       batched=batched)
+        torch.cuda.synchronize()
+        runs[batched] = (res, time.perf_counter() - t0, dict(hk.LAUNCHES))
+        if batched:
+            launches = check_path_launches("gmm_sweep")
+    b, s = runs[True][0], runs[False][0]
+    same = bool(np.array_equal(b.member_scores, s.member_scores))
+    emit("gmm_sweep", k_range=list(GMM_SWEEP_KS), criterion="bic",
+         selected_k=b.selected_k, sequential_selected_k=s.selected_k,
+         scores=list(b.scores), sequential_scores=list(s.scores),
+         member_lower_bounds=b.member_scores.ravel().tolist(),
+         member_lower_bounds_bit_equal=same,
+         seconds_batched=runs[True][1], seconds_sequential=runs[False][1],
+         diag_estep_launches=runs[True][2]["diag_estep"],
+         sequential_diag_estep_launches=runs[False][2]["diag_estep"])
+    check(b.selected_k == s.selected_k,
+          f"gmm_sweep: batched picks {b.selected_k}, sequential "
+          f"{s.selected_k}")
+    check(same, "gmm_sweep: member lower bounds differ from the oracle's")
+    return launches
+
+
+def phase_estep_inert(x_gmm, gmm_tables):
+    """diag_estep at k = 256 whose last INERT components are inert (zero
+    mean, unit variance, -inf log-weight), as a sweep member padded to
+    k_max carries them: against its plain version on the same inputs, and
+    against the same call on the real components alone, which it must give
+    exactly (their rows bit-equal, the inert rows zero)."""
+    shift, means_c, inv_var, log_det, log_w = gmm_tables
+    k = means_c.shape[0]
+    real = k - INERT
+    pad = (means_c.clone(), inv_var.clone(), log_det.clone(), log_w.clone())
+    pad[0][real:] = 0.0
+    pad[1][real:] = 1.0
+    pad[2][real:] = 0.0
+    pad[3][real:] = -float("inf")
+    w = torch.ones(x_gmm.shape[0], device=DEV)
+    args = (x_gmm, w, shift, *pad)
+    out = ek.diag_estep(*args)
+    ref = ek.diag_estep_reference(*args)
+    alone = ek.diag_estep(x_gmm, w, shift,
+                          *(t[:real].contiguous() for t in gmm_tables[1:]))
+    torch.cuda.synchronize()
+    errs = cmp.estep_errors(out, ref)
+    ok = errs.pop("ok")
+    exact = all(a[:real].equal(b) for a, b in zip(out[:3], alone[:3])) \
+        and bool(out[3].equal(alone[3]))
+    inert_zero = all(bool((a[real:] == 0).all()) for a in out[:3])
+    emit("estep_inert", n=x_gmm.shape[0], d=x_gmm.shape[1], k=k,
+         inert=INERT, against_plain=errs, within_plain_tolerance=ok,
+         real_rows_equal_unpadded_call=exact, inert_rows_zero=inert_zero)
+    check(ok, f"estep_inert: kernel against its plain version {errs}")
+    check(exact and inert_zero, "estep_inert: the padded call is not the "
+                                "unpadded call's statistics")
 
 
 def phase_transform(km, x):
@@ -2371,6 +2742,20 @@ def dp_child(rank: int, world: int, store: str, out: str) -> None:
     res["gmm"]["estep"] = [t.cpu() for t in make_gmm_step_fn(
         mesh, chunk_size=gm._chunk(ds), mode=gm._mode())(
         ds.points, ds.weights, *gm._params_dev())]
+    del x_gmm, ds, gm
+    # 'full' on the data axis, from the one-device fit's starting means.
+    gf = GaussianMixture(n_components=FULL["k"], covariance_type="full",
+                         max_iter=FULL["iters"], tol=0.0, seed=7,
+                         means_init=refs["full"]["means0"], mesh=mesh)
+    hk.reset_launch_counts()               # this path's own counts
+    t0 = time.perf_counter()
+    gf.fit(full_data())
+    torch.cuda.synchronize()
+    res["gmm_full"] = dict(lower_bound=gf.lower_bound_, means=gf.means_,
+                           covariances=gf.covariances_, n_iter=gf.n_iter_,
+                           iter_times=gf.iter_times_,
+                           fit_seconds=time.perf_counter() - t0,
+                           launches=dict(hk.LAUNCHES))
     with open(f"{out}.{rank}", "wb") as f:
         pickle.dump(res, f)
     torch.distributed.destroy_process_group()
@@ -2412,8 +2797,8 @@ def phase_dp_shared_card(x, refs, seeding_idx):
         out = str(Path(tmp) / "out")
         with open(f"{out}.refs", "wb") as f:
             pickle.dump({prec: ref["centroids"] for prec, ref in refs.items()
-                         if prec != "gmm"}
-                        | {"gmm": refs["gmm"]}, f)
+                         if prec not in ("gmm", "full")}
+                        | {"gmm": refs["gmm"], "full": refs["full"]}, f)
         t0 = time.perf_counter()
         run_ranks(dp_child, DP_RANKS, str(Path(tmp) / "store"), out)
         spawn_seconds = time.perf_counter() - t0
@@ -2533,15 +2918,43 @@ def phase_dp_shared_card(x, refs, seeding_idx):
     return results, counts
 
 
-def phase_dp_gmm(results, gm, x_gmm):
+def phase_dp_gmm(results, gm, x_gmm, full_ref):
     """The mixture on a data axis of two gloo ranks (from ``dp_child``)
     against the one-device fit of phase ``gmm``: one E-step on the mesh at
     that fit's parameters within the E-step tolerances of the one-device
     E-step (a whole fit's parameters move apart with the summation order of
     its KMeans init and EM), the whole fit's lower bound within LL_RTOL,
     and diag_estep launched by every rank; the parameters' differences and
-    the predict rows' labels are reported."""
+    the predict rows' labels are reported.  Then 'full' on the data axis
+    against the one-device float32 host-loop fit of phase
+    ``gmm_full_tied`` (the same starting means): the same iterations, the
+    lower bound to FULL_LL_RTOL, the means and covariances by
+    ``param_close``."""
     counts = {}
+    for rank, res in enumerate(results):
+        g = res["gmm_full"]
+        rel = abs(g["lower_bound"] - full_ref["lower_bound"]) \
+            / abs(full_ref["lower_bound"])
+        within = bool(g["n_iter"] == full_ref["n_iter"]
+                      and rel <= FULL_LL_RTOL
+                      and param_close(g["means"], full_ref["means"])
+                      and param_close(g["covariances"],
+                                      full_ref["covariances"]))
+        emit("dp_gmm_full", rank=rank, n=FULL["n"], d=FULL["d"],
+             k=FULL["k"], iterations=g["n_iter"],
+             lower_bound=g["lower_bound"],
+             one_device_lower_bound=full_ref["lower_bound"],
+             lower_bound_rel_diff=rel,
+             max_mean_diff=float(np.abs(g["means"]
+                                        - full_ref["means"]).max()),
+             max_covariance_diff=float(np.abs(
+                 g["covariances"] - full_ref["covariances"]).max()),
+             within=within,
+             seconds_per_iteration=statistics.median(g["iter_times"]),
+             one_device_seconds_per_iteration=statistics.median(
+                 full_ref["iter_times"]),
+             fit_seconds=g["fit_seconds"], note=DP_NOTE)
+        check(within, f"dp_gmm_full rank {rank}: off the one-device fit")
     one_device_labels = gm.predict(x_gmm[:PREDICT_ROWS])
     ds = gm._dataset(x_gmm)
     want = make_gmm_step_fn(chunk_size=gm._chunk(ds), mode=gm._mode())(
@@ -2579,7 +2992,7 @@ def phase_dp_gmm(results, gm, x_gmm):
     return counts
 
 
-def phase_dp_world1(x, refs, minibatch_ref):
+def phase_dp_world1(x, refs, minibatch_ref, x_gmm, gmm_ref):
     """One NCCL rank in this process (a FileStore under a temp directory):
     the main data on a mesh of one rank, float32 and bf16, by the host loop
     and the device loop (whose captured graph then holds the NCCL
@@ -2587,7 +3000,10 @@ def phase_dp_world1(x, refs, minibatch_ref):
     kernel 1 (1b) once per iteration and kernel 2 (2b) for ``labels_``.
     Then ``MiniBatchKMeans``'s captured loop on that mesh (the batch's
     gather an NCCL ``all_reduce`` inside the graph) bit for bit against the
-    one-device loop of phase ``minibatch``.  Seconds per iteration beside
+    one-device loop of phase ``minibatch``, and the mixture's device EM
+    loop (the E-step's reduction an NCCL ``all_reduce`` inside the graph)
+    bit for bit against the one-device loop of phase ``gmm_device``.
+    Seconds per iteration beside
     the one-device figure: the cost of the collectives at world 1.  The
     process group is gone when it returns."""
     from kmeans_tpu_torch.parallel import multihost
@@ -2635,6 +3051,8 @@ def phase_dp_world1(x, refs, minibatch_ref):
                                           f"the one-device fit: {same}")
             counts["dp_world1:minibatch:device"] = _dp_world1_minibatch(
                 x, mesh, minibatch_ref)
+            counts["dp_world1:gmm:device"] = _dp_world1_gmm(x_gmm, mesh,
+                                                            gmm_ref)
         finally:
             torch.distributed.destroy_process_group()
     return counts
@@ -2671,6 +3089,34 @@ def _dp_world1_minibatch(x, mesh, ref):
           f"dp_world1 minibatch: launches {launches}")
     check(all(same.values()), f"dp_world1 minibatch: not bit-identical to "
                               f"the one-device loop: {same}")
+    return launches
+
+
+def _dp_world1_gmm(x_gmm, mesh, ref):
+    """The mixture's device EM loop on the one-rank mesh, fitted twice
+    (capture, replay), against the one-device loop ``ref``: means,
+    covariances, weights and lower bound bit for bit; diag_estep once for
+    the init and once per iteration."""
+    gm = GaussianMixture(n_components=GMM["k"], init_params="kmeans",
+                         max_iter=GMM["iters"], tol=0.0, seed=7,
+                         host_loop=False, mesh=mesh)
+    ds = gm._dataset(x_gmm)
+    for _ in range(2):
+        seconds, launches = timed_fit(gm, ds)
+    launches = {k: v for k, v in launches.items() if v}
+    same = {f: bool(np.array_equal(getattr(gm, f), getattr(ref, f)))
+            for f in ("means_", "covariances_", "weights_")}
+    same["lower_bound"] = gm.lower_bound_ == ref.lower_bound_
+    same["iterations"] = gm.n_iter_ == ref.n_iter_
+    emit("dp_world1", model="GaussianMixture", loop="device",
+         bit_identical=same, iterations=gm.n_iter_,
+         seconds_per_iteration=gm.iter_times_[0],
+         one_device_seconds_per_iteration=ref.iter_times_[0],
+         launches=launches)
+    check(launches.get("diag_estep", 0) == 1 + gm.n_iter_,
+          f"dp_world1 gmm: launches {launches}")
+    check(all(same.values()), f"dp_world1 gmm: not bit-identical to the "
+                              f"one-device loop: {same}")
     return launches
 
 
@@ -2808,6 +3254,11 @@ def main() -> None:
     family_counts.update(minibatch_counts)
     phase_gmm_offset()
     phase_gmm_float64()
+    gmm_dev, mixture_counts = phase_gmm_device(x_gmm, gm)
+    full_ref, mixture_counts["gmm_full_tied"] = phase_gmm_full_tied()
+    mixture_counts["gmm_multi_fit"] = phase_gmm_multi_fit(x_gmm)
+    mixture_counts["gmm_sweep"] = phase_gmm_sweep(x_gmm)
+    phase_estep_inert(x_gmm, gmm_tables)
 
     rows = phase_timing(x_main, c_main, errs, launches,
                         {"main": statistics.median(km.iter_times_),
@@ -2829,14 +3280,15 @@ def main() -> None:
             for prec, m in (("f32", km), ("bf16", km_bf16))}
     refs["gmm"] = {name: getattr(gm, name) for name in (
         "weights_", "means_", "covariances_", "shift_")}
+    refs["full"] = full_ref
     results, mesh_counts = phase_dp_shared_card(x_main, refs, drawn["main"])
-    mesh_counts.update(phase_dp_gmm(results, gm, x_gmm))
+    mesh_counts.update(phase_dp_gmm(results, gm, x_gmm, full_ref))
     del results
     mesh_counts.update(phase_dp_world1(x_main, {
         ("f32", "host"): km, ("bf16", "host"): km_bf16,
         ("f32", "device"): device_models["main_device"],
         ("bf16", "device"): device_models["main_bf16_device"]},
-        minibatch_ref))
+        minibatch_ref, x_gmm, gmm_dev))
     phase_suite()
     for row in rows:
         row["mesh_launches"] = {path: c[row["name"]]
@@ -2847,6 +3299,9 @@ def main() -> None:
             if c.get(row["name"], 0) > 0}
         row["family_launches"] = {
             path: c[row["name"]] for path, c in family_counts.items()
+            if c.get(row["name"], 0) > 0}
+        row["mixture_launches"] = {
+            path: c[row["name"]] for path, c in mixture_counts.items()
             if c.get(row["name"], 0) > 0}
 
     emit("total", seconds=time.perf_counter() - started)

@@ -1,22 +1,34 @@
-"""Gaussian mixture on NVIDIA GPUs: EM for 'diag' and 'spherical'
-covariances (scikit-learn-style API).
+"""Gaussian mixture on NVIDIA GPUs: EM for all four covariance types
+(scikit-learn-style API).
 
-Counterpart of ``kmeans_tpu/models/gmm.py`` for its host-loop path, on one
-device or over the data axis of a mesh (each rank's E pass on its block of
-the rows, the statistics summed over the axis).  The data is placed on the
-device once; each EM iteration is one E-step on the
-device (``parallel.gmm_step``; on the card one launch of the fused CUDA
-kernel ``diag_estep``) that returns the responsibility sums, the first and
-second moments and the log-likelihood, and the host does the M-step in
-float64.  Every E pass works in a frame centered on the data's weighted
-mean (``shift_``), so that ``S2/R - mu^2`` does not cancel for data far from
-the origin; the shift is added back to the means.
+Counterpart of ``kmeans_tpu/models/gmm.py``, on one device or over the data
+axis of a mesh (each rank's E pass on its block of the rows, the statistics
+summed over the axis).  The data is placed on the device once.  Two loops:
+
+* the host loop (``host_loop=True``, the default): each EM iteration is one
+  E-step on the device (``parallel.gmm_step``; for float32 'diag' and
+  'spherical' on the card one launch of the fused CUDA kernel
+  ``diag_estep``) that returns the responsibility sums, the first and
+  second moments and the log-likelihood, and the M-step in float64 on the
+  host.  'full' and 'tied' factor their covariances on the host in float64
+  (``_prec_chol_guarded``: a covariance just past positive definite is
+  rescued by the jitter ladder, ``cov_jitter_retries_``);
+* the device loop (``host_loop=False``): the whole iteration on the device,
+  the M-step in the model's dtype, one captured CUDA graph per iteration on
+  the card (``parallel.gmm_step.make_gmm_fit_fn``); ``n_init > 1`` for
+  'diag' and 'spherical' runs every restart in one such loop
+  (``make_gmm_multi_fit_fn``), and so does ``sweep``.  The two loops agree
+  by tolerance, not bit for bit (the M-step's dtype differs), as in the JAX
+  package.
+
+Every E pass works in a frame centered on the data's weighted mean
+(``shift_``), so that ``S2/R - mu^2`` does not cancel for data far from the
+origin; the shift is added back to the means.
 
 The model runs on the card unless the caller asks for the CPU:
 ``device=None`` means ``cuda`` and raises where there is none.  The E-step
-kernel computes in float32, so the dtype picks the E-step
-(:func:`estep_mode`): a float32 mixture on the card runs the kernel, a
-float64 one the chunked torch pass in float64 on the card.
+kernel computes in float32 and has a diagonal form only, so the dtype and
+the covariance type pick the E-step (:func:`estep_mode`).
 
 Behaviour kept from the JAX package: the constructor's arguments and
 validation; ``init_params`` 'kmeans' / 'k-means++' (an internal ``KMeans``
@@ -25,10 +37,12 @@ with the same host NumPy draws; explicit ``weights_init`` / ``means_init``
 / ``precisions_init``; the hard-assignment init E-step; the float64 M-step
 with sklearn's update rules and floors; ``lower_bound_`` the mean
 per-sample log-likelihood, stopping on ``|change| < tol``, a hard error on a
-non-finite one; ``n_init`` restarts in sequence, the highest final
-``lower_bound_`` wins; ``sample`` with the same draws; the ``.npz``
+non-finite one; ``n_init`` restarts, the highest final ``lower_bound_``
+wins, a failed restart dropped and the survivors kept; ``sample`` with the
+same draws; ``sweep`` over the component count by BIC or AIC; the ``.npz``
 checkpoint in the same vocabulary, so that either package loads the other's
-files.
+files.  ``covariances_`` has sklearn's shape per type: (k, D) 'diag', (k,)
+'spherical', (D, D) 'tied', (k, D, D) 'full'.
 """
 
 from __future__ import annotations
@@ -45,8 +59,10 @@ from kmeans_tpu_torch.models.init import forgy_init
 from kmeans_tpu_torch.models.kmeans import (KMeans,
                                              NumericalDivergenceError,
                                              _later, resolve_device)
-from kmeans_tpu_torch.parallel.gmm_step import (EStats, make_gmm_predict_fn,
-                                                make_gmm_step_fn)
+from kmeans_tpu_torch.parallel.gmm_step import (
+    COV_TYPES, EStats, EStatsFull, make_gmm_fit_fn, make_gmm_multi_fit_fn,
+    make_gmm_predict_fn, make_gmm_step_fn, make_gmm_step_full_fn,
+    make_gmm_step_tied_fn, total_scatter)
 from kmeans_tpu_torch.parallel.mesh import (DATA_AXIS, all_reduce,
                                             check_mesh, group_up,
                                             is_primary, make_mesh,
@@ -62,16 +78,11 @@ from kmeans_tpu_torch.utils.validation import check_finite_array
 #: float32 range, so the responsibilities are one-hot.
 _HARD_INV_VAR = 1e6
 
-_COV_TYPES = ("diag", "spherical", "tied", "full")
-_A8 = "A.8 'GaussianMixture'"
-
 #: Constructor arguments of the JAX package that the port does not have
 #: yet: name -> (the values that name what the port does anyway, ROADMAP
 #: item).  Any other value raises NotImplementedError.
 _LATER_ARGS = {
     "model_shards": ((1,), "A.18 'GaussianMixture on the model axis'"),
-    "host_loop": ((True,), _A8 + ": the device EM loop"),
-    "pipeline": (("auto", 0, False), _A8 + ": the device EM loop"),
     "bucket": ((0,), "A.14 'Orchestrator, warm start, lint, CLIs and "
                      "bench'"),
     "overlap": (("auto", 0, False), "A.14 'Orchestrator, warm start, "
@@ -79,13 +90,21 @@ _LATER_ARGS = {
     "ingest": (("auto", "mono"), "A.10 'Streaming and ingest'"),
 }
 
+_ILL_DEFINED = ("Fitting the mixture model failed because some components "
+                "have ill-defined empirical covariance (for instance caused "
+                "by singleton or collapsed samples). Try to decrease the "
+                "number of components, or increase reg_covar.")
+
 
 def estep_mode(device_type: str, dtype, covariance_type: str) -> str:
     """The E-step a mixture runs: 'kernel' (the fused CUDA kernel, a
-    float32 engine) for float32 'diag' and 'spherical' mixtures on a CUDA
-    device, else 'torch' (the chunked torch pass, in the model's dtype, on
-    its device).  A rule of the dtype, not a fallback: a float64 mixture
-    asked for float64 arithmetic."""
+    float32 engine with a diagonal form only) for float32 'diag' and
+    'spherical' mixtures on a CUDA device, else 'torch' (the chunked torch
+    pass, in the model's dtype, on its device): float64 on the card, every
+    type on the CPU, and 'tied' and 'full' on every device.  A mode rule of
+    the dtype and the covariance type, not a fallback: a float64 mixture
+    asked for float64 arithmetic, and no kernel of the reference covers
+    'tied' or 'full' (their passes are torch ops and cuBLAS products)."""
     if device_type == "cuda" and np.dtype(dtype) == np.float32 \
             and covariance_type in ("diag", "spherical"):
         return "kernel"
@@ -98,8 +117,8 @@ def _is_allowed(value, allowed) -> bool:
 
 
 class GaussianMixture:
-    """Gaussian mixture with diagonal ('diag') or per-component scalar
-    ('spherical') covariances, fitted by EM on one device.
+    """Gaussian mixture with 'diag', 'spherical', 'tied' or 'full'
+    covariances, fitted by EM on one device or the data axis of a mesh.
 
     Parameters follow ``sklearn.mixture.GaussianMixture`` where they
     overlap (``n_components``, ``covariance_type``, ``tol``, ``reg_covar``,
@@ -109,18 +128,26 @@ class GaussianMixture:
     ``device``: None (the card) | 'cuda' | 'cuda:N' | 'cpu'.  ``mesh``: as
     in ``KMeans``, its data axis only.
 
-    The JAX package's other arguments (``model_shards``, ``host_loop``,
-    ``pipeline``, ``bucket``, ``overlap``, ``ingest``) are taken only at the
-    values that name what this port does (no model axis, the host loop, the
-    serial E pass); 'tied' and 'full', a mesh with a model axis, and any
-    other value raise ``NotImplementedError`` naming the ROADMAP item that
-    brings them.
+    ``host_loop``: True (the host loop, float64 M-step) or False (the
+    device loop, one captured CUDA graph per EM iteration on the card);
+    'auto' is refused, as in the JAX package.  ``pipeline``: 'auto' | 0 |
+    1, the chunk schedule of the torch E pass (the port's ``KMeans`` rule:
+    both give the same bits; 'auto' is 0 until the card measures 1; the
+    kernel has its own schedule).
+
+    The JAX package's other arguments (``model_shards``, ``bucket``,
+    ``overlap``, ``ingest``) are taken only at the values that name what
+    this port does (no model axis, the exact shape, no staged upload, one
+    upload); a mesh with a model axis and any other value raise
+    ``NotImplementedError`` naming the ROADMAP item that brings them.
 
     ``estep_path_`` records what the last fit ran (:func:`estep_mode`):
-    'kernel' (the fused CUDA kernel) for float32 on the card, 'serial' (the
-    chunked torch pass) for float64 on the card and on the CPU.
-    ``iter_times_`` holds the wall seconds of each EM iteration of the
-    winning restart.
+    'kernel' (the fused CUDA kernel), or the torch pass's schedule,
+    'serial' or 'pipelined'.  ``loop_path_``: 'host', 'device' or
+    'device-multi'.  ``iter_times_`` holds the wall seconds of each EM
+    iteration of the winning restart (the device loop: its mean per
+    iteration).  ``cov_jitter_retries_`` counts the host loop's jitter
+    ladder rescues ('tied', 'full').
     """
 
     _PARAM_NAMES = ("n_components", "covariance_type", "tol", "reg_covar",
@@ -140,13 +167,10 @@ class GaussianMixture:
                  host_loop: bool = True, pipeline="auto", bucket=0,
                  overlap="auto", ingest: str = "auto",
                  verbose: bool = False, device=None):
-        if covariance_type not in _COV_TYPES:
+        if covariance_type not in COV_TYPES:
             raise ValueError(
                 "covariance_type must be one of 'diag', 'spherical', "
                 f"'tied', 'full'; got {covariance_type!r}")
-        if covariance_type in ("tied", "full"):
-            raise _later("covariance_type", covariance_type,
-                         _A8 + ": 'tied' and 'full'")
         if n_components < 1:
             raise ValueError(f"n_components must be >= 1, "
                              f"got {n_components}")
@@ -171,9 +195,8 @@ class GaussianMixture:
         mesh = check_mesh(mesh)
         if mesh is not None and mesh_shape(mesh)[1] > 1:
             model_shards = mesh_shape(mesh)[1]
-        later = dict(model_shards=model_shards,
-                     host_loop=bool(host_loop), pipeline=pipeline,
-                     bucket=bucket, overlap=overlap, ingest=ingest)
+        later = dict(model_shards=model_shards, bucket=bucket,
+                     overlap=overlap, ingest=ingest)
         for name, value in later.items():
             allowed, item = _LATER_ARGS[name]
             if not _is_allowed(value, allowed):
@@ -206,6 +229,7 @@ class GaussianMixture:
         self.device = resolve_device(device)
 
         self.estep_path_: Optional[str] = None
+        self.loop_path_: Optional[str] = None
         self.weights_: Optional[np.ndarray] = None
         self.means_: Optional[np.ndarray] = None
         self.covariances_: Optional[np.ndarray] = None
@@ -216,6 +240,8 @@ class GaussianMixture:
         self.best_restart_: int = 0
         self.restart_lower_bounds_: Optional[np.ndarray] = None
         self.iter_times_: List[float] = []
+        self.cov_jitter_retries_: int = 0
+        self._total_scatter: Optional[np.ndarray] = None
 
     # ------------------------------------------------------------- plumbing
 
@@ -223,6 +249,21 @@ class GaussianMixture:
         """The E-step of this model: :func:`estep_mode`."""
         return estep_mode(self.device.type, self.dtype,
                           self.covariance_type)
+
+    def _resolve_pipeline(self, mode: str) -> int:
+        """The torch pass's chunk schedule: 0 in the kernel mode (the kernel
+        has its own) and for 'auto' (until the card has measured the
+        skewed schedule), else the knob."""
+        if mode == "kernel" or self.pipeline == "auto":
+            return 0
+        return int(self.pipeline)
+
+    def _note_estep_path(self, mode: str) -> int:
+        """Set ``estep_path_`` to what runs and return the schedule."""
+        pipeline = self._resolve_pipeline(mode)
+        self.estep_path_ = ("kernel" if mode == "kernel" else
+                            "pipelined" if pipeline else "serial")
+        return pipeline
 
     def _resolve_mesh(self):
         """As ``KMeans._resolve_mesh``: the given mesh, else the whole
@@ -235,9 +276,10 @@ class GaussianMixture:
         """X on the device once (the rank's block under a mesh); data that
         did not come as a :class:`Dataset` must be finite."""
         mesh = self._resolve_mesh()
+        d = X.d if isinstance(X, Dataset) else np.shape(X)[-1]
         ds = to_device(X, self.device, self.dtype,
                        sample_weight=sample_weight, mesh=mesh,
-                       chunk=self.chunk_size, k_hint=self.n_components)
+                       chunk=self.chunk_size, k_hint=self._tile_k(d))
         if not isinstance(X, Dataset):
             if ds.host is not None:
                 check_finite_array(ds.host, "Data contains NaN or Inf values")
@@ -248,9 +290,28 @@ class GaussianMixture:
                     raise ValueError("Data contains NaN or Inf values")
         return ds
 
+    def _tile_k(self, d: int) -> int:
+        """The width of a chunk's log-density temporary: k, or k * D for
+        'full' (its transform tile is (chunk, k, D))."""
+        return self.n_components * (d if self.covariance_type == "full"
+                                    else 1)
+
     def _chunk(self, ds: Dataset) -> int:
         return self.chunk_size or choose_em_chunk(ds.points.shape[0],
-                                                  self.n_components)
+                                                  self._tile_k(ds.d))
+
+    def _step_fn(self, ds: Dataset, mode: str, pipeline: int):
+        """The E-step of this covariance type on ``ds``."""
+        chunk = self._chunk(ds)
+        ct = self.covariance_type
+        if ct == "full":
+            return make_gmm_step_full_fn(ds.mesh, chunk_size=chunk,
+                                         pipeline=pipeline)
+        if ct == "tied":
+            return make_gmm_step_tied_fn(ds.mesh, chunk_size=chunk,
+                                         pipeline=pipeline)
+        return make_gmm_step_fn(ds.mesh, chunk_size=chunk, mode=mode,
+                                pipeline=pipeline)
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
         """A copy of a host table on the device (the array may be
@@ -273,29 +334,130 @@ class GaussianMixture:
                                     self.means_.shape[1]))
         return self.covariances_
 
-    def _params_dev(self):
-        """E-step tables on the device: ``(shift, means_c, inv_var,
-        log_det, log_weights)``.  Precision and log-determinant come from
-        the same covariance, floored at the compute dtype's ``tiny``."""
+    @staticmethod
+    def _prec_chol(cov: np.ndarray):
+        """Precision Cholesky (sklearn's parameterisation) of one or a
+        batch of covariance matrices, in float64 on the host: ``Sigma = L
+        L^T -> P = L^-T``, so ``Sigma^-1 = P P^T`` and ``log_det_half = sum
+        log diag(P)``.  Raises sklearn's ill-defined-covariance error on a
+        matrix that is not positive definite."""
+        try:
+            L = np.linalg.cholesky(cov)
+        except np.linalg.LinAlgError:
+            raise ValueError(_ILL_DEFINED) from None
+        eye = np.broadcast_to(np.eye(cov.shape[-1]), cov.shape)
+        p_chol = np.swapaxes(np.linalg.solve(L, eye), -1, -2)   # L^-T
+        log_det_half = -np.sum(
+            np.log(np.diagonal(L, axis1=-2, axis2=-1)), axis=-1)
+        return p_chol, log_det_half
+
+    def _prec_chol_guarded(self, cov: np.ndarray):
+        """The fit path's precision Cholesky: on a batch that is not
+        positive definite, each offending component is retried with the
+        jitter ladder ``reg_covar * 10^j`` (j = 1..3) on its diagonal, each
+        rescue counted in ``cov_jitter_retries_`` (with a warning); the
+        ladder exhausted (or ``reg_covar == 0``) raises the
+        ill-defined-covariance error naming the components.  A healthy
+        batch takes :meth:`_prec_chol` untouched."""
+        try:
+            return self._prec_chol(cov)
+        except ValueError:
+            pass
+        single = cov.ndim == 2          # tied: one shared (D, D)
+        batch = np.array(cov[None] if single else cov, dtype=np.float64,
+                         copy=True)
+        d = batch.shape[-1]
+        bad = []
+        for idx in range(batch.shape[0]):
+            for j in range(4):          # j = 0 is the retry without jitter
+                jitter = self.reg_covar * (10.0 ** j) if j else 0.0
+                try:
+                    np.linalg.cholesky(batch[idx] + jitter * np.eye(d))
+                except np.linalg.LinAlgError:
+                    continue
+                if j:
+                    self.cov_jitter_retries_ += 1
+                    batch[idx] += jitter * np.eye(d)
+                break
+            else:
+                bad.append(idx)
+        if bad:
+            names = ("the shared tied covariance" if single else
+                     f"component(s) {bad}")
+            raise ValueError(
+                f"Fitting the mixture model failed because some "
+                f"components have ill-defined empirical covariance "
+                f"({names} stayed non-PD through the jitter ladder "
+                f"reg_covar * 10^j, j <= 3, reg_covar="
+                f"{self.reg_covar!r}). Try to decrease the number of "
+                f"components, or increase reg_covar.") from None
+        warnings.warn(
+            f"non-PD covariance rescued by the jitter ladder "
+            f"(cov_jitter_retries_={self.cov_jitter_retries_}); "
+            f"consider a larger reg_covar", UserWarning, stacklevel=3)
+        return self._prec_chol(batch[0] if single else batch)
+
+    def _params_dev(self, guard_cholesky: bool = False):
+        """E-step tables on the device, per covariance type, after
+        ``shift``:
+
+        * 'diag' / 'spherical': ``(means_c, inv_var, log_det, log_w)``;
+          precision and log-determinant from the same covariance, floored
+          at the compute dtype's ``tiny``;
+        * 'tied': ``(means_t = mu_c @ P, P (D, D), log_det_half (), log_w)``;
+        * 'full': ``(means_c, P (k, D, D), log_det_half (k,), log_w)``.
+
+        ``guard_cholesky`` (the fit paths) factors through the jitter
+        ladder; inference raises on a covariance that does not factor."""
         shift = self._shift()
         log_w = np.log(np.maximum(self.weights_, 1e-300))
-        cv = np.maximum(self._diag_view(),
-                        max(self.reg_covar, float(np.finfo(self.dtype).tiny)))
-        var = self._put(cv)
-        return (self._put(shift), self._put(self.means_ - shift), 1.0 / var,
-                torch.log(var).sum(dim=1), self._put(log_w))
+        ct = self.covariance_type
+        mc = self.means_ - shift
+        if ct in ("diag", "spherical"):
+            cv = np.maximum(self._diag_view(), max(
+                self.reg_covar, float(np.finfo(self.dtype).tiny)))
+            var = self._put(cv)
+            return (self._put(shift), self._put(mc), 1.0 / var,
+                    torch.log(var).sum(dim=1), self._put(log_w))
+        factor = self._prec_chol_guarded if guard_cholesky \
+            else self._prec_chol
+        p_chol, ldh = factor(np.asarray(self.covariances_, np.float64))
+        if ct == "tied":
+            return (self._put(shift), self._put(mc @ p_chol),
+                    self._put(p_chol), self._put(np.asarray(ldh)),
+                    self._put(log_w))
+        return (self._put(shift), self._put(mc), self._put(p_chol),
+                self._put(ldh), self._put(log_w))
 
     def _hard_tables(self, means: np.ndarray, shift: np.ndarray):
-        """E-step tables of the hard-assignment init pass: a precision far
-        above the data's scale makes the responsibilities one-hot."""
+        """E-step tables of the hard-assignment init pass, per covariance
+        type: a precision far above the data's scale makes the
+        responsibilities one-hot."""
         k, d = means.shape
-        return (self._put(shift), self._put(means - shift),
-                self._put(np.full((k, d), _HARD_INV_VAR)),
-                self._put(np.zeros(k)), self._put(np.zeros(k)))
+        ct = self.covariance_type
+        mc = means - shift
+        zeros = self._put(np.zeros(k))
+        if ct in ("diag", "spherical"):
+            return (self._put(shift), self._put(mc),
+                    self._put(np.full((k, d), _HARD_INV_VAR)), zeros, zeros)
+        sqh = float(np.sqrt(_HARD_INV_VAR))
+        if ct == "tied":
+            # The precision Cholesky sqrt(h) I: the means transform to
+            # mu_c sqrt(h).
+            return (self._put(shift),
+                    self._put((mc.astype(self.dtype) * sqh)),
+                    self._put(np.eye(d) * sqh), self._put(np.zeros(())),
+                    zeros)
+        return (self._put(shift), self._put(mc),
+                self._put(np.broadcast_to(np.eye(d) * sqh, (k, d, d))),
+                zeros, zeros)
 
     @staticmethod
-    def _host(st: EStats) -> EStats:
-        return EStats(*(t.to(torch.float64).cpu().numpy() for t in st))
+    def _host(st):
+        """The statistics as float64 host arrays: ``EStatsFull`` stays
+        itself, any other four (a kernel's tuple too) become ``EStats``."""
+        kind = EStatsFull if isinstance(st, EStatsFull) else EStats
+        return kind(*(t.to(torch.float64).cpu().numpy() for t in st))
 
     # ----------------------------------------------------------------- init
 
@@ -323,14 +485,15 @@ class GaussianMixture:
                                np.float64)
         else:
             # 'kmeans' refines k-means++ seeds with 20 Lloyd iterations,
-            # 'k-means++' keeps the seeds (one iteration).
+            # 'k-means++' keeps the seeds (one iteration).  The internal
+            # KMeans is a K-Means of the model's dtype: kernel 1 on the
+            # card in float32, 'matmul' in float64 and on the CPU.
             km = KMeans(k=k, seed=seed, init="kmeans++",
                         max_iter=20 if self.init_params == "kmeans" else 1,
                         verbose=False, compute_labels=False,
                         empty_cluster="resample", dtype=self.dtype,
-                        distance_mode=("auto" if self._mode() == "kernel"
-                                       else "matmul"),
-                        device=self.device, mesh=ds.mesh)
+                        distance_mode="auto", device=self.device,
+                        mesh=ds.mesh)
             km.fit(ds)
             means = np.asarray(km.centroids, np.float64)
         # One hard-assignment E-step gives the one-hot statistics sklearn
@@ -343,29 +506,51 @@ class GaussianMixture:
         self.means_ = (mu_c + shift) if self.means_init is None else means
         self.weights_ = (pi if self.weights_init is None
                          else np.asarray(self.weights_init, np.float64))
-        self.covariances_ = (1.0 / np.asarray(self.precisions_init,
-                                              np.float64)
+        self.covariances_ = (self._cov_from_precisions_init()
                              if self.precisions_init is not None else var)
         self.weights_ = self.weights_ / self.weights_.sum()
         return w_total
 
+    def _cov_from_precisions_init(self) -> np.ndarray:
+        """Covariances from an explicit ``precisions_init``."""
+        prec = np.asarray(self.precisions_init, np.float64)
+        if self.covariance_type in ("diag", "spherical"):
+            return 1.0 / prec
+        return np.linalg.inv(prec)      # tied (D, D) / full (k, D, D)
+
     # ------------------------------------------------------------------- EM
 
-    def _m_step(self, st: EStats):
+    def _m_step(self, st):
         """float64 host M-step from centered-frame statistics (sklearn's
-        update rules); the returned means are centered too."""
+        update rules, per covariance type); the returned means are centered
+        too."""
         R = np.asarray(st.resp_sum, np.float64)
         S1 = np.asarray(st.xsum, np.float64)
         w_total = float(R.sum())
         Rc = np.maximum(R, 10 * np.finfo(np.float64).tiny)
         mu = S1 / Rc[:, None]
+        ct = self.covariance_type
         # tiny floor: reg_covar = 0 must not leave exact-zero variances.
         floor = max(self.reg_covar, np.finfo(np.float64).tiny)
-        S2 = np.asarray(st.x2sum, np.float64)
-        var = S2 / Rc[:, None] - mu ** 2 + self.reg_covar
-        var = np.maximum(var, floor)
-        if self.covariance_type == "spherical":
-            var = var.mean(axis=1)
+        if ct in ("diag", "spherical"):
+            S2 = np.asarray(st.x2sum, np.float64)
+            var = S2 / Rc[:, None] - mu ** 2 + self.reg_covar
+            var = np.maximum(var, floor)
+            if ct == "spherical":
+                var = var.mean(axis=1)
+        else:
+            d = mu.shape[1]
+            if ct == "full":
+                T = np.asarray(st.scatter, np.float64)
+                var = T / Rc[:, None, None] - mu[:, :, None] * mu[:, None, :]
+            else:
+                # sklearn's rule: (total scatter - sum_k R_k mu_k mu_k^T) / W
+                var = (self._total_scatter - np.einsum("k,kd,ke->de", R, mu,
+                                                       mu)) \
+                    / max(w_total, 1e-300)
+            diag = (..., np.arange(d), np.arange(d))
+            var[diag] += self.reg_covar
+            var[diag] = np.maximum(var[diag], floor)
         pi = np.maximum(R / max(w_total, 1e-300), 1e-300)
         return w_total, (pi / pi.sum(), mu, var)
 
@@ -376,20 +561,30 @@ class GaussianMixture:
         :class:`Dataset`.  ``sample_weight`` (n,) weights every statistic
         (the second positional argument, as in the JAX package).
         ``resume=True`` continues EM from the current parameters for up to
-        ``max_iter`` more iterations (``n_init`` must be 1)."""
+        ``max_iter`` more iterations (``n_init`` must be 1), by either loop:
+        the iteration count and the convergence baseline (``lower_bound_``)
+        carry over.  The JAX device loop's raw tables are not kept (a
+        checkpoint's ``dev_*`` entries are read as absent): a resumed device
+        loop starts from the fitted attributes."""
         if not isinstance(resume, bool):
             raise _later("resume", resume,
                          "A.9 'Fault tolerance': resuming from a path")
         if checkpoint_every or checkpoint_path is not None:
             raise _later("checkpoint_every", checkpoint_every,
                          "A.9 'Fault tolerance'")
+        self.cov_jitter_retries_ = 0
         ds = self._dataset(X, sample_weight)
         mode = self._mode()
-        step_fn = make_gmm_step_fn(ds.mesh, chunk_size=self._chunk(ds),
-                                   mode=mode)
-        self.estep_path_ = "kernel" if mode == "kernel" else "serial"
+        pipeline = self._note_estep_path(mode)
+        step_fn = self._step_fn(ds, mode, pipeline)
         self.shift_ = weighted_mean(ds.points, ds.weights, ds.mesh).to(
             torch.float64).cpu().numpy()
+        if self.covariance_type == "tied":
+            # The tied M-step's total scatter depends on the data and the
+            # shift only: one pass per fit.
+            self._total_scatter = total_scatter(
+                ds.points, ds.weights, self._put(self.shift_), ds.mesh).to(
+                torch.float64).cpu().numpy()
         if resume and self.means_ is not None:
             if self.n_init != 1:
                 raise ValueError("fit(resume=True) requires n_init == 1 "
@@ -399,6 +594,9 @@ class GaussianMixture:
         seeds = self._restart_seeds()
         self.best_restart_ = 0
         self.restart_lower_bounds_ = None
+        if len(seeds) > 1 and not self.host_loop \
+                and self.covariance_type in ("diag", "spherical"):
+            return self._fit_on_device_multi(ds, step_fn, seeds)
         best = None
         lls = []
         last_err = None
@@ -434,12 +632,17 @@ class GaussianMixture:
 
     def _fit_one(self, ds: Dataset, step_fn, seed: int,
                  resume: bool = False) -> None:
-        """One restart: the host loop.  One E-step on the device per
-        iteration; its statistics come to the host as float64, which is also
-        the iteration's synchronisation point."""
+        """One restart.  The host loop: one E-step on the device per
+        iteration; its statistics come to the host as float64, which is
+        also the iteration's synchronisation point.  ``host_loop=False``:
+        :meth:`_fit_on_device`."""
         if not resume:
             if self._init_params(ds, step_fn, seed) <= 0:
                 raise ValueError("total sample weight must be positive")
+        if not self.host_loop:
+            return self._fit_on_device(
+                ds, base_iter=self.n_iter_ if resume else 0, resume=resume)
+        self.loop_path_ = "host"
         self.converged_ = False
         self.iter_times_ = []
         base = self.n_iter_ if resume else 0
@@ -447,7 +650,8 @@ class GaussianMixture:
         shift = self._shift()
         for it in range(base + 1, base + self.max_iter + 1):
             t0 = time.perf_counter()
-            st = step_fn(ds.points, ds.weights, *self._params_dev())
+            st = step_fn(ds.points, ds.weights,
+                         *self._params_dev(guard_cholesky=True))
             host = self._host(st)
             # The float64 total of the responsibility sums normalises the
             # lower bound on fresh and resumed fits alike.
@@ -470,6 +674,277 @@ class GaussianMixture:
                 break
             prev = self.lower_bound_
 
+    def _start_tables(self, shift: np.ndarray):
+        """The device loop's starting tables in the model's dtype, from the
+        fitted attributes: centered means, the covariance ('diag' and
+        'spherical' floored at ``max(reg_covar, tiny)``, 'spherical'
+        broadcast over D) and the log-weights."""
+        tiny = float(np.finfo(self.dtype).tiny)
+        mc = (self.means_ - shift).astype(self.dtype)
+        if self.covariance_type in ("diag", "spherical"):
+            cov = np.maximum(self._diag_view(),
+                             max(self.reg_covar, tiny)).astype(self.dtype)
+        else:
+            cov = np.asarray(self.covariances_, self.dtype)
+        log_w = np.log(np.maximum(self.weights_, 1e-300)).astype(self.dtype)
+        return mc, cov, log_w
+
+    def _fit_on_device(self, ds: Dataset, *, base_iter: int = 0,
+                       resume: bool = False) -> None:
+        """Every EM iteration on the device (``host_loop=False``): the JAX
+        package's ``_fit_on_device`` for all four covariance types
+        (``parallel.gmm_step.make_gmm_fit_fn``).  ``base_iter`` offsets
+        ``n_iter_`` on resume, where the convergence baseline is
+        ``lower_bound_``; a non-finite log-likelihood raises
+        ``NumericalDivergenceError`` naming its iteration."""
+        mode = self._mode()
+        pipeline = self._resolve_pipeline(mode)
+        shift = self._shift()
+        mc, cov, log_w = self._start_tables(shift)
+        fit_fn = make_gmm_fit_fn(
+            ds.mesh, chunk_size=self._chunk(ds), max_iter=self.max_iter,
+            tol=float(self.tol), reg_covar=float(self.reg_covar),
+            cov_type=self.covariance_type, mode=mode, pipeline=pipeline)
+        t0 = time.perf_counter()
+        res = fit_fn(ds, self._put(shift), self._put(mc), self._put(cov),
+                     self._put(log_w),
+                     float(self.lower_bound_) if resume else -np.inf)
+        elapsed = time.perf_counter() - t0
+        n = res.n_iter
+        self.loop_path_ = "device"
+        if n and not np.all(np.isfinite(res.ll_hist)):
+            raise NumericalDivergenceError(base_iter + n, "log-likelihood")
+        self._ingest_device_tables(res.means_c, res.cov, res.log_w, shift)
+        self.converged_ = res.converged
+        self.n_iter_ = base_iter + n
+        self.lower_bound_ = float(res.ll_hist[-1]) if n else -np.inf
+        self.iter_times_ = [elapsed / max(n, 1)] * n
+        if self.verbose and is_primary(self.mesh):
+            print(f"EM device loop: {n} iterations, mean log-likelihood = "
+                  f"{self.lower_bound_:.6f}", flush=True)
+
+    def _fit_on_device_multi(self, ds: Dataset, step_fn,
+                             seeds) -> "GaussianMixture":
+        """Every restart in one device loop ('diag', 'spherical'): each
+        restart's init runs first (a failed one is dropped with a warning
+        and the survivors kept), then the members ride
+        ``make_gmm_multi_fit_fn``; the winner is the highest final lower
+        bound, a member that went non-finite never wins."""
+        R = len(seeds)
+        k = self.n_components
+        shift = self._shift()
+        tables = []
+        alive = []
+        init_err = None
+        for r, seed in enumerate(seeds):
+            try:
+                if self._init_params(ds, step_fn, seed) <= 0:
+                    raise ValueError("total sample weight must be positive")
+            except (ValueError, np.linalg.LinAlgError) as e:
+                warnings.warn(f"GMM restart {r + 1}/{R} failed at init "
+                              f"({e}); continuing with the remaining "
+                              f"restarts", UserWarning, stacklevel=2)
+                init_err = e
+                continue
+            alive.append(r)
+            tables.append(self._start_tables(shift))
+        if not alive:
+            raise init_err
+        mode = self._mode()
+        fit_fn = make_gmm_multi_fit_fn(
+            ds.mesh, chunk_sizes=[self._chunk(ds)], max_iter=self.max_iter,
+            tol=float(self.tol), reg_covar=float(self.reg_covar),
+            cov_type=self.covariance_type, mode=mode,
+            pipeline=self._resolve_pipeline(mode))
+        t0 = time.perf_counter()
+        res = fit_fn(ds, self._put(shift),
+                     *(self._put(np.stack(t)) for t in zip(*tables)),
+                     ks=[k] * len(alive))
+        elapsed = time.perf_counter() - t0
+        lls = np.full((R,), -np.inf)
+        lls[np.asarray(alive)] = res.final_lls
+        if not np.any(np.isfinite(lls)):
+            raise ValueError(
+                "non-finite log-likelihood in every batched restart")
+        n_failed = int(np.sum(~np.isfinite(res.final_lls)))
+        if n_failed:
+            warnings.warn(f"{n_failed} of {len(alive)} batched GMM restarts "
+                          f"diverged (non-finite log-likelihood); "
+                          f"continuing with the survivors", UserWarning,
+                          stacklevel=2)
+        b = res.best
+        n = int(res.n_iters[b])
+        self._ingest_device_tables(res.means_c[b], res.cov[b], res.log_w[b],
+                                   shift)
+        self.converged_ = bool(res.converged[b])
+        self.n_iter_ = n
+        self.lower_bound_ = float(res.ll_hist[b, n - 1]) if n else -np.inf
+        self.best_restart_ = alive[b]
+        self.restart_lower_bounds_ = lls
+        self.iter_times_ = [elapsed / max(int(res.n_iters.max()), 1)] * n
+        self.loop_path_ = "device-multi"
+        if self.verbose and is_primary(self.mesh):
+            print(f"EM batched restarts: best {self.best_restart_ + 1} of "
+                  f"{R}, mean log-likelihood = {self.lower_bound_:.6f}",
+                  flush=True)
+        return self
+
+    def _ingest_device_tables(self, means_c, cov, log_w, shift) -> None:
+        """The device loop's tables as the fitted attributes: the shift
+        added back in float64, 'spherical' collapsed to (k,), 'tied' its
+        shared (D, D)."""
+        k = self.n_components
+        self.means_ = means_c.to(torch.float64).cpu().numpy()[:k] + shift
+        cv = cov.to(torch.float64).cpu().numpy()
+        ct = self.covariance_type
+        self.covariances_ = (cv[:k, 0] if ct == "spherical" else
+                             cv if ct == "tied" else cv[:k])
+        w = np.exp(log_w.to(torch.float64).cpu().numpy()[:k])
+        self.weights_ = w / w.sum()
+
+    # ----------------------------------------------------------------- sweep
+
+    def sweep(self, X, *, k_range, criterion: str = "bic",
+              sample_weight=None, batched=True):
+        """Model selection over the component count (the JAX package's
+        ``GaussianMixture.sweep``): fit every (k, restart) member, score each
+        by ``criterion`` ('bic' | 'aic', lowest wins) and return a
+        ``sweep.SweepResult``.
+
+        ``batched=True`` runs every member in one device loop
+        (``parallel.gmm_step.make_gmm_multi_fit_fn``): each member's tables
+        padded to k_max with inert components (zero mean, unit variance,
+        ``-inf`` log-weight) and each member the single fit's iteration at
+        its own k, so a member's lower bounds are those of its single
+        device-loop fit; then one fresh E pass per member scores its final
+        parameters (the weighted mean log-likelihood that BIC and AIC take).
+        Member seeding runs each member's own init first.  The batched loop
+        needs the diagonal density: 'full' and 'tied' run the sequential
+        path with a warning.  ``batched=0`` is the oracle: one device-loop
+        fit per member on the same dataset, scored by ``bic`` / ``aic``.
+        Within each k the highest final lower bound wins; the criterion
+        then picks k.  The inits must be data-driven."""
+        from kmeans_tpu_torch import sweep as sweep_mod
+
+        if self.means_init is not None or self.precisions_init is not None \
+                or self.weights_init is not None:
+            raise ValueError("sweep() needs data-driven inits (explicit "
+                             "means/weights/precisions pin k)")
+        ks = sweep_mod.parse_k_range(k_range)
+        sweep_mod.check_criterion(criterion, sweep_mod.GMM_CRITERIA)
+        k_max = ks[-1]
+        ct = self.covariance_type
+        if batched and ct not in ("diag", "spherical"):
+            warnings.warn(
+                f"batched GMM sweep needs the diag/spherical density; "
+                f"covariance_type={ct!r} runs the sequential path",
+                UserWarning, stacklevel=2)
+            batched = False
+        engine = sweep_mod.clone_for(self, n_components=k_max,
+                                     verbose=False)
+        ds = engine._dataset(X, sample_weight)
+        if k_max >= ds.n:
+            raise ValueError(f"k_max={k_max} must be < n={ds.n}")
+        mode = engine._mode()
+        pipeline = engine._note_estep_path(mode)
+        shift = weighted_mean(ds.points, ds.weights, ds.mesh).to(
+            torch.float64).cpu().numpy()
+        seeds = engine._restart_seeds()
+        members = [(k, s) for k in ks for s in seeds]
+        R, n_init = len(members), len(seeds)
+        n, d = ds.n, ds.d
+        if batched:
+            means0 = np.zeros((R, k_max, d), self.dtype)
+            var0 = np.ones((R, k_max, d), self.dtype)
+            log_w0 = np.full((R, k_max), -np.inf, self.dtype)
+            chunks = []
+            for i, (k_m, s) in enumerate(members):
+                gm = sweep_mod.clone_for(self, n_components=k_m, seed=s,
+                                         n_init=1, verbose=False,
+                                         mesh=ds.mesh)
+                gm.shift_ = shift
+                if gm._init_params(ds, gm._step_fn(ds, mode, pipeline),
+                                   s) <= 0:
+                    raise ValueError("total sample weight must be positive")
+                means0[i, :k_m], var0[i, :k_m], log_w0[i, :k_m] = \
+                    gm._start_tables(shift)
+                chunks.append(gm._chunk(ds))
+            fit_fn = make_gmm_multi_fit_fn(
+                ds.mesh, chunk_sizes=chunks, max_iter=self.max_iter,
+                tol=float(self.tol), reg_covar=float(self.reg_covar),
+                cov_type=ct, mode=mode, pipeline=pipeline,
+                return_scores=True)
+            res = fit_fn(ds, engine._put(shift), engine._put(means0),
+                         engine._put(var0), engine._put(log_w0),
+                         ks=[k for k, _ in members])
+            n_disp = 1
+            flls, n_it, conv = res.final_lls, res.n_iters, res.converged
+            crit_vals = np.asarray(
+                [self._criterion_value(criterion, res.final_scores[i], k_m,
+                                       d, n)
+                 for i, (k_m, _) in enumerate(members)])
+            fitted = None
+        else:
+            flls = np.full((R,), -np.inf)
+            crit_vals = np.full((R,), np.inf)
+            n_it = np.zeros((R,), np.int64)
+            fitted = []
+            for i, (k_m, s) in enumerate(members):
+                gm = sweep_mod.clone_for(self, n_components=k_m, seed=s,
+                                         n_init=1, verbose=False,
+                                         host_loop=False, mesh=ds.mesh)
+                gm.fit(ds)
+                flls[i] = gm.lower_bound_
+                n_it[i] = gm.n_iter_
+                crit_vals[i] = (gm.bic(ds) if criterion == "bic"
+                                else gm.aic(ds))
+                fitted.append(gm)
+            n_disp = 2 * R
+        if not np.any(np.isfinite(flls)):
+            raise ValueError(
+                "non-finite log-likelihood in every sweep member")
+        lls, best_r, win_idx = sweep_mod.within_k_winners(
+            flls, len(ks), n_init, maximize=True)
+        crit = crit_vals.reshape(len(ks), n_init)
+        idx = np.arange(len(ks))
+        scores = np.where(np.isfinite(lls[idx, best_r]), crit[idx, best_r],
+                          np.inf)
+        selected_k, sel, m_sel = sweep_mod.selected_member(
+            ks, scores, criterion, win_idx)
+        if batched:
+            best = sweep_mod.clone_for(self, n_components=selected_k,
+                                       mesh=ds.mesh)
+            best.shift_ = shift
+            best._ingest_device_tables(res.means_c[m_sel], res.cov[m_sel],
+                                       res.log_w[m_sel], shift)
+            best.converged_ = bool(conv[m_sel])
+            best.n_iter_ = int(n_it[m_sel])
+            best.lower_bound_ = float(flls[m_sel])
+            best.loop_path_ = "device-sweep"
+            best.estep_path_ = engine.estep_path_
+        else:
+            best = fitted[m_sel]
+        best.best_restart_ = int(best_r[sel])
+        best.restart_lower_bounds_ = np.asarray(lls[sel], np.float64)
+        return sweep_mod.SweepResult(
+            family="gmm", criterion=criterion, k_range=ks,
+            scores=np.asarray(scores, np.float64),
+            member_scores=lls.astype(np.float64),
+            selected_k=selected_k, selected_restart=int(best_r[sel]),
+            best_model=best, n_dispatches=n_disp, batched=bool(batched),
+            n_iters=np.asarray(n_it).reshape(len(ks), n_init))
+
+    def _criterion_value(self, criterion: str, mean_ll: float, k: int,
+                         d: int, n: int) -> float:
+        """BIC or AIC from a member's mean log-likelihood (the ``bic`` /
+        ``aic`` formulas at the member's k)."""
+        if not np.isfinite(mean_ll):
+            return np.inf
+        pen = self._n_parameters_for(k, d, self.covariance_type)
+        if criterion == "bic":
+            return -2.0 * mean_ll * n + pen * math.log(n)
+        return -2.0 * mean_ll * n + 2.0 * pen
+
     # ------------------------------------------------- not ported (raising)
 
     def fit_stream(self, *args, **kwargs):
@@ -481,9 +956,6 @@ class GaussianMixture:
     def score_samples_stream(self, *args, **kwargs):
         raise _later("score_samples_stream", "...",
                      "A.10 'Streaming and ingest'")
-
-    def sweep(self, *args, **kwargs):
-        raise _later("sweep", "...", _A8 + ": the batched restart sweep")
 
     def fitted_state(self):
         raise _later("fitted_state", "...", "A.12 'Serving'")
@@ -504,7 +976,8 @@ class GaussianMixture:
         dataset."""
         self._check_fitted()
         ds = self._dataset(X)
-        predict_fn = make_gmm_predict_fn(chunk_size=self._chunk(ds))
+        predict_fn = make_gmm_predict_fn(chunk_size=self._chunk(ds),
+                                         cov_type=self.covariance_type)
         out = predict_fn(ds.points, *self._params_dev())[which]
         if which:
             out = out.to(torch.float64)
@@ -542,27 +1015,51 @@ class GaussianMixture:
                           p=self.weights_ / self.weights_.sum())
         d = self.means_.shape[1]
         z = rng.standard_normal((n_samples, d))
-        X = self.means_[comp] + z * np.sqrt(self._diag_view()[comp])
+        ct = self.covariance_type
+        if ct in ("diag", "spherical"):
+            X = self.means_[comp] + z * np.sqrt(self._diag_view()[comp])
+        else:
+            # x = mu + L z with Sigma = L L^T.
+            L = np.linalg.cholesky(np.asarray(self.covariances_,
+                                              np.float64))
+            X = self.means_[comp] + (
+                np.einsum("nde,ne->nd", L[comp], z) if ct == "full"
+                else z @ L.T)
         return X.astype(self.dtype), comp.astype(np.int32)
 
     # ----------------------------------------------------- model selection
 
     @property
     def precisions_cholesky_(self) -> np.ndarray:
-        """sklearn's parameterisation: 1 / sqrt(variance)."""
+        """sklearn's parameterisation: P with Sigma^-1 = P P^T for 'tied'
+        and 'full', 1 / sqrt(variance) for 'diag' and 'spherical'."""
         self._check_fitted()
-        return 1.0 / np.sqrt(self.covariances_)
+        if self.covariance_type in ("diag", "spherical"):
+            return 1.0 / np.sqrt(self.covariances_)
+        return self._prec_chol(np.asarray(self.covariances_,
+                                          np.float64))[0]
 
     @property
     def precisions_(self) -> np.ndarray:
         self._check_fitted()
-        return 1.0 / self.covariances_
+        if self.covariance_type in ("diag", "spherical"):
+            return 1.0 / self.covariances_
+        p = self.precisions_cholesky_
+        return p @ np.swapaxes(p, -1, -2)
+
+    @staticmethod
+    def _n_parameters_for(k: int, d: int, cov_type: str) -> int:
+        """Free parameters per covariance type (sklearn's count, the BIC /
+        AIC penalty), at any k."""
+        cov_params = {"diag": k * d, "spherical": k,
+                      "tied": d * (d + 1) // 2,
+                      "full": k * d * (d + 1) // 2}[cov_type]
+        return (k - 1) + k * d + cov_params
 
     def _n_parameters(self) -> int:
-        """Free parameters (sklearn's count, the BIC / AIC penalty)."""
-        k, d = self.n_components, self.means_.shape[1]
-        cov = k * d if self.covariance_type == "diag" else k
-        return (k - 1) + k * d + cov
+        return self._n_parameters_for(self.n_components,
+                                      self.means_.shape[1],
+                                      self.covariance_type)
 
     @staticmethod
     def _n_rows(X) -> int:
@@ -581,10 +1078,10 @@ class GaussianMixture:
     # ------------------------------------------------------------ checkpoint
 
     def _state_dict(self) -> dict:
-        """Serialisable state in the JAX package's checkpoint vocabulary:
-        the host loop is written as ``model_shards=1, host_loop=True``, so
-        that the JAX package loads the file, with the topology block
-        (``meta_mesh_*``)."""
+        """Serialisable state in the JAX package's checkpoint vocabulary,
+        with the model's own ``host_loop`` and ``pipeline`` (no model axis:
+        ``model_shards=1``), the jitter ladder's count and the topology
+        block (``meta_mesh_*``)."""
         fitted = self.means_ is not None
         state = {
             "model_class": type(self).__name__,
@@ -594,7 +1091,7 @@ class GaussianMixture:
             "max_iter": self.max_iter, "n_init": self.n_init,
             "init_params": self.init_params, "seed": self.seed,
             "model_shards": 1, "chunk_size": self.chunk_size,
-            "host_loop": True, "pipeline": self.pipeline,
+            "host_loop": self.host_loop, "pipeline": self.pipeline,
             "bucket": self.bucket, "overlap": self.overlap,
             "ingest": self.ingest, "verbose": self.verbose,
             "dtype": str(self.dtype),
@@ -614,6 +1111,7 @@ class GaussianMixture:
                 np.asarray(self.restart_lower_bounds_)
                 if self.restart_lower_bounds_ is not None
                 else np.zeros((0,)),
+            "cov_jitter_retries_": int(self.cov_jitter_retries_),
         }
         state.update(ckpt.topology_meta(self.mesh, self.dtype))
         # Explicit init arrays are configuration: a loaded model that is
@@ -629,7 +1127,8 @@ class GaussianMixture:
                     mesh=None) -> "GaussianMixture":
         """A model from a checkpoint dictionary written by either package.
         Arguments the port does not have are dropped with one warning; the
-        JAX package's device-loop tables (``dev_*``) are read as absent."""
+        JAX package's device-loop tables (``dev_*``) are read as absent (a
+        resumed fit continues from the fitted attributes)."""
         dropped = []
         for name, (allowed, _) in _LATER_ARGS.items():
             if name in state and not _is_allowed(state[name], allowed):
@@ -644,6 +1143,7 @@ class GaussianMixture:
                               "precisions_init")
                  if f"cfg_{name}" in state}
         chunk = state.get("chunk_size")
+        pipeline = state.get("pipeline", "auto")
         model = cls(n_components=int(state["n_components"]),
                     covariance_type=str(state["covariance_type"]),
                     tol=float(state["tol"]),
@@ -653,6 +1153,9 @@ class GaussianMixture:
                     init_params=str(state["init_params"]),
                     seed=int(state["seed"]),
                     chunk_size=None if chunk is None else int(chunk),
+                    host_loop=bool(state.get("host_loop", True)),
+                    pipeline=("auto" if str(pipeline) == "auto"
+                              else int(pipeline)),
                     verbose=bool(state["verbose"]),
                     dtype=np.dtype(str(state["dtype"])), device=device,
                     mesh=mesh, **inits)
@@ -666,6 +1169,8 @@ class GaussianMixture:
             model.n_iter_ = int(state["n_iter_"])
             model.lower_bound_ = float(state["lower_bound_"])
             model.best_restart_ = int(state.get("best_restart_", 0))
+            model.cov_jitter_retries_ = int(state.get("cov_jitter_retries_",
+                                                      0))
             rlb = state.get("restart_lower_bounds_")
             model.restart_lower_bounds_ = (
                 np.asarray(rlb, np.float64)

@@ -823,11 +823,12 @@ INITIALIZERS = {"forgy": forgy_init, "random": forgy_init,
 
 def resolve_init(init, X, k: int, seed: int, *,
                  validate: bool = True, cap: Optional[int] = None,
-                 mode: Optional[str] = None) -> np.ndarray:
+                 mode: Optional[str] = None, device=True) -> np.ndarray:
     """Dispatch: strategy name, callable ``init(X, k, seed)``, or an
-    explicit (k, D) array.  ``cap`` (``KMeans(init_cap=...)``) and ``mode``
-    (the model's distance mode) go to k-means||; ``cap`` with any other
-    strategy raises, as in the JAX package."""
+    explicit (k, D) array.  ``cap`` (``KMeans(init_cap=...)``), ``mode``
+    (the model's distance mode) and ``device`` (where k-means|| places host
+    rows: the model's device; True is the card) go to k-means||; ``cap``
+    with any other strategy raises, as in the JAX package."""
     src = as_source(X)
     dtype = np.dtype(str(src.dtype))
     parallel = isinstance(init, str) and \
@@ -848,7 +849,8 @@ def resolve_init(init, X, k: int, seed: int, *,
         except KeyError:
             raise ValueError(f"unknown init strategy: {init!r}; "
                              f"options: {sorted(INITIALIZERS)}") from None
-        kw = {"cap": cap, "mode": mode} if parallel else {}
+        kw = {"cap": cap, "mode": mode, "device": device} if parallel \
+            else {}
         return np.asarray(fn(src, k, seed, validate=validate, **kw),
                           dtype=dtype)
     arr = np.asarray(init, dtype=dtype)

@@ -1201,6 +1201,12 @@ class KMeans:
     def score_stream(self, *args, **kwargs):
         raise _later("score_stream", "...", "A.10 'Streaming and ingest'")
 
+    def fitted_state(self):
+        raise _later("fitted_state", "...", "A.12 'Serving'")
+
+    def quality_profile(self, X=None):
+        raise _later("quality_profile", "...", "A.13 'Observability'")
+
     def score(self, X, y=None) -> float:
         """Negative SSE of X under the fitted centroids."""
         self._require_fitted()

@@ -66,7 +66,10 @@ class MiniBatchKMeans(KMeans):
     scored by one pass each (the full data on the device, a seeded subset
     of 3 batches for host data) and the best one is trained
     (``init_inertias_``, ``best_init_``); ``n_init='auto'`` is 3.  The
-    guarded bf16 rung is refused.
+    guarded bf16 rung runs where the JAX package runs it: the host-sampling
+    fit and ``partial_fit`` take the guarded full-batch step; the
+    device-sampling engine refuses it when it fits
+    (``parallel.distributed._check_minibatch_mode``).
 
     After ``fit``: ``centroids``, ``cluster_sizes_`` (the last batch's
     counts), ``sse_history`` (each batch's SSE scaled by the total weight
@@ -92,7 +95,6 @@ class MiniBatchKMeans(KMeans):
         if reassignment_ratio < 0:
             raise ValueError(f"reassignment_ratio must be >= 0, got "
                              f"{reassignment_ratio}")
-        dist._check_minibatch_mode(self.distance_mode)
         self.batch_size = batch_size
         self.sampling = sampling
         self.reassignment_ratio = float(reassignment_ratio)
@@ -148,7 +150,8 @@ class MiniBatchKMeans(KMeans):
         scored."""
         cands = [np.asarray(resolve_init(self.init, init_src, self.k, s,
                                          cap=self.init_cap,
-                                         mode=self._mode()), np.float64)
+                                         mode=self._mode(),
+                                         device=self.device), np.float64)
                  for s in self._restart_seeds()]
         self.init_inertias_, self.best_init_ = None, 0
         if len(cands) == 1:
@@ -213,6 +216,7 @@ class MiniBatchKMeans(KMeans):
     def _fit_device(self, X, sample_weight) -> "MiniBatchKMeans":
         """The device sampling engine: the dataset placed once, every
         iteration's draw, pass and update on the device."""
+        dist._check_minibatch_mode(self._mode())
         ds = self.cache(X, sample_weight)
         bs = min(self.batch_size, ds.n)
         # Every block of the data axis draws the same count, rounded up.
@@ -421,8 +425,9 @@ class MiniBatchKMeans(KMeans):
         log = IterationLogger(self.verbose
                               and is_primary(self._resolve_mesh()))
         if self.centroids is None:
-            centroids = np.asarray(resolve_init(self.init, X, self.k,
-                                                self.seed), np.float64)
+            centroids = np.asarray(resolve_init(
+                self.init, X, self.k, self.seed, device=self.device),
+                np.float64)
             self.sse_history, self.iterations_run = [], 0
             self._seen = np.zeros(self.k)
         else:

@@ -121,8 +121,5 @@ class SphericalKMeans(KMeans):
                 yield _normalize_rows(_host_rows(raw, np.float64))
         return super()._transform_stream_blocks(normalized, block_rows)
 
-    def fitted_state(self):
-        raise _later("fitted_state", "...", "A.12 'Serving'")
-
     def _quality_rows(self, X):
         raise _later("_quality_rows", "...", "A.13 'Observability'")

@@ -556,7 +556,92 @@ def _host_copy(t: torch.Tensor) -> np.ndarray:
     return np.array(t.detach().to(torch.float64).cpu().numpy())
 
 
-class _DeviceLoop:
+class _Replay:
+    """How a device loop's iteration is launched: on the card it runs once
+    eagerly, then is captured as a CUDA graph and replayed; on the CPU it
+    runs eagerly.  The host reads the loop's done flag ``running`` (a bool
+    tensor) once per iteration.  A subclass sets ``points`` (a tensor on the
+    loop's device), ``max_iter``, ``running``, ``graph = None`` and
+    ``graph_launches = {}``, and defines ``iterate()``, which reads nothing
+    to the host."""
+
+    def _capture(self) -> None:
+        """The first iteration on the card: it runs eagerly on a side stream
+        (a real iteration, which also does the kernels' one-time host work:
+        library load, function attributes, occupancy query), then one
+        iteration is captured, which runs nothing.  The kernel launches that
+        the capture recorded are taken back off ``LAUNCHES`` and added at
+        each replay instead, so the counts are of launches that reached the
+        card."""
+        current = torch.cuda.current_stream(self.points.device)
+        side = torch.cuda.Stream(device=self.points.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            self.iterate()
+        current.wait_stream(side)
+        before = dict(_build.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                self.iterate()
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"the device loop's iteration could not be captured as a "
+                f"CUDA graph: {e}") from e
+        finally:
+            recorded = {name: count - before.get(name, 0)
+                        for name, count in _build.LAUNCHES.items()}
+            _build.LAUNCHES.update(before)
+        self.graph_launches = {n: c for n, c in recorded.items() if c}
+        self.graph = graph
+
+    def _launch(self) -> None:
+        if not self.points.is_cuda:
+            self.iterate()
+        elif self.graph is None:
+            self._capture()
+        else:
+            self.graph.replay()
+            for name, count in self.graph_launches.items():
+                _build.LAUNCHES[name] += count
+
+    def _drive(self, in_flight: int) -> int:
+        """Launch iterations until the host reads a done flag: that of
+        iteration i - ``in_flight`` while iteration i is queued.  On a CUDA
+        device the flags come back through a pinned ring, each behind an
+        event; on the CPU each is read as it is set.  Returns the
+        iterations launched."""
+        cuda = self.points.is_cuda
+        slots = in_flight + 1
+        if cuda:
+            ring = torch.empty(slots, dtype=torch.bool, pin_memory=True)
+            events = [torch.cuda.Event() for _ in range(slots)]
+        flags = []
+        launched = 0
+        while launched < self.max_iter:
+            self._launch()
+            if cuda:
+                ring[launched % slots].copy_(self.running, non_blocking=True)
+                events[launched % slots].record()
+            else:
+                flags.append(bool(self.running))
+            launched += 1
+            back = launched - 1 - in_flight
+            if back < 0:
+                continue
+            if cuda:
+                events[back % slots].synchronize()
+                go = bool(ring[back % slots])
+            else:
+                go = flags[back]
+            if not go:
+                break
+        if cuda:
+            torch.cuda.current_stream(self.points.device).synchronize()
+        return launched
+
+
+class _DeviceLoop(_Replay):
     """The device loop's state on one dataset, and one iteration over it.
 
     Every tensor the iteration reads or writes across iterations is made
@@ -663,48 +748,6 @@ class _DeviceLoop:
         self.running.copy_((self.it < self.max_iter)
                            & (self.shift >= self.tolerance) & self.ok)
 
-    # --------------------------------------------------------------- launch
-
-    def _capture(self) -> None:
-        """The first iteration on the card: it runs eagerly on a side stream
-        (a real iteration, which also does the kernels' one-time host work:
-        library load, function attributes, occupancy query), then one
-        iteration is captured, which runs nothing.  The kernel launches that
-        the capture recorded are taken back off ``LAUNCHES`` and added at
-        each replay instead, so the counts are of launches that reached the
-        card."""
-        current = torch.cuda.current_stream(self.points.device)
-        side = torch.cuda.Stream(device=self.points.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            self.iterate()
-        current.wait_stream(side)
-        before = dict(_build.LAUNCHES)
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph):
-                self.iterate()
-        except RuntimeError as e:
-            raise RuntimeError(
-                f"the device loop's iteration could not be captured as a "
-                f"CUDA graph: {e}") from e
-        finally:
-            recorded = {name: count - before.get(name, 0)
-                        for name, count in _build.LAUNCHES.items()}
-            _build.LAUNCHES.update(before)
-        self.graph_launches = {n: c for n, c in recorded.items() if c}
-        self.graph = graph
-
-    def _launch(self) -> None:
-        if not self.points.is_cuda:
-            self.iterate()
-        elif self.graph is None:
-            self._capture()
-        else:
-            self.graph.replay()
-            for name, count in self.graph_launches.items():
-                _build.LAUNCHES[name] += count
-
     def _reset(self, centroids0: torch.Tensor,
                table: Optional[torch.Tensor]) -> None:
         self.cents.copy_(centroids0)
@@ -715,41 +758,6 @@ class _DeviceLoop:
         self.running.fill_(True)
         if table is not None:
             self.table.copy_(table)
-
-    def _drive(self, in_flight: int) -> int:
-        """Launch iterations until the host reads a done flag: that of
-        iteration i - ``in_flight`` while iteration i is queued.  On a CUDA
-        device the flags come back through a pinned ring, each behind an
-        event; on the CPU each is read as it is set.  Returns the
-        iterations launched."""
-        cuda = self.points.is_cuda
-        slots = in_flight + 1
-        if cuda:
-            ring = torch.empty(slots, dtype=torch.bool, pin_memory=True)
-            events = [torch.cuda.Event() for _ in range(slots)]
-        flags = []
-        launched = 0
-        while launched < self.max_iter:
-            self._launch()
-            if cuda:
-                ring[launched % slots].copy_(self.running, non_blocking=True)
-                events[launched % slots].record()
-            else:
-                flags.append(bool(self.running))
-            launched += 1
-            back = launched - 1 - in_flight
-            if back < 0:
-                continue
-            if cuda:
-                events[back % slots].synchronize()
-                go = bool(ring[back % slots])
-            else:
-                go = flags[back]
-            if not go:
-                break
-        if cuda:
-            torch.cuda.current_stream(self.points.device).synchronize()
-        return launched
 
     def run(self, centroids0: torch.Tensor, table: Optional[torch.Tensor],
             in_flight: int) -> FitResult:

@@ -299,16 +299,24 @@ def test_gmm_state_dispatch_and_dropped_arguments():
     assert back["model_class"] == "GaussianMixture"
     assert back["host_loop"] is True and back["model_shards"] == 1
     # The JAX package's device-loop tables and loop options: the tables are
-    # read as absent, the options dropped with one warning.
-    state.update(host_loop=False, pipeline=1,
+    # read as absent; the loop options are the port's own since the device
+    # EM loop came, kept and not dropped; an argument the port lacks still
+    # warns, once.
+    state.update(host_loop=False, pipeline=1, bucket="auto",
                  dev_means_c=np.zeros((3, 4)), dev_cov=np.ones((3, 4)),
                  dev_log_w=np.zeros(3), dev_prev_ll=0.0,
                  dev_cov_type="diag")
     with pytest.warns(UserWarning) as caught:
         again = convert.from_jax_state(state, device="cpu")
     assert len(caught) == 1
-    assert "host_loop" in str(caught[0].message)
+    text = str(caught[0].message)
+    assert "bucket" in text
+    assert "host_loop" not in text and "pipeline" not in text
+    assert again.host_loop is False and again.pipeline == 1
+    back = convert.to_jax_state(again)
+    assert back["host_loop"] is False and back["pipeline"] == 1
     assert not any(name.startswith("dev_") for name in vars(again))
+    assert not any(name.startswith("dev_") for name in back)
     _same_gmm(again, jm, X)
     with pytest.raises(NotImplementedError, match="ROADMAP.md, A.11"):
         convert.from_jax_state({"model_class": "ProductQuantizer"},

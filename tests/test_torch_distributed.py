@@ -53,6 +53,9 @@ JAX_FITS = [("host", "keep", "far1"), ("host", "farthest", "far3"),
 DRAW_FITS = [("device", "resample", "far3"), ("device", "farthest", "far3")]
 LOCAL_ROWS = 120               # rank 0's rows of the process-local dataset
 GMM_ITERS = 8
+#: (covariance type, loop) of the mixture fits on the data axis.
+GMM_FITS = [("diag", "host"), ("spherical", "host"), ("tied", "host"),
+            ("full", "host"), ("diag", "device"), ("full", "device")]
 
 
 def _inputs():
@@ -137,12 +140,14 @@ def _world4(rank, out_dir):
     mesh = meshes["data2"]
     if in_mesh(mesh):
         out = res["data2"]
-        for cov in ("diag", "spherical"):
+        for cov, loop in GMM_FITS:
             gm = GaussianMixture(
                 3, covariance_type=cov, max_iter=GMM_ITERS, tol=0.0,
                 dtype=np.float64, means_init=gmm_means, mesh=mesh,
-                device="cpu").fit(X, sample_weight=W)
-            out["gmm", cov] = dict(
+                host_loop=loop == "host", device="cpu").fit(
+                X, sample_weight=W)
+            key = ("gmm", cov) if loop == "host" else ("gmm", cov, loop)
+            out[key] = dict(
                 means=gm.means_, covariances=gm.covariances_,
                 weights=gm.weights_, lower_bound=gm.lower_bound_,
                 n_iter=gm.n_iter_, labels=gm.predict(X),
@@ -503,16 +508,29 @@ def test_gmm_on_a_model_axis_raises_naming_A18(world4, name):
             assert out["gmm_model_axis"] is None
 
 
-@pytest.mark.parametrize("cov", ["diag", "spherical"])
+@pytest.mark.parametrize("cov", ["diag", "spherical", "tied", "full"])
 def test_gmm_on_a_data_axis_matches_jax_float64(world4, jx, cov):
+    _gmm_on_data_axis(world4, jx, cov, "host")
+
+
+@pytest.mark.parametrize("cov", ["diag", "full"])
+def test_gmm_device_loop_on_a_data_axis_matches_jax_float64(world4, jx, cov):
+    """The device EM loop on the data axis (its statistics reduced inside
+    the iteration) against the JAX package's device loop on the same
+    mesh."""
+    _gmm_on_data_axis(world4, jx, cov, "device")
+
+
+def _gmm_on_data_axis(world4, jx, cov, loop):
     import kmeans_tpu
     X, _, W, _, gmm_means = _inputs()
     jm = kmeans_tpu.GaussianMixture(
         3, covariance_type=cov, max_iter=GMM_ITERS, tol=0.0,
-        dtype=np.float64, means_init=gmm_means,
+        dtype=np.float64, means_init=gmm_means, host_loop=loop == "host",
         mesh=jx["data2"]).fit(X, sample_weight=W)
+    key = ("gmm", cov) if loop == "host" else ("gmm", cov, loop)
     for out in _ranks_of(world4[0], "data2"):
-        got = out["gmm", cov]
+        got = out[key]
         assert got["n_iter"] == jm.n_iter_ == GMM_ITERS
         for name in ("means", "covariances", "weights"):
             _close(got[name], np.asarray(getattr(jm, name + "_")))

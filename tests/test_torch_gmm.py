@@ -277,16 +277,32 @@ LATER = {"tied": dict(covariance_type="tied"),
          "model_shards": dict(model_shards=2), "mesh": dict(mesh="a mesh"),
          "bucket": dict(bucket="auto"), "overlap": dict(overlap=1),
          "ingest": dict(ingest="slab")}
+#: The arguments of LATER ported since: each now fits, and the model
+#: reports what ran.
+PORTED = {"tied": ("tied", True, "serial"), "full": ("full", True, "serial"),
+          "host_loop": ("diag", False, "serial"),
+          "pipeline": ("diag", True, "pipelined")}
 
 
 @pytest.mark.parametrize("kw", list(LATER.values()), ids=list(LATER))
 def test_arguments_not_ported_yet_raise(kw):
     """Each raises naming its ROADMAP item; ``mesh``, ported since, refuses
-    what is not a DeviceMesh instead."""
+    what is not a DeviceMesh instead; 'tied', 'full', ``host_loop=False``
+    and ``pipeline=1``, ported since, fit a few rows and report what ran."""
     if "mesh" in kw:
         with pytest.raises(TypeError, match="DeviceMesh"):
             kmeans_tpu_torch.GaussianMixture(n_components=2, device="cpu",
                                              **kw)
+        return
+    name = next(n for n, v in LATER.items() if v == kw)
+    if name in PORTED:
+        X, _ = _data(n=120, centers=2, d=3, seed=5)
+        gm = kmeans_tpu_torch.GaussianMixture(n_components=2, device="cpu",
+                                              max_iter=4, **kw).fit(X)
+        assert (gm.covariance_type, gm.host_loop, gm.estep_path_) == \
+            PORTED[name]
+        assert gm.loop_path_ == ("host" if gm.host_loop else "device")
+        assert gm.n_iter_ >= 1 and np.isfinite(gm.lower_bound_)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         kmeans_tpu_torch.GaussianMixture(n_components=2, device="cpu", **kw)
@@ -297,8 +313,20 @@ def test_arguments_not_ported_yet_raise(kw):
                                   "fitted_state", "quality_profile",
                                   "checkpoint", "resume_path"])
 def test_entry_points_not_ported_yet_raise(call, tmp_path):
+    """Each raises naming its ROADMAP item; ``sweep``, ported since, runs
+    a two-value sweep and returns its ``SweepResult``."""
     gm = kmeans_tpu_torch.GaussianMixture(n_components=2, device="cpu")
     X = np.zeros((10, 2), np.float32)
+    if call == "sweep":
+        X, _ = _data(n=200, centers=3, d=3, seed=6, dtype=np.float32)
+        res = kmeans_tpu_torch.GaussianMixture(
+            device="cpu", max_iter=5, seed=1).sweep(X, k_range=[2, 3])
+        assert isinstance(res, kmeans_tpu_torch.SweepResult)
+        assert res.family == "gmm" and res.criterion == "bic"
+        assert res.k_range == (2, 3) and res.selected_k in (2, 3)
+        assert res.scores.shape == (2,) and np.all(np.isfinite(res.scores))
+        assert res.best_model.n_components == res.selected_k
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if call == "checkpoint":
             gm.fit(X, checkpoint_every=1, checkpoint_path=tmp_path / "c")
@@ -327,11 +355,17 @@ def test_default_device_is_the_card_and_raises_without_one():
     ("cuda", np.float64, "diag", "torch"),
     ("cuda", np.float64, "spherical", "torch"),
     ("cpu", np.float32, "diag", "torch"),
-    ("cpu", np.float64, "diag", "torch")])
+    ("cpu", np.float64, "diag", "torch"),
+    ("cuda", np.float32, "tied", "torch"),
+    ("cuda", np.float32, "full", "torch"),
+    ("cpu", np.float32, "tied", "torch"),
+    ("cpu", np.float32, "full", "torch")])
 def test_the_dtype_picks_the_estep(device, dtype, cov, want):
     """The E-step kernel is a float32 engine: a float64 mixture on the card
     runs the chunked torch E-step in float64 (and records 'serial'), as the
-    JAX package's XLA E-step computes in the model's dtype."""
+    JAX package's XLA E-step computes in the model's dtype.  The kernel has
+    a diagonal form only: 'tied' and 'full' run the torch pass on every
+    device, a rule of the covariance type."""
     assert gmm_mod.estep_mode(device, dtype, cov) == want
     gm = kmeans_tpu_torch.GaussianMixture(n_components=2, device="cpu",
                                           dtype=dtype, covariance_type=cov)

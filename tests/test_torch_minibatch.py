@@ -412,7 +412,8 @@ def test_dataset_without_a_host_copy(tmp_path):
 def test_refusals_name_their_reasons(tmp_path):
     X = _blobs(n=300)
     with pytest.raises(ValueError, match="matmul_bf16_guarded"):
-        _port(k=3, distance_mode="matmul_bf16_guarded")
+        _port(k=3, distance_mode="matmul_bf16_guarded",
+              sampling="device").fit(X)
     with pytest.raises(ValueError, match="sampling"):
         _port(sampling="banana")
     with pytest.raises(ValueError, match="batch_size"):
@@ -473,3 +474,84 @@ def test_the_default_device_is_the_card():
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             MiniBatchKMeans(k=2)
+
+
+def _sse64(X, C):
+    d2 = ((X.astype(np.float64)[:, None, :]
+           - np.asarray(C, np.float64)[None, :, :]) ** 2).sum(-1)
+    return float(d2.min(1).sum())
+
+
+@pytest.mark.parametrize("call", ["fit", "partial_fit"])
+def test_kmeans_parallel_seeds_on_the_models_device(call):
+    """ROADMAP C.12: k-means|| seeds host rows on the model's device, so
+    ``device='cpu'`` fits with host sampling and ``partial_fit`` draw
+    their init on the CPU (they raised asking for a card).  k-means||
+    draws other rows than the JAX package, so the fit is held by quality:
+    its SSE within 1.2 times the JAX package's fit of the same data."""
+    X = _blobs(n=3000, centers=3)
+    kw = dict(k=3, seed=5, init="k-means||", sampling="host",
+              batch_size=512, max_iter=10)
+    pm = _port(**kw)
+    jm = kmeans_tpu.MiniBatchKMeans(verbose=False, **kw)
+    getattr(pm, call)(X)
+    getattr(jm, call)(X)
+    assert pm.device == torch.device("cpu")
+    assert np.all(np.isfinite(pm.centroids))
+    assert _sse64(X, pm.centroids) <= 1.2 * _sse64(X, jm.centroids)
+
+
+GUARDED = "matmul_bf16_guarded"
+
+
+def _labels_outside_band(X, C, labels):
+    """Labels that differ from the float64 argmin where its margin clears
+    the float32 band ``1e-4 (||x||^2 + max ||c||^2)``."""
+    x, c = X.astype(np.float64), np.asarray(C, np.float64)
+    d2 = ((x[:, None, :] - c[None, :, :]) ** 2).sum(-1)
+    ref = d2.argmin(1)
+    rows = np.flatnonzero(labels != ref)
+    gap = np.abs(d2[rows, labels[rows]] - d2[rows, ref[rows]])
+    scale = (x[rows] ** 2).sum(1) + (c ** 2).sum(1).max()
+    return int((gap > 1e-4 * scale).sum())
+
+
+@pytest.mark.parametrize("case", ["fit_host", "partial_fit_host",
+                                  "partial_fit_device"])
+def test_guarded_rung_runs_where_jax_runs_it(case):
+    """ROADMAP C.13: the guarded bf16 rung is refused by the device
+    sampling engine only, as in the JAX package: the host-sampling fit and
+    ``partial_fit`` (either sampling) run the guarded full-batch step.
+    Each is held to the JAX package's same call in float64: the same
+    centroids to ``rtol=1e-12`` and, for both, labels equal to a float64
+    argmin outside the band; and to the port's own 'matmul' run, bit for
+    bit (the rung's labels, sums and counts are those of 'matmul')."""
+    X = _blobs(n=1500, dtype=np.float64)
+    sampling = "device" if case.endswith("device") else "host"
+    kw = dict(k=4, seed=3, batch_size=256, max_iter=8, dtype=np.float64,
+              init="forgy", sampling=sampling, distance_mode=GUARDED)
+    pm, ref = _port(**kw), _port(**{**kw, "distance_mode": "matmul"})
+    jm = kmeans_tpu.MiniBatchKMeans(verbose=False, **kw)
+    for m in (pm, ref, jm):
+        if case == "fit_host":
+            m.fit(X)
+        else:
+            for i in range(3):
+                m.partial_fit(X[i * 256:(i + 1) * 256])
+    np.testing.assert_array_equal(pm.centroids, ref.centroids)
+    np.testing.assert_allclose(pm.centroids, np.asarray(jm.centroids),
+                               rtol=1e-12, atol=1e-10)
+    for m in (pm, jm):
+        labels = np.asarray(m.predict(X))
+        assert _labels_outside_band(X, m.centroids, labels) == 0
+
+
+def test_guarded_rung_device_fit_raises_as_jax_does():
+    X = _blobs(n=600)
+    kw = dict(k=3, seed=1, batch_size=128, max_iter=3, sampling="device",
+              distance_mode=GUARDED)
+    with pytest.raises(ValueError, match=GUARDED) as got:
+        _port(**kw).fit(X)
+    with pytest.raises(ValueError, match=GUARDED) as want:
+        kmeans_tpu.MiniBatchKMeans(verbose=False, **kw).fit(X)
+    assert str(got.value) == str(want.value)

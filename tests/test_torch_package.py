@@ -97,7 +97,21 @@ def test_every_module_is_listed():
 def test_exports():
     assert kmeans_tpu_torch.__all__ == ["GaussianMixture", "KMeans",
                                         "MiniBatchKMeans", "BisectingKMeans",
-                                        "SphericalKMeans", "__version__"]
+                                        "SphericalKMeans",
+                                        "DispatchLatencyHint",
+                                        "NumericalDivergenceError",
+                                        "ShardedDataset", "SweepResult",
+                                        "make_mesh", "__version__"]
+    for name in kmeans_tpu_torch.__all__:
+        assert hasattr(kmeans_tpu_torch, name), name
+    assert kmeans_tpu_torch.make_mesh.__module__ == \
+        "kmeans_tpu_torch.parallel.mesh"
+    assert kmeans_tpu_torch.ShardedDataset.__module__ == \
+        "kmeans_tpu_torch.parallel.sharding"
+    assert kmeans_tpu_torch.SweepResult.__module__ == "kmeans_tpu_torch.sweep"
+    assert issubclass(kmeans_tpu_torch.NumericalDivergenceError, ValueError)
+    assert issubclass(kmeans_tpu_torch.DispatchLatencyHint, UserWarning)
+    assert "ProductQuantizer" not in kmeans_tpu_torch.__all__
     assert isinstance(kmeans_tpu_torch.__version__, str)
     assert kmeans_tpu_torch.KMeans.__module__ == \
         "kmeans_tpu_torch.models.kmeans"
@@ -233,3 +247,16 @@ def test_a_loaded_library_is_found_without_hashing_the_sources(monkeypatch):
     monkeypatch.setattr(_build, "_sources_hash", no_hash)
     assert _build.load("assign_kernels") is fake
     assert _build.load_variant("assign_bf16", {"KM_TILE_K": 64}) is fake
+
+
+@pytest.mark.parametrize("cls", ["KMeans", "MiniBatchKMeans",
+                                 "BisectingKMeans", "SphericalKMeans"])
+def test_fitted_state_and_quality_profile_name_their_items(cls):
+    """ROADMAP C.14: every K-Means family has the JAX package's
+    ``fitted_state`` (A.12) and ``quality_profile`` (A.13), each raising
+    naming its item until that item is ported."""
+    km = getattr(kmeans_tpu_torch, cls)(k=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="A.12"):
+        km.fitted_state()
+    with pytest.raises(NotImplementedError, match="A.13"):
+        km.quality_profile()
