@@ -61,6 +61,17 @@ fits, bit for bit (``gmm_multi_fit``); ``GaussianMixture.sweep`` over k =
 ``diag_estep`` with inert components (``estep_inert``).  The mesh phases
 add the device EM loop on one NCCL rank and 'full' on the data axis of the
 two gloo ranks.
+Fault tolerance: the main data fitted plain, with ``checkpoint_every=2``
+and killed after iteration 4 then resumed from its file by a fresh model,
+by both loops through kernel 1 and by the device loop through 1b, bit for
+bit, with the launches and captures counted (``fault_tolerance``,
+``fault_tolerance_bf16``); a resume from a torn file (``resume_torn``); an
+injected out-of-memory error on a segment (``oom_injected``) and a real
+one, 'matmul' at k = 16,384 with the whole data as one chunk
+(``oom_real``); the rollback to the last checkpoint on divergence and the
+stale-checkpoint rule, both loops (``divergence_rollback``); each family
+killed and resumed at the size of its own phase (``fault_families``); and
+a checkpointed device-loop fit on one NCCL rank (``dp_world1``).
 
 Every phase prints one JSON line as it ends.  A phase that fails raises, so
 the run ends with a non-zero code and without the result line.  The last line
@@ -80,6 +91,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -98,6 +110,8 @@ from kmeans_tpu_torch.data.synthetic import make_blobs_device  # noqa: E402
 from kmeans_tpu_torch.experiments import exp_kernel_edits as kernel_edits  # noqa: E402,E501
 from kmeans_tpu_torch.experiments import exp_pallas_kernel as lab  # noqa: E402
 from kmeans_tpu_torch.models import init as seeding  # noqa: E402
+from kmeans_tpu_torch.models.fault_tolerance import (  # noqa: E402
+    NumericalDivergenceError)
 from kmeans_tpu_torch.models.kmeans import _FORMAT_MODES  # noqa: E402
 from kmeans_tpu_torch.ops import _build  # noqa: E402
 from kmeans_tpu_torch.ops import compare as cmp  # noqa: E402
@@ -105,9 +119,12 @@ from kmeans_tpu_torch.ops import estep_kernels as ek  # noqa: E402
 from kmeans_tpu_torch.ops import hopper_kernels as hk  # noqa: E402
 from kmeans_tpu_torch.parallel import distributed as dist  # noqa: E402
 from kmeans_tpu_torch.parallel import gmm_step  # noqa: E402
+from kmeans_tpu_torch.parallel import sharding  # noqa: E402
 from kmeans_tpu_torch.parallel.gmm_step import make_gmm_step_fn  # noqa: E402,E501
 from kmeans_tpu_torch.parallel.sharding import (EM_MAX_CHUNK,  # noqa: E402
                                                 weighted_mean)
+from kmeans_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
+from kmeans_tpu_torch.utils import faults  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 
@@ -730,6 +747,18 @@ PATH_KERNELS = {
     "minibatch_host": ("fused_assign_reduce", "hopper_assign"),
     "minibatch_bf16_device": ("fused_assign_reduce_bf16",
                               "hopper_assign_bf16"),
+    "fault_host": ("fused_assign_reduce",),
+    "fault_device": ("fused_assign_reduce",),
+    "fault_bf16_device": ("fused_assign_reduce_bf16",),
+    "resume_torn": ("fused_assign_reduce",),
+    "oom_injected": ("fused_assign_reduce",),
+    "divergence_host": ("fused_assign_reduce",),
+    "divergence_device": ("fused_assign_reduce",),
+    "fault_spherical": ("fused_assign_reduce",),
+    "fault_bisecting": ("fused_assign_reduce", "hopper_assign"),
+    "fault_minibatch": ("fused_assign_reduce",),
+    "fault_gmm_diag": ("diag_estep", "fused_assign_reduce"),
+    "fault_gmm_full": ("fused_assign_reduce",),
 }
 
 
@@ -2143,7 +2172,7 @@ def phase_bisecting(x):
          seconds_per_split={p: statistics.median(f[0].iter_times_)
                             for p, f in fits.items()},
          fit_seconds={p: f[1] for p, f in fits.items()})
-    return counts
+    return counts, ref
 
 
 def phase_minibatch(x):
@@ -2266,6 +2295,489 @@ def phase_minibatch(x):
              full.iter_times_),
          fit_seconds={p: f[1] for p, f in fits.items()})
     return counts, replay
+
+
+# ------------------------------------------------------------ fault tolerance
+
+#: The checkpointed K-Means fits: max_iter, checkpoint_every, the boundary
+#: the kill is armed at.
+FAULT = dict(iters=6, every=2, kill=4)
+#: The real out-of-memory fit: 'matmul' at k = 16,384 with the whole main
+#: data as one chunk, whose (chunk, k) float32 distance tile is 137 GB.
+OOM = dict(k=16_384, iters=2)
+#: Bytes the real out-of-memory fit may leave allocated (its loop's state:
+#: the centroid table, 8 MB, and small tensors).
+OOM_LEFT_BYTES = 256 << 20
+FAULT_SPHERE = dict(iters=4, every=2, kill=2)
+FAULT_BISECT = dict(every=4, kill=8)
+FAULT_MB = dict(iters=20, every=5, kill=10)
+FAULT_GMM = dict(iters=6, every=2, kill=4)
+FAULT_FULL = dict(iters=4, every=2, kill=2)
+CKPT_WRITES = 5
+
+
+def same_fit(a, b) -> bool:
+    """Centroids, SSE history and iteration count bit for bit."""
+    return (a.iterations_run == b.iterations_run
+            and np.array_equal(a.centroids, b.centroids)
+            and list(a.sse_history) == list(b.sse_history))
+
+
+def same_mixture(a, b) -> bool:
+    return (a.n_iter_ == b.n_iter_ and a.lower_bound_ == b.lower_bound_
+            and all(np.array_equal(getattr(a, f), getattr(b, f))
+                    for f in ("means_", "covariances_", "weights_")))
+
+
+def counted(fn):
+    """``fn()`` with the counters at 0 just before it: ``(result, seconds,
+    launches)``."""
+    hk.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(hk.LAUNCHES)
+
+
+def killed(fit, j, label):
+    """``fit()`` with a kill armed at checkpoint boundary ``j``, the
+    counters at 0 just before it: it must fire there.  Returns the
+    launches."""
+    hk.reset_launch_counts()
+    with faults.inject_kill_after_iteration(j) as rec:
+        try:
+            fit()
+        except faults.SimulatedPreemption:
+            pass
+    torch.cuda.synchronize()
+    check(rec["fired_at"] == j,
+          f"{label}: the kill armed at {j} fired at {rec['fired_at']}")
+    return dict(hk.LAUNCHES)
+
+
+def iteration_of(path, prev=False) -> int:
+    """The completed iteration a checkpoint (or its ``.prev``) holds."""
+    state = (ckpt._load_state_at(ckpt.prev_path(path)) if prev
+             else ckpt.load_state(path))
+    return int(state.get("iterations_run", state.get("n_iter_", 0)))
+
+
+def captures() -> int:
+    return sum(dist.CAPTURES.values())
+
+
+def phase_fault_tolerance(x, tmp, bf16=False):
+    """Checkpointed fits of the main data (Forgy seed 42, FAULT["iters"]
+    iterations, tolerance 1e-30) on one cached dataset, 'auto' (kernel 1)
+    by the host loop and the device loop (paths ``fault_host``,
+    ``fault_device``), or 'pallas_bf16' (kernel 1b) by the device loop
+    (``fault_bf16_device``): (a) a plain fit, (b) ``checkpoint_every=2``,
+    (c) killed after iteration 4 and resumed from the file by a fresh
+    model.  (b) and (c) equal (a) bit for bit, (b) wrote 3 checkpoints,
+    the file holds iteration 4 and its ``.prev`` 2, kernel 1 (1b) launched
+    6 times in (b) and 4 + 2 in (c), and the device loop's iteration was
+    captured once on the dataset for all of them.  Prints the ms of one
+    checkpoint write, the seconds per iteration of (b) beside (a) and the
+    seconds from ``fit(resume=path)`` to its first iteration.  The float32
+    device loop then runs phases ``resume_torn`` and ``oom_injected``."""
+    suffix = "_bf16" if bf16 else ""
+    k1 = "fused_assign_reduce" + suffix
+    mode = "pallas_bf16" if bf16 else "auto"
+    kw = dict(k=MAIN["k"], max_iter=FAULT["iters"], seed=42,
+              tolerance=1e-30, compute_sse=True, init="forgy",
+              verbose=False, compute_labels=False, distance_mode=mode)
+    ck = dict(checkpoint_every=FAULT["every"])
+    ds = KMeans(**kw).cache(x)
+    counts, out = {}, {}
+    for loop in (("device",) if bf16 else ("host", "device")):
+        path = f"fault{suffix}_{loop}"
+        lkw = dict(kw, host_loop=loop == "host")
+        caps = captures()
+        KMeans(**lkw).fit(ds)                  # the capture (device loop)
+        a, a_s, a_l = counted(lambda: KMeans(**lkw).fit(ds))
+        p_b, p_c = tmp / f"{path}_b.npz", tmp / f"{path}_c.npz"
+        b, b_s, b_l = counted(lambda: KMeans(**lkw).fit(
+            ds, checkpoint_path=p_b, **ck))
+        kill_l = killed(lambda: KMeans(**lkw).fit(
+            ds, checkpoint_path=p_c, **ck), FAULT["kill"], path)
+        c = KMeans(**lkw)
+        c, c_s, c_l = counted(lambda: c.fit(ds, resume=p_c))
+        counts[path] = {n: a_l.get(n, 0) + b_l.get(n, 0) + kill_l.get(n, 0)
+                        + c_l.get(n, 0) for n in set(a_l) | set(b_l)}
+        hk.reset_launch_counts()
+        hk.LAUNCHES.update(counts[path])
+        check_path_launches(path)
+        new_caps = captures() - caps
+        check(same_fit(b, a) and same_fit(c, a),
+              f"{path}: segmented {same_fit(b, a)}, resumed "
+              f"{same_fit(c, a)} against the plain fit")
+        check(b.checkpoint_segments_ == 3 and b.iterations_run == 6,
+              f"{path}: {b.checkpoint_segments_} checkpoints")
+        check((iteration_of(p_c), iteration_of(p_c, prev=True)) == (4, 2),
+              f"{path}: the file holds {iteration_of(p_c)}, .prev "
+              f"{iteration_of(p_c, prev=True)}")
+        check(b_l[k1] == 6 and kill_l[k1] == 4 and c_l[k1] == 2,
+              f"{path}: kernel launches {b_l[k1]} segmented, "
+              f"{kill_l[k1]} + {c_l[k1]} killed and resumed")
+        check(loop == "host" or new_caps == 1,
+              f"{path}: {new_caps} captures on one dataset")
+        state = b._state_dict()
+        write_ms = []
+        for _ in range(CKPT_WRITES):
+            t0 = time.perf_counter()
+            ckpt.save_state_primary(tmp / "w.npz", state, None, rotate=True)
+            write_ms.append((time.perf_counter() - t0) * 1e3)
+        out[loop] = dict(
+            bit_equal=True, checkpoints=b.checkpoint_segments_,
+            kernel1_launches={"plain": a_l[k1], "segmented": b_l[k1],
+                              "killed": kill_l[k1], "resumed": c_l[k1]},
+            captures=new_caps,
+            checkpoint_write_ms=statistics.median(write_ms),
+            checkpoint_bytes=p_b.stat().st_size,
+            plain_fit_seconds=a_s, segmented_fit_seconds=b_s,
+            # The loop's own wall (iter_times_: set-up and init left out;
+            # the device loop's boundaries are inside it).
+            plain_seconds_per_iteration=statistics.mean(a.iter_times_),
+            segmented_seconds_per_iteration=statistics.mean(b.iter_times_),
+            seconds_per_boundary=(b_s - a_s) / b.checkpoint_segments_,
+            resume_to_first_iteration_s=c_s - sum(c.iter_times_),
+            resume_fit_seconds=c_s)
+        if loop == "device" and not bf16:
+            counts.update(phase_resume_torn(ds, lkw, a, p_c))
+            counts.update(phase_oom_injected(ds, lkw, a, tmp))
+    emit("fault_tolerance" + suffix, n=ds.n, d=ds.d, k=MAIN["k"],
+         iterations=FAULT["iters"], every=FAULT["every"],
+         kill=FAULT["kill"], distance_mode=mode, **out)
+    return counts
+
+
+def phase_resume_torn(ds, kw, plain, path):
+    """The killed fit's file truncated: the resume warns, starts from
+    ``.prev`` (iteration 2) and ends bit-equal to the plain fit, kernel 1
+    launched 4 times (path ``resume_torn``)."""
+    blob = path.read_bytes()
+    path.write_bytes(blob[: len(blob) // 3])
+    m = KMeans(**kw)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        m, seconds, launches = counted(lambda: m.fit(ds, resume=path))
+    warned = any("last-good rotation" in str(w.message) for w in caught)
+    check(warned and same_fit(m, plain)
+          and launches["fused_assign_reduce"] == 4,
+          f"resume_torn: warned {warned}, bit-equal {same_fit(m, plain)}, "
+          f"kernel 1 {launches['fused_assign_reduce']}")
+    hk.reset_launch_counts()
+    hk.LAUNCHES.update(launches)
+    emit("resume_torn", bit_equal=True, warned=True, resumed_from=2,
+         kernel1_launches=launches["fused_assign_reduce"],
+         fit_seconds=seconds)
+    return {"resume_torn": check_path_launches("resume_torn")}
+
+
+def phase_oom_injected(ds, kw, plain, tmp):
+    """``inject_oom_on_segment(1)`` on the segmented device loop: one
+    backoff, ``effective_chunk_`` halved, the segment replayed from its
+    boundary in the same mode (kernel 1, which takes no chunk: the graph
+    captured for the dataset is replayed, no new capture), the result
+    bit-equal (path ``oom_injected``)."""
+    m = KMeans(**kw)
+    caps = captures()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        with faults.inject_oom_on_segment(1) as rec:
+            m, seconds, launches = counted(lambda: m.fit(
+                ds, checkpoint_every=FAULT["every"],
+                checkpoint_path=tmp / "oom_injected.npz"))
+    chunk = m._chunk_for(ds)
+    check(rec["fired"] == 1 and m.oom_backoffs_ == 1
+          and m.effective_chunk_ == sharding.backoff_chunk(chunk)
+          and m._mode() == "kernel" and same_fit(m, plain)
+          and launches["fused_assign_reduce"] == 6
+          and captures() == caps,
+          f"oom_injected: backoffs {m.oom_backoffs_}, chunk {chunk} -> "
+          f"{m.effective_chunk_}, bit-equal {same_fit(m, plain)}, "
+          f"launches {launches}, {captures() - caps} new captures")
+    hk.reset_launch_counts()
+    hk.LAUNCHES.update(launches)
+    emit("oom_injected", backoffs=m.oom_backoffs_, chunk=chunk,
+         effective_chunk=m.effective_chunk_, bit_equal=True,
+         new_captures=0, fit_seconds=seconds)
+    return {"oom_injected": check_path_launches("oom_injected")}
+
+
+def phase_oom_real(x):
+    """A real ``torch.cuda.OutOfMemoryError``, no injection armed: the
+    main data in 'matmul' by the device loop at k = OOM["k"] with
+    ``chunk_size`` the whole of n, whose (n, k) float32 distance tile
+    alone is 137 GB.  The first eager iteration (or the capture) runs out
+    of memory, the loop leaves the dataset's memo, its memory returns to
+    the card, and the fit replays at the next chunk until one fits:
+    ``oom_backoffs_ >= 1``, the result bit-equal to a clean fit started at
+    the final ``effective_chunk_``, and ``torch.cuda.memory_allocated()``
+    back within OOM_LEFT_BYTES of its value before the fit.  The model's
+    explicit chunk is not clamped first (``_chunk_for``)."""
+    n = x.shape[0]
+    kw = dict(k=OOM["k"], max_iter=OOM["iters"], seed=42, tolerance=1e-30,
+              compute_sse=True, init="forgy", verbose=False,
+              compute_labels=False, distance_mode="matmul",
+              host_loop=False, chunk_size=n)
+    m = KMeans(**kw)
+    ds = m.cache(x)
+    check(m._chunk_for(ds) == n, f"oom_real: the chunk was clamped to "
+                                 f"{m._chunk_for(ds)}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    free0, total = torch.cuda.mem_get_info()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        m, seconds, launches = counted(lambda: m.fit(ds))
+    after = torch.cuda.memory_allocated()
+    peak_reserved = torch.cuda.max_memory_reserved()
+    clean = KMeans(**dict(kw, chunk_size=m.effective_chunk_))
+    clean, clean_s, _ = counted(lambda: clean.fit(ds))
+    chunks = [n]
+    while chunks[-1] != m.effective_chunk_ and len(chunks) < 20:
+        chunks.append(sharding.backoff_chunk(chunks[-1]))
+    check(m.oom_backoffs_ >= 1 and m._mode() == "matmul"
+          and same_fit(m, clean)
+          and after - before <= OOM_LEFT_BYTES
+          and not any(key[0] == "device_loop" and key[2] != m.effective_chunk_
+                      for key in ds._memo),
+          f"oom_real: backoffs {m.oom_backoffs_}, bit-equal "
+          f"{same_fit(m, clean)}, allocated {after - before} bytes more, "
+          f"memo {[k for k in ds._memo if k[0] == 'device_loop']}")
+    emit("oom_real", n=n, d=x.shape[1], k=OOM["k"], iterations=OOM["iters"],
+         backoffs=m.oom_backoffs_, chunks=chunks,
+         effective_chunk=m.effective_chunk_,
+         tile_gb={c: c * OOM["k"] * 4 / 1e9 for c in chunks},
+         warnings=len(caught), fit_seconds=seconds,
+         clean_fit_seconds=clean_s, seconds_lost_to_backoffs=seconds
+         - clean_s, clean_seconds_per_iteration=statistics.mean(
+             clean.iter_times_), allocated_before=before,
+         allocated_after=after,
+         peak_reserved_bytes=peak_reserved, card_free_bytes=free0,
+         card_total_bytes=total, bit_equal=True)
+    del m, clean, ds
+    torch.cuda.empty_cache()
+    return {"oom_real": dict(launches)}
+
+
+def phase_divergence_rollback(x, x_other, tmp):
+    """The rollback on divergence, by the host loop and the device loop,
+    kernel 1 (the elastic tests' recipe at the main shape): a fit of
+    FAULT["iters"] iterations writes its checkpoints, then a fresh model
+    resumes from that file onto the main data with row 100 poisoned
+    (NaN): iteration 7 goes non-finite, ``NumericalDivergenceError``
+    names it, ``rolled_back_to`` is 6 and the model holds the file's
+    state.  Then a fit of other data (a NaN row) with the same path
+    diverges before its first write: no rollback, the stale file of the
+    first fit is neither restored nor overwritten."""
+    bad = x.clone()
+    bad[100] = float("nan")
+    other = x_other.clone()
+    other[5] = float("nan")
+    counts, out = {}, {}
+    for loop in ("host", "device"):
+        path = tmp / f"diverge_{loop}.npz"
+        kw = dict(k=MAIN["k"], max_iter=FAULT["iters"], seed=42,
+                  tolerance=1e-30, init="forgy", verbose=False,
+                  compute_labels=False, host_loop=loop == "host")
+        hk.reset_launch_counts()
+        KMeans(**kw).fit(x, checkpoint_every=FAULT["every"],
+                         checkpoint_path=path)
+        good = ckpt.load_state(path)
+        m = KMeans(**dict(kw, max_iter=40))
+        err = None
+        try:
+            m.fit(bad, resume=path, checkpoint_every=FAULT["every"],
+                  checkpoint_path=path)
+        except NumericalDivergenceError as e:
+            err = e
+        check(err is not None and err.iteration == 7
+              and err.rolled_back_to == 6 == good["iterations_run"]
+              and np.array_equal(m.centroids, good["centroids"])
+              and m.iterations_run == 6,
+              f"divergence_{loop}: {err!r}")
+        stale = KMeans(**kw)
+        serr = None
+        try:
+            stale.fit(other, checkpoint_every=FAULT["every"],
+                      checkpoint_path=path)
+        except NumericalDivergenceError as e:
+            serr = e
+        kept = ckpt.load_state(path)
+        check(serr is not None and serr.rolled_back_to is None
+              and (stale.centroids is None
+                   or not np.array_equal(stale.centroids, good["centroids"]))
+              and np.array_equal(kept["centroids"], good["centroids"]),
+              f"divergence_{loop}: the stale checkpoint was restored or "
+              f"overwritten: {serr!r}")
+        counts[f"divergence_{loop}"] = check_path_launches(
+            f"divergence_{loop}")
+        out[loop] = dict(iteration=err.iteration,
+                         rolled_back_to=err.rolled_back_to,
+                         stale_iteration=serr.iteration,
+                         stale_restored=False, message=str(err))
+    emit("divergence_rollback", n=x.shape[0], d=x.shape[1], k=MAIN["k"],
+         **out)
+    return counts
+
+
+def phase_fault_families(x, x_glove, x_gmm, tmp, refs):
+    """Each family killed at a boundary and resumed from its file by a
+    fresh model, bit-equal to its uninterrupted fit, at the sizes of its
+    own phase: ``SphericalKMeans`` on the GloVe-like data by the device
+    loop; ``BisectingKMeans`` (k = 16, the host loop) checkpointed every 4
+    splits, killed after 8 (the tree and, over the two fits, kernel 1 =
+    sum(``split_iterations_``) + splits, kernel 2 = splits);
+    ``MiniBatchKMeans``' captured loop, 20 iterations, every 5, killed at
+    10; ``GaussianMixture`` 'diag' on the mixture data by the device EM
+    loop, every 2 of 6 (segmented: ``diag_estep`` 1 + 6; killed at 4 and
+    resumed for the 2 iterations left, ``resume`` running ``max_iter``
+    more); 'full' at 1,048,576 x 64, k = 32, by the host loop, 4
+    iterations, killed at 2."""
+    counts, out = {}, {}
+
+    def family(path, plain, make, fit_ckpt, resume, same, extra=None):
+        """(a) ``plain`` given; killed at its boundary, then resumed."""
+        kill_l = killed(lambda: fit_ckpt(make()), FAULT_KILLS[path], path)
+        m, seconds, res_l = counted(lambda: resume())
+        ok = same(m, plain)
+        total = {n: kill_l.get(n, 0) + res_l.get(n, 0)
+                 for n in set(kill_l) | set(res_l)}
+        hk.reset_launch_counts()
+        hk.LAUNCHES.update(total)
+        counts[path] = check_path_launches(path)
+        check(ok, f"{path}: the resumed fit differs from the plain one")
+        out[path] = dict(bit_equal=ok, resume_seconds=seconds,
+                         launches={n: c for n, c in total.items() if c},
+                         **(extra or {}))
+        return m, kill_l, res_l
+
+    # SphericalKMeans, device loop, GloVe-like.
+    skw = dict(k=SECOND["k"], max_iter=FAULT_SPHERE["iters"],
+               tolerance=1e-30, seed=42, compute_sse=True, init="forgy",
+               verbose=False, compute_labels=False, host_loop=False,
+               distance_mode="pallas")
+    sds = SphericalKMeans(**skw).cache(x_glove)
+    plain = SphericalKMeans(**skw).fit(sds)
+    p = tmp / "spherical.npz"
+    m, _, _ = family(
+        "fault_spherical", plain, lambda: SphericalKMeans(**skw),
+        lambda mm: mm.fit(sds, checkpoint_every=FAULT_SPHERE["every"],
+                          checkpoint_path=p),
+        lambda: SphericalKMeans(**skw).fit(sds, resume=p), same_fit)
+    norms = np.linalg.norm(m.centroids.astype(np.float64), axis=1)
+    check(np.all(np.abs(norms - 1.0) <= 1e-6), "fault_spherical: norms")
+
+    # BisectingKMeans, host loop, main data.
+    bkw = dict(k=BISECT["k"], max_iter=BISECT["iters"], seed=42,
+               compute_sse=True, init="forgy", verbose=False,
+               host_loop=True, distance_mode="pallas")
+    bds = BisectingKMeans(**bkw).cache(x)
+    plain = refs["bisecting"]
+    p = tmp / "bisecting.npz"
+    killed_model = {}
+
+    def bisect_ckpt(mm):
+        killed_model["m"] = mm
+        mm.fit(bds, checkpoint_every=FAULT_BISECT["every"],
+               checkpoint_path=p)
+
+    def same_tree(a, b):
+        return (np.array_equal(a.centroids, b.centroids)
+                and np.array_equal(a.labels_, b.labels_)
+                and np.array_equal(a.cluster_sse_, b.cluster_sse_)
+                and a.iterations_run == b.iterations_run)
+
+    m, kill_l, res_l = family(
+        "fault_bisecting", plain, lambda: BisectingKMeans(**bkw),
+        bisect_ckpt, lambda: BisectingKMeans(**bkw).fit(bds, resume=p),
+        same_tree)
+    splits = BISECT["k"] - 1
+    inner = (sum(killed_model["m"].split_iterations_)
+             + sum(m.split_iterations_))
+    k1 = kill_l["fused_assign_reduce"] + res_l["fused_assign_reduce"]
+    k2 = kill_l["hopper_assign"] + res_l["hopper_assign"]
+    check(k1 == inner + splits and k2 == splits
+          and len(m.split_iterations_) == splits - FAULT_BISECT["kill"],
+          f"fault_bisecting: kernel 1 {k1} for {inner} inner iterations, "
+          f"kernel 2 {k2} for {splits} splits")
+    out["fault_bisecting"]["tree_bytes"] = p.stat().st_size
+
+    # MiniBatchKMeans, captured loop, main data.
+    mkw = dict(k=MINIBATCH["k"], batch_size=MINIBATCH["batch"], seed=42,
+               compute_sse=True, init="forgy", verbose=False,
+               tolerance=1e-30, max_iter=FAULT_MB["iters"],
+               reassignment_ratio=MINIBATCH["ratio"], host_loop=False,
+               distance_mode="pallas", compute_labels=False)
+    mds = MiniBatchKMeans(**mkw).cache(x)
+    plain = MiniBatchKMeans(**mkw).fit(mds)
+    seg = MiniBatchKMeans(**mkw).fit(mds, checkpoint_every=FAULT_MB["every"],
+                                     checkpoint_path=tmp / "mb_seg.npz")
+    check(same_fit(seg, plain) and np.array_equal(seg._seen, plain._seen)
+          and seg.checkpoint_segments_ == 4,
+          "fault_minibatch: the segmented loop differs")
+    p = tmp / "minibatch.npz"
+    family("fault_minibatch", plain, lambda: MiniBatchKMeans(**mkw),
+           lambda mm: mm.fit(mds, checkpoint_every=FAULT_MB["every"],
+                             checkpoint_path=p),
+           lambda: MiniBatchKMeans(**mkw).fit(mds, resume=p),
+           lambda a, b: same_fit(a, b) and np.array_equal(a._seen, b._seen))
+
+    # GaussianMixture 'diag', device EM loop, mixture data.
+    gkw = dict(n_components=GMM["k"], init_params="kmeans",
+               max_iter=FAULT_GMM["iters"], tol=0.0, seed=7,
+               host_loop=False)
+    gds = GaussianMixture(**gkw)._dataset(x_gmm)
+    plain = GaussianMixture(**gkw).fit(gds)
+    seg, seg_s, seg_l = counted(lambda: GaussianMixture(**gkw).fit(
+        gds, checkpoint_every=FAULT_GMM["every"],
+        checkpoint_path=tmp / "gmm_seg.npz"))
+    check(same_mixture(seg, plain) and seg.checkpoint_segments_ == 3
+          and seg_l["diag_estep"] == 1 + FAULT_GMM["iters"],
+          f"fault_gmm_diag: segmented bit-equal {same_mixture(seg, plain)}, "
+          f"diag_estep {seg_l['diag_estep']}")
+    p = tmp / "gmm.npz"
+    left = FAULT_GMM["iters"] - FAULT_GMM["kill"]
+    family("fault_gmm_diag", plain, lambda: GaussianMixture(**gkw),
+           lambda mm: mm.fit(gds, checkpoint_every=FAULT_GMM["every"],
+                             checkpoint_path=p),
+           lambda: GaussianMixture(**dict(gkw, max_iter=left)).fit(
+               gds, resume=p), same_mixture,
+           extra=dict(segmented_diag_estep=seg_l["diag_estep"],
+                      segmented_seconds=seg_s))
+    dev = sorted(k for k in ckpt.load_state(p) if k.startswith("dev_"))
+    check(len(dev) == 5, f"fault_gmm_diag: the checkpoint holds {dev}")
+    out["fault_gmm_diag"]["dev_tables"] = dev
+
+    # GaussianMixture 'full', host loop.
+    xf = full_data()
+    fkw = dict(n_components=FULL["k"], covariance_type="full",
+               init_params="kmeans", max_iter=FAULT_FULL["iters"], tol=0.0,
+               seed=7, host_loop=True)
+    fds = GaussianMixture(**fkw)._dataset(xf)
+    plain = GaussianMixture(**fkw).fit(fds)
+    p = tmp / "gmm_full.npz"
+    left = FAULT_FULL["iters"] - FAULT_FULL["kill"]
+    family("fault_gmm_full", plain, lambda: GaussianMixture(**fkw),
+           lambda mm: mm.fit(fds, checkpoint_every=FAULT_FULL["every"],
+                             checkpoint_path=p),
+           lambda: GaussianMixture(**dict(fkw, max_iter=left)).fit(
+               fds, resume=p), same_mixture)
+    del xf, fds
+    emit("fault_families", **out)
+    return counts
+
+
+#: The boundary each family's kill is armed at.
+FAULT_KILLS = {"fault_spherical": FAULT_SPHERE["kill"],
+               "fault_bisecting": FAULT_BISECT["kill"],
+               "fault_minibatch": FAULT_MB["kill"],
+               "fault_gmm_diag": FAULT_GMM["kill"],
+               "fault_gmm_full": FAULT_FULL["kill"]}
 
 
 # -------------------------------------------------------------------- timing
@@ -3049,6 +3561,8 @@ def phase_dp_world1(x, refs, minibatch_ref, x_gmm, gmm_ref):
                          ref.iter_times_), launches=counts[path])
                 check(all(same.values()), f"{path}: not bit-identical to "
                                           f"the one-device fit: {same}")
+            counts["dp_world1:checkpoint:device"] = _dp_world1_checkpoint(
+                x, mesh, refs[("f32", "device")], Path(tmp))
             counts["dp_world1:minibatch:device"] = _dp_world1_minibatch(
                 x, mesh, minibatch_ref)
             counts["dp_world1:gmm:device"] = _dp_world1_gmm(x_gmm, mesh,
@@ -3056,6 +3570,38 @@ def phase_dp_world1(x, refs, minibatch_ref, x_gmm, gmm_ref):
         finally:
             torch.distributed.destroy_process_group()
     return counts
+
+
+def _dp_world1_checkpoint(x, mesh, ref, tmp):
+    """A checkpointed device-loop fit (every 2 of MAIN["iters"]
+    iterations) on the one-rank NCCL mesh against the one-device device
+    loop ``ref``, bit for bit; one writer, the file complete when ``fit``
+    returns (iteration 5, its ``.prev`` 4); kernel 1 once per
+    iteration."""
+    path = tmp / "world1.npz"
+    km = KMeans(k=MAIN["k"], max_iter=MAIN["iters"], seed=42,
+                compute_sse=True, init="forgy", verbose=False,
+                distance_mode="auto", mesh=mesh, host_loop=False)
+    ds = km.cache(x)
+    km, seconds, launches = counted(lambda: km.fit(
+        ds, checkpoint_every=2, checkpoint_path=path))
+    n = km.iterations_run
+    same = {"centroids": bool(np.array_equal(km.centroids, ref.centroids)),
+            "sse_history": km.sse_history == ref.sse_history,
+            "iterations": n == ref.iterations_run,
+            "labels": bool(np.array_equal(km.labels_, ref.labels_))}
+    files = (iteration_of(path), iteration_of(path, prev=True))
+    launches = {k: v for k, v in launches.items() if v}
+    emit("dp_world1", model="KMeans", loop="device", checkpoint_every=2,
+         bit_identical=same, iterations=n,
+         checkpoints=km.checkpoint_segments_, files=files,
+         fit_seconds=seconds, launches=launches)
+    check(all(same.values()) and km.checkpoint_segments_ == 3
+          and files == (n, n - 1)
+          and launches.get("fused_assign_reduce", 0) == n,
+          f"dp_world1 checkpoint: bit-identical {same}, files {files}, "
+          f"launches {launches}")
+    return launches
 
 
 def _dp_world1_minibatch(x, mesh, ref):
@@ -3234,7 +3780,6 @@ def main() -> None:
     check_path_launches("glove_like")
     phase_device_converge(x2)
     family_counts = phase_spherical(x2)
-    del x2
     phase_empty_policies()
 
     # The mixture: its kernel against the plain version, then its path.
@@ -3249,7 +3794,8 @@ def main() -> None:
     seeding_records, drawn = phase_seeding(x_main, x_gmm)
     slice_counts.update(phase_kmeans_parallel(x_main, km, seeding_records))
     slice_counts.update(phase_sweep(x_main))
-    family_counts.update(phase_bisecting(x_main))
+    bisect_counts, bisect_ref = phase_bisecting(x_main)
+    family_counts.update(bisect_counts)
     minibatch_counts, minibatch_ref = phase_minibatch(x_main)
     family_counts.update(minibatch_counts)
     phase_gmm_offset()
@@ -3259,6 +3805,19 @@ def main() -> None:
     mixture_counts["gmm_multi_fit"] = phase_gmm_multi_fit(x_gmm)
     mixture_counts["gmm_sweep"] = phase_gmm_sweep(x_gmm)
     phase_estep_inert(x_gmm, gmm_tables)
+
+    # Fault tolerance: checkpointed, killed and resumed fits through the
+    # same kernels, out-of-memory backoffs (injected and real) and the
+    # rollback on divergence.
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        fault_counts = phase_fault_tolerance(x_main, tmp)
+        fault_counts.update(phase_fault_tolerance(x_main, tmp, bf16=True))
+        fault_counts.update(phase_divergence_rollback(x_main, x_gmm, tmp))
+        fault_counts.update(phase_fault_families(
+            x_main, x2, x_gmm, tmp, {"bisecting": bisect_ref}))
+    del x2
+    fault_counts.update(phase_oom_real(x_main))
 
     rows = phase_timing(x_main, c_main, errs, launches,
                         {"main": statistics.median(km.iter_times_),
@@ -3302,6 +3861,9 @@ def main() -> None:
             if c.get(row["name"], 0) > 0}
         row["mixture_launches"] = {
             path: c[row["name"]] for path, c in mixture_counts.items()
+            if c.get(row["name"], 0) > 0}
+        row["fault_tolerance_launches"] = {
+            path: c[row["name"]] for path, c in fault_counts.items()
             if c.get(row["name"], 0) > 0}
 
     emit("total", seconds=time.perf_counter() - started)

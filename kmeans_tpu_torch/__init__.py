@@ -11,9 +11,11 @@ Imports ``torch`` and ``numpy`` only.
 __version__ = "0.1.0"
 
 from kmeans_tpu_torch.models.bisecting import BisectingKMeans  # noqa: E402
+from kmeans_tpu_torch.models.fault_tolerance import (  # noqa: E402
+    NumericalDivergenceError)
 from kmeans_tpu_torch.models.gmm import GaussianMixture  # noqa: E402
 from kmeans_tpu_torch.models.kmeans import (  # noqa: E402
-    DispatchLatencyHint, KMeans, NumericalDivergenceError)
+    DispatchLatencyHint, KMeans)
 from kmeans_tpu_torch.models.minibatch import MiniBatchKMeans  # noqa: E402
 from kmeans_tpu_torch.models.spherical import SphericalKMeans  # noqa: E402
 from kmeans_tpu_torch.parallel.mesh import make_mesh  # noqa: E402

@@ -7,7 +7,9 @@ same class (``KMeans``, ``MiniBatchKMeans``, ``BisectingKMeans``,
 ``SphericalKMeans`` or ``GaussianMixture``) by its ``model_class``;
 ``to_jax_state`` goes the other way.  The same dictionaries are what the
 ``.npz`` checkpoints of both packages hold, so a model saved by either one
-loads in the other.
+loads in the other; so do the rotating checkpoints of a checkpointed fit,
+with what a resume reads from them (the mixture's device tables
+``dev_*``, the bisecting tree ``tree_*``, the mini-batch counts).
 """
 
 from __future__ import annotations

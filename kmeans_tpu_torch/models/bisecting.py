@@ -13,6 +13,13 @@ iteration in the kernel modes), the hierarchical membership of every row
 pass of kernel 1 at k = 2, its per-cluster SSE summed in a fixed order by
 ``parallel.distributed.cluster_sums``, so the same data gives the same tree
 on every run).  The tree itself is kept on the host.
+
+``checkpoint_every=N`` writes a rotating checkpoint every N splits that
+holds the split tree (the (n,) labels and the per-leaf tables, as the JAX
+package's do), and ``fit(X, resume=<path>)`` rebuilds the tree from it and
+goes on splitting: every later split is a function of the seed, the
+absolute split index and the tree, so the result is that of the
+uninterrupted fit.
 """
 
 from __future__ import annotations
@@ -23,9 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from kmeans_tpu_torch.models.kmeans import (KMeans,
-                                             NumericalDivergenceError,
-                                             _later)
+from kmeans_tpu_torch.models.kmeans import KMeans, _later
 from kmeans_tpu_torch.parallel import distributed as dist
 from kmeans_tpu_torch.parallel.mesh import is_primary
 from kmeans_tpu_torch.parallel.sharding import (ShardedDataset,
@@ -59,7 +64,9 @@ class BisectingKMeans(KMeans):
     on rows near a boundary); ``cluster_sse_`` and ``cluster_sizes_``, each
     leaf's SSE and weight; ``sse_history``, the total SSE after each split
     (with ``compute_sse``); ``iterations_run``, the splits made;
-    ``split_iterations_``, the iterations of each split's 2-means fit.
+    ``split_iterations_``, the iterations of each split's 2-means fit (of
+    the splits this call made: a resumed fit lists its own);
+    ``checkpoint_segments_``, the checkpoints written.
     """
 
     _PARAM_NAMES = KMeans._PARAM_NAMES + ("bisecting_strategy",)
@@ -77,6 +84,7 @@ class BisectingKMeans(KMeans):
         super().__init__(k=k, max_iter=max_iter, tolerance=tolerance,
                          seed=seed, compute_sse=compute_sse, **kwargs)
         self.cluster_sse_: Optional[np.ndarray] = None
+        self._tree_state: Optional[dict] = None
 
     def _inner_init(self):
         """The 2-means init: the model's strategy (an array or a callable
@@ -95,7 +103,16 @@ class BisectingKMeans(KMeans):
         return int(np.random.SeedSequence([self.seed, split]).generate_state(
             1)[0] % (2 ** 31))
 
-    def _fit(self, X, sample_weight) -> "BisectingKMeans":
+    def _fit(self, X, sample_weight, *, resume: bool = False,
+             checkpoint_every: int = 0,
+             checkpoint_path=None) -> "BisectingKMeans":
+        tree = self._tree_state
+        if resume and tree is None:
+            raise ValueError(
+                "BisectingKMeans resume needs a split-boundary "
+                "checkpoint: fit with checkpoint_every=N + "
+                "checkpoint_path, then fit(X, resume=<path>) — a plain "
+                "save() holds no mid-tree state")
         log = IterationLogger(self.verbose and
                               is_primary(self._resolve_mesh()))
         ds = self.cache(X, sample_weight)
@@ -119,17 +136,37 @@ class BisectingKMeans(KMeans):
                 f"Not enough data points ({int(pos.sum())}) to "
                 f"initialize {self.k} clusters")
         log.startup(self.k, self.max_iter, self.tolerance, self.compute_sse)
-        self.sse_history, self.iter_times_ = [], []
-        self.iterations_run = 0
+        self.checkpoint_segments_ = 0 if checkpoint_every else None
         self.split_iterations_ = []
-        labels = np.zeros(n, dtype=np.int32)
-        # Per-leaf state by leaf id: child 0 of a split keeps its parent's
-        # id, child 1 takes the next one, so the ids stay 0..leaves-1.
-        cents = {0: None}
-        sse = {0: np.inf}                # the root is split first
-        wsize = {0: float(base_w.sum())}
-        members = {0: int(pos.sum())}
-        for split in range(self.k - 1):
+        if resume:
+            # The tree at the checkpointed boundary.
+            if tree["labels"].shape != (n,):
+                raise ValueError(
+                    f"checkpointed split tree was built on "
+                    f"{tree['labels'].shape[0]} rows; resume got {n} — "
+                    f"pass the same dataset the fit started on")
+            start_split = int(tree["splits_done"])
+            labels = np.asarray(tree["labels"], np.int32).copy()
+            cents = {i: np.asarray(c, np.float64)
+                     for i, c in enumerate(tree["cents"])}
+            sse = {i: float(v) for i, v in enumerate(tree["sse"])}
+            wsize = {i: float(v) for i, v in enumerate(tree["wsize"])}
+            members = {i: int(v) for i, v in enumerate(tree["members"])}
+            self.iter_times_ = []
+        else:
+            start_split = 0
+            self.sse_history, self.iter_times_ = [], []
+            self.iterations_run = 0
+            self._tree_state = None         # no stale tree in checkpoints
+            labels = np.zeros(n, dtype=np.int32)
+            # Per-leaf state by leaf id: child 0 of a split keeps its
+            # parent's id, child 1 takes the next one, so the ids stay
+            # 0..leaves-1.
+            cents = {0: None}
+            sse = {0: np.inf}                # the root is split first
+            wsize = {0: float(base_w.sum())}
+            members = {0: int(pos.sum())}
+        for split in range(start_split, self.k - 1):
             t0 = time.perf_counter()
             splittable = [c for c in cents if members[c] >= 2
                           and (np.isinf(sse[c]) or sse[c] > 0)]
@@ -181,16 +218,43 @@ class BisectingKMeans(KMeans):
                       + (f", total SSE = {total:.4f}"
                          if self.compute_sse else ""))
             self.iterations_run = split + 1
+            if checkpoint_every and (split + 1) % checkpoint_every == 0:
+                self._snapshot_tree(split + 1, labels, cents, sse, wsize,
+                                    members)
+                self.checkpoint_segments_ += 1
+                self._write_autockpt(checkpoint_path, split + 1)
         if len(cents) == 1:
             self._fit_mean(ds, step_fn, cents, sse, wsize)
         self.centroids = np.stack([np.asarray(cents[i], dtype=self.dtype)
                                    for i in range(len(cents))])
         if not np.all(np.isfinite(self.centroids)):
-            raise NumericalDivergenceError(self.iterations_run)
+            self._raise_divergence("centroids", self.iterations_run)
         self._labels_cache = labels
         self.cluster_sse_ = np.array([sse[i] for i in range(len(cents))])
         self.cluster_sizes_ = np.array([wsize[i] for i in range(len(cents))])
+        if checkpoint_every and self.iterations_run % checkpoint_every:
+            # Off the cadence: the finished tree is on disk too.
+            self._snapshot_tree(self.iterations_run, labels, cents, sse,
+                                wsize, members)
+            self.checkpoint_segments_ += 1
+            self._write_autockpt(checkpoint_path, self.iterations_run)
         return self
+
+    def _snapshot_tree(self, splits_done: int, labels, cents, sse, wsize,
+                       members) -> None:
+        """The split tree at a boundary: what a resume rebuilds it from."""
+        leaves = len(cents)
+        self._tree_state = {
+            "splits_done": int(splits_done),
+            "labels": np.asarray(labels, np.int32).copy(),
+            "cents": np.stack([np.asarray(cents[i], np.float64)
+                               for i in range(leaves)]),
+            "sse": np.asarray([sse[i] for i in range(leaves)], np.float64),
+            "wsize": np.asarray([wsize[i] for i in range(leaves)],
+                                np.float64),
+            "members": np.asarray([members[i] for i in range(leaves)],
+                                  np.int64),
+        }
 
     def _fit_mean(self, ds, step_fn, cents, sse, wsize) -> None:
         """k = 1: the weighted mean from one pass at a zero centroid (its
@@ -216,9 +280,34 @@ class BisectingKMeans(KMeans):
     # ------------------------------------------------------------ checkpoint
 
     def _state_dict(self) -> dict:
+        """The base state, the strategy and, on the checkpoints of a
+        checkpointed fit, the split tree (``tree_*``, the JAX package's
+        names): the (n,) labels and the per-leaf tables."""
         state = super()._state_dict()
         state["bisecting_strategy"] = self.bisecting_strategy
+        tree = self._tree_state
+        if tree is not None:
+            state["tree_labels"] = tree["labels"]
+            state["tree_cents"] = tree["cents"]
+            state["tree_sse"] = tree["sse"]
+            state["tree_wsize"] = tree["wsize"]
+            state["tree_members"] = tree["members"]
+            state["tree_splits_done"] = int(tree["splits_done"])
         return state
+
+    def _restore_state(self, state: dict) -> None:
+        """The split tree of a checkpoint, or none (a stale tree of an
+        earlier fit must not survive a restore)."""
+        self._tree_state = None
+        if "tree_labels" in state:
+            self._tree_state = {
+                "splits_done": int(state["tree_splits_done"]),
+                "labels": np.asarray(state["tree_labels"], np.int32),
+                "cents": np.asarray(state["tree_cents"], np.float64),
+                "sse": np.asarray(state["tree_sse"], np.float64),
+                "wsize": np.asarray(state["tree_wsize"], np.float64),
+                "members": np.asarray(state["tree_members"], np.int64),
+            }
 
     @classmethod
     def _load_kwargs(cls, state: dict) -> dict:

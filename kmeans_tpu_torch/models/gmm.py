@@ -41,8 +41,15 @@ non-finite one; ``n_init`` restarts, the highest final ``lower_bound_``
 wins, a failed restart dropped and the survivors kept; ``sample`` with the
 same draws; ``sweep`` over the component count by BIC or AIC; the ``.npz``
 checkpoint in the same vocabulary, so that either package loads the other's
-files.  ``covariances_`` has sklearn's shape per type: (k, D) 'diag', (k,)
-'spherical', (D, D) 'tied', (k, D, D) 'full'.
+files; and the fault tolerance of ``models.fault_tolerance``
+(``checkpoint_every`` / ``checkpoint_path``, ``fit(resume=True | <path>)``,
+the out-of-memory chunk backoff of the device loop, the rollback on a
+non-finite log-likelihood).  The device loop's checkpoints carry its raw
+tables in the JAX package's ``dev_*`` entries (centered means, the loop's
+covariance layout, log-weights, the convergence baseline, in the
+accumulation dtype), so that a killed and resumed device fit gives the bits
+of the uninterrupted one.  ``covariances_`` has sklearn's shape per type:
+(k, D) 'diag', (k,) 'spherical', (D, D) 'tied', (k, D, D) 'full'.
 """
 
 from __future__ import annotations
@@ -55,10 +62,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from kmeans_tpu_torch.models.fault_tolerance import AutoCheckpointMixin
 from kmeans_tpu_torch.models.init import forgy_init
-from kmeans_tpu_torch.models.kmeans import (KMeans,
-                                             NumericalDivergenceError,
-                                             _later, resolve_device)
+from kmeans_tpu_torch.models.kmeans import KMeans, _later, resolve_device
 from kmeans_tpu_torch.parallel.gmm_step import (
     COV_TYPES, EStats, EStatsFull, make_gmm_fit_fn, make_gmm_multi_fit_fn,
     make_gmm_predict_fn, make_gmm_step_fn, make_gmm_step_full_fn,
@@ -116,7 +122,7 @@ def _is_allowed(value, allowed) -> bool:
                for a in allowed)
 
 
-class GaussianMixture:
+class GaussianMixture(AutoCheckpointMixin):
     """Gaussian mixture with 'diag', 'spherical', 'tied' or 'full'
     covariances, fitted by EM on one device or the data axis of a mesh.
 
@@ -147,8 +153,11 @@ class GaussianMixture:
     'device-multi'.  ``iter_times_`` holds the wall seconds of each EM
     iteration of the winning restart (the device loop: its mean per
     iteration).  ``cov_jitter_retries_`` counts the host loop's jitter
-    ladder rescues ('tied', 'full').
+    ladder rescues ('tied', 'full').  ``checkpoint_segments_``,
+    ``oom_backoffs_`` and ``effective_chunk_`` as in ``KMeans``.
     """
+
+    _ckpt_k_attr = "n_components"
 
     _PARAM_NAMES = ("n_components", "covariance_type", "tol", "reg_covar",
                     "max_iter", "n_init", "init_params", "weights_init",
@@ -241,7 +250,12 @@ class GaussianMixture:
         self.restart_lower_bounds_: Optional[np.ndarray] = None
         self.iter_times_: List[float] = []
         self.cov_jitter_retries_: int = 0
+        self.checkpoint_segments_: Optional[int] = None
+        self.oom_backoffs_ = 0
+        self.effective_chunk_: Optional[int] = None
         self._total_scatter: Optional[np.ndarray] = None
+        # The device loop's raw carry (``dev_*`` in a checkpoint), or None.
+        self._dev_tables: Optional[dict] = None
 
     # ------------------------------------------------------------- plumbing
 
@@ -563,16 +577,22 @@ class GaussianMixture:
         ``resume=True`` continues EM from the current parameters for up to
         ``max_iter`` more iterations (``n_init`` must be 1), by either loop:
         the iteration count and the convergence baseline (``lower_bound_``)
-        carry over.  The JAX device loop's raw tables are not kept (a
-        checkpoint's ``dev_*`` entries are read as absent): a resumed device
-        loop starts from the fitted attributes."""
-        if not isinstance(resume, bool):
-            raise _later("resume", resume,
-                         "A.9 'Fault tolerance': resuming from a path")
-        if checkpoint_every or checkpoint_path is not None:
-            raise _later("checkpoint_every", checkpoint_every,
-                         "A.9 'Fault tolerance'")
+        carry over; the device loop starts from its raw tables where the
+        model has them (a device fit, or a checkpoint with ``dev_*``
+        entries), else from the fitted attributes.  ``resume=<path>``
+        loads that checkpoint first (``.prev`` when the file is torn).
+        ``checkpoint_every=N`` with ``checkpoint_path`` writes a rotating
+        checkpoint every N EM iterations and at the last: the device loop
+        runs in segments that replay one captured graph and hand each other
+        their tables as they are, so a segmented or a killed-and-resumed
+        device fit gives the bits of the uninterrupted one; the float64
+        host loop resumes from its fitted attributes exactly."""
+        checkpoint_every = self._check_ckpt(checkpoint_every,
+                                            checkpoint_path)
+        ckpt_kw = dict(checkpoint_every=checkpoint_every,
+                       checkpoint_path=checkpoint_path)
         self.cov_jitter_retries_ = 0
+        resume = self._resolve_resume(resume)
         ds = self._dataset(X, sample_weight)
         mode = self._mode()
         pipeline = self._note_estep_path(mode)
@@ -589,7 +609,7 @@ class GaussianMixture:
             if self.n_init != 1:
                 raise ValueError("fit(resume=True) requires n_init == 1 "
                                  "(the restart sweep re-initializes)")
-            self._fit_one(ds, step_fn, self.seed, resume=True)
+            self._fit_one(ds, step_fn, self.seed, resume=True, **ckpt_kw)
             return self
         seeds = self._restart_seeds()
         self.best_restart_ = 0
@@ -602,7 +622,7 @@ class GaussianMixture:
         last_err = None
         for r, seed in enumerate(seeds):
             try:
-                self._fit_one(ds, step_fn, seed)
+                self._fit_one(ds, step_fn, seed, **ckpt_kw)
             except (ValueError, np.linalg.LinAlgError) as e:
                 # A failed restart keeps the earlier ones; a single restart
                 # raises at once.
@@ -618,9 +638,10 @@ class GaussianMixture:
                 return self
             lls.append(self.lower_bound_)
             if best is None or self.lower_bound_ > best["lower_bound_"]:
+                # The raw device tables go with the winner.
                 best = {name: getattr(self, name) for name in (
                     "weights_", "means_", "covariances_", "converged_",
-                    "n_iter_", "lower_bound_", "iter_times_")}
+                    "n_iter_", "lower_bound_", "iter_times_", "_dev_tables")}
                 best["restart"] = r
         if best is None:
             raise last_err
@@ -631,20 +652,27 @@ class GaussianMixture:
         return self
 
     def _fit_one(self, ds: Dataset, step_fn, seed: int,
-                 resume: bool = False) -> None:
+                 resume: bool = False, checkpoint_every: int = 0,
+                 checkpoint_path=None) -> None:
         """One restart.  The host loop: one E-step on the device per
         iteration; its statistics come to the host as float64, which is
-        also the iteration's synchronisation point.  ``host_loop=False``:
-        :meth:`_fit_on_device`."""
+        also the iteration's synchronisation point; a checkpoint at the
+        absolute cadence ``it % checkpoint_every == 0`` and at the last
+        iteration.  ``host_loop=False``: :meth:`_fit_on_device`."""
         if not resume:
             if self._init_params(ds, step_fn, seed) <= 0:
                 raise ValueError("total sample weight must be positive")
         if not self.host_loop:
             return self._fit_on_device(
-                ds, base_iter=self.n_iter_ if resume else 0, resume=resume)
+                ds, base_iter=self.n_iter_ if resume else 0, resume=resume,
+                checkpoint_every=checkpoint_every,
+                checkpoint_path=checkpoint_path)
         self.loop_path_ = "host"
         self.converged_ = False
         self.iter_times_ = []
+        # The host loop's exact carry is its fitted attributes.
+        self._dev_tables = None
+        self.checkpoint_segments_ = 0 if checkpoint_every else None
         base = self.n_iter_ if resume else 0
         prev = self.lower_bound_ if resume else -np.inf
         shift = self._shift()
@@ -668,11 +696,17 @@ class GaussianMixture:
                       f"{self.lower_bound_:.6f} "
                       f"[{self.iter_times_[-1] * 1e3:.1f} ms]", flush=True)
             if not np.isfinite(self.lower_bound_):
-                raise NumericalDivergenceError(it, "log-likelihood")
+                self._raise_divergence("log-likelihood", it)
+            if checkpoint_every and it % checkpoint_every == 0:
+                self.checkpoint_segments_ += 1
+                self._write_autockpt(checkpoint_path, it)
             if abs(self.lower_bound_ - prev) < self.tol:
                 self.converged_ = True
                 break
             prev = self.lower_bound_
+        if checkpoint_every and self.n_iter_ % checkpoint_every:
+            self.checkpoint_segments_ += 1
+            self._write_autockpt(checkpoint_path, self.n_iter_)
 
     def _start_tables(self, shift: np.ndarray):
         """The device loop's starting tables in the model's dtype, from the
@@ -689,39 +723,106 @@ class GaussianMixture:
         log_w = np.log(np.maximum(self.weights_, 1e-300)).astype(self.dtype)
         return mc, cov, log_w
 
+    def _resume_tables(self, shift: np.ndarray):
+        """``(means_c, cov, log_w, prev)`` a resumed device fit starts from:
+        the raw carry where the model has one of its covariance type and
+        shape, else the fitted attributes (:meth:`_start_tables`) and
+        ``lower_bound_``."""
+        raw = self._dev_tables
+        k, d = self.n_components, self.means_.shape[1]
+        if raw is not None and raw["cov_type"] == self.covariance_type \
+                and np.ndim(raw["means_c"]) == 2 \
+                and np.shape(raw["means_c"])[0] >= k \
+                and np.shape(raw["means_c"])[1] == d:
+            cov = np.asarray(raw["cov"])
+            return (np.asarray(raw["means_c"])[:k],
+                    cov if self.covariance_type == "tied" else cov[:k],
+                    np.asarray(raw["log_w"])[:k], float(raw["prev_ll"]))
+        return self._start_tables(shift) + (float(self.lower_bound_),)
+
+    def _pack_dev_tables(self, means_c, cov, log_w, prev: float) -> dict:
+        """The device loop's carry as host arrays of its own dtype (the
+        ``dev_*`` entries of a checkpoint)."""
+        k = self.n_components
+        cov = cov.cpu().numpy()
+        return {"cov_type": self.covariance_type,
+                "means_c": means_c.cpu().numpy()[:k],
+                "cov": cov if self.covariance_type == "tied" else cov[:k],
+                "log_w": log_w.cpu().numpy()[:k], "prev_ll": float(prev)}
+
     def _fit_on_device(self, ds: Dataset, *, base_iter: int = 0,
-                       resume: bool = False) -> None:
+                       resume: bool = False, checkpoint_every: int = 0,
+                       checkpoint_path=None) -> None:
         """Every EM iteration on the device (``host_loop=False``): the JAX
         package's ``_fit_on_device`` for all four covariance types
         (``parallel.gmm_step.make_gmm_fit_fn``).  ``base_iter`` offsets
-        ``n_iter_`` on resume, where the convergence baseline is
-        ``lower_bound_``; a non-finite log-likelihood raises
-        ``NumericalDivergenceError`` naming its iteration."""
+        ``n_iter_`` on resume.  The fit (or each segment of
+        ``checkpoint_every`` iterations) goes through
+        ``_dispatch_oom_safe``; a segment hands the next its tables as they
+        are (no host cast) and its baseline, and the checkpoint between
+        them holds the same raw carry (``_dev_tables``).  A non-finite
+        log-likelihood rolls back to the last checkpoint of this fit and
+        raises ``NumericalDivergenceError`` naming its iteration."""
         mode = self._mode()
         pipeline = self._resolve_pipeline(mode)
         shift = self._shift()
-        mc, cov, log_w = self._start_tables(shift)
-        fit_fn = make_gmm_fit_fn(
-            ds.mesh, chunk_size=self._chunk(ds), max_iter=self.max_iter,
-            tol=float(self.tol), reg_covar=float(self.reg_covar),
-            cov_type=self.covariance_type, mode=mode, pipeline=pipeline)
-        t0 = time.perf_counter()
-        res = fit_fn(ds, self._put(shift), self._put(mc), self._put(cov),
-                     self._put(log_w),
-                     float(self.lower_bound_) if resume else -np.inf)
-        elapsed = time.perf_counter() - t0
-        n = res.n_iter
+        if resume:
+            mc, cov, log_w, prev = self._resume_tables(shift)
+        else:
+            mc, cov, log_w = self._start_tables(shift)
+            prev = -np.inf
         self.loop_path_ = "device"
-        if n and not np.all(np.isfinite(res.ll_hist)):
-            raise NumericalDivergenceError(base_iter + n, "log-likelihood")
-        self._ingest_device_tables(res.means_c, res.cov, res.log_w, shift)
-        self.converged_ = res.converged
-        self.n_iter_ = base_iter + n
-        self.lower_bound_ = float(res.ll_hist[-1]) if n else -np.inf
-        self.iter_times_ = [elapsed / max(n, 1)] * n
+        self.checkpoint_segments_ = 0 if checkpoint_every else None
+        chunk = self._chunk(ds)
+        self.effective_chunk_ = chunk
+        shift_dev = self._put(shift)
+        tables = (self._put(mc), self._put(cov), self._put(log_w))
+        hist_parts = []
+        it_done, seg_idx = 0, 0
+        t0 = time.perf_counter()
+        while True:
+            seg = (min(checkpoint_every, self.max_iter - it_done)
+                   if checkpoint_every else self.max_iter - it_done)
+
+            def dispatch(c, _tables=tables, _prev=prev, _it0=it_done,
+                         _seg=seg):
+                fit_fn = make_gmm_fit_fn(
+                    ds.mesh, chunk_size=c, max_iter=self.max_iter,
+                    tol=float(self.tol), reg_covar=float(self.reg_covar),
+                    cov_type=self.covariance_type, mode=mode,
+                    pipeline=pipeline)
+                return fit_fn(ds, shift_dev, *_tables, _prev, start=_it0,
+                              stop=_it0 + _seg)
+
+            res, chunk = self._dispatch_oom_safe(dispatch, chunk, seg_idx)
+            seg_idx += 1
+            n = res.n_iter
+            if n and not np.all(np.isfinite(res.ll_hist)):
+                self._raise_divergence("log-likelihood",
+                                       base_iter + it_done + n)
+            hist_parts.append(res.ll_hist)
+            it_done += n
+            prev = res.prev
+            self._ingest_device_tables(res.means_c, res.cov, res.log_w,
+                                       shift)
+            self._dev_tables = self._pack_dev_tables(
+                res.means_c, res.cov, res.log_w, prev)
+            self.converged_ = res.converged
+            self.n_iter_ = base_iter + it_done
+            if n:
+                self.lower_bound_ = float(res.ll_hist[-1])
+            if not checkpoint_every:
+                break
+            self.checkpoint_segments_ += 1
+            self._write_autockpt(checkpoint_path, self.n_iter_)
+            if res.converged or it_done >= self.max_iter:
+                break
+            tables = (res.means_c, res.cov, res.log_w)   # no host cast
+        elapsed = time.perf_counter() - t0
+        self.iter_times_ = [elapsed / max(it_done, 1)] * it_done
         if self.verbose and is_primary(self.mesh):
-            print(f"EM device loop: {n} iterations, mean log-likelihood = "
-                  f"{self.lower_bound_:.6f}", flush=True)
+            print(f"EM device loop: {it_done} iterations, mean "
+                  f"log-likelihood = {self.lower_bound_:.6f}", flush=True)
 
     def _fit_on_device_multi(self, ds: Dataset, step_fn,
                              seeds) -> "GaussianMixture":
@@ -776,6 +877,9 @@ class GaussianMixture:
         n = int(res.n_iters[b])
         self._ingest_device_tables(res.means_c[b], res.cov[b], res.log_w[b],
                                    shift)
+        self._dev_tables = self._pack_dev_tables(
+            res.means_c[b], res.cov[b], res.log_w[b],
+            float(res.ll_hist[b, n - 1]) if n else -np.inf)
         self.converged_ = bool(res.converged[b])
         self.n_iter_ = n
         self.lower_bound_ = float(res.ll_hist[b, n - 1]) if n else -np.inf
@@ -1113,13 +1217,22 @@ class GaussianMixture:
                 else np.zeros((0,)),
             "cov_jitter_retries_": int(self.cov_jitter_retries_),
         }
-        state.update(ckpt.topology_meta(self.mesh, self.dtype))
+        state.update(self._ckpt_meta())
         # Explicit init arrays are configuration: a loaded model that is
         # fitted again seeds as the original did.
         for name in ("weights_init", "means_init", "precisions_init"):
             value = getattr(self, name)
             if value is not None:
                 state[f"cfg_{name}"] = np.asarray(value)
+        # The device loop's raw carry, the JAX package's ``dev_*`` entries:
+        # a device fit resumed from them gives the uninterrupted bits.
+        raw = self._dev_tables
+        if raw is not None:
+            state["dev_means_c"] = np.asarray(raw["means_c"])
+            state["dev_cov"] = np.asarray(raw["cov"])
+            state["dev_log_w"] = np.asarray(raw["log_w"])
+            state["dev_prev_ll"] = float(raw["prev_ll"])
+            state["dev_cov_type"] = raw["cov_type"]
         return state
 
     @classmethod
@@ -1127,8 +1240,7 @@ class GaussianMixture:
                     mesh=None) -> "GaussianMixture":
         """A model from a checkpoint dictionary written by either package.
         Arguments the port does not have are dropped with one warning; the
-        JAX package's device-loop tables (``dev_*``) are read as absent (a
-        resumed fit continues from the fitted attributes)."""
+        device loop's raw tables (``dev_*``) are read too."""
         dropped = []
         for name, (allowed, _) in _LATER_ARGS.items():
             if name in state and not _is_allowed(state[name], allowed):
@@ -1159,23 +1271,42 @@ class GaussianMixture:
                     verbose=bool(state["verbose"]),
                     dtype=np.dtype(str(state["dtype"])), device=device,
                     mesh=mesh, **inits)
+        model._restore_fitted(state)
+        return model
+
+    def _restore_fitted(self, state: dict) -> None:
+        """The fitted state of a checkpoint (either package's) onto this
+        model, the raw device tables (``dev_*``) too: ``load``,
+        ``fit(resume=<path>)`` and a rollback come here."""
         if np.asarray(state["means_"]).size:
-            model.weights_ = np.asarray(state["weights_"], np.float64)
-            model.means_ = np.asarray(state["means_"], np.float64)
-            model.covariances_ = np.asarray(state["covariances_"],
-                                            np.float64)
-            model.shift_ = np.asarray(state["shift_"], np.float64)
-            model.converged_ = bool(state["converged_"])
-            model.n_iter_ = int(state["n_iter_"])
-            model.lower_bound_ = float(state["lower_bound_"])
-            model.best_restart_ = int(state.get("best_restart_", 0))
-            model.cov_jitter_retries_ = int(state.get("cov_jitter_retries_",
-                                                      0))
+            self.weights_ = np.asarray(state["weights_"], np.float64)
+            self.means_ = np.asarray(state["means_"], np.float64)
+            self.covariances_ = np.asarray(state["covariances_"],
+                                           np.float64)
+            self.shift_ = np.asarray(state["shift_"], np.float64)
+            self.converged_ = bool(state["converged_"])
+            self.n_iter_ = int(state["n_iter_"])
+            self.lower_bound_ = float(state["lower_bound_"])
+            self.best_restart_ = int(state.get("best_restart_", 0))
+            self.cov_jitter_retries_ = int(state.get("cov_jitter_retries_",
+                                                     0))
             rlb = state.get("restart_lower_bounds_")
-            model.restart_lower_bounds_ = (
+            self.restart_lower_bounds_ = (
                 np.asarray(rlb, np.float64)
                 if rlb is not None and np.asarray(rlb).size else None)
-        return model
+        # A stale carry of an earlier fit must not survive a restore.
+        self._dev_tables = None
+        if "dev_means_c" in state:
+            ct = str(state.get("dev_cov_type", self.covariance_type))
+            k = self.n_components
+            cov = np.asarray(state["dev_cov"])
+            self._dev_tables = {
+                "cov_type": ct,
+                "means_c": np.asarray(state["dev_means_c"])[:k],
+                "cov": cov if ct == "tied" else cov[:k],
+                "log_w": np.asarray(state["dev_log_w"])[:k],
+                "prev_ll": float(state["dev_prev_ll"]),
+            }
 
     def save(self, path) -> None:
         """Write the fitted state and the explicit init arrays as one

@@ -38,7 +38,12 @@ STARTING centroids, with a warning on a rise above 1e-6; a hard error on
 non-finite centroids or a non-finite SSE; deterministic empty-cluster
 resampling seeded per iteration with
 ``np.random.default_rng([seed, iteration + 1])``; best of ``n_init``
-restarts by the true final inertia; the ``.npz`` checkpoint format.
+restarts by the true final inertia; the ``.npz`` checkpoint format; and the
+fault tolerance of ``models.fault_tolerance``: ``checkpoint_every`` /
+``checkpoint_path`` (the device loop runs in segments, a rotating
+checkpoint between them; the host loop writes in place), ``fit(resume=True
+| <path>)``, the out-of-memory chunk backoff and the rollback on
+divergence.
 """
 
 from __future__ import annotations
@@ -52,6 +57,9 @@ from typing import Callable, List, Optional, Union
 import numpy as np
 import torch
 
+# NumericalDivergenceError stays importable from this module.
+from kmeans_tpu_torch.models.fault_tolerance import (  # noqa: F401
+    AutoCheckpointMixin, NumericalDivergenceError)
 from kmeans_tpu_torch.models.init import resolve_init
 from kmeans_tpu_torch.ops.assign import StepStats
 from kmeans_tpu_torch.parallel import distributed as dist
@@ -129,21 +137,6 @@ def _dispatch_rtt(device: torch.device) -> float:
     return _RTT_CACHE[key]
 
 
-class NumericalDivergenceError(ValueError):
-    """The fit went non-finite.  Carries ``iteration`` and ``quantity``
-    ('centroids' | 'log-likelihood'), with the JAX package's messages."""
-
-    _PHRASE = {
-        "centroids": "NaN or Inf detected in centroids at iteration {i}",
-        "log-likelihood": "non-finite log-likelihood at EM iteration {i}",
-    }
-
-    def __init__(self, iteration: int, quantity: str = "centroids"):
-        self.iteration = int(iteration)
-        self.quantity = quantity
-        super().__init__(self._PHRASE[quantity].format(i=iteration))
-
-
 def _host_rows(X, dtype) -> np.ndarray:
     """An (n, D) host array in ``dtype`` from an array-like or a tensor."""
     if isinstance(X, torch.Tensor):
@@ -192,7 +185,7 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-class KMeans:
+class KMeans(AutoCheckpointMixin):
     """K-Means on one device.
 
     Parameters
@@ -270,7 +263,11 @@ class KMeans:
     schedule that ran ('fused-pallas' in the kernel modes, else 'serial' or
     'pipelined'); ``auto_rtt_`` the round trip that 'auto' measured (None
     unless it measured one); ``bf16_guard_corrected_rows_`` the rows the
-    guarded rung flagged over a device-loop fit (None otherwise).
+    guarded rung flagged over a device-loop fit (None otherwise);
+    ``checkpoint_segments_`` the checkpoints a checkpointed fit wrote (None
+    without ``checkpoint_every``); ``oom_backoffs_`` and
+    ``effective_chunk_`` the device loop's out-of-memory backoffs and the
+    chunk it ended at.
     """
 
     #: The device form of ``_postprocess_centroids`` (None: the identity),
@@ -382,6 +379,9 @@ class KMeans:
         self.estep_path_: Optional[str] = None
         self.auto_rtt_: Optional[float] = None
         self.bf16_guard_corrected_rows_: Optional[int] = None
+        self.checkpoint_segments_: Optional[int] = None
+        self.oom_backoffs_ = 0
+        self.effective_chunk_: Optional[int] = None
         # Inner fits (BisectingKMeans' 2-means) skip the init's scan for
         # non-finite rows (the parent scanned once) and the eager labels_
         # pass (the parent computes the membership itself).
@@ -499,13 +499,25 @@ class KMeans:
             checkpoint_every: int = 0, checkpoint_path=None) -> "KMeans":
         """Fit on an (n, D) array-like, a tensor or a cached
         :class:`Dataset`.  Returns self; ``y`` is ignored.  ``sample_weight``
-        (n,) weights every statistic."""
-        if resume:
-            raise _later("resume", resume, "A.9 'Fault tolerance'")
-        if checkpoint_every or checkpoint_path is not None:
-            raise _later("checkpoint_every", checkpoint_every,
-                         "A.9 'Fault tolerance'")
-        self._fit(X, sample_weight)
+        (n,) weights every statistic.
+
+        ``resume=True`` continues from the current ``centroids`` and
+        ``iterations_run`` (after ``load``, or a fit that stopped) up to
+        ``max_iter``; ``resume=<path>`` loads that checkpoint first (from
+        ``<path>.prev``, with a warning, when the file is torn).
+        ``checkpoint_every=N`` with ``checkpoint_path`` writes a rotating
+        checkpoint every N iterations, at the absolute cadence ``(iteration
+        + 1) % N == 0`` and at the last iteration: the device loop runs in
+        segments of N iterations that replay one captured graph, the host
+        loop writes in place.  A segmented fit, and a fit killed at a
+        boundary and resumed from its file, give the bits of the
+        uninterrupted one.  Needs ``n_init == 1``."""
+        checkpoint_every = self._check_ckpt(checkpoint_every,
+                                            checkpoint_path)
+        resume = self._resolve_resume(resume)
+        self._fit(X, sample_weight, resume=resume,
+                  checkpoint_every=checkpoint_every,
+                  checkpoint_path=checkpoint_path)
         if self.compute_labels and self._eager_labels:
             _ = self.labels_
         else:
@@ -622,7 +634,8 @@ class KMeans:
             getattr(type(self), name) is getattr(KMeans, name)
             for name in ("_handle_empty", "_finish_lloyd_iteration"))
 
-    def _fit(self, X, sample_weight) -> "KMeans":
+    def _fit(self, X, sample_weight, *, resume: bool = False,
+             checkpoint_every: int = 0, checkpoint_path=None) -> "KMeans":
         log = IterationLogger(self.verbose and
                              is_primary(self._resolve_mesh()))
         pipeline = self._note_estep_path(self._mode())
@@ -649,6 +662,15 @@ class KMeans:
                 f"host_loop=False: {type(self).__name__}'s host-side hooks "
                 f"have no device form; use host_loop=True")
         self.loop_path_ = "host" if host else "device"
+        ckpt_kw = dict(checkpoint_every=checkpoint_every,
+                       checkpoint_path=checkpoint_path)
+        if resume and self.centroids is not None:
+            centroids = np.asarray(self.centroids, dtype=self.dtype)
+            if host:
+                return self._run_restart(ds, step_fn, centroids, self.seed,
+                                         log, self.iterations_run, **ckpt_kw)
+            return self._fit_on_device(ds, centroids, self.seed, pipeline,
+                                       log, self.iterations_run, **ckpt_kw)
         if len(seeds) > 1 and not host:
             return self._fit_on_device_multi(ds, seeds, pipeline, log)
         best = None
@@ -659,9 +681,11 @@ class KMeans:
             self.iterations_run = 0
             self.iter_times_ = []
             if host:
-                self._run_restart(ds, step_fn, centroids, seed, log)
+                self._run_restart(ds, step_fn, centroids, seed, log, 0,
+                                  **ckpt_kw)
             else:
-                self._fit_on_device(ds, centroids, seed, pipeline, log)
+                self._fit_on_device(ds, centroids, seed, pipeline, log, 0,
+                                    **ckpt_kw)
             if len(seeds) == 1:
                 return self
             inertia = self._sse(ds)
@@ -684,14 +708,20 @@ class KMeans:
         return self
 
     def _run_restart(self, ds: Dataset, step_fn, centroids: np.ndarray,
-                     seed: int, log: IterationLogger) -> "KMeans":
-        """One restart: the host loop.  One step on the device per
-        iteration; its sums, and its counts with the SSE behind them, come
-        to the host as float64, which is also the iteration's
-        synchronisation point."""
+                     seed: int, log: IterationLogger, start_iter: int = 0,
+                     checkpoint_every: int = 0,
+                     checkpoint_path=None) -> "KMeans":
+        """One restart: the host loop, from iteration ``start_iter``.  One
+        step on the device per iteration; its sums, and its counts with the
+        SSE behind them, come to the host as float64, which is also the
+        iteration's synchronisation point.  With ``checkpoint_every`` a
+        rotating checkpoint is written at the absolute cadence (a resumed
+        fit keeps the uninterrupted one's schedule) and after the last
+        iteration when that is off the cadence."""
+        self.checkpoint_segments_ = 0 if checkpoint_every else None
         cents_dev = self._put_centroids(centroids)
         x2w = self._x2w(ds)
-        for iteration in range(self.max_iter):
+        for iteration in range(start_iter, self.max_iter):
             iter_start = time.perf_counter()
             stats: StepStats = step_fn(ds.points, ds.weights, cents_dev, x2w)
             sums = stats.sums.to(torch.float64).cpu().numpy()
@@ -701,30 +731,100 @@ class KMeans:
             centroids, max_shift = self._finish_lloyd_iteration(
                 centroids, sums, tail[:-1], float(tail[-1]), stats, ds,
                 iteration, log, seed, iter_start)
+            if checkpoint_every and (iteration + 1) % checkpoint_every == 0:
+                self.checkpoint_segments_ += 1
+                self._write_autockpt(checkpoint_path, iteration + 1)
             if max_shift < self.tolerance:
                 log.converged(iteration + 1)
                 break
             cents_dev = self._put_centroids(centroids)
+        if checkpoint_every and self.iterations_run % checkpoint_every:
+            self.checkpoint_segments_ += 1
+            self._write_autockpt(checkpoint_path, self.iterations_run)
         return self
 
     def _fit_on_device(self, ds: Dataset, centroids: np.ndarray, seed: int,
-                       pipeline: int, log: IterationLogger) -> "KMeans":
-        """One restart as the device loop (``host_loop=False``): every
-        iteration on the device (``parallel.distributed.make_fit_fn``), the
-        host waiting only for the done flag.  On a CUDA device the loop runs
-        as a captured graph or raises: it never falls back to the host
-        loop."""
-        fit_fn = dist.make_fit_fn(
-            ds.mesh, chunk_size=self._chunk_for(ds), mode=self._mode(),
-            max_iter=self.max_iter, tolerance=float(self.tolerance),
-            empty_policy=self.empty_cluster,
-            history_sse=self.compute_sse, pipeline=pipeline,
-            project=self._device_project)
-        start = time.perf_counter()
-        result = fit_fn(ds, self._put_centroids(centroids), seed)
-        if result.flagged is not None:
-            self.bf16_guard_corrected_rows_ = result.flagged
-        self._finish_device_fit(result, time.perf_counter() - start, log)
+                       pipeline: int, log: IterationLogger,
+                       start_iter: int = 0, checkpoint_every: int = 0,
+                       checkpoint_path=None) -> "KMeans":
+        """One restart as the device loop (``host_loop=False``) from
+        iteration ``start_iter``: every iteration on the device
+        (``parallel.distributed.make_fit_fn``), the host waiting only for
+        the done flag.  On a CUDA device the loop runs as a captured graph
+        or raises: it never falls back to the host loop.
+
+        Each segment (the whole fit, or ``checkpoint_every`` iterations)
+        goes through ``_dispatch_oom_safe``: an out-of-memory error replays
+        it from its boundary at a smaller chunk, in the same mode.  In the
+        torch modes the chunk bounds the (chunk, k) distance tile; the
+        kernel modes take every row in one launch and no chunk reaches
+        them, so there the replay changes nothing the kernel allocates.
+        Every segment replays the graph captured for the fit
+        (``make_fit_fn(start=, stop=)``), and a boundary's centroids go to
+        the next segment through ``_put_centroids``, as a resume's do, so
+        the segments give the bits of one run."""
+        mode = self._mode()
+        chunk = self._chunk_for(ds)
+        self.checkpoint_segments_ = 0 if checkpoint_every else None
+        self.effective_chunk_ = chunk
+        if start_iter >= self.max_iter:
+            return self
+        base_hist = list(self.sse_history)
+        cents_dev = self._put_centroids(centroids)
+        sse_parts, shift_parts = [], []
+        flagged, launched = None, 0
+        it0, seg_idx = start_iter, 0
+        fit_start = time.perf_counter()
+        while True:
+            seg = (min(checkpoint_every, self.max_iter - it0)
+                   if checkpoint_every else self.max_iter - it0)
+
+            def dispatch(c, _it0=it0, _seg=seg, _cents=cents_dev):
+                fit_fn = dist.make_fit_fn(
+                    ds.mesh, chunk_size=c, mode=mode,
+                    max_iter=self.max_iter, tolerance=float(self.tolerance),
+                    empty_policy=self.empty_cluster,
+                    history_sse=self.compute_sse, pipeline=pipeline,
+                    project=self._device_project)
+                return fit_fn(ds, _cents, seed, start=_it0, stop=_it0 + _seg)
+
+            result, chunk = self._dispatch_oom_safe(dispatch, chunk, seg_idx)
+            seg_idx += 1
+            launched += result.launched
+            if result.flagged is not None:
+                flagged = (flagged or 0) + result.flagged
+            n = result.n_iters
+            it0 += n
+            sse_parts.append(result.sse_history)
+            shift_parts.append(result.shift_history)
+            if not checkpoint_every:
+                break
+            self.checkpoint_segments_ += 1
+            if not result.finite:           # no checkpoint of a NaN state
+                self._raise_divergence("centroids", it0)
+            converged = n < seg or (n > 0
+                                    and shift_parts[-1][-1] < self.tolerance)
+            # The boundary state, published so that the checkpoint is a
+            # resume point.
+            cents_host = result.centroids.cpu().numpy().astype(self.dtype)
+            self.centroids = cents_host
+            self.cluster_sizes_ = result.counts.astype(np.int64)
+            self.iterations_run = it0
+            if self.compute_sse:
+                self.sse_history = base_hist + [
+                    float(s) for part in sse_parts for s in part]
+            self._write_autockpt(checkpoint_path, it0)
+            if converged or it0 >= self.max_iter:
+                break
+            cents_dev = self._put_centroids(cents_host)
+        self.sse_history = base_hist
+        if flagged is not None:
+            self.bf16_guard_corrected_rows_ = flagged
+        self._finish_device_fit(dist.FitResult(
+            result.centroids, it0 - start_iter, np.concatenate(sse_parts),
+            np.concatenate(shift_parts), result.counts, result.finite,
+            launched, flagged), time.perf_counter() - fit_start, log,
+            start_iter)
         return self
 
     def _fit_on_device_multi(self, ds: Dataset, seeds: list, pipeline: int,
@@ -749,7 +849,7 @@ class KMeans:
         self.bf16_guard_corrected_rows_ = res.flagged
         bad = np.flatnonzero(~res.finite)
         if bad.size:
-            raise NumericalDivergenceError(int(res.n_iters[bad[0]]))
+            self._raise_divergence("centroids", int(res.n_iters[bad[0]]))
         b = res.best
         n = int(res.n_iters[b])
         self.best_restart_ = b
@@ -762,18 +862,20 @@ class KMeans:
         return self
 
     def _finish_device_fit(self, result: "dist.FitResult", elapsed: float,
-                           log: IterationLogger) -> None:
-        """The host's part of a device-loop fit: the fit's wall time split
-        evenly over its iterations, the divergence error naming the
-        iteration the host loop would name, the SSE history with its rise
-        warning, and one log line for the final state."""
+                           log: IterationLogger, start_iter: int = 0) -> None:
+        """The host's part of a device-loop fit of ``result.n_iters``
+        iterations from ``start_iter``: the fit's wall time split evenly
+        over its iterations, the divergence error naming the iteration the
+        host loop would name (after the rollback to a checkpoint of this
+        fit), the SSE history with its rise warning, and one log line for
+        the final state."""
         n = result.n_iters
         self.iter_times_.extend([elapsed / max(n, 1)] * n)
         if not result.finite:
-            raise NumericalDivergenceError(n)
+            self._raise_divergence("centroids", start_iter + n)
         self.centroids = result.centroids.cpu().numpy().astype(self.dtype)
         self.cluster_sizes_ = result.counts.astype(np.int64)
-        self.iterations_run = n
+        self.iterations_run = start_iter + n
         if self.compute_sse:
             for sse in result.sse_history:
                 self.sse_history.append(float(sse))
@@ -782,11 +884,12 @@ class KMeans:
                     log.warn_sse_increase(self.sse_history[-2],
                                           self.sse_history[-1])
         last_shift = float(result.shift_history[-1]) if n else 0.0
-        log.iteration(n - 1, last_shift, list(self.cluster_sizes_),
+        log.iteration(self.iterations_run - 1, last_shift,
+                      list(self.cluster_sizes_),
                       self.sse_history[-1] if
                       (self.compute_sse and self.sse_history) else None)
         if n and last_shift < self.tolerance:
-            log.converged(n)
+            log.converged(self.iterations_run)
 
     def _finish_lloyd_iteration(self, centroids, sums, counts, sse_val,
                                 stats, ds, iteration, log, seed, iter_start):
@@ -821,7 +924,8 @@ class KMeans:
 
         if not (np.all(np.isfinite(new_centroids))
                 and math.isfinite(sse_val)):
-            raise NumericalDivergenceError(iteration + 1)
+            # Rolled back to the last checkpoint of this fit, if any.
+            self._raise_divergence("centroids", iteration + 1)
 
         shifts = np.linalg.norm(
             new_centroids.astype(np.float64) -
@@ -1341,7 +1445,7 @@ class KMeans:
             "iterations_run": self.iterations_run,
             "dtype": str(self.dtype),
         }
-        state.update(ckpt.topology_meta(self.mesh, self.dtype))
+        state.update(self._ckpt_meta())
         if isinstance(self.init, str):
             state["init"] = self.init
         elif not callable(self.init):
@@ -1384,12 +1488,19 @@ class KMeans:
                         None if state.get("init_cap") is None
                         else int(state["init_cap"])),
                     **cls._load_kwargs(state))
-        cents = np.asarray(state["centroids"])
-        model.centroids = cents.astype(model.dtype) if cents.size else None
-        model.sse_history = [float(s) for s in state["sse_history"]]
-        model.iterations_run = int(state["iterations_run"])
-        model._restore_state(state)
+        model._restore_fitted(state)
         return model
+
+    def _restore_fitted(self, state: dict) -> None:
+        """The fitted state of a checkpoint (either package's), onto this
+        model: centroids, SSE history, iterations, and the family's own
+        (``_restore_state``).  ``load`` and ``fit(resume=<path>)`` both
+        come here, and so does a rollback."""
+        cents = np.asarray(state["centroids"])
+        self.centroids = cents.astype(self.dtype) if cents.size else None
+        self.sse_history = [float(s) for s in state["sse_history"]]
+        self.iterations_run = int(state["iterations_run"])
+        self._restore_state(state)
 
     @classmethod
     def _load_kwargs(cls, state: dict) -> dict:

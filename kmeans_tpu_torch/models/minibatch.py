@@ -26,6 +26,13 @@ Dead centres (``reassignment_ratio``, 0.01 by default as in scikit-learn):
 every ``10 k / batch + 1`` iterations a centre whose lifetime count is
 below the ratio times the largest takes a row of the current batch.
 
+Checkpoints (``checkpoint_every``, ``resume``) as in ``KMeans``, in all
+three engines: the per-iteration engine and the host engine write at the
+absolute cadence, the captured loop runs in segments that replay one graph
+(``make_minibatch_fit_fn(start=, stop=, seen0=)``).  Every draw is keyed by
+``(seed, iteration)`` and the lifetime counts ``seen`` ride the checkpoint,
+so a resumed fit draws and updates as the uninterrupted one.
+
 Under a mesh the dataset is placed in blocks (``ShardedDataset``); as in
 the JAX package, each block of the data axis draws ``ceil(batch / data)``
 rows of its own per iteration and the statistics of the whole batch, and
@@ -43,9 +50,8 @@ import numpy as np
 import torch
 
 from kmeans_tpu_torch.models.init import as_source, resolve_init
-from kmeans_tpu_torch.models.kmeans import (KMeans, NumericalDivergenceError,
-                                            _dispatch_rtt, _hint_once,
-                                            _host_rows, _later)
+from kmeans_tpu_torch.models.kmeans import (KMeans, _dispatch_rtt,
+                                            _hint_once, _host_rows, _later)
 from kmeans_tpu_torch.parallel import distributed as dist
 from kmeans_tpu_torch.parallel.mesh import (DATA_AXIS, all_reduce,
                                             is_primary, mesh_shape)
@@ -132,15 +138,44 @@ class MiniBatchKMeans(KMeans):
             checkpoint_path=None) -> "MiniBatchKMeans":
         """Fit with mini-batch updates.  ``sample_weight`` (n,) scales every
         batch statistic; rows are drawn uniformly (scikit-learn's rule).
-        ``labels_`` is computed on first access."""
-        if resume:
-            raise _later("resume", resume, "A.9 'Fault tolerance'")
-        if checkpoint_every or checkpoint_path is not None:
-            raise _later("checkpoint_every", checkpoint_every,
-                         "A.9 'Fault tolerance'")
+        ``labels_`` is computed on first access.  ``resume`` (True or a
+        checkpoint path) and ``checkpoint_every`` / ``checkpoint_path`` as in
+        ``KMeans.fit``: iteration i's draws are a function of ``(seed, i)``,
+        so a segmented or resumed fit gives the uninterrupted fit's bits."""
+        ckpt_kw = dict(checkpoint_every=self._check_ckpt(checkpoint_every,
+                                                         checkpoint_path),
+                       checkpoint_path=checkpoint_path)
+        resume = self._resolve_resume(resume)
         if self.sampling == "host":
-            return self._fit_host(X, sample_weight)
-        return self._fit_device(X, sample_weight)
+            return self._fit_host(X, sample_weight, resume, **ckpt_kw)
+        return self._fit_device(X, sample_weight, resume, **ckpt_kw)
+
+    def _resume_or_init(self, init_src, resume: bool):
+        """``(centroids float64, start iteration, seen)`` of a fit: the
+        carried state on resume (``_centroids_f64``, the exact carry, where
+        there is one), else the selected init from iteration 0."""
+        if resume and self.centroids is not None:
+            carried = self._centroids_f64
+            cents = (np.asarray(carried, np.float64) if carried is not None
+                     else np.asarray(self.centroids, np.float64))
+            seen = (np.asarray(self._seen, np.float64)
+                    if self._seen is not None else np.zeros(self.k))
+            return cents, self.iterations_run, seen
+        centroids = self._select_init(init_src)
+        self.sse_history = []
+        self.iterations_run = 0
+        return centroids, 0, np.zeros(self.k)
+
+    def _publish(self, cents: torch.Tensor, seen, counts, iteration: int,
+                 sse_history) -> None:
+        """The fitted state at an iteration boundary of the device engine
+        (the loop's carry, exact in float64)."""
+        self.centroids = cents.cpu().numpy().astype(self.dtype)
+        self._centroids_f64 = self.centroids.astype(np.float64)
+        self._seen = np.asarray(seen, np.float64)
+        self.cluster_sizes_ = np.asarray(counts).astype(np.int64)
+        self.iterations_run = iteration
+        self.sse_history = list(sse_history) if self.compute_sse else []
 
     def _select_init(self, init_src) -> np.ndarray:
         """scikit-learn's ``n_init`` for mini-batches: draw one init per
@@ -213,7 +248,9 @@ class MiniBatchKMeans(KMeans):
                    f"'auto' switch")
         return True
 
-    def _fit_device(self, X, sample_weight) -> "MiniBatchKMeans":
+    def _fit_device(self, X, sample_weight, resume: bool = False,
+                    checkpoint_every: int = 0,
+                    checkpoint_path=None) -> "MiniBatchKMeans":
         """The device sampling engine: the dataset placed once, every
         iteration's draw, pass and update on the device."""
         dist._check_minibatch_mode(self._mode())
@@ -224,7 +261,9 @@ class MiniBatchKMeans(KMeans):
         bs_local = -(-bs // data)
         log = IterationLogger(self.verbose and is_primary(ds.mesh))
         self._set_fit_data(ds)
-        centroids = self._select_init(ds)
+        centroids, start_iter, seen = self._resume_or_init(ds, resume)
+        if start_iter == 0:
+            self.iter_times_ = []
         log.startup(self.k, self.max_iter, self.tolerance, self.compute_sse)
         mode = self._mode()
         self.estep_path_ = ("fused-pallas" if mode in dist.KERNEL_MODES
@@ -232,17 +271,64 @@ class MiniBatchKMeans(KMeans):
         self.bf16_guard_corrected_rows_ = None
         host = self._resolve_host_loop_mb()
         self.loop_path_ = "host" if host else "device"
-        fit_fn = dist.make_minibatch_fit_fn(
-            ds.mesh, batch=bs_local, mode=mode, k=self.k,
-            max_iter=self.max_iter, tolerance=float(self.tolerance),
-            history_sse=self.compute_sse,
-            reassignment_ratio=self.reassignment_ratio,
-            reassign_every=self._reassign_every(bs_local * data),
-            chunk_size=self.chunk_size, host_loop=host)
+        self.checkpoint_segments_ = 0 if checkpoint_every else None
+        chunk = self.chunk_size or bs_local
+        self.effective_chunk_ = chunk
+
+        def fit_fn_at(c):
+            return dist.make_minibatch_fit_fn(
+                ds.mesh, batch=bs_local, mode=mode, k=self.k,
+                max_iter=self.max_iter, tolerance=float(self.tolerance),
+                history_sse=self.compute_sse,
+                reassignment_ratio=self.reassignment_ratio,
+                reassign_every=self._reassign_every(bs_local * data),
+                chunk_size=c, host_loop=host)
+
         self._total_w = float(all_reduce(
             ds.weights.to(torch.float64).sum().reshape(1), ds.mesh,
             (DATA_AXIS,))[0])
-        times = []
+        if start_iter >= self.max_iter:
+            return self
+        base_hist = list(self.sse_history)
+        acc = dist._accum_dtype(ds.points.dtype)
+        cents_dev = self._put_centroids(centroids)
+        seen_dev = torch.from_numpy(seen).to(device=self.device, dtype=acc)
+        if host:
+            res, elapsed = self._run_per_iteration(
+                fit_fn_at(chunk), ds, cents_dev, seen_dev, start_iter, log,
+                base_hist, checkpoint_every, checkpoint_path)
+            n = res.n_iters
+            sse_hist, shift_hist = res.sse_history, res.shift_history
+        else:
+            res, sse_hist, shift_hist, elapsed = self._run_segments(
+                fit_fn_at, ds, chunk, cents_dev, seen_dev, start_iter,
+                base_hist, checkpoint_every, checkpoint_path)
+            n = sse_hist.shape[0]
+            self.iter_times_.extend([elapsed / max(n, 1)] * n)
+        if not res.finite:
+            self._raise_divergence("centroids", start_iter + n)
+        self._publish(res.centroids, res.seen, res.counts, start_iter + n,
+                      base_hist + [float(s) for s in sse_hist])
+        last_shift = float(shift_hist[-1]) if n else 0.0
+        if not host:
+            log.iteration(self.iterations_run - 1, last_shift,
+                          list(self.cluster_sizes_),
+                          self.sse_history[-1] if self.sse_history else None)
+        if n and last_shift < self.tolerance:
+            log.converged(self.iterations_run)
+        if checkpoint_every and self.iterations_run % checkpoint_every \
+                and host:
+            self.checkpoint_segments_ += 1
+            self._write_autockpt(checkpoint_path, self.iterations_run)
+        return self
+
+    def _run_per_iteration(self, fit_fn, ds, cents_dev, seen_dev,
+                           start_iter, log, base_hist, checkpoint_every,
+                           checkpoint_path):
+        """The per-iteration engine: the loop's iteration launched eagerly
+        one at a time, a log line after each and, at the absolute cadence,
+        a checkpoint of the loop's carry.  Returns ``(result, seconds)``;
+        the iteration times go to ``iter_times_``."""
         t_last = [time.perf_counter()]
 
         def on_iteration(loop, i):
@@ -254,34 +340,71 @@ class MiniBatchKMeans(KMeans):
             log.iteration(i, float(tail[-1]), tail[:-2].astype(np.int64),
                           float(tail[-2]) if self.compute_sse else None)
             now = time.perf_counter()
-            times.append(now - t_last[0])
+            self.iter_times_.append(now - t_last[0])
             t_last[0] = now
+            if checkpoint_every and (i + 1) % checkpoint_every == 0 \
+                    and bool(torch.isfinite(loop.cents).all()):
+                hist = loop.sse_hist[start_iter:i + 1].to(torch.float64)
+                self._publish(loop.cents, dist._host_copy(loop.seen),
+                              dist._host_copy(loop.counts), i + 1,
+                              base_hist + hist.cpu().tolist())
+                self.checkpoint_segments_ += 1
+                self._write_autockpt(checkpoint_path, i + 1)
 
         start = time.perf_counter()
-        res = fit_fn(ds, self._put_centroids(centroids), self.seed,
-                     on_iteration=on_iteration if host else None)
-        elapsed = time.perf_counter() - start
-        n = res.n_iters
-        self.iter_times_ = (times[:n] if host
-                            else [elapsed / max(n, 1)] * n)
-        if not res.finite:
-            raise NumericalDivergenceError(n)
-        self.centroids = res.centroids.cpu().numpy().astype(self.dtype)
-        self._centroids_f64 = self.centroids.astype(np.float64)
-        self._seen = res.seen
-        self.cluster_sizes_ = res.counts.astype(np.int64)
-        self.iterations_run = n
-        self.sse_history = ([float(s) for s in res.sse_history]
-                            if self.compute_sse else [])
-        last_shift = float(res.shift_history[-1]) if n else 0.0
-        if not host:
-            log.iteration(n - 1, last_shift, list(self.cluster_sizes_),
-                          self.sse_history[-1] if self.sse_history else None)
-        if n and last_shift < self.tolerance:
-            log.converged(n)
-        return self
+        res = fit_fn(ds, cents_dev, self.seed, on_iteration=on_iteration,
+                     start=start_iter, seen0=seen_dev)
+        return res, time.perf_counter() - start
 
-    def _fit_host(self, X, sample_weight) -> "MiniBatchKMeans":
+    def _run_segments(self, fit_fn_at, ds, chunk, cents_dev, seen_dev,
+                      start_iter, base_hist, checkpoint_every,
+                      checkpoint_path):
+        """The captured loop, the whole fit or segments of
+        ``checkpoint_every`` iterations, each through
+        ``_dispatch_oom_safe`` (an out-of-memory error replays it at a
+        smaller chunk of the batch pass), the carry (centroids and ``seen``)
+        handed from segment to segment as a resume would take it.  Returns
+        ``(last result, sse history, shift history, seconds)``."""
+        sse_parts, shift_parts = [], []
+        it0, seg_idx = start_iter, 0
+        t0 = time.perf_counter()
+        while True:
+            seg = (min(checkpoint_every, self.max_iter - it0)
+                   if checkpoint_every else self.max_iter - it0)
+
+            def dispatch(c, _it0=it0, _seg=seg, _cents=cents_dev,
+                         _seen=seen_dev):
+                return fit_fn_at(c)(ds, _cents, self.seed, start=_it0,
+                                    stop=_it0 + _seg, seen0=_seen)
+
+            res, chunk = self._dispatch_oom_safe(dispatch, chunk, seg_idx)
+            seg_idx += 1
+            n = res.n_iters
+            it0 += n
+            sse_parts.append(res.sse_history)
+            shift_parts.append(res.shift_history)
+            if not checkpoint_every:
+                break
+            self.checkpoint_segments_ += 1
+            if not res.finite:              # no checkpoint of a NaN state
+                self._raise_divergence("centroids", it0)
+            converged = n < seg or (n > 0
+                                    and shift_parts[-1][-1] < self.tolerance)
+            self._publish(res.centroids, res.seen, res.counts, it0,
+                          base_hist + [float(s) for part in sse_parts
+                                       for s in part])
+            self._write_autockpt(checkpoint_path, it0)
+            if converged or it0 >= self.max_iter:
+                break
+            cents_dev = self._put_centroids(self.centroids)
+            seen_dev = torch.from_numpy(self._seen).to(
+                device=self.device, dtype=seen_dev.dtype)
+        return (res, np.concatenate(sse_parts), np.concatenate(shift_parts),
+                time.perf_counter() - t0)
+
+    def _fit_host(self, X, sample_weight, resume: bool = False,
+                  checkpoint_every: int = 0,
+                  checkpoint_path=None) -> "MiniBatchKMeans":
         """The host sampling engine: per iteration a host draw of the
         batch (``np.random.default_rng([seed, i]).choice``) and its
         upload; the weights stay on the host."""
@@ -307,14 +430,16 @@ class MiniBatchKMeans(KMeans):
         self._set_fit_data(X)
         log = IterationLogger(self.verbose
                               and is_primary(self._resolve_mesh()))
-        centroids = self._select_init(as_source(X, hw))
-        self.sse_history, self.iterations_run, self.iter_times_ = [], 0, []
+        centroids, start_iter, seen = self._resume_or_init(
+            as_source(X, hw), resume)
+        if start_iter == 0:
+            self.iter_times_ = []
         log.startup(self.k, self.max_iter, self.tolerance, self.compute_sse)
         self.estep_path_ = ("fused-pallas" if self._mode()
                             in dist.KERNEL_MODES else "serial")
         self.loop_path_ = "host"
-        seen = np.zeros(self.k)
-        for iteration in range(self.max_iter):
+        self.checkpoint_segments_ = 0 if checkpoint_every else None
+        for iteration in range(start_iter, self.max_iter):
             t0 = time.perf_counter()
             # Batch i is a pure function of (seed, i); rows are drawn
             # uniformly and the weights scale the statistics.
@@ -325,9 +450,15 @@ class MiniBatchKMeans(KMeans):
                 batch_weight=hw[idx] if hw is not None else None,
                 total_w=total_w)
             self.iter_times_.append(time.perf_counter() - t0)
+            if checkpoint_every and (iteration + 1) % checkpoint_every == 0:
+                self.checkpoint_segments_ += 1
+                self._write_autockpt(checkpoint_path, iteration + 1)
             if max_shift < self.tolerance:
                 log.converged(iteration + 1)
                 break
+        if checkpoint_every and self.iterations_run % checkpoint_every:
+            self.checkpoint_segments_ += 1
+            self._write_autockpt(checkpoint_path, self.iterations_run)
         return self
 
     def _incremental_update(self, batch: np.ndarray, centroids: np.ndarray,
@@ -398,7 +529,7 @@ class MiniBatchKMeans(KMeans):
                 kept = seen[~flagged]
                 seen[slots] = kept.min() if kept.size else 0.0
         if not np.all(np.isfinite(new_centroids)):
-            raise NumericalDivergenceError(iteration + 1)
+            self._raise_divergence("centroids", iteration + 1)
         if self.compute_sse:
             self.sse_history.append(sse * sse_scale)
         max_shift = float(np.max(np.linalg.norm(new_centroids - centroids,
@@ -421,6 +552,10 @@ class MiniBatchKMeans(KMeans):
         if sample_weight is not None:
             raise ValueError("partial_fit does not support sample_weight; "
                              "fold weights into batch construction")
+        # Not a checkpointed fit: a divergence raises in place and keeps
+        # the incremental progress, never restoring an earlier fit's file.
+        self._active_ckpt_path = None
+        self._ckpt_written_this_fit = False
         X = np.ascontiguousarray(_host_rows(X, self.dtype))
         log = IterationLogger(self.verbose
                               and is_primary(self._resolve_mesh()))

@@ -65,7 +65,11 @@ reassignment candidates are reduced over the data axis.
 
 A loop kept in a dataset's memo holds no reference to the dataset (its row
 gather is a weak method), so a dataset that is dropped frees its loops and
-their captured graphs at once.
+their captured graphs at once.  Every loop counts its iterations from any
+start to any stop, so a segment of a checkpointed fit, or a resumed fit,
+replays the graph captured for the dataset; a loop whose first run fails
+before its capture leaves the memo (the out-of-memory backoff's replay
+then builds its own).
 """
 
 from __future__ import annotations
@@ -100,6 +104,11 @@ TORCH_MODES = ("matmul", "matmul_bf16", "direct", GUARDED_MODE)
 #: GloVe-like shape (7.4 ms iterations) each masked iteration cost more
 #: than the host's wait for each flag (PERF.md, PR 11).
 IN_FLIGHT = 0
+
+#: Iterations captured as CUDA graphs, by loop class: a later fit on the
+#: same dataset, a segment of a checkpointed fit and a resumed fit replay
+#: the graph already captured and add nothing here.
+CAPTURES: Dict[str, int] = {}
 
 
 def _weighted_sqnorm_total(points: torch.Tensor,
@@ -501,22 +510,26 @@ class FitResult(NamedTuple):
     flagged: Optional[int] = None  # guarded rung: rows flagged, all iterations
 
 
-def empty_draw_keys(seed: int, max_iter: int) -> np.ndarray:
-    """(max_iter, PERMUTE_STEPS) keys of the refill draws: iteration ``it``
-    draws under ``draw_keys([seed, it + 1])``, the seed the host loop gives
+def empty_draw_keys(seed: int, stop: int, start: int = 0) -> np.ndarray:
+    """(stop - start, PERMUTE_STEPS) keys of the refill draws of iterations
+    ``start .. stop - 1``: iteration ``it`` draws under ``draw_keys([seed,
+    it + 1])`` for the absolute ``it``, the seed the host loop gives
     ``Dataset.sample_positive_rows`` (the JAX package's
-    ``_empty_seed_array`` schedule).  SeedSequence is host-only, so the
-    schedule is made here, once per fit."""
-    return np.stack([draw_keys([seed, it + 1]) for it in range(max_iter)])
+    ``_empty_seed_array(seed, it0, seg)`` schedule), so a segment or a
+    resumed fit draws what the uninterrupted fit draws.  SeedSequence is
+    host-only, so the schedule is made here, once per fit or segment."""
+    return np.stack([draw_keys([seed, it + 1])
+                     for it in range(start, stop)])
 
 
 def refill_table(ds: Dataset, keys: np.ndarray, k: int) -> torch.Tensor:
-    """(max_iter, k) int64 on the device: the positive-weight row (its
-    ordinal, ``Dataset.gather_positive``) that draw j of iteration i
-    refills (``-1`` where the positive-weight rows are used up).  Draw j is
-    the same row ``ds.sample_positive_rows`` returns j-th for the same seed,
-    so the host loop and the device loop refill alike on a dataset without
-    a host copy, and a mesh draws the rows one device would.  Made before
+    """(len(keys), k) int64 on the device: the positive-weight row (its
+    ordinal, ``Dataset.gather_positive``) that draw j of the iteration of
+    each row of ``keys`` (:func:`empty_draw_keys`) refills (``-1`` where
+    the positive-weight rows are used up).  Draw j is the same row
+    ``ds.sample_positive_rows`` returns j-th for the same seed, so the host
+    loop and the device loop refill alike on a dataset without a host
+    copy, and a mesh draws the rows one device would.  Made before
     the loop: inside it an iteration reads its row of the table, O(k)."""
     n_pos = ds.positive_count()
     j = torch.arange(k, device=ds.device).expand(keys.shape[0], k)
@@ -585,6 +598,9 @@ class _Replay:
             with torch.cuda.graph(graph):
                 self.iterate()
         except RuntimeError as e:
+            oom = _oom_in_chain(e)
+            if oom is not None:
+                raise oom
             raise RuntimeError(
                 f"the device loop's iteration could not be captured as a "
                 f"CUDA graph: {e}") from e
@@ -594,6 +610,8 @@ class _Replay:
             _build.LAUNCHES.update(before)
         self.graph_launches = {n: c for n, c in recorded.items() if c}
         self.graph = graph
+        name = type(self).__name__
+        CAPTURES[name] = CAPTURES.get(name, 0) + 1
 
     def _launch(self) -> None:
         if not self.points.is_cuda:
@@ -605,12 +623,13 @@ class _Replay:
             for name, count in self.graph_launches.items():
                 _build.LAUNCHES[name] += count
 
-    def _drive(self, in_flight: int) -> int:
+    def _drive(self, in_flight: int, limit: Optional[int] = None) -> int:
         """Launch iterations until the host reads a done flag: that of
-        iteration i - ``in_flight`` while iteration i is queued.  On a CUDA
-        device the flags come back through a pinned ring, each behind an
-        event; on the CPU each is read as it is set.  Returns the
-        iterations launched."""
+        iteration i - ``in_flight`` while iteration i is queued; at most
+        ``limit`` (None: ``max_iter``).  On a CUDA device the flags come
+        back through a pinned ring, each behind an event; on the CPU each
+        is read as it is set.  Returns the iterations launched."""
+        limit = self.max_iter if limit is None else limit
         cuda = self.points.is_cuda
         slots = in_flight + 1
         if cuda:
@@ -618,7 +637,7 @@ class _Replay:
             events = [torch.cuda.Event() for _ in range(slots)]
         flags = []
         launched = 0
-        while launched < self.max_iter:
+        while launched < limit:
             self._launch()
             if cuda:
                 ring[launched % slots].copy_(self.running, non_blocking=True)
@@ -647,7 +666,12 @@ class _DeviceLoop(_Replay):
     Every tensor the iteration reads or writes across iterations is made
     here, once, so that a captured iteration finds it at the same address
     on every replay.  An iteration that runs after convergence or
-    divergence (``running`` false) leaves every one of them as it was."""
+    divergence (``running`` false) leaves every one of them as it was.
+    The iteration counter ``it`` is absolute: a run starts at any ``start``
+    and stops at ``stop`` (both written before the first launch), so a
+    segment of a checkpointed fit, or a resumed fit, replays the graph
+    captured for the whole fit and indexes its draws and histories by the
+    uninterrupted fit's iteration."""
 
     def __init__(self, points, weights, step, gather, *, k: int,
                  max_iter: int, tolerance: float, empty_policy: str,
@@ -671,6 +695,7 @@ class _DeviceLoop(_Replay):
         self.shift_hist = torch.zeros((max_iter,), dtype=acc, device=dev)
         self.shift = torch.zeros((), dtype=acc, device=dev)
         self.it = torch.zeros((), dtype=torch.int64, device=dev)
+        self.stop = torch.full((), max_iter, dtype=torch.int64, device=dev)
         self.ok = torch.ones((), dtype=torch.bool, device=dev)
         self.running = torch.ones((), dtype=torch.bool, device=dev)
         self.table = (None if empty_policy == "keep" else torch.full(
@@ -745,32 +770,73 @@ class _DeviceLoop(_Replay):
         self.shift.copy_(torch.where(active, shift, self.shift))
         self.ok.copy_(self.ok & (ok | ~active))
         self.it.add_(active.to(torch.int64))
-        self.running.copy_((self.it < self.max_iter)
+        self.running.copy_((self.it < self.stop)
                            & (self.shift >= self.tolerance) & self.ok)
 
     def _reset(self, centroids0: torch.Tensor,
-               table: Optional[torch.Tensor]) -> None:
+               table: Optional[torch.Tensor], start: int = 0,
+               stop: Optional[int] = None) -> None:
+        """The state of a run of iterations ``start .. stop - 1``:
+        ``centroids0``, and ``table``, the refill rows of those iterations
+        (:func:`refill_table`), at their absolute rows."""
+        stop = self.max_iter if stop is None else stop
+        if not 0 <= start < stop <= self.max_iter:
+            raise ValueError(f"need 0 <= start < stop <= {self.max_iter}, "
+                             f"got start={start}, stop={stop}")
         self.cents.copy_(centroids0)
         for t in (self.counts, self.sse_hist, self.shift_hist, self.shift,
-                  self.it, self.flagged):
+                  self.flagged):
             t.zero_()
+        self.it.fill_(start)
+        self.stop.fill_(stop)
         self.ok.fill_(True)
         self.running.fill_(True)
         if table is not None:
-            self.table.copy_(table)
+            self.table[..., start:stop, :].copy_(table)
 
     def run(self, centroids0: torch.Tensor, table: Optional[torch.Tensor],
-            in_flight: int) -> FitResult:
-        """Reset the state to ``centroids0`` (and the refill ``table``),
-        then launch iterations until done (:meth:`_drive`)."""
-        self._reset(centroids0, table)
-        launched = self._drive(in_flight)
-        n = int(self.it)
+            in_flight: int, start: int = 0,
+            stop: Optional[int] = None) -> FitResult:
+        """Reset the state to ``centroids0`` at iteration ``start`` (and the
+        refill ``table`` of iterations ``start .. stop - 1``), then launch
+        iterations until done or at ``stop`` (:meth:`_drive`)."""
+        stop = self.max_iter if stop is None else stop
+        self._reset(centroids0, table, start, stop)
+        launched = self._drive(in_flight, stop - start)
+        end = int(self.it)
         return FitResult(
-            self.cents.clone(), n, _host_copy(self.sse_hist[:n]),
-            _host_copy(self.shift_hist[:n]), _host_copy(self.counts),
+            self.cents.clone(), end - start,
+            _host_copy(self.sse_hist[start:end]),
+            _host_copy(self.shift_hist[start:end]), _host_copy(self.counts),
             bool(self.ok), launched,
             int(self.flagged) if self.audit else None)
+
+
+def _oom_in_chain(e: BaseException):
+    """The ``torch.cuda.OutOfMemoryError`` that ``e`` is or was raised
+    while handling (a capture that fails may raise again as it ends), or
+    None."""
+    seen = set()
+    while e is not None and id(e) not in seen:
+        if isinstance(e, torch.cuda.OutOfMemoryError):
+            return e
+        seen.add(id(e))
+        e = e.__cause__ or e.__context__
+    return None
+
+
+def _run_evicting(ds: Dataset, key, loop: "_Replay", run: Callable):
+    """``run()`` on a loop kept in ``ds.memo`` under ``key``; when it raises
+    before the loop's iteration was captured (an out-of-memory error in
+    the first, eager iteration or in the capture), the loop leaves the
+    memo, so that its state and graph pool are freed and a retry (the
+    out-of-memory backoff's, at a smaller chunk) builds its own."""
+    try:
+        return run()
+    except BaseException:
+        if loop.graph is None:
+            ds.forget(key)
+        raise
 
 
 def _check_backend(mesh, ds: Dataset) -> None:
@@ -830,6 +896,11 @@ def make_fit_fn(mesh=None, *, chunk_size: int, mode: str = "matmul",
     under ``[seed, it + 1]``.  The loop's state and its captured graph are
     kept with the dataset (``Dataset.memo``), once per shape, mode, policy
     and ``history_sse``, so restarts and later fits on it replay them.
+    ``fit(..., start=, stop=)`` runs iterations ``start .. stop - 1`` only
+    (default: all of them): a segment of a checkpointed fit, or a resumed
+    fit, replays the same graph, its counter and its draws those of the
+    uninterrupted fit.  A run that fails before its iteration was captured
+    leaves no loop in the memo (:func:`_run_evicting`).
     ``in_flight``: see :data:`IN_FLIGHT` (None: that value).
 
     Under a ``mesh`` the step and the refill's row gather reduce over the
@@ -858,16 +929,25 @@ def make_fit_fn(mesh=None, *, chunk_size: int, mode: str = "matmul",
                            x2w=x2w, x2w_finite=x2w_finite, audit=guarded,
                            project=project)
 
-    def fit(ds: Dataset, centroids0: torch.Tensor, seed: int) -> FitResult:
+    # The kernel modes take every row of the block in one launch: without a
+    # model axis no chunk reaches the step, so the loop is one for every
+    # chunk (an out-of-memory backoff replays its graph).
+    loop_chunk = (None if mode in KERNEL_MODES and mesh_shape(mesh)[1] == 1
+                  else chunk_size)
+
+    def fit(ds: Dataset, centroids0: torch.Tensor, seed: int,
+            start: int = 0, stop: Optional[int] = None) -> FitResult:
         _check_backend(mesh, ds)
         k = centroids0.shape[0]
-        key = ("device_loop", mode, chunk_size, k, max_iter,
+        stop = max_iter if stop is None else stop
+        key = ("device_loop", mode, loop_chunk, k, max_iter,
                float(tolerance), empty_policy, need_sse, pipeline, project)
         loop = ds.memo(key, lambda: _make_loop(ds, step, k))
         table = (None if empty_policy == "keep" else
-                 refill_table(ds, empty_draw_keys(seed, max_iter), k))
-        return loop.run(centroids0, table,
-                        IN_FLIGHT if in_flight is None else in_flight)
+                 refill_table(ds, empty_draw_keys(seed, stop, start), k))
+        return _run_evicting(ds, key, loop, lambda: loop.run(
+            centroids0, table, IN_FLIGHT if in_flight is None else in_flight,
+            start, stop))
 
     return fit
 
@@ -1441,20 +1521,29 @@ class _MiniBatchLoop(_DeviceLoop):
         self.shift.copy_(torch.where(active, shift, self.shift))
         self.ok.copy_(self.ok & (ok | ~active))
         self.it.add_(active.to(torch.int64))
-        self.running.copy_((self.it < self.max_iter)
+        self.running.copy_((self.it < self.stop)
                            & (self.shift >= self.tolerance) & self.ok)
 
-    def _reset(self, centroids0: torch.Tensor, keys: np.ndarray) -> None:
-        super()._reset(centroids0, None)
-        self.seen.zero_()
+    def _reset(self, centroids0: torch.Tensor, keys: np.ndarray,
+               start: int = 0, stop: Optional[int] = None,
+               seen0: Optional[torch.Tensor] = None) -> None:
+        """The state of a run of iterations ``start .. stop - 1`` from
+        ``centroids0`` and the lifetime counts ``seen0`` (zeros: a fresh
+        fit); the hash words of every iteration, absolute."""
+        super()._reset(centroids0, None, start, stop)
+        if seen0 is None:
+            self.seen.zero_()
+        else:
+            self.seen.copy_(seen0)
         self.streams.copy_(minibatch_streams(
             torch.from_numpy(keys).to(self.streams.device), self.iters))
 
-    def result(self, launched: int) -> MiniBatchFitResult:
-        n = int(self.it)
+    def result(self, launched: int, start: int = 0) -> MiniBatchFitResult:
+        end = int(self.it)
         return MiniBatchFitResult(
-            self.cents.clone(), _host_copy(self.seen), n,
-            _host_copy(self.sse_hist[:n]), _host_copy(self.shift_hist[:n]),
+            self.cents.clone(), _host_copy(self.seen), end - start,
+            _host_copy(self.sse_hist[start:end]),
+            _host_copy(self.shift_hist[start:end]),
             _host_copy(self.counts), bool(self.ok), launched)
 
 
@@ -1484,8 +1573,14 @@ def make_minibatch_fit_fn(mesh=None, *, batch: int, mode: str = "matmul",
 
     ``host_loop=False`` launches iterations until the host reads a done
     flag, one captured CUDA graph per iteration on the card (the loop
-    state is kept with the dataset, ``Dataset.memo``).  ``host_loop=True``
-    launches the same iteration eagerly, one at a time, calls
+    state is kept with the dataset, ``Dataset.memo``).  ``fit(...,
+    start=, stop=, seen0=)`` runs iterations ``start .. stop - 1`` from
+    the lifetime counts ``seen0``: the draws and the reassignment cadence
+    are keyed by the absolute iteration, so a segment of a checkpointed
+    fit, or a resumed one, gives the uninterrupted fit's bits and replays
+    its graph.  ``on_iteration`` gets the absolute iteration.
+    ``host_loop=True`` launches the same iteration eagerly, one at a time,
+    calls
     ``on_iteration(loop, i)`` after each and reads its flag: the same
     operations on the same state, so both engines give the same bits in
     every dtype.  (The JAX package's per-iteration engine interpolates in
@@ -1500,7 +1595,8 @@ def make_minibatch_fit_fn(mesh=None, *, batch: int, mode: str = "matmul",
         need_sse=bool(history_sse))
 
     def fit(ds: Dataset, centroids0: torch.Tensor, seed: int,
-            on_iteration=None) -> MiniBatchFitResult:
+            on_iteration=None, start: int = 0, stop: Optional[int] = None,
+            seen0: Optional[torch.Tensor] = None) -> MiniBatchFitResult:
         if ds.mesh is not mesh:
             raise ValueError(f"the dataset was placed with mesh="
                              f"{ds.mesh!r}, the loop built for {mesh!r}")
@@ -1513,18 +1609,24 @@ def make_minibatch_fit_fn(mesh=None, *, batch: int, mode: str = "matmul",
             ds, step, k=k, max_iter=max_iter,
             tolerance=tolerance, need_sse=bool(history_sse),
             ratio=reassignment_ratio, every=reassign_every))
-        loop._reset(centroids0, minibatch_keys(seed))
-        if not host_loop:
-            return loop.result(loop._drive(IN_FLIGHT))
-        launched = 0
-        while launched < max_iter:
-            loop.iterate()
-            launched += 1
-            if on_iteration is not None:
-                on_iteration(loop, launched - 1)
-            if not bool(loop.running):
-                break
-        return loop.result(launched)
+        stop = max_iter if stop is None else stop
+
+        def run():
+            loop._reset(centroids0, minibatch_keys(seed), start, stop, seen0)
+            if not host_loop:
+                return loop.result(loop._drive(IN_FLIGHT, stop - start),
+                                   start)
+            launched = 0
+            while launched < stop - start:
+                loop.iterate()
+                launched += 1
+                if on_iteration is not None:
+                    on_iteration(loop, start + launched - 1)
+                if not bool(loop.running):
+                    break
+            return loop.result(launched, start)
+
+        return _run_evicting(ds, key, loop, run)
 
     return fit
 

@@ -87,7 +87,8 @@ import torch
 
 from kmeans_tpu_torch.ops.estep_kernels import diag_estep
 from kmeans_tpu_torch.parallel.distributed import (IN_FLIGHT, _check_backend,
-                                                   _host_copy, _Replay)
+                                                   _host_copy, _Replay,
+                                                   _run_evicting)
 from kmeans_tpu_torch.parallel.mesh import DATA_AXIS, all_reduce
 
 _LOG2PI = math.log(2.0 * math.pi)
@@ -529,7 +530,10 @@ class _EmMember:
     """One fit's state in a device EM loop: its carried tables (views of
     the loop's storage, at the fit's own k) and its iteration counter,
     convergence baseline, history and flags, each made once so that a
-    captured iteration finds them at the same address on every replay."""
+    captured iteration finds them at the same address on every replay.
+    The counter runs from ``start`` to at most ``stop`` (both written
+    before the first launch): a segment of a checkpointed fit replays the
+    graph captured for the whole fit."""
 
     def __init__(self, estats, m_step, means_c, cov, log_w, *,
                  max_iter: int, tol: float):
@@ -540,15 +544,19 @@ class _EmMember:
         self.prev = torch.zeros((), dtype=acc, device=dev)
         self.hist = torch.zeros((max_iter,), dtype=acc, device=dev)
         self.it = torch.zeros((), dtype=torch.int64, device=dev)
+        self.stop = torch.full((), max_iter, dtype=torch.int64, device=dev)
         self.conv = torch.zeros((), dtype=torch.bool, device=dev)
         self.ok = torch.ones((), dtype=torch.bool, device=dev)
         self.running = torch.ones((), dtype=torch.bool, device=dev)
         self.iters = torch.arange(max_iter, device=dev)
 
-    def reset(self, prev0: float) -> None:
+    def reset(self, prev0: float, start: int = 0,
+              stop: Optional[int] = None) -> None:
         self.prev.fill_(prev0)
-        for t in (self.hist, self.it, self.conv):
+        for t in (self.hist, self.conv):
             t.zero_()
+        self.it.fill_(start)
+        self.stop.fill_(self.max_iter if stop is None else stop)
         self.ok.fill_(True)
         self.running.fill_(True)
 
@@ -572,7 +580,7 @@ class _EmMember:
         self.ok.copy_(torch.where(active, torch.isfinite(ll), self.ok))
         self.prev.copy_(torch.where(active, ll, self.prev))
         self.it.add_(active.to(torch.int64))
-        self.running.copy_((self.it < self.max_iter) & ~self.conv & self.ok)
+        self.running.copy_((self.it < self.stop) & ~self.conv & self.ok)
 
 
 class _EmLoop(_Replay):
@@ -616,9 +624,11 @@ class _EmLoop(_Replay):
         self.running.copy_(torch.stack([m.running for m in self.members])
                            .any())
 
-    def reset(self, shift, means0, cov0, log_w0, prev0) -> None:
+    def reset(self, shift, means0, cov0, log_w0, prev0, start: int = 0,
+              stop: Optional[int] = None) -> None:
         """The fit's starting point: the stacked tables (their padding
-        rows too), the shift and, for 'tied', the total scatter."""
+        rows too), the shift, for 'tied' the total scatter, and the
+        iterations ``start .. stop - 1`` to run."""
         self.shift.copy_(shift)
         self.means.copy_(means0)
         self.cov.copy_(cov0)
@@ -627,7 +637,7 @@ class _EmLoop(_Replay):
             self.T.copy_(total_scatter(self.points, self.weights, self.shift,
                                        self.mesh))
         for m in self.members:
-            m.reset(prev0)
+            m.reset(prev0, start, stop)
         self.running.fill_(True)
 
 
@@ -640,6 +650,7 @@ class GmmFitResult(NamedTuple):
     n_iter: int               # iterations that ran
     ll_hist: np.ndarray       # (n_iter,) float64 of the recorded bounds
     converged: bool
+    prev: float               # the convergence baseline at the end
 
 
 def make_gmm_fit_fn(mesh=None, *, chunk_size: int, max_iter: int,
@@ -662,9 +673,15 @@ def make_gmm_fit_fn(mesh=None, *, chunk_size: int, max_iter: int,
     ``means0_c`` (k, D) centered, ``cov0`` (k, D) variances ('spherical'
     broadcast over D), (k, D, D) 'full' or (D, D) 'tied', ``log_w0`` (k,),
     all in the points' dtype; ``prev0`` seeds the convergence baseline
-    (``-inf`` fresh, the last lower bound on resume).  The loop's state
+    (``-inf`` fresh, the last lower bound on resume).  ``start`` and
+    ``stop`` (default 0 and ``max_iter``) run iterations ``start .. stop -
+    1`` of the fit: a segment of a checkpointed fit hands the next one its
+    carry tables as they are (tensors in the accumulation dtype, never a
+    host cast) and its baseline ``prev``, so the segments give the bits of
+    one run.  The loop's state
     and its captured graph are kept with the dataset (``Dataset.memo``),
-    once per shape and setting, so later fits on it replay them.  Under a
+    once per shape and setting, so later fits on it replay them; a run
+    that fails before its iteration was captured leaves none.  Under a
     ``mesh`` the statistics reduce over the data axis inside the
     iteration; on CUDA tensors the captured graph holds that collective,
     which needs NCCL."""
@@ -676,12 +693,16 @@ def make_gmm_fit_fn(mesh=None, *, chunk_size: int, max_iter: int,
         mesh, chunk_sizes=[chunk_size], max_iter=max_iter, tol=tol,
         reg_covar=reg_covar, cov_type=cov_type, mode=mode, pipeline=pipeline)
 
-    def fit(ds, shift, means0, cov0, log_w0, prev0) -> GmmFitResult:
+    def fit(ds, shift, means0, cov0, log_w0, prev0, start: int = 0,
+            stop: Optional[int] = None) -> GmmFitResult:
         res = multi(ds, shift, means0[None], cov0[None], log_w0[None],
-                    prev0=prev0, ks=[means0.shape[0]])
+                    prev0=prev0, ks=[means0.shape[0]], start=start,
+                    stop=stop)
         n = int(res.n_iters[0])
         return GmmFitResult(res.means_c[0], res.cov[0], res.log_w[0], n,
-                            res.ll_hist[0, :n], bool(res.converged[0]))
+                            res.ll_hist[0, :n], bool(res.converged[0]),
+                            float(res.ll_hist[0, n - 1]) if n
+                            else float(prev0))
 
     return fit
 
@@ -731,7 +752,8 @@ def make_gmm_multi_fit_fn(mesh=None, *, chunk_sizes: Sequence[int],
         raise ValueError(f"unknown E-step mode: {mode!r}")
 
     def fit(ds, shift, means0, cov0, log_w0, *, ks,
-            prev0: float = -np.inf) -> GmmMultiFitResult:
+            prev0: float = -np.inf, start: int = 0,
+            stop: Optional[int] = None) -> GmmMultiFitResult:
         _check_backend(mesh, ds)
         R = len(ks)
         chunks = list(chunk_sizes) if len(chunk_sizes) == R \
@@ -747,8 +769,13 @@ def make_gmm_multi_fit_fn(mesh=None, *, chunk_sizes: Sequence[int],
             estats_fns=estats,
             m_step=_m_step_fn(cov_type, reg_covar, tiny, pi_floor),
             max_iter=max_iter, tol=tol))
-        loop.reset(shift, means0, cov0, log_w0, prev0)
-        loop._drive(IN_FLIGHT)
+        stop = max_iter if stop is None else stop
+
+        def run():
+            loop.reset(shift, means0, cov0, log_w0, prev0, start, stop)
+            loop._drive(IN_FLIGHT, stop - start)
+
+        _run_evicting(ds, key, loop, run)
         members = loop.members
         prev = np.array([float(m.prev) for m in members])
         final = np.where(np.isfinite(prev), prev, -np.inf)
@@ -763,8 +790,8 @@ def make_gmm_multi_fit_fn(mesh=None, *, chunk_sizes: Sequence[int],
             scores = np.asarray(scores, np.float64)
         return GmmMultiFitResult(
             loop.means.clone(), loop.cov.clone(), loop.log_w.clone(),
-            np.array([int(m.it) for m in members]),
-            np.stack([_host_copy(m.hist) for m in members]),
+            np.array([int(m.it) - start for m in members]),
+            np.stack([_host_copy(m.hist[start:]) for m in members]),
             np.array([bool(m.conv) for m in members]), final,
             int(np.argmax(final)), scores)
 

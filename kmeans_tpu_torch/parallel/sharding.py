@@ -2,8 +2,9 @@
 
 Counterpart of ``kmeans_tpu/parallel/sharding.py`` (``ShardedDataset``,
 ``to_device``, ``from_process_local``, ``choose_chunk_size``,
-``clamp_chunk_for_k``, ``pad_points``): the points and their per-row
-weights are placed on the device once and stay there for the whole fit.
+``clamp_chunk_for_k``, ``backoff_chunk``, ``pad_points``): the points and
+their per-row weights are placed on the device once and stay there for the
+whole fit.
 When the data came from the host, the host copy is kept, which makes row
 sampling (Forgy seeding, empty-cluster resampling) a host draw with the same
 NumPy generators as the JAX package: the same seed picks the same rows in
@@ -85,6 +86,35 @@ def clamp_chunk_for_k(chunk: int, k: int,
         f"chunk_size to avoid the oversized tile", UserWarning,
         stacklevel=3)
     return small * 8
+
+
+#: The smallest chunk :func:`backoff_chunk` goes down to (the floor of
+#: :func:`choose_chunk_size`): below it the chunk is no remedy for an
+#: out-of-memory error.
+MIN_CHUNK = 128
+
+
+def backoff_chunk(chunk: int, floor: int = MIN_CHUNK) -> Optional[int]:
+    """The next chunk after an out-of-memory error: the largest divisor of
+    ``chunk`` that is at most ``chunk // 2`` and at least ``floor``, a
+    multiple of 8 where one exists (the JAX package's rule, a divisor like
+    :func:`clamp_chunk_for_k`'s so that a mesh's blocks, padded to whole
+    chunks, need no new padding).  None when no smaller chunk is left."""
+    if chunk <= floor:
+        return None
+    best_grid = best_any = None
+    i = 1
+    while i * i <= chunk:
+        if chunk % i == 0:
+            for cand in (i, chunk // i):
+                if floor <= cand <= chunk // 2:
+                    if cand % 8 == 0 and (best_grid is None
+                                          or cand > best_grid):
+                        best_grid = cand
+                    if best_any is None or cand > best_any:
+                        best_any = cand
+        i += 1
+    return best_grid if best_grid is not None else best_any
 
 
 def pad_points(x: np.ndarray, multiple: int, min_rows: int = 0
@@ -223,6 +253,10 @@ class Dataset:
         if key not in self._memo:
             self._memo[key] = make()
         return self._memo[key]
+
+    def forget(self, key) -> None:
+        """Drop what :meth:`memo` keeps for ``key`` (nothing if absent)."""
+        self._memo.pop(key, None)
 
     @property
     def device(self) -> torch.device:

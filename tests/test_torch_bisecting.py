@@ -21,6 +21,7 @@ torch.set_num_threads(1)
 import kmeans_tpu  # noqa: E402
 from kmeans_tpu_torch import BisectingKMeans, KMeans, convert  # noqa: E402
 from kmeans_tpu_torch.parallel import distributed as dist  # noqa: E402
+from kmeans_tpu_torch.utils import faults  # noqa: E402
 
 # (JAX arguments, port arguments, centroid atol, SSE and centroid rtol).
 PATHS = {
@@ -245,12 +246,23 @@ def test_unsplittable_raises():
 
 
 def test_unported_arguments_name_their_items(tmp_path):
+    """Checkpoints are ported (ROADMAP A.9): ``resume=True`` without a
+    split tree raises the JAX package's error, and a fit checkpointed at
+    every split, killed after split 1 and resumed from its file, builds the
+    uninterrupted tree; ``fit_stream`` and ``sweep`` still raise."""
     X, _ = _blobs(n=100)
-    with pytest.raises(NotImplementedError, match="A.9"):
+    with pytest.raises(ValueError, match="split-boundary checkpoint"):
         _port(k=2).fit(X, resume=True)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        _port(k=2).fit(X, checkpoint_every=1,
-                       checkpoint_path=tmp_path / "c")
+    full = _port(k=3).fit(X)
+    path = tmp_path / "c"
+    with faults.inject_kill_after_iteration(1):
+        with pytest.raises(faults.SimulatedPreemption):
+            _port(k=3).fit(X, checkpoint_every=1, checkpoint_path=path)
+    resumed = _port(k=3).fit(X, resume=path)
+    assert resumed.iterations_run == full.iterations_run == 2
+    np.testing.assert_array_equal(resumed.centroids, full.centroids)
+    np.testing.assert_array_equal(resumed.labels_, full.labels_)
+    np.testing.assert_array_equal(resumed.cluster_sse_, full.cluster_sse_)
     with pytest.raises(NotImplementedError, match="A.10"):
         _port(k=2).fit_stream(lambda: iter([]))
     with pytest.raises(NotImplementedError, match="sweep"):

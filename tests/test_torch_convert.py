@@ -298,10 +298,10 @@ def test_gmm_state_dispatch_and_dropped_arguments():
     back = convert.to_jax_state(pm)
     assert back["model_class"] == "GaussianMixture"
     assert back["host_loop"] is True and back["model_shards"] == 1
-    # The JAX package's device-loop tables and loop options: the tables are
-    # read as absent; the loop options are the port's own since the device
-    # EM loop came, kept and not dropped; an argument the port lacks still
-    # warns, once.
+    # The JAX package's device-loop tables and loop options: the tables
+    # (``dev_*``) are the port's own since its device EM loop checkpoints
+    # its carry, read and written back as they came; the loop options are
+    # kept and not dropped; an argument the port lacks still warns, once.
     state.update(host_loop=False, pipeline=1, bucket="auto",
                  dev_means_c=np.zeros((3, 4)), dev_cov=np.ones((3, 4)),
                  dev_log_w=np.zeros(3), dev_prev_ll=0.0,
@@ -316,7 +316,9 @@ def test_gmm_state_dispatch_and_dropped_arguments():
     back = convert.to_jax_state(again)
     assert back["host_loop"] is False and back["pipeline"] == 1
     assert not any(name.startswith("dev_") for name in vars(again))
-    assert not any(name.startswith("dev_") for name in back)
+    for name in ("dev_means_c", "dev_cov", "dev_log_w"):
+        np.testing.assert_array_equal(back[name], state[name])
+    assert back["dev_prev_ll"] == 0.0 and back["dev_cov_type"] == "diag"
     _same_gmm(again, jm, X)
     with pytest.raises(NotImplementedError, match="ROADMAP.md, A.11"):
         convert.from_jax_state({"model_class": "ProductQuantizer"},

@@ -162,6 +162,19 @@ def _world4(rank, out_dir):
                     **_fit_kw("host", "resample", "far3", inits)).fit(X)
         km.save(os.path.join(out_dir, "mesh.npz"))
         out["saved_labels"] = km.labels_
+        # A checkpointed fit on the data axis, killed on every rank at
+        # boundary 4 (after the one writer's rotating write).
+        from kmeans_tpu_torch.utils import faults
+        for loop in ("host", "device"):
+            path = os.path.join(out_dir, f"seg_{loop}.npz")
+            with faults.inject_kill_after_iteration(4) as rec:
+                try:
+                    KMeans(mesh=mesh, device="cpu",
+                           **_fit_kw(loop, "keep", "rows", inits)).fit(
+                        X, checkpoint_every=2, checkpoint_path=path)
+                except faults.SimulatedPreemption:
+                    pass
+            out["killed", loop] = rec["fired_at"]
         # Process-local rows: rank 0 the first LOCAL_ROWS, rank 1 the rest.
         mine = slice(0, LOCAL_ROWS) if rank == 0 else slice(LOCAL_ROWS, N)
         ds = from_process_local(X[mine], mesh, device="cpu",
@@ -579,6 +592,35 @@ def test_save_on_a_mesh_loads_on_one_device_and_in_jax(world4):
             meta["meta_mesh_model_shards"]) == (2, 1)
     jm = kmeans_tpu.KMeans.load(path)
     np.testing.assert_array_equal(np.asarray(jm.predict(X)), want)
+
+
+@pytest.mark.parametrize("loop", ["host", "device"])
+def test_checkpoint_on_a_data_axis_resumes_on_one_device(world4, loop):
+    """Two gloo ranks write one rotating checkpoint (the file and its
+    ``.prev``, no temporary left behind), both are killed at boundary 4,
+    and one device resumes from the file: the fit of one device, within
+    the float64 class."""
+    import kmeans_tpu_torch
+    from kmeans_tpu_torch.utils import checkpoint as pt_ckpt
+    results, tmp = world4
+    X, _, _, inits, _ = _inputs()
+    assert [out["killed", loop] for out in _ranks_of(results, "data2")] \
+        == [4, 4]
+    path = tmp / f"seg_{loop}.npz"
+    assert pt_ckpt.load_state(path)["iterations_run"] == 4
+    prev = pt_ckpt._load_state_at(pt_ckpt.prev_path(path))
+    assert prev["iterations_run"] == 2
+    assert (prev["meta_mesh_data_shards"], prev["meta_mesh_model_shards"]) \
+        == (2, 1)
+    assert not list(tmp.glob(f".seg_{loop}.npz.*.tmp"))
+    kw = _fit_kw(loop, "keep", "rows", inits)
+    full = kmeans_tpu_torch.KMeans(device="cpu", **kw).fit(X)
+    resumed = kmeans_tpu_torch.KMeans(device="cpu", **kw).fit(
+        X, resume=path)
+    assert resumed.iterations_run == full.iterations_run == 7
+    _close(resumed.centroids, full.centroids)
+    _close(np.asarray(resumed.sse_history), np.asarray(full.sse_history))
+    np.testing.assert_array_equal(resumed.labels_, full.labels_)
 
 
 @pytest.mark.parametrize("loop", ["host", "device"])

@@ -21,6 +21,8 @@ import kmeans_tpu_torch  # noqa: E402
 from kmeans_tpu.data.synthetic import make_blobs  # noqa: E402
 from kmeans_tpu_torch import convert  # noqa: E402
 from kmeans_tpu_torch.models import gmm as gmm_mod  # noqa: E402
+from kmeans_tpu_torch.utils import checkpoint as pt_ckpt  # noqa: E402
+from kmeans_tpu_torch.utils import faults  # noqa: E402
 
 K, D = 3, 5
 
@@ -314,9 +316,38 @@ def test_arguments_not_ported_yet_raise(kw):
                                   "checkpoint", "resume_path"])
 def test_entry_points_not_ported_yet_raise(call, tmp_path):
     """Each raises naming its ROADMAP item; ``sweep``, ported since, runs
-    a two-value sweep and returns its ``SweepResult``."""
+    a two-value sweep and returns its ``SweepResult``; ``checkpoint`` and
+    ``resume_path`` (ROADMAP A.9) write a rotating checkpoint every EM
+    iteration, and resume from a path to the bits of the uninterrupted
+    fit."""
     gm = kmeans_tpu_torch.GaussianMixture(n_components=2, device="cpu")
     X = np.zeros((10, 2), np.float32)
+    if call in ("checkpoint", "resume_path"):
+        X, _ = _data(n=200, centers=3, d=3, seed=6, dtype=np.float64)
+        kw = dict(n_components=3, device="cpu", max_iter=4, tol=0.0,
+                  init_params="random", seed=1, dtype=np.float64)
+        path = tmp_path / "c"
+        full = kmeans_tpu_torch.GaussianMixture(**kw).fit(X)
+        if call == "checkpoint":
+            gm = kmeans_tpu_torch.GaussianMixture(**kw).fit(
+                X, checkpoint_every=1, checkpoint_path=path)
+            assert gm.checkpoint_segments_ == 4
+            assert pt_ckpt.load_state(path)["n_iter_"] == 4
+            assert pt_ckpt._load_state_at(pt_ckpt.prev_path(path))[
+                "n_iter_"] == 3
+        else:
+            with faults.inject_kill_after_iteration(2):
+                with pytest.raises(faults.SimulatedPreemption):
+                    kmeans_tpu_torch.GaussianMixture(**kw).fit(
+                        X, checkpoint_every=2, checkpoint_path=path)
+            # ``max_iter`` more iterations on resume: 2 to reach 4.
+            gm = kmeans_tpu_torch.GaussianMixture(
+                **dict(kw, max_iter=2)).fit(X, resume=str(path) + ".npz")
+        assert gm.n_iter_ == full.n_iter_ == 4
+        assert gm.lower_bound_ == full.lower_bound_
+        np.testing.assert_array_equal(gm.means_, full.means_)
+        np.testing.assert_array_equal(gm.covariances_, full.covariances_)
+        return
     if call == "sweep":
         X, _ = _data(n=200, centers=3, d=3, seed=6, dtype=np.float32)
         res = kmeans_tpu_torch.GaussianMixture(

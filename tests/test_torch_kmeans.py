@@ -30,6 +30,7 @@ from kmeans_tpu_torch.models.kmeans import _LATER_ARGS  # noqa: E402
 from kmeans_tpu_torch.models.kmeans import \
     NumericalDivergenceError  # noqa: E402
 from kmeans_tpu_torch.parallel.sharding import Dataset  # noqa: E402
+from kmeans_tpu_torch.utils import checkpoint as pt_ckpt  # noqa: E402
 
 # (JAX arguments, port arguments, centroid atol) of the two compared paths.
 PATHS = {
@@ -293,11 +294,30 @@ def test_unported_arguments_raise(arg, value):
 @pytest.mark.parametrize("kw", [dict(resume=True),
                                 dict(checkpoint_every=2,
                                      checkpoint_path="x.npz")])
-def test_unported_fit_arguments_raise(kw):
-    X = _blobs(n=100, d=3, centers=3)
-    km = kmeans_tpu_torch.KMeans(k=3, device="cpu", verbose=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        km.fit(X, **kw)
+def test_unported_fit_arguments_raise(kw, tmp_path):
+    """``resume`` and the checkpoint knobs are ported (ROADMAP A.9): a fit
+    stopped at iteration 3 and resumed, and a fit checkpointed every 2
+    iterations (under ``tmp_path``), give the bits of the plain fit;
+    ``fit_stream`` still raises naming its item."""
+    X = _blobs(n=400, d=4, centers=6)     # 11 iterations to converge
+    opts = dict(k=12, device="cpu", verbose=False, max_iter=6,
+                tolerance=1e-12, compute_sse=True)
+    plain = kmeans_tpu_torch.KMeans(**opts).fit(X)
+    km = kmeans_tpu_torch.KMeans(**opts)
+    if "resume" in kw:
+        km.set_params(max_iter=3).fit(X)
+        assert km.iterations_run == 3
+        km.set_params(max_iter=6)
+    else:
+        kw = dict(kw, checkpoint_path=tmp_path / kw["checkpoint_path"])
+    km.fit(X, **kw)
+    np.testing.assert_array_equal(km.centroids, plain.centroids)
+    assert km.sse_history == plain.sse_history
+    assert km.iterations_run == plain.iterations_run == 6
+    if "checkpoint_path" in kw:
+        assert km.checkpoint_segments_ == 3
+        assert pt_ckpt.load_state(kw["checkpoint_path"])[
+            "iterations_run"] == 6
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         km.fit_stream(lambda: iter([X]))
 

@@ -30,6 +30,7 @@ torch.set_num_threads(1)
 import kmeans_tpu  # noqa: E402
 from kmeans_tpu_torch import KMeans, MiniBatchKMeans, convert  # noqa: E402
 from kmeans_tpu_torch.parallel import distributed as dist  # noqa: E402
+from kmeans_tpu_torch.utils import faults  # noqa: E402
 
 
 def _blobs(n=4000, d=8, centers=5, seed=2, dtype=np.float32, std=0.8):
@@ -420,11 +421,19 @@ def test_refusals_name_their_reasons(tmp_path):
         _port(batch_size=0)
     with pytest.raises(ValueError, match="reassignment_ratio"):
         _port(reassignment_ratio=-1)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        _port(k=3).fit(X, resume=True)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        _port(k=3).fit(X, checkpoint_every=2,
-                       checkpoint_path=tmp_path / "c")
+    # Checkpoints are ported (ROADMAP A.9): a fit checkpointed every 2
+    # iterations, killed after 2 and resumed from its file, gives the bits
+    # of the uninterrupted fit; the other items still raise.
+    kw = dict(k=3, max_iter=5, tolerance=1e-12, batch_size=64)
+    full = _port(**kw).fit(X)
+    with faults.inject_kill_after_iteration(2):
+        with pytest.raises(faults.SimulatedPreemption):
+            _port(**kw).fit(X, checkpoint_every=2,
+                            checkpoint_path=tmp_path / "c")
+    resumed = _port(**kw).fit(X, resume=tmp_path / "c")
+    assert resumed.iterations_run == full.iterations_run == 5
+    np.testing.assert_array_equal(resumed.centroids, full.centroids)
+    np.testing.assert_array_equal(resumed._seen, full._seen)
     with pytest.raises(NotImplementedError, match="A.10"):
         _port(k=3).fit_stream(lambda: iter([]))
     with pytest.raises(NotImplementedError, match="A.12"):

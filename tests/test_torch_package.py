@@ -28,6 +28,7 @@ MODULES = ["kmeans_tpu_torch", "kmeans_tpu_torch.convert",
            "kmeans_tpu_torch.experiments.exp_pallas_kernel",
            "kmeans_tpu_torch.metrics",
            "kmeans_tpu_torch.models.bisecting",
+           "kmeans_tpu_torch.models.fault_tolerance",
            "kmeans_tpu_torch.models.gmm",
            "kmeans_tpu_torch.models.init", "kmeans_tpu_torch.models.kmeans",
            "kmeans_tpu_torch.models.minibatch",
@@ -43,6 +44,7 @@ MODULES = ["kmeans_tpu_torch", "kmeans_tpu_torch.convert",
            "kmeans_tpu_torch.parallel.sharding",
            "kmeans_tpu_torch.suite", "kmeans_tpu_torch.sweep",
            "kmeans_tpu_torch.utils.checkpoint",
+           "kmeans_tpu_torch.utils.faults",
            "kmeans_tpu_torch.utils.logging",
            "kmeans_tpu_torch.utils.plotting",
            "kmeans_tpu_torch.utils.validation"]
