@@ -106,6 +106,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from kmeans_tpu_torch import (BisectingKMeans, GaussianMixture,  # noqa: E402
                               KMeans, MiniBatchKMeans, SphericalKMeans)
+from kmeans_tpu_torch.data.io import iter_npy_blocks  # noqa: E402
 from kmeans_tpu_torch.data.synthetic import make_blobs_device  # noqa: E402
 from kmeans_tpu_torch.experiments import exp_kernel_edits as kernel_edits  # noqa: E402,E501
 from kmeans_tpu_torch.experiments import exp_pallas_kernel as lab  # noqa: E402
@@ -2783,6 +2784,474 @@ FAULT_KILLS = {"fault_spherical": FAULT_SPHERE["kill"],
 # -------------------------------------------------------------------- timing
 
 
+# ---------------------------------------------------------------- streaming
+#
+# The streams (ROADMAP A.10): the main data written once as a .npy file and
+# read back in STREAM["rows"]-row blocks (``data.io.iter_npy_blocks``), each
+# block decoded and copied to the card by ``parallel.sharding.BlockStager``
+# (a pinned ring, a copy stream, an event per slot) in the prefetch thread,
+# then the model's step on the consumer's stream.
+
+STREAM = dict(rows=262_144, iters=5, prefetch=2)
+# The stream larger than the card: the main file OVERSIZE_REPEATS times over
+# in one epoch (96 x 1 GiB), peak allocated memory above the baseline under
+# OVERSIZE_PEAK_BYTES.
+OVERSIZE_REPEATS = 96
+OVERSIZE_PEAK_BYTES = 4 << 30
+# The streamed k-means|| fit's final SSE within this factor of the in-memory
+# k-means|| fit's (tests/test_torch_kmeans_parallel.py's class).
+QUALITY_FACTOR = 1.25
+STREAM_GMM_LL_RTOL = 1e-5
+STREAM_FULL = dict(iters=3, rows=131_072)
+STREAM_GLOVE_ROWS = 65_536
+
+
+def npy_of(x, path: Path) -> Path:
+    """The rows of a tensor on the card written as a .npy file."""
+    np.save(path, x.cpu().numpy())
+    return path
+
+
+def repeated_blocks(path: Path, rows: int, repeats: int):
+    """A ``make_blocks`` that reads the file ``repeats`` times over in one
+    epoch through one memory map (the page cache stands in for a disk of
+    ``repeats`` times the file)."""
+    def make_blocks():
+        arr = np.load(path, mmap_mode="r")
+        for _ in range(repeats):
+            for start in range(0, arr.shape[0], rows):
+                yield arr[start: start + rows]
+    return make_blocks
+
+
+def stream_fit(make_blocks, prefetch, **kw):
+    """``KMeans.fit_stream`` with the counters at 0 just before it and the
+    peak allocated memory measured from just before it: ``(model, seconds,
+    launches, peak bytes above the baseline)``."""
+    km = KMeans(verbose=False, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    km, seconds, launches = counted(
+        lambda: km.fit_stream(make_blocks, prefetch=prefetch))
+    return km, seconds, launches, torch.cuda.max_memory_allocated() - base
+
+
+def labels_outside_band(x, c_a, c_b) -> tuple:
+    """Rows whose nearest centroid (kernel 2) differs between two tables
+    of two fits, those of them outside the margin band of ops/compare.py
+    (on ``c_a``), and those of them that neither the band nor the move of
+    their two centroids between the tables explains: a row labelled a
+    under A and b under B has ``d_A(b) - d_A(a) <= e_a + e_b``, ``e_c =
+    2 ||x - c_A|| ||c_A - c_B|| + ||c_A - c_B||^2``, since no distance to
+    c moves by more than ``e_c`` between the tables."""
+    pred = dist.make_predict_fn(chunk_size=1 << 17, mode="kernel")
+    a = torch.from_numpy(np.ascontiguousarray(c_a)).to(DEV)
+    b = torch.from_numpy(np.ascontiguousarray(c_b)).to(DEV)
+    la, lb = pred(x, a), pred(x, b)
+    diff = (la != lb).nonzero().flatten()
+    xd, ad = x[diff].double(), a.double()
+    ia, ib = la[diff].long(), lb[diff].long()
+    margin = (((xd - ad[ib]) ** 2).sum(1) - ((xd - ad[ia]) ** 2).sum(1)).abs()
+    move = (ad - b.double()).norm(dim=1)
+    e_a = 2 * (xd - ad[ia]).norm(dim=1) * move[ia] + move[ia] ** 2
+    e_b = 2 * (xd - ad[ib]).norm(dim=1) * move[ib] + move[ib] ** 2
+    band = MARGIN_RTOL * ((xd * xd).sum(1) + (ad * ad).sum(1).max())
+    return (int(diff.numel()), int((margin > band).sum()),
+            int((margin > band + e_a + e_b).sum()))
+
+
+def phase_stream(x, c0, tmp):
+    """The main data as a stream (8 blocks) through ``KMeans.fit_stream``,
+    'auto' (kernel 1), STREAM["iters"] epochs, tolerance 1e-30, from the
+    main path's Forgy centroids ``c0``, 'keep' ('resample' draws from the
+    epoch's reservoir in a stream and from the dataset in memory): prefetch
+    0 and 2 bit-identical, and so under 'resample' (2 epochs); against the
+    in-memory fit from ``c0`` in the class of phase ``device_loop``
+    (iterations equal, final SSE within DEVICE_SSE_RTOL) and every label
+    that differs explained by the band or by the move of its centroids
+    (``labels_outside_band``: near ties flip where the float64 block sums
+    round otherwise than the kernel's one pass, and a flip moves its
+    centroids); kernel 1 exactly blocks x epochs;
+    seconds per epoch, the host-to-device rate and the peak allocated
+    memory above the baseline against (prefetch + 2) blocks plus the
+    tables.  Then the same in bf16 (phase ``stream_bf16``): kernel 1b
+    blocks x epochs, the final SSE within BF16_SSE_RATIO of the float32
+    stream's."""
+    path = npy_of(x, tmp / "main.npy")
+    blocks = -(-MAIN["n"] // STREAM["rows"])
+    make_blocks = iter_npy_blocks(path, STREAM["rows"])
+    kw = dict(k=MAIN["k"], max_iter=STREAM["iters"], tolerance=1e-30,
+              seed=42, compute_sse=True, init=c0, empty_cluster="keep")
+    mem = KMeans(verbose=False, **kw).fit(x)
+    block_bytes = STREAM["rows"] * MAIN["d"] * 4
+    tables = MAIN["k"] * (MAIN["d"] + 1) * 4 * 4
+    counts, fits = {}, {}
+    for prefetch in (0, STREAM["prefetch"]):
+        km, seconds, launches, peak = stream_fit(make_blocks, prefetch, **kw)
+        fits[prefetch] = km
+        path_name = f"stream_p{prefetch}"
+        counts[path_name] = {k: v for k, v in launches.items() if v}
+        epoch_s = statistics.median(km.iter_times_)
+        emit("stream", prefetch=prefetch, blocks=blocks,
+             block_rows=STREAM["rows"], iterations=km.iterations_run,
+             sse_history=km.sse_history, fit_seconds=seconds,
+             seconds_per_epoch=km.iter_times_,
+             median_seconds_per_epoch=epoch_s,
+             h2d_gb_per_s=MAIN["n"] * MAIN["d"] * 4 / epoch_s / 1e9,
+             peak_allocated_bytes=peak,
+             prefetch_plus_2_blocks_and_tables=(prefetch + 2) * block_bytes
+             + tables, launches=counts[path_name])
+        check(launches["fused_assign_reduce"] == blocks * STREAM["iters"],
+              f"stream p{prefetch}: kernel 1 launched "
+              f"{launches['fused_assign_reduce']} times, not "
+              f"{blocks} x {STREAM['iters']}")
+        # One more block than the ring holds: the step's sum w||x||^2
+        # temporary.
+        check(peak <= (prefetch + 3) * block_bytes + tables + (64 << 20),
+              f"stream p{prefetch}: peak {peak} bytes above the baseline")
+    a, b = fits[0], fits[STREAM["prefetch"]]
+    check(same_fit(a, b), "stream: prefetch 0 and 2 not bit-identical")
+    # 'resample' draws from the epoch's reservoir, offered the blocks on the
+    # consumer's side: prefetch does not move its draws either.
+    pair = [stream_fit(make_blocks, p, **dict(
+        kw, max_iter=2, empty_cluster="resample"))[0]
+        for p in (0, STREAM["prefetch"])]
+    emit("stream", empty_cluster="resample", iterations=2,
+         prefetch_bit_identical=same_fit(*pair),
+         empty_clusters_last_iteration=int(
+             (pair[0].cluster_sizes_ == 0).sum()))
+    check(same_fit(*pair), "stream: 'resample' prefetch 0 and 2 not "
+                           "bit-identical")
+    rel = abs(b.sse_history[-1] - mem.sse_history[-1]) / mem.sse_history[-1]
+    differ, outside, unexplained = labels_outside_band(x, b.centroids,
+                                                       mem.centroids)
+    emit("stream", against="in-memory fit", iterations=b.iterations_run,
+         memory_iterations=mem.iterations_run, final_sse_rel_diff=rel,
+         memory_sse_history=mem.sse_history,
+         max_centroid_diff=float(np.abs(b.centroids.astype(np.float64)
+                                        - mem.centroids).max()),
+         labels_differ=differ, labels_differ_outside_band=outside,
+         labels_differ_unexplained=unexplained,
+         memory_seconds_per_iteration=statistics.median(mem.iter_times_))
+    check(b.iterations_run == mem.iterations_run and rel <= DEVICE_SSE_RTOL
+          and unexplained == 0,
+          f"stream: against the in-memory fit: iterations "
+          f"{b.iterations_run} / {mem.iterations_run}, SSE {rel}, "
+          f"{unexplained} labels unexplained")
+
+    km16, seconds, launches, peak = stream_fit(
+        make_blocks, STREAM["prefetch"], distance_mode="pallas_bf16", **kw)
+    counts["stream_bf16"] = {k: v for k, v in launches.items() if v}
+    ratio = km16.sse_history[-1] / b.sse_history[-1]
+    emit("stream_bf16", iterations=km16.iterations_run,
+         sse_history=km16.sse_history, sse_ratio_to_f32_stream=ratio,
+         fit_seconds=seconds, seconds_per_epoch=km16.iter_times_,
+         peak_allocated_bytes=peak, launches=counts["stream_bf16"])
+    check(launches["fused_assign_reduce_bf16"] == blocks * STREAM["iters"]
+          and abs(ratio - 1.0) <= BF16_SSE_RATIO,
+          f"stream_bf16: launches {launches}, SSE ratio {ratio}")
+    return path, b, km16, counts
+
+
+def phase_stream_infer(x, path, models):
+    """``predict_stream`` (kernel 2 once per block) against ``predict``;
+    ``score_stream`` (kernel 1 once per block) against ``score`` to
+    SUMS_RTOL; ``transform_stream`` with prefetch 2 bit-equal to prefetch 0
+    on the first block; for the float32 and the bf16 stream model."""
+    blocks = -(-MAIN["n"] // STREAM["rows"])
+    make_blocks = iter_npy_blocks(path, STREAM["rows"])
+    block0 = np.load(path, mmap_mode="r")[: STREAM["rows"]]
+    counts = {}
+    for label, km in models.items():
+        bf16 = km._mode() == "kernel_bf16"
+        suffix = "_bf16" if bf16 else ""
+        labels, p_seconds, p_launches = counted(lambda: np.concatenate(
+            list(km.predict_stream(make_blocks))))
+        want = km.predict(x)
+        equal = int((labels == want).sum())
+        differ, outside = label_band(
+            x, torch.from_numpy(km.centroids).to(DEV),
+            torch.from_numpy(labels).to(DEV), torch.from_numpy(want).to(DEV),
+            bf16=bf16)
+        sse, s_seconds, s_launches = counted(
+            lambda: -km.score_stream(make_blocks))
+        ref = -km.score(x)
+        tiles = [list(km.transform_stream(lambda: iter([block0]),
+                                          prefetch=p)) for p in (0, 2)]
+        t_equal = all(np.array_equal(u, v) for u, v in zip(*tiles))
+        del tiles
+        counts[label + "_predict"] = {k: v for k, v in p_launches.items()
+                                      if v}
+        counts[label + "_score"] = {k: v for k, v in s_launches.items() if v}
+        emit("stream_infer", model=label, predict_seconds=p_seconds,
+             rows_per_second=MAIN["n"] / p_seconds,
+             labels_equal_to_predict=equal, labels_differ=differ,
+             labels_differ_outside_band=outside, score_stream=sse,
+             score=ref, score_rel_diff=abs(sse - ref) / ref,
+             score_seconds=s_seconds, transform_prefetch_bit_equal=t_equal,
+             predict_launches=counts[label + "_predict"],
+             score_launches=counts[label + "_score"])
+        check(p_launches["hopper_assign" + suffix] == blocks
+              and s_launches["fused_assign_reduce" + suffix] == blocks
+              and outside == 0 and abs(sse - ref) <= cmp.SUMS_RTOL * ref
+              and t_equal,
+              f"stream_infer {label}: launches {p_launches} / "
+              f"{s_launches}, {outside} labels outside the band, score "
+              f"{sse} against {ref}, transform bit-equal {t_equal}")
+    return counts
+
+
+def phase_stream_init(x, path):
+    """Streamed Forgy and streamed k-means|| at k = 1024 over the main
+    stream (seconds, kernel 2 launches: none, and blocks x (1 + rounds +
+    1)); then STREAM["iters"] epochs from the streamed k-means|| centres,
+    whose final SSE (one ``score`` pass) lies within QUALITY_FACTOR of the
+    in-memory k-means|| fit's, beside the in-memory k-means++ fit's."""
+    blocks = -(-MAIN["n"] // STREAM["rows"])
+    make_blocks = iter_npy_blocks(path, STREAM["rows"])
+    d, k = MAIN["d"], MAIN["k"]
+    (forgy, _), f_seconds, f_launches = counted(
+        lambda: seeding.streamed_forgy_init(make_blocks, k, [42], d,
+                                            np.float32))
+    (par, _), p_seconds, p_launches = counted(
+        lambda: seeding.streamed_kmeans_parallel_init(
+            make_blocks, k, [42], d, np.float32, mode="kernel"))
+    check(f_launches["hopper_assign"] == 0
+          and p_launches["hopper_assign"] == blocks * 7
+          and len(np.unique(par[0], axis=0)) == k,
+          f"stream_init: kernel 2 launches {f_launches['hopper_assign']} "
+          f"and {p_launches['hopper_assign']}")
+    kw = dict(k=k, max_iter=STREAM["iters"], tolerance=1e-30, seed=42,
+              compute_sse=True, verbose=False)
+    streamed = KMeans(init=par[0], **kw).fit_stream(make_blocks)
+    fits = {"stream_kmeans_parallel": -streamed.score(x)}
+    for init in ("k-means||", "k-means++"):
+        fits[init] = -KMeans(init=init, **kw).fit(x).score(x)
+    ratio = fits["stream_kmeans_parallel"] / fits["k-means||"]
+    emit("stream_init", forgy_seconds=f_seconds, forgy_kernel2_launches=0,
+         kmeans_parallel_seconds=p_seconds,
+         kmeans_parallel_kernel2_launches=p_launches["hopper_assign"],
+         final_sse=fits, ratio_to_in_memory_kmeans_parallel=ratio)
+    check(1 / QUALITY_FACTOR <= ratio <= QUALITY_FACTOR,
+          f"stream_init: final SSE ratio {ratio}")
+    return {"stream_init": {k2: v for k2, v in p_launches.items() if v}}
+
+
+def phase_stream_oversize(x, path, c0):
+    """The main file OVERSIZE_REPEATS times over in one epoch (201,326,592
+    rows, 96 GiB, more than the card holds): ``fit_stream(max_iter=1)``,
+    prefetch 2, 'keep', from ``c0``.  Every row gets the same label in any
+    block, so the sums and counts are 96 times the single pass and the
+    centroids equal the in-memory one-iteration fit's within ops/compare.py's
+    sums rule; kernel 1 launches 8 x 96; the peak allocated memory above
+    the baseline under OVERSIZE_PEAK_BYTES."""
+    blocks = -(-MAIN["n"] // STREAM["rows"]) * OVERSIZE_REPEATS
+    kw = dict(k=MAIN["k"], max_iter=1, seed=42, init=c0,
+              empty_cluster="keep")
+    mem = KMeans(verbose=False, **kw).fit(x)
+    km, seconds, launches, peak = stream_fit(
+        repeated_blocks(path, STREAM["rows"], OVERSIZE_REPEATS),
+        STREAM["prefetch"], **kw)
+    rows = MAIN["n"] * OVERSIZE_REPEATS
+    close_ok = cmp.sums_close(torch.from_numpy(km.centroids.astype(
+        np.float64)), torch.from_numpy(mem.centroids.astype(np.float64)))
+    emit("stream_oversize", repeats=OVERSIZE_REPEATS, rows=rows,
+         bytes=rows * MAIN["d"] * 4, blocks=blocks, seconds=seconds,
+         gb_per_s=rows * MAIN["d"] * 4 / seconds / 1e9,
+         rows_per_s=rows / seconds, peak_allocated_bytes=peak,
+         kernel1_launches=launches["fused_assign_reduce"],
+         max_centroid_diff=float(np.abs(km.centroids.astype(np.float64)
+                                        - mem.centroids).max()),
+         centroids_within_sums_rule=close_ok)
+    check(launches["fused_assign_reduce"] == blocks and close_ok
+          and peak < OVERSIZE_PEAK_BYTES,
+          f"stream_oversize: launches {launches}, centroids close "
+          f"{close_ok}, peak {peak}")
+    return {"stream_oversize": {k: v for k, v in launches.items() if v}}
+
+
+def phase_gmm_stream(x_gmm, tmp):
+    """The mixture data as a stream (8 blocks), 'diag', float32,
+    GMM["iters"] EM epochs from the same ``means_init`` as an in-memory
+    host-loop fit: the lower bound within STREAM_GMM_LL_RTOL, prefetch 0
+    and 2 bit-identical, ``diag_estep`` once per block of the hard epoch
+    and of each EM epoch; then 'full' at FULL's shape, 3 epochs, against
+    its in-memory fit."""
+    path = npy_of(x_gmm, tmp / "gmm.npy")
+    blocks = -(-GMM["n"] // STREAM["rows"])
+    gen = torch.Generator(device=DEV).manual_seed(23)
+    pick = torch.randperm(GMM["n"], generator=gen, device=DEV)[:GMM["k"]]
+    means0 = x_gmm[pick].double().cpu().numpy()
+    kw = dict(n_components=GMM["k"], max_iter=GMM["iters"], tol=0.0,
+              means_init=means0)
+    mem = GaussianMixture(**kw).fit(x_gmm)
+    fits, counts = {}, {}
+    for prefetch in (0, STREAM["prefetch"]):
+        gm = GaussianMixture(**kw)
+        gm, seconds, launches = counted(lambda: gm.fit_stream(
+            iter_npy_blocks(path, STREAM["rows"]), prefetch=prefetch))
+        fits[prefetch] = gm
+        counts[f"gmm_stream_p{prefetch}"] = {k: v for k, v in
+                                             launches.items() if v}
+        want = blocks * (1 + GMM["iters"])
+        rel = abs(gm.lower_bound_ - mem.lower_bound_) / abs(mem.lower_bound_)
+        emit("gmm_stream", covariance_type="diag", prefetch=prefetch,
+             fit_seconds=seconds, seconds_per_epoch=gm.iter_times_,
+             lower_bound=gm.lower_bound_, memory_lower_bound=mem.lower_bound_,
+             rel_diff=rel, estep_path=gm.estep_path_,
+             diag_estep_launches=launches["diag_estep"],
+             expected_diag_estep_launches=want,
+             memory_seconds_per_iteration=statistics.median(mem.iter_times_))
+        check(launches["diag_estep"] == want and rel <= STREAM_GMM_LL_RTOL,
+              f"gmm_stream p{prefetch}: {launches['diag_estep']} launches "
+              f"(want {want}), lower bound {rel} from the in-memory fit")
+    check(same_mixture(fits[0], fits[STREAM["prefetch"]]),
+          "gmm_stream: prefetch 0 and 2 not bit-identical")
+
+    x_full = full_data()
+    path_full = npy_of(x_full, tmp / "full.npy")
+    km = KMeans(k=FULL["k"], max_iter=5, seed=3, verbose=False).fit(x_full)
+    kw = dict(n_components=FULL["k"], covariance_type="full",
+              max_iter=STREAM_FULL["iters"], tol=0.0,
+              means_init=km.centroids.astype(np.float64))
+    mem = GaussianMixture(**kw).fit(x_full)
+    gm = GaussianMixture(**kw)
+    gm, seconds, launches = counted(lambda: gm.fit_stream(
+        iter_npy_blocks(path_full, STREAM_FULL["rows"])))
+    rel = abs(gm.lower_bound_ - mem.lower_bound_) / abs(mem.lower_bound_)
+    emit("gmm_stream", covariance_type="full", n=FULL["n"], d=FULL["d"],
+         k=FULL["k"], fit_seconds=seconds, seconds_per_epoch=gm.iter_times_,
+         lower_bound=gm.lower_bound_, memory_lower_bound=mem.lower_bound_,
+         rel_diff=rel,
+         memory_seconds_per_iteration=statistics.median(mem.iter_times_))
+    check(rel <= STREAM_GMM_LL_RTOL and gm.n_iter_ == mem.n_iter_,
+          f"gmm_stream full: lower bound {rel} from the in-memory fit")
+    return counts
+
+
+def phase_stream_faults(path, c0, ref, tmp):
+    """On the main stream: one ``OSError`` injected into the read of block
+    3, ``io_retries=2``: bit-identical to the clean stream ``ref`` (phase
+    ``stream``), ``io_retries_used_ == 1``; a NaN block: 'error' names it,
+    'skip' counts it (one epoch); ``checkpoint_every=2`` killed after epoch
+    4 and resumed from its path: bit-identical to ``ref``."""
+    make_blocks = iter_npy_blocks(path, STREAM["rows"])
+    kw = dict(k=MAIN["k"], max_iter=STREAM["iters"], tolerance=1e-30,
+              seed=42, compute_sse=True, init=c0, empty_cluster="keep",
+              verbose=False)
+    flaky = faults.flaky_blocks(make_blocks, fail_block=3, fail_times=1)
+    km, seconds, launches = counted(lambda: KMeans(**kw).fit_stream(
+        flaky, io_retries=2, io_backoff=0.0))
+    retried = same_fit(km, ref) and km.io_retries_used_ == 1
+    poisoned = faults.poison_blocks(make_blocks, block=2)
+    try:
+        KMeans(**dict(kw, max_iter=1)).fit_stream(poisoned)
+        named = False
+    except ValueError as e:
+        named = "streamed block 2" in str(e)
+    skipped = KMeans(**dict(kw, max_iter=1)).fit_stream(
+        poisoned, on_nonfinite="skip")
+    ck = tmp / "stream_ck"
+    killed_launches = killed(lambda: KMeans(**kw).fit_stream(
+        make_blocks, checkpoint_every=2, checkpoint_path=ck), 4,
+        "stream_faults")
+    resumed, r_seconds, r_launches = counted(lambda: KMeans(**kw).fit_stream(
+        make_blocks, resume=ck, checkpoint_every=2, checkpoint_path=ck))
+    blocks = -(-MAIN["n"] // STREAM["rows"])
+    emit("stream_faults", retried_bit_identical=retried,
+         io_retries_used=km.io_retries_used_, retried_seconds=seconds,
+         nan_block_named=named, blocks_skipped=skipped.blocks_skipped_,
+         killed_kernel1_launches=killed_launches["fused_assign_reduce"],
+         resumed_kernel1_launches=r_launches["fused_assign_reduce"],
+         resumed_bit_identical=same_fit(resumed, ref),
+         resumed_seconds=r_seconds)
+    check(retried and named and skipped.blocks_skipped_ == 1
+          and same_fit(resumed, ref)
+          and killed_launches["fused_assign_reduce"] == 4 * blocks
+          and r_launches["fused_assign_reduce"] == blocks,
+          "stream_faults: a recovery is not bit-identical or not counted")
+    return {"stream_faults": {k: v for k, v in launches.items() if v}}
+
+
+def phase_stream_spherical(x_glove, tmp):
+    """The GloVe-like data as a stream of STREAM_GLOVE_ROWS-row blocks,
+    normalised block by block, ``SphericalKMeans.fit_stream`` at k = 3000,
+    SPHERE_ITERS epochs, against the in-memory fit from the same init
+    (iterations equal, final SSE within DEVICE_SSE_RTOL, every label that
+    differs explained as in phase ``stream``); kernel 1 once per block and
+    epoch."""
+    path = npy_of(x_glove, tmp / "glove.npy")
+    blocks = -(-SECOND["n"] // STREAM_GLOVE_ROWS)
+    gen = torch.Generator(device=DEV).manual_seed(24)
+    pick = torch.randperm(SECOND["n"], generator=gen, device=DEV)
+    c0 = x_glove[pick[:SECOND["k"]]].cpu().numpy()
+    kw = dict(k=SECOND["k"], max_iter=SPHERE_ITERS, tolerance=1e-30,
+              seed=42, compute_sse=True, init=c0, empty_cluster="keep",
+              verbose=False)
+    mem = SphericalKMeans(**kw).fit(x_glove)
+    km = SphericalKMeans(**kw)
+    km, seconds, launches = counted(lambda: km.fit_stream(
+        iter_npy_blocks(path, STREAM_GLOVE_ROWS)))
+    rel = abs(km.sse_history[-1] - mem.sse_history[-1]) / mem.sse_history[-1]
+    differ, outside, unexplained = labels_outside_band(
+        km.cache(x_glove).points, km.centroids, mem.centroids)
+    emit("stream_spherical", blocks=blocks, iterations=km.iterations_run,
+         final_sse_rel_diff=rel, labels_differ=differ,
+         labels_differ_outside_band=outside,
+         labels_differ_unexplained=unexplained, fit_seconds=seconds,
+         seconds_per_epoch=km.iter_times_,
+         kernel1_launches=launches["fused_assign_reduce"])
+    check(km.iterations_run == mem.iterations_run and rel <= DEVICE_SSE_RTOL
+          and unexplained == 0
+          and launches["fused_assign_reduce"] == blocks * SPHERE_ITERS,
+          f"stream_spherical: iterations {km.iterations_run} / "
+          f"{mem.iterations_run}, SSE {rel}, {unexplained} unexplained, "
+          f"launches {launches}")
+    return {"stream_spherical": {k: v for k, v in launches.items() if v}}
+
+
+def phase_streams(x, x_gmm, x_glove, c0, tmp):
+    """Every stream phase; the main file stays for ``dp_world1``.  Returns
+    the launches by path and ``(path, the prefetch-2 float32 stream fit)``,
+    the reference of ``dp_world1``'s streamed fit."""
+    path, ref, ref16, counts = phase_stream(x, c0, tmp)
+    counts.update(phase_stream_infer(x, path, {"stream": ref,
+                                               "stream_bf16": ref16}))
+    counts.update(phase_stream_init(x, path))
+    counts.update(phase_stream_oversize(x, path, c0))
+    counts.update(phase_gmm_stream(x_gmm, tmp))
+    counts.update(phase_stream_faults(path, c0, ref, tmp))
+    counts.update(phase_stream_spherical(x_glove, tmp))
+    for name in ("gmm.npy", "full.npy", "glove.npy"):
+        (tmp / name).unlink()
+    return counts, (path, c0, ref)
+
+
+def _dp_world1_stream(mesh, path, c0, ref):
+    """The float32 stream of phase ``stream`` on the one-rank NCCL mesh (the
+    statistics' packed SUM an NCCL ``all_reduce`` per block), prefetch 2,
+    bit for bit against the one-device stream ``ref``; kernel 1 once per
+    block and epoch."""
+    blocks = -(-MAIN["n"] // STREAM["rows"])
+    km = KMeans(k=MAIN["k"], max_iter=STREAM["iters"], tolerance=1e-30,
+                seed=42, compute_sse=True, init=c0, empty_cluster="keep",
+                verbose=False, mesh=mesh)
+    km, seconds, launches = counted(lambda: km.fit_stream(
+        iter_npy_blocks(path, STREAM["rows"]), prefetch=STREAM["prefetch"]))
+    launches = {k: v for k, v in launches.items() if v}
+    emit("dp_world1", model="KMeans", stream=True,
+         bit_identical=same_fit(km, ref), fit_seconds=seconds,
+         seconds_per_epoch=km.iter_times_,
+         one_device_seconds_per_epoch=ref.iter_times_, launches=launches)
+    check(same_fit(km, ref)
+          and launches.get("fused_assign_reduce", 0)
+          == blocks * STREAM["iters"],
+          f"dp_world1 stream: not bit-identical to one device, or "
+          f"launches {launches}")
+    return launches
+
+
 def median_ms(fn, runs=10, warmup=2) -> float:
     for _ in range(warmup):
         fn()
@@ -3504,7 +3973,7 @@ def phase_dp_gmm(results, gm, x_gmm, full_ref):
     return counts
 
 
-def phase_dp_world1(x, refs, minibatch_ref, x_gmm, gmm_ref):
+def phase_dp_world1(x, refs, minibatch_ref, x_gmm, gmm_ref, stream_ref):
     """One NCCL rank in this process (a FileStore under a temp directory):
     the main data on a mesh of one rank, float32 and bf16, by the host loop
     and the device loop (whose captured graph then holds the NCCL
@@ -3514,7 +3983,9 @@ def phase_dp_world1(x, refs, minibatch_ref, x_gmm, gmm_ref):
     gather an NCCL ``all_reduce`` inside the graph) bit for bit against the
     one-device loop of phase ``minibatch``, and the mixture's device EM
     loop (the E-step's reduction an NCCL ``all_reduce`` inside the graph)
-    bit for bit against the one-device loop of phase ``gmm_device``.
+    bit for bit against the one-device loop of phase ``gmm_device``, and
+    the float32 stream of phase ``stream`` bit for bit against its
+    one-device fit.
     Seconds per iteration beside
     the one-device figure: the cost of the collectives at world 1.  The
     process group is gone when it returns."""
@@ -3567,6 +4038,8 @@ def phase_dp_world1(x, refs, minibatch_ref, x_gmm, gmm_ref):
                 x, mesh, minibatch_ref)
             counts["dp_world1:gmm:device"] = _dp_world1_gmm(x_gmm, mesh,
                                                             gmm_ref)
+            counts["dp_world1:stream"] = _dp_world1_stream(mesh,
+                                                           *stream_ref)
         finally:
             torch.distributed.destroy_process_group()
     return counts
@@ -3816,8 +4289,16 @@ def main() -> None:
         fault_counts.update(phase_divergence_rollback(x_main, x_gmm, tmp))
         fault_counts.update(phase_fault_families(
             x_main, x2, x_gmm, tmp, {"bisecting": bisect_ref}))
-    del x2
     fault_counts.update(phase_oom_real(x_main))
+
+    # Streaming: the main data, the mixture data and the GloVe-like data
+    # written as .npy files and read back block by block.
+    stream_dir = tempfile.TemporaryDirectory()
+    stream_tmp = Path(stream_dir.name)
+    c0 = km._init_centroids(km.cache(x_main), km.seed)
+    stream_counts, stream_ref = phase_streams(x_main, x_gmm, x2, c0,
+                                              stream_tmp)
+    del x2
 
     rows = phase_timing(x_main, c_main, errs, launches,
                         {"main": statistics.median(km.iter_times_),
@@ -3847,7 +4328,8 @@ def main() -> None:
         ("f32", "host"): km, ("bf16", "host"): km_bf16,
         ("f32", "device"): device_models["main_device"],
         ("bf16", "device"): device_models["main_bf16_device"]},
-        minibatch_ref, x_gmm, gmm_dev))
+        minibatch_ref, x_gmm, gmm_dev, stream_ref))
+    stream_dir.cleanup()
     phase_suite()
     for row in rows:
         row["mesh_launches"] = {path: c[row["name"]]
@@ -3864,6 +4346,9 @@ def main() -> None:
             if c.get(row["name"], 0) > 0}
         row["fault_tolerance_launches"] = {
             path: c[row["name"]] for path, c in fault_counts.items()
+            if c.get(row["name"], 0) > 0}
+        row["stream_launches"] = {
+            path: c[row["name"]] for path, c in stream_counts.items()
             if c.get(row["name"], 0) > 0}
 
     emit("total", seconds=time.perf_counter() - started)

@@ -4,7 +4,9 @@
 ``SphericalKMeans``, fit and predict through hand-written CUDA kernels
 (``ops.hopper_kernels``), and ``GaussianMixture`` (all four covariance
 types; the 'diag' and 'spherical' E-step is a hand-written CUDA kernel,
-``ops.estep_kernels``), on one card or a ``torch.distributed`` mesh.
+``ops.estep_kernels``), on one card or a ``torch.distributed`` mesh, from
+data in memory or streamed block by block from files larger than the card
+(``fit_stream`` and the inference streams; ``data.io``, ``data.prefetch``).
 Imports ``torch`` and ``numpy`` only.
 """
 

@@ -30,7 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from kmeans_tpu_torch.models.kmeans import KMeans, _later
+from kmeans_tpu_torch.models.kmeans import KMeans
 from kmeans_tpu_torch.parallel import distributed as dist
 from kmeans_tpu_torch.parallel.mesh import is_primary
 from kmeans_tpu_torch.parallel.sharding import (ShardedDataset,
@@ -314,5 +314,12 @@ class BisectingKMeans(KMeans):
         return {"bisecting_strategy": state.get("bisecting_strategy",
                                                 "biggest_sse")}
 
-    def fit_stream(self, *args, **kwargs):
-        raise _later("fit_stream", "...", "A.10 'Streaming and ingest'")
+    def fit_stream(self, make_blocks, *, d=None, resume=False,
+                   prefetch=2, **kwargs):
+        """Refused by design, as in the JAX package: the split tree's
+        2-means fits need random access to the rows, which a stream cannot
+        serve, and the inherited ``fit_stream`` would run flat Lloyd."""
+        raise NotImplementedError(
+            "BisectingKMeans does not support fit_stream (the split tree "
+            "needs the full dataset resident); use KMeans.fit_stream for a "
+            "flat out-of-core fit")

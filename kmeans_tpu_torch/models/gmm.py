@@ -21,6 +21,12 @@ summed over the axis).  The data is placed on the device once.  Two loops:
   by tolerance, not bit for bit (the M-step's dtype differs), as in the JAX
   package.
 
+``fit_stream`` is the host loop over a stream of host blocks that never
+resides on the device at once: one E pass per block (``diag_estep`` or the
+torch pass), the statistics summed in float64 on the host, the float64
+M-step; ``predict_stream`` and ``score_samples_stream`` label and score
+block by block.
+
 Every E pass works in a frame centered on the data's weighted mean
 (``shift_``), so that ``S2/R - mu^2`` does not cancel for data far from the
 origin; the shift is added back to the means.
@@ -54,6 +60,7 @@ of the uninterrupted one.  ``covariances_`` has sklearn's shape per type:
 
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 import warnings
@@ -73,7 +80,8 @@ from kmeans_tpu_torch.parallel.mesh import (DATA_AXIS, all_reduce,
                                             check_mesh, group_up,
                                             is_primary, make_mesh,
                                             mesh_shape)
-from kmeans_tpu_torch.parallel.sharding import (Dataset, ShardedDataset,
+from kmeans_tpu_torch.parallel.sharding import (BlockStager, Dataset,
+                                                ShardedDataset,
                                                 choose_em_chunk, to_device,
                                                 weighted_mean)
 from kmeans_tpu_torch.utils import checkpoint as ckpt
@@ -120,6 +128,17 @@ def estep_mode(device_type: str, dtype, covariance_type: str) -> str:
 def _is_allowed(value, allowed) -> bool:
     return any(value is a or (type(value) is type(a) and value == a)
                for a in allowed)
+
+
+class _StreamRestart:
+    """One restart of a streamed EM fit."""
+
+    def __init__(self):
+        self.done = False
+        self.failed = False
+        self.prev = -np.inf
+        self.ll = -np.inf
+        self.n_iter = 0
 
 
 class GaussianMixture(AutoCheckpointMixin):
@@ -253,6 +272,8 @@ class GaussianMixture(AutoCheckpointMixin):
         self.checkpoint_segments_: Optional[int] = None
         self.oom_backoffs_ = 0
         self.effective_chunk_: Optional[int] = None
+        self.io_retries_used_ = 0
+        self.blocks_skipped_ = 0
         self._total_scatter: Optional[np.ndarray] = None
         # The device loop's raw carry (``dev_*`` in a checkpoint), or None.
         self._dev_tables: Optional[dict] = None
@@ -316,15 +337,19 @@ class GaussianMixture(AutoCheckpointMixin):
 
     def _step_fn(self, ds: Dataset, mode: str, pipeline: int):
         """The E-step of this covariance type on ``ds``."""
-        chunk = self._chunk(ds)
+        return self._make_step(ds.mesh, self._chunk(ds), mode, pipeline)
+
+    def _make_step(self, mesh, chunk: int, mode: str, pipeline: int):
+        """The E-step of this covariance type over rows of ``mesh`` in
+        chunks of ``chunk`` rows: ``diag_estep`` in the kernel mode."""
         ct = self.covariance_type
         if ct == "full":
-            return make_gmm_step_full_fn(ds.mesh, chunk_size=chunk,
+            return make_gmm_step_full_fn(mesh, chunk_size=chunk,
                                          pipeline=pipeline)
         if ct == "tied":
-            return make_gmm_step_tied_fn(ds.mesh, chunk_size=chunk,
+            return make_gmm_step_tied_fn(mesh, chunk_size=chunk,
                                          pipeline=pipeline)
-        return make_gmm_step_fn(ds.mesh, chunk_size=chunk, mode=mode,
+        return make_gmm_step_fn(mesh, chunk_size=chunk, mode=mode,
                                 pipeline=pipeline)
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
@@ -468,10 +493,17 @@ class GaussianMixture(AutoCheckpointMixin):
 
     @staticmethod
     def _host(st):
-        """The statistics as float64 host arrays: ``EStatsFull`` stays
-        itself, any other four (a kernel's tuple too) become ``EStats``."""
+        """The statistics as float64 host arrays, in one copy from the
+        device: ``EStatsFull`` stays itself, any other four (a kernel's
+        tuple too) become ``EStats``."""
         kind = EStatsFull if isinstance(st, EStatsFull) else EStats
-        return kind(*(t.to(torch.float64).cpu().numpy() for t in st))
+        flat = torch.cat([t.reshape(-1) for t in st]).to(
+            torch.float64).cpu().numpy()
+        out, lo = [], 0
+        for t in st:
+            out.append(flat[lo:lo + t.numel()].reshape(tuple(t.shape)))
+            lo += t.numel()
+        return kind(*out)
 
     # ----------------------------------------------------------------- init
 
@@ -594,6 +626,8 @@ class GaussianMixture(AutoCheckpointMixin):
         self.cov_jitter_retries_ = 0
         resume = self._resolve_resume(resume)
         ds = self._dataset(X, sample_weight)
+        self.io_retries_used_ = getattr(getattr(ds, "io_stats", None),
+                                        "retries_used", 0)
         mode = self._mode()
         pipeline = self._note_estep_path(mode)
         step_fn = self._step_fn(ds, mode, pipeline)
@@ -1049,17 +1083,364 @@ class GaussianMixture(AutoCheckpointMixin):
             return -2.0 * mean_ll * n + pen * math.log(n)
         return -2.0 * mean_ll * n + 2.0 * pen
 
+    # ------------------------------------------------------------ streaming
+
+    def fit_stream(self, make_blocks, *, d: Optional[int] = None,
+                   resume=False, prefetch: int = 2,
+                   checkpoint_every: int = 0, checkpoint_path=None,
+                   io_retries: int = 0, io_backoff: float = 0.05,
+                   on_nonfinite: str = "error") -> "GaussianMixture":
+        """Exact EM over data larger than the device (the JAX package's
+        ``fit_stream``): ``make_blocks()`` returns a fresh iterable of (m,
+        D) host blocks, or ``(block, weights)`` pairs, and is called again
+        for every pass; one epoch is one E-step.  Each block goes through
+        the model's E-step (``diag_estep`` for float32 'diag' and
+        'spherical' on the card, the torch pass otherwise) and its
+        statistics come to the host in one copy per block and restart,
+        summed in float64 in block order; the M-step is the float64 host
+        M-step.  The trajectory is that of an in-memory host-loop fit of the
+        concatenated blocks up to the summation order.  Under a mesh every
+        rank keeps its share of each block and the statistics reduce over
+        the data axis.
+
+        The passes before the epochs: the weighted centering shift (float64
+        on the host), the total scatter for 'tied', the init
+        (``means_init``: none; 'random': one reservoir pass; 'k-means++': a
+        streamed k-means||; 'kmeans': that, then each restart's own
+        ``KMeans.fit_stream`` of 20 epochs), and one hard-assignment epoch.
+        ``n_init`` restarts share each epoch's pass (the 'kmeans' refinement
+        excepted) and the highest final ``lower_bound_`` wins.  ``prefetch``,
+        ``resume`` (``n_init == 1``; up to ``max_iter`` more epochs),
+        ``checkpoint_every``, ``io_retries``, ``io_backoff`` and
+        ``on_nonfinite`` as in ``KMeans.fit_stream``; the init passes stay
+        synchronous."""
+        from kmeans_tpu_torch.data.io import IOStats, resilient_blocks
+        from kmeans_tpu_torch.data.prefetch import (check_prefetch,
+                                                    close_source,
+                                                    prefetch_iter)
+        from kmeans_tpu_torch.models.init import (
+            _split_block, streamed_forgy_init, streamed_kmeans_parallel_init)
+        prefetch = check_prefetch(prefetch)
+        checkpoint_every = self._check_ckpt(checkpoint_every,
+                                            checkpoint_path)
+        self.cov_jitter_retries_ = 0
+        resume = self._resolve_resume(resume) and self.means_ is not None
+        if resume and self.n_init != 1:
+            raise ValueError("fit_stream resume requires n_init == 1")
+        io_stats = IOStats()
+        make_blocks = resilient_blocks(
+            make_blocks, io_retries=io_retries, io_backoff=io_backoff,
+            on_nonfinite=on_nonfinite, stats=io_stats)
+        self.checkpoint_segments_ = 0 if checkpoint_every else None
+        if d is None:
+            peek_it = iter(make_blocks())
+            try:
+                item = next(peek_it)
+            except StopIteration:
+                raise ValueError(
+                    "make_blocks() yielded no rows — it must return a "
+                    "FRESH iterable on every call") from None
+            finally:
+                close_source(peek_it)
+            peek = np.asarray(item[0] if isinstance(item, tuple) else item,
+                              dtype=self.dtype)
+            if peek.ndim != 2:
+                raise ValueError(f"blocks must be 2-D (m, D), got shape "
+                                 f"{peek.shape}")
+            d = peek.shape[1]
+            del peek, item
+        mesh = self._resolve_mesh()
+        ct = self.covariance_type
+        k = self.n_components
+        mode = self._mode()
+        pipeline = self._note_estep_path(mode)
+        self.loop_path_ = "host"
+
+        # Pass: the weighted centering shift and the positive rows, float64
+        # on the host.
+        sx = np.zeros(d)
+        sw_total = 0.0
+        n_rows = n_pos = 0
+        with contextlib.closing(prefetch_iter(
+                make_blocks(), prefetch,
+                lambda item: _split_block(item, d, np.float64))) as it:
+            for block, bw in it:
+                n_rows += block.shape[0]
+                if bw is None:
+                    sx += block.sum(axis=0)
+                    sw_total += block.shape[0]
+                    n_pos += block.shape[0]
+                else:
+                    sx += (block * bw[:, None]).sum(axis=0)
+                    sw_total += float(bw.sum())
+                    n_pos += int((bw > 0).sum())
+        if n_rows == 0:
+            raise ValueError("make_blocks() yielded no rows — it must "
+                             "return a FRESH iterable on every call")
+        if n_pos == 0:
+            raise ValueError("total sample weight must be positive")
+        if n_pos < k:
+            raise ValueError(f"Not enough data points ({n_pos}) to "
+                             f"initialize {k} clusters")
+        self.shift_ = sx / sw_total
+        shift = self.shift_
+        stager = BlockStager(self.device, self.dtype, prefetch, mesh)
+        step_fn = None
+
+        def stage_block(item):
+            block, bw = _split_block(item, d, self.dtype)
+            return stager.stage(block, bw)
+
+        def epoch_stats(tables_list):
+            """One pass: each table set's E statistics, summed in float64
+            on the host in block order."""
+            nonlocal step_fn
+            acc = [None] * len(tables_list)
+            with contextlib.closing(prefetch_iter(
+                    make_blocks(), prefetch, stage_block)) as it:
+                for staged in it:
+                    points, weights = stager.take(staged)
+                    if step_fn is None:         # chunk of the first block
+                        step_fn = self._make_step(
+                            mesh, self.chunk_size or choose_em_chunk(
+                                points.shape[0], self._tile_k(d)),
+                            mode, pipeline)
+                    outs = [step_fn(points, weights, *t)
+                            for t in tables_list]
+                    for i, st in enumerate(outs):
+                        host = self._host(st)
+                        acc[i] = host if acc[i] is None else type(host)(
+                            *[a + b for a, b in zip(acc[i], host)])
+                    del points, weights, staged, outs
+            if acc[0] is None:
+                raise ValueError(
+                    "make_blocks() yielded no rows — it must return a "
+                    "FRESH iterable on every call (one epoch per EM "
+                    "iteration)")
+            return acc
+
+        if ct == "tied":
+            # The tied M-step's total scatter: one pass per fit.
+            total = np.zeros((d, d))
+            shift_dev = self._put(shift)
+            with contextlib.closing(prefetch_iter(
+                    make_blocks(), prefetch, stage_block)) as it:
+                for staged in it:
+                    points, weights = stager.take(staged)
+                    total += total_scatter(points, weights, shift_dev,
+                                           mesh).to(torch.float64).cpu(
+                                               ).numpy()
+                    del points, weights, staged
+            self._total_scatter = total
+
+        if resume:
+            # EM continues from the fitted float64 parameters; the passes
+            # above give the same shift and scatter again, and the epoch
+            # count goes on from ``n_iter_``.
+            base_iter = self.n_iter_
+            params = [(np.asarray(self.weights_, np.float64),
+                       np.asarray(self.means_, np.float64),
+                       np.asarray(self.covariances_, np.float64))]
+            states = [_StreamRestart()]
+            states[0].prev = states[0].ll = self.lower_bound_
+            states[0].n_iter = base_iter
+            return self._fit_stream_epochs(
+                shift, params, states, base_iter, epoch_stats, io_stats,
+                checkpoint_every, checkpoint_path)
+
+        seeds = self._restart_seeds()
+        if self.means_init is not None:
+            means = np.asarray(self.means_init, np.float64)
+            if means.shape != (k, d):
+                raise ValueError(f"means_init shape {means.shape} != "
+                                 f"({k}, {d})")
+            means_list = [means]
+        elif self.init_params == "random":
+            outs, _ = streamed_forgy_init(make_blocks, k, seeds, d,
+                                          self.dtype)
+            means_list = [np.asarray(m, np.float64) for m in outs]
+        else:
+            km_mode = "kernel" if self.device.type == "cuda" and \
+                self.dtype == np.dtype(np.float32) else "matmul"
+            outs, _ = streamed_kmeans_parallel_init(
+                make_blocks, k, seeds, d, self.dtype, mode=km_mode,
+                device=self.device)
+            means_list = [np.asarray(m, np.float64) for m in outs]
+            if self.init_params == "kmeans":
+                # Each restart's own streamed Lloyd refinement, 'resample'
+                # as the in-memory init's KMeans.
+                refined = []
+                for m, s in zip(means_list, seeds):
+                    km = KMeans(k=k, seed=s, init=m.astype(self.dtype),
+                                max_iter=20, verbose=False, mesh=mesh,
+                                compute_labels=False,
+                                empty_cluster="resample", dtype=self.dtype,
+                                device=self.device)
+                    km.fit_stream(make_blocks, d=d, prefetch=prefetch)
+                    refined.append(np.asarray(km.centroids, np.float64))
+                means_list = refined
+
+        # The hard-assignment epoch gives each restart its first
+        # parameters.
+        hard_stats = epoch_stats([self._hard_tables(m, shift)
+                                  for m in means_list])
+        states = [_StreamRestart() for _ in means_list]
+        params = []
+        w_total0 = None
+        for m, st in zip(means_list, hard_stats):
+            w_total0, (pi, mu_c, var) = self._m_step(st)
+            mu = (mu_c + shift) if self.means_init is None else m
+            if self.weights_init is not None:
+                pi = np.asarray(self.weights_init, np.float64)
+                pi = pi / pi.sum()
+            if self.precisions_init is not None:
+                var = self._cov_from_precisions_init()
+            params.append((pi, mu, var))
+        if w_total0 is not None and w_total0 <= 0:
+            raise ValueError("total sample weight must be positive")
+        return self._fit_stream_epochs(
+            shift, params, states, 0, epoch_stats, io_stats,
+            checkpoint_every, checkpoint_path)
+
+    def _fit_stream_epochs(self, shift, params, states, base_iter,
+                           epoch_stats, io_stats, checkpoint_every,
+                           checkpoint_path) -> "GaussianMixture":
+        """The interleaved EM epochs and the winner, for fresh and resumed
+        streamed fits.  ``base_iter`` offsets the epoch number (absolute,
+        so the checkpoint cadence and a resumed baseline go on as in the
+        uninterrupted fit).  A restart that fails is dropped with a warning
+        while others remain; one restart raises."""
+        last_err = None
+        self.iter_times_ = []
+
+        def fail_restart(i, err):
+            nonlocal last_err
+            if len(states) == 1:
+                raise err
+            warnings.warn(f"GMM restart {i + 1}/{len(states)} failed "
+                          f"({err}); continuing with the remaining "
+                          f"restarts", UserWarning, stacklevel=3)
+            states[i].failed = states[i].done = True
+            states[i].ll = -np.inf
+            last_err = err
+
+        for it in range(base_iter + 1, base_iter + self.max_iter + 1):
+            live, tables = [], []
+            for i, s in enumerate(states):
+                if s.done:
+                    continue
+                self.weights_, self.means_, self.covariances_ = params[i]
+                try:
+                    tables.append(self._params_dev(guard_cholesky=True))
+                except (ValueError, np.linalg.LinAlgError) as e:
+                    fail_restart(i, e)
+                    continue
+                live.append(i)
+            if not live:
+                break
+            t0 = time.perf_counter()
+            stats = epoch_stats(tables)
+            self.iter_times_.append(time.perf_counter() - t0)
+            for j, i in enumerate(live):
+                st = states[i]
+                w_total, (pi, mu_c, var) = self._m_step(stats[j])
+                params[i] = (pi, mu_c + shift, var)
+                st.ll = float(stats[j].loglik) / w_total
+                st.n_iter = it
+                if self.verbose and i == live[0] and is_primary(self.mesh):
+                    print(f"EM iteration {it}: mean log-likelihood = "
+                          f"{st.ll:.6f} "
+                          f"[{self.iter_times_[-1] * 1e3:.1f} ms]",
+                          flush=True)
+                if not np.isfinite(st.ll):
+                    if len(states) == 1:
+                        self._raise_divergence("log-likelihood", it)
+                    fail_restart(i, ValueError(
+                        f"non-finite log-likelihood at EM iteration "
+                        f"{it}"))
+                    continue
+                if abs(st.ll - st.prev) < self.tol:
+                    st.done = True
+                st.prev = st.ll
+            # Epoch-boundary checkpoint (one restart): the post-epoch
+            # parameters, a resume point for the same trajectory.
+            if checkpoint_every and it % checkpoint_every == 0 \
+                    and not states[0].failed:
+                self.weights_, self.means_, self.covariances_ = params[0]
+                self.lower_bound_ = states[0].ll
+                self.converged_ = states[0].done
+                self.n_iter_ = states[0].n_iter
+                self._dev_tables = None
+                self.checkpoint_segments_ += 1
+                self._write_autockpt(checkpoint_path, it)
+
+        if all(s.failed for s in states):
+            raise last_err
+        lls = [s.ll for s in states]
+        best = int(np.argmax(lls))
+        self.weights_, self.means_, self.covariances_ = params[best]
+        self.lower_bound_ = states[best].ll
+        self.converged_ = states[best].done
+        self.n_iter_ = states[best].n_iter
+        self.best_restart_ = best
+        self.restart_lower_bounds_ = (np.asarray(lls, np.float64)
+                                      if len(states) > 1 else None)
+        self._dev_tables = None
+        self.io_retries_used_ = io_stats.retries_used
+        self.blocks_skipped_ = io_stats.blocks_skipped
+        if checkpoint_every and self.n_iter_ % checkpoint_every:
+            self.checkpoint_segments_ += 1
+            self._write_autockpt(checkpoint_path, self.n_iter_)
+        return self
+
+    def predict_stream(self, make_blocks, *, prefetch: int = 2):
+        """Component labels of a stream of blocks, one int32 (m,) array per
+        block.  ``prefetch`` as in ``fit_stream``."""
+        self._check_fitted()
+        return (lab for lab, _, _ in
+                self._posterior_stream(make_blocks, prefetch=prefetch))
+
+    def score_samples_stream(self, make_blocks, *, prefetch: int = 2):
+        """Per-sample log-likelihood log p(x), float64, one array per
+        block."""
+        self._check_fitted()
+        return (lse for _, _, lse in
+                self._posterior_stream(make_blocks, prefetch=prefetch))
+
+    def _posterior_stream(self, make_blocks, prefetch: int = 0):
+        """The posterior pass block by block: ``(labels, log_resp, lse)``
+        per block.  Every rank of a mesh takes whole blocks (a row needs
+        only the replicated tables)."""
+        from kmeans_tpu_torch.data.prefetch import (check_prefetch,
+                                                    prefetch_iter)
+        from kmeans_tpu_torch.models.init import _block_of, _split_block
+        d = self.means_.shape[1]
+        stager = BlockStager(self.device, self.dtype,
+                             check_prefetch(prefetch))
+        tables = None
+
+        def stage(item):
+            block, _ = _split_block(_block_of(item), d, self.dtype)
+            return stager.stage(block)
+
+        with contextlib.closing(prefetch_iter(make_blocks(), prefetch,
+                                              stage)) as it:
+            for staged in it:
+                points, _ = stager.take(staged)
+                if tables is None:
+                    tables = self._params_dev()
+                predict_fn = make_gmm_predict_fn(
+                    chunk_size=self.chunk_size or choose_em_chunk(
+                        points.shape[0], self._tile_k(d)),
+                    cov_type=self.covariance_type)
+                labels, logr, lse = predict_fn(points, *tables)
+                out = (labels.cpu().numpy(),
+                       logr.to(torch.float64).cpu().numpy(),
+                       lse.to(torch.float64).cpu().numpy())
+                del points, staged, labels, logr, lse
+                yield out
+
     # ------------------------------------------------- not ported (raising)
-
-    def fit_stream(self, *args, **kwargs):
-        raise _later("fit_stream", "...", "A.10 'Streaming and ingest'")
-
-    def predict_stream(self, *args, **kwargs):
-        raise _later("predict_stream", "...", "A.10 'Streaming and ingest'")
-
-    def score_samples_stream(self, *args, **kwargs):
-        raise _later("score_samples_stream", "...",
-                     "A.10 'Streaming and ingest'")
 
     def fitted_state(self):
         raise _later("fitted_state", "...", "A.12 'Serving'")

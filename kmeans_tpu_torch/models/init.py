@@ -17,7 +17,10 @@ Every version keeps its ``mind2`` by one helper, :func:`update_mind2`,
 which works in fixed blocks of rows and never makes an (n, D) temporary.
 k-means|| (:func:`kmeans_parallel_init`) runs on the dataset's device with
 a seeded ``torch.Generator``: its folds and its mass pass go through
-kernel 2 (2b) in the kernel modes.
+kernel 2 (2b) in the kernel modes.  The streamed inits of ``fit_stream``
+(``STREAM_INITIALIZERS``) draw over a whole block stream: Forgy by seeded
+reservoirs (the JAX package's rows), k-means|| by passes whose distances
+are kernel 2 per block (:func:`streamed_kmeans_parallel_init`).
 
 All entry points accept a host ``(n, D)`` array or a
 ``parallel.sharding.Dataset`` (row access through ``.take``).
@@ -31,6 +34,9 @@ import numpy as np
 import torch
 
 from kmeans_tpu_torch.parallel import mesh as _mesh
+from kmeans_tpu_torch.parallel.sharding import (BlockStager,
+                                                _validate_sample_weight,
+                                                torch_dtype)
 from kmeans_tpu_torch.utils.validation import check_finite_array
 
 
@@ -807,12 +813,315 @@ def kmeans_parallel_init(X, k: int, seed: int, *, rounds: int = 5,
     return centers
 
 
-def streamed_kmeans_parallel_init(*args, **kwargs):
-    """k-means|| over a stream of blocks: not ported yet (it reads the
-    data block by block through ``data/prefetch.py``)."""
-    raise NotImplementedError(
-        "streamed k-means|| is not ported to kmeans_tpu_torch yet: "
-        "ROADMAP.md, A.10 'Streaming and ingest'")
+# ------------------------------------------------------------- streaming
+# The initialisers of ``fit_stream``: the data is only ever seen a block at
+# a time, so each strategy has a streamed form that draws over the whole
+# stream, not its first block (the reference's ``takeSample`` draws over
+# the whole distributed dataset).  All take a list of seeds and share each
+# pass over the data among the restarts (R x compute, 1 x IO).  Stream items
+# are (m, D) blocks or (block, weights) pairs; ``_split_block`` decodes
+# both.
+
+
+class _EpochReservoir:
+    """Seeded Algorithm-R reservoir over streamed rows: a uniform sample
+    without replacement of up to ``cap`` rows (the JAX package's
+    ``_EpochReservoir``, the same draws).  It serves ``fit_stream``'s
+    'resample' policy and the streamed initialisers: a cap-k reservoir over
+    one whole pass is ``takeSample(False, k, seed)`` over the stream."""
+
+    def __init__(self, cap: int, d: int, rng: np.random.Generator):
+        self.cap = cap
+        self.rng = rng
+        self.rows = np.zeros((cap, d), np.float64)
+        self.seen = 0
+
+    @property
+    def filled(self) -> int:
+        return min(self.seen, self.cap)
+
+    def offer(self, block: np.ndarray) -> None:
+        # Only the rows that enter the reservoir are converted to float64
+        # (by the assignment), not the whole block.
+        b = np.asarray(block)
+        nfill = max(0, min(self.cap - self.seen, len(b)))
+        if nfill:
+            self.rows[self.seen: self.seen + nfill] = b[:nfill]
+        rest = len(b) - nfill
+        if rest:
+            # Vectorised Algorithm R: the row of global index t replaces a
+            # slot iff randint(0, t + 1) < cap.  NumPy's fancy assignment
+            # applies duplicates in order (the last wins), which is the
+            # sequential algorithm exactly.
+            t = self.seen + nfill + np.arange(rest)
+            j = self.rng.integers(0, t + 1)
+            hit = j < self.cap
+            self.rows[j[hit]] = b[nfill:][hit]
+        self.seen += len(b)
+
+    def sample(self, m: int, rng: np.random.Generator) -> np.ndarray:
+        take = min(m, self.filled)
+        if take == 0:
+            return np.empty((0, self.rows.shape[1]))
+        idx = rng.choice(self.filled, size=take, replace=False)
+        return self.rows[idx]
+
+
+def _block_of(item):
+    """The block of a stream item, for the streams that do not read weights
+    (predict, transform): a pair's arity is checked, its weights dropped."""
+    if isinstance(item, tuple):
+        if len(item) != 2:
+            raise ValueError(
+                f"stream items must be (m, D) blocks or (block, weights) "
+                f"pairs, got a {len(item)}-tuple")
+        return item[0]
+    return item
+
+
+def _split_block(item, d: int, dtype):
+    """Decode one stream item, a bare (m, D) array or a (block, weights)
+    pair: ``(block contiguous in dtype, weights (m,) in that dtype or
+    None)``, the weights under the in-memory ``sample_weight`` rules."""
+    if isinstance(item, tuple):
+        if len(item) != 2:
+            raise ValueError(
+                f"stream items must be (m, D) blocks or (block, weights) "
+                f"pairs, got a {len(item)}-tuple")
+        block, w = item
+    else:
+        block, w = item, None
+    if isinstance(block, torch.Tensor):
+        block = block.detach().cpu().numpy()
+    block = np.ascontiguousarray(np.asarray(block, dtype=dtype))
+    if block.ndim != 2 or block.shape[1] != d:
+        raise ValueError(f"block shape {block.shape} != (*, {d})")
+    if w is not None:
+        if isinstance(w, torch.Tensor):
+            w = w.detach().cpu().numpy()
+        w = _validate_sample_weight(w, block.shape[0], block.dtype)
+    return block, w
+
+
+def _reservoir_pass(make_blocks, cap: int, k: int, d: int, seeds,
+                    salt: int):
+    """One pass, one seeded cap-row reservoir per restart over the
+    positive-weight rows of the whole stream; the n < k error.  Returns
+    ``(reservoirs, rows)``."""
+    from kmeans_tpu_torch.data.prefetch import close_source
+    res = [_EpochReservoir(cap, d, np.random.default_rng([s, salt]))
+           for s in seeds]
+    n = 0
+    it = iter(make_blocks())
+    try:
+        for item in it:
+            block, bw = _split_block(item, d, np.float64)
+            b = block if bw is None else block[bw > 0]
+            n += len(b)
+            for r in res:
+                r.offer(b)
+    finally:
+        close_source(it)
+    if n < k:
+        raise ValueError(
+            f"Not enough data points ({n}) to initialize {k} clusters")
+    return res, n
+
+
+def streamed_forgy_init(make_blocks, k: int, seeds, d: int, dtype):
+    """One pass: per seed, a cap-k reservoir, a uniform k-row sample
+    without replacement of the whole stream's positive-weight rows (the JAX
+    package's rows).  Returns ``(list of (k, d) arrays, rows)``."""
+    res, n = _reservoir_pass(make_blocks, k, k, d, seeds, 0xF0261)
+    outs = []
+    for r in res:
+        c = r.rows[: r.filled].astype(dtype)
+        check_finite_array(c, "Data contains NaN or Inf values")
+        outs.append(c)
+    return outs, n
+
+
+def streamed_init_sample(make_blocks, k: int, seeds, d: int, dtype, *,
+                         cap: Optional[int] = None):
+    """One pass: per seed, a uniform sample of up to ``cap`` positive-weight
+    rows of the whole stream (default ``clamp(16 k, 2048, 32768)``, at
+    least k), randomly permuted, for a callable init.  Returns ``(list of
+    (m, d) arrays, rows)``."""
+    cap = int(cap if cap is not None else min(max(16 * k, 2048), 32768))
+    cap = max(cap, k)
+    res, n = _reservoir_pass(make_blocks, cap, k, d, seeds, 0xCA11AB1E)
+    outs = []
+    for r, s in zip(res, seeds):
+        # The slots are in fill order (early rows in early slots): permute,
+        # so that a positional callable still gets a uniform draw.
+        rows = r.rows[: r.filled]
+        perm = np.random.default_rng([s, 0x5EED]).permutation(len(rows))
+        c = rows[perm].astype(dtype)
+        check_finite_array(c, "Data contains NaN or Inf values")
+        outs.append(c)
+    return outs, n
+
+
+def _stream_round_block(points: torch.Tensor, w: torch.Tensor,
+                        cands: torch.Tensor, phi_prev: float, ell: float,
+                        u: Optional[torch.Tensor], cap: int, mode: str):
+    """One block's share of one streamed k-means|| round: the minimum
+    squared distance of each row to the candidates (kernel 2 or 2b in the
+    kernel modes), the block's weighted cost ``sum w d^2`` (the next
+    round's phi), and, given the uniforms ``u``, the rows sampled with
+    probability ``min(1, ell w d^2 / phi_prev)``: up to ``cap`` of them, as
+    a host array (None without ``u``)."""
+    _, mind2 = _assign(points, cands, mode, need_min=True)
+    acc = torch.promote_types(points.dtype, torch.float32)
+    d2w = torch.clamp_min(mind2.to(acc), 0.0) * w.to(acc)
+    phi_b = float(d2w.sum())
+    if u is None:
+        return None, phi_b
+    p = torch.clamp_max(ell * d2w / max(phi_prev, torch.finfo(acc).tiny),
+                        1.0)
+    score = torch.where((u < p) & (w > 0), 1.0 + u, torch.zeros_like(u))
+    vals, idx = torch.topk(score, min(cap, score.shape[0]))
+    idx = idx[vals > 0]
+    rows = points.index_select(0, idx).to(torch.float64).cpu().numpy()
+    return rows, phi_b
+
+
+def streamed_kmeans_parallel_init(make_blocks, k: int, seeds, d: int,
+                                  dtype, *, rounds: int = 5,
+                                  oversampling: Optional[float] = None,
+                                  mode: Optional[str] = None, device=None):
+    """Streamed k-means|| (Bahmani et al. 2012) over a block stream, the
+    JAX package's ``streamed_kmeans_parallel_init``:
+
+    * one pass draws the first candidate by a cap-1 reservoir (the JAX
+      package's row) and counts the rows;
+    * one pass sums the initial cost phi;
+    * ``rounds`` passes sample about ``oversampling`` (2k) rows each by
+      their D^2 cost against the candidates, with the phi of the previous
+      pass (one candidate set stale, as in the JAX package);
+    * one pass weighs the distinct candidates by their cell mass (and fills
+      a cap-k backfill reservoir for a restart with fewer than k), then the
+      host's weighted k-means++ (``np.random.default_rng(seed)``) reduces
+      them to k centres.
+
+    The blocks go to ``device`` (None: the card) in ``dtype``; the distance
+    passes are kernel 2 (2b) in the kernel modes (``mode``: None is
+    'kernel' on a CUDA device, else 'matmul'), the torch tile otherwise.
+    The Bernoulli draws come from a ``torch.Generator`` per restart, seeded
+    from ``SeedSequence([seed, 0xF1258])`` and drawn block by block, so the
+    same stream gives the same centres; they are not the JAX package's
+    draws, which this matches by quality.  Returns ``(list of (k, d)
+    arrays, rows)``."""
+    from kmeans_tpu_torch.data.prefetch import close_source
+    from kmeans_tpu_torch.models.kmeans import resolve_device
+    device = resolve_device(device)
+    if mode is None:
+        mode = "kernel" if device.type == "cuda" else "matmul"
+    R = len(seeds)
+    ell = float(oversampling if oversampling is not None else 2 * k)
+    cap = int(min(max(2 * k, 256), 2048))
+    res = [_EpochReservoir(1, d, np.random.default_rng([s, 0xF1257]))
+           for s in seeds]
+    n = 0
+    it = iter(make_blocks())                       # first candidate, rows
+    try:
+        for item in it:
+            block, bw = _split_block(item, d, np.float64)
+            b = block if bw is None else block[bw > 0]
+            n += len(b)
+            for r in res:
+                r.offer(b)
+    finally:
+        close_source(it)
+    if n < k:
+        raise ValueError(
+            f"Not enough data points ({n}) to initialize {k} clusters")
+    cands = [r.rows[:1].copy() for r in res]
+    stager = BlockStager(device, dtype, 0)
+
+    def epoch_blocks():
+        """The blocks on the device with their weights, and the host
+        block (the backfill reservoirs read it)."""
+        it = iter(make_blocks())
+        try:
+            for item in it:
+                block, bw = _split_block(item, d, dtype)
+                points, w = stager.take(stager.stage(block, bw))
+                yield block, bw, points, w
+        finally:
+            close_source(it)
+
+    def on_device(c: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(
+            c.astype(dtype))).to(device)
+
+    phi = np.zeros(R)
+    for _, _, points, w in epoch_blocks():          # pass: initial phi
+        for r in range(R):
+            phi[r] += _stream_round_block(points, w, on_device(cands[r]),
+                                          np.inf, 0.0, None, cap, mode)[1]
+    acc = torch.promote_types(torch_dtype(dtype), torch.float32)
+    gens = [torch.Generator(device=device).manual_seed(int(
+        np.random.SeedSequence([s, 0xF1258]).generate_state(1)[0]))
+        for s in seeds]
+    for _ in range(rounds):                          # sampling passes
+        new = [[] for _ in range(R)]
+        phi_next = np.zeros(R)
+        tables = [on_device(c) for c in cands]
+        for _, _, points, w in epoch_blocks():
+            for r in range(R):
+                u = torch.rand(points.shape[0], generator=gens[r],
+                               dtype=acc, device=device)
+                rows, phi_b = _stream_round_block(
+                    points, w, tables[r], float(phi[r]), ell, u, cap, mode)
+                if len(rows):
+                    new[r].append(rows)
+                phi_next[r] += phi_b
+        for r in range(R):
+            if new[r]:
+                cands[r] = np.concatenate([cands[r]] + new[r])
+        phi = phi_next
+    cands = [np.unique(c, axis=0) for c in cands]
+
+    # Cell-mass pass, with cap-k backfill reservoirs for the restarts that
+    # came up short.
+    masses = [np.zeros(len(c)) for c in cands]
+    short = [r for r in range(R) if len(cands[r]) < k]
+    back = {r: _EpochReservoir(k, d,
+                               np.random.default_rng([seeds[r], 0xF1259]))
+            for r in short}
+    tables = [on_device(c) for c in cands]
+    for block, bw, points, w in epoch_blocks():
+        for r in range(R):
+            masses[r] += cell_mass(points, w, tables[r],
+                                   mode=mode).cpu().numpy()
+        if short:
+            real = block if bw is None else block[bw > 0]
+            for r in short:
+                back[r].offer(real)
+    outs = []
+    for r in range(R):
+        c = cands[r]
+        if len(c) < k:
+            extra = back[r].sample(
+                k - len(c), np.random.default_rng([seeds[r], 0xF1260]))
+            c = np.concatenate([c, extra])
+            masses[r] = np.concatenate([masses[r], np.ones(len(extra))])
+        centers = _weighted_kmeanspp_host(
+            c.astype(np.float64), np.maximum(masses[r][: len(c)], 1e-12),
+            k, np.random.default_rng(seeds[r]))
+        centers = centers.astype(dtype)
+        check_finite_array(centers, "Data contains NaN or Inf values")
+        outs.append(centers)
+    return outs, n
+
+
+STREAM_INITIALIZERS = {"forgy": streamed_forgy_init,
+                       "random": streamed_forgy_init,
+                       "k-means++": streamed_kmeans_parallel_init,
+                       "kmeans++": streamed_kmeans_parallel_init,
+                       "k-means||": streamed_kmeans_parallel_init,
+                       "kmeans||": streamed_kmeans_parallel_init}
 
 
 INITIALIZERS = {"forgy": forgy_init, "random": forgy_init,

@@ -20,6 +20,13 @@ the largest centroid shift, and logging.  The device loop
 on the device, a replayed CUDA graph per iteration, and the host only reads
 a done flag.
 
+``fit_stream`` (and ``predict_stream``, ``score_stream``,
+``transform_stream``) take the data as a stream of host blocks that never
+resides on the device at once: each block is copied to the card in a
+background thread (``data.prefetch``, ``parallel.sharding.BlockStager``)
+and goes through the same step as ``fit``, its statistics summed in
+float64 on the host in block order.
+
 The model runs on the card unless the caller asks for the CPU:
 ``device=None`` means ``cuda`` (the rank's own card under a mesh) and raises
 where there is none.
@@ -48,6 +55,7 @@ divergence.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import math
 import time
@@ -66,7 +74,8 @@ from kmeans_tpu_torch.parallel import distributed as dist
 from kmeans_tpu_torch.parallel.mesh import (all_reduce, check_mesh,
                                             group_up, is_primary,
                                             make_mesh, mesh_shape)
-from kmeans_tpu_torch.parallel.sharding import (Dataset, ShardedDataset,
+from kmeans_tpu_torch.parallel.sharding import (BlockStager, Dataset,
+                                                ShardedDataset, _tensor_of,
                                                 choose_chunk_size, to_device)
 from kmeans_tpu_torch.utils import checkpoint as ckpt
 from kmeans_tpu_torch.utils.logging import IterationLogger
@@ -382,6 +391,10 @@ class KMeans(AutoCheckpointMixin):
         self.checkpoint_segments_: Optional[int] = None
         self.oom_backoffs_ = 0
         self.effective_chunk_: Optional[int] = None
+        # IO faults a fit recovered from: retried reads (of the stream, or
+        # of a file a dataset was read from) and quarantined blocks.
+        self.io_retries_used_ = 0
+        self.blocks_skipped_ = 0
         # Inner fits (BisectingKMeans' 2-means) skip the init's scan for
         # non-finite rows (the parent scanned once) and the eager labels_
         # pass (the parent computes the membership itself).
@@ -524,8 +537,304 @@ class KMeans(AutoCheckpointMixin):
             self._fit_ds = None
         return self
 
-    def fit_stream(self, *args, **kwargs):
-        raise _later("fit_stream", "...", "A.10 'Streaming and ingest'")
+    def fit_stream(self, make_blocks, *, d: Optional[int] = None,
+                   resume=False, prefetch: int = 2,
+                   checkpoint_every: int = 0, checkpoint_path=None,
+                   io_retries: int = 0, io_backoff: float = 0.05,
+                   on_nonfinite: str = "error") -> "KMeans":
+        """Exact full-batch Lloyd over data larger than the device (the JAX
+        package's ``fit_stream``).
+
+        ``make_blocks()`` returns a fresh iterable of (m, D) host blocks, or
+        of ``(block, weights)`` pairs (the weights fold into every
+        statistic as ``sample_weight`` does); it is called again for every
+        pass (one epoch of blocks is one Lloyd iteration).  Each block goes
+        through the same step as ``fit`` (``make_step_fn`` in the model's
+        mode: kernel 1 or 1b in the kernel modes), and its (k, D + 1)
+        statistics, SSE and farthest point come to the host in one copy per
+        block and restart, summed in float64 in block order: the
+        trajectory is that of an in-memory fit of the concatenated blocks up
+        to the summation order.  It is the host loop whatever ``host_loop``
+        says.  Under a mesh every rank runs ``make_blocks()`` and keeps its
+        contiguous share of each block; the statistics reduce as in
+        ``fit``.  ``d`` declares the feature count (else a first block is
+        read and the source closed).
+
+        Initialisation draws over the whole stream: 'forgy' and 'random' by
+        one reservoir pass (the JAX package's rows), 'k-means++' and
+        'k-means||' by the streamed k-means|| (``models.init.
+        streamed_kmeans_parallel_init``), a callable on a seeded uniform
+        sample of the stream (``streamed_init_sample``), an array as it
+        is.  ``n_init > 1`` runs the restarts interleaved over one shared
+        pass per epoch; the winner has the lowest final inertia (one more
+        scoring pass).  'resample' draws its rows from a reservoir of the
+        epoch seeded ``[seed, iteration, 0x5EED]``, offered the blocks on
+        the consumer's side in block order.
+
+        ``prefetch`` (default 2): the next blocks are read, decoded and
+        copied to the device (``parallel.sharding.BlockStager``) in a
+        background thread while the current block's step runs; 0 is the
+        synchronous path, and both give the same bits.  At most ``prefetch
+        + 2`` blocks are on the device.  ``resume`` (True or a checkpoint
+        path; ``n_init == 1``) continues from the current centroids;
+        ``checkpoint_every`` writes a rotating checkpoint every N epochs;
+        ``io_retries`` / ``io_backoff`` retry transient block reads
+        (``data.io.resilient_blocks``), and ``on_nonfinite`` ('error' |
+        'skip') names or drops a non-finite block.  Afterwards:
+        ``io_retries_used_``, ``blocks_skipped_``,
+        ``checkpoint_segments_``; ``labels_`` is not available (predict
+        each block)."""
+        from kmeans_tpu_torch.data.io import IOStats, resilient_blocks
+        from kmeans_tpu_torch.data.prefetch import (check_prefetch,
+                                                    close_source,
+                                                    prefetch_iter)
+        from kmeans_tpu_torch.models.init import (
+            STREAM_INITIALIZERS, _EpochReservoir, _split_block,
+            streamed_init_sample, streamed_kmeans_parallel_init)
+        prefetch = check_prefetch(prefetch)
+        checkpoint_every = self._check_ckpt(checkpoint_every,
+                                            checkpoint_path)
+        resume = self._resolve_resume(resume)
+        io_stats = IOStats()
+        make_blocks = resilient_blocks(
+            make_blocks, io_retries=io_retries, io_backoff=io_backoff,
+            on_nonfinite=on_nonfinite, stats=io_stats)
+        self.checkpoint_segments_ = 0 if checkpoint_every else None
+        mesh = self._resolve_mesh()
+        log = IterationLogger(self.verbose and is_primary(mesh))
+        muted = IterationLogger(False)
+        log.startup(self.k, self.max_iter, self.tolerance, self.compute_sse)
+        mode = self._mode()
+        pipeline = self._note_estep_path(mode)
+        self.loop_path_ = "host"
+        self.bf16_guard_corrected_rows_ = None
+
+        explicit_init = not isinstance(self.init, str) \
+            and not callable(self.init)
+        if d is None:
+            # Close the source: a prefetching one must have its thread
+            # reaped when the peek abandons it after one item.
+            peek_it = iter(make_blocks())
+            try:
+                item = next(peek_it)
+            except StopIteration:
+                raise ValueError(
+                    "make_blocks() yielded no rows — it must return a "
+                    "FRESH iterable on every call") from None
+            finally:
+                close_source(peek_it)
+            peek = np.asarray(item[0] if isinstance(item, tuple) else item,
+                              dtype=self.dtype)
+            if peek.ndim != 2:
+                raise ValueError(f"blocks must be 2-D (m, D), got shape "
+                                 f"{peek.shape}")
+            d = peek.shape[1]
+            del peek, item
+
+        resume = bool(resume) and self.centroids is not None
+        if resume and self.n_init != 1:
+            raise ValueError("fit_stream resume requires n_init == 1")
+        if resume:
+            seeds = [self.seed]
+            cents_list = [np.asarray(self.centroids, dtype=self.dtype)]
+            start_iter = self.iterations_run
+        else:
+            start_iter = 0
+            seeds = self._restart_seeds()
+            if explicit_init:
+                raw = [resolve_init(self.init, np.empty((0, d), self.dtype),
+                                    self.k, self.seed)]
+            elif callable(self.init):
+                samples, _ = streamed_init_sample(make_blocks, self.k,
+                                                  seeds, d, self.dtype)
+                raw = [np.asarray(self.init(sample, self.k, s))
+                       for sample, s in zip(samples, seeds)]
+            else:
+                try:
+                    stream_fn = STREAM_INITIALIZERS[self.init]
+                except KeyError:
+                    raise ValueError(
+                        f"unknown init strategy: {self.init!r}; options: "
+                        f"{sorted(STREAM_INITIALIZERS)}") from None
+                kw = (dict(mode=mode, device=self.device)
+                      if stream_fn is streamed_kmeans_parallel_init else {})
+                raw, _ = stream_fn(make_blocks, self.k, seeds, d,
+                                   self.dtype, **kw)
+            cents_list = [self._postprocess_centroids(
+                np.asarray(c, np.float64)).astype(self.dtype)
+                for c in raw]
+
+        class _StreamMeta:
+            """``_handle_empty``'s view of a stream: replacement rows come
+            from the epoch's seeded reservoir (None under 'keep' and
+            'farthest', which draw none)."""
+
+            def __init__(self, d):
+                self.d = d
+                self.reservoir: Optional[_EpochReservoir] = None
+
+            def sample_positive_rows(self, m, seed_seq):
+                if self.reservoir is None:
+                    return np.empty((0, self.d))
+                return self.reservoir.sample(
+                    m, np.random.default_rng(seed_seq))
+
+        class _RestartState:
+            def __init__(self, seed, cents):
+                self.seed = seed
+                self.cents = cents
+                self.sse_history = []
+                self.iter_times = []
+                self.done = False
+                self.iters = 0
+                self.sizes = None
+                self.meta = _StreamMeta(d)
+
+        states = [_RestartState(s, c) for s, c in zip(seeds, cents_list)]
+        if resume:
+            # The restart adopts the model's histories and counters, so a
+            # resume with its budget spent changes nothing.
+            states[0].sse_history = self.sse_history
+            states[0].iter_times = self.iter_times_
+            states[0].iters = self.iterations_run
+            states[0].sizes = self.cluster_sizes_
+        R = len(states)
+        k = self.k
+        want_reservoir = self.empty_cluster == "resample"
+        need_far = self.empty_cluster == "farthest"
+        stager = BlockStager(self.device, self.dtype, prefetch, mesh)
+        step_fn = None
+
+        def stage(item):
+            """The producer's share of one block (the background thread
+            when ``prefetch > 0``): decode, this rank's share, the copy to
+            the device."""
+            block, bw = _split_block(item, d, self.dtype)
+            return block, bw, stager.stage(block, bw)
+
+        def epoch(active, cents_dev, iteration, score_only=False):
+            """One pass over the stream: every active restart's statistics
+            from the same blocks, summed in float64 in block order."""
+            nonlocal step_fn
+            sums = [np.zeros((k, d)) for _ in active]
+            counts = [np.zeros((k,)) for _ in active]
+            sse = [0.0] * len(active)
+            far = [(-1.0, None)] * len(active)
+            n_seen = 0
+            with contextlib.closing(prefetch_iter(make_blocks(), prefetch,
+                                                  stage)) as it:
+                for block, bw, staged in it:
+                    points, weights = stager.take(staged)
+                    if step_fn is None:         # chunk of the first block
+                        chunk = self.chunk_size or choose_chunk_size(
+                            points.shape[0], self._tile_k(d), d)
+                        step_fn = dist.make_step_fn(
+                            mesh, chunk_size=chunk, mode=mode,
+                            need_farthest=need_far, need_sse_pc=False,
+                            pipeline=pipeline)
+                    if want_reservoir and not score_only:
+                        # Positive-weight rows only; offered here, in block
+                        # order, so the draws do not depend on prefetch.
+                        offer = block if bw is None else block[bw > 0]
+                        for st_r in active:
+                            st_r.meta.reservoir.offer(offer)
+                    n_seen += block.shape[0]
+                    outs = [step_fn(points, weights, c) for c in cents_dev]
+                    for i, st in enumerate(outs):
+                        flat = torch.cat([
+                            st.sums.reshape(-1), st.counts,
+                            st.sse.reshape(1),
+                            st.farthest_dist.reshape(1),
+                            st.farthest_point.reshape(-1)]).to(
+                                torch.float64).cpu().numpy()
+                        sums[i] += flat[: k * d].reshape(k, d)
+                        counts[i] += flat[k * d: k * d + k]
+                        sse[i] += float(flat[k * d + k])
+                        if flat[k * d + k + 1] > far[i][0]:
+                            far[i] = (float(flat[k * d + k + 1]),
+                                      flat[k * d + k + 2:])
+                    del points, weights, staged, outs
+            if n_seen == 0:
+                raise ValueError(
+                    f"make_blocks() yielded no rows on iteration "
+                    f"{iteration + 1} — it must return a FRESH iterable "
+                    f"on every call (one epoch per Lloyd iteration)")
+            return sums, counts, sse, far, n_seen
+
+        for iteration in range(start_iter, self.max_iter):
+            active = [st for st in states if not st.done]
+            if not active:
+                break
+            iter_start = time.perf_counter()
+            if want_reservoir:
+                for st_r in active:
+                    st_r.meta.reservoir = _EpochReservoir(
+                        k, d, np.random.default_rng(
+                            [st_r.seed, iteration, 0x5EED]))
+            cents_dev = [self._put_centroids(st_r.cents) for st_r in active]
+            sums, counts, sse, far, n_seen = epoch(active, cents_dev,
+                                                   iteration)
+            if iteration == start_iter and n_seen < k:
+                raise ValueError(f"Not enough data points ({n_seen}) to "
+                                 f"initialize {k} clusters")
+            for i, st_r in enumerate(active):
+                far_d, far_p = far[i]
+                agg = StepStats(None, None, None,
+                                torch.tensor(far_d, dtype=torch.float64),
+                                torch.from_numpy(
+                                    far_p if far_p is not None
+                                    else np.zeros((d,))), None)
+                # _finish_lloyd_iteration writes the model's bookkeeping:
+                # point it at this restart's lists.
+                self.sse_history = st_r.sse_history
+                self.iter_times_ = st_r.iter_times
+                st_r.cents, max_shift = self._finish_lloyd_iteration(
+                    st_r.cents, sums[i], counts[i],
+                    sse[i] if self.compute_sse else 0.0, agg, st_r.meta,
+                    iteration, log if st_r is states[0] else muted,
+                    st_r.seed, iter_start)
+                st_r.iters = self.iterations_run
+                st_r.sizes = self.cluster_sizes_
+                if max_shift < self.tolerance:
+                    st_r.done = True
+                    if st_r is states[0]:
+                        log.converged(iteration + 1)
+            # Epoch-boundary checkpoint (one restart): the model's state is
+            # this epoch's, and the reservoirs are seeded per absolute
+            # epoch, so a resume from any boundary is exact.
+            if checkpoint_every and (iteration + 1) % checkpoint_every == 0:
+                self.checkpoint_segments_ += 1
+                self._write_autockpt(checkpoint_path, iteration + 1)
+
+        if R > 1:
+            cents_dev = [self._put_centroids(st_r.cents) for st_r in states]
+            _, _, finals, _, _ = epoch(states, cents_dev, self.max_iter,
+                                       score_only=True)
+            best = int(np.argmin(finals))
+            for r in range(R):
+                log.restart(r, R, finals[r], winner=(r == best))
+            self.best_restart_ = best
+            self.restart_inertias_ = np.asarray(finals, np.float64)
+            winner = states[best]
+        else:
+            self.best_restart_ = 0
+            self.restart_inertias_ = None
+            winner = states[0]
+        self.centroids = np.asarray(winner.cents)
+        self.sse_history = winner.sse_history
+        self.iter_times_ = winner.iter_times
+        self.iterations_run = winner.iters
+        self.cluster_sizes_ = winner.sizes
+        self.io_retries_used_ = io_stats.retries_used
+        self.blocks_skipped_ = io_stats.blocks_skipped
+        if checkpoint_every and self.iterations_run % checkpoint_every:
+            self.checkpoint_segments_ += 1
+            self._write_autockpt(checkpoint_path, self.iterations_run)
+        self._fit_ds, self._labels_cache = None, None
+        self._labels_error = ("labels_ is not materialized by fit_stream "
+                              "(the dataset never resides in memory); call "
+                              "predict on each block")
+        return self
 
     def _restart_seeds(self) -> list:
         """Per-restart seeds.  Restart 0 is ``seed`` itself; an explicit
@@ -642,6 +951,8 @@ class KMeans(AutoCheckpointMixin):
         ds, step_fn, _ = self._prepare(
             X, sample_weight, need_farthest=self.empty_cluster == "farthest",
             pipeline=pipeline)
+        self.io_retries_used_ = getattr(getattr(ds, "io_stats", None),
+                                        "retries_used", 0)
         if self.compute_labels:
             self._fit_ds, self._labels_cache = ds, None
             self._labels_error = None
@@ -1270,40 +1581,128 @@ class KMeans(AutoCheckpointMixin):
 
     def transform_stream(self, make_blocks, *,
                          block_rows: Optional[int] = None,
-                         prefetch: int = 0):
+                         prefetch: int = 2):
         """Streaming ``transform``: yields (m, k) distance tiles for the
         successive row blocks of ``make_blocks()``, blocks longer than
-        ``block_rows`` split.  Reading blocks ahead (``prefetch``) is not
-        ported: any value but 0 raises."""
+        ``block_rows`` split.  ``prefetch`` (default 2) reads and decodes
+        the next blocks in a background thread; the tiles go to the device
+        on the consumer's side (0: synchronous, the same bits)."""
         self._require_fitted()
-        if prefetch:
-            raise _later("prefetch", prefetch, "A.10 'Streaming and ingest'")
-        return self._transform_stream_blocks(make_blocks, block_rows)
+        return self._transform_stream_blocks(make_blocks, block_rows,
+                                             prefetch)
 
-    def _transform_stream_blocks(self, make_blocks, block_rows):
+    def _transform_stream_blocks(self, make_blocks, block_rows,
+                                 prefetch: int = 0):
         mode = _VALUE_MODES.get(self.distance_mode, self.distance_mode)
         d = self.centroids.shape[1]
         block = block_rows or max(8192, (1 << 26) // max(self.k + d, 1))
-        cents = self._put_centroids(self.centroids)
-        for raw in make_blocks():
-            raw = _host_rows(raw, self.dtype)
-            if raw.shape[1] != d:
-                raise ValueError(f"X has {raw.shape[1]} features, the model "
-                                 f"{d}")
+        for raw, _, _, cents in self._iter_stream_blocks(
+                make_blocks, with_weights=False, prefetch=prefetch):
             for start in range(0, raw.shape[0], block):
-                xb = np.ascontiguousarray(raw[start: start + block])
+                xb = raw[start: start + block]
                 transform = dist.make_transform_fn(
                     self._resolve_mesh(), mode=mode,
                     chunk_size=self.chunk_size or choose_chunk_size(
                         xb.shape[0], self._tile_k(d), d))
-                points = torch.from_numpy(xb).to(self.device)
+                points = _tensor_of(np.ascontiguousarray(xb)).to(
+                    self.device)
                 yield transform(points, cents).cpu().numpy()
 
-    def predict_stream(self, *args, **kwargs):
-        raise _later("predict_stream", "...", "A.10 'Streaming and ingest'")
+    def _iter_stream_blocks(self, make_blocks, *, with_weights: bool,
+                            prefetch: int = 0, stage_extra=None):
+        """The scaffolding of every inference stream (predict, transform,
+        score): decode each item (a pair's weights kept or dropped by
+        ``with_weights``), check its width against the model, put the
+        centroids on the device once, and raise the fresh-iterable error on
+        an empty stream.  Yields ``(block, weights or None, extra,
+        centroids)``.  With ``prefetch > 0`` the decode and
+        ``stage_extra(block, weights)`` (the caller's copy to the device)
+        run in a background thread ``prefetch`` blocks ahead; ``extra`` is
+        what it returned (None without it).  A subclass that transforms the
+        rows (``SphericalKMeans``) overrides this one method."""
+        from kmeans_tpu_torch.data.prefetch import (check_prefetch,
+                                                    prefetch_iter)
+        from kmeans_tpu_torch.models.init import _block_of, _split_block
+        prefetch = check_prefetch(prefetch)
+        d = self.centroids.shape[1]
+        cents = None
+        empty = True
 
-    def score_stream(self, *args, **kwargs):
-        raise _later("score_stream", "...", "A.10 'Streaming and ingest'")
+        def stage(item):
+            raw = item if with_weights else _block_of(item)
+            block, bw = _split_block(raw, d, self.dtype)
+            extra = stage_extra(block, bw) if stage_extra is not None \
+                else None
+            return block, bw, extra
+
+        # closing: a consumer that abandons the generator joins the
+        # producer thread at once.
+        with contextlib.closing(prefetch_iter(make_blocks(), prefetch,
+                                              stage)) as it:
+            for block, bw, extra in it:
+                empty = False
+                if cents is None:
+                    cents = self._put_centroids(self.centroids)
+                yield block, bw, extra, cents
+        if empty:
+            raise ValueError(
+                "make_blocks() yielded no rows — it must return a FRESH "
+                "iterable on every call")
+
+    def predict_stream(self, make_blocks, *, prefetch: int = 2):
+        """Labels of a stream of blocks, one int32 (m,) array per block:
+        kernel 2 (2b) per block in the kernel modes.  ``prefetch`` as in
+        ``fit_stream``.  Every rank of a mesh labels whole blocks.
+        Usage: ``np.concatenate(list(km.predict_stream(blocks)))``."""
+        self._require_fitted()
+        return self._predict_stream_blocks(make_blocks, prefetch)
+
+    def _predict_stream_blocks(self, make_blocks, prefetch: int = 0):
+        from kmeans_tpu_torch.data.prefetch import check_prefetch
+        stager = BlockStager(self.device, self.dtype,
+                             check_prefetch(prefetch))
+        predict_fn = None
+        for block, _, staged, cents in self._iter_stream_blocks(
+                make_blocks, with_weights=False, prefetch=prefetch,
+                stage_extra=stager.stage):
+            points, _ = stager.take(staged)
+            if predict_fn is None:
+                predict_fn = dist.make_predict_fn(
+                    self._resolve_mesh(), mode=self._mode(),
+                    chunk_size=self.chunk_size or choose_chunk_size(
+                        points.shape[0], self._tile_k(block.shape[1]),
+                        block.shape[1]))
+            labels = predict_fn(points, cents).cpu().numpy()
+            del points, staged
+            yield labels
+
+    def score_stream(self, make_blocks, *, prefetch: int = 2) -> float:
+        """Negative SSE of a stream of blocks (or ``(block, weights)``
+        pairs) under the fitted centroids: one pass, kernel 1 (1b) per
+        block in the kernel modes, the SSE summed on the host in block
+        order.  Under a mesh each rank takes its share of each block.  An
+        empty stream raises."""
+        from kmeans_tpu_torch.data.prefetch import check_prefetch
+        self._require_fitted()
+        mesh = self._resolve_mesh()
+        stager = BlockStager(self.device, self.dtype,
+                             check_prefetch(prefetch), mesh)
+        step_fn = None
+        sse = 0.0
+        for block, _, staged, cents in self._iter_stream_blocks(
+                make_blocks, with_weights=True, prefetch=prefetch,
+                stage_extra=stager.stage):
+            points, weights = stager.take(staged)
+            if step_fn is None:
+                step_fn = dist.make_step_fn(
+                    mesh, mode=self._mode(), need_farthest=False,
+                    need_sse_pc=False,
+                    chunk_size=self.chunk_size or choose_chunk_size(
+                        points.shape[0], self._tile_k(block.shape[1]),
+                        block.shape[1]))
+            sse += float(step_fn(points, weights, cents).sse)
+            del points, weights, staged
+        return -sse
 
     def fitted_state(self):
         raise _later("fitted_state", "...", "A.12 'Serving'")

@@ -577,8 +577,17 @@ class MiniBatchKMeans(KMeans):
         self._set_fit_data(X)
         return self
 
-    def fit_stream(self, *args, **kwargs):
-        raise _later("fit_stream", "...", "A.10 'Streaming and ingest'")
+    def fit_stream(self, make_blocks, *, d=None, resume=False,
+                   prefetch=2, **kwargs):
+        """Refused by design, as in the JAX package: the inherited
+        exact-Lloyd ``fit_stream`` would bypass the mini-batch updates.
+        Stream blocks through ``partial_fit``, or use ``KMeans.fit_stream``
+        for an exact out-of-core fit."""
+        raise NotImplementedError(
+            "MiniBatchKMeans does not support fit_stream (it would run "
+            "exact full-batch Lloyd, not mini-batch updates); stream blocks "
+            "through partial_fit, or use KMeans.fit_stream for an exact "
+            "out-of-core fit")
 
     def _learn_clone(self):
         raise _later("_learn_clone", "...", "A.12 'Serving'")

@@ -7,7 +7,9 @@ its length does not.  For unit rows the squared Euclidean distance is
 similar one by cosine; the model is :class:`KMeans` with two projections:
 
 * the rows are divided by their norms once, in float64, when the data is
-  placed on the device (``cache``); a row of norm 0 stays at the origin;
+  placed on the device (``cache``), and block by block in every stream
+  (``fit_stream`` and the inference streams); a row of norm 0 stays at
+  the origin;
 * after every mean update each centroid is put back on the unit sphere (the
   mean direction), in ``_postprocess_centroids`` on the host loop and in
   ``parallel.distributed.project_centroids`` on the device loop.
@@ -114,12 +116,48 @@ class SphericalKMeans(KMeans):
         return np.ascontiguousarray(_normalize_rows(
             _host_rows(X, np.float64)).astype(self.dtype))
 
-    def _transform_stream_blocks(self, make_blocks, block_rows):
-        """``transform`` and ``transform_stream`` read normalised rows."""
-        def normalized():
-            for raw in make_blocks():
-                yield _normalize_rows(_host_rows(raw, np.float64))
-        return super()._transform_stream_blocks(normalized, block_rows)
+    # ------------------------------------------------------------ streaming
+    # The streams take raw host blocks that never pass through ``cache``:
+    # wrap them, so that a row's length cannot break the cosine geometry.
+
+    def _normalized_blocks(self, make_blocks):
+        """``make_blocks`` with every block's rows normalised (in float64,
+        then the model's dtype); a pair's weights pass through."""
+        def wrapped():
+            for item in make_blocks():
+                if isinstance(item, tuple):      # (block, weights)
+                    b, w = item
+                    yield (_normalize_rows(_host_rows(b, np.float64))
+                           .astype(self.dtype), w)
+                else:
+                    yield _normalize_rows(_host_rows(
+                        item, np.float64)).astype(self.dtype)
+        return wrapped
+
+    def fit_stream(self, make_blocks, *, d=None, resume=False,
+                   prefetch: int = 2, checkpoint_every: int = 0,
+                   checkpoint_path=None, io_retries: int = 0,
+                   io_backoff: float = 0.05,
+                   on_nonfinite: str = "error") -> "SphericalKMeans":
+        """``KMeans.fit_stream`` on the normalised rows.  The retries and
+        the non-finite scan wrap the normalisation, so a replayed read is
+        normalised again and the scan sees what the fit consumes."""
+        return super().fit_stream(self._normalized_blocks(make_blocks),
+                                  d=d, resume=resume, prefetch=prefetch,
+                                  checkpoint_every=checkpoint_every,
+                                  checkpoint_path=checkpoint_path,
+                                  io_retries=io_retries,
+                                  io_backoff=io_backoff,
+                                  on_nonfinite=on_nonfinite)
+
+    def _iter_stream_blocks(self, make_blocks, *, with_weights: bool,
+                            prefetch: int = 0, stage_extra=None):
+        """The one choke point of every inference stream (predict,
+        transform, score all read normalised rows through it); with
+        ``prefetch > 0`` the normalisation runs in the producer thread."""
+        return super()._iter_stream_blocks(
+            self._normalized_blocks(make_blocks), with_weights=with_weights,
+            prefetch=prefetch, stage_extra=stage_extra)
 
     def _quality_rows(self, X):
         raise _later("_quality_rows", "...", "A.13 'Observability'")

@@ -24,7 +24,7 @@ rows (uneven counts allowed); it has no host copy.
 from __future__ import annotations
 
 import copy
-from typing import Callable, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,13 +35,18 @@ from kmeans_tpu_torch.parallel import mesh as _mesh
 SINGLE_CHUNK_ELEMS = 1 << 26
 
 
-def choose_chunk_size(n: int, k: int, d: int) -> int:
+def choose_chunk_size(n: int, k: int, d: int,
+                      budget_elems: Optional[int] = None) -> int:
     """Rows per chunk of the plain torch pass: the chunk exists only to bound
     the live (chunk, k) distance temporary.  One chunk when n * k is small,
-    else about 2^25 tile elements, at most 2^17 rows, a multiple of 8."""
-    if n * max(k, 1) <= SINGLE_CHUNK_ELEMS:
-        return int(max(128, -(-n // 8) * 8))
-    chunk = max(128, min(n, (1 << 25) // max(k, 1), 1 << 17))
+    else about 2^25 tile elements, at most 2^17 rows, a multiple of 8.  An
+    explicit ``budget_elems`` (the mixture's ``EM_CHUNK_BUDGET``) replaces
+    the 2^25 and opts out of the one-chunk rule, as in the JAX package."""
+    if budget_elems is None:
+        if n * max(k, 1) <= SINGLE_CHUNK_ELEMS:
+            return int(max(128, -(-n // 8) * 8))
+        budget_elems = 1 << 25
+    chunk = max(128, min(n, budget_elems // max(k, 1), 1 << 17))
     return int(max(8, (chunk // 8) * 8))
 
 
@@ -631,6 +636,147 @@ def from_process_local(X_local, mesh, *, device=None, dtype=np.float32,
         mesh, n=int(counts.sum()), offset=int(counts[:d_idx].sum()),
         local_rows=n_local, chunk=chunk,
         explicit_chunk=chunk_size is not None, process_local=True)
+
+
+# --------------------------------------------------------- streamed blocks
+
+
+class StagedBlock(NamedTuple):
+    """One block of a stream on its way to the device: this rank's rows
+    (``points``), their weights (None: every row at weight 1), the rows of
+    the block (all ranks') and the copy's event (None on the CPU)."""
+    points: torch.Tensor
+    weights: Optional[torch.Tensor]
+    rows: int
+    event: Optional["torch.cuda.Event"]
+
+
+class _Slot:
+    """One pinned host buffer of the ring and the event of its last copy."""
+
+    def __init__(self):
+        self.x: Optional[torch.Tensor] = None
+        self.w: Optional[torch.Tensor] = None
+        self.event: Optional["torch.cuda.Event"] = None
+
+
+class BlockStager:
+    """Moves the host blocks of a stream to the device, the counterpart of
+    the ``shard_points`` call in every ``stage`` callback of the JAX
+    package's streams.
+
+    :meth:`stage` is the producer's share (it runs in the prefetch thread
+    when ``prefetch > 0``): under a mesh it keeps this rank's contiguous
+    share of the block, ``ceil(m / data)`` rows (the last shares padded with
+    rows of weight 0), then places it on the device.  :meth:`take` is the
+    consumer's share, on the thread and stream that launch the step.
+
+    On a CUDA device one stager serves a whole stream call with a ring of
+    ``prefetch + 2`` pinned host slots (each sized to the largest block it
+    has carried: allocated at its first use and grown only for a larger
+    block), a dedicated copy stream and one CUDA event per slot.  The
+    producer waits for the slot's previous copy to complete, copies the
+    block into it (``np.copyto`` into the pinned tensor's NumPy view),
+    issues the ``non_blocking`` host-to-device copy on the copy stream (the
+    current stream is per thread, so it enters ``torch.cuda.stream`` itself)
+    and records the slot's event.  The consumer makes its current stream
+    wait on that event and marks the device tensors as used by that stream
+    (``record_stream``), so that the caching allocator does not hand their
+    memory to the next copy while a kernel still reads them.  The ring
+    holds one slot more than the blocks that can be in flight, so a slot is
+    rewritten only after the consumer has taken the block it carried.  No
+    block is pinned afresh.  On the CPU the block is the host array itself
+    (``torch.from_numpy``): no stream, no copy."""
+
+    def __init__(self, device, dtype, prefetch: int, mesh=None):
+        self.device = torch.device(device)
+        self.dtype = np.dtype(dtype)
+        self.mesh = mesh
+        self._cuda = self.device.type == "cuda"
+        self._ring = [_Slot() for _ in range(int(prefetch) + 2)]
+        self._next = 0
+        self._stream = None
+
+    def share(self, block: np.ndarray, bw: Optional[np.ndarray]):
+        """This rank's rows of ``block`` and their weights (None: all 1).
+        Without a mesh, the whole block."""
+        if self.mesh is None:
+            return block, bw
+        data_shards = _mesh.mesh_shape(self.mesh)[0]
+        d_idx = _mesh.coords(self.mesh)[0]
+        m = block.shape[0]
+        rows = -(-max(m, 1) // data_shards)
+        lo = min(d_idx * rows, m)
+        hi = min(lo + rows, m)
+        x = block[lo:hi]
+        w = None if bw is None else bw[lo:hi]
+        if hi - lo < rows:
+            x, mask = pad_points(x, 1, min_rows=rows)
+            if w is not None:
+                mask[: hi - lo] = w
+            w = mask
+        return x, w
+
+    def stage(self, block: np.ndarray, bw: Optional[np.ndarray] = None
+              ) -> StagedBlock:
+        """The producer's share: this rank's rows of the decoded block (in
+        the stager's dtype) on their way to the device."""
+        x, w = self.share(block, bw)
+        if not self._cuda:
+            return StagedBlock(_tensor_of(x), None if w is None
+                               else _tensor_of(w), block.shape[0], None)
+        slot = self._ring[self._next]
+        self._next = (self._next + 1) % len(self._ring)
+        tdtype = torch_dtype(self.dtype)
+        with torch.cuda.device(self.device):
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(self.device)
+            if slot.event is None:
+                slot.event = torch.cuda.Event()
+            else:
+                slot.event.synchronize()     # its last copy has landed
+            m = x.shape[0]
+            if slot.x is None or slot.x.shape[0] < m:
+                slot.x = torch.empty(x.shape, dtype=tdtype, pin_memory=True)
+            np.copyto(slot.x[:m].numpy(), x)
+            if w is not None:
+                if slot.w is None or slot.w.shape[0] < m:
+                    slot.w = torch.empty((m,), dtype=tdtype,
+                                         pin_memory=True)
+                np.copyto(slot.w[:m].numpy(), w)
+            with torch.cuda.stream(self._stream):
+                points = torch.empty(x.shape, dtype=tdtype,
+                                     device=self.device)
+                points.copy_(slot.x[:m], non_blocking=True)
+                weights = None
+                if w is not None:
+                    weights = torch.empty((m,), dtype=tdtype,
+                                          device=self.device)
+                    weights.copy_(slot.w[:m], non_blocking=True)
+                slot.event.record(self._stream)
+        return StagedBlock(points, weights, block.shape[0], slot.event)
+
+    def take(self, staged: StagedBlock) -> Tuple[torch.Tensor,
+                                                  torch.Tensor]:
+        """The consumer's share: ``(points, weights)`` ready for a step on
+        the current stream."""
+        points, weights = staged.points, staged.weights
+        if staged.event is not None:
+            current = torch.cuda.current_stream(self.device)
+            current.wait_event(staged.event)
+            points.record_stream(current)
+            if weights is not None:
+                weights.record_stream(current)
+        if weights is None:
+            weights = torch.ones(points.shape[0], dtype=points.dtype,
+                                 device=points.device)
+        return points, weights
+
+
+def _tensor_of(a: np.ndarray) -> torch.Tensor:
+    """A CPU tensor over ``a`` (a copy when ``a`` is read-only, such as a
+    slice of a memory-mapped file)."""
+    return torch.from_numpy(a if a.flags.writeable else a.copy())
 
 
 # ------------------------------------------------------------ the EM pass

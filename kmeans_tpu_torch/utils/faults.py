@@ -14,9 +14,8 @@ path under an injected, seeded failure — never by mocking the code under
 test.  This module is the one place those injections live:
 
 * :class:`TransientIOError` — the canonical retryable error.  The retry
-  machinery (the JAX package's ``data.io.retry_call``; streaming is
-  ROADMAP A.10) treats any
-  ``OSError`` as transient; tests raise this subclass so a retried
+  machinery (``data.io.retry_call`` and ``data.io.resilient_blocks``)
+  treats any ``OSError`` as transient; tests raise this subclass so a retried
   failure is distinguishable from a real environment error.
 * :class:`SimulatedPreemption` — what an injected "kill" raises.  It
   deliberately does NOT subclass ``OSError``: a preemption must never be

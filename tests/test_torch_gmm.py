@@ -348,6 +348,33 @@ def test_entry_points_not_ported_yet_raise(call, tmp_path):
         np.testing.assert_array_equal(gm.means_, full.means_)
         np.testing.assert_array_equal(gm.covariances_, full.covariances_)
         return
+    if call in ("fit_stream", "predict_stream", "score_samples_stream"):
+        # Ported since (ROADMAP A.10): the stream of two blocks gives the
+        # in-memory fit's bits where the fit's arithmetic is the same.
+        X, _ = _data(n=200, centers=3, d=3, seed=6, dtype=np.float64)
+        kw = dict(n_components=3, device="cpu", max_iter=4, tol=0.0,
+                  means_init=X[:3].copy(), dtype=np.float64)
+
+        def blocks():
+            return iter([X[:120], X[120:]])
+
+        mem = kmeans_tpu_torch.GaussianMixture(**kw).fit(X)
+        if call == "fit_stream":
+            st = kmeans_tpu_torch.GaussianMixture(**kw).fit_stream(blocks)
+            assert st.n_iter_ == mem.n_iter_ == 4
+            np.testing.assert_allclose(st.lower_bound_, mem.lower_bound_,
+                                       rtol=1e-12)
+            np.testing.assert_allclose(st.means_, mem.means_, rtol=1e-12,
+                                       atol=1e-12)
+        elif call == "predict_stream":
+            np.testing.assert_array_equal(
+                np.concatenate(list(mem.predict_stream(blocks))),
+                mem.predict(X))
+        else:
+            np.testing.assert_allclose(
+                np.concatenate(list(mem.score_samples_stream(blocks))),
+                mem.score_samples(X), rtol=1e-12)
+        return
     if call == "sweep":
         X, _ = _data(n=200, centers=3, d=3, seed=6, dtype=np.float32)
         res = kmeans_tpu_torch.GaussianMixture(

@@ -298,7 +298,8 @@ def test_unported_fit_arguments_raise(kw, tmp_path):
     """``resume`` and the checkpoint knobs are ported (ROADMAP A.9): a fit
     stopped at iteration 3 and resumed, and a fit checkpointed every 2
     iterations (under ``tmp_path``), give the bits of the plain fit;
-    ``fit_stream`` still raises naming its item."""
+    ``fit_stream`` (ported since) gives the plain fit's bits on one
+    block."""
     X = _blobs(n=400, d=4, centers=6)     # 11 iterations to converge
     opts = dict(k=12, device="cpu", verbose=False, max_iter=6,
                 tolerance=1e-12, compute_sse=True)
@@ -318,8 +319,13 @@ def test_unported_fit_arguments_raise(kw, tmp_path):
         assert km.checkpoint_segments_ == 3
         assert pt_ckpt.load_state(kw["checkpoint_path"])[
             "iterations_run"] == 6
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        km.fit_stream(lambda: iter([X]))
+    # fit_stream runs (ROADMAP A.10): one block of X from the same
+    # centroids is the same step as the plain fit's.
+    init = dict(opts, init=plain.centroids.copy(), max_iter=3)
+    st = kmeans_tpu_torch.KMeans(**init).fit_stream(lambda: iter([X]))
+    mem = kmeans_tpu_torch.KMeans(**init).fit(X)
+    np.testing.assert_array_equal(st.centroids, mem.centroids)
+    assert st.sse_history == mem.sse_history
 
 
 def test_arguments_that_name_what_the_port_does_are_taken():

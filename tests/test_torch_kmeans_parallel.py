@@ -303,9 +303,16 @@ def test_refusals_match_jax():
     bad[3, 1] = np.nan
     with pytest.raises(ValueError, match="NaN or Inf"):
         pi.kmeans_parallel_init(bad, 3, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.10"):
-        pi.streamed_kmeans_parallel_init(lambda: iter([X]), 3, [0], 2,
-                                         np.float64)
+    # The streamed k-means|| (ported since, ROADMAP A.10) refuses as the
+    # JAX package's does.
+    with pytest.raises(ValueError) as want:
+        ji.streamed_kmeans_parallel_init(lambda: iter([X]), 51, [0],
+                                         X.shape[1], np.float64)
+    with pytest.raises(ValueError) as got:
+        pi.streamed_kmeans_parallel_init(lambda: iter([X]), 51, [0],
+                                         X.shape[1], np.float64,
+                                         device="cpu")
+    assert str(got.value) == str(want.value)
 
 
 def test_a_host_array_goes_to_the_card_unless_asked(monkeypatch):

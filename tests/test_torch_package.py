@@ -22,10 +22,12 @@ PORT_FILES = sorted((ROOT / "kmeans_tpu_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 
 MODULES = ["kmeans_tpu_torch", "kmeans_tpu_torch.convert",
+           "kmeans_tpu_torch.data.io", "kmeans_tpu_torch.data.prefetch",
            "kmeans_tpu_torch.data.synthetic",
            "kmeans_tpu_torch.experiments",
            "kmeans_tpu_torch.experiments.exp_kernel_edits",
            "kmeans_tpu_torch.experiments.exp_pallas_kernel",
+           "kmeans_tpu_torch.experiments.exp_stream_host",
            "kmeans_tpu_torch.metrics",
            "kmeans_tpu_torch.models.bisecting",
            "kmeans_tpu_torch.models.fault_tolerance",

@@ -265,7 +265,8 @@ def test_sweep(mesh1):
 
 def test_unported_surfaces_name_their_items():
     km = _port(k=2)
-    with pytest.raises(NotImplementedError, match="A.10"):
+    # fit_stream is ported (ROADMAP A.10): an empty stream is refused.
+    with pytest.raises(ValueError, match="FRESH iterable"):
         km.fit_stream(lambda: iter([]))
     with pytest.raises(NotImplementedError, match="A.12"):
         km.fitted_state()

@@ -94,12 +94,29 @@ def test_fit_transform_and_inputs(tmp_path):
 @pytest.mark.parametrize("call", ["prefetch", "predict_stream",
                                   "score_stream"])
 def test_streaming_entry_points_not_ported_raise(tmp_path, call):
-    pm, _, X = _models(tmp_path)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        if call == "prefetch":
-            pm.transform_stream(lambda: iter([X]), prefetch=2)
-        else:
-            getattr(pm, call)(lambda: iter([X]))
+    """Ported since (ROADMAP A.10): each stream runs and equals the JAX
+    package's and the in-memory call."""
+    pm, jm, X = _models(tmp_path)
+
+    def blocks():
+        return iter([X[:500], X[500:]])
+
+    if call == "prefetch":
+        got = np.concatenate(list(pm.transform_stream(blocks, prefetch=2)))
+        np.testing.assert_array_equal(got, np.concatenate(list(
+            pm.transform_stream(blocks, prefetch=0))))
+        np.testing.assert_allclose(got, np.concatenate(list(
+            jm.transform_stream(blocks, prefetch=2))), rtol=1e-9, atol=1e-9)
+    elif call == "predict_stream":
+        got = np.concatenate(list(pm.predict_stream(blocks)))
+        np.testing.assert_array_equal(got, pm.predict(X))
+        np.testing.assert_array_equal(got, np.concatenate(list(
+            jm.predict_stream(blocks))))
+    else:
+        np.testing.assert_allclose(pm.score_stream(blocks), pm.score(X),
+                                   rtol=1e-12)
+        np.testing.assert_allclose(pm.score_stream(blocks),
+                                   jm.score_stream(blocks), rtol=1e-12)
 
 
 def test_get_params_names_the_jax_parameters():
