@@ -73,6 +73,19 @@ stale-checkpoint rule, both loops (``divergence_rollback``); each family
 killed and resumed at the size of its own phase (``fault_families``); and
 a checkpointed device-loop fit on one NCCL rank (``dp_world1``).
 
+Ingest and the massive k: ``data.synthetic.device_shards`` at the main
+shape (blobs around 1024 centres) made on the card, its first 65,536 rows
+bit for bit against ``host_equivalent``, then ``KMeans(k=1024)`` on it
+through kernel 1 (``synthetic``); the main data at k = 16,384 by the
+two-level route (128 coarse cells, 16 probes; the coarse quantizer trained
+through kernel 1), by the dense kernel fit, and the collapse case (every
+cell probed) against the dense 'matmul' fit, with each fit's peak
+allocated bytes against ``obs.memory.plan_fit`` (``large_k``); the main
+data's file read by ``from_npy`` on the one-rank NCCL mesh by 'mono' and
+by 'slab', byte for byte, timed (``ingest``, in ``dp_world1``); and
+``k_shard=2`` on a model axis of the two gloo ranks at k = 4096, bit for
+bit against the dense model-axis fit (``dp_shared_card_kshard``).
+
 Every phase prints one JSON line as it ends.  A phase that fails raises, so
 the run ends with a non-zero code and without the result line.  The last line
 is ``{"ok": true, "device": {...}}``; the line before it is the card's name
@@ -2519,10 +2532,12 @@ def phase_oom_real(x):
     back within OOM_LEFT_BYTES of its value before the fit.  The model's
     explicit chunk is not clamped first (``_chunk_for``)."""
     n = x.shape[0]
+    # assign='dense': the dense oracle's device loop ('auto' would take the
+    # two-level route, plan_fit predicting that this tile cannot fit).
     kw = dict(k=OOM["k"], max_iter=OOM["iters"], seed=42, tolerance=1e-30,
               compute_sse=True, init="forgy", verbose=False,
               compute_labels=False, distance_mode="matmul",
-              host_loop=False, chunk_size=n)
+              host_loop=False, chunk_size=n, assign="dense")
     m = KMeans(**kw)
     ds = m.cache(x)
     check(m._chunk_for(ds) == n, f"oom_real: the chunk was clamped to "
@@ -3252,6 +3267,242 @@ def _dp_world1_stream(mesh, path, c0, ref):
     return launches
 
 
+# ---------------------------------------------- ingest and the massive k
+
+# Phase ingest: the main data's .npy file (written by phase stream) read on
+# a world-1 NCCL mesh by 'mono' and by 'slab', INGEST_REPS times each,
+# interleaved.  Phase synthetic: device_shards at the main shape (blobs
+# around SYNTH["k"] centres), held to host_equivalent on a prefix of
+# SYNTH["prefix"] rows, then a KMeans fit on it.  Phase large_k: the main
+# data at LARGE_K["k"] clusters, the two-level route (LARGE_K["cells"]
+# coarse cells, LARGE_K["nprobe"] probes), its collapse case (every cell
+# probed) against the dense 'matmul' fit, and the dense kernel fit;
+# k_shard at KSHARD["k"] inside dp_shared_card.
+INGEST_REPS = 3
+SYNTH = dict(k=1024, iters=5, prefix=65_536, seed=11)
+LARGE_K = dict(k=16_384, cells=128, nprobe=16, iters=3, collapse_iters=2)
+LARGE_K_SSE_RTOL = 1e-6
+KSHARD = dict(k=4096, iters=3)
+
+
+def allocated_peak(fn, resident_bytes: int = 0):
+    """``(fn(), peak bytes)``: the most allocated on the card while ``fn``
+    ran, above what was allocated before it, plus ``resident_bytes`` that
+    it uses but that were allocated before (a dataset's rows)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    base = torch.cuda.memory_allocated(DEV)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated(DEV) - base + resident_bytes
+
+
+def same_bytes(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and bool(torch.equal(
+        a.view(torch.int32 if a.element_size() == 4 else torch.int64),
+        b.view(torch.int32 if b.element_size() == 4 else torch.int64)))
+
+
+def _dp_world1_ingest(mesh, path: Path, c0):
+    """``data.io.from_npy`` of the main data's file (1 GiB, warm in the page
+    cache: phase stream wrote and read it) on the one-rank NCCL mesh by
+    'mono' (one host array, one copy) and by 'slab' (64 MiB slabs through
+    the pinned ring, each slab's copy overlapping the next slab's host
+    read), INGEST_REPS times each, interleaved: the placements byte for
+    byte, median seconds and GB/s of each, the ratio mono/slab (the bar
+    for 'auto' to take slab is 1.2), the slabs, and the peak allocated
+    above the baseline.  Then a fit from c0 on each placement, bit for
+    bit, kernel 1 once per iteration."""
+    from kmeans_tpu_torch.data import io as pio
+    from kmeans_tpu_torch.parallel.sharding import resolve_ingest
+    nbytes = path.stat().st_size
+    times = {"mono": [], "slab": []}
+    peaks = {"mono": [], "slab": []}
+    slabs = {}
+    ref = None
+    for _ in range(INGEST_REPS):
+        for mode in ("mono", "slab"):
+            t0 = time.perf_counter()
+            ds, peak = allocated_peak(lambda: pio.from_npy(
+                path, mesh, ingest=mode))
+            times[mode].append(time.perf_counter() - t0)
+            peaks[mode].append(peak)
+            slabs[mode] = ds.slabs
+            if ref is None:
+                ref = ds
+                continue
+            check(same_bytes(ds.points, ref.points)
+                  and same_bytes(ds.weights, ref.weights)
+                  and (ds.offset, ds.local_rows) == (ref.offset,
+                                                     ref.local_rows),
+                  f"ingest: the {mode} placement differs from mono's")
+            del ds
+    med = {mode: statistics.median(t) for mode, t in times.items()}
+    fits, counts = {}, {}
+    for mode in ("mono", "slab"):
+        ds = ref if mode == "mono" else pio.from_npy(path, mesh,
+                                                     ingest="slab")
+        km = KMeans(k=MAIN["k"], max_iter=2, tolerance=1e-30,
+                    compute_sse=True, init=c0, verbose=False,
+                    compute_labels=False, mesh=mesh)
+        fits[mode], _, launches = counted(lambda: km.fit(ds))
+        counts[f"dp_world1:ingest:{mode}"] = {
+            k: v for k, v in launches.items() if v}
+        check(launches["fused_assign_reduce"] == km.iterations_run == 2,
+              f"ingest {mode} fit: launches {launches}")
+    check(same_fit(fits["mono"], fits["slab"]),
+          "ingest: the fits on the two placements differ")
+    emit("ingest", rows=MAIN["n"], d=MAIN["d"], bytes=nbytes,
+         warm_page_cache=True, reps=INGEST_REPS, seconds=times,
+         median_seconds=med,
+         gb_per_s={mode: nbytes / t / 1e9 for mode, t in med.items()},
+         ratio_mono_over_slab=med["mono"] / med["slab"], adopt_bar=1.2,
+         auto_resolves_to=resolve_ingest("auto"), slabs=slabs,
+         peak_allocated_above_baseline=peaks, byte_identical=True,
+         fits_bit_identical=True, launches=counts)
+    return counts
+
+
+def phase_synthetic():
+    """``data.synthetic.device_shards`` at the main shape on the card
+    (blobs around SYNTH["k"] centres): its seconds, the rows of its first
+    SYNTH["prefix"] against ``host_equivalent`` (made on the CPU) bit for
+    bit, no host copy; then ``KMeans(k=SYNTH["k"])`` for SYNTH["iters"]
+    iterations on it, kernel 1 once per iteration."""
+    from kmeans_tpu_torch.data import synthetic
+    n, d = MAIN["n"], MAIN["d"]
+    centers = np.random.default_rng(SYNTH["seed"]).uniform(
+        -10.0, 10.0, size=(SYNTH["k"], d)).astype(np.float32)
+    ds, seconds, _ = counted(lambda: synthetic.device_shards(
+        n, d, kind="blobs", seed=SYNTH["seed"], centers=centers))
+    t0 = time.perf_counter()
+    host = synthetic.host_equivalent(SYNTH["prefix"], d, kind="blobs",
+                                     seed=SYNTH["seed"], centers=centers)
+    host_seconds = time.perf_counter() - t0
+    equal = host.tobytes() == \
+        ds.points[: SYNTH["prefix"]].cpu().numpy().tobytes()
+    check(equal and ds.host is None and ds.n == n
+          and bool((ds.weights == 1).all()),
+          "synthetic: device_shards differs from host_equivalent")
+    km = KMeans(k=SYNTH["k"], max_iter=SYNTH["iters"], tolerance=1e-30,
+                seed=42, compute_sse=True, init="forgy", verbose=False,
+                compute_labels=False)
+    _, fit_seconds, launches = counted(lambda: km.fit(ds))
+    launches = {k: v for k, v in launches.items() if v}
+    check(launches.get("fused_assign_reduce", 0) == km.iterations_run
+          == SYNTH["iters"] and largest_rise(km.sse_history) <= 1e-6,
+          f"synthetic fit: launches {launches}, SSE {km.sse_history}")
+    emit("synthetic", rows=n, d=d, kind="blobs", centres=SYNTH["k"],
+         device_shards_seconds=seconds, gb_per_s=n * d * 4 / seconds / 1e9,
+         prefix_rows=SYNTH["prefix"], prefix_bit_identical=equal,
+         host_equivalent_seconds=host_seconds,
+         fit_iterations=km.iterations_run, sse_history=km.sse_history,
+         seconds_per_iteration=statistics.median(km.iter_times_),
+         fit_seconds=fit_seconds, launches=launches)
+    return {"synthetic": launches}
+
+
+def phase_large_k(x):
+    """The main data at k = LARGE_K["k"] from one table of rows: the
+    two-level route (LARGE_K["cells"] cells, LARGE_K["nprobe"] probes,
+    'auto' read as 'matmul' by the mode rule; its coarse quantizer trained
+    through kernel 1), the dense kernel fit (kernel 1 per iteration), and
+    the collapse case (every cell probed) against the dense 'matmul' fit:
+    SSE ratio within LARGE_K_SSE_RTOL, and at the dense fit's centroids
+    the two-level labels equal the dense labels outside the band of
+    ops/compare.py.  Seconds per iteration of each, and each fit's peak
+    allocated bytes against obs.memory.plan_fit's prediction."""
+    from kmeans_tpu_torch.obs import memory
+    n, d, k = MAIN["n"], MAIN["d"], LARGE_K["k"]
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    c0 = x[torch.randperm(n, generator=gen, device=DEV)[:k]].cpu().numpy()
+    rows_bytes = x.numel() * x.element_size()
+    base_kw = dict(k=k, tolerance=1e-30, compute_sse=True, init=c0,
+                   verbose=False, compute_labels=False, host_loop=True)
+    runs = {
+        "two_level": dict(assign="two_level", coarse_cells=LARGE_K["cells"],
+                          nprobe=LARGE_K["nprobe"],
+                          max_iter=LARGE_K["iters"]),
+        "dense_kernel": dict(assign="dense", distance_mode="kernel",
+                             max_iter=LARGE_K["iters"]),
+        "collapse": dict(assign="two_level", coarse_cells=LARGE_K["cells"],
+                         nprobe=LARGE_K["cells"],
+                         max_iter=LARGE_K["collapse_iters"]),
+        "dense_matmul": dict(assign="dense", distance_mode="matmul",
+                             max_iter=LARGE_K["collapse_iters"]),
+    }
+    models, counts = {}, {}
+    for name, kw in runs.items():
+        km = KMeans(**base_kw, **kw)
+        (_, seconds, launches), peak = allocated_peak(
+            lambda: counted(lambda: km.fit(x)), rows_bytes)
+        launches = {k_: v for k_, v in launches.items() if v}
+        counts[f"large_k:{name}"] = launches
+        ds = km.cache(x)
+        two = km.assign == "two_level"
+        mode = km._large_k_mode() if two else km._mode()
+        if two:
+            L = km._two_level_route_[1].shape[1]
+            plan = memory.plan_fit(
+                "kmeans", n, d, k, mode=mode, assign="two_level",
+                coarse_cells=LARGE_K["cells"], nprobe=kw["nprobe"],
+                member_width=L, chunk=km._two_level_chunk(
+                    ds, LARGE_K["cells"], L, kw["nprobe"]), device=DEV)
+            k1 = launches.get("fused_assign_reduce", 0)
+            check(mode == "matmul" and km.estep_path_ == "serial"
+                  and 1 <= k1 <= 25,
+                  f"large_k {name}: mode {mode}, {km.estep_path_}, "
+                  f"kernel 1 launched {k1} times in the coarse training")
+        else:
+            plan = memory.plan_fit("kmeans", n, d, k, mode=mode,
+                                   chunk=km._chunk_for(ds), device=DEV)
+            want = km.iterations_run if mode == "kernel" else 0
+            check(launches.get("fused_assign_reduce", 0) == want,
+                  f"large_k {name}: launches {launches}")
+        del ds
+        check(km.iterations_run == kw["max_iter"]
+              and largest_rise(km.sse_history) <= 1e-6
+              and np.all(np.isfinite(km.centroids)),
+              f"large_k {name}: {km.iterations_run} iterations, SSE "
+              f"{km.sse_history}")
+        models[name] = km
+        emit("large_k", run=name, k=k, distance_mode=mode,
+             assign=km.assign_resolved_,
+             coarse_cells=kw.get("coarse_cells"), nprobe=kw.get("nprobe"),
+             member_width=km._two_level_route_[1].shape[1] if two else None,
+             iterations=km.iterations_run, sse_history=km.sse_history,
+             seconds_per_iteration=statistics.median(km.iter_times_),
+             iter_times=km.iter_times_, fit_seconds=seconds,
+             peak_allocated_bytes=peak,
+             predicted_peak_bytes=plan["predicted_peak_bytes"],
+             predicted_over_measured=plan["predicted_peak_bytes"] / peak,
+             plan_components=plan["components"], launches=launches)
+    ratio = [a / b for a, b in zip(models["collapse"].sse_history,
+                                   models["dense_matmul"].sse_history)]
+    dense = models["dense_matmul"]
+    cents = torch.from_numpy(dense.centroids).to(DEV)
+    coarse = models["collapse"]._two_level_route_[0]
+    members = dense._build_members(dense.centroids.astype(np.float64),
+                                   coarse)
+    chunk = dense._two_level_chunk(dense.cache(x), LARGE_K["cells"],
+                                   members.shape[1], LARGE_K["cells"])
+    labels_two = dist.make_two_level_predict_fn(
+        None, chunk_size=chunk, nprobe=LARGE_K["cells"], mode="matmul")(
+        x, cents, coarse, members)
+    labels_dense = dist.make_predict_fn(
+        None, chunk_size=dense._chunk_for(dense.cache(x)), mode="matmul")(
+        x, cents)
+    n_diff, n_out = label_band(x, cents, labels_two, labels_dense)
+    emit("large_k_collapse", k=k, sse_ratio=ratio, labels_differ=n_diff,
+         labels_outside_band=n_out,
+         seconds_per_iteration={name: statistics.median(m.iter_times_)
+                                for name, m in models.items()})
+    check(all(abs(r - 1.0) <= LARGE_K_SSE_RTOL for r in ratio),
+          f"large_k collapse: SSE ratio {ratio}")
+    check(n_out == 0, f"large_k collapse: {n_out} labels outside the band")
+    return counts
+
+
 def median_ms(fn, runs=10, warmup=2) -> float:
     for _ in range(warmup):
         fn()
@@ -3666,6 +3917,30 @@ def dp_child(rank: int, world: int, store: str, out: str) -> None:
                 iter_times=km.iter_times_, fit_seconds=wall,
                 launches=launches, step_sums=st.sums.cpu(),
                 step_counts=st.counts.cpu(), step_labels=step_labels)
+    # k_shard on the model axis against the dense model-axis fit, 'matmul',
+    # from the same table; and one k-sharded step's blocks.
+    kmesh = make_mesh(1, DP_RANKS)
+    c_k = x[: KSHARD["k"]].cpu().numpy()
+    for ks in (0, DP_RANKS):
+        km = KMeans(k=KSHARD["k"], max_iter=KSHARD["iters"],
+                    tolerance=1e-30, compute_sse=True, init=c_k,
+                    verbose=False, compute_labels=False,
+                    distance_mode="matmul", mesh=kmesh, k_shard=ks)
+        hk.reset_launch_counts()           # this path's own counts
+        t0 = time.perf_counter()
+        km.fit(x)
+        torch.cuda.synchronize()
+        res["kshard", ks] = dict(
+            centroids=km.centroids, iterations=km.iterations_run,
+            sse_history=km.sse_history, iter_times=km.iter_times_,
+            resolved=km.k_shard_resolved_, launches=dict(hk.LAUNCHES),
+            fit_seconds=time.perf_counter() - t0)
+    ds = km.cache(x)
+    st = dist.make_kshard_step_fn(kmesh, chunk_size=km._chunk_for(ds))(
+        ds.points, ds.weights, torch.from_numpy(c_k).to(DEV))
+    res["kshard_block"] = (tuple(st.sums.shape), tuple(st.counts.shape),
+                           st.sums.device.type)
+    del ds, st, km
     mesh = make_mesh(DP_RANKS, 1)
     # The mini-batch engine on the data axis: each rank draws half of the
     # batch from its own block, statistics and candidates reduced.
@@ -3895,6 +4170,31 @@ def phase_dp_shared_card(x, refs, seeding_idx):
              note=DP_NOTE, **rec)
         check(equal == MAIN["k"], f"process-local k-means++ rank {rank}: "
                                   f"{equal} of {MAIN['k']} rows equal")
+    block = (-(-KSHARD["k"] // DP_RANKS), MAIN["d"])
+    for rank, res in enumerate(results):
+        dense, sharded = res["kshard", 0], res["kshard", DP_RANKS]
+        same = {"centroids": bool(np.array_equal(sharded["centroids"],
+                                                 dense["centroids"])),
+                "iterations": sharded["iterations"] == dense["iterations"],
+                "sse_history": sharded["sse_history"]
+                == dense["sse_history"],
+                "ranks": bool(np.array_equal(
+                    sharded["centroids"],
+                    results[0]["kshard", DP_RANKS]["centroids"]))}
+        emit("dp_shared_card_kshard", mesh="model2", k=KSHARD["k"],
+             distance_mode="matmul", rank=rank,
+             resolved=(dense["resolved"], sharded["resolved"]),
+             bit_identical=same, iterations=sharded["iterations"],
+             sse_history=sharded["sse_history"],
+             step_block=res["kshard_block"],
+             seconds_per_iteration={
+                 "dense": statistics.median(dense["iter_times"]),
+                 "k_shard": statistics.median(sharded["iter_times"])},
+             note=DP_NOTE + "; correctness only")
+        check(all(same.values()) and sharded["resolved"] == DP_RANKS
+              and res["kshard_block"] == (block, block[:1], "cuda"),
+              f"dp_shared_card k_shard rank {rank}: {same}, block "
+              f"{res['kshard_block']}")
     emit("dp_spawn", ranks=DP_RANKS, seconds=spawn_seconds, note=DP_NOTE)
     return results, counts
 
@@ -4040,6 +4340,8 @@ def phase_dp_world1(x, refs, minibatch_ref, x_gmm, gmm_ref, stream_ref):
                                                             gmm_ref)
             counts["dp_world1:stream"] = _dp_world1_stream(mesh,
                                                            *stream_ref)
+            counts.update(_dp_world1_ingest(mesh, stream_ref[0],
+                                            stream_ref[1]))
         finally:
             torch.distributed.destroy_process_group()
     return counts
@@ -4291,6 +4593,11 @@ def main() -> None:
             x_main, x2, x_gmm, tmp, {"bisecting": bisect_ref}))
     fault_counts.update(phase_oom_real(x_main))
 
+    # Ingest and the massive k: data made on the card, then the main data
+    # at k = 16,384 by the two-level route and the dense fits.
+    largek_counts = phase_synthetic()
+    largek_counts.update(phase_large_k(x_main))
+
     # Streaming: the main data, the mixture data and the GloVe-like data
     # written as .npy files and read back block by block.
     stream_dir = tempfile.TemporaryDirectory()
@@ -4329,6 +4636,8 @@ def main() -> None:
         ("f32", "device"): device_models["main_device"],
         ("bf16", "device"): device_models["main_bf16_device"]},
         minibatch_ref, x_gmm, gmm_dev, stream_ref))
+    largek_counts.update({path: c for path, c in mesh_counts.items()
+                          if path.startswith("dp_world1:ingest")})
     stream_dir.cleanup()
     phase_suite()
     for row in rows:
@@ -4349,6 +4658,9 @@ def main() -> None:
             if c.get(row["name"], 0) > 0}
         row["stream_launches"] = {
             path: c[row["name"]] for path, c in stream_counts.items()
+            if c.get(row["name"], 0) > 0}
+        row["ingest_large_k_launches"] = {
+            path: c[row["name"]] for path, c in largek_counts.items()
             if c.get(row["name"], 0) > 0}
 
     emit("total", seconds=time.perf_counter() - started)

@@ -16,16 +16,16 @@ Counterpart of ``kmeans_tpu/data/io.py`` (``IOStats``, ``check_io_knobs``,
   factory again and skipping the blocks already delivered; every block is
   scanned for non-finite values (``on_nonfinite='error'`` names it,
   ``'skip'`` drops and counts it).
-* **Files.**  :func:`from_npy` and :func:`from_raw` map the file and read
-  rows in slices through a read-ahead thread.  Without a mesh the rows go
-  to one device (``parallel.sharding.to_device``); under a mesh each rank
-  reads only its own contiguous block of rows, ``ceil(n / data)`` of them
-  (the block layout of ``parallel.sharding``), and the mapped file stays
-  the dataset's host copy, so seeded row draws (Forgy, 'resample') read
-  only the rows they pick.
-
-``ingest='slab'`` (the JAX package's slab placement) is not ported yet:
-ROADMAP.md, A.10.
+* **Files.**  :func:`from_npy` and :func:`from_raw` map the file.
+  Without a mesh the whole file is read into one host array and goes to
+  one device (``parallel.sharding.to_device``), as in the JAX package; the
+  dataset records the chunk its loader chose.  Under a mesh each rank reads
+  only its own contiguous block of rows, ``ceil(n / data)`` of them (the
+  block layout of ``parallel.sharding``), in slices through a read-ahead
+  thread ('mono') or slab by slab through the pinned ring of
+  ``BlockStager`` ('slab', ``parallel.sharding.place_slabs``), and the
+  mapped file stays the dataset's host copy, so seeded row draws (Forgy,
+  'resample') read only the rows they pick.
 """
 
 from __future__ import annotations
@@ -42,10 +42,10 @@ from kmeans_tpu_torch.data.prefetch import (check_prefetch, close_source,
 from kmeans_tpu_torch.parallel import mesh as _mesh
 from kmeans_tpu_torch.parallel.sharding import (ShardedDataset,
                                                 _validate_sample_weight,
+                                                check_ingest,
                                                 choose_chunk_size,
+                                                place_slabs, resolve_ingest,
                                                 to_device)
-
-_INGEST_MODES = ("auto", "mono", "slab")
 
 
 class IOStats:
@@ -276,27 +276,20 @@ class _ReadaheadReader:
         self._pool.shutdown(wait=True)
 
 
-def _check_ingest(ingest) -> str:
-    if ingest not in _INGEST_MODES:
-        raise ValueError(f"ingest must be one of {_INGEST_MODES}, "
-                         f"got {ingest!r}")
-    if ingest == "slab":
-        raise NotImplementedError(
-            "ingest='slab' is not ported to kmeans_tpu_torch yet: "
-            "ROADMAP.md, A.10 'Streaming and ingest'")
-    return ingest
-
-
 def _from_source(read_rows, n: int, d: int, mesh, *, device, dtype,
                  chunk_size: Optional[int], k_hint: int,
                  budget_elems: Optional[int], sample_weight,
                  host_handle, prefetch: int, io_retries: int,
-                 io_backoff: float) -> ShardedDataset:
+                 io_backoff: float, ingest: str = "mono") -> ShardedDataset:
     """This rank's block of rows [d_idx * b, (d_idx + 1) * b) of the source,
-    ``b = ceil(n / data)``, read in slices of the dataset's chunk through
-    the read-ahead reader (which never reads past the block), padded with
-    rows of weight 0 to ``b`` rows; the ranks of one data index read the
-    same rows.  ``io_stats`` on the result counts the retries."""
+    ``b = ceil(n / data)``, padded with rows of weight 0 to ``b`` rows; the
+    ranks of one data index read the same rows.  'mono' reads the block in
+    slices of the dataset's chunk through the read-ahead reader (which
+    never reads past the block) into one host array and copies it to the
+    device once; 'slab' reads and copies it slab by slab
+    (``parallel.sharding.place_slabs``, its producer thread reading
+    ``prefetch`` slabs ahead).  ``io_stats`` on the result counts the
+    retries; ``slabs`` the host-to-device copies of the rows."""
     dtype = np.dtype(dtype)
     io_retries, io_backoff = check_io_knobs(io_retries, io_backoff)
     prefetch = check_prefetch(prefetch)
@@ -314,36 +307,49 @@ def _from_source(read_rows, n: int, d: int, mesh, *, device, dtype,
         # recover too.
         read_rows = _retrying_reader(read_rows, io_retries, io_backoff,
                                      io_stats)
-    reader = _ReadaheadReader(read_rows, hi, prefetch) if prefetch \
-        else None
-    rows = np.zeros((block, d), dtype=dtype)
-    try:
-        for s in range(lo, hi, chunk):
-            e = min(s + chunk, hi)
-            rows[s - lo: e - lo] = (reader or read_rows)(s, e)
-    finally:
-        if reader is not None:
-            reader.close()
-    mask = np.zeros(block, dtype=dtype)
-    mask[: hi - lo] = 1.0 if sw is None else sw[lo:hi]
+    if ingest == "slab":
+        points, weights, slabs = place_slabs(
+            read_rows, lo, hi, block, d, device, dtype, sw,
+            prefetch=prefetch)
+    else:
+        reader = _ReadaheadReader(read_rows, hi, prefetch) if prefetch \
+            else None
+        rows = np.zeros((block, d), dtype=dtype)
+        try:
+            for s in range(lo, hi, chunk):
+                e = min(s + chunk, hi)
+                rows[s - lo: e - lo] = (reader or read_rows)(s, e)
+        finally:
+            if reader is not None:
+                reader.close()
+        mask = np.zeros(block, dtype=dtype)
+        mask[: hi - lo] = 1.0 if sw is None else sw[lo:hi]
+        points = torch.from_numpy(rows).to(device)
+        weights = torch.from_numpy(mask).to(device)
+        slabs = 1
     ds = ShardedDataset(
-        torch.from_numpy(rows).to(device), torch.from_numpy(mask).to(device),
-        mesh, n=n, offset=lo, local_rows=hi - lo, chunk=chunk,
-        explicit_chunk=chunk_size is not None, host=host_handle,
-        host_weights=sw)
+        points, weights, mesh, n=n, offset=lo, local_rows=hi - lo,
+        chunk=chunk, explicit_chunk=chunk_size is not None,
+        host=host_handle, host_weights=sw)
     ds.io_stats = io_stats
+    ds.slabs = slabs
     return ds
 
 
 def _load(mm, mesh, *, device, chunk_size, dtype, k_hint, budget_elems,
           sample_weight, prefetch, io_retries, io_backoff, ingest):
     from kmeans_tpu_torch.models.kmeans import resolve_device
-    _check_ingest(ingest)
+    mode = resolve_ingest(check_ingest(ingest))
     device = resolve_device(device)
     n, d = mm.shape
     if mesh is None:
+        # The JAX package's one-device branch: the whole file in one host
+        # array and one copy (the mode and the read-ahead do not apply),
+        # the chunk chosen for k_hint unless given.
         ds = to_device(np.array(mm, dtype=dtype), device, dtype,
                        sample_weight=sample_weight)
+        ds.chunk = chunk_size or choose_chunk_size(n, k_hint, d)
+        ds.explicit_chunk = chunk_size is not None
         ds.io_stats = IOStats()
         return ds
 
@@ -355,7 +361,7 @@ def _load(mm, mesh, *, device, chunk_size, dtype, k_hint, budget_elems,
                         budget_elems=budget_elems,
                         sample_weight=sample_weight, host_handle=mm,
                         prefetch=prefetch, io_retries=io_retries,
-                        io_backoff=io_backoff)
+                        io_backoff=io_backoff, ingest=mode)
 
 
 def from_npy(path, mesh=None, *, device=None,
@@ -364,20 +370,23 @@ def from_npy(path, mesh=None, *, device=None,
              sample_weight: Optional[np.ndarray] = None,
              prefetch: int = 2, io_retries: int = 0,
              io_backoff: float = 0.05, ingest: str = "auto"):
-    """A dataset from a 2-D ``.npy`` file, never loaded whole.
+    """A dataset from a 2-D ``.npy`` file.
 
-    ``mesh=None`` places the rows on one device (``device``: None is the
-    card, as in every entry point of the package): ``to_device`` of the
-    mapped rows.  Under a mesh each rank reads only its own block of rows
-    (a ``ShardedDataset`` whose host copy is the mapped file).
-    ``k_hint`` (or ``chunk_size``) sizes the torch passes' chunk, and
-    ``budget_elems`` the element budget of its tile (pass
-    ``sharding.EM_CHUNK_BUDGET`` for a mixture).  ``prefetch`` slices are
-    read ahead in a background thread (0: no thread); ``io_retries`` /
-    ``io_backoff`` retry transient slice reads with the deterministic
-    backoff, counted in the result's ``io_stats.retries_used``.
-    ``ingest``: 'auto' and 'mono' read as described; 'slab' raises
-    (ROADMAP.md, A.10)."""
+    ``mesh=None`` reads the whole file into one host array and places it
+    on one device (``device``: None is the card, as in every entry point of
+    the package), as the JAX package does; the dataset carries the chunk
+    ``chunk_size or choose_chunk_size(n, k_hint, D)`` (``explicit_chunk``
+    when given), which a fit takes.  Under a mesh the file is never loaded
+    whole: each rank reads only its own block of rows (a
+    ``ShardedDataset`` whose host copy is the mapped file), and
+    ``budget_elems`` sets the element budget of the chunk's tile (pass
+    ``sharding.EM_CHUNK_BUDGET`` for a mixture).  There ``prefetch``
+    slices are read ahead in a background thread (0: no thread),
+    ``io_retries`` / ``io_backoff`` retry transient slice reads with the
+    deterministic backoff, counted in the result's
+    ``io_stats.retries_used``, and ``ingest`` picks the placement:
+    'mono' (also 'auto', ``sharding.resolve_ingest``) or 'slab'
+    (``sharding.place_slabs``), the same bytes either way."""
     mm = np.load(path, mmap_mode="r")
     if mm.ndim != 2:
         raise ValueError(f"expected a 2-D array in {path}, got shape "

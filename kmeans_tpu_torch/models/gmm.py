@@ -81,7 +81,7 @@ from kmeans_tpu_torch.parallel.mesh import (DATA_AXIS, all_reduce,
                                             is_primary, make_mesh,
                                             mesh_shape)
 from kmeans_tpu_torch.parallel.sharding import (BlockStager, Dataset,
-                                                ShardedDataset,
+                                                ShardedDataset, check_ingest,
                                                 choose_em_chunk, to_device,
                                                 weighted_mean)
 from kmeans_tpu_torch.utils import checkpoint as ckpt
@@ -101,7 +101,6 @@ _LATER_ARGS = {
                      "bench'"),
     "overlap": (("auto", 0, False), "A.14 'Orchestrator, warm start, "
                                     "lint, CLIs and bench'"),
-    "ingest": (("auto", "mono"), "A.10 'Streaming and ingest'"),
 }
 
 _ILL_DEFINED = ("Fitting the mixture model failed because some components "
@@ -160,11 +159,14 @@ class GaussianMixture(AutoCheckpointMixin):
     both give the same bits; 'auto' is 0 until the card measures 1; the
     kernel has its own schedule).
 
+    ``ingest``: 'auto' | 'mono' | 'slab', how a host array reaches the
+    ranks of a mesh, as in ``KMeans`` (the same bytes either way).
+
     The JAX package's other arguments (``model_shards``, ``bucket``,
-    ``overlap``, ``ingest``) are taken only at the values that name what
-    this port does (no model axis, the exact shape, no staged upload, one
-    upload); a mesh with a model axis and any other value raise
-    ``NotImplementedError`` naming the ROADMAP item that brings them.
+    ``overlap``) are taken only at the values that name what this port
+    does (no model axis, the exact shape, no overlapped set-up); a mesh
+    with a model axis and any other value raise ``NotImplementedError``
+    naming the ROADMAP item that brings them.
 
     ``estep_path_`` records what the last fit ran (:func:`estep_mode`):
     'kernel' (the fused CUDA kernel), or the torch pass's schedule,
@@ -224,7 +226,7 @@ class GaussianMixture(AutoCheckpointMixin):
         if mesh is not None and mesh_shape(mesh)[1] > 1:
             model_shards = mesh_shape(mesh)[1]
         later = dict(model_shards=model_shards, bucket=bucket,
-                     overlap=overlap, ingest=ingest)
+                     overlap=overlap)
         for name, value in later.items():
             allowed, item = _LATER_ARGS[name]
             if not _is_allowed(value, allowed):
@@ -252,7 +254,7 @@ class GaussianMixture(AutoCheckpointMixin):
         self.pipeline = pipeline if pipeline == "auto" else int(pipeline)
         self.bucket = bucket
         self.overlap = overlap if overlap == "auto" else int(overlap)
-        self.ingest = ingest
+        self.ingest = check_ingest(ingest)
         self.verbose = verbose
         self.device = resolve_device(device)
 
@@ -314,7 +316,8 @@ class GaussianMixture(AutoCheckpointMixin):
         d = X.d if isinstance(X, Dataset) else np.shape(X)[-1]
         ds = to_device(X, self.device, self.dtype,
                        sample_weight=sample_weight, mesh=mesh,
-                       chunk=self.chunk_size, k_hint=self._tile_k(d))
+                       chunk=self.chunk_size, k_hint=self._tile_k(d),
+                       ingest=self.ingest)
         if not isinstance(X, Dataset):
             if ds.host is not None:
                 check_finite_array(ds.host, "Data contains NaN or Inf values")
@@ -1649,6 +1652,7 @@ class GaussianMixture(AutoCheckpointMixin):
                     host_loop=bool(state.get("host_loop", True)),
                     pipeline=("auto" if str(pipeline) == "auto"
                               else int(pipeline)),
+                    ingest=str(state.get("ingest", "auto")),
                     verbose=bool(state["verbose"]),
                     dtype=np.dtype(str(state["dtype"])), device=device,
                     mesh=mesh, **inits)

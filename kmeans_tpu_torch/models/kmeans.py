@@ -76,6 +76,8 @@ from kmeans_tpu_torch.parallel.mesh import (all_reduce, check_mesh,
                                             make_mesh, mesh_shape)
 from kmeans_tpu_torch.parallel.sharding import (BlockStager, Dataset,
                                                 ShardedDataset, _tensor_of,
+                                                bucket_candidates,
+                                                check_ingest,
                                                 choose_chunk_size, to_device)
 from kmeans_tpu_torch.utils import checkpoint as ckpt
 from kmeans_tpu_torch.utils.logging import IterationLogger
@@ -95,11 +97,6 @@ _LATER_ARGS = {
                       "bench'"),
     "overlap": (("auto", 0), "A.14 'Orchestrator, warm start, lint, CLIs "
                              "and bench'"),
-    "ingest": (("auto", "mono"), "A.10 'Streaming and ingest'"),
-    "k_shard": (("auto", 0), "A.11 'Massive k and PQ'"),
-    "assign": (("auto", "dense"), "A.11 'Massive k and PQ'"),
-    "coarse_cells": ((None,), "A.11 'Massive k and PQ'"),
-    "nprobe": ((None,), "A.11 'Massive k and PQ'"),
 }
 
 
@@ -252,6 +249,35 @@ class KMeans(AutoCheckpointMixin):
         (``ops.assign.assign_reduce``); both give the same bits.  'auto' is
         0 until a measurement on the card picks 1; the kernel modes ignore
         it.
+    ingest : 'auto' | 'mono' | 'slab'.  How a host array reaches the
+        devices of a mesh (``parallel.sharding.resolve_ingest``): one copy
+        of each rank's block, or slabs through a pinned ring; the same
+        bytes either way, and 'auto' is 'mono'.  Without a mesh there is
+        one copy whatever the mode.
+    k_shard : 'auto' | int >= 0.  The massive-k tier's k-sharded step
+        (``parallel.distributed.make_kshard_step_fn``): under a model axis
+        of M ranks, ``k_shard=M`` keeps each rank's statistics to its
+        (k/M, D) block, gathered in host memory for the M-step; 0 is the
+        dense model-axis step, its bit-exact partner.
+    assign : 'auto' | 'dense' | 'two_level'.  'two_level' routes every row
+        through a coarse quantizer of ``coarse_cells`` cells (a dense
+        k-means of the table, trained once per fit) to the member lists of
+        its ``nprobe`` nearest cells, and takes the exact nearest of those
+        candidates (``parallel.distributed.make_two_level_step_fn``); data
+        axis only.  ``coarse_cells`` None is about sqrt(k) (at most k),
+        ``nprobe`` None an eighth of the cells; ``nprobe >= coarse_cells``
+        makes every centroid a candidate.  ``predict`` of a model with
+        ``assign='two_level'`` takes the same route.
+        'auto' for ``k_shard`` and ``assign`` asks ``obs.memory.plan_fit``
+        whether what the dense fit has still to allocate fits in 80 % of
+        the card's free bytes, and takes the dense step if so, else
+        ``k_shard`` under a model axis or 'two_level' without one; on the
+        CPU both resolve to the dense step.  ``fit_stream`` and ``sweep``
+        run the dense step only (an explicit large-k knob raises).
+        The large-k steps run in the host loop (``host_loop=False``
+        raises) and in the matmul-class torch modes: there 'auto' is
+        'matmul', and 'kernel' or 'kernel_bf16' raises ``ValueError`` (a
+        mode rule; the coarse quantizer's own dense fit keeps the kernel).
     verbose : per-iteration log lines.
     device : None (the card) | 'cuda' | 'cuda:N' | 'cpu'.
     mesh : None | a ``DeviceMesh`` from ``parallel.mesh.make_mesh``.  None
@@ -261,10 +287,9 @@ class KMeans(AutoCheckpointMixin):
         mesh carries its own).
 
     The JAX package's other constructor arguments (``bucket``,
-    ``overlap``, ``ingest``, ``k_shard``, ``assign``, ``coarse_cells``,
-    ``nprobe``) are taken only at the value that names what this port does
-    (dense assignment); any other value raises ``NotImplementedError``
-    naming the ROADMAP item that brings it.
+    ``overlap``) are taken only at the value that names what this port does
+    (no shape buckets, no overlapped set-up); any other value raises
+    ``NotImplementedError`` naming the ROADMAP item that brings it.
 
     After ``fit``: ``loop_path_`` is 'host' or 'device' (``n_init`` > 1 on
     the device loop runs every restart in one loop,
@@ -276,7 +301,10 @@ class KMeans(AutoCheckpointMixin):
     ``checkpoint_segments_`` the checkpoints a checkpointed fit wrote (None
     without ``checkpoint_every``); ``oom_backoffs_`` and
     ``effective_chunk_`` the device loop's out-of-memory backoffs and the
-    chunk it ended at.
+    chunk it ended at; ``k_shard_resolved_`` and ``assign_resolved_``
+    what those knobs resolved to for the last fit, and
+    ``_two_level_route_`` the (coarse table, member lists) of the last
+    two-level fit, which ``predict`` and the checkpoint reuse.
     """
 
     #: The device form of ``_postprocess_centroids`` (None: the identity),
@@ -314,6 +342,11 @@ class KMeans(AutoCheckpointMixin):
                  device=None,
                  mesh=None,
                  model_shards: int = 1,
+                 ingest: str = "auto",
+                 k_shard: Union[str, int] = "auto",
+                 assign: str = "auto",
+                 coarse_cells: Optional[int] = None,
+                 nprobe: Optional[int] = None,
                  init_cap: Optional[int] = None,
                  **later):
         _check_later_args(later)
@@ -374,6 +407,30 @@ class KMeans(AutoCheckpointMixin):
             raise ValueError(f"pipeline must be 'auto', 0, or 1; got "
                              f"{pipeline!r}")
         self.pipeline = pipeline if pipeline == "auto" else int(pipeline)
+        self.ingest = check_ingest(ingest)
+        # The massive-k knobs, with the JAX package's grammar and messages:
+        # k_shard=0 and assign='dense' are the dense oracles.
+        if isinstance(k_shard, str):
+            if k_shard != "auto":
+                raise ValueError(f"k_shard must be 'auto' or an int >= 0, "
+                                 f"got {k_shard!r}")
+            self.k_shard = k_shard
+        else:
+            if int(k_shard) < 0:
+                raise ValueError(f"k_shard must be >= 0, got {k_shard}")
+            self.k_shard = int(k_shard)
+        if assign not in ("auto", "dense", "two_level"):
+            raise ValueError(f"assign must be 'auto', 'dense', or "
+                             f"'two_level', got {assign!r}")
+        self.assign = assign
+        if coarse_cells is not None and int(coarse_cells) < 1:
+            raise ValueError(f"coarse_cells must be >= 1 or None, "
+                             f"got {coarse_cells}")
+        self.coarse_cells = (None if coarse_cells is None
+                             else int(coarse_cells))
+        if nprobe is not None and int(nprobe) < 1:
+            raise ValueError(f"nprobe must be >= 1 or None, got {nprobe}")
+        self.nprobe = None if nprobe is None else int(nprobe)
         if isinstance(host_loop, str):
             if host_loop != "auto":
                 raise ValueError(f"host_loop must be True, False, or "
@@ -395,6 +452,13 @@ class KMeans(AutoCheckpointMixin):
         # of a file a dataset was read from) and quarantined blocks.
         self.io_retries_used_ = 0
         self.blocks_skipped_ = 0
+        # The massive-k route of the last fit: what k_shard and assign
+        # resolved to, and the two-level (coarse, members) tables, with
+        # predict's cache of them.
+        self.k_shard_resolved_: Optional[int] = None
+        self.assign_resolved_: Optional[str] = None
+        self._two_level_route_ = None
+        self._route_cache = None
         # Inner fits (BisectingKMeans' 2-means) skip the init's scan for
         # non-finite rows (the parent scanned once) and the eager labels_
         # pass (the parent computes the membership itself).
@@ -429,6 +493,17 @@ class KMeans(AutoCheckpointMixin):
         return "kernel" if self.device.type == "cuda" and \
             self.dtype == np.dtype(np.float32) else "matmul"
 
+    def _large_k_mode(self) -> str:
+        """The distance mode of a large-k step (k-sharded or two-level):
+        'auto' is 'matmul' there on every device, a mode rule (the steps
+        run the matmul-class torch modes; the JAX package's 'auto' gives
+        'matmul' at such k too, its kernel's table outgrowing VMEM).  An
+        explicit mode passes through, and ``make_kshard_step_fn`` and
+        ``make_two_level_step_fn`` refuse the kernel modes with the JAX
+        package's ``ValueError``."""
+        return "matmul" if self.distance_mode == "auto" \
+            else self.distance_mode
+
     def _resolve_pipeline(self, mode: str) -> int:
         """The chunk schedule that runs: 0 in the kernel modes (the kernel
         has its own), 0 for 'auto' until the card has measured the
@@ -462,13 +537,13 @@ class KMeans(AutoCheckpointMixin):
         return self.k * d if self._mode() == "direct" else self.k
 
     def _chunk_for(self, ds: Dataset) -> int:
-        """Rows per chunk of the torch passes over the rank's rows."""
+        """Rows per chunk of the torch passes over the rank's rows: the
+        model's ``chunk_size``, else the chunk the dataset was placed with,
+        bounded for this model's tile (``Dataset.effective_chunk``; a
+        dataset placed without one takes ``choose_chunk_size``)."""
         if self.chunk_size:
             return self.chunk_size
-        if isinstance(ds, ShardedDataset):
-            return ds.effective_chunk(self._tile_k(ds.d))
-        return choose_chunk_size(ds.points.shape[0], self._tile_k(ds.d),
-                                 ds.d)
+        return ds.effective_chunk(self._tile_k(ds.d))
 
     def cache(self, X, sample_weight=None) -> Dataset:
         """Place X on the device once as a :class:`Dataset` (under a mesh,
@@ -480,7 +555,7 @@ class KMeans(AutoCheckpointMixin):
         return to_device(X, self.device, self.dtype,
                          sample_weight=sample_weight,
                          mesh=self._resolve_mesh(), chunk=self.chunk_size,
-                         k_hint=self._tile_k(d))
+                         k_hint=self._tile_k(d), ingest=self.ingest)
 
     def _prepare(self, X, sample_weight=None, *, need_farthest=False,
                  pipeline: int = 0):
@@ -495,12 +570,13 @@ class KMeans(AutoCheckpointMixin):
                                       need_sse_pc=False, pipeline=pipeline),
                 dist.make_predict_fn(ds.mesh, chunk_size=chunk, mode=mode))
 
-    def _x2w(self, ds: Dataset) -> Optional[torch.Tensor]:
+    def _x2w(self, ds: Dataset,
+             large_k: bool = False) -> Optional[torch.Tensor]:
         """The block's ``sum w ||x||^2`` where the step reads it (the
-        kernel modes' SSE without centroid sharding), computed once per
-        dataset."""
+        kernel modes' SSE without centroid sharding; not a large-k step),
+        computed once per dataset."""
         return (dist.dataset_sqnorm(ds) if self._mode() in dist.KERNEL_MODES
-                and mesh_shape(ds.mesh)[1] == 1 else None)
+                and mesh_shape(ds.mesh)[1] == 1 and not large_k else None)
 
     def _put_centroids(self, centroids: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(
@@ -555,7 +631,8 @@ class KMeans(AutoCheckpointMixin):
         block and restart, summed in float64 in block order: the
         trajectory is that of an in-memory fit of the concatenated blocks up
         to the summation order.  It is the host loop whatever ``host_loop``
-        says.  Under a mesh every rank runs ``make_blocks()`` and keeps its
+        says, and the dense step: an explicit ``k_shard`` or
+        ``assign='two_level'`` raises, as in the JAX package.  Under a mesh every rank runs ``make_blocks()`` and keeps its
         contiguous share of each block; the statistics reduce as in
         ``fit``.  ``d`` declares the feature count (else a first block is
         read and the source closed).
@@ -591,6 +668,12 @@ class KMeans(AutoCheckpointMixin):
         from kmeans_tpu_torch.models.init import (
             STREAM_INITIALIZERS, _EpochReservoir, _split_block,
             streamed_init_sample, streamed_kmeans_parallel_init)
+        if self.k_shard not in ("auto", 0) or self.assign == "two_level":
+            raise ValueError(
+                "fit_stream runs the dense assignment path only (its "
+                "per-block statistics already bound device memory by "
+                "the block size); drop the explicit k_shard/assign "
+                "large-k knobs, or use fit on an in-memory dataset")
         prefetch = check_prefetch(prefetch)
         checkpoint_every = self._check_ckpt(checkpoint_every,
                                             checkpoint_path)
@@ -855,18 +938,23 @@ class KMeans(AutoCheckpointMixin):
         return self._postprocess_centroids(
             np.asarray(centroids, dtype=np.float64)).astype(self.dtype)
 
-    def _sse(self, ds: Dataset) -> float:
+    def _sse(self, ds: Dataset, step=None) -> float:
         """SSE of ``ds`` under the CURRENT centroids, by a step that
-        computes nothing else: a restart's true final inertia
-        (``sse_history[-1]`` lags one iteration) and ``score``."""
-        step = dist.make_step_fn(ds.mesh, chunk_size=self._chunk_for(ds),
-                                 mode=self._mode(), need_farthest=False,
-                                 need_sse_pc=False)
+        computes nothing else (or by the fit's own ``step``, a large-k
+        one): a restart's true final inertia (``sse_history[-1]`` lags one
+        iteration) and ``score``."""
+        large_k = step is not None
+        if step is None:
+            step = dist.make_step_fn(ds.mesh,
+                                     chunk_size=self._chunk_for(ds),
+                                     mode=self._mode(), need_farthest=False,
+                                     need_sse_pc=False)
         return float(step(ds.points, ds.weights,
                           self._put_centroids(self.centroids),
-                          self._x2w(ds)).sse)
+                          self._x2w(ds, large_k)).sse)
 
-    def _resolve_host_loop(self, ds: Dataset, step_fn) -> bool:
+    def _resolve_host_loop(self, ds: Dataset, step_fn,
+                           large_k: bool = False) -> bool:
         """``host_loop`` for this fit, with 'auto' resolved by the JAX
         package's rule: the host loop unless one measured dispatch round
         trip is over 5 ms AND over 25 % of a measured step; then the device
@@ -875,6 +963,10 @@ class KMeans(AutoCheckpointMixin):
         loop draws on the host), else the host loop with a one-time
         :class:`DispatchLatencyHint`.  The 5 ms floor keeps a local card,
         where a round trip takes microseconds, on the host loop."""
+        if large_k:
+            # A large-k step runs in the host loop only (an explicit
+            # host_loop=False was refused by _route_large_k).
+            return True
         if self.host_loop is True or self.host_loop is False:
             return self.host_loop
         rtt = _dispatch_rtt(self.device)
@@ -943,6 +1035,228 @@ class KMeans(AutoCheckpointMixin):
             getattr(type(self), name) is getattr(KMeans, name)
             for name in ("_handle_empty", "_finish_lloyd_iteration"))
 
+    # ------------------------------------------------------------ massive k
+
+    def _resolve_large_k(self, ds: Dataset, data_shards: int,
+                         model_shards: int, chunk: int):
+        """``(k_shard, assign)`` for this fit, the JAX package's rule: an
+        explicit value is checked and kept; 'auto' compares what the dense
+        fit has still to allocate by ``obs.memory.plan_fit`` (its temporary
+        bytes and the table, and the rows unless they are on the device
+        already) with 80 % of the card's free bytes (``device_memory_info``,
+        which counts the allocator's idle cache as free) and keeps the
+        dense step when it fits, else shards the table under a model axis
+        or takes 'two_level' without one.  A device that reports no free bytes (the
+        CPU) keeps the dense step.  Under a mesh the ranks agree on the
+        least room any of them has (a MIN ``all_reduce``)."""
+        ks, asg = self.k_shard, self.assign
+        if ks == "auto" or asg == "auto":
+            from kmeans_tpu_torch.obs import memory as _mem
+            info = _mem.device_memory_info(self.device)
+            fits = True
+            if info.get("available"):
+                mode = self._mode()
+                plan = _mem.plan_fit(
+                    "kmeans", ds.n, ds.d, self.k, data_shards=data_shards,
+                    model_shards=model_shards, dtype=self.dtype.name,
+                    chunk=chunk, pipeline=self._resolve_pipeline(mode),
+                    k_shard=0, mode=mode, device=self.device)
+                # Only what the fit has still to allocate: the free bytes
+                # already leave out the rows placed on this device.
+                comp = plan["components"]
+                need = plan["predicted_temp_bytes"] + comp["table_bytes"]
+                if ds.points.device.type != torch.device(self.device).type:
+                    need += comp["points_bytes"] + comp["weights_bytes"]
+                fits = need <= 0.8 * info["bytes_free"]
+            if ds.mesh is not None:
+                fits = bool(all_reduce(torch.tensor(
+                    [int(fits)], device=self.device), ds.mesh,
+                    op="min")[0])
+            if ks == "auto":
+                ks = 0 if (fits or model_shards <= 1) else model_shards
+            if asg == "auto":
+                asg = "dense" if (fits or model_shards > 1) \
+                    else "two_level"
+        ks = int(ks)
+        if ks:
+            if model_shards <= 1:
+                raise ValueError(
+                    f"k_shard={ks} requires a model-sharded mesh "
+                    f"(model_shards > 1); this mesh has no TP axis — "
+                    f"use k_shard=0, or build the mesh with model= "
+                    f"shards")
+            if ks != model_shards:
+                raise ValueError(
+                    f"k_shard={ks} does not match the mesh's "
+                    f"model_shards={model_shards}: the table shards on "
+                    f"the EXISTING TP axis, so the only supported "
+                    f"values are 0 (the dense oracle) and "
+                    f"{model_shards}")
+        if asg == "two_level" and model_shards != 1:
+            raise ValueError(
+                "assign='two_level' composes with data parallelism "
+                "only (model_shards == 1); on a TP mesh use k_shard "
+                "instead — the two tiers address the same memory wall "
+                "and do not stack")
+        return ks, asg
+
+    def _route_large_k(self, ds: Dataset, step_fn):
+        """``(step, large_k)``: the step the fit loops on, ``step_fn`` (the
+        dense oracle) or the k-sharded step with its host gather or the
+        two-level step, by the resolved knobs, and whether it is a large-k
+        one.  Both large-k steps run in the host loop (the two-level member
+        lists are rebuilt on the host every iteration; the k-sharded
+        statistics are gathered in host memory), so ``host_loop=False``
+        raises with the reason, and their distance mode is
+        :meth:`_large_k_mode`."""
+        self._two_level_route_ = None
+        data_shards, model_shards = mesh_shape(ds.mesh)
+        chunk = self._chunk_for(ds)
+        ks, asg = self._resolve_large_k(ds, data_shards, model_shards,
+                                        chunk)
+        self.k_shard_resolved_, self.assign_resolved_ = ks, asg
+        if not ks and asg == "dense":
+            return step_fn, False
+        if self.host_loop is False:
+            raise ValueError(
+                f"host_loop=False cannot run the large-k paths "
+                f"(resolved k_shard={ks}, assign={asg!r}): they are "
+                f"per-iteration host-loop programs; drop "
+                f"host_loop=False, or force the dense oracle "
+                f"(k_shard=0, assign='dense')")
+        mode = self._large_k_mode()
+        if ks:
+            kstep = dist.make_kshard_step_fn(
+                ds.mesh, chunk_size=chunk, mode=mode,
+                need_farthest=self.empty_cluster == "farthest",
+                need_sse_pc=False)
+
+            def step(points, weights, cents, x2w=None):
+                return dist.gather_kshard_stats(
+                    kstep(points, weights, cents), ds.mesh, self.k)
+        else:
+            step = self._two_level_step(ds, mode)
+        self._note_estep_path(mode)
+        return step, True
+
+    def _two_level_params(self):
+        """(coarse cells C, probes per row): about sqrt(k) cells (at most
+        k) and an eighth of them probed unless given; ``nprobe >= C``
+        probes every cell."""
+        C = self.coarse_cells or max(2, int(round(np.sqrt(self.k))))
+        C = min(int(C), self.k)
+        npb = self.nprobe or max(1, -(-C // 8))
+        return C, min(int(npb), C)
+
+    def _train_coarse(self, cents: np.ndarray, C: int) -> np.ndarray:
+        """The coarse quantizer: a dense k-means of the (k, D) table into C
+        cells (k-means++ seeding, 25 iterations), on this model's device
+        and mesh; kernel 1 on the card in float32.  Trained once per fit
+        from the starting table, then fixed; only the member lists follow
+        the table (:meth:`_build_members`)."""
+        km = KMeans(k=C, max_iter=25, tolerance=1e-4, seed=self.seed,
+                    compute_sse=False, init="k-means++",
+                    compute_labels=False, empty_cluster="keep",
+                    dtype=self.dtype, mesh=self.mesh, host_loop=True,
+                    assign="dense", k_shard=0, verbose=False,
+                    device=self.device)
+        km._eager_labels = False
+        km._validate_init = False
+        km.fit(np.asarray(cents, np.float64).astype(self.dtype))
+        return np.asarray(km.centroids, np.float64)
+
+    def _build_members(self, cents: np.ndarray,
+                       coarse: np.ndarray) -> np.ndarray:
+        """(C, L) member lists, the JAX package's rule: each centroid files
+        under its nearest coarse cell (float64 on the host); L is the
+        largest cell's size on the candidate ladder
+        (``sharding.bucket_candidates``), ``k`` pads the tails, each list
+        is sorted ascending (so the candidate search's lexicographic merge
+        keeps the dense argmin's lowest-index rule), and an empty cell
+        carries its nearest centroid."""
+        k, C = cents.shape[0], coarse.shape[0]
+        d2 = (np.sum(cents ** 2, axis=1)[:, None]
+              - 2.0 * cents @ coarse.T
+              + np.sum(coarse ** 2, axis=1)[None, :])
+        owner = np.argmin(d2, axis=1)
+        lists = [np.flatnonzero(owner == c) for c in range(C)]
+        for c in range(C):
+            if lists[c].size == 0:
+                lists[c] = np.array([int(np.argmin(d2[:, c]))])
+        L = bucket_candidates(max(lst.size for lst in lists))
+        members = np.full((C, L), k, np.int32)
+        for c, lst in enumerate(lists):
+            members[c, : lst.size] = np.sort(lst).astype(np.int32)
+        return members
+
+    def _two_level_chunk(self, ds: Dataset, C: int, L: int,
+                         nprobe: int) -> int:
+        """Rows per chunk of the two-level passes: the model's
+        ``chunk_size``, else a chunk whose wider tile, the (chunk, C)
+        coarse distances or a cell's (rows, L) at the mean rows per cell
+        (``chunk * nprobe / C``), keeps to ``choose_chunk_size``'s budget.
+        (The JAX package scans the dataset's chunk, which its padding
+        fixes; the port's passes take any chunk, and one sized for k would
+        visit every cell once per few thousand rows.)"""
+        return self.chunk_size or choose_chunk_size(
+            ds.points.shape[0], max(C, -(-L * nprobe // C)), ds.d)
+
+    def _two_level_step(self, ds: Dataset, mode: str):
+        """The two-level step with the dense step's calling convention
+        (``step(points, weights, centroids, x2w=None) -> StepStats``): it
+        trains the coarse quantizer at its first call, rebuilds the member
+        lists from the current table at every call, and runs
+        ``make_two_level_step_fn``."""
+        C, npb = self._two_level_params()
+        state = {"coarse": None}
+
+        def step(points, weights, cents_dev, x2w=None):
+            cents = cents_dev.to(torch.float64).cpu().numpy()[: self.k]
+            if state["coarse"] is None:
+                state["coarse"] = self._train_coarse(cents, C)
+            coarse = state["coarse"]
+            members = self._build_members(cents, coarse)
+            self._two_level_route_ = (coarse, members)
+            fn = dist.make_two_level_step_fn(
+                ds.mesh, chunk_size=self._two_level_chunk(
+                    ds, C, members.shape[1], npb),
+                nprobe=npb, mode=mode,
+                need_farthest=self.empty_cluster == "farthest",
+                need_sse_pc=False)
+            return fn(points, weights, cents_dev, coarse, members)
+
+        return step
+
+    def _two_level_tables(self):
+        """(coarse, members) of the current table, kept while the table is
+        the same object: the fit's coarse cells where this model has them
+        (a fit, or a checkpoint that carried them), else a coarse
+        quantizer trained now from the table."""
+        cache = self._route_cache
+        if cache is not None and cache[0] is self.centroids:
+            return cache[1], cache[2]
+        C, _ = self._two_level_params()
+        cents = np.asarray(self.centroids, np.float64)
+        route = self._two_level_route_
+        coarse = (route[0] if route is not None
+                  and route[0].shape[0] == C
+                  else self._train_coarse(cents, C))
+        members = self._build_members(cents, coarse)
+        self._route_cache = (self.centroids, coarse, members)
+        return coarse, members
+
+    def _predict_two_level_labels(self, ds: Dataset) -> torch.Tensor:
+        """Labels of the rank's rows by the two-level candidate search
+        (``assign='two_level'``): the fit step's search, labels only."""
+        coarse, members = self._two_level_tables()
+        C, npb = self._two_level_params()
+        fn = dist.make_two_level_predict_fn(
+            ds.mesh, chunk_size=self._two_level_chunk(ds, C,
+                                                      members.shape[1], npb),
+            nprobe=npb, mode=self._large_k_mode())
+        return fn(ds.points, self._put_centroids(self.centroids), coarse,
+                  members)
+
     def _fit(self, X, sample_weight, *, resume: bool = False,
              checkpoint_every: int = 0, checkpoint_path=None) -> "KMeans":
         log = IterationLogger(self.verbose and
@@ -951,6 +1265,9 @@ class KMeans(AutoCheckpointMixin):
         ds, step_fn, _ = self._prepare(
             X, sample_weight, need_farthest=self.empty_cluster == "farthest",
             pipeline=pipeline)
+        # The massive-k route: the k-sharded or two-level step in place of
+        # the dense one (the dense oracle keeps step_fn).
+        step_fn, large_k = self._route_large_k(ds, step_fn)
         self.io_retries_used_ = getattr(getattr(ds, "io_stats", None),
                                         "retries_used", 0)
         if self.compute_labels:
@@ -967,7 +1284,7 @@ class KMeans(AutoCheckpointMixin):
         self.bf16_guard_corrected_rows_ = None
 
         seeds = self._restart_seeds()
-        host = self._resolve_host_loop(ds, step_fn)
+        host = self._resolve_host_loop(ds, step_fn, large_k)
         if not host and not self._device_hooks():
             raise ValueError(
                 f"host_loop=False: {type(self).__name__}'s host-side hooks "
@@ -979,7 +1296,8 @@ class KMeans(AutoCheckpointMixin):
             centroids = np.asarray(self.centroids, dtype=self.dtype)
             if host:
                 return self._run_restart(ds, step_fn, centroids, self.seed,
-                                         log, self.iterations_run, **ckpt_kw)
+                                         log, self.iterations_run,
+                                         large_k=large_k, **ckpt_kw)
             return self._fit_on_device(ds, centroids, self.seed, pipeline,
                                        log, self.iterations_run, **ckpt_kw)
         if len(seeds) > 1 and not host:
@@ -993,13 +1311,13 @@ class KMeans(AutoCheckpointMixin):
             self.iter_times_ = []
             if host:
                 self._run_restart(ds, step_fn, centroids, seed, log, 0,
-                                  **ckpt_kw)
+                                  large_k=large_k, **ckpt_kw)
             else:
                 self._fit_on_device(ds, centroids, seed, pipeline, log, 0,
                                     **ckpt_kw)
             if len(seeds) == 1:
                 return self
-            inertia = self._sse(ds)
+            inertia = self._sse(ds, step_fn if large_k else None)
             log.restart(r, len(seeds), inertia)
             inertias.append(inertia)
             if best is None or inertia < best["inertia"]:
@@ -1020,18 +1338,19 @@ class KMeans(AutoCheckpointMixin):
 
     def _run_restart(self, ds: Dataset, step_fn, centroids: np.ndarray,
                      seed: int, log: IterationLogger, start_iter: int = 0,
-                     checkpoint_every: int = 0,
-                     checkpoint_path=None) -> "KMeans":
+                     checkpoint_every: int = 0, checkpoint_path=None,
+                     large_k: bool = False) -> "KMeans":
         """One restart: the host loop, from iteration ``start_iter``.  One
         step on the device per iteration; its sums, and its counts with the
         SSE behind them, come to the host as float64, which is also the
         iteration's synchronisation point.  With ``checkpoint_every`` a
         rotating checkpoint is written at the absolute cadence (a resumed
         fit keeps the uninterrupted one's schedule) and after the last
-        iteration when that is off the cadence."""
+        iteration when that is off the cadence.  ``large_k``: ``step_fn``
+        is a large-k step, which reads no ``sum w ||x||^2``."""
         self.checkpoint_segments_ = 0 if checkpoint_every else None
         cents_dev = self._put_centroids(centroids)
-        x2w = self._x2w(ds)
+        x2w = self._x2w(ds, large_k)
         for iteration in range(start_iter, self.max_iter):
             iter_start = time.perf_counter()
             stats: StepStats = step_fn(ds.points, ds.weights, cents_dev, x2w)
@@ -1326,7 +1645,9 @@ class KMeans(AutoCheckpointMixin):
         each member's kernel runs at its own k), then the winners' labels
         in one batched pass (``make_multi_predict_fn``).  ``batched=0`` is
         the oracle: one device-loop fit per member on the same dataset.
-        The init must be a strategy or a callable; metric criteria need
+        The init must be a strategy or a callable, and the members are
+        dense fits (an explicit ``k_shard`` or ``assign='two_level'``
+        raises, as in the JAX package); metric criteria need
         host rows and score unweighted rows.  The returned model has not
         materialised ``labels_``: call ``predict``."""
         from kmeans_tpu_torch import metrics as metrics_mod
@@ -1340,6 +1661,12 @@ class KMeans(AutoCheckpointMixin):
             raise ValueError(
                 "sweep() needs a string or callable init (an explicit "
                 "(k, D) init array pins k); got an array init")
+        if self.k_shard not in ("auto", 0) or self.assign == "two_level":
+            raise ValueError(
+                "sweep() runs its members on the dense multi-fit path; "
+                "the large-k k_shard/assign routes do not compose with "
+                "the padded member axis — sweep with the dense oracle "
+                "and fit the winner's k with the large-k knobs")
         ks = sweep_mod.parse_k_range(k_range)
         sweep_mod.check_criterion(criterion, sweep_mod.KMEANS_CRITERIA)
         if criterion != "inertia" and ks[0] < 2:
@@ -1443,10 +1770,7 @@ class KMeans(AutoCheckpointMixin):
         ``chunk_size`` passes through)."""
         if self.chunk_size:
             return self.chunk_size
-        width = members * self._tile_k(ds.d)
-        if isinstance(ds, ShardedDataset):
-            return ds.effective_chunk(width)
-        return choose_chunk_size(ds.points.shape[0], width, ds.d)
+        return ds.effective_chunk(members * self._tile_k(ds.d))
 
     def _sweep_fit_batched(self, engine: "KMeans", ds: Dataset, members,
                            k_max: int):
@@ -1550,7 +1874,13 @@ class KMeans(AutoCheckpointMixin):
         labels of the rank's own rows."""
         self._require_fitted()
         ds, _, predict_fn = self._prepare(X)
-        labels = predict_fn(ds.points, self._put_centroids(self.centroids))
+        if self.assign == "two_level" and mesh_shape(ds.mesh)[1] == 1:
+            # The route of a two-level model; 'auto' and 'dense' keep the
+            # dense assignment, and a model axis the dense TP pass.
+            labels = self._predict_two_level_labels(ds)
+        else:
+            labels = predict_fn(ds.points,
+                                self._put_centroids(self.centroids))
         if isinstance(ds, ShardedDataset):
             return ds.gather_rows(labels)
         return labels.cpu().numpy()
@@ -1838,6 +2168,11 @@ class KMeans(AutoCheckpointMixin):
             "chunk_size": self.chunk_size,
             "host_loop": self.host_loop,
             "pipeline": self.pipeline,
+            "ingest": self.ingest,
+            "k_shard": self.k_shard,
+            "assign": self.assign,
+            "coarse_cells": self.coarse_cells,
+            "nprobe": self.nprobe,
             "init_cap": self.init_cap,
             "verbose": self.verbose,
             "sse_history": list(map(float, self.sse_history)),
@@ -1845,6 +2180,12 @@ class KMeans(AutoCheckpointMixin):
             "dtype": str(self.dtype),
         }
         state.update(self._ckpt_meta())
+        # The two-level coarse table is fitted state (trained once per fit,
+        # then fixed): a model loaded without it would train another one
+        # from its final table and route rows to other candidates.
+        if self._two_level_route_ is not None:
+            state["two_level_coarse"] = np.asarray(
+                self._two_level_route_[0], np.float64)
         if isinstance(self.init, str):
             state["init"] = self.init
         elif not callable(self.init):
@@ -1870,6 +2211,11 @@ class KMeans(AutoCheckpointMixin):
                 "model and dropped them: " + ", ".join(dropped),
                 UserWarning, stacklevel=3)
         chunk = state.get("chunk_size")
+
+        def int_or(value):
+            return value if value is None or isinstance(value, str) \
+                else int(value)
+
         model = cls(k=int(state["k"]), max_iter=int(state["max_iter"]),
                     tolerance=float(state["tolerance"]),
                     seed=int(state["seed"]),
@@ -1881,6 +2227,11 @@ class KMeans(AutoCheckpointMixin):
                     chunk_size=None if chunk is None else int(chunk),
                     host_loop=state.get("host_loop", "auto"),
                     pipeline=state.get("pipeline", "auto"),
+                    ingest=str(state.get("ingest", "auto")),
+                    k_shard=int_or(state.get("k_shard", "auto")),
+                    assign=str(state.get("assign", "auto")),
+                    coarse_cells=int_or(state.get("coarse_cells")),
+                    nprobe=int_or(state.get("nprobe")),
                     verbose=bool(state["verbose"]),
                     dtype=np.dtype(str(state["dtype"])), device=device,
                     mesh=mesh, init_cap=(
@@ -1899,6 +2250,15 @@ class KMeans(AutoCheckpointMixin):
         self.centroids = cents.astype(self.dtype) if cents.size else None
         self.sse_history = [float(s) for s in state["sse_history"]]
         self.iterations_run = int(state["iterations_run"])
+        # The two-level route from the saved coarse table (the member lists
+        # follow from it and the table); without one, predict trains one.
+        coarse = state.get("two_level_coarse")
+        self._two_level_route_ = self._route_cache = None
+        if coarse is not None and np.size(coarse) and \
+                self.centroids is not None:
+            coarse = np.asarray(coarse, np.float64)
+            self._two_level_route_ = (coarse, self._build_members(
+                np.asarray(self.centroids, np.float64), coarse))
         self._restore_state(state)
 
     @classmethod

@@ -294,11 +294,12 @@ def _owner(mind2: torch.Tensor, mesh):
 
 def _model_axis_stats(points, weights, centroids, mesh, *, mode: str,
                       chunk_size: int, need_sse: bool, need_farthest: bool,
-                      need_sse_pc: bool) -> StepStats:
+                      need_sse_pc: bool, embed: bool = True) -> StepStats:
     """The rank's statistics under centroid sharding, its block's sums,
     counts and per-cluster SSE embedded in the padded table (zeros
-    elsewhere); the SSE is of the global minima (every block of a row
-    counts it, the caller divides by the model axis)."""
+    elsewhere), or with ``embed=False`` the block's alone (the k-sharded
+    step); the SSE is of the global minima (every block of a row counts
+    it, the caller divides by the model axis)."""
     acc = _accum_dtype(points.dtype)
     block, first, k_pad = _model_block(centroids, mesh)
     k_local, d = block.shape
@@ -310,10 +311,11 @@ def _model_axis_stats(points, weights, centroids, mesh, *, mode: str,
     w_eff = w * mine.to(acc)
     bf16 = mode in ("kernel_bf16", "matmul_bf16")
     ids = torch.arange(k_local, device=points.device)
-    sums = torch.zeros((k_pad, d), dtype=acc, device=points.device)
-    counts = torch.zeros((k_pad,), dtype=acc, device=points.device)
-    sse_pc = torch.zeros((k_pad,), dtype=acc, device=points.device)
-    rows = slice(first, first + k_local)
+    k_table = k_pad if embed else k_local
+    sums = torch.zeros((k_table, d), dtype=acc, device=points.device)
+    counts = torch.zeros((k_table,), dtype=acc, device=points.device)
+    sse_pc = torch.zeros((k_table,), dtype=acc, device=points.device)
+    rows = slice(first, first + k_local) if embed else slice(0, k_local)
     # The one-hot rule of ops.assign.consume_chunk, chunk by chunk.
     for lo in range(0, points.shape[0], chunk_size):
         hi = lo + chunk_size
@@ -327,7 +329,7 @@ def _model_axis_stats(points, weights, centroids, mesh, *, mode: str,
         counts[rows] += onehot.sum(dim=0)
         if need_sse_pc:
             sse_pc[rows] += onehot.T @ gmind2[lo:hi]
-    zero = init_stats(k_pad, d, acc, points.device)
+    zero = init_stats(k_table, d, acc, points.device)
     sse = (gmind2 * w).sum() if need_sse else zero.sse
     if need_farthest:
         live = w > 0
@@ -365,21 +367,27 @@ def _reduce_stats(st: StepStats, mesh, k: int, *, need_sse_pc: bool,
               else st.sse_per_cluster[:k])
     far_d, far_p = st.farthest_dist, st.farthest_point
     if need_farthest:
-        d_idx, m_idx = coords(mesh)
-        rank = d_idx * model_shards + m_idx
-        top = all_reduce(far_d.clone().reshape(1), mesh, AXES, "max")
-        cand = torch.where(far_d.reshape(1) == top,
-                           torch.full((1,), rank, dtype=torch.int64,
-                                      device=far_d.device),
-                           torch.full((1,), data_shards * model_shards,
-                                      dtype=torch.int64,
-                                      device=far_d.device))
-        win = all_reduce(cand, mesh, AXES, "min")
-        far_p = all_reduce(torch.where(win == rank, far_p,
-                                       torch.zeros_like(far_p)),
-                           mesh, AXES)
-        far_d = top[0]
+        far_d, far_p = _reduce_farthest(far_d, far_p, mesh)
     return StepStats(sums, counts, sse, far_d, far_p, sse_pc)
+
+
+def _reduce_farthest(far_d, far_p, mesh):
+    """The farthest point over every rank: MAX of the distance, the lowest
+    rank among equal maxima (the reference's first maximum over its
+    gather) by MIN, its row by SUM."""
+    data_shards, model_shards = mesh_shape(mesh)
+    d_idx, m_idx = coords(mesh)
+    rank = d_idx * model_shards + m_idx
+    top = all_reduce(far_d.clone().reshape(1), mesh, AXES, "max")
+    cand = torch.where(far_d.reshape(1) == top,
+                       torch.full((1,), rank, dtype=torch.int64,
+                                  device=far_d.device),
+                       torch.full((1,), data_shards * model_shards,
+                                  dtype=torch.int64, device=far_d.device))
+    win = all_reduce(cand, mesh, AXES, "min")
+    far_p = all_reduce(torch.where(win == rank, far_p,
+                                   torch.zeros_like(far_p)), mesh, AXES)
+    return top[0], far_p
 
 
 def _check_guarded(mode: str, model_shards: int,
@@ -490,6 +498,294 @@ def make_predict_fn(mesh=None, *, chunk_size: int,
             raise ValueError(f"unknown distance mode: {mode!r}")
         return assign_labels(points, centroids, chunk_size=chunk_size,
                              mode=mode)
+
+    return predict
+
+
+# ---------------------------------------------------------------- massive k
+
+
+def _check_large_k_mode(mode: str, what: str, why: str) -> None:
+    """The large-k steps run the matmul-class torch modes only: the fused
+    kernels are dense-tile passes over the whole table (the JAX package's
+    rule for its Pallas modes), and the guarded rung has no model-axis or
+    candidate-set form."""
+    if mode in KERNEL_MODES or mode == GUARDED_MODE:
+        raise ValueError(f"{what} supports the matmul-class modes only, "
+                         f"got {mode!r}: {why}")
+    if mode not in TORCH_MODES:
+        raise ValueError(f"unknown distance mode: {mode!r}")
+
+
+def make_kshard_step_fn(mesh, *, chunk_size: int, mode: str = "matmul",
+                        need_farthest: bool = True,
+                        need_sse_pc: bool = True) -> Callable:
+    """The k-sharded step of the massive-k tier: ``(points, weights,
+    centroids, x2w=None) -> StepStats`` whose ``sums``, ``counts`` and
+    ``sse_per_cluster`` are this rank's (k/M, D) block of the statistics
+    (rows ``[m * k/M, (m + 1) * k/M)`` of the padded table, m the rank's
+    model index), reduced over the data axis only.  The dense model-axis
+    step embeds the block in a (k_pad, D) table reduced over both axes;
+    here no rank's device holds more than its block.  The winner of a row
+    is :func:`_owner`'s pair select (MIN of the distance, then MIN of the
+    block index), the SSE and the farthest point the dense step's
+    expressions, so the step is the bit-exact partner of the dense step on
+    the same mesh.  :func:`gather_kshard_stats` assembles the blocks in
+    host memory for the host loop's M-step.  Matmul-class modes only."""
+    model_shards = mesh_shape(mesh)[1]
+    if model_shards <= 1:
+        raise ValueError(
+            "make_kshard_step_fn requires a TP (centroid-sharded) mesh "
+            f"(model_shards > 1, got {model_shards}); on a data-parallel "
+            "mesh the dense step already holds only one centroid block — "
+            "use make_step_fn (k_shard=0)")
+    _check_large_k_mode(
+        mode, "make_kshard_step_fn",
+        "the fused kernels carry their own TP assignment form, and the "
+        "guarded bf16 rung has no TP form (_check_guarded)")
+
+    def step(points, weights, centroids, x2w=None):
+        st = _model_axis_stats(
+            points, weights, centroids, mesh, mode=mode,
+            chunk_size=chunk_size, need_sse=True,
+            need_farthest=need_farthest, need_sse_pc=need_sse_pc,
+            embed=False)
+        k_local, d = st.sums.shape
+        parts = [st.sums.reshape(-1), st.counts]
+        if need_sse_pc:
+            parts.append(st.sse_per_cluster)
+        flat = all_reduce(torch.cat(parts), mesh, (DATA_AXIS,))
+        sums = flat[: k_local * d].reshape(k_local, d)
+        counts = flat[k_local * d: k_local * d + k_local]
+        sse_pc = (flat[k_local * d + k_local:] if need_sse_pc
+                  else st.sse_per_cluster)
+        sse = all_reduce(st.sse.clone().reshape(1), mesh, AXES)[0] \
+            / model_shards
+        far_d, far_p = st.farthest_dist, st.farthest_point
+        if need_farthest:
+            far_d, far_p = _reduce_farthest(far_d, far_p, mesh)
+        return StepStats(sums, counts, sse, far_d, far_p, sse_pc)
+
+    return step
+
+
+#: Gloo groups of each mesh's model axis, made at the first host gather
+#: (every rank of the world makes every group, in one order).
+_HOST_GROUPS: Dict[int, tuple] = {}
+
+
+def _host_model_group(mesh):
+    """A gloo group over this rank's row of the model axis: the host-memory
+    collective of :func:`gather_kshard_stats` (NCCL takes no CPU tensors)."""
+    import torch.distributed as tdist
+    entry = _HOST_GROUPS.get(id(mesh))
+    if entry is None or entry[0] is not mesh:
+        mine = None
+        for row in mesh.mesh.reshape(mesh.size(0), mesh.size(1)).tolist():
+            group = tdist.new_group(row, backend="gloo")
+            if tdist.get_rank() in row:
+                mine = group
+        entry = _HOST_GROUPS[id(mesh)] = (mesh, mine)
+    return entry[1]
+
+
+def gather_kshard_stats(st: StepStats, mesh, k: int) -> StepStats:
+    """The whole (k, D) statistics of a k-sharded step, on the host: each
+    rank copies its block to host memory, embeds it in a zero (k_pad,
+    D + 2) host buffer, and a SUM ``all_reduce`` over a gloo group of the
+    model axis (:func:`_host_model_group`) adds the blocks (each row is
+    one block's; the others add zeros, exactly).  No (k, D) buffer is
+    allocated on a device.  Every field of the result is a CPU tensor."""
+    k_local, d = st.sums.shape
+    model_shards = mesh_shape(mesh)[1]
+    first = coords(mesh)[1] * k_local
+    host = torch.zeros((k_local * model_shards, d + 2),
+                       dtype=st.sums.dtype)
+    host[first: first + k_local, :d] = st.sums.cpu()
+    host[first: first + k_local, d] = st.counts.cpu()
+    host[first: first + k_local, d + 1] = st.sse_per_cluster.cpu()
+    import torch.distributed as tdist
+    tdist.all_reduce(host, group=_host_model_group(mesh))
+    return StepStats(host[:k, :d], host[:k, d], st.sse.cpu(),
+                     st.farthest_dist.cpu(), st.farthest_point.cpu(),
+                     host[:k, d + 1])
+
+
+def _check_two_level(mode: str, model_shards: int) -> None:
+    """Where the two-level step runs: a data-parallel mesh and a
+    matmul-class mode (the JAX package's rules and messages)."""
+    if model_shards != 1:
+        raise ValueError(
+            "two-level assignment requires a data-parallel mesh "
+            f"(model_shards == 1, got {model_shards}): the candidate "
+            "gather indexes the FULL centroid table; at table sizes "
+            "that need TP sharding, use k_shard instead (the two tiers "
+            "compose with the planner, not with each other)")
+    _check_large_k_mode(
+        mode, "two-level assignment",
+        "the fused kernels and the guarded bf16 rung are dense-tile "
+        "passes — the candidate-set gather has no fused form")
+
+
+#: Elements of one (rows, L) candidate tile of the two-level search: a cell
+#: that more rows of a chunk activate is visited in slices of rows.
+TWO_LEVEL_TILE_ELEMS = 1 << 25
+
+
+def _two_level_best(xc, coarse, cents_ext, members, *, nprobe: int,
+                    mode: str, k: int, tables=None):
+    """The two-level candidate search of one chunk: ``(best_d, best_i)``,
+    each row's exact squared distance to, and global index of, its nearest
+    candidate centroid.
+
+    Each row activates its ``nprobe`` nearest coarse cells (every cell at
+    or below its ``nprobe``-th smallest coarse distance, so ties activate a
+    superset).  The loop visits only the cells that some row of the chunk
+    activated, each with the rows that activated it: their distances to
+    the cell's member list (``members[c]``, sorted ascending, ``k`` in the
+    empty slots, which gather the sentinel row of ``cents_ext`` and are
+    masked to +inf) come from the same ``pairwise_sq_dists`` ladder as the
+    dense pass.  The merge across cells is lexicographic on (distance,
+    global index), and within a cell ``argmin`` takes the first, lowest,
+    index: the dense argmin's rule.  ``tables`` (C, L, D) are the member
+    lists' rows when the caller gathered them once.  A cell's rows are
+    taken in slices of at most ``TWO_LEVEL_TILE_ELEMS // L``, so that a
+    cell that most rows activate (a hub) keeps its tile to that budget."""
+    m = xc.shape[0]
+    C, L = members.shape
+    if not 1 <= nprobe <= C:
+        raise ValueError(f"nprobe must be in [1, {C}], got {nprobe}")
+    acc = _accum_dtype(xc.dtype)
+    dc = pairwise_sq_dists(xc, coarse, mode=mode)            # (m, C)
+    thresh = torch.topk(dc, nprobe, dim=1, largest=False).values[:, -1]
+    cells, rows = torch.nonzero((dc <= thresh[:, None]).T, as_tuple=True)
+    del dc
+    per_cell = torch.bincount(cells, minlength=C).cpu().tolist()
+    best_d = torch.full((m,), float("inf"), dtype=acc, device=xc.device)
+    best_i = torch.full((m,), k, dtype=torch.int64, device=xc.device)
+    inf = torch.full((), float("inf"), dtype=acc, device=xc.device)
+    valid = members < k
+    step = max(1, TWO_LEVEL_TILE_ELEMS // L)
+    start = 0
+    for c, count in enumerate(per_cell):
+        if not count:
+            continue
+        tab = tables[c] if tables is not None else \
+            cents_ext.index_select(0, members[c])
+        for lo in range(start, start + count, step):
+            r = rows[lo: min(lo + step, start + count)]
+            d2 = pairwise_sq_dists(xc.index_select(0, r), tab, mode=mode)
+            d2 = torch.where(valid[c][None, :], d2, inf)
+            j = torch.argmin(d2, dim=1)
+            dm = d2.gather(1, j[:, None])[:, 0]
+            gi = members[c].index_select(0, j)
+            cur_d = best_d.index_select(0, r)
+            cur_i = best_i.index_select(0, r)
+            better = (dm < cur_d) | ((dm == cur_d) & (gi < cur_i))
+            best_d.index_copy_(0, r, torch.where(better, dm, cur_d))
+            best_i.index_copy_(0, r, torch.where(better, gi, cur_i))
+        start += count
+    return best_d, best_i
+
+
+def _two_level_inputs(centroids, coarse, members):
+    """The step's device inputs: the table with its sentinel row, the
+    coarse table in the table's dtype, the member lists (int64) and their
+    (C, L, D) rows, gathered once per step."""
+    k, d = centroids.shape
+    cents_ext = torch.cat([centroids, torch.full(
+        (1, d), PAD_CENTROID_VALUE, dtype=centroids.dtype,
+        device=centroids.device)])
+    coarse = torch.as_tensor(np.asarray(coarse), device=centroids.device
+                             ).to(centroids.dtype)
+    members = torch.as_tensor(np.asarray(members),
+                              device=centroids.device).to(torch.int64)
+    return cents_ext, coarse, members, cents_ext[members]
+
+
+def make_two_level_step_fn(mesh=None, *, chunk_size: int, nprobe: int,
+                           mode: str = "matmul",
+                           need_farthest: bool = True,
+                           need_sse_pc: bool = True) -> Callable:
+    """The two-level step of the massive-k tier: ``(points, weights,
+    centroids (k, D), coarse (C, D), members (C, L)) -> StepStats``.  Each
+    chunk's rows go through :func:`_two_level_best`, and the statistics
+    accumulate by a scatter-add (``index_add_``) over the winning labels:
+    no (chunk, k) tile is formed.  A row whose candidates are all +inf (a
+    NaN row) adds nothing to the sums and counts.  The SSE is exact for
+    the labels it produces.  With ``nprobe == C`` every centroid is a
+    candidate and the step is the parity partner of the dense step; the
+    sums' order differs (on the card ``index_add_`` adds in the order its
+    atomics land, so they are of the rtol class).  Under a data-parallel
+    mesh the statistics reduce over the data axis as the dense step's do.
+    Matmul-class modes, no model axis (:func:`_check_two_level`)."""
+    _check_two_level(mode, mesh_shape(mesh)[1])
+
+    def step(points, weights, centroids, coarse, members):
+        k, d = centroids.shape
+        acc = _accum_dtype(points.dtype)
+        cents_ext, coarse, members, tables = _two_level_inputs(
+            centroids, coarse, members)
+        st = init_stats(k, d, acc, points.device)
+        sums, counts, sse_pc = st.sums, st.counts, st.sse_per_cluster
+        sse = st.sse
+        best = torch.empty((points.shape[0],), dtype=acc,
+                           device=points.device)
+        for lo in range(0, points.shape[0], chunk_size):
+            xc = points[lo:lo + chunk_size]
+            wc = weights[lo:lo + chunk_size].to(acc)
+            bd, bi = _two_level_best(xc, coarse, cents_ext, members,
+                                     nprobe=nprobe, mode=mode, k=k,
+                                     tables=tables)
+            ok = bi < k
+            idx = torch.where(ok, bi, torch.zeros_like(bi))
+            wx = torch.where(ok[:, None], xc.to(acc) * wc[:, None],
+                             torch.zeros((), dtype=acc, device=xc.device))
+            sums.index_add_(0, idx, wx)
+            counts.index_add_(0, idx, torch.where(ok, wc,
+                                                  torch.zeros_like(wc)))
+            sse = sse + (bd * wc).sum()
+            if need_sse_pc:
+                sse_pc.index_add_(0, idx, torch.where(
+                    ok, bd * wc, torch.zeros_like(bd)))
+            best[lo:lo + chunk_size] = bd
+        far_d, far_p = st.farthest_dist, st.farthest_point
+        if need_farthest and points.shape[0]:
+            live = weights > 0
+            masked = torch.where(live, best,
+                                 torch.full_like(best, float("-inf")))
+            i = torch.argmax(masked).reshape(1)
+            far = masked.index_select(0, i)[0]
+            far_d = torch.where(live.any(), far, torch.full_like(far, -1.0))
+            far_p = points.index_select(0, i)[0].to(acc)
+        st = StepStats(sums, counts, sse, far_d, far_p, sse_pc)
+        if mesh is not None:
+            st = _reduce_stats(st, mesh, k, need_sse_pc=need_sse_pc,
+                               need_farthest=need_farthest)
+        return st
+
+    return step
+
+
+def make_two_level_predict_fn(mesh=None, *, chunk_size: int, nprobe: int,
+                              mode: str = "matmul") -> Callable:
+    """Two-level labels: ``(points, centroids, coarse, members) ->
+    labels`` int32 (the rank's block under a mesh), the candidate search
+    and tie rule of :func:`make_two_level_step_fn`, no (chunk, k) tile."""
+    mode = value_mode(mode)
+    _check_two_level(mode, mesh_shape(mesh)[1])
+
+    def predict(points, centroids, coarse, members):
+        cents_ext, coarse, members, tables = _two_level_inputs(
+            centroids, coarse, members)
+        labels = torch.empty((points.shape[0],), dtype=torch.int32,
+                             device=points.device)
+        for lo in range(0, points.shape[0], chunk_size):
+            labels[lo:lo + chunk_size] = _two_level_best(
+                points[lo:lo + chunk_size], coarse, cents_ext, members,
+                nprobe=nprobe, mode=mode, k=centroids.shape[0],
+                tables=tables)[1]
+        return labels
 
     return predict
 

@@ -137,6 +137,109 @@ def pad_points(x: np.ndarray, multiple: int, min_rows: int = 0
     return x, w
 
 
+#: Boundaries of the candidate-width ladder at {1, 1.25, 1.5, 1.75} x 2^e,
+#: and its floor: the JAX package's ``BUCKET_RUNGS`` and
+#: ``CANDIDATE_FLOOR``.  The two-level step's member lists are (C, L)
+#: tables whose width L is the largest cell's size bucketed on this
+#: ladder, so that the width changes seldom as cells drift.
+BUCKET_RUNGS = (1.0, 1.25, 1.5, 1.75)
+CANDIDATE_FLOOR = 32
+
+
+def bucket_candidates(n: int) -> int:
+    """The smallest boundary of the candidate-width ladder that is >= ``n``
+    (the JAX package's ``bucket_candidates``)."""
+    n = int(n)
+    if n <= CANDIDATE_FLOOR:
+        return CANDIDATE_FLOOR
+    e = int(np.floor(np.log2(n / CANDIDATE_FLOOR)))
+    # A float log may land one exponent off at an exact boundary.
+    for ee in (e - 1, e, e + 1):
+        for r in BUCKET_RUNGS:
+            b = int(round(CANDIDATE_FLOOR * r * (2 ** ee)))
+            if b >= n:
+                return b
+    return int(round(CANDIDATE_FLOOR * (2 ** (e + 2))))  # pragma: no cover
+
+
+#: How host rows become a rank's device block (the JAX package's
+#: ``INGEST_MODES``): 'mono', one host-to-device copy of the padded block;
+#: 'slab', the block cut into slabs copied through the pinned ring of
+#: :class:`BlockStager`, slab i+1's host copy overlapping slab i's transfer.
+#: Both place the same bytes.
+INGEST_MODES = ("auto", "mono", "slab")
+
+
+def check_ingest(ingest) -> str:
+    """Validate the ``ingest`` knob: 'auto' | 'mono' | 'slab'."""
+    if ingest not in INGEST_MODES:
+        raise ValueError(f"ingest must be one of {INGEST_MODES}, "
+                         f"got {ingest!r}")
+    return ingest
+
+
+def resolve_ingest(ingest) -> str:
+    """``ingest`` with 'auto' resolved: 'mono' on every device.  The JAX
+    package sends 'auto' to 'slab' on accelerators by a rule that asks for
+    a 1.2x win of slab over mono on a 1 GiB ingest; here 'auto' takes slab
+    only once that win is measured on the card (``chip_smoke.py`` phase
+    ``ingest`` records the ratio; PERF.md).  Explicit modes pass
+    through."""
+    return "mono" if check_ingest(ingest) == "auto" else ingest
+
+
+def place_slabs(read_rows: Callable[[int, int], np.ndarray], lo: int,
+                hi: int, block: int, d: int, device, dtype,
+                sample_weight: Optional[np.ndarray] = None, *,
+                prefetch: int = 0
+                ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """The slab placement: a rank's block of the global rows ``[lo, hi)``,
+    zero rows of weight 0 after them up to ``block`` rows, written into one
+    device buffer slab by slab.  Returns ``(points, weights, slabs)``.
+
+    The slab holds ``target_bytes`` of rows (``obs.memory.plan_ingest``:
+    64 MiB, at most 1/8 of the card's free bytes).  Each slab is read with
+    ``read_rows(a, b)`` (global rows), copied into a pinned slot of a
+    :class:`BlockStager` ring and from there, on the stager's copy stream,
+    into its rows of the buffer; with ``prefetch > 0`` the reads and host
+    copies run ``prefetch`` slabs ahead in a background thread
+    (``data.prefetch``).  The ring has ``prefetch + 2`` slots, so slab
+    i+1's host copy overlaps slab i's transfer, and the host holds a few
+    slabs, never the block.  ``sample_weight`` holds the global rows'
+    weights (None: 1).  The bytes are those of the one-copy placement
+    ('mono'), padding included."""
+    from kmeans_tpu_torch.data.prefetch import prefetch_iter
+    from kmeans_tpu_torch.obs.memory import plan_ingest
+    dtype = np.dtype(dtype)
+    tdtype = torch_dtype(dtype)
+    device = torch.device(device)
+    target = plan_ingest(block, d, dtype=dtype.name,
+                         device=device)["target_bytes"]
+    rows = max(1, target // max(1, d * dtype.itemsize))
+    points = torch.empty((block, d), dtype=tdtype, device=device)
+    weights = torch.empty((block,), dtype=tdtype, device=device)
+    stager = BlockStager(device, dtype, prefetch)
+
+    def stage(span):
+        a, b = span                         # rows of the block
+        real = max(0, min(b, hi - lo) - a)
+        if real == b - a:
+            x = np.asarray(read_rows(lo + a, lo + b), dtype=dtype)
+        else:                               # the block's padded tail
+            x = np.zeros((b - a, d), dtype=dtype)
+            if real:
+                x[:real] = read_rows(lo + a, lo + a + real)
+        w = np.zeros(b - a, dtype=dtype)
+        w[:real] = 1.0 if sample_weight is None else \
+            sample_weight[lo + a: lo + a + real]
+        return stager.stage(x, w, out=(points[a:b], weights[a:b]))
+
+    spans = [(a, min(a + rows, block)) for a in range(0, block, rows)]
+    for staged in prefetch_iter(iter(spans), prefetch, stage):
+        stager.take(staged)
+    return points, weights, len(spans)
+
+
 def torch_dtype(dtype) -> torch.dtype:
     """torch dtype of a NumPy dtype (float32 or float64)."""
     return {np.dtype(np.float32): torch.float32,
@@ -245,12 +348,15 @@ class Dataset:
 
     def __init__(self, points: torch.Tensor, weights: torch.Tensor,
                  host: Optional[np.ndarray] = None,
-                 host_weights: Optional[np.ndarray] = None):
+                 host_weights: Optional[np.ndarray] = None,
+                 chunk: Optional[int] = None, explicit_chunk: bool = False):
         self.points = points
         self.weights = weights
         self.n, self.d = points.shape
         self._host = host
         self._host_weights = host_weights
+        self.chunk = None if chunk is None else int(chunk)
+        self.explicit_chunk = explicit_chunk
         self._memo: dict = {}
 
     def memo(self, key, make: Callable):
@@ -266,6 +372,19 @@ class Dataset:
     @property
     def device(self) -> torch.device:
         return self.points.device
+
+    def effective_chunk(self, k: int) -> int:
+        """The torch passes' chunk for a model of ``k`` clusters (or
+        ``k * D`` for 'direct'): the chunk the dataset was placed with
+        (``chunk``, chosen by its loader), unless the (chunk, k) tile would
+        outgrow the budget (:func:`clamp_chunk_for_k`); an explicit chunk
+        passes through.  A dataset placed without one (None: a model's own
+        ``cache`` on one device) takes :func:`choose_chunk_size` for ``k``."""
+        if self.chunk is None:
+            return choose_chunk_size(self.points.shape[0], k, self.d)
+        if self.explicit_chunk:
+            return self.chunk
+        return clamp_chunk_for_k(self.chunk, k)
 
     @property
     def dtype(self) -> np.dtype:
@@ -391,13 +510,12 @@ class ShardedDataset(Dataset):
                  local_rows: int, chunk: int, explicit_chunk: bool = False,
                  host=None, host_weights=None, process_local: bool = False):
         super().__init__(points, weights, host=host,
-                         host_weights=host_weights)
+                         host_weights=host_weights, chunk=chunk,
+                         explicit_chunk=explicit_chunk)
         self.mesh = mesh
         self.n = int(n)
         self.offset = int(offset)
         self.local_rows = int(local_rows)
-        self.chunk = int(chunk)
-        self.explicit_chunk = explicit_chunk
         self.process_local = process_local
 
     def _weights_like(self, sw: np.ndarray) -> torch.Tensor:
@@ -406,15 +524,6 @@ class ShardedDataset(Dataset):
         block[: self.local_rows] = sw[self.offset: self.offset
                                       + self.local_rows]
         return torch.from_numpy(block).to(self.device)
-
-    def effective_chunk(self, k: int) -> int:
-        """The torch passes' chunk for a model of ``k`` clusters (or
-        ``k * D`` for 'direct'): ``chunk``, unless the (chunk, k) tile would
-        outgrow the budget (:func:`clamp_chunk_for_k`); an explicit chunk
-        passes through."""
-        if self.explicit_chunk:
-            return self.chunk
-        return clamp_chunk_for_k(self.chunk, k)
 
     def _require_host(self, op: str) -> None:
         if self._host is None:
@@ -509,7 +618,7 @@ def _check_dataset(X: Dataset, device, dtype, sample_weight, mesh) -> None:
 
 def to_device(X, device: torch.device, dtype, sample_weight=None,
               mesh=None, chunk: Optional[int] = None,
-              k_hint: int = 16) -> Dataset:
+              k_hint: int = 16, ingest: str = "auto") -> Dataset:
     """Place (n, D) data on ``device`` once; a :class:`Dataset` passes
     through.  Host data (NumPy, lists) keeps its host copy; a tensor that
     already lies on ``device`` is used as it is and no host copy is made.
@@ -520,7 +629,12 @@ def to_device(X, device: torch.device, dtype, sample_weight=None,
     (:class:`ShardedDataset`); host data keeps its host copy there too, a
     tensor on ``device`` is sliced where it lies.  ``chunk`` (None: chosen
     for ``k_hint`` clusters) is the chunk of the torch passes it
-    records."""
+    records.  ``ingest`` (:func:`resolve_ingest`) picks how a host block
+    reaches the device under a mesh, 'mono' or 'slab' (:func:`place_slabs`),
+    the same bytes either way; without a mesh, or for a tensor already on
+    the device, there is one copy and the mode is ignored, as in the JAX
+    package."""
+    mode = resolve_ingest(ingest)
     dtype = np.dtype(dtype)
     tdtype = torch_dtype(dtype)
     if isinstance(X, Dataset):
@@ -529,7 +643,8 @@ def to_device(X, device: torch.device, dtype, sample_weight=None,
     if mesh is not None:
         on_device = isinstance(X, torch.Tensor) and X.device == device
         return _to_mesh(X.to(tdtype) if on_device else _host_array(X, dtype),
-                        device, dtype, sample_weight, mesh, chunk, k_hint)
+                        device, dtype, sample_weight, mesh, chunk, k_hint,
+                        mode)
     if isinstance(X, torch.Tensor) and X.device == device:
         host, shape = None, tuple(X.shape)
     else:
@@ -553,11 +668,13 @@ def to_device(X, device: torch.device, dtype, sample_weight=None,
 
 
 def _to_mesh(X, device, dtype, sample_weight, mesh,
-             chunk: Optional[int], k_hint: int) -> ShardedDataset:
+             chunk: Optional[int], k_hint: int,
+             ingest: str = "mono") -> ShardedDataset:
     """The rank's block of the global rows, padded with rows of weight 0
     to a multiple of the data axis (only the last blocks hold padding).
-    ``X`` is a host array, kept as the host copy, or a tensor already on
-    ``device``, sliced there with no host copy (as on one device)."""
+    ``X`` is a host array, kept as the host copy and placed by ``ingest``
+    ('mono' or 'slab'), or a tensor already on ``device``, sliced there
+    with no host copy (as on one device)."""
     if X.ndim != 2:
         raise ValueError(f"X must be 2-D (n, D), got shape {tuple(X.shape)}")
     n, d = X.shape
@@ -566,24 +683,30 @@ def _to_mesh(X, device, dtype, sample_weight, mesh,
     block = -(-max(n, 1) // data_shards)
     lo, hi = d_idx * block, max(min((d_idx + 1) * block, n), d_idx * block)
     host = X if isinstance(X, np.ndarray) else None
-    if host is not None:
-        rows, mask = pad_points(host[lo:hi], block, min_rows=block)
-        points = torch.from_numpy(np.ascontiguousarray(rows)).to(device)
-    else:
-        points = torch.zeros((block, d), dtype=X.dtype, device=device)
-        points[: hi - lo] = X[lo:hi]
-        mask = np.zeros(block, dtype=dtype)
-        mask[: hi - lo] = 1.0
     sw = None
     if sample_weight is not None:
         if isinstance(sample_weight, torch.Tensor):
             sample_weight = sample_weight.cpu().numpy()
         sw = _validate_sample_weight(sample_weight, n, dtype)
-        mask[: hi - lo] = sw[lo:hi]
     explicit = chunk is not None
     chunk = chunk or choose_chunk_size(block, k_hint, d)
+    if host is not None and ingest == "slab":
+        points, weights, _ = place_slabs(
+            lambda a, b: host[a:b], lo, hi, block, d, device, dtype, sw)
+    else:
+        if host is not None:
+            rows, mask = pad_points(host[lo:hi], block, min_rows=block)
+            points = torch.from_numpy(np.ascontiguousarray(rows)).to(device)
+        else:
+            points = torch.zeros((block, d), dtype=X.dtype, device=device)
+            points[: hi - lo] = X[lo:hi]
+            mask = np.zeros(block, dtype=dtype)
+            mask[: hi - lo] = 1.0
+        if sw is not None:
+            mask[: hi - lo] = sw[lo:hi]
+        weights = torch.from_numpy(mask).to(device)
     return ShardedDataset(
-        points, torch.from_numpy(mask).to(device), mesh, n=n, offset=lo,
+        points, weights, mesh, n=n, offset=lo,
         local_rows=hi - lo, chunk=chunk, explicit_chunk=explicit,
         host=host, host_weights=sw if host is not None else None)
 
@@ -717,12 +840,20 @@ class BlockStager:
             w = mask
         return x, w
 
-    def stage(self, block: np.ndarray, bw: Optional[np.ndarray] = None
+    def stage(self, block: np.ndarray, bw: Optional[np.ndarray] = None,
+              out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
               ) -> StagedBlock:
         """The producer's share: this rank's rows of the decoded block (in
-        the stager's dtype) on their way to the device."""
+        the stager's dtype) on their way to the device.  ``out``, a pair of
+        device views (rows, weights) of the block's shape, receives the
+        copy in place of new tensors (the slab placement,
+        :func:`place_slabs`; ``bw`` is then required)."""
         x, w = self.share(block, bw)
         if not self._cuda:
+            if out is not None:
+                out[0].copy_(_tensor_of(x))
+                out[1].copy_(_tensor_of(w))
+                return StagedBlock(out[0], out[1], block.shape[0], None)
             return StagedBlock(_tensor_of(x), None if w is None
                                else _tensor_of(w), block.shape[0], None)
         slot = self._ring[self._next]
@@ -744,14 +875,24 @@ class BlockStager:
                     slot.w = torch.empty((m,), dtype=tdtype,
                                          pin_memory=True)
                 np.copyto(slot.w[:m].numpy(), w)
+            if out is not None:
+                # The views' memory may have been freed by work still queued
+                # on the consumer's stream: the copy waits for it (and the
+                # consumer for the copy, in take).
+                self._stream.wait_stream(torch.cuda.current_stream(
+                    self.device))
             with torch.cuda.stream(self._stream):
-                points = torch.empty(x.shape, dtype=tdtype,
-                                     device=self.device)
+                if out is None:
+                    points = torch.empty(x.shape, dtype=tdtype,
+                                         device=self.device)
+                else:
+                    points = out[0]
                 points.copy_(slot.x[:m], non_blocking=True)
                 weights = None
                 if w is not None:
                     weights = torch.empty((m,), dtype=tdtype,
-                                          device=self.device)
+                                          device=self.device) \
+                        if out is None else out[1]
                     weights.copy_(slot.w[:m], non_blocking=True)
                 slot.event.record(self._stream)
         return StagedBlock(points, weights, block.shape[0], slot.event)

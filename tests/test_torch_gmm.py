@@ -280,17 +280,20 @@ LATER = {"tied": dict(covariance_type="tied"),
          "bucket": dict(bucket="auto"), "overlap": dict(overlap=1),
          "ingest": dict(ingest="slab")}
 #: The arguments of LATER ported since: each now fits, and the model
-#: reports what ran.
+#: reports what ran (``ingest='slab'`` places the same bytes; one copy
+#: without a mesh).
 PORTED = {"tied": ("tied", True, "serial"), "full": ("full", True, "serial"),
           "host_loop": ("diag", False, "serial"),
-          "pipeline": ("diag", True, "pipelined")}
+          "pipeline": ("diag", True, "pipelined"),
+          "ingest": ("diag", True, "serial")}
 
 
 @pytest.mark.parametrize("kw", list(LATER.values()), ids=list(LATER))
 def test_arguments_not_ported_yet_raise(kw):
     """Each raises naming its ROADMAP item; ``mesh``, ported since, refuses
-    what is not a DeviceMesh instead; 'tied', 'full', ``host_loop=False``
-    and ``pipeline=1``, ported since, fit a few rows and report what ran."""
+    what is not a DeviceMesh instead; 'tied', 'full', ``host_loop=False``,
+    ``pipeline=1`` and ``ingest='slab'``, ported since, fit a few rows and
+    report what ran."""
     if "mesh" in kw:
         with pytest.raises(TypeError, match="DeviceMesh"):
             kmeans_tpu_torch.GaussianMixture(n_components=2, device="cpu",

@@ -2,8 +2,9 @@
 JAX package's ``data.io``: datasets from ``.npy`` and raw files equal the
 in-memory ones, block streams are the same blocks, retries are counted and
 leave the results bit-identical, the non-finite policy names or drops a
-block, and ``ingest='slab'`` raises naming ROADMAP A.10.  A mesh's per-rank
-reads are in ``test_torch_stream_mesh.py``."""
+block, and ``ingest='slab'`` places the bytes of ``'mono'``.  A mesh's
+per-rank reads are in ``test_torch_stream_mesh.py`` and
+``test_torch_large_k_mesh.py``."""
 
 import numpy as np
 import pytest
@@ -247,12 +248,25 @@ def test_on_nonfinite_error_names_block_and_skip_counts():
 
 
 def test_ingest_slab_raises_naming_a10(npy_file):
-    path, _ = npy_file
-    for load in (lambda: pio.from_npy(path, device="cpu", ingest="slab"),
-                 lambda: pio.from_raw(path, (10, 7), device="cpu",
-                                      ingest="slab")):
-        with pytest.raises(NotImplementedError, match="A.10"):
-            load()
+    """The name is kept for the test's ID: ``ingest='slab'`` (ROADMAP A.10,
+    ported) now loads the bytes of ``'mono'``, from ``.npy`` and raw
+    files, with and without weights.  Without a mesh there is one copy, as
+    in the JAX package; the slab path itself is held in
+    ``test_torch_ingest.py`` and ``test_torch_large_k_mesh.py``."""
+    path, X = npy_file
+    sw = np.linspace(0.1, 2.0, 1003)
+    for kw in (dict(), dict(sample_weight=sw)):
+        mono = pio.from_npy(path, device="cpu", ingest="mono", **kw)
+        assert mono.points.numpy().tobytes() == X.tobytes()
+        for load in (lambda: pio.from_npy(path, device="cpu", ingest="slab",
+                                          **kw),
+                     lambda: pio.from_raw(path, (1003, 7), device="cpu",
+                                          offset=128, ingest="slab", **kw)):
+            ds = load()
+            assert ds.points.numpy().tobytes() == \
+                mono.points.numpy().tobytes()
+            assert ds.weights.numpy().tobytes() == \
+                mono.weights.numpy().tobytes()
     with pytest.raises(ValueError, match="ingest"):
         pio.from_npy(path, device="cpu", ingest="fast")
     for ingest in ("auto", "mono"):

@@ -242,21 +242,30 @@ def test_nan_row_among_the_data_is_a_divergence_error():
 
 
 #: Arguments of the list below that a later slice ported: (loop_path_,
-#: estep_path_) of a CPU fit with them ('auto' is 'matmul' there).
+#: estep_path_) of a CPU fit with them ('auto' is 'matmul' there).  The
+#: slab ingest places the same bytes (one copy without a mesh), and the
+#: two-level route is a host-loop program; ``coarse_cells`` and ``nprobe``
+#: alone leave 'auto' on the dense step on the CPU, as in the JAX package.
 PORTED_LATER = {("host_loop", False): ("device", "serial"),
                 ("pipeline", 1): ("host", "pipelined"),
                 ("init_cap", 512): ("host", "serial"),
                 ("init", "k-means||"): ("host", "serial"),
-                ("distance_mode", "matmul_bf16_guarded"): ("host", "serial")}
+                ("distance_mode", "matmul_bf16_guarded"): ("host", "serial"),
+                ("ingest", "slab"): ("host", "serial"),
+                ("assign", "two_level"): ("host", "serial"),
+                ("coarse_cells", 8): ("host", "serial"),
+                ("nprobe", 2): ("host", "serial")}
 #: What a ported argument of the list needs beside it: ``init_cap`` sizes
 #: the k-means|| buffer (with another init it raises the JAX package's
 #: ValueError, tests/test_torch_kmeans_parallel.py).
 PORTED_WITH = {"init_cap": {"init": "k-means||"}}
 #: Arguments of the list that a later slice ported whose value here is not
 #: one the port takes: the error it raises now (a mesh must be a
-#: DeviceMesh; two model shards need two ranks, the JAX package's message).
+#: DeviceMesh; two model shards need two ranks, the JAX package's message;
+#: k_shard=2 needs a model axis, the JAX package's message).
 PORTED_REFUSED = {"mesh": (TypeError, "DeviceMesh"),
-                  "model_shards": (ValueError, "not divisible by model=2")}
+                  "model_shards": (ValueError, "not divisible by model=2"),
+                  "k_shard": (ValueError, "requires a model-sharded mesh")}
 
 
 @pytest.mark.parametrize("arg,value", [
@@ -268,9 +277,10 @@ PORTED_REFUSED = {"mesh": (TypeError, "DeviceMesh"),
 def test_unported_arguments_raise(arg, value):
     """Every argument of the list raises, naming its ROADMAP item, except
     those that a later slice ported (``host_loop=False``, ``pipeline=1``,
-    ``init_cap``, ``init='k-means||'``, the guarded rung): they now fit,
-    and the model reports what ran; ``mesh`` and ``model_shards`` (ported
-    with the mesh) raise what a wrong value raises."""
+    ``init_cap``, ``init='k-means||'``, the guarded rung, ``ingest``,
+    ``assign``, ``coarse_cells``, ``nprobe``): they now fit, and the model
+    reports what ran; ``mesh``, ``model_shards`` and ``k_shard`` raise
+    what a wrong value raises."""
     X = _blobs(n=100, d=3, centers=3)
     if arg in PORTED_REFUSED:
         err, match = PORTED_REFUSED[arg]

@@ -35,6 +35,7 @@ MODULES = ["kmeans_tpu_torch", "kmeans_tpu_torch.convert",
            "kmeans_tpu_torch.models.init", "kmeans_tpu_torch.models.kmeans",
            "kmeans_tpu_torch.models.minibatch",
            "kmeans_tpu_torch.models.spherical",
+           "kmeans_tpu_torch.obs.memory",
            "kmeans_tpu_torch.ops._build", "kmeans_tpu_torch.ops.assign",
            "kmeans_tpu_torch.ops.compare",
            "kmeans_tpu_torch.ops.estep_kernels",
