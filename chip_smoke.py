@@ -86,6 +86,23 @@ by 'slab', byte for byte, timed (``ingest``, in ``dp_world1``); and
 ``k_shard=2`` on a model axis of the two gloo ranks at k = 4096, bit for
 bit against the dense model-axis fit (``dp_shared_card_kshard``).
 
+The product quantizer and serving: ``ProductQuantizer(m=8, k=256)`` on the
+main data, its seconds per iteration and peak bytes beside ``plan_``, every
+member bit-equal to a standalone ``KMeans`` of its subspace, ``encode`` and
+``decode`` of 262,144 rows, ``adc_assign`` of 4096 queries against a
+``for_table`` compression of the main k = 1024 table equal to the decoded
+table's argmin (``pq``); the main float32 model resident in a
+``ServingEngine``, ``call`` at every bucket and with one 10,000-row request,
+labels bit-equal to ``predict``, kernel 2 once per dispatch, ``score_rows``
+and ``transform`` against their references, p50 / p99 per bucket, quality
+monitoring on against off (``serving``); ``quantize='bf16'`` and the bf16
+model through kernel 2b (``serving_bf16``); four models in one packed
+dispatch (``serving_packed``); the mixture's three ops (``serving_gmm``);
+``submit`` from four threads (``serving_queue``); and kernels 2 and 2b at
+the bucket shapes beside their bounds and library calls
+(``serving_kernel_shapes``).  Their launches go into the kernel rows'
+``serving_launches``.
+
 Every phase prints one JSON line as it ends.  A phase that fails raises, so
 the run ends with a non-zero code and without the result line.  The last line
 is ``{"ok": true, "device": {...}}``; the line before it is the card's name
@@ -118,7 +135,8 @@ if not torch.cuda.is_available():
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from kmeans_tpu_torch import (BisectingKMeans, GaussianMixture,  # noqa: E402
-                              KMeans, MiniBatchKMeans, SphericalKMeans)
+                              KMeans, MiniBatchKMeans, ProductQuantizer,
+                              SphericalKMeans)
 from kmeans_tpu_torch.data.io import iter_npy_blocks  # noqa: E402
 from kmeans_tpu_torch.data.synthetic import make_blobs_device  # noqa: E402
 from kmeans_tpu_torch.experiments import exp_kernel_edits as kernel_edits  # noqa: E402,E501
@@ -127,6 +145,7 @@ from kmeans_tpu_torch.models import init as seeding  # noqa: E402
 from kmeans_tpu_torch.models.fault_tolerance import (  # noqa: E402
     NumericalDivergenceError)
 from kmeans_tpu_torch.models.kmeans import _FORMAT_MODES  # noqa: E402
+from kmeans_tpu_torch.models.pq import default_subspaces  # noqa: E402
 from kmeans_tpu_torch.ops import _build  # noqa: E402
 from kmeans_tpu_torch.ops import compare as cmp  # noqa: E402
 from kmeans_tpu_torch.ops import estep_kernels as ek  # noqa: E402
@@ -138,6 +157,7 @@ from kmeans_tpu_torch.parallel.gmm_step import make_gmm_step_fn  # noqa: E402,E5
 from kmeans_tpu_torch.parallel.sharding import (EM_MAX_CHUNK,  # noqa: E402
                                                 weighted_mean)
 from kmeans_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
+from kmeans_tpu_torch.serving import ServingEngine  # noqa: E402
 from kmeans_tpu_torch.utils import faults  # noqa: E402
 
 DEV = torch.device("cuda", 0)
@@ -3503,6 +3523,487 @@ def phase_large_k(x):
     return counts
 
 
+# ------------------------------------------------ product quantizer, serving
+
+PQ = dict(m=8, k=256, iters=10, rows=262_144, queries=4096)
+#: Bucket shapes of the serving engine (``serving.batching.DEFAULT_BUCKETS``)
+#: and the single request past the top bucket.
+SERVE_BUCKETS = (8, 64, 512, 4096)
+SERVE_BIG = 10_000
+SERVE_CALLS = 200
+SERVE_WARM_CALLS = 20
+PACKED_MODELS = 4
+QUEUE_THREADS = 4
+QUEUE_REQUESTS = 100
+QUEUE_TIMEOUT = 120.0
+
+
+def phase_pq(x, km):
+    """``ProductQuantizer(m=8, k=256)`` on the main data: seconds per
+    iteration and the peak allocated bytes beside ``plan_``; every member
+    bit-equal to a standalone device-loop ``KMeans`` of its subspace with
+    the member's seed; ``encode`` and ``decode`` of PQ["rows"] rows; and
+    ``adc_assign`` of 4096 queries against a ``for_table`` compression of
+    the main fit's k = 1024 table, its labels equal to the float64 argmin
+    over the decoded table.  No kernel is on the quantizer's path (the
+    fits run 'matmul', as in the JAX package)."""
+    host = x.cpu().numpy()
+    m, k, iters = PQ["m"], PQ["k"], PQ["iters"]
+    check(default_subspaces(host.shape[1]) == m, "default_subspaces(128)")
+    hk.reset_launch_counts()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pq = ProductQuantizer(m=m, k=k, max_iter=iters, tolerance=1e-4,
+                          seed=3, device=DEV).fit(host)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    kernel_launches = {n: c for n, c in hk.LAUNCHES.items() if c}
+    check(not kernel_launches, f"pq fit launched kernels: {kernel_launches}")
+    d_sub = host.shape[1] // m
+    seeds = pq._member_seeds(m)
+    same, alone_s = [], []
+    for j in range(m):
+        sub = np.ascontiguousarray(host[:, j * d_sub:(j + 1) * d_sub])
+        t1 = time.perf_counter()
+        alone = KMeans(k=k, max_iter=iters, tolerance=1e-4, seed=seeds[j],
+                       init="k-means++", empty_cluster="keep",
+                       distance_mode="matmul", host_loop=False,
+                       verbose=False).fit(sub)
+        alone_s.append((time.perf_counter() - t1) / alone.iterations_run)
+        same.append(bool(np.array_equal(alone.centroids, pq.codebooks_[j]))
+                    and alone.iterations_run == int(pq.n_iters_[j]))
+    check(all(same), f"pq: members against standalone fits {same}")
+    rows = host[:PQ["rows"]]
+    t1 = time.perf_counter()
+    codes = pq.encode(rows)
+    encode_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    dec = pq.decode(codes)
+    decode_s = time.perf_counter() - t1
+    check(codes.shape == (PQ["rows"], m) and codes.dtype == np.uint8
+          and dec.shape == rows.shape, f"pq: codes {codes.shape}")
+    probe = rows[:16_384].astype(np.float64)
+    for j in (0, m - 1):
+        cb = pq.codebooks_[j].astype(np.float64)
+        sj = probe[:, j * d_sub:(j + 1) * d_sub]
+        d2 = ((sj * sj).sum(1)[:, None] - 2.0 * sj @ cb.T
+              + (cb * cb).sum(1)[None, :])
+        check(bool(np.array_equal(codes[:16_384, j], d2.argmin(1))),
+              f"pq: encode of subspace {j} against a float64 argmin")
+    rel_mse = float(((dec - rows) ** 2).sum() / (rows.astype(np.float64)
+                                                 ** 2).sum())
+    t1 = time.perf_counter()
+    tpq, tcodes = ProductQuantizer.for_table(km.centroids, seed=0,
+                                             device=DEV)
+    table_s = time.perf_counter() - t1
+    queries = host[-PQ["queries"]:]
+    t1 = time.perf_counter()
+    labels, corrected = tpq.adc_assign(queries, tcodes)
+    adc_s = time.perf_counter() - t1
+    q = torch.from_numpy(queries).to(DEV).double()
+    decoded = torch.from_numpy(tpq.decode(tcodes)).to(DEV)
+    exact = torch.argmin((q * q).sum(1)[:, None] - 2.0 * q @ decoded.T
+                         + (decoded * decoded).sum(1)[None, :], dim=1)
+    check(bool(np.array_equal(labels, exact.cpu().numpy())),
+          "pq: ADC labels differ from the decoded-table argmin")
+    emit("pq", n=host.shape[0], d=host.shape[1], m=m, k=k, max_iter=iters,
+         n_iters=pq.n_iters_.tolist(), fit_seconds=fit_s,
+         seconds_per_iteration=fit_s / int(pq.n_iters_.max()),
+         standalone_seconds_per_iteration=alone_s,
+         members_bit_equal_to_standalone=same,
+         peak_allocated_bytes=peak,
+         plan_predicted_peak_bytes=pq.plan_["predicted_peak_bytes"],
+         subspace_inertias=pq.subspace_inertias_.tolist(),
+         encode_rows=PQ["rows"], encode_seconds=encode_s,
+         decode_seconds=decode_s, reconstruction_rel_sq_err=rel_mse,
+         compression_ratio=pq.compression_ratio(),
+         table_k=int(km.centroids.shape[0]), table_pq_m=tpq.m_,
+         table_pq_k=tpq.k, table_fit_seconds=table_s,
+         adc_queries=PQ["queries"], adc_seconds=adc_s,
+         adc_corrected=corrected, adc_labels_equal_decoded_argmin=True,
+         launches=kernel_launches)
+
+
+def _serve_rows(x):
+    """Request rows as the engine receives them: host float32 arrays."""
+    return x[:max(SERVE_BUCKETS[-1], SERVE_BIG) + 4096].cpu().numpy()
+
+
+def _latency(fn, calls=SERVE_CALLS, warm=SERVE_WARM_CALLS):
+    """(p50 ms, p99 ms) of ``calls`` host-timed calls after ``warm``."""
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return (statistics.median(times),
+            times[min(len(times) - 1, math.ceil(0.99 * len(times)) - 1)])
+
+
+def _counted(name: str) -> int:
+    return int(hk.LAUNCHES.get(name, 0))
+
+
+def phase_serving(x, km):
+    """The main float32 model (k = 1024, 'auto', so kernel 2) resident in
+    a ``ServingEngine`` on the card: ``call`` at every bucket and with one
+    10,000-row request, labels bit-equal to ``model.predict``; kernel 2
+    launched once per dispatch (counters zeroed after the warm-up, read
+    at the end of the path); ``score_rows`` against kernel 2's ``mind2``
+    within ``ops/compare.py``; ``transform`` against float64 distances;
+    p50 and p99 per bucket over SERVE_CALLS calls; monitoring on against
+    off (labels bit-equal, the time ratio); staging reuse off
+    (``donate=False``, rows placed anew per dispatch) beside on, labels
+    bit-equal.  Returns the path's counts."""
+    host = _serve_rows(x)
+    c = torch.from_numpy(km.centroids).to(DEV)
+    sizes = SERVE_BUCKETS + (SERVE_BIG,)
+    want = {m: km.predict(host[:m]) for m in sizes}
+    ref_mind2 = hk.assign_reference(x[:SERVE_BUCKETS[-1]], c)[1]
+    eng = ServingEngine(device=DEV, start=False, quality=False)
+    eng_q = ServingEngine(device=DEV, start=False, quality=True)
+    # Staging reuse off: every dispatch places its rows anew.
+    eng_nd = ServingEngine(device=DEV, start=False, quality=False,
+                           donate=False)
+    try:
+        for e in (eng, eng_q, eng_nd):
+            e.add_model("main", km)
+            e.warmup()
+        check(eng._donate and eng_q._quality and not eng_nd._donate,
+              "serving: 'auto' on the card")
+        hk.reset_launch_counts()
+        for m in sizes:
+            got = eng.call("main", host[:m])
+            check(bool(np.array_equal(got, want[m])),
+                  f"serving: {m} rows differ from model.predict")
+        check(_counted("hopper_assign") == eng.dispatches == len(sizes),
+              f"serving: kernel 2 launched {_counted('hopper_assign')} "
+              f"times for {eng.dispatches} dispatches")
+        mind2 = eng.call("main", host[:SERVE_BUCKETS[-1]], op="score_rows")
+        got2 = torch.from_numpy(mind2).to(DEV)
+        check(cmp.close(got2, ref_mind2, cmp.MIND2_RTOL,
+                        cmp.mind2_atol(x[:SERVE_BUCKETS[-1]], c)),
+              "serving: score_rows against kernel 2's mind2")
+        rows_t = x[:512].double()
+        tile = torch.from_numpy(eng.call("main", host[:512],
+                                         op="transform")).to(DEV).double()
+        c64 = c.double()
+        ref_t = torch.clamp_min((rows_t * rows_t).sum(1)[:, None]
+                                + (c64 * c64).sum(1)[None, :]
+                                - 2.0 * rows_t @ c64.T, 0.0)
+        check(cmp.close(tile ** 2, ref_t, cmp.MIND2_RTOL,
+                        cmp.mind2_atol(x[:512], c)),
+              "serving: transform against float64 distances")
+        latency = {}
+        for m in sizes:
+            rows = host[:m]
+            p50, p99 = _latency(lambda: eng.call("main", rows))
+            q50, q99 = _latency(lambda: eng_q.call("main", rows))
+            n50, n99 = _latency(lambda: eng_nd.call("main", rows))
+            check(bool(np.array_equal(eng_q.call("main", rows), want[m])),
+                  f"serving: quality on changed the labels at {m} rows")
+            check(bool(np.array_equal(eng_nd.call("main", rows), want[m])),
+                  f"serving: donate=False changed the labels at {m} rows")
+            latency[str(m)] = {"p50_ms": p50, "p99_ms": p99,
+                               "rows_per_s": m / (p50 / 1e3),
+                               "quality_on_p50_ms": q50,
+                               "quality_on_p99_ms": q99,
+                               "quality_time_ratio": q50 / p50,
+                               "donate_off_p50_ms": n50,
+                               "donate_off_p99_ms": n99}
+        # Every dispatch but the one transform launches kernel 2 once.
+        dispatches = eng.dispatches + eng_q.dispatches + eng_nd.dispatches \
+            - 1
+        launched = _counted("hopper_assign")
+        check(launched == dispatches,
+              f"serving: kernel 2 launched {launched} times for "
+              f"{dispatches} dispatches")
+        counts = {k: v for k, v in hk.LAUNCHES.items() if v}
+        stats = eng.stats()
+        emit("serving", k=int(km.k), d=int(km.centroids.shape[1]),
+             mode=km._mode(), buckets=list(SERVE_BUCKETS),
+             big_request_rows=SERVE_BIG, calls_per_bucket=SERVE_CALLS,
+             labels_bit_equal=True, dispatches=dispatches,
+             kernel2_launches=launched, latency=latency,
+             score_rows_err=max_err(got2, ref_mind2),
+             program_memory=stats["program_memory"],
+             quality_status=eng_q.quality_status()["main"], launches=counts)
+        return counts
+    finally:
+        eng.close()
+        eng_q.close()
+        eng_nd.close()
+
+
+def phase_serving_bf16(x, km, km_bf16):
+    """``quantize='bf16'`` on the main float32 model (labels bit-equal to
+    its float32 ``predict``, the corrected rows, ``verify_quantized``),
+    then the main bf16 model served in 'kernel_bf16': kernel 2b once per
+    dispatch."""
+    host = _serve_rows(x)
+    sizes = SERVE_BUCKETS + (SERVE_BIG,)
+    want = {m: km.predict(host[:m]) for m in sizes}
+    want_b = {m: km_bf16.predict(host[:m]) for m in sizes}
+    eng = ServingEngine(device=DEV, start=False, quality=False)
+    try:
+        rm = eng.add_model("q", km, quantize="bf16")
+        eng.add_model("b", km_bf16)
+        check(km_bf16._mode() == "kernel_bf16", "the bf16 model's mode")
+        hk.reset_launch_counts()
+        flagged = 0                   # dispatches whose guard flagged rows
+        for m in sizes:
+            before_rows = rm.bf16_corrected_rows
+            check(bool(np.array_equal(eng.call("q", host[:m]), want[m])),
+                  f"serving_bf16: quantized labels at {m} rows")
+            flagged += rm.bf16_corrected_rows > before_rows
+        fixups = _counted("hopper_assign")
+        # Each dispatch with flagged rows relabels them in one float32
+        # predict, one launch of kernel 2; the others launch none.
+        check(fixups == flagged,
+              f"serving_bf16: kernel 2 launched {fixups} times for "
+              f"{flagged} dispatches with flagged rows")
+        report = eng.verify_quantized("q", host[:SERVE_BUCKETS[-1]])
+        check(report["labels_equal"], f"verify_quantized: {report}")
+        before = eng.dispatches
+        hk.reset_launch_counts()
+        for m in sizes:
+            check(bool(np.array_equal(eng.call("b", host[:m]), want_b[m])),
+                  f"serving_bf16: kernel_bf16 labels at {m} rows")
+        dispatched = eng.dispatches - before
+        launched_2b = _counted("hopper_assign_bf16")
+        check(launched_2b == dispatched and _counted("hopper_assign") == 0,
+              f"serving_bf16: kernel 2b launched {launched_2b} times for "
+              f"{dispatched} dispatches")
+        counts = {k: v for k, v in hk.LAUNCHES.items() if v}
+        counts["hopper_assign"] = fixups
+        corrected = rm.bf16_corrected_rows
+        p50, p99 = _latency(lambda: eng.call("b", host[:4096]), calls=50)
+        q50, q99 = _latency(lambda: eng.call("q", host[:4096]), calls=50)
+        emit("serving_bf16", corrected_rows=corrected,
+             quantized_rows=sum(sizes),
+             guard_fixup_kernel2_launches=fixups,
+             guard_flagged_dispatches=flagged, verify=report,
+             kernel_bf16_dispatches=dispatched,
+             kernel2b_launches=launched_2b,
+             kernel_bf16_4096_p50_ms=p50, kernel_bf16_4096_p99_ms=p99,
+             quantized_4096_p50_ms=q50, quantized_4096_p99_ms=q99,
+             launches=counts)
+        return counts
+    finally:
+        eng.close()
+
+
+def phase_serving_packed(x, km):
+    """Four k = 1024 models of one shape (the main table, shifted) in one
+    ``predict_multi``: equal to each model's sequential ``predict``, in
+    one packed dispatch.  The models are 'matmul': the pack takes the
+    matmul form of every mode (``make_multi_predict_fn``)."""
+    host = _serve_rows(x)
+    models = []
+    for j in range(PACKED_MODELS):
+        mj = KMeans(k=km.k, distance_mode="matmul", verbose=False)
+        mj.centroids = (km.centroids + np.float32(0.05 * j)).astype(
+            np.float32)
+        models.append(mj)
+    reqs = [(f"m{j}", host[j * 1000:(j + 1) * 1000])
+            for j in range(PACKED_MODELS)]
+    want = [models[j].predict(rows) for j, (_, rows) in enumerate(reqs)]
+    eng = ServingEngine(device=DEV, start=False, quality=False)
+    try:
+        for j, mj in enumerate(models):
+            eng.add_model(f"m{j}", mj)
+        hk.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = eng.predict_multi(reqs)
+        packed_s = time.perf_counter() - t0
+        same = [bool(np.array_equal(o, w)) for o, w in zip(outs, want)]
+        check(all(same) and eng.packed_dispatches == 1
+              and eng.dispatches == 1,
+              f"serving_packed: {same}, {eng.packed_dispatches} packed")
+        p50, p99 = _latency(lambda: eng.predict_multi(reqs), calls=50)
+        s50, s99 = _latency(lambda: [eng.call(mid, rows)
+                                     for mid, rows in reqs], calls=50)
+        emit("serving_packed", models=PACKED_MODELS, rows=4000,
+             equal_to_sequential=same, packed_dispatches=1,
+             first_call_seconds=packed_s, packed_p50_ms=p50,
+             packed_p99_ms=p99, sequential_p50_ms=s50,
+             sequential_p99_ms=s99,
+             launches={k: v for k, v in hk.LAUNCHES.items() if v})
+        return {k: v for k, v in hk.LAUNCHES.items() if v}
+    finally:
+        eng.close()
+
+
+def phase_serving_gmm(x_gmm, gm):
+    """The mixture (k = 256 'diag') resident: ``predict``,
+    ``predict_proba`` and ``score_samples`` at every bucket against the
+    model's own calls.  The posterior pass is a torch pass, as in the JAX
+    package (``diag_estep`` computes the fit's E-step statistics, not the
+    posterior), so this path launches no kernel, and the counts say so."""
+    host = x_gmm[:SERVE_BUCKETS[-1]].cpu().numpy()
+    own = {m: (gm.predict(host[:m]), gm.predict_proba(host[:m]),
+               gm.score_samples(host[:m])) for m in SERVE_BUCKETS}
+    eng = ServingEngine(device=DEV, start=False, quality=False)
+    try:
+        eng.add_model("gm", gm)
+        eng.warmup()
+        hk.reset_launch_counts()
+        errs = {}
+        for m in SERVE_BUCKETS:
+            rows = host[:m]
+            labels, proba, lse = (eng.call("gm", rows, op=op) for op in (
+                "predict", "predict_proba", "score_samples"))
+            errs[str(m)] = {
+                "labels_equal": bool(np.array_equal(labels, own[m][0])),
+                "proba": float(np.abs(proba - own[m][1]).max()),
+                "score_samples": float(np.abs(lse - own[m][2]).max())}
+            check(errs[str(m)]["labels_equal"]
+                  and np.allclose(proba, own[m][1], rtol=0, atol=1e-6)
+                  and np.allclose(lse, own[m][2], rtol=cmp.LL_RTOL, atol=0),
+                  f"serving_gmm: {errs[str(m)]}")
+        dispatched = eng.dispatches
+        counts = {k: v for k, v in hk.LAUNCHES.items() if v}
+        latency = {}
+        for m in SERVE_BUCKETS:
+            p50, p99 = _latency(lambda: eng.call("gm", host[:m]), calls=50)
+            latency[str(m)] = {"p50_ms": p50, "p99_ms": p99}
+        emit("serving_gmm", k=int(gm.n_components),
+             covariance_type=gm.covariance_type, errors=errs,
+             latency=latency, engine_dispatches=dispatched,
+             launches=counts)
+        return counts
+    finally:
+        eng.close()
+
+
+def phase_serving_queue(x, km):
+    """``submit`` from QUEUE_THREADS threads (max_wait_ms=2, the worker
+    thread on): every future resolves, each result equals ``call`` on its
+    rows; dispatches, bucket fill and rows per second.  Every thread is
+    joined with a timeout, and a thread that fails fails the phase."""
+    import threading
+    host = _serve_rows(x)
+    rng = np.random.default_rng(5)
+    plans = [[(int(lo), int(rng.integers(1, 65)))
+              for lo in rng.integers(0, 8000, size=QUEUE_REQUESTS)]
+             for _ in range(QUEUE_THREADS)]
+    eng = ServingEngine(device=DEV, max_wait_ms=2.0, quality=False)
+    results = [None] * QUEUE_THREADS
+    errors = []
+    try:
+        eng.add_model("main", km)
+        eng.warmup()
+
+        def client(t):
+            try:
+                futs = [eng.submit("main", host[lo:lo + m])
+                        for lo, m in plans[t]]
+                results[t] = [f.result(timeout=QUEUE_TIMEOUT) for f in futs]
+            except Exception as e:        # noqa: BLE001 — fails the phase
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(QUEUE_THREADS)]
+        hk.reset_launch_counts()
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=QUEUE_TIMEOUT)
+        wall = time.perf_counter() - t0
+        alive = [th.name for th in threads if th.is_alive()]
+        check(not alive and not errors, f"serving_queue: {alive} {errors}")
+        stats = eng.stats()
+        launched = _counted("hopper_assign")
+        n_rows = sum(m for plan in plans for _, m in plan)
+        for t, plan in enumerate(plans):
+            for (lo, m), got in zip(plan, results[t]):
+                check(bool(np.array_equal(got, eng.call("main",
+                                                        host[lo:lo + m]))),
+                      "serving_queue: a result differs from call")
+        check(launched == stats["dispatches"],
+              f"serving_queue: {launched} launches, {stats['dispatches']} "
+              f"dispatches")
+        emit("serving_queue", threads=QUEUE_THREADS,
+             requests=QUEUE_THREADS * QUEUE_REQUESTS, rows=n_rows,
+             max_wait_ms=2.0, dispatches=stats["dispatches"],
+             queue=stats["queue"], batch_fill=stats["batch_fill"],
+             wall_seconds=wall, rows_per_s=n_rows / wall,
+             kernel2_launches=launched)
+        return {"hopper_assign": launched}
+    finally:
+        eng.close()
+
+
+def bucket_check(xm, c, bf16: bool, what: str) -> dict:
+    """Kernel 2 (2b with ``bf16``) on one bucket's rows against its plain
+    version on the same inputs: no label outside the margin band, and
+    ``mind2`` within ``ops/compare.py`` on the rows whose labels agree.
+    Raises on any disagreement."""
+    la, ma = hk.hopper_assign(xm, c, bf16=bf16)
+    lr, mr = hk.assign_reference(xm, c, bf16=bf16)
+    torch.cuda.synchronize()
+    n_diff, n_outside = label_band(xm, c, la, lr, bf16)
+    check(n_outside == 0, f"{what}: {n_outside} labels differ from the "
+                          f"plain version outside the margin band")
+    same = la == lr
+    check(close(ma[same], mr[same], cmp.MIND2_RTOL, cmp.mind2_atol(xm, c)),
+          f"{what}: mind2 disagrees with the plain version")
+    return {"label_diff": n_diff, "label_diff_in_band": n_diff - n_outside,
+            "mind2_err": max_err(ma[same], mr[same])}
+
+
+def phase_serving_kernel_shapes(x, c):
+    """Kernels 2 and 2b at the bucket shapes (rows 8 to 4096, k = 1024,
+    D = 128): each held against its plain version on the same inputs
+    (``bucket_check``), on a full bucket and on the padded bucket the
+    engine sends for a ragged request (real rows, then zero rows), the
+    10,000-row request's 12,288 rows too; then the median ms of the full
+    bucket beside the plain version, the bound (``bounds``) and the
+    library call (cdist + argmin; bf16: a bf16 matmul + argmin).  Returns
+    {kernel: {rows: record}}."""
+    out = {"hopper_assign": {}, "hopper_assign_bf16": {}}
+    k, d = c.shape
+    padded = [(m - m // 3, m) for m in SERVE_BUCKETS] + [
+        (SERVE_BIG, -(-SERVE_BIG // SERVE_BUCKETS[-1]) * SERVE_BUCKETS[-1])]
+    for name, bf16 in (("hopper_assign", False),
+                       ("hopper_assign_bf16", True)):
+        pads = {}
+        for real, rows in padded:
+            xp = torch.zeros((rows, d), dtype=x.dtype, device=x.device)
+            xp[:real] = x[:real]
+            pads[f"{real}_in_{rows}"] = bucket_check(
+                xp, c, bf16, f"serving_kernel_shapes: {name}, {real} rows "
+                             f"padded to {rows}")
+        emit("serving_kernel_shapes_padded", kernel=name, d=d, k=k,
+             cases=pads)
+        for m in SERVE_BUCKETS:
+            xm = x[:m].contiguous()
+            checked = bucket_check(xm, c, bf16, f"serving_kernel_shapes: "
+                                                f"{name}, {m} rows")
+            bound_ms, by, byt, ops, _ = bounds(m, d, k, False, bf16)
+            rec = {"ms": median_ms(lambda: hk.hopper_assign(xm, c,
+                                                            bf16=bf16),
+                                   runs=50, warmup=5),
+                   "plain_ms": median_ms(lambda: hk.assign_reference(
+                       xm, c, bf16=bf16), runs=50, warmup=5),
+                   "bound_ms": bound_ms, "bound_by": by,
+                   "library_ms": median_ms(
+                       (lambda: library_assign_bf16(xm, c)) if bf16
+                       else (lambda: library_assign(xm, c)),
+                       runs=50, warmup=5)}
+            out[name][str(m)] = rec
+            emit("serving_kernel_shapes", kernel=name, n=m, d=d, k=k,
+                 bytes=byt, operations=ops, **checked, **rec)
+    return out
+
+
 def median_ms(fn, runs=10, warmup=2) -> float:
     for _ in range(warmup):
         fn()
@@ -4607,6 +5108,17 @@ def main() -> None:
                                               stream_tmp)
     del x2
 
+    # The product quantizer, then the serving engine: each path's counters
+    # zeroed just before it and read just after it.
+    phase_pq(x_main, km)
+    serving_counts = {
+        "serving": phase_serving(x_main, km),
+        "serving_bf16": phase_serving_bf16(x_main, km, km_bf16),
+        "serving_packed": phase_serving_packed(x_main, km),
+        "serving_gmm": phase_serving_gmm(x_gmm, gm),
+        "serving_queue": phase_serving_queue(x_main, km)}
+    bucket_times = phase_serving_kernel_shapes(x_main, c_main)
+
     rows = phase_timing(x_main, c_main, errs, launches,
                         {"main": statistics.median(km.iter_times_),
                          "main_bf16": statistics.median(km_bf16.iter_times_)},
@@ -4662,6 +5174,13 @@ def main() -> None:
         row["ingest_large_k_launches"] = {
             path: c[row["name"]] for path, c in largek_counts.items()
             if c.get(row["name"], 0) > 0}
+        by_path = {path: c.get(row["name"], 0)
+                   for path, c in serving_counts.items()}
+        row["serving_launches"] = sum(by_path.values())
+        row["serving_launches_by_path"] = {
+            path: n for path, n in by_path.items() if n}
+        if row["name"] in bucket_times:
+            row["bucket_shapes"] = bucket_times[row["name"]]
 
     emit("total", seconds=time.perf_counter() - started)
     print(json.dumps({"kernels": rows}), flush=True)

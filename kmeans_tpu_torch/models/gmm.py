@@ -260,6 +260,8 @@ class GaussianMixture(AutoCheckpointMixin):
 
         self.estep_path_: Optional[str] = None
         self.loop_path_: Optional[str] = None
+        # The serving-quality reference restored from a checkpoint.
+        self._quality_profile: Optional[dict] = None
         self.weights_: Optional[np.ndarray] = None
         self.means_: Optional[np.ndarray] = None
         self.covariances_: Optional[np.ndarray] = None
@@ -1443,13 +1445,52 @@ class GaussianMixture(AutoCheckpointMixin):
                 del points, staged, labels, logr, lse
                 yield out
 
-    # ------------------------------------------------- not ported (raising)
+    # --------------------------------------------------------------- serving
 
-    def fitted_state(self):
-        raise _later("fitted_state", "...", "A.12 'Serving'")
+    def fitted_state(self) -> dict:
+        """Serving handle (the JAX package's dictionary): a mixture is not
+        stackable (per-component covariances have no packed form), so
+        packed routing dispatches it on its own."""
+        self._check_fitted()
+        return {
+            "family": "gmm",
+            "model_class": type(self).__name__,
+            "k": int(self.n_components),
+            "d": int(self.means_.shape[1]),
+            "dtype": np.dtype(self.dtype).str,
+            "stackable": False,
+            "normalize_inputs": False,
+            "ops": ("predict", "predict_proba", "score_samples"),
+        }
 
-    def quality_profile(self, X=None):
-        raise _later("quality_profile", "...", "A.13 'Observability'")
+    def quality_profile(self, X=None) -> Optional[dict]:
+        """Fit-time serving-quality reference profile: the mixing weights
+        as the assignment histogram and the per-row negative
+        log-likelihood (``-lower_bound_``) as the score reference; with
+        ``X``, both from one posterior pass over that data; else the
+        profile restored from a checkpoint."""
+        from kmeans_tpu_torch.obs import drift as obs_drift
+        if X is not None:
+            self._check_fitted()
+            labels = self.predict(X)
+            lse = self.score_samples(X)
+            return obs_drift.build_profile(
+                family="gmm", model_class=type(self).__name__,
+                k=self.n_components,
+                counts=np.bincount(np.asarray(labels),
+                                   minlength=self.n_components),
+                score_kind="neg_log_lik",
+                score_per_row=float(-np.mean(lse)),
+                n_rows=float(np.asarray(labels).size))
+        if self.weights_ is not None:
+            return obs_drift.build_profile(
+                family="gmm", model_class=type(self).__name__,
+                k=self.n_components, counts=self.weights_,
+                score_kind="neg_log_lik",
+                score_per_row=(float(-self.lower_bound_)
+                               if np.isfinite(self.lower_bound_)
+                               else None))
+        return self._quality_profile
 
     # -------------------------------------------------------------- predict
 
@@ -1457,21 +1498,28 @@ class GaussianMixture(AutoCheckpointMixin):
         if self.means_ is None:
             raise ValueError("Model must be fitted before prediction")
 
-    def _posterior(self, X, which: int):
-        """Output ``which`` of the posterior pass (0 labels, 1 log
-        responsibilities, 2 per-row log-likelihood) as a host array: every
-        row's under a mesh, the rank's own rows on a process-local
-        dataset."""
+    def _posterior(self, X, which, params=None):
+        """Output ``which`` of one posterior pass (0 labels, 1 log
+        responsibilities, 2 per-row log-likelihood; a tuple of indices
+        gives a tuple) as host arrays, the values in float64: every row's
+        under a mesh, the rank's own rows on a process-local dataset.
+        ``params``: the device tables of :meth:`_params_dev`, which a
+        caller may keep (the serving engine; None: made now)."""
         self._check_fitted()
         ds = self._dataset(X)
         predict_fn = make_gmm_predict_fn(chunk_size=self._chunk(ds),
                                          cov_type=self.covariance_type)
-        out = predict_fn(ds.points, *self._params_dev())[which]
-        if which:
-            out = out.to(torch.float64)
-        if isinstance(ds, ShardedDataset):
-            return ds.gather_rows(out)
-        return out.cpu().numpy()
+        out = predict_fn(ds.points, *(params if params is not None
+                                      else self._params_dev()))
+
+        def host(i):
+            o = out[i].to(torch.float64) if i else out[i]
+            if isinstance(ds, ShardedDataset):
+                return ds.gather_rows(o)
+            return o.cpu().numpy()
+
+        return tuple(host(i) for i in which) if isinstance(which, tuple) \
+            else host(which)
 
     def predict(self, X) -> np.ndarray:
         """Component labels, int32 (n,)."""
@@ -1602,6 +1650,7 @@ class GaussianMixture(AutoCheckpointMixin):
             "cov_jitter_retries_": int(self.cov_jitter_retries_),
         }
         state.update(self._ckpt_meta())
+        state["quality_profile"] = self.quality_profile()
         # Explicit init arrays are configuration: a loaded model that is
         # fitted again seeds as the original did.
         for name in ("weights_init", "means_init", "precisions_init"):
@@ -1663,6 +1712,7 @@ class GaussianMixture(AutoCheckpointMixin):
         """The fitted state of a checkpoint (either package's) onto this
         model, the raw device tables (``dev_*``) too: ``load``,
         ``fit(resume=<path>)`` and a rollback come here."""
+        self._quality_profile = state.get("quality_profile")
         if np.asarray(state["means_"]).size:
             self.weights_ = np.asarray(state["weights_"], np.float64)
             self.means_ = np.asarray(state["means_"], np.float64)

@@ -469,6 +469,9 @@ class KMeans(AutoCheckpointMixin):
         self.sse_history: List[float] = []
         self.iterations_run = 0
         self.cluster_sizes_: Optional[np.ndarray] = None
+        # The serving-quality reference restored from a checkpoint;
+        # quality_profile() prefers the fitted attributes when they exist.
+        self._quality_profile: Optional[dict] = None
         self.iter_times_: List[float] = []            # wall secs/iteration
         self.best_restart_: int = 0
         self.restart_inertias_: Optional[np.ndarray] = None
@@ -2034,11 +2037,89 @@ class KMeans(AutoCheckpointMixin):
             del points, weights, staged
         return -sse
 
-    def fitted_state(self):
-        raise _later("fitted_state", "...", "A.12 'Serving'")
+    def fitted_state(self) -> dict:
+        """Serving handle: what ``serving.engine`` needs to hold this model
+        resident — the family tag, table shape, dtype, whether same-shape
+        models may pack into one dispatch, whether requests are
+        row-normalized first (``SphericalKMeans``), and the served ops.
+        The JAX package's dictionary; raises before ``fit``."""
+        if self.centroids is None:
+            raise ValueError("Model must be fitted before serving")
+        return {
+            "family": "kmeans",
+            "model_class": type(self).__name__,
+            "k": int(self.k),
+            "d": int(np.asarray(self.centroids).shape[1]),
+            "dtype": np.dtype(self.dtype).str,
+            # A two-level model routes through its own coarse/member
+            # tables: it cannot ride the packed multi-model dispatch.
+            "stackable": self.assign != "two_level",
+            "normalize_inputs": False,
+            "assign": ("two_level" if self.assign == "two_level"
+                       else "dense"),
+            "ops": ("predict", "transform", "score_rows"),
+        }
 
-    def quality_profile(self, X=None):
-        raise _later("quality_profile", "...", "A.13 'Observability'")
+    def _profile_counts(self) -> Optional[np.ndarray]:
+        """Training assignment mass per cluster for the quality profile's
+        histogram: the fit's weighted cluster sizes (``MiniBatchKMeans``
+        takes its lifetime counts)."""
+        return self.cluster_sizes_
+
+    def _profile_rows(self) -> Optional[float]:
+        """Weighted row count behind ``inertia_``: the score-per-row
+        denominator and the profile's ``n_rows``."""
+        if self.cluster_sizes_ is None:
+            return None
+        total = float(np.asarray(self.cluster_sizes_, np.float64).sum())
+        return total if total > 0 else None
+
+    def _quality_rows(self, X) -> np.ndarray:
+        """Rows in the geometry ``quality_profile(X=...)`` scores distances
+        in (``SphericalKMeans`` normalizes them)."""
+        return np.asarray(_host_rows(X, np.float64), np.float64)
+
+    def quality_profile(self, X=None) -> Optional[dict]:
+        """Fit-time serving-quality reference profile (``obs.drift
+        .build_profile``, the JAX package's dictionary): the training
+        assignment histogram, the training score per row (inertia / row)
+        and the per-cluster SSE where the fit computed it
+        (``BisectingKMeans``' ``cluster_sse_``).
+
+        Sources, in order: an explicit ``X`` (one ``predict`` pass and
+        float64 host distances); the fitted attributes; the profile
+        restored from a checkpoint.  None when there is none."""
+        from kmeans_tpu_torch.obs import drift as obs_drift
+        if X is not None:
+            if self.centroids is None:
+                raise ValueError("Model must be fitted before building "
+                                 "a quality profile from data")
+            rows = self._quality_rows(X)
+            labels = np.asarray(self.predict(X))
+            cents = np.asarray(self.centroids, np.float64)
+            d2 = np.sum((rows - cents[labels]) ** 2, axis=1)
+            per_cluster = np.zeros(self.k, np.float64)
+            np.add.at(per_cluster, labels, d2)
+            return obs_drift.build_profile(
+                family="kmeans", model_class=type(self).__name__,
+                k=self.k,
+                counts=np.bincount(labels, minlength=self.k),
+                score_kind="sse", score_per_row=float(d2.mean()),
+                per_cluster_sse=per_cluster,
+                n_rows=float(labels.size))
+        counts = self._profile_counts()
+        if self.centroids is not None and counts is not None:
+            inertia = self.inertia_
+            rows = self._profile_rows()
+            return obs_drift.build_profile(
+                family="kmeans", model_class=type(self).__name__,
+                k=self.k, counts=counts, score_kind="sse",
+                score_per_row=(inertia / rows
+                               if inertia is not None and rows
+                               else None),
+                per_cluster_sse=getattr(self, "cluster_sse_", None),
+                n_rows=rows)
+        return self._quality_profile
 
     def score(self, X, y=None) -> float:
         """Negative SSE of X under the fitted centroids."""
@@ -2180,6 +2261,9 @@ class KMeans(AutoCheckpointMixin):
             "dtype": str(self.dtype),
         }
         state.update(self._ckpt_meta())
+        # The serving-quality reference rides the JSON meta block, so a
+        # loaded model carries its own reference window.
+        state["quality_profile"] = self.quality_profile()
         # The two-level coarse table is fitted state (trained once per fit,
         # then fixed): a model loaded without it would train another one
         # from its final table and route rows to other candidates.
@@ -2250,6 +2334,7 @@ class KMeans(AutoCheckpointMixin):
         self.centroids = cents.astype(self.dtype) if cents.size else None
         self.sse_history = [float(s) for s in state["sse_history"]]
         self.iterations_run = int(state["iterations_run"])
+        self._quality_profile = state.get("quality_profile")
         # The two-level route from the saved coarse table (the member lists
         # follow from it and the table); without one, predict trains one.
         coarse = state.get("two_level_coarse")

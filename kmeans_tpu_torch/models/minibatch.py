@@ -593,10 +593,20 @@ class MiniBatchKMeans(KMeans):
         raise _later("_learn_clone", "...", "A.12 'Serving'")
 
     def _profile_counts(self):
-        raise _later("_profile_counts", "...", "A.13 'Observability'")
+        """The quality profile's assignment mass: the lifetime per-center
+        counts (``_seen``), not the last batch's ``cluster_sizes_``."""
+        seen = getattr(self, "_seen", None)
+        if seen is not None and float(np.sum(seen)) > 0:
+            return np.asarray(seen, np.float64)
+        return self.cluster_sizes_
 
     def _profile_rows(self):
-        raise _later("_profile_rows", "...", "A.13 'Observability'")
+        """The score-per-row denominator: the dataset weight recorded at
+        fit time (``inertia_`` is the total-weight-scaled estimate), else
+        the base rule (``partial_fit`` leaves it None)."""
+        if self._total_w:
+            return float(self._total_w)
+        return super()._profile_rows()
 
     # ------------------------------------------------------------ checkpoint
 

@@ -25,7 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from kmeans_tpu_torch.models.kmeans import KMeans, _host_rows, _later
+from kmeans_tpu_torch.models.kmeans import KMeans, _host_rows
 from kmeans_tpu_torch.parallel import distributed as dist
 from kmeans_tpu_torch.parallel.sharding import Dataset
 
@@ -159,5 +159,17 @@ class SphericalKMeans(KMeans):
             self._normalized_blocks(make_blocks), with_weights=with_weights,
             prefetch=prefetch, stage_extra=stage_extra)
 
-    def _quality_rows(self, X):
-        raise _later("_quality_rows", "...", "A.13 'Observability'")
+    def _quality_rows(self, X) -> np.ndarray:
+        """Rows L2-normalized in float64 before distancing, so
+        ``quality_profile(X=...)`` scores the chordal distances the served
+        ``score_rows`` computes (the centroids are unit vectors)."""
+        return _normalize_rows(_host_rows(X, np.float64))
+
+    def fitted_state(self) -> dict:
+        """The base spec with ``normalize_inputs=True``: the engine
+        normalizes every request's rows as ``predict`` does, so a
+        spherical model still packs with plain K-Means models of the same
+        (k, D, dtype)."""
+        spec = super().fitted_state()
+        spec["normalize_inputs"] = True
+        return spec

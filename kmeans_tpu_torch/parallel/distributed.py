@@ -84,8 +84,9 @@ from kmeans_tpu_torch.ops import _build
 from kmeans_tpu_torch.ops.assign import (GUARDED_MODE, StepStats,
                                          _accum_dtype, assign_chunk,
                                          assign_labels, init_stats,
-                                         pairwise_sq_dists, reduce_chunks,
-                                         round_bf16, value_mode)
+                                         margin_chunk, pairwise_sq_dists,
+                                         reduce_chunks, round_bf16,
+                                         value_mode)
 from kmeans_tpu_torch.ops.hopper_kernels import (fused_assign_reduce,
                                                  hopper_assign)
 from kmeans_tpu_torch.parallel.mesh import (AXES, DATA_AXIS, MODEL_AXIS,
@@ -974,7 +975,7 @@ class _DeviceLoop(_Replay):
                  need_sse: bool, x2w: Optional[torch.Tensor],
                  x2w_finite: Optional[torch.Tensor], audit: bool = False,
                  project: Optional[str] = None):
-        dev, d = points.device, points.shape[1]
+        dev, d = points.device, points.shape[-1]
         acc = _accum_dtype(points.dtype)
         self.points, self.weights, self.step = points, weights, step
         # Weak: the loop lives in its dataset's memo, and a strong bound
@@ -1278,7 +1279,9 @@ class _MultiLoop(_DeviceLoop):
     ``stats(points, weights, cents, x2w)`` gives the members' statistics
     (a :class:`StepStats` with the member axis) and their flagged rows
     (R,).  ``real`` (R, k) marks each member's real centroid rows: the
-    rows past a member's own k hold sentinels, which take no refill."""
+    rows past a member's own k hold sentinels, which take no refill.
+    ``points`` is (n, D), or (R, n, D) with each member's own rows
+    (``member_points``)."""
 
     def __init__(self, points, weights, stats, gather, *, real, max_iter,
                  tolerance, empty_policy, need_sse, x2w, x2w_finite,
@@ -1289,7 +1292,7 @@ class _MultiLoop(_DeviceLoop):
                          empty_policy=empty_policy, need_sse=need_sse,
                          x2w=x2w, x2w_finite=x2w_finite, audit=audit,
                          project=project)
-        dev, d = points.device, points.shape[1]
+        dev, d = points.device, points.shape[-1]
         acc = _accum_dtype(points.dtype)
         self.real = real
         self.cents = torch.zeros((members, k, d), dtype=acc, device=dev)
@@ -1380,7 +1383,8 @@ def make_multi_fit_fn(mesh=None, *, chunk_size: int, mode: str = "matmul",
                       history_sse: bool = True, k_reals=None,
                       return_all: bool = False,
                       pipeline: int = 0,
-                      project: Optional[str] = None) -> Callable:
+                      project: Optional[str] = None,
+                      member_points: bool = False) -> Callable:
     """R = ``n_init`` fits in one device loop: ``fit(ds, centroids0 (R,
     k_real, D), seeds) -> MultiFitResult``.
 
@@ -1408,12 +1412,32 @@ def make_multi_fit_fn(mesh=None, *, chunk_size: int, mode: str = "matmul",
     card: PERF.md.)  ``return_all`` returns every member's state;
     ``flagged`` counts the guarded rung's flagged rows of every member
     while it moves.  ``project`` is the family's centroid hook, on each
-    member's real rows (:func:`project_centroids`)."""
+    member's real rows (:func:`project_centroids`).
+
+    ``member_points=True`` gives each member rows of its own (the product
+    quantizer's subspaces): ``fit(ds, centroids0, seeds, points)`` takes
+    them as a separate (R, n, D) tensor, and member r trains against
+    ``points[r]`` with ``ds``'s weights (``ds`` is a dataset of one member,
+    the rank's block under a mesh), its pass the single fit's step over
+    those rows.  As in the JAX package it takes the matmul-class modes and
+    ``empty_policy='keep'`` only."""
     if empty_policy not in ("keep", "farthest", "resample"):
         raise ValueError(
             f"on-device loop supports empty_cluster 'keep', 'farthest' or "
             f"'resample', got {empty_policy!r}")
     _check_guarded(mode, mesh_shape(mesh)[1], empty_policy)
+    if member_points:
+        if mode in KERNEL_MODES or mode == GUARDED_MODE:
+            raise ValueError(
+                f"member_points supports the matmul-class modes only, "
+                f"got {mode!r} (the Pallas prep hoists and the guarded "
+                "rung are shared-points programs)")
+        if empty_policy != "keep":
+            raise ValueError(
+                f"member_points requires empty_cluster='keep', got "
+                f"{empty_policy!r}: the Gumbel refill engine draws rows "
+                "from the shared dataset by global index, which has no "
+                "per-member-rows form")
     ks = (np.full((n_init,), k_real, np.int64) if k_reals is None
           else np.asarray(k_reals, np.int64))
     if ks.shape != (n_init,):
@@ -1434,7 +1458,8 @@ def make_multi_fit_fn(mesh=None, *, chunk_size: int, mode: str = "matmul",
         def member_stats(points, weights, cents, x2w=None):
             parts, flags = [], []
             for r, k_m in enumerate(ks.tolist()):
-                st, flagged = step(points, weights, cents[r, :k_m], x2w)
+                st, flagged = step(points[r] if member_points else points,
+                                   weights, cents[r, :k_m], x2w)
                 if k_m < k_real:
                     pad = k_real - k_m
                     st = st._replace(
@@ -1454,19 +1479,29 @@ def make_multi_fit_fn(mesh=None, *, chunk_size: int, mode: str = "matmul",
 
     loop_stats, final_stats = stats_fn(bool(history_sse)), stats_fn(True)
 
-    def _make_loop(ds: Dataset) -> _MultiLoop:
+    def _make_loop(ds: Dataset, points: torch.Tensor) -> _MultiLoop:
         x2w, x2w_finite = _x2w_of(ds, mode, mesh)
         real = torch.arange(k_real, device=ds.device)[None, :] < \
             torch.from_numpy(ks).to(ds.device)[:, None]
-        return _MultiLoop(ds.points, ds.weights, loop_stats,
+        return _MultiLoop(points, ds.weights, loop_stats,
                           ds.gather_positive, real=real, max_iter=max_iter,
                           tolerance=tolerance, empty_policy=empty_policy,
                           need_sse=bool(history_sse), x2w=x2w,
                           x2w_finite=x2w_finite, audit=guarded,
                           project=project)
 
-    def fit(ds: Dataset, centroids0: torch.Tensor, seeds) -> MultiFitResult:
+    def fit(ds: Dataset, centroids0: torch.Tensor, seeds,
+            points: Optional[torch.Tensor] = None) -> MultiFitResult:
         _check_backend(mesh, ds)
+        if member_points != (points is not None):
+            raise ValueError("points (the members' own rows) go with "
+                             "member_points=True, and only with it")
+        if member_points and (
+                points.dim() != 3 or points.shape[0] != n_init
+                or points.shape[1] != ds.points.shape[0]):
+            raise ValueError(
+                f"member_points needs ({n_init}, {ds.points.shape[0]}, D) "
+                f"points, got {tuple(points.shape)}")
         if tuple(centroids0.shape[:2]) != (n_init, k_real) or \
                 len(seeds) != n_init:
             raise ValueError(f"centroids0 must be ({n_init}, {k_real}, D) "
@@ -1476,7 +1511,10 @@ def make_multi_fit_fn(mesh=None, *, chunk_size: int, mode: str = "matmul",
         key = ("multi_loop", mode, chunk_size, k_real, tuple(ks.tolist()),
                max_iter, float(tolerance), empty_policy, bool(history_sse),
                pipeline, project)
-        loop = ds.memo(key, lambda: _make_loop(ds))
+        # The members' rows are the caller's, not the dataset's: their
+        # loop is built for this call, not kept in the dataset's memo.
+        loop = (_make_loop(ds, points) if member_points
+                else ds.memo(key, lambda: _make_loop(ds, ds.points)))
         table = None
         if empty_policy != "keep":
             table = torch.stack([
@@ -1485,7 +1523,7 @@ def make_multi_fit_fn(mesh=None, *, chunk_size: int, mode: str = "matmul",
         loop._reset(centroids0, table)
         launched = loop._drive(IN_FLIGHT)
         cents = loop.cents.clone()
-        final, _ = final_stats(ds.points, ds.weights, cents, loop.x2w)
+        final, _ = final_stats(loop.points, ds.weights, cents, loop.x2w)
         inertias = _host_copy(final.sse)
         finite = np.array(loop.ok.cpu().numpy())
         best = int(np.argmin(np.where(np.isfinite(inertias) & finite,
@@ -1542,6 +1580,80 @@ def make_multi_predict_fn(mesh=None, *, chunk_size: int,
         return labels
 
     return predict
+
+
+def make_assign_margin_fn(mesh=None, *, chunk_size: int,
+                          mode: str = "matmul_bf16") -> Callable:
+    """The serving bf16 fast path's guarded assignment: ``(points,
+    centroids) -> (labels int32, margin, scale)``, one of each per row,
+    chunk by chunk (counterpart of the JAX package's
+    ``make_assign_margin_fn``):
+
+    * ``labels``: argmin of the ``mode`` distances (bf16 cross term);
+    * ``margin``: second-best minus best distance;
+    * ``scale``: ``||x||^2 + max_k ||c_k||^2``, what the bf16 error is
+      relative to.
+
+    The engine keeps a label only where ``margin > BF16_GUARD_RTOL *
+    scale`` and relabels the other rows by the float32 predict, which
+    makes the served labels those of the float32 path by construction.
+    The per-chunk triple is ``ops.assign.margin_chunk``, the guarded
+    training rung's.  One device or a data-parallel mesh (each rank its
+    rows)."""
+    model_shards = mesh_shape(mesh)[1]
+    if model_shards != 1:
+        raise ValueError(
+            "make_assign_margin_fn requires a data-parallel mesh "
+            f"(model_shards == 1, got {model_shards})")
+    if mode not in TORCH_MODES or mode == GUARDED_MODE:
+        raise ValueError(f"unknown distance mode: {mode!r}")
+
+    def assign(points, centroids):
+        acc = _accum_dtype(points.dtype)
+        ca = centroids.to(acc)
+        c2max = (ca * ca).sum(dim=1).max()
+        parts = [margin_chunk(points[lo:lo + chunk_size], pairwise_sq_dists(
+            points[lo:lo + chunk_size], centroids, mode=mode), c2max)
+            for lo in range(0, points.shape[0], chunk_size)]
+        return tuple(torch.cat(col) for col in zip(*parts))
+
+    return assign
+
+
+def make_score_rows_fn(mesh=None, *, chunk_size: int,
+                       mode: str = "matmul") -> Callable:
+    """Per-row squared distance to the nearest centroid: ``(points,
+    centroids) -> mind2`` (n,), the rank's rows under a mesh (counterpart
+    of the JAX package's ``make_score_rows_fn``, the serving engine's
+    scoring primitive: a request's K-Means score is minus the sum of its
+    rows' slice).  The kernel modes return the assignment kernel's
+    ``mind2`` (kernel 2, or 2b for 'kernel_bf16', float32); the torch
+    modes the minimum of :func:`ops.assign.pairwise_sq_dists` per chunk.
+    The guarded rung reports its float32 class ('matmul',
+    ``ops.assign.value_mode``).  Under centroid sharding each rank scores
+    its block and a MIN ``all_reduce`` over the model axis gives the
+    nearest."""
+    mode = value_mode(mode)
+    if mode not in KERNEL_MODES and mode not in TORCH_MODES:
+        raise ValueError(f"unknown distance mode: {mode!r}")
+    model_shards = mesh_shape(mesh)[1]
+
+    def score_rows(points, centroids) -> torch.Tensor:
+        if model_shards > 1:
+            block, _, _ = _model_block(centroids, mesh)
+            _, mind2 = _assign_block(points, block, mode=mode,
+                                     chunk_size=chunk_size)
+            return all_reduce(mind2.clone(), mesh, (MODEL_AXIS,), "min")
+        if mode in KERNEL_MODES:
+            return hopper_assign(points.to(torch.float32),
+                                 centroids.to(torch.float32),
+                                 bf16=mode == "kernel_bf16")[1]
+        return torch.cat([
+            pairwise_sq_dists(points[lo:lo + chunk_size], centroids,
+                              mode=mode).min(dim=1).values
+            for lo in range(0, points.shape[0], chunk_size)])
+
+    return score_rows
 
 
 # ------------------------------------------------------------- mini-batch

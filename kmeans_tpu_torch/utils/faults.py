@@ -50,9 +50,8 @@ test.  This module is the one place those injections live:
 * ``inject_host_kill(process_index, after_iteration=)`` — the fleet
   variant of ``inject_kill_after_iteration``: same
   checkpoint-boundary registry, but the armed hook fires ONLY on the
-  process whose rank in the ``torch.distributed`` world
-  (0 without a process group) matches
-  ``process_index`` — so every worker of an autopilot fleet can arm the
+  process whose ``obs.identity`` index (the ``torch.distributed``
+  rank, 0 without a process group) matches ``process_index`` — so every worker of an autopilot fleet can arm the
   same shared fault spec and exactly one host dies.
 * ``inject_launch_failures(n)`` — arm the launch-attempt hook: the
   orchestrator's launcher calls :func:`on_launch` immediately before
@@ -86,6 +85,8 @@ import threading
 from typing import Callable, Iterable, List, Optional
 
 import numpy as np
+
+from kmeans_tpu_torch.obs.identity import identity
 
 __all__ = [
     "TransientIOError", "SimulatedPreemption", "SimulatedOOM",
@@ -221,24 +222,14 @@ def inject_checkpoint_delay(seconds: float, *, after_iteration: int = 0):
                 _CHECKPOINT_HOOKS.remove(hook)
 
 
-def _rank() -> int:
-    """This process's rank in the ``torch.distributed`` world, 0 without a
-    process group: the port's stand-in for the JAX package's fleet
-    identity (``obs.identity``, not ported yet: ROADMAP A.13)."""
-    from kmeans_tpu_torch.parallel.mesh import group_up
-    if not group_up():
-        return 0
-    import torch.distributed as tdist
-    return tdist.get_rank()
-
-
 @contextlib.contextmanager
 def inject_host_kill(process_index: int, *, after_iteration: int = 0):
     """Arm a one-shot, HOST-TARGETED kill: the first
     checkpoint boundary whose completed-iteration count is
     >= ``after_iteration`` raises :class:`SimulatedPreemption` — but
-    only on the process whose rank in the ``torch.distributed`` world
-    (0 without a process group) equals ``process_index``.  Every worker
+    only on the process whose ``obs.identity`` index (its environment
+    override, else the ``torch.distributed`` rank, 0 without a process
+    group) equals ``process_index``.  Every worker
     of a fleet can therefore arm the SAME shared fault spec and exactly
     one host dies, mid-segment, with
     its last rotating checkpoint durably on disk (the hook registry
@@ -248,7 +239,7 @@ def inject_host_kill(process_index: int, *, after_iteration: int = 0):
 
     def hook(iteration: int, path) -> None:
         if record["fired_at"] is None and iteration >= after_iteration \
-                and _rank() == process_index:
+                and identity()["process_index"] == process_index:
             record["fired_at"] = iteration
             raise SimulatedPreemption(
                 f"injected host kill on process {process_index} after "

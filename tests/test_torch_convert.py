@@ -320,8 +320,19 @@ def test_gmm_state_dispatch_and_dropped_arguments():
         np.testing.assert_array_equal(back[name], state[name])
     assert back["dev_prev_ll"] == 0.0 and back["dev_cov_type"] == "diag"
     _same_gmm(again, jm, X)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, A.11"):
-        convert.from_jax_state({"model_class": "ProductQuantizer"},
+    # ProductQuantizer is ported (ROADMAP A.11): a fitted JAX quantizer's
+    # attributes carry into the port's class, which encodes as it does.
+    rng = np.random.default_rng(0)
+    rows = rng.normal(size=(256, 8))
+    jpq = kmeans_tpu.ProductQuantizer(m=4, k=8, seed=3, max_iter=5,
+                                      dtype=np.float64).fit(rows)
+    ppq = convert.from_jax_state(convert.pq_state(jpq), device="cpu")
+    assert isinstance(ppq, kmeans_tpu_torch.ProductQuantizer)
+    np.testing.assert_array_equal(ppq.codebooks_, jpq.codebooks_)
+    np.testing.assert_array_equal(ppq.encode(rows), jpq.encode(rows))
+    assert convert.to_jax_state(ppq)["model_class"] == "ProductQuantizer"
+    with pytest.raises(ValueError, match="unknown model_class"):
+        convert.from_jax_state({"model_class": "NoSuchModel"},
                                device="cpu")
 
 

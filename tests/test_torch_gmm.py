@@ -319,7 +319,10 @@ def test_arguments_not_ported_yet_raise(kw):
                                   "checkpoint", "resume_path"])
 def test_entry_points_not_ported_yet_raise(call, tmp_path):
     """Each raises naming its ROADMAP item; ``sweep``, ported since, runs
-    a two-value sweep and returns its ``SweepResult``; ``checkpoint`` and
+    a two-value sweep and returns its ``SweepResult``; ``fitted_state``
+    and ``quality_profile`` (ROADMAP A.12, A.13), ported since, refuse or
+    return None before a fit and after one equal the JAX package's spec
+    and profile (float64, the same start); ``checkpoint`` and
     ``resume_path`` (ROADMAP A.9) write a rotating checkpoint every EM
     iteration, and resume from a path to the bits of the uninterrupted
     fit."""
@@ -387,6 +390,30 @@ def test_entry_points_not_ported_yet_raise(call, tmp_path):
         assert res.k_range == (2, 3) and res.selected_k in (2, 3)
         assert res.scores.shape == (2,) and np.all(np.isfinite(res.scores))
         assert res.best_model.n_components == res.selected_k
+        return
+    if call in ("fitted_state", "quality_profile"):
+        X, _ = _data(n=200, centers=3, d=3, seed=6, dtype=np.float64)
+        kw = dict(n_components=3, max_iter=4, tol=0.0, seed=1,
+                  means_init=X[:3].copy(), dtype=np.float64)
+        jm = kmeans_tpu.GaussianMixture(**kw).fit(X)
+        if call == "fitted_state":
+            with pytest.raises(ValueError, match="fitted"):
+                gm.fitted_state()
+            pm = kmeans_tpu_torch.GaussianMixture(device="cpu",
+                                                  **kw).fit(X)
+            assert pm.fitted_state() == jm.fitted_state()
+            return
+        assert gm.quality_profile() is None
+        pm = kmeans_tpu_torch.GaussianMixture(device="cpu", **kw).fit(X)
+        for got, want in ((pm.quality_profile(), jm.quality_profile()),
+                          (pm.quality_profile(X), jm.quality_profile(X))):
+            assert got.keys() == want.keys()
+            for key, value in want.items():
+                if isinstance(value, (float, list)):
+                    np.testing.assert_allclose(got[key], value,
+                                               rtol=1e-12, atol=1e-10)
+                else:
+                    assert got[key] == value, key
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if call == "checkpoint":

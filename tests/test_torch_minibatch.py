@@ -410,7 +410,7 @@ def test_dataset_without_a_host_copy(tmp_path):
         host.fit(ds2)
 
 
-def test_refusals_name_their_reasons(tmp_path):
+def test_refusals_name_their_reasons(tmp_path, mesh1):
     X = _blobs(n=300)
     with pytest.raises(ValueError, match="matmul_bf16_guarded"):
         _port(k=3, distance_mode="matmul_bf16_guarded",
@@ -442,10 +442,19 @@ def test_refusals_name_their_reasons(tmp_path):
     assert str(got.value) == str(want.value)
     with pytest.raises(NotImplementedError, match="A.12"):
         _port(k=3)._learn_clone()
-    with pytest.raises(NotImplementedError, match="A.13"):
-        _port(k=3)._profile_counts()
-    with pytest.raises(NotImplementedError, match="A.13"):
-        _port(k=3)._profile_rows()
+    # The profile hooks are ported (ROADMAP A.13): the JAX package's values
+    # before a fit and after one (lifetime counts, the fit's total weight).
+    jx = kmeans_tpu.MiniBatchKMeans(k=3, verbose=False)
+    assert _port(k=3)._profile_counts() is jx._profile_counts() is None
+    assert _port(k=3)._profile_rows() is jx._profile_rows() is None
+    hkw = dict(k=3, seed=4, max_iter=5, batch_size=64, init="forgy",
+               sampling="host", dtype=np.float64, distance_mode="matmul",
+               verbose=False)
+    Xd = X.astype(np.float64)
+    pm = _port(**hkw).fit(Xd)
+    jm = kmeans_tpu.MiniBatchKMeans(mesh=mesh1, **hkw).fit(Xd)
+    np.testing.assert_array_equal(pm._profile_counts(), jm._profile_counts())
+    assert pm._profile_rows() == jm._profile_rows() == 300.0
     with pytest.raises(NotImplementedError, match="sweep"):
         _port(k=3).sweep(X, k_range=[2, 3])
 

@@ -34,8 +34,12 @@ MODULES = ["kmeans_tpu_torch", "kmeans_tpu_torch.convert",
            "kmeans_tpu_torch.models.gmm",
            "kmeans_tpu_torch.models.init", "kmeans_tpu_torch.models.kmeans",
            "kmeans_tpu_torch.models.minibatch",
+           "kmeans_tpu_torch.models.pq",
            "kmeans_tpu_torch.models.spherical",
-           "kmeans_tpu_torch.obs.memory",
+           "kmeans_tpu_torch.obs", "kmeans_tpu_torch.obs.drift",
+           "kmeans_tpu_torch.obs.identity", "kmeans_tpu_torch.obs.memory",
+           "kmeans_tpu_torch.obs.metrics_registry",
+           "kmeans_tpu_torch.obs.trace",
            "kmeans_tpu_torch.ops._build", "kmeans_tpu_torch.ops.assign",
            "kmeans_tpu_torch.ops.compare",
            "kmeans_tpu_torch.ops.estep_kernels",
@@ -45,11 +49,15 @@ MODULES = ["kmeans_tpu_torch", "kmeans_tpu_torch.convert",
            "kmeans_tpu_torch.parallel.mesh",
            "kmeans_tpu_torch.parallel.multihost",
            "kmeans_tpu_torch.parallel.sharding",
+           "kmeans_tpu_torch.serving", "kmeans_tpu_torch.serving.batching",
+           "kmeans_tpu_torch.serving.engine",
+           "kmeans_tpu_torch.serving.registry",
            "kmeans_tpu_torch.suite", "kmeans_tpu_torch.sweep",
            "kmeans_tpu_torch.utils.checkpoint",
            "kmeans_tpu_torch.utils.faults",
            "kmeans_tpu_torch.utils.logging",
            "kmeans_tpu_torch.utils.plotting",
+           "kmeans_tpu_torch.utils.profiling",
            "kmeans_tpu_torch.utils.validation"]
 
 
@@ -102,7 +110,7 @@ def test_every_module_is_listed():
 def test_exports():
     assert kmeans_tpu_torch.__all__ == ["GaussianMixture", "KMeans",
                                         "MiniBatchKMeans", "BisectingKMeans",
-                                        "SphericalKMeans",
+                                        "SphericalKMeans", "ProductQuantizer",
                                         "DispatchLatencyHint",
                                         "NumericalDivergenceError",
                                         "ShardedDataset", "SweepResult",
@@ -116,7 +124,9 @@ def test_exports():
     assert kmeans_tpu_torch.SweepResult.__module__ == "kmeans_tpu_torch.sweep"
     assert issubclass(kmeans_tpu_torch.NumericalDivergenceError, ValueError)
     assert issubclass(kmeans_tpu_torch.DispatchLatencyHint, UserWarning)
-    assert "ProductQuantizer" not in kmeans_tpu_torch.__all__
+    assert "ProductQuantizer" in kmeans_tpu_torch.__all__
+    assert kmeans_tpu_torch.ProductQuantizer.__module__ == \
+        "kmeans_tpu_torch.models.pq"
     assert isinstance(kmeans_tpu_torch.__version__, str)
     assert kmeans_tpu_torch.KMeans.__module__ == \
         "kmeans_tpu_torch.models.kmeans"
@@ -127,6 +137,27 @@ def test_exports():
         assert cls.__module__ == ("kmeans_tpu_torch.models."
                                   + name.removesuffix("KMeans").lower())
         assert issubclass(cls, kmeans_tpu_torch.KMeans)
+
+
+def test_serving_exports_what_is_ported():
+    """``kmeans_tpu_torch.serving`` exports the engine, queue and registry;
+    the JAX package's fleet and serve-and-learn names are absent (ROADMAP
+    A.12)."""
+    from kmeans_tpu_torch import obs, serving
+    assert serving.__all__ == ["ServingEngine", "ResidentModel",
+                               "MicroBatchQueue", "ServingFuture",
+                               "ServingClosedError", "ModelRegistry",
+                               "load_fitted"]
+    for name in serving.__all__:
+        assert getattr(serving, name).__module__.startswith(
+            "kmeans_tpu_torch.serving.")
+    for name in ("ServingFleet", "FleetFuture", "FleetOverloadError",
+                 "ReplicaDeadError", "ModelLearner", "UpdateRolledBack",
+                 "publish_tables"):
+        assert not hasattr(serving, name), name
+    assert obs.drift.__name__ == "kmeans_tpu_torch.obs.drift"
+    for name in ("heartbeat", "cost", "fleet", "report"):
+        assert not hasattr(obs, name), name
 
 
 def test_default_device_is_the_card_and_raises_without_one(tmp_path):
@@ -254,14 +285,50 @@ def test_a_loaded_library_is_found_without_hashing_the_sources(monkeypatch):
     assert _build.load_variant("assign_bf16", {"KM_TILE_K": 64}) is fake
 
 
+#: Constructor arguments under which each family fits the same way in both
+#: packages (float64 'matmul', host loops, host draws).
+_SAME_FIT = {"KMeans": dict(init="forgy", host_loop=True),
+             "MiniBatchKMeans": dict(init="forgy", sampling="host",
+                                     batch_size=64),
+             "BisectingKMeans": dict(host_loop=True),
+             "SphericalKMeans": dict(init="forgy", host_loop=True)}
+
+
+def _same_profile(got, want):
+    """Two quality profiles: the same keys, the same strings and ints, the
+    floats (and lists of them) to the float64 parity class."""
+    assert got.keys() == want.keys()
+    for key, value in want.items():
+        if isinstance(value, (float, list)):
+            np.testing.assert_allclose(got[key], value, rtol=1e-12,
+                                       atol=1e-10, err_msg=key)
+        else:
+            assert got[key] == value, key
+
+
 @pytest.mark.parametrize("cls", ["KMeans", "MiniBatchKMeans",
                                  "BisectingKMeans", "SphericalKMeans"])
-def test_fitted_state_and_quality_profile_name_their_items(cls):
-    """ROADMAP C.14: every K-Means family has the JAX package's
-    ``fitted_state`` (A.12) and ``quality_profile`` (A.13), each raising
-    naming its item until that item is ported."""
+def test_fitted_state_and_quality_profile_name_their_items(cls, mesh1):
+    """ROADMAP C.14, then A.12 and A.13: every K-Means family has the JAX
+    package's ``fitted_state`` and ``quality_profile``.  Before a fit the
+    spec refuses and the profile is None in both packages; fitted on the
+    same rows from the same start, the spec equals the JAX package's dict
+    for dict and the profiles (from the fit, and from explicit rows) agree
+    to the float64 parity class."""
+    import kmeans_tpu
     km = getattr(kmeans_tpu_torch, cls)(k=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.12"):
+    with pytest.raises(ValueError, match="fitted before serving"):
         km.fitted_state()
-    with pytest.raises(NotImplementedError, match="A.13"):
-        km.quality_profile()
+    assert km.quality_profile() is None
+    rng = np.random.default_rng(4)
+    X = rng.normal(size=(300, 3)) + 6.0 * rng.integers(0, 3, size=(300, 1))
+    if cls == "SphericalKMeans":
+        X += 1.0
+    kw = dict(k=3, seed=2, max_iter=10, dtype=np.float64,
+              distance_mode="matmul", compute_sse=True, verbose=False,
+              **_SAME_FIT[cls])
+    jm = getattr(kmeans_tpu, cls)(mesh=mesh1, **kw).fit(X)
+    pm = getattr(kmeans_tpu_torch, cls)(device="cpu", **kw).fit(X)
+    assert pm.fitted_state() == jm.fitted_state()
+    _same_profile(pm.quality_profile(), jm.quality_profile())
+    _same_profile(pm.quality_profile(X), jm.quality_profile(X))

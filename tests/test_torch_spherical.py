@@ -268,10 +268,18 @@ def test_unported_surfaces_name_their_items():
     # fit_stream is ported (ROADMAP A.10): an empty stream is refused.
     with pytest.raises(ValueError, match="FRESH iterable"):
         km.fit_stream(lambda: iter([]))
-    with pytest.raises(NotImplementedError, match="A.12"):
+    # fitted_state (ROADMAP A.12) and _quality_rows (A.13) are ported: the
+    # spec refuses before a fit, and the quality rows are the JAX package's
+    # float64 normalization (a zero row stays zero).
+    with pytest.raises(ValueError, match="fitted before serving"):
         km.fitted_state()
-    with pytest.raises(NotImplementedError, match="A.13"):
-        km._quality_rows(np.zeros((2, 2)))
+    rows = np.array([[3.0, 4.0], [0.0, 0.0], [1e-3, -2e-3]])
+    want = kmeans_tpu.SphericalKMeans(k=2, verbose=False)._quality_rows(rows)
+    np.testing.assert_array_equal(km._quality_rows(rows), want)
+    X, _ = _cones(seed=8)
+    km.fit(X)
+    spec = km.fitted_state()
+    assert spec["normalize_inputs"] is True and spec["family"] == "kmeans"
 
 
 @pytest.mark.parametrize("direction", ["port_to_jax", "jax_to_port"])
