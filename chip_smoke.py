@@ -103,6 +103,23 @@ the bucket shapes beside their bounds and library calls
 (``serving_kernel_shapes``).  Their launches go into the kernel rows'
 ``serving_launches``.
 
+The serving fleet, serve-and-learn and heartbeats: ``ServingFleet(3)``
+serving the main model (a replica killed with queued requests, then 2000
+direct calls, 400 queued requests from four threads, a packed
+``predict_multi``, ``score``: labels bit-equal to ``predict``, kernel 2
+once per dispatch, routes equal to the requests admitted; an explicit shed
+under ``max_inflight=1``; ``add_replica``; p50 / p99 beside one engine),
+and a bf16 fleet (the guarded route and kernel 2b) (``fleet``,
+``fleet_bf16``); a ``MiniBatchKMeans`` learning in place from drifted
+traffic (the drift monitor fires the update, kernel 1 once per update
+batch, the quiesced model bit-equal to its offline replay, injected
+failure and regression, the p99 excursion against the committed bound,
+two fleet replicas sharing the model) (``serve_learn``); and the main
+``KMeans`` fitted under ``obs.heartbeat`` by both loops with checkpoints,
+bit-equal to the fits without, then the straggler report over the fleet's
+heartbeats (``heartbeat``).  Their launches go into the kernel rows'
+``fleet_learn_launches``.
+
 Every phase prints one JSON line as it ends.  A phase that fails raises, so
 the run ends with a non-zero code and without the result line.  The last line
 is ``{"ok": true, "device": {...}}``; the line before it is the card's name
@@ -157,7 +174,8 @@ from kmeans_tpu_torch.parallel.gmm_step import make_gmm_step_fn  # noqa: E402,E5
 from kmeans_tpu_torch.parallel.sharding import (EM_MAX_CHUNK,  # noqa: E402
                                                 weighted_mean)
 from kmeans_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
-from kmeans_tpu_torch.serving import ServingEngine  # noqa: E402
+from kmeans_tpu_torch.serving import (FleetOverloadError,  # noqa: E402
+                                      ServingEngine, ServingFleet)
 from kmeans_tpu_torch.utils import faults  # noqa: E402
 
 DEV = torch.device("cuda", 0)
@@ -4004,6 +4022,606 @@ def phase_serving_kernel_shapes(x, c):
     return out
 
 
+# --------------------------------------- fleet, serve-and-learn, heartbeats
+
+#: The serving fleet at the main shape: replicas, direct calls cycling
+#: through the request sizes, queued requests (threads x requests), the
+#: requests queued when a replica is killed, calls per latency figure,
+#: the replicas' heartbeat interval (s).
+FLEET = dict(replicas=3, calls=2000, sizes=(1, 8, 64, 512, 4096),
+             queue_threads=4, queue_requests=100, kill_requests=48,
+             latency_calls=200, heartbeat_s=0.1)
+#: Serve-and-learn: rows per request (one drift window, one update
+#: batch), the fixed offset of the drifted traffic, the requests before
+#: the drift monitor must have fired, the probe rows of the label checks,
+#: and the latency waves (the reference's ``bench_learn``: reps of a quiet
+#: wave and an update wave; ``wave_calls`` 200, where the reference takes
+#: 32, so that the p99 is the second slowest call and not the slowest; 9
+#: reps, where it takes 5: single reps ranged from 1.5 to 3.6).
+LEARN = dict(rows=512, shift=1.0, max_feed=64, probe=4096, reps=9,
+             wave_calls=200)
+
+
+def _joined(learner) -> None:
+    """Wait for a learner's background update, if one runs."""
+    t = learner._thread
+    if t is not None:
+        t.join(timeout=QUEUE_TIMEOUT)
+        check(not t.is_alive(), "serve_learn: an update did not end")
+
+
+def _applied_batches(*learners) -> int:
+    return sum(len(b) for ln in learners for b in ln.applied_batches)
+
+
+def _same_model(a, b) -> bool:
+    return (np.array_equal(a.centroids, b.centroids)
+            and np.array_equal(a._centroids_f64, b._centroids_f64)
+            and np.array_equal(a._seen, b._seen)
+            and a.iterations_run == b.iterations_run)
+
+
+def phase_fleet(x, km, km_bf16, fleet_dir: Path):
+    """The main float32 model (k = 1024, kernel 2) behind
+    ``ServingFleet(3, device='cuda')`` with its sinks in ``fleet_dir``,
+    beside a single engine: first one replica is killed with 48 queued
+    requests (zero failed, a re-dispatch at least); then FLEET["calls"]
+    direct calls of sizes 1 to 4096 rows, 400 queued requests from four
+    threads, a packed ``predict_multi`` of four same-shape models and
+    ``score``; every label bit-equal to ``km.predict`` (the score to the
+    single engine's), kernel 2 launched once per dispatch, ``routes``
+    equal to the requests admitted.  Then a ``max_inflight=1`` burst sheds
+    explicitly, ``add_replica(prewarm=True)`` is timed, p50 / p99 per call
+    at 64 and 4096 rows through the fleet and a single engine (both with
+    quality monitoring, 'auto' on the card); then a bf16 fleet serving the
+    main model with ``quantize='bf16'`` (the guarded route: labels equal
+    to a single bf16 engine's and to ``predict``, kernel 2 once per
+    dispatch whose guard flagged rows) and the main bf16 model
+    ('kernel_bf16': kernel 2b once per dispatch, labels equal to its
+    ``predict``).  Returns (path counts, the killed replica's name)."""
+    import threading
+    from kmeans_tpu_torch.obs import metrics_registry as obs_metrics
+    host = _serve_rows(x)
+    want = km.predict(host)            # labels are per row: slices of it
+    rng = np.random.default_rng(7)
+    packed = []
+    for j in range(PACKED_MODELS):
+        mj = KMeans(k=km.k, distance_mode="matmul", verbose=False)
+        mj.centroids = (km.centroids + np.float32(0.05 * j)).astype(
+            np.float32)
+        packed.append(mj)
+    reqs = [(f"p{j}", host[j * 1000:(j + 1) * 1000])
+            for j in range(PACKED_MODELS)]
+    want_packed = [m.predict(rows) for m, (_, rows) in zip(packed, reqs)]
+    single = ServingEngine(device=DEV, start=False)
+    fleet = ServingFleet(FLEET["replicas"], device=DEV,
+                         fleet_dir=str(fleet_dir),
+                         heartbeat_interval_s=FLEET["heartbeat_s"])
+    counts = {}
+    try:
+        single.add_model("main", km)
+        single.warmup()
+        want_score = single.score("main", host[:SERVE_BUCKETS[-1]])
+        check(fleet.add_model("main", km) == ["r0", "r1", "r2"],
+              "fleet: placement")
+        for j, mj in enumerate(packed):
+            fleet.add_model(f"p{j}", mj)
+        t0 = time.perf_counter()
+        warm = fleet.warmup()
+        warm_s = time.perf_counter() - t0
+        hk.reset_launch_counts()
+        # 1. A replica dies holding queued requests.
+        plan = [(int(lo), int(m)) for lo, m in zip(
+            rng.integers(0, 8000, size=FLEET["kill_requests"]),
+            rng.integers(1, 65, size=FLEET["kill_requests"]))]
+        with faults.inject_replica_kill(fleet, after_dispatches=0) as rec:
+            futs = [fleet.submit("main", host[lo:lo + m]) for lo, m in plan]
+            outs = [f.result(timeout=QUEUE_TIMEOUT) for f in futs]
+        killed = rec["replica"]
+        check(rec["killed"] and all(
+            np.array_equal(o, want[lo:lo + m])
+            for o, (lo, m) in zip(outs, plan)),
+            "fleet: a request failed or differs after the kill")
+        after_kill = fleet.stats()
+        check(after_kill["redispatches"] >= 1
+              and after_kill["n_serving"] == FLEET["replicas"] - 1
+              and after_kill["replicas"][killed]["state"] == "dead",
+              f"fleet: kill {rec}, {after_kill['redispatches']} "
+              f"re-dispatches")
+        routes0 = after_kill["routes"]
+        # 2. Direct calls of every size.
+        sizes = FLEET["sizes"]
+        calls = [(int(lo), sizes[i % len(sizes)]) for i, lo in enumerate(
+            rng.integers(0, host.shape[0] - sizes[-1], size=FLEET["calls"]))]
+        t0 = time.perf_counter()
+        bad = sum(not np.array_equal(fleet.call("main", host[lo:lo + m]),
+                                     want[lo:lo + m]) for lo, m in calls)
+        calls_s = time.perf_counter() - t0
+        check(bad == 0, f"fleet: {bad} direct calls differ from predict")
+        # 3. Queued requests from four threads.
+        results = [None] * FLEET["queue_threads"]
+        errors = []
+        qplans = [[(int(lo), int(m)) for lo, m in zip(
+            rng.integers(0, 8000, size=FLEET["queue_requests"]),
+            rng.integers(1, 65, size=FLEET["queue_requests"]))]
+            for _ in range(FLEET["queue_threads"])]
+
+        def client(t):
+            try:
+                fs = [fleet.submit("main", host[lo:lo + m])
+                      for lo, m in qplans[t]]
+                results[t] = [f.result(timeout=QUEUE_TIMEOUT) for f in fs]
+            except Exception as e:        # noqa: BLE001 — fails the phase
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(FLEET["queue_threads"])]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=QUEUE_TIMEOUT)
+        check(not errors and not any(th.is_alive() for th in threads),
+              f"fleet: queued requests {errors}")
+        check(all(np.array_equal(got, want[lo:lo + m])
+                  for t in range(FLEET["queue_threads"])
+                  for got, (lo, m) in zip(results[t], qplans[t])),
+              "fleet: a queued result differs from predict")
+        # 4. Four same-shape models in one packed dispatch; 5. score.
+        outs = fleet.predict_multi(reqs)
+        check(all(np.array_equal(o, w) for o, w in zip(outs, want_packed)),
+              "fleet: predict_multi differs from each model's predict")
+        score = fleet.score("main", host[:SERVE_BUCKETS[-1]])
+        check(score == want_score,
+              f"fleet: score {score} against the engine's {want_score}")
+        admitted = len(calls) + sum(len(p) for p in qplans) + len(reqs) + 1
+        st = fleet.stats()
+        check(st["routes"] - routes0 == admitted
+              and st["redispatches"] == after_kill["redispatches"],
+              f"fleet: {st['routes'] - routes0} routes for {admitted} "
+              f"requests admitted")
+        packed_n = sum(r["packed_dispatches"]
+                       for r in st["replicas"].values())
+        dispatched = st["dispatches"] - packed_n
+        launched = _counted("hopper_assign")
+        check(packed_n == 1 and launched == dispatched,
+              f"fleet: kernel 2 launched {launched} times for {dispatched} "
+              f"dispatches ({packed_n} packed)")
+        counts["fleet"] = {k: v for k, v in hk.LAUNCHES.items() if v}
+        emit("launches", path="fleet", **hk.LAUNCHES)
+        # 6. A burst past max_inflight=1 sheds, explicitly and counted.
+        shed0 = obs_metrics.REGISTRY.counter("fleet.shed").value
+        with ServingFleet(FLEET["replicas"], device=DEV, start=False,
+                          quality=False, max_inflight=1) as burst:
+            burst.add_model("main", km)
+            burst.warmup(prewarm=False)
+            admitted_b, shed, msgs = [], 0, set()
+            for i in range(2 * FLEET["replicas"]):
+                try:
+                    admitted_b.append((i, burst.submit("main",
+                                                       host[i:i + 1])))
+                except FleetOverloadError as e:
+                    shed += 1
+                    msgs.add(str(e))
+            burst_stats = burst.stats()
+            burst.close()
+            check(len(admitted_b) == FLEET["replicas"]
+                  and shed == FLEET["replicas"]
+                  and burst_stats["sheds"] == shed
+                  and obs_metrics.REGISTRY.counter("fleet.shed").value
+                  - shed0 == shed
+                  and all(np.array_equal(f.result(timeout=QUEUE_TIMEOUT),
+                                         want[i:i + 1])
+                          for i, f in admitted_b),
+                  f"fleet: burst admitted {len(admitted_b)}, shed {shed}")
+        # 7. A replica added warm; 8. latency beside a single engine.
+        name = fleet.add_replica(prewarm=True)
+        prewarm_s = fleet.stats()["replicas"][name]["prewarm_s"]
+        latency = {}
+        for m in (64, 4096):
+            rows = host[:m]
+            f50, f99 = _latency(lambda: fleet.call("main", rows),
+                                calls=FLEET["latency_calls"])
+            s50, s99 = _latency(lambda: single.call("main", rows),
+                                calls=FLEET["latency_calls"])
+            latency[str(m)] = {"fleet_p50_ms": f50, "fleet_p99_ms": f99,
+                               "engine_p50_ms": s50, "engine_p99_ms": s99,
+                               "fleet_over_engine_p50": f50 / s50}
+        final = fleet.stats()
+        emit("fleet", k=int(km.k), d=int(km.centroids.shape[1]),
+             replicas=FLEET["replicas"], warm_dispatches=warm,
+             warmup_seconds=warm_s, killed=killed,
+             kill_queued_requests=len(plan),
+             redispatches=after_kill["redispatches"],
+             direct_calls=len(calls), direct_calls_seconds=calls_s,
+             queued_requests=sum(len(p) for p in qplans),
+             packed_models=PACKED_MODELS, routes_admitted=admitted,
+             kernel2_launches=launched, dispatches=dispatched,
+             burst_offered=2 * FLEET["replicas"], burst_shed=shed,
+             burst_messages=sorted(msgs),
+             add_replica=name, add_replica_prewarm_seconds=prewarm_s,
+             latency=latency, labels_bit_equal=True,
+             replicas_state={r: v["state"]
+                             for r, v in final["replicas"].items()},
+             replica_dispatches={r: v["dispatches"]
+                                 for r, v in final["replicas"].items()})
+    finally:
+        fleet.close()
+        single.close()
+    # 9. The bf16 routes through a fleet.
+    bsizes = SERVE_BUCKETS + (SERVE_BIG,)
+    want_b = km_bf16.predict(host[:SERVE_BIG])
+    beng = ServingEngine(device=DEV, start=False, quality=False)
+    bfleet = ServingFleet(2, device=DEV, start=False, quality=False)
+    try:
+        for e in (beng, bfleet):
+            e.add_model("q", km, quantize="bf16")
+            e.add_model("b", km_bf16)
+            e.warmup()
+        check(km_bf16._mode() == "kernel_bf16", "fleet_bf16: the mode")
+        want_q = {m: beng.call("q", host[:m]) for m in bsizes}
+        want_bb = {m: beng.call("b", host[:m]) for m in bsizes}
+        residents = [r.engine._residents["q"] for r in bfleet._replicas]
+        hk.reset_launch_counts()
+        flagged = 0
+        for m in bsizes:
+            before = sum(rm.bf16_corrected_rows for rm in residents)
+            got = bfleet.call("q", host[:m])
+            check(np.array_equal(got, want_q[m])
+                  and np.array_equal(got, want[:m]),
+                  f"fleet_bf16: guarded labels at {m} rows")
+            flagged += sum(rm.bf16_corrected_rows
+                           for rm in residents) > before
+        fixups = _counted("hopper_assign")
+        guarded_dispatches = bfleet.stats()["dispatches"]
+        for m in bsizes:
+            got = bfleet.call("b", host[:m])
+            check(np.array_equal(got, want_bb[m])
+                  and np.array_equal(got, want_b[:m]),
+                  f"fleet_bf16: kernel_bf16 labels at {m} rows")
+        dispatched_b = bfleet.stats()["dispatches"] - guarded_dispatches
+        launched_2b = _counted("hopper_assign_bf16")
+        check(launched_2b == dispatched_b and fixups == flagged
+              and _counted("hopper_assign") == fixups,
+              f"fleet_bf16: kernel 2b {launched_2b} for {dispatched_b} "
+              f"dispatches, kernel 2 {fixups} for {flagged} flagged")
+        counts["fleet_bf16"] = {k: v for k, v in hk.LAUNCHES.items() if v}
+        emit("launches", path="fleet_bf16", **hk.LAUNCHES)
+        emit("fleet_bf16", guarded_dispatches=guarded_dispatches,
+             kernel_bf16_dispatches=dispatched_b,
+             kernel2b_launches=launched_2b, guard_fixups=fixups,
+             guard_flagged_dispatches=flagged,
+             corrected_rows=sum(rm.bf16_corrected_rows
+                                for rm in residents),
+             labels_equal_to_engine=True)
+    finally:
+        bfleet.close()
+        beng.close()
+    return counts, killed
+
+
+def phase_serve_learn(x, mb_ref, tmp: Path):
+    """``MiniBatchKMeans`` fitted as in phase ``minibatch`` (k = 1024,
+    D = 128, 'pallas'; a copy through ``save`` / ``load``) served with
+    quality monitoring and ``learn={'dir': ...}``, fed 512-row requests of
+    the main blobs shifted by LEARN["shift"]: the drift monitor fires an
+    update on its own; kernel 1 launches equal the update batches applied;
+    the quiesced model equals, bit for bit, an offline replay on the card
+    of the learner's ``applied_batches`` from the pre-learning state and
+    from the last snapshot; after each publication served labels equal
+    ``predict``; an injected update failure fails no request and leaves the
+    table bit-identical; an injected regression rolls back to the
+    snapshot, bit-identical.  Then the p99 excursion as the reference's
+    ``bench_learn`` measures it (quiet wave, update wave with one forced
+    update on another thread; the automatic trigger held off by
+    ``min_rows``), against ``LEARN_P99_EXCURSION_BOUND``, with the
+    ``publish_tables`` seconds; and two fleet replicas with ``learn``
+    sharing the model: an update while the model's lock is held is a
+    'peer-updating' skip, two updates at once serialize, and both replicas
+    serve the published table.  Returns the path counts."""
+    import threading
+    from kmeans_tpu_torch.serving import learn as serve_learn
+    host = _serve_rows(x)
+    rows = LEARN["rows"]
+    drifted = host + np.float32(LEARN["shift"])
+    reqs = [drifted[i * rows:(i + 1) * rows]
+            for i in range(drifted.shape[0] // rows)]
+    probe = drifted[:LEARN["probe"]]
+    base = tmp / "minibatch.npz"
+    mb_ref.save(base)
+
+    def fresh():
+        return MiniBatchKMeans.load(base)
+
+    counts = {}
+    # 1. The drift monitor fires; the replay; failure; regression.
+    model = fresh()
+    check(model._mode() == "kernel", f"serve_learn: mode {model._mode()}")
+    start = fresh()
+    eng = ServingEngine(device=DEV, start=False, quality=True,
+                        quality_dir=str(tmp / "e1"),
+                        learn={"dir": str(tmp / "e1")})
+    try:
+        eng.add_model("mb", model)
+        eng.warmup()
+        ln = eng._residents["mb"].learner
+        check(ln is not None, "serve_learn: no learner attached")
+        hk.reset_launch_counts()
+        fed = 0
+        while ln._thread is None and fed < LEARN["max_feed"]:
+            eng.call("mb", reqs[fed % len(reqs)])
+            fed += 1
+        check(ln._thread is not None,
+              f"serve_learn: no update fired in {fed} requests")
+        _joined(ln)
+        auto = [d for d in ln.status()["decisions"]
+                if d["action"] == "update"]
+        check(len(auto) == 1 and auto[0]["reason"] == "drift",
+              f"serve_learn: decisions {ln.status()['decisions']}")
+        k1 = _counted("fused_assign_reduce")
+        batches = _applied_batches(ln)
+        check(k1 == batches == len(ln.applied_batches[-1]),
+              f"serve_learn: kernel 1 launched {k1} times for {batches} "
+              f"update batches")
+        drift_launches = {k: v for k, v in hk.LAUNCHES.items() if v}
+        check(np.array_equal(eng.call("mb", probe), model.predict(probe)),
+              "serve_learn: served labels after the drift update")
+        # The offline replays (their launches are not the path's).
+        replay = fresh()
+        for bs in ln.applied_batches:
+            for b in bs:
+                replay.partial_fit(b)
+        last = MiniBatchKMeans.load(ln.snapshot_path)
+        for b in ln.applied_batches[-1]:
+            last.partial_fit(b)
+        check(_same_model(replay, model) and _same_model(last, model),
+              "serve_learn: the quiesced model differs from its replay")
+        check(not _same_model(start, model),
+              "serve_learn: the update did not move the model")
+        # Injected failure: nothing published, no request fails.
+        hk.reset_launch_counts()
+        applied0 = _applied_batches(ln)
+        for r in reqs[:4]:
+            eng.call("mb", r)
+        _joined(ln)
+        before = model.centroids
+        before_bytes = np.array(before, copy=True)
+        with faults.inject_update_failure("mb") as rec:
+            dec_fail = ln.update_now(force=True)
+        check(rec["fired"] == 1 and dec_fail["action"] == "update-failed"
+              and model.centroids is before
+              and np.array_equal(model.centroids, before_bytes),
+              f"serve_learn: injected failure {dec_fail}")
+        check(np.array_equal(eng.call("mb", probe), model.predict(probe)),
+              "serve_learn: served labels after the failed update")
+        # Injected regression: applied, then rolled back bit for bit.
+        for r in reqs[4:8]:
+            eng.call("mb", r)
+        _joined(ln)
+        pre = {n: np.array(getattr(model, n), copy=True) for n in
+               ("centroids", "_centroids_f64", "_seen", "cluster_sizes_")}
+        dec_up = ln.update_now(force=True)
+        check(dec_up["action"] == "update"
+              and not np.array_equal(model.centroids, pre["centroids"]),
+              f"serve_learn: update before the regression {dec_up}")
+        check(np.array_equal(eng.call("mb", probe), model.predict(probe)),
+              "serve_learn: served labels after the forced update")
+        with faults.inject_quality_regression("mb", ratio=10.0) as rec:
+            ln.evaluate_now(force=True)
+        rb = ln.rollbacks[-1] if ln.rollbacks else None
+        check(rec["fired"] == 1 and rb is not None
+              and rb.restored_from == "primary"
+              and all(np.array_equal(getattr(model, n), v)
+                      for n, v in pre.items()),
+              "serve_learn: the rollback is not the snapshot")
+        check(np.array_equal(eng.call("mb", probe), model.predict(probe)),
+              "serve_learn: served labels after the rollback")
+        k1 = _counted("fused_assign_reduce")
+        check(k1 == _applied_batches(ln) - applied0,
+              f"serve_learn: kernel 1 launched {k1} times for "
+              f"{_applied_batches(ln) - applied0} update batches around "
+              f"the failure and the regression")
+        counts["serve_learn"] = drift_launches
+        emit("launches", path="serve_learn", **drift_launches)
+        status = ln.status()
+    finally:
+        eng.close()
+    # 2. The p99 excursion, as the reference's bench_learn measures it.
+    model2 = fresh()
+    eng2 = ServingEngine(device=DEV, start=False, quality=True,
+                         quality_dir=str(tmp / "e2"),
+                         learn={"dir": str(tmp / "e2"), "batch_rows": rows,
+                                "max_batches": 2, "cooldown_windows": 0,
+                                "update_budget": LEARN["reps"] + 2,
+                                "min_rows": 1 << 40})
+    try:
+        eng2.add_model("mb", model2)
+        eng2.warmup()
+        ln2 = eng2._residents["mb"].learner
+
+        def wave(first):
+            lats = []
+            for i in range(LEARN["wave_calls"]):
+                t0 = time.perf_counter()
+                eng2.call("mb", reqs[(first + i) % len(reqs)])
+                lats.append(time.perf_counter() - t0)
+            return np.asarray(lats)
+
+        wave(0)
+        ln2.update_now(force=True, reason="warm")
+        hk.reset_launch_counts()
+        ratios, swaps, applied = [], [], 0
+        for rep in range(LEARN["reps"]):
+            quiet = wave(rep)
+            dec = [None]
+            t = threading.Thread(target=lambda: dec.__setitem__(
+                0, ln2.update_now(force=True, reason="wave")))
+            t.start()
+            busy = wave(rep + LEARN["reps"])
+            t.join(timeout=QUEUE_TIMEOUT)
+            check(not t.is_alive(), "serve_learn: the wave's update hung")
+            if dec[0] is not None and dec[0]["action"] == "update":
+                applied += 1
+                swaps.append(dec[0]["detail"]["swap_ms"])
+            ratios.append(float(np.percentile(busy, 99))
+                          / float(np.percentile(quiet, 99)))
+        excursion = float(np.median(ratios))
+        k1 = _counted("fused_assign_reduce")
+        waves_batches = sum(len(b) for b in
+                            list(ln2.applied_batches)[-applied:]) \
+            if applied else 0
+        check(applied >= 1 and k1 == waves_batches,
+              f"serve_learn: {applied} wave updates, kernel 1 {k1} for "
+              f"{waves_batches} batches")
+        check(np.array_equal(eng2.call("mb", probe), model2.predict(probe)),
+              "serve_learn: served labels after the wave updates")
+        check(excursion <= serve_learn.LEARN_P99_EXCURSION_BOUND,
+              f"serve_learn: p99 excursion {excursion} (ratios {ratios})")
+    finally:
+        eng2.close()
+    # 3. Two fleet replicas learning on one shared model.
+    model3 = fresh()
+    fleet = ServingFleet(2, device=DEV, start=False,
+                         fleet_dir=str(tmp / "fleet"),
+                         learn={"dir": str(tmp / "fleet")})
+    try:
+        fleet.add_model("mb", model3)
+        fleet.warmup()
+        learners = [r.engine._residents["mb"].learner
+                    for r in fleet._replicas]
+        hk.reset_launch_counts()
+        for r in reqs[:8]:
+            fleet.call("mb", r)
+        for lnf in learners:
+            _joined(lnf)
+        with serve_learn._model_update_lock(model3):
+            held = [lnf.update_now(force=True) for lnf in learners]
+        check(all(d["action"] == "update-skipped"
+                  and d["reason"] == "peer-updating" for d in held),
+              f"serve_learn: updates while the model's lock is held {held}")
+        gate = threading.Barrier(2)
+        both = [None, None]
+
+        def update(i):
+            gate.wait(QUEUE_TIMEOUT)
+            both[i] = learners[i].update_now(force=True)
+
+        threads = [threading.Thread(target=update, args=(i,))
+                   for i in range(2)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=QUEUE_TIMEOUT)
+        # The automatic trigger may have drained a reservoir before: an
+        # update, a peer's skip or an empty reservoir, never two at once.
+        actions = sorted((d["action"], d["reason"]) for d in both)
+        check(all(a == "update" or r in ("peer-updating",
+                                         "reservoir-underfilled")
+                  for a, r in actions)
+              and sum(lnf.updates_applied for lnf in learners) >= 1
+              and not _same_model(model3, fresh()),
+              f"serve_learn: fleet updates {actions}")
+        for rep in fleet._replicas:
+            check(np.array_equal(rep.engine.call("mb", probe),
+                                 model3.predict(probe)),
+                  f"serve_learn: replica {rep.name} serves a stale table")
+        k1 = _counted("fused_assign_reduce")
+        check(k1 == _applied_batches(*learners),
+              f"serve_learn: fleet kernel 1 {k1} for "
+              f"{_applied_batches(*learners)} batches")
+        counts["serve_learn_fleet"] = {k: v for k, v in hk.LAUNCHES.items()
+                                       if v}
+        emit("launches", path="serve_learn_fleet", **hk.LAUNCHES)
+        fleet_status = fleet.update_status()["mb"]
+    finally:
+        fleet.close()
+    emit("serve_learn", k=int(model.k), d=int(model.centroids.shape[1]),
+         rows_per_request=rows, shift=LEARN["shift"],
+         requests_until_drift_update=fed,
+         drift_update=auto[0], replay_bit_equal=True,
+         injected_failure=dec_fail["action"], rolled_back=rb.as_dict(),
+         decisions=[(d["action"], d["reason"])
+                    for d in status["decisions"]],
+         excursion_ratio=excursion, excursion_ratios=ratios,
+         excursion_bound=serve_learn.LEARN_P99_EXCURSION_BOUND,
+         wave_updates=applied, publish_tables_ms=swaps,
+         fleet_updates_applied={r: s["updates_applied"]
+                                for r, s in fleet_status.items()},
+         fleet_actions=actions)
+    return counts
+
+
+def phase_heartbeat(x, fleet_dir: Path, killed: str):
+    """The main ``KMeans`` fitted by the host loop and by the device loop
+    with ``checkpoint_every=2``, each inside ``obs.heartbeat(path)`` and
+    without: records at each iteration (host loop), each checkpoint (the
+    segment boundaries), the device loop's end (phase 'fit') and the fit's
+    end ('finished'); centroids, iteration counts, SSE histories and every
+    kernel's launch count bit-equal without the heartbeat.  Then
+    ``straggler_report(merge_heartbeats(...))`` over phase ``fleet``'s
+    heartbeat sinks: every replica shows, the killed one is flagged.
+    Returns the path counts."""
+    from kmeans_tpu_torch import obs
+    counts, summary = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for loop, host_loop in (("host", True), ("device", False)):
+            runs = {}
+            for hb in (False, True):
+                km = KMeans(k=MAIN["k"], max_iter=MAIN["iters"], seed=42,
+                            compute_sse=True, init="forgy", verbose=False,
+                            host_loop=host_loop)
+                ckpt_path = tmp / f"{loop}.{hb}.npz"
+                hk.reset_launch_counts()
+                t0 = time.perf_counter()
+                if hb:
+                    with obs.heartbeat(str(tmp / f"{loop}.jsonl")):
+                        km.fit(x, checkpoint_every=2,
+                               checkpoint_path=ckpt_path)
+                else:
+                    km.fit(x, checkpoint_every=2, checkpoint_path=ckpt_path)
+                torch.cuda.synchronize()
+                runs[hb] = (km, {k: v for k, v in hk.LAUNCHES.items() if v},
+                            time.perf_counter() - t0)
+            (plain, plain_l, plain_s), (beat, beat_l, beat_s) = \
+                runs[False], runs[True]
+            check(np.array_equal(plain.centroids, beat.centroids)
+                  and plain.iterations_run == beat.iterations_run
+                  and plain.sse_history == beat.sse_history
+                  and plain_l == beat_l,
+                  f"heartbeat_{loop}: the fit changed under a heartbeat "
+                  f"({plain_l} against {beat_l})")
+            recs = [json.loads(line) for line in
+                    (tmp / f"{loop}.jsonl").read_text().splitlines()]
+            phases = [(r["phase"], r.get("iteration")) for r in recs]
+            n = beat.iterations_run
+            ckpts = [("checkpoint", i) for i in range(2, n + 1, 2)] + (
+                [("checkpoint", n)] if n % 2 else [])
+            want = ([("iteration", i) for i in range(1, n + 1)]
+                    if host_loop else []) + ckpts + (
+                [] if host_loop else [("fit", n)]) + [("finished", n)]
+            check(sorted(phases, key=str) == sorted(want, key=str)
+                  and phases[-1] == ("finished", n),
+                  f"heartbeat_{loop}: records {phases}, want {want}")
+            counts[f"heartbeat_{loop}"] = beat_l
+            emit("launches", path=f"heartbeat_{loop}", **beat_l)
+            summary[loop] = {"records": phases, "iterations": n,
+                             "fit_seconds": beat_s,
+                             "fit_seconds_without": plain_s,
+                             "launches": beat_l}
+    report = obs.fleet.straggler_report(
+        obs.fleet.merge_heartbeats(str(fleet_dir / "hb.*.jsonl")))
+    hosts = {h["host"]: h for h in report["hosts"]}
+    check(killed in hosts and hosts[killed]["flags"]
+          and {"r0", "r1", "r2"} <= set(hosts),
+          f"heartbeat: straggler report {report['hosts']}")
+    print(obs.fleet.format_fleet_status(report), file=sys.stderr,
+          flush=True)
+    emit("heartbeat", fits=summary, fleet_hosts=sorted(hosts),
+         killed=killed, flags={h: v["flags"] for h, v in hosts.items()},
+         iterations={h: v["iteration"] for h, v in hosts.items()})
+    return counts
+
+
 def median_ms(fn, runs=10, warmup=2) -> float:
     for _ in range(warmup):
         fn()
@@ -5119,6 +5737,18 @@ def main() -> None:
         "serving_queue": phase_serving_queue(x_main, km)}
     bucket_times = phase_serving_kernel_shapes(x_main, c_main)
 
+    # The serving fleet, serve-and-learn and heartbeats: each path's
+    # counters zeroed just before it and read just after it.
+    with tempfile.TemporaryDirectory() as fleet_tmp:
+        fleet_tmp = Path(fleet_tmp)
+        (fleet_tmp / "fleet").mkdir()
+        fleet_counts, killed = phase_fleet(x_main, km, km_bf16,
+                                           fleet_tmp / "fleet")
+        fleet_counts.update(phase_serve_learn(x_main, minibatch_ref,
+                                              fleet_tmp))
+        fleet_counts.update(phase_heartbeat(x_main, fleet_tmp / "fleet",
+                                            killed))
+
     rows = phase_timing(x_main, c_main, errs, launches,
                         {"main": statistics.median(km.iter_times_),
                          "main_bf16": statistics.median(km_bf16.iter_times_)},
@@ -5179,6 +5809,9 @@ def main() -> None:
         row["serving_launches"] = sum(by_path.values())
         row["serving_launches_by_path"] = {
             path: n for path, n in by_path.items() if n}
+        row["fleet_learn_launches"] = {
+            path: c[row["name"]] for path, c in fleet_counts.items()
+            if c.get(row["name"], 0) > 0}
         if row["name"] in bucket_times:
             row["bucket_shapes"] = bucket_times[row["name"]]
 

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from kmeans_tpu_torch.models.kmeans import KMeans
+from kmeans_tpu_torch.obs.heartbeat import note_progress as obs_note_progress
 from kmeans_tpu_torch.parallel import distributed as dist
 from kmeans_tpu_torch.parallel.mesh import is_primary
 from kmeans_tpu_torch.parallel.sharding import (ShardedDataset,
@@ -218,6 +219,9 @@ class BisectingKMeans(KMeans):
                       + (f", total SSE = {total:.4f}"
                          if self.compute_sse else ""))
             self.iterations_run = split + 1
+            # Heartbeat: one record per split, the tree on the host.
+            obs_note_progress(self, phase="split", segment=split + 1,
+                              clusters=len(cents))
             if checkpoint_every and (split + 1) % checkpoint_every == 0:
                 self._snapshot_tree(split + 1, labels, cents, sse, wsize,
                                     members)

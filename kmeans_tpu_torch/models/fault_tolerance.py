@@ -39,6 +39,7 @@ import warnings
 
 import torch
 
+from kmeans_tpu_torch.obs.heartbeat import note_progress as obs_note_progress
 from kmeans_tpu_torch.parallel.sharding import backoff_chunk
 from kmeans_tpu_torch.utils import checkpoint as ckpt
 from kmeans_tpu_torch.utils import faults
@@ -218,10 +219,13 @@ class AutoCheckpointMixin:
 
     def _write_autockpt(self, path, iteration: int) -> None:
         """One rotating atomic checkpoint (one writer, then the mesh's
-        barrier), then the checkpoint-boundary injection hook."""
+        barrier), the heartbeat of the boundary (every family's segments
+        pass here, their state already on the host), then the
+        checkpoint-boundary injection hook."""
         ckpt.save_state_primary(path, self._state_dict(), self.mesh,
                                 rotate=True)
         self._ckpt_written_this_fit = True
+        obs_note_progress(self, phase="checkpoint", iteration=int(iteration))
         faults.on_checkpoint(iteration, path)
 
     def _resolve_resume(self, resume) -> bool:

@@ -72,6 +72,7 @@ import torch
 from kmeans_tpu_torch.models.fault_tolerance import AutoCheckpointMixin
 from kmeans_tpu_torch.models.init import forgy_init
 from kmeans_tpu_torch.models.kmeans import KMeans, _later, resolve_device
+from kmeans_tpu_torch.obs.heartbeat import note_progress as obs_note_progress
 from kmeans_tpu_torch.parallel.gmm_step import (
     COV_TYPES, EStats, EStatsFull, make_gmm_fit_fn, make_gmm_multi_fit_fn,
     make_gmm_predict_fn, make_gmm_step_fn, make_gmm_step_full_fn,
@@ -736,6 +737,8 @@ class GaussianMixture(AutoCheckpointMixin):
                       f"[{self.iter_times_[-1] * 1e3:.1f} ms]", flush=True)
             if not np.isfinite(self.lower_bound_):
                 self._raise_divergence("log-likelihood", it)
+            # Heartbeat: this EM iteration's state is on the host.
+            obs_note_progress(self, phase="iteration")
             if checkpoint_every and it % checkpoint_every == 0:
                 self.checkpoint_segments_ += 1
                 self._write_autockpt(checkpoint_path, it)

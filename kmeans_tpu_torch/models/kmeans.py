@@ -69,6 +69,7 @@ import torch
 from kmeans_tpu_torch.models.fault_tolerance import (  # noqa: F401
     AutoCheckpointMixin, NumericalDivergenceError)
 from kmeans_tpu_torch.models.init import resolve_init
+from kmeans_tpu_torch.obs.heartbeat import note_progress as obs_note_progress
 from kmeans_tpu_torch.ops.assign import StepStats
 from kmeans_tpu_torch.parallel import distributed as dist
 from kmeans_tpu_torch.parallel.mesh import (all_reduce, check_mesh,
@@ -478,6 +479,9 @@ class KMeans(AutoCheckpointMixin):
         self._fit_ds: Optional[Dataset] = None        # retained for labels_
         self._labels_cache: Optional[np.ndarray] = None
         self._labels_error: Optional[str] = None
+        # (centroids object, device, its device copy): the served table,
+        # placed once per published table (``_cents_dev``).
+        self._cents_cache: Optional[tuple] = None
 
     # ----------------------------------------------------------------- setup
 
@@ -585,6 +589,24 @@ class KMeans(AutoCheckpointMixin):
         return torch.from_numpy(np.ascontiguousarray(
             np.asarray(centroids, dtype=self.dtype))).to(self.device)
 
+    def _cents_dev(self) -> torch.Tensor:
+        """The fitted table on the model's device, placed once per table
+        object.  ``centroids`` is read ONCE: the cache is keyed on that
+        object and the same object is uploaded, so a reader racing
+        ``serving.learn.publish_tables`` (which seeds this cache, then
+        rebinds ``centroids``) gets the old table or the new one with its
+        own key, never one table under the other's key.  The cache lives
+        on the model, so every engine serving it (fleet replicas share
+        the model object) sees a publication at once."""
+        cents = self.centroids
+        cached = getattr(self, "_cents_cache", None)   # older pickles
+        if cached is not None and cached[0] is cents \
+                and cached[1] == self.device:
+            return cached[2]
+        dev = self._put_centroids(cents)
+        self._cents_cache = (cents, self.device, dev)
+        return dev
+
     # ------------------------------------------------------------------- fit
 
     def fit(self, X, y=None, *, sample_weight=None, resume=False,
@@ -614,6 +636,9 @@ class KMeans(AutoCheckpointMixin):
             _ = self.labels_
         else:
             self._fit_ds = None
+        # The heartbeat's terminal beat: a live straggler read sees this
+        # fit finished, not silent (obs.fleet.TERMINAL_PHASES).
+        obs_note_progress(self, phase="finished")
         return self
 
     def fit_stream(self, make_blocks, *, d: Optional[int] = None,
@@ -920,6 +945,7 @@ class KMeans(AutoCheckpointMixin):
         self._labels_error = ("labels_ is not materialized by fit_stream "
                               "(the dataset never resides in memory); call "
                               "predict on each block")
+        obs_note_progress(self, phase="finished")
         return self
 
     def _restart_seeds(self) -> list:
@@ -1521,6 +1547,9 @@ class KMeans(AutoCheckpointMixin):
                       list(self.cluster_sizes_),
                       self.sse_history[-1] if
                       (self.compute_sse and self.sse_history) else None)
+        # A device-loop fit has no iteration boundary on the host (and,
+        # unsegmented, no checkpoint one): its end is its progress beat.
+        obs_note_progress(self, phase="fit", shift=last_shift)
         if n and last_shift < self.tolerance:
             log.converged(self.iterations_run)
 
@@ -1574,6 +1603,8 @@ class KMeans(AutoCheckpointMixin):
         self.cluster_sizes_ = sizes
         self.iterations_run = iteration + 1
         self.iter_times_.append(time.perf_counter() - iter_start)
+        # Heartbeat: host state this iteration already read back.
+        obs_note_progress(self, phase="iteration", shift=max_shift)
         return new_centroids, max_shift
 
     def _postprocess_centroids(self, centroids: np.ndarray,
@@ -2210,6 +2241,7 @@ class KMeans(AutoCheckpointMixin):
             _ = self.labels_
         state = dict(self.__dict__)
         state["_fit_ds"] = None
+        state["_cents_cache"] = None        # a device copy, not state
         return state
 
     def __deepcopy__(self, memo):
@@ -2219,6 +2251,7 @@ class KMeans(AutoCheckpointMixin):
         memo[id(self)] = new
         for name, value in self.__dict__.items():
             new.__dict__[name] = (value if name == "_fit_ds"
+                                  else None if name == "_cents_cache"
                                   else copy.deepcopy(value, memo))
         return new
 

@@ -51,7 +51,8 @@ import torch
 
 from kmeans_tpu_torch.models.init import as_source, resolve_init
 from kmeans_tpu_torch.models.kmeans import (KMeans, _dispatch_rtt,
-                                            _hint_once, _host_rows, _later)
+                                            _hint_once, _host_rows)
+from kmeans_tpu_torch.obs.heartbeat import note_progress as obs_note_progress
 from kmeans_tpu_torch.parallel import distributed as dist
 from kmeans_tpu_torch.parallel.mesh import (DATA_AXIS, all_reduce,
                                             is_primary, mesh_shape)
@@ -542,6 +543,8 @@ class MiniBatchKMeans(KMeans):
         self.cluster_sizes_ = counts.astype(np.int64)
         self.iterations_run = iteration + 1
         self._seen = seen.copy()
+        # Heartbeat: both host updates end here, their state on the host.
+        obs_note_progress(self, phase="iteration", shift=max_shift)
         return new_centroids, seen, max_shift
 
     def partial_fit(self, X, y=None, *,
@@ -589,8 +592,42 @@ class MiniBatchKMeans(KMeans):
             "through partial_fit, or use KMeans.fit_stream for an exact "
             "out-of-core fit")
 
-    def _learn_clone(self):
-        raise _later("_learn_clone", "...", "A.12 'Serving'")
+    def _learn_clone(self) -> "MiniBatchKMeans":
+        """Detached working copy for serve-and-learn
+        (``serving/learn.py``): ``partial_fit`` on the clone never touches
+        this model, which keeps serving while the clone takes the
+        reservoir's batches on another thread.
+
+        The clone shares what is not mutated in place (the constructor
+        settings, the device and the mesh) and gets fresh copies of the
+        training state.  ``_seen`` is the aliasing hazard: ``partial_fit``
+        reads it through ``np.asarray(..., float64)``, which does not copy
+        a float64 array, and ``_apply_batch_stats`` adds the batch's
+        counts to it in place, so a shared array would move this model's
+        lifetime counts in the middle of an update.  Not ``copy.copy``:
+        ``__getstate__`` would materialise ``labels_``, a predict over the
+        whole fit data inside the update.  The device table cache is
+        serving state and stays out of the clone, and ``verbose`` is off
+        (the update's iteration lines would interleave with serving)."""
+        if self.centroids is None:
+            raise ValueError("_learn_clone requires a fitted model")
+        clone = object.__new__(type(self))
+        clone.__dict__.update(self.__dict__)
+        clone.centroids = np.array(self.centroids, copy=True)
+        carried = self._centroids_f64
+        clone._centroids_f64 = (np.array(carried, np.float64, copy=True)
+                                if carried is not None else None)
+        clone._seen = np.array(self._seen if self._seen is not None
+                               else np.zeros(self.k), dtype=np.float64,
+                               copy=True)
+        clone.sse_history = list(self.sse_history)
+        if self.cluster_sizes_ is not None:
+            clone.cluster_sizes_ = np.array(self.cluster_sizes_, copy=True)
+        clone._cents_cache = None
+        clone._fit_ds = None
+        clone._labels_cache = None
+        clone.verbose = False
+        return clone
 
     def _profile_counts(self):
         """The quality profile's assignment mass: the lifetime per-center

@@ -1,11 +1,18 @@
 """Observability of the port: span tracing (``obs.trace``), the typed
 metrics registry (``obs.metrics_registry``), the process identity
-(``obs.identity``), serving-quality drift detection (``obs.drift``,
-numpy, loaded lazily) and the memory planner (``obs.memory``).  The rest
-of the JAX package's ``obs/`` (heartbeats, reports, cost records, the
-fleet tools) comes with ROADMAP.md, A.13."""
+(``obs.identity``), fit heartbeats (``obs.heartbeat``: ``heartbeat``,
+``note_progress``), the fleet readers (``obs.fleet``: merged timelines,
+merged heartbeats, the straggler report), serving-quality drift detection
+(``obs.drift``, numpy, loaded lazily) and the memory planner
+(``obs.memory``, torch, loaded lazily).  The rest of the JAX package's
+``obs/`` (cost records, reports) comes with ROADMAP.md, A.13.
 
-from kmeans_tpu_torch.obs import identity
+``obs.heartbeat`` is the scope function, as in the JAX package (the
+module stays importable as ``kmeans_tpu_torch.obs.heartbeat``)."""
+
+from kmeans_tpu_torch.obs import fleet, identity
+from kmeans_tpu_torch.obs.heartbeat import (Heartbeat, get_heartbeat,
+                                            heartbeat, note_progress)
 from kmeans_tpu_torch.obs.metrics_registry import (REGISTRY, Counter, Gauge,
                                                    Histogram,
                                                    MetricsRegistry,
@@ -19,7 +26,8 @@ __all__ = [
     "SPAN_NAMES", "TraceReadError", "Tracer", "chrome_events", "event",
     "get_tracer", "read_jsonl", "span", "summarize", "tracing",
     "REGISTRY", "Counter", "Gauge", "Histogram", "MetricsRegistry",
-    "registry", "identity", "drift", "memory",
+    "registry", "Heartbeat", "get_heartbeat", "heartbeat",
+    "note_progress", "fleet", "identity", "drift", "memory",
 ]
 
 

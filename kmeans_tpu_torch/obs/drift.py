@@ -594,49 +594,23 @@ def _is_quality_stream(path) -> bool:
         and "model" in rec
 
 
-def _expand_paths(paths) -> List[str]:
-    """Files, directories (their sorted ``*.jsonl``) and glob patterns ->
-    file paths, first occurrence kept (the rule of the JAX package's
-    ``obs.fleet.expand_fleet_paths``, whose module the port has not
-    yet).  An input that names nothing raises :class:`TraceReadError`."""
-    import glob
-    from kmeans_tpu_torch.obs.trace import TraceReadError
-    out: List[str] = []
-    for p in paths:
-        p = str(p)
-        if os.path.isdir(p):
-            hits = sorted(glob.glob(os.path.join(p, "*.jsonl")))
-            if not hits:
-                raise TraceReadError(f"{p}: directory holds no .jsonl "
-                                     f"files")
-        elif glob.has_magic(p):
-            hits = sorted(glob.glob(p))
-            if not hits:
-                raise TraceReadError(f"{p}: glob matched no files")
-        elif not os.path.exists(p):
-            raise TraceReadError(f"cannot read trace file {p}: "
-                                 f"no such file")
-        else:
-            hits = [p]
-        out.extend(hits)
-    return list(dict.fromkeys(out))
-
-
 def quality_report(paths) -> dict:
     """Aggregate quality sinks into the ``serve-status`` payload.
 
-    ``paths``: files, directories, or globs (:func:`_expand_paths`); directories/globs keep only quality streams (trace/
-    heartbeat sinks naturally share the directory), explicit files are
-    read strictly.  Per model the CURRENT state is the newest record's
+    ``paths``: files, directories, or globs
+    (:func:`kmeans_tpu_torch.obs.fleet.expand_fleet_paths`);
+    directories/globs keep only quality streams (trace/heartbeat sinks
+    naturally share the directory), explicit files are read strictly.  Per model the CURRENT state is the newest record's
     debounced ``drifting`` flag; ``healthy`` mirrors ``fleet-status``:
     False when any model is drifting (exit 1)."""
+    from kmeans_tpu_torch.obs.fleet import expand_fleet_paths
     from kmeans_tpu_torch.obs.trace import TraceReadError
     raw = [paths] if isinstance(paths, (str, os.PathLike)) else list(paths)
     # Explicitly named files stay strict (reading one as a quality log
     # is what the caller asked for); dir/glob expansions keep only the
     # quality streams — trace/heartbeat sinks naturally co-locate.
     explicit = {str(p) for p in raw if os.path.isfile(str(p))}
-    files = _expand_paths(raw)
+    files = expand_fleet_paths(raw)
     keep = [p for p in files
             if str(p) in explicit or _is_quality_stream(p)]
     if not keep:

@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable, List, Mapping, Optional, Tuple
 
@@ -38,11 +39,23 @@ _LIBS: Dict[Tuple[str, Tuple[Tuple[str, int], ...]], ctypes.CDLL] = {}
 #: launches its kernel and nowhere else.
 LAUNCHES: Dict[str, int] = {}
 
+#: Guards every change of ``LAUNCHES``: a serving thread and a learner's
+#: update thread launch kernels at the same time, and ``+=`` on a dict
+#: entry is a read, an add and a write.
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(name: str, n: int = 1) -> None:
+    """Add ``n`` to the count of kernel ``name`` (0 where it has none)."""
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] = LAUNCHES.get(name, 0) + n
+
 
 def reset_launch_counts() -> None:
     """Set the count of every kernel of the package to 0."""
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCH_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 class KernelCompileError(RuntimeError):

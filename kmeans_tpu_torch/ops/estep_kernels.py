@@ -205,5 +205,5 @@ def launch_estep(lib: ctypes.CDLL, points: torch.Tensor,
             s2.data_ptr(), ll.data_ptr(), n, d, k, blocks,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, counter)
-    LAUNCHES[counter] += 1
+    _build.count_launch(counter)
     return rsum, s1, s2, ll

@@ -352,7 +352,7 @@ def launch_assign(lib: ctypes.CDLL, bf16: bool, points: torch.Tensor,
                     n, d, k, _blocks(dev, n, 0, rows, _per_sm(lib, bf16, d)),
                     torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, counter)
-    LAUNCHES[counter] += 1
+    _build.count_launch(counter)
     return labels, mind2
 
 
@@ -388,7 +388,7 @@ def launch_fused(lib: ctypes.CDLL, bf16: bool, points: torch.Tensor,
                     n, d, k, blocks,
                     torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, counter)
-    LAUNCHES[counter] += 1
+    _build.count_launch(counter)
     return labels, mind2, sums, counts
 
 

@@ -918,7 +918,7 @@ class _Replay:
         else:
             self.graph.replay()
             for name, count in self.graph_launches.items():
-                _build.LAUNCHES[name] += count
+                _build.count_launch(name, count)
 
     def _drive(self, in_flight: int, limit: Optional[int] = None) -> int:
         """Launch iterations until the host reads a done flag: that of

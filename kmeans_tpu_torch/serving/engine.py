@@ -4,9 +4,12 @@ to a small ladder of bucket shapes, served through the assignment kernels.
 Counterpart of the JAX package's ``serving/engine.py``:
 
 * **Resident models.**  ``add_model`` / ``load`` hold a fitted model's
-  table on the engine's device once (cached by the identity of the model's
-  ``centroids``, so a refit is picked up); the model itself is re-pointed
-  to the engine's device and mesh, so direct calls and dispatches agree.
+  table on the engine's device once: a K-Means-family table in the
+  model's own cache (``KMeans._cents_dev``, keyed by the ``centroids``
+  object it read, so a refit or a published update is picked up, and
+  every engine serving the model shares it), a mixture's E-step tables
+  in the resident's.  The model itself is re-pointed to the engine's
+  device and mesh, so direct calls and dispatches agree.
 * **Bucketed shapes.**  A request pads to the smallest bucket of the
   ladder (default 8/64/512/4096; oversize rounds up to a multiple of the
   top), so each (model, bucket) builds its step function once.
@@ -20,6 +23,9 @@ Counterpart of the JAX package's ``serving/engine.py``:
 * **Packed routing.**  Same-shape K-Means-family models stack on a model
   axis (``distributed.make_multi_predict_fn``), so a routed mixed-model
   batch is one dispatch.
+* **Serve-and-learn** (``learn=``, ``serving.learn``): a monitored
+  ``MiniBatchKMeans`` resident updates in place from its own traffic when
+  its drift monitor fires, published by one atomic swap.
 * **Quantized paths.**  ``quantize='bf16'`` assigns through the bf16 cross
   term with the near-tie guard (``make_assign_margin_fn``; flagged rows
   relabeled by the float32 predict), so labels equal the float32 path by
@@ -46,7 +52,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from kmeans_tpu_torch.models.kmeans import _later, resolve_device
+from kmeans_tpu_torch.models.kmeans import resolve_device
 from kmeans_tpu_torch.obs import drift as obs_drift
 from kmeans_tpu_torch.obs import metrics_registry as obs_metrics
 from kmeans_tpu_torch.obs import trace as obs_trace
@@ -65,6 +71,12 @@ from kmeans_tpu_torch.serving.registry import ModelRegistry
 from kmeans_tpu_torch.utils.profiling import note_dispatch
 
 __all__ = ["ServingEngine", "ResidentModel", "BF16_TIE_RTOL"]
+
+#: The ``learn=`` overrides an engine accepts (``serving.learn``'s
+#: committed rules, and the snapshot directory).
+_LEARN_KEYS = {"dir", "batch_rows", "max_batches", "reservoir_rows",
+               "min_rows", "update_budget", "rollback_budget",
+               "cooldown_windows", "regression_ratio", "eval_windows"}
 
 #: The bf16 form of each float32-class mode a quantized resident serves
 #: ``score_rows`` through ('direct' has none; the guarded rung is already
@@ -88,10 +100,23 @@ def _model_table_bytes(model) -> int:
     return total
 
 
+def refuse_multi_rank(mesh, what: str) -> None:
+    """Raise for ``what`` on a mesh of more than one rank.  Every rank of
+    a mesh runs the same collectives in the same order; a router choosing
+    by latencies measured in its own process, or a learner thread started
+    when its own rank's monitor fires, would let the ranks diverge and
+    hang.  Raised before any collective runs."""
+    data, model = mesh_shape(mesh)
+    if data * model > 1:
+        raise NotImplementedError(
+            f"{what} on a mesh of {data * model} ranks is not ported to "
+            f"kmeans_tpu_torch yet: ROADMAP.md, A.21 'Serving fleet and "
+            f"serve-and-learn on a multi-rank mesh'")
+
+
 class ResidentModel:
     """One resident model: the fitted estimator, its serving spec, its
-    device table (``table_dev``, cached by the identity of the model's
-    fitted arrays) and its counters."""
+    device table (``table_dev``), its learner and its counters."""
 
     def __init__(self, model_id: str, model, spec: dict, quantize):
         self.model_id = model_id
@@ -100,6 +125,9 @@ class ResidentModel:
         self.quantize = quantize
         # Drift monitor; None when the engine runs with quality off.
         self.monitor: Optional[obs_drift.QualityMonitor] = None
+        # serving.learn.ModelLearner; None without learn= or for a model
+        # that cannot update in place.
+        self.learner = None
         # bucket -> latency histogram, resolved once per (model, bucket).
         self._lat_hists: Dict[int, object] = {}
         self.requests = 0
@@ -125,21 +153,29 @@ class ResidentModel:
         return np.asarray(rows, dtype=dtype)
 
     def table_dev(self):
-        """The model's table on its device, uploaded once per fitted
-        array: the centroids (K-Means family), or the E-step tables of
-        ``GaussianMixture._params_dev`` (a mixture)."""
+        """The model's table on its device, placed once per fitted table.
+        K-Means family: ``KMeans._cents_dev``, which reads ``centroids``
+        once and keys the model's cache on the object it uploads (a
+        publication by ``serving.learn.publish_tables`` is seen by every
+        engine serving the model).  A mixture: the E-step tables of
+        ``GaussianMixture._params_dev``, cached here under the fitted
+        arrays it was built from; the arrays are read before and after the
+        build, and a build they changed under is redone, so the tables
+        never pair with another version's key."""
         model = self.model
-        gmm = self.spec["family"] == "gmm"
-        tokens = ((model.means_, model.covariances_, model.weights_) if gmm
-                  else (model.centroids,))
-        cached = self._table
-        if cached is not None and all(
-                a is b for a, b in zip(cached[0], tokens)):
-            return cached[1]
-        dev = (model._params_dev() if gmm
-               else model._put_centroids(model.centroids))
-        self._table = (tokens, dev)
-        return dev
+        if self.spec["family"] != "gmm":
+            return model._cents_dev()
+        while True:
+            tokens = (model.means_, model.covariances_, model.weights_)
+            cached = self._table
+            if cached is not None and all(
+                    a is b for a, b in zip(cached[0], tokens)):
+                return cached[1]
+            dev = model._params_dev()
+            if all(a is b for a, b in zip(tokens, (
+                    model.means_, model.covariances_, model.weights_))):
+                self._table = (tokens, dev)
+                return dev
 
 
 class _Staging:
@@ -190,9 +226,17 @@ class ServingEngine:
     quality_dir, quality_window, quality_tag : the drift sinks
         (``quality.<model_id>[.<tag>].jsonl``), rows per window, and the
         sink suffix.
-    learn : False
-        Serve-and-learn (``serving/learn.py``) is ROADMAP.md, A.12: any
-        other value raises ``NotImplementedError``.
+    learn : False | True | dict
+        Serve-and-learn (``serving.learn``).  ``True`` attaches a
+        :class:`~kmeans_tpu_torch.serving.learn.ModelLearner` to every
+        resident that can update in place (a monitored K-Means-family
+        model with ``partial_fit``, not ``quantize='pq'``, not two-level)
+        with the committed rules; a dict turns learning on and overrides
+        rules (``_LEARN_KEYS``; ``dir`` is the snapshot directory,
+        default ``quality_dir`` or a temporary one).  Needs quality
+        monitoring: the trigger is the drift monitor.  On a mesh of more
+        than one rank it raises ``NotImplementedError`` (ROADMAP.md,
+        A.21).
     """
 
     def __init__(self, *, device=None, mesh=None, buckets=DEFAULT_BUCKETS,
@@ -201,9 +245,6 @@ class ServingEngine:
                  quality_window: Optional[int] = None,
                  quality_tag: Optional[str] = None,
                  learn=False):
-        if learn not in (False, None):
-            raise _later("learn", learn,
-                         "A.12 'Serving' (serving/learn.py)")
         self.device = resolve_device(device)
         self.mesh = check_mesh(mesh)
         self.buckets = check_buckets(buckets)
@@ -235,6 +276,27 @@ class ServingEngine:
             if quality_window is not None else obs_drift.DRIFT_WINDOW_ROWS
         self._quality_tag = str(quality_tag) if quality_tag is not None \
             else None
+        # Serve-and-learn: None (off) or the dict of rule overrides.
+        if learn in (False, None):
+            self._learn_cfg = None
+        else:
+            if learn is not True and not isinstance(learn, dict):
+                raise ValueError(f"learn must be False, True or a dict "
+                                 f"of overrides, got {learn!r}")
+            cfg = {} if learn is True else dict(learn)
+            unknown = set(cfg) - _LEARN_KEYS
+            if unknown:
+                raise ValueError(f"unknown learn config keys "
+                                 f"{sorted(unknown)}; allowed: "
+                                 f"{sorted(_LEARN_KEYS)}")
+            if not self._quality:
+                raise ValueError(
+                    "learn requires quality monitoring: the "
+                    "serve-and-learn trigger IS the drift monitor "
+                    "(pass quality=True, or a quality_dir)")
+            refuse_multi_rank(self.mesh, "ServingEngine(learn=...)")
+            self._learn_cfg = cfg
+        self._learn_dir: Optional[str] = None   # resolved at first attach
         # Called with (model_id, op) before every dispatch — direct,
         # queued and packed; a raise here fails that dispatch.
         self.dispatch_guard = None
@@ -306,8 +368,37 @@ class ServingEngine:
             rm.monitor = obs_drift.QualityMonitor(
                 model_id, spec["k"], profile=profile,
                 window_rows=self._quality_window, sink_path=sink)
+        self._attach_learner(rm)
         self._residents[model_id] = rm
         return rm
+
+    def _attach_learner(self, rm: ResidentModel) -> None:
+        """Attach a serve-and-learn learner when the engine runs with
+        ``learn=`` and the model can update in place: monitored (the
+        trigger), ``updatable`` in its spec (a K-Means-family model with
+        ``partial_fit``), not ``quantize='pq'`` (its codes were trained
+        against the table at add time) and not two-level (its route has
+        no ``partial_fit``).  Other residents serve unchanged, with
+        ``update_status()[model_id] is None``."""
+        if self._learn_cfg is None or rm.monitor is None:
+            return
+        if not rm.spec.get("updatable") or rm.quantize == "pq":
+            return
+        if rm.spec.get("assign") == "two_level":
+            return
+        from kmeans_tpu_torch.serving import learn as serve_learn
+        if self._learn_dir is None:
+            self._learn_dir = self._learn_cfg.get("dir") \
+                or self._quality_dir
+            if self._learn_dir is None:
+                import tempfile
+                self._learn_dir = tempfile.mkdtemp(prefix="kmeans-learn-")
+        kwargs = {k: v for k, v in self._learn_cfg.items() if k != "dir"}
+        rm.learner = serve_learn.ModelLearner(
+            self, rm,
+            snapshot_path=serve_learn.snapshot_path_for(
+                self._learn_dir, rm.model_id, self._quality_tag),
+            **kwargs)
 
     def load(self, path, model_id: Optional[str] = None, *,
              quantize: Optional[str] = None) -> str:
@@ -323,6 +414,10 @@ class ServingEngine:
     def remove(self, model_id: str) -> None:
         self.registry.remove(model_id)
         rm = self._residents.pop(model_id)
+        # The learner first, joined: an update in flight finishes (or
+        # gives up unpublished) before the monitor's sink closes.
+        if rm.learner is not None:
+            rm.learner.close(join=True)
         if rm.monitor is not None:
             rm.monitor.close()
         with self._lock:
@@ -411,6 +506,16 @@ class ServingEngine:
         rm.monitor.observe(rows, labels=labels, score=score,
                            near_ties=near_ties,
                            guarded_rows=guarded_rows)
+
+    def _feed_learner(self, rm: ResidentModel, rows: np.ndarray) -> None:
+        """The learner's tap: keep this dispatch's rows (already on the
+        host) and run the O(1) trigger check.  Host-side only and never a
+        launch, warm-up probes left out, as the quality feed beside it."""
+        ln = rm.learner
+        if ln is None or self._warming():
+            return
+        ln.offer(rows)
+        ln.poke()
 
     def _fn(self, key: tuple, make: Callable) -> Callable:
         """The step function under ``key``, built at first use."""
@@ -559,6 +664,7 @@ class ServingEngine:
             labels=out if op == "predict" else None,
             score=out if op == "score_rows" else None,
             near_ties=corrected, guarded_rows=guarded)
+        self._feed_learner(rm, rows)
         return out
 
     def _assign_bf16_guarded(self, rm: ResidentModel, buf: np.ndarray,
@@ -705,7 +811,9 @@ class ServingEngine:
 
     def _pack_stack(self, ids: Tuple[str, ...]) -> torch.Tensor:
         """Device (M, k, D) centroid stack of a pack, cached and rebuilt
-        when any member's ``centroids`` object changes."""
+        when any member's ``centroids`` object changes.  Each member's
+        ``centroids`` is read once: the stack is built from the objects it
+        is keyed on."""
         rms = [self._rm(mid) for mid in ids]
         tokens = tuple(rm.model.centroids for rm in rms)
         with self._lock:
@@ -715,8 +823,8 @@ class ServingEngine:
                 return cached[1]
         dtype = np.dtype(rms[0].spec["dtype"])
         stack = torch.from_numpy(np.stack([
-            np.asarray(rm.model.centroids, dtype=dtype)
-            for rm in rms])).to(self.device)
+            np.asarray(cents, dtype=dtype) for cents in tokens])).to(
+                self.device)
         with self._lock:
             self._pack_cache[ids] = (tokens, stack)
         return stack
@@ -779,6 +887,7 @@ class ServingEngine:
         for (mid, block), lab in zip(items, results):
             self._observe_quality(rms[mid], B, dt, rows=block.shape[0],
                                   labels=lab)
+            self._feed_learner(rms[mid], block)
         return results
 
     # ----------------------------------------------- bf16 verification
@@ -930,12 +1039,18 @@ class ServingEngine:
                 "buckets": list(self.buckets),
             }
         stats["quality"] = self.quality_status()
+        if self._learn_cfg is not None:
+            stats["learn"] = self.update_status()
         return stats
 
     def update_status(self) -> dict:
-        """Per-model serve-and-learn snapshot: ``None`` for every model
-        (serve-and-learn is ROADMAP.md, A.12)."""
-        return {mid: None for mid in sorted(self._residents)}
+        """Per-model serve-and-learn snapshot (``ModelLearner.status``):
+        armed state, budgets left, reservoir fill, the pending evaluation
+        and the recent decisions; ``None`` for a model without a learner.
+        Assembled outside the engine lock (each learner takes its own)."""
+        return {mid: (rm.learner.status() if rm.learner is not None
+                      else None)
+                for mid, rm in sorted(self._residents.items())}
 
     def quality_status(self) -> dict:
         """Per-model drift-monitor snapshot; ``None`` entries mean
@@ -967,8 +1082,12 @@ class ServingEngine:
     # -------------------------------------------------------- lifecycle
 
     def close(self) -> None:
-        """Drain the queue, join its worker, close the drift-monitor sinks
+        """Join the learners (an update in flight finishes first), drain
+        the queue, join its worker, close the drift-monitor sinks
         (idempotent)."""
+        for rm in list(self._residents.values()):
+            if rm.learner is not None:
+                rm.learner.close(join=True)
         self.queue.close()
         for rm in self._residents.values():
             if rm.monitor is not None:

@@ -5,9 +5,12 @@ port keeps its own copy): the same registries, error classes and messages,
 so that an armed sequence raises at the same calls in both packages.  The
 fits of this package call :func:`on_checkpoint` after each rotating
 checkpoint write and :func:`on_segment_dispatch` before each device-loop
-segment.  The launch, update, update-evaluation and replica hooks have no
-caller in this package yet (the orchestrator, serving and serve-and-learn
-layers: ROADMAP A.12 and A.14); they are kept as registries.
+segment; the serve-and-learn learner (``serving.learn``) calls
+:func:`on_update_step` and :func:`on_update_eval`, and a fleet replica's
+``dispatch_guard`` calls the hook :func:`inject_replica_kill` arms
+(``serving.fleet._Replica.fault_hook``).  The launch hook has no caller
+in this package yet (the orchestrator's launcher: ROADMAP A.14); it is
+kept as a registry.
 
 Every recovery claim in this repo is *proved* by re-running the real code
 path under an injected, seeded failure — never by mocking the code under
@@ -345,7 +348,7 @@ def inject_oom_on_segment(j: int, times: int = 1):
                 _SEGMENT_HOOKS.remove(hook)
 
 
-# Serve-and-learn hook registries (callers: ROADMAP A.12).  The learner calls
+# Serve-and-learn hook registries (caller: serving.learn).  The learner calls
 # ``on_update_step(model_id, batch_index)`` right before feeding each
 # reservoir batch to the working clone's ``partial_fit`` (inside the
 # learner's try block, so an injected failure takes exactly the

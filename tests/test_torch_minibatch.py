@@ -440,8 +440,13 @@ def test_refusals_name_their_reasons(tmp_path, mesh1):
     with pytest.raises(NotImplementedError) as got:
         _port(k=3).fit_stream(lambda: iter([]))
     assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="A.12"):
+    # The serve-and-learn clone is ported (ROADMAP A.12): refused before a
+    # fit, detached after one.
+    with pytest.raises(ValueError, match="fitted"):
         _port(k=3)._learn_clone()
+    clone = resumed._learn_clone()
+    assert clone._seen is not resumed._seen
+    np.testing.assert_array_equal(clone._seen, resumed._seen)
     # The profile hooks are ported (ROADMAP A.13): the JAX package's values
     # before a fit and after one (lifetime counts, the fit's total weight).
     jx = kmeans_tpu.MiniBatchKMeans(k=3, verbose=False)

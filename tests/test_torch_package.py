@@ -37,6 +37,7 @@ MODULES = ["kmeans_tpu_torch", "kmeans_tpu_torch.convert",
            "kmeans_tpu_torch.models.pq",
            "kmeans_tpu_torch.models.spherical",
            "kmeans_tpu_torch.obs", "kmeans_tpu_torch.obs.drift",
+           "kmeans_tpu_torch.obs.fleet", "kmeans_tpu_torch.obs.heartbeat",
            "kmeans_tpu_torch.obs.identity", "kmeans_tpu_torch.obs.memory",
            "kmeans_tpu_torch.obs.metrics_registry",
            "kmeans_tpu_torch.obs.trace",
@@ -51,6 +52,8 @@ MODULES = ["kmeans_tpu_torch", "kmeans_tpu_torch.convert",
            "kmeans_tpu_torch.parallel.sharding",
            "kmeans_tpu_torch.serving", "kmeans_tpu_torch.serving.batching",
            "kmeans_tpu_torch.serving.engine",
+           "kmeans_tpu_torch.serving.fleet",
+           "kmeans_tpu_torch.serving.learn",
            "kmeans_tpu_torch.serving.registry",
            "kmeans_tpu_torch.suite", "kmeans_tpu_torch.sweep",
            "kmeans_tpu_torch.utils.checkpoint",
@@ -140,23 +143,26 @@ def test_exports():
 
 
 def test_serving_exports_what_is_ported():
-    """``kmeans_tpu_torch.serving`` exports the engine, queue and registry;
-    the JAX package's fleet and serve-and-learn names are absent (ROADMAP
-    A.12)."""
+    """``kmeans_tpu_torch.serving`` exports the JAX package's names: the
+    engine, queue and registry, the fleet and serve-and-learn (ROADMAP
+    A.12); ``obs`` has the heartbeat and the fleet readers, and not yet
+    the cost records or reports (A.13)."""
+    import kmeans_tpu.serving
     from kmeans_tpu_torch import obs, serving
-    assert serving.__all__ == ["ServingEngine", "ResidentModel",
-                               "MicroBatchQueue", "ServingFuture",
-                               "ServingClosedError", "ModelRegistry",
-                               "load_fitted"]
+    assert serving.__all__ == kmeans_tpu.serving.__all__ == [
+        "ServingEngine", "ResidentModel", "MicroBatchQueue",
+        "ServingFuture", "ServingClosedError", "ModelRegistry",
+        "load_fitted", "ServingFleet", "FleetFuture", "FleetOverloadError",
+        "ReplicaDeadError", "ModelLearner", "UpdateRolledBack",
+        "publish_tables"]
     for name in serving.__all__:
         assert getattr(serving, name).__module__.startswith(
             "kmeans_tpu_torch.serving.")
-    for name in ("ServingFleet", "FleetFuture", "FleetOverloadError",
-                 "ReplicaDeadError", "ModelLearner", "UpdateRolledBack",
-                 "publish_tables"):
-        assert not hasattr(serving, name), name
     assert obs.drift.__name__ == "kmeans_tpu_torch.obs.drift"
-    for name in ("heartbeat", "cost", "fleet", "report"):
+    assert obs.fleet.__name__ == "kmeans_tpu_torch.obs.fleet"
+    assert obs.heartbeat.__module__ == "kmeans_tpu_torch.obs.heartbeat"
+    assert obs.note_progress.__module__ == "kmeans_tpu_torch.obs.heartbeat"
+    for name in ("cost", "report"):
         assert not hasattr(obs, name), name
 
 

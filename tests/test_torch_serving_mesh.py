@@ -19,6 +19,9 @@ the same requests on one device and on the meshes ``data2`` (2 x 1) and
   one-device quantizer's codebooks (to the float64 class), iteration
   counts, counts and codes, on both ranks; the JAX package's fit from the
   same codebooks too.
+* ``ServingFleet`` and ``ServingEngine(learn=...)`` on either two-rank
+  mesh raise ``NotImplementedError`` naming ROADMAP A.21 on both ranks,
+  before any collective: the world's later collectives still pair up.
 """
 
 import numpy as np
@@ -125,6 +128,27 @@ def _refusals(eng, models):
     return errors
 
 
+def _multi_rank_refusals(meshes):
+    """The A.21 refusals of the fleet and of serve-and-learn on each
+    two-rank mesh: the message, or None where nothing was raised."""
+    from kmeans_tpu_torch.serving import ServingEngine, ServingFleet
+    makers = {
+        "fleet": lambda mesh: ServingFleet(2, device="cpu", mesh=mesh,
+                                           start=False),
+        "learn": lambda mesh: ServingEngine(device="cpu", mesh=mesh,
+                                            start=False, quality=True,
+                                            learn=True)}
+    out = {}
+    for name in ("data2", "model2"):
+        for what, make in makers.items():
+            try:
+                make(meshes[name]).close()
+                out[what, name] = None
+            except NotImplementedError as e:
+                out[what, name] = str(e)
+    return out
+
+
 def _world(rank, out_dir):
     from kmeans_tpu_torch import KMeans, ProductQuantizer
     from kmeans_tpu_torch.parallel.mesh import make_mesh
@@ -141,6 +165,7 @@ def _world(rank, out_dir):
             res["serve", name] = _serve(eng, models, Q, name != "model2")
             if name == "model2":
                 res["refusals"] = _refusals(eng, models)
+    res["multi_rank"] = _multi_rank_refusals(meshes)
 
     # The quantizer on the data axis against one device, and each member
     # against a standalone KMeans on the same mesh.
@@ -293,3 +318,22 @@ def test_product_quantizer_on_the_data_axis(world):
         np.testing.assert_array_equal(got[1], ref.n_iters_)
         np.testing.assert_array_equal(got[2], ref.counts_)
         np.testing.assert_array_equal(got[4], ref.encode(X))
+
+
+def test_fleet_and_learn_refuse_a_multi_rank_mesh(world):
+    """On a two-rank mesh (data or model axis) the fleet and
+    serve-and-learn raise naming ROADMAP A.21, the same on both ranks,
+    before any collective: the quantizer fits that the world runs next
+    still pair their collectives (the other tests of this module)."""
+    for res in world:
+        got = res["multi_rank"]
+        assert set(got) == {(w, m) for w in ("fleet", "learn")
+                            for m in ("data2", "model2")}
+        for (what, mesh), msg in got.items():
+            assert msg is not None, (what, mesh)
+            assert "A.21 'Serving fleet and serve-and-learn on a " \
+                "multi-rank mesh'" in msg
+            assert "on a mesh of 2 ranks" in msg
+            assert msg.startswith("ServingFleet" if what == "fleet"
+                                  else "ServingEngine(learn=...)")
+    assert world[0]["multi_rank"] == world[1]["multi_rank"]

@@ -436,12 +436,15 @@ def test_engine_device_staging_and_refusals(data):
     """``device`` as in the estimators, ``add_model`` re-points the
     model, ``donate`` reuses one staging set per bucket shape with the
     same labels, quality 'auto' is off on the CPU, and serve-and-learn
-    refuses naming its item."""
+    (ported) needs quality monitoring and takes a dict of overrides."""
     km = _port("kmeans").fit(data)
-    with pytest.raises(NotImplementedError, match="A.12"):
+    with pytest.raises(ValueError, match="drift monitor"):
         ServingEngine(device="cpu", start=False, learn=True)
-    with pytest.raises(NotImplementedError, match="serving/learn.py"):
-        ServingEngine(device="cpu", start=False, learn={"dir": "x"})
+    with ServingEngine(device="cpu", start=False, quality=True,
+                       learn={"dir": "x"}) as learning:
+        assert learning._learn_cfg == {"dir": "x"}
+        learning.add_model("m", _port("kmeans", k=4, max_iter=10).fit(data))
+        assert learning.update_status() == {"m": None}
     with pytest.raises(ValueError, match="quality"):
         ServingEngine(device="cpu", start=False, quality="yes")
     if not torch.cuda.is_available():
