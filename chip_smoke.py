@@ -120,6 +120,24 @@ bit-equal to the fits without, then the straggler report over the fleet's
 heartbeats (``heartbeat``).  Their launches go into the kernel rows'
 ``fleet_learn_launches``.
 
+Observability (``obs``): the main fit in a fresh interpreter that finds
+the kernel libraries built, by both loops, traced, its time to first
+iteration from the spans alone beside the process's wall time from before
+the import (``ttfi``); ``device_cost_report`` for the five families, then
+the main fit by both loops and in 'matmul', and the mixture's device EM
+loop, each under a cost collector (``torch.profiler`` kernels and device
+ms, the aten and declared operations, the allocator's peak beside
+``plan_fit``), bit-equal to the same fits without capture, the 'matmul'
+flops within the committed band, kernel 1's profiled ms beside phase
+``timing``'s (``cost``); the statistics pass's phase ladder in 'matmul' by
+CUDA events beside kernel 1's whole step (``phase_ladder``); the spans of
+the host loop, the segmented, killed and resumed device loop, an injected
+out-of-memory replay, the stream and ``predict_stream``, each bit-equal to
+the run untraced (``spans``); and one captured step's collective bytes
+against ``obs.fleet.comm_bytes_model`` on one NCCL rank and on the two
+gloo ranks (``comm``, agreeing on ``data2``).  Their launches go into the
+kernel rows' ``observability_launches``.
+
 Every phase prints one JSON line as it ends.  A phase that fails raises, so
 the run ends with a non-zero code and without the result line.  The last line
 is ``{"ok": true, "device": {...}}``; the line before it is the card's name
@@ -140,6 +158,7 @@ import tempfile
 import time
 import warnings
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -4649,12 +4668,12 @@ def bounds(n, d, k, fused: bool, bf16: bool = False):
     the bound of a kernel that does every operation at the float32
     non-tensor rate."""
     byt = 4 * (n * d + k * d + 2 * n)              # x, c, labels, mind2
-    # products, h - x.c, ||x||^2, h
-    product = 2 * n * k * d
-    ops = product + n * k + 2 * n * d + 2 * k * d
     if fused:
         byt += 4 * (n + k * d + k)                 # w, sums, counts
-        ops += 2 * n * d + n                       # the scatter
+    # The kernel's operations, declared once beside the wrappers (the cost
+    # records read the same function).
+    product, ops = hk.declared_operations("fused" if fused else "assign",
+                                          n, d, k)
     t_bytes = byt / PEAK_BYTES_PER_S * 1e3
     rest_ms = (ops - product) / PEAK_FP32_FLOPS * 1e3
     tensor_ms = (product / PEAK_BF16_FLOPS if bf16
@@ -4849,8 +4868,7 @@ def estep_bounds(n, d, k):
     the two kinds issue side by side, so the longer counts.  The fifth
     field puts every operation at the float32 non-tensor rate."""
     byt = 4 * (n * d + n + d + 2 * k * d + 2 * k) + 4 * (k * (2 * d + 1) + 1)
-    product = 8 * n * k * d
-    ops = product + 5 * n * k + 2 * n * d
+    product, ops = hk.declared_operations("estep", n, d, k)
     t_bytes = byt / PEAK_BYTES_PER_S * 1e3
     tensor_ms = 3 * product / PEAK_TF32_FLOPS * 1e3
     rest_ms = (ops - product) / PEAK_FP32_FLOPS * 1e3
@@ -4999,6 +5017,7 @@ def dp_child(rank: int, world: int, store: str, out: str) -> None:
     k-means++ and the mixture on the data axis.
     Writes its results and its own launch counts to ``out.<rank>``."""
     import pickle
+    from kmeans_tpu_torch.obs import cost as obs_cost
     from kmeans_tpu_torch.parallel import multihost
     from kmeans_tpu_torch.parallel.mesh import make_mesh
     from kmeans_tpu_torch.parallel.sharding import from_process_local
@@ -5025,9 +5044,15 @@ def dp_child(rank: int, world: int, store: str, out: str) -> None:
             ds = km.cache(x)
             chunk = km._chunk_for(ds)
             c_ref = torch.from_numpy(refs[prec]).to(DEV)
-            st = dist.make_step_fn(mesh, chunk_size=chunk, mode=km._mode(),
-                                   need_farthest=False, need_sse_pc=False)(
-                ds.points, ds.weights, c_ref, km._x2w(ds))
+            # The step under a cost collector: its collective bytes, the
+            # measured side of phase comm.
+            with obs_cost.collecting() as col:
+                st = dist.make_step_fn(
+                    mesh, chunk_size=chunk, mode=km._mode(),
+                    need_farthest=False, need_sse_pc=False)(
+                    ds.points, ds.weights, c_ref, km._x2w(ds))
+            step_rec = next(r for r in col.records()
+                            if r.cache == "make_step_fn")
             step_labels = ds.gather_rows(dist.make_predict_fn(
                 mesh, chunk_size=chunk, mode=km._mode())(ds.points, c_ref))
             res[(label, prec)] = dict(
@@ -5035,7 +5060,10 @@ def dp_child(rank: int, world: int, store: str, out: str) -> None:
                 iterations=km.iterations_run, sse_history=km.sse_history,
                 iter_times=km.iter_times_, fit_seconds=wall,
                 launches=launches, step_sums=st.sums.cpu(),
-                step_counts=st.counts.cpu(), step_labels=step_labels)
+                step_counts=st.counts.cpu(), step_labels=step_labels,
+                comm=dict(collective_bytes=step_rec.collective_bytes,
+                          collectives=step_rec.collectives,
+                          rows=int(ds.points.shape[0])))
     # k_shard on the model axis against the dense model-axis fit, 'matmul',
     # from the same table; and one k-sharded step's blocks.
     kmesh = make_mesh(1, DP_RANKS)
@@ -5248,6 +5276,18 @@ def phase_dp_shared_card(x, refs, seeding_idx):
                          ref["iter_times"]),
                      fit_seconds=r["fit_seconds"], launches=counts[path],
                      note=DP_NOTE)
+                # Phase comm: the step's bytes at mesh.all_reduce against
+                # the port's bill; on the data axis of two ranks they agree.
+                comm = r["comm"]
+                line = comm_line(SimpleNamespace(**comm), data_shards,
+                                 MAIN["k"], MAIN["d"], model_shards,
+                                 comm["rows"])
+                print(line["table"], flush=True)
+                emit("comm", path=path, mesh=label, rank=rank,
+                     crosscheck=line["crosscheck"], note=DP_NOTE)
+                if label == "data2":
+                    check(line["crosscheck"]["agree"] is True,
+                          f"comm {path}: {line['crosscheck']}")
     mbs = [res["minibatch"] for res in results]
     for rank, m in enumerate(mbs):
         path = f"dp_shared_card:data2:minibatch:rank{rank}"
@@ -5451,6 +5491,7 @@ def phase_dp_world1(x, refs, minibatch_ref, x_gmm, gmm_ref, stream_ref):
                          ref.iter_times_), launches=counts[path])
                 check(all(same.values()), f"{path}: not bit-identical to "
                                           f"the one-device fit: {same}")
+            _dp_world1_comm(x, mesh)
             counts["dp_world1:checkpoint:device"] = _dp_world1_checkpoint(
                 x, mesh, refs[("f32", "device")], Path(tmp))
             counts["dp_world1:minibatch:device"] = _dp_world1_minibatch(
@@ -5464,6 +5505,29 @@ def phase_dp_world1(x, refs, minibatch_ref, x_gmm, gmm_ref, stream_ref):
         finally:
             torch.distributed.destroy_process_group()
     return counts
+
+
+def _dp_world1_comm(x, mesh):
+    """Phase comm on one NCCL rank: one step of the main fit under a cost
+    collector, its collectives against the port's bill.  A world of one
+    still sends the statistics over the data axis (nothing is elided), so
+    the bill counts them too."""
+    from kmeans_tpu_torch.obs import cost as obs_cost
+    km = KMeans(k=MAIN["k"], seed=42, init="forgy", verbose=False,
+                mesh=mesh)
+    ds = km.cache(x)
+    with obs_cost.collecting() as col:
+        dist.make_step_fn(mesh, chunk_size=km._chunk_for(ds),
+                          mode=km._mode(), need_farthest=False,
+                          need_sse_pc=False)(
+            ds.points, ds.weights, x[: MAIN["k"]].contiguous(), km._x2w(ds))
+    rec = next(r for r in col.records() if r.cache == "make_step_fn")
+    line = comm_line(rec, 1, MAIN["k"], MAIN["d"])
+    print(line["table"], flush=True)
+    emit("comm", path="dp_world1", mesh="world1",
+         crosscheck=line["crosscheck"], record=_record_line(rec, 4))
+    check(rec.available and rec.collective_bytes > 0,
+          f"comm dp_world1: {_record_line(rec, 4)}")
 
 
 def _dp_world1_checkpoint(x, mesh, ref, tmp):
@@ -5588,6 +5652,467 @@ def phase_suite():
          speedup_graph_svg=svg, stderr_tail=stderr[-2000:])
     check(proc.returncode == 0 and svg, f"the suite exited "
                                         f"{proc.returncode}")
+
+
+# ----------------------------------------------- observability (A.13)
+
+#: Iterations of the fits of phases ``ttfi`` and ``spans``.
+TTFI_ITERS = 2
+SPAN = dict(iters=3, dev_iters=4, every=2, kill=2, stream_iters=2)
+#: The phase ladder: CUDA-event reps per rung, and the two chain lengths
+#: whose difference is one pass.
+LADDER_REPS = 5
+LADDER_CHAIN = (1, 3)
+#: Kernel 1's profiled device time against phase ``timing``'s CUDA-event
+#: median: a ratio outside 1 +- this is a finding to write down, not a
+#: failure.
+PROFILE_BAND = 0.15
+#: The kernels one launch of kernel 1 (``fused_assign_reduce``) runs.
+KERNEL1_PARTS = ("fused_assign_reduce_kernel", "reduce_partials_kernel",
+                 "split_centroids_kernel", "shift_kernel")
+
+#: A fresh interpreter's fit of the main shape under a tracer, for the
+#: time-to-first-iteration report: argv n, d, k, loop, repo root.  The data
+#: is made with NumPy before the clock starts; the clock starts before
+#: ``import torch`` and ``import kmeans_tpu_torch``.
+TTFI_CHILD = r"""
+import json, sys, time
+import numpy as np
+n, d, k, loop, root, iters = (int(sys.argv[1]), int(sys.argv[2]),
+                              int(sys.argv[3]), sys.argv[4], sys.argv[5],
+                              int(sys.argv[6]))
+rng = np.random.default_rng(1)
+centres = rng.uniform(-10, 10, size=(k, d)).astype(np.float32)
+x = centres[rng.integers(0, k, size=n)]
+x += rng.standard_normal((n, d), dtype=np.float32)
+t_start = time.perf_counter()
+sys.path.insert(0, root)
+import torch
+from kmeans_tpu_torch import KMeans, obs
+from kmeans_tpu_torch.ops import _build
+from kmeans_tpu_torch.parallel import distributed as dist
+with obs.tracing() as tr:
+    km = KMeans(k=k, max_iter=iters, seed=42, init="forgy",
+                tolerance=1e-30, compute_labels=False, verbose=False,
+                host_loop=loop == "host", device="cuda")
+    km.fit(x)
+recs = tr.records()
+rows = obs.time_to_first_iteration(recs)
+first = min((r for r in recs if r.get("kind") == "span"
+             and r["name"] == "dispatch"), key=lambda r: r["t0"])
+via = [(r.get("attrs") or {}).get("via") for r in recs
+       if r.get("kind") == "span" and r["name"] == "compile"]
+print(json.dumps({"rows": rows, "table": obs.format_phase_table(rows),
+                  "wall": tr._t0 - t_start + first["t1"], "via": via,
+                  "libraries": len(_build._LIBS),
+                  "captures": sum(dist.CAPTURES.values()),
+                  "loop_path": km.loop_path_,
+                  "iterations": km.iterations_run}))
+"""
+
+
+def phase_ttfi():
+    """The main fit in a fresh interpreter that finds the kernel libraries
+    built, by the host and by the device loop, each in its own process:
+    the time-to-first-iteration table from its spans alone
+    (``obs.time_to_first_iteration``), beside the process's wall time from
+    before ``import torch`` to the end of the first dispatch.  Every row
+    >= 0, their sum at most that wall time, one ``compile`` span per
+    library loaded and one per graph captured, none for ``nvcc``.  No cost
+    collector is on (its profiler's start-up would land in a span)."""
+    root = str(Path(__file__).resolve().parent)
+    for loop in ("host", "device"):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", TTFI_CHILD, str(MAIN["n"]),
+             str(MAIN["d"]), str(MAIN["k"]), loop, root, str(TTFI_ITERS)],
+            capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"ttfi {loop}: exit {proc.returncode}"
+                                    f": {proc.stderr[-3000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(res["table"], flush=True)
+        rows = {r["phase"]: r["ms"] for r in res["rows"]}
+        total = sum(rows.values()) / 1e3
+        loads = res["via"].count("load")
+        graphs = res["via"].count("graph-capture")
+        emit("ttfi", loop=loop, rows_ms=rows, rows_seconds=total,
+             wall_seconds_import_to_first_dispatch=res["wall"],
+             compile_spans=res["via"], libraries=res["libraries"],
+             captures=res["captures"], iterations=res["iterations"],
+             process_seconds=time.perf_counter() - t0)
+        check(res["loop_path"] == loop and all(v >= 0 for v in rows.values())
+              and total <= res["wall"]
+              and list(rows) == ["place", "stage", "trace", "compile",
+                                 "seed", "first_dispatch"],
+              f"ttfi {loop}: rows {rows} sum {total} s, wall "
+              f"{res['wall']} s")
+        check(loads == res["libraries"] and graphs == res["captures"]
+              and graphs == (1 if loop == "device" else 0)
+              and "nvcc" not in res["via"],
+              f"ttfi {loop}: compile spans {res['via']} for "
+              f"{res['libraries']} libraries, {res['captures']} captures")
+
+
+def _record_line(rec, top: int = 8) -> dict:
+    """A cost record's measured figures, its heaviest device kernels."""
+    return {"program": rec.cache, "region": rec.region,
+            "available": rec.available, "error": rec.error,
+            "flops": rec.flops, "flops_source": rec.flops_source,
+            "flops_aten": rec.flops_aten,
+            "flops_declared": rec.flops_declared,
+            "device_ms": rec.device_ms,
+            "kernels": (rec.kernels or [])[:top],
+            "hand_kernel_launches": rec.launches,
+            "peak_bytes": rec.peak_bytes, "arg_bytes": rec.arg_bytes,
+            "out_bytes": rec.out_bytes, "temp_bytes": rec.temp_bytes,
+            "collective_bytes": rec.collective_bytes}
+
+
+def _kernel1_ms(rec) -> float:
+    """Kernel 1's profiled milliseconds per launch in a record."""
+    ms = sum(k["ms"] for k in rec.kernels or []
+             if any(k["name"].startswith(part) for part in KERNEL1_PARTS))
+    return ms / max(rec.launches.get("fused_assign_reduce", 0), 1)
+
+
+def _captured(fit):
+    """``fit()`` under a cost collector, counted: ``(model, launches,
+    records)``."""
+    from kmeans_tpu_torch.obs import cost
+    with cost.collecting() as col:
+        model, _, launches = counted(fit)
+    return model, launches, col.records()
+
+
+def phase_cost(x, c0, x_gmm, kernel1_ms):
+    """Cost records measured on the card (``obs.cost``):
+    ``device_cost_report`` at ``REPORT_SPECS`` for the five families; the
+    main fit by the host and by the device loop (kernel 1) and in the
+    'matmul' mode; the mixture by the device EM loop (``diag_estep``).
+    Each record's kernels with their device ms and launches, its flops
+    and their source, its peak beside ``plan_fit``'s.  Checks: every
+    captured fit bit-equal to the same fit without capture, with equal
+    launches; the 'matmul' step's aten count within
+    ``FLOPS_AGREEMENT_RTOL`` of 4 n D k.  Kernel 1's profiled ms against
+    phase ``timing``'s CUDA-event median is printed (outside
+    ``PROFILE_BAND``: a finding)."""
+    from kmeans_tpu_torch import obs
+    from kmeans_tpu_torch.obs import cost, memory
+    n, d = x.shape
+    k = MAIN["k"]
+    rep = obs.device_cost_report(device=DEV)
+    print(obs.format_cost_table(rep["rows"]), flush=True)
+    print(memory.format_plan_table(rep["plans"], device=DEV), flush=True)
+    for row, plan in zip(rep["rows"], rep["plans"]):
+        emit("cost", what="device_cost_report", family=row["family"],
+             mode=row["mode"], n=row["n"], d=row["d"], k=row["k"],
+             program=row["program"], region=row.get("region"),
+             flops=row.get("flops"), flops_source=row.get("flops_source"),
+             analytic_flops=row.get("analytic_flops"),
+             ratio=row.get("ratio"), device_ms=row.get("device_ms"),
+             kernels=(row.get("kernels") or [])[:6],
+             peak_bytes=row.get("peak_bytes"),
+             predicted_peak_bytes=plan["predicted_peak_bytes"],
+             observed_over_predicted=(
+                 row["peak_bytes"] / plan["predicted_peak_bytes"]
+                 if row.get("peak_bytes") else None))
+        check(row["available"], f"cost: {row['family']} record not "
+                                f"available: {row.get('error')}")
+    counts = {}
+    kw = dict(k=k, max_iter=2, seed=42, init=c0, tolerance=1e-30,
+              compute_labels=False, verbose=False, device=DEV)
+    for label, extra in (("host", dict(host_loop=True)),
+                         ("device", dict(host_loop=False)),
+                         ("matmul", dict(host_loop=True,
+                                         distance_mode="matmul"))):
+        plain, _, plain_launches = counted(
+            lambda: KMeans(**kw, **extra).fit(x))
+        model, launches, recs = _captured(
+            lambda: KMeans(**kw, **extra).fit(x))
+        step = max((r for r in recs if r.flops), key=lambda r: r.flops)
+        mode = model._mode()
+        plan = memory.plan_fit("kmeans", n, d, k, mode=mode,
+                               chunk=model._chunk_for(model.cache(x)),
+                               device=DEV)
+        line = _record_line(step)
+        line.update(path=f"cost:{label}", mode=mode,
+                    predicted_peak_bytes=plan["predicted_peak_bytes"],
+                    observed_over_predicted=(
+                        step.peak_bytes / plan["predicted_peak_bytes"]
+                        if step.peak_bytes else None),
+                    bit_equal=same_fit(model, plain),
+                    launches_equal=launches == plain_launches,
+                    records=len(recs))
+        if mode == "kernel":
+            ms = _kernel1_ms(step)
+            line.update(kernel1_profiled_ms=ms,
+                        kernel1_timing_ms=kernel1_ms,
+                        profiled_over_timing=ms / kernel1_ms,
+                        within_band=abs(ms / kernel1_ms - 1.0)
+                        <= PROFILE_BAND)
+        if label == "matmul":
+            chk = cost.crosscheck(cost.analytic_step_flops("kmeans", n, d,
+                                                           k), step)
+            line["crosscheck"] = chk
+            check(chk["agree"], f"cost: the 'matmul' flops crosscheck "
+                                f"{chk}")
+        emit("cost", **line)
+        check(step.available and line["bit_equal"]
+              and line["launches_equal"],
+              f"cost:{label}: available {step.available} ({step.error}), "
+              f"bit-equal {line['bit_equal']}, launches {launches} "
+              f"against {plain_launches}")
+        counts[f"cost:{label}"] = {n_: c for n_, c in launches.items() if c}
+    gkw = dict(n_components=GMM["k"], covariance_type="diag",
+               init_params="random", max_iter=2, tol=0.0, seed=7,
+               host_loop=False, verbose=False, device=DEV)
+    plain, _, plain_launches = counted(
+        lambda: GaussianMixture(**gkw).fit(x_gmm))
+    model, launches, recs = _captured(
+        lambda: GaussianMixture(**gkw).fit(x_gmm))
+    loop = next(r for r in recs if r.cache in ("make_gmm_fit_fn",
+                                                "make_gmm_multi_fit_fn"))
+    plan = memory.plan_fit("gmm", x_gmm.shape[0], x_gmm.shape[1], GMM["k"],
+                           mode=model.estep_path_, device=DEV)
+    line = _record_line(loop)
+    line.update(path="cost:gmm_device", mode=model.estep_path_,
+                estep_ms=sum(k_["ms"] for k_ in loop.kernels or []
+                             if k_["name"].startswith("estep")),
+                predicted_peak_bytes=plan["predicted_peak_bytes"],
+                bit_equal=same_mixture(model, plain),
+                launches_equal=launches == plain_launches)
+    emit("cost", **line)
+    check(loop.available and line["bit_equal"] and line["launches_equal"]
+          and loop.launches.get("diag_estep", 0) == 1,
+          f"cost:gmm_device: {line}")
+    counts["cost:gmm_device"] = {n_: c for n_, c in launches.items() if c}
+    return counts
+
+
+def phase_ladder(x, c, kernel1_ms):
+    """``measure_phase_ladder`` over ``make_estep_phase_fn`` ('distance',
+    'assign', 'reduce') in the 'matmul' mode at the main shape, each rung
+    the difference of two chain lengths timed by CUDA events
+    (``utils.profiling.Timer``), ``LADDER_REPS`` reps; the ceiling table at
+    4 n D k operations and the float32 rate that ``bounds`` uses, with
+    kernel 1's whole step beside it.  The kernel modes refuse a ladder."""
+    from kmeans_tpu_torch import obs
+    from kmeans_tpu_torch.utils import profiling
+    n, d = x.shape
+    k = c.shape[0]
+    w = torch.ones(n, device=DEV)
+    chunk = sharding.choose_chunk_size(n, k, d)
+    fns = {(phase, it): dist.make_estep_phase_fn(
+        None, chunk_size=chunk, n_iters=it, phase=phase)
+        for phase in dist.ESTEP_PHASES for it in LADDER_CHAIN}
+    try:
+        dist.make_estep_phase_fn(None, chunk_size=chunk, n_iters=1,
+                                 phase="reduce", mode="kernel")
+        refused = False
+    except ValueError:
+        refused = True
+
+    def rung(phase):
+        def measure():
+            t = {}
+            for it in LADDER_CHAIN:
+                timer = profiling.Timer()
+                with timer.measure(sync_on=x):
+                    fns[phase, it](x, w, c)
+                t[it] = timer.total
+            lo, hi = LADDER_CHAIN
+            return (t[hi] - t[lo]) / (hi - lo)
+        return phase, measure
+
+    for phase in dist.ESTEP_PHASES:
+        fns[phase, LADDER_CHAIN[0]](x, w, c)
+    torch.cuda.synchronize()
+    ladder = profiling.measure_phase_ladder(
+        [rung(p) for p in dist.ESTEP_PHASES], reps=LADDER_REPS)
+    rows = profiling.phase_ceiling_table(
+        ladder, flops_per_iter=4.0 * n * d * k,
+        peak_tflops=PEAK_FP32_FLOPS / 1e12)
+    print(obs.format_phase_table(rows, title="phase ladder ('matmul', "
+                                             "one pass)"), flush=True)
+    full_ms = ladder[-1]["cumulative"] * 1e3
+    emit("phase_ladder", n=n, d=d, k=k, chunk=chunk, reps=LADDER_REPS,
+         chain=list(LADDER_CHAIN), rows=profiling.sanitize_json(rows),
+         matmul_pass_ms=full_ms, kernel1_full_step_ms=kernel1_ms,
+         matmul_over_kernel1=full_ms / kernel1_ms,
+         kernel_modes_refused=refused)
+    check(refused and all(r["ms"] >= 0 for r in rows) and full_ms > 0,
+          f"phase_ladder: {rows}, kernel modes refused {refused}")
+
+
+def _spans(recs, name, **attrs):
+    return [r for r in recs if r.get("kind") == "span"
+            and r["name"] == name
+            and all((r.get("attrs") or {}).get(a) == v
+                    for a, v in attrs.items())]
+
+
+def _traced(fn):
+    """``fn()`` under a tracer, counted: ``(result, launches, records)``."""
+    from kmeans_tpu_torch import obs
+    with obs.tracing() as tr:
+        out, _, launches = counted(fn)
+    return out, launches, tr.records()
+
+
+def phase_spans(x, stream_path, c0, tmp):
+    """The lifecycle spans of the port on the card, each traced run
+    bit-equal to the same run untraced with equal launches: the main fit
+    by the host loop (``lloyd/step`` per iteration, ``place``, ``stage``,
+    ``seed``, one ``fleet.barrier``); the device loop with
+    ``checkpoint_every=2`` (one ``segment`` and one ``checkpoint.save`` per
+    segment), killed and resumed (``checkpoint.restore``), and under
+    ``inject_oom_on_segment(1)`` (the attempts nested in one segment); the
+    main stream at ``prefetch`` 2 (one ``io.block`` per block read, one
+    ``stage(via='prefetch')`` and one ``stream/block`` per block) and its
+    ``predict_stream``.  Prints the median host-loop iteration time traced
+    and untraced."""
+    counts = {}
+    kw = dict(k=MAIN["k"], max_iter=SPAN["iters"], seed=42, init="forgy",
+              tolerance=1e-30, compute_labels=False, verbose=False,
+              device=DEV)
+    plain, _, plain_l = counted(lambda: KMeans(**kw).fit(x))
+    traced, launches, recs = _traced(lambda: KMeans(**kw).fit(x))
+    n_it = traced.iterations_run
+    steps = _spans(recs, "dispatch", tag="lloyd/step")
+    barriers = [r for r in recs if r.get("name") == "fleet.barrier"]
+    host = dict(bit_equal=same_fit(plain, traced),
+                launches_equal=plain_l == launches, iterations=n_it,
+                dispatch_spans=len(steps),
+                place=len(_spans(recs, "place")),
+                stage=len(_spans(recs, "stage")),
+                seed=len(_spans(recs, "seed")), barriers=len(barriers),
+                iteration_seconds_traced=statistics.median(
+                    traced.iter_times_),
+                iteration_seconds_untraced=statistics.median(
+                    plain.iter_times_))
+    emit("spans", path="spans:host", **host)
+    check(host["bit_equal"] and host["launches_equal"]
+          and len(steps) == n_it and host["place"] == 1
+          and host["stage"] >= 1 and host["seed"] == 1
+          and len(barriers) == 1, f"spans:host: {host}")
+    counts["spans:host"] = {n_: c for n_, c in launches.items() if c}
+
+    dkw = dict(kw, max_iter=SPAN["dev_iters"], host_loop=False)
+    every = SPAN["every"]
+    plain, _, plain_l = counted(lambda: KMeans(**dkw).fit(
+        x, checkpoint_every=every, checkpoint_path=tmp / "plain.npz"))
+    seg, launches, recs = _traced(lambda: KMeans(**dkw).fit(
+        x, checkpoint_every=every, checkpoint_path=tmp / "seg.npz"))
+    segs = _spans(recs, "segment")
+    attempts = _spans(recs, "dispatch", tag="fit/segment")
+    saves = _spans(recs, "checkpoint.save")
+    line = dict(bit_equal=same_fit(plain, seg),
+                launches_equal=plain_l == launches,
+                segments=seg.checkpoint_segments_, segment_spans=len(segs),
+                attempt_spans=len(attempts), saves=len(saves),
+                mem_plans=sum(r.get("name") == "mem.plan" for r in recs),
+                graph_captures=len(_spans(recs, "compile",
+                                          via="graph-capture")))
+    emit("spans", path="spans:segmented", **line)
+    check(line["bit_equal"] and line["launches_equal"]
+          and len(segs) == len(attempts) == len(saves)
+          == seg.checkpoint_segments_ == line["mem_plans"],
+          f"spans:segmented: {line}")
+    counts["spans:segmented"] = {n_: c for n_, c in launches.items() if c}
+
+    path = tmp / "killed.npz"
+    _, _, recs_k = _traced(lambda: killed(lambda: KMeans(**dkw).fit(
+        x, checkpoint_every=every, checkpoint_path=path), SPAN["kill"],
+        "spans:killed"))
+    resumed, _, recs_r = _traced(lambda: KMeans(**dkw).fit(
+        x, resume=path, checkpoint_every=every, checkpoint_path=path))
+    line = dict(bit_equal=same_fit(plain, resumed),
+                killed_saves=len(_spans(recs_k, "checkpoint.save")),
+                restores=len(_spans(recs_r, "checkpoint.restore")),
+                resumed_segments=len(_spans(recs_r, "segment")))
+    emit("spans", path="spans:resumed", **line)
+    check(line["bit_equal"] and line["restores"] >= 1
+          and line["resumed_segments"] == resumed.checkpoint_segments_
+          and line["killed_saves"] == SPAN["kill"] // every,
+          f"spans:resumed: {line}")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        with faults.inject_oom_on_segment(1) as rec:
+            oom, launches, recs = _traced(lambda: KMeans(**dkw).fit(
+                x, checkpoint_every=every, checkpoint_path=tmp / "oom.npz"))
+    segs = {r["id"]: r for r in _spans(recs, "segment")}
+    attempts = _spans(recs, "dispatch", tag="fit/segment")
+    replayed = [a for a in attempts if a["attrs"].get("attempt") == 1]
+    line = dict(fired=rec["fired"], backoffs=oom.oom_backoffs_,
+                bit_equal=same_fit(plain, oom),
+                segment_spans=len(segs), segments=oom.checkpoint_segments_,
+                attempt_spans=len(attempts),
+                replay_in_its_segment=bool(replayed)
+                and replayed[0]["parent"] in segs)
+    emit("spans", path="spans:oom", **line)
+    check(rec["fired"] == 1 and line["bit_equal"]
+          and len(segs) == oom.checkpoint_segments_
+          and len(attempts) == len(segs) + 1 and len(replayed) == 1
+          and line["replay_in_its_segment"], f"spans:oom: {line}")
+
+    skw = dict(k=MAIN["k"], max_iter=SPAN["stream_iters"], init=c0,
+               tolerance=1e-30, verbose=False, device=DEV)
+    blocks = -(-MAIN["n"] // STREAM["rows"])
+
+    def stream():
+        return KMeans(**skw).fit_stream(
+            iter_npy_blocks(stream_path, STREAM["rows"]), d=MAIN["d"],
+            prefetch=2)
+    plain, _, plain_l = counted(stream)
+    traced, launches, recs = _traced(stream)
+    epochs = traced.iterations_run
+    line = dict(bit_equal=same_fit(plain, traced),
+                launches_equal=plain_l == launches, epochs=epochs,
+                blocks=blocks,
+                io_block_reads=len([r for r in _spans(recs, "io.block")
+                                    if "offset" in r.get("attrs", {})]),
+                prefetch_stages=len(_spans(recs, "stage", via="prefetch")),
+                block_dispatches=len(_spans(recs, "dispatch",
+                                            tag="stream/block")))
+    emit("spans", path="spans:stream", **line)
+    check(line["bit_equal"] and line["launches_equal"]
+          and line["io_block_reads"] == line["prefetch_stages"]
+          == line["block_dispatches"] == blocks * epochs,
+          f"spans:stream: {line}")
+    counts["spans:stream"] = {n_: c for n_, c in launches.items() if c}
+
+    def predict():
+        return np.concatenate(list(traced.predict_stream(
+            iter_npy_blocks(stream_path, STREAM["rows"]), prefetch=2)))
+    labels, _, plain_l = counted(predict)
+    labels_t, launches, recs = _traced(predict)
+    line = dict(labels_equal=bool(np.array_equal(labels, labels_t)),
+                launches_equal=plain_l == launches,
+                io_block_reads=len([r for r in _spans(recs, "io.block")
+                                    if "offset" in r.get("attrs", {})]),
+                hopper_assign=launches.get("hopper_assign", 0))
+    emit("spans", path="spans:predict_stream", **line)
+    check(line["labels_equal"] and line["launches_equal"]
+          and line["io_block_reads"] == blocks
+          and line["hopper_assign"] == blocks,
+          f"spans:predict_stream: {line}")
+    counts["spans:predict_stream"] = {n_: c for n_, c in launches.items()
+                                      if c}
+    return counts
+
+
+def comm_line(rec, data_shards: int, k: int, d: int,
+              model_shards: int = 1, rows: int = 0) -> dict:
+    """A captured step's collective bytes against the port's bill
+    (``obs.fleet.comm_bytes_model`` of a step that sends neither the
+    per-cluster SSE nor the farthest point)."""
+    from kmeans_tpu_torch.obs import fleet
+    model = fleet.comm_bytes_model("kmeans", k=k, d=d,
+                                   data_shards=data_shards,
+                                   model_shards=model_shards, rows=rows)
+    chk = fleet.comm_crosscheck(model, rec)
+    return {"crosscheck": chk, "table": fleet.format_comm_table(model, chk)}
 
 
 def main() -> None:
@@ -5759,6 +6284,18 @@ def main() -> None:
         gmm_launches))
     rows += phase_lab(x_main, c_main, rows)
 
+    # Observability on the card: time to first iteration, cost records,
+    # the phase ladder and the lifecycle spans (each path's counters
+    # zeroed just before it and read just after it).
+    kernel1_ms = next(r["ms"] for r in rows
+                      if r["name"] == "fused_assign_reduce")
+    phase_ttfi()
+    obs_counts = phase_cost(x_main, c0, x_gmm, kernel1_ms)
+    phase_ladder(x_main, c_main, kernel1_ms)
+    with tempfile.TemporaryDirectory() as span_tmp:
+        obs_counts.update(phase_spans(x_main, stream_ref[0], c0,
+                                      Path(span_tmp)))
+
     # The mesh: two gloo ranks sharing the card (K-Means on a data and a
     # model axis, process-local k-means++, the mixture on a data axis), one
     # NCCL rank in this process, then the suite.  Each rank counts its own
@@ -5811,6 +6348,9 @@ def main() -> None:
             path: n for path, n in by_path.items() if n}
         row["fleet_learn_launches"] = {
             path: c[row["name"]] for path, c in fleet_counts.items()
+            if c.get(row["name"], 0) > 0}
+        row["observability_launches"] = {
+            path: c[row["name"]] for path, c in obs_counts.items()
             if c.get(row["name"], 0) > 0}
         if row["name"] in bucket_times:
             row["bucket_shapes"] = bucket_times[row["name"]]

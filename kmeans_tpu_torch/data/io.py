@@ -39,6 +39,8 @@ import torch
 
 from kmeans_tpu_torch.data.prefetch import (check_prefetch, close_source,
                                             prefetch_iter)
+from kmeans_tpu_torch.obs import metrics_registry as _obs_metrics
+from kmeans_tpu_torch.obs import trace as _obs_trace
 from kmeans_tpu_torch.parallel import mesh as _mesh
 from kmeans_tpu_torch.parallel.sharding import (ShardedDataset,
                                                 _validate_sample_weight,
@@ -103,6 +105,7 @@ def retry_call(fn: Callable, *, retries: int, backoff: float,
             attempt += 1
             if stats is not None:
                 stats.retries_used += 1
+            _obs_metrics.REGISTRY.counter("io.retries").inc()
             if _interruptible_sleep(backoff * (2.0 ** (attempt - 1)),
                                     abort):
                 raise
@@ -167,6 +170,7 @@ class _ResilientBlockIter:
                 attempt += 1
                 if self._stats is not None:
                     self._stats.retries_used += 1
+                _obs_metrics.REGISTRY.counter("io.retries").inc()
                 if _interruptible_sleep(
                         self._backoff * (2.0 ** (attempt - 1)),
                         self._abort):
@@ -178,7 +182,9 @@ class _ResilientBlockIter:
     def __next__(self):
         while True:
             try:
-                item = self._next_raw()
+                # One block read, its retries included.
+                with _obs_trace.span("io.block", index=self._pos):
+                    item = self._next_raw()
             except StopIteration:
                 if self._stats is not None:
                     self._stats.blocks_skipped = self._skipped
@@ -199,6 +205,7 @@ class _ResilientBlockIter:
             self._skipped += 1
             if self._stats is not None:
                 self._stats.blocks_skipped_total += 1
+            _obs_metrics.REGISTRY.counter("io.blocks_skipped").inc()
 
     def abort(self) -> None:
         self._abort.set()
@@ -447,10 +454,14 @@ def iter_npy_blocks(path, block_rows: int, *, dtype=None,
             raise ValueError(f"{path} must contain a 2-D array, "
                              f"got shape {arr.shape}")
         for start in range(0, arr.shape[0], block_rows):
-            block = retry_call(
-                lambda: np.asarray(arr[start: start + block_rows]),
-                retries=io_retries, backoff=io_backoff, stats=io_stats,
-                what=f"block rows [{start}, {start + block_rows})")
+            with _obs_trace.span("io.block", offset=start,
+                                 rows=min(block_rows,
+                                          arr.shape[0] - start)):
+                block = retry_call(
+                    lambda: np.asarray(arr[start: start + block_rows]),
+                    retries=io_retries, backoff=io_backoff,
+                    stats=io_stats,
+                    what=f"block rows [{start}, {start + block_rows})")
             yield block if dtype is None else block.astype(dtype)
 
     def make_blocks():

@@ -42,6 +42,8 @@ import queue
 import threading
 from typing import Callable, Iterable, Iterator, Optional
 
+from kmeans_tpu_torch.obs import trace as _obs_trace
+
 __all__ = ["prefetch_iter", "check_prefetch", "close_source",
            "abort_source", "THREAD_NAME"]
 
@@ -138,7 +140,14 @@ class _PrefetchIterator:
     def _produce(self, it, stage) -> None:
         try:
             for item in it:
-                staged = stage(item) if stage is not None else item
+                # The producer's share runs under a 'stage' span from this
+                # thread, so a timeline shows block i+1's copy beside the
+                # consumer's dispatch of block i.
+                if stage is not None:
+                    with _obs_trace.span("stage", via="prefetch"):
+                        staged = stage(item)
+                else:
+                    staged = item
                 if not self._put(("item", staged)):
                     return                      # closed early
                 del staged                      # the queue owns it now

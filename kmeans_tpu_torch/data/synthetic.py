@@ -28,6 +28,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from kmeans_tpu_torch.obs import metrics_registry as _obs_metrics
+from kmeans_tpu_torch.obs import trace as _obs_trace
+
 #: Distributions of :func:`device_shards` and :func:`host_equivalent`.
 SYNTH_KINDS = ("normal", "uniform", "blobs")
 #: Uniforms summed per 'normal' value.
@@ -207,12 +210,16 @@ def device_shards(n_samples: int, n_features: int, *, mesh=None,
     chunk = chunk_size or choose_chunk_size(block, k_hint, d)
     kw = dict(kind=kind, seed=seed, dtype=dtype, low=low, high=high,
               centers=centers, device=device)
-    if mesh is None:
-        x, w = generate_rows(0, n, n, d, **kw)
-        return Dataset(x, w, chunk=chunk,
-                       explicit_chunk=chunk_size is not None)
-    lo = _mesh.coords(mesh)[0] * block
-    x, w = generate_rows(lo, block, n, d, **kw)
+    # The rows are made where they live: the host moves no bytes, and the
+    # span lands the generation on the ingest timeline (the reference's).
+    with _obs_trace.span("stage", rows=n, bytes=0, ingest="synthetic"):
+        _obs_metrics.REGISTRY.counter("ingest.slabs").inc()
+        if mesh is None:
+            x, w = generate_rows(0, n, n, d, **kw)
+            return Dataset(x, w, chunk=chunk,
+                           explicit_chunk=chunk_size is not None)
+        lo = _mesh.coords(mesh)[0] * block
+        x, w = generate_rows(lo, block, n, d, **kw)
     return ShardedDataset(x, w, mesh, n=n, offset=min(lo, n),
                           local_rows=max(0, min(block, n - lo)), chunk=chunk,
                           explicit_chunk=chunk_size is not None)

@@ -34,6 +34,7 @@ from kmeans_tpu_torch.models.kmeans import KMeans
 from kmeans_tpu_torch.obs.heartbeat import note_progress as obs_note_progress
 from kmeans_tpu_torch.parallel import distributed as dist
 from kmeans_tpu_torch.parallel.mesh import is_primary
+from kmeans_tpu_torch.parallel.multihost import fleet_barrier
 from kmeans_tpu_torch.parallel.sharding import (ShardedDataset,
                                                 choose_chunk_size)
 from kmeans_tpu_torch.utils.logging import IterationLogger
@@ -117,6 +118,7 @@ class BisectingKMeans(KMeans):
         log = IterationLogger(self.verbose and
                               is_primary(self._resolve_mesh()))
         ds = self.cache(X, sample_weight)
+        fleet_barrier("fit-start", ds.mesh)
         mode = self._mode()
         chunk = self._chunk_for(ds)
         step_fn = dist.make_step_fn(ds.mesh, chunk_size=chunk, mode=mode,

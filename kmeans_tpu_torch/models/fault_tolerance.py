@@ -39,7 +39,10 @@ import warnings
 
 import torch
 
+from kmeans_tpu_torch.obs import memory as obs_memory
+from kmeans_tpu_torch.obs import trace as obs_trace
 from kmeans_tpu_torch.obs.heartbeat import note_progress as obs_note_progress
+from kmeans_tpu_torch.obs.metrics_registry import REGISTRY as obs_registry
 from kmeans_tpu_torch.parallel.sharding import backoff_chunk
 from kmeans_tpu_torch.utils import checkpoint as ckpt
 from kmeans_tpu_torch.utils import faults
@@ -151,43 +154,58 @@ class AutoCheckpointMixin:
         retried block, so an OOM raised by a launch is caught here too.
         Before a replay the failed attempt's memory is returned to the
         device (``torch.cuda.empty_cache``).  Returns ``(result, chunk)``,
-        the chunk that succeeded; later segments keep it."""
+        the chunk that succeeded; later segments keep it.
+
+        Under a tracer (the reference's spans): one ``segment`` span wraps
+        the retry loop, each attempt a nested ``dispatch`` span
+        (``tag='fit/segment'``, its chunk and attempt index), so a replayed
+        segment adds attempts inside the same segment span; the segment
+        opens with the advisory ``obs.memory.advise_dispatch``.  A backoff
+        also counts ``fit.oom_backoffs`` in the registry."""
         cuda = self.device.type == "cuda"
-        while True:
-            try:
-                faults.on_segment_dispatch(segment, chunk)
-                result = dispatch(chunk)
+        attempt = 0
+        with obs_trace.span("segment", index=segment):
+            obs_memory.advise_dispatch(self, chunk, segment=segment)
+            while True:
+                try:
+                    with obs_trace.span("dispatch", tag="fit/segment",
+                                        chunk=chunk, attempt=attempt):
+                        faults.on_segment_dispatch(segment, chunk)
+                        result = dispatch(chunk)
+                        if cuda:
+                            torch.cuda.synchronize(self.device)
+                    return result, chunk
+                except Exception as e:      # noqa: BLE001 — reclassified
+                    if not is_oom_error(e):
+                        raise
+                    smaller = backoff_chunk(chunk)
+                    if smaller is None or \
+                            self.oom_backoffs_ >= MAX_OOM_BACKOFFS:
+                        raise RuntimeError(
+                            f"{e}; chunk backoff exhausted at {chunk} "
+                            f"rows after {self.oom_backoffs_} "
+                            f"halving(s) — this working set does not "
+                            f"fit at the minimum scan chunk; shrink "
+                            f"k/D, add devices, or resume the "
+                            f"checkpoint on a larger mesh") from e
+                    attempt += 1
+                    self.oom_backoffs_ += 1
+                    self.effective_chunk_ = smaller
+                    obs_registry.counter("fit.oom_backoffs").inc()
+                    warnings.warn(
+                        f"device OOM dispatching segment {segment} at "
+                        f"chunk {chunk}; retrying at chunk {smaller} "
+                        f"(backoff {self.oom_backoffs_}/"
+                        f"{MAX_OOM_BACKOFFS}; the segment replays from "
+                        f"the last checkpoint boundary, trajectory "
+                        f"unchanged)", UserWarning, stacklevel=3)
+                    chunk = smaller
                 if cuda:
-                    torch.cuda.synchronize(self.device)
-                return result, chunk
-            except Exception as e:          # noqa: BLE001 — reclassified
-                if not is_oom_error(e):
-                    raise
-                smaller = backoff_chunk(chunk)
-                if smaller is None or \
-                        self.oom_backoffs_ >= MAX_OOM_BACKOFFS:
-                    raise RuntimeError(
-                        f"{e}; chunk backoff exhausted at {chunk} "
-                        f"rows after {self.oom_backoffs_} "
-                        f"halving(s) — this working set does not "
-                        f"fit at the minimum scan chunk; shrink "
-                        f"k/D, add devices, or resume the "
-                        f"checkpoint on a larger mesh") from e
-                self.oom_backoffs_ += 1
-                self.effective_chunk_ = smaller
-                warnings.warn(
-                    f"device OOM dispatching segment {segment} at "
-                    f"chunk {chunk}; retrying at chunk {smaller} "
-                    f"(backoff {self.oom_backoffs_}/{MAX_OOM_BACKOFFS}; "
-                    f"the segment replays from the last checkpoint "
-                    f"boundary, trajectory unchanged)", UserWarning,
-                    stacklevel=3)
-                chunk = smaller
-            if cuda:
-                # Only a backed-off attempt gets here; its error and frames
-                # are gone, so what it allocated goes back to the device.
-                gc.collect()
-                torch.cuda.empty_cache()
+                    # Only a backed-off attempt gets here; its error and
+                    # frames are gone, so what it allocated goes back to
+                    # the device.
+                    gc.collect()
+                    torch.cuda.empty_cache()
 
     def _raise_divergence(self, quantity: str, iteration: int,
                           detail: str = ""):

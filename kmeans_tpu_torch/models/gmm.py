@@ -72,6 +72,7 @@ import torch
 from kmeans_tpu_torch.models.fault_tolerance import AutoCheckpointMixin
 from kmeans_tpu_torch.models.init import forgy_init
 from kmeans_tpu_torch.models.kmeans import KMeans, _later, resolve_device
+from kmeans_tpu_torch.obs import trace as obs_trace
 from kmeans_tpu_torch.obs.heartbeat import note_progress as obs_note_progress
 from kmeans_tpu_torch.parallel.gmm_step import (
     COV_TYPES, EStats, EStatsFull, make_gmm_fit_fn, make_gmm_multi_fit_fn,
@@ -81,6 +82,7 @@ from kmeans_tpu_torch.parallel.mesh import (DATA_AXIS, all_reduce,
                                             check_mesh, group_up,
                                             is_primary, make_mesh,
                                             mesh_shape)
+from kmeans_tpu_torch.parallel.multihost import fleet_barrier
 from kmeans_tpu_torch.parallel.sharding import (BlockStager, Dataset,
                                                 ShardedDataset, check_ingest,
                                                 choose_em_chunk, to_device,
@@ -523,6 +525,13 @@ class GaussianMixture(AutoCheckpointMixin):
         return [self.seed] + [int(s) for s in extra]
 
     def _init_params(self, ds: Dataset, step_fn, seed: int) -> float:
+        # The 'seed' span holds the whole parameter seeding, the inner
+        # KMeans fit's own spans nested in it (the reference's).
+        with obs_trace.span("seed", strategy=str(self.init_params),
+                            k=self.n_components):
+            return self._init_params_inner(ds, step_fn, seed)
+
+    def _init_params_inner(self, ds: Dataset, step_fn, seed: int) -> float:
         d = ds.d
         k = self.n_components
         if self.means_init is not None:
@@ -634,6 +643,8 @@ class GaussianMixture(AutoCheckpointMixin):
         ds = self._dataset(X, sample_weight)
         self.io_retries_used_ = getattr(getattr(ds, "io_stats", None),
                                         "retries_used", 0)
+        # The clock anchor of merged timelines (a no-op without a tracer).
+        fleet_barrier("fit-start", ds.mesh)
         mode = self._mode()
         pipeline = self._note_estep_path(mode)
         step_fn = self._step_fn(ds, mode, pipeline)
@@ -718,9 +729,12 @@ class GaussianMixture(AutoCheckpointMixin):
         shift = self._shift()
         for it in range(base + 1, base + self.max_iter + 1):
             t0 = time.perf_counter()
-            st = step_fn(ds.points, ds.weights,
-                         *self._params_dev(guard_cholesky=True))
-            host = self._host(st)
+            # The span holds the E-step and the readback of its
+            # statistics (the iteration's sync point).
+            with obs_trace.span("dispatch", tag="em/step", iteration=it):
+                st = step_fn(ds.points, ds.weights,
+                             *self._params_dev(guard_cholesky=True))
+                host = self._host(st)
             # The float64 total of the responsibility sums normalises the
             # lower bound on fresh and resumed fits alike.
             w_total, (pi, mu_c, var) = self._m_step(host)
@@ -1158,6 +1172,7 @@ class GaussianMixture(AutoCheckpointMixin):
             d = peek.shape[1]
             del peek, item
         mesh = self._resolve_mesh()
+        fleet_barrier("fit-stream-start", mesh)
         ct = self.covariance_type
         k = self.n_components
         mode = self._mode()

@@ -33,6 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from kmeans_tpu_torch.obs import trace as _obs_trace
 from kmeans_tpu_torch.parallel import mesh as _mesh
 from kmeans_tpu_torch.parallel.sharding import (BlockStager,
                                                 _validate_sample_weight,
@@ -1150,8 +1151,10 @@ def resolve_init(init, X, k: int, seed: int, *,
                "init (array/callable)"))
     if callable(init):
         host = getattr(src, "host", None)
-        return np.asarray(init(host if host is not None else src, k, seed),
-                          dtype=dtype)
+        with _obs_trace.span("seed", strategy="callable", k=k):
+            return np.asarray(
+                init(host if host is not None else src, k, seed),
+                dtype=dtype)
     if isinstance(init, str):
         try:
             fn = INITIALIZERS[init]
@@ -1160,8 +1163,9 @@ def resolve_init(init, X, k: int, seed: int, *,
                              f"options: {sorted(INITIALIZERS)}") from None
         kw = {"cap": cap, "mode": mode, "device": device} if parallel \
             else {}
-        return np.asarray(fn(src, k, seed, validate=validate, **kw),
-                          dtype=dtype)
+        with _obs_trace.span("seed", strategy=init, k=k):
+            return np.asarray(fn(src, k, seed, validate=validate, **kw),
+                              dtype=dtype)
     arr = np.asarray(init, dtype=dtype)
     if arr.shape != (k, src.d):
         raise ValueError(f"explicit init must have shape ({k}, "

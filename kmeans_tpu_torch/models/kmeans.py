@@ -69,12 +69,14 @@ import torch
 from kmeans_tpu_torch.models.fault_tolerance import (  # noqa: F401
     AutoCheckpointMixin, NumericalDivergenceError)
 from kmeans_tpu_torch.models.init import resolve_init
+from kmeans_tpu_torch.obs import trace as obs_trace
 from kmeans_tpu_torch.obs.heartbeat import note_progress as obs_note_progress
 from kmeans_tpu_torch.ops.assign import StepStats
 from kmeans_tpu_torch.parallel import distributed as dist
 from kmeans_tpu_torch.parallel.mesh import (all_reduce, check_mesh,
                                             group_up, is_primary,
                                             make_mesh, mesh_shape)
+from kmeans_tpu_torch.parallel.multihost import fleet_barrier
 from kmeans_tpu_torch.parallel.sharding import (BlockStager, Dataset,
                                                 ShardedDataset, _tensor_of,
                                                 bucket_candidates,
@@ -712,6 +714,7 @@ class KMeans(AutoCheckpointMixin):
             on_nonfinite=on_nonfinite, stats=io_stats)
         self.checkpoint_segments_ = 0 if checkpoint_every else None
         mesh = self._resolve_mesh()
+        fleet_barrier("fit-stream-start", mesh)
         log = IterationLogger(self.verbose and is_primary(mesh))
         muted = IterationLogger(False)
         log.startup(self.k, self.max_iter, self.tolerance, self.compute_sse)
@@ -850,21 +853,27 @@ class KMeans(AutoCheckpointMixin):
                         for st_r in active:
                             st_r.meta.reservoir.offer(offer)
                     n_seen += block.shape[0]
-                    outs = [step_fn(points, weights, c) for c in cents_dev]
-                    for i, st in enumerate(outs):
-                        flat = torch.cat([
+                    # The span holds the block's steps and the readback
+                    # of their statistics (the sync point).
+                    with obs_trace.span("dispatch", tag="stream/block",
+                                        restarts=len(active)):
+                        outs = [step_fn(points, weights, c)
+                                for c in cents_dev]
+                        flats = [torch.cat([
                             st.sums.reshape(-1), st.counts,
                             st.sse.reshape(1),
                             st.farthest_dist.reshape(1),
                             st.farthest_point.reshape(-1)]).to(
                                 torch.float64).cpu().numpy()
+                            for st in outs]
+                    for i, flat in enumerate(flats):
                         sums[i] += flat[: k * d].reshape(k, d)
                         counts[i] += flat[k * d: k * d + k]
                         sse[i] += float(flat[k * d + k])
                         if flat[k * d + k + 1] > far[i][0]:
                             far[i] = (float(flat[k * d + k + 1]),
                                       flat[k * d + k + 2:])
-                    del points, weights, staged, outs
+                    del points, weights, staged, outs, flats
             if n_seen == 0:
                 raise ValueError(
                     f"make_blocks() yielded no rows on iteration "
@@ -1297,6 +1306,8 @@ class KMeans(AutoCheckpointMixin):
         # The massive-k route: the k-sharded or two-level step in place of
         # the dense one (the dense oracle keeps step_fn).
         step_fn, large_k = self._route_large_k(ds, step_fn)
+        # The clock anchor of merged timelines (a no-op without a tracer).
+        fleet_barrier("fit-start", ds.mesh)
         self.io_retries_used_ = getattr(getattr(ds, "io_stats", None),
                                         "retries_used", 0)
         if self.compute_labels:
@@ -1382,11 +1393,17 @@ class KMeans(AutoCheckpointMixin):
         x2w = self._x2w(ds, large_k)
         for iteration in range(start_iter, self.max_iter):
             iter_start = time.perf_counter()
-            stats: StepStats = step_fn(ds.points, ds.weights, cents_dev, x2w)
-            sums = stats.sums.to(torch.float64).cpu().numpy()
-            tail = torch.cat([stats.counts.to(torch.float64),
-                              stats.sse.to(torch.float64).reshape(1)])
-            tail = tail.cpu().numpy()
+            # The span holds the step and the readback of its statistics,
+            # the iteration's sync point: around the launches alone it
+            # would time their enqueue.
+            with obs_trace.span("dispatch", tag="lloyd/step",
+                                iteration=iteration):
+                stats: StepStats = step_fn(ds.points, ds.weights,
+                                           cents_dev, x2w)
+                sums = stats.sums.to(torch.float64).cpu().numpy()
+                tail = torch.cat([stats.counts.to(torch.float64),
+                                  stats.sse.to(torch.float64).reshape(1)])
+                tail = tail.cpu().numpy()
             centroids, max_shift = self._finish_lloyd_iteration(
                 centroids, sums, tail[:-1], float(tail[-1]), stats, ds,
                 iteration, log, seed, iter_start)
@@ -1503,7 +1520,9 @@ class KMeans(AutoCheckpointMixin):
         inits = np.stack([self._init_centroids(ds, s) for s in seeds])
         self.sse_history, self.iter_times_ = [], []
         start = time.perf_counter()
-        res = fit_fn(ds, self._put_centroids(inits), seeds)
+        with obs_trace.span("dispatch", tag="fit/multi",
+                            restarts=len(seeds)):
+            res = fit_fn(ds, self._put_centroids(inits), seeds)
         elapsed = time.perf_counter() - start
         self.bf16_guard_corrected_rows_ = res.flagged
         bad = np.flatnonzero(~res.finite)

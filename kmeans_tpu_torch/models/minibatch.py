@@ -52,8 +52,10 @@ import torch
 from kmeans_tpu_torch.models.init import as_source, resolve_init
 from kmeans_tpu_torch.models.kmeans import (KMeans, _dispatch_rtt,
                                             _hint_once, _host_rows)
+from kmeans_tpu_torch.obs import trace as obs_trace
 from kmeans_tpu_torch.obs.heartbeat import note_progress as obs_note_progress
 from kmeans_tpu_torch.parallel import distributed as dist
+from kmeans_tpu_torch.parallel.multihost import fleet_barrier
 from kmeans_tpu_torch.parallel.mesh import (DATA_AXIS, all_reduce,
                                             is_primary, mesh_shape)
 from kmeans_tpu_torch.parallel.sharding import (Dataset,
@@ -256,6 +258,7 @@ class MiniBatchKMeans(KMeans):
         iteration's draw, pass and update on the device."""
         dist._check_minibatch_mode(self._mode())
         ds = self.cache(X, sample_weight)
+        fleet_barrier("fit-start", ds.mesh)
         bs = min(self.batch_size, ds.n)
         # Every block of the data axis draws the same count, rounded up.
         data = mesh_shape(ds.mesh)[0]
@@ -428,6 +431,7 @@ class MiniBatchKMeans(KMeans):
         bs = min(self.batch_size, n)
         total_w = float(hw.sum()) if hw is not None else float(n)
         self._total_w = total_w
+        fleet_barrier("fit-start", self._resolve_mesh())
         self._set_fit_data(X)
         log = IterationLogger(self.verbose
                               and is_primary(self._resolve_mesh()))
@@ -476,11 +480,13 @@ class MiniBatchKMeans(KMeans):
         step = dist.make_step_fn(ds.mesh, chunk_size=self._chunk_for(ds),
                                  mode=self._mode(), need_farthest=False,
                                  need_sse_pc=False)
-        stats = step(ds.points, ds.weights, self._put_centroids(centroids),
-                     None)
-        tail = torch.cat([stats.sums.reshape(-1), stats.counts,
-                          stats.sse.reshape(1)]).to(torch.float64)
-        tail = tail.cpu().numpy()
+        with obs_trace.span("dispatch", tag="minibatch/step",
+                            iteration=iteration):
+            stats = step(ds.points, ds.weights,
+                         self._put_centroids(centroids), None)
+            tail = torch.cat([stats.sums.reshape(-1), stats.counts,
+                              stats.sse.reshape(1)]).to(torch.float64)
+            tail = tail.cpu().numpy()
         k, d = self.k, batch.shape[1]
         sums, counts = tail[: k * d].reshape(k, d), tail[k * d: k * d + k]
         if total_w is not None:

@@ -20,9 +20,18 @@ it observes:
   flags per-process lag, slowness and stalls by the committed thresholds
   below; :func:`format_fleet_status` renders the table.
 
-The collective-bytes half of the reference (``comm_bytes_model``,
-``comm_crosscheck``, ``format_comm_table``) measures against its
-``obs/cost.py`` and comes with that module (ROADMAP.md, A.13).
+* **Collective bytes.**  :func:`comm_bytes_model` is the bill of the
+  collectives a fit sends, site by site, in the port's form: every
+  collective is an ``all_reduce`` (``parallel.mesh``), so a gather is a
+  SUM of zero-embedded blocks, an owner pick a MIN of the distance then a
+  MIN of the block index, the farthest point a MAX, a MIN and a SUM, and
+  the statistics go as one packed buffer.  A site's ``count`` is its calls
+  per iteration, one per axis group it reduces over.  The measured side is
+  a cost record's ``collective_bytes`` (``parallel.mesh.COLLECTIVES``
+  over one step call, or one device-loop iteration);
+  :func:`comm_crosscheck` holds the two to :data:`COMM_AGREEMENT_RTOL`.
+  Where a site is the same collective as the reference's (the
+  statistics' psums), its bytes equal the reference's sum of them.
 
 Pure stdlib.
 """
@@ -42,7 +51,8 @@ __all__ = [
     "merge_traces",
     "read_heartbeats", "merge_heartbeats", "straggler_report",
     "format_fleet_status", "format_fleet_summary",
-    "FLEET_SKEW_BOUND_S",
+    "comm_bytes_model", "comm_crosscheck", "format_comm_table",
+    "FLEET_SKEW_BOUND_S", "COMM_AGREEMENT_RTOL",
     "STRAGGLER_RATE_FACTOR", "STRAGGLER_BEHIND_ITERS",
     "STRAGGLER_STALL_FACTOR", "STRAGGLER_STALL_MIN_S",
     "TERMINAL_PHASES",
@@ -55,6 +65,10 @@ __all__ = [
 #: room for loaded CI hosts while still catching a mis-paired barrier
 #: (which skews by whole fit-lengths).
 FLEET_SKEW_BOUND_S = 0.25
+
+#: Committed modelled-against-measured collective-bytes band (the
+#: reference's): |ratio - 1| <= 10 %.
+COMM_AGREEMENT_RTOL = 0.10
 
 #: Straggler decision rules, committed (the repo's pre-registration
 #: discipline).  A host flags:
@@ -491,4 +505,179 @@ def format_fleet_status(report: dict) -> str:
             f"{str(r['phase'])[:10]:<10} {it:>6} {r['behind']:>6} "
             f"{rate:>10} {beat:>8} {r['last_age_s']:>7.2f}"
             f"  {','.join(r['flags']) or '-'}")
+    return "\n".join(lines)
+
+
+# ------------------------------------------------- collective accounting
+
+def _ring_wire(result_bytes: float, group: int, collective: str) -> float:
+    """Per-device bytes on the wire under the ring algorithm (the
+    reference's): an all-reduce moves ``2 (S-1)/S`` of its payload, an
+    all-gather ``(S-1)/S`` of its result; zero for a group of one."""
+    if group <= 1:
+        return 0.0
+    if collective == "all-reduce":
+        return 2.0 * (group - 1) / group * result_bytes
+    return (group - 1) / group * result_bytes
+
+
+def comm_bytes_model(family: str = "kmeans", *, k: int, d: int,
+                     data_shards: int = 1, model_shards: int = 1,
+                     acc_bytes: int = 4, compute_sse: bool = True,
+                     empty_cluster: str = "keep", cov_type: str = "diag",
+                     n_members: int = 1, n_chunks: int = 1,
+                     seeding_rounds: int = 0, seeding_cap: int = 0,
+                     processes: int = 1, k_shard: int = 0,
+                     chunk_rows: int = 0, rows: int = 0,
+                     need_sse_pc: bool = False) -> dict:
+    """The collective bill of one fit in the port (the module's docstring),
+    under the reference's keys: ``sites`` (``site``, ``collective``,
+    ``result_bytes``, ``scope``, ``count``, ``group``, ``in_program``,
+    ``wire_bytes_per_device``), ``per_iteration_bytes``,
+    ``per_fit_bytes``, ``hlo_program_bytes`` (what one step call, or one
+    device-loop iteration, sends: the in-program sites' bytes times their
+    calls) and ``wire_bytes_per_device_per_iteration``.
+
+    The port always sends the SSE in the statistics' buffer
+    (``compute_sse`` changes nothing), and ``need_sse_pc`` adds the
+    per-cluster SSE to it.  ``rows`` (a rank's rows) sizes the owner pick
+    of a model axis.  ``n_chunks`` and ``chunk_rows`` are the reference's
+    arguments; the port's steps send nothing per chunk."""
+    S, M = int(data_shards), int(model_shards)
+    group = S * M
+    R = int(n_members)
+    k_pad = -(-int(k) // M) * M if M > 1 else int(k)
+    kl = k_pad // M
+    both = 2 if M > 1 else 1              # axis calls of an (data, model)
+    sites: List[dict] = []
+
+    def site(name, result_bytes, *, scope, count=1, grp=group,
+             in_program=True, op="sum"):
+        sites.append({
+            "site": name, "collective": "all-reduce", "op": op,
+            "result_bytes": float(result_bytes), "scope": scope,
+            "count": count, "group": grp, "in_program": in_program,
+            "wire_bytes_per_device": _ring_wire(result_bytes, grp,
+                                                "all-reduce")})
+
+    kshard = bool(k_shard) and M > 1
+    if family in ("kmeans", "spherical", "bisecting", "minibatch"):
+        pc = 1 if need_sse_pc else 0
+        if kshard:
+            site("estep.psum_stats", R * (kl * d + kl + pc * kl)
+                 * acc_bytes, scope="iteration", grp=S)
+            site("estep.psum_sse", R * acc_bytes, scope="iteration",
+                 count=both)
+        else:
+            site("estep.psum_stats", R * (k_pad * d + k_pad + 1
+                                          + pc * k_pad) * acc_bytes,
+                 scope="iteration", count=both)
+        if M > 1:
+            # The owner of each row over the model axis: MIN of its
+            # distance, then MIN of the block index (int32).
+            site("tp.pmin_owner_dist", R * rows * acc_bytes,
+                 scope="iteration", grp=M, op="min")
+            site("tp.pmin_owner_block", R * rows * 4, scope="iteration",
+                 grp=M, op="min")
+        if empty_cluster == "farthest":
+            site("estep.pmax_farthest_dist", R * acc_bytes,
+                 scope="iteration", count=both, op="max")
+            site("estep.pmin_farthest_rank", R * 8, scope="iteration",
+                 count=both, op="min")
+            site("estep.psum_farthest_point", R * d * acc_bytes,
+                 scope="iteration", count=both)
+    elif family == "gmm":
+        moment = {"diag": k_pad * d, "spherical": k_pad * d,
+                  "tied": k_pad * d, "full": k_pad * d * d}
+        if cov_type not in moment:
+            raise ValueError(f"unknown covariance type {cov_type!r}")
+        # resp (k), xsum (k, D), the second moment, loglik: one buffer
+        # over the data axis ('tied' sends its zero squares along).
+        site("estep.psum_stats", R * (k_pad + k_pad * d + moment[cov_type]
+                                      + 1) * acc_bytes,
+             scope="iteration", grp=S)
+        site("fit.psum_weight_total", acc_bytes, scope="dispatch", grp=S,
+             in_program=False)
+        if cov_type == "tied":
+            site("fit.psum_total_scatter", d * d * acc_bytes, scope="fit",
+                 grp=S, in_program=False)
+    else:
+        raise ValueError(f"unknown family {family!r}")
+
+    if seeding_rounds and seeding_cap:
+        # k-means||: per round the candidates' scores and rows as SUMs of
+        # zero-embedded blocks over the data axis.
+        per_round = S * seeding_cap * (acc_bytes + d * acc_bytes)
+        site("seed.psum_topk", per_round, scope="fit",
+             count=seeding_rounds, grp=S, in_program=False)
+    if processes > 1:
+        site("data.psum_counts", processes * 8, scope="dataset",
+             grp=processes, in_program=False)
+
+    per_iter = sum(s["result_bytes"] * s["count"] for s in sites
+                   if s["scope"] == "iteration")
+    per_fit = sum(s["result_bytes"] * s["count"] for s in sites
+                  if s["scope"] in ("dispatch", "fit", "dataset"))
+    program = sum(s["result_bytes"] * s["count"] for s in sites
+                  if s["in_program"])
+    wire_iter = sum(s["wire_bytes_per_device"] * s["count"]
+                    for s in sites if s["scope"] == "iteration")
+    return {"family": family, "k": k, "k_pad": k_pad, "d": d,
+            "data_shards": S, "model_shards": M, "acc_bytes": acc_bytes,
+            "n_members": R, "k_shard": int(k_shard) if kshard else 0,
+            "sites": sites,
+            "per_iteration_bytes": per_iter,
+            "per_fit_bytes": per_fit,
+            "hlo_program_bytes": program,
+            "wire_bytes_per_device_per_iteration": wire_iter}
+
+
+def comm_crosscheck(model: dict, record,
+                    rtol: float = COMM_AGREEMENT_RTOL) -> dict:
+    """Modelled against measured collective bytes of one program (the
+    reference's rule): ``ratio`` = the record's ``collective_bytes`` over
+    the model's ``hlo_program_bytes``, ``agree`` within ``rtol``; None
+    where nothing was measured."""
+    measured = getattr(record, "collective_bytes", None)
+    expected = model["hlo_program_bytes"]
+    ratio = (measured / expected
+             if measured is not None and expected > 0 else None)
+    return {"analytic_bytes": expected, "measured_bytes": measured,
+            "collectives": getattr(record, "collectives", None),
+            "ratio": ratio,
+            "agree": (None if ratio is None
+                      else bool(abs(ratio - 1.0) <= rtol)),
+            "rtol": rtol}
+
+
+def format_comm_table(model: dict, crosscheck: Optional[dict] = None
+                      ) -> str:
+    """Fixed-width rendering of the bill, and the measured line where a
+    crosscheck ran (the reference's layout; the collective column names
+    the reduction)."""
+    lines = [f"collective traffic (analytic, {model['family']} "
+             f"k={model['k']} d={model['d']} "
+             f"S={model['data_shards']}x{model['model_shards']}):",
+             f"  {'site':<28} {'collective':<12} {'bytes':>10} "
+             f"{'count':>6} {'scope':<10} {'wire/dev':>10}"]
+    for s in model["sites"]:
+        coll = f"{s['collective']}:{s.get('op', 'sum')}"
+        lines.append(
+            f"  {s['site']:<28} {coll:<12} "
+            f"{s['result_bytes']:>10.0f} {s['count']:>6} "
+            f"{s['scope']:<10} {s['wire_bytes_per_device']:>10.0f}")
+    lines.append(
+        f"  per-iteration {model['per_iteration_bytes']:.0f} B "
+        f"(wire/dev {model['wire_bytes_per_device_per_iteration']:.0f} "
+        f"B); per-fit extras {model['per_fit_bytes']:.0f} B; "
+        f"fit-program collectives {model['hlo_program_bytes']:.0f} B")
+    if crosscheck is not None:
+        m = crosscheck["measured_bytes"]
+        r = crosscheck["ratio"]
+        lines.append(
+            f"  measured (mesh.all_reduce): "
+            f"{f'{m:.0f} B' if m is not None else '-'} "
+            f"ratio={f'{r:.3f}' if r is not None else '-'} "
+            f"agree={crosscheck['agree']} "
+            f"(band ±{crosscheck['rtol']:.0%})")
     return "\n".join(lines)

@@ -26,14 +26,15 @@ Record schema (one JSON object per emission)::
      "inertia": 8.1e4, "effective_chunk": 65536, "oom_backoffs": 0,
      "dispatch_counts": {...},        # registry dispatch.* counters
      "phase_elapsed": {...},          # tracer per-phase self seconds
+     "mem_peak_bytes": 1234, "program_flops": 5.6e9,  # cost collector
      "tick": true                     # only on timer re-emissions
     }
 
 Fields are best-effort: a family without an attribute leaves it out.  The
-reference's device-cost fields (``mem_peak_bytes``, ``program_flops``,
-read from its ``obs/cost.py`` collector) are left out until that module
-is ported (ROADMAP.md, A.13).  Pure stdlib; never imports the models or
-torch.
+device-cost fields ``mem_peak_bytes`` and ``program_flops`` are the active
+cost collector's largest available figures (``obs.cost``), absent without
+a collector or before a record is available.  Pure stdlib; never imports
+the models or torch.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ import threading
 import time
 from typing import Callable, Optional
 
+from kmeans_tpu_torch.obs import cost as _cost
 from kmeans_tpu_torch.obs import identity as _identity
 from kmeans_tpu_torch.obs import trace as _trace
 from kmeans_tpu_torch.obs.metrics_registry import registry as _registry
@@ -202,6 +204,12 @@ class Heartbeat:
         tr = _trace.get_tracer()
         if tr is not None:
             rec.setdefault("phase_elapsed", tr.phase_totals())
+        col = _cost.get_collector()
+        if col is not None:
+            mx = col.max_metrics()
+            for name in ("mem_peak_bytes", "program_flops"):
+                if mx[name] is not None:
+                    rec.setdefault(name, mx[name])
         counts = {name: m["value"]
                   for name, m in _registry().snapshot().items()
                   if name.startswith("dispatch.")}

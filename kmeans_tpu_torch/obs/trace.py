@@ -5,14 +5,28 @@ The port's copy of the JAX package's ``obs/trace.py``: the same
 trace written by either package reads with the other's tools (the JSONL
 header keeps the reference's ``"format": "kmeans_tpu.trace.v1"``).
 
-* ``dispatch`` — one host->device dispatch the host then waits on;
-  ``note_dispatch`` labels (``utils.profiling``) land as instant events.
+* ``place`` / ``stage`` — a dataset's placement on its device and each
+  copy of rows to it (``parallel.sharding``, ``data.io``,
+  ``data.synthetic``, the prefetch producer's ``stage(via='prefetch')``);
+* ``trace`` — a program builder of ``parallel`` assembling its program
+  (:func:`traced_builder`);
+* ``compile`` — a kernel library's ``nvcc`` build (``via='nvcc'``) or
+  load (``via='load'``, ``ops._build``), and a device loop's CUDA graph
+  capture (``via='graph-capture'``, ``parallel.distributed``);
+* ``seed`` — the initial centroids or mixture parameters;
+* ``dispatch`` — one host->device dispatch the host then waits on, the
+  readback of its result inside the span (``lloyd/step``, ``em/step``,
+  ``stream/block``, ``fit/multi``, ``minibatch/step``, ``fit/segment``,
+  the engine's dispatches); ``note_dispatch`` labels
+  (``utils.profiling``) land as instant events;
+* ``segment`` — one checkpoint segment of a fit, its dispatch attempts
+  nested (``models.fault_tolerance``);
+* ``checkpoint.save`` / ``checkpoint.restore`` (``utils.checkpoint``);
+* ``io.block`` — one block read from a stream or a file (``data.io``);
 * ``serve.request`` / ``serve.flush`` — serving-engine dispatches and
-  micro-batch queue flushes (``serving.engine``, ``serving.batching``).
-
-The other names of :data:`SPAN_NAMES` are the reference's; the port's
-fit, stream and checkpoint paths do not emit them yet (ROADMAP.md,
-A.13).
+  micro-batch queue flushes (``serving.engine``, ``serving.batching``);
+* ``collective`` — a host-side cross-process wait (the fleet barrier,
+  ``parallel.multihost.fleet_barrier``).
 
 Disabled-path contract: with no tracer installed, :func:`span` returns a
 shared null context manager and :func:`event` returns at once — no
@@ -38,7 +52,8 @@ from kmeans_tpu_torch.obs import identity as _identity
 from kmeans_tpu_torch.obs.metrics_registry import nearest_rank
 
 __all__ = ["Tracer", "span", "event", "tracing", "get_tracer",
-           "read_jsonl", "summarize", "SPAN_NAMES", "TraceReadError"]
+           "read_jsonl", "summarize", "SPAN_NAMES", "TraceReadError",
+           "traced_builder"]
 
 #: The span taxonomy (documentation + the CLI's table ordering; call
 #: sites may add dotted sub-names like ``checkpoint.save``).  The
@@ -320,6 +335,24 @@ def event(name: str, **attrs) -> None:
     t = _TRACER
     if t is not None:
         t.event(name, **attrs)
+
+
+def traced_builder(fn):
+    """Decorator of the ``parallel`` program builders: the builder runs
+    under a ``trace`` span (``builder=<its name>``) when a tracer is
+    active; one extra Python call and nothing else when off.  The kernels'
+    library load and a device loop's graph capture happen at the first
+    call of the product, inside the first ``dispatch``."""
+    import functools
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        t = _TRACER
+        if t is None:
+            return fn(*args, **kwargs)
+        with t.span("trace", builder=fn.__name__):
+            return fn(*args, **kwargs)
+    return wrapper
 
 
 @contextlib.contextmanager

@@ -10,6 +10,11 @@ compiler's output; nothing here falls back to another implementation.
 :func:`build_variants` and :func:`load_variant` build a source under ``-D``
 defines (the tile sizes that the variant lab sweeps) into a library of its
 own, whose hash also covers the defines; the main path's builds pass none.
+
+Under a tracer each ``nvcc`` run is a ``compile`` span (``via='nvcc'``) and
+each library load one more (``via='load'``): the first dispatch of a fit
+that loads a kernel holds them, and the time-to-first-iteration report
+(``obs.report``) counts them in its ``compile`` row.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Iterable, List, Mapping, Optional, Tuple
+
+from kmeans_tpu_torch.obs import trace as _obs_trace
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -39,16 +46,24 @@ _LIBS: Dict[Tuple[str, Tuple[Tuple[str, int], ...]], ctypes.CDLL] = {}
 #: launches its kernel and nowhere else.
 LAUNCHES: Dict[str, int] = {}
 
+#: The operations the launches so far declared, by kernel name
+#: (``hopper_kernels.declared_operations`` of each launch's shape): what a
+#: cost record adds to the aten count, which cannot see a ``ctypes``
+#: launch (``obs.cost``).
+OPS: Dict[str, float] = {}
+
 #: Guards every change of ``LAUNCHES``: a serving thread and a learner's
 #: update thread launch kernels at the same time, and ``+=`` on a dict
 #: entry is a read, an add and a write.
 _LAUNCH_LOCK = threading.Lock()
 
 
-def count_launch(name: str, n: int = 1) -> None:
-    """Add ``n`` to the count of kernel ``name`` (0 where it has none)."""
+def count_launch(name: str, n: int = 1, ops: float = 0.0) -> None:
+    """Add ``n`` to the count of kernel ``name`` (0 where it has none), and
+    ``ops`` to its declared operations."""
     with _LAUNCH_LOCK:
         LAUNCHES[name] = LAUNCHES.get(name, 0) + n
+        OPS[name] = OPS.get(name, 0.0) + ops
 
 
 def reset_launch_counts() -> None:
@@ -135,7 +150,8 @@ def build_variants(variants: Iterable[Tuple[str, Mapping[str, int]]]
             logs.append("")
             continue
         proc, tmp, out, cmd = job
-        log, _ = proc.communicate()
+        with _obs_trace.span("compile", via="nvcc", library=out.name):
+            log, _ = proc.communicate()
         logs.append(log)
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
@@ -163,8 +179,9 @@ def load_variant(name: str, defines: Mapping[str, int]) -> ctypes.CDLL:
     key = (name, tuple(sorted(defines.items())))
     lib = _LIBS.get(key)
     if lib is None:
-        build_variants([(name, defines)])
-        lib = ctypes.CDLL(str(library_path(name, defines)))
+        with _obs_trace.span("compile", via="load", source=name):
+            build_variants([(name, defines)])
+            lib = ctypes.CDLL(str(library_path(name, defines)))
         _LIBS[key] = lib
     return lib
 

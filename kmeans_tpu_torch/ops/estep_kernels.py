@@ -36,7 +36,7 @@ import torch
 
 from kmeans_tpu_torch.ops import _build
 from kmeans_tpu_torch.ops.hopper_kernels import _PARTIAL_BUDGET_BYTES, \
-    _check, _raise_on, _row_block
+    _check, _raise_on, _row_block, declared_operations
 
 #: The package's table of kernel launches (``_build.LAUNCHES``).
 LAUNCHES: Dict[str, int] = _build.LAUNCHES
@@ -205,5 +205,6 @@ def launch_estep(lib: ctypes.CDLL, points: torch.Tensor,
             s2.data_ptr(), ll.data_ptr(), n, d, k, blocks,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, counter)
-    _build.count_launch(counter)
+    _build.count_launch(counter,
+                        ops=declared_operations("estep", n, d, k)[1])
     return rsum, s1, s2, ll

@@ -330,6 +330,34 @@ def split_bf16_scratch(scratch: torch.Tensor, k: int
             scratch[h_bytes:].view(torch.bfloat16))
 
 
+def declared_operations(kind: str, n: int, d: int, k: int
+                        ) -> Tuple[int, int]:
+    """``(product, total)``: the operations one launch of a hand kernel does
+    on n rows of width D against k centroids (components), counted once
+    here for the cost records (``obs.cost``) and the bounds of
+    ``chip_smoke.py``.  ``kind``:
+
+    * ``'assign'`` (kernels 2, 2b): the 2 n k D product, ``h - x.c``
+      (n k), ``||x||^2`` (2 n D) and ``h`` (2 k D);
+    * ``'fused'`` (kernels 1, 1b): those, and the scatter of the weighted
+      rows and their weights (2 n D + n);
+    * ``'estep'`` (``diag_estep``): the two depth-2D products (8 n k D),
+      the softmax (max, subtract, exp, scale, sum: 5 n k), and the
+      centering and squares (2 n D).
+
+    ``product`` is the part that runs on the tensor cores."""
+    if kind == "estep":
+        product = 8 * n * k * d
+        return product, product + 5 * n * k + 2 * n * d
+    if kind not in ("assign", "fused"):
+        raise ValueError(f"unknown kernel kind {kind!r}")
+    product = 2 * n * k * d
+    total = product + n * k + 2 * n * d + 2 * k * d
+    if kind == "fused":
+        total += 2 * n * d + n
+    return product, total
+
+
 def launch_assign(lib: ctypes.CDLL, bf16: bool, points: torch.Tensor,
                   centroids: torch.Tensor, counter: str
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -352,7 +380,8 @@ def launch_assign(lib: ctypes.CDLL, bf16: bool, points: torch.Tensor,
                     n, d, k, _blocks(dev, n, 0, rows, _per_sm(lib, bf16, d)),
                     torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, counter)
-    _build.count_launch(counter)
+    _build.count_launch(counter,
+                        ops=declared_operations("assign", n, d, k)[1])
     return labels, mind2
 
 
@@ -388,7 +417,8 @@ def launch_fused(lib: ctypes.CDLL, bf16: bool, points: torch.Tensor,
                     n, d, k, blocks,
                     torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, counter)
-    _build.count_launch(counter)
+    _build.count_launch(counter,
+                        ops=declared_operations("fused", n, d, k)[1])
     return labels, mind2, sums, counts
 
 

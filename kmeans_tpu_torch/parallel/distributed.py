@@ -80,6 +80,8 @@ from typing import Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from kmeans_tpu_torch.obs import cost as _cost
+from kmeans_tpu_torch.obs import trace as _obs_trace
 from kmeans_tpu_torch.ops import _build
 from kmeans_tpu_torch.ops.assign import (GUARDED_MODE, StepStats,
                                          _accum_dtype, assign_chunk,
@@ -89,8 +91,9 @@ from kmeans_tpu_torch.ops.assign import (GUARDED_MODE, StepStats,
                                          value_mode)
 from kmeans_tpu_torch.ops.hopper_kernels import (fused_assign_reduce,
                                                  hopper_assign)
-from kmeans_tpu_torch.parallel.mesh import (AXES, DATA_AXIS, MODEL_AXIS,
-                                            all_reduce, coords, mesh_shape)
+from kmeans_tpu_torch.parallel.mesh import (AXES, COLLECTIVES, DATA_AXIS,
+                                            MODEL_AXIS, all_reduce, coords,
+                                            count_collectives, mesh_shape)
 from kmeans_tpu_torch.parallel.sharding import (Dataset, draw_keys,
                                                 permuted_draws)
 
@@ -413,6 +416,7 @@ def _check_guarded(mode: str, model_shards: int,
             "use 'keep' or 'resample' (label-exact by construction)")
 
 
+@_cost.program()
 def make_step_fn(mesh=None, *, chunk_size: int, mode: str = "matmul",
                  need_sse: bool = True, need_farthest: bool = True,
                  need_sse_pc: bool = True, pipeline: int = 0,
@@ -469,6 +473,7 @@ def make_step_fn(mesh=None, *, chunk_size: int, mode: str = "matmul",
     return step
 
 
+@_cost.program()
 def make_predict_fn(mesh=None, *, chunk_size: int,
                     mode: str = "matmul") -> Callable:
     """The label assignment: ``(points, centroids) -> labels`` int32, one
@@ -506,6 +511,79 @@ def make_predict_fn(mesh=None, *, chunk_size: int,
 # ---------------------------------------------------------------- massive k
 
 
+#: The phases of the statistics pass, in order, for the phase ladder
+#: (``utils.profiling.measure_phase_ladder``): 'distance' is the (chunk, k)
+#: distance product (and one sum over its tile, so that it is not
+#: elided), 'assign' adds the minimum and argmin over the tile, 'reduce'
+#: adds the one-hot scatter, the counts and the (k, D) ``all_reduce``: the
+#: whole pass.
+ESTEP_PHASES = ("distance", "assign", "reduce")
+
+
+@_cost.program()
+def make_estep_phase_fn(mesh=None, *, chunk_size: int, n_iters: int,
+                        phase: str, mode: str = "matmul") -> Callable:
+    """The prefix chain of the phase ladder (the reference's
+    ``make_estep_phase_fn``): ``(points, weights, centroids) -> scalar``
+    runs ``n_iters`` repetitions of the statistics pass up to ``phase``,
+    each threading the table through a zero-weighted dependency on the
+    last, so no repetition can be skipped.  The value is the reference's:
+    the sum over every rank of the rank's table block, divided by the
+    ranks.  A harness times two chain lengths and takes the difference
+    per repetition, then gives each phase its rung's difference to the one
+    before.  Only 'reduce' pays the collective.
+
+    The kernel modes fuse every phase in one kernel and have no prefixes:
+    they raise, with the reference's message, and the ladder puts kernel
+    1's whole step beside the 'matmul' rungs."""
+    if phase not in ESTEP_PHASES:
+        raise ValueError(f"phase must be one of {ESTEP_PHASES}, got "
+                         f"{phase!r}")
+    if mode in KERNEL_MODES:
+        raise ValueError("the fused Pallas kernel has no phase prefixes; "
+                         "ladder mode='matmul' and compare the fused "
+                         "kernel's full step alongside")
+    if mode not in ("matmul", "matmul_bf16", "direct"):
+        raise ValueError(f"unknown distance mode: {mode!r}")
+    data_shards, model_shards = mesh_shape(mesh)
+
+    def run(points, weights, centroids):
+        block = (_model_block(centroids, mesh)[0] if model_shards > 1
+                 else centroids)
+        acc = _accum_dtype(points.dtype)
+        n = points.shape[0]
+        w = weights.to(acc)
+
+        def iter_dep(cents):
+            if phase == "reduce":
+                st, _ = reduce_chunks(points, weights, cents,
+                                      chunk_size=chunk_size, mode=mode,
+                                      need_sse=False, need_farthest=False,
+                                      need_sse_pc=False)
+                sums = all_reduce(st.sums.clone(), mesh, AXES)
+                counts = all_reduce(st.counts.clone(), mesh, AXES)
+                return sums.sum() + counts.sum()
+            dep = torch.zeros((), dtype=acc, device=points.device)
+            for lo in range(0, n, chunk_size):
+                d2 = pairwise_sq_dists(points[lo:lo + chunk_size], cents,
+                                       mode=mode)
+                if phase == "distance":
+                    dep = dep + d2.sum()
+                    continue
+                mind2, best = torch.min(d2, dim=1)
+                dep = dep + (mind2 * w[lo:lo + chunk_size]).sum() \
+                    + best.to(acc).sum()
+            return all_reduce(dep, mesh, AXES)
+
+        cents = block.to(acc)
+        for _ in range(n_iters):
+            cents = cents + 0.0 * iter_dep(cents)
+        return all_reduce(cents.sum(), mesh, AXES) / (data_shards
+                                                      * model_shards)
+
+    return run
+
+
 def _check_large_k_mode(mode: str, what: str, why: str) -> None:
     """The large-k steps run the matmul-class torch modes only: the fused
     kernels are dense-tile passes over the whole table (the JAX package's
@@ -518,6 +596,7 @@ def _check_large_k_mode(mode: str, what: str, why: str) -> None:
         raise ValueError(f"unknown distance mode: {mode!r}")
 
 
+@_cost.program()
 def make_kshard_step_fn(mesh, *, chunk_size: int, mode: str = "matmul",
                         need_farthest: bool = True,
                         need_sse_pc: bool = True) -> Callable:
@@ -704,6 +783,7 @@ def _two_level_inputs(centroids, coarse, members):
     return cents_ext, coarse, members, cents_ext[members]
 
 
+@_cost.program()
 def make_two_level_step_fn(mesh=None, *, chunk_size: int, nprobe: int,
                            mode: str = "matmul",
                            need_farthest: bool = True,
@@ -768,6 +848,7 @@ def make_two_level_step_fn(mesh=None, *, chunk_size: int, nprobe: int,
     return step
 
 
+@_cost.program()
 def make_two_level_predict_fn(mesh=None, *, chunk_size: int, nprobe: int,
                               mode: str = "matmul") -> Callable:
     """Two-level labels: ``(points, centroids, coarse, members) ->
@@ -875,24 +956,38 @@ class _Replay:
     ``graph_launches = {}``, and defines ``iterate()``, which reads nothing
     to the host."""
 
-    def _capture(self) -> None:
+    def _capture(self, measure: Optional[dict] = None) -> None:
         """The first iteration on the card: it runs eagerly on a side stream
         (a real iteration, which also does the kernels' one-time host work:
         library load, function attributes, occupancy query), then one
-        iteration is captured, which runs nothing.  The kernel launches that
-        the capture recorded are taken back off ``LAUNCHES`` and added at
-        each replay instead, so the counts are of launches that reached the
-        card."""
+        iteration is captured, which runs nothing.  The kernel launches,
+        their declared operations and the collectives' bytes that the
+        capture recorded are taken back off ``LAUNCHES``, ``OPS`` and
+        ``mesh.COLLECTIVES`` and added at each replay instead, so the counts
+        are of work that reached the card.  ``measure``: a cost capture's
+        request (``obs.cost.take_request``), taken on the eager iteration,
+        never across the capture.  Under a tracer the capture is a
+        ``compile`` span (``via='graph-capture'``)."""
         current = torch.cuda.current_stream(self.points.device)
         side = torch.cuda.Stream(device=self.points.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            self.iterate()
+            if measure is None:
+                self.iterate()
+            else:
+                _cost.measure_launch(measure, self.iterate,
+                                     args=self._measured_args(),
+                                     outputs=self._measured_outputs(),
+                                     region="warm-up")
         current.wait_stream(side)
         before = dict(_build.LAUNCHES)
+        ops_before = dict(_build.OPS)
+        comm_before = dict(COLLECTIVES)
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph):
+            with _obs_trace.span("compile", via="graph-capture",
+                                 loop=type(self).__name__), \
+                    torch.cuda.graph(graph):
                 self.iterate()
         except RuntimeError as e:
             oom = _oom_in_chain(e)
@@ -902,23 +997,66 @@ class _Replay:
                 f"the device loop's iteration could not be captured as a "
                 f"CUDA graph: {e}") from e
         finally:
-            recorded = {name: count - before.get(name, 0)
+            recorded = {name: (count - before.get(name, 0),
+                               _build.OPS.get(name, 0.0)
+                               - ops_before.get(name, 0.0))
                         for name, count in _build.LAUNCHES.items()}
             _build.LAUNCHES.update(before)
-        self.graph_launches = {n: c for n, c in recorded.items() if c}
+            _build.OPS.update(ops_before)
+            comm = {key: COLLECTIVES[key] - comm_before[key]
+                    for key in COLLECTIVES}
+            COLLECTIVES.update(comm_before)
+        self.graph_launches = {n: c for n, (c, _) in recorded.items() if c}
+        self.graph_ops = {n: ops for n, (c, ops) in recorded.items() if c}
+        self.graph_comm = comm
         self.graph = graph
         name = type(self).__name__
         CAPTURES[name] = CAPTURES.get(name, 0) + 1
 
-    def _launch(self) -> None:
-        if not self.points.is_cuda:
+    def _measured_args(self):
+        """The tensors an iteration reads, for a cost record."""
+        return (self.points, getattr(self, "weights", None))
+
+    def _measured_outputs(self):
+        """The state an iteration writes, for a cost record."""
+        return tuple(v for v in vars(self).values()
+                     if isinstance(v, torch.Tensor)
+                     and v is not self.points
+                     and v is not getattr(self, "weights", None))
+
+    def _replay(self) -> None:
+        self.graph.replay()
+        ops = getattr(self, "graph_ops", {})
+        for name, count in self.graph_launches.items():
+            _build.count_launch(name, count, ops.get(name, 0.0))
+        comm = getattr(self, "graph_comm", None)
+        if comm and comm["count"]:
+            count_collectives(comm["bytes"], comm["count"])
+
+    def _eager(self, req: Optional[dict]) -> None:
+        """One eager iteration, measured for a cost capture's request
+        ``req`` (None: not measured)."""
+        if req is None:
             self.iterate()
-        elif self.graph is None:
-            self._capture()
         else:
-            self.graph.replay()
-            for name, count in self.graph_launches.items():
-                _build.count_launch(name, count)
+            _cost.measure_launch(req, self.iterate,
+                                 args=self._measured_args(),
+                                 outputs=self._measured_outputs(),
+                                 region="eager")
+
+    def _launch(self) -> None:
+        req = _cost.take_request()
+        if not self.points.is_cuda:
+            self._eager(req)
+        elif self.graph is None:
+            self._capture(req)
+        elif req is None:
+            self._replay()
+        else:
+            _cost.measure_launch(req, self._replay,
+                                 args=self._measured_args(),
+                                 outputs=self._measured_outputs(),
+                                 region="replay")
 
     def _drive(self, in_flight: int, limit: Optional[int] = None) -> int:
         """Launch iterations until the host reads a done flag: that of
@@ -1156,6 +1294,7 @@ def _x2w_of(ds: Dataset, mode: str, mesh):
     return x2w, torch.isfinite(all_reduce(x2w.clone(), mesh, (DATA_AXIS,)))
 
 
+@_cost.program(loop=True)
 def make_fit_fn(mesh=None, *, chunk_size: int, mode: str = "matmul",
                 max_iter: int,
                 tolerance: float, empty_policy: str = "keep",
@@ -1377,6 +1516,7 @@ class _MultiLoop(_DeviceLoop):
         self.done.zero_()
 
 
+@_cost.program(loop=True)
 def make_multi_fit_fn(mesh=None, *, chunk_size: int, mode: str = "matmul",
                       k_real: int, max_iter: int, tolerance: float,
                       empty_policy: str = "keep", n_init: int,
@@ -1545,6 +1685,7 @@ def make_multi_fit_fn(mesh=None, *, chunk_size: int, mode: str = "matmul",
     return fit
 
 
+@_cost.program()
 def make_multi_predict_fn(mesh=None, *, chunk_size: int,
                           mode: str = "matmul",
                           n_models: int) -> Callable:
@@ -1582,6 +1723,7 @@ def make_multi_predict_fn(mesh=None, *, chunk_size: int,
     return predict
 
 
+@_cost.program()
 def make_assign_margin_fn(mesh=None, *, chunk_size: int,
                           mode: str = "matmul_bf16") -> Callable:
     """The serving bf16 fast path's guarded assignment: ``(points,
@@ -1620,6 +1762,7 @@ def make_assign_margin_fn(mesh=None, *, chunk_size: int,
     return assign
 
 
+@_cost.program()
 def make_score_rows_fn(mesh=None, *, chunk_size: int,
                        mode: str = "matmul") -> Callable:
     """Per-row squared distance to the nearest centroid: ``(points,
@@ -1821,6 +1964,7 @@ def _check_minibatch_mode(mode: str) -> None:
             "modes — use 'matmul' (exact) or 'matmul_bf16' (unguarded)")
 
 
+@_cost.program()
 def make_minibatch_step_fn(mesh=None, *, batch: int, mode: str = "matmul",
                            chunk_size: Optional[int] = None,
                            n_candidates: int = 0,
@@ -1955,6 +2099,7 @@ class _MiniBatchLoop(_DeviceLoop):
             _host_copy(self.counts), bool(self.ok), launched)
 
 
+@_cost.program(loop=True)
 def make_minibatch_fit_fn(mesh=None, *, batch: int, mode: str = "matmul",
                           k: int, max_iter: int, tolerance: float,
                           history_sse: bool = True,
@@ -2026,11 +2171,16 @@ def make_minibatch_fit_fn(mesh=None, *, batch: int, mode: str = "matmul",
                                    start)
             launched = 0
             while launched < stop - start:
-                loop.iterate()
-                launched += 1
-                if on_iteration is not None:
-                    on_iteration(loop, start + launched - 1)
-                if not bool(loop.running):
+                # The span holds the iteration and the reads of its state
+                # (the per-iteration engine's sync points).
+                with _obs_trace.span("dispatch", tag="minibatch/step",
+                                     iteration=start + launched):
+                    loop._eager(_cost.take_request())
+                    launched += 1
+                    if on_iteration is not None:
+                        on_iteration(loop, start + launched - 1)
+                    go = bool(loop.running)
+                if not go:
                     break
             return loop.result(launched, start)
 
@@ -2042,6 +2192,7 @@ def make_minibatch_fit_fn(mesh=None, *, batch: int, mode: str = "matmul",
 # --------------------------------------------------------------- transform
 
 
+@_cost.program()
 def make_transform_fn(mesh=None, *, chunk_size: int,
                       mode: str = "matmul") -> Callable:
     """``(points, centroids) -> (n, k)`` Euclidean distances in the points'

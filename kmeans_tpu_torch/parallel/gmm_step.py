@@ -85,6 +85,7 @@ from typing import Callable, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from kmeans_tpu_torch.obs import cost as _cost
 from kmeans_tpu_torch.ops.estep_kernels import diag_estep
 from kmeans_tpu_torch.parallel.distributed import (IN_FLIGHT, _check_backend,
                                                    _host_copy, _Replay,
@@ -320,6 +321,7 @@ def _scan_estats_tied(points, weights, shift, means_t, prec_chol,
                           pipeline=pipeline)
 
 
+@_cost.program()
 def make_gmm_step_fn(mesh=None, *, chunk_size: int, mode: str = "torch",
                      pipeline: int = 0) -> Callable:
     """The diagonal E-step: ``(points, weights, shift, means_c, inv_var,
@@ -341,6 +343,7 @@ def make_gmm_step_fn(mesh=None, *, chunk_size: int, mode: str = "torch",
     return step
 
 
+@_cost.program()
 def make_gmm_step_full_fn(mesh=None, *, chunk_size: int,
                           pipeline: int = 0) -> Callable:
     """The 'full' E-step: ``(points, weights, shift, means_c, prec_chol
@@ -356,6 +359,7 @@ def make_gmm_step_full_fn(mesh=None, *, chunk_size: int,
     return step
 
 
+@_cost.program()
 def make_gmm_step_tied_fn(mesh=None, *, chunk_size: int,
                           pipeline: int = 0) -> Callable:
     """The 'tied' E-step: ``(points, weights, shift, means_t (mu_c @ P),
@@ -421,6 +425,7 @@ _LOG_PROB = {"diag": _log_prob_chunk, "spherical": _log_prob_chunk,
              "tied": _log_prob_tied_chunk, "full": _log_prob_full_chunk}
 
 
+@_cost.program()
 def make_gmm_predict_fn(*, chunk_size: int,
                         cov_type: str = "diag") -> Callable:
     """The posterior pass: ``(points, shift, *tables) -> (labels (n,)
@@ -653,6 +658,7 @@ class GmmFitResult(NamedTuple):
     prev: float               # the convergence baseline at the end
 
 
+@_cost.program(loop=True)
 def make_gmm_fit_fn(mesh=None, *, chunk_size: int, max_iter: int,
                     tol: float, reg_covar: float, cov_type: str = "diag",
                     mode: str = "torch", pipeline: int = 0) -> Callable:
@@ -722,6 +728,7 @@ class GmmMultiFitResult(NamedTuple):
     final_scores: Optional[np.ndarray]   # (R,) fresh bounds (``score``)
 
 
+@_cost.program(loop=True)
 def make_gmm_multi_fit_fn(mesh=None, *, chunk_sizes: Sequence[int],
                           max_iter: int, tol: float, reg_covar: float,
                           cov_type: str = "diag", mode: str = "torch",

@@ -109,6 +109,17 @@ def in_mesh(mesh) -> bool:
 
 _OPS = {"sum": "SUM", "min": "MIN", "max": "MAX"}
 
+#: Payload bytes and calls of every ``all_reduce`` on an axis group so far
+#: (the bill ``obs.cost`` records and ``obs.fleet.comm_crosscheck`` reads).
+#: A captured device loop takes the capture's share back and adds it at
+#: each replay, as it does for the kernels' launch counts.
+COLLECTIVES = {"bytes": 0, "count": 0}
+
+
+def count_collectives(nbytes: int, count: int = 1) -> None:
+    COLLECTIVES["bytes"] += int(nbytes)
+    COLLECTIVES["count"] += int(count)
+
 
 def all_reduce(t: torch.Tensor, mesh, axes: Sequence[str] = AXES,
                op: str = "sum") -> torch.Tensor:
@@ -116,7 +127,8 @@ def all_reduce(t: torch.Tensor, mesh, axes: Sequence[str] = AXES,
     ``all_reduce`` on its group, the model axis first), and returned.  The
     data axis always reduces, also at size 1, so a world of one rank runs
     the same collectives as a larger one; the model axis only where it has
-    more than one rank.  Without a mesh ``t`` is returned as it is."""
+    more than one rank.  Without a mesh ``t`` is returned as it is.  Each
+    call on a group adds its payload to :data:`COLLECTIVES`."""
     if mesh is None:
         return t
     red = getattr(tdist.ReduceOp, _OPS[op])
@@ -126,6 +138,7 @@ def all_reduce(t: torch.Tensor, mesh, axes: Sequence[str] = AXES,
         if axis == MODEL_AXIS and mesh.size(1) == 1:
             continue
         tdist.all_reduce(t, op=red, group=mesh.get_group(axis))
+        count_collectives(t.numel() * t.element_size())
     return t
 
 

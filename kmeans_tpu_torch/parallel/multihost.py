@@ -26,6 +26,7 @@ from typing import Optional
 import torch
 import torch.distributed as tdist
 
+from kmeans_tpu_torch.obs import trace as _obs_trace
 from kmeans_tpu_torch.parallel import mesh as _mesh
 
 #: Variables that say this process is one rank of a job launched by a
@@ -91,3 +92,26 @@ def is_primary() -> bool:
     """True on the process that owns logging and file writes (rank 0 of
     the world; the only process without a group)."""
     return _mesh.is_primary(None)
+
+
+def fleet_barrier(tag: str = "fit-start", mesh=None) -> None:
+    """The clock anchor of merged timelines (the reference's): a barrier
+    over the ranks of ``mesh`` (of the world without one) inside a
+    ``collective`` span, then a ``fleet.barrier`` event, which
+    ``obs.fleet.merge_traces`` aligns the ranks' clocks on.  The fits call
+    it where the reference's do, at a fit's or a stream's start.
+
+    With no tracer installed it returns after one ``None`` check: no
+    barrier, no record.  So a trace is installed on every rank or on none,
+    as in the reference: a rank that traced alone would wait here.  A
+    world of one rank waits for nobody; its event says ``synced=False``
+    (a sequence marker, which the merge does not align on)."""
+    if _obs_trace.get_tracer() is None:
+        return
+    synced = False
+    if _mesh.world_size() > 1 and _mesh.in_mesh(mesh):
+        with _obs_trace.span("collective", op="barrier",
+                             site=f"fleet_barrier:{tag}"):
+            _mesh.barrier(mesh)
+        synced = True
+    _obs_trace.event("fleet.barrier", tag=tag, synced=synced)

@@ -29,6 +29,8 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from kmeans_tpu_torch.obs import metrics_registry as _obs_metrics
+from kmeans_tpu_torch.obs import trace as _obs_trace
 from kmeans_tpu_torch.parallel import mesh as _mesh
 
 #: Below this many (n * k) elements the whole dataset is one chunk.
@@ -232,11 +234,13 @@ def place_slabs(read_rows: Callable[[int, int], np.ndarray], lo: int,
         w = np.zeros(b - a, dtype=dtype)
         w[:real] = 1.0 if sample_weight is None else \
             sample_weight[lo + a: lo + a + real]
-        return stager.stage(x, w, out=(points[a:b], weights[a:b]))
+        return stager.stage(x, w, out=(points[a:b], weights[a:b]),
+                            slab=(a // rows, len(spans)))
 
     spans = [(a, min(a + rows, block)) for a in range(0, block, rows)]
     for staged in prefetch_iter(iter(spans), prefetch, stage):
         stager.take(staged)
+    _obs_metrics.REGISTRY.counter("ingest.slabs").inc(len(spans))
     return points, weights, len(spans)
 
 
@@ -460,7 +464,11 @@ class Dataset:
             sample_weight = sample_weight.detach().cpu().numpy()
         sw = _validate_sample_weight(sample_weight, self.n, self.dtype)
         new = copy.copy(self)
-        new.weights = self._weights_like(sw)
+        nbytes = int(self.points.shape[0]) * self.dtype.itemsize
+        with _obs_trace.span("stage", rows=int(self.points.shape[0]),
+                             bytes=nbytes):
+            _obs_metrics.REGISTRY.counter("ingest.bytes").inc(nbytes)
+            new.weights = self._weights_like(sw)
         new._host_weights = sw if self._host is not None else None
         new._memo = {}
         return new
@@ -636,10 +644,19 @@ def to_device(X, device: torch.device, dtype, sample_weight=None,
     package."""
     mode = resolve_ingest(ingest)
     dtype = np.dtype(dtype)
-    tdtype = torch_dtype(dtype)
     if isinstance(X, Dataset):
         _check_dataset(X, device, dtype, sample_weight, mesh)
         return X
+    shape = tuple(getattr(X, "shape", ()) or np.shape(X))
+    with _obs_trace.span("place", rows=int(shape[0]) if shape else 0,
+                         ingest=mode):
+        return _place(X, device, dtype, sample_weight, mesh, chunk, k_hint,
+                      mode)
+
+
+def _place(X, device, dtype, sample_weight, mesh, chunk, k_hint,
+           mode) -> Dataset:
+    tdtype = torch_dtype(dtype)
     if mesh is not None:
         on_device = isinstance(X, torch.Tensor) and X.device == device
         return _to_mesh(X.to(tdtype) if on_device else _host_array(X, dtype),
@@ -652,8 +669,13 @@ def to_device(X, device: torch.device, dtype, sample_weight=None,
         shape = host.shape
     if len(shape) != 2:
         raise ValueError(f"X must be 2-D (n, D), got shape {shape}")
-    points = (X.to(tdtype).contiguous() if host is None
-              else torch.from_numpy(host).to(device))
+    nbytes = 0 if host is None else int(host.nbytes)
+    with _obs_trace.span("stage", rows=int(shape[0]), bytes=nbytes,
+                         ingest="mono"):
+        _obs_metrics.REGISTRY.counter("ingest.bytes").inc(nbytes)
+        _obs_metrics.REGISTRY.counter("ingest.slabs").inc()
+        points = (X.to(tdtype).contiguous() if host is None
+                  else torch.from_numpy(host).to(device))
     if sample_weight is None:
         sw = None
         weights = torch.ones(shape[0], dtype=tdtype, device=device)
@@ -694,14 +716,21 @@ def _to_mesh(X, device, dtype, sample_weight, mesh,
         points, weights, _ = place_slabs(
             lambda a, b: host[a:b], lo, hi, block, d, device, dtype, sw)
     else:
-        if host is not None:
-            rows, mask = pad_points(host[lo:hi], block, min_rows=block)
-            points = torch.from_numpy(np.ascontiguousarray(rows)).to(device)
-        else:
-            points = torch.zeros((block, d), dtype=X.dtype, device=device)
-            points[: hi - lo] = X[lo:hi]
-            mask = np.zeros(block, dtype=dtype)
-            mask[: hi - lo] = 1.0
+        nbytes = block * d * dtype.itemsize if host is not None else 0
+        with _obs_trace.span("stage", ingest="mono", rows=block,
+                             bytes=nbytes):
+            _obs_metrics.REGISTRY.counter("ingest.bytes").inc(nbytes)
+            _obs_metrics.REGISTRY.counter("ingest.slabs").inc()
+            if host is not None:
+                rows, mask = pad_points(host[lo:hi], block, min_rows=block)
+                points = torch.from_numpy(
+                    np.ascontiguousarray(rows)).to(device)
+            else:
+                points = torch.zeros((block, d), dtype=X.dtype,
+                                     device=device)
+                points[: hi - lo] = X[lo:hi]
+                mask = np.zeros(block, dtype=dtype)
+                mask[: hi - lo] = 1.0
         if sw is not None:
             mask[: hi - lo] = sw[lo:hi]
         weights = torch.from_numpy(mask).to(device)
@@ -754,8 +783,13 @@ def from_process_local(X_local, mesh, *, device=None, dtype=np.float32,
         mask[:n_local] = _validate_sample_weight(sample_weight, n_local,
                                                  dtype)
     chunk = chunk_size or choose_chunk_size(int(counts.max()), k_hint, d)
+    nbytes = int(rows.nbytes + mask.nbytes)
+    with _obs_trace.span("stage", rows=int(rows.shape[0]), bytes=nbytes):
+        _obs_metrics.REGISTRY.counter("ingest.bytes").inc(nbytes)
+        points = torch.from_numpy(rows).to(device)
+        weights = torch.from_numpy(mask).to(device)
     return ShardedDataset(
-        torch.from_numpy(rows).to(device), torch.from_numpy(mask).to(device),
+        points, weights,
         mesh, n=int(counts.sum()), offset=int(counts[:d_idx].sum()),
         local_rows=n_local, chunk=chunk,
         explicit_chunk=chunk_size is not None, process_local=True)
@@ -841,14 +875,28 @@ class BlockStager:
         return x, w
 
     def stage(self, block: np.ndarray, bw: Optional[np.ndarray] = None,
-              out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-              ) -> StagedBlock:
+              out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              slab: Optional[Tuple[int, int]] = None) -> StagedBlock:
         """The producer's share: this rank's rows of the decoded block (in
         the stager's dtype) on their way to the device.  ``out``, a pair of
         device views (rows, weights) of the block's shape, receives the
         copy in place of new tensors (the slab placement,
-        :func:`place_slabs`; ``bw`` is then required)."""
+        :func:`place_slabs`, which passes ``slab`` = (index, count); ``bw``
+        is then required).  Under a tracer a ``stage`` span (its rows and
+        bytes, and the slab's index and count); the registry counts the
+        bytes in ``ingest.bytes`` and each block in ``ingest.slabs`` (a
+        placement's slabs are counted by :func:`place_slabs`)."""
         x, w = self.share(block, bw)
+        attrs = dict(rows=int(x.shape[0]), bytes=int(x.nbytes))
+        if slab is not None:
+            attrs.update(slab=int(slab[0]), slabs=int(slab[1]))
+        with _obs_trace.span("stage", **attrs):
+            _obs_metrics.REGISTRY.counter("ingest.bytes").inc(int(x.nbytes))
+            if slab is None:
+                _obs_metrics.REGISTRY.counter("ingest.slabs").inc()
+            return self._copy(x, w, block, out)
+
+    def _copy(self, x, w, block, out) -> StagedBlock:
         if not self._cuda:
             if out is not None:
                 out[0].copy_(_tensor_of(x))

@@ -1059,19 +1059,39 @@ class ServingEngine:
                       else None)
                 for mid, rm in sorted(self._residents.items())}
 
+    #: The builders of the programs a dispatch runs: K-Means' assignment,
+    #: margin, score and transform passes, and the mixture's posterior.
+    _SERVING_BUILDERS = ("make_predict_fn", "make_assign_margin_fn",
+                         "make_score_rows_fn", "make_multi_predict_fn",
+                         "make_transform_fn", "make_two_level_predict_fn",
+                         "make_gmm_predict_fn")
+
     def _program_memory(self) -> List[dict]:
         """What the engine holds per bucket shape, under the JAX package's
         keys: one row per staging buffer set (``cache='serving.staging'``,
         ``key`` (rows, D, dtype), its pinned host, device and weight bytes
-        in ``peak_bytes``, the device bytes in ``arg_bytes``) and one per
-        built step function (``cache='serving.step_fns'``, its key; a
-        step function holds no compiled program whose memory the port can
-        read, so its byte fields are None and ``available`` False)."""
+        in ``peak_bytes``, the device bytes in ``arg_bytes``).  Under a
+        cost collector (``obs.cost.collecting``), one row per record of a
+        serving program (:data:`_SERVING_BUILDERS`): run ``warmup()``
+        inside the scope so that the bucket programs are built and
+        measured there, as in the reference.  Without one, one row per
+        built step function (``cache='serving.step_fns'``, its key, the
+        byte fields None and ``available`` False: nothing measured
+        it)."""
+        from kmeans_tpu_torch.obs import cost as obs_cost
         rows = [{"cache": "serving.staging", "key": key, "role": "staging",
                  "peak_bytes": st.nbytes,
                  "arg_bytes": int(st.dev.nbytes + st.weights.nbytes),
                  "temp_bytes": None, "code_bytes": None, "available": True}
                 for key, st in sorted(self._staging.items())]
+        col = obs_cost.get_collector()
+        if col is not None:
+            return rows + [
+                {"cache": r.cache, "key": r.key, "role": r.role,
+                 "peak_bytes": r.peak_bytes, "arg_bytes": r.arg_bytes,
+                 "temp_bytes": r.temp_bytes, "code_bytes": r.code_bytes,
+                 "available": r.available}
+                for r in col.records() if r.cache in self._SERVING_BUILDERS]
         rows += [{"cache": "serving.step_fns", "key": key,
                   "role": key[0], "peak_bytes": None, "arg_bytes": None,
                   "temp_bytes": None, "code_bytes": None,

@@ -12,7 +12,9 @@ first), and ``fit(resume=<path>)`` reads with
 :func:`load_state_with_fallback`, which falls back to ``.prev`` when the
 file is torn.  :func:`describe_checkpoint` and :func:`classify_resume` read
 the JSON record alone.  The checkpoints of both packages rotate alike, so
-either package resumes from the other's files.
+either package resumes from the other's files.  Under a tracer a write is a
+``checkpoint.save`` span and a read of a whole file a
+``checkpoint.restore`` span.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ from pathlib import Path
 from typing import Any, Dict, Tuple
 
 import numpy as np
+
+from kmeans_tpu_torch.obs import trace as _obs_trace
 
 FORMAT_VERSION = 1
 
@@ -63,12 +67,13 @@ def save_state(path, state: Dict[str, Any]) -> None:
     meta = {k: v for k, v in state.items() if k not in arrays}
     meta["__format_version__"] = FORMAT_VERSION
     tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
-    try:
-        with open(tmp, "wb") as f:
-            np.savez(f, __meta__=json.dumps(meta), **arrays)
-        os.replace(tmp, path)
-    finally:
-        tmp.unlink(missing_ok=True)
+    with _obs_trace.span("checkpoint.save", path=str(path)):
+        try:
+            with open(tmp, "wb") as f:
+                np.savez(f, __meta__=json.dumps(meta), **arrays)
+            os.replace(tmp, path)
+        finally:
+            tmp.unlink(missing_ok=True)
 
 
 def save_state_rotating(path, state: Dict[str, Any]) -> None:
@@ -147,8 +152,9 @@ def _parse_npz(path: Path, materialize: bool):
 
 
 def _load_state_at(path: Path) -> Dict[str, Any]:
-    state, arrays = _parse_npz(path, materialize=True)
-    state.update(arrays)
+    with _obs_trace.span("checkpoint.restore", path=str(path)):
+        state, arrays = _parse_npz(path, materialize=True)
+        state.update(arrays)
     return state
 
 

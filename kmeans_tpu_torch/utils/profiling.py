@@ -1,24 +1,242 @@
-"""Dispatch accounting: the part of the JAX package's
-``utils/profiling.py`` that the serving engine and the tests read.
+"""Timing, profiling and dispatch accounting.
 
-``note_dispatch(label)`` records one host->device dispatch under a stable
-label: it increments ``dispatch.<label>`` in
-``obs.metrics_registry.REGISTRY``, lands as an instant ``dispatch.note``
-event on an active trace, and appends to the active
-:func:`log_dispatches` scope.  ``dispatch_counts()`` reads the registry's
-``dispatch.*`` counters.  CUDA-event timing and ``measure_phase_ladder``
-are ROADMAP.md, A.13.
+Counterpart of the JAX package's ``utils/profiling.py``:
+
+* :class:`Timer` times on ``torch.cuda.Event`` pairs recorded on the
+  current stream of a CUDA device (the stream the kernels launch on), and
+  on ``time.perf_counter`` on the CPU; :func:`timed_call` the same for a
+  function's mean;
+* :func:`trace` is a ``torch.profiler`` scope that writes a Chrome trace;
+* :func:`measure_phase_ladder`, :data:`PHASE_DECISION_SHARE`,
+  :func:`phase_ceiling_table` and :func:`sanitize_json` decompose a pass
+  into phases by a ladder of prefix programs
+  (``parallel.distributed.make_estep_phase_fn``), the reference's rules;
+* ``note_dispatch(label)`` records one host->device dispatch under a
+  stable label: it increments ``dispatch.<label>`` in
+  ``obs.metrics_registry.REGISTRY``, lands as an instant ``dispatch.note``
+  event on an active trace, and appends to the active
+  :func:`log_dispatches` scope.  ``dispatch_counts()`` reads the
+  registry's ``dispatch.*`` counters.
+
+The reference's ``compile_caches`` and ``recompilation_sentinel`` read its
+step caches; the port's come with ``utils/cache.py`` (ROADMAP.md, A.14).
 """
 
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Dict, Optional
 
 from kmeans_tpu_torch.obs import metrics_registry as _metrics
 from kmeans_tpu_torch.obs import trace as _obs_trace
 
-__all__ = ["note_dispatch", "log_dispatches", "dispatch_counts"]
+__all__ = ["Timer", "trace", "timed_call", "measure_phase_ladder",
+           "PHASE_DECISION_SHARE", "phase_ceiling_table", "sanitize_json",
+           "note_dispatch", "log_dispatches", "dispatch_counts"]
+
+
+def _cuda_device(sync_on):
+    """The CUDA device of ``sync_on`` (a tensor, a device, or a nest of
+    tensors), or None."""
+    import torch
+    if sync_on is None:
+        return None
+    if isinstance(sync_on, torch.device):
+        return sync_on if sync_on.type == "cuda" else None
+    if isinstance(sync_on, torch.Tensor):
+        return sync_on.device if sync_on.is_cuda else None
+    if isinstance(sync_on, (list, tuple)):
+        for v in sync_on:
+            dev = _cuda_device(v)
+            if dev is not None:
+                return dev
+    return None
+
+
+class Timer:
+    """Accumulating timer.  ``measure(sync_on=...)``: where ``sync_on``
+    names a CUDA device (a tensor on it, or the device), the interval is
+    read from two ``torch.cuda.Event`` objects recorded on that device's
+    current stream around the body, read after the end event completes;
+    otherwise ``time.perf_counter`` around the body."""
+
+    def __init__(self):
+        self.total = 0.0
+        self.count = 0
+
+    @contextlib.contextmanager
+    def measure(self, sync_on=None):
+        dev = _cuda_device(sync_on)
+        if dev is None:
+            start = time.perf_counter()
+            yield
+            self.total += time.perf_counter() - start
+            self.count += 1
+            return
+        import torch
+        stream = torch.cuda.current_stream(dev)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record(stream)
+        yield
+        b.record(stream)
+        b.synchronize()
+        self.total += a.elapsed_time(b) / 1e3
+        self.count += 1
+
+    @property
+    def mean(self) -> float:
+        return self.total / self.count if self.count else 0.0
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str]):
+    """A ``torch.profiler`` scope over the CPU and, where there is one, the
+    CUDA device, written as a Chrome trace ``trace.json`` under
+    ``log_dir``; a no-op when ``log_dir`` is None."""
+    if log_dir is None:
+        yield
+        return
+    import os
+
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def timed_call(fn, *args, warmup: int = 1, iters: int = 3):
+    """(mean seconds, last result) of ``fn(*args)`` over ``iters`` calls
+    after ``warmup`` ones, each call's end awaited (CUDA events on a CUDA
+    result's device, ``perf_counter`` otherwise)."""
+    result = None
+    for _ in range(warmup):
+        result = fn(*args)
+    timer = Timer()
+    for _ in range(iters):
+        dev = _cuda_device(result)
+        with timer.measure(sync_on=dev):
+            result = fn(*args)
+    return timer.total / max(iters, 1), result
+
+
+# --------------------------------------------------- phase decomposition
+# A pass cannot be timed phase by phase from inside (its launches overlap
+# on the card), so the decomposition runs a LADDER of cumulative-prefix
+# programs (phase 1 only; phases 1-2; the whole pass), measures each rung
+# with the same callable, and gives each phase the per-rep DIFFERENCE
+# between its rung and the one before.  Reps interleave across rungs so
+# that drift moves every rung together.
+
+
+def measure_phase_ladder(rungs, *, reps: int = 5):
+    """Measure a cumulative-phase ladder (the reference's rules).
+
+    ``rungs`` is an ordered list of ``(label, measure)`` pairs where
+    ``measure()`` returns the seconds of the program that runs every phase
+    up to and including ``label``.  The first phase's cost is its rung's;
+    each later phase's is the per-rep difference to the rung before,
+    clamped at 0 in ``seconds``; ``spread`` is ``(max - min) / median`` of
+    the unclamped differences (inf where the median is not positive but
+    the reps vary, 0 where they are all zero).  Returns ``{"phase",
+    "seconds", "cumulative", "spread"}`` rows."""
+    import numpy as np
+
+    labels = [label for label, _ in rungs]
+    samples = {label: [] for label in labels}
+    for _ in range(reps):
+        for label, measure in rungs:
+            samples[label].append(float(measure()))
+    out = []
+    prev = None
+    for label in labels:
+        cur = np.asarray(samples[label])
+        raw = cur if prev is None else cur - prev
+        med_raw = float(np.median(raw))
+        span = float(raw.max() - raw.min())
+        if med_raw > 0:
+            spread = span / med_raw
+        else:
+            spread = float("inf") if span > 0 else 0.0
+        out.append({"phase": label,
+                    "seconds": max(med_raw, 0.0),
+                    "cumulative": float(np.median(cur)),
+                    "spread": spread})
+        prev = cur
+    return out
+
+
+#: The phase table's decision rule (the reference's, committed before a
+#: measurement): a phase with at least this share of the pass is
+#: "actionable".
+PHASE_DECISION_SHARE = 0.15
+
+
+def phase_ceiling_table(ladder, *, flops_per_iter=None,
+                        peak_tflops=None, cost_record=None,
+                        comm_model=None,
+                        decision_share: float = PHASE_DECISION_SHARE):
+    """A :func:`measure_phase_ladder` result as the reference's
+    measured-ceiling table: per phase ``ms``, ``share`` of the whole pass
+    (the last rung's cumulative median), ``spread``,
+    ``implied_ceiling_speedup`` (``full / (full - phase)``),
+    ``implied_ceiling_mfu`` (with ``flops_per_iter`` and ``peak_tflops``)
+    and ``actionable`` (``share >= decision_share``).  ``cost_record``
+    adds the roofline columns (``obs.cost.roofline_fields``);
+    ``comm_model`` (``obs.fleet.comm_bytes_model``) puts the collective
+    bytes on the last row."""
+    full = float(ladder[-1]["cumulative"])
+    roofline = None
+    if cost_record is not None and flops_per_iter:
+        from kmeans_tpu_torch.obs.cost import roofline_fields
+        roofline = roofline_fields(flops_per_iter, full, cost_record,
+                                   peak_tflops)
+    rows = []
+    for r in ladder:
+        sec = float(r["seconds"])
+        share = sec / full if full > 0 else 0.0
+        remaining = max(full - sec, 1e-12)
+        speedup = full / remaining if full > 0 else 1.0
+        mfu = None
+        if flops_per_iter and peak_tflops and full > 0:
+            mfu = (flops_per_iter / remaining) / (peak_tflops * 1e12)
+        row = {
+            "phase": r["phase"],
+            "ms": sec * 1e3,
+            "share": share,
+            "spread": r["spread"],
+            "implied_ceiling_speedup": speedup,
+            "implied_ceiling_mfu": mfu,
+            "actionable": bool(share >= decision_share),
+        }
+        if roofline is not None:
+            row.update(roofline)
+        rows.append(row)
+    if comm_model is not None and rows:
+        rows[-1]["comm_bytes_per_iter"] = \
+            comm_model["per_iteration_bytes"]
+        rows[-1]["comm_wire_bytes_per_device"] = \
+            comm_model["wire_bytes_per_device_per_iteration"]
+    return rows
+
+
+def sanitize_json(obj):
+    """Non-finite floats replaced by None, recursively: strict JSON has no
+    inf or nan, and a noise-only phase reports ``spread=inf``."""
+    import math
+
+    if isinstance(obj, dict):
+        return {k: sanitize_json(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [sanitize_json(v) for v in obj]
+    if isinstance(obj, float) and not math.isfinite(obj):
+        return None
+    return obj
 
 _DISPATCH_LOG: Optional[list] = None
 

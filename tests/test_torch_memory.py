@@ -155,8 +155,30 @@ def test_plan_fit_two_level_terms():
 @pytest.mark.parametrize("family", ["spherical", "bisecting", "minibatch",
                                     "gmm"])
 def test_plan_fit_other_families_name_their_item(family):
-    with pytest.raises(NotImplementedError, match="A.13"):
-        memory.plan_fit(family, 100, 4, 3)
+    """Every family plans now: the JAX package's dict, but for the port's
+    documented tile and statistics terms of the K-Means families (four
+    (chunk, k) tiles in the accumulation type, ``2 k`` statistics beside
+    the sums), and the port's ``mode`` and ``assign`` keys.  An unknown
+    family still raises."""
+    batch = 1024 if family == "minibatch" else None
+    got = memory.plan_fit(family, 8192, 64, 32, chunk=2048, batch=batch)
+    ref = jmem.plan_fit(family, 8192, 64, 32, chunk=2048, batch=batch)
+    port_terms = set() if family == "gmm" else {"tile_bytes",
+                                                "stats_bytes"}
+    assert set(got["components"]) == set(ref["components"])
+    for key, value in ref["components"].items():
+        if key not in port_terms:
+            assert got["components"][key] == value, key
+    sums = {"predicted_temp_bytes", "predicted_peak_bytes"} \
+        if port_terms else set()
+    for key, value in ref.items():
+        if key != "components" and key not in sums:
+            assert got[key] == value, key
+    if port_terms:
+        rows = min(2048, batch or 8192)
+        assert got["components"]["tile_bytes"] == 4 * rows * 32 * 4
+        assert got["components"]["stats_bytes"] == (32 * 64 + 2 * 32) * 4
+    assert got["mode"] == ("torch" if family == "gmm" else "matmul")
     with pytest.raises(ValueError, match="unknown family"):
         memory.plan_fit("nope", 100, 4, 3)
     assert family in memory.FAMILIES == jmem.FAMILIES
@@ -166,3 +188,56 @@ def test_plan_fit_dtype_names():
     assert _plan(dtype=np.dtype(np.float64))["components"][
         "points_bytes"] == 10_000 * 16 * 8
     assert _plan(dtype="float64")["dtype"] == "float64"
+
+
+@pytest.mark.parametrize("cov_type", ["diag", "spherical", "tied", "full"])
+def test_plan_fit_gmm_equals_the_reference(cov_type):
+    """The mixture in the torch E pass plans exactly as the reference;
+    the kernel mode (``diag_estep``) forms no (chunk, k) tile but its
+    blocks' tables and the split coefficients."""
+    got = memory.plan_fit("gmm", 10_000, 16, 8, chunk=2500,
+                          cov_type=cov_type, data_shards=2)
+    want = jmem.plan_fit("gmm", 10_000, 16, 8, chunk=2500,
+                         cov_type=cov_type, data_shards=2)
+    assert {k: v for k, v in got.items() if k not in ("mode", "assign")} \
+        == want
+    kern = memory.plan_fit("gmm", 1_000_000, 16, 8, cov_type=cov_type,
+                           mode="kernel", device="cpu")
+    table = 8 * (2 * 16 + 2)
+    blocks = min(2 * 132, -(-1_000_000 // 128))
+    assert kern["components"]["tile_bytes"] == \
+        blocks * (table * 4 + 8) + 4 * 8 * 16 * 4
+    with pytest.raises(ValueError, match="covariance"):
+        memory.plan_fit("gmm", 10, 2, 2, cov_type="bogus")
+
+
+def test_plan_observed_join_and_table_text():
+    from kmeans_tpu_torch.obs.cost import CostRecord
+    recs = [CostRecord(cache="make_step_fn", key="k", available=True,
+                       flops=1.0, peak_bytes=12345),
+            CostRecord(cache="make_gmm_step_fn", key="k", available=True,
+                       flops=1.0, peak_bytes=99999),
+            CostRecord(cache="make_fit_fn", key="k", available=False,
+                       flops=1.0, peak_bytes=None)]
+    for fam, want in (("kmeans", 12345), ("spherical", 12345),
+                      ("bisecting", 12345), ("gmm", 99999),
+                      ("minibatch", None)):
+        plan = memory.plan_fit(fam, 100, 4, 2, batch=10, records=recs)
+        assert plan["observed_peak_bytes"] == want, fam
+    assert memory.plan_fit("kmeans", 100, 4, 2)["observed_peak_bytes"] \
+        is None
+    plans = [memory.plan_fit(f, 8192, 64, 32, chunk=2048, batch=1024)
+             for f in ("gmm",)] + [
+        memory.plan_fit("gmm", 5000, 8, 4, cov_type="full")]
+    jplans = [jmem.plan_fit(f, 8192, 64, 32, chunk=2048, batch=1024)
+              for f in ("gmm",)] + [
+        jmem.plan_fit("gmm", 5000, 8, 4, cov_type="full")]
+    assert memory.format_plan_table(plans, device="cpu") == \
+        jmem.format_plan_table(jplans)
+    plans[0]["observed_peak_bytes"] = 3 << 30
+    jplans[0]["observed_peak_bytes"] = 3 << 30
+    assert memory.format_plan_table(plans, title="t", device="cpu") == \
+        jmem.format_plan_table(jplans, title="t")
+    assert memory._fmt_bytes(None) == jmem._fmt_bytes(None) == "-"
+    for b in (0, 1023, 1 << 20, 5 << 40, 7 << 50):
+        assert memory._fmt_bytes(b) == jmem._fmt_bytes(b)

@@ -27,6 +27,7 @@ MODULES = ["kmeans_tpu_torch", "kmeans_tpu_torch.convert",
            "kmeans_tpu_torch.experiments",
            "kmeans_tpu_torch.experiments.exp_kernel_edits",
            "kmeans_tpu_torch.experiments.exp_pallas_kernel",
+           "kmeans_tpu_torch.experiments.exp_profiler_loss",
            "kmeans_tpu_torch.experiments.exp_stream_host",
            "kmeans_tpu_torch.metrics",
            "kmeans_tpu_torch.models.bisecting",
@@ -36,11 +37,12 @@ MODULES = ["kmeans_tpu_torch", "kmeans_tpu_torch.convert",
            "kmeans_tpu_torch.models.minibatch",
            "kmeans_tpu_torch.models.pq",
            "kmeans_tpu_torch.models.spherical",
-           "kmeans_tpu_torch.obs", "kmeans_tpu_torch.obs.drift",
+           "kmeans_tpu_torch.obs", "kmeans_tpu_torch.obs.cost",
+           "kmeans_tpu_torch.obs.drift",
            "kmeans_tpu_torch.obs.fleet", "kmeans_tpu_torch.obs.heartbeat",
            "kmeans_tpu_torch.obs.identity", "kmeans_tpu_torch.obs.memory",
            "kmeans_tpu_torch.obs.metrics_registry",
-           "kmeans_tpu_torch.obs.trace",
+           "kmeans_tpu_torch.obs.report", "kmeans_tpu_torch.obs.trace",
            "kmeans_tpu_torch.ops._build", "kmeans_tpu_torch.ops.assign",
            "kmeans_tpu_torch.ops.compare",
            "kmeans_tpu_torch.ops.estep_kernels",
@@ -145,8 +147,9 @@ def test_exports():
 def test_serving_exports_what_is_ported():
     """``kmeans_tpu_torch.serving`` exports the JAX package's names: the
     engine, queue and registry, the fleet and serve-and-learn (ROADMAP
-    A.12); ``obs`` has the heartbeat and the fleet readers, and not yet
-    the cost records or reports (A.13)."""
+    A.12); ``obs`` has the heartbeat, the fleet module, and since the rest
+    of A.13 the cost records and the reports, the port's own modules with
+    the JAX package's names."""
     import kmeans_tpu.serving
     from kmeans_tpu_torch import obs, serving
     assert serving.__all__ == kmeans_tpu.serving.__all__ == [
@@ -162,8 +165,18 @@ def test_serving_exports_what_is_ported():
     assert obs.fleet.__name__ == "kmeans_tpu_torch.obs.fleet"
     assert obs.heartbeat.__module__ == "kmeans_tpu_torch.obs.heartbeat"
     assert obs.note_progress.__module__ == "kmeans_tpu_torch.obs.heartbeat"
-    for name in ("cost", "report"):
-        assert not hasattr(obs, name), name
+    import kmeans_tpu.obs
+    assert obs.cost.__name__ == "kmeans_tpu_torch.obs.cost"
+    assert obs.report.__name__ == "kmeans_tpu_torch.obs.report"
+    for name in ("cost", "memory", "fleet", "identity", "drift",
+                 "ttfi_ladder", "time_to_first_iteration",
+                 "format_phase_table", "merge_cost", "format_cost_table"):
+        assert name in obs.__all__ and name in kmeans_tpu.obs.__all__, name
+    for name in kmeans_tpu.obs._LAZY_REPORT:
+        assert getattr(obs, name) is getattr(obs.report, name), name
+    for name in ("FLOPS_AGREEMENT_RTOL", "CostRecord", "collecting",
+                 "instrument", "crosscheck", "roofline_fields"):
+        assert getattr(obs.cost, name) is not None, name
 
 
 def test_default_device_is_the_card_and_raises_without_one(tmp_path):
