@@ -136,7 +136,25 @@ out-of-memory replay, the stream and ``predict_stream``, each bit-equal to
 the run untraced (``spans``); and one captured step's collective bytes
 against ``obs.fleet.comm_bytes_model`` on one NCCL rank and on the two
 gloo ranks (``comm``, agreeing on ``data2``).  Their launches go into the
-kernel rows' ``observability_launches``.
+kernel rows' ``observability_launches``.  The time to first iteration
+(``ttfi``) runs by both loops with ``overlap`` 0 and 1, with the library
+built and from an empty build directory (``nvcc`` inside the fit).
+
+Warm start and determinism: three fresh interpreters, each with an empty
+build directory (``KMEANS_TPU_TORCH_BUILD_DIR``): A fits the main data
+with a store of built libraries (``utils.aot``) and checkpoints, killed at
+iteration 2, shipping the library into ``<ckpt>.aot``; B, ``nvcc`` hidden,
+resumes from the checkpoint and predicts, loading the shipped library
+(``via='aot-load'``, no ``nvcc``), bit-equal to the uninterrupted fit; C
+finds the artefact with a byte flipped, counts ``aot.fallback``, rebuilds
+the same kernel by ``nvcc`` and gives the same labels (``warm_start``);
+the main data cut to 2,000,000 rows with ``bucket='auto'`` (padded to
+2,097,152, labels equal to ``bucket=0``), a second fit of 1,900,000 rows in
+the same bucket under ``recompilation_sentinel``: nothing built, one graph
+captured by the device loop (``bucket``); ``check_determinism(runs=3)``
+for kernels 1 and 2 by both loops, 1b and 2b, 'matmul', ``diag_estep`` and
+the mini-batch, the two-level route printed (``determinism``).  Their
+launches go into the kernel rows' ``warm_start_launches``.
 
 Every phase prints one JSON line as it ends.  A phase that fails raises, so
 the run ends with a non-zero code and without the result line.  The last line
@@ -830,6 +848,8 @@ PATH_KERNELS = {
     "fault_minibatch": ("fused_assign_reduce",),
     "fault_gmm_diag": ("diag_estep", "fused_assign_reduce"),
     "fault_gmm_full": ("fused_assign_reduce",),
+    "bucket": ("fused_assign_reduce", "hopper_assign"),
+    "bucket_device": ("fused_assign_reduce", "hopper_assign"),
 }
 
 
@@ -5046,13 +5066,14 @@ def dp_child(rank: int, world: int, store: str, out: str) -> None:
             c_ref = torch.from_numpy(refs[prec]).to(DEV)
             # The step under a cost collector: its collective bytes, the
             # measured side of phase comm.
+            _clear_step_caches()
             with obs_cost.collecting() as col:
-                st = dist.make_step_fn(
+                st = _step_cached(
                     mesh, chunk_size=chunk, mode=km._mode(),
                     need_farthest=False, need_sse_pc=False)(
                     ds.points, ds.weights, c_ref, km._x2w(ds))
             step_rec = next(r for r in col.records()
-                            if r.cache == "make_step_fn")
+                            if _built_by(r, "make_step_fn"))
             step_labels = ds.gather_rows(dist.make_predict_fn(
                 mesh, chunk_size=chunk, mode=km._mode())(ds.points, c_ref))
             res[(label, prec)] = dict(
@@ -5516,12 +5537,13 @@ def _dp_world1_comm(x, mesh):
     km = KMeans(k=MAIN["k"], seed=42, init="forgy", verbose=False,
                 mesh=mesh)
     ds = km.cache(x)
+    _clear_step_caches()
     with obs_cost.collecting() as col:
-        dist.make_step_fn(mesh, chunk_size=km._chunk_for(ds),
-                          mode=km._mode(), need_farthest=False,
-                          need_sse_pc=False)(
+        _step_cached(mesh, chunk_size=km._chunk_for(ds),
+                     mode=km._mode(), need_farthest=False,
+                     need_sse_pc=False)(
             ds.points, ds.weights, x[: MAIN["k"]].contiguous(), km._x2w(ds))
-    rec = next(r for r in col.records() if r.cache == "make_step_fn")
+    rec = next(r for r in col.records() if _built_by(r, "make_step_fn"))
     line = comm_line(rec, 1, MAIN["k"], MAIN["d"])
     print(line["table"], flush=True)
     emit("comm", path="dp_world1", mesh="world1",
@@ -5676,15 +5698,12 @@ KERNEL1_PARTS = ("fused_assign_reduce_kernel", "reduce_partials_kernel",
 #: is made with NumPy before the clock starts; the clock starts before
 #: ``import torch`` and ``import kmeans_tpu_torch``.
 TTFI_CHILD = r"""
-import json, sys, time
+import json, os, sys, time
 import numpy as np
-n, d, k, loop, root, iters = (int(sys.argv[1]), int(sys.argv[2]),
-                              int(sys.argv[3]), sys.argv[4], sys.argv[5],
-                              int(sys.argv[6]))
-rng = np.random.default_rng(1)
-centres = rng.uniform(-10, 10, size=(k, d)).astype(np.float32)
-x = centres[rng.integers(0, k, size=n)]
-x += rng.standard_normal((n, d), dtype=np.float32)
+data, k, loop, root, iters, overlap = (
+    sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4],
+    int(sys.argv[5]), int(sys.argv[6]))
+x = np.load(data)
 t_start = time.perf_counter()
 sys.path.insert(0, root)
 import torch
@@ -5694,16 +5713,31 @@ from kmeans_tpu_torch.parallel import distributed as dist
 with obs.tracing() as tr:
     km = KMeans(k=k, max_iter=iters, seed=42, init="forgy",
                 tolerance=1e-30, compute_labels=False, verbose=False,
-                host_loop=loop == "host", device="cuda")
+                host_loop=loop == "host", device="cuda", overlap=overlap)
     km.fit(x)
 recs = tr.records()
 rows = obs.time_to_first_iteration(recs)
 first = min((r for r in recs if r.get("kind") == "span"
              and r["name"] == "dispatch"), key=lambda r: r["t0"])
-via = [(r.get("attrs") or {}).get("via") for r in recs
-       if r.get("kind") == "span" and r["name"] == "compile"]
+spans = [r for r in recs if r.get("kind") == "span"]
+via = [(r.get("attrs") or {}).get("via") for r in spans
+       if r["name"] == "compile"]
+libs = [{"via": r["attrs"]["via"], "ms": r["dur"] * 1e3}
+        for r in spans if r["name"] == "compile"
+        and "source" in r.get("attrs", {})]
+main_tid = [r["tid"] for r in spans if r["name"] == "dispatch"][0]
+# The copy's own span ('stage' of the placement), not the producer's
+# 'stage' (via='prefetch') that holds the whole placement.
+copy = [r for r in spans if r["name"] == "stage"
+        and (r.get("attrs") or {}).get("via") != "prefetch"]
 print(json.dumps({"rows": rows, "table": obs.format_phase_table(rows),
                   "wall": tr._t0 - t_start + first["t1"], "via": via,
+                  "library_loads": libs,
+                  "stage_ms": sum(r["dur"] for r in copy) * 1e3,
+                  "stage_on_producer": all(r["tid"] != main_tid
+                                           for r in copy),
+                  "build_dir": str(_build.BUILD_DIR),
+                  "nvcc_runs": _build.NVCC_RUNS,
                   "libraries": len(_build._LIBS),
                   "captures": sum(dist.CAPTURES.values()),
                   "loop_path": km.loop_path_,
@@ -5711,46 +5745,483 @@ print(json.dumps({"rows": rows, "table": obs.format_phase_table(rows),
 """
 
 
-def phase_ttfi():
-    """The main fit in a fresh interpreter that finds the kernel libraries
-    built, by the host and by the device loop, each in its own process:
-    the time-to-first-iteration table from its spans alone
-    (``obs.time_to_first_iteration``), beside the process's wall time from
-    before ``import torch`` to the end of the first dispatch.  Every row
-    >= 0, their sum at most that wall time, one ``compile`` span per
-    library loaded and one per graph captured, none for ``nvcc``.  No cost
-    collector is on (its profiler's start-up would land in a span)."""
+def _ttfi_data(path: Path) -> Path:
+    """The host data of the ``ttfi`` fits (the main shape: blobs around k
+    uniform centres, NumPy's generator, seed 1), made once and written as
+    ``.npy``; each child reads it before its clock starts."""
+    n, d, k = MAIN["n"], MAIN["d"], MAIN["k"]
+    rng = np.random.default_rng(1)
+    centres = rng.uniform(-10, 10, size=(k, d)).astype(np.float32)
+    x = centres[rng.integers(0, k, size=n)]
+    x += rng.standard_normal((n, d), dtype=np.float32)
+    np.save(path, x)
+    return path
+
+
+def _ttfi_run(data: Path, loop: str, overlap: int, build_dir=None) -> dict:
+    """One fresh interpreter's traced main fit (:data:`TTFI_CHILD`) on the
+    rows of ``data``; with ``build_dir`` an empty build directory
+    (``KMEANS_TPU_TORCH_BUILD_DIR``), so the kernel library is built by
+    ``nvcc`` inside the fit."""
+    import os
     root = str(Path(__file__).resolve().parent)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("KMEANS_TPU_TORCH_BUILD_DIR",
+                        "KMEANS_TPU_TORCH_AOT_CACHE")}
+    if build_dir is not None:
+        env["KMEANS_TPU_TORCH_BUILD_DIR"] = str(build_dir)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", TTFI_CHILD, str(data), str(MAIN["k"]), loop,
+         root, str(TTFI_ITERS), str(overlap)],
+        capture_output=True, text=True, timeout=600, env=env)
+    check(proc.returncode == 0, f"ttfi {loop} overlap={overlap}: exit "
+                                f"{proc.returncode}: {proc.stderr[-3000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    res["process_seconds"] = time.perf_counter() - t0
+    return res
+
+
+def _ttfi_check(res: dict, loop: str, overlap: int, cold: bool) -> None:
+    """Print and check one ``ttfi`` process (:func:`phase_ttfi`)."""
+    print(res["table"], flush=True)
+    rows = {r["phase"]: r["ms"] for r in res["rows"]}
+    total = sum(rows.values()) / 1e3
+    graphs = res["via"].count("graph-capture")
+    lib_via = [lv["via"] for lv in res["library_loads"]]
+    label = f"{loop}/overlap={overlap}/" + ("cold" if cold else "built")
+    emit("ttfi", loop=loop, overlap=overlap,
+         build="cold" if cold else "built", rows_ms=rows,
+         rows_seconds=total,
+         wall_seconds_import_to_first_dispatch=res["wall"],
+         compile_spans=res["via"], library_loads=res["library_loads"],
+         stage_ms=res["stage_ms"],
+         stage_on_producer=res["stage_on_producer"],
+         nvcc_runs=res["nvcc_runs"], libraries=res["libraries"],
+         captures=res["captures"], iterations=res["iterations"],
+         process_seconds=res["process_seconds"])
+    check(res["loop_path"] == loop and all(v >= 0 for v in rows.values())
+          and (overlap or total <= res["wall"])
+          and list(rows) == ["place", "stage", "trace", "compile", "seed",
+                             "first_dispatch"],
+          f"ttfi {label}: rows {rows} sum {total} s, wall {res['wall']} s")
+    want = "nvcc" if cold else "load"
+    check(len(lib_via) == res["libraries"] and set(lib_via) == {want}
+          and res["nvcc_runs"] == (res["libraries"] if cold else 0)
+          and graphs == res["captures"]
+          and graphs == (1 if loop == "device" else 0)
+          and res["stage_on_producer"] == bool(overlap),
+          f"ttfi {label}: library loads {res['library_loads']}, "
+          f"{res['nvcc_runs']} nvcc, compile spans {res['via']}, "
+          f"{res['captures']} captures, stage on the producer "
+          f"{res['stage_on_producer']}")
+
+
+def phase_ttfi():
+    """The main fit in fresh interpreters, traced: the time-to-first-
+    iteration table from its spans alone (``obs.time_to_first_iteration``),
+    beside the process's wall time from before ``import torch`` to the end
+    of the first dispatch; by the host and the device loop, with
+    ``overlap`` 0 and 1, once finding the kernel library built and once
+    from an empty build directory (cold: ``nvcc`` inside the fit).  Every
+    row >= 0; without overlap their sum at most that wall time; one library
+    load per library (``via`` 'load' built, 'nvcc' cold), one ``compile``
+    span per graph captured; with overlap the 1 GiB 'stage' runs on the
+    producer thread beside the load.  Whether the wall drops by about the
+    smaller of the stage and the library load is printed, a finding, not a
+    gate.  No cost collector is on (its profiler's start-up would land in
+    a span)."""
+    walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = _ttfi_data(Path(tmp) / "ttfi.npy")
+        for cold, loop, overlap in [(c, lp, o) for c in (False, True)
+                                    for lp in ("host", "device")
+                                    for o in (0, 1)]:
+            res = _ttfi_run(data, loop, overlap,
+                            Path(tmp) / f"build_{loop}_{overlap}"
+                            if cold else None)
+            _ttfi_check(res, loop, overlap, cold)
+            walls[f"{loop}/overlap={overlap}/" +
+                  ("cold" if cold else "built")] = res
+    for cold in ("built", "cold"):
+        for loop in ("host", "device"):
+            serial = walls[f"{loop}/overlap=0/{cold}"]
+            lapped = walls[f"{loop}/overlap=1/{cold}"]
+            load_ms = sum(lv["ms"] for lv in serial["library_loads"])
+            emit("ttfi_overlap", loop=loop, build=cold,
+                 wall_overlap0_s=serial["wall"],
+                 wall_overlap1_s=lapped["wall"],
+                 wall_drop_ms=(serial["wall"] - lapped["wall"]) * 1e3,
+                 stage_ms=serial["stage_ms"], library_load_ms=load_ms,
+                 smaller_of_the_two_ms=min(serial["stage_ms"], load_ms))
+
+
+#: The checkpointed fit of phase ``warm_start``: iterations in all, the
+#: checkpoint cadence and the boundary process A stops at.
+WARM = dict(iters=4, every=2, kill=2)
+
+#: One process of phase ``warm_start`` (argv: repo root, a JSON config):
+#: the main data made on the card (the same generator and seed as the
+#: parent's), then by ``role``: 'ship' fits with a store and checkpoints and
+#: is killed at ``WARM['kill']``; 'resume' and 'corrupt' resume the
+#: checkpoint and predict.  ``hide_nvcc`` replaces ``_build.find_nvcc`` by
+#: one that counts and raises.  Prints one JSON line; arrays go to files.
+WARM_CHILD = r"""
+import json, sys, time
+t_start = time.perf_counter()
+root, cfg = sys.argv[1], json.loads(sys.argv[2])
+sys.path.insert(0, root)
+import numpy as np
+import torch
+from kmeans_tpu_torch import KMeans, obs
+from kmeans_tpu_torch.data.synthetic import make_blobs_device
+from kmeans_tpu_torch.obs import metrics_registry
+from kmeans_tpu_torch.ops import _build
+from kmeans_tpu_torch.utils import aot, faults
+find_calls = []
+if cfg["hide_nvcc"]:
+    def hidden():
+        find_calls.append(1)
+        raise _build.KernelCompileError("nvcc is hidden in this process")
+    _build.find_nvcc = hidden
+store = aot.configure(cfg["store"])
+dev = torch.device(cfg["device"])
+x, _ = make_blobs_device(cfg["n"], cfg["k"], cfg["d"], device=dev, seed=1)
+kw = dict(k=cfg["k"], max_iter=cfg["iters"], seed=42, init="forgy",
+          tolerance=1e-30, verbose=False, device=dev)
+out = {"role": cfg["role"], "x_sum": float(x.double().sum())}
+_build.reset_launch_counts()
+with obs.tracing() as tr:
+    if cfg["role"] == "ship":
+        with faults.inject_kill_after_iteration(cfg["kill"]) as rec:
+            try:
+                KMeans(**kw).fit(x, checkpoint_every=cfg["every"],
+                                 checkpoint_path=cfg["ckpt"])
+            except faults.SimulatedPreemption:
+                pass
+        out["killed_at"] = rec["fired_at"]
+        out["shipped"] = aot.describe_dir(aot.aot_dir_for(cfg["ckpt"]))
+    else:
+        km = KMeans(**kw).fit(x, resume=cfg["ckpt"])
+        labels = km.predict(x)
+        np.save(cfg["out"] + ".centroids.npy", km.centroids)
+        np.save(cfg["out"] + ".labels.npy", labels)
+        np.save(cfg["out"] + ".labels_.npy", km.labels_)
+        out["iterations"] = km.iterations_run
+        out["read_dirs"] = [str(d) for d in store.read_dirs]
+recs = tr.records()
+spans = [r for r in recs if r.get("kind") == "span"]
+out["library_loads"] = [
+    {"source": r["attrs"]["source"], "via": r["attrs"]["via"],
+     "ms": r["dur"] * 1e3}
+    for r in spans if r["name"] == "compile" and "source" in r["attrs"]]
+out["compile_spans"] = [dict(r["attrs"], ms=r["dur"] * 1e3)
+                        for r in spans if r["name"] == "compile"]
+first = min((r for r in spans if r["name"] == "dispatch"),
+            key=lambda r: r["t0"])
+out["ttfi_rows"] = obs.time_to_first_iteration(recs)
+out["wall_to_first_dispatch_s"] = tr._t0 - t_start + first["t1"]
+out["nvcc_runs"] = _build.NVCC_RUNS
+out["find_nvcc_calls"] = len(find_calls)
+out["aot_fallback"] = metrics_registry.REGISTRY.counter(
+    "aot.fallback").value
+out["store"] = store.stats()
+out["launches"] = {k: v for k, v in _build.LAUNCHES.items() if v}
+print(json.dumps(out))
+"""
+
+
+def _warm_child(cfg: dict, *, hide_nvcc: bool, build_dir: Path) -> dict:
+    """Run :data:`WARM_CHILD` with its own empty build directory; with
+    ``hide_nvcc`` no ``nvcc`` on its ``PATH`` and ``CUDA_HOME`` /
+    ``CUDA_PATH`` pointing nowhere (``find_nvcc`` is also replaced)."""
+    import os
+    root = str(Path(__file__).resolve().parent)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("KMEANS_TPU_TORCH_AOT_CACHE", "CUDA_HOME",
+                        "CUDA_PATH")}
+    env["KMEANS_TPU_TORCH_BUILD_DIR"] = str(build_dir)
+    if hide_nvcc:
+        env["PATH"] = os.pathsep.join(
+            p for p in env.get("PATH", "").split(os.pathsep)
+            if p and not (Path(p) / "nvcc").exists())
+        env["CUDA_HOME"] = env["CUDA_PATH"] = str(build_dir / "no-cuda")
+    cfg = dict(cfg, hide_nvcc=hide_nvcc, n=MAIN["n"], d=MAIN["d"],
+               k=MAIN["k"], iters=WARM["iters"], every=WARM["every"],
+               kill=WARM["kill"], device=str(DEV))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", WARM_CHILD, root,
+                           json.dumps(cfg)], capture_output=True, text=True,
+                          timeout=600, env=env)
+    check(proc.returncode == 0, f"warm_start {cfg['role']}: exit "
+                                f"{proc.returncode}: {proc.stderr[-3000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    res["process_seconds"] = time.perf_counter() - t0
+    res["build_dir_files"] = sorted(p.name for p in build_dir.glob("*.so"))
+    return res
+
+
+def _corrupt_artifacts(aot_dir: Path) -> int:
+    """Flip one byte of the library inside every artefact of ``aot_dir``
+    (a valid zip whose bytes no longer match their sha256)."""
+    import zipfile
+    flipped = 0
+    for art in sorted(aot_dir.glob("*.klib")):
+        with zipfile.ZipFile(art) as z:
+            meta, data = z.read("meta.json"), bytearray(z.read("lib.so"))
+        data[len(data) // 2] ^= 0x01
+        with zipfile.ZipFile(art, "w") as z:
+            z.writestr("meta.json", meta)
+            z.writestr("lib.so", bytes(data))
+        flipped += 1
+    return flipped
+
+
+def phase_warm_start(x):
+    """Warm start from the libraries a checkpoint ships, in three fresh
+    interpreters, each with an empty build directory of its own
+    (``KMEANS_TPU_TORCH_BUILD_DIR``).  A: with ``nvcc`` and a store under a
+    temporary directory, the main fit checkpointed every
+    ``WARM['every']`` iterations and killed at ``WARM['kill']``; the
+    checkpoint's ``.aot`` directory lists the library of kernels 1 and 2
+    (``assign_kernels``: one source, one library).  B: ``nvcc`` hidden, an
+    empty store: ``fit(resume=ckpt)`` and ``predict``; no ``nvcc`` started,
+    every library load ``via='aot-load'``, the centroids and labels bit-
+    equal to an uninterrupted ``WARM['iters']``-iteration fit in this
+    process.  C: the shipped artefact with one byte flipped: ``aot.fallback``
+    counts 1, the kernel is rebuilt by ``nvcc`` (one run), the same labels.
+    Prints each library load's ``compile`` span (a cold ``nvcc`` build
+    against an ``aot-load``) and each process's time to first iteration.
+    Returns the launches of B and C."""
+    import shutil
+    kw = dict(k=MAIN["k"], max_iter=WARM["iters"], seed=42, init="forgy",
+              tolerance=1e-30, verbose=False)
+    ref, _, ref_launches = counted(lambda: KMeans(**kw).fit(x))
+    ref_labels = ref.predict(x)
+    x_sum = float(x.double().sum())
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ckpt = tmp / "ship" / "model.npz"
+        ckpt.parent.mkdir()
+        a = _warm_child(dict(role="ship", store=str(tmp / "store_a"),
+                             ckpt=str(ckpt)),
+                        hide_nvcc=False, build_dir=tmp / "build_a")
+        shipped = a["shipped"]
+        libs = [d["library"] for d in shipped["libraries"]]
+        emit("warm_start", process="A", killed_at=a["killed_at"],
+             shipped=shipped, library_loads=a["library_loads"],
+             nvcc_runs=a["nvcc_runs"], store=a["store"],
+             ttfi_rows=a["ttfi_rows"],
+             wall_to_first_dispatch_s=a["wall_to_first_dispatch_s"],
+             process_seconds=a["process_seconds"])
+        check(a["x_sum"] == x_sum and a["killed_at"] == WARM["kill"]
+              and a["nvcc_runs"] >= 1 and "assign_kernels" in libs
+              and shipped["unreadable"] == 0
+              and all(lv["via"] == "nvcc" for lv in a["library_loads"]),
+              f"warm_start A: killed at {a['killed_at']}, nvcc "
+              f"{a['nvcc_runs']}, shipped {shipped}, loads "
+              f"{a['library_loads']}")
+        b = _warm_child(dict(role="resume", store=str(tmp / "store_b"),
+                             ckpt=str(ckpt), out=str(tmp / "b")),
+                        hide_nvcc=True, build_dir=tmp / "build_b")
+        b_cents = np.load(tmp / "b.centroids.npy")
+        b_labels = np.load(tmp / "b.labels.npy")
+        bit_equal = (np.array_equal(b_cents, ref.centroids)
+                     and np.array_equal(b_labels, ref_labels)
+                     and np.array_equal(np.load(tmp / "b.labels_.npy"),
+                                        ref.labels_))
+        emit("warm_start", process="B", nvcc_runs=b["nvcc_runs"],
+             find_nvcc_calls=b["find_nvcc_calls"],
+             library_loads=b["library_loads"],
+             compile_spans=b["compile_spans"], store=b["store"],
+             read_dirs=b["read_dirs"], iterations=b["iterations"],
+             bit_equal_to_uninterrupted=bit_equal,
+             build_dir_files=b["build_dir_files"], launches=b["launches"],
+             ttfi_rows=b["ttfi_rows"],
+             wall_to_first_dispatch_s=b["wall_to_first_dispatch_s"],
+             process_seconds=b["process_seconds"])
+        check(b["x_sum"] == x_sum and b["nvcc_runs"] == 0
+              and b["find_nvcc_calls"] == 0 and b["library_loads"]
+              and all(lv["via"] == "aot-load"
+                      for lv in b["library_loads"])
+              and b["store"]["loaded"] == len(b["library_loads"])
+              and b["store"]["fallbacks"] == 0
+              and b["iterations"] == WARM["iters"] and bit_equal
+              and b["launches"].get("fused_assign_reduce", 0) > 0
+              and b["launches"].get("hopper_assign", 0) > 0,
+              f"warm_start B: nvcc {b['nvcc_runs']} (find_nvcc "
+              f"{b['find_nvcc_calls']}), loads {b['library_loads']}, store "
+              f"{b['store']}, iterations {b['iterations']}, bit-equal "
+              f"{bit_equal}, launches {b['launches']}")
+        counts["warm_start_resume"] = b["launches"]
+        bad = tmp / "bad" / "model.npz"
+        shutil.copytree(ckpt.parent, bad.parent)
+        flipped = _corrupt_artifacts(aot_dir := bad.with_name(
+            bad.name + ".aot"))
+        c = _warm_child(dict(role="corrupt", store=str(tmp / "store_c"),
+                             ckpt=str(bad), out=str(tmp / "c")),
+                        hide_nvcc=False, build_dir=tmp / "build_c")
+        c_labels = np.load(tmp / "c.labels.npy")
+        same = (np.array_equal(c_labels, b_labels)
+                and np.array_equal(np.load(tmp / "c.centroids.npy"),
+                                   b_cents))
+        emit("warm_start", process="C", flipped=flipped,
+             aot_dir=str(aot_dir), aot_fallback=c["aot_fallback"],
+             nvcc_runs=c["nvcc_runs"], library_loads=c["library_loads"],
+             store=c["store"], same_as_b=same, launches=c["launches"],
+             ttfi_rows=c["ttfi_rows"],
+             wall_to_first_dispatch_s=c["wall_to_first_dispatch_s"],
+             process_seconds=c["process_seconds"])
+        check(flipped >= 1 and c["aot_fallback"] == 1
+              and c["store"]["fallbacks"] == 1 and c["nvcc_runs"] == 1
+              and [lv["via"] for lv in c["library_loads"]] == ["nvcc"]
+              and same,
+              f"warm_start C: {flipped} flipped, aot.fallback "
+              f"{c['aot_fallback']}, nvcc {c['nvcc_runs']}, loads "
+              f"{c['library_loads']}, same labels {same}")
+        counts["warm_start_corrupt"] = c["launches"]
+    nvcc_ms = [lv["ms"] for lv in a["library_loads"]]
+    load_ms = [lv["ms"] for lv in b["library_loads"]]
+    emit("warm_start_summary", nvcc_build_ms=nvcc_ms, aot_load_ms=load_ms,
+         ttfi_wall_s={"A": a["wall_to_first_dispatch_s"],
+                      "B": b["wall_to_first_dispatch_s"],
+                      "C": c["wall_to_first_dispatch_s"]},
+         reference_launches={k_: v for k_, v in ref_launches.items() if v})
+    return counts
+
+
+#: Rows of the cut main data of phase ``bucket``, and of its second fit in
+#: the same bucket (``bucket_rows`` of both: 2,097,152).
+BUCKET = dict(rows=2_000_000, second=1_900_000, iters=3)
+
+
+def phase_bucket(x):
+    """The main data cut to ``BUCKET['rows']`` rows with ``bucket='auto'``:
+    the dataset padded to 2,097,152 rows (weight 0), its labels equal to a
+    ``bucket=0`` fit's and its centroids within the sums' class of
+    ``ops/compare.py``; by the host loop and the device loop.  Then a fit on
+    ``BUCKET['second']`` rows in the same bucket under
+    ``recompilation_sentinel``: no step-cache entry and no library by the
+    host loop; by the device loop exactly one new entry, the capture of
+    the new dataset's graph.  Returns the launches of each path."""
+    from kmeans_tpu_torch.utils.profiling import (CAPTURES,
+                                                  recompilation_sentinel)
+    n0, n1 = BUCKET["rows"], BUCKET["second"]
+    check(sharding.bucket_rows(n0) == sharding.bucket_rows(n1)
+          == MAIN["n"], "bucket: the two row counts share the bucket")
+    counts = {}
+    xa, xb = x[:n0], x[n0 - n1:n0]
     for loop in ("host", "device"):
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-c", TTFI_CHILD, str(MAIN["n"]),
-             str(MAIN["d"]), str(MAIN["k"]), loop, root, str(TTFI_ITERS)],
-            capture_output=True, text=True, timeout=600)
-        check(proc.returncode == 0, f"ttfi {loop}: exit {proc.returncode}"
-                                    f": {proc.stderr[-3000:]}")
-        res = json.loads(proc.stdout.strip().splitlines()[-1])
-        print(res["table"], flush=True)
-        rows = {r["phase"]: r["ms"] for r in res["rows"]}
-        total = sum(rows.values()) / 1e3
-        loads = res["via"].count("load")
-        graphs = res["via"].count("graph-capture")
-        emit("ttfi", loop=loop, rows_ms=rows, rows_seconds=total,
-             wall_seconds_import_to_first_dispatch=res["wall"],
-             compile_spans=res["via"], libraries=res["libraries"],
-             captures=res["captures"], iterations=res["iterations"],
-             process_seconds=time.perf_counter() - t0)
-        check(res["loop_path"] == loop and all(v >= 0 for v in rows.values())
-              and total <= res["wall"]
-              and list(rows) == ["place", "stage", "trace", "compile",
-                                 "seed", "first_dispatch"],
-              f"ttfi {loop}: rows {rows} sum {total} s, wall "
-              f"{res['wall']} s")
-        check(loads == res["libraries"] and graphs == res["captures"]
-              and graphs == (1 if loop == "device" else 0)
-              and "nvcc" not in res["via"],
-              f"ttfi {loop}: compile spans {res['via']} for "
-              f"{res['libraries']} libraries, {res['captures']} captures")
+        kw = dict(k=MAIN["k"], max_iter=BUCKET["iters"], seed=42,
+                  init="forgy", tolerance=1e-30, verbose=False,
+                  host_loop=loop == "host")
+        path = "bucket" if loop == "host" else "bucket_device"
+        exact, exact_s, _ = counted(lambda: KMeans(bucket=0, **kw).fit(xa))
+        auto, auto_s, launches = counted(
+            lambda: KMeans(bucket="auto", **kw).fit(xa))
+        counts[path] = launches
+        ds = KMeans(bucket="auto", **kw).cache(xa)
+        padded = (ds.n, int(ds.points.shape[0]),
+                  float(ds.weights[n0:].sum()))
+        del ds
+        labels_equal = np.array_equal(auto.labels_, exact.labels_)
+        ca = torch.from_numpy(auto.centroids).to(DEV)
+        ce = torch.from_numpy(exact.centroids).to(DEV)
+        cents_ok = cmp.sums_close(ca, ce)
+        with recompilation_sentinel(
+                allowed_new=1 if loop == "device" else 0) as rec:
+            second, second_s, _ = counted(
+                lambda: KMeans(bucket="auto", **kw).fit(xb))
+        new = {name: [repr(k_) for k_ in keys]
+               for name, keys in rec["new"].items()}
+        emit("bucket", loop=loop, rows=n0, padded_to=padded[1],
+             real_rows=padded[0], pad_weight=padded[2],
+             labels_equal=labels_equal, centroids_within_class=cents_ok,
+             centroids_bit_equal=bool(np.array_equal(auto.centroids,
+                                                     exact.centroids)),
+             centroid_max_err=max_err(ca, ce),
+             iterations=(exact.iterations_run, auto.iterations_run),
+             fit_seconds={"bucket0": exact_s, "auto": auto_s,
+                          "second": second_s},
+             second_rows=n1, sentinel_new=new,
+             launches={k_: v for k_, v in launches.items() if v})
+        check(padded == (n0, MAIN["n"], 0.0) and labels_equal and cents_ok
+              and exact.iterations_run == auto.iterations_run
+              and second.labels_.shape == (n1,),
+              f"bucket {loop}: padded {padded}, labels equal "
+              f"{labels_equal}, centroids within class {cents_ok}")
+        want = ({CAPTURES: 1} if loop == "device" else {})
+        check({name: len(keys) for name, keys in new.items()} == want,
+              f"bucket {loop}: the same-bucket fit made {new}")
+        check_path_launches(path)
+    return counts
+
+
+#: Phase ``determinism``: runs of each check, and the Lloyd iterations.
+DETERMINISM = dict(runs=3, iters=2)
+
+
+def phase_determinism(x, x_gmm):
+    """``utils.debug.check_determinism(runs=3)`` at the main shape, 2
+    iterations, on the card: KMeans in 'kernel' by the host loop and the
+    device loop (kernels 1 and 2), in 'kernel_bf16' (1b, 2b) and in
+    'matmul'; ``GaussianMixture`` 'diag' at k = 256 (``diag_estep``) on the
+    mixture data; ``MiniBatchKMeans``.  Each must be deterministic.
+    ``assign='two_level'`` at k = 16,384 is run and its verdict printed,
+    not asserted: its sums are a scatter-add (ROADMAP C)."""
+    from kmeans_tpu_torch.utils.debug import check_determinism
+    it = DETERMINISM["iters"]
+    base = dict(seed=42, init="forgy", tolerance=1e-30, verbose=False,
+                compute_sse=True)
+    cases = {
+        "kernel_host": lambda: KMeans(k=MAIN["k"], max_iter=it,
+                                      distance_mode="kernel",
+                                      host_loop=True, **base),
+        "kernel_device": lambda: KMeans(k=MAIN["k"], max_iter=it,
+                                        distance_mode="kernel",
+                                        host_loop=False, **base),
+        "kernel_bf16": lambda: KMeans(k=MAIN["k"], max_iter=it,
+                                      distance_mode="kernel_bf16", **base),
+        "matmul": lambda: KMeans(k=MAIN["k"], max_iter=it,
+                                 distance_mode="matmul", **base),
+        "minibatch": lambda: MiniBatchKMeans(
+            k=MAIN["k"], batch_size=MINIBATCH["batch"], max_iter=it,
+            seed=42, init="forgy", verbose=False),
+        "gmm_diag": lambda: GaussianMixture(
+            n_components=GMM["k"], covariance_type="diag", max_iter=it,
+            tol=0.0, seed=7, init_params="random", verbose=False),
+    }
+    want = {"kernel_host": ("fused_assign_reduce", "hopper_assign"),
+            "kernel_device": ("fused_assign_reduce", "hopper_assign"),
+            "kernel_bf16": ("fused_assign_reduce_bf16",
+                            "hopper_assign_bf16"),
+            "matmul": (),
+            "minibatch": ("fused_assign_reduce", "hopper_assign"),
+            "gmm_diag": ("diag_estep",)}
+    counts = {}
+    for name, factory in cases.items():
+        data = x_gmm if name == "gmm_diag" else x
+        rep, seconds, launches = counted(
+            lambda: check_determinism(factory, data,
+                                      runs=DETERMINISM["runs"]))
+        counts[f"determinism:{name}"] = launches
+        emit("determinism", case=name, deterministic=rep["deterministic"],
+             runs=rep["runs"], details=rep["details"], seconds=seconds,
+             launches={k_: v for k_, v in launches.items() if v})
+        check(rep["deterministic"] and all(
+            launches.get(kn, 0) > 0 for kn in want[name]),
+              f"determinism {name}: {rep}, launches {launches}")
+    rep, seconds, launches = counted(lambda: check_determinism(
+        lambda: KMeans(k=LARGE_K["k"], max_iter=it, assign="two_level",
+                       coarse_cells=LARGE_K["cells"],
+                       nprobe=LARGE_K["nprobe"], **base),
+        x, runs=DETERMINISM["runs"]))
+    emit("determinism", case="two_level", asserted=False,
+         deterministic=rep["deterministic"], runs=rep["runs"],
+         details=rep["details"], seconds=seconds,
+         launches={k_: v for k_, v in launches.items() if v})
+    return counts
 
 
 def _record_line(rec, top: int = 8) -> dict:
@@ -5775,10 +6246,32 @@ def _kernel1_ms(rec) -> float:
     return ms / max(rec.launches.get("fused_assign_reduce", 0), 1)
 
 
+def _clear_step_caches():
+    """Empty the step caches: a cost record is taken at a cache's miss."""
+    from kmeans_tpu_torch.utils.profiling import compile_caches
+    for cache in compile_caches().values():
+        cache.clear()
+
+
+def _step_cached(mesh, **kw):
+    """``make_step_fn(mesh, **kw)`` through ``kmeans._STEP_CACHE``, where a
+    cost collector sees it built."""
+    from kmeans_tpu_torch.models import kmeans as km_mod
+    from kmeans_tpu_torch.utils.cache import cached_build
+    return cached_build(km_mod._STEP_CACHE, dist.make_step_fn, mesh, **kw)
+
+
+def _built_by(rec, builder: str) -> bool:
+    """Whether a cost record (named by its cache) is of ``builder``'s
+    product: the cache key starts with the builder's name."""
+    return rec.key.startswith(f"('{builder}',")
+
+
 def _captured(fit):
-    """``fit()`` under a cost collector, counted: ``(model, launches,
-    records)``."""
+    """``fit()`` under a cost collector, counted, from empty step caches:
+    ``(model, launches, records)``."""
     from kmeans_tpu_torch.obs import cost
+    _clear_step_caches()
     with cost.collecting() as col:
         model, _, launches = counted(fit)
     return model, launches, col.records()
@@ -5870,8 +6363,8 @@ def phase_cost(x, c0, x_gmm, kernel1_ms):
         lambda: GaussianMixture(**gkw).fit(x_gmm))
     model, launches, recs = _captured(
         lambda: GaussianMixture(**gkw).fit(x_gmm))
-    loop = next(r for r in recs if r.cache in ("make_gmm_fit_fn",
-                                                "make_gmm_multi_fit_fn"))
+    loop = next(r for r in recs if _built_by(r, "make_gmm_fit_fn")
+                or _built_by(r, "make_gmm_multi_fit_fn"))
     plan = memory.plan_fit("gmm", x_gmm.shape[0], x_gmm.shape[1], GMM["k"],
                            mode=model.estep_path_, device=DEV)
     line = _record_line(loop)
@@ -6290,6 +6783,13 @@ def main() -> None:
     kernel1_ms = next(r["ms"] for r in rows
                       if r["name"] == "fused_assign_reduce")
     phase_ttfi()
+    # Warm start and determinism: the libraries shipped with a checkpoint
+    # and loaded by fresh interpreters, the fit-shape bucket, and the
+    # bit-for-bit verdicts of every kernel (each path's counters zeroed
+    # just before it and read just after it).
+    warm_counts = phase_warm_start(x_main)
+    warm_counts.update(phase_bucket(x_main))
+    warm_counts.update(phase_determinism(x_main, x_gmm))
     obs_counts = phase_cost(x_main, c0, x_gmm, kernel1_ms)
     phase_ladder(x_main, c_main, kernel1_ms)
     with tempfile.TemporaryDirectory() as span_tmp:
@@ -6351,6 +6851,9 @@ def main() -> None:
             if c.get(row["name"], 0) > 0}
         row["observability_launches"] = {
             path: c[row["name"]] for path, c in obs_counts.items()
+            if c.get(row["name"], 0) > 0}
+        row["warm_start_launches"] = {
+            path: c[row["name"]] for path, c in warm_counts.items()
             if c.get(row["name"], 0) > 0}
         if row["name"] in bucket_times:
             row["bucket_shapes"] = bucket_times[row["name"]]

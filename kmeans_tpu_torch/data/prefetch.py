@@ -45,7 +45,7 @@ from typing import Callable, Iterable, Iterator, Optional
 from kmeans_tpu_torch.obs import trace as _obs_trace
 
 __all__ = ["prefetch_iter", "check_prefetch", "close_source",
-           "abort_source", "THREAD_NAME"]
+           "abort_source", "stage_beside", "THREAD_NAME"]
 
 #: Name of every producer thread (tests count the live ones).
 THREAD_NAME = "kmeans_tpu_torch-prefetch"
@@ -76,6 +76,19 @@ def prefetch_iter(source: Iterable, prefetch: int,
     if prefetch == 0:
         return _sync_iter(source, stage)
     return _PrefetchIterator(source, prefetch, stage)
+
+
+def stage_beside(item, stage: Callable, work: Callable[[], object]):
+    """``stage(item)`` on a producer thread (:func:`prefetch_iter` with one
+    item) while this thread runs ``work()``; returns ``stage(item)``.  The
+    overlapped set-up of a fit: the upload beside the step functions and
+    the kernel library's load.  An error of either side is raised here."""
+    it = prefetch_iter([item], 1, stage=stage)
+    try:
+        work()
+        return next(it)
+    finally:
+        close_source(it)
 
 
 def close_source(it) -> None:

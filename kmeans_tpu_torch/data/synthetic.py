@@ -191,22 +191,21 @@ def device_shards(n_samples: int, n_features: int, *, mesh=None,
     chosen for ``k_hint`` clusters) is the chunk the dataset records.
     Seed a fit on it with an explicit table or with 'k-means++' (drawn on
     the device); it has no host copy to draw Forgy rows from.  ``device``:
-    None is the card.  ``min_rows`` (the JAX package's bucket padding) is
-    taken at 0 only (ROADMAP.md, A.14)."""
+    None is the card.  ``min_rows`` (the JAX package's bucket padding,
+    ``parallel.sharding.bucket_target``) pads the rows to at least that
+    many with zero points of weight 0, inert in every statistic (on one
+    device after the real rows, under a mesh before they are split);
+    ``n`` stays ``n_samples`` and the chunk is chosen for the padded
+    rows."""
     from kmeans_tpu_torch.models.kmeans import resolve_device
     from kmeans_tpu_torch.parallel import mesh as _mesh
     from kmeans_tpu_torch.parallel.sharding import (Dataset, ShardedDataset,
                                                     choose_chunk_size)
-    if min_rows:
-        raise NotImplementedError(
-            f"min_rows={min_rows!r} is not ported to kmeans_tpu_torch yet: "
-            "ROADMAP.md, A.14 'Orchestrator, warm start, lint, CLIs and "
-            "bench'")
     _centers_arg(kind, centers, int(n_features), dtype)
     n, d = int(n_samples), int(n_features)
     device = resolve_device(device)
     data_shards = _mesh.mesh_shape(mesh)[0]
-    block = -(-max(n, 1) // data_shards)
+    block = -(-max(n, 1, int(min_rows)) // data_shards)
     chunk = chunk_size or choose_chunk_size(block, k_hint, d)
     kw = dict(kind=kind, seed=seed, dtype=dtype, low=low, high=high,
               centers=centers, device=device)
@@ -215,9 +214,9 @@ def device_shards(n_samples: int, n_features: int, *, mesh=None,
     with _obs_trace.span("stage", rows=n, bytes=0, ingest="synthetic"):
         _obs_metrics.REGISTRY.counter("ingest.slabs").inc()
         if mesh is None:
-            x, w = generate_rows(0, n, n, d, **kw)
+            x, w = generate_rows(0, max(n, int(min_rows)), n, d, **kw)
             return Dataset(x, w, chunk=chunk,
-                           explicit_chunk=chunk_size is not None)
+                           explicit_chunk=chunk_size is not None, n=n)
         lo = _mesh.coords(mesh)[0] * block
         x, w = generate_rows(lo, block, n, d, **kw)
     return ShardedDataset(x, w, mesh, n=n, offset=min(lo, n),

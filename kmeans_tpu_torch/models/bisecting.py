@@ -30,7 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from kmeans_tpu_torch.models.kmeans import KMeans
+from kmeans_tpu_torch.models.kmeans import KMeans, _cached
 from kmeans_tpu_torch.obs.heartbeat import note_progress as obs_note_progress
 from kmeans_tpu_torch.parallel import distributed as dist
 from kmeans_tpu_torch.parallel.mesh import is_primary
@@ -46,9 +46,7 @@ _STRATEGIES = ("biggest_sse", "largest_cluster")
 def _rows_on_host(ds, values: torch.Tensor) -> np.ndarray:
     """Per-row values of the dataset's device rows, all n of them, on the
     host."""
-    if isinstance(ds, ShardedDataset):
-        return ds.gather_rows(values)
-    return values.cpu().numpy()
+    return ds.gather_rows(values)
 
 
 class BisectingKMeans(KMeans):
@@ -121,11 +119,11 @@ class BisectingKMeans(KMeans):
         fleet_barrier("fit-start", ds.mesh)
         mode = self._mode()
         chunk = self._chunk_for(ds)
-        step_fn = dist.make_step_fn(ds.mesh, chunk_size=chunk, mode=mode,
-                                    need_sse=False, need_farthest=False,
-                                    need_sse_pc=True)
-        predict_fn = dist.make_predict_fn(ds.mesh, chunk_size=chunk,
-                                          mode=mode)
+        step_fn = _cached(dist.make_step_fn, ds.mesh, chunk_size=chunk,
+                          mode=mode, need_sse=False, need_farthest=False,
+                          need_sse_pc=True)
+        predict_fn = _cached(dist.make_predict_fn, ds.mesh, chunk_size=chunk,
+                             mode=mode)
         self._note_estep_path(mode)
         self.loop_path_ = None
         self._fit_ds, self._labels_error = None, None
@@ -274,9 +272,9 @@ class BisectingKMeans(KMeans):
         cents[0] = (s / max(c, 1.0)).astype(self.dtype)
         chunk = (ds.effective_chunk(ds.d) if isinstance(ds, ShardedDataset)
                  else choose_chunk_size(ds.n, ds.d, ds.d))
-        exact = dist.make_step_fn(ds.mesh, chunk_size=chunk, mode="direct",
-                                  need_sse=False, need_farthest=False,
-                                  need_sse_pc=True)
+        exact = _cached(dist.make_step_fn, ds.mesh, chunk_size=chunk,
+                        mode="direct", need_sse=False, need_farthest=False,
+                        need_sse_pc=True)
         st = exact(ds.points, ds.weights, self._put_centroids(cents[0][None]))
         sse[0] = float(st.sse_per_cluster.to(torch.float64).cpu()[0])
         wsize[0] = c

@@ -134,6 +134,13 @@ class AutoCheckpointMixin:
                 "n_init == 1: a restart sweep re-initializes, so a "
                 "partially-swept fit has no well-defined resume point")
         self._active_ckpt_path = checkpoint_path if n > 0 else None
+        if n > 0:
+            # With a store of built kernel libraries active, the libraries
+            # this fit uses go into the checkpoint's sibling <path>.aot
+            # directory, so a restart on a fresh host loads them with the
+            # state; one None check without a store.
+            from kmeans_tpu_torch.utils import aot as _aot
+            _aot.on_checkpoint_path(checkpoint_path)
         # A rollback needs a stake in the file: one this fit wrote, or the
         # state it resumed from.  A stale file of another fit at the same
         # path is never restored.
@@ -253,6 +260,11 @@ class AutoCheckpointMixin:
             self._resumed_from = None
             return bool(resume)
         self._resumed_from = os.fspath(resume)
+        # The libraries shipped beside the checkpoint (<path>.aot) join the
+        # active store's read path: the resume loads them instead of
+        # building.  One None check without a store.
+        from kmeans_tpu_torch.utils import aot as _aot
+        _aot.on_resume_path(resume)
         state, used_prev = ckpt.load_state_with_fallback(resume)
         if used_prev:
             warnings.warn(

@@ -84,10 +84,11 @@ from kmeans_tpu_torch.parallel.mesh import (DATA_AXIS, all_reduce,
                                             mesh_shape)
 from kmeans_tpu_torch.parallel.multihost import fleet_barrier
 from kmeans_tpu_torch.parallel.sharding import (BlockStager, Dataset,
-                                                ShardedDataset, check_ingest,
-                                                choose_em_chunk, to_device,
-                                                weighted_mean)
+                                                bucket_target, check_bucket,
+                                                check_ingest, choose_em_chunk,
+                                                to_device, weighted_mean)
 from kmeans_tpu_torch.utils import checkpoint as ckpt
+from kmeans_tpu_torch.utils.cache import LRUCache, cached_build
 from kmeans_tpu_torch.utils.validation import check_finite_array
 
 #: Softmax sharpness of the hard-assignment init pass: with a precision this
@@ -100,11 +101,19 @@ _HARD_INV_VAR = 1e6
 #: item).  Any other value raises NotImplementedError.
 _LATER_ARGS = {
     "model_shards": ((1,), "A.18 'GaussianMixture on the model axis'"),
-    "bucket": ((0,), "A.14 'Orchestrator, warm start, lint, CLIs and "
-                     "bench'"),
-    "overlap": (("auto", 0, False), "A.14 'Orchestrator, warm start, "
-                                    "lint, CLIs and bench'"),
 }
+
+#: The mixture's step functions (E-steps, device EM loops, posterior
+#: passes), keyed by builder and arguments: the JAX package's
+#: ``gmm._STEP_CACHE``.  A device EM loop's captured graph lives in its
+#: dataset's memo, not here.
+_STEP_CACHE = LRUCache(64, name="gmm._STEP_CACHE")
+
+
+def _cached(builder, *args, **kwargs):
+    """``builder(*args, **kwargs)``, a ``parallel.gmm_step`` builder,
+    through :data:`_STEP_CACHE`."""
+    return cached_build(_STEP_CACHE, builder, *args, **kwargs)
 
 _ILL_DEFINED = ("Fitting the mixture model failed because some components "
                 "have ill-defined empirical covariance (for instance caused "
@@ -165,11 +174,17 @@ class GaussianMixture(AutoCheckpointMixin):
     ``ingest``: 'auto' | 'mono' | 'slab', how a host array reaches the
     ranks of a mesh, as in ``KMeans`` (the same bytes either way).
 
-    The JAX package's other arguments (``model_shards``, ``bucket``,
-    ``overlap``) are taken only at the values that name what this port
-    does (no model axis, the exact shape, no overlapped set-up); a mesh
-    with a model axis and any other value raise ``NotImplementedError``
-    naming the ROADMAP item that brings them.
+    ``bucket``: 0 | 'auto' | int, the fit-shape bucket of ``KMeans``: the
+    placed rows padded with inert rows of weight 0 to the bucket's count,
+    the E pass's chunk from the padded count.  ``overlap``: 'auto' | 0 |
+    1, ``KMeans``' overlapped set-up: the upload of a host array on a
+    producer thread while this thread takes the E-step from
+    ``_STEP_CACHE`` and loads ``diag_estep``'s library in the kernel mode
+    (the same bits; 'auto' is 1 on a CUDA device).
+
+    ``model_shards`` is taken only at 1 (no model axis); a mesh with a
+    model axis and any other value raise ``NotImplementedError`` naming
+    the ROADMAP item that brings them.
 
     ``estep_path_`` records what the last fit ran (:func:`estep_mode`):
     'kernel' (the fused CUDA kernel), or the torch pass's schedule,
@@ -228,8 +243,8 @@ class GaussianMixture(AutoCheckpointMixin):
         mesh = check_mesh(mesh)
         if mesh is not None and mesh_shape(mesh)[1] > 1:
             model_shards = mesh_shape(mesh)[1]
-        later = dict(model_shards=model_shards, bucket=bucket,
-                     overlap=overlap)
+        bucket = check_bucket(bucket)
+        later = dict(model_shards=model_shards)
         for name, value in later.items():
             allowed, item = _LATER_ARGS[name]
             if not _is_allowed(value, allowed):
@@ -318,11 +333,13 @@ class GaussianMixture(AutoCheckpointMixin):
         """X on the device once (the rank's block under a mesh); data that
         did not come as a :class:`Dataset` must be finite."""
         mesh = self._resolve_mesh()
-        d = X.d if isinstance(X, Dataset) else np.shape(X)[-1]
+        shape = (X.n, X.d) if isinstance(X, Dataset) else np.shape(X)
+        min_rows = 0 if isinstance(X, Dataset) or len(shape) != 2 \
+            else self._bucket_target(shape[0])
         ds = to_device(X, self.device, self.dtype,
                        sample_weight=sample_weight, mesh=mesh,
-                       chunk=self.chunk_size, k_hint=self._tile_k(d),
-                       ingest=self.ingest)
+                       chunk=self.chunk_size, k_hint=self._tile_k(shape[-1]),
+                       ingest=self.ingest, min_rows=min_rows)
         if not isinstance(X, Dataset):
             if ds.host is not None:
                 check_finite_array(ds.host, "Data contains NaN or Inf values")
@@ -332,6 +349,56 @@ class GaussianMixture(AutoCheckpointMixin):
                 if not int(all_reduce(finite, mesh, (DATA_AXIS,), "min")):
                     raise ValueError("Data contains NaN or Inf values")
         return ds
+
+    def _bucket_target(self, n: int) -> int:
+        """The padded row count of the fit-shape bucket
+        (``parallel.sharding.bucket_target``)."""
+        return bucket_target(self.bucket, n)
+
+    def _resolve_overlap(self) -> int:
+        """``overlap`` resolved as ``KMeans._resolve_overlap``: 'auto' is 1
+        on a CUDA device, 0 on the CPU."""
+        if self.overlap == "auto":
+            return int(self.device.type == "cuda")
+        return int(self.overlap)
+
+    def _staged_dataset(self, X, sample_weight=None) -> Dataset:
+        """The EM fit's dataset.  With ``overlap`` on and (n, D) host rows
+        (not a :class:`Dataset` or a tensor), without a mesh of more than
+        one rank, the upload runs in the producer thread of
+        ``data.prefetch.prefetch_iter`` while this thread warms the E-step
+        (:meth:`_warm_em`); the same bits as the serial path."""
+        mesh = self._resolve_mesh()
+        if not self._resolve_overlap() \
+                or isinstance(X, (Dataset, torch.Tensor)) \
+                or len(np.shape(X)) != 2 \
+                or (mesh is not None and math.prod(mesh_shape(mesh)) > 1):
+            return self._dataset(X, sample_weight)
+        from kmeans_tpu_torch.data.prefetch import stage_beside
+        return stage_beside(X, lambda B: self._dataset(B, sample_weight),
+                            lambda: self._warm_em(*np.shape(X)))
+
+    def _em_chunk(self, n: int, d: int) -> int:
+        """The chunk :meth:`_chunk` gives the dataset placed from (n, D)
+        host rows: that of the bucketed count."""
+        rows = max(self._bucket_target(n), n, 1)
+        mesh = self._resolve_mesh()
+        if mesh is not None:
+            rows = -(-rows // mesh_shape(mesh)[0])
+        return self.chunk_size or choose_em_chunk(rows, self._tile_k(d))
+
+    def _warm_em(self, n: int, d: int) -> None:
+        """The consumer half of the overlapped prelude: the E-step of the
+        fit about to run from ``_STEP_CACHE`` (a hit at the fit's own call),
+        and, in the kernel mode on a CUDA device, ``diag_estep``'s
+        library loaded (with a store active, read from it first)."""
+        mode = self._mode()
+        self._make_step(self.mesh, self._em_chunk(n, d), mode,
+                        self._resolve_pipeline(mode))
+        if mode == "kernel" and self.device.type == "cuda":
+            from kmeans_tpu_torch.ops import _build
+            from kmeans_tpu_torch.ops.estep_kernels import LIB_NAME
+            _build.load(LIB_NAME)
 
     def _tile_k(self, d: int) -> int:
         """The width of a chunk's log-density temporary: k, or k * D for
@@ -352,13 +419,13 @@ class GaussianMixture(AutoCheckpointMixin):
         chunks of ``chunk`` rows: ``diag_estep`` in the kernel mode."""
         ct = self.covariance_type
         if ct == "full":
-            return make_gmm_step_full_fn(mesh, chunk_size=chunk,
-                                         pipeline=pipeline)
+            return _cached(make_gmm_step_full_fn, mesh, chunk_size=chunk,
+                           pipeline=pipeline)
         if ct == "tied":
-            return make_gmm_step_tied_fn(mesh, chunk_size=chunk,
-                                         pipeline=pipeline)
-        return make_gmm_step_fn(mesh, chunk_size=chunk, mode=mode,
-                                pipeline=pipeline)
+            return _cached(make_gmm_step_tied_fn, mesh, chunk_size=chunk,
+                           pipeline=pipeline)
+        return _cached(make_gmm_step_fn, mesh, chunk_size=chunk, mode=mode,
+                       pipeline=pipeline)
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
         """A copy of a host table on the device (the array may be
@@ -640,7 +707,7 @@ class GaussianMixture(AutoCheckpointMixin):
                        checkpoint_path=checkpoint_path)
         self.cov_jitter_retries_ = 0
         resume = self._resolve_resume(resume)
-        ds = self._dataset(X, sample_weight)
+        ds = self._staged_dataset(X, sample_weight)
         self.io_retries_used_ = getattr(getattr(ds, "io_stats", None),
                                         "retries_used", 0)
         # The clock anchor of merged timelines (a no-op without a tracer).
@@ -842,7 +909,8 @@ class GaussianMixture(AutoCheckpointMixin):
 
             def dispatch(c, _tables=tables, _prev=prev, _it0=it_done,
                          _seg=seg):
-                fit_fn = make_gmm_fit_fn(
+                fit_fn = _cached(
+                    make_gmm_fit_fn,
                     ds.mesh, chunk_size=c, max_iter=self.max_iter,
                     tol=float(self.tol), reg_covar=float(self.reg_covar),
                     cov_type=self.covariance_type, mode=mode,
@@ -908,7 +976,8 @@ class GaussianMixture(AutoCheckpointMixin):
         if not alive:
             raise init_err
         mode = self._mode()
-        fit_fn = make_gmm_multi_fit_fn(
+        fit_fn = _cached(
+            make_gmm_multi_fit_fn,
             ds.mesh, chunk_sizes=[self._chunk(ds)], max_iter=self.max_iter,
             tol=float(self.tol), reg_covar=float(self.reg_covar),
             cov_type=self.covariance_type, mode=mode,
@@ -1029,7 +1098,8 @@ class GaussianMixture(AutoCheckpointMixin):
                 means0[i, :k_m], var0[i, :k_m], log_w0[i, :k_m] = \
                     gm._start_tables(shift)
                 chunks.append(gm._chunk(ds))
-            fit_fn = make_gmm_multi_fit_fn(
+            fit_fn = _cached(
+                make_gmm_multi_fit_fn,
                 ds.mesh, chunk_sizes=chunks, max_iter=self.max_iter,
                 tol=float(self.tol), reg_covar=float(self.reg_covar),
                 cov_type=ct, mode=mode, pipeline=pipeline,
@@ -1452,7 +1522,8 @@ class GaussianMixture(AutoCheckpointMixin):
                 points, _ = stager.take(staged)
                 if tables is None:
                     tables = self._params_dev()
-                predict_fn = make_gmm_predict_fn(
+                predict_fn = _cached(
+                    make_gmm_predict_fn,
                     chunk_size=self.chunk_size or choose_em_chunk(
                         points.shape[0], self._tile_k(d)),
                     cov_type=self.covariance_type)
@@ -1525,16 +1596,14 @@ class GaussianMixture(AutoCheckpointMixin):
         caller may keep (the serving engine; None: made now)."""
         self._check_fitted()
         ds = self._dataset(X)
-        predict_fn = make_gmm_predict_fn(chunk_size=self._chunk(ds),
-                                         cov_type=self.covariance_type)
+        predict_fn = _cached(make_gmm_predict_fn, chunk_size=self._chunk(ds),
+                             cov_type=self.covariance_type)
         out = predict_fn(ds.points, *(params if params is not None
                                       else self._params_dev()))
 
         def host(i):
             o = out[i].to(torch.float64) if i else out[i]
-            if isinstance(ds, ShardedDataset):
-                return ds.gather_rows(o)
-            return o.cpu().numpy()
+            return ds.gather_rows(o)
 
         return tuple(host(i) for i in which) if isinstance(which, tuple) \
             else host(which)
@@ -1707,6 +1776,11 @@ class GaussianMixture(AutoCheckpointMixin):
                  if f"cfg_{name}" in state}
         chunk = state.get("chunk_size")
         pipeline = state.get("pipeline", "auto")
+
+        def str_or_int(value):
+            # A saved int comes back from the .npz as a 0-d array.
+            return value if isinstance(value, str) else int(value)
+
         model = cls(n_components=int(state["n_components"]),
                     covariance_type=str(state["covariance_type"]),
                     tol=float(state["tol"]),
@@ -1719,6 +1793,8 @@ class GaussianMixture(AutoCheckpointMixin):
                     host_loop=bool(state.get("host_loop", True)),
                     pipeline=("auto" if str(pipeline) == "auto"
                               else int(pipeline)),
+                    bucket=str_or_int(state.get("bucket", 0)),
+                    overlap=str_or_int(state.get("overlap", "auto")),
                     ingest=str(state.get("ingest", "auto")),
                     verbose=bool(state["verbose"]),
                     dtype=np.dtype(str(state["dtype"])), device=device,

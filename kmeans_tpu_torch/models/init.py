@@ -38,6 +38,7 @@ from kmeans_tpu_torch.parallel import mesh as _mesh
 from kmeans_tpu_torch.parallel.sharding import (BlockStager,
                                                 _validate_sample_weight,
                                                 torch_dtype)
+from kmeans_tpu_torch.utils.cache import LRUCache, cached_build
 from kmeans_tpu_torch.utils.validation import check_finite_array
 
 
@@ -522,10 +523,13 @@ def refine_centers(cands: torch.Tensor, mass: torch.Tensor,
 def _per_row(src, n_local: int):
     """A function that takes a draw made for every global row (a tensor of
     ``src.n`` entries) to this block's rows, 0 on its padding rows: the
-    draws of a row are then the same whatever the number of ranks, and a
-    mesh seeds as one device does."""
+    draws of a row are then the same whatever the number of ranks or the
+    bucket's padding, and a mesh seeds as one device does."""
     if getattr(src, "mesh", None) is None:
-        return lambda t: t
+        pad = n_local - int(src.n)
+        if pad <= 0:
+            return lambda t: t
+        return lambda t: torch.cat([t, t.new_zeros(pad)])
     first, real = int(src.offset), int(src.local_rows)
 
     def take(t):
@@ -634,6 +638,24 @@ def _parallel_pipeline(src, points, weights, k: int, seed: int, *,
                               gumbel((k, cap_total), gen, buf.dtype, dev))
     centers = refine_centers(buf, mass_pos, centers, refine)
     return centers, buf, valid, mass
+
+
+#: The k-means|| pipelines, by (mesh, k, rounds, cap, refine, mode): the
+#: JAX package's ``init._PIPE_CACHE``.
+_PIPE_CACHE = LRUCache(32, name="init._PIPE_CACHE")
+
+
+def make_parallel_pipeline_fn(mesh=None, *, k: int, rounds: int, cap: int,
+                              refine: int, mode: str):
+    """The k-means|| pipeline at these settings:
+    ``(src, points, weights, seed, ell) -> (centres, buffer, valid, mass)``
+    (:func:`_parallel_pipeline`), the builder that :data:`_PIPE_CACHE`
+    keeps (the JAX package's ``_build_parallel_pipeline``)."""
+    def pipeline(src, points, weights, seed: int, ell: float):
+        return _parallel_pipeline(src, points, weights, k, seed,
+                                  rounds=rounds, cap=cap, ell=ell,
+                                  refine=refine, mode=mode)
+    return pipeline
 
 
 def _distinct_backfill(centers: np.ndarray, src, k: int, seed: int
@@ -802,9 +824,10 @@ def kmeans_parallel_init(X, k: int, seed: int, *, rounds: int = 5,
                                      rounds=rounds, cap=cap, ell=ell,
                                      mode=mode,
                                      return_candidates=return_candidates)
-    centers, buf, valid, mass = _parallel_pipeline(
-        src, points, weights, k, seed, rounds=rounds, cap=cap, ell=ell,
-        refine=refine, mode=mode)
+    pipeline = cached_build(_PIPE_CACHE, make_parallel_pipeline_fn,
+                            getattr(src, "mesh", None), k=k, rounds=rounds,
+                            cap=cap, refine=refine, mode=mode)
+    centers, buf, valid, mass = pipeline(src, points, weights, seed, ell)
     centers = _distinct_backfill(centers.cpu().numpy(), src, k, seed)
     if validate:
         check_finite_array(centers, "Data contains NaN or Inf values")

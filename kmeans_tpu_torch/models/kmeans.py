@@ -78,11 +78,13 @@ from kmeans_tpu_torch.parallel.mesh import (all_reduce, check_mesh,
                                             make_mesh, mesh_shape)
 from kmeans_tpu_torch.parallel.multihost import fleet_barrier
 from kmeans_tpu_torch.parallel.sharding import (BlockStager, Dataset,
-                                                ShardedDataset, _tensor_of,
-                                                bucket_candidates,
+                                                _tensor_of, bucket_candidates,
+                                                bucket_target, check_bucket,
                                                 check_ingest,
-                                                choose_chunk_size, to_device)
+                                                choose_chunk_size,
+                                                clamp_chunk_for_k, to_device)
 from kmeans_tpu_torch.utils import checkpoint as ckpt
+from kmeans_tpu_torch.utils.cache import LRUCache, cached_build
 from kmeans_tpu_torch.utils.logging import IterationLogger
 from kmeans_tpu_torch.utils.validation import validate_params
 
@@ -94,13 +96,23 @@ _FORMAT_MODES = {"kernel": "pallas", "kernel_bf16": "pallas_bf16"}
 
 #: Constructor arguments of the JAX package that the port does not have yet:
 #: name -> (the values that name what the port does anyway, ROADMAP item).
-#: Any other value raises NotImplementedError.
-_LATER_ARGS = {
-    "bucket": ((0,), "A.14 'Orchestrator, warm start, lint, CLIs and "
-                      "bench'"),
-    "overlap": (("auto", 0), "A.14 'Orchestrator, warm start, lint, CLIs "
-                             "and bench'"),
-}
+#: Any other value raises NotImplementedError.  Empty since ``bucket`` and
+#: ``overlap`` were ported; the machinery stays for the families' use and
+#: for a checkpoint's arguments that ``_from_state`` must drop.
+_LATER_ARGS: dict = {}
+
+#: The step functions of the K-Means family (and of the serving engine and
+#: the quantizer, which run the family's passes), keyed by builder and
+#: arguments (``utils.cache.builder_key``): the JAX package's
+#: ``kmeans._STEP_CACHE``.  A device loop's captured graph is not here: it
+#: lives in its dataset's memo.
+_STEP_CACHE = LRUCache(64, name="kmeans._STEP_CACHE")
+
+
+def _cached(builder, *args, **kwargs):
+    """``builder(*args, **kwargs)``, a ``parallel`` program builder, through
+    :data:`_STEP_CACHE`."""
+    return cached_build(_STEP_CACHE, builder, *args, **kwargs)
 
 
 #: Torch mode of each distance mode for the passes whose output is the
@@ -289,10 +301,23 @@ class KMeans(AutoCheckpointMixin):
     model_shards : ranks of the model axis when ``mesh`` is None (a given
         mesh carries its own).
 
-    The JAX package's other constructor arguments (``bucket``,
-    ``overlap``) are taken only at the value that names what this port does
-    (no shape buckets, no overlapped set-up); any other value raises
-    ``NotImplementedError`` naming the ROADMAP item that brings it.
+    bucket : 0 (default) | 'auto' | int.  The fit-shape bucket (the JAX
+        package's): 'auto' pads the placed rows with zeros of weight 0 (inert
+        in every statistic) up to the next boundary of
+        ``parallel.sharding.bucket_rows`` ({1, 1.25, 1.5, 1.75} x 2^e rows,
+        at most 25 % more), an int to its next multiple, and the chunk of
+        the torch passes derives from the padded count; so nearby dataset
+        sizes share one step function of ``_STEP_CACHE`` (a second fit in
+        the same bucket adds none; the device loop still captures its graph
+        once per dataset, since the graph holds the dataset's addresses).
+        0 places the rows as they are, the bit-exact oracle.
+    overlap : 'auto' (default) | 0 | 1.  With 1 a fit on a host array stages
+        its upload on a producer thread (``data.prefetch``) while this
+        thread takes the step functions from ``_STEP_CACHE`` and loads the
+        kernel library of the mode (``ops._build``; with a store active,
+        ``utils.aot``): the copy and the library's build or load run side
+        by side.  The same bits as 0; 'auto' is 1 on a CUDA device and 0 on
+        the CPU; a mesh of more than one rank stays serial.
 
     After ``fit``: ``loop_path_`` is 'host' or 'device' (``n_init`` > 1 on
     the device loop runs every restart in one loop,
@@ -351,8 +376,17 @@ class KMeans(AutoCheckpointMixin):
                  coarse_cells: Optional[int] = None,
                  nprobe: Optional[int] = None,
                  init_cap: Optional[int] = None,
+                 bucket: Union[str, int] = 0,
+                 overlap: Union[str, int] = "auto",
                  **later):
         _check_later_args(later)
+        # The fit-shape bucket and the overlapped set-up: the JAX package's
+        # grammar and messages.
+        self.bucket = check_bucket(bucket)
+        if overlap not in ("auto", 0, 1, True, False):
+            raise ValueError(f"overlap must be 'auto', 0, or 1; got "
+                             f"{overlap!r}")
+        self.overlap = overlap if overlap == "auto" else int(overlap)
         self.mesh = check_mesh(mesh)
         if int(model_shards) < 1:
             raise ValueError(f"model_shards must be >= 1, got "
@@ -554,30 +588,117 @@ class KMeans(AutoCheckpointMixin):
             return self.chunk_size
         return ds.effective_chunk(self._tile_k(ds.d))
 
+    def _bucket_target(self, n: int) -> int:
+        """The padded row count of the fit-shape bucket
+        (``parallel.sharding.bucket_target``)."""
+        return bucket_target(self.bucket, n)
+
+    def _chunk_for_shape(self, n: int, d: int) -> int:
+        """The chunk that :meth:`_chunk_for` will give the dataset that
+        :meth:`cache` places from (n, D) host rows, known before any data
+        moves: the chunk of the bucketed count."""
+        if self.chunk_size:
+            return self.chunk_size
+        rows = max(self._bucket_target(n), n, 1)
+        tile = self._tile_k(d)
+        mesh = self._resolve_mesh()
+        if mesh is None:
+            return choose_chunk_size(rows, tile, d)
+        block = -(-rows // mesh_shape(mesh)[0])
+        return clamp_chunk_for_k(choose_chunk_size(block, tile, d), tile)
+
     def cache(self, X, sample_weight=None) -> Dataset:
         """Place X on the device once as a :class:`Dataset` (under a mesh,
         the rank's block of it, every rank passing the same X); pass the
         result to ``fit`` / ``predict`` / ``score`` to skip the upload on
         every call.  ``sample_weight`` (n,) makes every statistic
-        weighted."""
-        d = X.d if isinstance(X, Dataset) else np.shape(X)[-1]
+        weighted.  With ``bucket`` the device rows are padded to the
+        bucket's count with inert rows of weight 0."""
+        if isinstance(X, Dataset):
+            d, min_rows = X.d, 0
+        else:
+            shape = np.shape(X)
+            d = shape[-1]
+            min_rows = self._bucket_target(shape[0]) if len(shape) == 2 \
+                else 0
         return to_device(X, self.device, self.dtype,
                          sample_weight=sample_weight,
                          mesh=self._resolve_mesh(), chunk=self.chunk_size,
-                         k_hint=self._tile_k(d), ingest=self.ingest)
+                         k_hint=self._tile_k(d), ingest=self.ingest,
+                         min_rows=min_rows)
+
+    def _resolve_overlap(self) -> int:
+        """``overlap`` resolved: 'auto' is 1 on a CUDA device (the upload
+        and the kernels' library load are the two terms of the time to the
+        first iteration there) and 0 on the CPU."""
+        if self.overlap == "auto":
+            return int(self.device.type == "cuda")
+        return int(self.overlap)
+
+    def _overlaps(self, X) -> bool:
+        """Whether :meth:`_prepare` stages ``X`` on a producer thread: with
+        ``overlap`` on, for (n, D) host rows (not a :class:`Dataset`, not
+        a tensor: neither has an upload to hide), without a mesh of more
+        than one rank."""
+        if not self._resolve_overlap() or isinstance(X, (Dataset,
+                                                         torch.Tensor)):
+            return False
+        if len(np.shape(X)) != 2:
+            return False
+        mesh = self._resolve_mesh()
+        return mesh is None or math.prod(mesh_shape(mesh)) == 1
+
+    def _step_fns(self, mesh, chunk: int, need_farthest: bool,
+                  pipeline: int):
+        """The step and the predict pass of this model's mode at
+        ``chunk``, from ``_STEP_CACHE``."""
+        mode = self._mode()
+        return (_cached(dist.make_step_fn, mesh, chunk_size=chunk,
+                        mode=mode, need_farthest=need_farthest,
+                        need_sse_pc=False, pipeline=pipeline),
+                _cached(dist.make_predict_fn, mesh, chunk_size=chunk,
+                        mode=mode))
+
+    def _warm_kernels(self) -> None:
+        """Load the kernel library that this fit will launch: kernel 1 (1b)
+        for every iteration and kernel 2 (2b) for ``labels_`` are one
+        library (``ops._build``); nothing in a torch mode or on the CPU.
+        With a store of built libraries active (``utils.aot``) the load
+        reads it before it starts ``nvcc``."""
+        from kmeans_tpu_torch.ops import _build, hopper_kernels
+        lib = hopper_kernels.mode_library(self._mode())
+        if lib is not None and self.device.type == "cuda":
+            _build.load(lib)
+
+    def _staged(self, X, sample_weight, warm: Callable[[], object]
+                ) -> Dataset:
+        """``cache(X, sample_weight)``; with ``overlap`` on
+        (:meth:`_overlaps`) the upload runs in the producer thread of
+        ``data.prefetch.prefetch_iter`` (its 'place' and 'stage' spans on
+        that thread) while this thread runs ``warm()``: the fit's step
+        functions from ``_STEP_CACHE`` and its kernel library's load."""
+        if not self._overlaps(X):
+            return self.cache(X, sample_weight)
+        from kmeans_tpu_torch.data.prefetch import stage_beside
+        return stage_beside(X, lambda x: self.cache(x, sample_weight), warm)
 
     def _prepare(self, X, sample_weight=None, *, need_farthest=False,
                  pipeline: int = 0):
         """The dataset, its step and its predict pass.  The step computes
         the SSE (the host loop's divergence guard reads it) and, with
-        ``need_farthest``, the farthest point; nothing else."""
-        ds = self.cache(X, sample_weight)
-        chunk = self._chunk_for(ds)
-        mode = self._mode()
-        return (ds, dist.make_step_fn(ds.mesh, chunk_size=chunk, mode=mode,
-                                      need_farthest=need_farthest,
-                                      need_sse_pc=False, pipeline=pipeline),
-                dist.make_predict_fn(ds.mesh, chunk_size=chunk, mode=mode))
+        ``need_farthest``, the farthest point; nothing else.  With
+        ``overlap`` on, the step functions for the chunk of the bucketed
+        shape come from ``_STEP_CACHE`` and the kernel library loads while
+        the data is staged (:meth:`_staged`)."""
+        def warm():
+            n, d = np.shape(X)
+            self._step_fns(self.mesh, self._chunk_for_shape(n, d),
+                           need_farthest, pipeline)
+            self._warm_kernels()
+
+        ds = self._staged(X, sample_weight, warm)
+        return (ds,) + self._step_fns(ds.mesh, self._chunk_for(ds),
+                                      need_farthest, pipeline)
 
     def _x2w(self, ds: Dataset,
              large_k: bool = False) -> Optional[torch.Tensor]:
@@ -842,7 +963,8 @@ class KMeans(AutoCheckpointMixin):
                     if step_fn is None:         # chunk of the first block
                         chunk = self.chunk_size or choose_chunk_size(
                             points.shape[0], self._tile_k(d), d)
-                        step_fn = dist.make_step_fn(
+                        step_fn = _cached(
+                            dist.make_step_fn,
                             mesh, chunk_size=chunk, mode=mode,
                             need_farthest=need_far, need_sse_pc=False,
                             pipeline=pipeline)
@@ -983,10 +1105,10 @@ class KMeans(AutoCheckpointMixin):
         iteration) and ``score``."""
         large_k = step is not None
         if step is None:
-            step = dist.make_step_fn(ds.mesh,
-                                     chunk_size=self._chunk_for(ds),
-                                     mode=self._mode(), need_farthest=False,
-                                     need_sse_pc=False)
+            step = _cached(dist.make_step_fn, ds.mesh,
+                           chunk_size=self._chunk_for(ds),
+                           mode=self._mode(), need_farthest=False,
+                           need_sse_pc=False)
         return float(step(ds.points, ds.weights,
                           self._put_centroids(self.centroids),
                           self._x2w(ds, large_k)).sse)
@@ -1164,7 +1286,8 @@ class KMeans(AutoCheckpointMixin):
                 f"(k_shard=0, assign='dense')")
         mode = self._large_k_mode()
         if ks:
-            kstep = dist.make_kshard_step_fn(
+            kstep = _cached(
+                dist.make_kshard_step_fn,
                 ds.mesh, chunk_size=chunk, mode=mode,
                 need_farthest=self.empty_cluster == "farthest",
                 need_sse_pc=False)
@@ -1255,7 +1378,8 @@ class KMeans(AutoCheckpointMixin):
             coarse = state["coarse"]
             members = self._build_members(cents, coarse)
             self._two_level_route_ = (coarse, members)
-            fn = dist.make_two_level_step_fn(
+            fn = _cached(
+                dist.make_two_level_step_fn,
                 ds.mesh, chunk_size=self._two_level_chunk(
                     ds, C, members.shape[1], npb),
                 nprobe=npb, mode=mode,
@@ -1288,7 +1412,8 @@ class KMeans(AutoCheckpointMixin):
         (``assign='two_level'``): the fit step's search, labels only."""
         coarse, members = self._two_level_tables()
         C, npb = self._two_level_params()
-        fn = dist.make_two_level_predict_fn(
+        fn = _cached(
+            dist.make_two_level_predict_fn,
             ds.mesh, chunk_size=self._two_level_chunk(ds, C,
                                                       members.shape[1], npb),
             nprobe=npb, mode=self._large_k_mode())
@@ -1456,7 +1581,8 @@ class KMeans(AutoCheckpointMixin):
                    if checkpoint_every else self.max_iter - it0)
 
             def dispatch(c, _it0=it0, _seg=seg, _cents=cents_dev):
-                fit_fn = dist.make_fit_fn(
+                fit_fn = _cached(
+                    dist.make_fit_fn,
                     ds.mesh, chunk_size=c, mode=mode,
                     max_iter=self.max_iter, tolerance=float(self.tolerance),
                     empty_policy=self.empty_cluster,
@@ -1510,7 +1636,8 @@ class KMeans(AutoCheckpointMixin):
         restart per launch, the winner by the true final inertia, as the
         restarts one after another would pick it.  ``iter_times_`` holds
         the loop's wall time over the iterations it launched."""
-        fit_fn = dist.make_multi_fit_fn(
+        fit_fn = _cached(
+            dist.make_multi_fit_fn,
             ds.mesh, chunk_size=self._chunk_for(ds), mode=self._mode(),
             k_real=self.k, max_iter=self.max_iter,
             tolerance=float(self.tolerance),
@@ -1833,7 +1960,8 @@ class KMeans(AutoCheckpointMixin):
         one after another, so the chunk is a k_max fit's."""
         mode = engine._mode()
         pipeline = engine._note_estep_path(mode)
-        fit_fn = dist.make_multi_fit_fn(
+        fit_fn = _cached(
+            dist.make_multi_fit_fn,
             ds.mesh, chunk_size=engine._chunk_for(ds),
             mode=mode, k_real=k_max, max_iter=self.max_iter,
             tolerance=float(self.tolerance),
@@ -1891,7 +2019,8 @@ class KMeans(AutoCheckpointMixin):
         n_k = len(winner_cents)
         mode = engine._mode()
         if batched and mesh_shape(ds.mesh)[1] == 1:
-            mp_fn = dist.make_multi_predict_fn(
+            mp_fn = _cached(
+                dist.make_multi_predict_fn,
                 ds.mesh, chunk_size=engine._member_chunk(ds, n_k),
                 mode=mode, n_models=n_k)
             stack = np.full((n_k, k_max, ds.d), dist.PAD_CENTROID_VALUE,
@@ -1899,19 +2028,14 @@ class KMeans(AutoCheckpointMixin):
             for i, c in enumerate(winner_cents):
                 stack[i, : c.shape[0]] = c
             labels = mp_fn(ds.points, engine._put_centroids(stack))
-            if isinstance(ds, ShardedDataset):
-                return ds.gather_rows(labels.T.contiguous()).T
-            return labels.cpu().numpy()
-        predict_fn = dist.make_predict_fn(ds.mesh,
-                                          chunk_size=engine._chunk_for(ds),
-                                          mode=mode)
+            return ds.gather_rows(labels.T.contiguous()).T
+        predict_fn = _cached(dist.make_predict_fn, ds.mesh,
+                             chunk_size=engine._chunk_for(ds), mode=mode)
         out = []
         for c in winner_cents:
             labels = predict_fn(ds.points, engine._put_centroids(
                 np.asarray(c, self.dtype)))
-            out.append(ds.gather_rows(labels)
-                       if isinstance(ds, ShardedDataset)
-                       else labels.cpu().numpy())
+            out.append(ds.gather_rows(labels))
         return np.stack(out)
 
     # --------------------------------------------------------------- predict
@@ -1934,9 +2058,7 @@ class KMeans(AutoCheckpointMixin):
         else:
             labels = predict_fn(ds.points,
                                 self._put_centroids(self.centroids))
-        if isinstance(ds, ShardedDataset):
-            return ds.gather_rows(labels)
-        return labels.cpu().numpy()
+        return ds.gather_rows(labels)
 
     def fit_predict(self, X, y=None) -> np.ndarray:
         # labels_ is materialised by fit() from the same X.
@@ -1983,7 +2105,8 @@ class KMeans(AutoCheckpointMixin):
                 make_blocks, with_weights=False, prefetch=prefetch):
             for start in range(0, raw.shape[0], block):
                 xb = raw[start: start + block]
-                transform = dist.make_transform_fn(
+                transform = _cached(
+                    dist.make_transform_fn,
                     self._resolve_mesh(), mode=mode,
                     chunk_size=self.chunk_size or choose_chunk_size(
                         xb.shape[0], self._tile_k(d), d))
@@ -2050,7 +2173,8 @@ class KMeans(AutoCheckpointMixin):
                 stage_extra=stager.stage):
             points, _ = stager.take(staged)
             if predict_fn is None:
-                predict_fn = dist.make_predict_fn(
+                predict_fn = _cached(
+                    dist.make_predict_fn,
                     self._resolve_mesh(), mode=self._mode(),
                     chunk_size=self.chunk_size or choose_chunk_size(
                         points.shape[0], self._tile_k(block.shape[1]),
@@ -2077,7 +2201,8 @@ class KMeans(AutoCheckpointMixin):
                 stage_extra=stager.stage):
             points, weights = stager.take(staged)
             if step_fn is None:
-                step_fn = dist.make_step_fn(
+                step_fn = _cached(
+                    dist.make_step_fn,
                     mesh, mode=self._mode(), need_farthest=False,
                     need_sse_pc=False,
                     chunk_size=self.chunk_size or choose_chunk_size(
@@ -2301,6 +2426,8 @@ class KMeans(AutoCheckpointMixin):
             "chunk_size": self.chunk_size,
             "host_loop": self.host_loop,
             "pipeline": self.pipeline,
+            "bucket": self.bucket,
+            "overlap": self.overlap,
             "ingest": self.ingest,
             "k_shard": self.k_shard,
             "assign": self.assign,
@@ -2363,6 +2490,8 @@ class KMeans(AutoCheckpointMixin):
                     chunk_size=None if chunk is None else int(chunk),
                     host_loop=state.get("host_loop", "auto"),
                     pipeline=state.get("pipeline", "auto"),
+                    bucket=int_or(state.get("bucket", 0)),
+                    overlap=int_or(state.get("overlap", "auto")),
                     ingest=str(state.get("ingest", "auto")),
                     k_shard=int_or(state.get("k_shard", "auto")),
                     assign=str(state.get("assign", "auto")),

@@ -50,8 +50,9 @@ import numpy as np
 import torch
 
 from kmeans_tpu_torch.models.init import as_source, resolve_init
-from kmeans_tpu_torch.models.kmeans import (KMeans, _dispatch_rtt,
-                                            _hint_once, _host_rows)
+from kmeans_tpu_torch.models.kmeans import (KMeans, _cached,
+                                            _dispatch_rtt, _hint_once,
+                                            _host_rows)
 from kmeans_tpu_torch.obs import trace as obs_trace
 from kmeans_tpu_torch.obs.heartbeat import note_progress as obs_note_progress
 from kmeans_tpu_torch.parallel import distributed as dist
@@ -207,9 +208,9 @@ class MiniBatchKMeans(KMeans):
                            self.dtype, sample_weight=(
                                None if hw is None else np.asarray(hw)[idx]),
                            mesh=self._resolve_mesh())
-        step = dist.make_step_fn(ds.mesh, chunk_size=self._chunk_for(ds),
-                                 mode=self._mode(), need_farthest=False,
-                                 need_sse_pc=False)
+        step = _cached(dist.make_step_fn, ds.mesh,
+                       chunk_size=self._chunk_for(ds), mode=self._mode(),
+                       need_farthest=False, need_sse_pc=False)
         x2w = self._x2w(ds)
         inertias = [float(step(ds.points, ds.weights,
                                self._put_centroids(c), x2w).sse)
@@ -251,13 +252,42 @@ class MiniBatchKMeans(KMeans):
                    f"'auto' switch")
         return True
 
+    def _mb_fit_getter(self, mesh, bs_local: int, mode: str, host: bool):
+        """The loop of the device sampling engine at a chunk, from
+        ``_STEP_CACHE``: one key for the fit and for the overlapped
+        prelude's warm (:meth:`_warm_mb`)."""
+        data = mesh_shape(mesh)[0]
+
+        def fit_fn_at(c):
+            return _cached(
+                dist.make_minibatch_fit_fn,
+                mesh, batch=bs_local, mode=mode, k=self.k,
+                max_iter=self.max_iter, tolerance=float(self.tolerance),
+                history_sse=self.compute_sse,
+                reassignment_ratio=self.reassignment_ratio,
+                reassign_every=self._reassign_every(bs_local * data),
+                chunk_size=c, host_loop=host)
+        return fit_fn_at
+
+    def _warm_mb(self, n: int, d: int) -> None:
+        """The consumer half of the overlapped prelude (``KMeans._staged``)
+        of an (n, D) fit: its loop from ``_STEP_CACHE`` (a hit at the fit's
+        own call) and its kernel library's load (kernel 1 or 1b)."""
+        mesh = self._resolve_mesh()
+        bs_local = -(-min(self.batch_size, n) // mesh_shape(mesh)[0])
+        self._mb_fit_getter(mesh, bs_local, self._mode(),
+                            self._resolve_host_loop_mb())(
+            self.chunk_size or bs_local)
+        self._warm_kernels()
+
     def _fit_device(self, X, sample_weight, resume: bool = False,
                     checkpoint_every: int = 0,
                     checkpoint_path=None) -> "MiniBatchKMeans":
         """The device sampling engine: the dataset placed once, every
         iteration's draw, pass and update on the device."""
         dist._check_minibatch_mode(self._mode())
-        ds = self.cache(X, sample_weight)
+        ds = self._staged(X, sample_weight,
+                          lambda: self._warm_mb(*np.shape(X)))
         fleet_barrier("fit-start", ds.mesh)
         bs = min(self.batch_size, ds.n)
         # Every block of the data axis draws the same count, rounded up.
@@ -278,15 +308,7 @@ class MiniBatchKMeans(KMeans):
         self.checkpoint_segments_ = 0 if checkpoint_every else None
         chunk = self.chunk_size or bs_local
         self.effective_chunk_ = chunk
-
-        def fit_fn_at(c):
-            return dist.make_minibatch_fit_fn(
-                ds.mesh, batch=bs_local, mode=mode, k=self.k,
-                max_iter=self.max_iter, tolerance=float(self.tolerance),
-                history_sse=self.compute_sse,
-                reassignment_ratio=self.reassignment_ratio,
-                reassign_every=self._reassign_every(bs_local * data),
-                chunk_size=c, host_loop=host)
+        fit_fn_at = self._mb_fit_getter(ds.mesh, bs_local, mode, host)
 
         self._total_w = float(all_reduce(
             ds.weights.to(torch.float64).sum().reshape(1), ds.mesh,
@@ -477,9 +499,9 @@ class MiniBatchKMeans(KMeans):
         this batch under ``[seed, iteration, 0xC4ED]``."""
         ds = to_device(np.ascontiguousarray(batch), self.device, self.dtype,
                        sample_weight=batch_weight, mesh=self._resolve_mesh())
-        step = dist.make_step_fn(ds.mesh, chunk_size=self._chunk_for(ds),
-                                 mode=self._mode(), need_farthest=False,
-                                 need_sse_pc=False)
+        step = _cached(dist.make_step_fn, ds.mesh,
+                       chunk_size=self._chunk_for(ds), mode=self._mode(),
+                       need_farthest=False, need_sse_pc=False)
         with obs_trace.span("dispatch", tag="minibatch/step",
                             iteration=iteration):
             stats = step(ds.points, ds.weights,

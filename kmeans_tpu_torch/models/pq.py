@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from kmeans_tpu_torch.models.init import resolve_init
-from kmeans_tpu_torch.models.kmeans import resolve_device
+from kmeans_tpu_torch.models.kmeans import _cached, resolve_device
 from kmeans_tpu_torch.ops.assign import BF16_GUARD_RTOL
 from kmeans_tpu_torch.parallel import distributed as dist
 from kmeans_tpu_torch.parallel.mesh import check_mesh, mesh_shape
@@ -163,7 +163,8 @@ class ProductQuantizer:
                                     mode="matmul"),
                        np.float64).astype(self.dtype)
             for j in range(m)])
-        fit_fn = dist.make_multi_fit_fn(
+        fit_fn = _cached(
+            dist.make_multi_fit_fn,
             self.mesh, chunk_size=chunk, mode="matmul", k_real=self.k,
             max_iter=self.max_iter, tolerance=float(self.tolerance),
             empty_policy="keep", n_init=m, history_sse=True,

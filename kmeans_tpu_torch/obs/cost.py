@@ -30,8 +30,11 @@ hand kernels of ``ops``, so the port measures what the reference reads:
 
 Capture contract (the reference's): off by default, and :func:`instrument`
 with no collector installed is one ``None`` check returning its value;
-under :func:`collecting` a builder's product is wrapped in a one-shot
-proxy whose first call is measured.  Measuring launches nothing and
+under :func:`collecting` a step cache's miss (``utils.cache.LRUCache``:
+the models' ``_STEP_CACHE`` and ``_PIPE_CACHE``) wraps the builder's
+product in a one-shot proxy whose first call is measured, its record named
+by the cache.  A hit is not measured again: clear the caches before a
+scope that must see a program built.  Measuring launches nothing and
 changes no value: a fit under ``collecting()`` is bit-equal to the same fit
 without it, with the same launch counts.  A measurement that fails gives a
 record with ``available=False`` and never fails the fit.
@@ -86,8 +89,8 @@ class CostRecord:
     """One program's measured device cost.  The reference's fields, and
     the port's measurements beside them (``device_ms``, ``kernels``,
     ``launches``, ``flops_aten``, ``flops_declared``, ``flops_source``).
-    ``None`` means not measured.  ``key`` is the repr of the builder's
-    arguments, so a record joins back to the builder's ``trace`` span."""
+    ``None`` means not measured.  ``key`` is the repr of the cache's key:
+    the builder's name and its arguments (``utils.cache.builder_key``)."""
 
     cache: str
     key: str
@@ -471,31 +474,18 @@ class _CapturedProgram:
         return getattr(self._fn, name)
 
 
-def _key_repr(key) -> str:
-    """The repr of a builder's ``(args, kwargs)``, a mesh by its shape."""
-    if isinstance(key, tuple) and len(key) == 2 and \
-            isinstance(key[1], dict):
-        args, kwargs = key
-
-        def plain(v):
-            if hasattr(v, "mesh_dim_names"):
-                return ("mesh", tuple(v.mesh.shape))
-            return v
-        return repr((tuple(plain(a) for a in args),
-                     sorted((k, plain(v)) for k, v in kwargs.items())))
-    return repr(key)
-
-
 def instrument(cache_name: str, key, value, *, loop: bool = False):
-    """A builder's product wrapped for capture when a collector is active;
-    ``value`` untouched otherwise (one ``None`` check).  A tuple keeps its
+    """A step cache's new entry (``utils.cache.LRUCache``'s miss) wrapped
+    for capture when a collector is active; ``value`` untouched otherwise
+    (one ``None`` check).  The record's ``cache`` is ``cache_name``, its
+    ``key`` the repr of the cache's key.  A tuple keeps its
     structure, each callable member wrapped with its index as ``role``.
     ``loop``: the product is a device loop, measured at its first
     launch."""
     col = _COLLECTOR
     if col is None:
         return value
-    key_repr = _key_repr(key)
+    key_repr = repr(key)
     if isinstance(value, tuple):
         return tuple(
             _CapturedProgram(v, cache_name, key_repr, i, col, loop)
@@ -507,15 +497,19 @@ def instrument(cache_name: str, key, value, *, loop: bool = False):
 
 def program(loop: bool = False):
     """Decorator of the ``parallel`` program builders: the builder runs
-    under a ``trace`` span (``obs.trace.traced_builder``) and its product
-    passes through :func:`instrument` under the builder's name."""
+    under a ``trace`` span (``obs.trace.traced_builder``), and a device
+    loop's product is tagged ``_cost_loop`` so that the cache that keeps it
+    (``utils.cache.LRUCache``, whose miss calls :func:`instrument`)
+    measures it at its first launch."""
     import functools
 
     def deco(builder):
         @functools.wraps(builder)
         def build(*args, **kwargs):
-            return instrument(builder.__name__, (args, kwargs),
-                              builder(*args, **kwargs), loop=loop)
+            product = builder(*args, **kwargs)
+            if loop:
+                product._cost_loop = True
+            return product
         return _trace.traced_builder(build)
     return deco
 

@@ -251,7 +251,9 @@ def device_cost_report(families=None, *, specs=None,
     (``obs.cost.crosscheck``) and the memory plan (``obs.memory``).
     Returns ``{"rows", "plans", "device_memory", "backend"}``.  On the
     CPU the records are the degraded form (no allocator peak), so the
-    rows say ``available: False`` and keep the measured flops."""
+    rows say ``available: False`` and keep the measured flops.  A record
+    is taken at a step cache's miss, so the step caches are emptied before
+    each family's fit (``utils.profiling.compile_caches``)."""
     import numpy as np
     import torch
 
@@ -259,6 +261,7 @@ def device_cost_report(families=None, *, specs=None,
     from kmeans_tpu_torch.obs import cost as cost_mod
     from kmeans_tpu_torch.obs import memory as memory_mod
     from kmeans_tpu_torch.parallel.sharding import choose_chunk_size
+    from kmeans_tpu_torch.utils.profiling import compile_caches
 
     dev = resolve_device(device)
     families = list(families or REPORT_SPECS)
@@ -276,6 +279,8 @@ def device_cost_report(families=None, *, specs=None,
         X = (rng.standard_normal((n, d))
              + 3.0 * rng.integers(0, 3, size=(n, 1))).astype(np.float32)
         eff_chunk = int(chunk) if chunk else choose_chunk_size(n, k, d)
+        for cache in compile_caches().values():
+            cache.clear()
         with cost_mod.collecting() as col:
             model = _report_fit(family, X, k, eff_chunk, spec, dev)
         recs = col.records()

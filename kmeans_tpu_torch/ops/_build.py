@@ -11,10 +11,20 @@ compiler's output; nothing here falls back to another implementation.
 defines (the tile sizes that the variant lab sweeps) into a library of its
 own, whose hash also covers the defines; the main path's builds pass none.
 
+The build directory is ``kmeans_tpu_torch/build`` unless the environment
+knob ``KMEANS_TPU_TORCH_BUILD_DIR`` names another (read at import, and again
+by ``utils.aot.enable_compilation_cache``).  Where a library is not in it,
+:func:`load_variant` asks the active store of built libraries
+(``utils.aot``) before it starts ``nvcc``, and a library that ``nvcc``
+built goes into that store: a host with an empty build directory and no
+``nvcc`` then loads the libraries a checkpoint shipped.
+
 Under a tracer each ``nvcc`` run is a ``compile`` span (``via='nvcc'``) and
-each library load one more (``via='load'``): the first dispatch of a fit
-that loads a kernel holds them, and the time-to-first-iteration report
-(``obs.report``) counts them in its ``compile`` row.
+each library load one more, whose ``via`` says where the library came from:
+``'load'`` (the build directory), ``'aot-load'`` (the store) or ``'nvcc'``
+(built for this load).  The first dispatch of a fit that loads a kernel
+holds them, and the time-to-first-iteration report (``obs.report``) counts
+them in its ``compile`` row.
 """
 
 from __future__ import annotations
@@ -32,7 +42,21 @@ from kmeans_tpu_torch.obs import trace as _obs_trace
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
-BUILD_DIR = _PKG / "build"
+#: The environment knob that moves the build directory.
+BUILD_DIR_ENV = "KMEANS_TPU_TORCH_BUILD_DIR"
+
+
+def default_build_dir() -> Path:
+    """``KMEANS_TPU_TORCH_BUILD_DIR`` where it is set and not empty, else
+    ``kmeans_tpu_torch/build``."""
+    env = os.environ.get(BUILD_DIR_ENV)
+    return Path(env) if env else _PKG / "build"
+
+
+BUILD_DIR = default_build_dir()
+
+#: ``nvcc`` processes this process started (every build, the lab's too).
+NVCC_RUNS = 0
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
@@ -127,12 +151,14 @@ def _start(name: str, defines: Mapping[str, int]):
     out = library_path(name, defines)
     if out.is_file():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    global NVCC_RUNS
+    cmd = [find_nvcc(), *NVCC_FLAGS, *_define_flags(defines)]
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, *_define_flags(defines), "-o", str(tmp),
-           str(src)]
+    cmd += ["-o", str(tmp), str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
+    NVCC_RUNS += 1
     return proc, tmp, out, cmd
 
 
@@ -173,16 +199,62 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     return dict(zip(names, build_variants((name, {}) for name in names)))
 
 
+#: Guards the first load of each library: a serving thread and a fit may
+#: ask for the same one at once.
+_LOAD_LOCK = threading.RLock()
+
+
+def _active_store():
+    """The store of built libraries where ``utils.aot`` is in use (imported,
+    or its environment knob set), else None."""
+    import sys
+    mod = sys.modules.get("kmeans_tpu_torch.utils.aot")
+    if mod is None:
+        from kmeans_tpu_torch.utils.cache import AOT_ENV
+        if not os.environ.get(AOT_ENV):
+            return None
+        from kmeans_tpu_torch.utils import aot as mod
+    return mod.active_store()
+
+
+def _ensure_built(name: str, defines: Mapping[str, int]) -> str:
+    """Make the library of (``name``, ``defines``) present at
+    :func:`library_path`: already there (``'load'``), placed from the
+    active store (``'aot-load'``), or built by ``nvcc`` (``'nvcc'``); with
+    a store active the library then goes into it.  Returns which."""
+    path = library_path(name, defines)
+    store = _active_store()
+    if path.is_file():
+        via = "load"
+    elif store is not None and store.fetch(name, defines, path):
+        via = "aot-load"
+    else:
+        build_variants([(name, defines)])
+        via = "nvcc"
+    if store is not None:
+        # Where the store's root or its mirror (a checkpoint's .aot
+        # directory) lacks this library, it goes there.
+        store.store(name, defines, path, built=via == "nvcc")
+    return via
+
+
 def load_variant(name: str, defines: Mapping[str, int]) -> ctypes.CDLL:
-    """The build of ``csrc/<name>.cu`` under ``defines``, building it if
-    need be."""
+    """The build of ``csrc/<name>.cu`` under ``defines``: from the build
+    directory, else from the active store of built libraries, else built
+    by ``nvcc``."""
     key = (name, tuple(sorted(defines.items())))
     lib = _LIBS.get(key)
     if lib is None:
-        with _obs_trace.span("compile", via="load", source=name):
-            build_variants([(name, defines)])
-            lib = ctypes.CDLL(str(library_path(name, defines)))
-        _LIBS[key] = lib
+        with _LOAD_LOCK:
+            lib = _LIBS.get(key)
+            if lib is None:
+                with _obs_trace.span("compile", via="load",
+                                     source=name) as sp:
+                    via = _ensure_built(name, defines)
+                    if sp is not None:
+                        sp["attrs"]["via"] = via
+                    lib = ctypes.CDLL(str(library_path(name, defines)))
+                _LIBS[key] = lib
     return lib
 
 

@@ -98,6 +98,15 @@ def bind(lib: ctypes.CDLL, bf16: bool) -> ctypes.CDLL:
     return lib
 
 
+def mode_library(mode: str) -> Optional[str]:
+    """The library that a K-Means distance mode launches: kernels 1 and 2
+    ('kernel') are one source, 1b and 2b ('kernel_bf16') the other; None
+    for the torch modes."""
+    if mode in ("kernel", "kernel_bf16"):
+        return LIB_NAMES[mode == "kernel_bf16"]
+    return None
+
+
 def _lib(bf16: bool) -> ctypes.CDLL:
     return bind(_build.load(LIB_NAMES[bf16]), bf16)
 

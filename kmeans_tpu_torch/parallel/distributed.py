@@ -2029,7 +2029,13 @@ class _MiniBatchLoop(_DeviceLoop):
 
     def __init__(self, ds: Dataset, step, *, k, max_iter, tolerance,
                  need_sse, ratio, every):
-        super().__init__(ds.points, ds.weights, step, None, k=k,
+        # A bucket's padding rows (weight 0, after the real ones on one
+        # device) are left out of the draws, so a bucketed fit draws the
+        # rows of the exact-shape one; a mesh's blocks keep theirs.
+        points, weights = ds.points, ds.weights
+        if ds.mesh is None and points.shape[0] != ds.n:
+            points, weights = points[: ds.n], weights[: ds.n]
+        super().__init__(points, weights, step, None, k=k,
                          max_iter=max_iter, tolerance=tolerance,
                          empty_policy="keep", need_sse=need_sse, x2w=None,
                          x2w_finite=None)
@@ -2037,7 +2043,7 @@ class _MiniBatchLoop(_DeviceLoop):
         self.seen = torch.zeros((k,), dtype=acc, device=ds.device)
         self.streams = torch.zeros((max_iter, 3), dtype=torch.int64,
                                    device=ds.device)
-        self.w_total = all_reduce(ds.weights.to(acc).sum().reshape(1),
+        self.w_total = all_reduce(weights.to(acc).sum().reshape(1),
                                   ds.mesh, (DATA_AXIS,))[0]
         self.ratio, self.every = float(ratio), int(every)
 

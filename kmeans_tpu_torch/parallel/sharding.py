@@ -139,29 +139,71 @@ def pad_points(x: np.ndarray, multiple: int, min_rows: int = 0
     return x, w
 
 
-#: Boundaries of the candidate-width ladder at {1, 1.25, 1.5, 1.75} x 2^e,
-#: and its floor: the JAX package's ``BUCKET_RUNGS`` and
-#: ``CANDIDATE_FLOOR``.  The two-level step's member lists are (C, L)
-#: tables whose width L is the largest cell's size bucketed on this
-#: ladder, so that the width changes seldom as cells drift.
+#: Boundaries of the fit-shape and candidate-width ladders at
+#: {1, 1.25, 1.5, 1.75} x 2^e, and their floors: the JAX package's
+#: ``BUCKET_RUNGS``, ``BUCKET_FLOOR`` and ``CANDIDATE_FLOOR``.  A fit with
+#: ``bucket='auto'`` pads its rows (weight 0, inert) to the next boundary
+#: at or above ``BUCKET_FLOOR``, so nearby dataset sizes share one padded
+#: shape and chunk, and therefore one step function of the models'
+#: ``_STEP_CACHE``; the padding is at most 25 %.  The two-level step's
+#: member lists are (C, L) tables whose width L is the largest cell's size
+#: bucketed from ``CANDIDATE_FLOOR``, so that the width changes seldom as
+#: cells drift.
 BUCKET_RUNGS = (1.0, 1.25, 1.5, 1.75)
+BUCKET_FLOOR = 256
 CANDIDATE_FLOOR = 32
+
+
+def _ladder(n: int, floor: int) -> int:
+    n = int(n)
+    if n <= floor:
+        return floor
+    e = int(np.floor(np.log2(n / floor)))
+    # A float log may land one exponent off at an exact boundary.
+    for ee in (e - 1, e, e + 1):
+        for r in BUCKET_RUNGS:
+            b = int(round(floor * r * (2 ** ee)))
+            if b >= n:
+                return b
+    return int(round(floor * (2 ** (e + 2))))  # pragma: no cover
+
+
+def bucket_rows(n: int) -> int:
+    """The smallest boundary of the fit-shape ladder that is >= ``n`` (the
+    JAX package's ``bucket_rows``)."""
+    return _ladder(n, BUCKET_FLOOR)
+
+
+def check_bucket(bucket):
+    """The ``bucket`` knob of every family, validated: ``'auto'`` or an int
+    >= 0 (0: the exact shape, the bit-exact oracle); the JAX package's
+    grammar and messages."""
+    if isinstance(bucket, str):
+        if bucket != "auto":
+            raise ValueError(f"bucket must be 'auto' or an int >= 0, "
+                             f"got {bucket!r}")
+        return bucket
+    if int(bucket) < 0 or int(bucket) != bucket:
+        raise ValueError(f"bucket must be 'auto' or an int >= 0, "
+                         f"got {bucket!r}")
+    return int(bucket)
+
+
+def bucket_target(bucket, n: int) -> int:
+    """The padded row count of a validated ``bucket`` knob: ``n`` at 0, the
+    ladder's boundary at ``'auto'``, the next multiple of an explicit
+    int."""
+    if bucket == "auto":
+        return bucket_rows(n)
+    if bucket:
+        return -(-int(n) // bucket) * bucket
+    return int(n)
 
 
 def bucket_candidates(n: int) -> int:
     """The smallest boundary of the candidate-width ladder that is >= ``n``
     (the JAX package's ``bucket_candidates``)."""
-    n = int(n)
-    if n <= CANDIDATE_FLOOR:
-        return CANDIDATE_FLOOR
-    e = int(np.floor(np.log2(n / CANDIDATE_FLOOR)))
-    # A float log may land one exponent off at an exact boundary.
-    for ee in (e - 1, e, e + 1):
-        for r in BUCKET_RUNGS:
-            b = int(round(CANDIDATE_FLOOR * r * (2 ** ee)))
-            if b >= n:
-                return b
-    return int(round(CANDIDATE_FLOOR * (2 ** (e + 2))))  # pragma: no cover
+    return _ladder(n, CANDIDATE_FLOOR)
 
 
 #: How host rows become a rank's device block (the JAX package's
@@ -338,7 +380,10 @@ def permuted_draws(n_pos: int, j: torch.Tensor,
 
 class Dataset:
     """Points (n, D) and weights (n,) on one device, with an optional host
-    copy of both (``host_weights`` None means all ones).
+    copy of both (``host_weights`` None means all ones).  A dataset placed
+    with ``min_rows`` (a shape bucket, :func:`to_device`) holds more device
+    rows than ``n``: the real rows lead, the rest are zeros of weight 0,
+    inert in every statistic; the host copy has the real rows only.
 
     :meth:`memo` keeps what is computed once per dataset and read by every
     fit on it (``sum w ||x||^2``, the positive-weight rows, the device
@@ -353,10 +398,13 @@ class Dataset:
     def __init__(self, points: torch.Tensor, weights: torch.Tensor,
                  host: Optional[np.ndarray] = None,
                  host_weights: Optional[np.ndarray] = None,
-                 chunk: Optional[int] = None, explicit_chunk: bool = False):
+                 chunk: Optional[int] = None, explicit_chunk: bool = False,
+                 n: Optional[int] = None):
         self.points = points
         self.weights = weights
         self.n, self.d = points.shape
+        if n is not None:
+            self.n = int(n)
         self._host = host
         self._host_weights = host_weights
         self.chunk = None if chunk is None else int(chunk)
@@ -427,6 +475,12 @@ class Dataset:
         return torch.where((ordinals >= 0)[:, None], rows,
                            torch.zeros_like(rows))
 
+    def gather_rows(self, values: torch.Tensor) -> np.ndarray:
+        """Per-row values of the dataset's device rows (labels,
+        log-densities; any trailing shape) for its ``n`` real rows, as a
+        host array."""
+        return values[: self.n].cpu().numpy()
+
     def positive_rows(self) -> np.ndarray:
         """Indices of rows with weight > 0: the candidates for seeding and
         for empty-cluster resampling (a zero-weight row must never become a
@@ -446,7 +500,11 @@ class Dataset:
 
     def _weights_like(self, sw: np.ndarray) -> torch.Tensor:
         """The device weights of this dataset's rows for (n,) host weights
-        ``sw``: all of them on one device."""
+        ``sw``: all of them on one device, padding rows at 0."""
+        if self.points.shape[0] != self.n:
+            block = np.zeros(self.points.shape[0], dtype=sw.dtype)
+            block[: self.n] = sw
+            sw = block
         return torch.from_numpy(np.ascontiguousarray(sw)).to(self.device)
 
     def with_weights(self, sample_weight) -> "Dataset":
@@ -626,7 +684,8 @@ def _check_dataset(X: Dataset, device, dtype, sample_weight, mesh) -> None:
 
 def to_device(X, device: torch.device, dtype, sample_weight=None,
               mesh=None, chunk: Optional[int] = None,
-              k_hint: int = 16, ingest: str = "auto") -> Dataset:
+              k_hint: int = 16, ingest: str = "auto",
+              min_rows: int = 0) -> Dataset:
     """Place (n, D) data on ``device`` once; a :class:`Dataset` passes
     through.  Host data (NumPy, lists) keeps its host copy; a tensor that
     already lies on ``device`` is used as it is and no host copy is made.
@@ -641,7 +700,10 @@ def to_device(X, device: torch.device, dtype, sample_weight=None,
     reaches the device under a mesh, 'mono' or 'slab' (:func:`place_slabs`),
     the same bytes either way; without a mesh, or for a tensor already on
     the device, there is one copy and the mode is ignored, as in the JAX
-    package."""
+    package.  ``min_rows`` (a shape bucket, :func:`bucket_target`) pads the
+    device rows with zeros of weight 0 to at least that many (under a mesh,
+    the global rows before they are split); ``n`` stays the real count and
+    the host copy holds the real rows only."""
     mode = resolve_ingest(ingest)
     dtype = np.dtype(dtype)
     if isinstance(X, Dataset):
@@ -651,17 +713,17 @@ def to_device(X, device: torch.device, dtype, sample_weight=None,
     with _obs_trace.span("place", rows=int(shape[0]) if shape else 0,
                          ingest=mode):
         return _place(X, device, dtype, sample_weight, mesh, chunk, k_hint,
-                      mode)
+                      mode, int(min_rows))
 
 
 def _place(X, device, dtype, sample_weight, mesh, chunk, k_hint,
-           mode) -> Dataset:
+           mode, min_rows: int = 0) -> Dataset:
     tdtype = torch_dtype(dtype)
     if mesh is not None:
         on_device = isinstance(X, torch.Tensor) and X.device == device
         return _to_mesh(X.to(tdtype) if on_device else _host_array(X, dtype),
                         device, dtype, sample_weight, mesh, chunk, k_hint,
-                        mode)
+                        mode, min_rows)
     if isinstance(X, torch.Tensor) and X.device == device:
         host, shape = None, tuple(X.shape)
     else:
@@ -669,29 +731,41 @@ def _place(X, device, dtype, sample_weight, mesh, chunk, k_hint,
         shape = host.shape
     if len(shape) != 2:
         raise ValueError(f"X must be 2-D (n, D), got shape {shape}")
+    n = int(shape[0])
+    rows = max(n, min_rows)
     nbytes = 0 if host is None else int(host.nbytes)
-    with _obs_trace.span("stage", rows=int(shape[0]), bytes=nbytes,
-                         ingest="mono"):
+    with _obs_trace.span("stage", rows=n, bytes=nbytes, ingest="mono"):
         _obs_metrics.REGISTRY.counter("ingest.bytes").inc(nbytes)
         _obs_metrics.REGISTRY.counter("ingest.slabs").inc()
-        points = (X.to(tdtype).contiguous() if host is None
-                  else torch.from_numpy(host).to(device))
+        if rows == n:
+            points = (X.to(tdtype).contiguous() if host is None
+                      else torch.from_numpy(host).to(device))
+        else:
+            # The bucket's padding: zero rows after the real ones, one
+            # device buffer written in place.
+            points = torch.zeros((rows, shape[1]), dtype=tdtype,
+                                 device=device)
+            points[:n].copy_(X if host is None else torch.from_numpy(host))
     if sample_weight is None:
         sw = None
-        weights = torch.ones(shape[0], dtype=tdtype, device=device)
+        weights = torch.ones(rows, dtype=tdtype, device=device)
     else:
         if isinstance(sample_weight, torch.Tensor):
             sample_weight = sample_weight.cpu().numpy()
-        sw = _validate_sample_weight(sample_weight, shape[0], dtype)
+        sw = _validate_sample_weight(sample_weight, n, dtype)
         weights = torch.from_numpy(sw).to(device)
+        if rows != n:
+            weights = torch.cat([weights, weights.new_zeros(rows - n)])
+    if rows != n:
+        weights[n:] = 0
     # Without a host copy, seeding and resampling read the device's weights.
     return Dataset(points, weights, host=host,
-                   host_weights=sw if host is not None else None)
+                   host_weights=sw if host is not None else None, n=n)
 
 
 def _to_mesh(X, device, dtype, sample_weight, mesh,
              chunk: Optional[int], k_hint: int,
-             ingest: str = "mono") -> ShardedDataset:
+             ingest: str = "mono", min_rows: int = 0) -> ShardedDataset:
     """The rank's block of the global rows, padded with rows of weight 0
     to a multiple of the data axis (only the last blocks hold padding).
     ``X`` is a host array, kept as the host copy and placed by ``ingest``
@@ -702,7 +776,7 @@ def _to_mesh(X, device, dtype, sample_weight, mesh,
     n, d = X.shape
     data_shards = _mesh.mesh_shape(mesh)[0]
     d_idx = _mesh.coords(mesh)[0]
-    block = -(-max(n, 1) // data_shards)
+    block = -(-max(n, 1, int(min_rows)) // data_shards)
     lo, hi = d_idx * block, max(min((d_idx + 1) * block, n), d_idx * block)
     host = X if isinstance(X, np.ndarray) else None
     sw = None

@@ -52,7 +52,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from kmeans_tpu_torch.models.kmeans import resolve_device
+from kmeans_tpu_torch.models.kmeans import _cached, resolve_device
 from kmeans_tpu_torch.obs import drift as obs_drift
 from kmeans_tpu_torch.obs import metrics_registry as obs_metrics
 from kmeans_tpu_torch.obs import trace as obs_trace
@@ -518,7 +518,9 @@ class ServingEngine:
         ln.poke()
 
     def _fn(self, key: tuple, make: Callable) -> Callable:
-        """The step function under ``key``, built at first use."""
+        """The step function under ``key``, made at first use by ``make``
+        (which takes it from ``models.kmeans._STEP_CACHE``, shared with
+        the models and the other engines of the process)."""
         fn = self._fns.get(key)
         if fn is None:
             with self._lock:
@@ -537,8 +539,9 @@ class ServingEngine:
 
     def _predict_fn(self, chunk: int, mode: str) -> Callable:
         return self._fn(("predict", chunk, mode),
-                        lambda: dist.make_predict_fn(
-                            self.mesh, chunk_size=chunk, mode=mode))
+                        lambda: _cached(
+                            dist.make_predict_fn, self.mesh,
+                            chunk_size=chunk, mode=mode))
 
     def _serve_chunk(self, rm: ResidentModel, B: int) -> int:
         """The torch passes' chunk for a bucket-B dispatch: the automatic
@@ -627,8 +630,9 @@ class ServingEngine:
                         rm.pq_corrected_rows += corrected
             elif op == "transform":
                 tfn = self._fn(("transform", chunk, tmode),
-                               lambda: dist.make_transform_fn(
-                                   self.mesh, chunk_size=chunk, mode=tmode))
+                               lambda: _cached(
+                                   dist.make_transform_fn, self.mesh,
+                                   chunk_size=chunk, mode=tmode))
                 out = tfn(torch.from_numpy(buf).to(self.device),
                           cents).cpu().numpy()[:m, :rm.spec["k"]]
             else:
@@ -650,7 +654,8 @@ class ServingEngine:
                     elif op == "score_rows":
                         smode = value_mode(mode)
                         sfn = self._fn(("score_rows", chunk, smode),
-                                       lambda: dist.make_score_rows_fn(
+                                       lambda: _cached(
+                                           dist.make_score_rows_fn,
                                            self.mesh, chunk_size=chunk,
                                            mode=smode))
                         out = self._host(ds, sfn(ds.points, cents))[:m]
@@ -678,9 +683,9 @@ class ServingEngine:
         caller owns the audit counter."""
         with obs_trace.span("dispatch", tag="serve/bf16-margin", rows=m):
             fn = self._fn(("assign-margin", chunk),
-                          lambda: dist.make_assign_margin_fn(
-                              self.mesh, chunk_size=chunk,
-                              mode="matmul_bf16"))
+                          lambda: _cached(
+                              dist.make_assign_margin_fn, self.mesh,
+                              chunk_size=chunk, mode="matmul_bf16"))
             labels, margin, scale = fn(ds.points, cents)
             labels = np.array(self._host(ds, labels)[:m])
             margin = self._host(ds, margin)[:m]
@@ -851,8 +856,9 @@ class ServingEngine:
         with obs_trace.span("serve.request", op="predict_multi",
                             models=len(ids), rows=m, bucket=B):
             fn = self._fn(("multipredict", chunk, mode, len(ids)),
-                          lambda: dist.make_multi_predict_fn(
-                              self.mesh, chunk_size=chunk, mode=mode,
+                          lambda: _cached(
+                              dist.make_multi_predict_fn, self.mesh,
+                              chunk_size=chunk, mode=mode,
                               n_models=len(ids)))
             stack = self._pack_stack(ids)
             ds, release = self._place(buf, chunk)
@@ -936,8 +942,9 @@ class ServingEngine:
 
         def _distances(tmode):
             tfn = self._fn(("transform", chunk, tmode),
-                           lambda: dist.make_transform_fn(
-                               self.mesh, chunk_size=chunk, mode=tmode))
+                           lambda: _cached(
+                               dist.make_transform_fn, self.mesh,
+                               chunk_size=chunk, mode=tmode))
             note_dispatch("verify-quantized/transform")
             return tfn(torch.from_numpy(buf).to(self.device),
                        cents).cpu().numpy()[:m, :rm.spec["k"]]
@@ -1060,11 +1067,20 @@ class ServingEngine:
                 for mid, rm in sorted(self._residents.items())}
 
     #: The builders of the programs a dispatch runs: K-Means' assignment,
-    #: margin, score and transform passes, and the mixture's posterior.
+    #: margin, score and transform passes, and the mixture's posterior;
+    #: and the step caches that keep them (a cost record is named by its
+    #: cache, its key starts with the builder's name).
     _SERVING_BUILDERS = ("make_predict_fn", "make_assign_margin_fn",
                          "make_score_rows_fn", "make_multi_predict_fn",
                          "make_transform_fn", "make_two_level_predict_fn",
                          "make_gmm_predict_fn")
+    _SERVING_CACHES = ("kmeans._STEP_CACHE", "gmm._STEP_CACHE")
+
+    @classmethod
+    def _serving_record(cls, rec) -> bool:
+        """Whether a cost record is of a serving program."""
+        return rec.cache in cls._SERVING_CACHES and any(
+            rec.key.startswith(f"('{b}',") for b in cls._SERVING_BUILDERS)
 
     def _program_memory(self) -> List[dict]:
         """What the engine holds per bucket shape, under the JAX package's
@@ -1072,7 +1088,7 @@ class ServingEngine:
         ``key`` (rows, D, dtype), its pinned host, device and weight bytes
         in ``peak_bytes``, the device bytes in ``arg_bytes``).  Under a
         cost collector (``obs.cost.collecting``), one row per record of a
-        serving program (:data:`_SERVING_BUILDERS`): run ``warmup()``
+        serving program (:meth:`_serving_record`): run ``warmup()``
         inside the scope so that the bucket programs are built and
         measured there, as in the reference.  Without one, one row per
         built step function (``cache='serving.step_fns'``, its key, the
@@ -1091,7 +1107,7 @@ class ServingEngine:
                  "peak_bytes": r.peak_bytes, "arg_bytes": r.arg_bytes,
                  "temp_bytes": r.temp_bytes, "code_bytes": r.code_bytes,
                  "available": r.available}
-                for r in col.records() if r.cache in self._SERVING_BUILDERS]
+                for r in col.records() if self._serving_record(r)]
         rows += [{"cache": "serving.step_fns", "key": key,
                   "role": key[0], "peak_bytes": None, "arg_bytes": None,
                   "temp_bytes": None, "code_bytes": None,

@@ -18,8 +18,12 @@ Counterpart of the JAX package's ``utils/profiling.py``:
   :func:`log_dispatches` scope.  ``dispatch_counts()`` reads the
   registry's ``dispatch.*`` counters.
 
-The reference's ``compile_caches`` and ``recompilation_sentinel`` read its
-step caches; the port's come with ``utils/cache.py`` (ROADMAP.md, A.14).
+* :func:`compile_caches` and :func:`recompilation_sentinel` read the
+  places where the port makes a program: the step caches
+  (``utils.cache.LRUCache``: ``models.kmeans._STEP_CACHE``,
+  ``models.gmm._STEP_CACHE``, ``models.init._PIPE_CACHE``), the loaded
+  kernel libraries (``ops._build._LIBS``) and the CUDA graphs the device
+  loops captured (``parallel.distributed.CAPTURES``).
 """
 
 from __future__ import annotations
@@ -33,7 +37,8 @@ from kmeans_tpu_torch.obs import trace as _obs_trace
 
 __all__ = ["Timer", "trace", "timed_call", "measure_phase_ladder",
            "PHASE_DECISION_SHARE", "phase_ceiling_table", "sanitize_json",
-           "note_dispatch", "log_dispatches", "dispatch_counts"]
+           "note_dispatch", "log_dispatches", "dispatch_counts",
+           "RecompilationError", "compile_caches", "recompilation_sentinel"]
 
 
 def _cuda_device(sync_on):
@@ -274,3 +279,114 @@ def dispatch_counts() -> Dict[str, int]:
     return {name[len("dispatch."):]: int(v["value"])
             for name, v in _metrics.REGISTRY.snapshot().items()
             if name.startswith("dispatch.") and v["kind"] == "counter"}
+
+
+# ---------------------------------------------- recompilation sentinel
+# The runtime guard that a warm path reuses its programs: snapshot every
+# place where the port makes one, run the body, fail on growth.
+
+#: Modules imported before the caches are discovered, so the sentinel sees
+#: every step cache even where the caller imported none of them.
+#: Discovery is dynamic (any ``LRUCache`` attribute of a loaded
+#: ``kmeans_tpu_torch`` module), so a new cache is covered once its module
+#: loads.
+_CACHE_MODULES = (
+    "kmeans_tpu_torch.models.kmeans",     # _STEP_CACHE
+    "kmeans_tpu_torch.models.gmm",        # _STEP_CACHE (the mixture)
+    "kmeans_tpu_torch.models.init",       # _PIPE_CACHE (k-means||)
+)
+
+#: The two other places where the port makes a program, watched beside the
+#: caches: a kernel library loaded (key: source and ``-D`` defines) and a
+#: CUDA graph captured by a device loop (key: the loop's class; the value
+#: counts captures).
+LIBRARIES = "kmeans_tpu_torch.ops._build._LIBS"
+CAPTURES = "kmeans_tpu_torch.parallel.distributed.CAPTURES"
+
+
+class RecompilationError(AssertionError):
+    """A step cache, the loaded libraries or the captured graphs grew
+    inside a ``recompilation_sentinel`` scope: a path made again a program
+    the warm path should have reused."""
+
+
+def compile_caches() -> dict:
+    """Every module-level :class:`~kmeans_tpu_torch.utils.cache.LRUCache` of
+    the loaded package, as ``{'module.attr': cache}`` (each cache once,
+    under its defining name)."""
+    import importlib
+    import sys
+
+    from kmeans_tpu_torch.utils.cache import LRUCache
+
+    for name in _CACHE_MODULES:
+        importlib.import_module(name)
+    out = {}
+    seen_ids = set()
+    for name in sorted(n for n in sys.modules
+                       if n.startswith("kmeans_tpu_torch")):
+        mod = sys.modules.get(name)
+        if mod is None:
+            continue
+        for attr, val in sorted(vars(mod).items()):
+            if isinstance(val, LRUCache) and id(val) not in seen_ids:
+                seen_ids.add(id(val))
+                out[f"{name}.{attr}"] = val
+    return out
+
+
+def _program_keys() -> Dict[str, list]:
+    """The keys of every watched place: each cache's keys, the loaded
+    libraries' keys, and one ``(loop class, i)`` per graph captured."""
+    from kmeans_tpu_torch.ops import _build
+    from kmeans_tpu_torch.parallel import distributed
+
+    keys = {name: list(c.keys()) for name, c in compile_caches().items()}
+    keys[LIBRARIES] = list(_build._LIBS)
+    keys[CAPTURES] = [(cls, i) for cls, count in
+                      sorted(distributed.CAPTURES.items())
+                      for i in range(count)]
+    return keys
+
+
+@contextlib.contextmanager
+def recompilation_sentinel(allowed_new: int = 0):
+    """Assert that no program is made inside the ``with`` body::
+
+        model.predict(X)                 # warm the caches
+        with recompilation_sentinel():
+            model.predict(X)             # must reuse every entry
+
+    Yields a dict; on exit ``record['new']`` maps each watched place that
+    grew to the keys added in the scope (empty on the healthy path) and
+    ``record['caches']`` names every place watched (the step caches,
+    :data:`LIBRARIES` and :data:`CAPTURES`).  More than ``allowed_new`` new
+    entries in all raise :class:`RecompilationError` naming each place and
+    key.  Under a tracer every new key is also a zero-length ``compile``
+    span (``via='sentinel'``)."""
+    before = {name: set(keys) for name, keys in _program_keys().items()}
+    record = {"new": {}, "caches": sorted(before)}
+    yield record
+    new = {}
+    total = 0
+    for name, keys in _program_keys().items():
+        added = [k for k in keys if k not in before.get(name, ())]
+        if added:
+            new[name] = added
+            total += len(added)
+    record["new"] = new
+    tr = _obs_trace.get_tracer()
+    if tr is not None:
+        for name, keys in sorted(new.items()):
+            for k in keys:
+                tr.instant_span("compile", cache=name, key=repr(k)[:160],
+                                via="sentinel")
+    if total > allowed_new:
+        lines = [f"  {name}: +{len(keys)} entries:" + "".join(
+            f"\n    {repr(k)[:120]}" for k in keys)
+            for name, keys in sorted(new.items())]
+        raise RecompilationError(
+            f"{total} new compile-cache entr"
+            f"{'y' if total == 1 else 'ies'} inside a "
+            f"recompilation_sentinel scope (allowed {allowed_new}): a warm "
+            f"path made a program again:\n" + "\n".join(lines))

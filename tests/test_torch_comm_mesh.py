@@ -41,7 +41,15 @@ def _world(rank, out_dir):
     from kmeans_tpu_torch import GaussianMixture, KMeans, obs
     from kmeans_tpu_torch.obs import cost
     from kmeans_tpu_torch.parallel import distributed as dist
+    from kmeans_tpu_torch.models import kmeans as km_mod
     from kmeans_tpu_torch.parallel.mesh import make_mesh
+    from kmeans_tpu_torch.utils.cache import cached_build
+    from kmeans_tpu_torch.utils.profiling import compile_caches
+
+    def cold():
+        # A cost record is taken at a step cache's miss.
+        for cache in compile_caches().values():
+            cache.clear()
     X, C = _data()
     meshes = {"data2": make_mesh(2, 1), "model2": make_mesh(1, 2)}
     res = {}
@@ -51,9 +59,11 @@ def _world(rank, out_dir):
         ds = km.cache(X)
         cents = torch.from_numpy(C)
         for far, pc in ((False, False), (True, False), (False, True)):
+            cold()
             with cost.collecting() as col:
-                dist.make_step_fn(mesh, chunk_size=64, mode="matmul",
-                                  need_farthest=far, need_sse_pc=pc)(
+                cached_build(km_mod._STEP_CACHE, dist.make_step_fn, mesh,
+                             chunk_size=64, mode="matmul",
+                             need_farthest=far, need_sse_pc=pc)(
                     ds.points, ds.weights, cents)
             res[name, far, pc] = dict(_bytes(col.records()[0]),
                                       rows=int(ds.points.shape[0]))
@@ -63,17 +73,20 @@ def _world(rank, out_dir):
                          device="cpu", dtype=np.float64, mesh=mesh,
                          verbose=False).fit(X)
     ds = gm._dataset(X)
+    cold()
     with cost.collecting() as col:
         gm._make_step(mesh, gm._chunk(ds), "torch", 0)(
             ds.points, ds.weights, *gm._params_dev())
     res["gmm"] = _bytes(col.records()[0])
+    cold()
     with cost.collecting() as col:
         KMeans(k=K, max_iter=2, tolerance=1e-30, init=C, device="cpu",
                dtype=np.float64, mesh=mesh, host_loop=False,
                empty_cluster="keep", compute_sse=True,
                compute_labels=False, distance_mode="matmul",
                verbose=False).fit(X)
-    loop = next(r for r in col.records() if r.cache == "make_fit_fn")
+    loop = next(r for r in col.records()
+                if r.key.startswith("('make_fit_fn',"))
     res["loop"] = dict(_bytes(loop), region=loop.region)
     with obs.tracing() as tr:
         KMeans(k=K, max_iter=2, init=C, device="cpu", dtype=np.float64,

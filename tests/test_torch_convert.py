@@ -60,20 +60,22 @@ def test_from_jax_state_predicts_the_same(mesh1, jx_mode, pt_mode, dtype):
 
 
 def test_from_jax_state_warns_once_about_dropped_arguments(mesh1):
-    """The loop options are the port's own since the device loop came:
-    kept, not dropped; an argument the port lacks still warns."""
+    """The loop options are the port's own since the device loop came, and
+    ``bucket`` and ``overlap`` since the warm start: kept, not dropped.
+    The port's KMeans now has every argument of the JAX package's, so
+    nothing is dropped and nothing warns."""
+    import warnings
     jm, X, _ = _fit_jax(mesh1, "matmul", np.float64)
     state = jm._state_dict()
-    state.update(pipeline=1, bucket="auto", host_loop=False)
-    with pytest.warns(UserWarning) as caught:
+    state.update(pipeline=1, bucket="auto", overlap=0, host_loop=False)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
         pm = convert.from_jax_state(state, device="cpu")
-    assert len(caught) == 1
-    text = str(caught[0].message)
-    assert "bucket" in text
-    assert "pipeline" not in text and "host_loop" not in text
     assert pm.host_loop is False and pm.pipeline == 1
+    assert pm.bucket == "auto" and pm.overlap == 0
     back = convert.to_jax_state(pm)
     assert back["host_loop"] is False and back["pipeline"] == 1
+    assert back["bucket"] == "auto" and back["overlap"] == 0
     np.testing.assert_array_equal(pm.predict(X), np.asarray(jm.predict(X)))
 
 
@@ -300,9 +302,11 @@ def test_gmm_state_dispatch_and_dropped_arguments():
     assert back["host_loop"] is True and back["model_shards"] == 1
     # The JAX package's device-loop tables and loop options: the tables
     # (``dev_*``) are the port's own since its device EM loop checkpoints
-    # its carry, read and written back as they came; the loop options are
-    # kept and not dropped; an argument the port lacks still warns, once.
-    state.update(host_loop=False, pipeline=1, bucket="auto",
+    # its carry, read and written back as they came; the loop options and
+    # ``bucket`` / ``overlap`` are kept and not dropped; an argument the
+    # port lacks (a model axis, ROADMAP A.18) still warns, once.
+    state.update(host_loop=False, pipeline=1, bucket="auto", overlap=0,
+                 model_shards=2,
                  dev_means_c=np.zeros((3, 4)), dev_cov=np.ones((3, 4)),
                  dev_log_w=np.zeros(3), dev_prev_ll=0.0,
                  dev_cov_type="diag")
@@ -310,11 +314,13 @@ def test_gmm_state_dispatch_and_dropped_arguments():
         again = convert.from_jax_state(state, device="cpu")
     assert len(caught) == 1
     text = str(caught[0].message)
-    assert "bucket" in text
+    assert "model_shards" in text and "bucket" not in text
     assert "host_loop" not in text and "pipeline" not in text
     assert again.host_loop is False and again.pipeline == 1
+    assert again.bucket == "auto" and again.overlap == 0
     back = convert.to_jax_state(again)
     assert back["host_loop"] is False and back["pipeline"] == 1
+    assert back["bucket"] == "auto" and back["overlap"] == 0
     assert not any(name.startswith("dev_") for name in vars(again))
     for name in ("dev_means_c", "dev_cov", "dev_log_w"):
         np.testing.assert_array_equal(back[name], state[name])

@@ -21,8 +21,25 @@ from kmeans_tpu_torch import (BisectingKMeans, GaussianMixture,  # noqa: E402
                               KMeans, MiniBatchKMeans, SphericalKMeans, obs)
 from kmeans_tpu_torch.obs import cost  # noqa: E402
 from kmeans_tpu_torch.obs import trace as trace_mod  # noqa: E402
+from kmeans_tpu_torch.models import kmeans as km_mod  # noqa: E402
 from kmeans_tpu_torch.ops import _build  # noqa: E402
 from kmeans_tpu_torch.parallel import distributed as dist  # noqa: E402
+from kmeans_tpu_torch.utils.cache import cached_build  # noqa: E402
+from kmeans_tpu_torch.utils.profiling import compile_caches  # noqa: E402
+
+
+def _clear_caches():
+    """Empty the step caches: a record is taken at a cache's miss (the
+    reference's rule), so a scope that must see a program built starts
+    from empty caches (an earlier test may have built the same key)."""
+    for cache in compile_caches().values():
+        cache.clear()
+
+
+@pytest.fixture(autouse=True)
+def _cold_caches():
+    _clear_caches()
+    yield
 
 
 def _X(n=512, d=8, seed=0, dtype=np.float64):
@@ -128,7 +145,9 @@ def test_proxy_captures_once_and_delegates():
     c = x[:3].clone()
     plain = dist.make_step_fn(chunk_size=16, mode="matmul")(x, w, c)
     with cost.collecting() as col:
-        step = dist.make_step_fn(chunk_size=16, mode="matmul")
+        # The record is taken at the step cache's miss, named by the cache.
+        step = cached_build(km_mod._STEP_CACHE, dist.make_step_fn,
+                            chunk_size=16, mode="matmul")
         assert isinstance(step, cost._CapturedProgram)
         assert step.__name__ == "step"          # attributes fall through
         first = step(x, w, c)
@@ -138,7 +157,8 @@ def test_proxy_captures_once_and_delegates():
     recs = col.records()
     assert len(recs) == 1
     rec = recs[0]
-    assert rec.cache == "make_step_fn" and rec.role is None
+    assert rec.cache == "kmeans._STEP_CACHE" and rec.role is None
+    assert rec.key.startswith("('make_step_fn',")
     assert "('chunk_size', 16)" in rec.key and "'matmul'" in rec.key
     assert rec.region == "call" and rec.backend == "cpu"
     assert rec.flops == 4.0 * 64 * 5 * 3 and rec.flops_source == "aten"
@@ -168,7 +188,8 @@ def test_registry_write_through_and_trace_event():
     x = torch.from_numpy(_X(64, 4))
     w = torch.ones(64, dtype=torch.float64)
     with trace_mod.tracing() as tr, cost.collecting():
-        step = dist.make_step_fn(chunk_size=32, mode="matmul")
+        step = cached_build(km_mod._STEP_CACHE, dist.make_step_fn,
+                            chunk_size=32, mode="matmul")
         with trace_mod.span("dispatch", tag="unit"):
             step(x, w, x[:3].clone())
     snap = obs.registry().snapshot()
@@ -179,7 +200,7 @@ def test_registry_write_through_and_trace_event():
               and r["name"] == "cost.record"]
     assert len(events) == 1
     assert events[0]["attrs"]["available"] is False
-    assert events[0]["attrs"]["cache"] == "make_step_fn"
+    assert events[0]["attrs"]["cache"] == "kmeans._STEP_CACHE"
     spans = {r["id"]: r for r in tr.records() if r.get("kind") == "span"}
     assert spans[events[0]["parent"]]["name"] == "dispatch"
     # The builder ran under a 'trace' span naming it.
@@ -246,6 +267,7 @@ def test_capture_parity_fit_unchanged(family):
     _build.reset_launch_counts()
     plain = FAMILIES[family]().fit(X)
     before = dict(_build.LAUNCHES)
+    _clear_caches()
     with cost.collecting():
         captured = FAMILIES[family]().fit(X)
     assert _same(plain, captured)
@@ -260,7 +282,9 @@ def test_device_loop_record_is_one_iteration():
     with cost.collecting() as col:
         _kmeans(k=k, host_loop=False, max_iter=4, chunk_size=n).fit(
             _X(n, d))
-    loop = next(r for r in col.records() if r.cache == "make_fit_fn")
+    loop = next(r for r in col.records()
+                if r.cache == "kmeans._STEP_CACHE"
+                and r.key.startswith("('make_fit_fn',"))
     assert loop.region == "eager"
     assert loop.flops == 4.0 * n * d * k
     assert cost.take_request() is None      # nothing left pending
@@ -272,6 +296,7 @@ def test_a_failing_measurement_never_fails_the_fit(monkeypatch):
     monkeypatch.setattr(cost, "_flop_counter", boom)
     X = _X(640, 6, seed=5)
     plain = _kmeans(host_loop=True).fit(X)
+    _clear_caches()
     with cost.collecting() as col:
         m = _kmeans(host_loop=True).fit(X)
     assert _same(plain, m)
@@ -350,10 +375,13 @@ def test_program_memory_rows_from_the_records():
             eng.warmup()
             rows = eng.stats()["program_memory"]
         serving = [r for r in rows if r["cache"] != "serving.staging"]
-        assert serving and {r["cache"] for r in serving} <= set(
-            ServingEngine._SERVING_BUILDERS)
-        assert {"make_predict_fn", "make_gmm_predict_fn"} <= {
-            r["cache"] for r in serving}
+        # Records are named by the step cache that kept the program, their
+        # keys by its builder.
+        assert {r["cache"] for r in serving} == set(
+            ServingEngine._SERVING_CACHES)
+        builders = {r["key"].split("'")[1] for r in serving}
+        assert builders <= set(ServingEngine._SERVING_BUILDERS)
+        assert {"make_predict_fn", "make_gmm_predict_fn"} <= builders
         assert all(r["available"] is False and r["peak_bytes"] is None
                    for r in serving)
         assert all(set(r) == {"cache", "key", "role", "peak_bytes",

@@ -281,19 +281,22 @@ LATER = {"tied": dict(covariance_type="tied"),
          "ingest": dict(ingest="slab")}
 #: The arguments of LATER ported since: each now fits, and the model
 #: reports what ran (``ingest='slab'`` places the same bytes; one copy
-#: without a mesh).
+#: without a mesh; ``bucket`` pads with inert rows, ``overlap`` stages the
+#: upload on a producer thread).
 PORTED = {"tied": ("tied", True, "serial"), "full": ("full", True, "serial"),
           "host_loop": ("diag", False, "serial"),
           "pipeline": ("diag", True, "pipelined"),
-          "ingest": ("diag", True, "serial")}
+          "ingest": ("diag", True, "serial"),
+          "bucket": ("diag", True, "serial"),
+          "overlap": ("diag", True, "serial")}
 
 
 @pytest.mark.parametrize("kw", list(LATER.values()), ids=list(LATER))
 def test_arguments_not_ported_yet_raise(kw):
     """Each raises naming its ROADMAP item; ``mesh``, ported since, refuses
     what is not a DeviceMesh instead; 'tied', 'full', ``host_loop=False``,
-    ``pipeline=1`` and ``ingest='slab'``, ported since, fit a few rows and
-    report what ran."""
+    ``pipeline=1``, ``ingest='slab'``, ``bucket='auto'`` and ``overlap=1``,
+    ported since, fit a few rows and report what ran."""
     if "mesh" in kw:
         with pytest.raises(TypeError, match="DeviceMesh"):
             kmeans_tpu_torch.GaussianMixture(n_components=2, device="cpu",

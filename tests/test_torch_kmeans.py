@@ -254,7 +254,9 @@ PORTED_LATER = {("host_loop", False): ("device", "serial"),
                 ("ingest", "slab"): ("host", "serial"),
                 ("assign", "two_level"): ("host", "serial"),
                 ("coarse_cells", 8): ("host", "serial"),
-                ("nprobe", 2): ("host", "serial")}
+                ("nprobe", 2): ("host", "serial"),
+                ("bucket", "auto"): ("host", "serial"),
+                ("overlap", 1): ("host", "serial")}
 #: What a ported argument of the list needs beside it: ``init_cap`` sizes
 #: the k-means|| buffer (with another init it raises the JAX package's
 #: ValueError, tests/test_torch_kmeans_parallel.py).
@@ -278,9 +280,9 @@ def test_unported_arguments_raise(arg, value):
     """Every argument of the list raises, naming its ROADMAP item, except
     those that a later slice ported (``host_loop=False``, ``pipeline=1``,
     ``init_cap``, ``init='k-means||'``, the guarded rung, ``ingest``,
-    ``assign``, ``coarse_cells``, ``nprobe``): they now fit, and the model
-    reports what ran; ``mesh``, ``model_shards`` and ``k_shard`` raise
-    what a wrong value raises."""
+    ``assign``, ``coarse_cells``, ``nprobe``, ``bucket``, ``overlap``): they
+    now fit, and the model reports what ran; ``mesh``, ``model_shards`` and
+    ``k_shard`` raise what a wrong value raises."""
     X = _blobs(n=100, d=3, centers=3)
     if arg in PORTED_REFUSED:
         err, match = PORTED_REFUSED[arg]

@@ -58,7 +58,9 @@ MODULES = ["kmeans_tpu_torch", "kmeans_tpu_torch.convert",
            "kmeans_tpu_torch.serving.learn",
            "kmeans_tpu_torch.serving.registry",
            "kmeans_tpu_torch.suite", "kmeans_tpu_torch.sweep",
+           "kmeans_tpu_torch.utils.aot", "kmeans_tpu_torch.utils.cache",
            "kmeans_tpu_torch.utils.checkpoint",
+           "kmeans_tpu_torch.utils.debug",
            "kmeans_tpu_torch.utils.faults",
            "kmeans_tpu_torch.utils.logging",
            "kmeans_tpu_torch.utils.plotting",

@@ -128,12 +128,29 @@ def test_errors_are_the_references(kw):
 
 
 def test_device_shards_records_its_chunk_and_refuses_min_rows():
+    """The chunk it records; ``min_rows`` (ported since, the bucket's
+    padding) adds zero rows of weight 0 after the real ones, inert: a fit
+    on the padded rows is the fit on the real ones."""
     ds = psyn.device_shards(5000, D, device="cpu")
     assert (ds.chunk, ds.explicit_chunk) == (5000, False)
     ds = psyn.device_shards(5000, D, device="cpu", chunk_size=512)
     assert (ds.chunk, ds.explicit_chunk) == (512, True)
-    with pytest.raises(NotImplementedError, match="A.14"):
-        psyn.device_shards(5000, D, device="cpu", min_rows=8192)
+    pad = psyn.device_shards(5000, D, device="cpu", min_rows=8192)
+    assert pad.n == 5000 and pad.points.shape == (8192, D)
+    assert pad.chunk == 8192
+    torch.testing.assert_close(pad.points[:5000], ds.points, rtol=0, atol=0)
+    assert torch.all(pad.points[5000:] == 0)
+    assert pad.weights[:5000].sum() == 5000 and pad.weights[5000:].sum() == 0
+    init = ds.points[:6].numpy().copy()
+    kw = dict(k=6, init=init, max_iter=4, verbose=False, device="cpu",
+              compute_sse=True)
+    a = KMeans(**kw).fit(ds)
+    b = KMeans(**kw).fit(pad)
+    np.testing.assert_allclose(b.centroids, a.centroids, rtol=1e-5,
+                               atol=1e-6)
+    assert b.iterations_run == a.iterations_run
+    assert b.labels_.shape == (5000,)
+    np.testing.assert_array_equal(b.labels_, a.labels_)
 
 
 def test_a_fit_on_generated_rows():
