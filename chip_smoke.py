@@ -137,8 +137,9 @@ the run untraced (``spans``); and one captured step's collective bytes
 against ``obs.fleet.comm_bytes_model`` on one NCCL rank and on the two
 gloo ranks (``comm``, agreeing on ``data2``).  Their launches go into the
 kernel rows' ``observability_launches``.  The time to first iteration
-(``ttfi``) runs by both loops with ``overlap`` 0 and 1, with the library
-built and from an empty build directory (``nvcc`` inside the fit).
+(``ttfi``) runs in four fresh interpreters: by both loops with the library
+built, and by the host loop from an empty build directory (``nvcc``
+inside the fit) with ``overlap`` 0 and 1.
 
 Warm start and determinism: three fresh interpreters, each with an empty
 build directory (``KMEANS_TPU_TORCH_BUILD_DIR``): A fits the main data
@@ -155,6 +156,22 @@ captured by the device loop (``bucket``); ``check_determinism(runs=3)``
 for kernels 1 and 2 by both loops, 1b and 2b, 'matmul', ``diag_estep`` and
 the mini-batch, the two-level route printed (``determinism``).  Their
 launches go into the kernel rows' ``warm_start_launches``.
+
+The command line and the autopilot: the commands of ``python -m
+kmeans_tpu_torch`` called in this process through their ``main(argv)`` on
+the main data's ``.npy`` file: ``fit`` (bit-equal to the same ``KMeans``
+fit, equal launches), ``sweep`` (the selected k and member scores of
+``KMeans.sweep``), ``warm`` of a checkpoint (its ``.aot`` directory holds
+the library, ``ckpt-info`` reports it), a fresh interpreter's ``fit`` with
+``--aot-cache`` and ``nvcc`` hidden (every library ``via='aot-load'``,
+bit-equal), ``serve`` from a piped stdin (labels bit-equal to
+``predict``, kernel 2 or 2b once per dispatch), ``trace summarize``,
+``serve-status``, ``cost-report``, ``plan`` (the fit's own massive-k
+resolution) and ``report`` (``cli``); then ``autopilot --world 2`` over
+worker processes on the card with worker 1 killed after iteration 2, and
+once more under two injected launch failures: converged, each worker's
+centroids bit-equal to an uninterrupted fit (``autopilot``).  Their
+launches go into the kernel rows' ``cli_launches``.
 
 Every phase prints one JSON line as it ends.  A phase that fails raises, so
 the run ends with a non-zero code and without the result line.  The last line
@@ -850,13 +867,18 @@ PATH_KERNELS = {
     "fault_gmm_full": ("fused_assign_reduce",),
     "bucket": ("fused_assign_reduce", "hopper_assign"),
     "bucket_device": ("fused_assign_reduce", "hopper_assign"),
+    "cli_fit": ("fused_assign_reduce", "hopper_assign"),
+    "cli_sweep": ("fused_assign_reduce",),
+    "cli_warm": ("fused_assign_reduce",),
+    "cli_cost": ("fused_assign_reduce", "diag_estep"),
 }
 
 
-def check_path_launches(path: str) -> dict:
-    """Reads the counters just after a path: every kernel the path names
-    must have launched; kernels of other paths are not its business."""
-    launches = dict(hk.LAUNCHES)
+def check_path_launches(path: str, launches=None) -> dict:
+    """Reads the counters just after a path (or takes the ``launches``
+    read there): every kernel the path names must have launched; kernels
+    of other paths are not its business."""
+    launches = dict(hk.LAUNCHES) if launches is None else launches
     missing = [name for name in PATH_KERNELS[path]
                if launches.get(name, 0) <= 0]
     check(not missing, f"kernels of the {path} path never launched: "
@@ -5680,6 +5702,12 @@ def phase_suite():
 
 #: Iterations of the fits of phases ``ttfi`` and ``spans``.
 TTFI_ITERS = 2
+#: The fresh interpreters of phase ``ttfi``, (cold, loop, overlap): the
+#: library built, by both loops without overlap; then cold, by the host
+#: loop, with and without overlap (the device loop's cold and overlapped
+#: runs measured nothing more in their earlier runs).
+TTFI_RUNS = ((False, "host", 0), (False, "device", 0), (True, "host", 0),
+             (True, "host", 1))
 SPAN = dict(iters=3, dev_iters=4, every=2, kill=2, stream_iters=2)
 #: The phase ladder: CUDA-event reps per rung, and the two chain lengths
 #: whose difference is one pass.
@@ -5821,9 +5849,9 @@ def phase_ttfi():
     """The main fit in fresh interpreters, traced: the time-to-first-
     iteration table from its spans alone (``obs.time_to_first_iteration``),
     beside the process's wall time from before ``import torch`` to the end
-    of the first dispatch; by the host and the device loop, with
-    ``overlap`` 0 and 1, once finding the kernel library built and once
-    from an empty build directory (cold: ``nvcc`` inside the fit).  Every
+    of the first dispatch (:data:`TTFI_RUNS`: the library built, by both
+    loops, ``overlap`` 0; from an empty build directory, cold: ``nvcc``
+    inside the fit, by the host loop with ``overlap`` 0 and 1).  Every
     row >= 0; without overlap their sum at most that wall time; one library
     load per library (``via`` 'load' built, 'nvcc' cold), one ``compile``
     span per graph captured; with overlap the 1 GiB 'stage' runs on the
@@ -5834,26 +5862,21 @@ def phase_ttfi():
     walls = {}
     with tempfile.TemporaryDirectory() as tmp:
         data = _ttfi_data(Path(tmp) / "ttfi.npy")
-        for cold, loop, overlap in [(c, lp, o) for c in (False, True)
-                                    for lp in ("host", "device")
-                                    for o in (0, 1)]:
+        for cold, loop, overlap in TTFI_RUNS:
             res = _ttfi_run(data, loop, overlap,
                             Path(tmp) / f"build_{loop}_{overlap}"
                             if cold else None)
             _ttfi_check(res, loop, overlap, cold)
             walls[f"{loop}/overlap={overlap}/" +
                   ("cold" if cold else "built")] = res
-    for cold in ("built", "cold"):
-        for loop in ("host", "device"):
-            serial = walls[f"{loop}/overlap=0/{cold}"]
-            lapped = walls[f"{loop}/overlap=1/{cold}"]
-            load_ms = sum(lv["ms"] for lv in serial["library_loads"])
-            emit("ttfi_overlap", loop=loop, build=cold,
-                 wall_overlap0_s=serial["wall"],
-                 wall_overlap1_s=lapped["wall"],
-                 wall_drop_ms=(serial["wall"] - lapped["wall"]) * 1e3,
-                 stage_ms=serial["stage_ms"], library_load_ms=load_ms,
-                 smaller_of_the_two_ms=min(serial["stage_ms"], load_ms))
+    serial = walls["host/overlap=0/cold"]
+    lapped = walls["host/overlap=1/cold"]
+    load_ms = sum(lv["ms"] for lv in serial["library_loads"])
+    emit("ttfi_overlap", loop="host", build="cold",
+         wall_overlap0_s=serial["wall"], wall_overlap1_s=lapped["wall"],
+         wall_drop_ms=(serial["wall"] - lapped["wall"]) * 1e3,
+         stage_ms=serial["stage_ms"], library_load_ms=load_ms,
+         smaller_of_the_two_ms=min(serial["stage_ms"], load_ms))
 
 
 #: The checkpointed fit of phase ``warm_start``: iterations in all, the
@@ -5931,12 +5954,12 @@ print(json.dumps(out))
 """
 
 
-def _warm_child(cfg: dict, *, hide_nvcc: bool, build_dir: Path) -> dict:
-    """Run :data:`WARM_CHILD` with its own empty build directory; with
-    ``hide_nvcc`` no ``nvcc`` on its ``PATH`` and ``CUDA_HOME`` /
-    ``CUDA_PATH`` pointing nowhere (``find_nvcc`` is also replaced)."""
+def _child_env(build_dir: Path, hide_nvcc: bool) -> dict:
+    """The environment of a fresh interpreter with its own build directory
+    and no store knob; with ``hide_nvcc`` no ``nvcc`` on its ``PATH`` and
+    ``CUDA_HOME`` / ``CUDA_PATH`` pointing nowhere (the child also replaces
+    ``find_nvcc``, which looks under ``/usr/local/cuda`` too)."""
     import os
-    root = str(Path(__file__).resolve().parent)
     env = {k: v for k, v in os.environ.items()
            if k not in ("KMEANS_TPU_TORCH_AOT_CACHE", "CUDA_HOME",
                         "CUDA_PATH")}
@@ -5946,6 +5969,14 @@ def _warm_child(cfg: dict, *, hide_nvcc: bool, build_dir: Path) -> dict:
             p for p in env.get("PATH", "").split(os.pathsep)
             if p and not (Path(p) / "nvcc").exists())
         env["CUDA_HOME"] = env["CUDA_PATH"] = str(build_dir / "no-cuda")
+    return env
+
+
+def _warm_child(cfg: dict, *, hide_nvcc: bool, build_dir: Path) -> dict:
+    """Run :data:`WARM_CHILD` with its own empty build directory
+    (:func:`_child_env`)."""
+    root = str(Path(__file__).resolve().parent)
+    env = _child_env(build_dir, hide_nvcc)
     cfg = dict(cfg, hide_nvcc=hide_nvcc, n=MAIN["n"], d=MAIN["d"],
                k=MAIN["k"], iters=WARM["iters"], every=WARM["every"],
                kill=WARM["kill"], device=str(DEV))
@@ -6595,6 +6626,412 @@ def phase_spans(x, stream_path, c0, tmp):
     return counts
 
 
+#: The ``cli`` phase: the fit's iterations (the main path's), the sweep's
+#: k values (phase ``sweep``'s), the fresh interpreter's iterations, the
+#: request sizes of ``serve`` (the engine's buckets) and the shapes ``plan``
+#: resolves.
+CLI = dict(iters=5, fresh_iters=2, sweep_ks=(256, 512, 1024),
+           plan_ks=(1024, 16_384))
+#: The ``autopilot`` phase's worker spec (with the main data file and the
+#: card added): the reference's chaos run at the main shape, float32 (the
+#: card's kernel 1 is deterministic and resumes bit-exact).
+AUTOPILOT = dict(k=1024, max_iter=6, tolerance=1e-30, seed=42,
+                 dtype="float32", checkpoint_every=2, compute_sse=True,
+                 devices_per_host=1, empty_cluster="keep", device="cuda")
+AUTOPILOT_KILL = dict(process_index=1, after_iteration=2, tear="none")
+AUTOPILOT_MAX_RUN_S = 300
+
+#: A fresh interpreter that runs ``python -m kmeans_tpu_torch`` (argv after
+#: the repo root and a trace path) through ``runpy``, as ``-m`` does, under
+#: a tracer and with ``_build.find_nvcc`` replaced by one that counts and
+#: raises; prints one JSON line with the library loads.
+CLI_CHILD = r"""
+import json, runpy, sys
+root, trace_path, argv = sys.argv[1], sys.argv[2], sys.argv[3:]
+sys.path.insert(0, root)
+from kmeans_tpu_torch import obs
+from kmeans_tpu_torch.ops import _build
+find_calls = []
+def hidden():
+    find_calls.append(1)
+    raise _build.KernelCompileError("nvcc is hidden in this process")
+_build.find_nvcc = hidden
+sys.argv = ["kmeans_tpu_torch"] + argv
+code = None
+with obs.tracing(trace_path) as tr:
+    try:
+        runpy.run_module("kmeans_tpu_torch", run_name="__main__")
+    except SystemExit as e:
+        code = e.code
+spans = [r for r in tr.records() if r.get("kind") == "span"]
+print(json.dumps({
+    "exit": code, "nvcc_runs": _build.NVCC_RUNS,
+    "find_nvcc_calls": len(find_calls),
+    "library_loads": [{"source": r["attrs"]["source"],
+                       "via": r["attrs"]["via"], "ms": r["dur"] * 1e3}
+                      for r in spans if r["name"] == "compile"
+                      and "source" in r.get("attrs", {})]}))
+"""
+
+
+def _run_cli(fn, argv, stdin=None):
+    """``fn(argv)`` of ``kmeans_tpu_torch.cli`` in this process, the
+    launch counters at 0 just before it: ``(exit code, stdout, stderr,
+    launches, seconds)``; ``stdin`` (text) is the command's standard
+    input."""
+    import contextlib
+    import io
+    out, err = io.StringIO(), io.StringIO()
+    saved = sys.stdin
+    if stdin is not None:
+        sys.stdin = io.StringIO(stdin)
+    hk.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            code = fn(argv)
+    finally:
+        sys.stdin = saved
+    torch.cuda.synchronize()
+    return (code, out.getvalue(), err.getvalue(), dict(hk.LAUNCHES),
+            time.perf_counter() - t0)
+
+
+def _last_json(text: str):
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def _cli_serve(ckpt: Path, host, quality_dir=None, quantize=None):
+    """``serve --json`` of one checkpoint: requests at every bucket size
+    from stdin, then a stats line.  Returns ``(replies, final stats,
+    warm-up dispatches, launches, dispatch log, seconds)``."""
+    from kmeans_tpu_torch import cli
+    from kmeans_tpu_torch.utils.profiling import log_dispatches
+    lines = [json.dumps({"x": host[:m].tolist(), "id": m})
+             for m in SERVE_BUCKETS] + [json.dumps({"stats": True})]
+    argv = ["--model", str(ckpt), "--json"]
+    if quality_dir is not None:
+        argv += ["--quality-dir", str(quality_dir)]
+    if quantize is not None:
+        argv += ["--quantize", quantize]
+    with log_dispatches() as log:
+        code, out, err, launches, secs = _run_cli(
+            cli.serve_main, argv, stdin="\n".join(lines) + "\n")
+    check(code == 0, f"cli serve {argv}: exit {code}: {err[-2000:]}")
+    replies = [json.loads(line) for line in out.strip().splitlines()]
+    warmed = int(re.search(r"warmed (\d+) bucket", err).group(1))
+    return replies[:-2], replies[-1], warmed, launches, list(log), secs
+
+
+def phase_cli(x, km_bf16, npy: Path, tmp: Path):
+    """The commands of ``python -m kmeans_tpu_torch`` on the card, each
+    called in this process through its ``main(argv)`` with the launch
+    counters at 0 just before it and read just after it:
+
+    * ``fit`` on the main data file (k = 1024, ``CLI['iters']``
+      iterations, seed 42) under a tracer: ``centroids.npy`` bit-equal to
+      the same ``KMeans`` fit called directly (and its inertia pass), with
+      equal kernel launches;
+    * ``sweep --k-range 256,512,1024 --json``: the selected k and every
+      member's score equal to ``KMeans.sweep``'s;
+    * ``warm <ckpt> --json`` with the libraries already built: the
+      checkpoint's ``.aot`` directory holds ``assign_kernels``, and
+      ``ckpt-info --json`` reports it; then one fresh interpreter runs
+      ``python -m kmeans_tpu_torch fit ... --aot-cache <that store>`` with
+      an empty build directory and ``nvcc`` hidden: no ``nvcc``, every
+      library load ``via='aot-load'``, bit-equal to the same
+      ``CLI['fresh_iters']``-iteration fit in this process;
+    * ``serve`` (stdin: 8, 64, 512 and 4096 rows, then stats) with
+      ``--quality-dir``: labels bit-equal to ``predict``, kernel 2 once
+      per dispatch (warm-up dispatches included); the main bf16 fit: 2b
+      once per dispatch; the same with ``--quantize bf16`` (the guarded
+      route): 2b once per dispatch whose guard flagged rows;
+    * ``trace summarize --json`` of the ``fit``'s trace: its
+      time-to-first-iteration table equals
+      ``obs.report.time_to_first_iteration`` of the same records;
+    * ``serve-status`` of the quality directory: exit code and report
+      equal to ``obs.drift.quality_report``;
+    * ``cost-report --families kmeans,gmm --json``: every row available;
+    * ``plan --json`` at the main shape, k = 1024 and 16,384: the
+      resolution equals the fit's own ``_resolve_large_k``;
+    * ``report``: two SVG files that parse.
+
+    Returns the launches by path."""
+    import xml.dom.minidom
+
+    from kmeans_tpu_torch import cli, obs
+    from kmeans_tpu_torch.obs import drift
+    from kmeans_tpu_torch.obs.report import time_to_first_iteration
+    from kmeans_tpu_torch.utils import aot
+    from kmeans_tpu_torch.utils.diagram import main as report_main
+    from kmeans_tpu_torch.utils.profiling import sanitize_json
+    t_phase = time.perf_counter()
+    counts = {}
+    host = np.load(npy)
+    k, iters = MAIN["k"], CLI["iters"]
+
+    # fit: the command against the estimator it builds.
+    trace = tmp / "cli_fit.jsonl"
+    with obs.tracing(trace):
+        code, out, err, counts["cli_fit"], fit_s = _run_cli(
+            cli.main, [str(npy), "--k", str(k), "--max-iter", str(iters),
+                       "--seed", "42", "--quiet",
+                       "--out-dir", str(tmp / "fit")])
+    check(code == 0, f"cli fit: exit {code}: {err[-2000:]}")
+    summary = json.loads((tmp / "fit" / "summary.json").read_text())
+
+    def direct():
+        m = KMeans(k=k, max_iter=iters, seed=42, init="forgy",
+                   verbose=False, device=DEV).fit(host)
+        return m, (m.inertia_ if m.inertia_ is not None
+                   else -m.score(host))
+    (ref, inertia), direct_s, direct_l = counted(direct)
+    cents = np.load(tmp / "fit" / "centroids.npy")
+    check(np.array_equal(cents, ref.centroids)
+          and np.array_equal(np.load(tmp / "fit" / "labels.npy"),
+                             ref.labels_)
+          and summary["iterations"] == ref.iterations_run
+          and summary["inertia"] == float(inertia),
+          "cli fit: centroids, labels or summary differ from the direct "
+          "KMeans fit")
+    same = {n: c for n, c in counts["cli_fit"].items() if c} == \
+        {n: c for n, c in direct_l.items() if c}
+    check(same, f"cli fit: launches {counts['cli_fit']} against the "
+                f"direct fit's {direct_l}")
+    check_path_launches("cli_fit", counts["cli_fit"])
+    ckpt_path = tmp / "main.npz"
+    ref.save(ckpt_path)
+    emit("cli_fit", seconds=fit_s, direct_seconds=direct_s,
+         iterations=ref.iterations_run, centroids_bit_equal=True,
+         launches=counts["cli_fit"], direct_launches=direct_l)
+
+    # sweep: the command against KMeans.sweep.
+    ks = ",".join(str(v) for v in CLI["sweep_ks"])
+    code, out, err, counts["cli_sweep"], sweep_s = _run_cli(
+        cli.sweep_main, [str(npy), "--k-range", ks, "--json",
+                         "--max-iter", str(iters), "--seed", "42",
+                         "--out-dir", str(tmp / "sweep")])
+    check(code == 0, f"cli sweep: exit {code}: {err[-2000:]}")
+    got = _last_json(out)
+    res = KMeans(k=CLI["sweep_ks"][-1], max_iter=iters, seed=42,
+                 init="forgy", verbose=False, device=DEV).sweep(
+        host, k_range=CLI["sweep_ks"], criterion="inertia", batched=True)
+    want = res.summary()
+    check(got["selected_k"] == want["selected_k"]
+          and got["member_scores"] == want["member_scores"]
+          and got["scores"] == want["scores"],
+          f"cli sweep: {got['selected_k']} {got['member_scores']} against "
+          f"{want['selected_k']} {want['member_scores']}")
+    check_path_launches("cli_sweep", counts["cli_sweep"])
+    emit("cli_sweep", seconds=sweep_s, selected_k=got["selected_k"],
+         scores=got["scores"], dispatches=got["dispatches"],
+         launches=counts["cli_sweep"])
+
+    # warm, ckpt-info, and a fresh interpreter loading what warm stored.
+    store = tmp / "store"
+    code, out, err, counts["cli_warm"], warm_s = _run_cli(
+        cli.warm_main, [str(ckpt_path), "--json", "--aot-dir", str(store)])
+    check(code == 0, f"cli warm: exit {code}: {err[-2000:]}")
+    warm = _last_json(out)
+    shipped = aot.describe_dir(aot.aot_dir_for(ckpt_path))
+    libs = [lib["library"] for lib in shipped["libraries"]]
+    check(hk.LIB_NAMES[False] in libs and warm["available"]
+          and warm["mirror"] is not None,
+          f"cli warm: shipped {shipped}, stats {warm}")
+    code, out, err, _, _ = _run_cli(cli.ckpt_info_main,
+                                    [str(ckpt_path), "--json"])
+    info = json.loads(out)
+    check(code == 0 and info["aot"]["exists"]
+          and info["aot"]["artifacts"] == shipped["artifacts"] >= 1
+          and info["jax_version"] is None and info["k"] == k,
+          f"cli ckpt-info: exit {code}, {info.get('aot')}")
+    check_path_launches("cli_warm", counts["cli_warm"])
+    build_dir = tmp / "fresh_build"
+    trace_child = tmp / "fresh.jsonl"
+    fresh_out = tmp / "fresh"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", CLI_CHILD,
+         str(Path(__file__).resolve().parent), str(trace_child), "fit",
+         str(npy), "--k", str(k), "--max-iter", str(CLI["fresh_iters"]),
+         "--seed", "42", "--quiet", "--aot-cache", str(store),
+         "--out-dir", str(fresh_out)],
+        capture_output=True, text=True, timeout=600,
+        env=_child_env(build_dir, hide_nvcc=True))
+    fresh_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"cli fresh fit: exit {proc.returncode}: "
+                                f"{proc.stderr[-3000:]}")
+    child = _last_json(proc.stdout)
+    vias = {lv["via"] for lv in child["library_loads"]}
+    check(child["exit"] in (0, None) and child["nvcc_runs"] == 0
+          and child["find_nvcc_calls"] == 0 and vias == {"aot-load"},
+          f"cli fresh fit: {child}")
+    fresh_ref = KMeans(k=k, max_iter=CLI["fresh_iters"], seed=42,
+                       init="forgy", verbose=False, device=DEV).fit(host)
+    check(np.array_equal(np.load(fresh_out / "centroids.npy"),
+                         fresh_ref.centroids),
+          "cli fresh fit: centroids differ from the in-process fit")
+    emit("cli_warm", seconds=warm_s, stats=warm, shipped=shipped,
+         launches=counts["cli_warm"], fresh_process_seconds=fresh_s,
+         fresh_library_loads=child["library_loads"],
+         fresh_nvcc_runs=child["nvcc_runs"], fresh_bit_equal=True)
+
+    # serve: labels, launches per dispatch, the quality sinks.
+    qdir = tmp / "quality"
+    served = {}
+    for label, path, model, quantize, kernel in (
+            ("cli_serve", ckpt_path, ref, None, "hopper_assign"),
+            ("cli_serve_bf16", tmp / "main_bf16.npz", km_bf16, None,
+             "hopper_assign_bf16"),
+            ("cli_serve_quantized", tmp / "main_bf16.npz", km_bf16,
+             "bf16", "hopper_assign_bf16")):
+        if not path.exists():
+            model.save(path)
+        replies, stats, warmed, launches, log, secs = _cli_serve(
+            path, host, qdir if label == "cli_serve" else None, quantize)
+        for m, reply in zip(SERVE_BUCKETS, replies):
+            check(reply.get("id") == m and np.array_equal(
+                np.asarray(reply["result"]), model.predict(host[:m])),
+                f"{label}: the labels of {m} rows differ from predict")
+        dispatches = warmed + stats["dispatches"]
+        launched = launches.get(kernel, 0)
+        want_l = log.count("bf16-guard-fix") if quantize else dispatches
+        check(launched == want_l and stats["dispatches"]
+              == len(SERVE_BUCKETS),
+              f"{label}: {kernel} launched {launched} times for "
+              f"{dispatches} dispatches ({want_l} expected)")
+        counts[label] = launches
+        served[label] = {"seconds": secs, "dispatches": dispatches,
+                         "warm_dispatches": warmed,
+                         "kernel_launches": launched,
+                         "guard_fix_dispatches":
+                             log.count("bf16-guard-fix")}
+    emit("cli_serve", **served, labels_bit_equal=True)
+
+    # trace summarize, serve-status, cost-report, plan, report.
+    code, out, err, _, _ = _run_cli(cli.trace_main,
+                                    ["summarize", str(trace), "--json"])
+    got = json.loads(out)
+    want = json.loads(json.dumps(sanitize_json(
+        time_to_first_iteration(obs.read_jsonl(trace)))))
+    check(code == 0 and got["time_to_first_iteration"] == want,
+          f"cli trace: exit {code}; {got.get('time_to_first_iteration')} "
+          f"against {want}")
+    code, out, err, _, _ = _run_cli(cli.serve_status_main,
+                                    [str(qdir), "--json"])
+    report = drift.quality_report([str(qdir)])
+    check(json.loads(out) == json.loads(json.dumps(report))
+          and code == (0 if report["healthy"] else 1),
+          f"cli serve-status: exit {code}: {out[-2000:]}")
+    code, out, err, counts["cli_cost"], cost_s = _run_cli(
+        cli.cost_report_main, ["--families", "kmeans,gmm", "--json"])
+    cost = json.loads(out)
+    check(code == 0 and all(r["available"] for r in cost["rows"]),
+          f"cli cost-report: exit {code}: {out[-2000:]}")
+    check_path_launches("cli_cost", counts["cli_cost"])
+    plans = {}
+    for kk in CLI["plan_ks"]:
+        code, out, err, _, _ = _run_cli(
+            cli.plan_main, ["--n", str(MAIN["n"]), "--d", str(MAIN["d"]),
+                            "--k", str(kk), "--json"])
+        res = json.loads(out)["resolution"]
+        m = KMeans(k=kk, max_iter=1, seed=42, verbose=False, device=DEV)
+        ds = m.cache(x)
+        fit_rule = m._resolve_large_k(ds, 1, 1, m._chunk_for(ds))
+        check(code == 0 and (res["k_shard"], res["assign"]) == fit_rule,
+              f"cli plan k={kk}: {res} against the fit's {fit_rule}")
+        plans[str(kk)] = {"k_shard": res["k_shard"],
+                          "assign": res["assign"],
+                          "auto_rule": res["auto_rule"],
+                          "dense_predicted_peak_bytes":
+                              res["dense_predicted_peak_bytes"]}
+        del ds, m
+    code, out, err, _, _ = _run_cli(report_main,
+                                    ["--out-dir", str(tmp / "report")])
+    svgs = sorted(p.name for p in (tmp / "report").glob("*.svg"))
+    for name in svgs:
+        xml.dom.minidom.parse(str(tmp / "report" / name))
+    check(code == 0 and svgs == ["architecture_diagram.svg",
+                                 "kmeans_tpu_report.svg"],
+          f"cli report: exit {code}, {svgs}")
+    emit("cli", seconds=time.perf_counter() - t_phase,
+         cost_report_seconds=cost_s,
+         cost_rows=[{k2: r.get(k2) for k2 in ("family", "mode", "ratio",
+                                              "agree", "available")}
+                    for r in cost["rows"]],
+         plan=plans, report=svgs)
+    return counts
+
+
+def phase_autopilot(npy: Path, tmp: Path):
+    """``python -m kmeans_tpu_torch autopilot --world 2 --json`` over a
+    spec of the main data file (:data:`AUTOPILOT`, ``"device": "cuda"``),
+    worker 1 killed after iteration 2: it converges (exit 0), the decision
+    log holds the relaunch, ``fleet-status`` of the run's heartbeat files
+    exits 0,
+    and each worker's ``centroids.p<i>.npy`` is bit-equal to an
+    uninterrupted fit of the spec in this process.  Then once more, one
+    worker, under ``faults.inject_launch_failures(2)`` in this supervisor:
+    two backoff decisions, then convergence.  The workers are processes of
+    their own (their launches are theirs); returns this process's launches
+    of the uninterrupted fit."""
+    from kmeans_tpu_torch import cli
+    from kmeans_tpu_torch.orchestrator.worker import build_model
+    t_phase = time.perf_counter()
+    spec = dict(AUTOPILOT, data_npy=str(npy))
+    runs = {}
+    for name, world, faults_spec, flakes in (
+            ("kill", 2, {"kill": AUTOPILOT_KILL}, 0),
+            ("flake", 1, {}, 2)):
+        spec_path = tmp / f"spec_{name}.json"
+        spec_path.write_text(json.dumps(dict(spec, faults=faults_spec)))
+        run = tmp / f"run_{name}"
+        argv = ["--spec", str(spec_path), "--out", str(run), "--world",
+                str(world), "--json", "--max-run-s",
+                str(AUTOPILOT_MAX_RUN_S)]
+        with faults.inject_launch_failures(flakes) as rec:
+            code, out, err, _, secs = _run_cli(cli.autopilot_main, argv)
+        check(code == 0, f"autopilot {name}: exit {code}: {err[-3000:]}")
+        res = _last_json(out)
+        acts = [d["action"] for d in res["decisions"]]
+        runs[name] = dict(seconds=secs, decisions=acts, run=run,
+                          world=world, flakes=rec["fired"],
+                          results=res["results"])
+        check(res["outcome"] == "converged" and res["centroids_agree"]
+              and res["final_world"] == world,
+              f"autopilot {name}: {res['outcome']}, {acts}")
+    relaunch = [a for a in runs["kill"]["decisions"] if a == "relaunch"]
+    check(len(relaunch) == 1 and
+          (runs["kill"]["run"] / "fault.kill.p1.latch").exists(),
+          f"autopilot kill: decisions {runs['kill']['decisions']}")
+    backoffs = runs["flake"]["decisions"].count("launch-backoff")
+    check(backoffs == 2 and runs["flake"]["flakes"] == 2,
+          f"autopilot flake: decisions {runs['flake']['decisions']}")
+    # The run directory's heartbeat files: the directory also holds the
+    # decision log, which fleet-status reads as a malformed heartbeat
+    # stream and exits 2 on, as the reference's does.
+    code, out, err, _, _ = _run_cli(
+        cli.fleet_status_main, [str(runs["kill"]["run"] / "hb.p*.jsonl")])
+    check(code == 0, f"autopilot fleet-status: exit {code}: {out[-3000:]}")
+    (ref, _, launches) = counted(
+        lambda: build_model(spec).fit(np.load(npy)))
+    for name, r in runs.items():
+        for i in range(r["world"]):
+            got = np.load(r["run"] / f"centroids.p{i}.npy")
+            check(got.dtype == np.float32
+                  and np.array_equal(got, ref.centroids),
+                  f"autopilot {name}: worker {i}'s centroids differ from "
+                  f"the uninterrupted fit")
+    emit("autopilot", seconds=time.perf_counter() - t_phase,
+         **{name: {k2: v for k2, v in r.items() if k2 != "run"}
+            for name, r in runs.items()},
+         fleet_status=out.strip().splitlines()[:8],
+         centroids_bit_equal=True, oracle_launches=launches)
+    return {"autopilot_oracle": launches}
+
+
 def comm_line(rec, data_shards: int, k: int, d: int,
               model_shards: int = 1, rows: int = 0) -> dict:
     """A captured step's collective bytes against the port's bill
@@ -6795,6 +7232,13 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as span_tmp:
         obs_counts.update(phase_spans(x_main, stream_ref[0], c0,
                                       Path(span_tmp)))
+    # The commands of python -m kmeans_tpu_torch, and the autopilot over
+    # worker processes, on the main data's file (each path's counters
+    # zeroed just before it and read just after it).
+    with tempfile.TemporaryDirectory() as cli_tmp:
+        cli_counts = phase_cli(x_main, km_bf16, stream_ref[0],
+                               Path(cli_tmp))
+        cli_counts.update(phase_autopilot(stream_ref[0], Path(cli_tmp)))
 
     # The mesh: two gloo ranks sharing the card (K-Means on a data and a
     # model axis, process-local k-means++, the mixture on a data axis), one
@@ -6854,6 +7298,9 @@ def main() -> None:
             if c.get(row["name"], 0) > 0}
         row["warm_start_launches"] = {
             path: c[row["name"]] for path, c in warm_counts.items()
+            if c.get(row["name"], 0) > 0}
+        row["cli_launches"] = {
+            path: c[row["name"]] for path, c in cli_counts.items()
             if c.get(row["name"], 0) > 0}
         if row["name"] in bucket_times:
             row["bucket_shapes"] = bucket_times[row["name"]]

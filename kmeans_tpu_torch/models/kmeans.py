@@ -185,6 +185,16 @@ def _check_later_args(later: dict) -> None:
             raise _later(name, value, item)
 
 
+def resolve_distance_mode(distance_mode: str, device, dtype) -> str:
+    """``distance_mode`` with 'auto' resolved (``KMeans._mode``): the
+    kernel on a CUDA device in float32; the torch pass on the CPU, and in
+    float64."""
+    if distance_mode != "auto":
+        return distance_mode
+    return "kernel" if torch.device(device).type == "cuda" and \
+        np.dtype(dtype) == np.dtype(np.float32) else "matmul"
+
+
 def resolve_device(device) -> torch.device:
     """``None`` is the card: ``cuda``, and an error where there is none.
     Only an explicit ``device='cpu'`` runs on the CPU."""
@@ -531,10 +541,8 @@ class KMeans(AutoCheckpointMixin):
         device at every shape in float32; the torch pass on the CPU, and in
         float64, whose user asked for float64 arithmetic (the JAX package's
         ``resolve_auto`` rule for x64 data)."""
-        if self.distance_mode != "auto":
-            return self.distance_mode
-        return "kernel" if self.device.type == "cuda" and \
-            self.dtype == np.dtype(np.float32) else "matmul"
+        return resolve_distance_mode(self.distance_mode, self.device,
+                                     self.dtype)
 
     def _large_k_mode(self) -> str:
         """The distance mode of a large-k step (k-sharded or two-level):
@@ -1201,10 +1209,11 @@ class KMeans(AutoCheckpointMixin):
                          model_shards: int, chunk: int):
         """``(k_shard, assign)`` for this fit, the JAX package's rule: an
         explicit value is checked and kept; 'auto' compares what the dense
-        fit has still to allocate by ``obs.memory.plan_fit`` (its temporary
-        bytes and the table, and the rows unless they are on the device
-        already) with 80 % of the card's free bytes (``device_memory_info``,
-        which counts the allocator's idle cache as free) and keeps the
+        fit has still to allocate (``obs.memory.dense_room``, which the
+        ``plan`` and ``ckpt-info`` commands ask too: its temporary bytes
+        and the table, and the rows unless they are on the device already)
+        with 80 % of the card's free bytes (``device_memory_info``, which
+        counts the allocator's idle cache as free) and keeps the
         dense step when it fits, else shards the table under a model axis
         or takes 'two_level' without one.  A device that reports no free bytes (the
         CPU) keeps the dense step.  Under a mesh the ranks agree on the
@@ -1212,31 +1221,19 @@ class KMeans(AutoCheckpointMixin):
         ks, asg = self.k_shard, self.assign
         if ks == "auto" or asg == "auto":
             from kmeans_tpu_torch.obs import memory as _mem
-            info = _mem.device_memory_info(self.device)
-            fits = True
-            if info.get("available"):
-                mode = self._mode()
-                plan = _mem.plan_fit(
-                    "kmeans", ds.n, ds.d, self.k, data_shards=data_shards,
-                    model_shards=model_shards, dtype=self.dtype.name,
-                    chunk=chunk, pipeline=self._resolve_pipeline(mode),
-                    k_shard=0, mode=mode, device=self.device)
-                # Only what the fit has still to allocate: the free bytes
-                # already leave out the rows placed on this device.
-                comp = plan["components"]
-                need = plan["predicted_temp_bytes"] + comp["table_bytes"]
-                if ds.points.device.type != torch.device(self.device).type:
-                    need += comp["points_bytes"] + comp["weights_bytes"]
-                fits = need <= 0.8 * info["bytes_free"]
+            mode = self._mode()
+            fits = _mem.dense_room(
+                ds.n, ds.d, self.k, data_shards=data_shards,
+                model_shards=model_shards, dtype=self.dtype.name,
+                chunk=chunk, pipeline=self._resolve_pipeline(mode),
+                mode=mode, device=self.device,
+                rows_placed=ds.points.device.type
+                == torch.device(self.device).type)["fits"]
             if ds.mesh is not None:
                 fits = bool(all_reduce(torch.tensor(
                     [int(fits)], device=self.device), ds.mesh,
                     op="min")[0])
-            if ks == "auto":
-                ks = 0 if (fits or model_shards <= 1) else model_shards
-            if asg == "auto":
-                asg = "dense" if (fits or model_shards > 1) \
-                    else "two_level"
+            ks, asg = _mem.auto_route(ks, asg, fits, model_shards)
         ks = int(ks)
         if ks:
             if model_shards <= 1:

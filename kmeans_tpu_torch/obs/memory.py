@@ -62,8 +62,9 @@ from kmeans_tpu_torch.obs import trace as _trace
 from kmeans_tpu_torch.obs.metrics_registry import REGISTRY
 
 __all__ = ["plan_fit", "plan_ingest", "device_memory_info",
-           "advise_dispatch", "format_plan_table", "FAMILIES",
-           "INGEST_SLAB_TARGET_BYTES"]
+           "dense_room", "auto_route", "advise_dispatch",
+           "format_plan_table", "FAMILIES", "INGEST_SLAB_TARGET_BYTES",
+           "DENSE_FREE_SHARE"]
 
 #: The families the planner models (the reference's five).
 FAMILIES = ("kmeans", "spherical", "bisecting", "minibatch", "gmm")
@@ -334,6 +335,54 @@ def device_memory_info(device=None) -> dict:
     free = int(free + max(idle, 0))
     return {"available": True, "bytes_limit": int(total),
             "bytes_in_use": int(total - free), "bytes_free": free}
+
+
+#: The share of the free bytes that the dense step may plan to allocate
+#: before the massive-k 'auto' rule leaves it (the reference's 80 %).
+DENSE_FREE_SHARE = 0.8
+
+
+def dense_room(n: int, d: int, k: int, *, data_shards: int = 1,
+               model_shards: int = 1, dtype="float32",
+               chunk: Optional[int] = None, pipeline: int = 0,
+               mode: str = "matmul", device=None,
+               rows_placed: bool = False) -> dict:
+    """The question the massive-k 'auto' rule asks, for ``KMeans``' fit
+    (``models/kmeans.py::KMeans._resolve_large_k``) and for the ``plan``
+    and ``ckpt-info`` commands alike: does what the dense step has still
+    to allocate fit in :data:`DENSE_FREE_SHARE` of the free bytes of
+    ``device`` (:func:`device_memory_info`, which counts the allocator's
+    idle cache as free)?  What is still to allocate is the dense plan's
+    temporary bytes and its table, and its rows and weights unless
+    ``rows_placed`` (a fit's rows are on the device already, so the free
+    bytes leave them out).  A device that reports no free bytes (the CPU)
+    keeps the dense step.  Returns ``{"fits", "plan", "need_bytes",
+    "device_memory"}``, ``plan`` the dense :func:`plan_fit` row in
+    ``mode``."""
+    info = device_memory_info(device)
+    plan = plan_fit("kmeans", n, d, k, data_shards=data_shards,
+                    model_shards=model_shards, dtype=dtype, chunk=chunk,
+                    pipeline=pipeline, k_shard=0, mode=mode, device=device)
+    comp = plan["components"]
+    need = plan["predicted_temp_bytes"] + comp["table_bytes"]
+    if not rows_placed:
+        need += comp["points_bytes"] + comp["weights_bytes"]
+    fits = (not info.get("available")
+            or need <= DENSE_FREE_SHARE * info["bytes_free"])
+    return {"fits": bool(fits), "plan": plan, "need_bytes": int(need),
+            "device_memory": info}
+
+
+def auto_route(k_shard, assign, fits: bool, model_shards: int):
+    """``(k_shard, assign)`` with each 'auto' knob resolved by the answer
+    of :func:`dense_room`: the dense step where it fits; else the table
+    sharded over the model axis, or 'two_level' without one.  An explicit
+    value is kept."""
+    if k_shard == "auto":
+        k_shard = 0 if (fits or model_shards <= 1) else model_shards
+    if assign == "auto":
+        assign = "dense" if (fits or model_shards > 1) else "two_level"
+    return k_shard, assign
 
 
 #: family -> the builders whose programs carry that family's footprint

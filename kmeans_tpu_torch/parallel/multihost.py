@@ -88,6 +88,27 @@ def initialize(init_method: Optional[str] = None,
     tdist.init_process_group(**kwargs)
 
 
+def simulated_world_env(process_index: int, process_count: int,
+                        host: Optional[str] = None) -> dict:
+    """The environment that makes a plain subprocess one member of a
+    simulated fleet, the reference's: the ``KMEANS_TPU_PROCESS_INDEX`` /
+    ``_COUNT`` / ``_HOST`` overrides that ``obs.identity`` reads before it
+    asks ``torch.distributed``, so per-process heartbeat and trace sinks
+    take their suffix and host-targeted fault injection
+    (``faults.inject_host_kill``) finds its victim, with no process group.
+    The autopilot's launcher uses it on one machine; on a cluster it gives
+    the worker an ``init_method`` instead (``orchestrator.worker``)."""
+    if not 0 <= process_index < process_count:
+        raise ValueError(
+            f"process_index {process_index} outside world of "
+            f"{process_count}")
+    return {
+        "KMEANS_TPU_PROCESS_INDEX": str(process_index),
+        "KMEANS_TPU_PROCESS_COUNT": str(process_count),
+        "KMEANS_TPU_HOST": host or f"sim{process_index}",
+    }
+
+
 def is_primary() -> bool:
     """True on the process that owns logging and file writes (rank 0 of
     the world; the only process without a group)."""

@@ -8,9 +8,9 @@ checkpoint write and :func:`on_segment_dispatch` before each device-loop
 segment; the serve-and-learn learner (``serving.learn``) calls
 :func:`on_update_step` and :func:`on_update_eval`, and a fleet replica's
 ``dispatch_guard`` calls the hook :func:`inject_replica_kill` arms
-(``serving.fleet._Replica.fault_hook``).  The launch hook has no caller
-in this package yet (the orchestrator's launcher: ROADMAP A.14); it is
-kept as a registry.
+(``serving.fleet._Replica.fault_hook``), and the orchestrator's launcher
+(``orchestrator.launcher.launch_worker``) calls :func:`on_launch` before
+every worker spawn.
 
 Every recovery claim in this repo is *proved* by re-running the real code
 path under an injected, seeded failure — never by mocking the code under

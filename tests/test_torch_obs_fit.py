@@ -129,9 +129,16 @@ def test_obs_off_parity_device_loop_and_stream(tmp_path):
 
 
 def test_traced_fit_span_names_are_the_references():
+    import kmeans_tpu.models.kmeans as jax_km_mod
+    import kmeans_tpu_torch.models.kmeans as km_mod
     from kmeans_tpu import KMeans as JKMeans
     from kmeans_tpu import obs as jobs
     X = _blobs().astype(np.float32)
+    # A 'trace' span is a step cache's miss: both packages build their
+    # programs afresh here, whatever fits ran earlier in the process
+    # (tests/test_obs.py fits the JAX model at this chunk too).
+    km_mod._STEP_CACHE.clear()
+    jax_km_mod._STEP_CACHE.clear()
     with obs.tracing() as tr:
         KMeans(k=5, max_iter=5, seed=0, chunk_size=117, device="cpu",
                verbose=False).fit(X)

@@ -21,7 +21,8 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "kmeans_tpu_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 
-MODULES = ["kmeans_tpu_torch", "kmeans_tpu_torch.convert",
+MODULES = ["kmeans_tpu_torch", "kmeans_tpu_torch.__main__",
+           "kmeans_tpu_torch.cli", "kmeans_tpu_torch.convert",
            "kmeans_tpu_torch.data.io", "kmeans_tpu_torch.data.prefetch",
            "kmeans_tpu_torch.data.synthetic",
            "kmeans_tpu_torch.experiments",
@@ -47,6 +48,11 @@ MODULES = ["kmeans_tpu_torch", "kmeans_tpu_torch.convert",
            "kmeans_tpu_torch.ops.compare",
            "kmeans_tpu_torch.ops.estep_kernels",
            "kmeans_tpu_torch.ops.hopper_kernels",
+           "kmeans_tpu_torch.orchestrator",
+           "kmeans_tpu_torch.orchestrator.autopilot",
+           "kmeans_tpu_torch.orchestrator.launcher",
+           "kmeans_tpu_torch.orchestrator.policy",
+           "kmeans_tpu_torch.orchestrator.worker",
            "kmeans_tpu_torch.parallel.distributed",
            "kmeans_tpu_torch.parallel.gmm_step",
            "kmeans_tpu_torch.parallel.mesh",
@@ -61,6 +67,7 @@ MODULES = ["kmeans_tpu_torch", "kmeans_tpu_torch.convert",
            "kmeans_tpu_torch.utils.aot", "kmeans_tpu_torch.utils.cache",
            "kmeans_tpu_torch.utils.checkpoint",
            "kmeans_tpu_torch.utils.debug",
+           "kmeans_tpu_torch.utils.diagram",
            "kmeans_tpu_torch.utils.faults",
            "kmeans_tpu_torch.utils.logging",
            "kmeans_tpu_torch.utils.plotting",

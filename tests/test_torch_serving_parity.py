@@ -1,6 +1,7 @@
 """The port's serving engine (``kmeans_tpu_torch.serving``) on the CPU,
 case by case the JAX package's tests/test_serving_parity.py (without the
-``serve`` CLI, ROADMAP A.14, and without the model-axis mesh cases): for
+model-axis mesh cases; the ``serve`` command is held against the JAX
+package's in tests/test_torch_cli.py): for
 every family the engine's labels are bit-equal to the port model's own
 ``predict`` and equal to the JAX engine's labels for the same tables (the
 JAX model converted with ``convert.from_jax_state``); the bf16 guard
