@@ -171,7 +171,12 @@ resolution) and ``report`` (``cli``); then ``autopilot --world 2`` over
 worker processes on the card with worker 1 killed after iteration 2, and
 once more under two injected launch failures: converged, each worker's
 centroids bit-equal to an uninterrupted fit (``autopilot``).  Their
-launches go into the kernel rows' ``cli_launches``.
+launches go into the kernel rows' ``cli_launches``.  Then the invariant
+linter: ``python -m kmeans_tpu_torch lint --json`` in a fresh interpreter
+over the installed port (exit 0, no finding, the suppression inventory
+printed), and a second fresh interpreter that calls ``cli.lint_main([])``
+and reports no CUDA context, no ``nvcc`` run and no library loaded; no
+launch is counted across the phase (``lint``).
 
 Every phase prints one JSON line as it ends.  A phase that fails raises, so
 the run ends with a non-zero code and without the result line.  The last line
@@ -7032,6 +7037,77 @@ def phase_autopilot(npy: Path, tmp: Path):
     return {"autopilot_oracle": launches}
 
 
+#: A fresh interpreter that runs the linter through ``cli.lint_main([])``
+#: (the installed package) and then reports what reached the card: a CUDA
+#: context, an ``nvcc`` run, a loaded kernel library, a launch.
+LINT_CHILD = r"""
+import contextlib, io, json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from kmeans_tpu_torch import cli
+from kmeans_tpu_torch.ops import _build
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    code = cli.lint_main([])
+print(json.dumps({
+    "exit": code, "summary": out.getvalue().strip().splitlines()[-1:],
+    "cuda_initialized": torch.cuda.is_initialized(),
+    "nvcc_runs": _build.NVCC_RUNS,
+    "libraries": sorted(str(key) for key in _build._LIBS),
+    "launches": {k: v for k, v in _build.LAUNCHES.items() if v}}))
+"""
+
+
+def phase_lint():
+    """The invariant linter on the card's machine: ``python -m
+    kmeans_tpu_torch lint --json`` in a fresh interpreter over the
+    installed port exits 0 with no finding and prints its suppression
+    inventory (at most three, each with a reason, each used); a second
+    fresh interpreter calls ``cli.lint_main([])`` and shows no CUDA
+    context, no ``nvcc`` run, no library loaded and no launch.  This
+    process's launch counters, at 0 just before the phase, stay 0."""
+    t_phase = time.perf_counter()
+    root = str(Path(__file__).resolve().parent)
+    hk.reset_launch_counts()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "kmeans_tpu_torch", "lint",
+                           "--json"], cwd=root, capture_output=True,
+                          text=True, timeout=300)
+    lint_seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"lint: exit {proc.returncode}: "
+                                f"{proc.stdout[-3000:]}{proc.stderr[-2000:]}")
+    report = json.loads(proc.stdout)
+    sups = [dict(site=f"{s['path']}:{s['line']}", rules=s["rules"],
+                 reason=s["reason"], used=s["used"])
+            for s in report["suppressions"]]
+    check(report["findings"] == [] and report["files"] > 60,
+          f"lint: {len(report['findings'])} findings over "
+          f"{report['files']} files")
+    check(len(sups) <= 3 and all(s["used"] > 0 and s["reason"]
+                                 for s in sups),
+          f"lint: suppression inventory {sups}")
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, "-c", LINT_CHILD, root],
+                           capture_output=True, text=True, timeout=300)
+    child_seconds = time.perf_counter() - t0
+    check(child.returncode == 0, f"lint child: exit {child.returncode}: "
+                                 f"{child.stderr[-3000:]}")
+    res = json.loads(child.stdout.strip().splitlines()[-1])
+    check(res["exit"] == 0 and not res["cuda_initialized"]
+          and res["nvcc_runs"] == 0 and res["libraries"] == []
+          and res["launches"] == {},
+          f"lint child reached the card: {res}")
+    launches = {name: c for name, c in hk.LAUNCHES.items() if c}
+    check(launches == {}, f"lint: launches counted across the phase: "
+                          f"{launches}")
+    emit("lint", seconds=time.perf_counter() - t_phase,
+         lint_seconds=lint_seconds, child_seconds=child_seconds,
+         files=report["files"], findings=len(report["findings"]),
+         suppressed=report["suppressed"], suppressions=sups, child=res,
+         launches=launches)
+    return {"lint": dict(hk.LAUNCHES)}
+
+
 def comm_line(rec, data_shards: int, k: int, d: int,
               model_shards: int = 1, rows: int = 0) -> dict:
     """A captured step's collective bytes against the port's bill
@@ -7239,6 +7315,9 @@ def main() -> None:
         cli_counts = phase_cli(x_main, km_bf16, stream_ref[0],
                                Path(cli_tmp))
         cli_counts.update(phase_autopilot(stream_ref[0], Path(cli_tmp)))
+    # The invariant linter: fresh interpreters over the installed port,
+    # nothing reaching the card (the launch counters at 0 across it).
+    cli_counts.update(phase_lint())
 
     # The mesh: two gloo ranks sharing the card (K-Means on a data and a
     # model axis, process-local k-means++, the mixture on a data axis), one

@@ -23,6 +23,8 @@ estimators' error, and ``--device cpu`` runs on the CPU on purpose.
 * ``cost-report`` and ``plan``: the device cost report and the memory
   planner with the massive-k resolution.
 * ``autopilot``: the elastic supervisor (``orchestrator``).
+* ``lint``: the invariant linter over the package's sources
+  (``analysis``); it touches no device.
 """
 
 from __future__ import annotations
@@ -1004,6 +1006,19 @@ def plan_main(argv=None) -> int:
         print(f"k-shard saves  : {saved:,} B/device of predicted peak "
               f"(replicated full-k stats accumulators -> local shard)")
     return 0
+
+
+def lint_main(argv=None) -> int:
+    """``python -m kmeans_tpu_torch lint [--json] [--rule ID] [paths]`` —
+    the package's AST invariant linter (one rule per historical incident
+    class of the original project; the reference's ``lint_main``).  Thin
+    delegator: the implementation lives in
+    :mod:`kmeans_tpu_torch.analysis.cli`; the analysis never imports or
+    executes the modules it checks, so linting creates no CUDA context,
+    runs no ``nvcc`` and loads no kernel library.  Exit 0 clean, 2 on
+    findings or a malformed path."""
+    from kmeans_tpu_torch.analysis.cli import main
+    return main(argv)
 
 
 def serve_status_main(argv=None) -> int:

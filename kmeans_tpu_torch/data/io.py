@@ -331,8 +331,14 @@ def _from_source(read_rows, n: int, d: int, mesh, *, device, dtype,
                 reader.close()
         mask = np.zeros(block, dtype=dtype)
         mask[: hi - lo] = 1.0 if sw is None else sw[lo:hi]
-        points = torch.from_numpy(rows).to(device)
-        weights = torch.from_numpy(mask).to(device)
+        # The one copy of 'mono', on the ingest timeline as the slabs are.
+        with _obs_trace.span("stage", rows=block, bytes=int(rows.nbytes),
+                             ingest="mono"):
+            _obs_metrics.REGISTRY.counter("ingest.bytes").inc(
+                int(rows.nbytes))
+            _obs_metrics.REGISTRY.counter("ingest.slabs").inc()
+            points = torch.from_numpy(rows).to(device)
+            weights = torch.from_numpy(mask).to(device)
         slabs = 1
     ds = ShardedDataset(
         points, weights, mesh, n=n, offset=lo, local_rows=hi - lo,

@@ -98,6 +98,11 @@ def _centers_arg(kind: str, centers, d: int, dtype):
     if centers is None:
         raise ValueError("kind='blobs' requires an explicit (k, d) "
                          "centers array")
+    if isinstance(centers, torch.Tensor):         # placed by the caller
+        if centers.dim() != 2 or centers.shape[1] != d:
+            raise ValueError(f"centers must be (k, {d}), got "
+                             f"{tuple(centers.shape)}")
+        return centers, centers.shape[0]
     centers = np.ascontiguousarray(np.asarray(centers, dtype=dtype))
     if centers.ndim != 2 or centers.shape[1] != d:
         raise ValueError(f"centers must be (k, {d}), got {centers.shape}")
@@ -126,7 +131,10 @@ def generate_rows(start: int, rows: int, n: int, d: int, *, kind: str,
     """Global rows ``[start, start + rows)`` of the synthetic dataset on
     ``device``: ``(points (rows, d), weights (rows,))``.  Each value depends
     only on ``(seed, row, column)``; rows at or past ``n`` are zero points
-    of weight 0 (the padding of a mesh's last block)."""
+    of weight 0 (the padding of a mesh's last block).  ``centers`` ('blobs')
+    is the (k, d) host array, placed here under a ``stage`` span, or that
+    array already on ``device`` (:func:`device_shards` places it under its
+    own)."""
     from kmeans_tpu_torch.parallel.distributed import _fmix32
     from kmeans_tpu_torch.parallel.sharding import torch_dtype
     dtype = np.dtype(dtype)
@@ -139,7 +147,10 @@ def generate_rows(start: int, rows: int, n: int, d: int, *, kind: str,
     draws = 1 if kind == "uniform" else NORMAL_DRAWS
     cols = torch.arange(d * draws, dtype=torch.int64, device=device)
     col_words = _fmix32(cols ^ k_col).reshape(draws, d)
-    cents_t = None if cents is None else torch.from_numpy(cents).to(device)
+    cents_t = cents
+    if isinstance(cents, np.ndarray):
+        with _obs_trace.span("stage", rows=k, bytes=int(cents.nbytes)):
+            cents_t = torch.from_numpy(cents).to(device)
     points = torch.empty((rows, d), dtype=tdtype, device=device)
     step = max(1, _GEN_ELEMS // max(d, 1))
     for lo in range(0, rows, step):
@@ -207,12 +218,15 @@ def device_shards(n_samples: int, n_features: int, *, mesh=None,
     data_shards = _mesh.mesh_shape(mesh)[0]
     block = -(-max(n, 1, int(min_rows)) // data_shards)
     chunk = chunk_size or choose_chunk_size(block, k_hint, d)
-    kw = dict(kind=kind, seed=seed, dtype=dtype, low=low, high=high,
-              centers=centers, device=device)
-    # The rows are made where they live: the host moves no bytes, and the
-    # span lands the generation on the ingest timeline (the reference's).
+    # The rows are made where they live: the host moves no rows (the
+    # centres of 'blobs' only), and the span lands the generation on the
+    # ingest timeline (the reference's).
     with _obs_trace.span("stage", rows=n, bytes=0, ingest="synthetic"):
         _obs_metrics.REGISTRY.counter("ingest.slabs").inc()
+        cents, _ = _centers_arg(kind, centers, d, dtype)
+        kw = dict(kind=kind, seed=seed, dtype=dtype, low=low, high=high,
+                  device=device, centers=None if cents is None
+                  else torch.from_numpy(cents).to(device))
         if mesh is None:
             x, w = generate_rows(0, max(n, int(min_rows)), n, d, **kw)
             return Dataset(x, w, chunk=chunk,

@@ -660,12 +660,25 @@ class KMeans(AutoCheckpointMixin):
                   pipeline: int):
         """The step and the predict pass of this model's mode at
         ``chunk``, from ``_STEP_CACHE``."""
-        mode = self._mode()
-        return (_cached(dist.make_step_fn, mesh, chunk_size=chunk,
-                        mode=mode, need_farthest=need_farthest,
-                        need_sse_pc=False, pipeline=pipeline),
-                _cached(dist.make_predict_fn, mesh, chunk_size=chunk,
-                        mode=mode))
+        return (self._step_fn(mesh, chunk, need_farthest=need_farthest,
+                              need_sse_pc=False, pipeline=pipeline),
+                self._predict_pass(mesh, chunk))
+
+    def _step_fn(self, mesh, chunk: int, mode: Optional[str] = None,
+                 **flags):
+        """The step of ``mode`` (None: this model's) at ``chunk``, with the
+        step's ``flags`` (``need_sse`` ...), from ``_STEP_CACHE``: the one
+        place the family builds its dense (chunk, k) steps, beside the
+        planner checks that route a large k around them
+        (:meth:`_resolve_large_k`)."""
+        return _cached(dist.make_step_fn, mesh, chunk_size=chunk,
+                       mode=self._mode() if mode is None else mode, **flags)
+
+    def _predict_pass(self, mesh, chunk: int):
+        """The predict pass of this model's mode at ``chunk``, from
+        ``_STEP_CACHE``."""
+        return _cached(dist.make_predict_fn, mesh, chunk_size=chunk,
+                       mode=self._mode())
 
     def _warm_kernels(self) -> None:
         """Load the kernel library that this fit will launch: kernel 1 (1b)
@@ -1158,6 +1171,9 @@ class KMeans(AutoCheckpointMixin):
             float(step_fn(ds.points, ds.weights, cents, x2w).sse)
             return time.perf_counter() - t0
 
+        # lint: ok(cache-key) — measurement cache: a miss only re-measures
+        # one step, it can never serve a wrong compiled program (the key
+        # spans every static the probe reads).
         step_s = ds.memo(("auto_step_seconds", self._mode(), self.k),
                          measure_step)
         frac = rtt / max(step_s, 1e-12)

@@ -208,9 +208,8 @@ class MiniBatchKMeans(KMeans):
                            self.dtype, sample_weight=(
                                None if hw is None else np.asarray(hw)[idx]),
                            mesh=self._resolve_mesh())
-        step = _cached(dist.make_step_fn, ds.mesh,
-                       chunk_size=self._chunk_for(ds), mode=self._mode(),
-                       need_farthest=False, need_sse_pc=False)
+        step = self._step_fn(ds.mesh, self._chunk_for(ds),
+                             need_farthest=False, need_sse_pc=False)
         x2w = self._x2w(ds)
         inertias = [float(step(ds.points, ds.weights,
                                self._put_centroids(c), x2w).sse)
@@ -499,9 +498,8 @@ class MiniBatchKMeans(KMeans):
         this batch under ``[seed, iteration, 0xC4ED]``."""
         ds = to_device(np.ascontiguousarray(batch), self.device, self.dtype,
                        sample_weight=batch_weight, mesh=self._resolve_mesh())
-        step = _cached(dist.make_step_fn, ds.mesh,
-                       chunk_size=self._chunk_for(ds), mode=self._mode(),
-                       need_farthest=False, need_sse_pc=False)
+        step = self._step_fn(ds.mesh, self._chunk_for(ds),
+                             need_farthest=False, need_sse_pc=False)
         with obs_trace.span("dispatch", tag="minibatch/step",
                             iteration=iteration):
             stats = step(ds.points, ds.weights,

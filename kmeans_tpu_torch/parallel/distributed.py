@@ -685,7 +685,11 @@ def gather_kshard_stats(st: StepStats, mesh, k: int) -> StepStats:
     host[first: first + k_local, d] = st.counts.cpu()
     host[first: first + k_local, d + 1] = st.sse_per_cluster.cpu()
     import torch.distributed as tdist
-    tdist.all_reduce(host, group=_host_model_group(mesh))
+    # A wait for every rank of the model axis: on the merged timeline.
+    with _obs_trace.span("collective", op="all_reduce",
+                         site="gather_kshard_stats",
+                         bytes=int(host.numel() * host.element_size())):
+        tdist.all_reduce(host, group=_host_model_group(mesh))
     return StepStats(host[:k, :d], host[:k, d], st.sse.cpu(),
                      st.farthest_dist.cpu(), st.farthest_point.cpu(),
                      host[:k, d + 1])
@@ -1378,6 +1382,11 @@ def make_fit_fn(mesh=None, *, chunk_size: int, mode: str = "matmul",
         stop = max_iter if stop is None else stop
         key = ("device_loop", mode, loop_chunk, k, max_iter,
                float(tolerance), empty_policy, need_sse, pipeline, project)
+        # lint: ok(cache-key) — the step's knobs but the chunk are keyed
+        # (one loop for every chunk on purpose: in the kernel modes
+        # without a model axis the chunk reaches no launch, and an
+        # out-of-memory backoff replays the graph); the mesh is the
+        # dataset's at every call site
         loop = ds.memo(key, lambda: _make_loop(ds, step, k))
         table = (None if empty_policy == "keep" else
                  refill_table(ds, empty_draw_keys(seed, stop, start), k))
@@ -1648,9 +1657,11 @@ def make_multi_fit_fn(mesh=None, *, chunk_size: int, mode: str = "matmul",
                              f"with one seed per member, got "
                              f"{tuple(centroids0.shape)} and "
                              f"{len(seeds)} seeds")
-        key = ("multi_loop", mode, chunk_size, k_real, tuple(ks.tolist()),
-               max_iter, float(tolerance), empty_policy, bool(history_sse),
-               pipeline, project)
+        # The loop maker is this builder's own (it closes over its step,
+        # its mesh and its knobs): a loop is never served to another.
+        key = ("multi_loop", _make_loop, mode, chunk_size, k_real,
+               tuple(ks.tolist()), max_iter, float(tolerance), empty_policy,
+               bool(history_sse), pipeline, project)
         # The members' rows are the caller's, not the dataset's: their
         # loop is built for this call, not kept in the dataset's memo.
         loop = (_make_loop(ds, points) if member_points
@@ -2159,7 +2170,9 @@ def make_minibatch_fit_fn(mesh=None, *, batch: int, mode: str = "matmul",
         if ds.mesh is not mesh:
             raise ValueError(f"the dataset was placed with mesh="
                              f"{ds.mesh!r}, the loop built for {mesh!r}")
-        key = ("minibatch_loop", mode, batch, chunk_size, k, max_iter,
+        # The step is this builder's own: a loop is never served to
+        # another builder's step.
+        key = ("minibatch_loop", step, mode, batch, chunk_size, k, max_iter,
                float(tolerance), bool(history_sse),
                float(reassignment_ratio), int(reassign_every))
         if not host_loop:

@@ -646,6 +646,20 @@ class _EmLoop(_Replay):
         self.running.fill_(True)
 
 
+def _em_loop(ds, *, cov_type: str, mode: str, chunks, ks, max_iter: int,
+             tol: float, reg_covar: float, pipeline: int) -> _EmLoop:
+    """The device EM loop of the members at ``ks`` (chunks ``chunks``) on
+    the dataset ``ds``, over its mesh: every table it is built from is
+    named by its arguments, the memo key of ``make_gmm_multi_fit_fn``."""
+    tiny, pi_floor = _floor_tiny(ds.points.dtype)
+    estats = [_estats_fn(cov_type, mode, c, pipeline, ds.mesh, reg_covar,
+                         tiny) for c in chunks]
+    return _EmLoop(ds.points, ds.weights, ds.mesh, cov_type=cov_type,
+                   ks=list(ks), estats_fns=estats,
+                   m_step=_m_step_fn(cov_type, reg_covar, tiny, pi_floor),
+                   max_iter=max_iter, tol=tol)
+
+
 class GmmFitResult(NamedTuple):
     """What the device EM loop hands back to the host, once per fit."""
 
@@ -762,20 +776,18 @@ def make_gmm_multi_fit_fn(mesh=None, *, chunk_sizes: Sequence[int],
             prev0: float = -np.inf, start: int = 0,
             stop: Optional[int] = None) -> GmmMultiFitResult:
         _check_backend(mesh, ds)
+        if ds.mesh is not mesh:
+            raise ValueError(f"the dataset was placed with mesh="
+                             f"{ds.mesh!r}, the loop built for {mesh!r}")
         R = len(ks)
         chunks = list(chunk_sizes) if len(chunk_sizes) == R \
             else [chunk_sizes[0]] * R
-        acc = ds.points.dtype
-        tiny, pi_floor = _floor_tiny(acc)
-        estats = [_estats_fn(cov_type, mode, c, pipeline, mesh, reg_covar,
-                             tiny) for c in chunks]
         key = ("gmm_loop", cov_type, mode, tuple(chunks), tuple(ks),
                max_iter, float(tol), float(reg_covar), pipeline)
-        loop = ds.memo(key, lambda: _EmLoop(
-            ds.points, ds.weights, mesh, cov_type=cov_type, ks=list(ks),
-            estats_fns=estats,
-            m_step=_m_step_fn(cov_type, reg_covar, tiny, pi_floor),
-            max_iter=max_iter, tol=tol))
+        loop = ds.memo(key, lambda: _em_loop(
+            ds, cov_type=cov_type, mode=mode, chunks=chunks, ks=ks,
+            max_iter=max_iter, tol=tol, reg_covar=reg_covar,
+            pipeline=pipeline))
         stop = max_iter if stop is None else stop
 
         def run():

@@ -361,7 +361,10 @@ def permuted_draws(n_pos: int, j: torch.Tensor,
     bijection of ``[0, n_pos)``.  Fixed shapes, int64 torch ops only, no
     generator: the same draws on every device.  The walk stops as soon as
     every value is inside, which reads one flag to the host per pass."""
-    keys = keys.to(device=j.device, dtype=torch.int64)[..., None]
+    # The keys are host bytes: their upload is on the ingest timeline.
+    with _obs_trace.span("stage", rows=int(keys.shape[0]),
+                         bytes=int(keys.numel() * keys.element_size())):
+        keys = keys.to(device=j.device, dtype=torch.int64)[..., None]
     live = j < n_pos
     if n_pos == 1:
         return torch.where(live, torch.zeros_like(j), torch.full_like(j, -1))
@@ -495,17 +498,20 @@ class Dataset:
         """Rows by index, as a host array."""
         if self._host is not None:
             return np.asarray(self._host[idx])
-        index = torch.as_tensor(np.asarray(idx), device=self.device)
+        idx = np.asarray(idx)
+        with _obs_trace.span("stage", rows=int(idx.size),
+                             bytes=int(idx.size) * 8):
+            index = torch.as_tensor(idx, device=self.device)
         return self.points[index].cpu().numpy()
 
-    def _weights_like(self, sw: np.ndarray) -> torch.Tensor:
-        """The device weights of this dataset's rows for (n,) host weights
+    def _weights_block(self, sw: np.ndarray) -> np.ndarray:
+        """The host weights of this dataset's rows for (n,) host weights
         ``sw``: all of them on one device, padding rows at 0."""
         if self.points.shape[0] != self.n:
             block = np.zeros(self.points.shape[0], dtype=sw.dtype)
             block[: self.n] = sw
             sw = block
-        return torch.from_numpy(np.ascontiguousarray(sw)).to(self.device)
+        return np.ascontiguousarray(sw)
 
     def with_weights(self, sample_weight) -> "Dataset":
         """The same device points with other per-row weights (n,), which
@@ -526,7 +532,8 @@ class Dataset:
         with _obs_trace.span("stage", rows=int(self.points.shape[0]),
                              bytes=nbytes):
             _obs_metrics.REGISTRY.counter("ingest.bytes").inc(nbytes)
-            new.weights = self._weights_like(sw)
+            new.weights = torch.from_numpy(self._weights_block(sw)).to(
+                self.device)
         new._host_weights = sw if self._host is not None else None
         new._memo = {}
         return new
@@ -584,12 +591,12 @@ class ShardedDataset(Dataset):
         self.local_rows = int(local_rows)
         self.process_local = process_local
 
-    def _weights_like(self, sw: np.ndarray) -> torch.Tensor:
+    def _weights_block(self, sw: np.ndarray) -> np.ndarray:
         """This rank's block of (n,) host weights, padding rows at 0."""
         block = np.zeros(self.points.shape[0], dtype=sw.dtype)
         block[: self.local_rows] = sw[self.offset: self.offset
                                       + self.local_rows]
-        return torch.from_numpy(block).to(self.device)
+        return block
 
     def _require_host(self, op: str) -> None:
         if self._host is None:
@@ -964,60 +971,63 @@ class BlockStager:
         attrs = dict(rows=int(x.shape[0]), bytes=int(x.nbytes))
         if slab is not None:
             attrs.update(slab=int(slab[0]), slabs=int(slab[1]))
-        with _obs_trace.span("stage", **attrs):
-            _obs_metrics.REGISTRY.counter("ingest.bytes").inc(int(x.nbytes))
-            if slab is None:
-                _obs_metrics.REGISTRY.counter("ingest.slabs").inc()
-            return self._copy(x, w, block, out)
+        return self._copy(x, w, block, out, attrs)
 
-    def _copy(self, x, w, block, out) -> StagedBlock:
-        if not self._cuda:
-            if out is not None:
-                out[0].copy_(_tensor_of(x))
-                out[1].copy_(_tensor_of(w))
-                return StagedBlock(out[0], out[1], block.shape[0], None)
-            return StagedBlock(_tensor_of(x), None if w is None
-                               else _tensor_of(w), block.shape[0], None)
-        slot = self._ring[self._next]
-        self._next = (self._next + 1) % len(self._ring)
-        tdtype = torch_dtype(self.dtype)
-        with torch.cuda.device(self.device):
-            if self._stream is None:
-                self._stream = torch.cuda.Stream(self.device)
-            if slot.event is None:
-                slot.event = torch.cuda.Event()
-            else:
-                slot.event.synchronize()     # its last copy has landed
-            m = x.shape[0]
-            if slot.x is None or slot.x.shape[0] < m:
-                slot.x = torch.empty(x.shape, dtype=tdtype, pin_memory=True)
-            np.copyto(slot.x[:m].numpy(), x)
-            if w is not None:
-                if slot.w is None or slot.w.shape[0] < m:
-                    slot.w = torch.empty((m,), dtype=tdtype,
-                                         pin_memory=True)
-                np.copyto(slot.w[:m].numpy(), w)
-            if out is not None:
-                # The views' memory may have been freed by work still queued
-                # on the consumer's stream: the copy waits for it (and the
-                # consumer for the copy, in take).
-                self._stream.wait_stream(torch.cuda.current_stream(
-                    self.device))
-            with torch.cuda.stream(self._stream):
-                if out is None:
-                    points = torch.empty(x.shape, dtype=tdtype,
-                                         device=self.device)
+    def _copy(self, x, w, block, out, attrs) -> StagedBlock:
+        """The copy of :meth:`stage`, under its ``stage`` span (``attrs``):
+        the span holds the host-to-device copy it times."""
+        with _obs_trace.span("stage", **attrs):
+            _obs_metrics.REGISTRY.counter("ingest.bytes").inc(attrs["bytes"])
+            if "slab" not in attrs:
+                _obs_metrics.REGISTRY.counter("ingest.slabs").inc()
+            if not self._cuda:
+                if out is not None:
+                    out[0].copy_(_tensor_of(x))
+                    out[1].copy_(_tensor_of(w))
+                    return StagedBlock(out[0], out[1], block.shape[0], None)
+                return StagedBlock(_tensor_of(x), None if w is None
+                                   else _tensor_of(w), block.shape[0], None)
+            slot = self._ring[self._next]
+            self._next = (self._next + 1) % len(self._ring)
+            tdtype = torch_dtype(self.dtype)
+            with torch.cuda.device(self.device):
+                if self._stream is None:
+                    self._stream = torch.cuda.Stream(self.device)
+                if slot.event is None:
+                    slot.event = torch.cuda.Event()
                 else:
-                    points = out[0]
-                points.copy_(slot.x[:m], non_blocking=True)
-                weights = None
+                    slot.event.synchronize()     # its last copy has landed
+                m = x.shape[0]
+                if slot.x is None or slot.x.shape[0] < m:
+                    slot.x = torch.empty(x.shape, dtype=tdtype,
+                                         pin_memory=True)
+                np.copyto(slot.x[:m].numpy(), x)
                 if w is not None:
-                    weights = torch.empty((m,), dtype=tdtype,
-                                          device=self.device) \
-                        if out is None else out[1]
-                    weights.copy_(slot.w[:m], non_blocking=True)
-                slot.event.record(self._stream)
-        return StagedBlock(points, weights, block.shape[0], slot.event)
+                    if slot.w is None or slot.w.shape[0] < m:
+                        slot.w = torch.empty((m,), dtype=tdtype,
+                                             pin_memory=True)
+                    np.copyto(slot.w[:m].numpy(), w)
+                if out is not None:
+                    # The views' memory may have been freed by work still
+                    # queued on the consumer's stream: the copy waits for it
+                    # (and the consumer for the copy, in take).
+                    self._stream.wait_stream(torch.cuda.current_stream(
+                        self.device))
+                with torch.cuda.stream(self._stream):
+                    if out is None:
+                        points = torch.empty(x.shape, dtype=tdtype,
+                                             device=self.device)
+                    else:
+                        points = out[0]
+                    points.copy_(slot.x[:m], non_blocking=True)
+                    weights = None
+                    if w is not None:
+                        weights = torch.empty((m,), dtype=tdtype,
+                                              device=self.device) \
+                            if out is None else out[1]
+                        weights.copy_(slot.w[:m], non_blocking=True)
+                    slot.event.record(self._stream)
+            return StagedBlock(points, weights, block.shape[0], slot.event)
 
     def take(self, staged: StagedBlock) -> Tuple[torch.Tensor,
                                                   torch.Tensor]:

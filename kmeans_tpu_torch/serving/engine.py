@@ -67,6 +67,7 @@ from kmeans_tpu_torch.serving.batching import (DEFAULT_BUCKETS,
                                                MicroBatchQueue,
                                                ServingFuture, bucket_for,
                                                check_buckets)
+from kmeans_tpu_torch.serving.learn import UPDATE_GATE
 from kmeans_tpu_torch.serving.registry import ModelRegistry
 from kmeans_tpu_torch.utils.profiling import note_dispatch
 
@@ -607,9 +608,10 @@ class ServingEngine:
         if guard is not None:
             guard(model_id, op)
         rm = self._rm(model_id)
-        if rm.spec["family"] == "gmm":
-            return self._dispatch_gmm(rm, op, rows)
-        return self._dispatch_kmeans(rm, op, rows)
+        with UPDATE_GATE.dispatch():
+            if rm.spec["family"] == "gmm":
+                return self._dispatch_gmm(rm, op, rows)
+            return self._dispatch_kmeans(rm, op, rows)
 
     def _dispatch_kmeans(self, rm: ResidentModel, op: str,
                          rows: np.ndarray) -> np.ndarray:
@@ -844,7 +846,12 @@ class ServingEngine:
         guard = self.dispatch_guard
         if guard is not None:
             guard(tuple(ids), "predict_multi")
-        ids = tuple(ids)
+        with UPDATE_GATE.dispatch():
+            return self._run_packed(tuple(ids), items)
+
+    def _run_packed(self, ids: Tuple[str, ...],
+                    items: List[Tuple[str, np.ndarray]]
+                    ) -> List[np.ndarray]:
         slot = {mid: j for j, mid in enumerate(ids)}
         rms = {mid: self._rm(mid) for mid in ids}
         rows = np.concatenate([b for _, b in items], axis=0)

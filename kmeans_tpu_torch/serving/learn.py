@@ -36,7 +36,9 @@ through ``QualityMonitor.record`` (aggregated by
 On the card the update's pass is kernel 1 (``partial_fit`` in the kernel
 modes), launched from the learner's thread on the same (default) stream
 as the serving dispatches; :func:`publish_tables` waits for the new
-table's copy before the rebind.
+table's copy before the rebind.  An update, or a rollback, runs as one
+slice of :data:`UPDATE_GATE` between dispatches (the GIL would otherwise
+make every request it overlaps wait for its hand-offs).
 
 The invariant the tests hold: a QUIESCED model equals, bit for bit, the
 same ``partial_fit`` batches replayed offline from the pre-update
@@ -47,6 +49,7 @@ request.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
@@ -70,6 +73,7 @@ __all__ = [
     "REGRESSION_EVAL_WINDOWS", "LEARN_P99_EXCURSION_BOUND",
     "COMMITTED_LEARN_RULES",
     "Decision", "UpdateRolledBack", "publish_tables", "ModelLearner",
+    "UpdateGate", "UPDATE_GATE",
 ]
 
 # --------------------------------------------------------- committed rules
@@ -80,8 +84,8 @@ __all__ = [
 #: evidence.  Every batch has exactly this many rows (never padded).
 UPDATE_BATCH_ROWS = 512
 
-#: Update batches consumed per update: bounds the burst of one update (and
-#: so the serving p99 excursion it can cause).
+#: Update batches consumed per update: bounds the work of one update (and
+#: so the wait of the request that its slice holds, ``UpdateGate``).
 UPDATE_MAX_BATCHES = 4
 
 #: Reservoir capacity in rows (trimmed oldest first, by whole blocks):
@@ -113,7 +117,8 @@ REGRESSION_EVAL_WINDOWS = 2
 
 #: The committed bound of the serving p99 during an update wave over the
 #: p99 of a quiet wave: the update runs off the dispatch path, so the
-#: serve-side costs are the reservoir copy and one swap.
+#: serve-side costs are the reservoir copy and the one request that waits
+#: for the update's slice (``UpdateGate``).
 LEARN_P99_EXCURSION_BOUND = 3.0
 
 #: The committed decision table as one dict (tests, ``status()``).
@@ -186,6 +191,81 @@ class UpdateRolledBack:
                 "reason": self.reason, "pre_ratio": self.pre_ratio,
                 "post_ratio": self.post_ratio, "ratio": self.ratio,
                 "restored_from": self.restored_from}
+
+
+# ------------------------------------------------------- update slices
+
+class UpdateGate:
+    """Serving dispatches against a learner's updates, process-wide.
+
+    Every thread of the interpreter runs Python under one lock (the GIL).
+    An update's thread beside a dispatch thread does not run beside it:
+    each NumPy or torch call lets the GIL go and asks for it back, so the
+    two threads hand it over at every call, and each of the 15 to 45
+    requests an update overlaps waits for those hand-offs, about 3 times
+    its quiet latency.  On the H100's host a thread that does nothing but
+    1,000-element NumPy calls lifts the p99 of 512-row dispatches beside
+    it 3.8-fold; one that sleeps, 1.1-fold
+    (``experiments/exp_learn_excursion.py``).  So an update, and a
+    rollback, is one exclusive slice (:meth:`update_slice`): it waits for
+    the dispatches in flight to end, holds new ones at their entry
+    (:meth:`dispatch`) until it ends, and runs alone, without hand-offs.
+    One request per update waits for the slice; the rest run as if no
+    update ran.  Only the scheduling changes: the swap stays atomic for
+    readers outside any dispatch.
+
+    A dispatch inside a dispatch on the same thread passes, and so does a
+    slice opened inside a dispatch (it would wait for itself)."""
+
+    def __init__(self):
+        self._cond = threading.Condition(threading.Lock())
+        self._dispatching = 0
+        self._slicing = False
+        self._slices_waiting = 0
+        self._tls = threading.local()
+
+    @contextlib.contextmanager
+    def dispatch(self):
+        depth = getattr(self._tls, "depth", 0)
+        if depth == 0:
+            with self._cond:
+                while self._slicing or self._slices_waiting:
+                    self._cond.wait()
+                self._dispatching += 1
+        self._tls.depth = depth + 1
+        try:
+            yield
+        finally:
+            self._tls.depth = depth
+            if depth == 0:
+                with self._cond:
+                    self._dispatching -= 1
+                    if self._dispatching == 0:
+                        self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def update_slice(self):
+        if getattr(self._tls, "depth", 0):
+            yield
+            return
+        with self._cond:
+            self._slices_waiting += 1
+            try:
+                while self._slicing or self._dispatching:
+                    self._cond.wait()
+            finally:
+                self._slices_waiting -= 1
+            self._slicing = True
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._slicing = False
+                self._cond.notify_all()
+
+
+#: The gate of every engine and learner of the process (one GIL).
+UPDATE_GATE = UpdateGate()
 
 
 # ------------------------------------------------------------ atomic swap
@@ -396,8 +476,9 @@ class ModelLearner:
         if not self._busy.acquire(blocking=False):
             return
         try:
-            # Joined by close(), which the engine calls before it closes
-            # the model's sinks.
+            # lint: ok(thread) — joined at close(): the handle is kept
+            # on self._thread and ModelLearner.close() joins it before
+            # the engine tears down the model's sinks
             t = threading.Thread(target=self._worker,
                                  name=f"learn-{self.model_id}",
                                  daemon=True)
@@ -456,7 +537,8 @@ class ModelLearner:
             return self._decide("update-skipped", "peer-updating",
                                 ok=False)
         try:
-            return self._run_update_locked(reason)
+            with UPDATE_GATE.update_slice():
+                return self._run_update_locked(reason)
         finally:
             mlock.release()
 
@@ -563,7 +645,8 @@ class ModelLearner:
                          pre_ratio=pre, post_ratio=post, ratio=ratio,
                          ok=True)
             return
-        self._rollback(p, pre=pre, post=post, ratio=ratio)
+        with UPDATE_GATE.update_slice():
+            self._rollback(p, pre=pre, post=post, ratio=ratio)
 
     def _rollback(self, pending: dict, *, pre, post, ratio) -> None:
         """Restore the pre-update snapshot and publish it by the same

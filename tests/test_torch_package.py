@@ -22,11 +22,15 @@ PORT_FILES = sorted((ROOT / "kmeans_tpu_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 
 MODULES = ["kmeans_tpu_torch", "kmeans_tpu_torch.__main__",
+           "kmeans_tpu_torch.analysis", "kmeans_tpu_torch.analysis.cli",
+           "kmeans_tpu_torch.analysis.core",
+           "kmeans_tpu_torch.analysis.rules",
            "kmeans_tpu_torch.cli", "kmeans_tpu_torch.convert",
            "kmeans_tpu_torch.data.io", "kmeans_tpu_torch.data.prefetch",
            "kmeans_tpu_torch.data.synthetic",
            "kmeans_tpu_torch.experiments",
            "kmeans_tpu_torch.experiments.exp_kernel_edits",
+           "kmeans_tpu_torch.experiments.exp_learn_excursion",
            "kmeans_tpu_torch.experiments.exp_pallas_kernel",
            "kmeans_tpu_torch.experiments.exp_profiler_loss",
            "kmeans_tpu_torch.experiments.exp_stream_host",
