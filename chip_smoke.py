@@ -4905,17 +4905,27 @@ def library_estep(x, w, shift, means_c, inv_var, log_det, log_w,
     return rsum, mom[:, :d], mom[:, d:], ll
 
 
-def estep_bounds(n, d, k):
+def estep_bounds(n, d, k, kind: str = "estep"):
     """(bound ms, what bounds it, bytes, operations, scalar float32 bound
-    ms) of diag_estep: each input read once, each output written once; the
-    operations are the two depth-2D products (8 n k D) on the tensor cores,
-    as three TF32 products each (3xTF32, which keeps float32's accuracy) at
-    the TF32 rate, and the softmax (max, subtract, exp, scale, sum: 5 n k)
-    and the centering and squares (2 n D) at the float32 rate outside them;
-    the two kinds issue side by side, so the longer counts.  The fifth
-    field puts every operation at the float32 non-tensor rate."""
-    byt = 4 * (n * d + n + d + 2 * k * d + 2 * k) + 4 * (k * (2 * d + 1) + 1)
-    product, ops = hk.declared_operations("estep", n, d, k)
+    ms) of diag_estep (``kind`` 'estep'), or of a launch of the model axis's
+    pair ('estep_rows', 'estep_moments', k the block's components): each
+    input read once, each output written once (the rows' max and sum, 2 n
+    floats, written by launch (a) and read by launch (b)); the operations
+    are those ``hk.declared_operations`` declares for ``kind``: the
+    products (8 n k D for the whole E-step and for (b), 4 n k D for (a)) on
+    the tensor cores, as three TF32 products each (3xTF32, which keeps
+    float32's accuracy) at the TF32 rate, and the softmax's parts and the
+    centering and squares at the float32 rate outside them; the two kinds
+    issue side by side, so the longer counts.  The fifth field puts every
+    operation at the float32 non-tensor rate."""
+    byt = 4 * (n * d + n + d + 2 * k * d + 2 * k)
+    if kind == "estep_rows":
+        byt += 4 * 2 * n
+    else:
+        byt += 4 * (k * (2 * d + 1) + 1)
+        if kind == "estep_moments":
+            byt += 4 * 2 * n
+    product, ops = hk.declared_operations(kind, n, d, k)
     t_bytes = byt / PEAK_BYTES_PER_S * 1e3
     tensor_ms = 3 * product / PEAK_TF32_FLOPS * 1e3
     rest_ms = (ops - product) / PEAK_FP32_FLOPS * 1e3
@@ -5478,6 +5488,652 @@ def phase_dp_gmm(results, gm, x_gmm, full_ref):
               f"{path}: the mesh mixture is off the one-device fit: "
               f"{estep}, lower bound {ll_rel}")
     return counts
+
+
+#: The serving fleet, serve-and-learn and the mixture's model axis on two
+#: gloo ranks sharing the card: one spawn (``mesh_child``), its phases
+#: ``fleet_mesh``, ``serve_learn_mesh`` and ``gmm_model_axis``.  The
+#: fleet: the main float32 fit behind two replicas on ``data2`` and
+#: ``model2``, direct calls cycling through the sizes, then queued
+#: requests from two threads with one replica killed.
+FLEET_MESH = dict(replicas=2, calls=200, sizes=(1, 8, 64, 512, 4096),
+                  threads=2, queued=48)
+#: Serve-and-learn on ``data2``: 512-row requests (the drift window and
+#: the update batch) of the main data, fed before one forced update.  The
+#: drift monitor's own updates are held off by ``min_rows`` (at k = 1024
+#: it fires on any 512-row window): on one device they run on a thread of
+#: their own, at a time the reference could not repeat.
+LEARN_MESH = dict(rows=512, feed=3, min_rows=1 << 30)
+#: A learner's centroids after its update on two ranks against one rank
+#: fed the same batches: the batch's float32 sums meet over the axis in
+#: another order (the sums tolerance of ``ops.compare``).
+LEARN_MESH_RTOL, LEARN_MESH_ATOL_SHARE = cmp.SUMS_RTOL, cmp.SUMS_ATOL_SHARE
+#: The mixture on the model axis: phase ``gmm``'s shape on ``model2``
+#: (k_local = 128), host loop, kernel mode; and 'full' at FULL.
+GMM_AXIS = dict(mesh="model2", iters=GMM["iters"])
+
+
+def _mesh_request(host, i, sizes):
+    """Request ``i`` of the fleet's traffic: ``sizes`` cycled, rows at a
+    stride through the host rows."""
+    m = sizes[i % len(sizes)]
+    lo = (i * 977) % (host.shape[0] - m)
+    return host[lo:lo + m]
+
+
+def _mesh_fleet(mesh, km_path, host):
+    """The fleet on one mesh of the spawn (every rank alike): its labels,
+    this rank's launches and dispatches, and the sequence's digests."""
+    import threading
+    from kmeans_tpu_torch.parallel import mesh as mesh_mod
+    cfg = FLEET_MESH
+    out = {}
+    with ServingFleet(cfg["replicas"], device=DEV, mesh=mesh, quality=False,
+                      buckets=SERVE_BUCKETS) as fleet:
+        fleet.load(km_path, "km")
+        fleet.warmup()
+        hk.reset_launch_counts()           # this path's own counts
+        decisions0 = dict(mesh_mod.DECISIONS)
+        t0 = time.perf_counter()
+        out["calls"] = [fleet.call("km", _mesh_request(host, i,
+                                                       cfg["sizes"]))
+                        for i in range(cfg["calls"])]
+        torch.cuda.synchronize()
+        out["call_seconds"] = time.perf_counter() - t0
+        queued = {}
+
+        def submitter(t):
+            futs = [(i, fleet.submit("km", _mesh_request(
+                host, cfg["calls"] + i, cfg["sizes"])))
+                for i in range(t, cfg["queued"], cfg["threads"])]
+            for i, fut in futs:
+                queued[i] = fut.result(timeout=QUEUE_TIMEOUT)
+
+        threads = [threading.Thread(target=submitter, args=(t,))
+                   for t in range(cfg["threads"])]
+        for t in threads:
+            t.start()
+        fleet.kill_replica("r1")
+        for t in threads:
+            t.join()
+        torch.cuda.synchronize()
+        out["queued"] = queued
+        out["launches"] = dict(hk.LAUNCHES)
+        out["dispatches"] = sum(rep.engine.dispatches
+                                for rep in fleet._replicas)
+        out["redispatches"] = fleet.redispatches
+        out["route_digest"] = fleet.route_digest
+        out["seq_digest"] = fleet._seq.digest
+        out["decisions"] = {key: mesh_mod.DECISIONS[key] - decisions0[key]
+                            for key in decisions0}
+    return out
+
+
+def _mesh_learn(mesh, mb_path, host, learn_dir):
+    """Serve-and-learn on ``mesh`` (None: one device, the parent's
+    reference): LEARN_MESH's requests, one forced update, one more
+    request, then an injected regression judged now (the rollback)."""
+    rows = LEARN_MESH["rows"]
+    reqs = [host[i * rows:(i + 1) * rows]
+            for i in range(LEARN_MESH["feed"])]
+    model = MiniBatchKMeans.load(mb_path, device=DEV, mesh=mesh)
+    out = {}
+    with ServingEngine(device=DEV, mesh=mesh, start=False, quality=True,
+                       learn={"dir": str(learn_dir),
+                              "min_rows": LEARN_MESH["min_rows"]}) as eng:
+        eng.add_model("mb", model)
+        eng.warmup()
+        ln = eng._rm("mb").learner
+        hk.reset_launch_counts()           # this path's own counts
+        out["labels"] = [eng.call("mb", r) for r in reqs]
+        out["update"] = ln.update_now(force=True)["action"]
+        out["updated"] = (model.centroids.copy(),
+                          model._centroids_f64.copy(), model._seen.copy())
+        out["labels_after"] = eng.call("mb", reqs[0])
+        with faults.inject_quality_regression("mb"):
+            ln.evaluate_now(force=True)
+        torch.cuda.synchronize()
+        out["rolled_back"] = (model.centroids.copy(),
+                              model._centroids_f64.copy(),
+                              model._seen.copy())
+        out["actions"] = [d["action"] for d in ln.status()["decisions"]]
+        out["applied"] = [np.stack(b) for b in ln.applied_batches]
+        out["launches"] = dict(hk.LAUNCHES)
+        out["dispatches"] = eng.dispatches
+        out["seq_digest"] = eng._seq.digest
+    return out
+
+
+def _mesh_gmm(mesh, refs):
+    """The mixture on the model axis (every rank alike): one E-step at
+    phase ``gmm``'s parameters, the 'diag' fit from ``means0``, 'full' from
+    phase ``gmm_full_tied``'s starting means, and the device loop's
+    refusal over gloo; each path with this rank's launches."""
+    x_gmm, _ = kernel_edits.estep_inputs(GMM["n"], GMM["d"], GMM["k"], DEV)
+    out = {}
+    gm = GaussianMixture(n_components=GMM["k"], max_iter=GMM_AXIS["iters"],
+                         tol=0.0, seed=7, means_init=refs["means0"],
+                         mesh=mesh, device=DEV)
+    for name, value in refs["gmm"].items():
+        setattr(gm, name, value)
+    from kmeans_tpu_torch.obs import cost as obs_cost
+    ds = gm._dataset(x_gmm)
+    chunk = gm._chunk(ds)
+    tables = gm._params_dev()
+    _clear_step_caches()                   # a cost record at the miss
+    hk.reset_launch_counts()               # this path's own counts
+    with obs_cost.collecting() as col:
+        st = gm._make_step(mesh, chunk, gm._mode(), 0)(
+            ds.points, ds.weights, *tables)
+    rec = next(r for r in col.records()
+               if _built_by(r, "make_gmm_step_fn"))
+    out["estep"] = [t.cpu() for t in st]
+    out["estep_launches"] = dict(hk.LAUNCHES)
+    # The kernel mode exchanges every row's statistics at once (the bill's
+    # chunk_rows=0); the torch pass per chunk.
+    out["comm"] = dict(collective_bytes=rec.collective_bytes,
+                       collectives=rec.collectives,
+                       rows=int(ds.points.shape[0]),
+                       chunk=0 if gm._mode() == "kernel" else chunk)
+    del ds, st
+    gm = GaussianMixture(n_components=GMM["k"], max_iter=GMM_AXIS["iters"],
+                         tol=0.0, seed=7, means_init=refs["means0"],
+                         mesh=mesh, device=DEV)
+    hk.reset_launch_counts()               # this path's own counts
+    t0 = time.perf_counter()
+    gm.fit(x_gmm)
+    torch.cuda.synchronize()
+    out["fit"] = dict(lower_bound=gm.lower_bound_, n_iter=gm.n_iter_,
+                      iter_times=gm.iter_times_, means=gm.means_,
+                      fit_seconds=time.perf_counter() - t0,
+                      launches=dict(hk.LAUNCHES), path=gm.estep_path_,
+                      labels=gm.predict(x_gmm[:PREDICT_ROWS]))
+    del gm
+    try:
+        GaussianMixture(n_components=8, max_iter=2, host_loop=False,
+                        mesh=mesh, device=DEV).fit(x_gmm[:4096])
+        out["device_loop_error"] = None
+    except ValueError as e:
+        out["device_loop_error"] = str(e)
+    del x_gmm
+    gf = GaussianMixture(n_components=FULL["k"], covariance_type="full",
+                         max_iter=FULL["iters"], tol=0.0, seed=7,
+                         means_init=refs["full"]["means0"], mesh=mesh,
+                         device=DEV)
+    hk.reset_launch_counts()               # this path's own counts
+    t0 = time.perf_counter()
+    gf.fit(full_data())
+    torch.cuda.synchronize()
+    out["full"] = dict(lower_bound=gf.lower_bound_, n_iter=gf.n_iter_,
+                       means=gf.means_, covariances=gf.covariances_,
+                       iter_times=gf.iter_times_,
+                       fit_seconds=time.perf_counter() - t0,
+                       launches=dict(hk.LAUNCHES))
+    return out
+
+
+def mesh_child(rank: int, world: int, store: str, out: str) -> None:
+    """One rank of the serving and model-axis phases (spawned): the fleet
+    on ``data2`` and ``model2``, serve-and-learn on ``data2`` and the
+    mixture on ``model2``.  Writes its results to ``out.<rank>``."""
+    import pickle
+    from kmeans_tpu_torch.parallel import multihost
+    from kmeans_tpu_torch.parallel.mesh import make_mesh
+    multihost.initialize(f"file://{store}", world_size=world, rank=rank,
+                         backend="gloo")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with open(f"{out}.refs", "rb") as f:
+        refs = pickle.load(f)
+    meshes = {name: make_mesh(*shape) for name, shape in MESHES.items()}
+    host = np.load(refs["host"])
+    res = {}
+    for name, mesh in meshes.items():
+        res["fleet", name] = _mesh_fleet(mesh, refs["km"], host)
+    res["learn"] = _mesh_learn(meshes["data2"], refs["mb"], host,
+                               Path(out).parent / "learn")
+    res["gmm"] = _mesh_gmm(meshes[GMM_AXIS["mesh"]], refs)
+    with open(f"{out}.{rank}", "wb") as f:
+        pickle.dump(res, f)
+    torch.distributed.destroy_process_group()
+
+
+def phase_mesh_serving(x, km, mb_ref, gm, x_gmm, gmm_tables, full_ref):
+    """Phases ``fleet_mesh``, ``serve_learn_mesh`` and ``gmm_model_axis``:
+    one spawn of two gloo ranks on the card (``mesh_child``), each rank's
+    results against the one-device paths of this process.
+
+    * ``fleet_mesh``: on ``data2`` every rank's labels of the direct and
+      queued requests equal ``km.predict`` (the one-device engine's, by
+      its parity) bit for bit; on ``model2`` the owner of a row is the
+      lowest block reaching its smallest distance, from each block's
+      kernel 2, so the labels are held by the margin band of the
+      one-device labels (the exact differences reported); both ranks
+      followed the same route and sequence (equal digests); kernel 2 once
+      per dispatch on each rank.
+    * ``serve_learn_mesh``: both ranks' tables bit-equal after the update
+      and after the rollback, which restores the pre-update table; within
+      LEARN_MESH's tolerances of a one-device learner fed the same batches
+      (run here); kernel 1 once per applied batch.
+    * ``gmm_model_axis``: one E-step at phase ``gmm``'s parameters within
+      the E-step tolerances of the one-device E-step; the fit's lower
+      bound within LL_RTOL of a one-device fit from the same means;
+      ``diag_estep_rows`` and ``diag_estep_moments`` once per E-step over
+      the rank's rows on each rank and ``diag_estep`` never; 'full' within
+      FULL_LL_RTOL of phase ``gmm_full_tied``'s fit; the device loop's
+      refusal over gloo.
+    Returns every rank's path counts."""
+    import pickle
+    counts = {}
+    host = _serve_rows(x)
+    gen = torch.Generator(device=DEV).manual_seed(41)
+    pick = torch.randperm(x_gmm.shape[0], generator=gen,
+                          device=DEV)[:GMM["k"]]
+    means0 = x_gmm[pick].double().cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        out = str(tmp / "out")
+        np.save(tmp / "host.npy", host)
+        km.save(tmp / "km.npz")
+        mb_ref.save(tmp / "mb.npz")
+        with open(f"{out}.refs", "wb") as f:
+            pickle.dump({"host": str(tmp / "host.npy"),
+                         "km": str(tmp / "km.npz"),
+                         "mb": str(tmp / "mb.npz"), "means0": means0,
+                         "gmm": {name: getattr(gm, name) for name in (
+                             "weights_", "means_", "covariances_",
+                             "shift_")},
+                         "full": full_ref}, f)
+        t0 = time.perf_counter()
+        run_ranks(mesh_child, DP_RANKS, str(tmp / "store"), out)
+        spawn_seconds = time.perf_counter() - t0
+        results = []
+        for rank in range(DP_RANKS):
+            with open(f"{out}.{rank}", "rb") as f:
+                results.append(pickle.load(f))
+        learn_ref = _mesh_learn(None, str(tmp / "mb.npz"), host,
+                                tmp / "learn_one")
+    counts.update(_check_fleet_mesh(results, km, host))
+    counts.update(_check_learn_mesh(results, learn_ref))
+    counts.update(_check_gmm_axis(results, gm, x_gmm, means0, full_ref))
+    emit("mesh_spawn", ranks=DP_RANKS, seconds=spawn_seconds, note=DP_NOTE)
+    return results, counts
+
+
+def _check_fleet_mesh(results, km, host) -> dict:
+    counts = {}
+    cfg = FLEET_MESH
+    requests = [_mesh_request(host, i, cfg["sizes"])
+                for i in range(cfg["calls"] + cfg["queued"])]
+    want = [km.predict(r) for r in requests]
+    c = torch.from_numpy(np.asarray(km.centroids)).to(DEV)
+    for name, (data_shards, model_shards) in MESHES.items():
+        fleets = [res["fleet", name] for res in results]
+        for rank, f in enumerate(fleets):
+            path = f"fleet_mesh:{name}:rank{rank}"
+            got = f["calls"] + [f["queued"][i] for i in range(cfg["queued"])]
+            exact = sum(int(np.sum(g != w)) for g, w in zip(got, want))
+            outside = 0
+            if exact:
+                for r, g, w in zip(requests, got, want):
+                    if not np.array_equal(g, w):
+                        outside += cmp.label_band(
+                            torch.from_numpy(r).to(DEV), c,
+                            torch.from_numpy(g).to(DEV),
+                            torch.from_numpy(w).to(DEV))[1]
+            k2 = f["launches"].get("hopper_assign", 0)
+            counts[path] = {k: v for k, v in f["launches"].items() if v}
+            emit("fleet_mesh", mesh=name, data=data_shards,
+                 model=model_shards, rank=rank, calls=cfg["calls"],
+                 queued=cfg["queued"], threads=cfg["threads"],
+                 label_diff=exact, label_diff_outside_band=outside,
+                 dispatches=f["dispatches"], kernel2_launches=k2,
+                 redispatches=f["redispatches"],
+                 route_digest=f["route_digest"], seq_digest=f["seq_digest"],
+                 decision_exchanges=f["decisions"],
+                 call_seconds=f["call_seconds"], launches=counts[path],
+                 note=DP_NOTE)
+            check(exact == 0 if model_shards == 1 else outside == 0,
+                  f"{path}: {exact} labels differ from the one-device "
+                  f"engine's ({outside} outside the band)")
+            check(k2 == f["dispatches"] > 0,
+                  f"{path}: kernel 2 launched {k2} times for "
+                  f"{f['dispatches']} dispatches")
+        for key in ("route_digest", "seq_digest", "dispatches"):
+            check(fleets[0][key] == fleets[1][key],
+                  f"fleet_mesh:{name}: the ranks' {key} differ")
+    return counts
+
+
+def _check_learn_mesh(results, ref) -> dict:
+    counts = {}
+    learns = [res["learn"] for res in results]
+    for key in ("updated", "rolled_back"):
+        check(all(np.array_equal(a, b) for a, b in zip(
+            learns[0][key], learns[1][key])),
+            f"serve_learn_mesh: the ranks' tables differ after the "
+            f"{key.replace('_', ' ')}")
+    for rank, ln in enumerate(learns):
+        path = f"serve_learn_mesh:data2:rank{rank}"
+        same_batches = len(ln["applied"]) == len(ref["applied"]) and all(
+            np.array_equal(a, b) for a, b in zip(ln["applied"],
+                                                 ref["applied"]))
+        c, c_ref = ln["updated"][1], ref["updated"][1]
+        diff = float(np.abs(c - c_ref).max())
+        within = bool(np.all(np.abs(c - c_ref) <= LEARN_MESH_ATOL_SHARE
+                             * np.abs(c_ref).max()
+                             + LEARN_MESH_RTOL * np.abs(c_ref)))
+        restored = np.array_equal(ln["rolled_back"][1],
+                                  ref["rolled_back"][1])
+        k1 = ln["launches"].get("fused_assign_reduce", 0)
+        batches = sum(b.shape[0] for b in ln["applied"])
+        counts[path] = {k: v for k, v in ln["launches"].items() if v}
+        emit("serve_learn_mesh", mesh="data2", rank=rank,
+             actions=ln["actions"], same_batches=same_batches,
+             max_centroid_diff_one_device=diff, within=within,
+             rollback_restored_pre_update=restored,
+             kernel1_launches=k1, update_batches=batches,
+             dispatches=ln["dispatches"], seq_digest=ln["seq_digest"],
+             launches=counts[path], note=DP_NOTE)
+        check(ln["actions"] == ["update", "rollback"] and same_batches
+              and within and restored and k1 == batches > 0,
+              f"{path}: {ln['actions']}, batches {same_batches}, "
+              f"within {within} ({diff}), restored {restored}, kernel 1 "
+              f"{k1} for {batches} batches")
+    check(learns[0]["seq_digest"] == learns[1]["seq_digest"],
+          "serve_learn_mesh: the ranks' sequences differ")
+    return counts
+
+
+def _check_gmm_axis(results, gm, x_gmm, means0, full_ref) -> dict:
+    counts = {}
+    ds = gm._dataset(x_gmm)
+    want = make_gmm_step_fn(chunk_size=gm._chunk(ds), mode=gm._mode())(
+        ds.points, ds.weights, *gm._params_dev())
+    one = GaussianMixture(n_components=GMM["k"], max_iter=GMM_AXIS["iters"],
+                          tol=0.0, seed=7, means_init=means0,
+                          device=DEV).fit(x_gmm)
+    one_labels = one.predict(x_gmm[:PREDICT_ROWS])
+    for rank, res in enumerate(results):
+        g = res["gmm"]
+        path = f"gmm_model_axis:{GMM_AXIS['mesh']}:rank{rank}"
+        est, fit = g["estep_launches"], g["fit"]["launches"]
+        estep = cmp.estep_errors([t.to(DEV) for t in g["estep"]], want)
+        ll_rel = abs(g["fit"]["lower_bound"] - one.lower_bound_) / abs(
+            one.lower_bound_)
+        a, b = fit.get("diag_estep_rows", 0), fit.get("diag_estep_moments",
+                                                      0)
+        per_estep = (est.get("diag_estep_rows") == 1
+                     == est.get("diag_estep_moments")
+                     and a == b == g["fit"]["n_iter"] + 1
+                     and not fit.get("diag_estep", 0)
+                     and not est.get("diag_estep", 0))
+        full = g["full"]
+        full_rel = abs(full["lower_bound"] - full_ref["lower_bound"]) / abs(
+            full_ref["lower_bound"])
+        # Phase comm: the E-step's bytes at mesh.all_reduce against the
+        # mixture's model-axis bill.
+        from kmeans_tpu_torch.obs import fleet as obs_fleet
+        comm = g["comm"]
+        bill = obs_fleet.comm_bytes_model(
+            "gmm", k=GMM["k"], d=GMM["d"], model_shards=DP_RANKS,
+            acc_bytes=4, rows=comm["rows"], chunk_rows=comm["chunk"])
+        chk = obs_fleet.comm_crosscheck(bill, SimpleNamespace(**comm))
+        print(obs_fleet.format_comm_table(bill, chk), flush=True)
+        emit("comm", path=path, mesh=GMM_AXIS["mesh"], rank=rank,
+             crosscheck=chk, note=DP_NOTE)
+        check(chk["agree"] is True
+              and chk["measured_bytes"] == bill["hlo_program_bytes"],
+              f"comm {path}: {chk}")
+        counts[path] = {k: v for k, v in fit.items() if v}
+        counts[path + ":full"] = {k: v for k, v in full["launches"].items()
+                                  if v}
+        emit("gmm_model_axis", mesh=GMM_AXIS["mesh"], rank=rank,
+             n=GMM["n"], d=GMM["d"], k=GMM["k"],
+             k_local=GMM["k"] // DP_RANKS,
+             estep_at_one_device_parameters=estep,
+             estep_launches={k: v for k, v in est.items() if v},
+             fit_launches=counts[path], esteps_in_fit=a,
+             lower_bound=g["fit"]["lower_bound"],
+             one_device_lower_bound=one.lower_bound_,
+             lower_bound_rel_diff=ll_rel,
+             max_mean_diff=float(np.abs(g["fit"]["means"]
+                                        - one.means_).max()),
+             same_labels=int((g["fit"]["labels"] == one_labels).sum()),
+             predict_rows=PREDICT_ROWS, estep_path=g["fit"]["path"],
+             seconds_per_iteration=statistics.median(g["fit"]["iter_times"]),
+             one_device_seconds_per_iteration=statistics.median(
+                 one.iter_times_),
+             fit_seconds=g["fit"]["fit_seconds"],
+             full_lower_bound_rel_diff=full_rel,
+             full_iterations=full["n_iter"],
+             full_seconds_per_iteration=statistics.median(
+                 full["iter_times"]),
+             device_loop_refused=g["device_loop_error"], note=DP_NOTE)
+        check(estep["ok"] and ll_rel <= cmp.LL_RTOL,
+              f"{path}: off the one-device mixture: {estep}, lower bound "
+              f"{ll_rel}")
+        check(per_estep, f"{path}: launches {est} (E-step), {fit} (fit), "
+                         f"not one pair per E-step ({g['fit']['n_iter']} "
+                         f"iterations and the last bound)")
+        check(full["n_iter"] == full_ref["n_iter"]
+              and full_rel <= FULL_LL_RTOL,
+              f"{path}: 'full' lower bound {full_rel} off the one-device "
+              f"fit")
+        check(g["device_loop_error"] is not None
+              and "NCCL" in g["device_loop_error"],
+              f"{path}: host_loop=False over gloo did not raise")
+    return counts
+
+
+def library_rows(x, w, shift, means_c, inv_var, log_det, log_w,
+                 chunk=EM_MAX_CHUNK):
+    """The yardstick of launch (a): addmm for logp and torch's logsumexp,
+    over chunks of EM_MAX_CHUNK rows (TF32 off)."""
+    coef, c1 = ek.estep_coefficients(means_c, inv_var, log_det, log_w)
+    out = torch.empty(x.shape[0], device=DEV)
+    for lo in range(0, x.shape[0], chunk):
+        xc = x[lo:lo + chunk] - shift
+        logp = torch.addmm(c1, torch.cat([xc, xc * xc], dim=1), coef.T)
+        out[lo:lo + chunk] = torch.logsumexp(logp, dim=1)
+    return out
+
+
+def library_moments(x, w, shift, means_c, inv_var, log_det, log_w, row_max,
+                    row_sum, chunk=EM_MAX_CHUNK):
+    """The yardstick of launch (b): addmm for logp, the responsibilities
+    from the given max and sum, one product r^T [x_c, x_c^2]."""
+    coef, c1 = ek.estep_coefficients(means_c, inv_var, log_det, log_w)
+    k, d = means_c.shape
+    rsum = torch.zeros(k, device=DEV)
+    mom = torch.zeros((k, 2 * d), device=DEV)
+    for lo in range(0, x.shape[0], chunk):
+        xc = x[lo:lo + chunk] - shift
+        f = torch.cat([xc, xc * xc], dim=1)
+        logp = torch.addmm(c1, f, coef.T)
+        r = torch.exp(logp - row_max[lo:lo + chunk, None]) \
+            * (w[lo:lo + chunk] / row_sum[lo:lo + chunk])[:, None]
+        rsum += r.sum(0)
+        mom += r.T @ f
+    return rsum, mom[:, :d], mom[:, d:]
+
+
+#: Launch (a) against its plain version row by row: ``|m - m_plain|`` and
+#: ``|log s - log s_plain|`` at most ROWS_RTOL times the row's term scale,
+#: the largest ``|c1_k| + sum_j |f_j| |coef_kj|`` of its log-density
+#: products (:func:`_term_scale`): both sides are float32 sums of the same
+#: terms in another order, whose rounding grows with the terms' size, not
+#: with the result's (logp of about -1e2 from terms of about 1e3 here).
+#: Measured by this phase on an H100 80GB HBM3 at 700 W: at most 7.5e-7
+#: (dm) and 3.8e-7 (d log s) on phase ``gmm``'s tables, 9.3e-8 on the soft
+#: ones; a launch reporting s = 1 reads 1.1e-4 and 4.5e-3 there.
+ROWS_RTOL = 4e-6
+#: The soft tables of phase ``estep_split``: every variance times this, so
+#: the components of a row share it (log s well above the limit on most
+#: rows), where the random tables give nearly every row s = 1.
+SOFT_VAR_SCALE = 4096.0
+
+
+def _split_chain(x, w, shift, blocks, rows_fn, moments_fn):
+    """(a) on every block, the max and the sum combined as the axis's MAX
+    and SUM would, (b) on every block: ``(pairs, M, S, (rsum, s1, s2,
+    ll))`` with the blocks' statistics concatenated."""
+    pairs = [rows_fn(x, w, shift, *b) for b in blocks]
+    big_m = torch.stack([m for m, _ in pairs]).max(dim=0).values
+    big_s = sum(ek.combine_terms(m, s, big_m) for m, s in pairs)
+    outs = [moments_fn(x, w, shift, *b, big_m, big_s) for b in blocks]
+    stats = [torch.cat([o[f] for o in outs]) for f in range(3)]
+    return pairs, big_m, big_s, stats + [outs[0][3]]
+
+
+def _term_scale(x, shift, blocks, chunk=EM_MAX_CHUNK):
+    """Every row's largest ``|c1_k| + sum_j |f_j| |coef_kj|`` over the
+    components of ``blocks``, ``f = [x - shift, (x - shift)^2]``: the size
+    of the terms its float32 log-densities sum."""
+    out = torch.zeros(x.shape[0], device=DEV)
+    for b in blocks:
+        coef, c1 = ek.estep_coefficients(*b)
+        coef, c1 = coef.abs(), c1.abs()
+        for lo in range(0, x.shape[0], chunk):
+            xc = x[lo:lo + chunk] - shift
+            f = torch.cat([xc, xc * xc], dim=1).abs()
+            out[lo:lo + chunk] = torch.maximum(
+                out[lo:lo + chunk],
+                torch.addmm(c1, f, coef.T).max(dim=1).values)
+    return out
+
+
+def _rows_readings(pairs, plain_pairs, scale) -> dict:
+    """Launch (a)'s pairs against the plain version's, row by row: the
+    largest ``|dm|`` and ``|d log s|``, each also over the row's term
+    ``scale``; the zero pattern of s and of m = -inf; and the control, a
+    launch that reported s = 1 (its error ``|log s_plain|``), over the
+    same scale, with the rows where it would break the limit."""
+    dm = dlogs = dm_rel = dlogs_rel = control = control_rel = 0.0
+    soft = 0
+    zeros_ok = True
+    for (m, s), (mp, sp) in zip(pairs, plain_pairs):
+        zeros_ok = zeros_ok and bool(torch.equal(s == 0, sp == 0)) and \
+            bool(torch.equal(torch.isneginf(m), torch.isneginf(mp)))
+        live = sp > 0
+        m, s, mp, sp, sc = m[live], s[live], mp[live], sp[live], scale[live]
+        e_m = (m - mp).abs()
+        e_s = (torch.log(s) - torch.log(sp)).abs()
+        logs = torch.log(sp)
+        dm, dlogs = max(dm, float(e_m.max())), max(dlogs, float(e_s.max()))
+        dm_rel = max(dm_rel, float((e_m / sc).max()))
+        dlogs_rel = max(dlogs_rel, float((e_s / sc).max()))
+        control = max(control, float(logs.max()))
+        control_rel = max(control_rel, float((logs / sc).max()))
+        soft += int((logs > ROWS_RTOL * sc).sum())
+    return dict(zeros_ok=zeros_ok, max_dm=dm, max_dlog_s=dlogs,
+                max_dm_rel=dm_rel, max_dlog_s_rel=dlogs_rel,
+                s_one_control=control, s_one_control_rel=control_rel,
+                rows_the_control_breaks=soft,
+                ok=zeros_ok and dm_rel <= ROWS_RTOL
+                and dlogs_rel <= ROWS_RTOL)
+
+
+def phase_estep_split_timing(x, tables, launches) -> list:
+    """Launches (a) and (b) at the model axis's own shape: phase ``gmm``'s
+    rows, all of them in one launch as ``gmm_model_axis`` runs them (each
+    rank of ``model2`` holds every row), k_local = k / 2; each held against
+    its plain version and timed beside it, its bound and its yardstick.
+    Each side runs the whole chain (:func:`_split_chain`), on phase
+    ``gmm``'s tables and on the soft tables (SOFT_VAR_SCALE).  (a): every
+    row's m and log s within ROWS_RTOL of its term scale of the plain
+    version's; s = 0 and m = -inf exactly where the plain version has them,
+    also on a block of only inert components; the rows' log-sum-exp summed
+    with the weights (the E-step's ll) within LL_RTOL of the plain chain's;
+    a launch reporting s = 1 is printed as the control.  (b): both blocks'
+    statistics within the E-step tolerances of ``ops.compare`` against the
+    plain chain (not the plain (b) fed the kernel's max and sum: a
+    responsibility ``exp(logp - M)`` needs its logp and its M from the same
+    products), and against the plain E-step of the whole table.  Returns
+    the two kernel rows."""
+    n, d = x.shape
+    shift, means_c, inv_var, log_det, log_w = tables
+    k = means_c.shape[0]
+    kl = k // DP_RANKS
+    w = torch.ones(n, device=DEV)
+    soft_tables = (shift, means_c, inv_var / SOFT_VAR_SCALE,
+                   log_det + d * math.log(SOFT_VAR_SCALE), log_w)
+
+    def blocks_of(t):
+        return [[u[i * kl:(i + 1) * kl].contiguous() for u in t[1:]]
+                for i in range(DP_RANKS)]
+    readings, ok = {}, True
+    for name, tab in (("gmm", tables), ("soft", soft_tables)):
+        blocks = blocks_of(tab)
+        pairs, big_m, big_s, got = _split_chain(
+            x, w, shift, blocks, ek.diag_estep_rows, ek.diag_estep_moments)
+        plain_pairs, plain_m, plain_s, plain = _split_chain(
+            x, w, shift, blocks, ek.diag_estep_rows_reference,
+            ek.diag_estep_moments_reference)
+        rows_r = _rows_readings(pairs, plain_pairs,
+                                _term_scale(x, shift, blocks))
+        # The rows' global log-sum-exp summed with the weights: the
+        # E-step's ll, within LL_RTOL of the plain chain's.
+        ll, plain_ll = ((w.double() * (mm + torch.log(ss)).double()).sum()
+                        for mm, ss in ((big_m, big_s), (plain_m, plain_s)))
+        rows_r.update(ll_rel_err=float(abs(ll - plain_ll) / abs(plain_ll)),
+                      lse_max_abs_err=cmp.max_err(
+                          big_m + torch.log(big_s),
+                          plain_m + torch.log(plain_s)))
+        rows_r["ok"] = rows_r["ok"] and cmp.close(ll, plain_ll, cmp.LL_RTOL,
+                                                  0.0)
+        moments = cmp.estep_errors(got, plain)
+        whole = cmp.estep_errors(got, ek.diag_estep_reference(x, w, *tab))
+        readings[name] = dict(rows=rows_r, moments_against_plain_chain=moments,
+                              against_plain_whole_estep=whole)
+        ok = ok and rows_r["ok"] and moments["ok"] and whole["ok"]
+        if name == "gmm":
+            timed = (blocks[0], big_m, big_s, plain_m, plain_s)
+    # A block of only inert components: max -inf and sum 0, no NaN.
+    b0 = blocks_of(tables)[0]
+    inert = [torch.zeros_like(b0[0]), torch.ones_like(b0[1]),
+             torch.zeros_like(b0[2]), torch.full_like(b0[3], float("-inf"))]
+    m_in, s_in = ek.diag_estep_rows(x, w, shift, *inert)
+    inert_ok = bool(torch.isneginf(m_in).all() and (s_in == 0).all())
+    torch.cuda.synchronize()
+    emit("estep_split", n=n, d=d, k=k, k_local=kl, rows_rtol=ROWS_RTOL,
+         soft_var_scale=SOFT_VAR_SCALE, inert_block_ok=inert_ok,
+         **readings)
+    check(ok and inert_ok,
+          f"estep_split: {readings}, inert block {inert_ok}")
+    block, big_m, big_s, plain_m, plain_s = timed
+    rows_err = max(max(r["rows"]["max_dm"], r["rows"]["max_dlog_s"])
+                   for r in readings.values())
+    moments = readings["gmm"]["moments_against_plain_chain"]
+    args = (x, w, shift, *block)
+    rows = []
+    for name, kind, fn, plain, lib, err in (
+            ("diag_estep_rows", "estep_rows",
+             lambda: ek.diag_estep_rows(*args),
+             lambda: ek.diag_estep_rows_reference(*args),
+             lambda: library_rows(*args), rows_err),
+            ("diag_estep_moments", "estep_moments",
+             lambda: ek.diag_estep_moments(*args, big_m, big_s),
+             lambda: ek.diag_estep_moments_reference(*args, plain_m,
+                                                     plain_s),
+             lambda: library_moments(*args, big_m, big_s),
+             max(moments[f"{f}_err"] for f in ("rsum", "s1", "s2",
+                                               "ll")))):
+        bound_ms, by, byt, ops, scalar_ms = estep_bounds(n, d, kl, kind)
+        ms = median_ms(fn)
+        plain_ms = median_ms(plain)
+        library = median_ms(lib)
+        rows.append({"name": name, "route": "cuda",
+                     "source": "kmeans_tpu_torch/csrc/gmm_estep.cu",
+                     "replaces": "experiments/exp_gmm_estep_pallas.py:139",
+                     "launches": launches.get(name, 0), "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": by, "library_ms": library})
+        emit("timing", kernel=name, n=n, d=d, k_local=kl, kernel_ms=ms,
+             plain_ms=plain_ms, library_ms=library, bound_ms=bound_ms,
+             bound_by=by, bytes=byt, operations=ops,
+             tensor_core_rate="3xTF32", scalar_float32_bound_ms=scalar_ms,
+             roofline_share=bound_ms / ms)
+    return rows
 
 
 def phase_dp_world1(x, refs, minibatch_ref, x_gmm, gmm_ref, stream_ref):
@@ -7332,6 +7988,16 @@ def main() -> None:
     refs["full"] = full_ref
     results, mesh_counts = phase_dp_shared_card(x_main, refs, drawn["main"])
     mesh_counts.update(phase_dp_gmm(results, gm, x_gmm, full_ref))
+    del results
+    # The fleet, serve-and-learn and the mixture's model axis on two gloo
+    # ranks sharing the card (one spawn), then launches (a) and (b) of the
+    # model axis against their plain versions.
+    results, axis_counts = phase_mesh_serving(
+        x_main, km, minibatch_ref, gm, x_gmm, gmm_tables, full_ref)
+    mesh_counts.update(axis_counts)
+    rows += phase_estep_split_timing(
+        x_gmm, gmm_tables,
+        results[0]["gmm"]["fit"]["launches"])
     del results
     mesh_counts.update(phase_dp_world1(x_main, {
         ("f32", "host"): km, ("bf16", "host"): km_bf16,

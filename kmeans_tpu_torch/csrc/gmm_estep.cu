@@ -648,12 +648,31 @@ __device__ __forceinline__ void moments(const Rows<RESIDENT>& rows,
     }
 }
 
-template <bool RESIDENT>
+// PART selects what one launch does (the instance PART = WHOLE is the
+// whole E-step above; the other two split it for a table whose components
+// are spread over the ranks of a model axis, each rank holding a block):
+//
+//   WHOLE    steps 1 and 2 over all k components, as described at the top;
+//   ROWS     step 1 only over the block's components: each row's max m and
+//            sum s = sum_k exp(logp - m) go to row_m_io and row_s_io (a
+//            block of inert components, every logp -inf, gives m = -inf
+//            and s = 0); no table, no ll;
+//   MOMENTS  step 2 only, from every row's global max M and sum S read from
+//            row_m_io and row_s_io (the ranks' m and s combined by the
+//            caller): scale w / S and ll term w (M + log S) per row, then
+//            every component tile's logp recomputed, its responsibilities
+//            and moments into the block's table.
+constexpr int WHOLE = 0;
+constexpr int ROWS = 1;
+constexpr int MOMENTS = 2;
+
+template <bool RESIDENT, int PART>
 __global__ void __launch_bounds__(THREADS, 1)
 estep_kernel(const float* __restrict__ x, const float* __restrict__ w,
              const float* __restrict__ shift, const float* __restrict__ cs,
              const float* __restrict__ c1, float* __restrict__ partial,
-             double* __restrict__ ll_partial, long long n, int d, int k) {
+             double* __restrict__ ll_partial, long long n, int d, int k,
+             float* __restrict__ row_m_io, float* __restrict__ row_s_io) {
     extern __shared__ __align__(16) float smem[];
     __shared__ float ws[BM];
     __shared__ float row_m[BM];        // running max_k logp of each row
@@ -680,16 +699,34 @@ estep_kernel(const float* __restrict__ x, const float* __restrict__ w,
         load_tile<RESIDENT>(x, w, shift, row0, n, d, ldx, xs, ws, row_m,
                             row_s);
         const Rows<RESIDENT> rows{xs, ldx, x, shift, ws, row0, d};
+        if constexpr (PART == MOMENTS) {
+            if (threadIdx.x < BM) {
+                const long long row = row0 + threadIdx.x;
+                row_m[threadIdx.x] = row < n ? row_m_io[row] : 0.f;
+                row_s[threadIdx.x] = row < n ? row_s_io[row] : 1.f;
+            }
+            finish_rows(ws, row_m, row_s, row_scale, row_ll);
+            __syncthreads();
+            if (threadIdx.x == 0) {
+                double tile_ll = 0.0;
+                for (int r = 0; r < BM; ++r) tile_ll += (double)row_ll[r];
+                ll += tile_ll;
+            }
+        }
 
         // Step 1 (i < ctiles): every component tile's logp, the online max
         // and sum.  Step 2: responsibilities and moments, the last tile
         // first (its logp, or with one tile its responsibilities, are still
         // in rt), the others recomputed.
-        for (int i = 0; i < 2 * ctiles; ++i) {
+        // ROWS runs step 1 alone, MOMENTS step 2 alone in component order,
+        // every tile recomputed.
+        for (int i = PART == MOMENTS ? ctiles : 0;
+             i < (PART == ROWS ? ctiles : 2 * ctiles); ++i) {
             const bool second = i >= ctiles;
-            const bool first_of_second = i == ctiles;
+            const bool first_of_second = PART == WHOLE && i == ctiles;
             const bool kept = first_of_second;
             const int c0 = !second ? i * TC
+                         : PART == MOMENTS ? (i - ctiles) * TC
                          : first_of_second ? last : (i - ctiles - 1) * TC;
             if (!kept) {
                 float acc[MT1][NT1][4];
@@ -698,7 +735,7 @@ estep_kernel(const float* __restrict__ x, const float* __restrict__ w,
                 __syncthreads();
             }
             if (!second) {
-                if (fused)
+                if (fused && PART == WHOLE)
                     softmax_rows(rt, ws, row_m, row_s, row_scale, row_ll);
                 else
                     row_stats(rt, row_m, row_s);
@@ -722,8 +759,15 @@ estep_kernel(const float* __restrict__ x, const float* __restrict__ w,
             }
             moments(rows, rt, c0, k, d, dx, table);
         }
+        if constexpr (PART == ROWS) {
+            __syncthreads();           // every row's max and sum are final
+            if (threadIdx.x < BM && row0 + threadIdx.x < n) {
+                row_m_io[row0 + threadIdx.x] = row_m[threadIdx.x];
+                row_s_io[row0 + threadIdx.x] = row_s[threadIdx.x];
+            }
+        }
     }
-    if (threadIdx.x == 0) ll_partial[blockIdx.x] = ll;
+    if (PART != ROWS && threadIdx.x == 0) ll_partial[blockIdx.x] = ll;
 }
 
 // The split coefficients cs (k rows of padded_d(d) / 4 groups x GF floats:
@@ -801,23 +845,46 @@ __global__ void estep_reduce_kernel(const float* __restrict__ partial,
 
 // Launches estep_kernel with the dynamic shared memory of its x layout and
 // the largest shared-memory share of the SM.
-template <bool RESIDENT>
+template <bool RESIDENT, int PART>
 int launch_estep(const float* x, const float* w, const float* shift,
                  const float* cs, const float* c1, float* partial,
                  double* ll_partial, long long n, int d, int k, int blocks,
-                 cudaStream_t st) {
+                 cudaStream_t st, float* row_m_io = nullptr,
+                 float* row_s_io = nullptr) {
     const size_t bytes = smem_bytes(RESIDENT, d);
     int err = (int)cudaFuncSetAttribute(
-        estep_kernel<RESIDENT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
+        estep_kernel<RESIDENT, PART>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err == 0)
         err = (int)cudaFuncSetAttribute(
-            estep_kernel<RESIDENT>,
+            estep_kernel<RESIDENT, PART>,
             cudaFuncAttributePreferredSharedMemoryCarveout,
             (int)cudaSharedmemCarveoutMaxShared);
     if (err != 0) return err;
-    estep_kernel<RESIDENT><<<blocks, THREADS, bytes, st>>>(
-        x, w, shift, cs, c1, partial, ll_partial, n, d, k);
+    estep_kernel<RESIDENT, PART><<<blocks, THREADS, bytes, st>>>(
+        x, w, shift, cs, c1, partial, ll_partial, n, d, k, row_m_io,
+        row_s_io);
+    return (int)cudaGetLastError();
+}
+
+// The per-component tables of both products (estep_tables_kernel).
+int launch_tables(const float* means_c, const float* inv_var,
+                  const float* log_det, const float* log_weights, float* coef,
+                  float* c1, int d, int k, cudaStream_t st) {
+    const int warps = 8;
+    estep_tables_kernel<<<(k + warps - 1) / warps, warps * 32, 0, st>>>(
+        means_c, inv_var, log_det, log_weights, coef, c1, d, k);
+    return (int)cudaGetLastError();
+}
+
+// The blocks' tables and ll partials into rsum, s1, s2, ll.
+int launch_reduce(const float* partial, const double* ll_partial,
+                  float* rsum, float* s1, float* s2, float* ll, int blocks,
+                  int d, int k, cudaStream_t st) {
+    const size_t total = (size_t)k * (size_t)(2 * d + 1) + 1;
+    const int rt = 256;
+    estep_reduce_kernel<<<(unsigned)((total + rt - 1) / rt), rt, 0, st>>>(
+        partial, ll_partial, rsum, s1, s2, ll, blocks, d, k);
     return (int)cudaGetLastError();
 }
 
@@ -851,20 +918,60 @@ extern "C" int gmm_diag_estep_launch(
         double* ll_partial, float* rsum, float* s1, float* s2, float* ll,
         long long n, int d, int k, int blocks, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int warps = 8;
-    estep_tables_kernel<<<(k + warps - 1) / warps, warps * 32, 0, st>>>(
-        means_c, inv_var, log_det, log_weights, coef, c1, d, k);
-    int err = (int)cudaGetLastError();
+    int err = launch_tables(means_c, inv_var, log_det, log_weights, coef, c1,
+                            d, k, st);
     if (err != 0) return err;
     err = x_resident(d)
-        ? launch_estep<true>(x, w, shift, coef, c1, partial, ll_partial, n,
-                             d, k, blocks, st)
-        : launch_estep<false>(x, w, shift, coef, c1, partial, ll_partial, n,
-                              d, k, blocks, st);
+        ? launch_estep<true, WHOLE>(x, w, shift, coef, c1, partial,
+                                    ll_partial, n, d, k, blocks, st)
+        : launch_estep<false, WHOLE>(x, w, shift, coef, c1, partial,
+                                     ll_partial, n, d, k, blocks, st);
     if (err != 0) return err;
-    const size_t total = (size_t)k * (size_t)(2 * d + 1) + 1;
-    const int rt = 256;
-    estep_reduce_kernel<<<(unsigned)((total + rt - 1) / rt), rt, 0, st>>>(
-        partial, ll_partial, rsum, s1, s2, ll, blocks, d, k);
-    return (int)cudaGetLastError();
+    return launch_reduce(partial, ll_partial, rsum, s1, s2, ll, blocks, d, k,
+                         st);
+}
+
+// Launch (a) of the model axis: the tables and estep_kernel<ROWS> over the
+// block's k components, writing every row's max and sum into row_m and
+// row_s (n floats each).  Scratch as in gmm_diag_estep_launch.
+extern "C" int gmm_diag_estep_rows_launch(
+        const float* x, const float* w, const float* shift,
+        const float* means_c, const float* inv_var, const float* log_det,
+        const float* log_weights, float* coef, float* c1, float* row_m,
+        float* row_s, long long n, int d, int k, int blocks, void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    int err = launch_tables(means_c, inv_var, log_det, log_weights, coef, c1,
+                            d, k, st);
+    if (err != 0) return err;
+    return x_resident(d)
+        ? launch_estep<true, ROWS>(x, w, shift, coef, c1, nullptr, nullptr, n,
+                                   d, k, blocks, st, row_m, row_s)
+        : launch_estep<false, ROWS>(x, w, shift, coef, c1, nullptr, nullptr,
+                                    n, d, k, blocks, st, row_m, row_s);
+}
+
+// Launch (b) of the model axis: the tables, estep_kernel<MOMENTS> from every
+// row's global max and sum (row_m, row_s: n floats each, read only) and the
+// reduction, as gmm_diag_estep_launch.
+extern "C" int gmm_diag_estep_moments_launch(
+        const float* x, const float* w, const float* shift,
+        const float* means_c, const float* inv_var, const float* log_det,
+        const float* log_weights, float* row_m, float* row_s, float* coef,
+        float* c1, float* partial, double* ll_partial, float* rsum,
+        float* s1, float* s2, float* ll, long long n, int d, int k,
+        int blocks, void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    int err = launch_tables(means_c, inv_var, log_det, log_weights, coef, c1,
+                            d, k, st);
+    if (err != 0) return err;
+    err = x_resident(d)
+        ? launch_estep<true, MOMENTS>(x, w, shift, coef, c1, partial,
+                                      ll_partial, n, d, k, blocks, st, row_m,
+                                      row_s)
+        : launch_estep<false, MOMENTS>(x, w, shift, coef, c1, partial,
+                                       ll_partial, n, d, k, blocks, st, row_m,
+                                       row_s);
+    if (err != 0) return err;
+    return launch_reduce(partial, ll_partial, rsum, s1, s2, ll, blocks, d, k,
+                         st);
 }

@@ -71,7 +71,7 @@ import torch
 
 from kmeans_tpu_torch.models.fault_tolerance import AutoCheckpointMixin
 from kmeans_tpu_torch.models.init import forgy_init
-from kmeans_tpu_torch.models.kmeans import KMeans, _later, resolve_device
+from kmeans_tpu_torch.models.kmeans import KMeans, resolve_device
 from kmeans_tpu_torch.obs import trace as obs_trace
 from kmeans_tpu_torch.obs.heartbeat import note_progress as obs_note_progress
 from kmeans_tpu_torch.parallel.gmm_step import (
@@ -95,13 +95,6 @@ from kmeans_tpu_torch.utils.validation import check_finite_array
 #: large the nearest mean's log-density dominates by far more than the
 #: float32 range, so the responsibilities are one-hot.
 _HARD_INV_VAR = 1e6
-
-#: Constructor arguments of the JAX package that the port does not have
-#: yet: name -> (the values that name what the port does anyway, ROADMAP
-#: item).  Any other value raises NotImplementedError.
-_LATER_ARGS = {
-    "model_shards": ((1,), "A.18 'GaussianMixture on the model axis'"),
-}
 
 #: The mixture's step functions (E-steps, device EM loops, posterior
 #: passes), keyed by builder and arguments: the JAX package's
@@ -134,11 +127,6 @@ def estep_mode(device_type: str, dtype, covariance_type: str) -> str:
             and covariance_type in ("diag", "spherical"):
         return "kernel"
     return "torch"
-
-
-def _is_allowed(value, allowed) -> bool:
-    return any(value is a or (type(value) is type(a) and value == a)
-               for a in allowed)
 
 
 class _StreamRestart:
@@ -182,9 +170,14 @@ class GaussianMixture(AutoCheckpointMixin):
     ``_STEP_CACHE`` and loads ``diag_estep``'s library in the kernel mode
     (the same bits; 'auto' is 1 on a CUDA device).
 
-    ``model_shards`` is taken only at 1 (no model axis); a mesh with a
-    model axis and any other value raise ``NotImplementedError`` naming
-    the ROADMAP item that brings them.
+    ``model_shards``: ranks of the model axis when ``mesh`` is None (the
+    world's mesh ``make_mesh(model=model_shards)`` is made at first use, as
+    in ``KMeans``); a given mesh's model axis wins.  The model axis shards
+    the components (``parallel.gmm_step``: the tables padded with inert
+    components to a multiple of the axis, each rank's block scored, the
+    softmax and the statistics meeting over the axis); every covariance
+    type, both loops, ``n_init``, ``sweep``, ``fit_stream`` and the
+    posterior passes run on it.
 
     ``estep_path_`` records what the last fit ran (:func:`estep_mode`):
     'kernel' (the fused CUDA kernel), or the torch pass's schedule,
@@ -241,14 +234,15 @@ class GaussianMixture(AutoCheckpointMixin):
             raise ValueError(f"overlap must be 'auto', 0, or 1; got "
                              f"{overlap!r}")
         mesh = check_mesh(mesh)
-        if mesh is not None and mesh_shape(mesh)[1] > 1:
+        if int(model_shards) < 1:
+            raise ValueError(f"model_shards must be >= 1, got "
+                             f"{model_shards}")
+        if mesh is not None and model_shards not in (1, mesh_shape(mesh)[1]):
+            raise ValueError(f"model_shards={model_shards} disagrees with "
+                             f"the mesh's model axis {mesh_shape(mesh)[1]}")
+        if mesh is not None:
             model_shards = mesh_shape(mesh)[1]
         bucket = check_bucket(bucket)
-        later = dict(model_shards=model_shards)
-        for name, value in later.items():
-            allowed, item = _LATER_ARGS[name]
-            if not _is_allowed(value, allowed):
-                raise _later(name, value, item)
         self.n_components = n_components
         self.covariance_type = covariance_type
         self.tol = tol
@@ -266,7 +260,7 @@ class GaussianMixture(AutoCheckpointMixin):
             raise ValueError(f"dtype must be float32 or float64, got "
                              f"{self.dtype}")
         self.mesh = mesh
-        self.model_shards = model_shards
+        self.model_shards = int(model_shards)
         self.chunk_size = chunk_size
         self.host_loop = bool(host_loop)
         self.pipeline = pipeline if pipeline == "auto" else int(pipeline)
@@ -324,10 +318,18 @@ class GaussianMixture(AutoCheckpointMixin):
 
     def _resolve_mesh(self):
         """As ``KMeans._resolve_mesh``: the given mesh, else the whole
-        world's where a process group is up, else None."""
-        if self.mesh is None and group_up():
-            self.mesh = make_mesh()
+        world's (``make_mesh(model=model_shards)``) where a process group is
+        up or a model axis is asked for, else None."""
+        if self.mesh is None and (self.model_shards > 1 or group_up()):
+            self.mesh = make_mesh(model=self.model_shards)
         return self.mesh
+
+    @staticmethod
+    def _model_mesh(mesh):
+        """``mesh`` where it has a model axis, else None: the posterior
+        pass needs a mesh only to meet over that axis."""
+        return mesh if mesh is not None and mesh_shape(mesh)[1] > 1 \
+            else None
 
     def _dataset(self, X, sample_weight=None) -> Dataset:
         """X on the device once (the rank's block under a mesh); data that
@@ -1523,7 +1525,7 @@ class GaussianMixture(AutoCheckpointMixin):
                 if tables is None:
                     tables = self._params_dev()
                 predict_fn = _cached(
-                    make_gmm_predict_fn,
+                    make_gmm_predict_fn, self._model_mesh(self.mesh),
                     chunk_size=self.chunk_size or choose_em_chunk(
                         points.shape[0], self._tile_k(d)),
                     cov_type=self.covariance_type)
@@ -1596,7 +1598,8 @@ class GaussianMixture(AutoCheckpointMixin):
         caller may keep (the serving engine; None: made now)."""
         self._check_fitted()
         ds = self._dataset(X)
-        predict_fn = _cached(make_gmm_predict_fn, chunk_size=self._chunk(ds),
+        predict_fn = _cached(make_gmm_predict_fn, self._model_mesh(ds.mesh),
+                             chunk_size=self._chunk(ds),
                              cov_type=self.covariance_type)
         out = predict_fn(ds.points, *(params if params is not None
                                       else self._params_dev()))
@@ -1702,9 +1705,9 @@ class GaussianMixture(AutoCheckpointMixin):
 
     def _state_dict(self) -> dict:
         """Serialisable state in the JAX package's checkpoint vocabulary,
-        with the model's own ``host_loop`` and ``pipeline`` (no model axis:
-        ``model_shards=1``), the jitter ladder's count and the topology
-        block (``meta_mesh_*``)."""
+        with the model's own ``host_loop``, ``pipeline`` and
+        ``model_shards`` (the model axis it runs on), the jitter ladder's
+        count and the topology block (``meta_mesh_*``)."""
         fitted = self.means_ is not None
         state = {
             "model_class": type(self).__name__,
@@ -1713,7 +1716,10 @@ class GaussianMixture(AutoCheckpointMixin):
             "tol": self.tol, "reg_covar": self.reg_covar,
             "max_iter": self.max_iter, "n_init": self.n_init,
             "init_params": self.init_params, "seed": self.seed,
-            "model_shards": 1, "chunk_size": self.chunk_size,
+            "model_shards": (mesh_shape(self.mesh)[1]
+                             if self.mesh is not None
+                             else self.model_shards),
+            "chunk_size": self.chunk_size,
             "host_loop": self.host_loop, "pipeline": self.pipeline,
             "bucket": self.bucket, "overlap": self.overlap,
             "ingest": self.ingest, "verbose": self.verbose,
@@ -1758,18 +1764,10 @@ class GaussianMixture(AutoCheckpointMixin):
     @classmethod
     def _from_state(cls, state: dict, device=None,
                     mesh=None) -> "GaussianMixture":
-        """A model from a checkpoint dictionary written by either package.
-        Arguments the port does not have are dropped with one warning; the
-        device loop's raw tables (``dev_*``) are read too."""
-        dropped = []
-        for name, (allowed, _) in _LATER_ARGS.items():
-            if name in state and not _is_allowed(state[name], allowed):
-                dropped.append(f"{name}={state[name]!r}")
-        if dropped:
-            warnings.warn(
-                "kmeans_tpu_torch does not have these arguments of the saved "
-                "model and dropped them: " + ", ".join(dropped),
-                UserWarning, stacklevel=3)
+        """A model from a checkpoint dictionary written by either package,
+        on ``mesh`` (the model axis it was written on, ``model_shards``, is
+        information only: the state is the whole table, as in ``KMeans``);
+        the device loop's raw tables (``dev_*``) are read too."""
         inits = {name: state[f"cfg_{name}"]
                  for name in ("weights_init", "means_init",
                               "precisions_init")

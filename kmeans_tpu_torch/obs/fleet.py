@@ -541,8 +541,13 @@ def comm_bytes_model(family: str = "kmeans", *, k: int, d: int,
     The port always sends the SSE in the statistics' buffer
     (``compute_sse`` changes nothing), and ``need_sse_pc`` adds the
     per-cluster SSE to it.  ``rows`` (a rank's rows) sizes the owner pick
-    of a model axis.  ``n_chunks`` and ``chunk_rows`` are the reference's
-    arguments; the port's steps send nothing per chunk."""
+    of a model axis.  ``n_chunks`` is the reference's argument; the
+    port's K-Means steps send nothing per chunk.  The mixture on a model
+    axis sends, for each chunk of ``chunk_rows`` of the rank's ``rows`` (the
+    last one short), a MAX and a SUM of the chunk's row statistics over the
+    axis (``chunk_rows=0``: one of each over all the rows, as the kernel
+    mode sends them), and its statistics embedded into the padded table over
+    both axes, as the K-Means statistics are."""
     S, M = int(data_shards), int(model_shards)
     group = S * M
     R = int(n_members)
@@ -592,10 +597,26 @@ def comm_bytes_model(family: str = "kmeans", *, k: int, d: int,
         if cov_type not in moment:
             raise ValueError(f"unknown covariance type {cov_type!r}")
         # resp (k), xsum (k, D), the second moment, loglik: one buffer
-        # over the data axis ('tied' sends its zero squares along).
-        site("estep.psum_stats", R * (k_pad + k_pad * d + moment[cov_type]
-                                      + 1) * acc_bytes,
-             scope="iteration", grp=S)
+        # over the data axis ('tied' sends its zero squares along); on a
+        # model axis over both, the blocks embedded in the padded table.
+        stats = R * (k_pad + k_pad * d + moment[cov_type] + 1) * acc_bytes
+        if M > 1:
+            site("estep.psum_stats", stats, scope="iteration", count=both)
+            # The softmax of each chunk (the kernel mode: of all the rows):
+            # its rows' maximum, then their denominator, over the model
+            # axis.
+            chunk = int(chunk_rows) or int(rows)
+            full, tail = divmod(int(rows), chunk) if chunk else (0, 0)
+            for name, op in (("estep.pmax_row_max", "max"),
+                             ("estep.psum_row_sum", "sum")):
+                if full:
+                    site(name, R * chunk * acc_bytes, scope="iteration",
+                         count=full, grp=M, op=op)
+                if tail:
+                    site(name + "_tail", R * tail * acc_bytes,
+                         scope="iteration", grp=M, op=op)
+        else:
+            site("estep.psum_stats", stats, scope="iteration", grp=S)
         site("fit.psum_weight_total", acc_bytes, scope="dispatch", grp=S,
              in_program=False)
         if cov_type == "tied":

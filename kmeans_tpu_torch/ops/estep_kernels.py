@@ -24,6 +24,25 @@ Two calls on the same inputs give the same bits: the kernel adds per-block
 tables in a fixed order.  A tensor on the CPU goes to the plain version; a
 CUDA tensor launches the kernel or raises.  ``LAUNCHES['diag_estep']``
 counts the launches, one per call that reached the card.
+
+A table whose components are spread over the ranks of a model axis splits
+the pass in two launches of the same kernel (its ``ROWS`` and ``MOMENTS``
+instances), each rank over its block of components:
+
+* :func:`diag_estep_rows`, launch (a): every row's max ``m`` and sum
+  ``s = sum_k exp(logp - m)`` over the block (``m = -inf``, ``s = 0`` for a
+  block of inert components, whose every logp is -inf);
+* the caller combines the ranks' pairs into the row's global ``M`` (a MAX
+  ``all_reduce``) and ``S = sum_r s_r exp(m_r - M)`` (a SUM
+  ``all_reduce``: :func:`combine_terms` is each rank's term);
+* :func:`diag_estep_moments`, launch (b): from ``M`` and ``S``, the
+  responsibilities ``exp(logp - M) w / S`` of the block's components, their
+  moments, and ``ll = sum w (M + log S)`` (every rank of the axis has the
+  same ``ll``).
+
+Each has its plain version beside it (``..._reference``) and its counter,
+``LAUNCHES['diag_estep_rows']`` and ``LAUNCHES['diag_estep_moments']``,
+made at its first launch.
 """
 
 from __future__ import annotations
@@ -58,6 +77,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.gmm_diag_estep_launch.argtypes = [p] * 15 + [ll, i, i, i, p]
         lib.gmm_diag_estep_launch.restype = i
+        lib.gmm_diag_estep_rows_launch.argtypes = \
+            [p] * 11 + [ll, i, i, i, p]
+        lib.gmm_diag_estep_rows_launch.restype = i
+        lib.gmm_diag_estep_moments_launch.argtypes = \
+            [p] * 17 + [ll, i, i, i, p]
+        lib.gmm_diag_estep_moments_launch.restype = i
         lib.gmm_estep_tile_rows.argtypes = []
         lib.gmm_estep_tile_rows.restype = i
         for name in ("gmm_estep_coef_floats", "gmm_estep_table_floats"):
@@ -148,6 +173,191 @@ def diag_estep_reference(points: torch.Tensor, weights: torch.Tensor,
         s2 += r.T @ x2
         lse = m[:, 0] + torch.log(s[:, 0])
         ll += torch.where(live, w * lse, torch.zeros((), **kw)).sum()
+    return rsum, s1, s2, ll
+
+
+def _logp_blocks(points, weights, shift, means_c, inv_var, log_det,
+                 log_weights):
+    """``(lo, live, xc, x2, logp)`` of each block of rows of the plain
+    versions: the centered rows (zero for rows of weight 0), their squares
+    and the (rows, k) log-densities."""
+    n = points.shape[0]
+    coef, c1 = estep_coefficients(means_c, inv_var, log_det, log_weights)
+    zero = torch.zeros((), dtype=points.dtype, device=points.device)
+    step = _row_block(means_c.shape[0])
+    for lo in range(0, n, step):
+        live = weights[lo:lo + step] > 0
+        xc = torch.where(live[:, None], points[lo:lo + step] - shift, zero)
+        x2 = xc * xc
+        yield lo, live, xc, x2, torch.addmm(c1, torch.cat([xc, x2], dim=1),
+                                            coef.T)
+
+
+def diag_estep_rows_reference(points: torch.Tensor, weights: torch.Tensor,
+                              shift: torch.Tensor, means_c: torch.Tensor,
+                              inv_var: torch.Tensor, log_det: torch.Tensor,
+                              log_weights: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`diag_estep_rows`: ``(row_max (n,), row_sum
+    (n,))`` over the components given, ``row_sum = 0`` where ``row_max`` is
+    -inf."""
+    _check_estep(points, weights, shift, means_c, inv_var, log_det,
+                 log_weights, dtypes=(torch.float32, torch.float64))
+    n = points.shape[0]
+    row_max = torch.empty(n, dtype=points.dtype, device=points.device)
+    row_sum = torch.empty_like(row_max)
+    for lo, _, _, _, logp in _logp_blocks(points, weights, shift, means_c,
+                                          inv_var, log_det, log_weights):
+        m = logp.max(dim=1).values
+        finite = m > float("-inf")
+        p = torch.exp(logp - torch.where(finite, m, 0.0)[:, None])
+        row_max[lo:lo + m.shape[0]] = m
+        row_sum[lo:lo + m.shape[0]] = torch.where(finite, p.sum(dim=1), 0.0)
+    return row_max, row_sum
+
+
+def combine_terms(row_max: torch.Tensor, row_sum: torch.Tensor,
+                  global_max: torch.Tensor) -> torch.Tensor:
+    """One block's term of a row's global sum, ``s exp(m - M)``; 0 for a
+    block without a finite logp (``s = 0``, ``m = -inf``), never a NaN.
+    Summed over the blocks it is the ``S`` of :func:`diag_estep_moments`."""
+    return torch.where(row_sum > 0,
+                       row_sum * torch.exp(row_max - global_max),
+                       torch.zeros((), dtype=row_sum.dtype,
+                                   device=row_sum.device))
+
+
+def diag_estep_moments_reference(points: torch.Tensor,
+                                 weights: torch.Tensor, shift: torch.Tensor,
+                                 means_c: torch.Tensor,
+                                 inv_var: torch.Tensor,
+                                 log_det: torch.Tensor,
+                                 log_weights: torch.Tensor,
+                                 row_max: torch.Tensor,
+                                 row_sum: torch.Tensor) -> EStepOut:
+    """Plain version of :func:`diag_estep_moments`: ``(rsum (k,), s1
+    (k, D), s2 (k, D), ll ())`` of the components given, from every row's
+    global max and sum."""
+    _check_estep(points, weights, shift, means_c, inv_var, log_det,
+                 log_weights, dtypes=(torch.float32, torch.float64))
+    _check_rows(points, row_max, row_sum)
+    k, d = means_c.shape
+    kw = dict(dtype=points.dtype, device=points.device)
+    zero = torch.zeros((), **kw)
+    rsum = torch.zeros((k,), **kw)
+    s1 = torch.zeros((k, d), **kw)
+    s2 = torch.zeros((k, d), **kw)
+    ll = torch.zeros((), **kw)
+    for lo, live, xc, x2, logp in _logp_blocks(points, weights, shift,
+                                               means_c, inv_var, log_det,
+                                               log_weights):
+        hi = lo + logp.shape[0]
+        m, s, w = row_max[lo:hi], row_sum[lo:hi], weights[lo:hi]
+        r = torch.where(live[:, None], torch.exp(logp - m[:, None])
+                        * (w / s)[:, None], zero)
+        rsum += r.sum(dim=0)
+        s1 += r.T @ xc
+        s2 += r.T @ x2
+        ll += torch.where(live, w * (m + torch.log(s)), zero).sum()
+    return rsum, s1, s2, ll
+
+
+def _check_rows(points, row_max, row_sum) -> None:
+    for name, t in (("row_max", row_max), ("row_sum", row_sum)):
+        if tuple(t.shape) != (points.shape[0],) or t.dtype != points.dtype \
+                or t.device != points.device or not t.is_contiguous():
+            raise ValueError(
+                f"{name} must be a contiguous ({points.shape[0]},) "
+                f"{points.dtype} tensor on {points.device}, got "
+                f"{tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def diag_estep_rows(points: torch.Tensor, weights: torch.Tensor,
+                    shift: torch.Tensor, means_c: torch.Tensor,
+                    inv_var: torch.Tensor, log_det: torch.Tensor,
+                    log_weights: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch (a) of a model-axis E-step: every row's max and sum of
+    ``exp(logp - max)`` over the components given, ``(row_max (n,),
+    row_sum (n,))`` float32.  CPU tensors go to
+    :func:`diag_estep_rows_reference`."""
+    _check_estep(points, weights, shift, means_c, inv_var, log_det,
+                 log_weights)
+    if not points.is_cuda:
+        return diag_estep_rows_reference(points, weights, shift, means_c,
+                                         inv_var, log_det, log_weights)
+    lib = _lib()
+    n, d = points.shape
+    k = means_c.shape[0]
+    dev = points.device
+    kw = dict(dtype=torch.float32, device=dev)
+    row_max = torch.empty(n, **kw)
+    row_sum = torch.empty(n, **kw)
+    if n == 0:
+        return row_max, row_sum
+    blocks = _blocks(dev, n, lib.gmm_estep_table_floats(d, k),
+                     lib.gmm_estep_tile_rows())
+    with torch.cuda.device(dev):
+        coef = torch.empty(lib.gmm_estep_coef_floats(d, k), **kw)
+        c1 = torch.empty(k, **kw)
+        err = lib.gmm_diag_estep_rows_launch(
+            points.data_ptr(), weights.data_ptr(), shift.data_ptr(),
+            means_c.data_ptr(), inv_var.data_ptr(), log_det.data_ptr(),
+            log_weights.data_ptr(), coef.data_ptr(), c1.data_ptr(),
+            row_max.data_ptr(), row_sum.data_ptr(), n, d, k, blocks,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "diag_estep_rows")
+    _build.count_launch("diag_estep_rows",
+                        ops=declared_operations("estep_rows", n, d, k)[1])
+    return row_max, row_sum
+
+
+def diag_estep_moments(points: torch.Tensor, weights: torch.Tensor,
+                       shift: torch.Tensor, means_c: torch.Tensor,
+                       inv_var: torch.Tensor, log_det: torch.Tensor,
+                       log_weights: torch.Tensor, row_max: torch.Tensor,
+                       row_sum: torch.Tensor) -> EStepOut:
+    """Launch (b) of a model-axis E-step: ``(rsum (k,), s1 (k, D), s2
+    (k, D), ll ())`` float32 of the components given, from every row's
+    global max ``row_max`` and sum ``row_sum`` (all the axis's components).
+    CPU tensors go to :func:`diag_estep_moments_reference`."""
+    _check_estep(points, weights, shift, means_c, inv_var, log_det,
+                 log_weights)
+    _check_rows(points, row_max, row_sum)
+    if not points.is_cuda:
+        return diag_estep_moments_reference(
+            points, weights, shift, means_c, inv_var, log_det, log_weights,
+            row_max, row_sum)
+    lib = _lib()
+    n, d = points.shape
+    k = means_c.shape[0]
+    dev = points.device
+    kw = dict(dtype=torch.float32, device=dev)
+    if n == 0:
+        return (torch.zeros((k,), **kw), torch.zeros((k, d), **kw),
+                torch.zeros((k, d), **kw), torch.zeros((), **kw))
+    table = lib.gmm_estep_table_floats(d, k)
+    blocks = _blocks(dev, n, table, lib.gmm_estep_tile_rows())
+    with torch.cuda.device(dev):
+        coef = torch.empty(lib.gmm_estep_coef_floats(d, k), **kw)
+        c1 = torch.empty(k, **kw)
+        partial = torch.zeros(blocks * table, **kw)
+        ll_partial = torch.empty(blocks, dtype=torch.float64, device=dev)
+        rsum = torch.empty((k,), **kw)
+        s1 = torch.empty((k, d), **kw)
+        s2 = torch.empty((k, d), **kw)
+        ll = torch.empty((), **kw)
+        err = lib.gmm_diag_estep_moments_launch(
+            points.data_ptr(), weights.data_ptr(), shift.data_ptr(),
+            means_c.data_ptr(), inv_var.data_ptr(), log_det.data_ptr(),
+            log_weights.data_ptr(), row_max.data_ptr(), row_sum.data_ptr(),
+            coef.data_ptr(), c1.data_ptr(), partial.data_ptr(),
+            ll_partial.data_ptr(), rsum.data_ptr(), s1.data_ptr(),
+            s2.data_ptr(), ll.data_ptr(), n, d, k, blocks,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "diag_estep_moments")
+    _build.count_launch("diag_estep_moments",
+                        ops=declared_operations("estep_moments", n, d, k)[1])
     return rsum, s1, s2, ll
 
 

@@ -352,12 +352,22 @@ def declared_operations(kind: str, n: int, d: int, k: int
       rows and their weights (2 n D + n);
     * ``'estep'`` (``diag_estep``): the two depth-2D products (8 n k D),
       the softmax (max, subtract, exp, scale, sum: 5 n k), and the
-      centering and squares (2 n D).
+      centering and squares (2 n D);
+    * ``'estep_rows'`` (``diag_estep_rows``, launch (a) of a model axis,
+      k the block's components): the logp product (4 n k D), the row max
+      and sum (max, subtract, exp, sum: 4 n k), the centering and squares;
+    * ``'estep_moments'`` (``diag_estep_moments``, launch (b)): the logp
+      product again and the moment product (8 n k D), the softmax from the
+      given max and sum (subtract, exp, scale, sum: 4 n k), the centering
+      and squares.
 
     ``product`` is the part that runs on the tensor cores."""
     if kind == "estep":
         product = 8 * n * k * d
         return product, product + 5 * n * k + 2 * n * d
+    if kind in ("estep_rows", "estep_moments"):
+        product = (4 if kind == "estep_rows" else 8) * n * k * d
+        return product, product + 4 * n * k + 2 * n * d
     if kind not in ("assign", "fused"):
         raise ValueError(f"unknown kernel kind {kind!r}")
     product = 2 * n * k * d

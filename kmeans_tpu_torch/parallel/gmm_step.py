@@ -15,9 +15,25 @@ loops ``make_gmm_fit_fn``, ``make_gmm_fit_full_fn``,
 ``make_gmm_multi_fit_fn`` with ``_diag_estats_block`` and
 ``_diag_m_step``.  Under a mesh each rank runs the pass on its block of
 the rows and the statistics are summed over the data axis (one packed SUM
-``all_reduce``), so every rank gets the global ones; the model axis does
-not shard a mixture (the fused E-step cannot take its softmax across blocks
-of components).
+``all_reduce``), so every rank gets the global ones.
+
+The model axis (``model_shards = M > 1``) shards the components: the
+functions here take the whole (k, ...) tables, pad them to ``k_pad`` (k
+rounded up to a multiple of M) with the reference's inert components (zero
+mean, unit variance, identity precision factor, ``log_weight = -inf``) and
+run each rank's block of ``k_local = k_pad / M`` of them
+(:func:`_model_blocks`).  Per chunk the softmax takes its row maximum by a
+MAX ``all_reduce`` and its denominator by a SUM ``all_reduce`` over the
+model axis (:func:`_softmax_resp`; in the kernel mode launch (a),
+``diag_estep_rows``, gives each block's pair and launch (b),
+``diag_estep_moments``, the moments from the global pair).  The block's
+statistics are embedded into the (k_pad, ...) table and summed over both
+axes, the log-likelihood divided by M (every rank of the model axis holds
+the same one), then cut back to k (:func:`_reduce_estats`).  The posterior
+pass picks the global label as the lowest block among those that reach a
+row's maximum (``distributed._owner``).  A block of only inert components
+has every logp at -inf: its max is -inf, its sum 0, and its term vanishes
+from the denominator without a NaN.
 
 For diagonal Gaussians, with ``a = 1/sigma^2``,
 
@@ -86,11 +102,14 @@ import numpy as np
 import torch
 
 from kmeans_tpu_torch.obs import cost as _cost
-from kmeans_tpu_torch.ops.estep_kernels import diag_estep
+from kmeans_tpu_torch.ops.estep_kernels import (combine_terms, diag_estep,
+                                                diag_estep_moments,
+                                                diag_estep_rows)
 from kmeans_tpu_torch.parallel.distributed import (IN_FLIGHT, _check_backend,
-                                                   _host_copy, _Replay,
-                                                   _run_evicting)
-from kmeans_tpu_torch.parallel.mesh import DATA_AXIS, all_reduce
+                                                   _host_copy, _owner,
+                                                   _Replay, _run_evicting)
+from kmeans_tpu_torch.parallel.mesh import (AXES, DATA_AXIS, MODEL_AXIS,
+                                            all_reduce, coords, mesh_shape)
 
 _LOG2PI = math.log(2.0 * math.pi)
 
@@ -158,12 +177,54 @@ def _log_prob_tied_chunk(x, means_t, prec_chol, log_det_half, log_weights):
             - 0.5 * (quad + d * _LOG2PI))
 
 
-def _softmax_resp(logp, w):
+def _model_shards(mesh) -> int:
+    return mesh_shape(mesh)[1]
+
+
+class _Blocks(NamedTuple):
+    """This rank's block of a k-component table on the model axis."""
+
+    k: int          # the real components
+    k_pad: int      # k rounded up to a multiple of the axis
+    lo: int         # the block's first component
+    k_local: int    # its components
+
+
+def _model_blocks(mesh, k: int) -> _Blocks:
+    """The block of k components that this rank of a model axis runs."""
+    shards = _model_shards(mesh)
+    k_pad = -(-k // shards) * shards
+    k_local = k_pad // shards
+    return _Blocks(k, k_pad, coords(mesh)[1] * k_local, k_local)
+
+
+def _block_of(t: torch.Tensor, b: _Blocks, fill) -> torch.Tensor:
+    """Rows ``b.lo .. b.lo + b.k_local`` of the table ``t`` (k, ...), the
+    rows past k filled with ``fill`` (a number, or 'eye' for an identity
+    matrix), contiguous."""
+    out = torch.empty((b.k_local,) + tuple(t.shape[1:]), dtype=t.dtype,
+                      device=t.device)
+    real = max(0, min(b.k, b.lo + b.k_local) - b.lo)
+    out[:real] = t[b.lo:b.lo + real]
+    if real < b.k_local:
+        out[real:] = torch.eye(t.shape[-1], dtype=t.dtype,
+                               device=t.device) if fill == "eye" else fill
+    return out
+
+
+def _softmax_resp(logp, w, mesh=None):
     """Responsibility softmax of one chunk: ``(resp, lse)`` with
-    ``resp = p / sum p * w``."""
+    ``resp = p / sum p * w``.  On a model axis ``logp`` holds the rank's
+    block of components, the row maximum is a MAX and the denominator a SUM
+    ``all_reduce`` over the axis, and ``resp`` is the block's."""
     m = logp.max(dim=1).values
+    axis = mesh is not None and _model_shards(mesh) > 1
+    if axis:
+        m = all_reduce(m, mesh, (MODEL_AXIS,), "max")
     p = torch.exp(logp - m[:, None])
     denom = p.sum(dim=1)
+    if axis:
+        denom = all_reduce(denom, mesh, (MODEL_AXIS,))
     lse = m + torch.log(denom)
     return p / denom[:, None] * w[:, None], lse
 
@@ -172,17 +233,18 @@ def _loglik_part(lse, wc):
     return torch.where(wc > 0, lse * wc, torch.zeros_like(lse)).sum()
 
 
-def _diag_stage_fns(means, inv_var, log_det, log_weights):
+def _diag_stage_fns(means, inv_var, log_det, log_weights, mesh=None):
     """The E pass as two stages: ``logp_fn(xc)`` (the log-density
     products) and ``consume(stats, logp, xc, wc)`` (softmax and moment
     accumulation) — the one implementation of this arithmetic, shared by
-    :func:`estep_chunk` and the chunked pass."""
+    :func:`estep_chunk` and the chunked pass.  On a model axis the tables
+    are the rank's block."""
 
     def logp_fn(xc):
         return _log_prob_chunk(xc, means, inv_var, log_det, log_weights)
 
     def consume(carry, logp, xc, wc):
-        resp, lse = _softmax_resp(logp, wc)
+        resp, lse = _softmax_resp(logp, wc, mesh)
         return EStats(
             carry.resp_sum + resp.sum(dim=0),
             carry.xsum + resp.T @ xc,
@@ -237,31 +299,96 @@ def _chunked_epass(points, weights, shift, *, chunk_size: int, logp_fn,
     return st
 
 
-def _reduce_estats(st, mesh):
+def _reduce_estats(st, mesh, blocks: Optional[_Blocks] = None):
     """The statistics of every block of the data axis, replicated: one SUM
     ``all_reduce`` of every field packed into one buffer (``EStats`` or
-    ``EStatsFull``); ``mesh=None`` returns them as they are."""
+    ``EStatsFull``); ``mesh=None`` returns them as they are.  On a model
+    axis the rank's (k_local, ...) block is embedded into the (k_pad, ...)
+    table first, the buffer summed over both axes, the log-likelihood
+    divided by the axis's size and the tables cut to the real k (the
+    reference's ``_embed_psum`` and ``_embed_psum_full``); ``blocks`` is
+    the block ``st`` holds (:func:`_model_blocks`), None without the
+    axis."""
     if mesh is None:
         return st
-    flat = all_reduce(torch.cat([t.reshape(-1) for t in st]), mesh,
-                      (DATA_AXIS,))
+    if blocks is not None and _model_shards(mesh) == 1:
+        blocks = None
+    fields = list(st[:3])
+    if blocks is not None:
+        emb = []
+        for t in fields:
+            full = torch.zeros((blocks.k_pad,) + tuple(t.shape[1:]),
+                               dtype=t.dtype, device=t.device)
+            full[blocks.lo:blocks.lo + blocks.k_local] = t
+            emb.append(full)
+        fields = emb
+    fields.append(st[3])
+    flat = all_reduce(torch.cat([t.reshape(-1) for t in fields]), mesh,
+                      AXES if blocks is not None else (DATA_AXIS,))
     out, lo = [], 0
-    for t in st:
+    for t in fields:
         out.append(flat[lo:lo + t.numel()].reshape(t.shape))
         lo += t.numel()
+    if blocks is not None:
+        out = [t[:blocks.k] for t in out[:3]] + \
+            [out[3] / _model_shards(mesh)]
     return type(st)(*out)
+
+
+#: The inert component's entry of each table a pass takes, in its order: a
+#: mean row of zeros, unit variances and a zero log-determinant, an identity
+#: precision factor, a log-weight of -inf; None for a table every component
+#: shares ('tied''s factor and log-determinant).
+_INF = float("-inf")
+_FILLS = {"diag": (0.0, 1.0, 0.0, _INF), "full": (0.0, "eye", 0.0, _INF),
+          "tied": (0.0, None, None, _INF)}
+
+
+def _blocked(mesh, tables, form: str):
+    """``(blocks, tables)``: this rank's block of each per-component table
+    of a pass (``form`` 'diag', 'full' or 'tied'), and the block; ``(None,
+    tables)`` without a model axis."""
+    if mesh is None or _model_shards(mesh) == 1:
+        return None, tuple(tables)
+    b = _model_blocks(mesh, tables[0].shape[0])
+    return b, tuple(t if f is None else _block_of(t, b, f)
+                    for t, f in zip(tables, _FILLS[form]))
+
+
+def _kernel_model_axis(points, weights, shift, means, inv_var, log_det,
+                       log_weights, *, mesh) -> EStats:
+    """The kernel mode's pass over the rank's rows on a model axis: launch
+    (a) gives the block's row maxima and sums, a MAX then a SUM
+    ``all_reduce`` of the rows over the axis the global ones, launch (b)
+    the block's moments from them.  Neither launch materialises the (rows,
+    k) log-densities, so the pass is not chunked: one exchange of 2 n
+    floats per E-step."""
+    m, s = diag_estep_rows(points, weights, shift, means, inv_var, log_det,
+                           log_weights)
+    big_m = all_reduce(m.clone(), mesh, (MODEL_AXIS,), "max")
+    big_s = all_reduce(combine_terms(m, s, big_m), mesh, (MODEL_AXIS,))
+    return EStats(*diag_estep_moments(points, weights, shift, means,
+                                      inv_var, log_det, log_weights, big_m,
+                                      big_s))
 
 
 def _scan_estats(points, weights, shift, means, inv_var, log_det,
                  log_weights, *, chunk_size: int, mode: str,
-                 pipeline: int = 0) -> EStats:
+                 pipeline: int = 0, mesh=None) -> EStats:
     """The diagonal E pass over the rank's rows: one launch of the fused
-    kernel (``mode='kernel'``), or the chunked torch pass."""
+    kernel (``mode='kernel'``), or the chunked torch pass.  On a model axis
+    (``mesh``) the tables are the rank's block and the softmax spans the
+    axis: two launches per E-step in the kernel mode."""
     if mode == "kernel":
+        if mesh is not None and _model_shards(mesh) > 1:
+            return _kernel_model_axis(points, weights, shift, means,
+                                      inv_var, log_det, log_weights,
+                                      mesh=mesh)
         return EStats(*diag_estep(points, weights, shift, means, inv_var,
                                   log_det, log_weights))
     k, d = means.shape
-    logp_fn, consume = _diag_stage_fns(means, inv_var, log_det, log_weights)
+    logp_fn, consume = _diag_stage_fns(means, inv_var, log_det, log_weights,
+                                       mesh)
     return _chunked_epass(points, weights, shift, chunk_size=chunk_size,
                           logp_fn=logp_fn, consume_fn=consume,
                           init=_zero_estats(k, d, points.dtype,
@@ -271,7 +398,7 @@ def _scan_estats(points, weights, shift, means, inv_var, log_det,
 
 def _scan_estats_full(points, weights, shift, means, prec_chol,
                       log_det_half, log_weights, *, chunk_size: int,
-                      pipeline: int = 0) -> EStatsFull:
+                      pipeline: int = 0, mesh=None) -> EStatsFull:
     """The 'full' E pass over the rank's rows: responsibilities, sums and
     the scatter ``sum_i r_ik x_i x_i^T`` (a batched product, k matrices of
     D x chunk by chunk x D)."""
@@ -282,7 +409,7 @@ def _scan_estats_full(points, weights, shift, means, prec_chol,
                                     log_weights)
 
     def consume(carry, logp, xc, wc):
-        resp, lse = _softmax_resp(logp, wc)
+        resp, lse = _softmax_resp(logp, wc, mesh)
         rx = resp.T[:, :, None] * xc[None, :, :]          # (k, c, D)
         return EStatsFull(
             carry.resp_sum + resp.sum(dim=0),
@@ -299,7 +426,7 @@ def _scan_estats_full(points, weights, shift, means, prec_chol,
 
 def _scan_estats_tied(points, weights, shift, means_t, prec_chol,
                       log_det_half, log_weights, *, chunk_size: int,
-                      pipeline: int = 0) -> EStats:
+                      pipeline: int = 0, mesh=None) -> EStats:
     """The 'tied' E pass over the rank's rows: ``EStats`` with ``x2sum``
     left at zero (the tied M-step takes the total scatter instead)."""
     k, d = means_t.shape
@@ -309,7 +436,7 @@ def _scan_estats_tied(points, weights, shift, means_t, prec_chol,
                                     log_weights)
 
     def consume(carry, logp, xc, wc):
-        resp, lse = _softmax_resp(logp, wc)
+        resp, lse = _softmax_resp(logp, wc, mesh)
         return EStats(carry.resp_sum + resp.sum(dim=0),
                       carry.xsum + resp.T @ xc, carry.x2sum,
                       carry.loglik + _loglik_part(lse, wc))
@@ -336,9 +463,11 @@ def make_gmm_step_fn(mesh=None, *, chunk_size: int, mode: str = "torch",
         raise ValueError(f"unknown E-step mode: {mode!r}")
 
     def step(points, weights, shift, means, inv_var, log_det, log_weights):
+        blocks, tables = _blocked(
+            mesh, (means, inv_var, log_det, log_weights), "diag")
         return _reduce_estats(_scan_estats(
-            points, weights, shift, means, inv_var, log_det, log_weights,
-            chunk_size=chunk_size, mode=mode, pipeline=pipeline), mesh)
+            points, weights, shift, *tables, chunk_size=chunk_size,
+            mode=mode, pipeline=pipeline, mesh=mesh), mesh, blocks)
 
     return step
 
@@ -352,9 +481,11 @@ def make_gmm_step_full_fn(mesh=None, *, chunk_size: int,
 
     def step(points, weights, shift, means, prec_chol, log_det_half,
              log_weights):
+        blocks, tables = _blocked(
+            mesh, (means, prec_chol, log_det_half, log_weights), "full")
         return _reduce_estats(_scan_estats_full(
-            points, weights, shift, means, prec_chol, log_det_half,
-            log_weights, chunk_size=chunk_size, pipeline=pipeline), mesh)
+            points, weights, shift, *tables, chunk_size=chunk_size,
+            pipeline=pipeline, mesh=mesh), mesh, blocks)
 
     return step
 
@@ -368,9 +499,11 @@ def make_gmm_step_tied_fn(mesh=None, *, chunk_size: int,
 
     def step(points, weights, shift, means_t, prec_chol, log_det_half,
              log_weights):
+        blocks, tables = _blocked(
+            mesh, (means_t, prec_chol, log_det_half, log_weights), "tied")
         return _reduce_estats(_scan_estats_tied(
-            points, weights, shift, means_t, prec_chol, log_det_half,
-            log_weights, chunk_size=chunk_size, pipeline=pipeline), mesh)
+            points, weights, shift, *tables, chunk_size=chunk_size,
+            pipeline=pipeline, mesh=mesh), mesh, blocks)
 
     return step
 
@@ -403,35 +536,59 @@ def _prec_chol_dev(cov, tiny: float):
     return p_chol.transpose(-1, -2), ldh
 
 
-def _predict_from_logp(logp_fn, points, chunk_size: int):
+def _predict_from_logp(logp_fn, points, chunk_size: int, mesh=None,
+                       blocks: Optional[_Blocks] = None):
     """Posterior pass: per chunk, logp by ``logp_fn``, then labels (the
     lowest index among equal maxima), log-responsibilities and the
-    per-row log-likelihood ``lse``."""
+    per-row log-likelihood ``lse``.  On a model axis (``blocks``, the
+    rank's block of components) the label is the lowest block among those
+    that reach the row's maximum (``distributed._owner``), the denominator
+    a SUM over the axis, and the log-responsibilities of every block are
+    embedded into the (n, k_pad) table and summed over the axis."""
     n = points.shape[0]
     labels = torch.empty(n, dtype=torch.int32, device=points.device)
     logr, lse = [], []
     for lo in range(0, max(n, 1), chunk_size):     # n = 0: one empty chunk
         logp = logp_fn(points[lo:lo + chunk_size])
         m = logp.max(dim=1).values
-        labels[lo:lo + chunk_size] = torch.argmax(logp, dim=1).to(
-            torch.int32)
-        row_lse = m + torch.log(torch.exp(logp - m[:, None]).sum(dim=1))
-        logr.append(logp - row_lse[:, None])
+        best = torch.argmax(logp, dim=1).to(torch.int32)
+        if blocks is None:
+            labels[lo:lo + chunk_size] = best
+            row_lse = m + torch.log(torch.exp(logp - m[:, None]).sum(dim=1))
+            logr.append(logp - row_lse[:, None])
+            lse.append(row_lse)
+            continue
+        mine, neg = _owner(-m, mesh)
+        m = -neg
+        labels[lo:lo + chunk_size] = all_reduce(
+            torch.where(mine, best + blocks.lo, torch.zeros_like(best)),
+            mesh, (MODEL_AXIS,))
+        row_lse = m + torch.log(all_reduce(
+            torch.exp(logp - m[:, None]).sum(dim=1), mesh, (MODEL_AXIS,)))
+        full = torch.zeros((logp.shape[0], blocks.k_pad), dtype=logp.dtype,
+                           device=logp.device)
+        full[:, blocks.lo:blocks.lo + blocks.k_local] = \
+            logp - row_lse[:, None]
+        logr.append(all_reduce(full, mesh, (MODEL_AXIS,))[:, :blocks.k])
         lse.append(row_lse)
     return labels, torch.cat(logr), torch.cat(lse)
 
 
 _LOG_PROB = {"diag": _log_prob_chunk, "spherical": _log_prob_chunk,
              "tied": _log_prob_tied_chunk, "full": _log_prob_full_chunk}
+_FORM = {"diag": "diag", "spherical": "diag", "tied": "tied",
+         "full": "full"}
 
 
 @_cost.program()
-def make_gmm_predict_fn(*, chunk_size: int,
+def make_gmm_predict_fn(mesh=None, *, chunk_size: int,
                         cov_type: str = "diag") -> Callable:
     """The posterior pass: ``(points, shift, *tables) -> (labels (n,)
     int32, log_resp (n, k), lse (n,))``, one row per row of ``points`` (the
-    rank's block under a mesh: each row needs only the replicated tables,
-    so the pass has no collective).  The tables are the E-step's of
+    rank's block under a mesh: without a model axis each row needs only the
+    replicated tables, so the pass has no collective; on a model axis each
+    rank scores its block of components and the rows meet over the axis,
+    :func:`_predict_from_logp`).  The tables are the E-step's of
     ``cov_type``: ``(means_c, inv_var, log_det, log_weights)`` for 'diag'
     and 'spherical', ``(means_t, prec_chol, log_det_half, log_weights)`` for
     'tied', ``(means_c, prec_chol, log_det_half, log_weights)`` for
@@ -439,9 +596,10 @@ def make_gmm_predict_fn(*, chunk_size: int,
     log_prob = _LOG_PROB[cov_type]
 
     def predict(points, shift, *tables):
+        blocks, tables = _blocked(mesh, tables, _FORM[cov_type])
         return _predict_from_logp(
             lambda x: log_prob(x - shift[None, :], *tables), points,
-            chunk_size)
+            chunk_size, mesh, blocks)
 
     return predict
 
@@ -469,25 +627,30 @@ def _estats_fn(cov_type: str, mode: str, chunk_size: int, pipeline: int,
 
         def estats(points, weights, shift, means_c, var, log_w):
             cv = torch.clamp_min(var, floor)
-            st = _scan_estats(points, weights, shift, means_c, 1.0 / cv,
-                              torch.log(cv).sum(dim=1), log_w,
+            blocks, tables = _blocked(mesh, (
+                means_c, 1.0 / cv, torch.log(cv).sum(dim=1), log_w), "diag")
+            st = _scan_estats(points, weights, shift, *tables,
                               chunk_size=chunk_size, mode=mode,
-                              pipeline=pipeline)
-            return _reduce_estats(st, mesh)
+                              pipeline=pipeline, mesh=mesh)
+            return _reduce_estats(st, mesh, blocks)
     elif cov_type == "full":
         def estats(points, weights, shift, means_c, cov, log_w):
             p_chol, ldh = _prec_chol_dev(cov, tiny)
-            st = _scan_estats_full(points, weights, shift, means_c, p_chol,
-                                   ldh, log_w, chunk_size=chunk_size,
-                                   pipeline=pipeline)
-            return _reduce_estats(st, mesh)
+            blocks, tables = _blocked(mesh, (means_c, p_chol, ldh, log_w),
+                                      "full")
+            st = _scan_estats_full(points, weights, shift, *tables,
+                                   chunk_size=chunk_size, pipeline=pipeline,
+                                   mesh=mesh)
+            return _reduce_estats(st, mesh, blocks)
     else:
         def estats(points, weights, shift, means_c, cov, log_w):
             p_chol, ldh = _prec_chol_dev(cov, tiny)
-            st = _scan_estats_tied(points, weights, shift, means_c @ p_chol,
-                                   p_chol, ldh, log_w, chunk_size=chunk_size,
-                                   pipeline=pipeline)
-            return _reduce_estats(st, mesh)
+            blocks, tables = _blocked(
+                mesh, (means_c @ p_chol, p_chol, ldh, log_w), "tied")
+            st = _scan_estats_tied(points, weights, shift, *tables,
+                                   chunk_size=chunk_size, pipeline=pipeline,
+                                   mesh=mesh)
+            return _reduce_estats(st, mesh, blocks)
     return estats
 
 

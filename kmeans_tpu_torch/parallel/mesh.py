@@ -10,11 +10,16 @@ reference's ``reshape(data, model)``.
 Every collective of the package is an ``all_reduce`` over one axis group of
 the mesh (:func:`all_reduce`): NCCL takes it on CUDA tensors, and so does gloo
 (which has no ``all_gather`` for CUDA tensors), and gloo on CPU tensors; no
-path depends on the backend.
+path depends on the backend.  The one exception is the serving path's
+decisions on a mesh of more than one rank (:func:`share`): a SUM
+``all_reduce`` of a small int64 vector on a gloo group of every rank of the
+mesh (:func:`decision_group`), kept apart from the axis groups so that a
+rank waiting for the next decision holds none of them.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -140,6 +145,88 @@ def all_reduce(t: torch.Tensor, mesh, axes: Sequence[str] = AXES,
         tdist.all_reduce(t, op=red, group=mesh.get_group(axis))
         count_collectives(t.numel() * t.element_size())
     return t
+
+
+#: Calls and payload bytes of the serving path's decision exchanges
+#: (:func:`share`), kept apart from :data:`COLLECTIVES`, the fits' bill.
+DECISIONS = {"bytes": 0, "count": 0}
+
+#: Values that travel in the first exchange of :func:`share` (more take a
+#: second one).
+SHARE_WIDTH = 7
+
+
+#: Released decision groups by their ranks, with the world they belong to:
+#: :func:`decision_group` takes one back before it makes another.
+_IDLE_GROUPS: dict = {}
+_IDLE_LOCK = threading.Lock()
+
+
+def decision_group(mesh):
+    """A gloo group of every rank of ``mesh``, for :func:`share`: the
+    decisions travel in host memory, and a rank waiting for the next one
+    holds none of the mesh's own groups (another thread of the rank may use
+    them meanwhile, for a fit on the same world).  Made by the mesh's ranks
+    only, in the same order on each.  A group given back by
+    :func:`release_group` is taken again before a new one is made: every
+    rank holds the same idle groups in the same order, since each made and
+    released its groups in the same order (the serving path's SPMD
+    contract).  A group is never destroyed: torch names a group made by
+    some of the ranks after the groups alive, so a new group after a
+    destroyed one would meet the destroyed one's addresses in the store."""
+    ranks = tuple(sorted(int(r) for r in mesh.mesh.flatten().tolist()))
+    with _IDLE_LOCK:
+        world, idle = _IDLE_GROUPS.get(ranks, (None, []))
+        if world is tdist.group.WORLD and idle:
+            return idle.pop()
+    return tdist.new_group(ranks=list(ranks), backend="gloo",
+                           use_local_synchronization=True)
+
+
+def release_group(mesh, group) -> None:
+    """Give back a group of :func:`decision_group` whose exchanges all
+    ended on every rank (its sequencer stopped cleanly)."""
+    ranks = tuple(sorted(int(r) for r in mesh.mesh.flatten().tolist()))
+    with _IDLE_LOCK:
+        world, idle = _IDLE_GROUPS.get(ranks, (None, []))
+        if world is not tdist.group.WORLD:
+            idle = []
+        idle.append(group)
+        _IDLE_GROUPS[ranks] = (tdist.group.WORLD, idle)
+
+
+def _exchange(t: torch.Tensor, group) -> torch.Tensor:
+    """A SUM ``all_reduce`` of ``t`` over ``group``, counted in
+    :data:`DECISIONS`."""
+    tdist.all_reduce(t, op=tdist.ReduceOp.SUM, group=group)
+    DECISIONS["bytes"] += t.numel() * t.element_size()
+    DECISIONS["count"] += 1
+    return t
+
+
+def share(values, mesh, group) -> list:
+    """Rank (0, 0)'s list of ints on every rank of ``mesh``: ``values`` is
+    read on the primary rank only (elsewhere pass None, or anything).  The
+    decision travels as a SUM ``all_reduce`` over ``group``
+    (:func:`decision_group`: every rank of the mesh, on the host) of an
+    int64 vector that is zero on every other rank: its length and its first
+    :data:`SHARE_WIDTH` values in one exchange, the rest in a second.  Every
+    rank must call it at the same point of its sequence of collectives."""
+    head = torch.zeros(SHARE_WIDTH + 1, dtype=torch.int64)
+    vals = [int(v) for v in values] if is_primary(mesh) else []
+    if vals:
+        head[0] = len(vals)
+        first = vals[:SHARE_WIDTH]
+        head[1:1 + len(first)] = torch.tensor(first, dtype=torch.int64)
+    head = _exchange(head, group).tolist()
+    n = head[0]
+    out = head[1:1 + min(n, SHARE_WIDTH)]
+    if n > SHARE_WIDTH:
+        rest = torch.zeros(n - SHARE_WIDTH, dtype=torch.int64)
+        if vals:
+            rest[:] = torch.tensor(vals[SHARE_WIDTH:], dtype=torch.int64)
+        out += _exchange(rest, group).tolist()
+    return out
 
 
 def is_primary(mesh) -> bool:

@@ -32,6 +32,20 @@ Counterpart of the JAX package's ``serving/engine.py``:
   construction; ``quantize='pq'`` answers by ADC against a product-
   quantized table (``ProductQuantizer.adc_assign``).
 
+On a mesh of more than one rank every rank builds the same engine, adds the
+same models and makes the same calls (the SPMD contract).  Each rank is a
+process, and every collective of the serving path runs on one thread per
+rank, the rank's :class:`~kmeans_tpu_torch.serving.batching.MeshSequencer`,
+in the order of rank (0, 0): a call, a score, a routed batch, a model's
+residency, a warm-up, a queue's flush and a learner's update are each a
+task with a key that every rank computes alike, and what the primary
+decides by time, by scheduling or by its own counters (the batches, a
+replica's liveness, a learner's update and its verdict) reaches the other
+ranks inside the task (``serving.batching``'s docstring).  Only the
+primary writes the drift sinks and the learners' snapshots.  A world of one
+rank, or no mesh, has a ``LocalSequencer``: the same calls, run inline, with
+no thread and no exchange.
+
 The dense K-Means ``predict`` route is ``distributed.make_predict_fn`` in
 the model's own mode: on a CUDA device in the kernel modes that is kernel 2
 (``ops.hopper_kernels.hopper_assign``), or 2b for ``'kernel_bf16'``, one
@@ -66,7 +80,8 @@ from kmeans_tpu_torch.parallel.sharding import (Dataset, ShardedDataset,
 from kmeans_tpu_torch.serving.batching import (DEFAULT_BUCKETS,
                                                MicroBatchQueue,
                                                ServingFuture, bucket_for,
-                                               check_buckets)
+                                               check_buckets, in_order,
+                                               rows_digest, sequencer_for)
 from kmeans_tpu_torch.serving.learn import UPDATE_GATE
 from kmeans_tpu_torch.serving.registry import ModelRegistry
 from kmeans_tpu_torch.utils.profiling import note_dispatch
@@ -99,20 +114,6 @@ def _model_table_bytes(model) -> int:
         if nbytes is not None:
             total += int(nbytes)
     return total
-
-
-def refuse_multi_rank(mesh, what: str) -> None:
-    """Raise for ``what`` on a mesh of more than one rank.  Every rank of
-    a mesh runs the same collectives in the same order; a router choosing
-    by latencies measured in its own process, or a learner thread started
-    when its own rank's monitor fires, would let the ranks diverge and
-    hang.  Raised before any collective runs."""
-    data, model = mesh_shape(mesh)
-    if data * model > 1:
-        raise NotImplementedError(
-            f"{what} on a mesh of {data * model} ranks is not ported to "
-            f"kmeans_tpu_torch yet: ROADMAP.md, A.21 'Serving fleet and "
-            f"serve-and-learn on a multi-rank mesh'")
 
 
 class ResidentModel:
@@ -236,8 +237,10 @@ class ServingEngine:
         rules (``_LEARN_KEYS``; ``dir`` is the snapshot directory,
         default ``quality_dir`` or a temporary one).  Needs quality
         monitoring: the trigger is the drift monitor.  On a mesh of more
-        than one rank it raises ``NotImplementedError`` (ROADMAP.md,
-        A.21).
+        than one rank the primary decides when a learner updates, with
+        which batches, and its verdict (``serving.learn``).
+    _sequencer : the sequencer of a fleet whose replica this is; None
+        makes the engine's own (``serving.batching.sequencer_for``).
     """
 
     def __init__(self, *, device=None, mesh=None, buckets=DEFAULT_BUCKETS,
@@ -245,7 +248,7 @@ class ServingEngine:
                  donate="auto", quality="auto", quality_dir=None,
                  quality_window: Optional[int] = None,
                  quality_tag: Optional[str] = None,
-                 learn=False):
+                 learn=False, _sequencer=None):
         self.device = resolve_device(device)
         self.mesh = check_mesh(mesh)
         self.buckets = check_buckets(buckets)
@@ -295,7 +298,6 @@ class ServingEngine:
                     "learn requires quality monitoring: the "
                     "serve-and-learn trigger IS the drift monitor "
                     "(pass quality=True, or a quality_dir)")
-            refuse_multi_rank(self.mesh, "ServingEngine(learn=...)")
             self._learn_cfg = cfg
         self._learn_dir: Optional[str] = None   # resolved at first attach
         # Called with (model_id, op) before every dispatch — direct,
@@ -303,10 +305,31 @@ class ServingEngine:
         self.dispatch_guard = None
         self.dispatches = 0
         self.packed_dispatches = 0
+        # The rank's sequencer (the module docstring): a fleet's, or the
+        # engine's own.
+        self._owns_seq = _sequencer is None
+        self._seq = sequencer_for(self.mesh) if self._owns_seq \
+            else _sequencer
+        self._uid = self._seq.new_id()
+        self._closed = False
         self.queue = MicroBatchQueue(
             self._dispatch, buckets=self.buckets,
             max_wait_ms=max_wait_ms, clock=clock, start=start,
-            validate=self._validate)
+            validate=self._validate, sequencer=self._seq)
+
+    def _in_order(self, fn: Callable, *parts, rows=None):
+        """``fn()``, as the sequencer's task keyed by ``parts`` and
+        ``rows`` (inline on its thread, and without a mesh of more than one
+        rank)."""
+        return in_order(self._seq, fn, "engine", self._uid, *parts,
+                        rows=rows)
+
+    @property
+    def writes_files(self) -> bool:
+        """Whether this rank writes the engine's files (drift sinks,
+        learner snapshots): the primary only, which is every rank without
+        a mesh of more than one rank."""
+        return self._seq.primary
 
     # -------------------------------------------------------- residency
 
@@ -319,6 +342,13 @@ class ServingEngine:
         serves ``predict`` by ADC (labels: the exact argmin over the
         decoded table).  ``profile`` overrides the drift monitor's
         reference (default: the model's ``quality_profile()``)."""
+        return self._in_order(
+            lambda: self._add_model(model_id, model, quantize=quantize,
+                                    profile=profile),
+            "add_model", model_id, quantize)
+
+    def _add_model(self, model_id: str, model, *, quantize, profile
+                   ) -> ResidentModel:
         if quantize not in (None, "bf16", "pq"):
             raise ValueError(f"quantize must be None, 'bf16' or 'pq', "
                              f"got {quantize!r}")
@@ -365,7 +395,8 @@ class ServingEngine:
                 if self._quality_tag is None \
                 else f"quality.{model_id}.{self._quality_tag}.jsonl"
             sink = os.path.join(self._quality_dir, sink_name) \
-                if self._quality_dir is not None else None
+                if self._quality_dir is not None and self.writes_files \
+                else None
             rm.monitor = obs_drift.QualityMonitor(
                 model_id, spec["k"], profile=profile,
                 window_rows=self._quality_window, sink_path=sink)
@@ -406,13 +437,19 @@ class ServingEngine:
         """Load a checkpoint of either package (any family, any mesh it
         was written on) onto the engine's device and make it resident.
         The checkpoint's quality profile becomes the drift reference."""
-        mid, model = self.registry.load(path, model_id, device=self.device,
-                                        mesh=self.mesh)
-        self.registry.remove(mid)
-        self.add_model(mid, model, quantize=quantize)
-        return mid
+        def load():
+            mid, model = self.registry.load(path, model_id,
+                                            device=self.device,
+                                            mesh=self.mesh)
+            self.registry.remove(mid)
+            self._add_model(mid, model, quantize=quantize, profile=None)
+            return mid
+        return self._in_order(load, "load", str(path), model_id, quantize)
 
     def remove(self, model_id: str) -> None:
+        self._in_order(lambda: self._remove(model_id), "remove", model_id)
+
+    def _remove(self, model_id: str) -> None:
         self.registry.remove(model_id)
         rm = self._residents.pop(model_id)
         # The learner first, joined: an update in flight finishes (or
@@ -754,8 +791,9 @@ class ServingEngine:
     def call(self, model_id, rows, *, op: str = "predict") -> np.ndarray:
         """Immediate (un-queued) dispatch of one request — the latency
         floor, the path for a strictly serial caller."""
-        return self._dispatch(model_id, op,
-                              self._validate(model_id, op, rows))
+        block = self._validate(model_id, op, rows)
+        return self._in_order(lambda: self._dispatch(model_id, op, block),
+                              "call", model_id, op, rows=block)
 
     def predict(self, model_id, rows) -> np.ndarray:
         """Immediate (un-queued) dispatch — the latency floor."""
@@ -772,15 +810,13 @@ class ServingEngine:
         (float64 host sum of the rows' nearest squared distances); mixture
         mean per-sample log-likelihood."""
         rm = self._rm(model_id)
-        if rm.spec["family"] == "gmm":
-            lse = self._dispatch(model_id, "score_samples",
-                                 self._validate(model_id,
-                                                "score_samples", rows))
-            return float(np.mean(lse))
-        mind2 = self._dispatch(model_id, "score_rows",
-                               self._validate(model_id, "score_rows",
-                                              rows))
-        return -float(np.sum(np.asarray(mind2, np.float64)))
+        op = "score_samples" if rm.spec["family"] == "gmm" else "score_rows"
+        block = self._validate(model_id, op, rows)
+        out = self._in_order(lambda: self._dispatch(model_id, op, block),
+                             "score", model_id, rows=block)
+        if op == "score_samples":
+            return float(np.mean(out))
+        return -float(np.sum(np.asarray(out, np.float64)))
 
     def predict_multi(self, requests: Sequence[Tuple[str, np.ndarray]]
                       ) -> List[np.ndarray]:
@@ -790,6 +826,12 @@ class ServingEngine:
         served by ONE packed dispatch; the rest per model."""
         blocks = [self._validate(mid, "predict", rows)
                   for mid, rows in requests]
+        return self._in_order(
+            lambda: self._predict_multi(requests, blocks), "predict_multi",
+            tuple((mid, rows_digest(rows=b))
+                  for (mid, _), b in zip(requests, blocks)))
+
+    def _predict_multi(self, requests, blocks) -> List[np.ndarray]:
         _, model_shards = mesh_shape(self.mesh)
         groups: Dict[tuple, List[int]] = {}
         singles: List[int] = []
@@ -921,6 +963,10 @@ class ServingEngine:
                 "guarded bf16 assignment has no TP form (quantization "
                 "is rejected under TP sharding)")
         block = self._validate(model_id, "predict", rows)
+        return self._in_order(lambda: self._verify(rm, block), "verify",
+                              model_id, rows=block)
+
+    def _verify(self, rm: ResidentModel, block: np.ndarray) -> dict:
         buf, m, B = self._stage(rm, block)
         chunk = self._serve_chunk(rm, B)
         cents = rm.table_dev()
@@ -1002,6 +1048,10 @@ class ServingEngine:
         ids = [model_id] if model_id is not None else self.models()
         buckets = self.buckets if buckets is None else \
             check_buckets(buckets)
+        return self._in_order(lambda: self._warmup(ids, buckets), "warmup",
+                              tuple(ids), buckets)
+
+    def _warmup(self, ids, buckets) -> int:
         n = 0
         self._tls.warming = True
         try:
@@ -1127,7 +1177,22 @@ class ServingEngine:
     def close(self) -> None:
         """Join the learners (an update in flight finishes first), drain
         the queue, join its worker, close the drift-monitor sinks
-        (idempotent)."""
+        (idempotent).  On a mesh of more than one rank this is a task of the
+        sequencer, and an engine that owns its sequencer stops it after."""
+        seq = self._seq
+        if seq.on_thread():
+            self._close()
+            return
+        if self._closed:
+            return
+        try:
+            self._in_order(self._close, "close")
+        finally:
+            if self._owns_seq:
+                seq.stop()
+
+    def _close(self) -> None:
+        self._closed = True
         for rm in list(self._residents.values()):
             if rm.learner is not None:
                 rm.learner.close(join=True)

@@ -40,15 +40,28 @@ Every replica dispatches on the fleet's device through the engine's own
 paths: kernel 2 (2b under ``quantize='bf16'``'s float32 fix-ups and a
 'kernel_bf16' model) once per dispatch on the card.
 
-Multi-rank meshes: a mesh of the port is one process per rank, every rank
-running the same collectives; a router choosing by latencies measured in
-its own process would send the ranks' requests to different replicas, so
-``ServingFleet`` on a mesh of more than one rank raises
-``NotImplementedError`` (ROADMAP.md, A.21) before any collective runs.
+Multi-rank meshes: a mesh of the port is one process per rank, and every
+rank runs the same collectives in the same order.  Every rank builds the
+same fleet, adds the same models and makes the same calls (the engine's SPMD
+contract).  The fleet makes one
+:class:`~kmeans_tpu_torch.serving.batching.MeshSequencer` per rank and hands
+it to every replica engine, so every collective of the fleet runs on that
+one thread per rank, in the order of rank (0, 0).  Rank (0, 0) alone makes
+the decisions that depend on time, thread scheduling or counters of its
+own process, and sends each to the others (``parallel.mesh.share``) before
+the first collective it governs: the route of a request or its shed (its
+latency histograms and in-flight counts), the replicas a reap declares
+dead, a replica guard's verdict, the queues' batches and the learners'
+updates.  :attr:`ServingFleet.route_digest` is a digest of the routes
+taken, the same on every rank that followed the same sequence.  Only rank (0, 0)
+writes the heartbeats and the drift sinks.  A world of one rank, or no
+mesh, has a ``LocalSequencer`` in its place: the same code, each decision
+this process's own, no thread and no exchange.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import threading
@@ -60,9 +73,11 @@ import numpy as np
 from kmeans_tpu_torch.models.kmeans import resolve_device
 from kmeans_tpu_torch.obs import metrics_registry as obs_metrics
 from kmeans_tpu_torch.parallel.mesh import check_mesh
-from kmeans_tpu_torch.serving.batching import (DEFAULT_BUCKETS, ServingFuture,
-                                               bucket_for, check_buckets)
-from kmeans_tpu_torch.serving.engine import ServingEngine, refuse_multi_rank
+from kmeans_tpu_torch.serving.batching import (DEFAULT_BUCKETS,
+                                               ServingFuture, bucket_for,
+                                               check_buckets, in_order,
+                                               rows_digest, sequencer_for)
+from kmeans_tpu_torch.serving.engine import ServingEngine
 from kmeans_tpu_torch.serving.registry import ModelRegistry, load_fitted
 
 __all__ = ["ServingFleet", "FleetFuture", "FleetOverloadError",
@@ -84,6 +99,10 @@ ROUTE_REFRESH = 32
 #: seconds) is dead for :meth:`ServingFleet.reap`.
 DEAD_AFTER_FACTOR = 3.0
 DEAD_MIN_S = 1.0
+
+# A route's code when no replica was picked: a shed, no serving replica, no
+# such model.
+_SHED, _NO_REPLICA, _NO_MODEL = -1, -2, -3
 
 
 class FleetOverloadError(RuntimeError):
@@ -124,7 +143,35 @@ class _Replica:
         engine.dispatch_guard = self._guard
 
     def _guard(self, model_id, op: str) -> None:
-        """The engine's pre-dispatch hook: the fault hook, then liveness.
+        """The engine's pre-dispatch hook, :meth:`_verdict` of rank (0, 0)
+        on every rank (0 pass, 1 dead, 2 another refusal); where this rank
+        decided, its own exception."""
+        errs: List[BaseException] = []
+
+        def decide():
+            try:
+                self._verdict(model_id, op)
+                return [0]
+            except ReplicaDeadError as e:
+                errs.append(e)
+                return [1]
+            except Exception as e:      # noqa: BLE001 — shared, raised
+                errs.append(e)
+                return [2]
+
+        verdict = self.engine._seq.share(decide)[0]
+        if verdict and errs:
+            raise errs[0]
+        if verdict == 1:
+            raise ReplicaDeadError(
+                f"replica {self.name!r} is dead (dispatch refused)")
+        if verdict == 2:
+            raise RuntimeError(f"rank (0, 0)'s guard of replica "
+                               f"{self.name!r} refused the dispatch")
+
+    def _verdict(self, model_id, op: str) -> None:
+        """The replica's own check before a dispatch: the fault hook, then
+        liveness.
         A killed replica refuses every dispatch (direct, queued, packed),
         so its queued requests fail through the queue's per-request
         isolation and the router re-dispatches them."""
@@ -231,7 +278,9 @@ class ServingFleet:
         ``kill_replica``, ``remove_replica`` change it later).
     device : as in the engine: ``None`` is the card (and raises where
         there is none); ``device='cpu'`` runs the kernels' plain versions.
-    mesh : None, or a mesh of one rank (more raise, ROADMAP.md, A.21).
+    mesh : None, or the mesh every replica serves on; on more than one rank
+        rank (0, 0) routes, reaps and batches for every rank (the module
+        docstring).
     buckets, max_wait_ms, clock, start, quality, quality_window :
         forwarded to every replica engine.  ``clock`` also times the
         router's latency observations and drives :meth:`reap`.
@@ -269,7 +318,11 @@ class ServingFleet:
                              f"got {replication}")
         self.device = resolve_device(device)
         self.mesh = check_mesh(mesh)
-        refuse_multi_rank(self.mesh, "ServingFleet")
+        # One sequencer for every replica of this rank (the module
+        # docstring).
+        self._seq = sequencer_for(self.mesh)
+        self._uid = self._seq.new_id()
+        self._route_log = hashlib.blake2b(digest_size=8)
         self.buckets = check_buckets(buckets)
         self._max_wait_ms = float(max_wait_ms)
         self._clock = clock if clock is not None else time.monotonic
@@ -318,9 +371,9 @@ class ServingFleet:
             start=self._start, quality=self._quality,
             quality_dir=self._fleet_dir,
             quality_window=self._quality_window, quality_tag=name,
-            learn=self._learn)
+            learn=self._learn, _sequencer=self._seq)
         hb = os.path.join(self._fleet_dir, f"hb.{name}.jsonl") \
-            if self._fleet_dir is not None else None
+            if self._fleet_dir is not None and eng.writes_files else None
         rep = _Replica(name, i, eng, hb, self._hb_interval)
         self._replicas.append(rep)
         return rep
@@ -335,11 +388,21 @@ class ServingFleet:
     def replicas(self) -> List[str]:
         return [r.name for r in self._replicas]
 
+    def _in_order(self, fn, *parts, rows=None):
+        """``fn()``, on a mesh of more than one rank as the sequencer's task
+        keyed by ``parts`` and ``rows`` (inline on its thread)."""
+        return in_order(self._seq, fn, "fleet", self._uid, *parts,
+                        rows=rows)
+
     def add_replica(self, *, prewarm: bool = True) -> str:
         """Grow the fleet by one replica.  Models placed everywhere land on
         it at once; under ``replication`` it joins the pool for later
         models.  With ``prewarm`` it runs every bucket shape BEFORE it
         enters ``'serving'``; ``prewarm_s`` (stats) is the cost."""
+        return self._in_order(lambda: self._add_replica(prewarm),
+                              "add_replica", prewarm)
+
+    def _add_replica(self, prewarm: bool) -> str:
         rep = self._spawn()
         if self._replication is None:
             for mid in self.registry.ids():
@@ -364,6 +427,10 @@ class ServingFleet:
     def remove_replica(self, name) -> None:
         """Shrink gracefully: stop routing to the replica, drain its queue
         (pending requests complete) and drop it from the placement."""
+        self._in_order(lambda: self._remove_replica(name), "remove_replica",
+                       name)
+
+    def _remove_replica(self, name) -> None:
         rep = self._replica(name)
         rep.state = "dead"
         rep.engine.close()
@@ -389,18 +456,27 @@ class ServingFleet:
         and has completed no dispatch within the stall window
         (``DEAD_AFTER_FACTOR`` heartbeat intervals, at least
         ``DEAD_MIN_S``).  An idle replica never reaps.  Returns the names
-        newly dead; their queued requests fail over when collected."""
-        now = self._clock() if now is None else now
-        window = max(DEAD_AFTER_FACTOR * self._hb_interval, DEAD_MIN_S)
+        newly dead; their queued requests fail over when collected.  On a
+        mesh of more than one rank, rank (0, 0)'s clock and counters decide
+        for every rank."""
+        return self._in_order(lambda: self._reap(now), "reap", now)
+
+    def _reap(self, now: Optional[float]) -> List[str]:
+        def decide():
+            t = self._clock() if now is None else now
+            window = max(DEAD_AFTER_FACTOR * self._hb_interval, DEAD_MIN_S)
+            return [rep.index for rep in self._replicas
+                    if rep.state == "serving" and rep.inflight > 0
+                    and rep.last_beat is not None
+                    and t - rep.last_beat > window]
+
+        dead = self._seq.share(decide)
         newly: List[str] = []
-        for rep in self._replicas:
-            if rep.state != "serving" or rep.inflight <= 0:
-                continue
-            if rep.last_beat is not None \
-                    and now - rep.last_beat > window:
-                rep.killed = True
-                rep.state = "dead"
-                newly.append(rep.name)
+        for i in dead:
+            rep = self._replicas[i]
+            rep.killed = True
+            rep.state = "dead"
+            newly.append(rep.name)
         return newly
 
     # ------------------------------------------------------- residency
@@ -410,6 +486,12 @@ class ServingFleet:
                   profile: Optional[dict] = None) -> List[str]:
         """Make a fitted model resident across the fleet; returns the
         replicas it was placed on."""
+        return self._in_order(
+            lambda: self._add_model(model_id, model, quantize, profile),
+            "add_model", model_id, quantize)
+
+    def _add_model(self, model_id: str, model, quantize, profile
+                   ) -> List[str]:
         spec = self.registry.register(model_id, model)
         idxs = self._place(spec)
         placed: List[int] = []
@@ -438,6 +520,10 @@ class ServingFleet:
              quantize: Optional[str] = None) -> str:
         """Load a checkpoint once onto the fleet's device and place it
         (every replica shares the one model object)."""
+        return self._in_order(lambda: self._load(path, model_id, quantize),
+                              "load", str(path), model_id, quantize)
+
+    def _load(self, path, model_id, quantize) -> str:
         model = load_fitted(path, device=self.device, mesh=self.mesh)
         if model_id is None:
             from pathlib import Path
@@ -446,7 +532,7 @@ class ServingFleet:
             while model_id in self.registry:
                 i += 1
                 model_id = f"{stem}-{i}"
-        self.add_model(model_id, model, quantize=quantize)
+        self._add_model(model_id, model, quantize, None)
         return model_id
 
     def models(self) -> List[str]:
@@ -477,6 +563,10 @@ class ServingFleet:
         (replicas move from ``'warming'`` to ``'serving'``; routing only
         considers serving replicas).  ``prewarm=False`` opens without the
         probes.  Returns the warm dispatches run."""
+        return self._in_order(lambda: self._warmup(prewarm), "warmup",
+                              prewarm)
+
+    def _warmup(self, prewarm: bool) -> int:
         n = 0
         for rep in self._replicas:
             if rep.state == "warming":
@@ -569,6 +659,48 @@ class ServingFleet:
             return best
         return self._two_choices(cands)
 
+    def _routed(self, model_id, m: int) -> _Replica:
+        """:meth:`_route`'s replica; on a mesh of more than one rank the
+        one rank (0, 0) picked (its shed, and its refusals, too).  Every
+        route enters :attr:`route_digest`."""
+        errs: List[BaseException] = []
+
+        def decide():
+            try:
+                return [self._route(model_id, m).index]
+            except FleetOverloadError as e:
+                errs.append(e)
+                return [_SHED]
+            except ReplicaDeadError as e:
+                errs.append(e)
+                return [_NO_REPLICA]
+            except KeyError as e:
+                errs.append(e)
+                return [_NO_MODEL]
+
+        code = self._seq.share(decide)[0]
+        with self._lock:
+            self._route_log.update(repr((model_id, m, code)).encode())
+        if code >= 0:
+            return self._replicas[code]
+        if errs:
+            raise errs[0]
+        if code == _SHED:
+            self._record_shed(model_id)
+            raise FleetOverloadError(
+                f"request for model {model_id!r} shed by rank (0, 0)'s "
+                f"router (explicit, counted in fleet.shed)")
+        if code == _NO_REPLICA:
+            raise ReplicaDeadError(f"no serving replica hosts model "
+                                   f"{model_id!r} (rank (0, 0)'s view)")
+        raise KeyError(f"no resident model {model_id!r}")
+
+    def _chosen(self, cands: List[_Replica]) -> _Replica:
+        """:meth:`_two_choices`, on a mesh of more than one rank rank
+        (0, 0)'s pick."""
+        i = self._seq.share(lambda: [self._two_choices(cands).index])[0]
+        return self._replicas[i]
+
     def _two_choices(self, cands: List[_Replica]) -> _Replica:
         """Deterministic power-of-two choices: two candidates off the
         rotating counter, fewer in flight wins (ties to the first)."""
@@ -618,9 +750,13 @@ class ServingFleet:
         """Routed immediate dispatch; fails over to a surviving replica
         when the target dies during the request."""
         rows = np.asarray(rows)
+        return self._in_order(lambda: self._call(model_id, rows, op),
+                              "call", model_id, op, rows=rows)
+
+    def _call(self, model_id, rows: np.ndarray, op: str) -> np.ndarray:
         m = _rows_of(rows)
         while True:
-            rep = self._route(model_id, m)
+            rep = self._routed(model_id, m)
             try:
                 return self._forward(rep, model_id, rows, op)
             except ReplicaDeadError:
@@ -631,9 +767,13 @@ class ServingFleet:
 
     def score(self, model_id, rows) -> float:
         rows = np.asarray(rows)
+        return self._in_order(lambda: self._score(model_id, rows), "score",
+                              model_id, rows=rows)
+
+    def _score(self, model_id, rows: np.ndarray) -> float:
         m = _rows_of(rows)
         while True:
-            rep = self._route(model_id, m)
+            rep = self._routed(model_id, m)
             self._record_route(rep.name, model_id)
             t0 = self._clock()
             with self._lock:
@@ -672,7 +812,8 @@ class ServingFleet:
         :class:`FleetFuture` re-dispatches on replica death.  A shed
         raises here, at submit time."""
         rows = np.asarray(rows)
-        rep = self._route(model_id, _rows_of(rows))
+        rep = self._in_order(lambda: self._routed(model_id, _rows_of(rows)),
+                             "route", model_id, op, rows=rows)
         inner = self._submit_once(rep, model_id, rows, op)
         return FleetFuture(self, rep, inner, model_id, rows, op,
                            self._clock())
@@ -687,7 +828,8 @@ class ServingFleet:
     def _resubmit(self, model_id, rows, op: str
                   ) -> Tuple[_Replica, ServingFuture]:
         """Re-dispatch a request whose replica died with it in flight."""
-        rep = self._route(model_id, _rows_of(rows))
+        rep = self._in_order(lambda: self._routed(model_id, _rows_of(rows)),
+                             "route", model_id, op, rows=rows)
         return rep, self._submit_once(rep, model_id, rows, op)
 
     def predict_multi(self, requests: Sequence[Tuple[str, np.ndarray]]
@@ -698,6 +840,12 @@ class ServingFleet:
         models share no replica are routed one by one."""
         if not requests:
             return []
+        return self._in_order(
+            lambda: self._predict_multi(requests), "predict_multi",
+            tuple((mid, rows_digest(rows=np.asarray(rows)))
+                  for mid, rows in requests))
+
+    def _predict_multi(self, requests) -> List[np.ndarray]:
         mids = {mid for mid, _ in requests}
         for mid in mids:
             if mid not in self._placement:
@@ -709,7 +857,7 @@ class ServingFleet:
         m = sum(int(np.asarray(rows).shape[0]) for _, rows in requests)
         first = next(iter(mids))
         while cands:
-            rep = self._two_choices(cands)
+            rep = self._chosen(cands)
             self._record_route(rep.name, first, n=len(requests))
             t0 = self._clock()
             with self._lock:
@@ -726,7 +874,8 @@ class ServingFleet:
                 raise
             self._complete(rep, first, m, t0)
             return out
-        return [self.call(mid, rows) for mid, rows in requests]
+        return [self._call(mid, np.asarray(rows), "predict")
+                for mid, rows in requests]
 
     # ------------------------------------------------------------ stats
 
@@ -776,6 +925,13 @@ class ServingFleet:
             "buckets": list(self.buckets),
         }
 
+    @property
+    def route_digest(self) -> str:
+        """A digest of every route taken so far, in order (model, rows, the
+        replica or the shed): equal on every rank of a mesh."""
+        with self._lock:
+            return self._route_log.hexdigest()
+
     def quality_status(self) -> dict:
         """``{model_id: {replica: drift status or None}}``."""
         out: Dict[str, dict] = {}
@@ -795,9 +951,16 @@ class ServingFleet:
     # -------------------------------------------------------- lifecycle
 
     def close(self) -> None:
-        """Drain and close every replica engine (idempotent)."""
+        """Drain and close every replica engine (idempotent); on a mesh of
+        more than one rank in sequence, then the sequencer stops."""
         if self._closed:
             return
+        try:
+            self._in_order(self._close, "close")
+        finally:
+            self._seq.stop()
+
+    def _close(self) -> None:
         self._closed = True
         for rep in self._replicas:
             rep.engine.close()

@@ -45,12 +45,27 @@ same ``partial_fit`` batches replayed offline from the pre-update
 snapshot (the float64 Sculley carry makes the trajectory reproducible),
 and an injected update failure or quality regression fails no serving
 request.
+
+On a mesh of more than one rank (the engine's sequencer,
+``serving.batching.MeshSequencer``) no learner thread is started: every
+rank feeds its reservoir from the same dispatches in the same order, and
+after each of them rank (0, 0) decides whether an evaluation or an update
+runs next (one ``share`` at the same point of every rank's sequence).  The
+update then runs on every rank, inside that dispatch's task, on the batches
+that every rank drains alike; ``update_now`` and ``evaluate_now`` are tasks
+of the sequencer too.  The primary alone writes the snapshot (its success
+is shared), every rank keeps the last two snapshots in memory, and a
+rollback restores on each rank the state the primary restored from its
+files (primary or ``.prev``, shared), under the primary's verdict and
+ratio.  Every rank publishes the same table at the same place in its
+sequence.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import struct
 import threading
 import time
 import weakref
@@ -343,6 +358,9 @@ class ModelLearner:
                  regression_ratio: float = REGRESSION_RATIO,
                  eval_windows: int = REGRESSION_EVAL_WINDOWS):
         self.engine = engine
+        # The engine's sequencer (the module docstring): ``ranked`` on a
+        # mesh of more than one rank.
+        self._sequencer = engine._seq
         self.rm = rm
         self.model = rm.model
         self.model_id = rm.model_id
@@ -382,6 +400,9 @@ class ModelLearner:
         # The batches of each APPLIED update, newest last (what an offline
         # replay of the update takes; bounded like the decision log).
         self.applied_batches: deque = deque(maxlen=DECISION_HISTORY)
+        # The last two pre-update states, newest first: the snapshot file
+        # and its .prev, which a rank that writes no file restores from.
+        self._snapshots: deque = deque(maxlen=2)
 
     # -------------------------------------------------------- reservoir
 
@@ -468,7 +489,11 @@ class ModelLearner:
     def poke(self) -> None:
         """The post-dispatch trigger check: starts the background worker
         when an update or a pending evaluation is due.  O(1) reads on the
-        common path."""
+        common path.  On a mesh of more than one rank the primary decides,
+        and the work runs here, in the dispatch's task."""
+        if self._sequencer.ranked:
+            self._poke_in_order()
+            return
         if self._closed or not self._armed or self._busy.locked():
             return
         if not (self._eval_due() or self._update_due()):
@@ -488,6 +513,25 @@ class ModelLearner:
             self._busy.release()
             raise
 
+    def _poke_in_order(self) -> None:
+        """``poke`` on a mesh of more than one rank: the primary's choice
+        (2 an evaluation, 1 an update, 0 nothing) on every rank, then that
+        work on every rank."""
+        if self._closed or not self._armed:
+            return
+        what = self._sequencer.share(lambda: [
+            2 if self._eval_due() else 1 if self._update_due() else 0])[0]
+        if not what:
+            return
+        try:
+            if what == 2:
+                self._evaluate(force=True)
+            else:
+                self._run_update(force=True, reason="drift")
+        except Exception as e:  # noqa: BLE001 — as _worker
+            self._decide("update-failed", f"internal: {e}",
+                         error=type(e).__name__, ok=False)
+
     def _worker(self) -> None:
         try:
             if self._eval_due():
@@ -506,8 +550,14 @@ class ModelLearner:
     def evaluate_now(self, *, force: bool = True) -> None:
         """Judge the pending update now; ``force=True`` judges on the
         windows there are instead of waiting for ``eval_windows``."""
-        with self._busy:
-            self._evaluate(force=force)
+        def run():
+            with self._busy:
+                self._evaluate(force=force)
+        self._in_order(run, "evaluate_now", force)
+
+    def _in_order(self, fn, *parts):
+        """``fn()``, as a task of the engine's sequencer."""
+        return self.engine._in_order(fn, "learn", self.model_id, *parts)
 
     def update_now(self, *, force: bool = True,
                    reason: str = "manual") -> Optional[dict]:
@@ -515,10 +565,12 @@ class ModelLearner:
         first, then one update.  ``force=True`` bypasses the drift trigger
         and the cooldown, never the budgets or the fill rule.  Returns the
         decision's dict (None when nothing ran)."""
-        with self._busy:
-            if self._pending is not None:
-                self._evaluate(force=force)
-            d = self._run_update(force=force, reason=reason)
+        def run():
+            with self._busy:
+                if self._pending is not None:
+                    self._evaluate(force=force)
+                return self._run_update(force=force, reason=reason)
+        d = self._in_order(run, "update_now", force, reason)
         return d.as_dict() if d is not None else None
 
     def _run_update(self, *, force: bool,
@@ -554,14 +606,26 @@ class ModelLearner:
             if getattr(self.model, "cluster_sizes_", None) is not None \
             else None
         # 1. The snapshot before the update (rotating: the previous one
-        #    stays at .prev).
-        try:
-            ckpt.save_state_rotating(self.snapshot_path,
-                                     self.model._state_dict())
-        except Exception as e:  # noqa: BLE001 — recorded, typed
+        #    stays at .prev), written by the rank that writes files.
+        state = self.model._state_dict()
+        failed: List[BaseException] = []
+
+        def write():
+            try:
+                ckpt.save_state_rotating(self.snapshot_path, state)
+                return [1]
+            except Exception as e:  # noqa: BLE001 — recorded, typed
+                failed.append(e)
+                return [0]
+
+        ok = self._sequencer.share(write)[0]
+        if not ok:
+            e = failed[0] if failed else RuntimeError(
+                "the primary rank's snapshot write failed")
             self.updates_failed += 1
             return self._decide("update-failed", f"snapshot: {e}",
                                 error=type(e).__name__, ok=False)
+        self._snapshots.appendleft(state)
         # 2. partial_fit on a detached clone: the served model is
         #    untouched until the swap.
         t_fit = time.perf_counter()
@@ -636,6 +700,11 @@ class ModelLearner:
         # An armed utils.faults.inject_quality_regression overrides the
         # measured ratio, driving the real restore and swap.
         ratio = _faults.on_update_eval(self.model_id, ratio)
+        # The primary's ratio judges on every rank (its float64 bits).
+        has, bits = self._sequencer.share(lambda: [
+            ratio is not None,
+            _f64_bits(ratio if ratio is not None else 0.0)])
+        ratio = _bits_f64(bits) if has else None
         self._pending = None
         if ratio is None or ratio <= self.regression_ratio:
             self._decide("eval-ok",
@@ -650,16 +719,32 @@ class ModelLearner:
 
     def _rollback(self, pending: dict, *, pre, post, ratio) -> None:
         """Restore the pre-update snapshot and publish it by the same
-        atomic swap as the update."""
-        try:
-            state, used_fallback = ckpt.load_state_with_fallback(
-                self.snapshot_path)
-        except Exception as e:  # noqa: BLE001 — both files torn: record
-            # it and disarm; the model keeps serving the updated table.
+        atomic swap as the update.  A rank that writes no file restores the
+        state the primary restored (its snapshot or the one before)."""
+        got: list = []
+
+        def restore():
+            try:
+                got.extend(ckpt.load_state_with_fallback(self.snapshot_path))
+                return [int(got[1])]
+            except Exception as e:  # noqa: BLE001 — both files torn
+                got.append(e)
+                return [2]
+
+        which = self._sequencer.share(restore)[0]
+        if which == 2:
+            # Record it and disarm; the model keeps serving the updated
+            # table.
+            e = got[0] if got else RuntimeError(
+                "the primary rank's snapshot restore failed")
             self._armed = False
             self._decide("disabled", f"rollback-restore-failed: {e}",
                          error=type(e).__name__, ok=False)
             return
+        if got:
+            state, used_fallback = got
+        else:
+            state, used_fallback = self._snapshots[which], bool(which)
         carry = state.get("centroids_f64")
         if carry is None:
             carry = np.asarray(state["centroids"], np.float64)
@@ -748,6 +833,14 @@ class ModelLearner:
         with self._res_lock:
             self._res.clear()
             self._res_rows = 0
+
+
+def _f64_bits(x: float) -> int:
+    return struct.unpack("<q", struct.pack("<d", float(x)))[0]
+
+
+def _bits_f64(b: int) -> float:
+    return struct.unpack("<d", struct.pack("<q", int(b)))[0]
 
 
 def snapshot_path_for(learn_dir: str, model_id: str,

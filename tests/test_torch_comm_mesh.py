@@ -6,7 +6,9 @@ ranks spawned for the module (the helpers of ``test_torch_distributed.py``).
 Each rank captures one K-Means step on the data axis (``data2``) and on
 the model axis (``model2``), plain, with the farthest point and with the
 per-cluster SSE (the bisecting step's), one 'diag' mixture
-E-step on the data axis, one device-loop iteration on the data axis, and
+E-step on the data axis, one mixture E-step of every covariance type on the
+model axis (k = 5 in blocks of three, its chunks' row statistics over the
+axis), one device-loop iteration on the data axis, and
 a traced fit whose fleet barrier is synced.  The bill agrees with every
 measured record (``comm_crosscheck``); the sites the port shares with the
 JAX package's model (the statistics' psums) carry its bytes;
@@ -24,6 +26,7 @@ torch.set_num_threads(1)
 from test_torch_distributed import _spawn  # noqa: E402
 
 N, D, K = 301, 6, 5
+GMM_CHUNK = 64          # 301 rows: four whole chunks and a short one
 
 
 def _data():
@@ -78,6 +81,29 @@ def _world(rank, out_dir):
         gm._make_step(mesh, gm._chunk(ds), "torch", 0)(
             ds.points, ds.weights, *gm._params_dev())
     res["gmm"] = _bytes(col.records()[0])
+    model2 = meshes["model2"]
+    for cov in ("diag", "spherical", "tied", "full"):
+        gm = GaussianMixture(n_components=K, covariance_type=cov,
+                             max_iter=2, tol=0.0, seed=0,
+                             init_params="random", device="cpu",
+                             dtype=np.float64, mesh=model2,
+                             chunk_size=GMM_CHUNK, verbose=False).fit(X)
+        ds = gm._dataset(X)
+        cold()
+        with cost.collecting() as col:
+            gm._make_step(model2, gm._chunk(ds), "torch", 0)(
+                ds.points, ds.weights, *gm._params_dev())
+        res["gmm_model2", cov] = dict(_bytes(col.records()[0]),
+                                      rows=int(ds.points.shape[0]))
+        if cov == "diag":
+            # The kernel mode (its plain versions here), float32.
+            cold()
+            with cost.collecting() as col:
+                gm._make_step(model2, gm._chunk(ds), "kernel", 0)(
+                    ds.points.float(), ds.weights.float(),
+                    *[t.float() for t in gm._params_dev()])
+            res["gmm_model2_kernel"] = dict(_bytes(col.records()[0]),
+                                            rows=int(ds.points.shape[0]))
     cold()
     with cost.collecting() as col:
         KMeans(k=K, max_iter=2, tolerance=1e-30, init=C, device="cpu",
@@ -142,6 +168,45 @@ def test_mixture_and_loop_bytes_agree_with_the_bill(world):
         assert res["loop"]["region"] == "eager"
         _check(res["loop"], fleet.comm_bytes_model(
             "kmeans", k=K, d=D, data_shards=2, acc_bytes=8))
+
+
+@pytest.mark.parametrize("cov", ["diag", "spherical", "tied", "full"])
+def test_mixture_model_axis_bytes_agree_with_the_bill(world, cov):
+    """The mixture's E-step on ``model2``: the statistics embedded over
+    both axes and, per chunk, the MAX and SUM of the row statistics over
+    the model axis, every call counted."""
+    from kmeans_tpu_torch.obs import fleet
+    for res in world:
+        measured = res["gmm_model2", cov]
+        model = fleet.comm_bytes_model(
+            "gmm", k=K, d=D, model_shards=2, acc_bytes=8, cov_type=cov,
+            rows=measured["rows"], chunk_rows=GMM_CHUNK)
+        chk = _check(measured, model)
+        assert chk["collectives"] == sum(s["count"] for s in model["sites"]
+                                         if s["in_program"])
+        names = {s["site"] for s in model["sites"]}
+        assert {"estep.pmax_row_max", "estep.pmax_row_max_tail",
+                "estep.psum_row_sum", "estep.psum_row_sum_tail"} <= names
+
+
+def test_mixture_kernel_mode_model_axis_bytes_agree_with_the_bill(world):
+    """The kernel mode's E-step on ``model2``: launch (a) over all the
+    rank's rows, so one MAX and one SUM of every row's statistics over the
+    axis (``chunk_rows=0``), whatever the chunk of the torch pass."""
+    from kmeans_tpu_torch.obs import fleet
+    for res in world:
+        measured = res["gmm_model2_kernel"]
+        model = fleet.comm_bytes_model(
+            "gmm", k=K, d=D, model_shards=2, acc_bytes=4,
+            rows=measured["rows"], chunk_rows=0)
+        chk = _check(measured, model)
+        rows = {s["site"]: s for s in model["sites"]
+                if s["site"].startswith("estep.p") and "row" in s["site"]}
+        assert set(rows) == {"estep.pmax_row_max", "estep.psum_row_sum"}
+        assert all(s["count"] == 1 and s["result_bytes"] == 4 * N
+                   for s in rows.values())
+        assert chk["collectives"] == sum(s["count"] for s in model["sites"]
+                                         if s["in_program"])
 
 
 def test_shared_sites_carry_the_references_bytes():

@@ -53,9 +53,14 @@ JAX_FITS = [("host", "keep", "far1"), ("host", "farthest", "far3"),
 DRAW_FITS = [("device", "resample", "far3"), ("device", "farthest", "far3")]
 LOCAL_ROWS = 120               # rank 0's rows of the process-local dataset
 GMM_ITERS = 8
-#: (covariance type, loop) of the mixture fits on the data axis.
+#: (covariance type, loop) of the mixture fits on the data axis, and on
+#: the model axis (``model2``: k = 3 in two blocks of two, one of them
+#: holding an inert pad).
 GMM_FITS = [("diag", "host"), ("spherical", "host"), ("tied", "host"),
             ("full", "host"), ("diag", "device"), ("full", "device")]
+GMM_MODEL_FITS = [(cov, loop) for cov in ("diag", "spherical", "tied",
+                                         "full")
+                  for loop in ("host", "device")]
 
 
 def _inputs():
@@ -132,11 +137,10 @@ def _world4(rank, out_dir):
         out["transform"] = km.transform(X)
         out["score"] = km.score(X)
         _model_selection(out, mesh, X, W, inits)
-        try:
-            GaussianMixture(2, mesh=mesh, device="cpu")
-            out["gmm_model_axis"] = None
-        except NotImplementedError as e:
-            out["gmm_model_axis"] = str(e)
+        out["gmm_model_axis"] = _gmm_record(GaussianMixture(
+            3, **_gmm_kw("diag", "host", gmm_means), mesh=mesh,
+            device="cpu").fit(X, sample_weight=W), X)
+    _gmm_model_axis(res, rank, out_dir, X, W, gmm_means)
     mesh = meshes["data2"]
     if in_mesh(mesh):
         out = res["data2"]
@@ -197,6 +201,90 @@ def _world4(rank, out_dir):
             out["kmeanspp", weighted] = pt_init._kmeanspp_sharded_draws(
                 dsw, 40, np.random.default_rng(9)).numpy()
     return res
+
+
+def _gmm_kw(cov, loop, gmm_means):
+    return dict(covariance_type=cov, max_iter=GMM_ITERS, tol=0.0,
+                dtype=np.float64, means_init=gmm_means,
+                host_loop=loop == "host")
+
+
+def _gmm_record(gm, X):
+    return dict(means=gm.means_, covariances=gm.covariances_,
+                weights=gm.weights_, lower_bound=gm.lower_bound_,
+                n_iter=gm.n_iter_, labels=gm.predict(X),
+                proba=gm.predict_proba(X), scores=gm.score_samples(X),
+                score=gm.score(X))
+
+
+#: The mixture's restarts and sweep on the model axis.
+GMM_N_INIT_KW = dict(n_components=3, max_iter=GMM_ITERS, tol=0.0, n_init=2,
+                     init_params="random", seed=4, dtype=np.float64)
+GMM_SWEEP_KS = (2, 3, 5)
+
+
+def _gmm_model_axis(res, rank, out_dir, X, W, gmm_means):
+    """The mixture on the model axis (ROADMAP A.18): every covariance type
+    by both loops, restarts and a sweep on ``model2``, the E-step of the
+    kernel mode (its plain versions here) against one device, a checkpoint,
+    a block of only inert components (k = 3 on ``model4``), and
+    ``model_shards=2`` without a mesh (the world's 2 x 2 mesh)."""
+    from kmeans_tpu_torch import GaussianMixture
+    from kmeans_tpu_torch.parallel.gmm_step import make_gmm_step_fn
+    from kmeans_tpu_torch.parallel.mesh import in_mesh, make_mesh
+    from kmeans_tpu_torch.parallel.sharding import to_device
+    model2 = make_mesh(1, 2, ranks=(0, 1))
+    model4 = make_mesh(1, 4)
+    if in_mesh(model2):
+        out = res["gmm_model2"] = {}
+        for cov, loop in GMM_MODEL_FITS:
+            gm = GaussianMixture(3, **_gmm_kw(cov, loop, gmm_means),
+                                 mesh=model2, device="cpu").fit(
+                X, sample_weight=W)
+            out[cov, loop] = _gmm_record(gm, X)
+        gm.save(os.path.join(out_dir, "gmm_model2.npz"))
+        # A checkpointed device-loop fit killed at boundary 4 on every
+        # rank, then resumed on the same mesh for the iterations left.
+        from kmeans_tpu_torch.utils import faults
+        path = os.path.join(out_dir, "gmm_seg.npz")
+        with faults.inject_kill_after_iteration(4) as rec:
+            try:
+                GaussianMixture(3, **_gmm_kw("diag", "device", gmm_means),
+                                mesh=model2, device="cpu").fit(
+                    X, sample_weight=W, checkpoint_every=2,
+                    checkpoint_path=path)
+            except faults.SimulatedPreemption:
+                pass
+        kw = dict(_gmm_kw("diag", "device", gmm_means),
+                  max_iter=GMM_ITERS - 4)
+        out["resumed"] = dict(_gmm_record(GaussianMixture(
+            3, **kw, mesh=model2, device="cpu").fit(
+            X, sample_weight=W, resume=path), X), killed=rec["fired_at"])
+        for loop in ("host", "device"):
+            gm = GaussianMixture(host_loop=loop == "host", mesh=model2,
+                                 device="cpu", **GMM_N_INIT_KW).fit(X)
+            out["n_init", loop] = dict(_gmm_record(gm, X),
+                                       best=gm.best_restart_)
+        sw = GaussianMixture(mesh=model2, device="cpu",
+                             **GMM_N_INIT_KW).sweep(X, k_range=GMM_SWEEP_KS)
+        out["sweep"] = dict(selected=sw.selected_k, scores=sw.scores,
+                            member_scores=sw.member_scores)
+        x32 = X.astype(np.float32)
+        ds = to_device(x32, torch.device("cpu"), np.float32, mesh=model2,
+                       sample_weight=W.astype(np.float32))
+        gm = GaussianMixture(5, **_gmm_kw("diag", "host", X[:5]),
+                             mesh=model2, device="cpu").fit(X)
+        tables = [t.to(torch.float32) for t in gm._params_dev()]
+        out["kernel_tables"] = [t.numpy() for t in tables]
+        out["kernel_step"] = [t.numpy() for t in make_gmm_step_fn(
+            model2, chunk_size=CHUNK, mode="kernel")(
+            ds.points, ds.weights, *tables)]
+    res["gmm_model4"] = _gmm_record(GaussianMixture(
+        3, **_gmm_kw("diag", "host", gmm_means), mesh=model4,
+        device="cpu").fit(X, sample_weight=W), X)
+    res["gmm_model_shards"] = _gmm_record(GaussianMixture(
+        3, **_gmm_kw("full", "host", gmm_means), model_shards=2,
+        device="cpu").fit(X, sample_weight=W), X)
 
 
 def _model_selection(out, mesh, X, W, inits):
@@ -512,13 +600,134 @@ def test_every_rank_gets_the_same_result(world4, name):
         np.testing.assert_array_equal(out["transform"], outs[0]["transform"])
 
 
+def _jax_gmm(jmesh, X, W, **kw):
+    import kmeans_tpu
+    return kmeans_tpu.GaussianMixture(mesh=jmesh, **kw).fit(
+        X, sample_weight=W)
+
+
+def _assert_gmm(got, jm, X, n_iter=GMM_ITERS):
+    """A mixture fit of the port against the JAX package's, float64 class:
+    iterations and labels equal, the tables, bound and posteriors to
+    ``RTOL`` / ``ATOL``."""
+    assert got["n_iter"] == jm.n_iter_ == n_iter
+    for name in ("means", "covariances", "weights"):
+        _close(got[name], np.asarray(getattr(jm, name + "_")))
+    _close(got["lower_bound"], jm.lower_bound_)
+    np.testing.assert_array_equal(got["labels"], np.asarray(jm.predict(X)))
+    _close(got["proba"], np.asarray(jm.predict_proba(X)))
+    _close(got["scores"], np.asarray(jm.score_samples(X)))
+    _close(got["score"], jm.score(X))
+
+
 @pytest.mark.parametrize("name", list(MESHES))
-def test_gmm_on_a_model_axis_raises_naming_A18(world4, name):
-    for out in _ranks_of(world4[0], name):
-        if MESHES[name][0][1] > 1:
-            assert "A.18" in out["gmm_model_axis"]
-        else:
-            assert out["gmm_model_axis"] is None
+def test_gmm_on_a_model_axis_raises_naming_A18(world4, jx, name):
+    """The mixture runs on every mesh (ROADMAP A.18 is done): 'diag' with
+    k = 3 on ``data2``, ``model2`` and ``dm22`` (the model axis pads the
+    table to 4) against the JAX package's fit on the mesh of the same
+    shape, in the float64 class, on every rank."""
+    X, _, W, _, gmm_means = _inputs()
+    jm = _jax_gmm(jx[name], X, W, n_components=3,
+                  **_gmm_kw("diag", "host", gmm_means))
+    outs = _ranks_of(world4[0], name)
+    assert len(outs) == int(np.prod(MESHES[name][0]))
+    for out in outs:
+        _assert_gmm(out["gmm_model_axis"], jm, X)
+
+
+@pytest.mark.parametrize("case", GMM_MODEL_FITS,
+                         ids=["-".join(c) for c in GMM_MODEL_FITS])
+def test_gmm_model_axis_matches_jax_float64(world4, jx, case):
+    """Every covariance type by both loops on ``model2`` against the JAX
+    package's model-axis fit, on both ranks, bit-equal between them."""
+    X, _, W, _, gmm_means = _inputs()
+    jm = _jax_gmm(jx["model2"], X, W, n_components=3,
+                  **_gmm_kw(*case, gmm_means))
+    outs = [r["gmm_model2"] for r in world4[0] if "gmm_model2" in r]
+    assert len(outs) == 2
+    for out in outs:
+        _assert_gmm(out[case], jm, X)
+    for key, value in outs[0][case].items():
+        np.testing.assert_array_equal(outs[1][case][key], value)
+
+
+@pytest.mark.parametrize("loop", ["host", "device"])
+def test_gmm_model_axis_restarts_match_jax(world4, jx, loop):
+    """``n_init=2`` from random starts on ``model2``: the JAX package's
+    winner and fit."""
+    X, _, _, _, _ = _inputs()
+    import kmeans_tpu
+    jm = kmeans_tpu.GaussianMixture(mesh=jx["model2"],
+                                    host_loop=loop == "host",
+                                    **GMM_N_INIT_KW).fit(X)
+    for r in world4[0]:
+        if "gmm_model2" in r:
+            got = r["gmm_model2"]["n_init", loop]
+            assert got["best"] == jm.best_restart_
+            _assert_gmm(got, jm, X)
+
+
+def test_gmm_model_axis_sweep_matches_jax(world4, jx):
+    import kmeans_tpu
+    X, _, _, _, _ = _inputs()
+    jr = kmeans_tpu.GaussianMixture(mesh=jx["model2"],
+                                    **GMM_N_INIT_KW).sweep(
+        X, k_range=GMM_SWEEP_KS)
+    for r in world4[0]:
+        if "gmm_model2" in r:
+            got = r["gmm_model2"]["sweep"]
+            assert got["selected"] == jr.selected_k
+            _close(got["member_scores"], jr.member_scores)
+            _close(got["scores"], jr.scores)
+
+
+def test_gmm_model_axis_checkpoint_resumes(world4):
+    """A checkpointed device-loop fit on ``model2`` killed at boundary 4
+    (one writer) and resumed on the same mesh: the uninterrupted fit's
+    tables and bound, in the float64 class, on both ranks."""
+    X, _, _, _, _ = _inputs()
+    for r in world4[0]:
+        if "gmm_model2" in r:
+            got = r["gmm_model2"]["resumed"]
+            want = r["gmm_model2"]["diag", "device"]
+            assert got["killed"] == 4
+            for name in ("means", "covariances", "weights", "lower_bound",
+                         "scores"):
+                _close(got[name], want[name])
+            np.testing.assert_array_equal(got["labels"], want["labels"])
+
+
+def test_gmm_block_of_only_pads_matches_jax(world4):
+    """k = 3 on a model axis of four: the last rank's block holds only an
+    inert component (every logp -inf, its softmax terms 0, no NaN); the
+    JAX package's fit on a 1 x 4 mesh."""
+    import jax
+    from kmeans_tpu.parallel.mesh import make_mesh
+    X, _, W, _, gmm_means = _inputs()
+    jm = _jax_gmm(make_mesh(data=1, model=4, devices=jax.devices()[:4]),
+                  X, W, n_components=3,
+                  **_gmm_kw("diag", "host", gmm_means))
+    for r in world4[0]:
+        _assert_gmm(r["gmm_model4"], jm, X)
+
+
+def test_gmm_kernel_mode_step_on_the_model_axis(world4):
+    """The kernel mode's E-step on ``model2`` (k = 5 in blocks of three:
+    launch (a), the MAX and SUM over the axis, launch (b); their plain
+    versions on the CPU) against the one-device kernel-mode step, within
+    the E-step tolerances of ``ops.compare``."""
+    from kmeans_tpu_torch.ops import compare as cmp
+    from kmeans_tpu_torch.parallel.gmm_step import make_gmm_step_fn
+    X, _, W, _, _ = _inputs()
+    outs = [r["gmm_model2"] for r in world4[0] if "gmm_model2" in r]
+    assert len(outs) == 2
+    tables = [torch.from_numpy(t) for t in outs[0]["kernel_tables"]]
+    want = make_gmm_step_fn(chunk_size=CHUNK, mode="kernel")(
+        torch.from_numpy(X.astype(np.float32)),
+        torch.from_numpy(W.astype(np.float32)), *tables)
+    for got in (o["kernel_step"] for o in outs):
+        errs = cmp.estep_errors([torch.from_numpy(g) for g in got], want)
+        assert errs["ok"], errs
 
 
 @pytest.mark.parametrize("cov", ["diag", "spherical", "tied", "full"])
@@ -570,10 +779,30 @@ def test_gmm_kmeans_seeding_runs_its_kmeans_on_the_mesh(world4):
         _close(got["lower_bound"], want.lower_bound_)
 
 
-def test_gmm_model_shards_raises_naming_A18():
+def test_gmm_model_shards_raises_naming_A18(world4, jx):
+    """``GaussianMixture(model_shards=2)`` without a mesh fits on the
+    world's mesh ``make_mesh(model=2)``, 2 x 2 here ('full', k = 3 padded
+    to 4): the JAX package's fit on the 2 x 2 mesh, on all four ranks; and
+    a checkpoint written on ``model2`` loads on one device and in the JAX
+    package with the same posteriors."""
+    import kmeans_tpu
     import kmeans_tpu_torch
-    with pytest.raises(NotImplementedError, match="A.18"):
-        kmeans_tpu_torch.GaussianMixture(2, model_shards=2, device="cpu")
+    results, tmp = world4
+    X, _, W, _, gmm_means = _inputs()
+    jm = _jax_gmm(jx["dm22"], X, W, n_components=3,
+                  **_gmm_kw("full", "host", gmm_means))
+    for r in results:
+        _assert_gmm(r["gmm_model_shards"], jm, X)
+    path = tmp / "gmm_model2.npz"
+    saved = results[0]["gmm_model2"]["full", "device"]
+    one = kmeans_tpu_torch.GaussianMixture.load(path, device="cpu")
+    assert one.model_shards == 1 and one.mesh is None
+    np.testing.assert_array_equal(one.predict(X), saved["labels"])
+    _close(one.score_samples(X), saved["scores"])
+    jl = kmeans_tpu.GaussianMixture.load(path)
+    np.testing.assert_array_equal(np.asarray(jl.predict(X)),
+                                  saved["labels"])
+    _close(np.asarray(jl.score_samples(X)), saved["scores"])
 
 
 def test_save_on_a_mesh_loads_on_one_device_and_in_jax(world4):

@@ -296,11 +296,28 @@ def test_arguments_not_ported_yet_raise(kw):
     """Each raises naming its ROADMAP item; ``mesh``, ported since, refuses
     what is not a DeviceMesh instead; 'tied', 'full', ``host_loop=False``,
     ``pipeline=1``, ``ingest='slab'``, ``bucket='auto'`` and ``overlap=1``,
-    ported since, fit a few rows and report what ran."""
+    ported since, fit a few rows and report what ran.  ``model_shards``,
+    ported since (ROADMAP A.18), is kept and written into the state; a fit
+    makes the world's mesh ``make_mesh(model=model_shards)``, as
+    ``KMeans`` does, which a world of one rank cannot hold (the fits on a
+    model axis are in ``test_torch_distributed.py``); below 1 it is
+    refused."""
     if "mesh" in kw:
         with pytest.raises(TypeError, match="DeviceMesh"):
             kmeans_tpu_torch.GaussianMixture(n_components=2, device="cpu",
                                              **kw)
+        return
+    if "model_shards" in kw:
+        gm = kmeans_tpu_torch.GaussianMixture(n_components=2, device="cpu",
+                                              **kw)
+        assert gm.model_shards == 2 and gm.mesh is None
+        assert gm._state_dict()["model_shards"] == 2
+        X, _ = _data(n=120, centers=2, d=3, seed=5)
+        with pytest.raises(ValueError, match="not divisible by model=2"):
+            gm.fit(X)
+        with pytest.raises(ValueError, match="model_shards must be"):
+            kmeans_tpu_torch.GaussianMixture(n_components=2, device="cpu",
+                                             model_shards=0)
         return
     name = next(n for n, v in LATER.items() if v == kw)
     if name in PORTED:

@@ -19,9 +19,19 @@ the same requests on one device and on the meshes ``data2`` (2 x 1) and
   one-device quantizer's codebooks (to the float64 class), iteration
   counts, counts and codes, on both ranks; the JAX package's fit from the
   same codebooks too.
-* ``ServingFleet`` and ``ServingEngine(learn=...)`` on either two-rank
-  mesh raise ``NotImplementedError`` naming ROADMAP A.21 on both ranks,
-  before any collective: the world's later collectives still pair up.
+* ``ServingFleet`` on either two-rank mesh (ROADMAP A.21): direct calls,
+  a score, queued requests from two threads with one replica killed, a
+  reap, and a fleet that sheds by its p99 bound.  Every rank gets the
+  one-device fleet's labels (and, for the float64 model, the JAX package's
+  fleet's), and both ranks followed rank (0, 0)'s sequence: equal route
+  and sequence digests, the same sheds.
+* ``ServingEngine(learn=...)`` on either mesh: a forced update and an
+  injected regression's rollback give both ranks the same tables, within
+  the float64 class of a one-device learner fed the same batches.
+* A follower whose own queue timing differs (``max_wait_ms`` apart per
+  rank) runs the primary's batches: the same coalescing and digest.
+* Engines built and closed one after another on ``data2`` leave no
+  process group and no sequencer thread behind.
 """
 
 import numpy as np
@@ -128,25 +138,182 @@ def _refusals(eng, models):
     return errors
 
 
-def _multi_rank_refusals(meshes):
-    """The A.21 refusals of the fleet and of serve-and-learn on each
-    two-rank mesh: the message, or None where nothing was raised."""
-    from kmeans_tpu_torch.serving import ServingEngine, ServingFleet
-    makers = {
-        "fleet": lambda mesh: ServingFleet(2, device="cpu", mesh=mesh,
-                                           start=False),
-        "learn": lambda mesh: ServingEngine(device="cpu", mesh=mesh,
-                                            start=False, quality=True,
-                                            learn=True)}
+#: The fleet's traffic: direct calls cycling through the sizes and both
+#: models, then queued requests from two threads.
+FLEET_CALLS = 20
+FLEET_QUEUED = 24
+
+
+def _fleet_run(mesh, models, Q):
+    """The fleet's scenario on ``mesh`` (None: one device)."""
+    import copy
+    import threading
+    from kmeans_tpu_torch.serving import FleetOverloadError, ServingFleet
+    km32, km64, _ = models
     out = {}
-    for name in ("data2", "model2"):
-        for what, make in makers.items():
+    with ServingFleet(2, device="cpu", mesh=mesh, buckets=BUCKETS,
+                      quality=False, max_wait_ms=2.0) as fleet:
+        fleet.add_model("km32", copy.deepcopy(km32))
+        fleet.add_model("km64", copy.deepcopy(km64))
+        fleet.warmup()
+        for i in range(FLEET_CALLS):
+            mid = ("km32", "km64")[i % 2]
+            out["call", i] = fleet.call(mid, _fleet_rows(Q, i))
+        out["score"] = fleet.score("km64", Q[:64])
+        got = {}
+
+        def submitter(t):
+            futs = [(i, fleet.submit("km64", _fleet_rows(Q, i)))
+                    for i in range(t, FLEET_QUEUED, 2)]
+            for i, fut in futs:
+                got[i] = fut.result(timeout=60)
+
+        threads = [threading.Thread(target=submitter, args=(t,))
+                   for t in range(2)]
+        for t in threads:
+            t.start()
+        fleet.kill_replica("r1")
+        for t in threads:
+            t.join()
+        out["queued"] = got
+        out["reaped"] = fleet.reap()
+        st = fleet.stats()
+        out["served"] = st["routes"] - st["sheds"] - st["redispatches"]
+        out["route_digest"] = fleet.route_digest
+        out["seq_digest"] = fleet._seq.digest
+    # Latency histograms are process-wide by replica name: a cold start.
+    from kmeans_tpu_torch.obs import metrics_registry
+    metrics_registry.REGISTRY.reset()
+    with ServingFleet(2, device="cpu", mesh=mesh, buckets=BUCKETS,
+                      quality=False, start=False,
+                      slo_p99_ms=1e-9) as fleet:
+        fleet.add_model("km64", copy.deepcopy(km64))
+        fleet.warmup()
+        shed = []
+        for i in range(FLEET_CALLS):
             try:
-                make(meshes[name]).close()
-                out[what, name] = None
-            except NotImplementedError as e:
-                out[what, name] = str(e)
+                fleet.call("km64", Q[:1])
+                shed.append(False)
+            except FleetOverloadError:
+                shed.append(True)
+        out["shed"] = shed
+        out["shed_digest"] = fleet.route_digest
     return out
+
+
+def _fleet_rows(Q, i):
+    lo = (7 * i) % 100
+    return Q[lo:lo + SIZES[i % len(SIZES)]]
+
+
+def _learn_model(X):
+    from kmeans_tpu_torch import MiniBatchKMeans
+    return MiniBatchKMeans(k=K, seed=0, batch_size=128, max_iter=5,
+                           dtype=np.float64, distance_mode="matmul",
+                           device="cpu", verbose=False).fit(X)
+
+
+def _learn_run(model, rows, mesh, learn_dir):
+    """Serve-and-learn on ``mesh`` (None: one device): three 512-row
+    requests, a forced update, one more request, then an injected
+    regression judged now: the rollback.  ``min_rows`` holds the drift
+    monitor's own updates off: on one device they run on a thread, at a
+    time the reference could not repeat."""
+    from kmeans_tpu_torch.serving import ServingEngine
+    from kmeans_tpu_torch.utils import faults
+    out = {}
+    with ServingEngine(device="cpu", mesh=mesh, start=False, quality=True,
+                       buckets=(8, 64, 512),
+                       learn={"dir": learn_dir, "min_rows": 1 << 30}) as eng:
+        eng.add_model("mb", model)
+        ln = eng._rm("mb").learner
+        for i in range(3):
+            out["labels", i] = eng.call("mb", rows[512 * i:512 * (i + 1)])
+        out["update"] = ln.update_now(force=True)["action"]
+        out["updated"] = (model.centroids.copy(),
+                          model._centroids_f64.copy(), model._seen.copy())
+        out["labels", 3] = eng.call("mb", rows[1536:2048])
+        with faults.inject_quality_regression("mb"):
+            ln.evaluate_now(force=True)
+        out["rolled_back"] = (model.centroids.copy(),
+                              model._centroids_f64.copy(),
+                              model._seen.copy())
+        out["actions"] = [d["action"] for d in ln.status()["decisions"]]
+        out["restored_from"] = [r.restored_from for r in ln.rollbacks]
+        out["applied"] = [np.stack(b) for b in ln.applied_batches]
+    return out
+
+
+def _learn_rows(X):
+    rng = np.random.default_rng(8)
+    return X[rng.integers(0, N, 2048)] + 0.5 * rng.standard_normal(
+        (2048, D))
+
+
+def _timing_run(mesh, models, Q, max_wait_ms):
+    """Queued requests from one thread on an engine whose timer differs per
+    rank: the batches are the primary's."""
+    import copy
+    from kmeans_tpu_torch.serving import ServingEngine
+    with ServingEngine(device="cpu", mesh=mesh, buckets=BUCKETS,
+                       quality=False, max_wait_ms=max_wait_ms) as eng:
+        eng.add_model("km64", copy.deepcopy(models[1]))
+        futs = [eng.submit("km64", _fleet_rows(Q, i)) for i in range(16)]
+        labels = [f.result(timeout=60) for f in futs]
+        eng.queue.close()
+        return dict(labels=labels, hist=eng.queue.stats()["coalesce_hist"],
+                    seq_digest=eng._seq.digest)
+
+
+def _lifecycle_run(mesh, models, Q, engines=4):
+    """Engines built and closed one after another on ``mesh``, each serving
+    the same request three times in one queued batch: the labels, and the
+    process groups and sequencer threads left once every engine closed."""
+    import copy
+    import threading
+
+    import torch.distributed.distributed_c10d as c10d
+
+    from kmeans_tpu_torch.serving import ServingEngine
+    from kmeans_tpu_torch.serving.batching import SEQUENCER_THREAD
+
+    def sequencers():
+        return sum(t.name == SEQUENCER_THREAD and t.is_alive()
+                   for t in threading.enumerate())
+    before = (len(c10d._world.pg_map), sequencers())
+    labels = []
+    for _ in range(engines):
+        with ServingEngine(device="cpu", mesh=mesh, buckets=BUCKETS,
+                           quality=False, max_wait_ms=50.0) as eng:
+            eng.add_model("km64", copy.deepcopy(models[1]))
+            futs = [eng.submit("km64", _fleet_rows(Q, 1)) for _ in range(3)]
+            labels.append([f.result(timeout=60) for f in futs])
+            hist = eng.queue.stats()["coalesce_hist"]
+    return dict(labels=labels, hist=hist, before=before,
+                after=(len(c10d._world.pg_map), sequencers()))
+
+
+def _multi_rank(meshes, models, X, Q, rank, out_dir):
+    """The fleet and serve-and-learn on each two-rank mesh (A.21), and the
+    follower with its own queue timing."""
+    import os
+    out = {}
+    learn_model = _learn_model(X)
+    out["learn_state"] = learn_model._state_dict()
+    for name in ("data2", "model2"):
+        out["fleet", name] = _fleet_run(meshes[name], models, Q)
+        out["learn", name] = _learn_run(
+            _learn_model_copy(learn_model), _learn_rows(X), meshes[name],
+            os.path.join(out_dir, f"learn_{name}"))
+    out["timing"] = _timing_run(meshes["data2"], models, Q,
+                                1.0 if rank == 0 else 500.0)
+    out["lifecycle"] = _lifecycle_run(meshes["data2"], models, Q)
+    return out
+
+
+def _learn_model_copy(model):
+    import copy
+    return copy.deepcopy(model)
 
 
 def _world(rank, out_dir):
@@ -165,7 +332,7 @@ def _world(rank, out_dir):
             res["serve", name] = _serve(eng, models, Q, name != "model2")
             if name == "model2":
                 res["refusals"] = _refusals(eng, models)
-    res["multi_rank"] = _multi_rank_refusals(meshes)
+    res["multi_rank"] = _multi_rank(meshes, models, X, Q, rank, out_dir)
 
     # The quantizer on the data axis against one device, and each member
     # against a standalone KMeans on the same mesh.
@@ -320,20 +487,142 @@ def test_product_quantizer_on_the_data_axis(world):
         np.testing.assert_array_equal(got[4], ref.encode(X))
 
 
-def test_fleet_and_learn_refuse_a_multi_rank_mesh(world):
-    """On a two-rank mesh (data or model axis) the fleet and
-    serve-and-learn raise naming ROADMAP A.21, the same on both ranks,
-    before any collective: the quantizer fits that the world runs next
-    still pair their collectives (the other tests of this module)."""
-    for res in world:
-        got = res["multi_rank"]
-        assert set(got) == {(w, m) for w in ("fleet", "learn")
-                            for m in ("data2", "model2")}
-        for (what, mesh), msg in got.items():
-            assert msg is not None, (what, mesh)
-            assert "A.21 'Serving fleet and serve-and-learn on a " \
-                "multi-rank mesh'" in msg
-            assert "on a mesh of 2 ranks" in msg
-            assert msg.startswith("ServingFleet" if what == "fleet"
-                                  else "ServingEngine(learn=...)")
-    assert world[0]["multi_rank"] == world[1]["multi_rank"]
+@pytest.fixture(scope="module")
+def one_device_fleet():
+    X, Q = _inputs()
+    return _fleet_run(None, _models(X), Q)
+
+
+def _jax_fleet_labels(Q, km64, tmp_path):
+    """The JAX package's fleet on the float64 model (saved by the port,
+    loaded by the JAX package), over the fleet's direct and queued
+    requests."""
+    import jax
+    import kmeans_tpu
+    from kmeans_tpu.serving import ServingFleet as JaxFleet
+    path = tmp_path / "km64.npz"
+    km64.save(path)
+    mesh1 = kmeans_tpu.make_mesh(data=1, model=1, devices=jax.devices()[:1])
+    with JaxFleet(2, mesh=mesh1, quality=False, start=False,
+                  buckets=BUCKETS) as jfleet:
+        jfleet.load(path, "km64")
+        jfleet.warmup()
+        calls = {i: np.asarray(jfleet.call("km64", _fleet_rows(Q, i)))
+                 for i in range(1, FLEET_CALLS, 2)}
+        queued = {i: np.asarray(jfleet.call("km64", _fleet_rows(Q, i)))
+                  for i in range(FLEET_QUEUED)}
+    return calls, queued
+
+
+def test_fleet_and_learn_refuse_a_multi_rank_mesh(world, one_device_fleet,
+                                                  tmp_path):
+    """``ServingFleet`` on each two-rank mesh (``data2``, ``model2``):
+    every rank's direct, queued (two threads, one replica killed) and
+    scored results are the one-device fleet's (labels equal, the float64
+    score to the parity class) and, for the float64 model, the JAX
+    package's fleet's labels; both ranks routed, shed and ran the same
+    sequence (equal digests, the same sheds).  Serve-and-learn on both
+    meshes: ``test_serve_and_learn_on_a_multi_rank_mesh``."""
+    import kmeans_tpu_torch
+    X, Q = _inputs()
+    jcalls, jqueued = _jax_fleet_labels(
+        Q, kmeans_tpu_torch.KMeans(k=K, seed=0, max_iter=10,
+                                   dtype=np.float64, distance_mode="matmul",
+                                   device="cpu", verbose=False).fit(X),
+        tmp_path)
+    for mesh in ("data2", "model2"):
+        _check_fleet(world, one_device_fleet, mesh, jcalls, jqueued)
+
+
+def _check_fleet(world, one, mesh, jcalls, jqueued):
+    got = [res["multi_rank"]["fleet", mesh] for res in world]
+    for g in got:
+        for i in range(FLEET_CALLS):
+            np.testing.assert_array_equal(g["call", i], one["call", i])
+            if i in jcalls:
+                np.testing.assert_array_equal(g["call", i], jcalls[i])
+        np.testing.assert_allclose(g["score"], one["score"], **F64)
+        assert sorted(g["queued"]) == list(range(FLEET_QUEUED))
+        for i, labels in g["queued"].items():
+            np.testing.assert_array_equal(labels, one["queued"][i])
+            np.testing.assert_array_equal(labels, jqueued[i])
+        assert g["served"] == FLEET_CALLS + 1 + FLEET_QUEUED
+        assert g["reaped"] == []
+        assert any(g["shed"]) and not all(g["shed"])
+        assert g["seq_digest"]
+    for key in ("route_digest", "seq_digest", "shed", "shed_digest",
+                "served"):
+        assert got[0][key] == got[1][key], key
+
+
+@pytest.mark.parametrize("mesh", ["data2", "model2"])
+def test_serve_and_learn_on_a_multi_rank_mesh(world, mesh, tmp_path):
+    """A forced update and an injected regression's rollback on a two-rank
+    mesh: both ranks publish the same tables (bit-equal), record the same
+    decisions, restore what the primary restored from its snapshot file
+    (only the primary wrote one), and match a one-device learner fed the
+    same batches (float64 class)."""
+    from kmeans_tpu_torch import MiniBatchKMeans
+    X, _ = _inputs()
+    got = [res["multi_rank"]["learn", mesh] for res in world]
+    for key in ("updated", "rolled_back"):
+        for a, b in zip(got[0][key], got[1][key]):
+            np.testing.assert_array_equal(a, b)
+    for key in ("actions", "restored_from", "update"):
+        assert got[0][key] == got[1][key], key
+    assert got[0]["update"] == "update"
+    assert got[0]["actions"] == ["update", "rollback"]
+    assert got[0]["restored_from"] == ["primary"]
+    model = MiniBatchKMeans._from_state(world[0]["multi_rank"]["learn_state"],
+                                        device="cpu")
+    want = _learn_run(model, _learn_rows(X), None, str(tmp_path))
+    for g in got:
+        for a, b in zip(g["applied"], want["applied"]):
+            np.testing.assert_array_equal(a, b)
+        for key in ("updated", "rolled_back"):
+            for a, b in zip(g[key], want[key]):
+                np.testing.assert_allclose(a, b, **F64)
+        for i in range(4):
+            np.testing.assert_array_equal(g["labels", i],
+                                          want["labels", i])
+    # The rollback restored the pre-update table.
+    np.testing.assert_array_equal(got[0]["rolled_back"][1],
+                                  want["rolled_back"][1])
+
+
+def test_a_follower_runs_the_primary_batches(world):
+    """Rank 1's queue waits 500 ms, rank 0's 1 ms: the follower forms no
+    batch of its own and runs rank 0's, so both ranks coalesce alike,
+    follow the same sequence and serve the one-device labels."""
+    import kmeans_tpu_torch
+    X, Q = _inputs()
+    km64 = kmeans_tpu_torch.KMeans(k=K, seed=0, max_iter=10,
+                                   dtype=np.float64, distance_mode="matmul",
+                                   device="cpu", verbose=False).fit(X)
+    got = [res["multi_rank"]["timing"] for res in world]
+    assert got[0]["hist"] == got[1]["hist"]
+    assert got[0]["seq_digest"] == got[1]["seq_digest"]
+    for g in got:
+        for i, labels in enumerate(g["labels"]):
+            np.testing.assert_array_equal(labels,
+                                          km64.predict(_fleet_rows(Q, i)))
+
+
+def test_engines_built_and_closed_on_a_mesh_leave_nothing(world):
+    """Four engines built and closed one after another on ``data2``: each
+    closed engine releases its sequencer's process group and thread, and
+    the same request queued three times forms one batch on both ranks (a
+    follower waits for all three of its equal requests)."""
+    import kmeans_tpu_torch
+    X, Q = _inputs()
+    km64 = kmeans_tpu_torch.KMeans(k=K, seed=0, max_iter=10,
+                                   dtype=np.float64, distance_mode="matmul",
+                                   device="cpu", verbose=False).fit(X)
+    want = km64.predict(_fleet_rows(Q, 1))
+    for g in (res["multi_rank"]["lifecycle"] for res in world):
+        assert g["after"] == g["before"]
+        assert g["hist"] == {3: 1}
+        assert len(g["labels"]) == 4
+        for labels in g["labels"]:
+            for got in labels:
+                np.testing.assert_array_equal(got, want)

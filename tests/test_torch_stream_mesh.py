@@ -7,8 +7,8 @@ of each block; the statistics reduce over the mesh.  On the meshes
 device in the test process, in the float64 parity class (equal iterations
 and counts, centroids, SSE and lower bounds to ``rtol=1e-12``):
 ``KMeans.fit_stream`` (every empty-cluster policy, weighted blocks),
-``score_stream``, ``predict_stream``, ``GaussianMixture.fit_stream`` on the
-data axis ('diag' and 'full'), and ``data.io.from_npy`` read rank by rank
+``score_stream``, ``predict_stream``, ``GaussianMixture.fit_stream`` on
+both axes ('diag' and 'full', its posterior stream too), and ``data.io.from_npy`` read rank by rank
 (each rank its own rows, the padding at weight 0, the fit equal to one
 device's)."""
 
@@ -79,12 +79,15 @@ def _runs(mesh=None):
     out["fit", "weighted"] = _record(km)
     out["score"] = km.score_stream(_blocks(X, W))
     out["predict"] = np.concatenate(list(km.predict_stream(_blocks(X))))
-    if mesh is None or mesh.shape[1] == 1:
-        for ct in ("diag", "full"):
-            g = GaussianMixture(mesh=mesh, device="cpu", covariance_type=ct,
-                                **GMM_KW).fit_stream(_blocks(X, W))
-            out["gmm", ct] = dict(ll=g.lower_bound_, means=g.means_,
-                                  cov=g.covariances_, n_iter=g.n_iter_)
+    for ct in ("diag", "full"):
+        g = GaussianMixture(mesh=mesh, device="cpu", covariance_type=ct,
+                            **GMM_KW).fit_stream(_blocks(X, W))
+        out["gmm", ct] = dict(
+            ll=g.lower_bound_, means=g.means_, cov=g.covariances_,
+            n_iter=g.n_iter_,
+            labels=np.concatenate(list(g.predict_stream(_blocks(X)))),
+            scores=np.concatenate(list(g.score_samples_stream(
+                _blocks(X)))))
     return out
 
 
@@ -161,12 +164,18 @@ def test_gmm_fit_stream_on_the_data_axis(world, one_device, ct):
         _close(got["cov"], want["cov"])
 
 
-def test_gmm_stream_refuses_a_model_axis():
-    """The mixture on a model axis raises naming A.18 (the constructor's
-    rule, before any stream is read)."""
-    from kmeans_tpu_torch import GaussianMixture
-    with pytest.raises(NotImplementedError, match="A.18"):
-        GaussianMixture(model_shards=2, device="cpu")
+def test_gmm_stream_refuses_a_model_axis(world, one_device):
+    """The mixture's stream on the model axis (its components in two
+    blocks, k = 3 padded to 4): the one-device fit, labels and scores, in
+    the float64 parity class, on both ranks."""
+    for ct in ("diag", "full"):
+        want = one_device["gmm", ct]
+        for rank in world:
+            got = rank["model2"]["gmm", ct]
+            assert got["n_iter"] == want["n_iter"]
+            for key in ("ll", "means", "cov", "scores"):
+                _close(got[key], want[key])
+            np.testing.assert_array_equal(got["labels"], want["labels"])
 
 
 def test_from_npy_reads_each_ranks_rows(world):
